@@ -7,14 +7,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. **kernels** — build every CUDA source of the path with ``nvcc``
    (one process per source, started together), then hold each kernel
-   to its plain PyTorch version at the main path's shapes (GPT-2 base
-   heads, D = 64, block size 16): decode rows with mixed context
-   lengths and a dead row, prefill tails at start 0 and at an offset
-   that is not block-aligned, and a GQA case. Prints one JSON line per
-   case with the error and the times of the kernel, the plain version
-   and a PyTorch library call (``F.scaled_dot_product_attention`` over
-   a view gathered beforehand — a yardstick only, never used by the
-   port), plus the least time the card could take (``bound_ms``).
+   to its plain PyTorch version at the main paths' shapes (GPT-2 base
+   heads, D = 64). Paged attention (K4, block size 16): decode rows
+   with mixed context lengths and a dead row, prefill tails at start 0
+   and at an offset that is not block-aligned, and a GQA case. Flash
+   attention (K1 forward, K2 dK/dV, K3 dQ): (B, H, S) = (8, 12, 1024)
+   causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
+   causal with a ragged last tile, (8, 12, 256) non-causal and
+   (1, 12, 4096) causal. Prints one JSON line per case with the error
+   and the times of the kernel, the plain version and a PyTorch library
+   call (``F.scaled_dot_product_attention``: over a view gathered
+   beforehand for K4; forward, and forward+backward minus forward, for
+   K1-K3 — a yardstick only, never used by the port), plus the least
+   time the card could take (``bound_ms``).
 2. **serve** — GPT-2 124M (random weights from seed 0) served by the
    port's ``ServeEngine`` on the card: warmup, 8 greedy requests with
    prompts of 32-400 tokens (one continues another's conversation, so
@@ -26,6 +31,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    Prints decode tokens/s, TTFT p50 and, over steady decode steps, the
    step's wall time (no profiler running) against the device's busy
    time and the kernel's time (``torch.profiler``, next steps).
+3. **train** — GPT-2 124M (f32, random weights from seed 0, every
+   dropout rate 0) trained by the port's ``Trainer`` with AdamW (lr
+   5e-5, decay 0.01, clip 1.0) on ``SummarizationDataset.synthetic``
+   rows of 512 byte tokens, global batch 64 in 2 micro-batches of 32:
+   the first batch's loss and every gradient leaf with flash attention
+   (the K1-K3 kernels) against plain attention from the same weights,
+   then 4 optimizer steps through ``Trainer.fit`` each way, the losses
+   compared step by step. The flash run is the main path: the launch
+   counts are zeroed just before it and read just after (12 layers x 2
+   micro-batches x 4 steps of each kernel). Prints the step's wall
+   time (no profiler running), tokens/s and peak memory, and over the
+   next steps under ``torch.profiler`` the device's busy time and the
+   three kernels' share of the step.
 
 Then one JSON line of per-kernel numbers, the card's name and power
 limit (``nvidia-smi``), and as the last line
@@ -54,6 +72,31 @@ F32_FLOPS_PER_S = 67e12          # H100 SXM f32, CUDA cores
 KERNEL_TOL = 1e-4
 TIMED_ITERS = 20
 DEVICE = "cuda"
+TRAIN_CASE = "causal_B32_S512_train"
+FLASH_KERNELS = {                # wrapper -> the TPU kernel it replaces
+    "flash_fwd": "quintnet_tpu/ops/pallas_attention.py:97",
+    "flash_bwd_dkv": "quintnet_tpu/ops/pallas_attention.py:259",
+    "flash_bwd_dq": "quintnet_tpu/ops/pallas_attention.py:304",
+}
+
+
+def _wrappers():
+    """Every kernel wrapper of the port's main paths, by name."""
+    from quintnet_tpu_torch.ops import flash_kernels
+    from quintnet_tpu_torch.ops.paged_attention import paged_attention
+
+    out = {name: getattr(flash_kernels, name) for name in FLASH_KERNELS}
+    out["paged_attention"] = paged_attention
+    return out
+
+
+def _zero_counts() -> None:
+    for fn in _wrappers().values():
+        fn.launches = 0
+
+
+def _counts() -> dict:
+    return {name: fn.launches for name, fn in _wrappers().items()}
 
 
 def _timed_ms(fn) -> float:
@@ -141,20 +184,17 @@ def _library_fn(c):
     return lambda: sdpa(q, k_all, v_all, attn_mask=mask)
 
 
-def phase_kernels():
-    from quintnet_tpu_torch.ops import build
+def _bound(flops, nbytes):
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bytes": nbytes, "flops": flops}
+
+
+def _paged_cases():
     from quintnet_tpu_torch.ops.paged_attention import (paged_attention,
                                                         paged_attention_ref)
-
-    t0 = time.perf_counter()
-    paths = build.build(["paged_attention"])
-    log = paths["paged_attention"].with_suffix(".log")
-    ptxas = ([ln.strip() for ln in log.read_text().splitlines()
-              if "registers" in ln or "spill" in ln]
-             if log.exists() else ["(library was already built)"])
-    _emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
-           "libraries": {k: str(v.name) for k, v in paths.items()},
-           "ptxas": ptxas})
 
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
     H, bs = 12, 16
@@ -181,23 +221,167 @@ def phase_kernels():
         if err > KERNEL_TOL:
             raise AssertionError(f"{c['name']}: max_abs_err {err} > "
                                  f"{KERNEL_TOL}")
-        kernel_ms = _timed_ms(lambda: paged_attention(*args, **kw))
-        plain_ms = _timed_ms(lambda: paged_attention_ref(*args, **kw))
-        library_ms = _timed_ms(_library_fn(c))
-        t_bytes = c["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = c["flops"] / F32_FLOPS_PER_S * 1e3
-        res = {"case": c["name"], "shape_q": list(c["q"].shape),
+        res = {"kernel": "paged_attention", "case": c["name"],
+               "shape_q": list(c["q"].shape),
                "kv_heads": c["k"].shape[1], "starts": c["starts"].tolist(),
-               "max_abs_err": err, "kernel_ms": kernel_ms,
-               "plain_ms": plain_ms, "library_ms": library_ms,
+               "max_abs_err": err,
+               "kernel_ms": _timed_ms(lambda: paged_attention(*args, **kw)),
+               "plain_ms": _timed_ms(
+                   lambda: paged_attention_ref(*args, **kw)),
+               "library_ms": _timed_ms(_library_fn(c)),
                "library": "F.scaled_dot_product_attention on a "
-                          "pre-gathered view (yardstick)",
-               "bound_ms": max(t_bytes, t_ops),
-               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-               "bytes": c["bytes"], "flops": c["flops"]}
+                          "pre-gathered view (yardstick)"}
+        res.update(_bound(c["flops"], c["bytes"]))
         _emit(res)
         results.append(res)
     return results
+
+
+def _packed_segments(rng, B, S, n_docs=4):
+    """[B, S] int32 ids of ``n_docs`` packed documents per row, cut at
+    random positions (the monotone layout PackedLMDataset produces)."""
+    cuts = np.sort(rng.integers(1, S, (B, n_docs - 1)), axis=1)
+    return (np.arange(S)[None, :, None] >= cuts[:, None, :]).sum(-1).astype(
+        np.int32)
+
+
+def _visible_pairs(B, S, causal, seg):
+    """The (query, key) pairs these inputs attend over, summed over the
+    batch (per head): the work the kernels' loops need, not their
+    tiles'."""
+    if seg is None:
+        return B * (S * (S + 1) // 2 if causal else S * S)
+    total = 0
+    for row in seg:
+        for n in np.bincount(row):
+            total += n * (n + 1) // 2 if causal else n * n
+    return int(total)
+
+
+def _flash_cases():
+    """K1-K3 against their plain versions on the same inputs: the
+    backward kernels take the plain forward's lse and delta."""
+    from quintnet_tpu_torch.ops.flash_kernels import (flash_bwd_dkv,
+                                                      flash_bwd_dkv_ref,
+                                                      flash_bwd_dq,
+                                                      flash_bwd_dq_ref,
+                                                      flash_delta, flash_fwd,
+                                                      flash_fwd_ref,
+                                                      visible_pairs)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    gen = torch.Generator(device=DEVICE).manual_seed(4321)
+    rng = np.random.default_rng(4321)
+    D, H = 64, 12
+    # the first row is the train phase's shape: micro-batch 32 of 512
+    shapes = [(TRAIN_CASE, 32, 512, True, False),
+              ("causal_B8_S1024", 8, 1024, True, False),
+              ("causal_segments_B4_S512", 4, 512, True, True),
+              ("causal_ragged_B2_S300", 2, 300, True, False),
+              ("noncausal_B8_S256", 8, 256, False, False),
+              ("causal_B1_S4096", 1, 4096, True, False)]
+    results = []
+    for name, B, S, causal, use_seg in shapes:
+        q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
+                                   device=DEVICE) for _ in range(4))
+        seg_np = _packed_segments(rng, B, S) if use_seg else None
+        seg = None if seg_np is None else torch.from_numpy(seg_np).to(DEVICE)
+        o, lse = flash_fwd(q, k, v, seg, causal=causal)
+        o_r, lse_r = flash_fwd_ref(q, k, v, seg, causal=causal)
+        delta = flash_delta(o_r, do)
+        bwd_in = (q, k, v, do, lse_r, delta, seg)
+        dk, dv = flash_bwd_dkv(*bwd_in, causal=causal)
+        dk_r, dv_r = flash_bwd_dkv_ref(*bwd_in, causal=causal)
+        dq = flash_bwd_dq(*bwd_in, causal=causal)
+        dq_r = flash_bwd_dq_ref(*bwd_in, causal=causal)
+        torch.cuda.synchronize()
+        errs = {}
+        for key, got, want in (("o", o, o_r), ("lse", lse, lse_r),
+                               ("dq", dq, dq_r), ("dk", dk, dk_r),
+                               ("dv", dv, dv_r)):
+            if not torch.isfinite(got).all():
+                raise AssertionError(f"{name}: kernel {key} not finite")
+            errs[key] = float((got - want).abs().max()
+                              / want.abs().max().clamp_min(1e-30))
+            if errs[key] > KERNEL_TOL:
+                raise AssertionError(
+                    f"{name}: {key} max_abs_err / max|ref| = {errs[key]} > "
+                    f"{KERNEL_TOL}")
+
+        # SDPA yardstick: the same function, forward and forward+backward
+        mask = (None if seg is None else
+                visible_pairs(S, causal, seg, q.device).expand(B, 1, S, S))
+        sdpa_kw = (dict(attn_mask=mask) if mask is not None
+                   else dict(is_causal=causal))
+        lib_fwd = _timed_ms(lambda: sdpa(q, k, v, **sdpa_kw))
+        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+        lib_fwd_bwd = _timed_ms(lambda: torch.autograd.grad(
+            sdpa(qg, kg, vg, **sdpa_kw), (qg, kg, vg), do))
+        times = {
+            "flash_fwd": (_timed_ms(lambda: flash_fwd(q, k, v, seg,
+                                                      causal=causal)),
+                          _timed_ms(lambda: flash_fwd_ref(q, k, v, seg,
+                                                          causal=causal))),
+            "flash_bwd_dkv": (
+                _timed_ms(lambda: flash_bwd_dkv(*bwd_in, causal=causal)),
+                _timed_ms(lambda: flash_bwd_dkv_ref(*bwd_in,
+                                                    causal=causal))),
+            "flash_bwd_dq": (
+                _timed_ms(lambda: flash_bwd_dq(*bwd_in, causal=causal)),
+                _timed_ms(lambda: flash_bwd_dq_ref(*bwd_in,
+                                                   causal=causal))),
+        }
+        # each input read once, each output written once; 2 * D flops per
+        # multiply-add over the visible pairs, 2 / 4 / 3 matmuls
+        pairs = _visible_pairs(B, S, causal, seg_np) * H
+        tile = B * H * S * D * 4
+        row = B * H * S * 4
+        seg_bytes = 0 if seg is None else B * S * 4
+        work = {"flash_fwd": (2, 3 * tile + seg_bytes, tile + row),
+                "flash_bwd_dkv": (4, 4 * tile + 2 * row + seg_bytes,
+                                  2 * tile),
+                "flash_bwd_dq": (3, 4 * tile + 2 * row + seg_bytes, tile)}
+        for kern, (kernel_ms, plain_ms) in times.items():
+            n_mm, read, written = work[kern]
+            res = {"kernel": kern, "case": name, "B": B, "H": H, "S": S,
+                   "D": D, "causal": causal, "segments": use_seg,
+                   "max_abs_err": (max(errs["o"], errs["lse"])
+                                   if kern == "flash_fwd" else
+                                   max(errs["dk"], errs["dv"])
+                                   if kern == "flash_bwd_dkv"
+                                   else errs["dq"]),
+                   "errors": errs,
+                   "err_relative_to": "largest magnitude in the reference",
+                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "library_ms": (lib_fwd if kern == "flash_fwd"
+                                  else lib_fwd_bwd - lib_fwd),
+                   "library": ("F.scaled_dot_product_attention forward "
+                               "(yardstick)" if kern == "flash_fwd" else
+                               "F.scaled_dot_product_attention forward+"
+                               "backward minus forward: the whole backward, "
+                               "dq, dk and dv (yardstick)")}
+            res.update(_bound(2 * D * pairs * n_mm, read + written))
+            _emit(res)
+            results.append(res)
+        del q, k, v, do, o, o_r, dk, dv, dq, dk_r, dv_r, dq_r, qg, kg, vg
+    return results
+
+
+def phase_kernels():
+    from quintnet_tpu_torch.ops import build
+
+    t0 = time.perf_counter()
+    paths = build.build(["paged_attention", "flash_attention"])
+    ptxas = {}
+    for name, path in paths.items():
+        log = path.with_suffix(".log")
+        ptxas[name] = ([ln.strip() for ln in log.read_text().splitlines()
+                        if "registers" in ln or "spill" in ln]
+                       if log.exists() else ["(library was already built)"])
+    _emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
+           "libraries": {k: str(v.name) for k, v in paths.items()},
+           "ptxas": ptxas})
+    return _paged_cases(), _flash_cases()
 
 
 # ---------------------------------------------------------------------
@@ -296,7 +480,6 @@ def _kernel_share(eng, cfg, rng) -> dict:
 
 def phase_serve():
     from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
-    from quintnet_tpu_torch.ops.paged_attention import paged_attention
     from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
 
     cfg = GPT2Config.base()
@@ -324,7 +507,7 @@ def phase_serve():
                       eng.metrics.decode_tokens - d0))
 
     # main path: counts zeroed just before, read just after
-    paged_attention.launches = 0
+    _zero_counts()
     rids = [eng.submit(p, max_new) for p in prompts]
     while eng.request(rids[2]).state != "finished":
         timed_step()
@@ -339,7 +522,8 @@ def phase_serve():
     rids.append(eng.submit(follow, max_new))
     while eng.has_work:
         timed_step()
-    launches = paged_attention.launches
+    counts = _counts()
+    launches = counts["paged_attention"]
     m = eng.metrics
     summ = m.summary()
 
@@ -365,7 +549,7 @@ def phase_serve():
            "admitted": m.admitted, "decode_tokens": m.decode_tokens,
            "prefill_tokens": m.prefill_tokens,
            "prefix_hit_tokens": m.prefix_hit_tokens,
-           "paged_attention_launches": launches,
+           "launches": counts,
            "decode_only_steps": len(decode_only),
            "decode_tokens_per_s": (sum(d for _, d in decode_only)
                                    / sum(w for w, _ in decode_only)),
@@ -373,7 +557,162 @@ def phase_serve():
            "tokens_checked_vs_dense": checked, "near_ties": near_ties}
     res.update(_kernel_share(eng, cfg, rng))
     _emit(res)
-    return res, launches
+    return res, counts
+
+
+# ---------------------------------------------------------------------
+# phase 3: GPT-2 124M trained on the card
+# ---------------------------------------------------------------------
+
+def _train_share(trainer, params, opt_state, batches) -> dict:
+    """The step's wall time over steps run WITHOUT the profiler, then the
+    device's busy time and the flash kernels' device time from as many
+    further steps under ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    n = len(batches) // 2
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in batches[:n]:
+        trainer.step_fn(params, opt_state, trainer.device_batch(*b))
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) / n
+    peak = torch.cuda.max_memory_allocated()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for b in batches[n:]:
+            trainer.step_fn(params, opt_state, trainer.device_batch(*b))
+        torch.cuda.synchronize()
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            us, k = by_name.get(e.name, (0.0, 0))
+            by_name[e.name] = (us + e.self_device_time_total, k + 1)
+    busy_us = sum(us for us, _ in by_name.values())
+    tokens = len(batches[0][0]) * batches[0][0].shape[1]
+    out = {"steps_timed": n, "step_ms": wall * 1e3,
+           "input_positions_per_s": tokens / wall,
+           "peak_memory_gib": peak / 2 ** 30,
+           "steps_profiled": len(batches) - n}
+    if busy_us <= 0:
+        out["kernel_share_of_step"] = ("not measured (profiler reported no "
+                                       "device time)")
+        return out
+    per_step = lambda us: us / 1e3 / (len(batches) - n)  # noqa: E731
+    kern = {}
+    for name in FLASH_KERNELS:
+        us, k = (0.0, 0)
+        for ev, (t, c) in by_name.items():
+            if f"{name}_f32_kernel" in ev:
+                us, k = us + t, k + c
+        kern[name] = {"ms_per_step": per_step(us),
+                      "launches_per_step": k / (len(batches) - n),
+                      "share_of_step": per_step(us) / (wall * 1e3)}
+    gemm_us = sum(us for ev, (us, _) in by_name.items()
+                  if "gemm" in ev.lower())
+    out.update({
+        "device_busy_ms_per_step": per_step(busy_us),
+        "device_idle_share": 1.0 - per_step(busy_us) / (wall * 1e3),
+        "flash_kernels": kern,
+        "flash_share_of_step": sum(v["share_of_step"]
+                                   for v in kern.values()),
+        "gemm_ms_per_step": per_step(gemm_us),
+        "device_ops_per_step": sum(k for _, k in by_name.values())
+        / (len(batches) - n),
+        "top_device_ops_ms_per_step": {
+            name[:80]: per_step(us) for name, (us, _) in sorted(
+                by_name.items(), key=lambda kv: -kv[1][0])[:8]}})
+    return out
+
+
+def phase_train():
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.core.pytree import tree_map
+    from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
+    from quintnet_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
+                                                gpt2_model_spec)
+    from quintnet_tpu_torch.parallel.train_step import accumulate_grads
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    cfg = GPT2Config.base()          # every dropout rate 0: deterministic
+    seq, batch, steps, n_micro, remat = 512, 64, 4, 2, False
+    tcfg = Config.from_dict({"training": {
+        "batch_size": batch, "gradient_accumulation_steps": n_micro,
+        "optimizer": "adamw", "learning_rate": 5e-5, "weight_decay": 0.01,
+        "grad_clip_norm": 1.0, "log_every": 0, "seed": 0}})
+    ds = SummarizationDataset.synthetic(batch * 4, ByteTokenizer(),
+                                        max_length=seq, seed=0)
+    # one global batch per "epoch", so History.train_loss is per step;
+    # 4 more batches for the timed and the profiled steps
+    host = [next(iter(ds.batches(batch, seed=i))) for i in range(steps + 4)]
+    params0 = gpt2_init(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+
+    def fresh():
+        return tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                        params0)
+
+    def trainer(use_flash):
+        return Trainer(tcfg, gpt2_model_spec(cfg, remat=remat,
+                                             use_flash=use_flash),
+                       task_type="clm", device=DEVICE, log_fn=lambda m: None)
+
+    flash, plain = trainer(True), trainer(False)
+
+    # the first global batch: loss and every gradient leaf, same weights
+    b0 = flash.device_batch(*host[0])
+    p = fresh()
+    loss_f, g_f = accumulate_grads(flash.model.loss_fn, p, b0, n_micro)
+    loss_p, g_p = accumulate_grads(plain.model.loss_fn, p, b0, n_micro)
+    loss_rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+    if not loss_rel <= 1e-5:
+        raise AssertionError(f"first-step loss: flash {float(loss_f)} vs "
+                             f"plain {float(loss_p)} (rel {loss_rel})")
+    grad_err = {".".join(k): float((g_f[k] - g_p[k]).abs().max()
+                                   / g_p[k].abs().max().clamp_min(1e-30))
+                for k in g_p}
+    worst = max(grad_err, key=grad_err.get)
+    if not grad_err[worst] <= 1e-3:
+        raise AssertionError(f"gradient {worst}: max |flash - plain| / "
+                             f"max |plain| = {grad_err[worst]} > 1e-3")
+    del p, g_f, g_p
+
+    # main path: counts zeroed just before, read just after
+    params, opt_state = fresh(), None
+    opt_state = flash.optimizer.init(params)
+    _zero_counts()
+    hist_f = flash.fit(lambda ep: [host[ep]], epochs=steps, params=params,
+                       opt_state=opt_state)
+    counts = _counts()
+    per_kernel = cfg.n_layer * n_micro * steps
+    want = {"flash_fwd": per_kernel * (2 if remat else 1),
+            "flash_bwd_dkv": per_kernel, "flash_bwd_dq": per_kernel,
+            "paged_attention": 0}
+    if counts != want:
+        raise AssertionError(f"launches {counts}; expected {want} (n_layer "
+                             f"x micro-batches x steps)")
+
+    pp = fresh()
+    hist_p = plain.fit(lambda ep: [host[ep]], epochs=steps, params=pp,
+                       opt_state=plain.optimizer.init(pp))
+    del pp
+    for i, (a, b) in enumerate(zip(hist_f.train_loss, hist_p.train_loss)):
+        if not (np.isfinite(a) and abs(a - b) <= 1e-4 * abs(b)):
+            raise AssertionError(f"step {i}: loss flash {a} vs plain {b}")
+
+    res = {"phase": "train", "model": "gpt2-124M f32 (random init, seed 0)",
+           "global_batch": batch, "micro_batches": n_micro,
+           "seq_len": seq, "steps": steps, "remat": remat,
+           "optimizer": "adamw lr 5e-5 wd 0.01 clip 1.0",
+           "first_loss_flash": float(loss_f), "first_loss_plain":
+           float(loss_p), "first_loss_rel_diff": loss_rel,
+           "worst_grad_leaf": worst, "worst_grad_rel_err": grad_err[worst],
+           "loss_flash": hist_f.train_loss, "loss_plain": hist_p.train_loss,
+           "fit_wall_s_flash": hist_f.wall_time_s,
+           "fit_wall_s_plain": hist_p.wall_time_s, "launches": counts}
+    res.update(_train_share(flash, params, opt_state, host[steps:]))
+    _emit(res)
+    return res, counts
 
 
 # ---------------------------------------------------------------------
@@ -387,18 +726,32 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    kernel_rows = phase_kernels()
-    _res, launches = phase_serve()
-    head = kernel_rows[0]           # the decode shape of the main path
-    _emit({"kernels": [{
-        "name": "paged_attention", "route": "cuda",
-        "source": "quintnet_tpu_torch/ops/csrc/paged_attention.cu",
-        "replaces": "quintnet_tpu/ops/paged_attention.py:91",
-        "launches": launches,
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_rows),
-        "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"]}]})
+    paged_rows, flash_rows = phase_kernels()
+    _res, serve_counts = phase_serve()
+    _res, train_counts = phase_train()
+
+    def entry(name, source, replaces, launches, rows, head):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": max(r["max_abs_err"] for r in rows),
+                "ms": head["kernel_ms"], "plain_ms": head["plain_ms"],
+                "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                "library_ms": head["library_ms"]}
+
+    # each kernel's times at its main path's shape: the decode rows for
+    # paged attention, the train micro-batch for flash attention
+    kernels = [entry("paged_attention",
+                     "quintnet_tpu_torch/ops/csrc/paged_attention.cu",
+                     "quintnet_tpu/ops/paged_attention.py:91",
+                     serve_counts["paged_attention"], paged_rows,
+                     paged_rows[0])]
+    for name, replaces in FLASH_KERNELS.items():
+        rows = [r for r in flash_rows if r["kernel"] == name]
+        kernels.append(entry(
+            name, "quintnet_tpu_torch/ops/csrc/flash_attention.cu", replaces,
+            train_counts[name], rows,
+            next(r for r in rows if r["case"] == TRAIN_CASE)))
+    _emit({"kernels": kernels})
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,

@@ -1,8 +1,11 @@
 """Multi-head attention: the dense causal path and the paged serving path.
 
-Port of ``quintnet_tpu/nn/attention.py`` for one device (no tp/sp, no
-flash, no dropout). The dense half (:func:`sdpa`, :func:`mha_apply`) is
-the eval forward the card-side oracle uses. The paged half writes a
+Port of ``quintnet_tpu/nn/attention.py`` for one device (no tp/sp).
+The dense half (:func:`sdpa`, :func:`mha_apply`) is the training and
+eval forward: plain attention, or with ``use_flash`` the
+``ops.flash_attention`` dispatcher (the flash kernels on the card);
+attention-probability and residual dropout draw from a
+``torch.Generator``. The paged half writes a
 run's K/V through the block table into the flat pool views and reads
 the row back through ``ops.paged_attention.paged_attention`` — the
 CUDA kernel on the card, the gathered-view math on the CPU. There is
@@ -20,7 +23,8 @@ import math
 
 import torch
 
-from quintnet_tpu_torch.nn.layers import linear_apply, linear_init
+from quintnet_tpu_torch.nn.layers import dropout, linear_apply, linear_init
+from quintnet_tpu_torch.ops.flash_attention import flash_attention
 # the gathered-view reads live in the ops layer, beside the kernel's
 # plain version that uses them; re-exported here, where the JAX package
 # keeps them
@@ -47,9 +51,12 @@ def _merge_heads(o):
     return o.transpose(1, 2).reshape(B, S, H * Dh)
 
 
-def sdpa(q, k, v, *, causal: bool):
+def sdpa(q, k, v, *, causal: bool, pdrop: float = 0.0, generator=None,
+         segment_ids=None):
     """Plain scaled-dot-product attention [B, H, S, Dh] -> same; f32
-    softmax, masked scores set to ``finfo.min``."""
+    softmax, masked scores set to ``finfo.min``. ``segment_ids`` [B, S]:
+    pairs from different packed documents are masked. With
+    ``generator``, dropout at ``pdrop`` on the probabilities."""
     dh = q.shape[-1]
     scores = torch.einsum("bhsd,bhtd->bhst", q, k).float() / math.sqrt(dh)
     if causal:
@@ -57,15 +64,31 @@ def sdpa(q, k, v, *, causal: bool):
         mask = torch.ones((s, t), dtype=torch.bool,
                           device=q.device).tril()
         scores = scores.masked_fill(~mask, torch.finfo(torch.float32).min)
+    if segment_ids is not None:
+        same = segment_ids[:, None, :, None] == segment_ids[:, None, None, :]
+        scores = scores.masked_fill(~same, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    if generator is not None and pdrop > 0.0:
+        probs = dropout(generator, probs, pdrop, deterministic=False)
     return torch.einsum("bhst,bhtd->bhsd", probs, v)
 
 
-def mha_apply(p, x, *, num_heads: int, causal: bool = False):
-    """x [B, S, D] -> [B, S, D]: fused qkv, plain attention, proj."""
+def mha_apply(p, x, *, num_heads: int, causal: bool = False,
+              use_flash: bool = False, attn_pdrop: float = 0.0,
+              resid_pdrop: float = 0.0, generator=None, segment_ids=None):
+    """x [B, S, D] -> [B, S, D]: fused qkv, attention (plain, or the
+    flash dispatcher with ``use_flash``), proj. With ``generator``
+    (training): dropout at ``attn_pdrop`` on the attention
+    probabilities and at ``resid_pdrop`` after the projection.
+    ``segment_ids`` [B, S] masks attention across packed documents."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
-    return linear_apply(p["proj"], _merge_heads(sdpa(q, k, v,
-                                                     causal=causal)))
+    attend = flash_attention if use_flash else sdpa
+    o = attend(q, k, v, causal=causal, pdrop=attn_pdrop,
+               generator=generator, segment_ids=segment_ids)
+    y = linear_apply(p["proj"], _merge_heads(o))
+    if generator is not None and resid_pdrop > 0.0:
+        y = dropout(generator, y, resid_pdrop, deterministic=False)
+    return y
 
 
 # ---------------------------------------------------------------------

@@ -1,6 +1,7 @@
 """Core layers as apply functions over plain parameter dicts.
 
-Port of ``quintnet_tpu/nn/layers.py`` (the f32 serving subset).
+Port of ``quintnet_tpu/nn/layers.py`` (the f32 subset: linear,
+LayerNorm, GELU, the MLP and dropout).
 Conventions carried over: parameters are dicts of tensors in the JAX
 layout — linear weights ``[in, out]`` so the forward is ``x @ w``,
 LayerNorm ``{"scale", "bias"}`` — and normalisation runs in f32
@@ -58,12 +59,29 @@ def layer_norm_apply(p, x, *, eps: float = 1e-5):
     return (y * p["scale"] + p["bias"]).to(dtype)
 
 
+def dropout(generator, x, rate: float, *, deterministic: bool):
+    """Inverted dropout: keep each entry with probability ``1 - rate``
+    and scale the kept ones by ``1 / (1 - rate)``. The mask is drawn from
+    ``generator`` (on ``x``'s device); JAX key streams cannot be
+    reproduced in torch, so only the distribution matches the JAX
+    package's ``dropout``. A no-op when ``deterministic`` or at rate 0."""
+    if deterministic or rate == 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros_like(x))
+
+
 def gelu(x):
     """tanh approximation — what GPT-2 uses."""
     return F.gelu(x, approximate="tanh")
 
 
-def mlp_apply(p, x, *, act=gelu):
-    """fc -> act -> proj (GPT-2's MLP)."""
+def mlp_apply(p, x, *, act=gelu, pdrop: float = 0.0, generator=None):
+    """fc -> act -> proj (GPT-2's MLP); with ``generator``, dropout at
+    ``pdrop`` on the output (the reference's post-projection dropout)."""
     h = act(linear_apply(p["fc"], x))
-    return linear_apply(p["proj"], h)
+    y = linear_apply(p["proj"], h)
+    if generator is not None and pdrop > 0.0:
+        y = dropout(generator, y, pdrop, deterministic=False)
+    return y

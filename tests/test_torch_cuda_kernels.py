@@ -12,9 +12,20 @@ import numpy as np
 import pytest
 import torch
 
-from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+from quintnet_tpu_torch.core.pytree import tree_map
+from quintnet_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
+                                            gpt2_model_spec)
+from quintnet_tpu_torch.nn.attention import sdpa
+from quintnet_tpu_torch.ops.flash_kernels import (FlashAttentionFunction,
+                                                  flash_bwd_dkv,
+                                                  flash_bwd_dkv_ref,
+                                                  flash_bwd_dq,
+                                                  flash_bwd_dq_ref,
+                                                  flash_delta, flash_fwd,
+                                                  flash_fwd_ref)
 from quintnet_tpu_torch.ops.paged_attention import (paged_attention,
                                                     paged_attention_ref)
+from quintnet_tpu_torch.parallel.train_step import accumulate_grads
 from quintnet_tpu_torch.serve import ServeEngine, generate, gpt2_family
 
 BS, M = 16, 8
@@ -103,3 +114,131 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device):
     m = card.metrics
     assert paged_attention.launches == cfg.n_layer * (m.decode_steps
                                                       + m.admitted)
+
+
+# ---------------------------------------------------------------------
+# flash attention (K1-K3)
+# ---------------------------------------------------------------------
+
+FLASH_CASES = {
+    "causal_ragged_d64": dict(B=2, H=3, S=200, D=64, causal=True, seg=False),
+    "noncausal_seg_d32": dict(B=2, H=2, S=130, D=32, causal=False, seg=True),
+    "causal_seg_d128": dict(B=1, H=2, S=192, D=128, causal=True, seg=True),
+    "single_row": dict(B=2, H=2, S=1, D=64, causal=True, seg=False),
+    "noncausal_d128_ragged": dict(B=1, H=1, S=257, D=128, causal=False,
+                                  seg=False),
+}
+
+
+def _flash_case(seed, B, H, S, D, causal, seg):
+    rng = np.random.default_rng(seed)
+    q, k, v, do = (torch.from_numpy(rng.standard_normal(
+        (B, H, S, D)).astype(np.float32)).cuda() for _ in range(4))
+    ids = None
+    if seg:
+        # monotone packed documents, plus one row of shuffled ids (range
+        # pruning keeps tiles live whose entries are all masked)
+        cuts = np.sort(rng.integers(0, S, (B, 3)), axis=1)
+        ids = (np.arange(S)[None, :, None] >= cuts[:, None, :]).sum(-1)
+        ids[-1] = rng.permutation(ids[-1])
+        ids = torch.from_numpy(ids.astype(np.int32)).cuda()
+    return q, k, v, do, ids
+
+
+def _rel_err(got, want):
+    """Max error over the reference's largest magnitude, floored at 0.01
+    (with one query row dq is exactly 0: p = 1 and do.v = delta)."""
+    return float((got - want).abs().max() / want.abs().max().clamp_min(1e-2))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_flash_kernels_match_plain_versions(cuda_device, name):
+    c = FLASH_CASES[name]
+    q, k, v, do, seg = _flash_case(3, **c)
+    causal = c["causal"]
+    n = (flash_fwd.launches, flash_bwd_dkv.launches, flash_bwd_dq.launches)
+    o, lse = flash_fwd(q, k, v, seg, causal=causal)
+    delta = flash_delta(o, do)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal=causal)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, seg, causal=causal)
+    torch.cuda.synchronize()
+    assert (flash_fwd.launches, flash_bwd_dkv.launches,
+            flash_bwd_dq.launches) == tuple(x + 1 for x in n)
+    o_r, lse_r = flash_fwd_ref(q, k, v, seg, causal=causal)
+    dk_r, dv_r = flash_bwd_dkv_ref(q, k, v, do, lse_r, delta, seg,
+                                   causal=causal)
+    dq_r = flash_bwd_dq_ref(q, k, v, do, lse_r, delta, seg, causal=causal)
+    for got, want in ((o, o_r), (lse, lse_r), (dq, dq_r), (dk, dk_r),
+                      (dv, dv_r)):
+        assert torch.isfinite(got).all()
+        assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_function_gradients_match_plain_attention(cuda_device):
+    q, k, v, do, seg = _flash_case(4, B=2, H=2, S=150, D=64, causal=True,
+                                   seg=True)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    ref = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    o = FlashAttentionFunction.apply(*leaves, seg, True)
+    o_ref = sdpa(*ref, causal=True, segment_ids=seg)
+    got = torch.autograd.grad(o, leaves, do)
+    want = torch.autograd.grad(o_ref, ref, do)
+    assert _rel_err(o, o_ref) <= 1e-4
+    for g, w in zip(got, want):
+        assert _rel_err(g, w) <= 1e-4
+
+
+@pytest.mark.cuda
+def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
+    q, k, v, do, _ = _flash_case(5, B=1, H=1, S=8, D=64, causal=True,
+                                 seg=False)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True)
+    with pytest.raises(ValueError, match="head dim"):
+        flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
+                  v[..., :48].contiguous(), causal=True)
+    with pytest.raises(ValueError, match="contiguous"):
+        flash_fwd(q.transpose(2, 3), k, v, causal=True)
+    with pytest.raises(TypeError, match="int32"):
+        flash_fwd(q, k, v, torch.zeros((1, 8), dtype=torch.int64,
+                                       device="cuda"), causal=True)
+    wide = q.expand(1, 65536, 8, 64).contiguous()
+    with pytest.raises(ValueError, match="65535"):
+        flash_fwd(wide, wide, wide, causal=True)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads,remat", [(4, False), (2, True)])
+def test_tiny_training_step_on_card_matches_cpu(cuda_device, heads, remat):
+    """Loss and every gradient of a 2-micro-batch step of a small GPT-2
+    (D = 128 / heads, packed segments) with the flash kernels on the card
+    against the plain versions on the CPU; every layer of every
+    micro-batch launched each kernel (the forward twice under remat)."""
+    cfg = GPT2Config.tiny(n_embd=128, n_head=heads, n_layer=2,
+                          segment_eos_id=7)
+    spec = gpt2_model_spec(cfg, use_flash=True, remat=remat)
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, cfg.vocab_size, (4, 48))
+    ids[:, [9, 30]] = 7
+    labels = ids.copy()
+    labels[:, :5] = -100
+    params = gpt2_init(torch.Generator().manual_seed(1), cfg)
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device).requires_grad_(True), params)
+        batch = tuple(torch.from_numpy(a).to(device) for a in (ids, labels))
+        return accumulate_grads(spec.loss_fn, p, batch, 2)
+
+    loss_cpu, grads_cpu = run("cpu")
+    for fn in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
+        fn.launches = 0
+    loss, grads = run("cuda")
+    torch.cuda.synchronize()
+    n = cfg.n_layer * 2
+    assert (flash_fwd.launches, flash_bwd_dkv.launches,
+            flash_bwd_dq.launches) == (n * (2 if remat else 1), n, n)
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
+    for path, g in grads_cpu.items():
+        assert _rel_err(grads[path].cpu(), g) <= 1e-4, path

@@ -27,7 +27,11 @@ def _modules():
 
 def test_importing_every_module_loads_no_jax():
     mods = _modules()
-    assert "quintnet_tpu_torch.serve.engine" in mods
+    for m in ("serve.engine", "ops.flash_kernels", "ops.flash_attention",
+              "core.config", "core.pytree", "data.datasets",
+              "parallel.strategy", "parallel.train_step", "train.trainer",
+              "train.metrics", "examples.gpt2_finetune"):
+        assert f"quintnet_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
         f"for m in {mods!r}:\n"
@@ -66,7 +70,10 @@ def test_default_device_raises_without_cuda():
                                            gpt2_params_to_numpy)
     from quintnet_tpu_torch.core.device import resolve_device
     from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.models.gpt2 import gpt2_model_spec
     from quintnet_tpu_torch.serve import KVPool, ServeEngine, gpt2_family
+    from quintnet_tpu_torch.train.trainer import Trainer
 
     cfg = GPT2Config.tiny(n_layer=1)
     params = gpt2_init(torch.Generator().manual_seed(0), cfg)
@@ -79,6 +86,8 @@ def test_default_device_raises_without_cuda():
         resolve_device()
     with pytest.raises(RuntimeError, match="CUDA"):
         gpt2_params_from_numpy(gpt2_params_to_numpy(params))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(Config.from_dict({}), gpt2_model_spec(cfg))
 
 
 def test_resolve_device_takes_the_cpu_only_when_asked():
