@@ -1,8 +1,8 @@
 """Shape ladders the serving engine derives its programs from.
 
-The port's own copy of ``quintnet_tpu/analysis/specs.py::prefill_buckets``
-(the JAX module is pure Python, but importing anything under
-``quintnet_tpu`` pulls in jax).
+The port's own copies of ``quintnet_tpu/analysis/specs.py``'s
+``prefill_buckets`` and ``kv_layout_policies`` (the JAX module is pure
+Python, but importing anything under ``quintnet_tpu`` pulls in jax).
 """
 
 from __future__ import annotations
@@ -23,3 +23,11 @@ def prefill_buckets(prefill_len: int, *, floor: int = 16) -> Tuple[int, ...]:
         b *= 2
     out.append(prefill_len)
     return tuple(out)
+
+
+def kv_layout_policies() -> Tuple[str, ...]:
+    """The KV-pool layout-policy ladder (``serve/kv_quant.py``):
+    ``f32``/``bf16`` passthrough, ``int8`` with per-block-per-head
+    absmax scales, ``fp8`` unscaled float8_e4m3fn passthrough, and the
+    ``fake_quant`` identity-scale proof policy."""
+    return ("f32", "bf16", "int8", "fp8", "fake_quant")

@@ -14,7 +14,9 @@ no ``attn_kernel`` switch.
 Pool writes are IN PLACE: ``k_cache``/``v_cache`` are views of the
 engine's ``[L, slots, H, Dh]`` pool tensors and are updated where they
 lie (the JAX package returns new arrays; the functions here return the
-same tensors so the call sites read alike).
+same tensors so the call sites read alike). Under a scaled layout
+policy (``serve/kv_quant.py``: int8, fake_quant) the layer's [nb, H]
+scale views ride along as ``kv_scales`` and are updated in place too.
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from quintnet_tpu_torch.ops.flash_attention import flash_attention
 # plain version that uses them; re-exported here, where the JAX package
 # keeps them
 from quintnet_tpu_torch.ops.paged_attention import (  # noqa: F401
-    _gather_kv, paged_attention, paged_gather)
+    _gather_kv, paged_attention, paged_gather, paged_gather_dequant,
+    paged_gather_scales, paged_quant_window_update, store_rows)
 
 
 def mha_init(generator: torch.Generator, dim: int, *, lead=()):
@@ -98,14 +101,15 @@ def mha_apply(p, x, *, num_heads: int, causal: bool = False,
 def paged_cache_update(k_cache, v_cache, k, v, pos, *, block_tables,
                        block_size: int):
     """Write one token's (k, v) [B, H, Dh] per row at that row's
-    position ``pos`` [B] through ``block_tables`` [B, M]. Inactive rows
-    carry an all-zero table row and pos 0: their writes land in the
-    null block 0, which nobody reads. In place."""
+    position ``pos`` [B] through ``block_tables`` [B, M], narrowed to the
+    pool's dtype. Inactive rows carry an all-zero table row and pos 0:
+    their writes land in the null block 0, which nobody reads. In
+    place."""
     pos = pos.long()
     blk = block_tables.gather(1, (pos // block_size)[:, None])[:, 0].long()
     idx = blk * block_size + pos % block_size
-    k_cache[idx] = k.to(k_cache.dtype)
-    v_cache[idx] = v.to(v_cache.dtype)
+    store_rows(k_cache, idx, k.to(k_cache.dtype))
+    store_rows(v_cache, idx, v.to(v_cache.dtype))
     return k_cache, v_cache
 
 
@@ -123,41 +127,146 @@ def paged_prefill_update(k_cache, v_cache, k, v, positions, tail_len, *,
                       block_tables.long()[blk_idx] * block_size
                       + positions % block_size,
                       torch.zeros_like(positions))
-    k_cache[idx] = k.transpose(0, 1).to(k_cache.dtype)
-    v_cache[idx] = v.transpose(0, 1).to(v_cache.dtype)
+    store_rows(k_cache, idx, k.transpose(0, 1).to(k_cache.dtype))
+    store_rows(v_cache, idx, v.transpose(0, 1).to(v_cache.dtype))
     return k_cache, v_cache
 
 
+def paged_verify_update(k_cache, v_cache, k, v, positions, tail_lens, *,
+                        block_tables, block_size: int):
+    """Write EVERY row's short run (k, v) [S, H, P, Dh] at ``positions``
+    [S, P] (``start_s + arange(P)``) through ``block_tables`` [S, M] in
+    one scatter. Columns at or beyond a row's ``tail_lens[s]`` (pad,
+    inactive rows) go to the null block. In place."""
+    S, P = positions.shape
+    M = block_tables.shape[1]
+    positions = positions.long()
+    blk = block_tables.long().gather(
+        1, (positions // block_size).clamp(0, M - 1))               # [S, P]
+    live = (torch.arange(P, device=positions.device)[None, :]
+            < tail_lens.long()[:, None])
+    idx = torch.where(live, blk * block_size + positions % block_size,
+                      torch.zeros_like(positions)).reshape(S * P)
+    H, Dh = k.shape[1], k.shape[3]
+    store_rows(k_cache, idx,
+               k.transpose(1, 2).reshape(S * P, H, Dh).to(k_cache.dtype))
+    store_rows(v_cache, idx,
+               v.transpose(1, 2).reshape(S * P, H, Dh).to(v_cache.dtype))
+    return k_cache, v_cache
+
+
+def _quant_span(p_tokens: int, block_size: int, table_width: int) -> int:
+    """Window width of :func:`paged_quant_window_update`: the most blocks
+    a ``p_tokens``-long write run can touch."""
+    return min(-(-p_tokens // block_size) + 1, table_width)
+
+
+def _paged_attention_scaled(policy, k_cache, v_cache, ks, vs, q, k, v,
+                            positions, lens, block_tables, *,
+                            block_size: int, max_blocks: int):
+    """The scaled-policy step every paged entry point shares: score the
+    run's exact f32 K/V against the PRE-write pool (the kernel's fresh
+    override), THEN requantize the run's touched blocks, k and v
+    (``paged_quant_window_update``, in place). The order matters: the
+    pools are updated in place, so a write before the read would make
+    the scores see the quantization round trip. ``positions`` [S, P]
+    contiguous runs; ``lens`` [S]. Returns (o, k_cache, v_cache, ks,
+    vs)."""
+    o = paged_attention(q, k_cache, v_cache, block_tables,
+                        positions[:, 0].contiguous(), block_size=block_size,
+                        kv_scales=(ks, vs), fresh_kv=(k, v))
+    for cache, scales, vals in ((k_cache, ks, k), (v_cache, vs, v)):
+        paged_quant_window_update(policy, cache, scales, vals, positions,
+                                  lens, block_tables=block_tables,
+                                  block_size=block_size,
+                                  max_blocks=max_blocks)
+    return o, k_cache, v_cache, ks, vs
+
+
+def _paged_out(p, o, pools):
+    """proj of the merged heads, then the pools the caller hands back:
+    (y, k, v) passthrough, (y, k, v, k_scale, v_scale) scaled."""
+    return (linear_apply(p["proj"], _merge_heads(o)), *pools)
+
+
 def mha_prefill_paged(p, x, k_cache, v_cache, positions, tail_len, *,
-                      num_heads: int, block_tables, block_size: int):
+                      num_heads: int, block_tables, block_size: int,
+                      kv_scales=None, policy=None):
     """Chunked prefill over the paged pool for ONE request: ``x``
     [1, P, D] tail hidden states at ``positions`` (``start +
-    arange(P)``, int32). The tail's K/V land in the pool first, then
-    each tail query attends causally to the whole row — cached prefix
-    plus fresh tail — through the paged-attention kernel. Returns
-    (y [1, P, D], k_cache, v_cache)."""
+    arange(P)``, int32). Each tail query attends causally to the whole
+    row — cached prefix plus fresh tail — through the paged-attention
+    kernel. Passthrough pools take the tail's K/V first and the kernel
+    reads it back; under a scaled policy (``kv_scales`` = this layer's
+    (k_scale, v_scale), ``policy``) the kernel reads the pre-write pool
+    with the fresh run overriding it, then the touched blocks are
+    requantized. Returns (y [1, P, D], k_cache, v_cache[, k_scale,
+    v_scale])."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
-    paged_prefill_update(k_cache, v_cache, k[0], v[0], positions,
-                         tail_len, block_tables=block_tables,
-                         block_size=block_size)
-    o = paged_attention(q, k_cache, v_cache, block_tables[None],
-                        positions[:1], block_size=block_size)
-    y = linear_apply(p["proj"], _merge_heads(o))
-    return y, k_cache, v_cache
+    tables = block_tables[None]
+    if kv_scales is None:
+        paged_prefill_update(k_cache, v_cache, k[0], v[0], positions,
+                             tail_len, block_tables=block_tables,
+                             block_size=block_size)
+        o = paged_attention(q, k_cache, v_cache, tables, positions[:1],
+                            block_size=block_size)
+        return _paged_out(p, o, (k_cache, v_cache))
+    lens = torch.full((1,), int(tail_len), dtype=torch.int32,
+                      device=positions.device)
+    o, *pools = _paged_attention_scaled(
+        policy, k_cache, v_cache, *kv_scales, q, k, v, positions[None, :],
+        lens, tables, block_size=block_size,
+        max_blocks=_quant_span(positions.shape[0], block_size,
+                               block_tables.shape[0]))
+    return _paged_out(p, o, pools)
+
+
+def mha_verify_paged(p, x, k_cache, v_cache, positions, tail_lens, *,
+                     num_heads: int, block_tables, block_size: int,
+                     kv_scales=None, policy=None):
+    """Batched verify attention over the paged pool: EVERY row scores a
+    short run ``x`` [S, P, D] at ``positions`` [S, P] against its own
+    cached row — the decode step widened from 1 to P tokens a row (the
+    teacher-forced scoring of ``serve/kv_quant.paged_eval_nll``, and
+    speculative decoding's target step). Columns at or beyond
+    ``tail_lens[s]`` are pad. Pool handling as in
+    :func:`mha_prefill_paged`, batched over rows. Returns (y [S, P, D],
+    k_cache, v_cache[, k_scale, v_scale])."""
+    q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    if kv_scales is None:
+        paged_verify_update(k_cache, v_cache, k, v, positions, tail_lens,
+                            block_tables=block_tables,
+                            block_size=block_size)
+        o = paged_attention(q, k_cache, v_cache, block_tables,
+                            positions[:, 0].contiguous(),
+                            block_size=block_size)
+        return _paged_out(p, o, (k_cache, v_cache))
+    o, *pools = _paged_attention_scaled(
+        policy, k_cache, v_cache, *kv_scales, q, k, v, positions, tail_lens,
+        block_tables, block_size=block_size,
+        max_blocks=_quant_span(positions.shape[1], block_size,
+                               block_tables.shape[1]))
+    return _paged_out(p, o, pools)
 
 
 def mha_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
-               block_tables, block_size: int):
+               block_tables, block_size: int, kv_scales=None, policy=None):
     """Single-token paged attention for every row: ``x`` [B, 1, D],
     flat pool views, ``pos`` [B] int32 per-row positions,
-    ``block_tables`` [B, M] int32. The token's K/V are written first,
-    then read back with the rest of the row. Returns (y, k_cache,
-    v_cache). The JAX package's dense single-request branch
+    ``block_tables`` [B, M] int32. Pool handling as in
+    :func:`mha_prefill_paged`; a scaled decode requantizes one block a
+    row (``max_blocks=1``). Returns (y, k_cache, v_cache[, k_scale,
+    v_scale]). The JAX package's dense single-request branch
     (``block_tables=None``) is not ported (ROADMAP.md, 'Generation')."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
-    paged_cache_update(k_cache, v_cache, k[:, :, 0], v[:, :, 0], pos,
-                       block_tables=block_tables, block_size=block_size)
-    o = paged_attention(q, k_cache, v_cache, block_tables, pos,
-                        block_size=block_size)
-    y = linear_apply(p["proj"], _merge_heads(o))
-    return y, k_cache, v_cache
+    if kv_scales is None:
+        paged_cache_update(k_cache, v_cache, k[:, :, 0], v[:, :, 0], pos,
+                           block_tables=block_tables, block_size=block_size)
+        o = paged_attention(q, k_cache, v_cache, block_tables, pos,
+                            block_size=block_size)
+        return _paged_out(p, o, (k_cache, v_cache))
+    o, *pools = _paged_attention_scaled(
+        policy, k_cache, v_cache, *kv_scales, q, k, v, pos[:, None],
+        torch.ones_like(pos), block_tables, block_size=block_size,
+        max_blocks=1)
+    return _paged_out(p, o, pools)

@@ -1,5 +1,5 @@
-"""Pre-LN transformer block (GPT-2): training/eval, paged decode and
-paged prefill.
+"""Pre-LN transformer block (GPT-2): training/eval, paged decode,
+paged prefill and paged verify.
 
 Port of ``quintnet_tpu/nn/transformer.py`` for one device, dense MLP
 only. Block parameters arrive as ONE layer's slice of the stacked
@@ -15,7 +15,8 @@ from torch.utils.checkpoint import checkpoint
 
 from quintnet_tpu_torch.core.pytree import tree_leaves
 from quintnet_tpu_torch.nn.attention import (mha_apply, mha_decode,
-                                             mha_prefill_paged)
+                                             mha_prefill_paged,
+                                             mha_verify_paged)
 from quintnet_tpu_torch.nn.layers import gelu, layer_norm_apply, mlp_apply
 
 
@@ -112,23 +113,43 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int,
 
 def block_prefill_paged(p, x, k_cache, v_cache, positions, tail_len, *,
                         num_heads: int, act: Callable = gelu,
-                        block_tables, block_size: int):
+                        block_tables, block_size: int, kv_scales=None,
+                        policy=None):
     """Chunked-prefill block step over the paged pool (x [1, P, D] at
-    absolute ``positions``). Returns (x, k_cache, v_cache); the pool
-    views are updated in place."""
-    y, k_cache, v_cache = mha_prefill_paged(
+    absolute ``positions``). ``kv_scales``/``policy``: this layer's
+    (k_scale, v_scale) views under a scaled KV layout. Returns (x,
+    k_cache, v_cache[, k_scale, v_scale]); the pool views are updated in
+    place."""
+    y, *pools = mha_prefill_paged(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache,
         positions, tail_len, num_heads=num_heads,
-        block_tables=block_tables, block_size=block_size)
-    return _block_mlp(p, x + y, act=act), k_cache, v_cache
+        block_tables=block_tables, block_size=block_size,
+        kv_scales=kv_scales, policy=policy)
+    return (_block_mlp(p, x + y, act=act), *pools)
+
+
+def block_verify_paged(p, x, k_cache, v_cache, positions, tail_lens, *,
+                       num_heads: int, act: Callable = gelu, block_tables,
+                       block_size: int, kv_scales=None, policy=None):
+    """Batched verify block step (x [S, P, D] per-row runs at absolute
+    ``positions`` [S, P]). Returns (x, k_cache, v_cache[, k_scale,
+    v_scale]); pools updated in place."""
+    y, *pools = mha_verify_paged(
+        p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache,
+        positions, tail_lens, num_heads=num_heads,
+        block_tables=block_tables, block_size=block_size,
+        kv_scales=kv_scales, policy=policy)
+    return (_block_mlp(p, x + y, act=act), *pools)
 
 
 def block_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
-                 act: Callable = gelu, block_tables, block_size: int):
+                 act: Callable = gelu, block_tables, block_size: int,
+                 kv_scales=None, policy=None):
     """Single-token paged block step for every row (x [S, 1, D], per-row
-    ``pos``). Returns (x, k_cache, v_cache); pools updated in place."""
-    y, k_cache, v_cache = mha_decode(
+    ``pos``). Returns (x, k_cache, v_cache[, k_scale, v_scale]); pools
+    updated in place."""
+    y, *pools = mha_decode(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache, pos,
         num_heads=num_heads, block_tables=block_tables,
-        block_size=block_size)
-    return _block_mlp(p, x + y, act=act), k_cache, v_cache
+        block_size=block_size, kv_scales=kv_scales, policy=policy)
+    return (_block_mlp(p, x + y, act=act), *pools)

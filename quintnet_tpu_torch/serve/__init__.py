@@ -2,11 +2,13 @@
 
 - :mod:`kv_pool` — refcounted KV blocks, per-request block tables, the
   prefix cache (token-keyed index, LRU retention, copy-on-write);
-- :mod:`kv_quant` — the pool's layout policy (f32 / bf16 passthrough);
+- :mod:`kv_quant` — the pool's layout policy (f32 / bf16 / fp8
+  passthrough, int8 and fake_quant with per-block scales) and
+  ``paged_eval_nll``;
 - :mod:`scheduler` — FCFS / priority admission, youngest-first
   preemption with exact resume;
-- :mod:`families` — the GPT-2 prefill/decode contracts over the paged
-  blocks;
+- :mod:`families` — the GPT-2 prefill/decode/verify contracts over the
+  paged blocks;
 - :mod:`engine` — the step loop;
 - :mod:`api` — ``generate`` / ``generate_stream``;
 - :mod:`metrics` — step gauges, TTFT / latency percentiles.

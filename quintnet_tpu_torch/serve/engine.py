@@ -1,19 +1,21 @@
 """Continuous-batching step loop over the paged KV pool.
 
 Port of ``quintnet_tpu/serve/engine.py``, default path only: one
-device, greedy decoding, the f32 (or bf16 on the CPU) KV pool, prefix
-cache on. Per step: admit waiting requests (each prefills only the
-uncached tail of its prompt, in the smallest bucket that holds it) ->
-grow every active slot's block table or preempt the youngest admission
--> one batched decode step for every active slot -> retire finished
-rows.
+device, greedy decoding, prefix cache on, and every KV pool layout of
+the ladder (``kv_dtype``: f32, bf16, int8, fp8, fake_quant;
+``serve/kv_quant.py``) on the CPU and on the card. Per step: admit
+waiting requests (each prefills only the uncached tail of its prompt,
+in the smallest bucket that holds it) -> grow every active slot's block
+table or preempt the youngest admission -> one batched decode step for
+every active slot -> retire finished rows.
 
 - ``prefill``: one request at a time; the uncached tail right-padded to
   a power-of-two bucket (``analysis/specs.prefill_buckets``). With a
   prefix-cache hit the table references the cached blocks and the tail
   starts at an offset; a chain that ends inside a partially-filled
   cached block is copied on write into the request's first private
-  block before the tail lands;
+  block before the tail lands (with the source block's scales, under a
+  scaled policy);
 - ``decode``: ONE step for all ``max_slots`` rows; inactive rows point
   at the pool's null block and their outputs are dropped.
 
@@ -138,11 +140,6 @@ class ServeEngine:
 
         self.kv_policy = make_policy(
             kv_dtype if kv_dtype is not None else family.kv_dtype)
-        if self.device.type == "cuda" and self.kv_policy.name != "f32":
-            raise NotImplementedError(
-                f"kv_dtype={self.kv_policy.name!r} on CUDA is not ported "
-                f"yet: the paged-attention kernel reads f32 pools "
-                f"(ROADMAP.md, 'TPU kernels to port': narrow K4 pools)")
         self.pool = KVPool(
             n_layers=family.n_layers, n_kv_heads=family.n_kv_heads,
             head_dim=family.head_dim, block_size=block_size,
@@ -177,28 +174,40 @@ class ServeEngine:
         lands: the cached block stays immutable while the index
         references it."""
         bs = self.pool.block_size
-        k_pool, v_pool = self.pool.caches()
+        k_pool, v_pool, *scales = self.pool.caches()
         if cow_len > 0:
             dst = int(table_row[min(start // bs, len(table_row) - 1)])
             for pool in (k_pool, v_pool):
                 pool[:, dst * bs:dst * bs + cow_len] = \
                     pool[:, cow_src * bs:cow_src * bs + cow_len]
-        logits, k_pool, v_pool = self.family.prefill_from(
+            # the copied slots are raw stored bytes: under a scaled
+            # policy they dequantize correctly only under their own
+            # block's scales
+            for sc in scales:
+                sc[:, dst] = sc[:, cow_src]
+        logits, *pools = self.family.prefill_from(
             self.params, k_pool, v_pool, self._dev(ids), start, t0,
-            self._dev(table_row), bs)
-        self.pool.update(k_pool, v_pool)
+            self._dev(table_row), bs, **self._kv_kw(scales))
+        self.pool.update(*pools)
         return int(torch.argmax(logits[0]).item())
 
     @torch.no_grad()
     def _decode(self, tok: np.ndarray, pos: np.ndarray,
                 tables: np.ndarray) -> np.ndarray:
         """One batched decode step; returns the greedy tokens [S]."""
-        k_pool, v_pool = self.pool.caches()
-        logits, k_pool, v_pool = self.family.decode(
+        k_pool, v_pool, *scales = self.pool.caches()
+        logits, *pools = self.family.decode(
             self.params, k_pool, v_pool, self._dev(tok), self._dev(pos),
-            self._dev(tables), self.pool.block_size)
-        self.pool.update(k_pool, v_pool)
+            self._dev(tables), self.pool.block_size, **self._kv_kw(scales))
+        self.pool.update(*pools)
         return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+
+    def _kv_kw(self, scales) -> dict:
+        """The contracts' quantized-KV arguments: the scale tensors and
+        the policy under a scaled policy, nothing otherwise."""
+        if not scales:
+            return {}
+        return {"kv_scales": tuple(scales), "policy": self.kv_policy}
 
     # ------------------------------------------------------------------
     # submission / results

@@ -7,7 +7,10 @@ KV memory is one pool of ``num_blocks`` blocks of ``block_size`` token
 slots shared by every in-flight request; each request's block table
 references just the blocks its length needs. Device layout, per k and
 v: ``[L, num_blocks * block_size, H_kv, Dh]`` tensors on the engine's
-device. The serving kernels update them IN PLACE through per-layer
+device, in the layout policy's store dtype (``serve/kv_quant.py``);
+under a scaled policy (int8, fake_quant) also ``k_scale``/``v_scale``,
+f32 ``[L, num_blocks, H_kv]`` per-block-per-head scales initialised to
+ones. The serving kernels update them IN PLACE through per-layer
 views, so :meth:`KVPool.update` only re-binds the (same) tensors.
 
 Block 0 is the reserved NULL block: inactive rows point their table
@@ -88,6 +91,11 @@ class KVPool:
                              device=device)
         self.v = torch.zeros(shape, dtype=self.policy.store_dtype,
                              device=device)
+        self.k_scale = self.v_scale = None
+        if self.policy.scaled:
+            self.k_scale = torch.ones((n_layers, num_blocks, n_kv_heads),
+                                      dtype=torch.float32, device=device)
+            self.v_scale = torch.ones_like(self.k_scale)
         # LIFO free list (warm pages first) + O(1) membership
         self._free: List[int] = list(range(num_blocks - 1, NULL_BLOCK, -1))
         self._free_set: Set[int] = set(self._free)
@@ -110,6 +118,7 @@ class KVPool:
 
     @property
     def pool_bytes(self) -> int:
+        """Device bytes of the pool's KV storage, scales included."""
         return self.num_blocks * self.bytes_per_block
 
     @property
@@ -312,10 +321,20 @@ class KVPool:
 
     # ---- device views ----------------------------------------------
     def caches(self):
-        """``(k, v)`` pool tensors, as the serving programs take them."""
+        """``(k, v)`` pool tensors, plus ``(k_scale, v_scale)`` under a
+        scaled policy, as the serving programs take them."""
+        if self.policy.scaled:
+            return self.k, self.v, self.k_scale, self.v_scale
         return self.k, self.v
 
-    def update(self, k, v) -> None:
+    def update(self, *tensors) -> None:
         """Re-bind the pool tensors after a program ran (the port's
-        programs update in place, so these are the same tensors)."""
-        self.k, self.v = k, v
+        programs update in place, so these are the same tensors): 2
+        under a passthrough policy, 4 under a scaled one."""
+        want = 4 if self.policy.scaled else 2
+        if len(tensors) != want:
+            raise ValueError(f"policy {self.policy.name!r} takes {want} "
+                             f"pool tensors, got {len(tensors)}")
+        self.k, self.v = tensors[:2]
+        if self.policy.scaled:
+            self.k_scale, self.v_scale = tensors[2:]

@@ -23,10 +23,12 @@ from quintnet_tpu_torch.ops.flash_kernels import (FlashAttentionFunction,
                                                   flash_bwd_dq_ref,
                                                   flash_delta, flash_fwd,
                                                   flash_fwd_ref)
-from quintnet_tpu_torch.ops.paged_attention import (paged_attention,
-                                                    paged_attention_ref)
+from quintnet_tpu_torch.ops.paged_attention import (
+    kernel_variant, paged_attention, paged_attention_ref,
+    paged_quant_window_update)
 from quintnet_tpu_torch.parallel.train_step import accumulate_grads
 from quintnet_tpu_torch.serve import ServeEngine, generate, gpt2_family
+from quintnet_tpu_torch.serve.kv_quant import make_policy
 
 BS, M = 16, 8
 
@@ -93,27 +95,160 @@ def test_kernel_rejects_what_it_does_not_take(cuda_device):
         paged_attention(q, k, v, tables, starts, block_size=5)
 
 
+# the store layouts of the KV layout policies: (pool dtype, scaled)
+LAYOUTS = {"bf16": (torch.bfloat16, False), "fp8": (torch.float8_e4m3fn,
+                                                     False),
+           "int8": (torch.int8, True), "fake_quant": (torch.float32, True)}
+
+
+def _narrow_case(seed, layout, S, Hq, Hkv, P, D, starts, dead=()):
+    """A case in a policy's store layout: narrow pools from random
+    values; scaled layouts get random per-block scales (all ones for
+    fake_quant) and a fresh run."""
+    q, k, v, tables, starts = _case(seed, S, Hq, Hkv, P, D, starts, dead)
+    dtype, scaled = LAYOUTS[layout]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    kw = {}
+    if dtype == torch.int8:
+        k, v = ((t * 40).round().clamp(-127, 127).to(torch.int8)
+                for t in (k, v))
+    else:
+        k, v = k.to(dtype), v.to(dtype)
+    if scaled:
+        nb = k.shape[0] // BS
+        kw["kv_scales"] = tuple(
+            (torch.rand((nb, Hkv), generator=gen, device="cuda") * 0.05
+             + 0.01) if dtype == torch.int8 else
+            torch.ones((nb, Hkv), device="cuda") for _ in range(2))
+        kw["fresh_kv"] = tuple(torch.randn((S, Hkv, P, D), generator=gen,
+                                           device="cuda") for _ in range(2))
+    return (q, k, v, tables, starts), kw
+
+
+VARIANT_CASES = dict(CASES, verify_S8_P4=dict(
+    S=8, Hq=4, Hkv=4, P=4, D=64, starts=[0, 5, 16, 31, 60, 100, 7, 0],
+    dead=(7,)))
+
+
 @pytest.mark.cuda
-def test_engine_on_card_matches_engine_on_cpu(cuda_device):
+@pytest.mark.parametrize("layout", sorted(LAYOUTS))
+@pytest.mark.parametrize("name", sorted(VARIANT_CASES))
+def test_kernel_variants_match_plain_version(cuda_device, layout, name):
+    args, kw = _narrow_case(2, layout, **VARIANT_CASES[name])
+    variant = kernel_variant(args[1], kw.get("kv_scales"))
+    before = paged_attention.launches_by_variant[variant]
+    got = paged_attention(*args, block_size=BS, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches_by_variant[variant] == before + 1
+    want = paged_attention_ref(*args, block_size=BS, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+def test_fake_quant_kernel_equals_f32_passthrough_bitwise(cuda_device):
+    """The run written into an f32 pool (passthrough) and the same run
+    as fresh K/V over a pool whose run slots hold other values, with
+    all-one scales (fake_quant): bit-identical outputs."""
+    q, k, v, tables, starts = _case(3, **VARIANT_CASES["verify_S8_P4"])
+    S, _, P, D = q.shape
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    fresh = [torch.randn((S, k.shape[1], P, D), generator=gen,
+                         device="cuda") for _ in range(2)]
+    kw, vw = k.clone(), v.clone()
+    for s in range(S):
+        for i in range(P):
+            t = int(starts[s]) + i
+            slot = int(tables[s, t // BS]) * BS + t % BS
+            kw[slot], vw[slot] = fresh[0][s, :, i], fresh[1][s, :, i]
+    ones = torch.ones((k.shape[0] // BS, k.shape[1]), device="cuda")
+    a = paged_attention(q, kw, vw, tables, starts, block_size=BS)
+    b = paged_attention(q, k, v, tables, starts, block_size=BS,
+                        kv_scales=(ones, ones), fresh_kv=tuple(fresh))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["int8", "fake_quant"])
+def test_window_update_on_card_equals_cpu(cuda_device, policy):
+    """paged_quant_window_update on the card and on the CPU: the same
+    pool bytes and scales on every real block."""
+    rng = np.random.default_rng(4)
+    S, H, D, P = 3, 4, 64, 20
+    nb = 1 + S * M
+    tables = np.zeros((S, M), np.int32)
+    tables[:2] = rng.permutation(np.arange(1, nb))[:2 * M].reshape(2, M)
+    pol = make_policy(policy)
+    cache = torch.from_numpy(rng.standard_normal((nb * BS, H, D)).astype(
+        np.float32) * 3)
+    cache = pol.quant(cache, None if policy == "fake_quant" else
+                      torch.tensor(0.05))
+    scales = torch.from_numpy(rng.uniform(0.01, 0.1, (nb, H)).astype(
+        np.float32)) if policy == "int8" else torch.ones((nb, H))
+    vals = torch.from_numpy(rng.standard_normal((S, H, P, D)).astype(
+        np.float32))
+    starts = np.asarray([37, 90, 0], np.int32)
+    positions = torch.from_numpy(starts[:, None]
+                                 + np.arange(P, dtype=np.int32))
+    lens = torch.tensor([20, 15, 0], dtype=torch.int32)
+    span = min(-(-P // BS) + 1, M)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        c, sc = cache.clone().to(dev), scales.clone().to(dev)
+        paged_quant_window_update(
+            pol, c, sc, vals.to(dev), positions.to(dev), lens.to(dev),
+            block_tables=torch.from_numpy(tables).to(dev), block_size=BS,
+            max_blocks=span)
+        out[dev] = (c.cpu(), sc.cpu())
+    assert torch.equal(out["cuda"][0][BS:], out["cpu"][0][BS:])
+    assert torch.equal(out["cuda"][1][1:], out["cpu"][1][1:])
+
+
+@pytest.mark.cuda
+def test_kernel_rejects_bad_layouts(cuda_device):
+    args, kw = _narrow_case(5, "int8", **CASES["decode_dead_row"])
+    q, k, v, tables, starts = args
+    with pytest.raises(TypeError, match="pools of one dtype"):
+        paged_attention(q, k.half(), v.half(), tables, starts, block_size=BS)
+    with pytest.raises(ValueError, match="fresh_kv"):
+        paged_attention(*args, block_size=BS, kv_scales=kw["kv_scales"])
+    with pytest.raises(ValueError, match="k_scale"):
+        paged_attention(*args, block_size=BS, fresh_kv=kw["fresh_kv"],
+                        kv_scales=tuple(s[1:] for s in kw["kv_scales"]))
+    for dtype in (torch.int8, torch.bfloat16):
+        flat = torch.zeros(k.numel() + 1, dtype=dtype, device="cuda")
+        bad = flat[1:].view(k.shape)             # contiguous, misaligned
+        with pytest.raises(ValueError, match="aligned"):
+            paged_attention(q, bad, bad, tables, starts, block_size=BS)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kv_dtype", ["f32", "bf16", "fp8", "int8",
+                                      "fake_quant"])
+def test_engine_on_card_matches_engine_on_cpu(cuda_device, kv_dtype):
     """Tiny GPT-2: the same weights served on the card (kernel) and on
     the CPU (plain version) give the same greedy tokens, and every
-    prefill and decode layer launched the kernel."""
+    prefill and decode layer launched the policy's kernel variant."""
     cfg = GPT2Config.tiny(n_layer=2)
     params = gpt2_init(torch.Generator().manual_seed(0), cfg)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
                for n in (5, 17, 9)]
-    kw = dict(max_slots=2, block_size=4, num_blocks=24, max_seq_len=40)
+    kw = dict(max_slots=2, block_size=4, num_blocks=24, max_seq_len=40,
+              kv_dtype=kv_dtype)
     cpu = ServeEngine(gpt2_family(cfg), params, device="cpu", **kw)
     card = ServeEngine(gpt2_family(cfg), params, device="cuda", **kw)
     want = generate(cpu, prompts, max_new_tokens=8)
     paged_attention.launches = 0
+    paged_attention.launches_by_variant.clear()
     got = generate(card, prompts, max_new_tokens=8)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
     m = card.metrics
-    assert paged_attention.launches == cfg.n_layer * (m.decode_steps
-                                                      + m.admitted)
+    n = cfg.n_layer * (m.decode_steps + m.admitted)
+    variant = kernel_variant(card.pool.k, card.pool.caches()[2:] or None)
+    assert paged_attention.launches == n
+    assert dict(paged_attention.launches_by_variant) == {variant: n}
 
 
 # ---------------------------------------------------------------------

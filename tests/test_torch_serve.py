@@ -195,8 +195,7 @@ def test_submit_rejects_what_can_never_run(params):
 @pytest.mark.parametrize("option,value", [
     ("spec", True), ("adapters", object()), ("kv_tier_bytes", 1 << 20),
     ("chunked_prefill", True), ("mesh", object()), ("sp_axis", "sp"),
-    ("ep_axis", "ep"), ("weights_dtype", "int8"), ("kv_dtype", "int8"),
-    ("kv_dtype", "fake_quant"), ("kv_dtype", "fp8"), ("temperature", 0.7)])
+    ("ep_axis", "ep"), ("weights_dtype", "int8"), ("temperature", 0.7)])
 def test_unported_options_raise(params, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(gpt2_family(CFG), params[1], device="cpu",
