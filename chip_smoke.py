@@ -6,7 +6,10 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. **kernels** — build every CUDA source of the path with ``nvcc``
-   (one process per source, started together), then hold each kernel
+   (one process per source, started together) and check the SASS of the
+   backward kernels (``cuobjdump``): every instantiation of K2 and K3
+   holds tensor-core instructions (HMMA: their products run in 3xTF32)
+   and no atomics. Then hold each kernel
    to its plain PyTorch version at the main paths' shapes (GPT-2 base
    heads, D = 64). Paged attention (K4, block size 16): decode rows
    with mixed context lengths and a dead row, prefill tails at start 0
@@ -19,7 +22,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    call (``F.scaled_dot_product_attention``: over a view gathered
    beforehand for K4; forward, and forward+backward minus forward, for
    K1-K3 — a yardstick only, never used by the port), plus the least
-   time the card could take (``bound_ms``).
+   time the card could take (``bound_ms``: bytes at the HBM rate, or
+   operations at the 3xTF32 rate of 165 TFLOP/s, whichever is longer).
+   At the train shape also K2 + K3 as one backward beside SDPA's whole
+   backward, its bound counting the 5 products a fused backward needs.
    K4 again with quantized and narrow pools at the decode shape (int8,
    bf16, fp8, fake_quant: dequantize on load and, for the scaled int8
    and fake_quant, the fresh-K/V override), int8 prefill tails, the
@@ -63,7 +69,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    micro-batches x 4 steps of each kernel). Prints the step's wall
    time (no profiler running), tokens/s and peak memory, and over the
    next steps under ``torch.profiler`` the device's busy time and the
-   three kernels' share of the step.
+   three kernels' share of the step (each kernel's profiled launches a
+   step must be n_layer x micro-batches).
 
 Then one JSON line of per-kernel numbers (K4 once per variant the
 serve phases launched), the card's name and power
@@ -89,7 +96,10 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
-F32_FLOPS_PER_S = 67e12          # H100 SXM f32, CUDA cores
+# f32-accurate products on the tensor cores: 3xTF32 (three TF32 products
+# per f32 product) at the H100 SXM's dense TF32 rate, 495 / 3 TFLOP/s
+TF32X3_FLOPS_PER_S = 495e12 / 3
+OPS_BASIS = "operations (3xTF32, 165 TFLOP/s)"
 KERNEL_TOL = 1e-4
 TIMED_ITERS = 20
 DEVICE = "cuda"
@@ -98,6 +108,11 @@ FLASH_KERNELS = {                # wrapper -> the TPU kernel it replaces
     "flash_fwd": "quintnet_tpu/ops/pallas_attention.py:97",
     "flash_bwd_dkv": "quintnet_tpu/ops/pallas_attention.py:259",
     "flash_bwd_dq": "quintnet_tpu/ops/pallas_attention.py:304",
+}
+FLASH_SYMBOLS = {                # wrapper -> its CUDA kernel's name
+    "flash_fwd": "flash_fwd_f32_kernel",
+    "flash_bwd_dkv": "flash_bwd_dkv_3xtf32_kernel",
+    "flash_bwd_dq": "flash_bwd_dq_3xtf32_kernel",
 }
 
 
@@ -246,9 +261,9 @@ def _library_fn(c):
 
 def _bound(flops, nbytes):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS_PER_S * 1e3
+    t_ops = flops / TF32X3_FLOPS_PER_S * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+            "bound_by": "bytes" if t_bytes >= t_ops else OPS_BASIS,
             "bytes": nbytes, "flops": flops}
 
 
@@ -535,8 +550,84 @@ def _flash_cases():
             res.update(_bound(2 * D * pairs * n_mm, read + written))
             _emit(res)
             results.append(res)
+        if name == TRAIN_CASE:
+            results.append(_backward_pair(
+                name, times, lib_fwd_bwd - lib_fwd,
+                max(errs["dq"], errs["dk"], errs["dv"]),
+                lambda: (flash_bwd_dkv(*bwd_in, causal=causal),
+                         flash_bwd_dq(*bwd_in, causal=causal)),
+                2 * D * pairs * 5, 4 * tile + 2 * row + seg_bytes + 3 * tile))
         del q, k, v, do, o, o_r, dk, dv, dq, dk_r, dv_r, dq_r, qg, kg, vg
     return results
+
+
+def _backward_pair(case, times, library_ms, err, launch_both, flops,
+                   nbytes):
+    """K2 and K3 as one backward beside SDPA's whole backward (the only
+    fair pairing: SDPA's yardstick computes dq, dk and dv together). The
+    bound counts the 5 products one fused backward needs, so the split's
+    recomputation of s and dp (7 products) shows as lost time."""
+    res = {"kernel": "backward (K2 + K3)", "case": case,
+           "kernel_ms": times["flash_bwd_dkv"][0] + times["flash_bwd_dq"][0],
+           "kernel_ms_measured_together": _timed_ms(launch_both),
+           "plain_ms": times["flash_bwd_dkv"][1] + times["flash_bwd_dq"][1],
+           "max_abs_err": err,
+           "library_ms": library_ms,
+           "library": "F.scaled_dot_product_attention forward+backward minus "
+                      "forward (yardstick)"}
+    res.update(_bound(flops, nbytes))
+    res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
+    res["vs_library"] = res["kernel_ms"] / library_ms
+    _emit(res)
+    return res
+
+
+def _sass_census(path):
+    """Per kernel of a built library: its tensor-core (HMMA), atomic (ATOM,
+    RED) and f32 FMA (FFMA) instructions, from ``cuobjdump -sass``."""
+    from quintnet_tpu_torch.ops import build
+
+    tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(path)], capture_output=True,
+                          text=True, check=True).stdout
+    census, fn = {}, None
+    for ln in sass.splitlines():
+        if "Function : " in ln:
+            fn = ln.split("Function : ")[1].strip()
+            census[fn] = {"HMMA": 0, "ATOM": 0, "RED": 0, "FFMA": 0}
+        elif fn is not None and "/*" in ln:
+            op = ln.split("*/", 1)[1].split()
+            op = [w for w in op if not w.startswith("@")][:1]
+            if op:
+                head = op[0].split(".")[0]
+                if head.startswith("ATOM"):
+                    head = "ATOM"
+                elif head in ("REDG", "REDAS"):
+                    head = "RED"
+                if head in census[fn]:
+                    census[fn][head] += 1
+    return census
+
+
+def _check_backward_sass(path):
+    """K2 and K3 run on the tensor cores and use no atomics (each gradient
+    element has one writer): every instantiation of both kernels holds
+    HMMA instructions and no ATOM or RED."""
+    census = _sass_census(path)
+    out = {}
+    for wrapper in ("flash_bwd_dkv", "flash_bwd_dq"):
+        fns = {f: c for f, c in census.items() if FLASH_SYMBOLS[wrapper] in f}
+        if len(fns) != 3:
+            raise AssertionError(f"{wrapper}: {len(fns)} instantiations of "
+                                 f"{FLASH_SYMBOLS[wrapper]} in the SASS (want "
+                                 f"3: D = 32, 64, 128)")
+        for f, c in fns.items():
+            if c["HMMA"] == 0 or c["ATOM"] or c["RED"]:
+                raise AssertionError(f"{f}: SASS census {c}: want HMMA > 0 "
+                                     f"and no ATOM / RED")
+        out[wrapper] = sorted(fns.values(), key=lambda c: c["HMMA"])
+    _emit({"check": "K2 and K3 SASS: tensor cores (HMMA), no atomics",
+           "ok": True, "census": out})
 
 
 def phase_kernels():
@@ -553,6 +644,7 @@ def phase_kernels():
     _emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "libraries": {k: str(v.name) for k, v in paths.items()},
            "ptxas": ptxas})
+    _check_backward_sass(paths["flash_attention"])
     return _paged_cases(), _flash_cases()
 
 
@@ -943,10 +1035,12 @@ def phase_serve_kv(params, cfg, f32_streams):
 # phase 4: GPT-2 124M trained on the card
 # ---------------------------------------------------------------------
 
-def _train_share(trainer, params, opt_state, batches) -> dict:
+def _train_share(trainer, params, opt_state, batches, want) -> dict:
     """The step's wall time over steps run WITHOUT the profiler, then the
     device's busy time and the flash kernels' device time from as many
-    further steps under ``torch.profiler``."""
+    further steps under ``torch.profiler``. ``want``: each flash
+    wrapper's launches a step; the profiled kernels must match it, so a
+    renamed kernel fails here instead of reading 0 ms."""
     from torch.profiler import ProfilerActivity, profile
 
     n = len(batches) // 2
@@ -979,10 +1073,16 @@ def _train_share(trainer, params, opt_state, batches) -> dict:
     for name in FLASH_KERNELS:
         us, k = (0.0, 0)
         for ev, (t, c) in by_name.items():
-            if f"{name}_f32_kernel" in ev:
+            if FLASH_SYMBOLS[name] in ev:
                 us, k = us + t, k + c
+        launches = k / (len(batches) - n)
+        if launches != want[name]:
+            raise AssertionError(
+                f"profiler: {FLASH_SYMBOLS[name]} launched {launches} times a "
+                f"step; {name} launches {want[name]} (n_layer x "
+                f"micro-batches)")
         kern[name] = {"ms_per_step": per_step(us),
-                      "launches_per_step": k / (len(batches) - n),
+                      "launches_per_step": launches,
                       "share_of_step": per_step(us) / (wall * 1e3)}
     gemm_us = sum(us for ev, (us, _) in by_name.items()
                   if "gemm" in ev.lower())
@@ -1085,7 +1185,8 @@ def phase_train():
            "loss_flash": hist_f.train_loss, "loss_plain": hist_p.train_loss,
            "fit_wall_s_flash": hist_f.wall_time_s,
            "fit_wall_s_plain": hist_p.wall_time_s, "launches": counts}
-    res.update(_train_share(flash, params, opt_state, host[steps:]))
+    res.update(_train_share(flash, params, opt_state, host[steps:],
+                            {k: v // steps for k, v in want.items()}))
     _emit(res)
     return res, counts
 

@@ -26,33 +26,84 @@
 //                  registers, written once;
 //   flash_bwd_dq   block per (b*h, q tile): loops over k tiles, dq in registers.
 // The dK/dV and dQ split is kept from the TPU version (which had no atomics
-// across grid cells): each gradient is written by exactly one block, with no
-// atomics, so the gradients are the same from run to run.
+// across grid cells): each gradient element is written by exactly one block,
+// with no atomics, so two runs on the same inputs give bitwise-equal
+// gradients. The price: s and dp are recomputed in both backward kernels,
+// 7 products where one fused backward needs 5.
 //
 // Causal tiles past the diagonal are never visited (the loop bounds play the
 // part of _block_live); the causal, ragged-edge and segment masks are applied
 // only on tiles that need them (_block_needs_mask); with segment ids a tile
 // whose q and k id ranges are disjoint is skipped (_segment_overlap). Masked
-// scores hold the finite -1e30 (NEG_INF, :49) and their probabilities are set
-// to 0 explicitly, so a tile with no visible entry for a row adds nothing
-// (the guard at :145-155). Rows and columns past S (a ragged last tile) are
-// zero-filled on load and masked.
+// scores hold the finite -1e30 (kNegInf) in the forward, and every masked
+// probability is set to 0 explicitly, so a tile with no visible entry for a
+// row adds nothing. Rows past S (a ragged last tile) are zero-filled on load
+// and masked.
 //
-// Work per tile: every thread of 256 (16 x 16) owns a 4 x 4 block of the
-// 64 x 64 score tile (rows ty + 16i, columns tx + 16j) and 4 rows x D/16
-// columns of each 64 x D accumulator. Operands sit row-major in shared
-// memory with a row stride of D + 4 floats, so the 4-wide loads of a warp
-// hit distinct banks.
+// K1, the forward, runs on the f32 CUDA cores: 256 threads (16 x 16), each
+// owning a 4 x 4 block of the 64 x 64 score tile and 4 rows x D/16 columns of
+// the output; rows padded to D + 4 floats in shared memory.
+//
+// K2 and K3 run every product on the tensor cores at f32 accuracy (3xTF32,
+// the scheme of CUTLASS's OpMultiplyAddFastF32): each f32 operand x is split
+// into big = tf32(x) (rounded to nearest, as cvt.rna) and small =
+// tf32(x - big), and big*big + big*small + small*big is accumulated in f32
+// by mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32. Plain TF32 would lose ~3
+// digits (5.9e-4 relative on dq at S = 512); 3xTF32 stays near f32.
+//   * Why mma.sync and not wgmma: wgmma's tf32 form reads both operands
+//     K-major from shared memory, and three of the five products (p^T do,
+//     ds^T q, ds k) want their B operand the other way round, which would
+//     need transposed copies staged in shared memory, and p and ds would
+//     have to go through shared memory too. mma.sync takes its fragments
+//     from registers, so each thread loads them in the orientation the
+//     product needs.
+//   * Orientation: K2 computes s^T = k q^T and dp^T = v do^T for its 64
+//     keys, so p^T and ds^T come out with key rows; K3 computes s = q k^T.
+//     The probabilities and score gradients then feed the next product (dv,
+//     dk, dq) as its A operand straight from the accumulator registers: the
+//     depth index of each 8-deep step is permuted (fragment k = t reads
+//     column 2t, k = t + 4 column 2t + 1) so that the accumulator layout IS
+//     the A-fragment layout, with no warp shuffle and no transposed copy of
+//     p or ds in shared memory. The B operand's rows follow the same
+//     permutation.
+//   * Loads: operands that sit row-major in shared memory (k, v, q, do as A;
+//     q, do as B of s^T and dp^T in K2) come in by ldmatrix.x4, four 8 x 4
+//     f32 blocks a warp instruction; the B operands read down a column (and
+//     k, v in K3, where ldmatrix measured no faster) by scalar loads. Rows
+//     are padded to D + 4 floats and every pattern is free of bank conflicts.
+//   * Where to split: per fragment load, in registers, with integer adds and
+//     masks. Splitting once at staging time into big and small tiles was
+//     measured slower on the card (twice the shared memory and loads, fewer
+//     blocks per SM, one more barrier a tile).
+//   * Rounding: the tensor core truncates its sums, so long chains of steps
+//     summed inside it drift one way (see mma_3xtf32); s and dp add each
+//     8-deep step to f32 registers with round-to-nearest, dk, dv and dq each
+//     streamed tile.
+//   * Staging: a two-stage ring in shared memory, filled by 16-byte
+//     cp.async.cg (4-byte cp.async for lse, delta and segment ids), so the
+//     next streamed tile (q, do, lse, delta, q ids in K2; k, v, k ids in K3)
+//     loads while the current one computes; rows past S are zero-filled.
+//   * Tiles: 128 threads (4 warps x 16 owned rows), 64 owned rows; K2
+//     streams 32 query rows a stage (64 at D = 32), K3 64 key rows (32 at D
+//     = 128). At D = 64 ptxas gives K2 239 and K3 246 registers a thread
+//     (launch bounds of one block, so the compiler may use all 255, which
+//     measured faster than capping them for more blocks) and the blocks take
+//     69 KB and 103 KB of shared memory: two blocks, 8 warps, per SM. At
+//     the train shape (B = 32, H = 12, S = 512) each kernel launches 3,072
+//     blocks. K2 runs the longest causal key tiles first (kt = 0), K3 the
+//     longest query tiles (qt = nt - 1 first).
+//   * exp is ex2.approx on a pre-scaled argument (~2 ulp).
 //
 // Bound: operations. Per (b, h) the forward does 2 matmuls of S^2 D
 // multiply-adds, the dK/dV kernel 4 (s, dp, dv, dk) and the dQ kernel 3
 // (s, dp, dq), halved by causality, while each moves a few S x D slabs once:
-// at S = 512, D = 64 that is 64-85 f32 operations per byte, above the
-// H100's ~20 (67 TFLOP/s on the f32 CUDA cores over 3.35 TB/s). This first
-// version runs on those CUDA cores; wgmma with bf16/TF32 tiles, TMA staging
-// and a fused backward are later work.
+// at S = 512, D = 64 that is 64-85 f32 operations per byte. For f32-accurate
+// products the card's least time is set by 3xTF32 on the tensor cores:
+// 495 / 3 = 165 TFLOP/s (at 3.35 TB/s, ~49 operations per byte). K1 still
+// runs on the CUDA cores (67 TFLOP/s).
 
 #include <climits>
+#include <cstdint>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -79,12 +130,6 @@ __device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ 
     if (row0 + r < S) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
     *reinterpret_cast<float4*>(dst + r * (D + kPad) + c) = val;
   }
-}
-
-// a per-row f32 vector (lse, delta) for rows row0 .. row0+63; 0 past S
-__device__ __forceinline__ void load_vec(float* dst, const float* __restrict__ src, int row0,
-                                         int S) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) dst[i] = row0 + i < S ? src[row0 + i] : 0.f;
 }
 
 __device__ __forceinline__ void load_seg(int* dst, const int* __restrict__ src, int row0, int S) {
@@ -330,201 +375,542 @@ flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// the recomputed probabilities and score gradients of one (q tile, k tile):
-// p = exp(scale s - lse) and ds = p (dp - delta) scale, 0 where masked
+// K2 and K3: tensor-core helpers (3xTF32 on mma.sync.m16n8k8) and cp.async
 
-__device__ __forceinline__ void probs_and_dscores(float (&s)[4][4], float (&dp)[4][4],
-                                                  const float* lse_s, const float* delta_s,
-                                                  bool needs_mask, int q0, int k0, int S,
-                                                  bool causal, const int* segq_s,
-                                                  const int* segk_s, int ty, int tx,
-                                                  float scale) {
+constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the block's own tile each
+constexpr int kOwn = 64;          // rows of the tile a block owns (keys in K2, queries in K3)
+constexpr float kLog2e = 1.4426950408889634f;
+
+// rows of the tile each kernel streams through its ring, from the chip runs at
+// D = 64: K2 keeps dk, dv, s^T and dp^T of 16 keys in registers and is fastest
+// with 32 query rows a stage, K3 (dq only) with 64 key rows; at D = 128 both
+// take 32 to stay within 255 registers
+template <int D>
+constexpr int dkv_rows() {
+  return D == 32 ? 64 : 32;
+}
+template <int D>
+constexpr int dq_rows() {
+  return D == 128 ? 32 : 64;
+}
+
+// f32 -> tf32 with round-to-nearest, ties away (cvt.rna.tf32.f32) on the
+// integer pipe: the bit pattern of an f32 whose low 13 mantissa bits are 0
+__device__ __forceinline__ uint32_t to_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x = big + small to ~2^-23 relative: big = tf32(x), small = tf32(x - big)
+__device__ __forceinline__ void split_tf32(float x, uint32_t& big, uint32_t& small) {
+  big = to_tf32(x);
+  small = to_tf32(x - __uint_as_float(big));
+}
+
+template <int N>
+struct Frag {  // an operand fragment, split
+  uint32_t big[N], small[N];
+};
+
+template <int N>
+__device__ __forceinline__ Frag<N> split_frag(const float (&x)[N]) {
+  Frag<N> f;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int ri = ty + 16 * i;
+  for (int i = 0; i < N; ++i) split_tf32(x[i], f.big[i], f.small[i]);
+  return f;
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// c += a b for one 8-deep step at f32 accuracy (CUTLASS's
+// OpMultiplyAddFastF32): the two small cross terms, then big x big; small x
+// small (~2^-22 relative) is dropped. The sum stays in the tensor core.
+__device__ __forceinline__ void mma_3xtf32_tc(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+}
+
+// The tensor core truncates its sums (round toward zero), so a long chain of
+// steps summed inside it drifts in one direction: on the card, s and dp
+// summed over D = 64 that way put dq of a row that sees a single key 1.5e-6
+// off, three times what fresh fragments give (dp - delta cancels there). So
+// every step of s and dp goes into a fresh fragment, added to the running
+// sum on the CUDA cores with round-to-nearest; dk, dv and dq sum one
+// streamed tile (4-8 steps) in the tensor core and add it the same way.
+__device__ __forceinline__ void mma_3xtf32(float (&c)[4], const Frag<4>& a, const Frag<2>& b) {
+  float d[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_3xtf32_tc(d, a, b);
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int cj = tx + 16 * j;
-      float p = expf(s[i][j] * scale - lse_s[ri]);
-      if (needs_mask && !visible(q0 + ri, k0 + cj, S, causal, segq_s, segk_s, ri, cj)) p = 0.f;
-      s[i][j] = p;
-      dp[i][j] = p * (dp[i][j] - delta_s[ri]) * scale;
-    }
+  for (int i = 0; i < 4; ++i) c[i] += d[i];
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, ~2 ulp
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// ldmatrix.x4: four 8 x 4 f32 blocks (8 x 8 of b16 each) of a row-major smem
+// tile into four registers; lane l gives the row address of block l / 8
+__device__ __forceinline__ void ldmatrix_x4(const float* row, uint32_t (&r)[4]) {
+  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(a));
+}
+
+// Fragment loads from row-major smem tiles with a row stride of D + kPad
+// floats (272 bytes at D = 64: 4 mod 32 banks). g = lane / 4, t = lane % 4.
+// Each pattern below is free of bank conflicts: the 8 rows an ldmatrix phase
+// reads start on 8 distinct 16-byte bank groups, and the scalar loads put the
+// 32 lanes of a warp on 32 distinct banks.
+//
+// A (16 x 8, row-major): rows r0.. of the tile, columns c0..c0+7, in one
+// ldmatrix.x4 (blocks: rows r0 / r0 + 8 x columns c0 / c0 + 4 -> a0 a1 a2 a3)
+template <int D>
+__device__ __forceinline__ Frag<4> frag_a(const float* s, int r0, int c0) {
+  constexpr int LD = D + kPad;
+  const int l = threadIdx.x & 31;
+  uint32_t r[4];
+  ldmatrix_x4(s + (r0 + (l & 7) + 8 * ((l >> 3) & 1)) * LD + c0 + 4 * (l >> 4), r);
+  const float x[4] = {__uint_as_float(r[0]), __uint_as_float(r[1]), __uint_as_float(r[2]),
+                      __uint_as_float(r[3])};
+  return split_frag(x);
+}
+
+// B (8 x 8) of x . y^T: B[k][n] = y[n0 + n][c0 + k] (the rows of y are the
+// product's columns): banks 4g + t
+template <int D>
+__device__ __forceinline__ Frag<2> frag_b_t(const float* s, int n0, int c0, int g, int t) {
+  constexpr int LD = D + kPad;
+  const float* p = s + (n0 + g) * LD + c0 + t;
+  const float x[2] = {p[0], p[4]};
+  return split_frag(x);
+}
+
+// the same for column tiles n0 and n0 + 8 at once, in one ldmatrix.x4
+// (blocks: rows n0 / n0 + 8 x columns c0 / c0 + 4)
+template <int D>
+__device__ __forceinline__ void frag_b_t2(const float* s, int n0, int c0, Frag<2>& b0,
+                                          Frag<2>& b1) {
+  constexpr int LD = D + kPad;
+  const int l = threadIdx.x & 31;
+  uint32_t r[4];
+  ldmatrix_x4(s + (n0 + (l & 7) + 8 * (l >> 4)) * LD + c0 + 4 * ((l >> 3) & 1), r);
+  const float x0[2] = {__uint_as_float(r[0]), __uint_as_float(r[1])};
+  const float x1[2] = {__uint_as_float(r[2]), __uint_as_float(r[3])};
+  b0 = split_frag(x0);
+  b1 = split_frag(x1);
+}
+
+// B (8 x 8) of p . y: B[k][n] = y[k0 + k][n0 + n], with the depth index
+// permuted (fragment k = t reads row 2t, k = t + 4 reads row 2t + 1) so that
+// it matches an A operand taken straight from an accumulator (acc_as_a):
+// banks 8t + g and 8t + 4 + g
+template <int D>
+__device__ __forceinline__ Frag<2> frag_b_n(const float* s, int k0, int n0, int g, int t) {
+  constexpr int LD = D + kPad;
+  const float* p = s + (k0 + 2 * t) * LD + n0 + g;
+  const float x[2] = {p[0], p[LD]};
+  return split_frag(x);
+}
+
+// The accumulator of an m16n8 product holds (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1); read under the depth permutation of frag_b_n these are
+// exactly the A fragment's (g, k), (g+8, k), (g, k+4), (g+8, k+4). So the
+// probabilities and score gradients feed the next product from registers,
+// with no shuffle and no trip through shared memory.
+__device__ __forceinline__ Frag<4> acc_as_a(const float (&c)[4]) {
+  const float x[4] = {c[0], c[2], c[1], c[3]};
+  return split_frag(x);
+}
+
+// cp.async: 16 bytes (L2 only) or 4 bytes; src_bytes = 0 zero-fills
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;" ::"r"(s), "l"(src),
+               "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(N) : "memory");
+}
+
+// rows row0 .. row0+ROWS-1 of a [S, D] slab into smem [ROWS][D + kPad], in
+// flight; rows past S are zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void cp_rows(float* dst, const float* __restrict__ src, int row0,
+                                        int S) {
+  constexpr int V = D / 4;
+  for (int i = threadIdx.x; i < ROWS * V; i += kMmaThreads) {
+    const int r = i / V;
+    const int c = (i - r * V) * 4;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * (D + kPad) + c, src + (size_t)(ok ? row0 + r : 0) * D + c, ok ? 16 : 0);
   }
 }
 
+// a per-row vector (lse, delta, segment ids) for rows row0 .. row0+ROWS-1, in
+// flight; 0 past S (those rows are masked)
+template <int ROWS, typename T>
+__device__ __forceinline__ void cp_vec(T* dst, const T* __restrict__ src, int row0, int S) {
+  for (int i = threadIdx.x; i < ROWS; i += kMmaThreads) {
+    const bool ok = row0 + i < S;
+    cp_async4(dst + i, src + (ok ? row0 + i : 0), ok ? 4 : 0);
+  }
+}
+
+// [lo, hi] of the segment ids of a tile's n_valid rows, uniform across the block
+template <int ROWS>
+__device__ __forceinline__ void seg_range_rows(const int* seg, int n_valid, int& lo, int& hi) {
+  lo = INT_MAX;
+  hi = INT_MIN;
+  for (int i = threadIdx.x & 31; i < ROWS && i < n_valid; i += 32) {
+    lo = min(lo, seg[i]);
+    hi = max(hi, seg[i]);
+  }
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) {
+    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
+    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
+  }
+}
+
+// the 16 rows r0.. of a warp's [16, D] accumulator into a [S, D] output
+template <int D>
+__device__ __forceinline__ void store_acc(float* __restrict__ dst, int r0, int S, int g, int t,
+                                          const float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= S) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<float2*>(dst + (size_t)r * D + 8 * n + 2 * t) =
+          make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
 // ---------------------------------------------------------------------------
-// K2: dK and dV
+// K2: dK and dV. A block owns 64 keys (16 per warp) and streams the q tiles
+// through a two-stage cp.async ring; it computes in its own key-row
+// orientation: s^T = k q^T and dp^T = v do^T, so p^T and ds^T come out with
+// key rows and feed dv += p^T do and dk += ds^T q as the A operand.
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, const float* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         const int* __restrict__ seg, float* __restrict__ dk,
-                         float* __restrict__ dv, int H, int S, int causal, float scale) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + kPad;
-  float* k_s = smem;                    // [64][LD]
-  float* v_s = k_s + kTile * LD;        // [64][LD]
-  float* q_s = v_s + kTile * LD;        // [64][LD]
-  float* do_s = q_s + kTile * LD;       // [64][LD]
-  float* pt_s = do_s + kTile * LD;      // [64 k][kLdP q]: p transposed
-  float* dst_s = pt_s + kTile * kLdP;   // [64 k][kLdP q]: ds transposed
-  float* lse_s = dst_s + kTile * kLdP;  // [64]
-  float* delta_s = lse_s + kTile;       // [64]
-  int* segq_s = reinterpret_cast<int*>(delta_s + kTile);
-  int* segk_s = segq_s + kTile;
+struct DkvSmem {
+  static constexpr int LD = D + kPad;
+  static constexpr int BQ = dkv_rows<D>();
+  static constexpr int kStage = 2 * BQ * LD + 3 * BQ;  // q, do; lse, delta, seg (4 bytes each)
+  static constexpr size_t bytes = 4 * ((size_t)2 * kOwn * LD + kOwn + 2 * (size_t)kStage);
+};
 
-  const int nt = (S + kTile - 1) / kTile;
-  const int kt = blockIdx.x;  // k tile kt meets nt - kt causal q tiles
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dkv_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            const int* __restrict__ seg, float* __restrict__ dk,
+                            float* __restrict__ dv, int H, int S, int causal, float scale) {
+  using L = DkvSmem<D>;
+  constexpr int LD = L::LD, BQ = L::BQ, NT = BQ / 8;
+  extern __shared__ float smem[];
+  float* k_s = smem;                                        // [64][LD]
+  float* v_s = k_s + kOwn * LD;                             // [64][LD]
+  int* segk_s = reinterpret_cast<int*>(v_s + kOwn * LD);    // [64]
+  float* ring = reinterpret_cast<float*>(segk_s + kOwn);    // 2 stages
+  // stage st: q, do [BQ][LD]; lse, delta, seg [BQ]
+  auto tile = [&](int st, int i) { return ring + st * L::kStage + i * BQ * LD; };
+  auto lse_s = [&](int st) { return tile(st, 2); };
+  auto delta_s = [&](int st) { return tile(st, 2) + BQ; };
+  auto segq_s = [&](int st) { return reinterpret_cast<int*>(tile(st, 2) + 2 * BQ); };
+
+  const int kt = blockIdx.x;  // k tile kt meets the most causal q tiles at kt = 0
   const int bh = blockIdx.y;
-  const int k0 = kt * kTile;
+  const int k0 = kt * kOwn;
   const size_t base = (size_t)bh * S * D;
   const size_t rbase = (size_t)bh * S;
   const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+  const int kw = warp * 16;  // the warp's first key row in the tile
 
-  load_rows<D>(k_s, k + base, k0, S);
-  load_rows<D>(v_s, v + base, k0, S);
+  auto stage_load = [&](int st, int qt) {
+    const int q0 = qt * BQ;
+    cp_rows<D, BQ>(tile(st, 0), q + base, q0, S);
+    cp_rows<D, BQ>(tile(st, 1), dout + base, q0, S);
+    cp_vec<BQ>(lse_s(st), lse + rbase, q0, S);
+    cp_vec<BQ>(delta_s(st), delta + rbase, q0, S);
+    if (seg_b != nullptr) cp_vec<BQ>(segq_s(st), seg_b, q0, S);
+  };
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;  // the first q tile with a query >= k0
+  cp_rows<D, kOwn>(k_s, k + base, k0, S);
+  cp_rows<D, kOwn>(v_s, v + base, k0, S);
+  if (seg_b != nullptr) cp_vec<kOwn>(segk_s, seg_b, k0, S);
+  stage_load(0, qt0);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
   int k_lo = 0, k_hi = 0;
-  if (seg_b != nullptr) load_seg(segk_s, seg_b, k0, S);
-  __syncthreads();
-  if (seg_b != nullptr) seg_range(segk_s, min(kTile, S - k0), k_lo, k_hi);
-
-  float dk_acc[4][D / 16], dv_acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
-
-  for (int qt = causal ? kt : 0; qt < nt; ++qt) {
-    const int q0 = qt * kTile;
-    __syncthreads();  // the previous tile's readers are done
-    load_rows<D>(q_s, q + base, q0, S);
-    load_rows<D>(do_s, dout + base, q0, S);
-    load_vec(lse_s, lse + rbase, q0, S);
-    load_vec(delta_s, delta + rbase, q0, S);
-    if (seg_b != nullptr) load_seg(segq_s, seg_b, q0, S);
-    __syncthreads();
-    if (seg_b != nullptr) {
-      int q_lo, q_hi;
-      seg_range(segq_s, min(kTile, S - q0), q_lo, q_hi);
-      if (k_hi < q_lo || k_lo > q_hi) continue;
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) & 1;
+    if (qt + 1 < nq) {  // the next tile loads while this one computes
+      stage_load(st ^ 1, qt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
-
-    float s[4][4], dp[4][4];
+    __syncthreads();
+    const int q0 = qt * BQ;
+    bool live = true;
+    if (seg_b != nullptr) {
+      if (qt == qt0) seg_range_rows<kOwn>(segk_s, min(kOwn, S - k0), k_lo, k_hi);
+      int q_lo, q_hi;
+      seg_range_rows<BQ>(segq_s(st), min(BQ, S - q0), q_lo, q_hi);
+      live = !(k_hi < q_lo || k_lo > q_hi);  // uniform: no shared pair of ids
+    }
+    if (live) {
+      const float* qs = tile(st, 0);
+      const float* dos = tile(st, 1);
+      float s[NT][4], dp[NT][4];  // s^T and dp^T: key rows kw + g (+8), query columns
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_qk<D>(q_s, k_s, ty, tx, s);
-    tile_qk<D>(do_s, v_s, ty, tx, dp);
-    const bool needs_mask =
-        (causal && qt == kt) || q0 + kTile > S || k0 + kTile > S || seg_b != nullptr;
-    probs_and_dscores(s, dp, lse_s, delta_s, needs_mask, q0, k0, S, causal,
-                      seg_b != nullptr ? segq_s : nullptr, segk_s, ty, tx, scale);
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+      for (int c0 = 0; c0 < D; c0 += 8) {
+        const Frag<4> ka = frag_a<D>(k_s, kw, c0);
+        const Frag<4> va = frag_a<D>(v_s, kw, c0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i) {
+        for (int j = 0; j < NT; j += 2) {
+          Frag<2> qb[2], db[2];
+          frag_b_t2<D>(qs, 8 * j, c0, qb[0], qb[1]);
+          frag_b_t2<D>(dos, 8 * j, c0, db[0], db[1]);
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        pt_s[(tx + 16 * j) * kLdP + ty + 16 * i] = s[i][j];
-        dst_s[(tx + 16 * j) * kLdP + ty + 16 * i] = dp[i][j];
+          for (int h = 0; h < 2; ++h) {
+            mma_3xtf32(s[j + h], ka, qb[h]);
+            mma_3xtf32(dp[j + h], va, db[h]);
+          }
+        }
+      }
+      // p^T = exp(scale s^T - lse), ds^T = p^T (dp^T - delta) scale; 0 where masked
+      const bool needs_mask =
+          (causal && k0 + kOwn - 1 > q0) || q0 + BQ > S || k0 + kOwn > S || seg_b != nullptr;
+      const float* ls = lse_s(st);
+      const float* dl = delta_s(st);
+      const int* sq = seg_b != nullptr ? segq_s(st) : nullptr;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = kw + g + 8 * (e >> 1);
+          const int ql = 8 * j + 2 * t + (e & 1);
+          float p = ex2(fmaf(s[j][e], scale * kLog2e, -ls[ql] * kLog2e));
+          if (needs_mask && !visible(q0 + ql, k0 + kl, S, causal, sq, segk_s, ql, kl)) p = 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl[ql]) * scale;
+        }
+      }
+      // dv += p^T do, dk += ds^T q over this tile's queries: p^T and ds^T
+      // feed the products from registers, the tile's NT steps are summed in
+      // the tensor core and added to dk and dv with round-to-nearest
+      Frag<4> pa[NT], dsa[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        pa[j] = acc_as_a(s[j]);
+        dsa[j] = acc_as_a(dp[j]);
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float dvt[4] = {0.f, 0.f, 0.f, 0.f}, dkt[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          mma_3xtf32_tc(dvt, pa[j], frag_b_n<D>(dos, 8 * j, 8 * n, g, t));
+          mma_3xtf32_tc(dkt, dsa[j], frag_b_n<D>(qs, 8 * j, 8 * n, g, t));
+        }
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          dv_acc[n][e] += dvt[e];
+          dk_acc[n][e] += dkt[e];
+        }
       }
     }
-    __syncthreads();
-    tile_pv<D>(pt_s, do_s, ty, tx, dv_acc);   // dv += p^T do
-    tile_pv<D>(dst_s, q_s, ty, tx, dk_acc);   // dk += ds^T q
+    __syncthreads();  // this stage's readers are done before it is refilled
   }
 
-  float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(dk + base, k0, S, ty, tx, dk_acc, one);
-  store_rows<D>(dv + base, k0, S, ty, tx, dv_acc, one);
+  store_acc<D>(dk + base, k0 + kw, S, g, t, dk_acc);
+  store_acc<D>(dv + base, k0 + kw, S, g, t, dv_acc);
 }
 
 // ---------------------------------------------------------------------------
-// K3: dQ
+// K3: dQ. A block owns 64 queries (16 per warp; lse and delta of its rows in
+// registers) and streams the k tiles through a two-stage cp.async ring:
+// s = q k^T, dp = do v^T, then dq += ds k with ds taken from registers.
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                        const float* __restrict__ v, const float* __restrict__ dout,
-                        const float* __restrict__ lse, const float* __restrict__ delta,
-                        const int* __restrict__ seg, float* __restrict__ dq, int H, int S,
-                        int causal, float scale) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + kPad;
-  float* q_s = smem;                    // [64][LD]
-  float* do_s = q_s + kTile * LD;       // [64][LD]
-  float* k_s = do_s + kTile * LD;       // [64][LD]
-  float* v_s = k_s + kTile * LD;        // [64][LD]
-  float* ds_s = v_s + kTile * LD;       // [64 q][kLdP k]
-  float* lse_s = ds_s + kTile * kLdP;   // [64]
-  float* delta_s = lse_s + kTile;       // [64]
-  int* segq_s = reinterpret_cast<int*>(delta_s + kTile);
-  int* segk_s = segq_s + kTile;
+struct DqSmem {
+  static constexpr int LD = D + kPad;
+  static constexpr int BK = dq_rows<D>();
+  static constexpr int kStage = 2 * BK * LD + BK;  // k, v; seg (4 bytes each)
+  static constexpr size_t bytes = 4 * ((size_t)2 * kOwn * LD + 3 * kOwn + 2 * (size_t)kStage);
+};
 
-  const int nt = (S + kTile - 1) / kTile;
-  const int qt = nt - 1 - blockIdx.x;  // longest causal rows first
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                           const float* __restrict__ v, const float* __restrict__ dout,
+                           const float* __restrict__ lse, const float* __restrict__ delta,
+                           const int* __restrict__ seg, float* __restrict__ dq, int H, int S,
+                           int causal, float scale) {
+  using L = DqSmem<D>;
+  constexpr int LD = L::LD, BK = L::BK, NT = BK / 8;
+  extern __shared__ float smem[];
+  float* q_s = smem;                                        // [64][LD]
+  float* do_s = q_s + kOwn * LD;                            // [64][LD]
+  float* lse_s = do_s + kOwn * LD;                          // [64]
+  float* delta_s = lse_s + kOwn;                            // [64]
+  int* segq_s = reinterpret_cast<int*>(delta_s + kOwn);     // [64]
+  float* ring = reinterpret_cast<float*>(segq_s + kOwn);    // 2 stages
+  // stage st: k, v [BK][LD]; seg [BK]
+  auto tile = [&](int st, int i) { return ring + st * L::kStage + i * BK * LD; };
+  auto segk_s = [&](int st) { return reinterpret_cast<int*>(tile(st, 2)); };
+
+  const int nt_own = (S + kOwn - 1) / kOwn;
+  const int qt = nt_own - 1 - blockIdx.x;  // longest causal rows first
   const int bh = blockIdx.y;
-  const int q0 = qt * kTile;
+  const int q0 = qt * kOwn;
   const size_t base = (size_t)bh * S * D;
   const size_t rbase = (size_t)bh * S;
   const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+  const int qw = warp * 16;  // the warp's first query row in the tile
 
-  load_rows<D>(q_s, q + base, q0, S);
-  load_rows<D>(do_s, dout + base, q0, S);
-  load_vec(lse_s, lse + rbase, q0, S);
-  load_vec(delta_s, delta + rbase, q0, S);
+  auto stage_load = [&](int st, int kt) {
+    const int k0 = kt * BK;
+    cp_rows<D, BK>(tile(st, 0), k + base, k0, S);
+    cp_rows<D, BK>(tile(st, 1), v + base, k0, S);
+    if (seg_b != nullptr) cp_vec<BK>(segk_s(st), seg_b, k0, S);
+  };
+
+  // causal: the k tiles up to the last real query of the tile
+  const int q_end = min(q0 + kOwn, S);
+  const int nk = causal ? (q_end + BK - 1) / BK : (S + BK - 1) / BK;
+  cp_rows<D, kOwn>(q_s, q + base, q0, S);
+  cp_rows<D, kOwn>(do_s, dout + base, q0, S);
+  cp_vec<kOwn>(lse_s, lse + rbase, q0, S);
+  cp_vec<kOwn>(delta_s, delta + rbase, q0, S);
+  if (seg_b != nullptr) cp_vec<kOwn>(segq_s, seg_b, q0, S);
+  stage_load(0, 0);
+  cp_async_commit();
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  float lse2[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};  // lse2 = lse log2(e)
   int q_lo = 0, q_hi = 0;
-  if (seg_b != nullptr) load_seg(segq_s, seg_b, q0, S);
-  __syncthreads();
-  if (seg_b != nullptr) seg_range(segq_s, min(kTile, S - q0), q_lo, q_hi);
-
-  float dq_acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) dq_acc[i][c] = 0.f;
-
-  const int kt_end = causal ? qt + 1 : nt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {  // the next tile loads while this one computes
+      stage_load(st ^ 1, kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
     __syncthreads();
-    load_rows<D>(k_s, k + base, k0, S);
-    load_rows<D>(v_s, v + base, k0, S);
-    if (seg_b != nullptr) load_seg(segk_s, seg_b, k0, S);
-    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lse2[h] = lse_s[qw + g + 8 * h] * kLog2e;
+        delta_r[h] = delta_s[qw + g + 8 * h];
+      }
+      if (seg_b != nullptr) seg_range_rows<kOwn>(segq_s, min(kOwn, S - q0), q_lo, q_hi);
+    }
+    const int k0 = kt * BK;
+    bool live = true;
     if (seg_b != nullptr) {
       int k_lo, k_hi;
-      seg_range(segk_s, min(kTile, S - k0), k_lo, k_hi);
-      if (k_hi < q_lo || k_lo > q_hi) continue;
+      seg_range_rows<BK>(segk_s(st), min(BK, S - k0), k_lo, k_hi);
+      live = !(k_hi < q_lo || k_lo > q_hi);  // uniform: no shared pair of ids
     }
-
-    float s[4][4], dp[4][4];
+    if (live) {
+      const float* ks = tile(st, 0);
+      const float* vs = tile(st, 1);
+      float s[NT][4], dp[NT][4];  // query rows qw + g (+8), key columns
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+      for (int j = 0; j < NT; ++j)
 #pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    tile_qk<D>(q_s, k_s, ty, tx, s);
-    tile_qk<D>(do_s, v_s, ty, tx, dp);
-    const bool needs_mask =
-        (causal && kt == qt) || q0 + kTile > S || k0 + kTile > S || seg_b != nullptr;
-    probs_and_dscores(s, dp, lse_s, delta_s, needs_mask, q0, k0, S, causal,
-                      seg_b != nullptr ? segq_s : nullptr, segk_s, ty, tx, scale);
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll 2
+      for (int c0 = 0; c0 < D; c0 += 8) {
+        const Frag<4> qa = frag_a<D>(q_s, qw, c0);
+        const Frag<4> da = frag_a<D>(do_s, qw, c0);
 #pragma unroll
-    for (int i = 0; i < 4; ++i)
+        for (int j = 0; j < NT; ++j) {
+          mma_3xtf32(s[j], qa, frag_b_t<D>(ks, 8 * j, c0, g, t));
+          mma_3xtf32(dp[j], da, frag_b_t<D>(vs, 8 * j, c0, g, t));
+        }
+      }
+      // ds = p (dp - delta) scale with p = exp(scale s - lse); 0 where masked
+      const bool needs_mask =
+          (causal && k0 + BK - 1 > q0) || k0 + BK > S || q0 + kOwn > S || seg_b != nullptr;
+      const int* sk = seg_b != nullptr ? segk_s(st) : nullptr;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) ds_s[(ty + 16 * i) * kLdP + tx + 16 * j] = dp[i][j];
-    __syncthreads();
-    tile_pv<D>(ds_s, k_s, ty, tx, dq_acc);  // dq += ds k
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = qw + g + 8 * (e >> 1);
+          const int kl = 8 * j + 2 * t + (e & 1);
+          float p = ex2(fmaf(s[j][e], scale * kLog2e, -lse2[e >> 1]));
+          if (needs_mask &&
+              !visible(q0 + ql, k0 + kl, S, causal, seg_b != nullptr ? segq_s : nullptr, sk, ql, kl))
+            p = 0.f;
+          dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]) * scale;
+        }
+      }
+      // dq += ds k over this tile's keys, summed in the tensor core per tile
+      Frag<4> dsa[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) dsa[j] = acc_as_a(dp[j]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float dqt[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_3xtf32_tc(dqt, dsa[j], frag_b_n<D>(ks, 8 * j, 8 * n, g, t));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dq_acc[n][e] += dqt[e];
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
   }
 
-  float one[4] = {1.f, 1.f, 1.f, 1.f};
-  store_rows<D>(dq + base, q0, S, ty, tx, dq_acc, one);
+  store_acc<D>(dq + base, q0 + qw, S, g, t, dq_acc);
 }
 
 // ---------------------------------------------------------------------------
@@ -532,14 +918,6 @@ flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k
 
 constexpr size_t fwd_smem(int D) {
   return sizeof(float) * (3 * (size_t)kTile * (D + kPad) + (size_t)kTile * kLdP) +
-         2 * sizeof(int) * kTile;
-}
-constexpr size_t dkv_smem(int D) {
-  return sizeof(float) * (4 * (size_t)kTile * (D + kPad) + 2 * (size_t)kTile * kLdP + 2 * kTile) +
-         2 * sizeof(int) * kTile;
-}
-constexpr size_t dq_smem(int D) {
-  return sizeof(float) * (4 * (size_t)kTile * (D + kPad) + (size_t)kTile * kLdP + 2 * kTile) +
          2 * sizeof(int) * kTile;
 }
 
@@ -567,11 +945,11 @@ template <int D>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, const void* seg, void* dk, void* dv, int B, int H, int S,
                int causal, cudaStream_t stream) {
-  const size_t smem = dkv_smem(D);
-  cudaError_t e = allow_smem(flash_bwd_dkv_f32_kernel<D>, smem);
+  const size_t smem = DkvSmem<D>::bytes;
+  cudaError_t e = allow_smem(flash_bwd_dkv_3xtf32_kernel<D>, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
-  flash_bwd_dkv_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_bwd_dkv_3xtf32_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dk),
@@ -583,11 +961,11 @@ template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, const void* seg, void* dq, int B, int H, int S, int causal,
               cudaStream_t stream) {
-  const size_t smem = dq_smem(D);
-  cudaError_t e = allow_smem(flash_bwd_dq_f32_kernel<D>, smem);
+  const size_t smem = DqSmem<D>::bytes;
+  cudaError_t e = allow_smem(flash_bwd_dq_3xtf32_kernel<D>, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
-  flash_bwd_dq_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_bwd_dq_3xtf32_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const float*>(dout), static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<float*>(dq), H,

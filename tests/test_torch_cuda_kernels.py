@@ -262,6 +262,23 @@ FLASH_CASES = {
     "single_row": dict(B=2, H=2, S=1, D=64, causal=True, seg=False),
     "noncausal_d128_ragged": dict(B=1, H=1, S=257, D=128, causal=False,
                                   seg=False),
+    # the backward kernels' tiles: 64 owned rows, 64 streamed rows (32 at
+    # D = 128); segment ids that change exactly on a tile edge; and
+    # "interleaved" ids, where a tile pair's id ranges overlap (so it is
+    # not skipped) but no row of it has a visible key
+    **{f"edge_d{D}_s{S}": dict(B=1, H=2, S=S, D=D, causal=True, seg=False)
+       for D in (32, 64, 128) for S in (63, 64, 65)},
+    **{f"edge_d128_s{S}_noncausal": dict(B=1, H=2, S=S, D=128,
+                                         causal=False, seg=False)
+       for S in (31, 32, 33)},
+    "seg_on_tile_edges_d64": dict(B=2, H=2, S=192, D=64, causal=True,
+                                  seg="edges"),
+    "seg_on_tile_edges_d128": dict(B=1, H=2, S=192, D=128, causal=False,
+                                   seg="edges"),
+    "no_visible_key_causal": dict(B=1, H=2, S=128, D=64, causal=True,
+                                  seg="interleaved"),
+    "no_visible_key_noncausal": dict(B=1, H=2, S=128, D=64, causal=False,
+                                     seg="interleaved"),
 }
 
 
@@ -270,7 +287,17 @@ def _flash_case(seed, B, H, S, D, causal, seg):
     q, k, v, do = (torch.from_numpy(rng.standard_normal(
         (B, H, S, D)).astype(np.float32)).cuda() for _ in range(4))
     ids = None
-    if seg:
+    if seg == "edges":
+        # documents of 32 rows: every 64- and 32-row tile edge is a boundary
+        ids = np.tile(np.arange(S, dtype=np.int32) // 32, (B, 1))
+        ids = torch.from_numpy(ids).cuda()
+    elif seg == "interleaved":
+        # rows 0..63 alternate ids 0 and 2, the rest are id 1: the tile
+        # pairs (rows < 64, rows >= 64) have overlapping id ranges and no
+        # visible pair
+        ids = np.where(np.arange(S) < 64, 2 * (np.arange(S) % 2), 1)
+        ids = torch.from_numpy(np.tile(ids.astype(np.int32), (B, 1))).cuda()
+    elif seg:
         # monotone packed documents, plus one row of shuffled ids (range
         # pruning keeps tiles live whose entries are all masked)
         cuts = np.sort(rng.integers(0, S, (B, 3)), axis=1)
@@ -308,6 +335,25 @@ def test_flash_kernels_match_plain_versions(cuda_device, name):
                       (dv, dv_r)):
         assert torch.isfinite(got).all()
         assert _rel_err(got, want) <= 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_backward_kernels_are_deterministic(cuda_device, causal):
+    """No atomics: each gradient element is written by one block, so two
+    launches on the same inputs give bitwise-equal dk, dv and dq."""
+    q, k, v, do, seg = _flash_case(7, B=2, H=3, S=200, D=64, causal=causal,
+                                   seg=True)
+    o, lse = flash_fwd(q, k, v, seg, causal=causal)
+    delta = flash_delta(o, do)
+    args = (q, k, v, do, lse, delta, seg)
+    first = (*flash_bwd_dkv(*args, causal=causal),
+             flash_bwd_dq(*args, causal=causal))
+    second = (*flash_bwd_dkv(*args, causal=causal),
+              flash_bwd_dq(*args, causal=causal))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -186,3 +186,81 @@ def test_dropout_keep_rate_and_scaling():
     np.testing.assert_allclose(y[kept].numpy(), 1 / 0.7, rtol=1e-6)
     assert dropout(gen, x, 0.0, deterministic=False) is x
     assert dropout(gen, x, 0.3, deterministic=True) is x
+
+
+# ---------------------------------------------------------------------
+# the backward kernels' arithmetic (3xTF32), emulated on the CPU
+# ---------------------------------------------------------------------
+
+def _tf32(x):
+    """x rounded to TF32 (10 explicit mantissa bits) to nearest, ties away
+    from zero, as ``cvt.rna.tf32.f32``: half of the 13 dropped bits is
+    added to the magnitude, then they are cleared."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_matmul(a, b, terms):
+    """a @ b with TF32 operands and the products summed in f64: one product
+    of the rounded operands (``terms=1``, plain TF32), or three (big x big +
+    big x small + small x big with big = tf32(x), small = tf32(x - big):
+    3xTF32, the backward kernels' scheme)."""
+    ab, bb = _tf32(a), _tf32(b)
+    out = ab.double() @ bb.double()
+    if terms == 3:
+        out = (out + ab.double() @ _tf32(b - bb).double()
+               + _tf32(a - ab).double() @ bb.double())
+    return out.float()
+
+
+def _backward_in_tf32(q, k, v, do, lse, delta, terms):
+    """``_probs_and_dscores`` and the three gradient products (causal, no
+    segments) with every product through ``_tf32_matmul``."""
+    S, D = q.shape[-2:]
+    scale = 1.0 / np.sqrt(D)
+    mm = lambda a, b: _tf32_matmul(a, b, terms)  # noqa: E731
+    s = mm(q, k.transpose(-1, -2)) * scale
+    vis = fa.visible_pairs(S, True, None, q.device)
+    p = torch.where(vis, torch.exp(s - lse[..., None]), torch.zeros_like(s))
+    ds = p * (mm(do, v.transpose(-1, -2)) - delta[..., None]) * scale
+    return (mm(ds, k), mm(ds.transpose(-1, -2), q),
+            mm(p.transpose(-1, -2), do))
+
+
+def _tf32_case():
+    q, k, v, do = map(_t, _inputs(8, shape=(1, 2, 512, 64))[:4])
+    o, lse = flash_fwd_ref(q, k, v, causal=True)
+    args = (q, k, v, do, lse, flash_delta(o, do))
+    want = (flash_bwd_dq_ref(*args, causal=True),
+            *flash_bwd_dkv_ref(*args, causal=True))
+    return args, want
+
+
+def _rel_to_max(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def test_3xtf32_backward_stays_at_f32_accuracy():
+    """dq, dk, dv with every product in 3xTF32 (B=1, H=2, S=512, D=64,
+    causal) within 1e-5 of the f32 plain versions, relative to the
+    largest magnitude."""
+    args, want = _tf32_case()
+    got = _backward_in_tf32(*args, terms=3)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_to_max(g, w) <= 1e-5, name
+
+
+def test_plain_tf32_backward_misses_the_kernel_gate():
+    """The same with plain TF32 products: off by more than the card gate of
+    1e-4 in each gradient, which is why the kernels split each operand."""
+    args, want = _tf32_case()
+    got = _backward_in_tf32(*args, terms=1)
+    for name, g, w in zip(("dq", "dk", "dv"), got, want):
+        assert _rel_to_max(g, w) > 1e-4, name
+
+
+def test_tf32_rounding_is_round_to_nearest_ties_away():
+    ulp = 2.0 ** -10
+    x = torch.tensor([1.0, 1 + ulp / 2, 1 + ulp / 2 - 2 ** -23, -(1 + ulp / 2),
+                      1 + ulp * 0.75, 3.14159265], dtype=torch.float32)
+    want = [1.0, 1 + ulp, 1.0, -(1 + ulp), 1 + ulp, 3.140625]
+    assert _tf32(x).tolist() == want
