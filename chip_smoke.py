@@ -6,30 +6,39 @@
 Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. **kernels** — build every CUDA source of the path with ``nvcc``
-   (one process per source, started together) and check the SASS of the
-   backward kernels (``cuobjdump``): every instantiation of K2 and K3
-   holds tensor-core instructions (HMMA: their products run in 3xTF32)
-   and no atomics. Then hold each kernel
-   to its plain PyTorch version at the main paths' shapes (GPT-2 base
-   heads, D = 64). Paged attention (K4, block size 16): decode rows
-   with mixed context lengths and a dead row, prefill tails at start 0
-   and at an offset that is not block-aligned, and a GQA case. Flash
+   (one process per source, started together) and check the SASS
+   (``cuobjdump``): every instantiation of K1, K2 and K3 holds
+   tensor-core instructions (HMMA: their products run in 3xTF32) and no
+   atomics, and no instantiation of K4's decode kernel holds atomics.
+   Then hold each kernel to its plain PyTorch version at the main paths'
+   shapes (GPT-2 base heads, D = 64). Paged attention (K4, block size
+   16; the decode path for at most 4 query rows a kv head, else the
+   prefill path): decode rows with mixed context lengths and a dead row,
+   one row of 1,024 positions, prefill tails at start 0 and at an
+   offset that is not block-aligned, and GQA at groups 2 and 4. Flash
    attention (K1 forward, K2 dK/dV, K3 dQ): (B, H, S) = (8, 12, 1024)
    causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
    causal with a ragged last tile, (8, 12, 256) non-causal and
-   (1, 12, 4096) causal. Prints one JSON line per case with the error
-   and the times of the kernel, the plain version and a PyTorch library
-   call (``F.scaled_dot_product_attention``: over a view gathered
-   beforehand for K4; forward, and forward+backward minus forward, for
-   K1-K3 — a yardstick only, never used by the port), plus the least
+   (1, 12, 4096) causal. Prints one JSON line per case with the error,
+   the times of the kernel and of a PyTorch library call (20 calls
+   captured in a CUDA graph and replayed: device time, no host time
+   between launches; the library call is
+   ``F.scaled_dot_product_attention``, over a view gathered beforehand
+   for K4, forward, and forward+backward minus forward, for K1-K3 — a
+   yardstick only, never used by the port), the plain version's time
+   (20 calls, CUDA events), each kernel call's
+   wall time through its Python entry point beside (``call_ms``, CUDA
+   events; a small kernel's wrapper can take longer on the host than the
+   kernel on the device), plus the least
    time the card could take (``bound_ms``: bytes at the HBM rate, or
    operations at the 3xTF32 rate of 165 TFLOP/s, whichever is longer).
    At the train shape also K2 + K3 as one backward beside SDPA's whole
    backward, its bound counting the 5 products a fused backward needs.
    K4 again with quantized and narrow pools at the decode shape (int8,
    bf16, fp8, fake_quant: dequantize on load and, for the scaled int8
-   and fake_quant, the fresh-K/V override), int8 prefill tails, the
-   verify shape (8 rows x 4 queries, f32 and int8) and int8 GQA; then
+   and fake_quant, the fresh-K/V override), int8 prefill tails, a P =
+   128 prefill tail per other layout, the verify shape (8 rows x 4
+   queries, f32 and int8) and int8 GQA; then
    two exact checks: the fake_quant decode case equals the f32 one bit
    for bit, and ``paged_quant_window_update`` on the card equals the
    same call on the CPU byte for byte.
@@ -38,13 +47,15 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    greedy requests with prompts of 32-400 tokens (one continues
    another's conversation, so the prefix cache hits and copies on
    write), run to completion. The kernel launch counts are zeroed just
-   before and read just after; each request's tokens are checked
+   before and read just after (decode steps on K4's decode path,
+   prefills on its prefill path); each request's tokens are checked
    against greedy decoding by the dense ``gpt2_apply`` on the card (a
    mismatch where the dense top-2 logit gap is below 1e-3 is reported
    as a near-tie, any other fails). Prints decode tokens/s, TTFT p50
    and, over steady decode steps, the step's wall time (no profiler
    running) against the device's busy time and the kernel's time
-   (``torch.profiler``, next steps).
+   (``torch.profiler``, next steps; K4's device kernels found by symbol,
+   ``PAGED_SYMBOLS``, n_layer decode kernels a step or the run fails).
 3. **serve_kv** — the same script once per KV layout policy
    (fake_quant, int8, bf16, fp8), each run's counts zeroed just before
    it: every launch is the policy's kernel variant, n_layer x (decode
@@ -73,7 +84,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    step must be n_layer x micro-batches).
 
 Then one JSON line of per-kernel numbers (K4 once per variant the
-serve phases launched), the card's name and power
+serve phases launched and path), the card's name and power
 limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is not available or the package is missing.
@@ -110,9 +121,13 @@ FLASH_KERNELS = {                # wrapper -> the TPU kernel it replaces
     "flash_bwd_dq": "quintnet_tpu/ops/pallas_attention.py:304",
 }
 FLASH_SYMBOLS = {                # wrapper -> its CUDA kernel's name
-    "flash_fwd": "flash_fwd_f32_kernel",
+    "flash_fwd": "flash_fwd_3xtf32_kernel",
     "flash_bwd_dkv": "flash_bwd_dkv_3xtf32_kernel",
     "flash_bwd_dq": "flash_bwd_dq_3xtf32_kernel",
+}
+PAGED_SYMBOLS = {                # K4 path -> its CUDA kernel's name
+    "decode": "paged_decode_split_kernel",
+    "prefill": "paged_attention_kernel",
 }
 
 
@@ -129,8 +144,9 @@ def _wrappers():
 def _zero_counts() -> None:
     for fn in _wrappers().values():
         fn.launches = 0
-        if hasattr(fn, "launches_by_variant"):
-            fn.launches_by_variant.clear()
+        for by in ("launches_by_variant", "launches_by_path"):
+            if hasattr(fn, by):
+                getattr(fn, by).clear()
 
 
 def _counts() -> dict:
@@ -146,6 +162,32 @@ def _timed_ms(fn) -> float:
     t0.record()
     for _ in range(TIMED_ITERS):
         fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / TIMED_ITERS
+
+
+def _graph_ms(fn) -> float:
+    """Mean time of ``fn`` over ``TIMED_ITERS`` calls captured in one CUDA
+    graph and replayed after a warm-up replay (CUDA events around the
+    replay): the device's time for the launches, with none of the host's
+    time between them, which a small kernel's Python wrapper can
+    exceed."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(TIMED_ITERS):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    t0.record()
+    graph.replay()
     t1.record()
     torch.cuda.synchronize()
     return t0.elapsed_time(t1) / TIMED_ITERS
@@ -271,32 +313,54 @@ DECODE_STARTS = [1023, 700, 511, 300, 129, 64, 17, 0]
 
 
 def _paged_cases():
-    from quintnet_tpu_torch.ops.paged_attention import (kernel_variant,
+    from quintnet_tpu_torch.ops.paged_attention import (kernel_path,
+                                                        kernel_variant,
                                                         paged_attention,
                                                         paged_attention_ref)
 
     gen = torch.Generator(device=DEVICE).manual_seed(1234)
     H, bs = 12, 16
+    # "main": the case whose times stand for (variant, path) in the
+    # kernels line -- the decode shape, and prefill P = 128 at start 0
     cases = [_paged_case(gen, name="decode", S=8, Hq=H, Hkv=H, P=1,
                          starts=DECODE_STARTS, dead=(7,))]
+    cases[0]["main"] = "decode"
     for P in (16, 128, 1024):
         for st in (0, 37):
             cases.append(_paged_case(gen, name=f"prefill_P{P}_start{st}",
                                      S=1, Hq=H, Hkv=H, P=P, starts=[st]))
+            if (P, st) == (128, 0):
+                cases[-1]["main"] = "prefill"
     cases.append(_paged_case(gen, name="decode_gqa", S=8, Hq=H, Hkv=H // 2,
                              P=1, starts=[900, 450, 31, 16, 15, 200, 5, 0],
                              dead=(7,)))
+    # one long row, where splitting the context matters most, and GQA at
+    # group 4 (12 query heads on 3 kv heads)
+    cases.append(_paged_case(gen, name="decode_long_row", S=1, Hq=H, Hkv=H,
+                             P=1, starts=[1023]))
+    cases.append(_paged_case(gen, name="decode_gqa4", S=8, Hq=H, Hkv=H // 4,
+                             P=1, starts=[900, 450, 31, 16, 15, 200, 5, 0],
+                             dead=(7,)))
     # the quantized and narrow pools: the decode shape per layout, int8
-    # prefill tails, the verify shape (3 drafts + 1) and int8 GQA
+    # prefill tails, a prefill tail per other layout, the verify shape (3
+    # drafts + 1) and int8 GQA
     for layout in ("int8", "bf16", "fp8", "fake_quant"):
         cases.append(_paged_case(gen, name=f"decode_{layout}", S=8, Hq=H,
                                  Hkv=H, P=1, starts=DECODE_STARTS, dead=(7,),
                                  layout=layout))
+        cases[-1]["main"] = "decode"
     for P in (16, 128, 1024):
         for st in (0, 37):
             cases.append(_paged_case(gen, name=f"prefill_int8_P{P}_start{st}",
                                      S=1, Hq=H, Hkv=H, P=P, starts=[st],
                                      layout="int8"))
+            if (P, st) == (128, 0):
+                cases[-1]["main"] = "prefill"
+    for layout in ("bf16", "fp8", "fake_quant"):
+        cases.append(_paged_case(gen, name=f"prefill_{layout}_P128_start0",
+                                 S=1, Hq=H, Hkv=H, P=128, starts=[0],
+                                 layout=layout))
+        cases[-1]["main"] = "prefill"
     for layout in ("f32", "int8"):
         cases.append(_paged_case(
             gen, name=f"verify_{layout}_S8_P4", S=8, Hq=H, Hkv=H, P=4,
@@ -320,21 +384,29 @@ def _paged_cases():
             raise AssertionError(f"{c['name']}: max_abs_err {err} > "
                                  f"{KERNEL_TOL}")
         outs[c["name"]] = out
+        path = kernel_path(c["q"], c["k"])
+        call = lambda: paged_attention(*args, **kw)  # noqa: E731
+        plain = lambda: paged_attention_ref(*args, **kw)  # noqa: E731
+        library = _library_fn(c)
         res = {"kernel": "paged_attention", "case": c["name"],
                "variant": kernel_variant(c["k"],
                                          c["kw"].get("kv_scales")),
+               "path": path,
+               "main": c.get("main"),
                "pool_dtype": str(c["k"].dtype).replace("torch.", ""),
                "shape_q": list(c["q"].shape),
                "kv_heads": c["k"].shape[1], "starts": c["starts"].tolist(),
                "max_abs_err": err,
-               "kernel_ms": _timed_ms(lambda: paged_attention(*args, **kw)),
-               "plain_ms": _timed_ms(
-                   lambda: paged_attention_ref(*args, **kw)),
-               "library_ms": _timed_ms(_library_fn(c)),
+               "kernel_ms": _graph_ms(call),
+               "call_ms": _timed_ms(call),
+               "plain_ms": _timed_ms(plain),
+               "library_ms": _graph_ms(library),
                "library": "F.scaled_dot_product_attention on a view "
                           "gathered and dequantized beforehand, the run "
                           "inserted (yardstick)"}
         res.update(_bound(c["flops"], c["bytes"]))
+        if res["main"] not in (None, res["path"]):
+            raise AssertionError(f"{c['name']} took the {res['path']} path")
         _emit(res)
         results.append(res)
     _fake_quant_is_f32(cases[0], outs["decode"])
@@ -500,24 +572,23 @@ def _flash_cases():
                 visible_pairs(S, causal, seg, q.device).expand(B, 1, S, S))
         sdpa_kw = (dict(attn_mask=mask) if mask is not None
                    else dict(is_causal=causal))
-        lib_fwd = _timed_ms(lambda: sdpa(q, k, v, **sdpa_kw))
+        lib_fwd = _graph_ms(lambda: sdpa(q, k, v, **sdpa_kw))
         qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-        lib_fwd_bwd = _timed_ms(lambda: torch.autograd.grad(
+        lib_fwd_bwd = _graph_ms(lambda: torch.autograd.grad(
             sdpa(qg, kg, vg, **sdpa_kw), (qg, kg, vg), do))
-        times = {
-            "flash_fwd": (_timed_ms(lambda: flash_fwd(q, k, v, seg,
-                                                      causal=causal)),
-                          _timed_ms(lambda: flash_fwd_ref(q, k, v, seg,
-                                                          causal=causal))),
+        calls = {
+            "flash_fwd": (lambda: flash_fwd(q, k, v, seg, causal=causal),
+                          lambda: flash_fwd_ref(q, k, v, seg, causal=causal)),
             "flash_bwd_dkv": (
-                _timed_ms(lambda: flash_bwd_dkv(*bwd_in, causal=causal)),
-                _timed_ms(lambda: flash_bwd_dkv_ref(*bwd_in,
-                                                    causal=causal))),
+                lambda: flash_bwd_dkv(*bwd_in, causal=causal),
+                lambda: flash_bwd_dkv_ref(*bwd_in, causal=causal)),
             "flash_bwd_dq": (
-                _timed_ms(lambda: flash_bwd_dq(*bwd_in, causal=causal)),
-                _timed_ms(lambda: flash_bwd_dq_ref(*bwd_in,
-                                                   causal=causal))),
+                lambda: flash_bwd_dq(*bwd_in, causal=causal),
+                lambda: flash_bwd_dq_ref(*bwd_in, causal=causal)),
         }
+        # (kernel, plain version, kernel call through its wrapper)
+        times = {kern: (_graph_ms(kfn), _timed_ms(pfn), _timed_ms(kfn))
+                 for kern, (kfn, pfn) in calls.items()}
         # each input read once, each output written once; 2 * D flops per
         # multiply-add over the visible pairs, 2 / 4 / 3 matmuls
         pairs = _visible_pairs(B, S, causal, seg_np) * H
@@ -528,7 +599,7 @@ def _flash_cases():
                 "flash_bwd_dkv": (4, 4 * tile + 2 * row + seg_bytes,
                                   2 * tile),
                 "flash_bwd_dq": (3, 4 * tile + 2 * row + seg_bytes, tile)}
-        for kern, (kernel_ms, plain_ms) in times.items():
+        for kern, (kernel_ms, plain_ms, call_ms) in times.items():
             n_mm, read, written = work[kern]
             res = {"kernel": kern, "case": name, "B": B, "H": H, "S": S,
                    "D": D, "causal": causal, "segments": use_seg,
@@ -539,7 +610,8 @@ def _flash_cases():
                                    else errs["dq"]),
                    "errors": errs,
                    "err_relative_to": "largest magnitude in the reference",
-                   "kernel_ms": kernel_ms, "plain_ms": plain_ms,
+                   "kernel_ms": kernel_ms, "call_ms": call_ms,
+                   "plain_ms": plain_ms,
                    "library_ms": (lib_fwd if kern == "flash_fwd"
                                   else lib_fwd_bwd - lib_fwd),
                    "library": ("F.scaled_dot_product_attention forward "
@@ -569,7 +641,7 @@ def _backward_pair(case, times, library_ms, err, launch_both, flops,
     recomputation of s and dp (7 products) shows as lost time."""
     res = {"kernel": "backward (K2 + K3)", "case": case,
            "kernel_ms": times["flash_bwd_dkv"][0] + times["flash_bwd_dq"][0],
-           "kernel_ms_measured_together": _timed_ms(launch_both),
+           "kernel_ms_measured_together": _graph_ms(launch_both),
            "plain_ms": times["flash_bwd_dkv"][1] + times["flash_bwd_dq"][1],
            "max_abs_err": err,
            "library_ms": library_ms,
@@ -609,25 +681,35 @@ def _sass_census(path):
     return census
 
 
-def _check_backward_sass(path):
-    """K2 and K3 run on the tensor cores and use no atomics (each gradient
-    element has one writer): every instantiation of both kernels holds
-    HMMA instructions and no ATOM or RED."""
-    census = _sass_census(path)
+def _check_sass(paths):
+    """The flash kernels run on the tensor cores and no K1-K3 or K4 decode
+    kernel uses atomics (each output element has one writer): every
+    instantiation of K1, K2 and K3 holds HMMA instructions and no ATOM or
+    RED, and so does no instantiation of the K4 decode kernel."""
+    census = _sass_census(paths["flash_attention"])
     out = {}
-    for wrapper in ("flash_bwd_dkv", "flash_bwd_dq"):
-        fns = {f: c for f, c in census.items() if FLASH_SYMBOLS[wrapper] in f}
+    for wrapper, sym in FLASH_SYMBOLS.items():
+        fns = {f: c for f, c in census.items() if sym in f}
         if len(fns) != 3:
             raise AssertionError(f"{wrapper}: {len(fns)} instantiations of "
-                                 f"{FLASH_SYMBOLS[wrapper]} in the SASS (want "
-                                 f"3: D = 32, 64, 128)")
+                                 f"{sym} in the SASS (want 3: D = 32, 64, "
+                                 f"128)")
         for f, c in fns.items():
             if c["HMMA"] == 0 or c["ATOM"] or c["RED"]:
                 raise AssertionError(f"{f}: SASS census {c}: want HMMA > 0 "
                                      f"and no ATOM / RED")
         out[wrapper] = sorted(fns.values(), key=lambda c: c["HMMA"])
-    _emit({"check": "K2 and K3 SASS: tensor cores (HMMA), no atomics",
-           "ok": True, "census": out})
+    paged = {f: c for f, c in _sass_census(paths["paged_attention"]).items()
+             if PAGED_SYMBOLS["decode"] in f}
+    if not paged:
+        raise AssertionError(f"no {PAGED_SYMBOLS['decode']} in the SASS")
+    for f, c in paged.items():
+        if c["ATOM"] or c["RED"]:
+            raise AssertionError(f"{f}: SASS census {c}: want no ATOM / RED")
+    out["paged_attention_decode"] = {"instantiations": len(paged),
+                                     "atomics": 0}
+    _emit({"check": "K1, K2 and K3 SASS: tensor cores (HMMA), no atomics; "
+                    "K4 decode SASS: no atomics", "ok": True, "census": out})
 
 
 def phase_kernels():
@@ -644,7 +726,7 @@ def phase_kernels():
     _emit({"phase": "build", "seconds": round(time.perf_counter() - t0, 3),
            "libraries": {k: str(v.name) for k, v in paths.items()},
            "ptxas": ptxas})
-    _check_backward_sass(paths["flash_attention"])
+    _check_sass(paths)
     return _paged_cases(), _flash_cases()
 
 
@@ -759,10 +841,24 @@ def _kernel_share(eng, cfg, rng, *, window_update=False) -> dict:
 
     by_name = _device_ops(prof, spans=("paged_quant_window_update",))
     busy_us = sum(us for us, _ in by_name.values())
-    kern_us, launches = (0.0, 0)
-    for name, (us, n) in by_name.items():
-        if "paged_attention_kernel" in name:
-            kern_us, launches = kern_us + us, launches + n
+    # K4's device kernels by CUDA symbol: every steady step is a decode
+    # step, so n_layer decode-path calls a step and no prefill
+    kern_us, per_path = 0.0, {}
+    for path, sym in PAGED_SYMBOLS.items():
+        n = 0
+        for name, (us, k) in by_name.items():
+            if sym in name:
+                kern_us, n = kern_us + us, n + k
+        per_path[path] = n
+    # one device kernel a decode-path call: its splits combine inside
+    # the cluster launch
+    want = {"decode": cfg.n_layer * steps, "prefill": 0}
+    if busy_us > 0 and per_path != want:
+        raise AssertionError(
+            f"profiler: K4 device kernels over {steps} decode steps "
+            f"{per_path}; expected {want} (n_layer x steps, by symbol "
+            f"{PAGED_SYMBOLS})")
+    launches = sum(per_path.values())
     out = {"decode_steps_profiled": steps,
            "decode_step_ms": wall / steps * 1e3,
            "kernel_launches_profiled": launches,
@@ -837,11 +933,15 @@ def _check_serve_run(eng, cfg, rids, launches):
     m = eng.metrics
     variant = _variant(eng.pool)
     expected = cfg.n_layer * (m.decode_steps + m.admitted)
-    if launches["total"] != expected or launches["by_variant"] != {
-            variant: expected}:
+    by_path = {"decode": cfg.n_layer * m.decode_steps,
+               "prefill": cfg.n_layer * m.admitted}
+    if (launches["total"] != expected
+            or launches["by_variant"] != {variant: expected}
+            or launches["by_path"] != by_path):
         raise AssertionError(
             f"paged_attention launched {launches}; expected n_layer x "
-            f"(decode steps + prefills) = {expected}, all {variant}")
+            f"(decode steps + prefills) = {expected}, all {variant}, "
+            f"{by_path} by path")
     if m.prefix_hit_tokens < 64:
         raise AssertionError(f"prefix cache hit only "
                              f"{m.prefix_hit_tokens} tokens (< 64)")
@@ -870,7 +970,8 @@ def _launches():
     from quintnet_tpu_torch.ops.paged_attention import paged_attention
 
     return {"total": paged_attention.launches,
-            "by_variant": dict(paged_attention.launches_by_variant)}
+            "by_variant": dict(paged_attention.launches_by_variant),
+            "by_path": dict(paged_attention.launches_by_path)}
 
 
 def _serve_engine(params, cfg, kv_dtype="f32"):
@@ -903,6 +1004,7 @@ def phase_serve():
     res = {"phase": "serve", "model": "gpt2-124M (random init, seed 0)",
            "kv_dtype": "f32", "warmup_s": warmup_s, "launches": counts,
            "launches_by_variant": launches["by_variant"],
+           "launches_by_path": launches["by_path"],
            "tokens_checked_vs_dense": checked, "near_ties": near_ties}
     res.update(_serve_numbers(eng, rids, prompts, steps))
     res.update(_kernel_share(eng, cfg, rng))
@@ -993,7 +1095,7 @@ def phase_serve_kv(params, cfg, f32_streams):
         if name == "int8":
             res.update(_kernel_share(eng, cfg, rng, window_update=True))
         _emit(res)
-        runs[name] = launches["by_variant"]
+        runs[name] = launches
         out[name] = res
         del eng
         torch.cuda.empty_cache()
@@ -1193,6 +1295,12 @@ def phase_train():
 
 # ---------------------------------------------------------------------
 
+def _variant_of(by_variant):
+    """The one K4 variant a serve run launched."""
+    (variant,) = by_variant
+    return variant
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
@@ -1217,21 +1325,25 @@ def main() -> int:
                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                 "library_ms": head["library_ms"]}
 
-    # each kernel's times at its main path's shape: the decode rows for
-    # paged attention (one entry per variant, launches from its policy's
-    # serve run), the train micro-batch for flash attention
-    launched = dict(serve_res["launches_by_variant"])
-    for by_variant in kv_runs.values():
-        launched.update(by_variant)
+    # each kernel's times at its main path's shape: for paged attention
+    # one entry per (variant, path) with the launches of that path in the
+    # variant's serve run, timed at the decode shape or at prefill P = 128
+    # (start 0); the train micro-batch for flash attention
+    runs = {_variant_of(serve_res["launches_by_variant"]): {
+        "by_path": serve_res["launches_by_path"]}}
+    for launches in kv_runs.values():
+        runs[_variant_of(launches["by_variant"])] = launches
     kernels = []
-    for variant, n in launched.items():
-        rows = [r for r in paged_rows if r["variant"] == variant]
-        head = next(r for r in rows if r["case"].startswith("decode")
-                    and "gqa" not in r["case"])
-        kernels.append(entry(
-            f"paged_attention[{variant}]",
-            "quintnet_tpu_torch/ops/csrc/paged_attention.cu",
-            "quintnet_tpu/ops/paged_attention.py:91", n, rows, head))
+    for variant, launches in runs.items():
+        for path in PAGED_SYMBOLS:
+            rows = [r for r in paged_rows if r["variant"] == variant
+                    and r["path"] == path]
+            head = next(r for r in rows if r["main"] == path)
+            kernels.append(entry(
+                f"paged_attention[{variant}, {path}]",
+                "quintnet_tpu_torch/ops/csrc/paged_attention.cu",
+                "quintnet_tpu/ops/paged_attention.py:91",
+                launches["by_path"].get(path, 0), rows, head))
     for name, replaces in FLASH_KERNELS.items():
         rows = [r for r in flash_rows if r["kernel"] == name]
         kernels.append(entry(

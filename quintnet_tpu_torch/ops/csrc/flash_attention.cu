@@ -40,58 +40,63 @@
 // row adds nothing. Rows past S (a ragged last tile) are zero-filled on load
 // and masked.
 //
-// K1, the forward, runs on the f32 CUDA cores: 256 threads (16 x 16), each
-// owning a 4 x 4 block of the 64 x 64 score tile and 4 rows x D/16 columns of
-// the output; rows padded to D + 4 floats in shared memory.
-//
-// K2 and K3 run every product on the tensor cores at f32 accuracy (3xTF32,
-// the scheme of CUTLASS's OpMultiplyAddFastF32): each f32 operand x is split
-// into big = tf32(x) (rounded to nearest, as cvt.rna) and small =
+// All three kernels run every product on the tensor cores at f32 accuracy
+// (3xTF32, the scheme of CUTLASS's OpMultiplyAddFastF32): each f32 operand x
+// is split into big = tf32(x) (rounded to nearest, as cvt.rna) and small =
 // tf32(x - big), and big*big + big*small + small*big is accumulated in f32
 // by mma.sync.m16n8k8.row.col.f32.tf32.tf32.f32. Plain TF32 would lose ~3
-// digits (5.9e-4 relative on dq at S = 512); 3xTF32 stays near f32.
+// digits (5.9e-4 relative on dq, 3.9e-4 on o at S = 512); 3xTF32 stays near
+// f32.
 //   * Why mma.sync and not wgmma: wgmma's tf32 form reads both operands
-//     K-major from shared memory, and three of the five products (p^T do,
-//     ds^T q, ds k) want their B operand the other way round, which would
-//     need transposed copies staged in shared memory, and p and ds would
-//     have to go through shared memory too. mma.sync takes its fragments
-//     from registers, so each thread loads them in the orientation the
-//     product needs.
-//   * Orientation: K2 computes s^T = k q^T and dp^T = v do^T for its 64
-//     keys, so p^T and ds^T come out with key rows; K3 computes s = q k^T.
-//     The probabilities and score gradients then feed the next product (dv,
-//     dk, dq) as its A operand straight from the accumulator registers: the
-//     depth index of each 8-deep step is permuted (fragment k = t reads
-//     column 2t, k = t + 4 column 2t + 1) so that the accumulator layout IS
-//     the A-fragment layout, with no warp shuffle and no transposed copy of
-//     p or ds in shared memory. The B operand's rows follow the same
-//     permutation.
-//   * Loads: operands that sit row-major in shared memory (k, v, q, do as A;
-//     q, do as B of s^T and dp^T in K2) come in by ldmatrix.x4, four 8 x 4
-//     f32 blocks a warp instruction; the B operands read down a column (and
-//     k, v in K3, where ldmatrix measured no faster) by scalar loads. Rows
-//     are padded to D + 4 floats and every pattern is free of bank conflicts.
+//     K-major from shared memory, and three of the backward's five products
+//     (p^T do, ds^T q, ds k) and the forward's p v want their B operand the
+//     other way round, which would need transposed copies staged in shared
+//     memory, and p and ds would have to go through shared memory too.
+//     mma.sync takes its fragments from registers, so each thread loads them
+//     in the orientation the product needs.
+//   * Orientation: K1 and K3 compute s = q k^T for their 64 queries, K2
+//     computes s^T = k q^T and dp^T = v do^T for its 64 keys, so p^T and
+//     ds^T come out with key rows. The probabilities and score gradients
+//     then feed the next product (o, dv, dk, dq) as its A operand straight
+//     from the accumulator registers: the depth index of each 8-deep step is
+//     permuted (fragment k = t reads column 2t, k = t + 4 column 2t + 1) so
+//     that the accumulator layout IS the A-fragment layout, with no warp
+//     shuffle and no copy of p or ds in shared memory. The B operand's rows
+//     follow the same permutation.
+//   * Loads: operands that sit row-major in shared memory (q, k, v, do as A;
+//     k in K1, q, do in K2 as B of s, s^T and dp^T) come in by ldmatrix.x4,
+//     four 8 x 4 f32 blocks a warp instruction; the B operands read down a
+//     column (and k, v in K3, where ldmatrix measured no faster) by scalar
+//     loads. Rows are padded to D + 4 floats and every pattern is free of
+//     bank conflicts.
 //   * Where to split: per fragment load, in registers, with integer adds and
 //     masks. Splitting once at staging time into big and small tiles was
 //     measured slower on the card (twice the shared memory and loads, fewer
 //     blocks per SM, one more barrier a tile).
 //   * Rounding: the tensor core truncates its sums, so long chains of steps
 //     summed inside it drift one way (see mma_3xtf32); s and dp add each
-//     8-deep step to f32 registers with round-to-nearest, dk, dv and dq each
-//     streamed tile.
+//     8-deep step to f32 registers with round-to-nearest, o, dk, dv and dq
+//     each streamed tile.
 //   * Staging: a two-stage ring in shared memory, filled by 16-byte
 //     cp.async.cg (4-byte cp.async for lse, delta and segment ids), so the
-//     next streamed tile (q, do, lse, delta, q ids in K2; k, v, k ids in K3)
-//     loads while the current one computes; rows past S are zero-filled.
-//   * Tiles: 128 threads (4 warps x 16 owned rows), 64 owned rows; K2
-//     streams 32 query rows a stage (64 at D = 32), K3 64 key rows (32 at D
-//     = 128). At D = 64 ptxas gives K2 239 and K3 246 registers a thread
-//     (launch bounds of one block, so the compiler may use all 255, which
-//     measured faster than capping them for more blocks) and the blocks take
-//     69 KB and 103 KB of shared memory: two blocks, 8 warps, per SM. At
-//     the train shape (B = 32, H = 12, S = 512) each kernel launches 3,072
-//     blocks. K2 runs the longest causal key tiles first (kt = 0), K3 the
-//     longest query tiles (qt = nt - 1 first).
+//     next streamed tile (k, v, k ids in K1 and K3; q, do, lse, delta, q ids
+//     in K2) loads while the current one computes; rows past S are
+//     zero-filled.
+//   * Tiles: 128 threads (4 warps x 16 owned rows), 64 owned rows; K1 and K3
+//     stream 64 key rows a stage (32 at D = 128), K2 32 query rows (64 at D =
+//     32). Launch bounds of one block, so the compiler may use all 255
+//     registers (measured faster than capping them for more blocks, in K2
+//     and K3). At the train shape (B = 32, H = 12, S = 512) each kernel
+//     launches 3,072 blocks. K2 runs the longest causal key tiles first (kt
+//     = 0), K1 and K3 the longest query tiles (qt = nt - 1 first).
+//   * K1's online softmax runs on the accumulator fragments: a row's 8
+//     scores of an m16n8 tile sit on the 4 lanes of a quad, so the row max
+//     takes two __shfl_xor_sync steps; each thread keeps its own part of the
+//     row sum l, reduced over the quad once at the end. Then p feeds o += p v
+//     from registers, with no barrier between the softmax and the product.
+//     K1 reloads its q fragments from shared memory for every k tile, as K3
+//     does. Holding them split in registers for the whole loop (64 more
+//     registers a thread at D = 64) measured slower on the card.
 //   * exp is ex2.approx on a pre-scaled argument (~2 ulp).
 //
 // Bound: operations. Per (b, h) the forward does 2 matmuls of S^2 D
@@ -99,8 +104,7 @@
 // (s, dp, dq), halved by causality, while each moves a few S x D slabs once:
 // at S = 512, D = 64 that is 64-85 f32 operations per byte. For f32-accurate
 // products the card's least time is set by 3xTF32 on the tensor cores:
-// 495 / 3 = 165 TFLOP/s (at 3.35 TB/s, ~49 operations per byte). K1 still
-// runs on the CUDA cores (67 TFLOP/s).
+// 495 / 3 = 165 TFLOP/s (at 3.35 TB/s, ~49 operations per byte).
 
 #include <climits>
 #include <cstdint>
@@ -109,146 +113,8 @@
 
 namespace {
 
-constexpr int kThreads = 256;  // 16 x 16
-constexpr int kTile = 64;      // rows of q and of k per tile
-constexpr int kPad = 4;        // row padding in floats: 16-byte rows, staggered banks
-constexpr int kLdP = kTile + kPad;
+constexpr int kPad = 4;  // row padding in floats: 16-byte rows, staggered banks
 constexpr float kNegInf = -1e30f;
-
-// ---------------------------------------------------------------------------
-// shared-memory helpers
-
-// rows row0 .. row0+63 of a [S, D] slab into smem [64][D + kPad]; rows past S are 0
-template <int D>
-__device__ __forceinline__ void load_rows(float* dst, const float* __restrict__ src,
-                                          int row0, int S) {
-  constexpr int V = D / 4;
-  for (int i = threadIdx.x; i < kTile * V; i += kThreads) {
-    const int r = i / V;
-    const int c = (i - r * V) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (row0 + r < S) val = *reinterpret_cast<const float4*>(src + (size_t)(row0 + r) * D + c);
-    *reinterpret_cast<float4*>(dst + r * (D + kPad) + c) = val;
-  }
-}
-
-__device__ __forceinline__ void load_seg(int* dst, const int* __restrict__ src, int row0, int S) {
-  for (int i = threadIdx.x; i < kTile; i += kThreads) dst[i] = row0 + i < S ? src[row0 + i] : -1;
-}
-
-// [lo, hi] of the segment ids of the tile's n_valid rows; every warp computes
-// the same answer, so the result is uniform across the block
-__device__ __forceinline__ void seg_range(const int* seg, int n_valid, int& lo, int& hi) {
-  const int lane = threadIdx.x & 31;
-  const int a = lane < n_valid ? seg[lane] : INT_MAX;
-  const int b = lane + 32 < n_valid ? seg[lane + 32] : INT_MAX;
-  const int c = lane < n_valid ? seg[lane] : INT_MIN;
-  const int d = lane + 32 < n_valid ? seg[lane + 32] : INT_MIN;
-  lo = min(a, b);
-  hi = max(c, d);
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    lo = min(lo, __shfl_xor_sync(0xffffffffu, lo, o));
-    hi = max(hi, __shfl_xor_sync(0xffffffffu, hi, o));
-  }
-}
-
-// acc[i][j] += A[ty + 16i] . B[tx + 16j] over D; A and B smem [64][D + kPad]
-template <int D>
-__device__ __forceinline__ void tile_qk(const float* a, const float* b, int ty, int tx,
-                                        float (&acc)[4][4]) {
-  constexpr int LD = D + kPad;
-#pragma unroll 2
-  for (int d = 0; d < D; d += 4) {
-    float4 av[4], bv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) av[i] = *reinterpret_cast<const float4*>(a + (ty + 16 * i) * LD + d);
-#pragma unroll
-    for (int j = 0; j < 4; ++j) bv[j] = *reinterpret_cast<const float4*>(b + (tx + 16 * j) * LD + d);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float s = acc[i][j];
-        s = fmaf(av[i].x, bv[j].x, s);
-        s = fmaf(av[i].y, bv[j].y, s);
-        s = fmaf(av[i].z, bv[j].z, s);
-        s = fmaf(av[i].w, bv[j].w, s);
-        acc[i][j] = s;
-      }
-    }
-  }
-}
-
-// the D/16 head-dim columns thread tx owns
-template <int D>
-__device__ __forceinline__ int col_of(int tx, int k) {
-  if constexpr (D == 32) {
-    return tx * 2 + k;
-  } else {
-    return (k / 4) * 64 + tx * 4 + (k % 4);
-  }
-}
-
-template <int D>
-__device__ __forceinline__ void load_cols(const float* row, int tx, float (&out)[D / 16]) {
-  if constexpr (D == 32) {
-    const float2 t = *reinterpret_cast<const float2*>(row + tx * 2);
-    out[0] = t.x;
-    out[1] = t.y;
-  } else {
-#pragma unroll
-    for (int g = 0; g < D / 64; ++g) {
-      const float4 t = *reinterpret_cast<const float4*>(row + g * 64 + tx * 4);
-      out[4 * g + 0] = t.x;
-      out[4 * g + 1] = t.y;
-      out[4 * g + 2] = t.z;
-      out[4 * g + 3] = t.w;
-    }
-  }
-}
-
-// acc[i][k] += sum_x P[ty + 16i][x] * B[x][col_of(k)]; P smem [64][kLdP], B smem [64][D + kPad]
-template <int D>
-__device__ __forceinline__ void tile_pv(const float* p, const float* b, int ty, int tx,
-                                        float (&acc)[4][D / 16]) {
-  constexpr int LD = D + kPad;
-#pragma unroll 2
-  for (int x = 0; x < kTile; x += 4) {
-    float4 pv[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pv[i] = *reinterpret_cast<const float4*>(p + (ty + 16 * i) * kLdP + x);
-    float bv[4][D / 16];
-#pragma unroll
-    for (int xx = 0; xx < 4; ++xx) load_cols<D>(b + (x + xx) * LD, tx, bv[xx]);
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int k = 0; k < D / 16; ++k) {
-        float s = acc[i][k];
-        s = fmaf(pv[i].x, bv[0][k], s);
-        s = fmaf(pv[i].y, bv[1][k], s);
-        s = fmaf(pv[i].z, bv[2][k], s);
-        s = fmaf(pv[i].w, bv[3][k], s);
-        acc[i][k] = s;
-      }
-    }
-  }
-}
-
-// 4 rows x D/16 columns of a [S, D] output, rows past S skipped
-template <int D>
-__device__ __forceinline__ void store_rows(float* __restrict__ dst, int row0, int S, int ty,
-                                           int tx, const float (&acc)[4][D / 16], float scale_row[4]) {
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= S) continue;
-    float* out = dst + (size_t)r * D;
-#pragma unroll
-    for (int k = 0; k < D / 16; ++k) out[col_of<D>(tx, k)] = acc[i][k] * scale_row[i];
-  }
-}
 
 // the mask of score (q row r, k row c), both absolute
 __device__ __forceinline__ bool visible(int r, int c, int S, bool causal, const int* seg_q,
@@ -259,123 +125,7 @@ __device__ __forceinline__ bool visible(int r, int c, int S, bool causal, const 
 }
 
 // ---------------------------------------------------------------------------
-// K1: forward
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const int* __restrict__ seg,
-                     float* __restrict__ o, float* __restrict__ lse, int H, int S, int causal,
-                     float scale) {
-  extern __shared__ float smem[];
-  constexpr int LD = D + kPad;
-  float* q_s = smem;                    // [64][LD]
-  float* k_s = q_s + kTile * LD;        // [64][LD]
-  float* v_s = k_s + kTile * LD;        // [64][LD]
-  float* p_s = v_s + kTile * LD;        // [64][kLdP]
-  int* segq_s = reinterpret_cast<int*>(p_s + kTile * kLdP);
-  int* segk_s = segq_s + kTile;
-
-  const int nt = (S + kTile - 1) / kTile;
-  const int qt = nt - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y;
-  const int q0 = qt * kTile;
-  const size_t base = (size_t)bh * S * D;
-  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
-  const int tx = threadIdx.x % 16;
-  const int ty = threadIdx.x / 16;
-
-  load_rows<D>(q_s, q + base, q0, S);
-  int q_lo = 0, q_hi = 0;
-  if (seg_b != nullptr) load_seg(segq_s, seg_b, q0, S);
-  __syncthreads();
-  if (seg_b != nullptr) seg_range(segq_s, min(kTile, S - q0), q_lo, q_hi);
-
-  float m[4], l[4], acc[4][D / 16];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < D / 16; ++c) acc[i][c] = 0.f;
-  }
-
-  const int kt_end = causal ? qt + 1 : nt;
-  for (int kt = 0; kt < kt_end; ++kt) {
-    const int k0 = kt * kTile;
-    __syncthreads();  // the previous tile's readers of k_s, v_s, p_s are done
-    load_rows<D>(k_s, k + base, k0, S);
-    load_rows<D>(v_s, v + base, k0, S);
-    if (seg_b != nullptr) load_seg(segk_s, seg_b, k0, S);
-    __syncthreads();
-    if (seg_b != nullptr) {
-      int k_lo, k_hi;
-      seg_range(segk_s, min(kTile, S - k0), k_lo, k_hi);
-      if (k_hi < q_lo || k_lo > q_hi) continue;  // uniform: no shared pair of ids
-    }
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    tile_qk<D>(q_s, k_s, ty, tx, s);
-
-    const bool needs_mask = (causal && kt == qt) || k0 + kTile > S || seg_b != nullptr;
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        float x = s[i][j] * scale;
-        if (needs_mask &&
-            !visible(q0 + ty + 16 * i, k0 + tx + 16 * j, S, causal,
-                     seg_b != nullptr ? segq_s : nullptr, segk_s, ty + 16 * i, tx + 16 * j))
-          x = kNegInf;
-        s[i][j] = x;
-      }
-    }
-
-    // online softmax: a row's 64 scores sit on the 16 lanes of one half-warp
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      float mx = fmaxf(fmaxf(s[i][0], s[i][1]), fmaxf(s[i][2], s[i][3]));
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float p = s[i][j] > 0.5f * kNegInf ? expf(s[i][j] - m_new) : 0.f;
-        s[i][j] = p;
-        sum += p;
-      }
-#pragma unroll
-      for (int off = 8; off > 0; off >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, off);
-      const float corr = expf(m[i] - m_new);
-      l[i] = l[i] * corr + sum;
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < D / 16; ++c) acc[i][c] *= corr;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) p_s[(ty + 16 * i) * kLdP + tx + 16 * j] = s[i][j];
-    }
-    __syncthreads();
-    tile_pv<D>(p_s, v_s, ty, tx, acc);
-  }
-
-  float inv[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const float li = fmaxf(l[i], 1e-30f);
-    inv[i] = 1.f / li;
-    const int r = q0 + ty + 16 * i;
-    if (tx == 0 && r < S) lse[(size_t)bh * S + r] = m[i] + logf(li);
-  }
-  store_rows<D>(o + base, q0, S, ty, tx, acc, inv);
-}
-
-// ---------------------------------------------------------------------------
-// K2 and K3: tensor-core helpers (3xTF32 on mma.sync.m16n8k8) and cp.async
+// tensor-core helpers (3xTF32 on mma.sync.m16n8k8) and cp.async
 
 constexpr int kMmaThreads = 128;  // 4 warps, 16 rows of the block's own tile each
 constexpr int kOwn = 64;          // rows of the tile a block owns (keys in K2, queries in K3)
@@ -384,7 +134,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // rows of the tile each kernel streams through its ring, from the chip runs at
 // D = 64: K2 keeps dk, dv, s^T and dp^T of 16 keys in registers and is fastest
 // with 32 query rows a stage, K3 (dq only) with 64 key rows; at D = 128 both
-// take 32 to stay within 255 registers
+// take 32 to stay within 255 registers. K1 (o only) streams as K3 does.
 template <int D>
 constexpr int dkv_rows() {
   return D == 32 ? 64 : 32;
@@ -607,6 +357,183 @@ __device__ __forceinline__ void store_acc(float* __restrict__ dst, int r0, int S
           make_float2(acc[n][2 * h], acc[n][2 * h + 1]);
   }
 }
+// ---------------------------------------------------------------------------
+// K1: forward. A block owns 64 queries (16 per warp) and streams the k tiles
+// through a two-stage cp.async ring: s = q k^T, the online softmax on the
+// accumulator fragments (row max m, row sum l), then o += p v with p taken
+// from registers. O and lse = m + log l are written once.
+
+template <int D>
+struct FwdSmem {
+  static constexpr int LD = D + kPad;
+  static constexpr int BK = dq_rows<D>();
+  static constexpr int kStage = 2 * BK * LD + BK;  // k, v; seg (4 bytes each)
+  static constexpr size_t bytes = 4 * ((size_t)kOwn * LD + kOwn + 2 * (size_t)kStage);
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_fwd_3xtf32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                        const float* __restrict__ v, const int* __restrict__ seg,
+                        float* __restrict__ o, float* __restrict__ lse, int H, int S, int causal,
+                        float scale) {
+  using L = FwdSmem<D>;
+  constexpr int LD = L::LD, BK = L::BK, NT = BK / 8;
+  extern __shared__ float smem[];
+  float* q_s = smem;                                        // [64][LD]
+  int* segq_s = reinterpret_cast<int*>(q_s + kOwn * LD);    // [64]
+  float* ring = reinterpret_cast<float*>(segq_s + kOwn);    // 2 stages
+  // stage st: k, v [BK][LD]; seg [BK]
+  auto tile = [&](int st, int i) { return ring + st * L::kStage + i * BK * LD; };
+  auto segk_s = [&](int st) { return reinterpret_cast<int*>(tile(st, 2)); };
+
+  const int nt_own = (S + kOwn - 1) / kOwn;
+  const int qt = nt_own - 1 - blockIdx.x;  // longest causal rows first
+  const int bh = blockIdx.y;
+  const int q0 = qt * kOwn;
+  const size_t base = (size_t)bh * S * D;
+  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+  const int qw = warp * 16;  // the warp's first query row in the tile
+
+  auto stage_load = [&](int st, int kt) {
+    const int k0 = kt * BK;
+    cp_rows<D, BK>(tile(st, 0), k + base, k0, S);
+    cp_rows<D, BK>(tile(st, 1), v + base, k0, S);
+    if (seg_b != nullptr) cp_vec<BK>(segk_s(st), seg_b, k0, S);
+  };
+
+  // causal: the k tiles up to the last real query of the tile
+  const int q_end = min(q0 + kOwn, S);
+  const int nk = causal ? (q_end + BK - 1) / BK : (S + BK - 1) / BK;
+  cp_rows<D, kOwn>(q_s, q + base, q0, S);
+  if (seg_b != nullptr) cp_vec<kOwn>(segq_s, seg_b, q0, S);
+  stage_load(0, 0);
+  cp_async_commit();
+
+  // rows qw + g and qw + g + 8: running max (natural log units), this
+  // thread's part of the running sum, and the output accumulator
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
+
+  int q_lo = 0, q_hi = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {  // the next tile loads while this one computes
+      stage_load(st ^ 1, kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0 && seg_b != nullptr) seg_range_rows<kOwn>(segq_s, min(kOwn, S - q0), q_lo, q_hi);
+    const int k0 = kt * BK;
+    bool live = true;
+    if (seg_b != nullptr) {
+      int k_lo, k_hi;
+      seg_range_rows<BK>(segk_s(st), min(BK, S - k0), k_lo, k_hi);
+      live = !(k_hi < q_lo || k_lo > q_hi);  // uniform: no shared pair of ids
+    }
+    if (live) {
+      const float* ks = tile(st, 0);
+      const float* vs = tile(st, 1);
+      float s[NT][4];  // query rows qw + g (+8), key columns
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll 2
+      for (int c0 = 0; c0 < D; c0 += 8) {
+        const Frag<4> qa = frag_a<D>(q_s, qw, c0);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          Frag<2> kb[2];
+          frag_b_t2<D>(ks, 8 * j, c0, kb[0], kb[1]);
+          mma_3xtf32(s[j], qa, kb[0]);
+          mma_3xtf32(s[j + 1], qa, kb[1]);
+        }
+      }
+      // scale; masked scores at kNegInf
+      const bool needs_mask =
+          (causal && k0 + BK - 1 > q0) || k0 + BK > S || q0 + kOwn > S || seg_b != nullptr;
+      const int* sk = seg_b != nullptr ? segk_s(st) : nullptr;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = qw + g + 8 * (e >> 1);
+          const int kl = 8 * j + 2 * t + (e & 1);
+          float x = s[j][e] * scale;
+          if (needs_mask &&
+              !visible(q0 + ql, k0 + kl, S, causal, seg_b != nullptr ? segq_s : nullptr, sk, ql, kl))
+            x = kNegInf;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      // online softmax: a row's scores of this tile sit on the 4 lanes of a quad
+      float corr[2], neg_m2[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_r[h], mx[h]);
+        corr[h] = ex2((m_r[h] - m_new) * kLog2e);
+        neg_m2[h] = -m_new * kLog2e;
+        m_r[h] = m_new;
+        l_r[h] *= corr[h];
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[j][e];
+          const float p = x > 0.5f * kNegInf ? ex2(fmaf(x, kLog2e, neg_m2[e >> 1])) : 0.f;
+          s[j][e] = p;
+          l_r[e >> 1] += p;
+        }
+      }
+      // o = o corr + p v over this tile's keys: p feeds the product from
+      // registers, the tile's NT steps are summed in the tensor core
+      Frag<4> pa[NT];
+#pragma unroll
+      for (int j = 0; j < NT; ++j) pa[j] = acc_as_a(s[j]);
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        float ot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_3xtf32_tc(ot, pa[j], frag_b_n<D>(vs, 8 * j, 8 * n, g, t));
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o_acc[n][e] = fmaf(o_acc[n][e], corr[e >> 1], ot[e]);
+      }
+    }
+    __syncthreads();  // this stage's readers are done before it is refilled
+  }
+
+  // l over the quad; o / l and lse = m + log l, rows past S skipped
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    const float li = fmaxf(l_r[h], 1e-30f);
+    const float inv = 1.f / li;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o_acc[n][2 * h] *= inv;
+      o_acc[n][2 * h + 1] *= inv;
+    }
+    const int r = q0 + qw + g + 8 * h;
+    if (t == 0 && r < S) lse[(size_t)bh * S + r] = m_r[h] + logf(li);
+  }
+  store_acc<D>(o + base, q0 + qw, S, g, t, o_acc);
+}
+
 // ---------------------------------------------------------------------------
 // K2: dK and dV. A block owns 64 keys (16 per warp) and streams the q tiles
 // through a two-stage cp.async ring; it computes in its own key-row
@@ -916,11 +843,6 @@ flash_bwd_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict_
 // ---------------------------------------------------------------------------
 // launch helpers
 
-constexpr size_t fwd_smem(int D) {
-  return sizeof(float) * (3 * (size_t)kTile * (D + kPad) + (size_t)kTile * kLdP) +
-         2 * sizeof(int) * kTile;
-}
-
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t bytes) {
   if (bytes <= 48 * 1024) return cudaSuccess;
@@ -930,11 +852,11 @@ cudaError_t allow_smem(Kernel kernel, size_t bytes) {
 template <int D>
 int launch_fwd(const void* q, const void* k, const void* v, const void* seg, void* o, void* lse,
                int B, int H, int S, int causal, cudaStream_t stream) {
-  const size_t smem = fwd_smem(D);
-  cudaError_t e = allow_smem(flash_fwd_f32_kernel<D>, smem);
+  const size_t smem = FwdSmem<D>::bytes;
+  cudaError_t e = allow_smem(flash_fwd_3xtf32_kernel<D>, smem);
   if (e != cudaSuccess) return (int)e;
-  const dim3 grid((S + kTile - 1) / kTile, B * H);
-  flash_fwd_f32_kernel<D><<<grid, kThreads, smem, stream>>>(
+  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_fwd_3xtf32_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<const int*>(seg), static_cast<float*>(o), static_cast<float*>(lse), H, S,
       causal, 1.0f / sqrtf((float)D));

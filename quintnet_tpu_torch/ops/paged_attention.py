@@ -15,19 +15,25 @@ value on load, and the caller passes the run's exact f32 K/V as
 P)`` instead of the pool, which still holds the pre-write bytes, and
 :func:`paged_quant_window_update` writes the pool afterwards.
 
-:func:`paged_attention` launches the hand-written CUDA kernel
-``csrc/paged_attention.cu`` for CUDA tensors (launch count in
-``paged_attention.launches``, and per variant in
-``paged_attention.launches_by_variant``) and runs
+:func:`paged_attention` launches the hand-written CUDA kernels of
+``csrc/paged_attention.cu`` for CUDA tensors and runs
 :func:`paged_attention_ref`, the gathered-view math, for CPU tensors.
 For a CUDA tensor it launches or raises; it never falls back to the
-plain version.
+plain version. The CUDA source has two paths, picked on the host from
+the query rows each kv head serves, ``P * Hq / Hkv``: a split-KV
+decode kernel for at most 4 (decode, GQA decode, the verify shape)
+and the tiled kernel for wider calls (prefill). Each call counts one
+launch in ``paged_attention.launches``, one under its variant in
+``paged_attention.launches_by_variant`` and one under its path
+(``"decode"`` / ``"prefill"``, :func:`kernel_path`) in
+``paged_attention.launches_by_path``.
 """
 
 from __future__ import annotations
 
 import collections
 import ctypes
+import functools
 import math
 
 import torch
@@ -37,7 +43,8 @@ from quintnet_tpu_torch.ops import build
 _KERNEL = "paged_attention"
 
 # store dtype -> (kernel type code, name, row alignment in bytes of the
-# kernel's 4-value loads)
+# kernels' 4-value loads; the decode path loads 16 bytes where the pools
+# are 16-byte aligned)
 _STORE = {
     torch.float32: (0, "f32", 16),
     torch.bfloat16: (1, "bf16", 8),
@@ -178,6 +185,8 @@ def _lib():
         lib.paged_attention_error_string.restype = ctypes.c_char_p
         lib.paged_attention_max_head_dim.argtypes = []
         lib.paged_attention_max_head_dim.restype = ci
+        lib.paged_attention_decode_path.argtypes = [ci] * 3
+        lib.paged_attention_decode_path.restype = ci
         lib._typed = True
     return lib
 
@@ -225,6 +234,9 @@ def _check_cuda_args(q, k_pool, v_pool, block_tables, starts,
     if D % 4 or not 4 <= D <= max_d:
         raise ValueError(f"head dim {D} must be a multiple of 4 in "
                          f"[4, {max_d}]")
+    if N >= 2**31:
+        raise ValueError(f"pool slots {N} must be < 2**31 (the kernels "
+                         f"index them as int)")
     if block_size < 1 or N % block_size:
         raise ValueError(f"pool slots {N} not a multiple of block_size "
                          f"{block_size}")
@@ -244,7 +256,8 @@ def _check_cuda_args(q, k_pool, v_pool, block_tables, starts,
             raise ValueError(f"{name} must be [S, Hkv, P, D] = "
                              f"{(S, Hkv, P, D)}; got {tuple(t.shape)}")
     align = _STORE[k_pool.dtype][2]
-    for name, t, a in (("k_pool", k_pool, align), ("v_pool", v_pool, align),
+    for name, t, a in (("q", q, 16), ("k_pool", k_pool, align),
+                       ("v_pool", v_pool, align),
                        *((n, t, 16) for n, t in fresh)):
         if t.data_ptr() % a:
             raise ValueError(f"{name} must be {a}-byte aligned (the "
@@ -257,6 +270,21 @@ def kernel_variant(k_pool, kv_scales=None) -> str:
     override)."""
     return _STORE[k_pool.dtype][1] + ("" if kv_scales is None
                                       else "_scaled")
+
+
+@functools.lru_cache(maxsize=None)
+def _path(Hq: int, Hkv: int, P: int) -> str:
+    return ("decode" if _lib().paged_attention_decode_path(Hq, Hkv, P)
+            else "prefill")
+
+
+def kernel_path(q, k_pool) -> str:
+    """The CUDA path a call with these shapes takes, by the kernel
+    library's own rule (asked once per shape): ``"decode"`` (split-KV)
+    when the query rows each kv head serves, ``P * Hq / Hkv``, are few,
+    else ``"prefill"``."""
+    _, Hq, P, _ = q.shape
+    return _path(Hq, k_pool.shape[1], P)
 
 
 def paged_attention(q, k_pool, v_pool, block_tables, starts, *,
@@ -296,6 +324,7 @@ def paged_attention(q, k_pool, v_pool, block_tables, starts, *,
     _check_cuda_args(q, k_pool, v_pool, block_tables, starts, block_size,
                      kv_scales, fresh_kv)
     S, Hq, P, D = q.shape
+    path = _path(Hq, k_pool.shape[1], P)
     out = torch.empty_like(q)
     ks, vs = kv_scales if kv_scales is not None else (None, None)
     fk, fv = fresh_kv if fresh_kv is not None else (None, None)
@@ -315,11 +344,13 @@ def paged_attention(q, k_pool, v_pool, block_tables, starts, *,
     paged_attention.launches += 1
     paged_attention.launches_by_variant[kernel_variant(k_pool,
                                                        kv_scales)] += 1
+    paged_attention.launches_by_path[path] += 1
     return out
 
 
 paged_attention.launches = 0
 paged_attention.launches_by_variant = collections.Counter()
+paged_attention.launches_by_path = collections.Counter()
 
 
 def paged_quant_window_update(policy, cache, scales, vals, positions,

@@ -24,7 +24,7 @@ from quintnet_tpu_torch.ops.flash_kernels import (FlashAttentionFunction,
                                                   flash_delta, flash_fwd,
                                                   flash_fwd_ref)
 from quintnet_tpu_torch.ops.paged_attention import (
-    kernel_variant, paged_attention, paged_attention_ref,
+    kernel_path, kernel_variant, paged_attention, paged_attention_ref,
     paged_quant_window_update)
 from quintnet_tpu_torch.parallel.train_step import accumulate_grads
 from quintnet_tpu_torch.serve import ServeEngine, generate, gpt2_family
@@ -43,14 +43,14 @@ def cuda_device():
     return torch.device("cuda")
 
 
-def _case(seed, S, Hq, Hkv, P, D, starts, dead=()):
+def _case(seed, S, Hq, Hkv, P, D, starts, dead=(), m=M):
     rng = np.random.default_rng(seed)
-    nb = 1 + S * M
+    nb = 1 + S * m
     perm = rng.permutation(np.arange(1, nb)).astype(np.int32)
-    tables = np.zeros((S, M), np.int32)
+    tables = np.zeros((S, m), np.int32)
     for s in range(S):
         if s not in dead:
-            tables[s] = perm[s * M:(s + 1) * M]
+            tables[s] = perm[s * m:(s + 1) * m]
     arrs = (rng.standard_normal((S, Hq, P, D)).astype(np.float32),
             rng.standard_normal((nb * BS, Hkv, D)).astype(np.float32),
             rng.standard_normal((nb * BS, Hkv, D)).astype(np.float32),
@@ -101,11 +101,13 @@ LAYOUTS = {"bf16": (torch.bfloat16, False), "fp8": (torch.float8_e4m3fn,
            "int8": (torch.int8, True), "fake_quant": (torch.float32, True)}
 
 
-def _narrow_case(seed, layout, S, Hq, Hkv, P, D, starts, dead=()):
+def _narrow_case(seed, layout, S, Hq, Hkv, P, D, starts, dead=(), m=M):
     """A case in a policy's store layout: narrow pools from random
     values; scaled layouts get random per-block scales (all ones for
-    fake_quant) and a fresh run."""
-    q, k, v, tables, starts = _case(seed, S, Hq, Hkv, P, D, starts, dead)
+    fake_quant) and a fresh run. ``f32`` is the passthrough f32 pool."""
+    q, k, v, tables, starts = _case(seed, S, Hq, Hkv, P, D, starts, dead, m)
+    if layout == "f32":
+        return (q, k, v, tables, starts), {}
     dtype, scaled = LAYOUTS[layout]
     gen = torch.Generator(device="cuda").manual_seed(seed)
     kw = {}
@@ -165,6 +167,106 @@ def test_fake_quant_kernel_equals_f32_passthrough_bitwise(cuda_device):
     a = paged_attention(q, kw, vw, tables, starts, block_size=BS)
     b = paged_attention(q, k, v, tables, starts, block_size=BS,
                         kv_scales=(ones, ones), fresh_kv=tuple(fresh))
+    assert torch.equal(a, b)
+
+
+# the decode path (split-KV, P x Hq / Hkv <= 4 query rows a kv head). A
+# table of M = 8 blocks of 16 is 128 positions and 2 splits, dealt a row's
+# positions in units of 16, unit u to split u % 2; "split_edge" ends
+# contexts exactly on a unit (16 positions: split 1 empty), one past it,
+# exactly on a round of both splits (32), one past it, at the table's end
+def _decode_cases():
+    return {
+        "split_edge": dict(S=6, Hq=4, Hkv=4, P=1, D=64,
+                           starts=[15, 16, 31, 32, 127, 0], dead=(5,)),
+        "one_position": dict(S=2, Hq=4, Hkv=4, P=1, D=64, starts=[0, 0]),
+        "long_1024": dict(S=2, Hq=4, Hkv=4, P=1, D=64, starts=[1023, 511],
+                          m=64),
+        # 8 splits: rows of part of a round, and of fewer units than splits
+        "wide_table": dict(S=3, Hq=4, Hkv=4, P=1, D=64, starts=[308, 40, 100],
+                           m=64),
+        "gqa2": dict(S=3, Hq=8, Hkv=4, P=1, D=64, starts=[100, 37, 0],
+                     dead=(2,)),
+        "gqa4": dict(S=3, Hq=8, Hkv=2, P=1, D=64, starts=[127, 16, 3]),
+        "d32": dict(S=2, Hq=4, Hkv=4, P=1, D=32, starts=[77, 15]),
+        "d128": dict(S=2, Hq=2, Hkv=2, P=1, D=128, starts=[90, 5]),
+        # 4 values a lane where D allows no 16-byte loads (bf16, fp8, int8)
+        "d36": dict(S=2, Hq=2, Hkv=2, P=1, D=36, starts=[70, 2]),
+        "verify_P4": dict(S=3, Hq=4, Hkv=4, P=4, D=64, starts=[60, 124, 0],
+                          dead=(2,)),
+    }
+
+
+def _decode_args(seed, layout, name):
+    return _narrow_case(seed, layout, **_decode_cases()[name])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["f32", *sorted(LAYOUTS)])
+@pytest.mark.parametrize("name", sorted(_decode_cases()))
+def test_decode_path_matches_plain_version(cuda_device, layout, name):
+    args, kw = _decode_args(8, layout, name)
+    assert kernel_path(args[0], args[1]) == "decode"
+    before = paged_attention.launches_by_path["decode"]
+    got = paged_attention(*args, block_size=BS, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches_by_path["decode"] == before + 1
+    want = paged_attention_ref(*args, block_size=BS, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Hq,Hkv,P,path", [
+    (4, 4, 4, "decode"), (8, 2, 1, "decode"), (4, 2, 2, "decode"),
+    (4, 4, 5, "prefill"), (8, 4, 3, "prefill"), (8, 1, 1, "prefill")])
+def test_path_threshold(cuda_device, Hq, Hkv, P, path):
+    """P x Hq / Hkv query rows a kv head: up to 4 take the decode path,
+    more the prefill path; both agree with the plain version."""
+    args = _case(9, S=2, Hq=Hq, Hkv=Hkv, P=P, D=64, starts=[40, 3])
+    assert kernel_path(args[0], args[1]) == path
+    before = dict(paged_attention.launches_by_path)
+    got = paged_attention(*args, block_size=BS)
+    torch.cuda.synchronize()
+    after = dict(paged_attention.launches_by_path)
+    assert after.get(path, 0) == before.get(path, 0) + 1
+    other = "prefill" if path == "decode" else "decode"
+    assert after.get(other, 0) == before.get(other, 0)
+    torch.testing.assert_close(got, paged_attention_ref(*args, block_size=BS),
+                               atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["f32", "int8"])
+def test_decode_path_is_deterministic(cuda_device, layout):
+    """Each split's partial is combined in split order, without atomics:
+    two launches give bitwise-equal outputs."""
+    args, kw = _decode_args(10, layout, "long_1024")
+    a = paged_attention(*args, block_size=BS, **kw)
+    b = paged_attention(*args, block_size=BS, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["long_1024", "gqa4"])
+def test_fake_quant_decode_equals_f32_bitwise(cuda_device, name):
+    """On the decode path: the f32 pool (passthrough) against the same
+    pool with each row's last position overwritten, all-one scales and
+    the true K/V as the fresh run (fake_quant): bit-identical outputs."""
+    (q, k, v, tables, starts), _ = _decode_args(11, "f32", name)
+    st = starts.long()
+    slot = (tables.long().gather(1, (st // BS)[:, None])[:, 0] * BS
+            + st % BS)
+    fresh = tuple(t[slot][:, :, None, :].contiguous() for t in (k, v))
+    k_over, v_over = k.clone(), v.clone()
+    for t in (k_over, v_over):
+        t[slot] = torch.randn_like(t[slot])
+    ones = torch.ones((k.shape[0] // BS, k.shape[1]), device="cuda")
+    a = paged_attention(q, k, v, tables, starts, block_size=BS)
+    b = paged_attention(q, k_over, v_over, tables, starts, block_size=BS,
+                        kv_scales=(ones, ones), fresh_kv=fresh)
+    torch.cuda.synchronize()
     assert torch.equal(a, b)
 
 
@@ -241,6 +343,7 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device, kv_dtype):
     want = generate(cpu, prompts, max_new_tokens=8)
     paged_attention.launches = 0
     paged_attention.launches_by_variant.clear()
+    paged_attention.launches_by_path.clear()
     got = generate(card, prompts, max_new_tokens=8)
     for w, g in zip(want, got):
         np.testing.assert_array_equal(g, w)
@@ -249,6 +352,11 @@ def test_engine_on_card_matches_engine_on_cpu(cuda_device, kv_dtype):
     variant = kernel_variant(card.pool.k, card.pool.caches()[2:] or None)
     assert paged_attention.launches == n
     assert dict(paged_attention.launches_by_variant) == {variant: n}
+    # decode steps of 2 rows x 1 query take the decode path, prefills
+    # (buckets of >= 16 positions) the prefill path
+    assert dict(paged_attention.launches_by_path) == {
+        "decode": cfg.n_layer * m.decode_steps,
+        "prefill": cfg.n_layer * m.admitted}
 
 
 # ---------------------------------------------------------------------
@@ -271,6 +379,11 @@ FLASH_CASES = {
     **{f"edge_d128_s{S}_noncausal": dict(B=1, H=2, S=S, D=128,
                                          causal=False, seg=False)
        for S in (31, 32, 33)},
+    # the forward's tiles at D = 32 and 64 without causality: 64 owned
+    # query rows, 64 streamed key rows
+    **{f"edge_d{D}_s{S}_noncausal": dict(B=1, H=2, S=S, D=D, causal=False,
+                                         seg=False)
+       for D in (32, 64) for S in (63, 64, 65)},
     "seg_on_tile_edges_d64": dict(B=2, H=2, S=192, D=64, causal=True,
                                   seg="edges"),
     "seg_on_tile_edges_d128": dict(B=1, H=2, S=192, D=128, causal=False,
@@ -351,6 +464,20 @@ def test_backward_kernels_are_deterministic(cuda_device, causal):
              flash_bwd_dq(*args, causal=causal))
     second = (*flash_bwd_dkv(*args, causal=causal),
               flash_bwd_dq(*args, causal=causal))
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_forward_kernel_is_deterministic(cuda_device, causal):
+    """Each output row is written by one block: two launches of K1 on the
+    same inputs give bitwise-equal o and lse."""
+    q, k, v, _, seg = _flash_case(12, B=2, H=3, S=200, D=64, causal=causal,
+                                  seg=True)
+    first = flash_fwd(q, k, v, seg, causal=causal)
+    second = flash_fwd(q, k, v, seg, causal=causal)
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)

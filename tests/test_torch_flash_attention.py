@@ -264,3 +264,40 @@ def test_tf32_rounding_is_round_to_nearest_ties_away():
                       1 + ulp * 0.75, 3.14159265], dtype=torch.float32)
     want = [1.0, 1 + ulp, 1.0, -(1 + ulp), 1 + ulp, 3.140625]
     assert _tf32(x).tolist() == want
+
+
+def _forward_in_tf32(q, k, v, terms):
+    """The forward (causal, no segments) with both products through
+    ``_tf32_matmul``: s = q k^T, p = exp(s - rowmax), o = p v / rowsum(p),
+    lse = rowmax + log rowsum(p)."""
+    S, D = q.shape[-2:]
+    vis = fa.visible_pairs(S, True, None, q.device)
+    s = _tf32_matmul(q, k.transpose(-1, -2), terms) / np.sqrt(D)
+    s = torch.where(vis, s, torch.full_like(s, -1e30))
+    m = s.amax(dim=-1)
+    p = torch.where(vis, torch.exp(s - m[..., None]), torch.zeros_like(s))
+    l = p.sum(dim=-1)
+    return _tf32_matmul(p, v, terms) / l[..., None], m + torch.log(l)
+
+
+def _tf32_forward_case():
+    q, k, v = map(_t, _inputs(9, shape=(1, 2, 512, 64))[:3])
+    return (q, k, v), flash_fwd_ref(q, k, v, causal=True)
+
+
+def test_3xtf32_forward_stays_at_f32_accuracy():
+    """o and lse with both forward products in 3xTF32 (B=1, H=2, S=512,
+    D=64, causal) within 1e-5 of the f32 plain version, relative to the
+    largest magnitude."""
+    args, (o_r, lse_r) = _tf32_forward_case()
+    o, lse = _forward_in_tf32(*args, terms=3)
+    assert _rel_to_max(o, o_r) <= 1e-5
+    assert _rel_to_max(lse, lse_r) <= 1e-5
+
+
+def test_plain_tf32_forward_misses_the_kernel_gate():
+    """The same with plain TF32 products: o off by more than the card gate
+    of 1e-4, which is why the forward kernel splits each operand too."""
+    args, (o_r, _) = _tf32_forward_case()
+    o, _ = _forward_in_tf32(*args, terms=1)
+    assert _rel_to_max(o, o_r) > 1e-4

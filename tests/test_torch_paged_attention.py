@@ -23,8 +23,11 @@ from quintnet_tpu.nn import attention as jattn
 from quintnet_tpu.ops.paged_attention import \
     paged_attention as jax_paged_attention
 from quintnet_tpu_torch.nn import attention as tattn
-from quintnet_tpu_torch.ops.paged_attention import (paged_attention,
-                                                    paged_attention_ref)
+from quintnet_tpu_torch.ops.paged_attention import (insert_runs,
+                                                    paged_attention,
+                                                    paged_attention_ref,
+                                                    paged_gather,
+                                                    paged_gather_scales)
 
 torch.set_num_threads(1)
 
@@ -84,6 +87,104 @@ def test_cpu_path_is_the_plain_version_and_counts_no_launch():
                             block_size=BS)
     assert torch.equal(a, b)
     assert paged_attention.launches == before
+
+
+# ---------------------------------------------------------------------
+# the decode path's split-and-combine (flash-decoding), emulated
+# ---------------------------------------------------------------------
+
+def _split_kv(q, k_pool, v_pool, tables, starts, *, block_size, n_splits,
+              unit=4, kv_scales=None, fresh_kv=None):
+    """The CUDA decode path's arithmetic in plain torch: each row's live
+    positions ``[0, min(start + P, W))`` (W = M x block_size) dealt to
+    ``n_splits`` splits in units of ``unit`` positions, unit u to split u
+    % n_splits (the kernel deals units of 16; smaller units spread these
+    small tables over more splits); per split and query row the running
+    max ``m`` (log2 units), sum ``l`` and unnormalised ``o``, a split
+    with no visible position giving ``m = -inf, l = 0``; then the combine
+    in split order. Scales multiply the score (K) and the probability (V)
+    of their position, 1 for the fresh run's positions."""
+    S, Hq, P, D = q.shape
+    Hkv = k_pool.shape[1]
+    G = Hq // Hkv
+    W = tables.shape[1] * block_size
+    raw = [paged_gather(t, tables, block_size=block_size).float()
+           for t in (k_pool, v_pool)]                     # [S, Hkv, W, D]
+    if kv_scales is None:
+        scl = [torch.ones(raw[0].shape[:3]) for _ in range(2)]
+    else:
+        scl = [paged_gather_scales(x, tables, block_size=block_size)[..., 0]
+               for x in kv_scales]                        # [S, Hkv, W]
+    if fresh_kv is not None:
+        raw = [insert_runs(r, f, starts) for r, f in zip(raw, fresh_kv)]
+        ones = torch.ones((S, Hkv, P, 1))
+        scl = [insert_runs(x[..., None], ones, starts)[..., 0] for x in scl]
+    out = torch.empty_like(q)
+    scale_log2 = np.log2(np.e) / np.sqrt(D)
+    rows_i = torch.arange(G * P) % P
+    for s in range(S):
+        start = int(starts[s])
+        live = min(start + P, W)
+        for kvh in range(Hkv):
+            qr = q[s, kvh * G:(kvh + 1) * G].reshape(G * P, D)
+            kr, vr = raw[0][s, kvh], raw[1][s, kvh]
+            sk, sv = scl[0][s, kvh], scl[1][s, kvh]
+            parts = []
+            for j in range(n_splits):
+                t = torch.arange(live)
+                t = t[t // unit % n_splits == j]
+                if len(t) == 0:
+                    parts.append((torch.full((G * P,), -torch.inf),
+                                  torch.zeros(G * P), torch.zeros(G * P, D)))
+                    continue
+                x = (qr @ kr[t].T) * sk[t] * scale_log2
+                x = x.masked_fill(t[None, :] > start + rows_i[:, None],
+                                  -torch.inf)
+                m = x.amax(dim=-1)
+                p = torch.where(x == -torch.inf, 0.0,
+                                torch.exp2(x - m.clamp_min(-1e30)[:, None]))
+                parts.append((m, p.sum(dim=-1), (p * sv[t]) @ vr[t]))
+            mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+            num, den = torch.zeros(G * P, D), torch.zeros(G * P)
+            for m, l, o in parts:
+                w = torch.where(m == -torch.inf, 0.0, torch.exp2(m - mx))
+                num, den = num + w[:, None] * o, den + w * l
+            out[s, kvh * G:(kvh + 1) * G] = (num / den[:, None]).reshape(
+                G, P, D)
+    return out
+
+
+# GQA (4 query heads on 2 kv heads), two queries a row (the verify
+# shape's pad columns), a dead row; rows of 9 and 19 positions, 3 and 5
+# units of 4, so from 4 splits on the short rows leave splits empty
+SPLIT_CASE = dict(S=3, Hq=4, Hkv=2, P=2, starts=[7, 17, 0], dead=(2,))
+
+
+@pytest.mark.parametrize("n_splits", range(1, 9))
+def test_split_and_combine_matches_plain_version(n_splits):
+    q, k, v, tables, starts = map(_t, _case(17, **SPLIT_CASE))
+    want = paged_attention_ref(q, k, v, tables, starts, block_size=BS)
+    got = _split_kv(q, k, v, tables, starts, block_size=BS,
+                    n_splits=n_splits)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("n_splits", [1, 3, 8])
+def test_split_and_combine_scaled_with_fresh_run(n_splits):
+    """int8 pools with per-block scales and the fresh run overriding the
+    pool at ``[start, start + P)``, as a scaled policy calls the kernel."""
+    q, k, v, tables, starts = map(_t, _case(18, **SPLIT_CASE))
+    rng = np.random.default_rng(19)
+    k, v = ((t * 40).round().clamp(-127, 127).to(torch.int8) for t in (k, v))
+    nb = k.shape[0] // BS
+    scales = tuple(_t(rng.uniform(0.01, 0.06, (nb, 2)).astype(np.float32))
+                   for _ in range(2))
+    fresh = tuple(_t(rng.standard_normal((3, 2, 2, D)).astype(np.float32))
+                  for _ in range(2))
+    kw = dict(block_size=BS, kv_scales=scales, fresh_kv=fresh)
+    want = paged_attention_ref(q, k, v, tables, starts, **kw)
+    got = _split_kv(q, k, v, tables, starts, n_splits=n_splits, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
 
 
 # ---------------------------------------------------------------------
