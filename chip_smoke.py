@@ -7,15 +7,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
 
 1. **kernels** — build every CUDA source of the path with ``nvcc``
    (one process per source, started together) and check the SASS
-   (``cuobjdump``): every instantiation of K1, K2 and K3 holds
-   tensor-core instructions (HMMA: their products run in 3xTF32) and no
-   atomics, and no instantiation of K4's decode kernel holds atomics.
-   Then hold each kernel to its plain PyTorch version at the main paths'
-   shapes (GPT-2 base heads, D = 64). Paged attention (K4, block size
-   16; the decode path for at most 4 query rows a kv head, else the
-   prefill path): decode rows with mixed context lengths and a dead row,
-   one row of 1,024 positions, prefill tails at start 0 and at an
-   offset that is not block-aligned, and GQA at groups 2 and 4. Flash
+   (``cuobjdump``): every instantiation of K1, K2, K3 and of K4's
+   prefill kernel holds tensor-core instructions (HMMA: their products
+   run in 3xTF32) and no atomics, and no instantiation of K4's decode
+   kernel holds atomics. Then hold each kernel to its plain PyTorch
+   version at the main paths' shapes (GPT-2 base heads, D = 64). Paged
+   attention (K4, block size 16; the decode path for at most 4 query
+   rows a kv head, else the prefill path): decode rows with mixed
+   context lengths and a dead row, one row of 1,024 positions, prefill
+   tails at every serve bucket (P = 32-512) and 16 and 1,024 at start 0,
+   in f32 and int8, and at the offset 37 that is not block-aligned,
+   GQA decode at groups 2 and 4 and GQA prefill at group 4. Flash
    attention (K1 forward, K2 dK/dV, K3 dQ): (B, H, S) = (8, 12, 1024)
    causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
    causal with a ragged last tile, (8, 12, 256) non-causal and
@@ -36,12 +38,12 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    backward, its bound counting the 5 products a fused backward needs.
    K4 again with quantized and narrow pools at the decode shape (int8,
    bf16, fp8, fake_quant: dequantize on load and, for the scaled int8
-   and fake_quant, the fresh-K/V override), int8 prefill tails, a P =
-   128 prefill tail per other layout, the verify shape (8 rows x 4
-   queries, f32 and int8) and int8 GQA; then
-   two exact checks: the fake_quant decode case equals the f32 one bit
-   for bit, and ``paged_quant_window_update`` on the card equals the
-   same call on the CPU byte for byte.
+   and fake_quant, the fresh-K/V override), a P = 128 prefill tail per
+   other layout, the verify shape (8 rows x 4 queries, f32 and int8)
+   and int8 GQA; then two exact checks: on each K4 path (the decode
+   case, the P = 128 prefill at start 37) fake_quant equals f32 bit for
+   bit, and ``paged_quant_window_update`` on the card equals the same
+   call on the CPU byte for byte.
 2. **serve** — GPT-2 124M (random weights from seed 0) served by the
    port's ``ServeEngine`` on the card from an f32 pool: warmup, 8
    greedy requests with prompts of 32-400 tokens (one continues
@@ -77,7 +79,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    then 4 optimizer steps through ``Trainer.fit`` each way, the losses
    compared step by step. The flash run is the main path: the launch
    counts are zeroed just before it and read just after (12 layers x 2
-   micro-batches x 4 steps of each kernel). Prints the step's wall
+   micro-batches x 4 steps of each kernel), and the dispatcher must
+   have routed no call to the blockwise attention
+   (``flash_attention.routed == 0``). Prints the step's wall
    time (no profiler running), tokens/s and peak memory, and over the
    next steps under ``torch.profiler`` the device's busy time and the
    three kernels' share of the step (each kernel's profiled launches a
@@ -127,8 +131,14 @@ FLASH_SYMBOLS = {                # wrapper -> its CUDA kernel's name
 }
 PAGED_SYMBOLS = {                # K4 path -> its CUDA kernel's name
     "decode": "paged_decode_split_kernel",
-    "prefill": "paged_attention_kernel",
+    "prefill": "paged_prefill_3xtf32_kernel",
 }
+# head dims the K4 prefill kernel is built for (D rounded up to one of them)
+PREFILL_WIDTHS = (8, 16, 32, 64, 128)
+PAGED_STORE_TYPES = 4            # f32, bf16, fp8, int8
+# K4 prefill buckets timed at start 0, f32 and int8: the serve phase's
+# prefills reach 32-512 (prompts of 32-400 tokens), plus 1,024
+PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
 
 
 def _wrappers():
@@ -142,11 +152,14 @@ def _wrappers():
 
 
 def _zero_counts() -> None:
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+
     for fn in _wrappers().values():
         fn.launches = 0
         for by in ("launches_by_variant", "launches_by_path"):
             if hasattr(fn, by):
                 getattr(fn, by).clear()
+    flash_attention.routed = 0
 
 
 def _counts() -> dict:
@@ -312,6 +325,14 @@ def _bound(flops, nbytes):
 DECODE_STARTS = [1023, 700, 511, 300, 129, 64, 17, 0]
 
 
+def _prefill_shapes():
+    """(P, start) of the K4 prefill cases: every bucket at start 0, and P
+    = 16, 128, 1,024 at the unaligned start 37 (P = 1,024 at 37 runs its
+    pad queries past the table)."""
+    return ([(P, 0) for P in (16,) + PREFILL_BUCKETS]
+            + [(P, 37) for P in (16, 128, 1024)])
+
+
 def _paged_cases():
     from quintnet_tpu_torch.ops.paged_attention import (kernel_path,
                                                         kernel_variant,
@@ -325,12 +346,17 @@ def _paged_cases():
     cases = [_paged_case(gen, name="decode", S=8, Hq=H, Hkv=H, P=1,
                          starts=DECODE_STARTS, dead=(7,))]
     cases[0]["main"] = "decode"
-    for P in (16, 128, 1024):
-        for st in (0, 37):
-            cases.append(_paged_case(gen, name=f"prefill_P{P}_start{st}",
-                                     S=1, Hq=H, Hkv=H, P=P, starts=[st]))
+    for layout in ("f32", "int8"):
+        tag = "" if layout == "f32" else f"{layout}_"
+        for P, st in _prefill_shapes():
+            cases.append(_paged_case(gen, name=f"prefill_{tag}P{P}_start{st}",
+                                     S=1, Hq=H, Hkv=H, P=P, starts=[st],
+                                     layout=layout))
             if (P, st) == (128, 0):
                 cases[-1]["main"] = "prefill"
+    # GQA prefill: 12 query heads on 3 kv heads, one staged K/V tile a group
+    cases.append(_paged_case(gen, name="prefill_gqa4_P128_start37", S=1,
+                             Hq=H, Hkv=H // 4, P=128, starts=[37]))
     cases.append(_paged_case(gen, name="decode_gqa", S=8, Hq=H, Hkv=H // 2,
                              P=1, starts=[900, 450, 31, 16, 15, 200, 5, 0],
                              dead=(7,)))
@@ -349,13 +375,6 @@ def _paged_cases():
                                  Hkv=H, P=1, starts=DECODE_STARTS, dead=(7,),
                                  layout=layout))
         cases[-1]["main"] = "decode"
-    for P in (16, 128, 1024):
-        for st in (0, 37):
-            cases.append(_paged_case(gen, name=f"prefill_int8_P{P}_start{st}",
-                                     S=1, Hq=H, Hkv=H, P=P, starts=[st],
-                                     layout="int8"))
-            if (P, st) == (128, 0):
-                cases[-1]["main"] = "prefill"
     for layout in ("bf16", "fp8", "fake_quant"):
         cases.append(_paged_case(gen, name=f"prefill_{layout}_P128_start0",
                                  S=1, Hq=H, Hkv=H, P=128, starts=[0],
@@ -409,36 +428,48 @@ def _paged_cases():
             raise AssertionError(f"{c['name']} took the {res['path']} path")
         _emit(res)
         results.append(res)
-    _fake_quant_is_f32(cases[0], outs["decode"])
+    for name in ("decode", "prefill_P128_start37"):
+        _fake_quant_is_f32(next(c for c in cases if c["name"] == name),
+                           outs[name])
     _window_update_card_equals_cpu(gen)
     return results
 
 
 def _fake_quant_is_f32(c, want):
-    """The f32 decode case again as fake_quant: the same pool with the
-    run's slots overwritten by other values, all-one scales, and the
-    run's true K/V as the fresh run. The kernel's output must equal the
-    passthrough one bit for bit (a scale of 1.0 and the override are
-    exact)."""
-    from quintnet_tpu_torch.ops.paged_attention import paged_attention
+    """An f32 case again as fake_quant: the same pool with the run's
+    slots (positions ``[start, start + P)`` inside the table) overwritten
+    by other values, all-one scales, and the run's true K/V as the fresh
+    run. The kernel's output must equal the passthrough one bit for bit
+    (a scale of 1.0 and the override are exact), on the path the case
+    takes."""
+    from quintnet_tpu_torch.ops.paged_attention import (kernel_path,
+                                                        paged_attention)
 
-    bs, starts, tables = c["bs"], c["starts"].long(), c["tables"].long()
-    slot = tables.gather(1, (starts // bs)[:, None])[:, 0] * bs + starts % bs
+    bs, tables = c["bs"], c["tables"].long()
+    S, _, P, _ = c["q"].shape
+    width = tables.shape[1] * bs
+    pos = c["starts"].long()[:, None] + torch.arange(P, device=DEVICE)
+    live = pos < width
+    pos = pos.clamp(max=width - 1)
+    slot = tables.gather(1, pos // bs) * bs + pos % bs            # [S, P]
     k, v = c["k"].clone(), c["v"].clone()
-    fresh = tuple(t[slot][:, :, None, :].contiguous() for t in (k, v))
+    fresh = tuple((t[slot] * live[..., None, None]).permute(0, 2, 1, 3)
+                  .contiguous() for t in (k, v))                  # [S, Hkv, P, D]
     for t in (k, v):
-        t[slot] = torch.randn_like(t[slot])
+        t[slot[live]] = torch.randn_like(t[slot[live]])
     ones = torch.ones((k.shape[0] // bs, k.shape[1]), device=DEVICE)
     got = paged_attention(c["q"], k, v, c["tables"], c["starts"],
                           block_size=bs, kv_scales=(ones, ones),
                           fresh_kv=fresh)
     torch.cuda.synchronize()
+    path = kernel_path(c["q"], c["k"])
     if not torch.equal(got, want):
         raise AssertionError(
-            f"decode_fake_quant differs from the f32 passthrough case: max "
-            f"|diff| {float((got - want).abs().max())}")
-    _emit({"check": "decode_fake_quant == decode (f32) bit for bit",
-           "ok": True})
+            f"{c['name']} as fake_quant differs from the f32 passthrough "
+            f"case ({path} path): max |diff| "
+            f"{float((got - want).abs().max())}")
+    _emit({"check": f"{c['name']} fake_quant == f32 bit for bit ({path} "
+                    f"path)", "ok": True})
 
 
 def _window_update_card_equals_cpu(gen):
@@ -682,10 +713,11 @@ def _sass_census(path):
 
 
 def _check_sass(paths):
-    """The flash kernels run on the tensor cores and no K1-K3 or K4 decode
-    kernel uses atomics (each output element has one writer): every
-    instantiation of K1, K2 and K3 holds HMMA instructions and no ATOM or
-    RED, and so does no instantiation of the K4 decode kernel."""
+    """The flash kernels and K4's prefill path run on the tensor cores and
+    no K1-K4 kernel uses atomics (each output element has one writer):
+    every instantiation of K1, K2, K3 and of the K4 prefill kernel holds
+    HMMA instructions and no ATOM or RED, and no instantiation of the K4
+    decode kernel holds ATOM or RED."""
     census = _sass_census(paths["flash_attention"])
     out = {}
     for wrapper, sym in FLASH_SYMBOLS.items():
@@ -699,17 +731,30 @@ def _check_sass(paths):
                 raise AssertionError(f"{f}: SASS census {c}: want HMMA > 0 "
                                      f"and no ATOM / RED")
         out[wrapper] = sorted(fns.values(), key=lambda c: c["HMMA"])
-    paged = {f: c for f, c in _sass_census(paths["paged_attention"]).items()
-             if PAGED_SYMBOLS["decode"] in f}
-    if not paged:
+    census = _sass_census(paths["paged_attention"])
+    decode = {f: c for f, c in census.items() if PAGED_SYMBOLS["decode"] in f}
+    prefill = {f: c for f, c in census.items()
+               if PAGED_SYMBOLS["prefill"] in f}
+    if not decode:
         raise AssertionError(f"no {PAGED_SYMBOLS['decode']} in the SASS")
-    for f, c in paged.items():
-        if c["ATOM"] or c["RED"]:
-            raise AssertionError(f"{f}: SASS census {c}: want no ATOM / RED")
-    out["paged_attention_decode"] = {"instantiations": len(paged),
+    want = len(PREFILL_WIDTHS) * PAGED_STORE_TYPES
+    if len(prefill) != want:
+        raise AssertionError(f"{len(prefill)} instantiations of "
+                             f"{PAGED_SYMBOLS['prefill']} in the SASS (want "
+                             f"{want}: D in {PREFILL_WIDTHS} x 4 store types)")
+    for f, c in list(decode.items()) + list(prefill.items()):
+        if c["ATOM"] or c["RED"] or (f in prefill and c["HMMA"] == 0):
+            raise AssertionError(f"{f}: SASS census {c}: want no ATOM / RED"
+                                 f" (and HMMA > 0 on the prefill path)")
+    out["paged_attention_decode"] = {"instantiations": len(decode),
                                      "atomics": 0}
-    _emit({"check": "K1, K2 and K3 SASS: tensor cores (HMMA), no atomics; "
-                    "K4 decode SASS: no atomics", "ok": True, "census": out})
+    out["paged_attention_prefill"] = {
+        "instantiations": len(prefill), "atomics": 0,
+        "hmma_min_max": [min(c["HMMA"] for c in prefill.values()),
+                         max(c["HMMA"] for c in prefill.values())]}
+    _emit({"check": "K1, K2, K3 and K4 prefill SASS: tensor cores (HMMA), "
+                    "no atomics; K4 decode SASS: no atomics", "ok": True,
+           "census": out})
 
 
 def phase_kernels():
@@ -1209,6 +1254,7 @@ def phase_train():
     from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
     from quintnet_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
                                                 gpt2_model_spec)
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
     from quintnet_tpu_torch.parallel.train_step import accumulate_grads
     from quintnet_tpu_torch.train.trainer import Trainer
 
@@ -1261,6 +1307,10 @@ def phase_train():
     hist_f = flash.fit(lambda ep: [host[ep]], epochs=steps, params=params,
                        opt_state=opt_state)
     counts = _counts()
+    if flash_attention.routed:
+        raise AssertionError(f"flash_attention routed {flash_attention.routed}"
+                             f" calls to the blockwise attention on the main "
+                             f"path; every call must reach the kernels")
     per_kernel = cfg.n_layer * n_micro * steps
     want = {"flash_fwd": per_kernel * (2 if remat else 1),
             "flash_bwd_dkv": per_kernel, "flash_bwd_dq": per_kernel,
@@ -1286,7 +1336,8 @@ def phase_train():
            "worst_grad_leaf": worst, "worst_grad_rel_err": grad_err[worst],
            "loss_flash": hist_f.train_loss, "loss_plain": hist_p.train_loss,
            "fit_wall_s_flash": hist_f.wall_time_s,
-           "fit_wall_s_plain": hist_p.wall_time_s, "launches": counts}
+           "fit_wall_s_plain": hist_p.wall_time_s, "launches": counts,
+           "flash_attention_routed": flash_attention.routed}
     res.update(_train_share(flash, params, opt_state, host[steps:],
                             {k: v // steps for k, v in want.items()}))
     _emit(res)

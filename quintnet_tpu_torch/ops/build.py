@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled by
 ``nvcc`` for ``sm_90a`` into ``_build/lib<name>-<hash>.so`` (the
-directory is gitignored), where the hash covers the source bytes and
-the flags — an edited source rebuilds, an unchanged one loads. Nothing
+directory is gitignored), where the hash covers the source's bytes,
+those of every shared header ``csrc/*.cuh`` and the flags — an edited
+source or header rebuilds, an unchanged one loads. Nothing
 is built at import time: :func:`load` runs on the first launch, so a
 machine without ``nvcc`` can import every module. :func:`build` starts
 one ``nvcc`` per missing source, all at once, and waits for them all.
@@ -44,9 +45,14 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    src = (CSRC / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()
-    return BUILD_DIR / f"lib{name}-{digest[:16]}.so"
+    """Where ``csrc/<name>.cu`` builds to: the name of the library holds
+    a hash of the source, of every header in ``csrc/`` (any of them may
+    be included) and of the flags."""
+    h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.name.encode() + b"\0" + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(names: Iterable[str]) -> Dict[str, Path]:

@@ -23,19 +23,20 @@
 // 12 heads, D = 64) is far past a block's 227 KB of shared memory. So
 // each block reads its own table row and start, walks live table slots
 // and keeps the online softmax (running max, running sum, output
-// accumulators) on chip; O is written once. Table slots past min((start
-// + last query) / bs, M - 1) are never read -- the same clamp as the TPU
+// accumulators) on chip; O is written once, by one block, with no atomics
+// (two launches give bitwise-equal outputs). Table slots past min((start +
+// last query) / bs, M - 1) are never read -- the same clamp as the TPU
 // index map -- so only live blocks move and pad queries past the table
-// stay in bounds.
-//
-// In the prefill kernel the store type is a template parameter of the
-// staging loop only: each thread loads 4 values of one key row (float4, 8
-// bytes of bf16, 4 bytes of fp8 or int8), widens them to f32 in registers,
-// multiplies by the block's scale and stores them to shared memory. The TPU kernel's
-// override was a one-hot matmul (a way around a VMEM gather); here it is
-// a branch on the load address. It covers all P columns, pad columns
-// past the tail included, as the TPU kernel does: causality hides them
-// from real queries.
+// stay in bounds. The TPU kernel's fresh-K/V override was a one-hot matmul
+// (a way around a VMEM gather); here each position's source row (pool
+// slot or fresh run) is resolved once into shared memory, so the override
+// is a per-position choice of address. It covers all P columns, pad
+// columns past the tail included, as the TPU kernel does: causality hides
+// them from real queries. A scale multiplies the score (K) and the
+// probability (V) of its position rather than each loaded value, and the
+// running sum takes the unscaled probability; unscaled pools multiply by
+// 1.0 in the same places, so fake_quant (all-one scales) and f32 stay
+// bit-identical on both paths.
 //
 // Two paths, picked on the host from the query rows each kv head serves,
 // R = P x (Hq / Hkv) (paged_attention_decode_path, no device sync):
@@ -45,16 +46,59 @@
 //   compiled for one query row (plain decode) and for kDecodeRows (the
 //   4-row one scores 4 rows where 1 is live: 2-3x the one-row kernel's
 //   time at decode on an H100, k4_decode_times.py --variant rows4).
-// * prefill (wider; the serve prefills are P >= 16): paged_attention_kernel
-//   below, one block per (row, query head, tile of <= 16 queries) walking its
-//   whole context in chunks of 64 positions staged in shared memory as f32.
+// * prefill (wider; the serve prefills are P >= 16):
+//   paged_prefill_3xtf32_kernel below, K1's tensor-core skeleton
+//   (flash_attention.cu) with the block-table gather.
 //
 // Bound: memory on the decode shape, which moves the live K/V positions plus
 // q and o and does ~4 * D flops per 2 * D stored values read (a narrow pool
 // moves fewer bytes for the same flops): at 8 rows of contexts up to 1,024,
-// 12 heads, D = 64 in f32 that is ~17 MB, ~5 us at 3.35 TB/s. A long prefill
-// (P in the hundreds) does ~P/2 times more flops per byte and is bound by
-// f32 operations instead; its tiles re-read K/V from L2 once per 16 queries.
+// 12 heads, D = 64 in f32 that is ~17 MB, ~5 us at 3.35 TB/s. A prefill of
+// P queries does ~P/2 times more flops per byte: from P of a few hundred on
+// it is bound by operations, for f32-accurate products by 3xTF32 on the
+// tensor cores (495 / 3 = 165 TFLOP/s; P = 1,024 at 12 heads and D = 64 is
+// 1.6 GFLOP, ~10 us).
+//
+// The prefill path replaces the TPU kernel at its prefill shape (a row of P
+// tail queries). The first port's kernel for it scored with scalar FMAs from
+// shared memory, restaged K/V for every 16 queries and every query head, and
+// ran 2.1x slower than SDPA at P = 1,024 on an H100. Now:
+//   * A block (128 threads) owns 64 rows (4 warps x 16), a row being a
+//     (query head of the kv head's group, query) pair, r = i * G + g, so
+//     under GQA one staged K/V tile serves the whole group. Row tiles run
+//     longest causal range first.
+//   * Keys stream through a two-stage ring in tiles of 64 positions (32 at
+//     D > 64, for registers) up to the tile's last visible position. Each
+//     tile's sources and scales are resolved into shared memory two tiles
+//     ahead. The next tile is in flight by cp.async while the current one
+//     computes: f32 rows (an f32 pool, the fresh run) straight into the
+//     ring; a narrow pool's rows as stored, 16 bytes a lane (4 values where
+//     D or the pools' alignment forbid 16 bytes), into a raw buffer, widened
+//     to f32 into the ring once they land. (Holding them in registers across
+//     the products instead spilled at D = 64 and 128: the products use all
+//     255 registers.)
+//   * S = q k^T and O += P V run in 3xTF32 on mma.sync.m16n8k8 (each f32
+//     operand split big + small, three products a step; plain TF32 misses
+//     the 1e-4 gate), with K1's fragment loaders and its online softmax on
+//     the accumulator fragments (masked scores -1e30 in natural-log units;
+//     only tiles that cross the causal diagonal or the live range's end
+//     mask). P feeds P V from registers (acc_as_a).
+//   * Filling the card: a serve prefill is one row (S = 1) of 12 heads, so
+//     P = 1,024 makes 16 row tiles a head whose key ranges run from 1 to 16
+//     tiles. From P alone (the host never reads starts) the key tiles of a
+//     row tile are dealt to up to 4 splits, tile u to split u % n, enough
+//     that a split of the longest tile at start 0 takes at most 4 of them
+//     (P > 256 at D <= 64): the splits of a row tile form a thread-block
+//     cluster, leave their partial (m, l, unnormalised o) in shared memory
+//     and combine them through distributed shared memory in split order,
+//     one writer per output, no atomics, bitwise-reproducible. P = 1,024
+//     takes 0.10 ms instead of 0.12 unsplit, on an H100
+//     (k4_decode_times.py --path prefill).
+//   * Head dims: mma needs D in steps of 8 and the wrapper takes any
+//     multiple of 4 up to 128, so the kernel is built for D rounded up to
+//     8, 16, 32, 64 or 128, with zero columns past D, and writes D columns.
+//   * Launch bounds of one block, so the compiler may use 255 registers
+//     (K1-K3's rule); the o accumulator alone is 64 floats at D = 128.
 //
 // The decode path splits each row's context (flash-decoding):
 //   * Grid (splits, Hkv, S), one thread block per (row, kv head, split); the
@@ -100,7 +144,6 @@
 //     rather than each loaded value; unscaled pools multiply by 1.0 in the
 //     same places, so fake_quant (all-one scales) and f32 stay bit-identical.
 //   * Exponentials are exp2f on scores pre-scaled by log2(e) / sqrt(D).
-// The prefill path is plain CUDA-core f32; its redesign is later work.
 
 #include <cuda_bf16.h>
 #include <cuda_fp8.h>
@@ -110,237 +153,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "mma_tf32.cuh"
+
 namespace {
 
-constexpr int kThreads = 128;
-constexpr int kChunk = 64;       // key positions staged per step
-constexpr int kMaxQueries = 16;  // queries per thread block
-constexpr int kMaxAcc = 16;      // output entries per thread: tile * D <= kThreads * kMaxAcc
-
-// 4 consecutive stored values -> f32, one load of 4 * sizeof(T) bytes
-template <typename T>
-__device__ __forceinline__ float4 load4(const T* p);
-
-template <>
-__device__ __forceinline__ float4 load4<float>(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-template <>
-__device__ __forceinline__ float4 load4<__nv_bfloat16>(const __nv_bfloat16* p) {
-  const uint2 raw = *reinterpret_cast<const uint2*>(p);
-  const __nv_bfloat162 lo = *reinterpret_cast<const __nv_bfloat162*>(&raw.x);
-  const __nv_bfloat162 hi = *reinterpret_cast<const __nv_bfloat162*>(&raw.y);
-  return make_float4(__low2float(lo), __high2float(lo), __low2float(hi),
-                     __high2float(hi));
-}
-
-template <>
-__device__ __forceinline__ float4 load4<__nv_fp8_e4m3>(const __nv_fp8_e4m3* p) {
-  const uint32_t raw = *reinterpret_cast<const uint32_t*>(p);
-  float f[4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    __nv_fp8_e4m3 e;
-    e.__x = static_cast<__nv_fp8_storage_t>((raw >> (8 * i)) & 0xffu);
-    f[i] = static_cast<float>(e);
-  }
-  return make_float4(f[0], f[1], f[2], f[3]);
-}
-
-template <>
-__device__ __forceinline__ float4 load4<int8_t>(const int8_t* p) {
-  const char4 c = *reinterpret_cast<const char4*>(p);
-  return make_float4((float)c.x, (float)c.y, (float)c.z, (float)c.w);
-}
-
-__device__ __forceinline__ float4 scale4(float4 v, float s) {
-  return make_float4(v.x * s, v.y * s, v.z * s, v.w * s);
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-paged_attention_kernel(const float* __restrict__ q,
-                       const T* __restrict__ k_pool,
-                       const T* __restrict__ v_pool,
-                       const float* __restrict__ k_scale,   // [nb, Hkv] or null
-                       const float* __restrict__ v_scale,
-                       const float* __restrict__ fresh_k,   // [S, Hkv, P, D] or null
-                       const float* __restrict__ fresh_v,
-                       const int* __restrict__ tables,
-                       const int* __restrict__ starts,
-                       float* __restrict__ out,
-                       int Hq, int Hkv, int P, int D, int M, int bs,
-                       int tile_q, float scale) {
-  extern __shared__ float smem[];
-  const int ldk = D + 1;                         // odd stride: no bank conflicts
-  float* qs = smem;                              // [kMaxQueries][D]
-  float* ks = qs + kMaxQueries * D;              // [kChunk][D + 1]
-  float* vs = ks + kChunk * ldk;                 // [kChunk][D]
-  float* ps = vs + kChunk * D;                   // [kMaxQueries][kChunk]
-  float* row_m = ps + kMaxQueries * kChunk;      // running max
-  float* row_l = row_m + kMaxQueries;            // running sum
-  float* row_c = row_l + kMaxQueries;            // this chunk's rescale
-
-  const int h = blockIdx.y;
-  const int s = blockIdx.z;
-  const int kvh = h / (Hq / Hkv);
-  const int q0 = blockIdx.x * tile_q;
-  const int nq = min(tile_q, P - q0);
-  const int start = starts[s];
-  const int* trow = tables + (size_t)s * M;
-  const int last_blk = min((start + q0 + nq - 1) / bs, M - 1);
-  const int n_keys = (last_blk + 1) * bs;
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const float* fk_row = fresh_k ? fresh_k + ((size_t)s * Hkv + kvh) * P * D : nullptr;
-  const float* fv_row = fresh_v ? fresh_v + ((size_t)s * Hkv + kvh) * P * D : nullptr;
-
-  const float* qbase = q + (((size_t)s * Hq + h) * P + q0) * D;
-  for (int i = tid; i < nq * D; i += kThreads) qs[i] = qbase[i];
-  if (tid < kMaxQueries) {
-    row_m[tid] = -INFINITY;
-    row_l[tid] = 0.f;
-  }
-
-  float acc[kMaxAcc];
-#pragma unroll
-  for (int r = 0; r < kMaxAcc; ++r) acc[r] = 0.f;
-  const int n_out = nq * D;
-  const int vecs = D / 4;
-
-  for (int k0 = 0; k0 < n_keys; k0 += kChunk) {
-    const int nk = min(kChunk, n_keys - k0);
-    __syncthreads();  // the previous chunk's readers of ks/vs/ps are done
-
-    // stage this chunk's K and V rows as f32: 4 values per thread per load,
-    // one key row per D/4 threads
-    for (int i = tid; i < nk * vecs; i += kThreads) {
-      const int kj = i / vecs;
-      const int d4 = (i - kj * vecs) * 4;
-      const int t = k0 + kj;
-      const int rel = t - start;
-      float4 kv, vv;
-      if (fk_row != nullptr && rel >= 0 && rel < P) {
-        kv = *reinterpret_cast<const float4*>(fk_row + (size_t)rel * D + d4);
-        vv = *reinterpret_cast<const float4*>(fv_row + (size_t)rel * D + d4);
-      } else {
-        const int blk = trow[t / bs];
-        const size_t off = (((size_t)blk * bs + t % bs) * Hkv + kvh) * D + d4;
-        kv = load4<T>(k_pool + off);
-        vv = load4<T>(v_pool + off);
-        if (k_scale != nullptr) {
-          kv = scale4(kv, k_scale[(size_t)blk * Hkv + kvh]);
-          vv = scale4(vv, v_scale[(size_t)blk * Hkv + kvh]);
-        }
-      }
-      float* kd = ks + kj * ldk + d4;
-      kd[0] = kv.x;
-      kd[1] = kv.y;
-      kd[2] = kv.z;
-      kd[3] = kv.w;
-      *reinterpret_cast<float4*>(vs + kj * D + d4) = vv;
-    }
-    __syncthreads();
-
-    // scores, causally masked: position t is visible to query i iff t <= start + i
-    for (int e = tid; e < nq * kChunk; e += kThreads) {
-      const int qi = e / kChunk;
-      const int kj = e - qi * kChunk;
-      float sc = -INFINITY;
-      if (kj < nk && k0 + kj <= start + q0 + qi) {
-        const float* qr = qs + qi * D;
-        const float* kr = ks + kj * ldk;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        sc = dot * scale;
-      }
-      ps[e] = sc;
-    }
-    __syncthreads();
-
-    // online-softmax update, one warp per query row
-    for (int qi = warp; qi < nq; qi += kThreads / 32) {
-      float* pr = ps + qi * kChunk;
-      float mx = -INFINITY;
-      for (int j = lane; j < kChunk; j += 32) mx = fmaxf(mx, pr[j]);
-      for (int o = 16; o > 0; o >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_old = row_m[qi];
-      const float m_new = fmaxf(m_old, mx);
-      const float base = (m_new == -INFINITY) ? 0.f : m_new;
-      float sum = 0.f;
-      for (int j = lane; j < kChunk; j += 32) {
-        const float p = (pr[j] == -INFINITY) ? 0.f : expf(pr[j] - base);
-        pr[j] = p;
-        sum += p;
-      }
-      for (int o = 16; o > 0; o >>= 1)
-        sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      if (lane == 0) {
-        const float c = (m_old == -INFINITY) ? 0.f : expf(m_old - base);
-        row_c[qi] = c;
-        row_l[qi] = row_l[qi] * c + sum;
-        row_m[qi] = m_new;
-      }
-    }
-    __syncthreads();
-
-    // rescale and accumulate probs @ V; each thread owns fixed output entries
-#pragma unroll
-    for (int r = 0; r < kMaxAcc; ++r) {
-      const int e = tid + r * kThreads;
-      if (e < n_out) {
-        const int qi = e / D;
-        const int d = e - qi * D;
-        const float* pr = ps + qi * kChunk;
-        float a = acc[r] * row_c[qi];
-        for (int kj = 0; kj < nk; ++kj) a = fmaf(pr[kj], vs[kj * D + d], a);
-        acc[r] = a;
-      }
-    }
-  }
-
-  // every row sees position 0, so row_l > 0 for every real query
-  float* obase = out + (((size_t)s * Hq + h) * P + q0) * D;
-#pragma unroll
-  for (int r = 0; r < kMaxAcc; ++r) {
-    const int e = tid + r * kThreads;
-    if (e < n_out) obase[e] = acc[r] / row_l[e / D];
-  }
-}
-
-size_t smem_bytes(int D) {
-  return sizeof(float) * ((size_t)kMaxQueries * D + (size_t)kChunk * (D + 1) +
-                          (size_t)kChunk * D + (size_t)kMaxQueries * kChunk +
-                          3 * kMaxQueries);
-}
-
-template <typename T>
-int launch(const void* q, const void* k_pool, const void* v_pool,
-           const void* k_scale, const void* v_scale, const void* fresh_k,
-           const void* fresh_v, const void* tables, const void* starts,
-           void* out, int S, int Hq, int Hkv, int P, int D, int M,
-           int block_size, void* stream) {
-  const int tile_q = P < kMaxQueries ? P : kMaxQueries;
-  const size_t smem = smem_bytes(D);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        paged_attention_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (e != cudaSuccess) return (int)e;
-  }
-  const dim3 grid((P + tile_q - 1) / tile_q, Hq, S);
-  paged_attention_kernel<T><<<grid, kThreads, smem, (cudaStream_t)stream>>>(
-      static_cast<const float*>(q), static_cast<const T*>(k_pool),
-      static_cast<const T*>(v_pool), static_cast<const float*>(k_scale),
-      static_cast<const float*>(v_scale), static_cast<const float*>(fresh_k),
-      static_cast<const float*>(fresh_v), static_cast<const int*>(tables),
-      static_cast<const int*>(starts), static_cast<float*>(out), Hq, Hkv, P, D,
-      M, block_size, tile_q, 1.0f / sqrtf((float)D));
-  return (int)cudaGetLastError();
-}
+constexpr int kMaxHeadDim = 128;  // both paths
 
 // ---------------------------------------------------------------------------
 // decode path: split-KV, the splits of one (row, kv head) in one cluster
@@ -355,7 +172,6 @@ constexpr int kSplitMin = 64;      // table positions per split at least
 constexpr int kSplitUnit = 16;     // positions dealt to a split at a time
 constexpr int kDecChunk = 256;     // positions resolved and scored per step
 constexpr int kInFlight = 4;       // positions a lane loads before using them
-constexpr int kMaxHeadDim = kThreads * kMaxAcc / kMaxQueries;  // both paths
 static_assert(kDecodeRows <= kDecWarps, "one warp per query row in the softmax");
 
 // ceil(width / kSplitMin) rounded up to a power of two, at most kMaxSplits
@@ -738,6 +554,469 @@ int launch_decode_any(const void* q, const void* k_pool, const void* v_pool, con
 #undef QN_DECODE
 }
 
+// ---------------------------------------------------------------------------
+// prefill path: 3xTF32 on the tensor cores (K1's skeleton over the block table)
+
+constexpr int kPreRows = 64;       // query rows a block owns: 4 warps x 16
+constexpr int kNoKey = INT_MIN;    // a key position past the tile's live range
+constexpr int kPreSplits = 4;      // key splits of a row tile at most (one cluster)
+constexpr int kPreSplitTiles = 4;  // key tiles a split takes before P asks for another
+
+// key positions a stage holds: 64, 32 at DP = 128 to stay within 255
+// registers (K1's rule)
+template <int DP>
+__host__ __device__ constexpr int prefill_keys() {
+  return DP == 128 ? 32 : 64;
+}
+
+template <typename T, int DP>
+struct PrefillSmem {
+  static constexpr int LD = DP + kPad;
+  static constexpr int BK = prefill_keys<DP>();
+  static constexpr int kStage = 2 * BK * LD;  // k, v (floats)
+  // a narrow pool's K and V rows of the tile in flight, as stored
+  static constexpr int kRawBytes = sizeof(T) < 4 ? 2 * BK * DP * (int)sizeof(T) : 0;
+  // q [64][LD]; two stages; three slots of each position's source and
+  // scales; the raw rows
+  static constexpr size_t bytes =
+      4 * ((size_t)kPreRows * LD + 2 * (size_t)kStage + 9 * BK) + kRawBytes;
+};
+
+// Key splits of a row tile, from P alone (the host never reads starts):
+// enough that a split of the longest tile at start 0 takes at most
+// kPreSplitTiles key tiles, at most kPreSplits
+template <int DP>
+int prefill_splits(int P) {
+  const int key_tiles = (P + prefill_keys<DP>() - 1) / prefill_keys<DP>();
+  const int n = (key_tiles + kPreSplitTiles - 1) / kPreSplitTiles;
+  return n < kPreSplits ? n : kPreSplits;
+}
+
+// One cluster of n_split blocks per (tile of 64 query rows, kv head, row
+// s). The tile's rows are (query head of the group, query) pairs, row r =
+// query r / G of head kvh * G + r % G, so under GQA a staged K/V tile
+// serves the whole group. Keys stream in stages of BK positions up to the
+// tile's last visible one, key tile u to split u % n_split; with more than
+// one split each block leaves its partial (m, l, unnormalised o) in shared
+// memory and the cluster combines them in split order. DP is D rounded up
+// to 8, 16, 32, 64 or 128 (columns past D are zero).
+template <typename T, int DP>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+paged_prefill_3xtf32_kernel(const float* __restrict__ q, const T* __restrict__ k_pool,
+                            const T* __restrict__ v_pool, const float* __restrict__ k_scale,
+                            const float* __restrict__ v_scale, const float* __restrict__ fresh_k,
+                            const float* __restrict__ fresh_v, const int* __restrict__ tables,
+                            const int* __restrict__ starts, float* __restrict__ out, int Hq,
+                            int Hkv, int P, int D, int M, int bs, int wide, int n_split,
+                            float scale) {
+  using L = PrefillSmem<T, DP>;
+  constexpr int LD = L::LD, BK = L::BK, NT = BK / 8;
+  constexpr bool kNarrow = sizeof(T) < 4;
+  extern __shared__ float smem[];
+  float* q_s = smem;                                            // [64][LD]
+  float* ring = q_s + kPreRows * LD;                            // 2 stages: k, v [BK][LD]
+  int* src_s = reinterpret_cast<int*>(ring + 2 * L::kStage);    // [3][BK]
+  float* sk_s = reinterpret_cast<float*>(src_s + 3 * BK);       // [3][BK]
+  float* sv_s = sk_s + 3 * BK;                                  // [3][BK]
+  T* raw_s = reinterpret_cast<T*>(sv_s + 3 * BK);               // [2][BK][DP], narrow pools
+
+  cg::cluster_group cluster = cg::this_cluster();
+  const int G = Hq / Hkv, RT = G * P;
+  const int tiles = (RT + kPreRows - 1) / kPreRows;
+  // one cluster spans x: n_split blocks, one per split of the row tile
+  const int split = (int)cluster.block_rank();
+  const int r0 = (tiles - 1 - (int)blockIdx.x / n_split) * kPreRows;  // longest rows first
+  const int kvh = blockIdx.y, s = blockIdx.z;
+  const int start = starts[s];
+  const int* trow = tables + (size_t)s * M;
+  // keys up to the tile's last query, never past the table (the TPU index
+  // map's clamp): table slots past min((start + last) / bs, M - 1) are not read
+  const int i_lo = r0 / G, i_hi = (min(r0 + kPreRows, RT) - 1) / G;
+  const int n_keys = min(start + i_hi + 1, M * bs);
+  // this split's key tiles: its u-th is split + u * n_split
+  const int nk = (n_keys + BK - 1) / BK;
+  const int my_nk = nk > split ? (nk - split + n_split - 1) / n_split : 0;
+  auto key_tile = [&](int u) { return split + u * n_split; };
+  const int tid = threadIdx.x, warp = tid / 32, g = (tid & 31) / 4, t = tid & 3;
+  const int qw = warp * 16;  // the warp's first row in the tile
+  const size_t fresh_off = ((size_t)s * Hkv + kvh) * P * D;
+  auto q_row = [&](int r) {  // offset of tile row r (< RT) in q and out
+    return (((size_t)s * Hq + kvh * G + r % G) * P + r / G) * D;
+  };
+
+  // each position's source: pool slot, -1 - its row in the fresh run, or
+  // kNoKey past the live range; and its K and V scale (1 when unscaled)
+  auto resolve = [&](int kt, int slot) {
+    for (int j = tid; j < BK; j += kMmaThreads) {
+      const int tk = kt * BK + j, rel = tk - start;
+      int src = kNoKey;
+      float ks = 1.f, vs = 1.f;
+      if (tk < n_keys) {
+        if (fresh_k != nullptr && rel >= 0 && rel < P) {
+          src = -1 - rel;
+        } else {
+          const int blk = trow[tk / bs];
+          src = blk * bs + tk % bs;
+          if (k_scale != nullptr) {
+            ks = k_scale[(size_t)blk * Hkv + kvh];
+            vs = v_scale[(size_t)blk * Hkv + kvh];
+          }
+        }
+      }
+      src_s[slot * BK + j] = src;
+      sk_s[slot * BK + j] = ks;
+      sv_s[slot * BK + j] = vs;
+    }
+  };
+
+  // a key tile's rows in flight by cp.async: f32 rows (an f32 pool, the
+  // fresh run) and empty ones (zero) straight into the stage; a narrow
+  // pool's rows as stored into raw_s, 16 bytes a lane (4 values where D or
+  // the pools' alignment forbid 16 bytes), for widen()
+  constexpr int kWideVals = 16 / (int)sizeof(T);
+  auto issue = [&](int kt, int stage, int slot) {
+    float* kd = ring + stage * L::kStage;
+    const int* src = src_s + slot * BK;
+    const int k0 = kt * BK;
+    constexpr int kCpr = DP / 4;  // 16-byte f32 chunks a row, those past D skipped
+    // with a narrow pool only a tile holding fresh or empty positions has f32 rows
+    const bool other = (fresh_k != nullptr && k0 < start + P && k0 + BK > start) ||
+                       k0 + BK > n_keys;
+    if (!kNarrow || other) {
+      for (int i = tid; i < 2 * BK * kCpr; i += kMmaThreads) {
+        const int kv = i / (BK * kCpr), jc = i - kv * BK * kCpr;
+        const int j = jc / kCpr, col = (jc - j * kCpr) * 4;
+        if (col >= D) continue;
+        const int sj = src[j];
+        float* dst = kd + kv * BK * LD + j * LD + col;
+        if (sj >= 0) {
+          if constexpr (!kNarrow)
+            cp_async16(dst, (kv ? v_pool : k_pool) + ((size_t)sj * Hkv + kvh) * D + col, 16);
+        } else if (sj != kNoKey) {
+          cp_async16(dst, (kv ? fresh_v : fresh_k) + fresh_off + (size_t)(-1 - sj) * D + col, 16);
+        } else {
+          cp_async16(dst, q, 0);
+        }
+      }
+    }
+    if constexpr (kNarrow) {
+      const int vals = wide ? kWideVals : 4;  // values a lane
+      const int cpr = DP / vals;
+      for (int i = tid; i < 2 * BK * cpr; i += kMmaThreads) {
+        const int kv = i / (BK * cpr), jc = i - kv * BK * cpr;
+        const int j = jc / cpr, col = (jc - j * cpr) * vals;
+        const int sj = src[j];
+        if (col >= D || sj < 0) continue;
+        T* dst = raw_s + (kv * BK + j) * DP + col;
+        const T* from = (kv ? v_pool : k_pool) + ((size_t)sj * Hkv + kvh) * D + col;
+        if (wide)
+          cp_async16(dst, from, 16);
+        else if constexpr (sizeof(T) == 2)
+          cp_async8(dst, from);
+        else
+          cp_async4(dst, from, 4);
+      }
+    }
+  };
+
+  // a narrow pool's rows of the tile, from raw_s widened to f32 into the
+  // stage: 16 bytes a lane (8 where a row is narrower), values past D left
+  auto widen = [&](int stage, int slot) {
+    if constexpr (kNarrow) {
+      constexpr int kPer = 4 / (int)sizeof(T);  // values a 32-bit word
+      constexpr int kVals = DP < kWideVals ? DP : kWideVals;
+      constexpr int kWords = kVals / kPer, kCw = DP / kVals;
+      float* kd = ring + stage * L::kStage;
+      const int* src = src_s + slot * BK;
+      for (int i = tid; i < 2 * BK * kCw; i += kMmaThreads) {
+        const int kv = i / (BK * kCw), jc = i - kv * BK * kCw;
+        const int j = jc / kCw, col = (jc - j * kCw) * kVals;
+        if (col >= D || src[j] < 0) continue;
+        const T* from = raw_s + (kv * BK + j) * DP + col;
+        uint32_t w[kWords];
+        if constexpr (kWords == 4) {
+          const uint4 x = *reinterpret_cast<const uint4*>(from);
+          w[0] = x.x, w[1] = x.y, w[2] = x.z, w[3] = x.w;
+        } else {
+          const uint2 x = *reinterpret_cast<const uint2*>(from);
+          w[0] = x.x, w[1] = x.y;
+        }
+        float f[kVals];
+#pragma unroll
+        for (int e = 0; e < kWords; ++e) widen_word<T>(w[e], f + e * kPer);
+        float* dst = kd + kv * BK * LD + j * LD + col;
+#pragma unroll
+        for (int e = 0; e < kVals; e += 4)
+          if (col + e < D)
+            *reinterpret_cast<float4*>(dst + e) = make_float4(f[e], f[e + 1], f[e + 2], f[e + 3]);
+      }
+    }
+  };
+
+  // columns D .. DP-1 of both stages stay zero (no load writes them)
+  if (D < DP) {
+    for (int i = tid; i < 2 * 2 * BK * (DP - D); i += kMmaThreads) {
+      const int row = i / (DP - D);
+      ring[row * LD + D + (i - row * (DP - D))] = 0.f;
+    }
+  }
+  // the tile's q rows (zero past the last row and past D), then the first
+  // key tile
+  for (int i = tid; i < kPreRows * (DP / 4); i += kMmaThreads) {
+    const int r = i / (DP / 4), col = (i - r * (DP / 4)) * 4;
+    const bool ok = r0 + r < RT && col < D;
+    cp_async16(q_s + r * LD + col, ok ? q + q_row(r0 + r) + col : q, ok ? 16 : 0);
+  }
+  if (my_nk > 0) resolve(key_tile(0), 0);
+  if (my_nk > 1) resolve(key_tile(1), 1);
+  __syncthreads();
+  if (my_nk > 0) issue(key_tile(0), 0, 0);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+  if (my_nk > 0) widen(0, 0);
+
+  // rows qw + g and qw + g + 8: their query positions, running max (natural
+  // log units), this thread's part of the running sum, the output accumulator
+  int pos_r[2];
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+#pragma unroll
+  for (int h = 0; h < 2; ++h) pos_r[h] = start + (r0 + qw + g + 8 * h) / G;
+  float o_acc[DP / 8][4];
+#pragma unroll
+  for (int n = 0; n < DP / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
+
+  for (int u = 0; u < my_nk; ++u) {
+    const int st = u & 1;
+    // tile u is in its stage (and widened); the other stage's readers are done
+    __syncthreads();
+    if (u + 1 < my_nk) {  // the next tile loads while this one computes
+      issue(key_tile(u + 1), st ^ 1, (u + 1) % 3);
+      cp_async_commit();
+      if (u + 2 < my_nk) resolve(key_tile(u + 2), (u + 2) % 3);
+    }
+    const int k0 = key_tile(u) * BK;
+    const float* ks = ring + st * L::kStage;
+    const float* vs = ks + BK * LD;
+    const float* skr = sk_s + (u % 3) * BK;
+    const float* svr = sv_s + (u % 3) * BK;
+    float sc[NT][4];  // rows qw + g (+8), key columns
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sc[j][e] = 0.f;
+#pragma unroll 2
+    for (int c0 = 0; c0 < DP; c0 += 8) {
+      const Frag<4> qa = frag_a<DP>(q_s, qw, c0);
+#pragma unroll
+      for (int j = 0; j < NT; j += 2) {
+        Frag<2> kb[2];
+        frag_b_t2<DP>(ks, 8 * j, c0, kb[0], kb[1]);
+        mma_3xtf32(sc[j], qa, kb[0]);
+        mma_3xtf32(sc[j + 1], qa, kb[1]);
+      }
+    }
+    // score = q.k x (K scale) / sqrt(D); masked past a row's position and
+    // past the live range, only on tiles that cross either
+    const bool needs_mask = k0 + BK - 1 > start + i_lo || k0 + BK > n_keys;
+    float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kl = 8 * j + 2 * t + (e & 1);
+        float x = sc[j][e] * skr[kl] * scale;
+        if (needs_mask && (k0 + kl > pos_r[e >> 1] || k0 + kl >= n_keys)) x = kNegInf;
+        sc[j][e] = x;
+        mx[e >> 1] = fmaxf(mx[e >> 1], x);
+      }
+    }
+    // online softmax: a row's scores of this tile sit on the 4 lanes of a quad
+    float corr[2], neg_m2[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+      mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+      const float m_new = fmaxf(m_r[h], mx[h]);
+      corr[h] = ex2((m_r[h] - m_new) * kLog2e);
+      neg_m2[h] = -m_new * kLog2e;
+      m_r[h] = m_new;
+      l_r[h] *= corr[h];
+    }
+    // l sums the probabilities; P V takes them times the V scale
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const float x = sc[j][e];
+        const float p = x > 0.5f * kNegInf ? ex2(fmaf(x, kLog2e, neg_m2[e >> 1])) : 0.f;
+        l_r[e >> 1] += p;
+        sc[j][e] = p * svr[8 * j + 2 * t + (e & 1)];
+      }
+    }
+    // o = o corr + p v over this tile's keys: p feeds the product from
+    // registers, the tile's NT steps are summed in the tensor core
+    Frag<4> pa[NT];
+#pragma unroll
+    for (int j = 0; j < NT; ++j) pa[j] = acc_as_a(sc[j]);
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n) {
+      float ot[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) mma_3xtf32_tc(ot, pa[j], frag_b_n<DP>(vs, 8 * j, 8 * n, g, t));
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o_acc[n][e] = fmaf(o_acc[n][e], corr[e >> 1], ot[e]);
+    }
+    if (u + 1 < my_nk) {  // the next tile landed: every thread's copies, then widened
+      cp_async_wait<0>();
+      __syncthreads();
+      widen(st ^ 1, (u + 1) % 3);
+    }
+  }
+
+  // l over the quad
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+  }
+  if (n_split == 1) {
+    // every real row sees position 0, so l > 0: o / l into the real rows'
+    // first D columns
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const float inv = 1.f / fmaxf(l_r[h], 1e-30f);
+      const int r = r0 + qw + g + 8 * h;
+      if (r >= RT) continue;
+      float* dst = out + q_row(r);
+#pragma unroll
+      for (int n = 0; n < DP / 8; ++n)
+        if (8 * n + 2 * t < D)
+          *reinterpret_cast<float2*>(dst + 8 * n + 2 * t) =
+              make_float2(o_acc[n][2 * h] * inv, o_acc[n][2 * h + 1] * inv);
+    }
+    return;
+  }
+
+  // this split's partial, read by the whole cluster: unnormalised o over q's
+  // rows, running max and sum (a split without key tiles: -1e30, 0, 0)
+  float* part_o = q_s;  // [64][LD]
+  float* part_m = sk_s;  // [64]
+  float* part_l = sv_s;  // [64]
+  __syncthreads();  // every warp is done with q_s and the slots
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = qw + g + 8 * h;
+#pragma unroll
+    for (int n = 0; n < DP / 8; ++n)
+      *reinterpret_cast<float2*>(part_o + r * LD + 8 * n + 2 * t) =
+          make_float2(o_acc[n][2 * h], o_acc[n][2 * h + 1]);
+    if (t == 0) {
+      part_m[r] = m_r[h];
+      part_l[r] = l_r[h];
+    }
+  }
+  // each block combines a share of the rows, the splits in order 0, 1, ...;
+  // a row's remote reads are all issued before any is used
+  cluster.sync();
+  const int share = (kPreRows + n_split - 1) / n_split;
+  for (int x = tid; x < share * D; x += kMmaThreads) {
+    const int rl = split * share + x / D, d = x % D;
+    if (rl >= kPreRows || r0 + rl >= RT) continue;
+    float mj[kPreSplits], lj[kPreSplits], oj[kPreSplits];
+#pragma unroll
+    for (int j = 0; j < kPreSplits; ++j) {
+      if (j < n_split) {
+        mj[j] = *cluster.map_shared_rank(&part_m[rl], j);
+        lj[j] = *cluster.map_shared_rank(&part_l[rl], j);
+        oj[j] = *cluster.map_shared_rank(&part_o[rl * LD + d], j);
+      }
+    }
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kPreSplits; ++j)
+      if (j < n_split) mx = fmaxf(mx, mj[j]);
+    float num = 0.f, den = 0.f;
+#pragma unroll
+    for (int j = 0; j < kPreSplits; ++j) {
+      if (j < n_split) {
+        const float w = ex2((mj[j] - mx) * kLog2e);
+        num = fmaf(w, oj[j], num);
+        den = fmaf(w, lj[j], den);
+      }
+    }
+    out[q_row(r0 + rl) + d] = num / den;
+  }
+  cluster.sync();  // every block's partial stays readable until the combine is done
+}
+
+template <typename T, int DP>
+int launch_prefill(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                   const void* v_scale, const void* fresh_k, const void* fresh_v,
+                   const void* tables, const void* starts, void* out, int S, int Hq, int Hkv,
+                   int P, int D, int M, int block_size, void* stream) {
+  const size_t smem = PrefillSmem<T, DP>::bytes;
+  const cudaError_t e = allow_smem(paged_prefill_3xtf32_kernel<T, DP>, smem);
+  if (e != cudaSuccess) return (int)e;
+  constexpr int kWideVals = 16 / (int)sizeof(T);
+  const bool wide = D % kWideVals == 0 &&
+                    ((reinterpret_cast<uintptr_t>(k_pool) | reinterpret_cast<uintptr_t>(v_pool)) %
+                     16) == 0;
+  const int n_split = prefill_splits<DP>(P);
+  const dim3 grid((P * (Hq / Hkv) + kPreRows - 1) / kPreRows * n_split, Hkv, S);
+  const float scale = 1.0f / sqrtf((float)D);
+  if (n_split == 1) {  // no cluster to launch
+    paged_prefill_3xtf32_kernel<T, DP><<<grid, kMmaThreads, smem, (cudaStream_t)stream>>>(
+        static_cast<const float*>(q), static_cast<const T*>(k_pool),
+        static_cast<const T*>(v_pool), static_cast<const float*>(k_scale),
+        static_cast<const float*>(v_scale), static_cast<const float*>(fresh_k),
+        static_cast<const float*>(fresh_v), static_cast<const int*>(tables),
+        static_cast<const int*>(starts), static_cast<float*>(out), Hq, Hkv, P, D, M, block_size,
+        (int)wide, 1, scale);
+    return (int)cudaGetLastError();
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = grid;
+  cfg.blockDim = dim3(kMmaThreads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = static_cast<cudaStream_t>(stream);
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = n_split;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t err = cudaLaunchKernelEx(
+      &cfg, paged_prefill_3xtf32_kernel<T, DP>, static_cast<const float*>(q),
+      static_cast<const T*>(k_pool), static_cast<const T*>(v_pool),
+      static_cast<const float*>(k_scale), static_cast<const float*>(v_scale),
+      static_cast<const float*>(fresh_k), static_cast<const float*>(fresh_v),
+      static_cast<const int*>(tables), static_cast<const int*>(starts), static_cast<float*>(out),
+      Hq, Hkv, P, D, M, block_size, (int)wide, n_split, scale);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
+
+// D rounded up to the widths the kernel is built for (columns past D zero)
+template <typename T>
+int launch_prefill_any(const void* q, const void* k_pool, const void* v_pool, const void* k_scale,
+                       const void* v_scale, const void* fresh_k, const void* fresh_v,
+                       const void* tables, const void* starts, void* out, int S, int Hq, int Hkv,
+                       int P, int D, int M, int block_size, void* stream) {
+#define QN_PREFILL(DP)                                                                       \
+  return launch_prefill<T, DP>(q, k_pool, v_pool, k_scale, v_scale, fresh_k, fresh_v, tables, \
+                               starts, out, S, Hq, Hkv, P, D, M, block_size, stream)
+  if (D <= 8) QN_PREFILL(8);
+  if (D <= 16) QN_PREFILL(16);
+  if (D <= 32) QN_PREFILL(32);
+  if (D <= 64) QN_PREFILL(64);
+  QN_PREFILL(128);
+#undef QN_PREFILL
+}
+
 bool takes_decode_path(int Hq, int Hkv, int P) {
   return Hkv > 0 && P * (Hq / Hkv) <= kDecodeRows;
 }
@@ -750,8 +1029,8 @@ int launch_any(const void* q, const void* k_pool, const void* v_pool, const void
   if (takes_decode_path(Hq, Hkv, P))
     return launch_decode_any<T>(q, k_pool, v_pool, k_scale, v_scale, fresh_k, fresh_v, tables,
                                 starts, out, S, Hq, Hkv, P, D, M, block_size, stream);
-  return launch<T>(q, k_pool, v_pool, k_scale, v_scale, fresh_k, fresh_v, tables, starts, out, S,
-                   Hq, Hkv, P, D, M, block_size, stream);
+  return launch_prefill_any<T>(q, k_pool, v_pool, k_scale, v_scale, fresh_k, fresh_v, tables,
+                               starts, out, S, Hq, Hkv, P, D, M, block_size, stream);
 }
 
 }  // namespace

@@ -9,6 +9,15 @@ is what ``nn/attention.mha_apply(use_flash=True)`` calls:
   tensors. The JAX dispatcher's TPU rule (S a multiple of 512, S >=
   4096 — a v5e crossover and a v5e MXU tile choice) says nothing about
   the H100 and is not carried over; the kernels take any S.
+- a call on CUDA tensors outside the kernels' domain (a head dim not in
+  ``HEAD_DIMS``, a dtype other than float32, B x H > 65,535:
+  :func:`~quintnet_tpu_torch.ops.flash_kernels.kernels_take`) runs
+  :func:`blockwise_attention` under autograd, as the JAX dispatcher
+  sends every call its Pallas kernel cannot take to its blockwise path
+  (``quintnet_tpu/ops/flash_attention.py:177-192``). Each such call
+  counts one in ``flash_attention.routed``. This is a rule on shapes and
+  dtypes, not a fallback: a call inside the domain launches the kernels
+  or raises.
 - with attention dropout (``pdrop > 0`` and a ``generator``) it runs
   :func:`blockwise_attention` under autograd, as the JAX dispatcher
   does: the kernels carry no random numbers, so a training run with
@@ -22,7 +31,7 @@ import math
 import torch
 
 from quintnet_tpu_torch.ops.flash_kernels import (FlashAttentionFunction,
-                                                  visible_pairs)
+                                                  kernels_take, visible_pairs)
 
 
 def blockwise_attention(q, k, v, *, causal: bool, block_k: int = 128,
@@ -70,18 +79,30 @@ def blockwise_attention(q, k, v, *, causal: bool, block_k: int = 128,
     return (acc / l.clamp_min(1e-30)[..., None]).to(q.dtype)
 
 
+def _on_card(q) -> bool:
+    return q.device.type == "cuda"
+
+
 def flash_attention(q, k, v, *, causal: bool = False, pdrop: float = 0.0,
                     generator=None, segment_ids=None):
     """[B, H, S, D] fused attention: the flash kernels (through
     :class:`FlashAttentionFunction`), or :func:`blockwise_attention` when
-    attention dropout is asked for (``pdrop > 0`` with a
-    ``generator``). ``segment_ids`` [B, S] masks attention across packed
-    documents on both paths."""
+    attention dropout is asked for (``pdrop > 0`` with a ``generator``)
+    or, on the card, when the kernels cannot take the call (counted in
+    ``flash_attention.routed``). ``segment_ids`` [B, S] masks attention
+    across packed documents on every path."""
     if generator is not None and pdrop > 0.0:
         return blockwise_attention(q, k, v, causal=causal, pdrop=pdrop,
                                    generator=generator,
+                                   segment_ids=segment_ids)
+    if _on_card(q) and not kernels_take(q):
+        flash_attention.routed += 1
+        return blockwise_attention(q, k, v, causal=causal,
                                    segment_ids=segment_ids)
     seg = (None if segment_ids is None
            else segment_ids.to(torch.int32).contiguous())
     return FlashAttentionFunction.apply(q.contiguous(), k.contiguous(),
                                         v.contiguous(), seg, causal)
+
+
+flash_attention.routed = 0

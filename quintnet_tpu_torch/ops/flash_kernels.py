@@ -22,8 +22,12 @@ runs the plain version (``*_ref``). :class:`FlashAttentionFunction`
 ties them together as a ``torch.autograd.Function``, so the CPU tests
 exercise the same autograd wiring the card runs.
 
-Only float32 is ported: bf16/fp16 inputs raise ``NotImplementedError``
-(ROADMAP.md §2, K1-K3 speed work).
+The kernels take float32 [B, H, S, D] with D in ``HEAD_DIMS`` and B x H
+<= 65,535 (:func:`kernel_domain_error`, the one rule both the wrappers'
+checks and the dispatcher of ``ops/flash_attention.py`` read): the
+wrappers raise outside it (bf16/fp16 ``NotImplementedError``, ROADMAP.md
+§2, K1-K3 bf16 tiles), and the dispatcher sends such calls to the plain
+blockwise attention instead, as the JAX dispatcher does.
 """
 
 from __future__ import annotations
@@ -38,6 +42,7 @@ from quintnet_tpu_torch.ops import build
 _KERNEL = "flash_attention"
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+MAX_GRID_Y = 65535  # one block row per (batch, head)
 
 
 # ---------------------------------------------------------------------
@@ -138,9 +143,39 @@ def _lib():
     return lib
 
 
+def kernel_domain_error(shape, dtype):
+    """Why the K1-K3 kernels cannot take [B, H, S, D] inputs of
+    ``dtype`` -- the exception :func:`_check_cuda_args` raises for them
+    -- or None when they can: float32, D in ``HEAD_DIMS``, B x H within
+    the grid's y limit."""
+    if dtype in (torch.bfloat16, torch.float16):
+        return NotImplementedError(
+            f"the flash-attention kernels take float32; got {dtype} "
+            f"(narrow tiles are ROADMAP.md §2, K1-K3 bf16 tiles)")
+    if dtype != torch.float32:
+        return TypeError(f"the flash-attention kernels take float32; got "
+                         f"{dtype}")
+    if len(shape) != 4:
+        return ValueError(f"expected q [B, H, S, D]; got {tuple(shape)}")
+    B, H, _, D = shape
+    if D not in HEAD_DIMS:
+        return ValueError(f"head dim {D} not in {HEAD_DIMS}")
+    if B * H > MAX_GRID_Y:
+        return ValueError(f"B * H = {B * H} exceeds the grid's y limit "
+                          f"{MAX_GRID_Y} (one block row per (batch, head))")
+    return None
+
+
+def kernels_take(q) -> bool:
+    """True when the K1-K3 kernels take a call whose q (k and v alike)
+    has ``q``'s shape and dtype (:func:`kernel_domain_error`)."""
+    return kernel_domain_error(q.shape, q.dtype) is None
+
+
 def _check_cuda_args(q, tensors, rows, segment_ids):
     """Everything the kernels assume, checked before launch: ``tensors``
-    are [B, H, S, D] like q, ``rows`` [B, H, S] f32 (lse, delta)."""
+    [B, H, S, D] like q, ``rows`` [B, H, S] f32 (lse, delta), and q
+    inside :func:`kernel_domain_error`'s domain."""
     if q.dim() != 4:
         raise ValueError(f"expected q [B, H, S, D]; got {tuple(q.shape)}")
     B, H, S, D = q.shape
@@ -151,8 +186,8 @@ def _check_cuda_args(q, tensors, rows, segment_ids):
         if t.dtype in (torch.bfloat16, torch.float16):
             raise NotImplementedError(
                 f"the flash-attention kernels take float32; {name} is "
-                f"{t.dtype} (narrow tiles are ROADMAP.md §2, K1-K3 speed "
-                f"work)")
+                f"{t.dtype} (narrow tiles are ROADMAP.md §2, K1-K3 bf16 "
+                f"tiles)")
         if t.dtype != torch.float32:
             raise TypeError(f"{name} must be float32, got {t.dtype}")
         if not t.is_contiguous():
@@ -167,11 +202,9 @@ def _check_cuda_args(q, tensors, rows, segment_ids):
         if tuple(t.shape) != (B, H, S):
             raise ValueError(f"{name} must be [B, H, S] = {(B, H, S)}; got "
                              f"{tuple(t.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"head dim {D} not in {HEAD_DIMS}")
-    if B * H > 65535:
-        raise ValueError(f"B * H = {B * H} exceeds the grid's y limit "
-                         f"65535 (one block row per (batch, head))")
+    err = kernel_domain_error(q.shape, q.dtype)
+    if err is not None:
+        raise err
     if segment_ids is not None:
         if segment_ids.device != q.device:
             raise ValueError(f"segment_ids is on {segment_ids.device}, q on "

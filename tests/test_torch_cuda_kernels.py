@@ -270,6 +270,120 @@ def test_fake_quant_decode_equals_f32_bitwise(cuda_device, name):
     assert torch.equal(a, b)
 
 
+# the prefill path (3xTF32 on the tensor cores, more than 4 query rows a kv
+# head): head dims the kernel pads (8 -> 8, 12 -> 16, 36 -> 64) or takes as
+# they are (64, 128); tails at the unaligned start 37; pad queries past the
+# table's 128 positions; GQA groups of 2 and 4 folded into one row tile;
+# several row and key tiles on a table of 1,024 positions
+def _prefill_cases():
+    return {
+        "d8": dict(S=1, Hq=2, Hkv=2, P=40, D=8, starts=[0]),
+        "d12_start37": dict(S=1, Hq=2, Hkv=2, P=33, D=12, starts=[37]),
+        "d36_start37": dict(S=1, Hq=2, Hkv=2, P=70, D=36, starts=[37]),
+        "d128_start37": dict(S=1, Hq=2, Hkv=2, P=64, D=128, starts=[37]),
+        "past_table": dict(S=1, Hq=2, Hkv=2, P=100, D=64, starts=[101]),
+        "gqa2_p16": dict(S=2, Hq=8, Hkv=4, P=16, D=64, starts=[37, 0]),
+        "gqa4_p40_start37": dict(S=1, Hq=8, Hkv=2, P=40, D=64, starts=[37]),
+        "gqa4_d128": dict(S=1, Hq=8, Hkv=2, P=24, D=128, starts=[5]),
+        "two_rows": dict(S=2, Hq=4, Hkv=4, P=96, D=64, starts=[0, 29]),
+        "long_p300": dict(S=1, Hq=2, Hkv=2, P=300, D=64, starts=[0], m=64),
+        "long_d128_start37": dict(S=1, Hq=2, Hkv=2, P=200, D=128,
+                                  starts=[37], m=64),
+        # key tiles split 2, 3 and 4 ways inside a cluster (P > 256 at D <=
+        # 64, P > 128 at D = 128: the two above are split 2 ways)
+        "split3_gqa2": dict(S=1, Hq=4, Hkv=2, P=600, D=64, starts=[37],
+                            m=64),
+        "split4_past_table": dict(S=1, Hq=2, Hkv=2, P=1024, D=64,
+                                  starts=[37], m=64),
+        "split4_d128_two_rows": dict(S=2, Hq=2, Hkv=2, P=520, D=128,
+                                     starts=[0, 300], m=64),
+    }
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["f32", *sorted(LAYOUTS)])
+@pytest.mark.parametrize("name", sorted(_prefill_cases()))
+def test_prefill_path_matches_plain_version(cuda_device, layout, name):
+    args, kw = _narrow_case(13, layout, **_prefill_cases()[name])
+    assert kernel_path(args[0], args[1]) == "prefill"
+    before = paged_attention.launches_by_path["prefill"]
+    got = paged_attention(*args, block_size=BS, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches_by_path["prefill"] == before + 1
+    want = paged_attention_ref(*args, block_size=BS, **kw)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["bf16", "int8", "fp8"])
+def test_prefill_path_pools_not_16_byte_aligned(cuda_device, layout):
+    """Narrow pools at an address that is not 16-byte aligned (but as
+    aligned as the wrapper asks) take the 4-values-a-lane loads."""
+    args, kw = _narrow_case(14, layout, **_prefill_cases()["gqa4_p40_start37"])
+    q, k, v, tables, starts = args
+    align = {"bf16": 8, "int8": 4, "fp8": 4}[layout] // k.element_size()
+
+    def shifted(t):
+        flat = torch.empty(t.numel() + align, dtype=t.dtype, device="cuda")
+        out = flat[align:].view(t.shape)
+        out.copy_(t)
+        return out
+
+    k, v = shifted(k), shifted(v)
+    assert k.data_ptr() % 16 and v.data_ptr() % 16
+    got = paged_attention(q, k, v, tables, starts, block_size=BS, **kw)
+    torch.cuda.synchronize()
+    want = paged_attention_ref(q, k, v, tables, starts, block_size=BS, **kw)
+    torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["long_p300", "split4_past_table"])
+@pytest.mark.parametrize("layout", ["f32", "int8"])
+def test_prefill_path_is_deterministic(cuda_device, layout, name):
+    """Each output element is written by one block, its key splits
+    combined in a fixed order, without atomics: two launches give
+    bitwise-equal outputs."""
+    args, kw = _narrow_case(15, layout, **_prefill_cases()[name])
+    a = paged_attention(*args, block_size=BS, **kw)
+    b = paged_attention(*args, block_size=BS, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["d36_start37", "past_table", "gqa4_d128",
+                                  "long_p300", "split3_gqa2"])
+def test_fake_quant_prefill_equals_f32_bitwise(cuda_device, name):
+    """On the prefill path: the f32 pool holding the run (passthrough)
+    against the same pool with the run's slots overwritten, all-one
+    scales and the run as the fresh K/V (fake_quant): bit-identical."""
+    (q, k, v, tables, starts), _ = _narrow_case(16, "f32",
+                                                **_prefill_cases()[name])
+    S, _, P, D = q.shape
+    width = tables.shape[1] * BS
+    fresh = [torch.zeros((S, k.shape[1], P, D), device="cuda")
+             for _ in range(2)]
+    k_over, v_over = k.clone(), v.clone()
+    for s in range(S):
+        for i in range(P):
+            t = int(starts[s]) + i
+            if t >= width:
+                continue
+            slot = int(tables[s, t // BS]) * BS + t % BS
+            fresh[0][s, :, i], fresh[1][s, :, i] = k[slot], v[slot]
+            k_over[slot] = torch.randn_like(k[slot])
+            v_over[slot] = torch.randn_like(v[slot])
+    ones = torch.ones((k.shape[0] // BS, k.shape[1]), device="cuda")
+    a = paged_attention(q, k, v, tables, starts, block_size=BS)
+    b = paged_attention(q, k_over, v_over, tables, starts, block_size=BS,
+                        kv_scales=(ones, ones), fresh_kv=tuple(fresh))
+    torch.cuda.synchronize()
+    assert kernel_path(q, k) == "prefill"
+    assert torch.equal(a, b)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("policy", ["int8", "fake_quant"])
 def test_window_update_on_card_equals_cpu(cuda_device, policy):
@@ -550,3 +664,54 @@ def test_tiny_training_step_on_card_matches_cpu(cuda_device, heads, remat):
     assert abs(float(loss) - float(loss_cpu)) <= 1e-5 * abs(float(loss_cpu))
     for path, g in grads_cpu.items():
         assert _rel_err(grads[path].cpu(), g) <= 1e-4, path
+
+
+@pytest.mark.cuda
+def test_tiny_gpt2_flash_step_routes_and_matches_cpu(cuda_device):
+    """Tiny GPT-2 (head dim 8, outside the kernels' domain) with
+    ``use_flash=True`` on the card goes through the dispatcher's blockwise
+    route without raising (``routed`` counts every layer of every
+    micro-batch, no kernel launches) and matches the CPU: the first
+    batch's loss and every gradient leaf, then the losses of two AdamW
+    steps (the second reads the first update; losses, unlike the updated
+    parameters, do not amplify the noise of gradients that are zero up to
+    rounding, such as the key bias's)."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    cfg = GPT2Config.tiny()
+    tcfg = Config.from_dict({"training": dict(
+        optimizer="adamw", learning_rate=3e-3, weight_decay=0.01,
+        grad_clip_norm=1.0, batch_size=4, gradient_accumulation_steps=2)})
+    spec = gpt2_model_spec(cfg, use_flash=True)
+    rng = np.random.default_rng(17)
+    ids = rng.integers(0, cfg.vocab_size, (4, 32))
+    labels = ids.copy()
+    params = gpt2_init(torch.Generator().manual_seed(2), cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        trainer = Trainer(tcfg, spec, task_type="clm", device=dev)
+        p = tree_map(lambda t: t.detach().clone().to(dev)
+                     .requires_grad_(True), params)
+        batch = trainer.device_batch(ids, labels)
+        for fn in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
+            fn.launches = 0
+        flash_attention.routed = 0
+        loss, grads = accumulate_grads(spec.loss_fn, p, batch, 2)
+        state, losses = trainer.optimizer.init(p), []
+        for _ in range(2):
+            p, state, step_loss = trainer.step_fn(p, state, batch)
+            losses.append(float(step_loss))
+        torch.cuda.synchronize()
+        out[dev] = (float(loss), grads, losses, flash_attention.routed)
+        assert (flash_fwd.launches, flash_bwd_dkv.launches,
+                flash_bwd_dq.launches) == (0, 0, 0)
+    assert out["cpu"][3] == 0
+    # layers x micro-batches x (the gradient pass + two steps)
+    assert out["cuda"][3] == cfg.n_layer * 2 * 3
+    assert abs(out["cuda"][0] - out["cpu"][0]) <= 1e-5 * abs(out["cpu"][0])
+    for path, g in out["cpu"][1].items():
+        assert _rel_err(out["cuda"][1][path].cpu(), g) <= 1e-4, path
+    np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-5)
+    assert out["cpu"][2][1] < out["cpu"][2][0]     # the step moved

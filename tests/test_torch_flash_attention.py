@@ -301,3 +301,126 @@ def test_plain_tf32_forward_misses_the_kernel_gate():
     args, (o_r, _) = _tf32_forward_case()
     o, _ = _forward_in_tf32(*args, terms=1)
     assert _rel_to_max(o, o_r) > 1e-4
+
+
+# ---------------------------------------------------------------------
+# the dispatcher's rule for calls the kernels cannot take
+# ---------------------------------------------------------------------
+
+@pytest.mark.parametrize("shape,dtype,takes", [
+    ((2, 4, 48, 64), torch.float32, True),
+    ((2, 4, 48, 32), torch.float32, True),
+    ((2, 4, 48, 128), torch.float32, True),
+    ((2, 4, 48, 8), torch.float32, False),        # tiny GPT-2's head dim
+    ((2, 4, 48, 48), torch.float32, False),
+    ((2, 4, 48, 64), torch.bfloat16, False),
+    ((2, 4, 48, 64), torch.float16, False),
+    ((1, 65535, 8, 64), torch.float32, True),     # the grid's y limit
+    ((1, 65536, 8, 64), torch.float32, False),
+    ((256, 256, 8, 64), torch.float32, False),
+])
+def test_routing_predicate(shape, dtype, takes):
+    """One rule on shape and dtype, read by the dispatcher and by the
+    wrappers' checks: large shapes as meta tensors (no memory)."""
+    from quintnet_tpu_torch.ops.flash_kernels import (kernel_domain_error,
+                                                      kernels_take)
+    q = torch.empty(shape, dtype=dtype, device="meta")
+    assert kernels_take(q) is takes
+    assert (kernel_domain_error(q.shape, q.dtype) is None) is takes
+
+
+def _routing_spy(monkeypatch):
+    """The dispatcher as it runs for CUDA tensors (its device test
+    patched), with every blockwise call recorded."""
+    calls = []
+    real = fa.blockwise_attention
+    monkeypatch.setattr(fa, "_on_card", lambda q: True)
+    monkeypatch.setattr(fa, "blockwise_attention",
+                        lambda *a, **kw: calls.append(kw) or real(*a, **kw))
+    return calls
+
+
+@pytest.mark.parametrize("segments", [False, True])
+@pytest.mark.parametrize("dtype,D", [(torch.float32, 8),
+                                     (torch.float32, 48),
+                                     (torch.bfloat16, 32)])
+def test_dispatcher_routes_what_the_kernels_cannot_take(monkeypatch, dtype,
+                                                        D, segments):
+    """Outside the kernels' domain a card call goes to the blockwise
+    attention (causality and segment ids carried), counted in
+    ``routed``; no kernel wrapper runs, and the output and gradients are
+    the plain attention's."""
+    q, k, v, do, seg = _inputs(11, shape=(2, 2, 40, D), segments=segments)
+    seg_t = _t(seg)
+    calls = _routing_spy(monkeypatch)
+
+    def no_kernel(*a, **kw):
+        raise AssertionError("the flash Function ran outside its domain")
+
+    monkeypatch.setattr(fa.FlashAttentionFunction, "apply", no_kernel)
+    leaves = [torch.from_numpy(a).to(dtype).requires_grad_(True)
+              for a in (q, k, v)]
+    ref = [t.detach().float().requires_grad_(True) for t in leaves]
+    before = fa.flash_attention.routed
+    out = fa.flash_attention(*leaves, causal=True, segment_ids=seg_t)
+    assert fa.flash_attention.routed == before + 1
+    assert len(calls) == 1 and calls[0]["causal"] is True
+    assert calls[0]["segment_ids"] is seg_t
+    assert out.dtype == dtype
+    want = sdpa(*ref, causal=True, segment_ids=seg_t)
+    tol = 1e-5 if dtype == torch.float32 else 2e-2
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               want.detach().numpy(), atol=tol)
+    got = torch.autograd.grad(out, leaves, _t(do).to(dtype))
+    exp = torch.autograd.grad(want, ref, _t(do))
+    for g, w in zip(got, exp):
+        np.testing.assert_allclose(g.float().numpy(), w.numpy(),
+                                   atol=tol * 5)
+
+
+@pytest.mark.parametrize("D", [32, 64])
+def test_dispatcher_routes_nothing_inside_the_domain(monkeypatch, D):
+    """Inside the domain a card call goes to the flash Function (here its
+    plain versions, the tensors being on the CPU) and nothing is
+    routed."""
+    q, k, v, _, _ = map(_t, _inputs(12, shape=(2, 2, 40, D)))
+    calls = _routing_spy(monkeypatch)
+    before = fa.flash_attention.routed
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.routed == before and calls == []
+    np.testing.assert_allclose(out.numpy(), sdpa(q, k, v, causal=True)
+                               .numpy(), atol=1e-5)
+
+
+def test_cpu_calls_keep_the_plain_versions_outside_the_domain():
+    """On CPU tensors the dispatcher takes the flash Function's plain
+    versions for any head dim, as before: nothing is routed."""
+    q, k, v, _, _ = map(_t, _inputs(13, shape=(2, 2, 40, 8)))
+    before = fa.flash_attention.routed
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.routed == before
+    o_r, _ = flash_fwd_ref(q, k, v, causal=True)
+    assert torch.equal(out, o_r)
+
+
+def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
+    """Each library's name hashes its source and every ``csrc/*.cuh``
+    header: editing a header changes both libraries' paths (so both
+    rebuild), editing a source only its own."""
+    from quintnet_tpu_torch.ops import build
+
+    for name in ("a", "b"):
+        (tmp_path / f"{name}.cu").write_text(f'#include "h.cuh"\n// {name}\n')
+    (tmp_path / "h.cuh").write_text("// shared\n")
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    before = {n: build.library_path(n) for n in ("a", "b")}
+    assert build.library_path("a") == before["a"]
+    (tmp_path / "h.cuh").write_text("// shared, edited\n")
+    after = {n: build.library_path(n) for n in ("a", "b")}
+    assert all(after[n] != before[n] for n in ("a", "b"))
+    (tmp_path / "g.cuh").write_text("// a new header\n")
+    added = {n: build.library_path(n) for n in ("a", "b")}
+    assert all(added[n] != after[n] for n in ("a", "b"))
+    (tmp_path / "a.cu").write_text('#include "h.cuh"\n// a, edited\n')
+    assert build.library_path("a") != added["a"]
+    assert build.library_path("b") == added["b"]

@@ -28,6 +28,7 @@ from quintnet_tpu_torch.ops.paged_attention import (insert_runs,
                                                     paged_attention_ref,
                                                     paged_gather,
                                                     paged_gather_scales)
+from test_torch_flash_attention import _tf32_matmul
 
 torch.set_num_threads(1)
 
@@ -185,6 +186,205 @@ def test_split_and_combine_scaled_with_fresh_run(n_splits):
     want = paged_attention_ref(q, k, v, tables, starts, **kw)
     got = _split_kv(q, k, v, tables, starts, n_splits=n_splits, **kw)
     np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+# ---------------------------------------------------------------------
+# the prefill path's tiling in 3xTF32, emulated
+# ---------------------------------------------------------------------
+
+def _prefill_tiles(q, k_pool, v_pool, tables, starts, *, block_size,
+                   rows=8, keys=4, n_split=1, kv_scales=None, fresh_kv=None):
+    """The CUDA prefill path's arithmetic in plain torch. Per (row s, kv
+    head) the G x P query rows are folded into one sequence, row r =
+    query r // G of head kvh * G + r % G, and cut into tiles of ``rows``
+    (the kernel: 64); each tile's key tiles of ``keys`` positions (the
+    kernel: 64) up to its last query's position, clamped to the table,
+    are dealt to ``n_split`` splits, key tile u to split u % n_split.
+    Each key position's source is resolved through the table: the fresh
+    run's row for ``[start, start + P)`` under a scaled policy (scales
+    1), else its pool slot and its block's scales (1 when unscaled), so a
+    key tile that straddles ``start`` mixes sources. Both products go
+    through ``_tf32_matmul`` with 3 terms; the K scale multiplies the
+    score, the V scale the probability fed to P V (the running sum takes
+    the unscaled one); masked scores hold -1e30 in natural-log units (the
+    kernel's online softmax). Each split keeps its own running max, sum
+    and unnormalised o (a split without key tiles: -1e30, 0, 0); the
+    partials combine in split order."""
+    S, Hq, P, D = q.shape
+    Hkv = k_pool.shape[1]
+    G = Hq // Hkv
+    W = tables.shape[1] * block_size
+    out = torch.zeros_like(q)
+    for s in range(S):
+        start = int(starts[s])
+        for kvh in range(Hkv):
+            qr = q[s, kvh * G:(kvh + 1) * G].transpose(0, 1).reshape(G * P, D)
+            o_rows = torch.zeros(G * P, D)
+            for r0 in range(0, G * P, rows):
+                r = torch.arange(r0, min(r0 + rows, G * P))
+                pos = start + r // G
+                n_keys = min(int(pos.max()) + 1, W)
+                parts = []
+                for split in range(n_split):
+                    parts.append(_prefill_split(
+                        qr[r], pos, range(split * keys, n_keys,
+                                          n_split * keys), keys, n_keys,
+                        tables[s], kvh, start, block_size, k_pool, v_pool,
+                        kv_scales,
+                        None if fresh_kv is None else
+                        tuple(f[s, kvh] for f in fresh_kv)))
+                mx = torch.stack([m for m, _, _ in parts]).amax(dim=0)
+                num, den = torch.zeros(len(r), D), torch.zeros(len(r))
+                for m, l, o in parts:
+                    w = torch.exp(m - mx)
+                    num, den = num + w[:, None] * o, den + w * l
+                o_rows[r] = num / den[:, None]
+            out[s, kvh * G:(kvh + 1) * G] = o_rows.reshape(P, G, D).transpose(
+                0, 1)
+    return out
+
+
+def _prefill_split(qr, pos, key_starts, keys, n_keys, table, kvh, start,
+                   block_size, k_pool, v_pool, kv_scales, fresh):
+    """One split of a row tile: the online softmax over its key tiles
+    (first positions ``key_starts``). Returns (m, l, unnormalised o)."""
+    D = qr.shape[1]
+    P = None if fresh is None else fresh[0].shape[0]
+    neg = -1e30
+    m = torch.full((len(pos),), neg)
+    l = torch.zeros(len(pos))
+    o = torch.zeros(len(pos), D)
+    for k0 in key_starts:
+        t = torch.arange(k0, min(k0 + keys, n_keys))
+        blk = table[t // block_size].long()
+        slot = blk * block_size + t % block_size
+        kt, vt = (pool[slot, kvh].float() for pool in (k_pool, v_pool))
+        sk, sv = ((sc[blk, kvh] for sc in kv_scales) if kv_scales is not None
+                  else (torch.ones(len(t)), torch.ones(len(t))))
+        if fresh is not None:
+            rel = t - start
+            run = (rel >= 0) & (rel < P)
+            rc = rel.clamp(0, P - 1)
+            kt = torch.where(run[:, None], fresh[0][rc], kt)
+            vt = torch.where(run[:, None], fresh[1][rc], vt)
+            sk = torch.where(run, 1.0, sk)
+            sv = torch.where(run, 1.0, sv)
+        x = _tf32_matmul(qr, kt.T, 3) * sk[None, :] / np.float32(np.sqrt(D))
+        x = x.masked_fill(t[None, :] > pos[:, None], neg)
+        m_new = torch.maximum(m, x.amax(dim=-1))
+        corr = torch.exp(m - m_new)
+        p = torch.where(x > 0.5 * neg, torch.exp(x - m_new[:, None]), 0.0)
+        l = l * corr + p.sum(dim=-1)
+        o = o * corr[:, None] + _tf32_matmul(p * sv[None, :], vt, 3)
+        m = m_new
+    return m, l, o
+
+
+# prefill-like calls: tails at block-aligned and unaligned starts (key
+# tiles of 4 straddle start 5 and 9), one whose pad queries pass the
+# table's end, GQA 2 and 4 folded into one row tile, two rows
+PREFILL_CASES = {
+    "tails": dict(S=2, Hq=2, Hkv=2, P=6, starts=[5, 9]),
+    "start0": dict(S=1, Hq=2, Hkv=2, P=12, starts=[0]),
+    "past_table": dict(S=1, Hq=2, Hkv=2, P=8, starts=[15]),
+    "gqa2": dict(S=2, Hq=4, Hkv=2, P=5, starts=[2, 11]),
+    "gqa4": dict(S=1, Hq=4, Hkv=1, P=7, starts=[6]),
+}
+# (rows, keys, splits) of a row tile: the kernel's 64 x 64 unsplit, small
+# tiles that cut these short rows many times, and key tiles dealt to 2 and
+# 4 splits (some of them empty on the short rows)
+TILINGS = [(8, 4, 1), (64, 64, 1), (16, 8, 1), (8, 4, 2), (8, 2, 4)]
+
+
+def _scaled(seed, q, k, v, layout):
+    """``layout``'s pools and call arguments from an f32 case: int8 pools
+    with random scales and a fresh run, or fake_quant (all-one scales, the
+    run's slots overwritten, the true run as fresh K/V)."""
+    rng = np.random.default_rng(seed)
+    S, _, P, _ = q.shape
+    nb, Hkv = k.shape[0] // BS, k.shape[1]
+    if layout == "f32":
+        return (k, v), {}
+    if layout == "int8":
+        k8, v8 = ((t * 40).round().clamp(-127, 127).to(torch.int8)
+                  for t in (k, v))
+        scales = tuple(_t(rng.uniform(0.01, 0.06, (nb, Hkv)).astype(
+            np.float32)) for _ in range(2))
+        fresh = tuple(_t(rng.standard_normal((S, Hkv, P, D)).astype(
+            np.float32)) for _ in range(2))
+        return (k8, v8), dict(kv_scales=scales, fresh_kv=fresh)
+    raise ValueError(layout)
+
+
+def _fake_quant_of(q, k, v, tables, starts, seed):
+    """The f32 pool's run slots ``[start, start + P)`` (inside the table)
+    as fresh K/V, those slots overwritten with noise, all-one scales:
+    what fake_quant passes for the same attention as the f32 pool."""
+    rng = np.random.default_rng(seed)
+    S, _, P, _ = q.shape
+    Hkv, W = k.shape[1], tables.shape[1] * BS
+    fresh = [torch.zeros((S, Hkv, P, D)) for _ in range(2)]
+    kw, vw = k.clone(), v.clone()
+    for s in range(S):
+        for i in range(P):
+            t = int(starts[s]) + i
+            if t >= W:
+                continue
+            slot = int(tables[s, t // BS]) * BS + t % BS
+            fresh[0][s, :, i], fresh[1][s, :, i] = k[slot], v[slot]
+            kw[slot] = _t(rng.standard_normal((Hkv, D)).astype(np.float32))
+            vw[slot] = _t(rng.standard_normal((Hkv, D)).astype(np.float32))
+    ones = torch.ones((k.shape[0] // BS, Hkv))
+    return kw, vw, dict(kv_scales=(ones, ones), fresh_kv=tuple(fresh))
+
+
+@pytest.mark.parametrize("tiling", TILINGS)
+@pytest.mark.parametrize("layout", ["f32", "int8"])
+@pytest.mark.parametrize("name", sorted(PREFILL_CASES))
+def test_prefill_tiling_matches_plain_version(name, layout, tiling):
+    q, k, v, tables, starts = map(_t, _case(21, **PREFILL_CASES[name]))
+    (k, v), kw = _scaled(22, q, k, v, layout)
+    want = paged_attention_ref(q, k, v, tables, starts, block_size=BS, **kw)
+    rows, keys, n_split = tiling
+    got = _prefill_tiles(q, k, v, tables, starts, block_size=BS, rows=rows,
+                         keys=keys, n_split=n_split, **kw)
+    np.testing.assert_allclose(got.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("tiling", TILINGS)
+@pytest.mark.parametrize("name", sorted(PREFILL_CASES))
+def test_prefill_tiling_fake_quant_is_f32_bitwise(name, tiling):
+    """fake_quant (all-one scales, the run from the fresh K/V) and the f32
+    pool holding the run: the same bits out of the emulated tiling, and
+    both within 1e-5 of the plain version."""
+    q, k, v, tables, starts = map(_t, _case(23, **PREFILL_CASES[name]))
+    kf, vf, kw = _fake_quant_of(q, k, v, tables, starts, 24)
+    rows, keys, n_split = tiling
+    a = _prefill_tiles(q, k, v, tables, starts, block_size=BS, rows=rows,
+                       keys=keys, n_split=n_split)
+    b = _prefill_tiles(q, kf, vf, tables, starts, block_size=BS, rows=rows,
+                       keys=keys, n_split=n_split, **kw)
+    assert torch.equal(a, b)
+    want = paged_attention_ref(q, kf, vf, tables, starts, block_size=BS, **kw)
+    np.testing.assert_allclose(b.numpy(), want.numpy(), **TOL)
+
+
+@pytest.mark.parametrize("name", sorted(PREFILL_CASES))
+def test_prefill_tiling_matches_jax_kernel(name):
+    """The emulated tiling (the kernel's 64 x 64 tiles) against the JAX
+    Pallas kernel in interpret mode, f32 and int8 with a fresh run."""
+    q, k, v, tables, starts = map(_t, _case(25, **PREFILL_CASES[name]))
+    for layout in ("f32", "int8"):
+        (kp, vp), kw = _scaled(26, q, k, v, layout)
+        jkw = {key: tuple(jnp.asarray(a.numpy()) for a in val)
+               for key, val in kw.items()}
+        want = jax_paged_attention(
+            jnp.asarray(q.numpy()), jnp.asarray(kp.numpy()),
+            jnp.asarray(vp.numpy()), jnp.asarray(tables.numpy()),
+            jnp.asarray(starts.numpy()), block_size=BS, **jkw)
+        got = _prefill_tiles(q, kp, vp, tables, starts, block_size=BS,
+                             rows=64, keys=64, **kw)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 
 
 # ---------------------------------------------------------------------
