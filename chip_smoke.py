@@ -87,8 +87,39 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    three kernels' share of the step (each kernel's profiled launches a
    step must be n_layer x micro-batches).
 
+5. **vit** — the reference ViT at full width (``examples/config.yaml``'s
+   model block: image 28, patch 7, 1 channel, hidden 64, depth 8, 4
+   heads, 10 classes; its training block on one device: global batch 32
+   in 2 micro-batches, Adam lr 3e-4, clip 1.0; random weights from seed
+   0): the first batch's logits, loss and every gradient leaf on the
+   card against the same computation on the CPU from the same weights
+   (logits and loss ``atol=1e-5``, gradients ``atol=1e-5, rtol=1e-4``),
+   then one epoch of ``synthetic_mnist(8192)`` through ``Trainer.fit``
+   with a checkpoint directory, evaluated on ``synthetic_mnist(2048,
+   seed=1)`` (a learnable stand-in, not MNIST): the mean loss of the
+   last 20 steps must be below that of the first 20, the val accuracy
+   above chance (0.1), and ``tools/verify_vit`` reloading the saved
+   checkpoint on the card must give exactly the trainer's accuracy. ViT
+   attention is plain dense attention, as in the reference: the run
+   must launch none of the kernels (every count 0). Prints the step's
+   wall time (no profiler running), samples/s, peak memory and, over
+   further steps under ``torch.profiler``, the device's idle share.
+6. **resume** — GPT-2 124M on the train phase's shapes and optimizer
+   through K1-K3, with ``torch.use_deterministic_algorithms(True)``
+   (``CUBLAS_WORKSPACE_CONFIG=:4096:8`` is set before torch loads): 4
+   steps uncut; then a trainer with a checkpoint directory saving every
+   2 steps, cut by an exception from its data after step 2; then a fresh
+   trainer restoring the step-2 checkpoint and continuing through
+   ``fit(cursor=)``. Every parameter, both Adam moments, the step count,
+   the 4 step losses and the epoch loss must equal the uncut run's bit
+   for bit; each of K1, K2, K3 must have launched 12 layers x 2
+   micro-batches x the 8 steps run, with no call routed away from them.
+   Prints the save and restore wall times and the checkpoint's bytes;
+   the checkpoint lives in a temporary directory, deleted at the end.
+
 Then one JSON line of per-kernel numbers (K4 once per variant the
-serve phases launched and path), the card's name and power
+serve phases launched and path; K1-K3's launches are the train and
+resume phases' together), the card's name and power
 limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is not available or the package is missing.
@@ -106,6 +137,10 @@ import sys
 import time
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+# cuBLAS's deterministic mode (the resume phase) needs a fixed workspace,
+# read when cuBLAS first starts: set before torch loads (H100's default
+# size)
+os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
 
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
@@ -1182,12 +1217,11 @@ def phase_serve_kv(params, cfg, f32_streams):
 # phase 4: GPT-2 124M trained on the card
 # ---------------------------------------------------------------------
 
-def _train_share(trainer, params, opt_state, batches, want) -> dict:
-    """The step's wall time over steps run WITHOUT the profiler, then the
-    device's busy time and the flash kernels' device time from as many
-    further steps under ``torch.profiler``. ``want``: each flash
-    wrapper's launches a step; the profiled kernels must match it, so a
-    renamed kernel fails here instead of reading 0 ms."""
+def _timed_then_profiled(trainer, params, opt_state, batches):
+    """Train steps over the first half of ``batches`` with no profiler
+    (host clock, synced), then over the second half under
+    ``torch.profiler``. Returns (wall seconds a step, peak bytes, the
+    profiled device ops by name, steps profiled)."""
     from torch.profiler import ProfilerActivity, profile
 
     n = len(batches) // 2
@@ -1204,25 +1238,34 @@ def _train_share(trainer, params, opt_state, batches, want) -> dict:
         for b in batches[n:]:
             trainer.step_fn(params, opt_state, trainer.device_batch(*b))
         torch.cuda.synchronize()
-    by_name = _device_ops(prof)
+    return wall, peak, _device_ops(prof), len(batches) - n
+
+
+def _train_share(trainer, params, opt_state, batches, want) -> dict:
+    """The step's wall time over steps run WITHOUT the profiler, then the
+    device's busy time and the flash kernels' device time from as many
+    further steps under ``torch.profiler``. ``want``: each flash
+    wrapper's launches a step; the profiled kernels must match it, so a
+    renamed kernel fails here instead of reading 0 ms."""
+    wall, peak, by_name, n = _timed_then_profiled(trainer, params, opt_state,
+                                                  batches)
     busy_us = sum(us for us, _ in by_name.values())
     tokens = len(batches[0][0]) * batches[0][0].shape[1]
-    out = {"steps_timed": n, "step_ms": wall * 1e3,
+    out = {"steps_timed": len(batches) - n, "step_ms": wall * 1e3,
            "input_positions_per_s": tokens / wall,
-           "peak_memory_gib": peak / 2 ** 30,
-           "steps_profiled": len(batches) - n}
+           "peak_memory_gib": peak / 2 ** 30, "steps_profiled": n}
     if busy_us <= 0:
         out["kernel_share_of_step"] = ("not measured (profiler reported no "
                                        "device time)")
         return out
-    per_step = lambda us: us / 1e3 / (len(batches) - n)  # noqa: E731
+    per_step = lambda us: us / 1e3 / n  # noqa: E731
     kern = {}
     for name in FLASH_KERNELS:
         us, k = (0.0, 0)
         for ev, (t, c) in by_name.items():
             if FLASH_SYMBOLS[name] in ev:
                 us, k = us + t, k + c
-        launches = k / (len(batches) - n)
+        launches = k / n
         if launches != want[name]:
             raise AssertionError(
                 f"profiler: {FLASH_SYMBOLS[name]} launched {launches} times a "
@@ -1240,8 +1283,7 @@ def _train_share(trainer, params, opt_state, batches, want) -> dict:
         "flash_share_of_step": sum(v["share_of_step"]
                                    for v in kern.values()),
         "gemm_ms_per_step": per_step(gemm_us),
-        "device_ops_per_step": sum(k for _, k in by_name.values())
-        / (len(batches) - n),
+        "device_ops_per_step": sum(k for _, k in by_name.values()) / n,
         "top_device_ops_ms_per_step": {
             name[:80]: per_step(us) for name, (us, _) in sorted(
                 by_name.items(), key=lambda kv: -kv[1][0])[:8]}})
@@ -1345,6 +1387,346 @@ def phase_train():
 
 
 # ---------------------------------------------------------------------
+# phase 5: the reference ViT trained on the card
+# ---------------------------------------------------------------------
+
+# examples/config.yaml's model and training blocks (its 2 x 2 x 2 mesh
+# forced to one device: the global batch and its 2 micro-batches stay)
+VIT_CONFIG = {
+    "model": {"name": "vit", "image_size": 28, "patch_size": 7,
+              "in_channels": 1, "hidden_dim": 64, "depth": 8,
+              "num_heads": 4, "num_classes": 10},
+    "training": {"batch_size": 32, "gradient_accumulation_steps": 2,
+                 "epochs": 1, "learning_rate": 3e-4, "optimizer": "adam",
+                 "grad_clip_norm": 1.0, "log_every": 0, "seed": 0},
+}
+VIT_TRAIN, VIT_VAL = 8192, 2048
+VIT_ATOL, VIT_RTOL = 1e-5, 1e-4
+
+
+def _smi() -> str:
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip()
+
+
+def _recording(trainer):
+    """Make ``trainer.step_fn`` keep each step's loss (a device
+    scalar); returns the list it appends to."""
+    losses, step_fn = [], trainer.step_fn
+
+    def step(*args, **kwargs):
+        params, opt_state, loss = step_fn(*args, **kwargs)
+        losses.append(loss)
+        return params, opt_state, loss
+
+    trainer.step_fn = step
+    return losses
+
+
+def _worst(got, want, atol, rtol):
+    """(max |got - want| - (atol + rtol |want|), max |got - want|)."""
+    d = (got - want).abs()
+    return (float((d - atol - rtol * want.abs()).max()), float(d.max()))
+
+
+def _step_share(trainer, params, opt_state, batches) -> dict:
+    """The step's wall time with no profiler, samples/s, peak memory, and
+    the device's busy time and idle share under ``torch.profiler``."""
+    wall, peak, by_name, n = _timed_then_profiled(trainer, params, opt_state,
+                                                  batches)
+    busy_ms = sum(us for us, _ in by_name.values()) / 1e3 / n
+    out = {"steps_timed": len(batches) - n, "step_ms": wall * 1e3,
+           "samples_per_s": len(batches[0][0]) / wall,
+           "peak_memory_mib": peak / 2 ** 20, "steps_profiled": n}
+    if busy_ms <= 0:
+        out["device_idle_share"] = ("not measured (profiler reported no "
+                                    "device time)")
+        return out
+    out.update({"device_busy_ms_per_step": busy_ms,
+                "device_idle_share": 1.0 - busy_ms / (wall * 1e3),
+                "device_ops_per_step": sum(k for _, k in by_name.values())
+                / n})
+    return out
+
+
+def phase_vit():
+    import itertools
+    import tempfile
+
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.core.pytree import tree_map
+    from quintnet_tpu_torch.data import (ArrayDataset, make_batches,
+                                         synthetic_mnist)
+    from quintnet_tpu_torch.models.vit import (ViTConfig, vit_apply,
+                                               vit_init, vit_model_spec)
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+    from quintnet_tpu_torch.parallel.train_step import accumulate_grads
+    from quintnet_tpu_torch.tools.verify_vit import verify_vit
+    from quintnet_tpu_torch.train.checkpoint import CheckpointManager
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    cfg = Config.from_dict(VIT_CONFIG)
+    vcfg = ViTConfig.from_model_config(cfg.model)
+    spec = vit_model_spec(vcfg)
+    bs = cfg.training.batch_size
+    n_micro = cfg.training.gradient_accumulation_steps
+    train = ArrayDataset(*synthetic_mnist(VIT_TRAIN, seed=0))
+    val = ArrayDataset(*synthetic_mnist(VIT_VAL, seed=1))
+    params0 = vit_init(torch.Generator(device=DEVICE).manual_seed(0), vcfg)
+
+    def fresh(dev=DEVICE):
+        return tree_map(lambda p: p.detach().to(dev).clone()
+                        .requires_grad_(True), params0)
+
+    # the first batch on the card against the CPU, same weights
+    xb, yb = next(make_batches(train, bs, seed=0))
+    out = {}
+    for dev in ("cpu", DEVICE):
+        p = fresh(dev)
+        x, y = torch.from_numpy(xb).to(dev), torch.from_numpy(yb).long().to(
+            dev)
+        with torch.no_grad():
+            logits = vit_apply(p, x, vcfg)
+        loss, grads = accumulate_grads(spec.loss_fn, p, (x, y), n_micro)
+        out[dev] = (logits.cpu(), loss.detach().cpu(),
+                    {k: g.cpu() for k, g in grads.items()})
+    (lc, sc, gc), (lg, sg, gg) = out["cpu"], out[DEVICE]
+    logit_err = float((lg - lc).abs().max())
+    loss_err = float((sg - sc).abs())
+    if not (logit_err <= VIT_ATOL and loss_err <= VIT_ATOL):
+        raise AssertionError(f"vit card vs CPU: logits {logit_err}, loss "
+                             f"{loss_err} > {VIT_ATOL}")
+    grad_err = {".".join(k): _worst(gg[k], gc[k], VIT_ATOL, VIT_RTOL)
+                for k in gc}
+    worst = max(grad_err, key=lambda k: grad_err[k][0])
+    if grad_err[worst][0] > 0:
+        raise AssertionError(f"vit gradient {worst}: max |card - cpu| = "
+                             f"{grad_err[worst][1]} beyond atol {VIT_ATOL}, "
+                             f"rtol {VIT_RTOL}")
+    del out, gc, gg
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "vit")
+        trainer = Trainer(cfg, spec, task_type="classification",
+                          checkpoint_dir=ck, device=DEVICE,
+                          log_fn=lambda m: None)
+        losses = _recording(trainer)
+        params = fresh()
+        opt_state = trainer.optimizer.init(params)
+        # main path: counts zeroed just before, read just after
+        _zero_counts()
+        hist = trainer.fit(
+            lambda ep, start=0: make_batches(train, bs, seed=ep,
+                                             start_batch=start),
+            val_batches_fn=lambda ep: make_batches(val, bs, shuffle=False),
+            params=params, opt_state=opt_state)
+        counts = _counts()
+        if any(counts.values()) or flash_attention.routed:
+            raise AssertionError(f"the ViT path launched kernels {counts} "
+                                 f"(routed {flash_attention.routed}); its "
+                                 f"attention is plain dense attention")
+        steps = len(losses)
+        vals = torch.stack(losses).tolist()
+        first, last = np.mean(vals[:20]), np.mean(vals[-20:])
+        acc = hist.val_metric[-1]
+        if not (np.isfinite(vals).all() and last < first):
+            raise AssertionError(f"vit loss did not fall: first 20 steps "
+                                 f"{first}, last 20 {last}")
+        if not acc > 0.1:
+            raise AssertionError(f"vit val accuracy {acc} is not above "
+                                 f"chance (0.1)")
+        mgr = CheckpointManager(ck)
+        ver = verify_vit(ck, vcfg, data=(val.x, val.y), batch_size=bs,
+                         device=DEVICE)
+        if ver["accuracy"] != acc:
+            raise AssertionError(f"verify_vit accuracy {ver['accuracy']} != "
+                                 f"the trainer's {acc}")
+        ckpt = {"steps": mgr.all_steps(), "bytes": mgr.step_bytes()}
+    # the step's time and the device's share, at the trained state
+    timing = list(itertools.islice(make_batches(train, bs, seed=1), 40))
+    res = {"phase": "vit",
+           "model": "vit full width (examples/config.yaml; random init, "
+                    "seed 0)",
+           "data": f"synthetic_mnist({VIT_TRAIN}) train, "
+                   f"synthetic_mnist({VIT_VAL}, seed=1) val (not MNIST)",
+           "global_batch": bs, "micro_batches": n_micro,
+           "optimizer": "adam lr 3e-4 clip 1.0",
+           "first_batch": {"logits_max_abs_err": logit_err,
+                           "loss_abs_err": loss_err,
+                           "worst_grad_leaf": worst,
+                           "worst_grad_max_abs_err": grad_err[worst][1]},
+           "steps": steps, "loss_first20": float(first),
+           "loss_last20": float(last),
+           "train_loss_epoch": hist.train_loss[-1],
+           "val_loss": hist.val_loss[-1], "val_accuracy_synthetic": acc,
+           "verify_vit_accuracy": ver["accuracy"],
+           "fit_wall_s": hist.wall_time_s,
+           "fit_samples_per_s": steps * bs / hist.wall_time_s,
+           "checkpoint": ckpt, "launches": counts, "card": _smi()}
+    res.update(_step_share(trainer, *trainer.final_state, timing))
+    _emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------
+# phase 6: GPT-2 124M cut, restored and continued, bit for bit
+# ---------------------------------------------------------------------
+
+class _Cut(Exception):
+    """Raised by the data to cut a run between two steps."""
+
+
+def phase_resume():
+    import tempfile
+
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
+    from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
+    from quintnet_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
+                                                gpt2_model_spec)
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+    from quintnet_tpu_torch.train.checkpoint import CheckpointManager
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    cfg = GPT2Config.base()          # every dropout rate 0
+    seq, batch, steps, n_micro, cut = 512, 64, 4, 2, 2
+    tcfg = Config.from_dict({"training": {
+        "batch_size": batch, "gradient_accumulation_steps": n_micro,
+        "optimizer": "adamw", "learning_rate": 5e-5, "weight_decay": 0.01,
+        "grad_clip_norm": 1.0, "log_every": 0, "seed": 0,
+        "save_every_steps": cut}})
+    ds = SummarizationDataset.synthetic(batch * 4, ByteTokenizer(),
+                                        max_length=seq, seed=0)
+    host = [next(iter(ds.batches(batch, seed=i))) for i in range(steps)]
+    spec = gpt2_model_spec(cfg, use_flash=True)
+
+    def data(ep, start=0):           # one epoch of 4 batches
+        return iter(host[start:])
+
+    def cut_data(ep, start=0):
+        yield from host[:cut]
+        raise _Cut
+
+    def trainer(ckpt=None):
+        return Trainer(tcfg, spec, task_type="clm", checkpoint_dir=ckpt,
+                       device=DEVICE, log_fn=lambda m: None)
+
+    params0 = gpt2_init(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+
+    def fresh():
+        return tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                        params0)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        # main path: counts zeroed just before, read just after
+        _zero_counts()
+        ref = trainer()
+        ref_losses = _recording(ref)
+        p = fresh()
+        hist_ref = ref.fit(data, epochs=1, params=p,
+                           opt_state=ref.optimizer.init(p))
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "gpt2")
+            save_s = []
+
+            def timed_saves(tr):
+                save_state = tr.save_state
+
+                def timed(*a, **kw):
+                    t0 = time.perf_counter()
+                    out = save_state(*a, **kw)
+                    save_s.append(time.perf_counter() - t0)
+                    return out
+
+                tr.save_state = timed
+
+            first = trainer(ck)
+            first_losses = _recording(first)
+            timed_saves(first)
+            p = fresh()
+            try:
+                first.fit(cut_data, epochs=1, params=p,
+                          opt_state=first.optimizer.init(p))
+                raise AssertionError("the cut run was not cut")
+            except _Cut:
+                pass
+            del first, p
+            mgr = CheckpointManager(ck)
+            if mgr.all_steps() != [cut]:
+                raise AssertionError(f"checkpoints {mgr.all_steps()} after "
+                                     f"the cut; expected [{cut}]")
+            ckpt_bytes = mgr.step_bytes(cut)
+            second = trainer(ck)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            params, opt_state, cursor = second.resume_state()
+            torch.cuda.synchronize()
+            restore_s = time.perf_counter() - t0
+            if (cursor.epoch, cursor.step_in_epoch,
+                    cursor.global_step) != (0, cut, cut):
+                raise AssertionError(f"restored cursor {cursor}")
+            second_losses = _recording(second)
+            timed_saves(second)
+            hist = second.fit(data, epochs=1, params=params,
+                              opt_state=opt_state, cursor=cursor)
+        counts = _counts()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    if flash_attention.routed:
+        raise AssertionError(f"flash_attention routed {flash_attention.routed}"
+                             f" calls away from the kernels")
+    run = steps + cut + (steps - cut)
+    per_kernel = cfg.n_layer * n_micro * run
+    want = {"flash_fwd": per_kernel, "flash_bwd_dkv": per_kernel,
+            "flash_bwd_dq": per_kernel, "paged_attention": 0}
+    if counts != want:
+        raise AssertionError(f"launches {counts}; expected {want} (n_layer "
+                             f"x micro-batches x the {run} steps run)")
+    losses = first_losses + second_losses
+    if not all(torch.equal(a, b) for a, b in zip(losses, ref_losses)) \
+            or len(losses) != steps:
+        raise AssertionError(
+            f"step losses: uncut {[float(v) for v in ref_losses]}, cut and "
+            f"resumed {[float(v) for v in losses]}")
+    if hist.train_loss != hist_ref.train_loss:
+        raise AssertionError(f"epoch loss {hist.train_loss} != uncut "
+                             f"{hist_ref.train_loss}")
+    (pa, oa), (pb, ob) = second.final_state, ref.final_state
+    differ = [".".join(k) for k, v in tree_leaves(pa)
+              if not torch.equal(v, dict(tree_leaves(pb))[k])]
+    for m in ("mu", "nu"):
+        ref_m = dict(tree_leaves(ob[m]))
+        differ += [f"{m}.{'.'.join(k)}" for k, v in tree_leaves(oa[m])
+                   if not torch.equal(v, ref_m[k])]
+    n_leaves = len(list(tree_leaves(pa)))
+    if differ or oa["count"] != ob["count"]:
+        raise AssertionError(f"after resume, not bit-identical to the "
+                             f"uncut run: {differ[:8]} (count "
+                             f"{oa['count']} vs {ob['count']})")
+    res = {"phase": "resume",
+           "model": "gpt2-124M f32 (random init, seed 0), flash attention",
+           "global_batch": batch, "micro_batches": n_micro, "seq_len": seq,
+           "steps_uncut": steps, "cut_after_step": cut,
+           "deterministic_algorithms": True,
+           "cublas_workspace_config": os.environ["CUBLAS_WORKSPACE_CONFIG"],
+           "losses": [float(v) for v in ref_losses],
+           "bit_identical": {"param_leaves": n_leaves,
+                             "adam_moment_leaves": 2 * n_leaves,
+                             "step_losses": steps, "epoch_loss": True},
+           "launches": counts,
+           "flash_attention_routed": flash_attention.routed,
+           # save_s: the cut run's step-2 save, then the resumed run's
+           # step-4 cadence save and its epoch-end rewrite
+           "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
+           "restore_s": restore_s, "card": _smi()}
+    _emit(res)
+    return res, counts
+
+
+# ---------------------------------------------------------------------
 
 def _variant_of(by_variant):
     """The one K4 variant a serve run launched."""
@@ -1367,6 +1749,10 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
     _res, train_counts = phase_train()
+    torch.cuda.empty_cache()
+    phase_vit()
+    torch.cuda.empty_cache()
+    _res, resume_counts = phase_resume()
 
     def entry(name, source, replaces, launches, rows, head):
         return {"name": name, "route": "cuda", "source": source,
@@ -1399,14 +1785,10 @@ def main() -> int:
         rows = [r for r in flash_rows if r["kernel"] == name]
         kernels.append(entry(
             name, "quintnet_tpu_torch/ops/csrc/flash_attention.cu", replaces,
-            train_counts[name], rows,
+            train_counts[name] + resume_counts[name], rows,
             next(r for r in rows if r["case"] == TRAIN_CASE)))
     _emit({"kernels": kernels})
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        check=True).stdout.strip()
-    print(smi, flush=True)
+    print(_smi(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",
                                   "kind": torch.cuda.get_device_name(0),
                                   "count": torch.cuda.device_count()}})

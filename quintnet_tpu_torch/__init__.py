@@ -1,7 +1,7 @@
 """QuintNet on PyTorch + CUDA: the port of ``quintnet_tpu`` to NVIDIA Hopper.
 
 The package mirrors the subpackage and module names of the JAX package
-(``core``, ``nn``, ``ops``, ``models``, ``analysis``, ``serve``), so each
+(``core``, ``nn``, ``ops``, ``models``, ``train``, ``ft``, ``serve``, ...), so each
 module's reference twin is easy to find. It imports ``torch`` and never
 ``jax``, and nothing of ``quintnet_tpu``: where the port needs a piece
 of a JAX-package module, it keeps its own copy.
@@ -20,7 +20,10 @@ with ``nvcc`` at first use (``ops/build.py``); its plain PyTorch twin
 lives beside it and is what a CPU tensor runs through.
 
 What is ported so far: GPT-2 paged serving (``serve.ServeEngine`` over
-``ops/csrc/paged_attention.cu``). ROADMAP.md lists the rest.
+``ops/csrc/paged_attention.cu``), GPT-2 and ViT training on one device
+(``train.Trainer``; GPT-2's flash attention over
+``ops/csrc/flash_attention.cu``), and checkpoints with step-granular
+resume (``train.checkpoint``, ``ft``). ROADMAP.md lists the rest.
 """
 
 __version__ = "0.1.0"

@@ -1,9 +1,10 @@
-"""GPT-2 parameters between the JAX pytree and the port.
+"""GPT-2 and ViT parameters between the JAX pytree and the port.
 
-Both packages use the same nested-dict layout (``models/gpt2.py``), so
-the bridge is a leaf-for-leaf copy: numpy arrays in, tensors out, and
-back. The JAX side hands over ``jax.tree.map(np.asarray, params)``;
-nothing here imports jax.
+Both packages use the same nested-dict layouts (``models/gpt2.py``,
+``models/vit.py``), so the bridge is a leaf-for-leaf copy: numpy arrays
+in, tensors out, and back, after a check of the layout against the
+model's leaf list. The JAX side hands over ``jax.tree.map(np.asarray,
+params)``; nothing here imports jax.
 """
 
 from __future__ import annotations
@@ -27,6 +28,16 @@ GPT2_LEAVES = (
     (("head", "ln_f", "scale"), 1), (("head", "ln_f", "bias"), 1),
 )
 
+# the same for a dense ViT: the patch linear, CLS token and position
+# table, GPT-2's block leaves, and the classification head
+VIT_LEAVES = (
+    (("embedding", "patch", "w"), 2), (("embedding", "patch", "b"), 1),
+    (("embedding", "cls"), 3), (("embedding", "pos"), 3),
+    *(leaf for leaf in GPT2_LEAVES if leaf[0][0] == "blocks"),
+    (("head", "ln", "scale"), 1), (("head", "ln", "bias"), 1),
+    (("head", "fc", "w"), 2), (("head", "fc", "b"), 1),
+)
+
 
 def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
@@ -36,16 +47,16 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def _check_layout(tree) -> None:
+def _check_layout(tree, leaves=GPT2_LEAVES, model="GPT-2") -> None:
     got = dict(_leaves(tree))
-    want = {p for p, _ in GPT2_LEAVES}
+    want = {p for p, _ in leaves}
     if set(got) != want:
         raise ValueError(
-            f"not a dense GPT-2 param tree: missing "
+            f"not a dense {model} param tree: missing "
             f"{sorted('.'.join(p) for p in want - set(got))}, unexpected "
             f"{sorted('.'.join(p) for p in set(got) - want)}")
     depths = set()
-    for path, rank in GPT2_LEAVES:
+    for path, rank in leaves:
         shape = tuple(got[path].shape)
         if len(shape) != rank:
             raise ValueError(f"{'.'.join(path)} has shape {shape}, "
@@ -75,4 +86,19 @@ def gpt2_params_to_numpy(params):
     """The inverse: a port GPT-2 param tree -> nested dicts of numpy
     arrays (host copies), ready for ``jax.tree.map(jnp.asarray, ...)``."""
     _check_layout(params)
+    return _map(params, lambda t: t.detach().cpu().numpy().copy())
+
+
+def vit_params_from_numpy(tree, device="cuda"):
+    """JAX ViT params as nested dicts of numpy arrays -> the same tree of
+    tensors on ``device``."""
+    _check_layout(tree, VIT_LEAVES, "ViT")
+    dev = resolve_device(device)
+    return _map(tree, lambda a: torch.from_numpy(np.array(a, copy=True)).to(dev))
+
+
+def vit_params_to_numpy(params):
+    """A port ViT param tree -> nested dicts of numpy arrays (host
+    copies)."""
+    _check_layout(params, VIT_LEAVES, "ViT")
     return _map(params, lambda t: t.detach().cpu().numpy().copy())

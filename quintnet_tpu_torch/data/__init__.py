@@ -1,9 +1,14 @@
 """Host-side data for training (numpy batches)."""
 
-from quintnet_tpu_torch.data.datasets import (ByteTokenizer, PackedLMDataset,
+from quintnet_tpu_torch.data.datasets import (ArrayDataset, ByteTokenizer,
+                                              PackedLMDataset,
                                               SummarizationDataset,
+                                              load_mnist, make_batches,
                                               pack_documents,
-                                              segments_from_tokens)
+                                              segments_from_tokens,
+                                              skip_batches, synthetic_mnist)
 
-__all__ = ["ByteTokenizer", "PackedLMDataset", "SummarizationDataset",
-           "pack_documents", "segments_from_tokens"]
+__all__ = ["ArrayDataset", "ByteTokenizer", "PackedLMDataset",
+           "SummarizationDataset", "load_mnist", "make_batches",
+           "pack_documents", "segments_from_tokens", "skip_batches",
+           "synthetic_mnist"]

@@ -1,16 +1,143 @@
-"""Causal-LM datasets: byte tokenizer, summarization rows, packed rows.
+"""Datasets: MNIST images and causal-LM rows (numpy batches).
 
-Port of the GPT-2 half of ``quintnet_tpu/data/datasets.py``, numpy only
-(the same code, so the port and the JAX package see the same batches
-from the same seed). Batches are host numpy ``(input_ids, labels)``
-int32 pairs; the trainer moves them to the device.
+Port of ``quintnet_tpu/data/datasets.py``, numpy only: the MNIST half
+(IDX / ``.gz`` / ``mnist.npz`` files, the reference's normalisation, the
+deterministic ``synthetic_mnist`` stand-in, ``ArrayDataset`` and
+``make_batches``) and the GPT-2 half (byte tokenizer, summarization
+rows, packed rows). It is the same code, so the port and the JAX package
+see the same arrays and the same batch order from the same seed.
+Batches are host numpy ``(x, y)`` pairs; the trainer moves them to the
+device. Every map-style iterator takes ``start_batch=`` (skip by index
+arithmetic, for step-granular resume); :func:`skip_batches` skips any
+other iterator by consuming it.
 """
 
 from __future__ import annotations
 
+import gzip
+import os
+import struct
+from dataclasses import dataclass
 from typing import Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+MNIST_FILES = {
+    "train_images": "train-images-idx3-ubyte.gz",
+    "train_labels": "train-labels-idx1-ubyte.gz",
+    "test_images": "t10k-images-idx3-ubyte.gz",
+    "test_labels": "t10k-labels-idx1-ubyte.gz",
+}
+
+
+def _read_idx(path: str) -> np.ndarray:
+    """One IDX file (optionally gzipped) -> its uint8 array."""
+    op = gzip.open if path.endswith(".gz") else open
+    with op(path, "rb") as f:
+        magic = struct.unpack(">I", f.read(4))[0]
+        ndim = magic & 0xFF
+        dims = struct.unpack(">" + "I" * ndim, f.read(4 * ndim))
+        return np.frombuffer(f.read(), dtype=np.uint8).reshape(dims)
+
+
+def load_mnist(data_dir: Optional[str] = None, *, split: str = "train",
+               synthetic_ok: bool = True,
+               synthetic_size: int = 4096) -> Tuple[np.ndarray, np.ndarray]:
+    """(images [N, 28, 28, 1] float32 normalised, labels [N] int32).
+
+    Looks for ``mnist.npz`` or the IDX files (``.gz`` or plain) under
+    ``data_dir``, then ``$QT_DATA_DIR``, then ``./data``; without them,
+    falls back to :func:`synthetic_mnist` (seed 0 for train, 1 for test)
+    when ``synthetic_ok``, else raises ``FileNotFoundError``. The
+    normalisation is the reference's (mean 0.1307, std 0.3081)."""
+    candidates = [d for d in (data_dir, os.environ.get("QT_DATA_DIR"),
+                              "data") if d]
+    which = "train" if split == "train" else "test"
+    for d in candidates:
+        npz = os.path.join(d, "mnist.npz")
+        if os.path.exists(npz):
+            z = np.load(npz)
+            return (_norm(z[f"x_{which}"]),
+                    z[f"y_{which}"].astype(np.int32))
+        img = os.path.join(d, MNIST_FILES[f"{which}_images"])
+        lbl = os.path.join(d, MNIST_FILES[f"{which}_labels"])
+        for im, lb in ((img, lbl), (img[:-3], lbl[:-3])):  # .gz / plain
+            if os.path.exists(im) and os.path.exists(lb):
+                return _norm(_read_idx(im)), _read_idx(lb).astype(np.int32)
+    if not synthetic_ok:
+        raise FileNotFoundError(
+            f"MNIST not found under {candidates}; place mnist.npz or IDX "
+            "files there, or allow synthetic_ok")
+    return synthetic_mnist(synthetic_size, seed=0 if split == "train" else 1)
+
+
+def _norm(x: np.ndarray) -> np.ndarray:
+    x = x.astype(np.float32) / 255.0
+    x = (x - 0.1307) / 0.3081
+    return x.reshape(x.shape[0], 28, 28, 1)
+
+
+def synthetic_mnist(n: int, *, seed: int = 0,
+                    signal: Tuple[float, float] = (0.06, 0.55),
+                    noise: float = 1.0) -> Tuple[np.ndarray, np.ndarray]:
+    """A learnable stand-in for MNIST, not MNIST: each class is a fixed
+    random 28 x 28 prototype (shared by every split) scaled by a
+    per-sample amplitude from ``U[signal]``, plus Gaussian noise of std
+    ``noise``. Images [n, 28, 28, 1] float32, labels [n] int32."""
+    protos = np.random.default_rng(42).normal(
+        size=(10, 28, 28, 1)).astype(np.float32)
+    rng = np.random.default_rng(seed)
+    labels = rng.integers(0, 10, size=n).astype(np.int32)
+    amp = rng.uniform(signal[0], signal[1],
+                      size=(n, 1, 1, 1)).astype(np.float32)
+    eps = rng.normal(scale=noise, size=(n, 28, 28, 1)).astype(np.float32)
+    return protos[labels] * amp + eps, labels
+
+
+@dataclass
+class ArrayDataset:
+    """In-memory (x, y) pairs."""
+
+    x: np.ndarray
+    y: np.ndarray
+
+    def __len__(self):
+        return len(self.x)
+
+
+def make_batches(ds: ArrayDataset, batch_size: int, *, seed: int = 0,
+                 shuffle: bool = True, drop_last: bool = True,
+                 start_batch: int = 0
+                 ) -> Iterator[Tuple[np.ndarray, np.ndarray]]:
+    """An epoch of global batches in the order a seeded permutation
+    gives. ``start_batch`` skips the first batches by index arithmetic:
+    batch ``start_batch + n`` equals batch ``start_batch + n`` of a fresh
+    epoch, and no skipped sample is touched."""
+    idx = np.arange(len(ds))
+    if shuffle:
+        np.random.default_rng(seed).shuffle(idx)
+    end = len(idx) - (len(idx) % batch_size) if drop_last else len(idx)
+    for i in range(start_batch * batch_size, end, batch_size):
+        j = idx[i:i + batch_size]
+        yield ds.x[j], ds.y[j]
+
+
+def skip_batches(batches, n: int) -> Iterator:
+    """Skip the first ``n`` batches of any iterable by consuming them.
+    A stream that ends before ``n`` raises ``ValueError``: the resume
+    cursor points past the data, so the dataset or the batch size changed
+    since the checkpoint (a stream of exactly ``n`` is an epoch-end
+    resume)."""
+    it = iter(batches)
+    for k in range(n):
+        try:
+            next(it)
+        except StopIteration:
+            raise ValueError(
+                f"resume cursor skips {n} batches but the stream ended "
+                f"after {k} — dataset or batch size changed since the "
+                "checkpoint was written?") from None
+    return it
 
 
 class ByteTokenizer:

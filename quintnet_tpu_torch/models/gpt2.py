@@ -282,7 +282,7 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     if compute_dtype not in (None, torch.float32):
         raise NotImplementedError(
             f"compute_dtype={compute_dtype}: bf16 compute is not ported; "
-            f"the port trains in f32 (ROADMAP.md §1, slice 2)")
+            f"the port trains in f32 (ROADMAP.md §1, item 1b)")
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "MoE GPT-2 training is not ported (ROADMAP.md §1, item 4)")

@@ -1,0 +1,210 @@
+"""Vision Transformer for image classification (MNIST-scale).
+
+Port of ``quintnet_tpu/models/vit.py`` for one device. Parameters keep
+the JAX pytree layout::
+
+    {"embedding": {"patch": {"w", "b"}, "cls": [1, 1, D],
+                   "pos": [1, N + 1, D]},
+     "blocks": {"ln1", "attn": {"qkv", "proj"}, "ln2", "mlp": {"fc",
+                "proj"}}      # every leaf stacked [depth, ...]
+     "head": {"ln": {"scale", "bias"}, "fc": {"w", "b"}}}
+
+so :mod:`quintnet_tpu_torch.bridge` carries JAX weights over leaf for
+leaf. The patch embedding is patchify plus one linear; the blocks are
+pre-LN with a ReLU MLP and plain dense, non-causal attention, as the
+reference runs them (no flash attention: at S = 17 and head dim 16 the
+JAX package uses none either); the head reads the CLS position.
+
+Not ported: MoE ViT (``n_experts > 0``: ROADMAP.md §1, item 4), bf16
+``compute_dtype`` (item 1b), and the mesh hooks (partition specs, the
+tp layout, pipeline functions: item 3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+import torch
+
+from quintnet_tpu_torch.nn.attention import mha_init
+from quintnet_tpu_torch.nn.layers import (dropout, layer_norm_apply,
+                                          layer_norm_init, linear_apply,
+                                          linear_init, patchify)
+from quintnet_tpu_torch.nn.transformer import stacked_blocks_apply
+from quintnet_tpu_torch.train.metrics import accuracy
+
+__all__ = ["ViTConfig", "accuracy", "cross_entropy_loss", "vit_apply",
+           "vit_embed", "vit_forward", "vit_head", "vit_init",
+           "vit_model_spec"]
+
+
+@dataclass(frozen=True)
+class ViTConfig:
+    """The reference ViT's sizes (``examples/config.yaml``). ``dropout``
+    is one rate for the embedding, attention and residual sites (the
+    reference ViT has none: 0.0). ``n_experts > 0`` (MoE) is not
+    ported."""
+
+    image_size: int = 28
+    patch_size: int = 7
+    in_channels: int = 1
+    hidden_dim: int = 64
+    depth: int = 8
+    num_heads: int = 4
+    mlp_ratio: float = 4.0
+    num_classes: int = 10
+    dropout: float = 0.0
+    n_experts: int = 0
+
+    @property
+    def needs_dropout(self) -> bool:
+        return self.dropout > 0.0
+
+    @property
+    def num_patches(self) -> int:
+        return (self.image_size // self.patch_size) ** 2
+
+    @property
+    def seq_len(self) -> int:
+        return self.num_patches + 1  # + CLS
+
+    @property
+    def mlp_hidden(self) -> int:
+        return int(self.hidden_dim * self.mlp_ratio)
+
+    @staticmethod
+    def from_model_config(m) -> "ViTConfig":
+        """From a ``core.config.ModelConfig`` (the fields of the same
+        names)."""
+        names = {f.name for f in dataclasses.fields(ViTConfig)}
+        d = {k: v for k, v in dataclasses.asdict(m).items() if k in names}
+        return ViTConfig(**d)
+
+
+def _dense_only(cfg: ViTConfig) -> None:
+    if cfg.n_experts > 0:
+        raise NotImplementedError(
+            f"MoE ViT (n_experts={cfg.n_experts}) is not ported: the port's "
+            f"ViT has a dense MLP (ROADMAP.md §1, item 4)")
+
+
+def vit_init(generator: torch.Generator, cfg: ViTConfig):
+    """Random f32 ViT params on ``generator.device``, drawn like the JAX
+    package's ``vit_init`` (Kaiming-uniform linears, cls and pos ~ N(0,
+    0.02), unit LayerNorms) but from torch's RNG — the two never give the
+    same numbers, so parity goes through :mod:`quintnet_tpu_torch.bridge`."""
+    _dense_only(cfg)
+    dev = generator.device
+    L, D = cfg.depth, cfg.hidden_dim
+    patch_dim = cfg.patch_size * cfg.patch_size * cfg.in_channels
+
+    def normal(shape, std):
+        return torch.randn(shape, generator=generator, device=dev) * std
+
+    return {
+        "embedding": {
+            "patch": linear_init(generator, patch_dim, D),
+            "cls": normal((1, 1, D), 0.02),
+            "pos": normal((1, cfg.seq_len, D), 0.02),
+        },
+        "blocks": {
+            "ln1": layer_norm_init(D, lead=(L,), device=dev),
+            "attn": mha_init(generator, D, lead=(L,)),
+            "ln2": layer_norm_init(D, lead=(L,), device=dev),
+            "mlp": {"fc": linear_init(generator, D, cfg.mlp_hidden,
+                                      lead=(L,)),
+                    "proj": linear_init(generator, cfg.mlp_hidden, D,
+                                        lead=(L,))},
+        },
+        "head": {
+            "ln": layer_norm_init(D, device=dev),
+            "fc": linear_init(generator, D, cfg.num_classes),
+        },
+    }
+
+
+def vit_embed(p_emb, images, patch_size: int, *, pdrop: float = 0.0,
+              generator=None):
+    """images [B, H, W, C] -> tokens [B, N + 1, D]: patch linear, the CLS
+    token in front, position embeddings added; with ``generator``,
+    dropout at ``pdrop`` on the sum."""
+    x = linear_apply(p_emb["patch"], patchify(images, patch_size))
+    cls = p_emb["cls"].expand(x.shape[0], 1, x.shape[-1]).to(x.dtype)
+    x = torch.cat([cls, x], dim=1) + p_emb["pos"].to(x.dtype)
+    if generator is not None and pdrop > 0.0:
+        x = dropout(generator, x, pdrop, deterministic=False)
+    return x
+
+
+def vit_head(p_head, x):
+    """The CLS position -> logits (LayerNorm, then the classifier)."""
+    return linear_apply(p_head["fc"], layer_norm_apply(p_head["ln"], x[:, 0]))
+
+
+def vit_forward(params, images, cfg: ViTConfig, *, remat=False,
+                compute_dtype=None, generator=None):
+    """[B, H, W, C] (or [B, C, H, W], detected by the channel count) ->
+    ``(logits [B, num_classes] f32, moe_aux)``; ``moe_aux`` is 0 (the
+    port's ViT is dense). ``generator``: training dropout at
+    ``cfg.dropout`` on the embedding, attention and residual sites, drawn
+    in that order; None is eval. ``remat=True`` recomputes each block in
+    backward (``torch.utils.checkpoint``)."""
+    _dense_only(cfg)
+    if compute_dtype not in (None, torch.float32):
+        raise NotImplementedError(
+            f"compute_dtype={compute_dtype}: bf16 compute is not ported; "
+            f"the port's ViT runs in f32 (ROADMAP.md §1, item 1b)")
+    if images.ndim == 4 and images.shape[1] == cfg.in_channels \
+            and images.shape[-1] != cfg.in_channels:
+        images = images.permute(0, 2, 3, 1)      # NCHW -> NHWC
+    if generator is not None and not cfg.needs_dropout:
+        generator = None
+    x = vit_embed(params["embedding"], images, cfg.patch_size,
+                  pdrop=cfg.dropout, generator=generator)
+    x = stacked_blocks_apply(
+        params["blocks"], x, num_heads=cfg.num_heads, causal=False,
+        act=torch.relu, remat=remat, attn_pdrop=cfg.dropout,
+        resid_pdrop=cfg.dropout, generator=generator)
+    logits = vit_head(params["head"], x).float()
+    return logits, torch.zeros((), device=logits.device)
+
+
+def vit_apply(params, images, cfg: ViTConfig, *, remat=False,
+              compute_dtype=None, generator=None):
+    """Logits only — the eval and inference view."""
+    logits, _ = vit_forward(params, images, cfg, remat=remat,
+                            compute_dtype=compute_dtype, generator=generator)
+    return logits
+
+
+def cross_entropy_loss(logits, labels):
+    """Mean cross entropy over the batch (log-softmax in f32, the label's
+    entry)."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -logp.gather(-1, labels.long()[:, None])[:, 0].mean()
+
+
+def vit_model_spec(cfg: ViTConfig, *, remat=False):
+    """The single-device training model: ``loss_fn(params, (images,
+    labels), generator=None)`` (cross entropy), ``eval_metrics_fn``
+    (loss and accuracy, no dropout)."""
+    from quintnet_tpu_torch.parallel.strategy import ModelSpec
+
+    _dense_only(cfg)
+
+    def loss_fn(params, batch, generator=None):
+        x, y = batch
+        logits, _ = vit_forward(params, x, cfg, remat=remat,
+                                generator=generator)
+        return cross_entropy_loss(logits, y)
+
+    def eval_metrics_fn(params, batch):
+        x, y = batch
+        logits, _ = vit_forward(params, x, cfg, remat=remat)
+        return {"loss": cross_entropy_loss(logits, y),
+                "accuracy": accuracy(logits, y)}
+
+    return ModelSpec(init=lambda generator: vit_init(generator, cfg),
+                     loss_fn=loss_fn, depth=cfg.depth,
+                     needs_rng=cfg.needs_dropout,
+                     eval_metrics_fn=eval_metrics_fn)

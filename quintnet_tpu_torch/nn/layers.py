@@ -1,7 +1,7 @@
 """Core layers as apply functions over plain parameter dicts.
 
 Port of ``quintnet_tpu/nn/layers.py`` (the f32 subset: linear,
-LayerNorm, GELU, the MLP and dropout).
+LayerNorm, GELU, the MLP, dropout and ViT's patchify).
 Conventions carried over: parameters are dicts of tensors in the JAX
 layout — linear weights ``[in, out]`` so the forward is ``x @ w``,
 LayerNorm ``{"scale", "bias"}`` — and normalisation runs in f32
@@ -77,8 +77,22 @@ def gelu(x):
     return F.gelu(x, approximate="tanh")
 
 
+def patchify(images, patch_size: int):
+    """[B, H, W, C] -> [B, (H/p)*(W/p), p*p*C], the reference's reshape
+    and transpose: with the patch linear after it, the same map as a
+    Conv2d of kernel = stride = p."""
+    b, h, w, c = images.shape
+    p = patch_size
+    if h % p or w % p:
+        raise ValueError(f"image {h}x{w} does not split into {p}x{p} "
+                         f"patches")
+    x = images.reshape(b, h // p, p, w // p, p, c).permute(0, 1, 3, 2, 4, 5)
+    return x.reshape(b, (h // p) * (w // p), p * p * c)
+
+
 def mlp_apply(p, x, *, act=gelu, pdrop: float = 0.0, generator=None):
-    """fc -> act -> proj (GPT-2's MLP); with ``generator``, dropout at
+    """fc -> act -> proj (GPT-2's MLP with GELU, ViT's with
+    ``act=torch.relu``); with ``generator``, dropout at
     ``pdrop`` on the output (the reference's post-projection dropout)."""
     h = act(linear_apply(p["fc"], x))
     y = linear_apply(p["proj"], h)

@@ -28,13 +28,17 @@ class ModelSpec:
     ``loss_fn(params, batch, generator=None)`` -> scalar loss, with the
     generator driving training dropout; ``depth`` the layer count;
     ``needs_rng`` True when the model uses dropout, so the step hands
-    ``loss_fn`` a generator. (The JAX spec's partition specs, pipeline
-    functions and tp layout belong to the mesh strategies.)"""
+    ``loss_fn`` a generator; ``eval_metrics_fn(params, batch) -> {name:
+    device scalar}`` (optional: ViT gives loss and accuracy) is what
+    ``Trainer.evaluate`` averages, else the loss alone. (The JAX spec's
+    partition specs, pipeline functions and tp layout belong to the mesh
+    strategies.)"""
 
     init: Callable[[Any], Any]
     loss_fn: Callable
     depth: int
     needs_rng: bool = False
+    eval_metrics_fn: Optional[Callable] = None
 
 
 @dataclass

@@ -6,19 +6,29 @@ JAX package builds), the optimizers of :func:`make_optimizer` as plain
 functions over the parameter dict (AdamW is ``scale_by_adam``, then the
 decay masked by key name, then the learning rate — the JAX chain, not
 ``torch.optim.AdamW``, which decays every leaf), :class:`History` and
-:class:`Trainer` (``init_state``, ``fit``, ``evaluate``).
+:class:`Trainer` (``init_state``, ``fit``, ``evaluate`` with the
+model's own metrics, checkpoints and step-granular resume).
+
+Resume is step-granular and bit-exact on one device: checkpoints
+(``train/checkpoint.py``) carry the parameters, the optimizer state and
+the host-side cursor (``ft/cursor.py``: epoch, step, the epoch's loss
+sum, ``History``); the dropout generator of a step is seeded from
+(config seed, epoch, step) and the map-style data order from (epoch
+seed, step), so a run cut at any saved step and resumed equals the
+uncut run.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): checkpoints and resume (``checkpoint_dir``, ``cursor``, ``ft``:
-``train/checkpoint.py``, ``ft/*``), every strategy but ``single``,
-``remat_policy="dots"``, ``adam_mu_dtype="bfloat16"`` and bf16 compute
-(``training.dtype``). The JAX loop's host-side knobs for its
-asynchronous dispatch (``sync_every``, ``prefetch``) have no use in the
-eager port and are ignored.
+item): preemption handling, fault injection and goodput (``ft=``, item
+8), every strategy but ``single`` (item 3), ``remat_policy="dots"``,
+``adam_mu_dtype="bfloat16"`` and bf16 compute (``training.dtype``, item
+1b). The JAX loop's host-side knobs for its asynchronous dispatch
+(``sync_every``, ``prefetch``) have no use in the eager port and are
+ignored.
 """
 
 from __future__ import annotations
 
+import inspect
 import json
 import math
 import time
@@ -30,7 +40,7 @@ import torch
 
 from quintnet_tpu_torch.core.config import Config
 from quintnet_tpu_torch.core.device import resolve_device
-from quintnet_tpu_torch.core.pytree import decay_mask, tree_leaves, tree_map
+from quintnet_tpu_torch.core.pytree import DECAY_KEYS, tree_leaves, tree_map
 from quintnet_tpu_torch.parallel.strategy import (ModelSpec, Strategy,
                                                   get_strategy)
 
@@ -103,18 +113,13 @@ def make_lr_schedule(cfg: Config):
 # optimizers
 # ---------------------------------------------------------------------
 
-def masked_decay(weight_decay: float, params):
-    """Per-leaf decoupled weight decay factors: ``weight_decay`` on the
-    leaves whose key is in ``core.pytree.DECAY_KEYS`` (weight matrices,
-    embedding tables), 0 on biases and norm parameters."""
-    return tree_map(lambda m: weight_decay if m else 0.0, decay_mask(params))
-
-
 @dataclass
 class Optimizer:
     """``init(params) -> state`` and ``update(grads, state, params)``,
     which changes ``params`` and ``state`` in place (the JAX package's
-    optax chains return new trees).
+    optax chains return new trees). The state is ``{"count": int}`` plus,
+    for adam and adamw, the moments ``"mu"`` and ``"nu"`` (trees like
+    ``params``): every entry is saved with a checkpoint.
 
     ``kind``: ``"adam"`` (``scale_by_adam`` with bias correction and
     ``eps`` outside the square root, then ``-lr``), ``"adamw"`` (the
@@ -134,9 +139,6 @@ class Optimizer:
         if self.kind in ("adam", "adamw"):
             state["mu"] = tree_map(torch.zeros_like, params)
             state["nu"] = tree_map(torch.zeros_like, params)
-        if self.kind == "adamw":
-            state["decay"] = dict(tree_leaves(masked_decay(
-                self.weight_decay, params)))
         return state
 
     @torch.no_grad()
@@ -156,9 +158,11 @@ class Optimizer:
             mu[path].mul_(self.b1).add_(g, alpha=1.0 - self.b1)
             nu[path].mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             u = (mu[path] / bc1) / ((nu[path] / bc2).sqrt() + self.eps)
-            wd = state["decay"][path] if self.kind == "adamw" else 0.0
-            if wd:
-                u.add_(p, alpha=wd)
+            # masked decay: weight matrices and embedding tables only,
+            # by the leaf's own key (``core.pytree.decay_mask``)
+            if self.kind == "adamw" and self.weight_decay \
+                    and path[-1] in DECAY_KEYS:
+                u.add_(p, alpha=self.weight_decay)
             p.add_(u, alpha=-lr)
 
 
@@ -174,7 +178,7 @@ def make_optimizer(cfg: Config) -> Optimizer:
     if t.adam_mu_dtype == "bfloat16":
         raise NotImplementedError(
             "adam_mu_dtype='bfloat16' is not ported: the port keeps both "
-            "Adam moments in f32 (ROADMAP.md §1, slice 2)")
+            "Adam moments in f32 (ROADMAP.md §1, item 1b)")
     lr = make_lr_schedule(cfg)
     if name == "adam":
         return Optimizer("adam", lr)
@@ -201,7 +205,10 @@ class History:
     best_epoch: int = -1
 
     def to_jsonl(self, path: str):
-        """One JSON line per epoch, then a summary line."""
+        """One JSON line per epoch, then a summary line. After a resume
+        the History restored from the cursor holds the whole run, so
+        rewriting the file loses no epoch; ``wall_time_s`` adds up over
+        restarts."""
         with open(path, "w") as f:
             for i, tl in enumerate(self.train_loss):
                 row = {"epoch": i, "train_loss": tl}
@@ -217,18 +224,56 @@ class History:
                 "best_epoch": self.best_epoch}) + "\n")
 
 
-def _not_ported(what: str):
+def _call_batches_fn(fn, epoch: int, skip: int):
+    """Call a batches factory, handing it the mid-epoch resume offset if
+    it declares a parameter literally named ``start`` or ``start_batch``
+    (second positional, or keyword-only): it then skips by itself (the
+    map-style iterators of ``data/datasets.py`` slice their shuffled
+    index). Returns ``(iterable, skip_consumed)``; other factories are
+    skipped generically by ``fit``. Matching by name, not arity, keeps a
+    factory's unrelated second parameter safe."""
+    names = ("start", "start_batch")
+    try:
+        ps = list(inspect.signature(fn).parameters.values())
+    except (TypeError, ValueError):   # builtins without a signature
+        ps = None
+    if ps is not None:
+        if (len(ps) >= 2
+                and ps[1].kind in (ps[1].POSITIONAL_ONLY,
+                                   ps[1].POSITIONAL_OR_KEYWORD)
+                and ps[1].name in names):
+            return fn(epoch, skip), True
+        kw = next((p.name for p in ps
+                   if p.kind == p.KEYWORD_ONLY and p.name in names), None)
+        if kw is not None:
+            return fn(epoch, **{kw: skip}), True
+    return fn(epoch), False
+
+
+def _fault_tolerance_not_ported():
     return NotImplementedError(
-        f"{what} is not ported: the port has no checkpoint or resume yet "
-        f"(train/checkpoint.py, ft/*; ROADMAP.md §1, slice 2)")
+        "fault tolerance (ft=: preemption handling, chaos injection, "
+        "goodput) is not ported; checkpoints and step-granular resume are "
+        "(checkpoint_dir=, fit(cursor=)); ft/* waits for ROADMAP.md §1, "
+        "item 8")
+
+
+def _as_params(tree):
+    """Restored tensors -> trainable leaves."""
+    return tree_map(lambda t: t.detach().requires_grad_(True), tree)
 
 
 class Trainer:
-    """``fit()`` over ``(input_ids, labels)`` numpy batches on one device.
+    """``fit()`` over ``(x, y)`` numpy batches on one device.
 
-    ``task_type``: ``"classification"`` or ``"clm"`` (adds perplexity to
-    the epoch log and to :meth:`evaluate`). ``device``: where parameters
-    and batches live (the card unless the caller asks for the CPU)."""
+    ``task_type``: ``"classification"`` (the model's ``eval_metrics_fn``
+    gives accuracy) or ``"clm"`` (adds perplexity to the epoch log and to
+    :meth:`evaluate`). ``checkpoint_dir``: where :meth:`fit` saves (at
+    each epoch end and at the ``training.save_every_steps`` /
+    ``save_every_seconds`` cadence) and resumes from; the best epoch by
+    val loss goes to the sibling ``<checkpoint_dir>-best``. ``device``:
+    where parameters and batches live (the card unless the caller asks
+    for the CPU)."""
 
     def __init__(self, config: Config, model: ModelSpec,
                  *, strategy: Optional[Strategy] = None,
@@ -237,21 +282,30 @@ class Trainer:
                  checkpoint_dir: Optional[str] = None,
                  log_fn: Callable[[str], None] = print,
                  device="cuda"):
-        if checkpoint_dir is not None:
-            raise _not_ported("checkpoint_dir")
         if config.training.dtype != "float32":
             raise NotImplementedError(
                 f"training.dtype={config.training.dtype!r}: bf16 compute is "
                 f"not ported; the port trains in f32 (ROADMAP.md §1, "
-                f"slice 2)")
+                f"item 1b)")
         self.config = config
         self.model = model
         self.device = resolve_device(device)
         self.strategy = strategy or get_strategy(config.strategy_name, config)
         self.optimizer = optimizer or make_optimizer(config)
         self.task_type = task_type
+        self.checkpoint_dir = checkpoint_dir
         self.log = log_fn
         self.step_fn = self.strategy.make_train_step(model, self.optimizer)
+        self._mgrs: Dict[str, object] = {}
+        self._last_ckpt_step = None     # newest step written or restored
+        # steps the restore fallback proved unreadable: replay re-reaches
+        # them and must rewrite them (force), or the bad step would shadow
+        # every later save at that step
+        self._bad_ckpt_steps: set = set()
+        # whether the newest checkpoint carries a mid-epoch cursor: the
+        # epoch-end save then rewrites a cadence save that landed on the
+        # epoch's last batch with the boundary cursor
+        self._last_ckpt_midepoch = False
 
     # -- state ---------------------------------------------------------
     def init_state(self, seed: Optional[int] = None):
@@ -260,16 +314,136 @@ class Trainer:
         a fresh optimizer state."""
         seed = self.config.training.seed if seed is None else seed
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = tree_map(lambda p: p.detach().requires_grad_(True),
-                          self.model.init(gen))
+        params = _as_params(self.model.init(gen))
         return params, self.optimizer.init(params)
 
+    def resume_or_init(self, seed: Optional[int] = None):
+        """``(params, opt_state, start_epoch)`` from the newest checkpoint
+        at an epoch boundary, else a fresh state at epoch 0. A mid-epoch
+        checkpoint (a cadence save) is no epoch boundary, and handing it
+        back as one would re-apply the epoch's first steps, so it raises:
+        resume through :meth:`fit` or :meth:`resume_state` instead."""
+        params, opt_state, cursor = self.resume_state(seed)
+        if cursor is not None and cursor.step_in_epoch:
+            raise RuntimeError(
+                f"latest checkpoint is mid-epoch (epoch {cursor.epoch} "
+                f"step {cursor.step_in_epoch}, global step "
+                f"{cursor.global_step}); resume_or_init only hands back "
+                "epoch boundaries — resume via Trainer.fit() "
+                "(step-granular), or resume_state() and pass its cursor "
+                "to fit(params=..., opt_state=..., cursor=...)")
+        return params, opt_state, (cursor.epoch if cursor is not None else 0)
+
+    def resume_state(self, seed: Optional[int] = None):
+        """Restore the newest checkpoint that loads (a damaged step falls
+        back to the previous good one, ``ft/restore.py``), else a fresh
+        state. Returns ``(params, opt_state, cursor)``; ``cursor`` (a
+        ``TrainCursor``) points at the next (epoch, step), None on a
+        fresh state. The state comes back on the trainer's device."""
+        params, opt_state = self.init_state(seed)
+        if not self.checkpoint_dir:
+            return params, opt_state, None
+        mgr = self._manager()
+        if mgr.latest_step() is None:
+            return params, opt_state, None
+        from quintnet_tpu_torch.ft.cursor import TrainCursor
+        from quintnet_tpu_torch.ft.restore import restore_with_fallback
+
+        state, cursor_dict, step, skipped = restore_with_fallback(
+            mgr, {"params": params, "opt": opt_state, "epoch": 0},
+            log=self.log)
+        self._last_ckpt_step = step
+        self._bad_ckpt_steps = set(skipped)
+        cursor = TrainCursor.from_dict(cursor_dict)
+        self._last_ckpt_midepoch = (cursor is not None
+                                    and cursor.step_in_epoch != 0)
+        if cursor is None:
+            # a step saved without a cursor (``save``) is indexed by its
+            # epoch: resume at the next epoch's start
+            cursor = TrainCursor(epoch=int(state["epoch"]) + 1,
+                                 global_step=step)
+        self.log(f"resumed from checkpoint step {step}: continuing at "
+                 f"epoch {cursor.epoch} step {cursor.step_in_epoch} "
+                 f"(global step {cursor.global_step})")
+        return _as_params(state["params"]), state["opt"], cursor
+
+    def _manager(self, *, best: bool = False):
+        """One CheckpointManager per directory, reused across saves."""
+        from quintnet_tpu_torch.train.checkpoint import CheckpointManager
+
+        key = "best" if best else "main"
+        if key not in self._mgrs:
+            self._mgrs[key] = (
+                CheckpointManager(self.checkpoint_dir.rstrip("/") + "-best",
+                                  max_to_keep=1) if best
+                else CheckpointManager(self.checkpoint_dir))
+        return self._mgrs[key]
+
+    def save(self, epoch: int, params, opt_state):
+        """Epoch-indexed save without a cursor, for callers that drive
+        their own loop (``fit`` saves through :meth:`save_state`)."""
+        if not self.checkpoint_dir:
+            return
+        self._manager().save(
+            epoch, {"params": params, "opt": opt_state, "epoch": epoch})
+
+    def save_state(self, params, opt_state, cursor, *,
+                   boundary: bool = False) -> float:
+        """Checkpoint the state and the cursor at step
+        ``cursor.global_step``; returns the seconds it took. A step
+        already written or restored is skipped (a resumed run revisits the
+        step it restored from, and the state is the same by
+        construction), except a step the restore fallback proved
+        unreadable (rewritten) and an epoch-end save (``boundary``) at the
+        step of a just-written mid-epoch cadence save (rewritten with the
+        boundary cursor, so :meth:`resume_or_init` sees the boundary)."""
+        if not self.checkpoint_dir:
+            return 0.0
+        step = cursor.global_step
+        force = step in self._bad_ckpt_steps
+        if self._last_ckpt_step is not None and step <= self._last_ckpt_step:
+            if not (boundary and step == self._last_ckpt_step
+                    and self._last_ckpt_midepoch):
+                return 0.0
+            force = True
+        t = time.time()
+        # the epoch the arrays were produced in (an end-of-epoch cursor
+        # already points at the next one): what tools/verify_vit reports
+        epoch = (cursor.epoch - 1 if cursor.step_in_epoch == 0
+                 else cursor.epoch)
+        self._manager().save(
+            step, {"params": params, "opt": opt_state, "epoch": epoch},
+            cursor=cursor.to_dict(), force=force)
+        self._last_ckpt_step = step
+        self._last_ckpt_midepoch = cursor.step_in_epoch != 0
+        self._bad_ckpt_steps.discard(step)
+        return time.time() - t
+
+    def save_best(self, epoch: int, params, opt_state, val_loss: float):
+        """The best epoch by val loss, kept alone in the sibling
+        directory ``<checkpoint_dir>-best`` (a sibling, so the main
+        directory lists only step numbers)."""
+        if not self.checkpoint_dir:
+            return
+        self._manager(best=True).save(
+            epoch, {"params": params, "opt": opt_state, "epoch": epoch,
+                    "val_loss": val_loss})
+
+    def wait_for_saves(self):
+        """Barrier on in-flight checkpoint writes."""
+        for mgr in self._mgrs.values():
+            mgr.wait_until_finished()
+
     def device_batch(self, xb, yb):
-        """A host ``(input_ids, labels)`` pair -> int64 tensors on the
-        trainer's device."""
-        return tuple(torch.as_tensor(np.asarray(a)).to(
-            self.device, dtype=torch.int64, non_blocking=True)
-            for a in (xb, yb))
+        """A host ``(x, y)`` pair -> tensors on the trainer's device:
+        floating arrays (images) as f32, integer ones (token ids, labels)
+        as int64."""
+        def put(a):
+            t = torch.as_tensor(np.asarray(a))
+            dtype = torch.float32 if t.is_floating_point() else torch.int64
+            return t.to(self.device, dtype=dtype, non_blocking=True)
+
+        return put(xb), put(yb)
 
     def step_generator(self, epoch: int, step: int):
         """The dropout generator of one step, seeded from (config seed,
@@ -283,45 +457,114 @@ class Trainer:
 
     # -- evaluation ----------------------------------------------------
     def evaluate(self, params, batches: Iterable) -> Dict[str, float]:
-        """Mean loss over ``batches`` (no dropout, no gradients); clm adds
-        perplexity."""
+        """The mean over ``batches`` of each metric (no dropout, no
+        gradients): the model's ``eval_metrics_fn`` where it has one
+        (ViT: loss and accuracy), else its loss; clm adds perplexity."""
+        fn = self.model.eval_metrics_fn
+        acc: Dict[str, list] = {}
         with torch.no_grad():
-            losses = [self.model.loss_fn(params, self.device_batch(xb, yb))
-                      for xb, yb in batches]
-        out = {"loss": (float(torch.stack(losses).mean()) if losses
-                        else float("nan"))}
+            for xb, yb in batches:
+                batch = self.device_batch(xb, yb)
+                mets = (fn(params, batch) if fn is not None
+                        else {"loss": self.model.loss_fn(params, batch)})
+                for k, v in mets.items():
+                    acc.setdefault(k, []).append(v)
+        # one device->host read per metric, then the mean of the batch
+        # values in f64, as the JAX trainer takes it
+        out = {k: float(np.mean(torch.stack(vs).tolist()))
+               for k, vs in acc.items()}
+        out.setdefault("loss", float("nan"))
         if self.task_type == "clm":
             out["perplexity"] = float(np.exp(min(out["loss"], 20.0)))
         return out
 
     # -- training ------------------------------------------------------
-    def fit(self, train_batches_fn: Callable[[int], Iterable],
+    def fit(self, train_batches_fn: Callable[..., Iterable],
             *, epochs: Optional[int] = None,
             val_batches_fn: Optional[Callable[[int], Iterable]] = None,
             params=None, opt_state=None, cursor=None, ft=None) -> History:
         """``train_batches_fn(epoch) -> iterable of (x, y)`` host batches
-        (the global batch; the step cuts micro-batches). Losses stay on
-        the device during an epoch and are read back once at its end (and
-        at each ``log_every`` window). Without ``params`` the state is
-        fresh from :meth:`init_state`."""
-        if cursor is not None:
-            raise _not_ported("resuming from a cursor")
+        (the global batch; the step cuts micro-batches). A factory whose
+        second parameter is named ``start`` or ``start_batch`` receives
+        the mid-epoch resume offset; others are skipped generically.
+
+        Without ``params`` the state is the newest checkpoint's (with
+        ``checkpoint_dir``) or fresh. With ``params``/``opt_state``, pass
+        the ``cursor`` of :meth:`resume_state` to continue that state's
+        run mid-stream; without one the state starts a fresh run at
+        epoch 0. Losses stay on the device during an epoch and are read
+        back at checkpoints and at the epoch's end."""
+        from quintnet_tpu_torch.data.datasets import skip_batches
+        from quintnet_tpu_torch.ft.cursor import TrainCursor
+        from quintnet_tpu_torch.ft.preempt import CadenceController
+
         if ft is not None:
-            raise _not_ported("fault tolerance (ft=)")
+            raise _fault_tolerance_not_ported()
         epochs = epochs or self.config.training.epochs
         if params is None:
-            params, opt_state = self.init_state()
-        hist = History()
+            params, opt_state, cursor = self.resume_state()
+        elif cursor is None:
+            # an explicit fresh state owes nothing to a checkpoint this
+            # trainer touched earlier
+            self._last_ckpt_step = None
+        if cursor is None:
+            cursor = TrainCursor(seed=self.config.training.seed)
+        if (cursor.seed is not None
+                and cursor.seed != self.config.training.seed):
+            raise RuntimeError(
+                f"checkpoint was written with training.seed={cursor.seed} "
+                f"but the config now says {self.config.training.seed}; "
+                "dropout seeds and data order derive from the seed, so "
+                "resuming would silently diverge from the original run")
+        hist = cursor.history
+        prior_wall = hist.wall_time_s   # adds up over restarts
+        global_step = cursor.global_step
+        start_epoch, resume_step = cursor.epoch, cursor.step_in_epoch
         t0 = time.time()
         log_every = self.config.training.log_every
-        for epoch in range(epochs):
+        cadence = CadenceController(self.config.training.save_every_steps,
+                                    self.config.training.save_every_seconds)
+        cadence.saved(global_step)
+        for epoch in range(start_epoch, epochs):
             losses = []
+            skip = resume_step if epoch == start_epoch else 0
+            # the epoch's loss record: a sequential f64 sum of the f32
+            # step losses, the same computation whether the epoch ran in
+            # one process or resumed from a checkpointed sum
+            loss_sum = cursor.loss_sum if skip else 0.0
+            loss_count = cursor.loss_count if skip else 0
+            n_flushed = 0
+
+            def flush():
+                # one device->host read for the steps since the last one
+                nonlocal n_flushed, loss_sum, loss_count
+                if len(losses) > n_flushed:
+                    for v in torch.stack(losses[n_flushed:]).tolist():
+                        loss_sum += v
+                        loss_count += 1
+                n_flushed = len(losses)
+
+            def cursor_at(next_epoch, next_step):
+                hist.wall_time_s = prior_wall + (time.time() - t0)
+                at_boundary = next_step == 0
+                return TrainCursor(
+                    epoch=next_epoch, step_in_epoch=next_step,
+                    global_step=global_step,
+                    loss_sum=0.0 if at_boundary else loss_sum,
+                    loss_count=0 if at_boundary else loss_count,
+                    history=hist, seed=self.config.training.seed)
+
             t_win = time.time()
-            for i, (xb, yb) in enumerate(train_batches_fn(epoch)):
+            batches, skip_consumed = _call_batches_fn(train_batches_fn,
+                                                      epoch, skip)
+            if skip and not skip_consumed:
+                batches = skip_batches(batches, skip)
+            for i, (xb, yb) in enumerate(batches, start=skip):
                 params, opt_state, loss = self.step_fn(
                     params, opt_state, self.device_batch(xb, yb),
                     self.step_generator(epoch, i))
                 losses.append(loss)
+                global_step += 1
                 if log_every and (i + 1) % log_every == 0:
                     window = float(torch.stack(losses[-log_every:]).mean())
                     dt = time.time() - t_win
@@ -332,10 +575,14 @@ class Trainer:
                         msg += f" ({sps * xb.shape[1] / 1e3:.1f}k tok/s)"
                     self.log(msg)
                     t_win = time.time()
-            # one device->host read per epoch; a sequential f64 mean of
-            # the f32 step losses, as the JAX trainer takes it
-            vals = torch.stack(losses).tolist() if losses else []
-            train_loss = sum(vals) / len(vals) if vals else float("nan")
+                if cadence.should_save(global_step):
+                    flush()
+                    self.save_state(params, opt_state,
+                                    cursor_at(epoch, i + 1))
+                    cadence.saved(global_step)
+            flush()
+            train_loss = (loss_sum / loss_count if loss_count
+                          else float("nan"))
             hist.train_loss.append(train_loss)
             msg = f"epoch {epoch}: train_loss {train_loss:.4f}"
             if self.task_type == "clm":
@@ -346,15 +593,21 @@ class Trainer:
                 ev = self.evaluate(params, val_batches_fn(epoch))
                 hist.val_loss.append(ev["loss"])
                 msg += f" | val_loss {ev['loss']:.4f}"
-                if "perplexity" in ev:
-                    hist.val_metric.append(ev["perplexity"])
-                    msg += f" val_perplexity {ev['perplexity']:.4f}"
+                for k in ("perplexity", "accuracy"):
+                    if k in ev:
+                        hist.val_metric.append(ev[k])
+                        msg += f" val_{k} {ev[k]:.4f}"
                 if ev["loss"] < hist.best_val_loss:
                     hist.best_val_loss = ev["loss"]
                     hist.best_epoch = epoch
+                    self.save_best(epoch, params, opt_state, ev["loss"])
                     msg += " (best)"
             self.log(msg)
-        hist.wall_time_s = time.time() - t0
+            self.save_state(params, opt_state, cursor_at(epoch + 1, 0),
+                            boundary=True)
+            cadence.saved(global_step)
+        self.wait_for_saves()
+        hist.wall_time_s = prior_wall + (time.time() - t0)
         self._final_state = (params, opt_state)
         return hist
 

@@ -715,3 +715,136 @@ def test_tiny_gpt2_flash_step_routes_and_matches_cpu(cuda_device):
         assert _rel_err(out["cuda"][1][path].cpu(), g) <= 1e-4, path
     np.testing.assert_allclose(out["cuda"][2], out["cpu"][2], rtol=1e-5)
     assert out["cpu"][2][1] < out["cpu"][2][0]     # the step moved
+
+
+@pytest.mark.cuda
+def test_tiny_vit_on_card_matches_cpu(cuda_device):
+    """A small ViT (depth 2, hidden 32, NCHW input, remat): logits, loss
+    and every gradient leaf of a 2-micro-batch step on the card against
+    the CPU from the same weights; its plain attention launches no
+    kernel."""
+    from quintnet_tpu_torch.models.vit import (ViTConfig, vit_apply,
+                                               vit_init, vit_model_spec)
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = ViTConfig(depth=2, hidden_dim=32, num_heads=4)
+    spec = vit_model_spec(cfg, remat=True)
+    rng = np.random.default_rng(8)
+    x = rng.standard_normal((8, 1, 28, 28)).astype(np.float32)
+    y = rng.integers(0, 10, 8)
+    params = vit_init(torch.Generator().manual_seed(3), cfg)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = tree_map(lambda t: t.to(dev).requires_grad_(True), params)
+        batch = (torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev))
+        for fn in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
+            fn.launches = 0
+        flash_attention.routed = 0
+        with torch.no_grad():
+            logits = vit_apply(p, batch[0], cfg)
+        loss, grads = accumulate_grads(spec.loss_fn, p, batch, 2)
+        torch.cuda.synchronize()
+        out[dev] = (logits.cpu(), loss.detach().cpu(),
+                    {k: g.cpu() for k, g in grads.items()})
+        assert (flash_fwd.launches, flash_bwd_dkv.launches,
+                flash_bwd_dq.launches, flash_attention.routed) == (0, 0, 0, 0)
+    torch.testing.assert_close(out["cuda"][0], out["cpu"][0], atol=1e-5,
+                               rtol=0)
+    torch.testing.assert_close(out["cuda"][1], out["cpu"][1], atol=1e-5,
+                               rtol=0)
+    for path, g in out["cpu"][2].items():
+        torch.testing.assert_close(out["cuda"][2][path], g, atol=1e-5,
+                                   rtol=1e-4, msg=".".join(path))
+
+
+class _Cut(Exception):
+    pass
+
+
+@pytest.mark.cuda
+def test_tiny_gpt2_resume_on_card_is_bit_identical(cuda_device, tmp_path,
+                                                  monkeypatch):
+    """A GPT-2 with head dim 64 (the kernels' domain) and residual
+    dropout, 4 AdamW steps through K1-K3 in deterministic mode, against
+    the same run cut after step 2 (a cadence save) and continued by a
+    fresh trainer from the checkpoint: parameters, both moments and the
+    step losses equal bit for bit, and every step launched each kernel
+    once per layer and micro-batch."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    monkeypatch.setenv("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
+    cfg = GPT2Config.tiny(n_embd=128, n_head=2, n_layer=2, resid_pdrop=0.1)
+    spec = gpt2_model_spec(cfg, use_flash=True)
+    tcfg = Config.from_dict({"training": dict(
+        optimizer="adamw", learning_rate=3e-3, weight_decay=0.01,
+        grad_clip_norm=1.0, batch_size=4, gradient_accumulation_steps=2,
+        save_every_steps=2, log_every=0)})
+    rng = np.random.default_rng(21)
+    host = [(ids, ids.copy()) for ids in
+            (rng.integers(0, cfg.vocab_size, (4, 48)) for _ in range(4))]
+    params = gpt2_init(torch.Generator().manual_seed(4), cfg)
+
+    def fresh():
+        return tree_map(lambda t: t.detach().clone().cuda()
+                        .requires_grad_(True), params)
+
+    def recording(tr):
+        losses, step_fn = [], tr.step_fn
+
+        def step(*a, **kw):
+            out = step_fn(*a, **kw)
+            losses.append(out[2])
+            return out
+
+        tr.step_fn = step
+        return losses
+
+    def cut_data(ep, start=0):
+        yield from host[:2]
+        raise _Cut
+
+    def trainer(ckpt=None):
+        return Trainer(tcfg, spec, task_type="clm", checkpoint_dir=ckpt,
+                       device="cuda", log_fn=lambda m: None)
+
+    for fn in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
+        fn.launches = 0
+    flash_attention.routed = 0
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = trainer()
+        ref_losses = recording(ref)
+        p = fresh()
+        ref.fit(lambda ep, start=0: iter(host[start:]), epochs=1, params=p,
+                opt_state=ref.optimizer.init(p))
+        first = trainer(str(tmp_path / "ck"))
+        losses = recording(first)
+        p = fresh()
+        with pytest.raises(_Cut):
+            first.fit(cut_data, epochs=1, params=p,
+                      opt_state=first.optimizer.init(p))
+        second = trainer(str(tmp_path / "ck"))
+        p, opt_state, cursor = second.resume_state()
+        assert (cursor.step_in_epoch, cursor.global_step) == (2, 2)
+        losses_2 = recording(second)
+        second.fit(lambda ep, start=0: iter(host[start:]), epochs=1,
+                   params=p, opt_state=opt_state, cursor=cursor)
+        torch.cuda.synchronize()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    n = cfg.n_layer * 2 * (4 + 2 + 2)
+    assert (flash_fwd.launches, flash_bwd_dkv.launches,
+            flash_bwd_dq.launches, flash_attention.routed) == (n, n, n, 0)
+    assert len(losses + losses_2) == 4
+    for a, b in zip(losses + losses_2, ref_losses):
+        assert torch.equal(a, b)
+    (pa, oa), (pb, ob) = second.final_state, ref.final_state
+    assert oa["count"] == ob["count"] == 4
+    for tree_a, tree_b in ((pa, pb), (oa["mu"], ob["mu"]),
+                           (oa["nu"], ob["nu"])):
+        want = dict(tree_leaves(tree_b))
+        for path, t in tree_leaves(tree_a):
+            assert torch.equal(t, want[path]), path

@@ -30,7 +30,10 @@ def test_importing_every_module_loads_no_jax():
     for m in ("serve.engine", "ops.flash_kernels", "ops.flash_attention",
               "core.config", "core.pytree", "data.datasets",
               "parallel.strategy", "parallel.train_step", "train.trainer",
-              "train.metrics", "examples.gpt2_finetune"):
+              "train.metrics", "examples.gpt2_finetune", "models.vit",
+              "train.checkpoint", "ft.cursor", "ft.restore", "ft.preempt",
+              "utils.safetensors_io", "utils.profiling", "utils.logger",
+              "tools.verify_vit", "examples.train_single_device"):
         assert f"quintnet_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"
@@ -88,6 +91,21 @@ def test_default_device_raises_without_cuda():
         gpt2_params_from_numpy(gpt2_params_to_numpy(params))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         Trainer(Config.from_dict({}), gpt2_model_spec(cfg))
+
+    from quintnet_tpu_torch.bridge import (vit_params_from_numpy,
+                                           vit_params_to_numpy)
+    from quintnet_tpu_torch.models.vit import (ViTConfig, vit_init,
+                                               vit_model_spec)
+    from quintnet_tpu_torch.tools.verify_vit import verify_vit
+
+    vcfg = ViTConfig(depth=1, hidden_dim=16, num_heads=2)
+    vparams = vit_init(torch.Generator().manual_seed(0), vcfg)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        vit_params_from_numpy(vit_params_to_numpy(vparams))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        Trainer(Config.from_dict({}), vit_model_spec(vcfg))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        verify_vit("no-such-dir", vcfg)
 
 
 def test_resolve_device_takes_the_cpu_only_when_asked():

@@ -35,6 +35,8 @@ from quintnet_tpu_torch.nn.transformer import stacked_blocks_apply
 from quintnet_tpu_torch.parallel.strategy import get_strategy
 from quintnet_tpu_torch.parallel.train_step import accumulate_grads
 from quintnet_tpu_torch.train.metrics import accuracy, perplexity
+from quintnet_tpu_torch.models.vit import ViTConfig, vit_model_spec
+from quintnet_tpu_torch.tools.verify_vit import verify_vit
 from quintnet_tpu_torch.train.trainer import (Trainer, make_lr_schedule,
                                               make_optimizer)
 
@@ -294,9 +296,12 @@ def _not_ported_cases():
     def trainer(**kw):
         return Trainer(cfg, spec, device="cpu", **kw)
 
+    vit_moe = ViTConfig(n_experts=4)
+
     return {
-        "checkpoint_dir": lambda: trainer(checkpoint_dir="ckpt"),
-        "resume_cursor": lambda: trainer().fit(lambda e: [], cursor=object()),
+        "vit_moe": lambda: vit_model_spec(vit_moe),
+        "verify_vit_tp2": lambda: verify_vit("ckpt", ViTConfig(), tp=2,
+                                             device="cpu"),
         "fault_tolerance": lambda: trainer().fit(lambda e: [], ft=object()),
         "strategy_dp": lambda: get_strategy("dp", cfg),
         "mesh_of_two": lambda: get_strategy(None, mesh_cfg),
@@ -316,8 +321,10 @@ def _not_ported_cases():
 
 @pytest.mark.parametrize("name", sorted(_not_ported_cases()))
 def test_options_not_ported_raise(name):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP") as ei:
         _not_ported_cases()[name]()
+    if name == "fault_tolerance":
+        assert "item 8" in str(ei.value)
 
 
 def test_single_strategy_and_unknown_names():
