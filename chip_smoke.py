@@ -9,8 +9,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (one process per source, started together) and check the SASS
    (``cuobjdump``): every instantiation of K1, K2, K3 and of K4's
    prefill kernel holds tensor-core instructions (HMMA: their products
-   run in 3xTF32) and no atomics, and no instantiation of K4's decode
-   kernel holds atomics. Then hold each kernel to its plain PyTorch
+   run in 3xTF32) and no atomics, every bf16 instantiation of K1-K3
+   holds ``HMMA.16816.F32.BF16`` and no atomics, and no instantiation of
+   K4's decode kernel holds atomics. Then hold each kernel to its plain PyTorch
    version at the main paths' shapes (GPT-2 base heads, D = 64). Paged
    attention (K4, block size 16; the decode path for at most 4 query
    rows a kv head, else the prefill path): decode rows with mixed
@@ -21,7 +22,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    attention (K1 forward, K2 dK/dV, K3 dQ): (B, H, S) = (8, 12, 1024)
    causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
    causal with a ragged last tile, (8, 12, 256) non-causal and
-   (1, 12, 4096) causal. Prints one JSON line per case with the error,
+   (1, 12, 4096) causal, each in f32 and again in bf16 (the same values
+   rounded to bf16; the bf16 kernels against their bf16 plain versions
+   within 2^-7 of the largest magnitude, lse within 1e-5, and against
+   the f32 plain versions on the same bf16 values within 2^-5). Prints
+   one JSON line per case with the error,
    the times of the kernel and of a PyTorch library call (20 calls
    captured in a CUDA graph and replayed: device time, no host time
    between launches; the library call is
@@ -33,7 +38,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    events; a small kernel's wrapper can take longer on the host than the
    kernel on the device), plus the least
    time the card could take (``bound_ms``: bytes at the HBM rate, or
-   operations at the 3xTF32 rate of 165 TFLOP/s, whichever is longer).
+   operations at the 3xTF32 rate of 165 TFLOP/s, in bf16 at the bf16
+   tensor-core rate of 989 TFLOP/s, whichever is longer; the SDPA
+   yardstick runs in the kernel's dtype).
    At the train shape also K2 + K3 as one backward beside SDPA's whole
    backward, its bound counting the 5 products a fused backward needs.
    K4 again with quantized and narrow pools at the decode shape (int8,
@@ -86,6 +93,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    next steps under ``torch.profiler`` the device's busy time and the
    three kernels' share of the step (each kernel's profiled launches a
    step must be n_layer x micro-batches).
+4b. **train_bf16** — the same model, data, optimizer and shapes with
+   ``training.dtype: bfloat16`` (the f32 master weights cast to bf16 at
+   use) and ``adam_mu_dtype: bfloat16``: the first batch's loss and
+   every gradient leaf (all f32) flash against plain attention in bf16
+   (loss <= 1e-2 relative, each leaf <= 5e-2 of its largest magnitude),
+   the first loss within 2e-2 relative of the f32 phase's, then 4 steps
+   each way with the losses compared (<= 1e-2 relative each). The flash
+   run is the main path: counts zeroed just before it and read just
+   after, each bf16 kernel 12 x 2 x 4 launches and no f32 launch, 0
+   routed, ``mu`` bf16 and ``nu`` and the parameters f32. Prints the
+   step's wall time, tokens/s, peak memory and, under ``torch.profiler``,
+   the GEMM time, the bf16 kernels' time and the idle share.
 
 5. **vit** — the reference ViT at full width (``examples/config.yaml``'s
    model block: image 28, patch 7, 1 channel, hidden 64, depth 8, 4
@@ -118,14 +137,16 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the checkpoint lives in a temporary directory, deleted at the end.
 
 Then one JSON line of per-kernel numbers (K4 once per variant the
-serve phases launched and path; K1-K3's launches are the train and
-resume phases' together), the card's name and power
+serve phases launched and path; K1-K3 in f32 with the train and resume
+phases' launches together, in bf16 with the train_bf16 phase's), the
+card's name and power
 limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is not available or the package is missing.
 
 Float32 matmuls run in full f32 (TF32 off for matmul and cuDNN) so the
-oracle and the kernel are compared at f32 accuracy.
+oracle and the kernel are compared at f32 accuracy; bf16 matmuls (the
+train_bf16 phase's GEMMs) run on cuBLAS's bf16 tensor-core path.
 """
 
 from __future__ import annotations
@@ -150,7 +171,15 @@ HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 # per f32 product) at the H100 SXM's dense TF32 rate, 495 / 3 TFLOP/s
 TF32X3_FLOPS_PER_S = 495e12 / 3
 OPS_BASIS = "operations (3xTF32, 165 TFLOP/s)"
+BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor cores
+OPS_BASIS_BF16 = "operations (bf16 tensor cores, 989 TFLOP/s)"
 KERNEL_TOL = 1e-4
+# bf16 kernels: x max |ref|. Against their plain versions (which round p,
+# ds and the outputs where the kernels do): one bf16 ulp of the largest
+# value. Against the f32 plain versions on the same bf16 values: four.
+BF16_TOL = 2.0 ** -7
+BF16_VS_F32_TOL = 2.0 ** -5
+LSE_TOL_BF16 = 1e-5              # absolute: lse is f32 in both
 TIMED_ITERS = 20
 DEVICE = "cuda"
 TRAIN_CASE = "causal_B32_S512_train"
@@ -164,6 +193,12 @@ FLASH_SYMBOLS = {                # wrapper -> its CUDA kernel's name
     "flash_bwd_dkv": "flash_bwd_dkv_3xtf32_kernel",
     "flash_bwd_dq": "flash_bwd_dq_3xtf32_kernel",
 }
+FLASH_SYMBOLS_BF16 = {           # the bf16 instantiations
+    "flash_fwd": "flash_fwd_bf16_kernel",
+    "flash_bwd_dkv": "flash_bwd_dkv_bf16_kernel",
+    "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
+}
+HMMA_BF16 = "HMMA.16816.F32.BF16"   # mma.sync m16n8k16, bf16 in, f32 out
 PAGED_SYMBOLS = {                # K4 path -> its CUDA kernel's name
     "decode": "paged_decode_split_kernel",
     "prefill": "paged_prefill_3xtf32_kernel",
@@ -191,7 +226,8 @@ def _zero_counts() -> None:
 
     for fn in _wrappers().values():
         fn.launches = 0
-        for by in ("launches_by_variant", "launches_by_path"):
+        for by in ("launches_by_variant", "launches_by_path",
+                   "launches_by_dtype"):
             if hasattr(fn, by):
                 getattr(fn, by).clear()
     flash_attention.routed = 0
@@ -349,11 +385,16 @@ def _library_fn(c):
     return lambda: sdpa(q, k_all, v_all, attn_mask=mask)
 
 
-def _bound(flops, nbytes):
+def _bound(flops, nbytes, bf16=False):
+    """The least time for ``flops`` and ``nbytes``: operations at the
+    3xTF32 rate (f32-accurate products) or, with ``bf16``, at the bf16
+    tensor-core rate; bytes at the HBM rate; whichever is longer."""
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / TF32X3_FLOPS_PER_S * 1e3
+    rate, basis = ((BF16_FLOPS_PER_S, OPS_BASIS_BF16) if bf16
+                   else (TF32X3_FLOPS_PER_S, OPS_BASIS))
+    t_ops = flops / rate * 1e3
     return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else OPS_BASIS,
+            "bound_by": "bytes" if t_bytes >= t_ops else basis,
             "bytes": nbytes, "flops": flops}
 
 
@@ -583,9 +624,29 @@ def _visible_pairs(B, S, causal, seg):
     return int(total)
 
 
+def _flash_errors(name, got, want, tols):
+    """max |got - want| / max |want| for each output (lse: absolute where
+    ``tols`` gives it as ("abs", tol)); raises past its tolerance."""
+    errs = {}
+    for key, g in got.items():
+        w = want[key]
+        if not torch.isfinite(g).all():
+            raise AssertionError(f"{name}: kernel {key} not finite")
+        kind, tol = tols[key]
+        d = float((g.float() - w.float()).abs().max())
+        errs[key] = d if kind == "abs" else d / float(
+            w.float().abs().max().clamp_min(1e-30))
+        if errs[key] > tol:
+            raise AssertionError(f"{name}: {key} error {errs[key]} > {tol} "
+                                 f"({kind})")
+    return errs
+
+
 def _flash_cases():
-    """K1-K3 against their plain versions on the same inputs: the
-    backward kernels take the plain forward's lse and delta."""
+    """K1-K3 against their plain versions on the same inputs, in f32 and
+    in bf16 (the same random values rounded to bf16): the backward
+    kernels take the plain forward's lse and delta. The bf16 kernels are
+    also held to the f32 plain versions on their bf16 inputs."""
     from quintnet_tpu_torch.ops.flash_kernels import (flash_bwd_dkv,
                                                       flash_bwd_dkv_ref,
                                                       flash_bwd_dq,
@@ -605,107 +666,135 @@ def _flash_cases():
               ("causal_ragged_B2_S300", 2, 300, True, False),
               ("noncausal_B8_S256", 8, 256, False, False),
               ("causal_B1_S4096", 1, 4096, True, False)]
+    f32_tols = {key: ("rel", KERNEL_TOL)
+                for key in ("o", "lse", "dq", "dk", "dv")}
+    bf16_tols = {"o": ("rel", BF16_TOL), "lse": ("abs", LSE_TOL_BF16),
+                 "dq": ("rel", BF16_TOL), "dk": ("rel", BF16_TOL),
+                 "dv": ("rel", BF16_TOL)}
+    vs_f32_tols = {**{key: ("rel", BF16_VS_F32_TOL)
+                      for key in ("o", "dq", "dk", "dv")},
+                   "lse": ("abs", LSE_TOL_BF16)}
     results = []
     for name, B, S, causal, use_seg in shapes:
-        q, k, v, do = (torch.randn((B, H, S, D), generator=gen,
-                                   device=DEVICE) for _ in range(4))
+        q32, k32, v32, do32 = (torch.randn((B, H, S, D), generator=gen,
+                                           device=DEVICE) for _ in range(4))
         seg_np = _packed_segments(rng, B, S) if use_seg else None
         seg = None if seg_np is None else torch.from_numpy(seg_np).to(DEVICE)
-        o, lse = flash_fwd(q, k, v, seg, causal=causal)
-        o_r, lse_r = flash_fwd_ref(q, k, v, seg, causal=causal)
-        delta = flash_delta(o_r, do)
-        bwd_in = (q, k, v, do, lse_r, delta, seg)
-        dk, dv = flash_bwd_dkv(*bwd_in, causal=causal)
-        dk_r, dv_r = flash_bwd_dkv_ref(*bwd_in, causal=causal)
-        dq = flash_bwd_dq(*bwd_in, causal=causal)
-        dq_r = flash_bwd_dq_ref(*bwd_in, causal=causal)
-        torch.cuda.synchronize()
-        errs = {}
-        for key, got, want in (("o", o, o_r), ("lse", lse, lse_r),
-                               ("dq", dq, dq_r), ("dk", dk, dk_r),
-                               ("dv", dv, dv_r)):
-            if not torch.isfinite(got).all():
-                raise AssertionError(f"{name}: kernel {key} not finite")
-            errs[key] = float((got - want).abs().max()
-                              / want.abs().max().clamp_min(1e-30))
-            if errs[key] > KERNEL_TOL:
-                raise AssertionError(
-                    f"{name}: {key} max_abs_err / max|ref| = {errs[key]} > "
-                    f"{KERNEL_TOL}")
+        for dtype in (torch.float32, torch.bfloat16):
+            bf16 = dtype == torch.bfloat16
+            tag = "[bf16]" if bf16 else ""
+            q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
+            o, lse = flash_fwd(q, k, v, seg, causal=causal)
+            o_r, lse_r = flash_fwd_ref(q, k, v, seg, causal=causal)
+            delta = flash_delta(o_r, do)
+            bwd_in = (q, k, v, do, lse_r, delta, seg)
+            dk, dv = flash_bwd_dkv(*bwd_in, causal=causal)
+            dk_r, dv_r = flash_bwd_dkv_ref(*bwd_in, causal=causal)
+            dq = flash_bwd_dq(*bwd_in, causal=causal)
+            dq_r = flash_bwd_dq_ref(*bwd_in, causal=causal)
+            torch.cuda.synchronize()
+            got = {"o": o, "lse": lse, "dq": dq, "dk": dk, "dv": dv}
+            errs = _flash_errors(name + tag, got, {
+                "o": o_r, "lse": lse_r, "dq": dq_r, "dk": dk_r, "dv": dv_r},
+                bf16_tols if bf16 else f32_tols)
+            errs_vs_f32 = None
+            if bf16:
+                # the f32 plain versions on the same bf16 values
+                qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+                o_f, lse_f = flash_fwd_ref(qf, kf, vf, seg, causal=causal)
+                f_in = (qf, kf, vf, dof, lse_f, flash_delta(o_f, dof), seg)
+                dk_f, dv_f = flash_bwd_dkv_ref(*f_in, causal=causal)
+                dq_f = flash_bwd_dq_ref(*f_in, causal=causal)
+                errs_vs_f32 = _flash_errors(name + tag + " vs f32", got, {
+                    "o": o_f, "lse": lse_f, "dq": dq_f, "dk": dk_f,
+                    "dv": dv_f}, vs_f32_tols)
+                del qf, kf, vf, dof, o_f, dk_f, dv_f, dq_f, f_in
 
-        # SDPA yardstick: the same function, forward and forward+backward
-        mask = (None if seg is None else
-                visible_pairs(S, causal, seg, q.device).expand(B, 1, S, S))
-        sdpa_kw = (dict(attn_mask=mask) if mask is not None
-                   else dict(is_causal=causal))
-        lib_fwd = _graph_ms(lambda: sdpa(q, k, v, **sdpa_kw))
-        qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
-        lib_fwd_bwd = _graph_ms(lambda: torch.autograd.grad(
-            sdpa(qg, kg, vg, **sdpa_kw), (qg, kg, vg), do))
-        calls = {
-            "flash_fwd": (lambda: flash_fwd(q, k, v, seg, causal=causal),
-                          lambda: flash_fwd_ref(q, k, v, seg, causal=causal)),
-            "flash_bwd_dkv": (
-                lambda: flash_bwd_dkv(*bwd_in, causal=causal),
-                lambda: flash_bwd_dkv_ref(*bwd_in, causal=causal)),
-            "flash_bwd_dq": (
-                lambda: flash_bwd_dq(*bwd_in, causal=causal),
-                lambda: flash_bwd_dq_ref(*bwd_in, causal=causal)),
-        }
-        # (kernel, plain version, kernel call through its wrapper)
-        times = {kern: (_graph_ms(kfn), _timed_ms(pfn), _timed_ms(kfn))
-                 for kern, (kfn, pfn) in calls.items()}
-        # each input read once, each output written once; 2 * D flops per
-        # multiply-add over the visible pairs, 2 / 4 / 3 matmuls
-        pairs = _visible_pairs(B, S, causal, seg_np) * H
-        tile = B * H * S * D * 4
-        row = B * H * S * 4
-        seg_bytes = 0 if seg is None else B * S * 4
-        work = {"flash_fwd": (2, 3 * tile + seg_bytes, tile + row),
-                "flash_bwd_dkv": (4, 4 * tile + 2 * row + seg_bytes,
-                                  2 * tile),
-                "flash_bwd_dq": (3, 4 * tile + 2 * row + seg_bytes, tile)}
-        for kern, (kernel_ms, plain_ms, call_ms) in times.items():
-            n_mm, read, written = work[kern]
-            res = {"kernel": kern, "case": name, "B": B, "H": H, "S": S,
-                   "D": D, "causal": causal, "segments": use_seg,
-                   "max_abs_err": (max(errs["o"], errs["lse"])
+            # SDPA yardstick: the same function in the same dtype, forward
+            # and forward+backward
+            mask = (None if seg is None else
+                    visible_pairs(S, causal, seg, q.device).expand(B, 1, S, S))
+            sdpa_kw = (dict(attn_mask=mask) if mask is not None
+                       else dict(is_causal=causal))
+            lib_fwd = _graph_ms(lambda: sdpa(q, k, v, **sdpa_kw))
+            qg, kg, vg = (t.clone().requires_grad_(True) for t in (q, k, v))
+            lib_fwd_bwd = _graph_ms(lambda: torch.autograd.grad(
+                sdpa(qg, kg, vg, **sdpa_kw), (qg, kg, vg), do))
+            calls = {
+                "flash_fwd": (
+                    lambda: flash_fwd(q, k, v, seg, causal=causal),
+                    lambda: flash_fwd_ref(q, k, v, seg, causal=causal)),
+                "flash_bwd_dkv": (
+                    lambda: flash_bwd_dkv(*bwd_in, causal=causal),
+                    lambda: flash_bwd_dkv_ref(*bwd_in, causal=causal)),
+                "flash_bwd_dq": (
+                    lambda: flash_bwd_dq(*bwd_in, causal=causal),
+                    lambda: flash_bwd_dq_ref(*bwd_in, causal=causal)),
+            }
+            # (kernel, plain version, kernel call through its wrapper)
+            times = {kern: (_graph_ms(kfn), _timed_ms(pfn), _timed_ms(kfn))
+                     for kern, (kfn, pfn) in calls.items()}
+            # each input read once, each output written once; 2 * D flops
+            # per multiply-add over the visible pairs, 2 / 4 / 3 matmuls
+            pairs = _visible_pairs(B, S, causal, seg_np) * H
+            tile = B * H * S * D * q.element_size()
+            row = B * H * S * 4
+            seg_bytes = 0 if seg is None else B * S * 4
+            work = {"flash_fwd": (2, 3 * tile + seg_bytes, tile + row),
+                    "flash_bwd_dkv": (4, 4 * tile + 2 * row + seg_bytes,
+                                      2 * tile),
+                    "flash_bwd_dq": (3, 4 * tile + 2 * row + seg_bytes, tile)}
+            for kern, (kernel_ms, plain_ms, call_ms) in times.items():
+                n_mm, read, written = work[kern]
+                err_keys = {"flash_fwd": ("o", "lse"),
+                            "flash_bwd_dkv": ("dk", "dv"),
+                            "flash_bwd_dq": ("dq",)}[kern]
+                res = {"kernel": kern + tag, "case": name, "dtype": str(dtype),
+                       "B": B, "H": H, "S": S, "D": D, "causal": causal,
+                       "segments": use_seg,
+                       "max_abs_err": max(errs[e] for e in err_keys),
+                       "errors": errs,
+                       "err_relative_to": "largest magnitude in the "
+                                          "reference (bf16 lse: absolute)",
+                       "kernel_ms": kernel_ms, "call_ms": call_ms,
+                       "plain_ms": plain_ms,
+                       "library_ms": (lib_fwd if kern == "flash_fwd"
+                                      else lib_fwd_bwd - lib_fwd),
+                       "library": (f"F.scaled_dot_product_attention forward, "
+                                   f"{dtype} (yardstick)"
                                    if kern == "flash_fwd" else
-                                   max(errs["dk"], errs["dv"])
-                                   if kern == "flash_bwd_dkv"
-                                   else errs["dq"]),
-                   "errors": errs,
-                   "err_relative_to": "largest magnitude in the reference",
-                   "kernel_ms": kernel_ms, "call_ms": call_ms,
-                   "plain_ms": plain_ms,
-                   "library_ms": (lib_fwd if kern == "flash_fwd"
-                                  else lib_fwd_bwd - lib_fwd),
-                   "library": ("F.scaled_dot_product_attention forward "
-                               "(yardstick)" if kern == "flash_fwd" else
-                               "F.scaled_dot_product_attention forward+"
-                               "backward minus forward: the whole backward, "
-                               "dq, dk and dv (yardstick)")}
-            res.update(_bound(2 * D * pairs * n_mm, read + written))
-            _emit(res)
-            results.append(res)
-        if name == TRAIN_CASE:
-            results.append(_backward_pair(
-                name, times, lib_fwd_bwd - lib_fwd,
-                max(errs["dq"], errs["dk"], errs["dv"]),
-                lambda: (flash_bwd_dkv(*bwd_in, causal=causal),
-                         flash_bwd_dq(*bwd_in, causal=causal)),
-                2 * D * pairs * 5, 4 * tile + 2 * row + seg_bytes + 3 * tile))
-        del q, k, v, do, o, o_r, dk, dv, dq, dk_r, dv_r, dq_r, qg, kg, vg
+                                   f"F.scaled_dot_product_attention forward+"
+                                   f"backward minus forward, {dtype}: the "
+                                   f"whole backward, dq, dk and dv "
+                                   f"(yardstick)")}
+                if errs_vs_f32 is not None:
+                    res["errors_vs_f32_plain"] = errs_vs_f32
+                res.update(_bound(2 * D * pairs * n_mm, read + written,
+                                  bf16=bf16))
+                _emit(res)
+                results.append(res)
+            if name == TRAIN_CASE:
+                results.append(_backward_pair(
+                    name, times, lib_fwd_bwd - lib_fwd,
+                    max(errs["dq"], errs["dk"], errs["dv"]),
+                    lambda: (flash_bwd_dkv(*bwd_in, causal=causal),
+                             flash_bwd_dq(*bwd_in, causal=causal)),
+                    2 * D * pairs * 5,
+                    4 * tile + 2 * row + seg_bytes + 3 * tile, bf16=bf16))
+            del q, k, v, do, o, o_r, dk, dv, dq, dk_r, dv_r, dq_r, qg, kg, vg
+            del got, bwd_in
+        del q32, k32, v32, do32
     return results
 
 
 def _backward_pair(case, times, library_ms, err, launch_both, flops,
-                   nbytes):
+                   nbytes, bf16=False):
     """K2 and K3 as one backward beside SDPA's whole backward (the only
     fair pairing: SDPA's yardstick computes dq, dk and dv together). The
     bound counts the 5 products one fused backward needs, so the split's
     recomputation of s and dp (7 products) shows as lost time."""
-    res = {"kernel": "backward (K2 + K3)", "case": case,
+    res = {"kernel": "backward (K2 + K3)" + (" [bf16]" if bf16 else ""),
+           "case": case,
            "kernel_ms": times["flash_bwd_dkv"][0] + times["flash_bwd_dq"][0],
            "kernel_ms_measured_together": _graph_ms(launch_both),
            "plain_ms": times["flash_bwd_dkv"][1] + times["flash_bwd_dq"][1],
@@ -713,7 +802,7 @@ def _backward_pair(case, times, library_ms, err, launch_both, flops,
            "library_ms": library_ms,
            "library": "F.scaled_dot_product_attention forward+backward minus "
                       "forward (yardstick)"}
-    res.update(_bound(flops, nbytes))
+    res.update(_bound(flops, nbytes, bf16=bf16))
     res["share_of_bound"] = res["bound_ms"] / res["kernel_ms"]
     res["vs_library"] = res["kernel_ms"] / library_ms
     _emit(res)
@@ -721,8 +810,9 @@ def _backward_pair(case, times, library_ms, err, launch_both, flops,
 
 
 def _sass_census(path):
-    """Per kernel of a built library: its tensor-core (HMMA), atomic (ATOM,
-    RED) and f32 FMA (FFMA) instructions, from ``cuobjdump -sass``."""
+    """Per kernel of a built library: its tensor-core (HMMA; and of them
+    the bf16 m16n8k16 form, ``HMMA_BF16``), atomic (ATOM, RED) and f32 FMA
+    (FFMA) instructions, from ``cuobjdump -sass``."""
     from quintnet_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -732,7 +822,8 @@ def _sass_census(path):
     for ln in sass.splitlines():
         if "Function : " in ln:
             fn = ln.split("Function : ")[1].strip()
-            census[fn] = {"HMMA": 0, "ATOM": 0, "RED": 0, "FFMA": 0}
+            census[fn] = {"HMMA": 0, "ATOM": 0, "RED": 0, "FFMA": 0,
+                          HMMA_BF16: 0}
         elif fn is not None and "/*" in ln:
             op = ln.split("*/", 1)[1].split()
             op = [w for w in op if not w.startswith("@")][:1]
@@ -744,6 +835,8 @@ def _sass_census(path):
                     head = "RED"
                 if head in census[fn]:
                     census[fn][head] += 1
+                if op[0].startswith(HMMA_BF16):
+                    census[fn][HMMA_BF16] += 1
     return census
 
 
@@ -751,10 +844,23 @@ def _check_sass(paths):
     """The flash kernels and K4's prefill path run on the tensor cores and
     no K1-K4 kernel uses atomics (each output element has one writer):
     every instantiation of K1, K2, K3 and of the K4 prefill kernel holds
-    HMMA instructions and no ATOM or RED, and no instantiation of the K4
-    decode kernel holds ATOM or RED."""
+    HMMA instructions and no ATOM or RED, every bf16 instantiation of
+    K1-K3 holds ``HMMA.16816.F32.BF16`` (bf16 operands, f32 sums), and no
+    instantiation of the K4 decode kernel holds ATOM or RED."""
     census = _sass_census(paths["flash_attention"])
     out = {}
+    for wrapper, sym in FLASH_SYMBOLS_BF16.items():
+        fns = {f: c for f, c in census.items() if sym in f}
+        if len(fns) != 3:
+            raise AssertionError(f"{wrapper}: {len(fns)} instantiations of "
+                                 f"{sym} in the SASS (want 3: D = 32, 64, "
+                                 f"128)")
+        for f, c in fns.items():
+            if c[HMMA_BF16] == 0 or c["ATOM"] or c["RED"]:
+                raise AssertionError(f"{f}: SASS census {c}: want "
+                                     f"{HMMA_BF16} > 0 and no ATOM / RED")
+        out[wrapper + "[bf16]"] = sorted(fns.values(),
+                                        key=lambda c: c[HMMA_BF16])
     for wrapper, sym in FLASH_SYMBOLS.items():
         fns = {f: c for f, c in census.items() if sym in f}
         if len(fns) != 3:
@@ -787,8 +893,9 @@ def _check_sass(paths):
         "instantiations": len(prefill), "atomics": 0,
         "hmma_min_max": [min(c["HMMA"] for c in prefill.values()),
                          max(c["HMMA"] for c in prefill.values())]}
-    _emit({"check": "K1, K2, K3 and K4 prefill SASS: tensor cores (HMMA), "
-                    "no atomics; K4 decode SASS: no atomics", "ok": True,
+    _emit({"check": "K1, K2, K3 (f32 and bf16) and K4 prefill SASS: tensor "
+                    "cores (HMMA; HMMA.16816.F32.BF16 in bf16), no atomics; "
+                    "K4 decode SASS: no atomics", "ok": True,
            "census": out})
 
 
@@ -1241,12 +1348,14 @@ def _timed_then_profiled(trainer, params, opt_state, batches):
     return wall, peak, _device_ops(prof), len(batches) - n
 
 
-def _train_share(trainer, params, opt_state, batches, want) -> dict:
+def _train_share(trainer, params, opt_state, batches, want,
+                 symbols=FLASH_SYMBOLS) -> dict:
     """The step's wall time over steps run WITHOUT the profiler, then the
     device's busy time and the flash kernels' device time from as many
     further steps under ``torch.profiler``. ``want``: each flash
-    wrapper's launches a step; the profiled kernels must match it, so a
-    renamed kernel fails here instead of reading 0 ms."""
+    wrapper's launches a step; the profiled kernels (found by ``symbols``,
+    the f32 or the bf16 names) must match it, so a renamed kernel fails
+    here instead of reading 0 ms."""
     wall, peak, by_name, n = _timed_then_profiled(trainer, params, opt_state,
                                                   batches)
     busy_us = sum(us for us, _ in by_name.values())
@@ -1263,12 +1372,12 @@ def _train_share(trainer, params, opt_state, batches, want) -> dict:
     for name in FLASH_KERNELS:
         us, k = (0.0, 0)
         for ev, (t, c) in by_name.items():
-            if FLASH_SYMBOLS[name] in ev:
+            if symbols[name] in ev:
                 us, k = us + t, k + c
         launches = k / n
         if launches != want[name]:
             raise AssertionError(
-                f"profiler: {FLASH_SYMBOLS[name]} launched {launches} times a "
+                f"profiler: {symbols[name]} launched {launches} times a "
                 f"step; {name} launches {want[name]} (n_layer x "
                 f"micro-batches)")
         kern[name] = {"ms_per_step": per_step(us),
@@ -1384,6 +1493,133 @@ def phase_train():
                             {k: v // steps for k, v in want.items()}))
     _emit(res)
     return res, counts
+
+
+# ---------------------------------------------------------------------
+# phase 4b: GPT-2 124M trained on the card in bf16
+# ---------------------------------------------------------------------
+
+TRAIN_BF16 = {"dtype": "bfloat16", "adam_mu_dtype": "bfloat16"}
+
+
+def phase_train_bf16(f32_first_loss):
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
+    from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
+    from quintnet_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
+                                                gpt2_model_spec)
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+    from quintnet_tpu_torch.parallel.train_step import accumulate_grads
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    cfg = GPT2Config.base()          # every dropout rate 0: deterministic
+    seq, batch, steps, n_micro = 512, 64, 4, 2
+    tcfg = Config.from_dict({"training": {
+        "batch_size": batch, "gradient_accumulation_steps": n_micro,
+        "optimizer": "adamw", "learning_rate": 5e-5, "weight_decay": 0.01,
+        "grad_clip_norm": 1.0, "log_every": 0, "seed": 0, **TRAIN_BF16}})
+    ds = SummarizationDataset.synthetic(batch * 4, ByteTokenizer(),
+                                        max_length=seq, seed=0)
+    host = [next(iter(ds.batches(batch, seed=i))) for i in range(steps + 4)]
+    params0 = gpt2_init(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+
+    def fresh():
+        return tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                        params0)
+
+    def trainer(use_flash):
+        # training.dtype as the example reads it: the model's compute dtype
+        return Trainer(tcfg, gpt2_model_spec(cfg, use_flash=use_flash,
+                                             compute_dtype=torch.bfloat16),
+                       task_type="clm", device=DEVICE, log_fn=lambda m: None)
+
+    flash, plain = trainer(True), trainer(False)
+    if flash.optimizer.mu_dtype != torch.bfloat16:
+        raise AssertionError(f"adam_mu_dtype bfloat16 gave mu_dtype "
+                             f"{flash.optimizer.mu_dtype}")
+
+    # the first global batch: loss and every gradient leaf, flash against
+    # plain attention in bf16, same weights; and the loss against f32's
+    b0 = flash.device_batch(*host[0])
+    p = fresh()
+    loss_f, g_f = accumulate_grads(flash.model.loss_fn, p, b0, n_micro)
+    loss_p, g_p = accumulate_grads(plain.model.loss_fn, p, b0, n_micro)
+    loss_rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+    if not loss_rel <= 1e-2:
+        raise AssertionError(f"bf16 first-step loss: flash {float(loss_f)} "
+                             f"vs plain {float(loss_p)} (rel {loss_rel})")
+    f32_rel = abs(float(loss_f) - f32_first_loss) / abs(f32_first_loss)
+    if not f32_rel <= 2e-2:
+        raise AssertionError(f"bf16 first-step loss {float(loss_f)} vs the "
+                             f"f32 phase's {f32_first_loss} (rel {f32_rel})")
+    not_f32 = [".".join(k) for k, g in g_f.items()
+               if g.dtype != torch.float32]
+    if not_f32:
+        raise AssertionError(f"gradient leaves not f32: {not_f32}")
+    grad_err = {".".join(k): float((g_f[k] - g_p[k]).abs().max()
+                                   / g_p[k].abs().max().clamp_min(1e-30))
+                for k in g_p}
+    worst = max(grad_err, key=grad_err.get)
+    if not grad_err[worst] <= 5e-2:
+        raise AssertionError(f"bf16 gradient {worst}: max |flash - plain| / "
+                             f"max |plain| = {grad_err[worst]} > 5e-2")
+    del p, g_f, g_p
+
+    # main path: counts zeroed just before, read just after
+    params = fresh()
+    opt_state = flash.optimizer.init(params)
+    _zero_counts()
+    hist_f = flash.fit(lambda ep: [host[ep]], epochs=steps, params=params,
+                       opt_state=opt_state)
+    counts = _counts()
+    wrappers = _wrappers()
+    by_dtype = {name: dict(wrappers[name].launches_by_dtype)
+                for name in FLASH_KERNELS}
+    if flash_attention.routed:
+        raise AssertionError(f"flash_attention routed {flash_attention.routed}"
+                             f" bf16 calls to the blockwise attention on the "
+                             f"main path; every call must reach the kernels")
+    per_kernel = cfg.n_layer * n_micro * steps
+    want = {name: {"bf16": per_kernel} for name in FLASH_KERNELS}
+    if by_dtype != want or counts["paged_attention"]:
+        raise AssertionError(f"launches by dtype {by_dtype} (paged "
+                             f"{counts['paged_attention']}); expected {want} "
+                             f"(n_layer x micro-batches x steps, no f32)")
+    moments = {m: {str(t.dtype) for _, t in tree_leaves(opt_state[m])}
+               for m in ("mu", "nu")}
+    if moments != {"mu": {"torch.bfloat16"}, "nu": {"torch.float32"}} or any(
+            t.dtype != torch.float32 for _, t in tree_leaves(params)):
+        raise AssertionError(f"moment dtypes {moments}; want mu bf16, nu and "
+                             f"the parameters f32")
+
+    pp = fresh()
+    hist_p = plain.fit(lambda ep: [host[ep]], epochs=steps, params=pp,
+                       opt_state=plain.optimizer.init(pp))
+    del pp
+    for i, (a, b) in enumerate(zip(hist_f.train_loss, hist_p.train_loss)):
+        if not (np.isfinite(a) and abs(a - b) <= 1e-2 * abs(b)):
+            raise AssertionError(f"bf16 step {i}: loss flash {a} vs plain {b}")
+
+    res = {"phase": "train_bf16",
+           "model": "gpt2-124M, bf16 compute from f32 master weights (random "
+                    "init, seed 0), Adam mu in bf16",
+           "global_batch": batch, "micro_batches": n_micro, "seq_len": seq,
+           "steps": steps, "optimizer": "adamw lr 5e-5 wd 0.01 clip 1.0",
+           "first_loss_flash": float(loss_f),
+           "first_loss_plain": float(loss_p), "first_loss_rel_diff": loss_rel,
+           "first_loss_f32": f32_first_loss, "first_loss_rel_to_f32": f32_rel,
+           "worst_grad_leaf": worst, "worst_grad_rel_err": grad_err[worst],
+           "loss_flash": hist_f.train_loss, "loss_plain": hist_p.train_loss,
+           "fit_wall_s_flash": hist_f.wall_time_s,
+           "fit_wall_s_plain": hist_p.wall_time_s, "launches": counts,
+           "launches_by_dtype": by_dtype, "moment_dtypes": {
+               k: sorted(v) for k, v in moments.items()},
+           "flash_attention_routed": flash_attention.routed}
+    res.update(_train_share(flash, params, opt_state, host[steps:],
+                            {k: per_kernel // steps for k in FLASH_KERNELS},
+                            symbols=FLASH_SYMBOLS_BF16))
+    _emit(res)
+    return res, {name: v["bf16"] for name, v in by_dtype.items()}
 
 
 # ---------------------------------------------------------------------
@@ -1748,7 +1984,9 @@ def main() -> int:
     _res, kv_runs = phase_serve_kv(params, cfg, f32_streams)
     del params
     torch.cuda.empty_cache()
-    _res, train_counts = phase_train()
+    train_res, train_counts = phase_train()
+    torch.cuda.empty_cache()
+    _res, bf16_counts = phase_train_bf16(train_res["first_loss_flash"])
     torch.cuda.empty_cache()
     phase_vit()
     torch.cuda.empty_cache()
@@ -1782,11 +2020,13 @@ def main() -> int:
                 "quintnet_tpu/ops/paged_attention.py:91",
                 launches["by_path"].get(path, 0), rows, head))
     for name, replaces in FLASH_KERNELS.items():
-        rows = [r for r in flash_rows if r["kernel"] == name]
-        kernels.append(entry(
-            name, "quintnet_tpu_torch/ops/csrc/flash_attention.cu", replaces,
-            train_counts[name] + resume_counts[name], rows,
-            next(r for r in rows if r["case"] == TRAIN_CASE)))
+        for tag, launches in (("", train_counts[name] + resume_counts[name]),
+                              ("[bf16]", bf16_counts[name])):
+            rows = [r for r in flash_rows if r["kernel"] == name + tag]
+            kernels.append(entry(
+                name + tag, "quintnet_tpu_torch/ops/csrc/flash_attention.cu",
+                replaces, launches, rows,
+                next(r for r in rows if r["case"] == TRAIN_CASE)))
     _emit({"kernels": kernels})
     print(_smi(), flush=True)
     _emit({"ok": True, "device": {"platform": "gpu",

@@ -19,6 +19,12 @@ file; the tokenizer is the byte-level one. Attention goes through
 config's ``attn_pdrop = 0.1`` sends it to the plain blockwise path,
 which carries the dropout: no kernel runs at that rate.
 
+``training.dtype`` chooses the compute dtype as in the JAX example:
+``bfloat16`` casts the f32 parameters to bf16 at use (the K1-K3 bf16
+kernels on the card), ``float32`` keeps f32; anything else raises
+``ValueError``. ``training.adam_mu_dtype: bfloat16`` stores Adam's first
+moment in bf16.
+
 ``--tiny`` trains a 4-layer, 32-wide GPT-2 on 64-token rows (a smoke
 run); ``--steps N`` stops each epoch after N optimizer steps.
 """
@@ -45,6 +51,8 @@ def main(argv=None):
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--checkpoint-dir", default=None)
     args = ap.parse_args(argv)
+
+    import torch
 
     from quintnet_tpu_torch.core.config import MeshConfig, load_config
     from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
@@ -95,13 +103,20 @@ def main(argv=None):
             int(cfg.data.get("val_samples", 128)), tok, max_length=max_len,
             seed=1)
 
+    if cfg.training.dtype not in ("bfloat16", "float32"):
+        raise ValueError(
+            f"training.dtype must be 'bfloat16' or 'float32', "
+            f"got {cfg.training.dtype!r}")
+    compute_dtype = (torch.bfloat16 if cfg.training.dtype == "bfloat16"
+                     else None)
     model = gpt2_model_spec(gcfg, remat=cfg.training.remat_mode,
-                            use_flash=True)
+                            use_flash=True, compute_dtype=compute_dtype)
     trainer = Trainer(cfg, model, task_type="clm",
                       checkpoint_dir=args.checkpoint_dir, device=args.device)
     print(f"strategy={trainer.strategy.name} device={trainer.device} "
           f"gpt2 n_layer={gcfg.n_layer} n_embd={gcfg.n_embd} "
-          f"pdrops={gcfg.pdrops}")
+          f"pdrops={gcfg.pdrops} dtype={cfg.training.dtype} "
+          f"adam_mu_dtype={cfg.training.adam_mu_dtype}")
 
     def train_batches(epoch):
         batches = train_ds.batches(bs, seed=epoch)

@@ -26,8 +26,9 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from quintnet_tpu_torch.nn.attention import mha_init
-from quintnet_tpu_torch.nn.layers import (dropout, gelu, layer_norm_apply,
-                                          layer_norm_init, linear_init)
+from quintnet_tpu_torch.nn.layers import (cast_floating, dropout, gelu,
+                                          layer_norm_apply, layer_norm_init,
+                                          linear_init)
 from quintnet_tpu_torch.nn.transformer import stacked_blocks_apply
 
 IGNORE_INDEX = -100  # labels at -100 carry no loss (prompt and padding)
@@ -275,14 +276,17 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     single-device loss: the chunked CLM loss when ``cfg.loss_chunk > 0``,
     else the full-logits one. ``generator`` drives the dropout masks.
 
+    ``compute_dtype`` (``torch.bfloat16``; None is f32): the parameters
+    stay f32 and are cast once per ``loss_fn`` call, and that one tree
+    feeds the embedding, the blocks and the tied head, as the JAX
+    ``_cast_tree`` does (``wte``'s two cotangents then add up in the
+    compute dtype before the cast brings them back to f32). Logits and
+    the loss are f32.
+
     Not ported (each raises ``NotImplementedError``, ROADMAP.md §1):
-    bf16 ``compute_dtype``, MoE configs, ``remat="dots"``."""
+    MoE configs, ``remat="dots"``."""
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
 
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: bf16 compute is not ported; "
-            f"the port trains in f32 (ROADMAP.md §1, item 1b)")
     if cfg.n_experts > 0:
         raise NotImplementedError(
             "MoE GPT-2 training is not ported (ROADMAP.md §1, item 4)")
@@ -293,12 +297,12 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
 
     def loss_fn(params, batch, generator=None):
         input_ids, labels = batch
+        p = cast_floating(params, compute_dtype)
         if cfg.loss_chunk > 0:
-            h = gpt2_hidden(params, input_ids, cfg, remat=remat,
+            h = gpt2_hidden(p, input_ids, cfg, remat=remat,
                             use_flash=use_flash, generator=generator)
-            return clm_loss_chunked(params, h, labels, cfg,
-                                    chunk=cfg.loss_chunk)
-        return clm_loss(gpt2_forward(params, input_ids, cfg, remat=remat,
+            return clm_loss_chunked(p, h, labels, cfg, chunk=cfg.loss_chunk)
+        return clm_loss(gpt2_forward(p, input_ids, cfg, remat=remat,
                                      use_flash=use_flash,
                                      generator=generator), labels)
 

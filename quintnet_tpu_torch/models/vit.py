@@ -15,9 +15,9 @@ pre-LN with a ReLU MLP and plain dense, non-causal attention, as the
 reference runs them (no flash attention: at S = 17 and head dim 16 the
 JAX package uses none either); the head reads the CLS position.
 
-Not ported: MoE ViT (``n_experts > 0``: ROADMAP.md §1, item 4), bf16
-``compute_dtype`` (item 1b), and the mesh hooks (partition specs, the
-tp layout, pipeline functions: item 3).
+Not ported: MoE ViT (``n_experts > 0``: ROADMAP.md §1, item 4) and the
+mesh hooks (partition specs, the tp layout, pipeline functions: item
+3).
 """
 
 from __future__ import annotations
@@ -27,9 +27,10 @@ from dataclasses import dataclass
 import torch
 
 from quintnet_tpu_torch.nn.attention import mha_init
-from quintnet_tpu_torch.nn.layers import (dropout, layer_norm_apply,
-                                          layer_norm_init, linear_apply,
-                                          linear_init, patchify)
+from quintnet_tpu_torch.nn.layers import (cast_floating, dropout,
+                                          layer_norm_apply, layer_norm_init,
+                                          linear_apply, linear_init,
+                                          patchify)
 from quintnet_tpu_torch.nn.transformer import stacked_blocks_apply
 from quintnet_tpu_torch.train.metrics import accuracy
 
@@ -148,15 +149,16 @@ def vit_forward(params, images, cfg: ViTConfig, *, remat=False,
     port's ViT is dense). ``generator``: training dropout at
     ``cfg.dropout`` on the embedding, attention and residual sites, drawn
     in that order; None is eval. ``remat=True`` recomputes each block in
-    backward (``torch.utils.checkpoint``)."""
+    backward (``torch.utils.checkpoint``). ``compute_dtype``
+    (``torch.bfloat16``; None is f32) casts the images and the
+    parameters at use; the logits come back in f32."""
     _dense_only(cfg)
-    if compute_dtype not in (None, torch.float32):
-        raise NotImplementedError(
-            f"compute_dtype={compute_dtype}: bf16 compute is not ported; "
-            f"the port's ViT runs in f32 (ROADMAP.md §1, item 1b)")
     if images.ndim == 4 and images.shape[1] == cfg.in_channels \
             and images.shape[-1] != cfg.in_channels:
         images = images.permute(0, 2, 3, 1)      # NCHW -> NHWC
+    if compute_dtype is not None:
+        images = images.to(compute_dtype)
+        params = cast_floating(params, compute_dtype)
     if generator is not None and not cfg.needs_dropout:
         generator = None
     x = vit_embed(params["embedding"], images, cfg.patch_size,
@@ -184,10 +186,11 @@ def cross_entropy_loss(logits, labels):
     return -logp.gather(-1, labels.long()[:, None])[:, 0].mean()
 
 
-def vit_model_spec(cfg: ViTConfig, *, remat=False):
+def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
     """The single-device training model: ``loss_fn(params, (images,
     labels), generator=None)`` (cross entropy), ``eval_metrics_fn``
-    (loss and accuracy, no dropout)."""
+    (loss and accuracy, no dropout), both computing in
+    ``compute_dtype`` (see :func:`vit_forward`)."""
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
 
     _dense_only(cfg)
@@ -195,12 +198,14 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False):
     def loss_fn(params, batch, generator=None):
         x, y = batch
         logits, _ = vit_forward(params, x, cfg, remat=remat,
+                                compute_dtype=compute_dtype,
                                 generator=generator)
         return cross_entropy_loss(logits, y)
 
     def eval_metrics_fn(params, batch):
         x, y = batch
-        logits, _ = vit_forward(params, x, cfg, remat=remat)
+        logits, _ = vit_forward(params, x, cfg, remat=remat,
+                                compute_dtype=compute_dtype)
         return {"loss": cross_entropy_loss(logits, y),
                 "accuracy": accuracy(logits, y)}
 

@@ -1,11 +1,12 @@
 """Core layers as apply functions over plain parameter dicts.
 
-Port of ``quintnet_tpu/nn/layers.py`` (the f32 subset: linear,
-LayerNorm, GELU, the MLP, dropout and ViT's patchify).
+Port of ``quintnet_tpu/nn/layers.py`` (linear, LayerNorm, GELU, the
+MLP, dropout, ViT's patchify and the mixed-precision cast).
 Conventions carried over: parameters are dicts of tensors in the JAX
 layout — linear weights ``[in, out]`` so the forward is ``x @ w``,
-LayerNorm ``{"scale", "bias"}`` — and normalisation runs in f32
-whatever the input dtype.
+LayerNorm ``{"scale", "bias"}`` — normalisation runs in f32 whatever
+the input dtype, and bf16 compute casts the f32 master parameters at
+use (:func:`cast_floating`).
 """
 
 from __future__ import annotations
@@ -14,6 +15,21 @@ import math
 
 import torch
 import torch.nn.functional as F
+
+from quintnet_tpu_torch.core.pytree import tree_map
+
+
+def cast_floating(tree, dtype):
+    """Floating-point tensor leaves of ``tree`` cast to ``dtype`` (None
+    is a no-op); integer tensors (token ids inside a batch) and python
+    numbers pass through. The cast-at-use policy of mixed precision:
+    storage stays in f32 master copies, and the cast's backward brings
+    each gradient back to the leaf's own dtype. A leaf already in
+    ``dtype`` is returned as it is."""
+    if dtype is None:
+        return tree
+    return tree_map(lambda x: x.to(dtype) if torch.is_tensor(x)
+                    and x.is_floating_point() else x, tree)
 
 
 def linear_init(generator: torch.Generator, in_features: int,

@@ -1,4 +1,6 @@
-// Flash attention, float32, for sm_90a: the forward and the two backward kernels.
+// Flash attention for sm_90a: the forward and the two backward kernels, in
+// float32 (3xTF32 on the tensor cores) and in bf16 (bf16 tensor-core tiles,
+// f32 accumulators; the section "bf16" below).
 //
 // Replaces the TPU kernels of quintnet_tpu/ops/pallas_attention.py:
 //   flash_fwd      <- _fwd_kernel      (:97,  pallas_call :211)
@@ -111,6 +113,7 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 
 namespace {
@@ -679,6 +682,552 @@ flash_bwd_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict_
 }
 
 // ---------------------------------------------------------------------------
+// bf16: K1-K3 on bf16 q, k, v, do (o, dq, dk, dv written in bf16; lse and
+// delta f32), every product mma.sync.m16n8k16 with bf16 operands and f32
+// accumulators, as the Pallas kernels feed the MXU in the input dtype with
+// preferred_element_type=f32. Scores, softmax statistics, lse, p and ds stay
+// f32 until the points where the Pallas kernels cast them: p is rounded to
+// bf16 (cvt.rn) before p v (:161) and p^T do (:292), ds before ds^T q (:295)
+// and ds k (:336), each output once at the end. The layouts, masks, loop
+// bounds, tile skipping and the one-writer rule are the f32 kernels'; the
+// tiles hold raw 16-bit rows padded to D + 8 elements (mma_bf16.cuh).
+//
+// Bound: at the train shape (B = 32, H = 12, S = 512, D = 64, causal) a
+// kernel does 2-4 products of S^2 D / 2 multiply-adds per (b, h) while it
+// moves 3-6 S x D bf16 slabs once: 85-128 operations per byte, below the
+// card's ~295 for bf16 (989 TFLOP/s over 3.35 TB/s), so the least time is
+// set by the bytes; a flash kernel's products are what it can overlap them
+// with. A simple kernel first: mma.sync, one block of 4 warps per 64 owned
+// rows, a two-stage cp.async ring; wgmma and TMA are later work.
+
+// rows a bf16 kernel streams a stage: 64 key rows in K1 and K3; 64 query
+// rows in K2, 32 at D = 128 (dk and dv take 128 registers there)
+template <int D>
+constexpr int dkv_rows_bf16() {
+  return D == 128 ? 32 : 64;
+}
+constexpr int kRowsBf16 = 64;
+
+// rows row0 .. row0+ROWS-1 of a [S, D] bf16 slab into smem [ROWS][D + kPadH],
+// in flight; rows past S are zero-filled
+template <int D, int ROWS>
+__device__ __forceinline__ void cp_rows_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
+                                             int row0, int S) {
+  constexpr int V = D / 8;
+  for (int i = threadIdx.x; i < ROWS * V; i += kMmaThreads) {
+    const int r = i / V;
+    const int c = (i - r * V) * 8;
+    const bool ok = row0 + r < S;
+    cp_async16(dst + r * (D + kPadH) + c, src + (size_t)(ok ? row0 + r : 0) * D + c,
+               ok ? 16 : 0);
+  }
+}
+
+// the 16 rows r0.. of a warp's [16, D] accumulator into a [S, D] bf16 output
+template <int D>
+__device__ __forceinline__ void store_acc_bf16(uint16_t* __restrict__ dst, int r0, int S, int g,
+                                               int t, const float (&acc)[D / 8][4]) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int r = r0 + g + 8 * h;
+    if (r >= S) continue;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n)
+      *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + 8 * n + 2 * t) =
+          pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
+  }
+}
+
+// K1 bf16: as K1, with the 64 queries' fragments held in registers for the
+// whole loop (D / 4 registers a thread) and o += p v summed in the tensor
+// core after the running rescale.
+template <int D>
+struct FwdSmemBf16 {
+  static constexpr int LD = D + kPadH;
+  static constexpr int BK = kRowsBf16;
+  static constexpr size_t own_bytes = (size_t)kOwn * LD * 2 + kOwn * 4;  // q; seg
+  static constexpr size_t stage_bytes = 2 * (size_t)BK * LD * 2 + BK * 4;  // k, v; seg
+  static constexpr size_t bytes = own_bytes + 2 * stage_bytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                      const uint16_t* __restrict__ v, const int* __restrict__ seg,
+                      uint16_t* __restrict__ o, float* __restrict__ lse, int H, int S, int causal,
+                      float scale) {
+  using L = FwdSmemBf16<D>;
+  constexpr int LD = L::LD, BK = L::BK, NT = BK / 8, KS = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_h[];
+  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_h);                   // [64][LD]
+  int* segq_s = reinterpret_cast<int*>(smem_h + (size_t)kOwn * LD * 2);   // [64]
+  unsigned char* ring = smem_h + L::own_bytes;                            // 2 stages
+  // stage st: k, v [BK][LD]; seg [BK]
+  auto tile = [&](int st, int i) {
+    return reinterpret_cast<uint16_t*>(ring + st * L::stage_bytes) + i * BK * LD;
+  };
+  auto segk_s = [&](int st) {
+    return reinterpret_cast<int*>(ring + st * L::stage_bytes + 2 * (size_t)BK * LD * 2);
+  };
+
+  const int nt_own = (S + kOwn - 1) / kOwn;
+  const int qt = nt_own - 1 - blockIdx.x;  // longest causal rows first
+  const int bh = blockIdx.y;
+  const int q0 = qt * kOwn;
+  const size_t base = (size_t)bh * S * D;
+  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+  const int qw = warp * 16;
+
+  auto stage_load = [&](int st, int kt) {
+    const int k0 = kt * BK;
+    cp_rows_bf16<D, BK>(tile(st, 0), k + base, k0, S);
+    cp_rows_bf16<D, BK>(tile(st, 1), v + base, k0, S);
+    if (seg_b != nullptr) cp_vec<BK>(segk_s(st), seg_b, k0, S);
+  };
+
+  const int q_end = min(q0 + kOwn, S);
+  const int nk = causal ? (q_end + BK - 1) / BK : (S + BK - 1) / BK;
+  cp_rows_bf16<D, kOwn>(q_s, q + base, q0, S);
+  if (seg_b != nullptr) cp_vec<kOwn>(segq_s, seg_b, q0, S);
+  stage_load(0, 0);
+  cp_async_commit();
+
+  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+  float o_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
+  uint32_t qa[KS][4];
+
+  int q_lo = 0, q_hi = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {
+      stage_load(st ^ 1, kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) frag_a16<LD>(q_s, qw, 16 * kk, qa[kk]);
+      if (seg_b != nullptr) seg_range_rows<kOwn>(segq_s, min(kOwn, S - q0), q_lo, q_hi);
+    }
+    const int k0 = kt * BK;
+    bool live = true;
+    if (seg_b != nullptr) {
+      int k_lo, k_hi;
+      seg_range_rows<BK>(segk_s(st), min(BK, S - k0), k_lo, k_hi);
+      live = !(k_hi < q_lo || k_lo > q_hi);
+    }
+    if (live) {
+      const uint16_t* ks = tile(st, 0);
+      const uint16_t* vs = tile(st, 1);
+      float s[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t b[4];
+          frag_bt16<LD>(ks, 8 * j, 16 * kk, b);
+          mma_bf16(s[j], qa[kk], b[0], b[1]);
+          mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
+        }
+      }
+      const bool needs_mask =
+          (causal && k0 + BK - 1 > q0) || k0 + BK > S || q0 + kOwn > S || seg_b != nullptr;
+      const int* sk = seg_b != nullptr ? segk_s(st) : nullptr;
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = qw + g + 8 * (e >> 1);
+          const int kl = 8 * j + 2 * t + (e & 1);
+          float x = s[j][e] * scale;
+          if (needs_mask &&
+              !visible(q0 + ql, k0 + kl, S, causal, seg_b != nullptr ? segq_s : nullptr, sk, ql, kl))
+            x = kNegInf;
+          s[j][e] = x;
+          mx[e >> 1] = fmaxf(mx[e >> 1], x);
+        }
+      }
+      float corr[2], neg_m2[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        const float m_new = fmaxf(m_r[h], mx[h]);
+        corr[h] = ex2((m_r[h] - m_new) * kLog2e);
+        neg_m2[h] = -m_new * kLog2e;
+        m_r[h] = m_new;
+        l_r[h] *= corr[h];
+      }
+      // p in f32 (the row sum takes it unrounded), then o = o corr + p v
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float x = s[j][e];
+          const float p = x > 0.5f * kNegInf ? ex2(fmaf(x, kLog2e, neg_m2[e >> 1])) : 0.f;
+          s[j][e] = p;
+          l_r[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o_acc[n][e] *= corr[e >> 1];
+#pragma unroll
+      for (int m = 0; m < NT / 2; ++m) {
+        uint32_t pa[4];
+        acc_pair_as_a(s[2 * m], s[2 * m + 1], pa);
+#pragma unroll
+        for (int n = 0; n < D / 8; n += 2) {
+          uint32_t b[4];
+          frag_bn16<LD>(vs, 16 * m, 8 * n, b);
+          mma_bf16(o_acc[n], pa, b[0], b[1]);
+          mma_bf16(o_acc[n + 1], pa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+    const float li = fmaxf(l_r[h], 1e-30f);
+    const float inv = 1.f / li;
+#pragma unroll
+    for (int n = 0; n < D / 8; ++n) {
+      o_acc[n][2 * h] *= inv;
+      o_acc[n][2 * h + 1] *= inv;
+    }
+    const int r = q0 + qw + g + 8 * h;
+    if (t == 0 && r < S) lse[(size_t)bh * S + r] = m_r[h] + logf(li);
+  }
+  store_acc_bf16<D>(o + base, q0 + qw, S, g, t, o_acc);
+}
+
+// K2 bf16: as K2 (s^T = k q^T and dp^T = v do^T in the block's key-row
+// orientation), the k and v fragments reloaded from shared memory per tile.
+template <int D>
+struct DkvSmemBf16 {
+  static constexpr int LD = D + kPadH;
+  static constexpr int BQ = dkv_rows_bf16<D>();
+  static constexpr size_t own_bytes = 2 * (size_t)kOwn * LD * 2 + kOwn * 4;  // k, v; seg
+  static constexpr size_t stage_bytes =
+      2 * (size_t)BQ * LD * 2 + 3 * BQ * 4;  // q, do; lse, delta, seg
+  static constexpr size_t bytes = own_bytes + 2 * stage_bytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                          const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ seg, uint16_t* __restrict__ dk,
+                          uint16_t* __restrict__ dv, int H, int S, int causal, float scale) {
+  using L = DkvSmemBf16<D>;
+  constexpr int LD = L::LD, BQ = L::BQ, NT = BQ / 8, KS = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_h[];
+  uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_h);  // [64][LD]
+  uint16_t* v_s = k_s + kOwn * LD;                       // [64][LD]
+  int* segk_s = reinterpret_cast<int*>(v_s + kOwn * LD);  // [64]
+  unsigned char* ring = smem_h + L::own_bytes;
+  // stage st: q, do [BQ][LD]; lse, delta, seg [BQ]
+  auto tile = [&](int st, int i) {
+    return reinterpret_cast<uint16_t*>(ring + st * L::stage_bytes) + i * BQ * LD;
+  };
+  auto lse_s = [&](int st) {
+    return reinterpret_cast<float*>(ring + st * L::stage_bytes + 2 * (size_t)BQ * LD * 2);
+  };
+  auto delta_s = [&](int st) { return lse_s(st) + BQ; };
+  auto segq_s = [&](int st) { return reinterpret_cast<int*>(lse_s(st) + 2 * BQ); };
+
+  const int kt = blockIdx.x;
+  const int bh = blockIdx.y;
+  const int k0 = kt * kOwn;
+  const size_t base = (size_t)bh * S * D;
+  const size_t rbase = (size_t)bh * S;
+  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+  const int kw = warp * 16;
+
+  auto stage_load = [&](int st, int qt) {
+    const int q0 = qt * BQ;
+    cp_rows_bf16<D, BQ>(tile(st, 0), q + base, q0, S);
+    cp_rows_bf16<D, BQ>(tile(st, 1), dout + base, q0, S);
+    cp_vec<BQ>(lse_s(st), lse + rbase, q0, S);
+    cp_vec<BQ>(delta_s(st), delta + rbase, q0, S);
+    if (seg_b != nullptr) cp_vec<BQ>(segq_s(st), seg_b, q0, S);
+  };
+
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+  cp_rows_bf16<D, kOwn>(k_s, k + base, k0, S);
+  cp_rows_bf16<D, kOwn>(v_s, v + base, k0, S);
+  if (seg_b != nullptr) cp_vec<kOwn>(segk_s, seg_b, k0, S);
+  stage_load(0, qt0);
+  cp_async_commit();
+
+  float dk_acc[D / 8][4], dv_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
+
+  int k_lo = 0, k_hi = 0;
+  for (int qt = qt0; qt < nq; ++qt) {
+    const int st = (qt - qt0) & 1;
+    if (qt + 1 < nq) {
+      stage_load(st ^ 1, qt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int q0 = qt * BQ;
+    bool live = true;
+    if (seg_b != nullptr) {
+      if (qt == qt0) seg_range_rows<kOwn>(segk_s, min(kOwn, S - k0), k_lo, k_hi);
+      int q_lo, q_hi;
+      seg_range_rows<BQ>(segq_s(st), min(BQ, S - q0), q_lo, q_hi);
+      live = !(k_hi < q_lo || k_lo > q_hi);
+    }
+    if (live) {
+      const uint16_t* qs = tile(st, 0);
+      const uint16_t* dos = tile(st, 1);
+      float s[NT][4], dp[NT][4];  // s^T and dp^T: key rows kw + g (+8), query columns
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t ka[4], va[4];
+        frag_a16<LD>(k_s, kw, 16 * kk, ka);
+        frag_a16<LD>(v_s, kw, 16 * kk, va);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t qb[4], db[4];
+          frag_bt16<LD>(qs, 8 * j, 16 * kk, qb);
+          frag_bt16<LD>(dos, 8 * j, 16 * kk, db);
+          mma_bf16(s[j], ka, qb[0], qb[1]);
+          mma_bf16(s[j + 1], ka, qb[2], qb[3]);
+          mma_bf16(dp[j], va, db[0], db[1]);
+          mma_bf16(dp[j + 1], va, db[2], db[3]);
+        }
+      }
+      const bool needs_mask =
+          (causal && k0 + kOwn - 1 > q0) || q0 + BQ > S || k0 + kOwn > S || seg_b != nullptr;
+      const float* ls = lse_s(st);
+      const float* dl = delta_s(st);
+      const int* sq = seg_b != nullptr ? segq_s(st) : nullptr;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kl = kw + g + 8 * (e >> 1);
+          const int ql = 8 * j + 2 * t + (e & 1);
+          float p = ex2(fmaf(s[j][e], scale * kLog2e, -ls[ql] * kLog2e));
+          if (needs_mask && !visible(q0 + ql, k0 + kl, S, causal, sq, segk_s, ql, kl)) p = 0.f;
+          s[j][e] = p;
+          dp[j][e] = p * (dp[j][e] - dl[ql]) * scale;
+        }
+      }
+      // dv += p^T do, dk += ds^T q: p^T and ds^T rounded to bf16 as A
+#pragma unroll
+      for (int m = 0; m < NT / 2; ++m) {
+        uint32_t pa[4], dsa[4];
+        acc_pair_as_a(s[2 * m], s[2 * m + 1], pa);
+        acc_pair_as_a(dp[2 * m], dp[2 * m + 1], dsa);
+#pragma unroll
+        for (int n = 0; n < D / 8; n += 2) {
+          uint32_t b[4];
+          frag_bn16<LD>(dos, 16 * m, 8 * n, b);
+          mma_bf16(dv_acc[n], pa, b[0], b[1]);
+          mma_bf16(dv_acc[n + 1], pa, b[2], b[3]);
+          frag_bn16<LD>(qs, 16 * m, 8 * n, b);
+          mma_bf16(dk_acc[n], dsa, b[0], b[1]);
+          mma_bf16(dk_acc[n + 1], dsa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  store_acc_bf16<D>(dk + base, k0 + kw, S, g, t, dk_acc);
+  store_acc_bf16<D>(dv + base, k0 + kw, S, g, t, dv_acc);
+}
+
+// K3 bf16: as K3 (s = q k^T, dp = do v^T, then dq += ds k).
+template <int D>
+struct DqSmemBf16 {
+  static constexpr int LD = D + kPadH;
+  static constexpr int BK = kRowsBf16;
+  static constexpr size_t own_bytes =
+      2 * (size_t)kOwn * LD * 2 + 3 * kOwn * 4;  // q, do; lse, delta, seg
+  static constexpr size_t stage_bytes = 2 * (size_t)BK * LD * 2 + BK * 4;  // k, v; seg
+  static constexpr size_t bytes = own_bytes + 2 * stage_bytes;
+};
+
+template <int D>
+__global__ void __launch_bounds__(kMmaThreads, 1)
+flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
+                         const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+                         const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int* __restrict__ seg, uint16_t* __restrict__ dq, int H, int S,
+                         int causal, float scale) {
+  using L = DqSmemBf16<D>;
+  constexpr int LD = L::LD, BK = L::BK, NT = BK / 8, KS = D / 16;
+  extern __shared__ __align__(16) unsigned char smem_h[];
+  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_h);        // [64][LD]
+  uint16_t* do_s = q_s + kOwn * LD;                            // [64][LD]
+  float* lse_s = reinterpret_cast<float*>(do_s + kOwn * LD);   // [64]
+  float* delta_s = lse_s + kOwn;                               // [64]
+  int* segq_s = reinterpret_cast<int*>(delta_s + kOwn);        // [64]
+  unsigned char* ring = smem_h + L::own_bytes;
+  // stage st: k, v [BK][LD]; seg [BK]
+  auto tile = [&](int st, int i) {
+    return reinterpret_cast<uint16_t*>(ring + st * L::stage_bytes) + i * BK * LD;
+  };
+  auto segk_s = [&](int st) {
+    return reinterpret_cast<int*>(ring + st * L::stage_bytes + 2 * (size_t)BK * LD * 2);
+  };
+
+  const int nt_own = (S + kOwn - 1) / kOwn;
+  const int qt = nt_own - 1 - blockIdx.x;
+  const int bh = blockIdx.y;
+  const int q0 = qt * kOwn;
+  const size_t base = (size_t)bh * S * D;
+  const size_t rbase = (size_t)bh * S;
+  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
+  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+  const int qw = warp * 16;
+
+  auto stage_load = [&](int st, int kt) {
+    const int k0 = kt * BK;
+    cp_rows_bf16<D, BK>(tile(st, 0), k + base, k0, S);
+    cp_rows_bf16<D, BK>(tile(st, 1), v + base, k0, S);
+    if (seg_b != nullptr) cp_vec<BK>(segk_s(st), seg_b, k0, S);
+  };
+
+  const int q_end = min(q0 + kOwn, S);
+  const int nk = causal ? (q_end + BK - 1) / BK : (S + BK - 1) / BK;
+  cp_rows_bf16<D, kOwn>(q_s, q + base, q0, S);
+  cp_rows_bf16<D, kOwn>(do_s, dout + base, q0, S);
+  cp_vec<kOwn>(lse_s, lse + rbase, q0, S);
+  cp_vec<kOwn>(delta_s, delta + rbase, q0, S);
+  if (seg_b != nullptr) cp_vec<kOwn>(segq_s, seg_b, q0, S);
+  stage_load(0, 0);
+  cp_async_commit();
+
+  float dq_acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
+
+  float lse2[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
+  int q_lo = 0, q_hi = 0;
+  for (int kt = 0; kt < nk; ++kt) {
+    const int st = kt & 1;
+    if (kt + 1 < nk) {
+      stage_load(st ^ 1, kt + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    if (kt == 0) {
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        lse2[h] = lse_s[qw + g + 8 * h] * kLog2e;
+        delta_r[h] = delta_s[qw + g + 8 * h];
+      }
+      if (seg_b != nullptr) seg_range_rows<kOwn>(segq_s, min(kOwn, S - q0), q_lo, q_hi);
+    }
+    const int k0 = kt * BK;
+    bool live = true;
+    if (seg_b != nullptr) {
+      int k_lo, k_hi;
+      seg_range_rows<BK>(segk_s(st), min(BK, S - k0), k_lo, k_hi);
+      live = !(k_hi < q_lo || k_lo > q_hi);
+    }
+    if (live) {
+      const uint16_t* ks = tile(st, 0);
+      const uint16_t* vs = tile(st, 1);
+      float s[NT][4], dp[NT][4];
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t qa[4], da[4];
+        frag_a16<LD>(q_s, qw, 16 * kk, qa);
+        frag_a16<LD>(do_s, qw, 16 * kk, da);
+#pragma unroll
+        for (int j = 0; j < NT; j += 2) {
+          uint32_t kb[4], vb[4];
+          frag_bt16<LD>(ks, 8 * j, 16 * kk, kb);
+          frag_bt16<LD>(vs, 8 * j, 16 * kk, vb);
+          mma_bf16(s[j], qa, kb[0], kb[1]);
+          mma_bf16(s[j + 1], qa, kb[2], kb[3]);
+          mma_bf16(dp[j], da, vb[0], vb[1]);
+          mma_bf16(dp[j + 1], da, vb[2], vb[3]);
+        }
+      }
+      const bool needs_mask =
+          (causal && k0 + BK - 1 > q0) || k0 + BK > S || q0 + kOwn > S || seg_b != nullptr;
+      const int* sk = seg_b != nullptr ? segk_s(st) : nullptr;
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int ql = qw + g + 8 * (e >> 1);
+          const int kl = 8 * j + 2 * t + (e & 1);
+          float p = ex2(fmaf(s[j][e], scale * kLog2e, -lse2[e >> 1]));
+          if (needs_mask &&
+              !visible(q0 + ql, k0 + kl, S, causal, seg_b != nullptr ? segq_s : nullptr, sk, ql, kl))
+            p = 0.f;
+          dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]) * scale;
+        }
+      }
+      // dq += ds k: ds rounded to bf16 as A
+#pragma unroll
+      for (int m = 0; m < NT / 2; ++m) {
+        uint32_t dsa[4];
+        acc_pair_as_a(dp[2 * m], dp[2 * m + 1], dsa);
+#pragma unroll
+        for (int n = 0; n < D / 8; n += 2) {
+          uint32_t b[4];
+          frag_bn16<LD>(ks, 16 * m, 8 * n, b);
+          mma_bf16(dq_acc[n], dsa, b[0], b[1]);
+          mma_bf16(dq_acc[n + 1], dsa, b[2], b[3]);
+        }
+      }
+    }
+    __syncthreads();
+  }
+
+  store_acc_bf16<D>(dq + base, q0 + qw, S, g, t, dq_acc);
+}
+
+// ---------------------------------------------------------------------------
 // launch helpers
 
 template <int D>
@@ -727,6 +1276,54 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
+template <int D>
+int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o,
+                    void* lse, int B, int H, int S, int causal, cudaStream_t stream) {
+  const size_t smem = FwdSmemBf16<D>::bytes;
+  cudaError_t e = allow_smem(flash_fwd_bf16_kernel<D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<const int*>(seg), static_cast<uint16_t*>(o),
+      static_cast<float*>(lse), H, S, causal, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, const void* seg, void* dk, void* dv, int B,
+                    int H, int S, int causal, cudaStream_t stream) {
+  const size_t smem = DkvSmemBf16<D>::bytes;
+  cudaError_t e = allow_smem(flash_bwd_dkv_bf16_kernel<D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(seg), static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, S,
+      causal, 1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
+template <int D>
+int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                   const void* lse, const void* delta, const void* seg, void* dq, int B, int H,
+                   int S, int causal, cudaStream_t stream) {
+  const size_t smem = DqSmemBf16<D>::bytes;
+  cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<D>, smem);
+  if (e != cudaSuccess) return (int)e;
+  const dim3 grid((S + kOwn - 1) / kOwn, B * H);
+  flash_bwd_dq_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
+      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
+      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
+      static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<const int*>(seg), static_cast<uint16_t*>(dq), H, S, causal,
+      1.0f / sqrtf((float)D));
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" {
@@ -770,6 +1367,48 @@ int flash_bwd_dq_f32(const void* q, const void* k, const void* v, const void* do
     case 32: return launch_dq<32>(q, k, v, dout, lse, delta, seg, dq, B, H, S, causal, st);
     case 64: return launch_dq<64>(q, k, v, dout, lse, delta, seg, dq, B, H, S, causal, st);
     case 128: return launch_dq<128>(q, k, v, dout, lse, delta, seg, dq, B, H, S, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// bf16: q, k, v, do, o, dq, dk, dv bf16; lse, delta f32; otherwise as above
+int flash_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o,
+                   void* lse, int B, int H, int S, int D, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_fwd_bf16<32>(q, k, v, seg, o, lse, B, H, S, causal, st);
+    case 64: return launch_fwd_bf16<64>(q, k, v, seg, o, lse, B, H, S, causal, st);
+    case 128: return launch_fwd_bf16<128>(q, k, v, seg, o, lse, B, H, S, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int flash_bwd_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, const void* seg, void* dk, void* dv,
+                       int B, int H, int S, int D, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32:
+      return launch_dkv_bf16<32>(q, k, v, dout, lse, delta, seg, dk, dv, B, H, S, causal, st);
+    case 64:
+      return launch_dkv_bf16<64>(q, k, v, dout, lse, delta, seg, dk, dv, B, H, S, causal, st);
+    case 128:
+      return launch_dkv_bf16<128>(q, k, v, dout, lse, delta, seg, dk, dv, B, H, S, causal, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, const void* seg, void* dq, int B, int H,
+                      int S, int D, int causal, void* stream) {
+  if (B <= 0 || H <= 0 || S <= 0) return 0;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 32: return launch_dq_bf16<32>(q, k, v, dout, lse, delta, seg, dq, B, H, S, causal, st);
+    case 64: return launch_dq_bf16<64>(q, k, v, dout, lse, delta, seg, dq, B, H, S, causal, st);
+    case 128: return launch_dq_bf16<128>(q, k, v, dout, lse, delta, seg, dq, B, H, S, causal, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }

@@ -10,7 +10,8 @@ is what ``nn/attention.mha_apply(use_flash=True)`` calls:
   4096 — a v5e crossover and a v5e MXU tile choice) says nothing about
   the H100 and is not carried over; the kernels take any S.
 - a call on CUDA tensors outside the kernels' domain (a head dim not in
-  ``HEAD_DIMS``, a dtype other than float32, B x H > 65,535:
+  ``HEAD_DIMS``, a dtype other than float32 and bfloat16 (float16),
+  B x H > 65,535:
   :func:`~quintnet_tpu_torch.ops.flash_kernels.kernels_take`) runs
   :func:`blockwise_attention` under autograd, as the JAX dispatcher
   sends every call its Pallas kernel cannot take to its blockwise path
@@ -39,9 +40,11 @@ def blockwise_attention(q, k, v, *, causal: bool, block_k: int = 128,
                         segment_ids=None):
     """Exact attention [B, H, S, D] -> [B, H, S, D] as an online softmax
     over key blocks of ``block_k`` (any S; the last block may be
-    ragged), in plain torch. ``segment_ids`` [B, S]: pairs from different
-    packed documents are masked. Masked scores are ``-inf`` with the JAX
-    twin's guards for rows that have seen no visible key yet.
+    ragged), in plain torch: f32 inside whatever the input dtype, the
+    output in q's dtype (the JAX twin's policy). ``segment_ids`` [B, S]:
+    pairs from different packed documents are masked. Masked scores are
+    ``-inf`` with the JAX twin's guards for rows that have seen no
+    visible key yet.
 
     ``pdrop``/``generator``: dropout on the attention probabilities with
     sdpa's drop-after-softmax semantics: the normaliser ``l`` sums the

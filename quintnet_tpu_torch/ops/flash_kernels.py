@@ -22,16 +22,29 @@ runs the plain version (``*_ref``). :class:`FlashAttentionFunction`
 ties them together as a ``torch.autograd.Function``, so the CPU tests
 exercise the same autograd wiring the card runs.
 
-The kernels take float32 [B, H, S, D] with D in ``HEAD_DIMS`` and B x H
-<= 65,535 (:func:`kernel_domain_error`, the one rule both the wrappers'
-checks and the dispatcher of ``ops/flash_attention.py`` read): the
-wrappers raise outside it (bf16/fp16 ``NotImplementedError``, ROADMAP.md
-§2, K1-K3 bf16 tiles), and the dispatcher sends such calls to the plain
-blockwise attention instead, as the JAX dispatcher does.
+The kernels take float32 or bfloat16 [B, H, S, D] (q, k, v and dO of
+one dtype; ``lse`` and ``delta`` float32) with D in ``HEAD_DIMS`` and B x
+H <= 65,535 (:func:`kernel_domain_error`, the one rule both the
+wrappers' checks and the dispatcher of ``ops/flash_attention.py``
+read): the wrappers raise outside it (float16 ``NotImplementedError``,
+ROADMAP.md §2, K1-K3 fp16 tiles), and the dispatcher sends such calls
+to the plain blockwise attention instead, as the JAX dispatcher does.
+Each wrapper picks its kernel by dtype (``flash_fwd_f32`` or
+``flash_fwd_bf16``, ...) and counts its launches in ``.launches`` (all)
+and ``.launches_by_dtype`` (``"f32"``, ``"bf16"``).
+
+In bf16 the kernels round where the Pallas kernels cast: scores,
+softmax statistics, ``lse``, ``p`` and ``ds`` are f32, ``p`` is rounded
+to bf16 before ``p v`` and ``p^T dO``, ``ds`` before ``ds^T q`` and
+``ds k``, each output once at the end (round to nearest even, as
+``Tensor.to`` does). The plain versions round at the same points, so on
+bf16 inputs they mirror the kernels' arithmetic up to the order of the
+f32 sums; on float32 inputs every rounding is the identity.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import math
 
@@ -42,6 +55,7 @@ from quintnet_tpu_torch.ops import build
 _KERNEL = "flash_attention"
 NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
+KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_GRID_Y = 65535  # one block row per (batch, head)
 
 
@@ -69,8 +83,10 @@ def flash_fwd_ref(q, k, v, segment_ids=None, *, causal: bool,
     """The forward recurrence in plain torch: an online softmax over key
     tiles of ``block_k`` (running max ``m``, running sum ``l``, the
     output accumulator), masked entries at ``NEG_INF`` and their
-    probabilities zeroed. Returns ``(o [B, H, S, D] in q's dtype,
-    lse [B, H, S] f32)``."""
+    probabilities zeroed; ``p`` rounded to v's dtype before ``p v``.
+    ``block_k`` defaults to the bf16 kernel's key tile, so ``p`` is
+    rounded against the same running max. Returns ``(o [B, H, S, D] in
+    q's dtype, lse [B, H, S] f32)``."""
     B, H, S, D = q.shape
     scale = 1.0 / math.sqrt(D)
     qf = q.float()
@@ -89,7 +105,8 @@ def flash_fwd_ref(q, k, v, segment_ids=None, *, causal: bool,
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.einsum(
-            "bhst,bhtd->bhsd", p, v[:, :, k0:k0 + block_k].float())
+            "bhst,bhtd->bhsd", p.to(v.dtype).float(),
+            v[:, :, k0:k0 + block_k].float())
         m = m_new
     l = l.clamp_min(1e-30)
     return (acc / l[..., None]).to(q.dtype), m + torch.log(l)
@@ -109,18 +126,20 @@ def _probs_and_dscores(q, k, v, do, lse, delta, segment_ids, causal):
 
 def flash_bwd_dkv_ref(q, k, v, do, lse, delta, segment_ids=None, *,
                       causal: bool):
-    """dv = p^T dO and dk = ds^T q (plain torch)."""
+    """dv = p^T dO and dk = ds^T q (plain torch), p rounded to dO's
+    dtype and ds to q's before the products."""
     p, ds = _probs_and_dscores(q, k, v, do, lse, delta, segment_ids, causal)
-    dv = torch.einsum("bhst,bhsd->bhtd", p, do.float())
-    dk = torch.einsum("bhst,bhsd->bhtd", ds, q.float())
+    dv = torch.einsum("bhst,bhsd->bhtd", p.to(do.dtype).float(), do.float())
+    dk = torch.einsum("bhst,bhsd->bhtd", ds.to(q.dtype).float(), q.float())
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
 def flash_bwd_dq_ref(q, k, v, do, lse, delta, segment_ids=None, *,
                      causal: bool):
-    """dq = ds k (plain torch)."""
+    """dq = ds k (plain torch), ds rounded to k's dtype first."""
     _, ds = _probs_and_dscores(q, k, v, do, lse, delta, segment_ids, causal)
-    return torch.einsum("bhst,bhtd->bhsd", ds, k.float()).to(q.dtype)
+    return torch.einsum("bhst,bhtd->bhsd", ds.to(k.dtype).float(),
+                        k.float()).to(q.dtype)
 
 
 # ---------------------------------------------------------------------
@@ -131,12 +150,12 @@ def _lib():
     lib = build.load(_KERNEL)
     if not getattr(lib, "_typed", False):
         vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.flash_fwd_f32.argtypes = [vp] * 6 + [ci] * 5 + [vp]
-        lib.flash_bwd_dkv_f32.argtypes = [vp] * 9 + [ci] * 5 + [vp]
-        lib.flash_bwd_dq_f32.argtypes = [vp] * 8 + [ci] * 5 + [vp]
-        for fn in (lib.flash_fwd_f32, lib.flash_bwd_dkv_f32,
-                   lib.flash_bwd_dq_f32):
-            fn.restype = ci
+        for dt in KERNEL_DTYPES.values():
+            for name, n_ptr in (("flash_fwd", 6), ("flash_bwd_dkv", 9),
+                                ("flash_bwd_dq", 8)):
+                fn = getattr(lib, f"{name}_{dt}")
+                fn.argtypes = [vp] * n_ptr + [ci] * 5 + [vp]
+                fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
         lib._typed = True
@@ -146,15 +165,16 @@ def _lib():
 def kernel_domain_error(shape, dtype):
     """Why the K1-K3 kernels cannot take [B, H, S, D] inputs of
     ``dtype`` -- the exception :func:`_check_cuda_args` raises for them
-    -- or None when they can: float32, D in ``HEAD_DIMS``, B x H within
-    the grid's y limit."""
-    if dtype in (torch.bfloat16, torch.float16):
+    -- or None when they can: float32 or bfloat16, D in ``HEAD_DIMS``,
+    B x H within the grid's y limit."""
+    if dtype == torch.float16:
         return NotImplementedError(
-            f"the flash-attention kernels take float32; got {dtype} "
-            f"(narrow tiles are ROADMAP.md §2, K1-K3 bf16 tiles)")
-    if dtype != torch.float32:
-        return TypeError(f"the flash-attention kernels take float32; got "
-                         f"{dtype}")
+            "the flash-attention kernels take float32 and bfloat16; "
+            "float16 tiles are not ported (ROADMAP.md §2, K1-K3 fp16 "
+            "tiles)")
+    if dtype not in KERNEL_DTYPES:
+        return TypeError(f"the flash-attention kernels take float32 or "
+                         f"bfloat16; got {dtype}")
     if len(shape) != 4:
         return ValueError(f"expected q [B, H, S, D]; got {tuple(shape)}")
     B, H, _, D = shape
@@ -173,23 +193,22 @@ def kernels_take(q) -> bool:
 
 
 def _check_cuda_args(q, tensors, rows, segment_ids):
-    """Everything the kernels assume, checked before launch: ``tensors``
-    [B, H, S, D] like q, ``rows`` [B, H, S] f32 (lse, delta), and q
-    inside :func:`kernel_domain_error`'s domain."""
+    """Everything the kernels assume, checked before launch: q inside
+    :func:`kernel_domain_error`'s domain, ``tensors`` [B, H, S, D] of
+    q's shape and dtype, ``rows`` [B, H, S] f32 (lse, delta)."""
     if q.dim() != 4:
         raise ValueError(f"expected q [B, H, S, D]; got {tuple(q.shape)}")
+    if q.dtype not in KERNEL_DTYPES:
+        raise kernel_domain_error(q.shape, q.dtype)
     B, H, S, D = q.shape
-    named = [("q", q), *tensors]
-    for name, t in named + list(rows):
+    named = [("q", q, q.dtype), *((n, t, q.dtype) for n, t in tensors),
+             *((n, t, torch.float32) for n, t in rows)]
+    for name, t, want in named:
         if t.device != q.device:
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
-        if t.dtype in (torch.bfloat16, torch.float16):
-            raise NotImplementedError(
-                f"the flash-attention kernels take float32; {name} is "
-                f"{t.dtype} (narrow tiles are ROADMAP.md §2, K1-K3 bf16 "
-                f"tiles)")
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype}")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {want} (q is {q.dtype}), got "
+                            f"{t.dtype}")
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % 16:
@@ -227,6 +246,16 @@ def _raise_on(err, what):
                            f"({msg})")
 
 
+def _entry(name, q):
+    """The C entry point of kernel ``name`` for q's dtype."""
+    return getattr(_lib(), f"{name}_{KERNEL_DTYPES[q.dtype]}")
+
+
+def _counted(wrapper, q):
+    wrapper.launches += 1
+    wrapper.launches_by_dtype[KERNEL_DTYPES[q.dtype]] += 1
+
+
 def _on_cpu(q, name):
     if q.device.type == "cpu":
         return True
@@ -246,12 +275,12 @@ def flash_fwd(q, k, v, segment_ids=None, *, causal: bool):
     o = torch.empty_like(q)
     lse = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
-        err = _lib().flash_fwd_f32(
+        err = _entry("flash_fwd", q)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), _ptr(segment_ids),
             o.data_ptr(), lse.data_ptr(), B, H, S, D, int(causal),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "flash_fwd")
-    flash_fwd.launches += 1
+    _counted(flash_fwd, q)
     return o, lse
 
 
@@ -266,13 +295,13 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, segment_ids=None, *,
     B, H, S, D = q.shape
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     with torch.cuda.device(q.device):
-        err = _lib().flash_bwd_dkv_f32(
+        err = _entry("flash_bwd_dkv", q)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids),
             dk.data_ptr(), dv.data_ptr(), B, H, S, D, int(causal),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "flash_bwd_dkv")
-    flash_bwd_dkv.launches += 1
+    _counted(flash_bwd_dkv, q)
     return dk, dv
 
 
@@ -287,19 +316,19 @@ def flash_bwd_dq(q, k, v, do, lse, delta, segment_ids=None, *,
     dq = torch.empty_like(q)
     B, H, S, D = q.shape
     with torch.cuda.device(q.device):
-        err = _lib().flash_bwd_dq_f32(
+        err = _entry("flash_bwd_dq", q)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), _ptr(segment_ids),
             dq.data_ptr(), B, H, S, D, int(causal),
             torch.cuda.current_stream().cuda_stream)
     _raise_on(err, "flash_bwd_dq")
-    flash_bwd_dq.launches += 1
+    _counted(flash_bwd_dq, q)
     return dq
 
 
-flash_fwd.launches = 0
-flash_bwd_dkv.launches = 0
-flash_bwd_dq.launches = 0
+for _wrapper in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
+    _wrapper.launches = 0
+    _wrapper.launches_by_dtype = collections.Counter()
 
 
 def flash_delta(o, do):

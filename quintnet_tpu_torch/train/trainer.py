@@ -17,11 +17,16 @@ sum, ``History``); the dropout generator of a step is seeded from
 seed, step), so a run cut at any saved step and resumed equals the
 uncut run.
 
+``adam_mu_dtype="bfloat16"`` keeps AdamW's first moment in bf16 (the
+second stays f32), in optax's order. Like the JAX Trainer, this one
+does not read ``training.dtype``: the bf16 compute it names is the
+model's (``gpt2_model_spec(compute_dtype=)``), chosen by the example
+(``examples/gpt2_finetune.py``).
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): preemption handling, fault injection and goodput (``ft=``, item
-8), every strategy but ``single`` (item 3), ``remat_policy="dots"``,
-``adam_mu_dtype="bfloat16"`` and bf16 compute (``training.dtype``, item
-1b). The JAX loop's host-side knobs for its asynchronous dispatch
+8), every strategy but ``single`` (item 3), ``remat_policy="dots"``.
+The JAX loop's host-side knobs for its asynchronous dispatch
 (``sync_every``, ``prefetch``) have no use in the eager port and are
 ignored.
 """
@@ -125,7 +130,9 @@ class Optimizer:
     ``eps`` outside the square root, then ``-lr``), ``"adamw"`` (the
     same, plus the masked decay ``weight_decay * p`` before ``-lr``) or
     ``"sgd"`` (``-lr * g``). ``lr``: a float or ``count -> lr``, read on
-    the host, so an update never syncs with the device."""
+    the host, so an update never syncs with the device. ``mu_dtype``:
+    the first moment's storage dtype (None: the parameter's; optax's
+    ``mu_dtype``), see :func:`first_moment`."""
 
     kind: str
     lr: object
@@ -133,11 +140,13 @@ class Optimizer:
     b1: float = 0.9
     b2: float = 0.999
     eps: float = 1e-8
+    mu_dtype: Optional[torch.dtype] = None
 
     def init(self, params) -> Dict:
         state = {"count": 0}
         if self.kind in ("adam", "adamw"):
-            state["mu"] = tree_map(torch.zeros_like, params)
+            state["mu"] = tree_map(
+                lambda p: torch.zeros_like(p, dtype=self.mu_dtype), params)
             state["nu"] = tree_map(torch.zeros_like, params)
         return state
 
@@ -151,13 +160,23 @@ class Optimizer:
             for path, p in tree_leaves(params):
                 p.add_(grads[path], alpha=-lr)
             return
-        bc1, bc2 = 1.0 - self.b1 ** t, 1.0 - self.b2 ** t
+        # optax's bias corrections: 1 - decay**count in f32 (at count 1,
+        # 1 - f32(0.999) is 1.3e-5 from 0.001)
+        bc1, bc2 = (float(1 - np.float32(b) ** np.float32(t))
+                    for b in (self.b1, self.b2))
         mu, nu = dict(tree_leaves(state["mu"])), dict(tree_leaves(state["nu"]))
         for path, p in tree_leaves(params):
             g = grads[path]
-            mu[path].mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            m = mu[path]
+            if m.dtype == g.dtype:
+                m.mul_(self.b1).add_(g, alpha=1.0 - self.b1)
+            else:
+                # this step's update reads the unrounded moment; only the
+                # stored copy is rounded to its dtype
+                m = first_moment(m, g, self.b1)
+                mu[path].copy_(m)
             nu[path].mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
-            u = (mu[path] / bc1) / ((nu[path] / bc2).sqrt() + self.eps)
+            u = (m / bc1) / ((nu[path] / bc2).sqrt() + self.eps)
             # masked decay: weight matrices and embedding tables only,
             # by the leaf's own key (``core.pytree.decay_mask``)
             if self.kind == "adamw" and self.weight_decay \
@@ -166,25 +185,39 @@ class Optimizer:
             p.add_(u, alpha=-lr)
 
 
+def first_moment(mu, g, b1: float):
+    """Adam's first moment ``(1 - b1) g + b1 mu`` in f32 from ``mu``
+    stored in a narrower dtype, as the jitted JAX step computes optax's
+    ``scale_by_adam(mu_dtype=bfloat16)``: the python ``b1`` meets the
+    bf16 moment as a weakly typed scalar and is rounded to bf16 (0.9 ->
+    0.8984375), ``b1 mu`` stays in f32 (XLA's excess precision), and
+    ``(1 - b1) g`` is fused into the sum as one FMA. Both products are
+    exact in f64, so the sum taken there and rounded to f32 is that FMA
+    (up to a double-rounding tie)."""
+    b1_narrow = float(torch.tensor(b1, dtype=mu.dtype))
+    c = float(np.float32(1.0 - b1))
+    return (g.double() * c + mu.double() * b1_narrow).float()
+
+
 def make_optimizer(cfg: Config) -> Optimizer:
     """The optimizer ``cfg.training.optimizer`` names: adam | adamw |
     sgd (a ``zero1_``/``zero2_`` prefix shards the state over dp in the
     JAX package and means nothing on one device, so it is dropped).
-    AdamW's decay defaults to 0.01."""
+    AdamW's decay defaults to 0.01. ``adam_mu_dtype="bfloat16"`` stores
+    Adam's first moment in bf16 (the JAX ``mu_dtype``; ``nu`` stays
+    f32)."""
     t = cfg.training
     name = t.optimizer.lower()
     if name.startswith(("zero1_", "zero2_")):
         name = name[len("zero1_"):]
-    if t.adam_mu_dtype == "bfloat16":
-        raise NotImplementedError(
-            "adam_mu_dtype='bfloat16' is not ported: the port keeps both "
-            "Adam moments in f32 (ROADMAP.md §1, item 1b)")
     lr = make_lr_schedule(cfg)
+    mu = torch.bfloat16 if t.adam_mu_dtype == "bfloat16" else None
     if name == "adam":
-        return Optimizer("adam", lr)
+        return Optimizer("adam", lr, mu_dtype=mu)
     if name == "adamw":
         return Optimizer("adamw", lr, weight_decay=(
-            0.01 if t.weight_decay is None else t.weight_decay))
+            0.01 if t.weight_decay is None else t.weight_decay),
+            mu_dtype=mu)
     if name == "sgd":
         return Optimizer("sgd", lr)
     raise ValueError(f"unknown optimizer {t.optimizer!r}")
@@ -282,11 +315,6 @@ class Trainer:
                  checkpoint_dir: Optional[str] = None,
                  log_fn: Callable[[str], None] = print,
                  device="cuda"):
-        if config.training.dtype != "float32":
-            raise NotImplementedError(
-                f"training.dtype={config.training.dtype!r}: bf16 compute is "
-                f"not ported; the port trains in f32 (ROADMAP.md §1, "
-                f"item 1b)")
         self.config = config
         self.model = model
         self.device = resolve_device(device)

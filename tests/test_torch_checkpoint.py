@@ -7,7 +7,9 @@ overwrite without ``force``, torn steps raising
 them); the cursor and the cadence (the JAX cases of ``tests/test_ft.py``);
 and kill-and-resume: a run cut at a saved step and resumed by a fresh
 ``Trainer`` equals the uncut run bit for bit (params, optimizer state,
-``History``) for tiny ViT and tiny GPT-2, both with dropout on.
+``History``) for tiny ViT and tiny GPT-2, both with dropout on, and for
+tiny GPT-2 in bf16 (``training.dtype: bfloat16``, ``adam_mu_dtype:
+bfloat16``: the first moment is saved and restored as bf16).
 """
 
 import dataclasses
@@ -36,7 +38,7 @@ from quintnet_tpu_torch.train.checkpoint import (CheckpointManager,
                                                  CheckpointRestoreError,
                                                  keystr, load_pytree,
                                                  save_pytree)
-from quintnet_tpu_torch.train.trainer import History, Trainer
+from quintnet_tpu_torch.train.trainer import History, Trainer, make_optimizer
 from quintnet_tpu_torch.utils import safetensors_io as st
 
 torch.set_num_threads(1)
@@ -145,6 +147,38 @@ def test_pytree_files_cross_between_packages_bitwise(tmp_path):
     assert int(flat["opt"]["count"]) == 7
     assert torch.equal(flat["params"]["ids"], tree["params"]["ids"])
     assert keystr(("a", "b")) == "['a']['b']"
+
+
+def test_jax_written_bf16_first_moment_loads_bitwise(tmp_path):
+    """An optimizer state with a bf16 ``mu`` (after one update), written
+    by the JAX package's ``save_pytree``, loads onto the port's template
+    bitwise, ``mu`` as bf16 and ``nu`` as f32; a template that wants an
+    f32 ``mu`` refuses it."""
+    params = {"w": torch.randn(4, 6, generator=torch.Generator()
+                               .manual_seed(0)), "b": torch.zeros(6)}
+    opt = make_optimizer(Config.from_dict({"training": {
+        "optimizer": "adamw", "adam_mu_dtype": "bfloat16"}}))
+    state = opt.init(params)
+    opt.update({(k,): torch.full_like(v, 0.3) for k, v in params.items()},
+               state, params)
+    path = str(tmp_path / "opt.st")
+
+    def as_jax(x):
+        if not isinstance(x, torch.Tensor):
+            return x
+        a = _bits(x)
+        return jnp.asarray(a.view(ml_dtypes.bfloat16)
+                           if x.dtype == torch.bfloat16 else a)
+
+    jax_save_pytree(path, jax.tree.map(as_jax, state))
+    back = load_pytree(path, opt.init(params))
+    assert back["count"] == 1
+    for key, dtype in (("mu", torch.bfloat16), ("nu", torch.float32)):
+        for k, t in back[key].items():
+            assert t.dtype == dtype
+            np.testing.assert_array_equal(_bits(t), _bits(state[key][k]))
+    with pytest.raises(ValueError, match="template wants"):
+        load_pytree(path, make_optimizer(Config.from_dict({})).init(params))
 
 
 def test_load_pytree_checks_the_template(tmp_path):
@@ -296,7 +330,16 @@ class Killed(Exception):
 SAMPLES, BATCH, EPOCHS = 48, 16, 2          # 3 steps an epoch, 6 in all
 
 
+BF16_TRAINING = {"dtype": "bfloat16", "adam_mu_dtype": "bfloat16"}
+
+
 def _model(name):
+    if name == "gpt2_bf16":
+        spec, train_fn, val_fn = _model("gpt2")
+        return (gpt2_model_spec(GPT2Config.tiny(n_layer=2, resid_pdrop=0.1,
+                                                embd_pdrop=0.1),
+                                compute_dtype=torch.bfloat16),
+                train_fn, val_fn)
     if name == "vit":
         spec = vit_model_spec(ViTConfig(depth=2, hidden_dim=16, num_heads=2,
                                         dropout=0.1))
@@ -374,6 +417,8 @@ CUTS = {
     # epoch-0 boundary save at step 3
     "vit_boundary": ("vit", 3, (1, 0, 3), "cursor"),
     "gpt2_boundary": ("gpt2", 3, (1, 0, 3), "auto"),
+    # bf16 compute and a bf16 first moment
+    "gpt2_bf16_mid_epoch": ("gpt2_bf16", 5, (1, 2, 5), "cursor"),
 }
 
 
@@ -381,11 +426,12 @@ CUTS = {
 def test_kill_and_resume_is_bit_identical(tmp_path, name):
     model, kill_after, where, how = CUTS[name]
     spec, train_fn, val_fn = _model(model)
-    ref = _trainer(_cfg(), spec)
+    extra = BF16_TRAINING if model.endswith("bf16") else {}
+    ref = _trainer(_cfg(**extra), spec)
     hist_ref = ref.fit(train_fn, val_batches_fn=val_fn)
 
     ck = str(tmp_path / "ck")
-    cfg = _cfg(save_every_steps=2)
+    cfg = _cfg(save_every_steps=2, **extra)
     with pytest.raises(Killed):
         _trainer(cfg, spec, ck).fit(_killing(train_fn, kill_after),
                                     val_batches_fn=val_fn)
@@ -404,6 +450,9 @@ def test_kill_and_resume_is_bit_identical(tmp_path, name):
     assert _hist_fields(hist) == _hist_fields(hist_ref)
     assert hist.wall_time_s > 0
     _assert_state_equal(t2.final_state, ref.final_state)
+    mu_dtype = torch.bfloat16 if extra else torch.float32
+    assert all(t.dtype == mu_dtype
+               for _, t in tree_leaves(t2.final_state[1]["mu"]))
     # the last save is the run's end, at an epoch boundary
     mgr = CheckpointManager(ck)
     assert mgr.latest_step() == EPOCHS * SAMPLES // BATCH

@@ -617,7 +617,9 @@ def test_flash_kernels_reject_what_they_do_not_take(cuda_device):
     q, k, v, do, _ = _flash_case(5, B=1, H=1, S=8, D=64, causal=True,
                                  seg=False)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flash_fwd(q.bfloat16(), k.bfloat16(), v.bfloat16(), causal=True)
+        flash_fwd(q.half(), k.half(), v.half(), causal=True)
+    with pytest.raises(TypeError, match="bfloat16"):
+        flash_fwd(q.bfloat16(), k, v.bfloat16(), causal=True)
     with pytest.raises(ValueError, match="head dim"):
         flash_fwd(q[..., :48].contiguous(), k[..., :48].contiguous(),
                   v[..., :48].contiguous(), causal=True)
@@ -848,3 +850,124 @@ def test_tiny_gpt2_resume_on_card_is_bit_identical(cuda_device, tmp_path,
         want = dict(tree_leaves(tree_b))
         for path, t in tree_leaves(tree_a):
             assert torch.equal(t, want[path]), path
+
+
+# ---------------------------------------------------------------------
+# flash attention in bf16 (K1-K3 on bf16 tensor-core tiles)
+# ---------------------------------------------------------------------
+
+BF16_TOL = 2.0 ** -7     # x max |ref|: one bf16 ulp of the largest value
+
+
+def _bf16_case(seed, **c):
+    q, k, v, do, seg = _flash_case(seed, **c)
+    return (*(t.bfloat16() for t in (q, k, v, do)), seg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_bf16_flash_kernels_match_plain_versions(cuda_device, name):
+    """The bf16 kernels against their plain versions on the same bf16
+    inputs (which round p and ds where the kernels do): o, dq, dk, dv in
+    bf16 within one bf16 ulp of the largest value, lse (f32) within
+    1e-5; every launch counted under "bf16"."""
+    c = FLASH_CASES[name]
+    q, k, v, do, seg = _bf16_case(3, **c)
+    causal = c["causal"]
+    fns = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
+    n = [fn.launches_by_dtype["bf16"] for fn in fns]
+    o, lse = flash_fwd(q, k, v, seg, causal=causal)
+    delta = flash_delta(o, do)
+    dk, dv = flash_bwd_dkv(q, k, v, do, lse, delta, seg, causal=causal)
+    dq = flash_bwd_dq(q, k, v, do, lse, delta, seg, causal=causal)
+    torch.cuda.synchronize()
+    assert [fn.launches_by_dtype["bf16"] for fn in fns] == [x + 1 for x in n]
+    o_r, lse_r = flash_fwd_ref(q, k, v, seg, causal=causal)
+    dk_r, dv_r = flash_bwd_dkv_ref(q, k, v, do, lse_r, delta, seg,
+                                   causal=causal)
+    dq_r = flash_bwd_dq_ref(q, k, v, do, lse_r, delta, seg, causal=causal)
+    assert lse.dtype == torch.float32
+    assert float((lse - lse_r).abs().max()) <= 1e-5
+    for got, want in ((o, o_r), (dq, dq_r), (dk, dk_r), (dv, dv_r)):
+        assert got.dtype == torch.bfloat16 and torch.isfinite(got).all()
+        assert _rel_err(got.float(), want.float()) <= BF16_TOL
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+def test_bf16_flash_kernels_are_deterministic(cuda_device, causal):
+    """One writer per output element in bf16 too: two launches of each
+    kernel on the same inputs are bitwise equal."""
+    q, k, v, do, seg = _bf16_case(7, B=2, H=3, S=200, D=64, causal=causal,
+                                  seg=True)
+    o, lse = flash_fwd(q, k, v, seg, causal=causal)
+    args = (q, k, v, do, lse, flash_delta(o, do), seg)
+
+    def launch_all():
+        return (*flash_fwd(q, k, v, seg, causal=causal),
+                *flash_bwd_dkv(*args, causal=causal),
+                flash_bwd_dq(*args, causal=causal))
+
+    first, second = launch_all(), launch_all()
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_fp16_is_routed_and_bf16_is_not(cuda_device):
+    """fp16 lies outside the kernels' domain: the dispatcher sends it to
+    the blockwise attention (counted in ``routed``, no launch); bf16
+    launches the bf16 kernels."""
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+
+    q, k, v, _, _ = _flash_case(9, B=1, H=2, S=64, D=64, causal=True,
+                                seg=False)
+    fns = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
+    flash_attention.routed = 0
+    n = [fn.launches for fn in fns]
+    out = flash_attention(q.half(), k.half(), v.half(), causal=True)
+    assert out.dtype == torch.float16 and flash_attention.routed == 1
+    assert [fn.launches for fn in fns] == n
+    out = flash_attention(q.bfloat16(), k.bfloat16(), v.bfloat16(),
+                          causal=True)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and flash_attention.routed == 1
+    assert flash_fwd.launches == n[0] + 1
+
+
+@pytest.mark.cuda
+def test_tiny_bf16_training_step_on_card_matches_cpu(cuda_device):
+    """A 2-micro-batch step of a small GPT-2 (head dim 64, packed
+    segments) in bf16 compute: the bf16 kernels on the card against the
+    plain versions on the CPU, from the same f32 weights. The loss within
+    1e-2 relative, each gradient leaf (f32) within 5e-2 of its largest
+    magnitude (cuBLAS and the CPU round their bf16 products differently);
+    every layer of every micro-batch launched each bf16 kernel and no f32
+    one."""
+    cfg = GPT2Config.tiny(n_embd=128, n_head=2, n_layer=2, segment_eos_id=7)
+    spec = gpt2_model_spec(cfg, use_flash=True, compute_dtype=torch.bfloat16)
+    rng = np.random.default_rng(6)
+    ids = rng.integers(0, cfg.vocab_size, (4, 48))
+    ids[:, [9, 30]] = 7
+    labels = ids.copy()
+    labels[:, :5] = -100
+    params = gpt2_init(torch.Generator().manual_seed(1), cfg)
+
+    def run(device):
+        p = tree_map(lambda t: t.to(device).requires_grad_(True), params)
+        batch = tuple(torch.from_numpy(a).to(device) for a in (ids, labels))
+        return accumulate_grads(spec.loss_fn, p, batch, 2)
+
+    loss_cpu, grads_cpu = run("cpu")
+    fns = (flash_fwd, flash_bwd_dkv, flash_bwd_dq)
+    for fn in fns:
+        fn.launches_by_dtype.clear()
+    loss, grads = run("cuda")
+    torch.cuda.synchronize()
+    n = cfg.n_layer * 2
+    assert [dict(fn.launches_by_dtype) for fn in fns] == [{"bf16": n}] * 3
+    assert abs(float(loss) - float(loss_cpu)) <= 1e-2 * abs(float(loss_cpu))
+    for path, g in grads_cpu.items():
+        assert grads[path].dtype == torch.float32
+        assert _rel_err(grads[path].cpu(), g) <= 5e-2, path

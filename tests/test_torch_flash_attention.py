@@ -7,9 +7,20 @@ blockwise twin to the JAX ``blockwise_attention``, and the autograd
 Function to autograd through the port's plain ``sdpa``. Inputs are numpy
 arrays from a seed. Tolerances: ``atol=1e-5`` on f32 values of order 1
 (the sums run in another order); gradients ``atol=1e-5, rtol=1e-4``.
+
+In bf16 (inputs rounded to bf16 once, the same values for both
+packages) the plain versions round p and ds where the Pallas kernels
+cast them. Gate: max |err| <= 2^-7 x max |ref| on o, dq, dk and dv (one
+bf16 ulp of the largest magnitude: the outputs are rounded once on
+each side), lse <= 1e-5 absolute. Measured (seeds below): dq, dk and dv
+equal the Pallas kernels' (0, and 8.5e-10 on dk non-causal); o 1.2e-3
+to 4.8e-3 with the JAX kernel's 32-key tiles (p is rounded against the
+running max, which depends on the tile), 0 with its 64-key tiles, which
+are the plain version's; lse 4.8e-7.
 """
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -91,6 +102,64 @@ def test_backward_plain_versions_match_pallas_kernels(name):
     for got, want in ((dq, dq_j), (dk, dk_j), (dv, dv_j)):
         np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5,
                                    rtol=1e-4)
+
+
+BF16_TOL = 2.0 ** -7    # x max |ref|: one bf16 ulp of the largest value
+
+
+def _bf16(arrs):
+    """f32 arrays rounded to bf16 once: the torch tensors and the JAX
+    arrays of the same values."""
+    ts = [None if a is None else torch.from_numpy(a).bfloat16()
+          for a in arrs]
+    js = [None if t is None else
+          jnp.asarray(t.float().numpy().astype(ml_dtypes.bfloat16))
+          for t in ts]
+    return ts, js
+
+
+def _assert_bf16_close(got, want, name):
+    want = torch.from_numpy(np.asarray(want, dtype=np.float32))
+    assert got.dtype == torch.bfloat16, name
+    err = float((got.float() - want).abs().max())
+    assert err <= BF16_TOL * float(want.abs().max()), (name, err)
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_bf16_forward_plain_version_matches_pallas_kernel(name):
+    """bf16 q, k, v: o within one bf16 ulp of the largest value, lse
+    (f32 in both) within 1e-5."""
+    c = KERNEL_CASES[name]
+    q, k, v, _, seg = _inputs(0, segments=c["segments"])
+    (tq, tk, tv), (jq, jk, jv) = _bf16((q, k, v))
+    o_j, lse_j = _flash_fwd(jq, jk, jv, _j(seg), c["causal"], *c["blocks"],
+                            True)
+    o, lse = flash_fwd_ref(tq, tk, tv, _t(seg), causal=c["causal"])
+    assert lse.dtype == torch.float32
+    _assert_bf16_close(o, o_j, "o")
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[..., 0],
+                               atol=1e-5)
+
+
+@pytest.mark.parametrize("name", sorted(KERNEL_CASES))
+def test_bf16_backward_plain_versions_match_pallas_kernels(name):
+    """bf16 q, k, v, dO and the Pallas forward's o and lse: dq, dk, dv
+    in bf16 within one bf16 ulp of the largest value."""
+    c = KERNEL_CASES[name]
+    q, k, v, do, seg = _inputs(1, segments=c["segments"])
+    (tq, tk, tv, tdo), (jq, jk, jv, jdo) = _bf16((q, k, v, do))
+    o_j, lse_j = _flash_fwd(jq, jk, jv, _j(seg), c["causal"], *c["blocks"],
+                            True)
+    dq_j, dk_j, dv_j = _flash_bwd(jq, jk, jv, _j(seg), o_j, lse_j, jdo,
+                                  c["causal"], *c["blocks"], True)
+    o = torch.from_numpy(np.asarray(o_j, dtype=np.float32)).bfloat16()
+    lse = torch.from_numpy(np.array(lse_j)[..., 0])
+    args = (tq, tk, tv, tdo, lse, flash_delta(o, tdo), _t(seg))
+    dk, dv = flash_bwd_dkv_ref(*args, causal=c["causal"])
+    dq = flash_bwd_dq_ref(*args, causal=c["causal"])
+    for nm, got, want in (("dq", dq, dq_j), ("dk", dk, dk_j),
+                          ("dv", dv, dv_j)):
+        _assert_bf16_close(got, want, nm)
 
 
 @pytest.mark.parametrize("segments", [False, True])
@@ -313,11 +382,13 @@ def test_plain_tf32_forward_misses_the_kernel_gate():
     ((2, 4, 48, 128), torch.float32, True),
     ((2, 4, 48, 8), torch.float32, False),        # tiny GPT-2's head dim
     ((2, 4, 48, 48), torch.float32, False),
-    ((2, 4, 48, 64), torch.bfloat16, False),
+    ((2, 4, 48, 64), torch.bfloat16, True),
     ((2, 4, 48, 64), torch.float16, False),
     ((1, 65535, 8, 64), torch.float32, True),     # the grid's y limit
     ((1, 65536, 8, 64), torch.float32, False),
     ((256, 256, 8, 64), torch.float32, False),
+    ((2, 4, 48, 8), torch.bfloat16, False),
+    ((2, 4, 48, 128), torch.bfloat16, True),
 ])
 def test_routing_predicate(shape, dtype, takes):
     """One rule on shape and dtype, read by the dispatcher and by the
@@ -343,7 +414,8 @@ def _routing_spy(monkeypatch):
 @pytest.mark.parametrize("segments", [False, True])
 @pytest.mark.parametrize("dtype,D", [(torch.float32, 8),
                                      (torch.float32, 48),
-                                     (torch.bfloat16, 32)])
+                                     (torch.float16, 32),
+                                     (torch.bfloat16, 48)])
 def test_dispatcher_routes_what_the_kernels_cannot_take(monkeypatch, dtype,
                                                         D, segments):
     """Outside the kernels' domain a card call goes to the blockwise
@@ -390,6 +462,22 @@ def test_dispatcher_routes_nothing_inside_the_domain(monkeypatch, D):
     assert fa.flash_attention.routed == before and calls == []
     np.testing.assert_allclose(out.numpy(), sdpa(q, k, v, causal=True)
                                .numpy(), atol=1e-5)
+
+
+@pytest.mark.parametrize("D", [32, 64, 128])
+def test_dispatcher_takes_bf16_inside_the_domain(monkeypatch, D):
+    """bf16 is inside the domain: a card call goes to the flash Function
+    (its plain versions here), nothing is routed, the output is bf16 and
+    within one bf16 ulp of the largest value of f32 attention on the
+    same bf16 values."""
+    q, k, v = (_t(a).bfloat16() for a in
+               _inputs(12, shape=(2, 2, 40, D))[:3])
+    calls = _routing_spy(monkeypatch)
+    before = fa.flash_attention.routed
+    out = fa.flash_attention(q, k, v, causal=True)
+    assert fa.flash_attention.routed == before and calls == []
+    _assert_bf16_close(out, sdpa(q.float(), k.float(), v.float(),
+                                 causal=True).numpy(), "o")
 
 
 def test_cpu_calls_keep_the_plain_versions_outside_the_domain():

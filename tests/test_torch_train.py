@@ -6,6 +6,24 @@ batches are numpy arrays from a seed. Loss ``atol=1e-5``; gradients
 ``atol=1e-5, rtol=1e-4`` (f32 through 4 blocks, summed in another
 order); learning rates ``atol=1e-7``; a 20-step AdamW trajectory within
 1e-4 relative at every step.
+
+bf16 compute (``compute_dtype=bfloat16``) against the JAX bf16 step on
+the same weights and batch, compiled with
+``xla_allow_excess_precision=False`` so that XLA rounds every bf16 op
+as torch does (by default its CPU backend keeps fused elementwise chains
+in f32, which is not what the program's casts say): every gradient leaf
+is f32, the loss is within 2e-2 relative of the f32 loss (the JAX gate,
+``tests/test_gpt2.py:173-186``), and the loss and each gradient leaf
+are no farther from JAX's bf16 result than twice JAX's own bf16-to-f32
+distance (max |diff| over the leaf). Why twice: the packages still
+round in a few other places (torch's GELU rounds once where JAX rounds
+each op of the tanh formula; the port's flash path rounds p as the
+Pallas kernels do, where JAX on the CPU runs its blockwise attention in
+f32), so the two bf16 results are two roundings of one f32 computation,
+about sqrt(2) apart relative to one rounding's distance; measured worst
+1.85 (``blocks.attn.qkv.b``, segments), loss 1.30. The bf16 first
+moment follows optax bit for bit, as the jitted JAX trainer (default
+compiler options) computes it.
 """
 
 import json
@@ -37,7 +55,8 @@ from quintnet_tpu_torch.parallel.train_step import accumulate_grads
 from quintnet_tpu_torch.train.metrics import accuracy, perplexity
 from quintnet_tpu_torch.models.vit import ViTConfig, vit_model_spec
 from quintnet_tpu_torch.tools.verify_vit import verify_vit
-from quintnet_tpu_torch.train.trainer import (Trainer, make_lr_schedule,
+from quintnet_tpu_torch.train.trainer import (Optimizer, Trainer,
+                                              make_lr_schedule,
                                               make_optimizer)
 
 torch.set_num_threads(1)
@@ -308,13 +327,6 @@ def _not_ported_cases():
         "remat_dots_spec": lambda: gpt2_model_spec(tiny, remat="dots"),
         "remat_dots_blocks": lambda: stacked_blocks_apply(
             stacked, torch.zeros(1, 2, 3), num_heads=1, remat="dots"),
-        "adam_mu_bf16": lambda: make_optimizer(Config.from_dict(
-            {"training": {"adam_mu_dtype": "bfloat16"}})),
-        "bf16_compute": lambda: Trainer(
-            Config.from_dict({"training": {"dtype": "bfloat16"}}), spec,
-            device="cpu"),
-        "bf16_compute_dtype": lambda: gpt2_model_spec(
-            tiny, compute_dtype=torch.bfloat16),
         "moe": lambda: gpt2_model_spec(GPT2Config.tiny(n_experts=4)),
     }
 
@@ -333,3 +345,195 @@ def test_single_strategy_and_unknown_names():
     with pytest.raises(ValueError, match="unknown strategy"):
         get_strategy("nope")
     assert MeshConfig().world_size == 1
+
+
+# ---------------------------------------------------------------------
+# bf16 compute and the bf16 first moment
+# ---------------------------------------------------------------------
+
+BF16_CASES = {
+    "flash": dict(use_flash=True),
+    "plain": dict(use_flash=False),
+    "segments": dict(use_flash=True, cfg=dict(segment_eos_id=EOS)),
+    "loss_chunk_16": dict(use_flash=True, cfg=dict(loss_chunk=16)),
+    "remat": dict(use_flash=True, remat=True),
+}
+
+
+def _max_diff(a, b):
+    return float(np.abs(np.asarray(a, np.float32)
+                        - np.asarray(b, np.float32)).max())
+
+
+def _strict_value_and_grad(fn, params):
+    """jit(value_and_grad(fn)) compiled without XLA's excess precision:
+    each bf16 op rounds to bf16."""
+    return jax.jit(jax.value_and_grad(fn)).lower(params).compile(
+        compiler_options={"xla_allow_excess_precision": False})(params)
+
+
+@pytest.mark.parametrize("name", sorted(BF16_CASES))
+def test_bf16_loss_and_every_gradient_match_jax_bf16(jax_params, name):
+    c = BF16_CASES[name]
+    kw = c.get("cfg", {})
+    ids, labels = _batch(0, eos="segment_eos_id" in kw)
+    jbatch = (jnp.asarray(ids), jnp.asarray(labels))
+    want = {}
+    for dt in (None, jnp.bfloat16):
+        jspec = jax_model_spec(JaxGPT2Config.tiny(**kw),
+                               use_flash=c["use_flash"],
+                               remat=c.get("remat", False), compute_dtype=dt)
+        jloss, jgrads = _strict_value_and_grad(
+            lambda p: jspec.loss_fn(p, jbatch), jax_params)
+        want[dt] = (float(jloss), dict(_flat(jax.tree.map(
+            lambda x: np.asarray(x, np.float32), jgrads))))
+
+    spec = gpt2_model_spec(GPT2Config.tiny(**kw), use_flash=c["use_flash"],
+                           remat=c.get("remat", False),
+                           compute_dtype=torch.bfloat16)
+    loss, grads = accumulate_grads(spec.loss_fn, _port_params(jax_params),
+                                   _torch_batch(ids, labels), 1)
+    (l32, g32), (l16, g16) = want[None], want[jnp.bfloat16]
+    assert loss.dtype == torch.float32
+    assert abs(float(loss) - l32) <= 2e-2 * abs(l32)
+    assert abs(float(loss) - l16) <= 2 * abs(l16 - l32)
+    assert set(grads) == set(g16)
+    for path, g in grads.items():
+        assert g.dtype == torch.float32, path
+        own = _max_diff(g16[path], g32[path])     # JAX's bf16 distance
+        assert _max_diff(g, g16[path]) <= 2 * own, ".".join(path)
+
+
+def _moment_steps(n=20, seed=5):
+    """Masked AdamW with ``adam_mu_dtype: bfloat16`` (warmup + cosine) on
+    tiny GPT-2's parameter shapes, JAX's ``make_optimizer`` under jit (as
+    the JAX trainer runs it) and the port's, on the same f32 gradients
+    from a seed."""
+    t = dict(optimizer="adamw", learning_rate=3e-3, weight_decay=0.01,
+             lr_schedule="cosine", warmup_steps=5, decay_steps=20,
+             min_lr_ratio=0.1, adam_mu_dtype="bfloat16")
+    jp0 = jax.tree.map(np.asarray, jax_gpt2_init(jax.random.key(1),
+                                                 JaxGPT2Config.tiny()))
+    rng = np.random.default_rng(seed)
+    grads = [jax.tree.map(lambda a: (rng.standard_normal(a.shape)
+                                     * 10.0 ** rng.uniform(-4, 0))
+                          .astype(np.float32), jp0) for _ in range(n)]
+    opt = jax_make_optimizer(JaxConfig.from_dict({"training": t}))
+
+    @jax.jit
+    def jax_step(p, st, g):
+        upd, st = opt.update(g, st, p)
+        return optax.apply_updates(p, upd), st
+
+    port_opt = make_optimizer(Config.from_dict({"training": t}))
+    jp = jax.tree.map(jnp.asarray, jp0)
+    st = opt.init(jp)
+    params = gpt2_params_from_numpy(jp0, "cpu")
+    state = port_opt.init(params)
+    for g in grads:
+        jp, st = jax_step(jp, st, jax.tree.map(jnp.asarray, g))
+        port_opt.update(dict(_flat(tree_map(torch.from_numpy, g))), state,
+                        params)
+        yield jp, st, params, state
+
+
+def test_bf16_first_moment_follows_optax_for_20_steps():
+    """optax's order: ``mu`` updated in f32 from its stored bf16 value,
+    the step's update from that unrounded ``mu``, the stored copy rounded
+    afterwards. ``mu`` equals optax's bit for bit at every step; the
+    parameters stay within 1e-6 of the largest magnitude of each leaf
+    (``nu`` is f32 in both and summed in another order)."""
+    for i, (jp, st, params, state) in enumerate(_moment_steps()):
+        jmu = dict(_flat(st[0].mu))
+        for path, m in tree_leaves(state["mu"]):
+            assert np.array_equal(m.view(torch.int16).numpy(),
+                                  np.asarray(jmu[path]).view(np.int16)), \
+                (i, path)
+        want = dict(_flat(jax.tree.map(np.asarray, jp)))
+        for path, p in tree_leaves(params):
+            assert _max_diff(p, want[path]) <= 1e-6 * np.abs(
+                want[path]).max(), (i, path)
+    assert state["count"] == 20
+
+
+@pytest.mark.parametrize("optimizer", ["adam", "adamw"])
+def test_bf16_first_moment_dtypes_match_jax(jax_params, optimizer):
+    """``adam_mu_dtype: bfloat16``: ``mu`` bf16 and ``nu`` f32 in both
+    packages (JAX ``tests/test_sampling.py:90-108``); the default keeps
+    both f32."""
+    for mu_dtype, want in (("bfloat16", (jnp.bfloat16, torch.bfloat16)),
+                           ("float32", (jnp.float32, torch.float32))):
+        t = {"optimizer": optimizer, "adam_mu_dtype": mu_dtype}
+        jst = jax_make_optimizer(JaxConfig.from_dict({"training": t})).init(
+            jax.tree.map(jnp.asarray, jax_params))[0]
+        state = make_optimizer(Config.from_dict({"training": t})).init(
+            _port_params(jax_params))
+        for (_, jm), (_, jn), (_, m), (_, n) in zip(
+                _flat(jst.mu), _flat(jst.nu), tree_leaves(state["mu"]),
+                tree_leaves(state["nu"])):
+            assert (jm.dtype, m.dtype) == want
+            assert (jn.dtype, n.dtype) == (jnp.float32, torch.float32)
+
+
+def test_trainer_fits_in_bf16_and_ignores_training_dtype(jax_params):
+    """The Trainer does not read ``training.dtype`` (the JAX Trainer does
+    not): with it set and a bf16 model and first moment, ``fit`` trains
+    tiny GPT-2, every parameter and ``nu`` stay f32, ``mu`` is bf16."""
+    cfg = Config.from_dict({"training": dict(
+        optimizer="adamw", learning_rate=3e-3, batch_size=4,
+        gradient_accumulation_steps=2, log_every=0, dtype="bfloat16",
+        adam_mu_dtype="bfloat16")})
+    tr = Trainer(cfg, gpt2_model_spec(GPT2Config.tiny(), use_flash=True,
+                                      compute_dtype=torch.bfloat16),
+                 task_type="clm", device="cpu")
+    assert tr.optimizer.mu_dtype == torch.bfloat16
+    data = [_batch(20 + i, B=4) for i in range(2)]
+    params = _port_params(jax_params)
+    hist = tr.fit(lambda ep: data, epochs=3, params=params,
+                  opt_state=tr.optimizer.init(params))
+    assert hist.train_loss[-1] < hist.train_loss[0]
+    p, st = tr.final_state
+    assert all(t.dtype == torch.float32 for _, t in tree_leaves(p))
+    assert all(t.dtype == torch.bfloat16 for _, t in tree_leaves(st["mu"]))
+    assert all(t.dtype == torch.float32 for _, t in tree_leaves(st["nu"]))
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+def test_finetune_example_reads_training_dtype(tmp_path, capsys, dtype):
+    """``training.dtype: bfloat16`` trains in bf16 (with the bf16 first
+    moment); any dtype but bfloat16 and float32 raises ``ValueError``, as
+    in the JAX example."""
+    from quintnet_tpu_torch.examples import gpt2_finetune
+
+    cfg = {"model": {"n_layer": 2},
+           "training": {"batch_size": 4, "gradient_accumulation_steps": 2,
+                        "optimizer": "adamw", "learning_rate": 1e-3,
+                        "log_every": 0, "dtype": dtype,
+                        "adam_mu_dtype": "bfloat16"},
+           "data": {"max_seq_length": 32, "train_samples": 8,
+                    "val_samples": 4}}
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    argv = ["--config", str(path), "--tiny", "--steps", "1", "--epochs",
+            "1", "--device", "cpu"]
+    if dtype == "float16":
+        with pytest.raises(ValueError, match="training.dtype"):
+            gpt2_finetune.main(argv)
+        return
+    hist = gpt2_finetune.main(argv)
+    assert len(hist.train_loss) == 1 and np.isfinite(hist.train_loss[0])
+    assert "dtype=bfloat16 adam_mu_dtype=bfloat16" in capsys.readouterr().out
+
+
+def test_optimizer_keeps_f32_moments_in_place_by_default(jax_params):
+    """Without ``mu_dtype`` the update is the f32 one, in place: the same
+    tensors hold the moments after a step."""
+    params = _port_params(jax_params)
+    opt = Optimizer("adamw", 1e-3, weight_decay=0.01)
+    state = opt.init(params)
+    before = [id(t) for _, t in tree_leaves(state["mu"])]
+    with torch.no_grad():
+        grads = {k: torch.ones_like(v) for k, v in tree_leaves(params)}
+    opt.update(grads, state, params)
+    assert [id(t) for _, t in tree_leaves(state["mu"])] == before
+    assert all(t.dtype == torch.float32 for _, t in tree_leaves(state["mu"]))

@@ -5,7 +5,14 @@ Weights come from the JAX ``vit_init`` through the bridge; images are
 numpy arrays from a seed (or the MNIST fixture in ``tests/fixtures``).
 Logits and loss ``atol=1e-5``; gradients ``atol=1e-5, rtol=1e-4`` (f32
 through the blocks, summed in another order); 10 Adam steps within
-1e-4 relative at every step; accuracy exactly equal.
+1e-4 relative at every step; accuracy exactly equal. bf16 compute
+(``compute_dtype=bfloat16``) against the JAX bf16 forward on the same
+weights, compiled without XLA's excess precision (each bf16 op rounds,
+as in torch): f32 logits and gradients, the loss within 2e-2 relative
+of the f32 loss, and the loss and each gradient leaf no farther from
+JAX's bf16 result than twice JAX's own bf16-to-f32 distance (the gate
+and its reason as in ``tests/test_torch_train.py``); measured worst
+1.08 (``head.fc.b``, reference width), the tiny model's loss equal.
 """
 
 from pathlib import Path
@@ -21,7 +28,10 @@ from quintnet_tpu.core.config import Config as JaxConfig
 from quintnet_tpu.core.pytree import clip_by_global_norm as jax_clip
 from quintnet_tpu.models.vit import ViTConfig as JaxViTConfig
 from quintnet_tpu.models.vit import accuracy as jax_accuracy
+from quintnet_tpu.models.vit import \
+    cross_entropy_loss as jax_cross_entropy_loss
 from quintnet_tpu.models.vit import vit_apply as jax_vit_apply
+from quintnet_tpu.models.vit import vit_forward as jax_vit_forward
 from quintnet_tpu.models.vit import vit_init as jax_vit_init
 from quintnet_tpu.models.vit import vit_model_spec as jax_vit_model_spec
 from quintnet_tpu.nn.layers import patchify as jax_patchify
@@ -342,3 +352,50 @@ def test_single_device_example_trains_resumes_and_verifies(tmp_path, capsys):
     assert "reloaded epoch 1" in capsys.readouterr().out
     # the whole synthetic test split (the example capped its own at 64)
     assert res["n_examples"] == 4096 and 0.0 <= res["accuracy"] <= 1.0
+
+
+def _max_diff(a, b):
+    return float(np.abs(np.asarray(a, np.float32)
+                        - np.asarray(b, np.float32)).max())
+
+
+@pytest.mark.parametrize("name", sorted(GRAD_CASES))
+def test_bf16_loss_and_every_gradient_match_jax_bf16(name):
+    c = GRAD_CASES[name]
+    kw = c.get("cfg", TINY)
+    np_tree = _np_params(kw, seed=3)
+    x, y = _images(4, B=6, layout=c["layout"])
+    jcfg = JaxViTConfig(**kw)
+    want = {}
+    for dt in (None, jnp.bfloat16):
+        def jloss_fn(p, dt=dt):
+            logits, _ = jax_vit_forward(p, jnp.asarray(x), jcfg,
+                                        remat=c.get("remat", False),
+                                        compute_dtype=dt)
+            return jax_cross_entropy_loss(logits, jnp.asarray(y))
+        jparams = jax.tree.map(jnp.asarray, np_tree)
+        jloss, jgrads = jax.jit(jax.value_and_grad(jloss_fn)).lower(
+            jparams).compile(compiler_options={
+                "xla_allow_excess_precision": False})(jparams)
+        want[dt] = (float(jloss), dict(_flat(jax.tree.map(
+            lambda a: np.asarray(a, np.float32), jgrads))))
+
+    cfg = ViTConfig(**kw)
+    spec = vit_model_spec(cfg, remat=c.get("remat", False),
+                          compute_dtype=torch.bfloat16)
+    params = _port_params(np_tree)
+    loss, grads = accumulate_grads(
+        spec.loss_fn, params,
+        (torch.from_numpy(x), torch.from_numpy(y).long()), 1)
+    with torch.no_grad():
+        logits = vit_apply(params, torch.from_numpy(x), cfg,
+                           compute_dtype=torch.bfloat16)
+    (l32, g32), (l16, g16) = want[None], want[jnp.bfloat16]
+    assert logits.dtype == torch.float32 and loss.dtype == torch.float32
+    assert abs(float(loss) - l32) <= 2e-2 * abs(l32)
+    assert abs(float(loss) - l16) <= 2 * abs(l16 - l32)
+    assert set(grads) == set(g16)
+    for path, g in grads.items():
+        assert g.dtype == torch.float32, path
+        own = _max_diff(g16[path], g32[path])     # JAX's bf16 distance
+        assert _max_diff(g, g16[path]) <= 2 * own, ".".join(path)
