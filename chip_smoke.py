@@ -9,8 +9,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    (one process per source, started together) and check the SASS
    (``cuobjdump``): every instantiation of K1, K2, K3 and of K4's
    prefill kernel holds tensor-core instructions (HMMA: their products
-   run in 3xTF32) and no atomics, every bf16 instantiation of K1-K3
-   holds ``HMMA.16816.F32.BF16`` and no atomics, and no instantiation of
+   run in 3xTF32) and no atomics; every bf16 instantiation of K1 and K2
+   holds wgmma (``HGMMA.*.F32.BF16``) and no atomics and no
+   local-memory spill (LDL, STL), every bf16 instantiation of K3
+   ``HMMA.16816.F32.BF16`` and no atomics; and no instantiation of
    K4's decode kernel holds atomics. Then hold each kernel to its plain PyTorch
    version at the main paths' shapes (GPT-2 base heads, D = 64). Paged
    attention (K4, block size 16; the decode path for at most 4 query
@@ -199,6 +201,9 @@ FLASH_SYMBOLS_BF16 = {           # the bf16 instantiations
     "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
 }
 HMMA_BF16 = "HMMA.16816.F32.BF16"   # mma.sync m16n8k16, bf16 in, f32 out
+HGMMA_BF16 = "HGMMA.F32.BF16"       # wgmma m64nNk16, bf16 in, f32 out
+# the bf16 kernels built on wgmma (K3-bf16 keeps mma.sync)
+WGMMA_BF16 = ("flash_fwd", "flash_bwd_dkv")
 PAGED_SYMBOLS = {                # K4 path -> its CUDA kernel's name
     "decode": "paged_decode_split_kernel",
     "prefill": "paged_prefill_3xtf32_kernel",
@@ -811,8 +816,10 @@ def _backward_pair(case, times, library_ms, err, launch_both, flops,
 
 def _sass_census(path):
     """Per kernel of a built library: its tensor-core (HMMA; and of them
-    the bf16 m16n8k16 form, ``HMMA_BF16``), atomic (ATOM, RED) and f32 FMA
-    (FFMA) instructions, from ``cuobjdump -sass``."""
+    the bf16 m16n8k16 form, ``HMMA_BF16``; wgmma's HGMMA with bf16 in and
+    f32 out, ``HGMMA_BF16``), atomic (ATOM, RED), local-memory (LDL, STL:
+    register spills) and f32 FMA (FFMA) instructions, from ``cuobjdump
+    -sass``."""
     from quintnet_tpu_torch.ops import build
 
     tool = os.path.join(os.path.dirname(build.nvcc_path()), "cuobjdump")
@@ -823,7 +830,7 @@ def _sass_census(path):
         if "Function : " in ln:
             fn = ln.split("Function : ")[1].strip()
             census[fn] = {"HMMA": 0, "ATOM": 0, "RED": 0, "FFMA": 0,
-                          HMMA_BF16: 0}
+                          "LDL": 0, "STL": 0, HMMA_BF16: 0, HGMMA_BF16: 0}
         elif fn is not None and "/*" in ln:
             op = ln.split("*/", 1)[1].split()
             op = [w for w in op if not w.startswith("@")][:1]
@@ -837,6 +844,8 @@ def _sass_census(path):
                     census[fn][head] += 1
                 if op[0].startswith(HMMA_BF16):
                     census[fn][HMMA_BF16] += 1
+                if head == "HGMMA" and ".F32.BF16" in op[0]:
+                    census[fn][HGMMA_BF16] += 1
     return census
 
 
@@ -844,8 +853,10 @@ def _check_sass(paths):
     """The flash kernels and K4's prefill path run on the tensor cores and
     no K1-K4 kernel uses atomics (each output element has one writer):
     every instantiation of K1, K2, K3 and of the K4 prefill kernel holds
-    HMMA instructions and no ATOM or RED, every bf16 instantiation of
-    K1-K3 holds ``HMMA.16816.F32.BF16`` (bf16 operands, f32 sums), and no
+    HMMA instructions and no ATOM or RED; every bf16 instantiation of K1
+    and K2 holds wgmma (``HGMMA.*.F32.BF16``: bf16 operands, f32 sums) and
+    no ATOM, RED or local-memory spill (LDL, STL), every bf16
+    instantiation of K3 ``HMMA.16816.F32.BF16`` and no ATOM or RED; and no
     instantiation of the K4 decode kernel holds ATOM or RED."""
     census = _sass_census(paths["flash_attention"])
     out = {}
@@ -855,12 +866,14 @@ def _check_sass(paths):
             raise AssertionError(f"{wrapper}: {len(fns)} instantiations of "
                                  f"{sym} in the SASS (want 3: D = 32, 64, "
                                  f"128)")
+        tc = HGMMA_BF16 if wrapper in WGMMA_BF16 else HMMA_BF16
         for f, c in fns.items():
-            if c[HMMA_BF16] == 0 or c["ATOM"] or c["RED"]:
-                raise AssertionError(f"{f}: SASS census {c}: want "
-                                     f"{HMMA_BF16} > 0 and no ATOM / RED")
-        out[wrapper + "[bf16]"] = sorted(fns.values(),
-                                        key=lambda c: c[HMMA_BF16])
+            spill = wrapper in WGMMA_BF16 and (c["LDL"] or c["STL"])
+            if c[tc] == 0 or c["ATOM"] or c["RED"] or spill:
+                raise AssertionError(
+                    f"{f}: SASS census {c}: want {tc} > 0 and no ATOM / RED"
+                    + (" / LDL / STL" if wrapper in WGMMA_BF16 else ""))
+        out[wrapper + "[bf16]"] = sorted(fns.values(), key=lambda c: c[tc])
     for wrapper, sym in FLASH_SYMBOLS.items():
         fns = {f: c for f, c in census.items() if sym in f}
         if len(fns) != 3:
@@ -894,8 +907,10 @@ def _check_sass(paths):
         "hmma_min_max": [min(c["HMMA"] for c in prefill.values()),
                          max(c["HMMA"] for c in prefill.values())]}
     _emit({"check": "K1, K2, K3 (f32 and bf16) and K4 prefill SASS: tensor "
-                    "cores (HMMA; HMMA.16816.F32.BF16 in bf16), no atomics; "
-                    "K4 decode SASS: no atomics", "ok": True,
+                    "cores (HMMA; in bf16 HGMMA.*.F32.BF16 for K1 and K2, "
+                    "with no local-memory spill, and HMMA.16816.F32.BF16 "
+                    "for K3), no atomics; K4 decode SASS: no atomics",
+           "ok": True,
            "census": out})
 
 

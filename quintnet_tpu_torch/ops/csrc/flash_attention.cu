@@ -115,6 +115,7 @@
 
 #include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
+#include "wgmma_bf16.cuh"
 
 namespace {
 
@@ -683,30 +684,506 @@ flash_bwd_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict_
 
 // ---------------------------------------------------------------------------
 // bf16: K1-K3 on bf16 q, k, v, do (o, dq, dk, dv written in bf16; lse and
-// delta f32), every product mma.sync.m16n8k16 with bf16 operands and f32
-// accumulators, as the Pallas kernels feed the MXU in the input dtype with
-// preferred_element_type=f32. Scores, softmax statistics, lse, p and ds stay
-// f32 until the points where the Pallas kernels cast them: p is rounded to
-// bf16 (cvt.rn) before p v (:161) and p^T do (:292), ds before ds^T q (:295)
-// and ds k (:336), each output once at the end. The layouts, masks, loop
-// bounds, tile skipping and the one-writer rule are the f32 kernels'; the
-// tiles hold raw 16-bit rows padded to D + 8 elements (mma_bf16.cuh).
+// delta f32), bf16 products with f32 accumulators, as the Pallas kernels
+// feed the MXU in the input dtype with preferred_element_type=f32. Scores,
+// softmax statistics, lse, p and ds stay f32 until the points where the
+// Pallas kernels cast them: p is rounded to bf16 (cvt.rn) before p v (:161)
+// and p^T do (:292), ds before ds^T q (:295) and ds k (:336), each output
+// once at the end. The masks, loop bounds, tile skipping and the one-writer
+// rule are the f32 kernels'.
+//
+//   flash_fwd_bf16_kernel     <- _fwd_kernel     (pallas_attention.py:97)
+//   flash_bwd_dkv_bf16_kernel <- _bwd_dkv_kernel (pallas_attention.py:259)
+//   flash_bwd_dq_bf16_kernel  <- _bwd_dq_kernel  (pallas_attention.py:304)
 //
 // Bound: at the train shape (B = 32, H = 12, S = 512, D = 64, causal) a
 // kernel does 2-4 products of S^2 D / 2 multiply-adds per (b, h) while it
 // moves 3-6 S x D bf16 slabs once: 85-128 operations per byte, below the
 // card's ~295 for bf16 (989 TFLOP/s over 3.35 TB/s), so the least time is
-// set by the bytes; a flash kernel's products are what it can overlap them
-// with. A simple kernel first: mma.sync, one block of 4 warps per 64 owned
-// rows, a two-stage cp.async ring; wgmma and TMA are later work.
+// set by the bytes. A block's loop is short there (1-8 tiles of 64), so
+// what the kernels must hide is the latency of each tile's loads and of the
+// block's own prologue (its owned rows and first stage) and epilogue.
+//
+// K1 and K2 are built for Hopper (wgmma_bf16.cuh). Times below: NVIDIA
+// H100 80GB HBM3 at 700 W, the train shape, CUDA graphs of 20 calls
+// (chip_smoke.py; PERF.md has the runs).
+//   * Warp specialisation. A block is one consumer warpgroup, which owns 64
+//     rows (queries in K1, keys in K2) and runs every product as wgmma, and
+//     one producer warp, which keeps TMA loads of the streamed tiles in
+//     flight through a ring of stages (3; 2 for K1 at D = 128). Each stage
+//     has a full mbarrier (TMA bytes plus the producer warp's 32 arrivals,
+//     after it stored the stage's short rows: segment ids, lse, delta) and an
+//     empty one (one arrival per consumer warp once the warp's products have
+//     read the stage). Blocks of 160 threads fit 3 (K1) or 2 (K2) to an SM,
+//     so one block's prologue, softmax and epilogue overlap the others'
+//     products. Alternatives measured on earlier versions of these kernels
+//     in development chip runs (same card, chip_smoke._graph_ms): a
+//     producer warpgroup with setmaxnreg (24 / 232 registers): ptxas
+//     allocates one budget for the whole kernel, so at two blocks an SM it
+//     capped the consumer at 128 registers and K2 spilled (K1 0.125 ms, K2
+//     0.20), and at one block an SM only one consumer ran (0.165, 0.23); two
+//     consumer warpgroups sharing each stage (128 rows a block): 288 threads
+//     allocate registers as 384, so one block an SM (K1 0.070, K2 0.143); two
+//     64-row tiles per warpgroup in K1: spills at the 168-register cap
+//     (0.097); the next tile's q k^T issued during the softmax (double s
+//     accumulators): 0.087. This form: K1 0.061, K2 0.117 (the mma.sync
+//     kernels they replace: 0.092, 0.174).
+//   * The masks cost one compare a score: each row (K1) or key (K2) carries
+//     the limit that causality and the ragged edge set, and segment ids are
+//     read as int2 pairs. The first version tested visible() per score;
+//     ptxas turned that into predicated code on every tile, masked or not,
+//     which took 2,300 of the 4,400 cycles a tile (clock64 spans of an
+//     instrumented development build).
+//   * TMA. q, k, v, do are read through 3-D tensor maps [B*H, S, D] (rows
+//     past S zero-filled by the hardware: a 2-D map over B*H*S rows would
+//     read the next head's rows), with the swizzle the wgmma descriptors
+//     name. The short f32 and int rows (lse, delta, segment ids: no 16-byte
+//     alignment at odd S) go by plain loads of the producer warp into the
+//     stage.
+//   * K1: s = q k^T as wgmma m64n64k16 with q (loaded once) and k K-major in
+//     shared memory; the online softmax on the accumulator registers (the
+//     m16n8 layout per 8 columns, so the quad shuffles are those of the f32
+//     kernel; maxima and sums in 4 partial chains a row); the scale goes into
+//     the exponent; p rounded to bf16 by cvt.rn.bf16x2 becomes the register A
+//     operand of o += p v (m64nDk16, v MN-major through the descriptor's
+//     transpose). Key tiles of kFwdKeyTileBf16 = 64, which the plain
+//     version's default block_k follows (p is rounded against the same
+//     running max).
+//   * K2: the block's k and v stay in shared memory (one TMA load); q, do,
+//     lse, delta and the query segment ids stream through the ring, 64 query
+//     rows a stage (32 at D = 128). s^T = k q^T and dp^T = v do^T as wgmma
+//     with k and v as A; p^T and ds^T go from the accumulators to bf16
+//     register A operands of dv += p^T do and dk += ds^T q (do and q
+//     MN-major). lse and delta are read as float2, once per 8 columns.
+//   * What still limits them (clock64 spans of an instrumented development
+//     build, per K1 block of 4.5 tiles at the train shape: 12.5k cycles):
+//     the softmax on the accumulators (4.1k), waiting for q (1.7k) and for
+//     stages (0.9k), the two products (2.5k, latency: the tensor pipe is
+//     idle during the softmax unless another block fills it) and the
+//     epilogue (1.7k). Halving the softmax's instructions moved nothing, so
+//     it is latency, not instruction throughput.
+//   * Each output element still has one writer (no atomics), so launches are
+//     bitwise repeatable.
+//   * Waits on an mbarrier trap after kMbarMaxPolls polls: a protocol fault
+//     fails the launch instead of hanging the card.
+// K3 is the first, simple form: mma.sync.m16n8k16 on tiles staged by a
+// two-stage cp.async ring with rows padded to D + 8 elements (mma_bf16.cuh).
 
-// rows a bf16 kernel streams a stage: 64 key rows in K1 and K3; 64 query
-// rows in K2, 32 at D = 128 (dk and dv take 128 registers there)
+constexpr int kFwdKeyTileBf16 = 64;  // K1's key tile (flash_kernels.FWD_KEY_TILE_BF16)
+constexpr int kWsThreads = kWarpgroup + 32;  // consumer warpgroup + producer warp
+constexpr int kRowsBf16 = 64;        // K3: key rows a stage
+
+// K1 bf16: shared memory (byte offsets from a 1,024-byte boundary)
 template <int D>
-constexpr int dkv_rows_bf16() {
-  return D == 128 ? 32 : 64;
+struct FwdBf16 {
+  static constexpr int BK = kFwdKeyTileBf16;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kBlocksPerSm = D == 128 ? 2 : 3;
+  static constexpr int kTileQ = kOwn * D * 2;  // q
+  static constexpr int kTileK = BK * D * 2;    // k or v
+  static constexpr int kQ = 0;
+  static constexpr int kRing = kTileQ;  // stage st: k at kRing + 2 st kTileK, v after it
+  static constexpr int kSeg = kRing + kStages * 2 * kTileK;  // key segment ids [kStages][BK]
+  static constexpr int kBar = kSeg + kStages * BK * 4;       // full, empty [kStages]; q
+  static constexpr size_t bytes = kBar + (2 * kStages + 1) * 8 + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, FwdBf16<D>::kBlocksPerSm)
+flash_fwd_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                      const __grid_constant__ CUtensorMap k_map,
+                      const __grid_constant__ CUtensorMap v_map, const int* __restrict__ seg,
+                      uint16_t* __restrict__ o, float* __restrict__ lse, int H, int S, int causal,
+                      float scale) {
+  using L = FwdBf16<D>;
+  constexpr int BK = L::BK, NT = BK / 8, KS = D / 16, ST = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  int* segk_all = reinterpret_cast<int*>(sm + L::kSeg);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
+
+  const int nt = (S + kOwn - 1) / kOwn;
+  const int qt = nt - 1 - blockIdx.x;  // longest causal rows first
+  const int bh = blockIdx.y;
+  const int q0 = qt * kOwn;
+  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
+  // causal: the k tiles up to the last real query of the tile
+  const int nk = causal ? (min(q0 + kOwn, S) + BK - 1) / BK : (S + BK - 1) / BK;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], 4);  // one arrival a consumer warp
+    }
+    mbar_init(qbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWarpgroup) {
+    // producer warp: q once, then k, v (and the key segment ids) of tile kt
+    // into stage kt % ST once the consumer has released it
+    const int lane = threadIdx.x - kWarpgroup;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, L::kTileQ);
+      tma_rows<D, kOwn>(sm + L::kQ, &q_map, qbar, q0, bh);
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % ST;
+      mbar_wait(&empty[st], ((kt / ST) & 1) ^ 1);
+      const int k0 = kt * BK;
+      if (seg_b != nullptr)
+        for (int i = lane; i < BK; i += 32) segk_all[st * BK + i] = k0 + i < S ? seg_b[k0 + i] : 0;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], 2 * L::kTileK);
+        unsigned char* kv = sm + L::kRing + st * 2 * L::kTileK;
+        tma_rows<D, BK>(kv, &k_map, &full[st], k0, bh);
+        tma_rows<D, BK>(kv + L::kTileK, &v_map, &full[st], k0, bh);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // consumer warpgroup: warp w owns query rows 16w .. 16w + 15 of the tile
+    const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+    // row h (q0 + 16w + g + 8h) sees the keys c < lim[h] (causality and the
+    // ragged edge; none for a row past S) whose segment id is segq[h]
+    int lim[2], segq[2] = {0, 0};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * warp + g + 8 * h;
+      lim[h] = row >= S ? -1 : causal ? min(row + 1, S) : S;
+      if (seg_b != nullptr && row < S) segq[h] = seg_b[row];
+    }
+    int q_lo = 0, q_hi = 0;
+    if (seg_b != nullptr) seg_range_rows<kOwn>(seg_b + q0, min(kOwn, S - q0), q_lo, q_hi);
+    const uint32_t q_s = smem_u32(sm + L::kQ);
+    float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
+    float o_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o_acc[i] = 0.f;
+    mbar_wait(qbar, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % ST;
+      mbar_wait(&full[st], (kt / ST) & 1);
+      const int k0 = kt * BK;
+      const int* sk = segk_all + st * BK;
+      bool live = true;
+      if (seg_b != nullptr) {
+        int k_lo, k_hi;
+        seg_range_rows<BK>(sk, min(BK, S - k0), k_lo, k_hi);
+        live = !(k_hi < q_lo || k_lo > q_hi);
+      }
+      if (live) {
+        const uint32_t k_s = smem_u32(sm + L::kRing + st * 2 * L::kTileK);
+        const uint32_t v_s = k_s + L::kTileK;
+        float s[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss<BK>(s, desc_k<D, kOwn>(q_s, kk), desc_k<D, BK>(k_s, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+
+        // scores stay q.k: the scale goes into the exponent below
+        const bool needs_mask =
+            (causal && k0 + BK - 1 > q0) || k0 + BK > S || q0 + kOwn > S || seg_b != nullptr;
+        if (needs_mask) {  // one compare a score (and the ids): no per-element branches
+#pragma unroll
+          for (int j = 0; j < NT; ++j) {
+            int2 sv = make_int2(0, 0);
+            if (seg_b != nullptr) sv = *reinterpret_cast<const int2*>(sk + 8 * j + 2 * t);
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              bool ok = k0 + 8 * j + 2 * t + (e & 1) < lim[e >> 1];
+              if (seg_b != nullptr) ok = ok && segq[e >> 1] == ((e & 1) ? sv.y : sv.x);
+              s[4 * j + e] = ok ? s[4 * j + e] : kNegInf;
+            }
+          }
+        }
+        // row maxima over 4 partial chains a row (i = 4j + e: row e / 2)
+        float pm[2][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) pm[i >> 2][i & 3] = kNegInf;
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i)
+          pm[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)] =
+              fmaxf(pm[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)], s[i]);
+        float corr[2], neg_m2[2];
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          float mx = fmaxf(fmaxf(pm[h][0], pm[h][1]), fmaxf(pm[h][2], pm[h][3]));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+          mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+          // the running max in scaled units; a row that has seen no visible
+          // key keeps kNegInf, as the plain version does
+          mx = mx > 0.5f * kNegInf ? mx * scale : kNegInf;
+          const float m_new = fmaxf(m_r[h], mx);
+          corr[h] = ex2((m_r[h] - m_new) * kLog2e);
+          neg_m2[h] = -m_new * kLog2e;
+          m_r[h] = m_new;
+        }
+        // p in f32 (the row sum takes it unrounded, in 4 partial sums a row),
+        // then o = o corr + p v. Without a masked score every row's max is
+        // finite and no p needs the guard.
+        const float scale2 = scale * kLog2e;
+        float ps[2][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) ps[i >> 2][i & 3] = 0.f;
+#pragma unroll
+        for (int i = 0; i < BK / 2; ++i) {
+          const float x = s[i];
+          float p = ex2(fmaf(x, scale2, neg_m2[(i >> 1) & 1]));
+          if (needs_mask) p = x > 0.5f * kNegInf ? p : 0.f;
+          s[i] = p;
+          ps[(i >> 1) & 1][((i >> 2) & 1) * 2 + (i & 1)] += p;
+        }
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+          l_r[h] = l_r[h] * corr[h] + ((ps[h][0] + ps[h][1]) + (ps[h][2] + ps[h][3]));
+#pragma unroll
+        for (int i = 0; i < D / 2; ++i) o_acc[i] *= corr[(i >> 1) & 1];
+        uint32_t pa[BK / 16][4];
+#pragma unroll
+        for (int m = 0; m < BK / 16; ++m) acc_as_a16(s, m, pa[m]);
+        fence_regs(o_acc);  // the rescale and the packing land before the fence
+        fence_regs(pa);
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < BK / 16; ++m) wgmma_rs<D>(o_acc, pa[m], desc_mn<D, BK>(v_s, m), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(o_acc);
+        fence_regs(pa);
+      }
+      __syncwarp();  // the warp's reads of the stage are done
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
+      l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
+      const float li = fmaxf(l_r[h], 1e-30f);
+      const float inv = 1.f / li;
+      const int row = q0 + 16 * warp + g + 8 * h;
+      if (row < S) {
+        uint16_t* orow = o + ((size_t)bh * S + row) * D;
+#pragma unroll
+        for (int n = 0; n < D / 8; ++n)
+          *reinterpret_cast<uint32_t*>(orow + 8 * n + 2 * t) =
+              pack_bf16(o_acc[4 * n + 2 * h] * inv, o_acc[4 * n + 2 * h + 1] * inv);
+        if (t == 0) lse[(size_t)bh * S + row] = m_r[h] + logf(li);
+      }
+    }
+  }
 }
-constexpr int kRowsBf16 = 64;
+
+// K2 bf16: shared memory (byte offsets from a 1,024-byte boundary). Query
+// rows a stage: 64, 32 at D = 128 (dk and dv take 128 accumulator
+// registers there).
+template <int D>
+struct DkvBf16 {
+  static constexpr int BQ = D == 128 ? 32 : 64;
+  static constexpr int kStages = 3;
+  static constexpr int kBlocksPerSm = D == 128 ? 1 : 2;
+  static constexpr int kTileOwn = kOwn * D * 2;  // k or v
+  static constexpr int kTileQ = BQ * D * 2;      // q or do
+  static constexpr int kK = 0, kV = kTileOwn;
+  static constexpr int kRing = 2 * kTileOwn;  // stage st: q at kRing + 2 st kTileQ, do after it
+  static constexpr int kVec = kRing + kStages * 2 * kTileQ;  // stage st: lse, delta, seg [BQ]
+  static constexpr int kBar = kVec + kStages * 3 * BQ * 4;   // full, empty [kStages]; k, v
+  static constexpr size_t bytes = kBar + (2 * kStages + 1) * 8 + 1024;  // + alignment
+};
+
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, DkvBf16<D>::kBlocksPerSm)
+flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                          const __grid_constant__ CUtensorMap k_map,
+                          const __grid_constant__ CUtensorMap v_map,
+                          const __grid_constant__ CUtensorMap do_map,
+                          const float* __restrict__ lse, const float* __restrict__ delta,
+                          const int* __restrict__ seg, uint16_t* __restrict__ dk,
+                          uint16_t* __restrict__ dv, int H, int S, int causal, float scale) {
+  using L = DkvBf16<D>;
+  constexpr int BQ = L::BQ, NT = BQ / 8, KS = D / 16, ST = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + ST;
+  uint64_t* kvbar = empty + ST;
+  // stage st's lse, delta [BQ] f32 and query segment ids [BQ]
+  auto vec = [&](int st) { return reinterpret_cast<float*>(sm + L::kVec) + st * 3 * BQ; };
+
+  const int kt = blockIdx.x;  // longest causal key tiles first
+  const int bh = blockIdx.y;
+  const int k0 = kt * kOwn;
+  const size_t rbase = (size_t)bh * S;
+  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
+  const int nq = (S + BQ - 1) / BQ;
+  const int qt0 = causal ? k0 / BQ : 0;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], 4);  // one arrival a consumer warp
+    }
+    mbar_init(kvbar, 1);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= kWarpgroup) {
+    // producer warp: k and v once, then q, do, lse, delta (and the query
+    // segment ids) of tile qt into stage (qt - qt0) % ST
+    {
+      const int lane = threadIdx.x - kWarpgroup;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(kvbar, 2 * L::kTileOwn);
+        tma_rows<D, kOwn>(sm + L::kK, &k_map, kvbar, k0, bh);
+        tma_rows<D, kOwn>(sm + L::kV, &v_map, kvbar, k0, bh);
+      }
+      for (int qt = qt0; qt < nq; ++qt) {
+        const int i = qt - qt0, st = i % ST;
+        mbar_wait(&empty[st], ((i / ST) & 1) ^ 1);
+        const int q0 = qt * BQ;
+        float* ls = vec(st);
+        int* sq = reinterpret_cast<int*>(ls + 2 * BQ);
+        for (int r = lane; r < BQ; r += 32) {
+          const bool ok = q0 + r < S;
+          ls[r] = ok ? lse[rbase + q0 + r] : 0.f;
+          ls[BQ + r] = ok ? delta[rbase + q0 + r] : 0.f;
+          if (seg_b != nullptr) sq[r] = ok ? seg_b[q0 + r] : 0;
+        }
+        if (lane == 0) {
+          mbar_arrive_expect_tx(&full[st], 2 * L::kTileQ);
+          unsigned char* qd = sm + L::kRing + st * 2 * L::kTileQ;
+          tma_rows<D, BQ>(qd, &q_map, &full[st], q0, bh);
+          tma_rows<D, BQ>(qd + L::kTileQ, &do_map, &full[st], q0, bh);
+        } else {
+          mbar_arrive(&full[st]);
+        }
+      }
+    }
+  } else {
+    // consumer warpgroup: warp w owns key rows 16w .. 16w + 15 of the tile
+    const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+    const int kw = warp * 16;
+    // key row h (k0 + kw + g + 8h) is seen by the queries r >= lo[h]
+    // (causality; none for a key past S) whose segment id is segk[h]
+    int lo[2], segk[2] = {0, 0};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = k0 + kw + g + 8 * h;
+      lo[h] = c >= S ? INT_MAX : causal ? c : 0;
+      if (seg_b != nullptr && c < S) segk[h] = seg_b[c];
+    }
+    int k_lo = 0, k_hi = 0;
+    if (seg_b != nullptr) seg_range_rows<kOwn>(seg_b + k0, min(kOwn, S - k0), k_lo, k_hi);
+    const uint32_t k_s = smem_u32(sm + L::kK), v_s = smem_u32(sm + L::kV);
+    float dk_acc[D / 2], dv_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+
+    mbar_wait(kvbar, 0);
+    for (int qt = qt0; qt < nq; ++qt) {
+      const int i = qt - qt0, st = i % ST;
+      mbar_wait(&full[st], (i / ST) & 1);
+      const int q0 = qt * BQ;
+      const float* ls = vec(st);
+      const float* dl = ls + BQ;
+      const int* sq = reinterpret_cast<const int*>(ls + 2 * BQ);
+      bool live = true;
+      if (seg_b != nullptr) {
+        int q_lo, q_hi;
+        seg_range_rows<BQ>(sq, min(BQ, S - q0), q_lo, q_hi);
+        live = !(k_hi < q_lo || k_lo > q_hi);
+      }
+      if (live) {
+        const uint32_t q_s = smem_u32(sm + L::kRing + st * 2 * L::kTileQ);
+        const uint32_t do_s = q_s + L::kTileQ;
+        // s^T and dp^T: key rows kw + g (+8), query columns
+        float s[BQ / 2], dp[BQ / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss<BQ>(s, desc_k<D, kOwn>(k_s, kk), desc_k<D, BQ>(q_s, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss<BQ>(dp, desc_k<D, kOwn>(v_s, kk), desc_k<D, BQ>(do_s, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        const bool needs_mask =
+            (causal && k0 + kOwn - 1 > q0) || q0 + BQ > S || k0 + kOwn > S || seg_b != nullptr;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const float2 lv = *reinterpret_cast<const float2*>(ls + 8 * j + 2 * t);
+          const float2 dv2 = *reinterpret_cast<const float2*>(dl + 8 * j + 2 * t);
+          const float2 dsc = make_float2(-dv2.x * scale, -dv2.y * scale);  // ds = p (dp scale - delta scale)
+          int2 sv = make_int2(0, 0);
+          if (needs_mask && seg_b != nullptr) sv = *reinterpret_cast<const int2*>(sq + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int r = q0 + 8 * j + 2 * t + (e & 1);
+            float p = ex2(fmaf(s[4 * j + e], scale * kLog2e, -((e & 1) ? lv.y : lv.x) * kLog2e));
+            if (needs_mask) {  // one compare a score (and the ids): no per-element branches
+              bool ok = r >= lo[e >> 1] && r < S;
+              if (seg_b != nullptr) ok = ok && segk[e >> 1] == ((e & 1) ? sv.y : sv.x);
+              p = ok ? p : 0.f;
+            }
+            s[4 * j + e] = p;
+            dp[4 * j + e] = p * fmaf(dp[4 * j + e], scale, (e & 1) ? dsc.y : dsc.x);
+          }
+        }
+        // dv += p^T do, dk += ds^T q: p^T and ds^T rounded to bf16 as A
+        uint32_t pa[BQ / 16][4], dsa[BQ / 16][4];
+#pragma unroll
+        for (int m = 0; m < BQ / 16; ++m) {
+          acc_as_a16(s, m, pa[m]);
+          acc_as_a16(dp, m, dsa[m]);
+        }
+        fence_regs(pa);  // the packing lands before the fence
+        fence_regs(dsa);
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < BQ / 16; ++m) wgmma_rs<D>(dv_acc, pa[m], desc_mn<D, BQ>(do_s, m), 1);
+#pragma unroll
+        for (int m = 0; m < BQ / 16; ++m) wgmma_rs<D>(dk_acc, dsa[m], desc_mn<D, BQ>(q_s, m), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dv_acc);
+        fence_regs(dk_acc);
+        fence_regs(pa);
+        fence_regs(dsa);
+      }
+      __syncwarp();  // the warp's reads of the stage are done
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int c = k0 + kw + g + 8 * h;
+      if (c >= S) continue;
+      uint16_t* dkr = dk + ((size_t)bh * S + c) * D;
+      uint16_t* dvr = dv + ((size_t)bh * S + c) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n) {
+        *reinterpret_cast<uint32_t*>(dkr + 8 * n + 2 * t) =
+            pack_bf16(dk_acc[4 * n + 2 * h], dk_acc[4 * n + 2 * h + 1]);
+        *reinterpret_cast<uint32_t*>(dvr + 8 * n + 2 * t) =
+            pack_bf16(dv_acc[4 * n + 2 * h], dv_acc[4 * n + 2 * h + 1]);
+      }
+    }
+  }
+}
 
 // rows row0 .. row0+ROWS-1 of a [S, D] bf16 slab into smem [ROWS][D + kPadH],
 // in flight; rows past S are zero-filled
@@ -736,340 +1213,6 @@ __device__ __forceinline__ void store_acc_bf16(uint16_t* __restrict__ dst, int r
       *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + 8 * n + 2 * t) =
           pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
   }
-}
-
-// K1 bf16: as K1, with the 64 queries' fragments held in registers for the
-// whole loop (D / 4 registers a thread) and o += p v summed in the tensor
-// core after the running rescale.
-template <int D>
-struct FwdSmemBf16 {
-  static constexpr int LD = D + kPadH;
-  static constexpr int BK = kRowsBf16;
-  static constexpr size_t own_bytes = (size_t)kOwn * LD * 2 + kOwn * 4;  // q; seg
-  static constexpr size_t stage_bytes = 2 * (size_t)BK * LD * 2 + BK * 4;  // k, v; seg
-  static constexpr size_t bytes = own_bytes + 2 * stage_bytes;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-flash_fwd_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                      const uint16_t* __restrict__ v, const int* __restrict__ seg,
-                      uint16_t* __restrict__ o, float* __restrict__ lse, int H, int S, int causal,
-                      float scale) {
-  using L = FwdSmemBf16<D>;
-  constexpr int LD = L::LD, BK = L::BK, NT = BK / 8, KS = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_h[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_h);                   // [64][LD]
-  int* segq_s = reinterpret_cast<int*>(smem_h + (size_t)kOwn * LD * 2);   // [64]
-  unsigned char* ring = smem_h + L::own_bytes;                            // 2 stages
-  // stage st: k, v [BK][LD]; seg [BK]
-  auto tile = [&](int st, int i) {
-    return reinterpret_cast<uint16_t*>(ring + st * L::stage_bytes) + i * BK * LD;
-  };
-  auto segk_s = [&](int st) {
-    return reinterpret_cast<int*>(ring + st * L::stage_bytes + 2 * (size_t)BK * LD * 2);
-  };
-
-  const int nt_own = (S + kOwn - 1) / kOwn;
-  const int qt = nt_own - 1 - blockIdx.x;  // longest causal rows first
-  const int bh = blockIdx.y;
-  const int q0 = qt * kOwn;
-  const size_t base = (size_t)bh * S * D;
-  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
-  const int qw = warp * 16;
-
-  auto stage_load = [&](int st, int kt) {
-    const int k0 = kt * BK;
-    cp_rows_bf16<D, BK>(tile(st, 0), k + base, k0, S);
-    cp_rows_bf16<D, BK>(tile(st, 1), v + base, k0, S);
-    if (seg_b != nullptr) cp_vec<BK>(segk_s(st), seg_b, k0, S);
-  };
-
-  const int q_end = min(q0 + kOwn, S);
-  const int nk = causal ? (q_end + BK - 1) / BK : (S + BK - 1) / BK;
-  cp_rows_bf16<D, kOwn>(q_s, q + base, q0, S);
-  if (seg_b != nullptr) cp_vec<kOwn>(segq_s, seg_b, q0, S);
-  stage_load(0, 0);
-  cp_async_commit();
-
-  float m_r[2] = {kNegInf, kNegInf}, l_r[2] = {0.f, 0.f};
-  float o_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o_acc[n][e] = 0.f;
-  uint32_t qa[KS][4];
-
-  int q_lo = 0, q_hi = 0;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      stage_load(st ^ 1, kt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) frag_a16<LD>(q_s, qw, 16 * kk, qa[kk]);
-      if (seg_b != nullptr) seg_range_rows<kOwn>(segq_s, min(kOwn, S - q0), q_lo, q_hi);
-    }
-    const int k0 = kt * BK;
-    bool live = true;
-    if (seg_b != nullptr) {
-      int k_lo, k_hi;
-      seg_range_rows<BK>(segk_s(st), min(BK, S - k0), k_lo, k_hi);
-      live = !(k_hi < q_lo || k_lo > q_hi);
-    }
-    if (live) {
-      const uint16_t* ks = tile(st, 0);
-      const uint16_t* vs = tile(st, 1);
-      float s[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t b[4];
-          frag_bt16<LD>(ks, 8 * j, 16 * kk, b);
-          mma_bf16(s[j], qa[kk], b[0], b[1]);
-          mma_bf16(s[j + 1], qa[kk], b[2], b[3]);
-        }
-      }
-      const bool needs_mask =
-          (causal && k0 + BK - 1 > q0) || k0 + BK > S || q0 + kOwn > S || seg_b != nullptr;
-      const int* sk = seg_b != nullptr ? segk_s(st) : nullptr;
-      float mx[2] = {kNegInf, kNegInf};
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = qw + g + 8 * (e >> 1);
-          const int kl = 8 * j + 2 * t + (e & 1);
-          float x = s[j][e] * scale;
-          if (needs_mask &&
-              !visible(q0 + ql, k0 + kl, S, causal, seg_b != nullptr ? segq_s : nullptr, sk, ql, kl))
-            x = kNegInf;
-          s[j][e] = x;
-          mx[e >> 1] = fmaxf(mx[e >> 1], x);
-        }
-      }
-      float corr[2], neg_m2[2];
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
-        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
-        const float m_new = fmaxf(m_r[h], mx[h]);
-        corr[h] = ex2((m_r[h] - m_new) * kLog2e);
-        neg_m2[h] = -m_new * kLog2e;
-        m_r[h] = m_new;
-        l_r[h] *= corr[h];
-      }
-      // p in f32 (the row sum takes it unrounded), then o = o corr + p v
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float x = s[j][e];
-          const float p = x > 0.5f * kNegInf ? ex2(fmaf(x, kLog2e, neg_m2[e >> 1])) : 0.f;
-          s[j][e] = p;
-          l_r[e >> 1] += p;
-        }
-      }
-#pragma unroll
-      for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) o_acc[n][e] *= corr[e >> 1];
-#pragma unroll
-      for (int m = 0; m < NT / 2; ++m) {
-        uint32_t pa[4];
-        acc_pair_as_a(s[2 * m], s[2 * m + 1], pa);
-#pragma unroll
-        for (int n = 0; n < D / 8; n += 2) {
-          uint32_t b[4];
-          frag_bn16<LD>(vs, 16 * m, 8 * n, b);
-          mma_bf16(o_acc[n], pa, b[0], b[1]);
-          mma_bf16(o_acc[n + 1], pa, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 1);
-    l_r[h] += __shfl_xor_sync(0xffffffffu, l_r[h], 2);
-    const float li = fmaxf(l_r[h], 1e-30f);
-    const float inv = 1.f / li;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n) {
-      o_acc[n][2 * h] *= inv;
-      o_acc[n][2 * h + 1] *= inv;
-    }
-    const int r = q0 + qw + g + 8 * h;
-    if (t == 0 && r < S) lse[(size_t)bh * S + r] = m_r[h] + logf(li);
-  }
-  store_acc_bf16<D>(o + base, q0 + qw, S, g, t, o_acc);
-}
-
-// K2 bf16: as K2 (s^T = k q^T and dp^T = v do^T in the block's key-row
-// orientation), the k and v fragments reloaded from shared memory per tile.
-template <int D>
-struct DkvSmemBf16 {
-  static constexpr int LD = D + kPadH;
-  static constexpr int BQ = dkv_rows_bf16<D>();
-  static constexpr size_t own_bytes = 2 * (size_t)kOwn * LD * 2 + kOwn * 4;  // k, v; seg
-  static constexpr size_t stage_bytes =
-      2 * (size_t)BQ * LD * 2 + 3 * BQ * 4;  // q, do; lse, delta, seg
-  static constexpr size_t bytes = own_bytes + 2 * stage_bytes;
-};
-
-template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-flash_bwd_dkv_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                          const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
-                          const float* __restrict__ lse, const float* __restrict__ delta,
-                          const int* __restrict__ seg, uint16_t* __restrict__ dk,
-                          uint16_t* __restrict__ dv, int H, int S, int causal, float scale) {
-  using L = DkvSmemBf16<D>;
-  constexpr int LD = L::LD, BQ = L::BQ, NT = BQ / 8, KS = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_h[];
-  uint16_t* k_s = reinterpret_cast<uint16_t*>(smem_h);  // [64][LD]
-  uint16_t* v_s = k_s + kOwn * LD;                       // [64][LD]
-  int* segk_s = reinterpret_cast<int*>(v_s + kOwn * LD);  // [64]
-  unsigned char* ring = smem_h + L::own_bytes;
-  // stage st: q, do [BQ][LD]; lse, delta, seg [BQ]
-  auto tile = [&](int st, int i) {
-    return reinterpret_cast<uint16_t*>(ring + st * L::stage_bytes) + i * BQ * LD;
-  };
-  auto lse_s = [&](int st) {
-    return reinterpret_cast<float*>(ring + st * L::stage_bytes + 2 * (size_t)BQ * LD * 2);
-  };
-  auto delta_s = [&](int st) { return lse_s(st) + BQ; };
-  auto segq_s = [&](int st) { return reinterpret_cast<int*>(lse_s(st) + 2 * BQ); };
-
-  const int kt = blockIdx.x;
-  const int bh = blockIdx.y;
-  const int k0 = kt * kOwn;
-  const size_t base = (size_t)bh * S * D;
-  const size_t rbase = (size_t)bh * S;
-  const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
-  const int kw = warp * 16;
-
-  auto stage_load = [&](int st, int qt) {
-    const int q0 = qt * BQ;
-    cp_rows_bf16<D, BQ>(tile(st, 0), q + base, q0, S);
-    cp_rows_bf16<D, BQ>(tile(st, 1), dout + base, q0, S);
-    cp_vec<BQ>(lse_s(st), lse + rbase, q0, S);
-    cp_vec<BQ>(delta_s(st), delta + rbase, q0, S);
-    if (seg_b != nullptr) cp_vec<BQ>(segq_s(st), seg_b, q0, S);
-  };
-
-  const int nq = (S + BQ - 1) / BQ;
-  const int qt0 = causal ? k0 / BQ : 0;
-  cp_rows_bf16<D, kOwn>(k_s, k + base, k0, S);
-  cp_rows_bf16<D, kOwn>(v_s, v + base, k0, S);
-  if (seg_b != nullptr) cp_vec<kOwn>(segk_s, seg_b, k0, S);
-  stage_load(0, qt0);
-  cp_async_commit();
-
-  float dk_acc[D / 8][4], dv_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dk_acc[n][e] = dv_acc[n][e] = 0.f;
-
-  int k_lo = 0, k_hi = 0;
-  for (int qt = qt0; qt < nq; ++qt) {
-    const int st = (qt - qt0) & 1;
-    if (qt + 1 < nq) {
-      stage_load(st ^ 1, qt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();
-    const int q0 = qt * BQ;
-    bool live = true;
-    if (seg_b != nullptr) {
-      if (qt == qt0) seg_range_rows<kOwn>(segk_s, min(kOwn, S - k0), k_lo, k_hi);
-      int q_lo, q_hi;
-      seg_range_rows<BQ>(segq_s(st), min(BQ, S - q0), q_lo, q_hi);
-      live = !(k_hi < q_lo || k_lo > q_hi);
-    }
-    if (live) {
-      const uint16_t* qs = tile(st, 0);
-      const uint16_t* dos = tile(st, 1);
-      float s[NT][4], dp[NT][4];  // s^T and dp^T: key rows kw + g (+8), query columns
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t ka[4], va[4];
-        frag_a16<LD>(k_s, kw, 16 * kk, ka);
-        frag_a16<LD>(v_s, kw, 16 * kk, va);
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t qb[4], db[4];
-          frag_bt16<LD>(qs, 8 * j, 16 * kk, qb);
-          frag_bt16<LD>(dos, 8 * j, 16 * kk, db);
-          mma_bf16(s[j], ka, qb[0], qb[1]);
-          mma_bf16(s[j + 1], ka, qb[2], qb[3]);
-          mma_bf16(dp[j], va, db[0], db[1]);
-          mma_bf16(dp[j + 1], va, db[2], db[3]);
-        }
-      }
-      const bool needs_mask =
-          (causal && k0 + kOwn - 1 > q0) || q0 + BQ > S || k0 + kOwn > S || seg_b != nullptr;
-      const float* ls = lse_s(st);
-      const float* dl = delta_s(st);
-      const int* sq = seg_b != nullptr ? segq_s(st) : nullptr;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int kl = kw + g + 8 * (e >> 1);
-          const int ql = 8 * j + 2 * t + (e & 1);
-          float p = ex2(fmaf(s[j][e], scale * kLog2e, -ls[ql] * kLog2e));
-          if (needs_mask && !visible(q0 + ql, k0 + kl, S, causal, sq, segk_s, ql, kl)) p = 0.f;
-          s[j][e] = p;
-          dp[j][e] = p * (dp[j][e] - dl[ql]) * scale;
-        }
-      }
-      // dv += p^T do, dk += ds^T q: p^T and ds^T rounded to bf16 as A
-#pragma unroll
-      for (int m = 0; m < NT / 2; ++m) {
-        uint32_t pa[4], dsa[4];
-        acc_pair_as_a(s[2 * m], s[2 * m + 1], pa);
-        acc_pair_as_a(dp[2 * m], dp[2 * m + 1], dsa);
-#pragma unroll
-        for (int n = 0; n < D / 8; n += 2) {
-          uint32_t b[4];
-          frag_bn16<LD>(dos, 16 * m, 8 * n, b);
-          mma_bf16(dv_acc[n], pa, b[0], b[1]);
-          mma_bf16(dv_acc[n + 1], pa, b[2], b[3]);
-          frag_bn16<LD>(qs, 16 * m, 8 * n, b);
-          mma_bf16(dk_acc[n], dsa, b[0], b[1]);
-          mma_bf16(dk_acc[n + 1], dsa, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
-  }
-
-  store_acc_bf16<D>(dk + base, k0 + kw, S, g, t, dk_acc);
-  store_acc_bf16<D>(dv + base, k0 + kw, S, g, t, dv_acc);
 }
 
 // K3 bf16: as K3 (s = q k^T, dp = do v^T, then dq += ds k).
@@ -1279,13 +1422,16 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
 template <int D>
 int launch_fwd_bf16(const void* q, const void* k, const void* v, const void* seg, void* o,
                     void* lse, int B, int H, int S, int causal, cudaStream_t stream) {
-  const size_t smem = FwdSmemBf16<D>::bytes;
-  cudaError_t e = allow_smem(flash_fwd_bf16_kernel<D>, smem);
+  using L = FwdBf16<D>;
+  CUtensorMap q_map, k_map, v_map;
+  cudaError_t e = bf16_rows_map(&q_map, q, B * H, S, D, kOwn);
+  if (e == cudaSuccess) e = bf16_rows_map(&k_map, k, B * H, S, D, L::BK);
+  if (e == cudaSuccess) e = bf16_rows_map(&v_map, v, B * H, S, D, L::BK);
+  if (e == cudaSuccess) e = allow_smem(flash_fwd_bf16_kernel<D>, L::bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + kOwn - 1) / kOwn, B * H);
-  flash_fwd_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const int*>(seg), static_cast<uint16_t*>(o),
+  flash_fwd_bf16_kernel<D><<<grid, kWsThreads, L::bytes, stream>>>(
+      q_map, k_map, v_map, static_cast<const int*>(seg), static_cast<uint16_t*>(o),
       static_cast<float*>(lse), H, S, causal, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
@@ -1294,16 +1440,19 @@ template <int D>
 int launch_dkv_bf16(const void* q, const void* k, const void* v, const void* dout,
                     const void* lse, const void* delta, const void* seg, void* dk, void* dv, int B,
                     int H, int S, int causal, cudaStream_t stream) {
-  const size_t smem = DkvSmemBf16<D>::bytes;
-  cudaError_t e = allow_smem(flash_bwd_dkv_bf16_kernel<D>, smem);
+  using L = DkvBf16<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t e = bf16_rows_map(&q_map, q, B * H, S, D, L::BQ);
+  if (e == cudaSuccess) e = bf16_rows_map(&do_map, dout, B * H, S, D, L::BQ);
+  if (e == cudaSuccess) e = bf16_rows_map(&k_map, k, B * H, S, D, kOwn);
+  if (e == cudaSuccess) e = bf16_rows_map(&v_map, v, B * H, S, D, kOwn);
+  if (e == cudaSuccess) e = allow_smem(flash_bwd_dkv_bf16_kernel<D>, L::bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + kOwn - 1) / kOwn, B * H);
-  flash_bwd_dkv_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(seg), static_cast<uint16_t*>(dk), static_cast<uint16_t*>(dv), H, S,
-      causal, 1.0f / sqrtf((float)D));
+  flash_bwd_dkv_bf16_kernel<D><<<grid, kWsThreads, L::bytes, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<uint16_t*>(dk),
+      static_cast<uint16_t*>(dv), H, S, causal, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 
@@ -1412,6 +1561,10 @@ int flash_bwd_dq_bf16(const void* q, const void* k, const void* v, const void* d
     default: return (int)cudaErrorInvalidValue;
   }
 }
+
+// K1 bf16's key tile: the wrapper checks it against the plain version's
+// default block_k (flash_kernels.FWD_KEY_TILE_BF16)
+int flash_fwd_bf16_key_tile() { return kFwdKeyTileBf16; }
 
 const char* flash_attention_error_string(int code) {
   return cudaGetErrorString((cudaError_t)code);

@@ -57,6 +57,11 @@ NEG_INF = -1e30
 HEAD_DIMS = (32, 64, 128)
 KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 MAX_GRID_Y = 65535  # one block row per (batch, head)
+# K1's key tile in bf16 (``kFwdKeyTileBf16`` in csrc/flash_attention.cu):
+# the plain forward's default ``block_k``, so that p is rounded against
+# the running max the kernel holds; the library is checked against it when
+# it loads
+FWD_KEY_TILE_BF16 = 64
 
 
 # ---------------------------------------------------------------------
@@ -79,7 +84,7 @@ def visible_pairs(S, causal, segment_ids, device, cols=None):
 
 
 def flash_fwd_ref(q, k, v, segment_ids=None, *, causal: bool,
-                  block_k: int = 64):
+                  block_k: int = FWD_KEY_TILE_BF16):
     """The forward recurrence in plain torch: an online softmax over key
     tiles of ``block_k`` (running max ``m``, running sum ``l``, the
     output accumulator), masked entries at ``NEG_INF`` and their
@@ -158,6 +163,12 @@ def _lib():
                 fn.restype = ci
         lib.flash_attention_error_string.argtypes = [ci]
         lib.flash_attention_error_string.restype = ctypes.c_char_p
+        lib.flash_fwd_bf16_key_tile.restype = ci
+        tile = lib.flash_fwd_bf16_key_tile()
+        if tile != FWD_KEY_TILE_BF16:
+            raise RuntimeError(
+                f"the bf16 forward kernel tiles keys by {tile}, the plain "
+                f"version by FWD_KEY_TILE_BF16 = {FWD_KEY_TILE_BF16}")
         lib._typed = True
     return lib
 

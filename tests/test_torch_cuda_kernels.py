@@ -506,6 +506,14 @@ FLASH_CASES = {
                                   seg="interleaved"),
     "no_visible_key_noncausal": dict(B=1, H=2, S=128, D=64, causal=False,
                                      seg="interleaved"),
+    # S = 300: a ragged last tile of every kernel's owned and streamed rows
+    # (the bf16 K1 and K2 read it through 3-D tensor maps, which must
+    # zero-fill the rows past S, not read the next head's)
+    **{f"ragged_s300_d{D}": dict(B=2, H=2, S=300, D=D, causal=True,
+                                 seg=False) for D in (32, 64, 128)},
+    **{f"ragged_s300_d{D}_noncausal_seg": dict(B=2, H=2, S=300, D=D,
+                                               causal=False, seg=True)
+       for D in (32, 64, 128)},
 }
 
 
@@ -894,11 +902,12 @@ def test_bf16_flash_kernels_match_plain_versions(cuda_device, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])
-def test_bf16_flash_kernels_are_deterministic(cuda_device, causal):
+def test_bf16_flash_kernels_are_deterministic(cuda_device, causal, D):
     """One writer per output element in bf16 too: two launches of each
     kernel on the same inputs are bitwise equal."""
-    q, k, v, do, seg = _bf16_case(7, B=2, H=3, S=200, D=64, causal=causal,
+    q, k, v, do, seg = _bf16_case(7, B=2, H=3, S=200, D=D, causal=causal,
                                   seg=True)
     o, lse = flash_fwd(q, k, v, seg, causal=causal)
     args = (q, k, v, do, lse, flash_delta(o, do), seg)

@@ -64,19 +64,29 @@ def _j(a):
     return None if a is None else jnp.asarray(a)
 
 
-# causal, non-causal, segments, and rectangular 32 x 64 JAX blocks
+# causal, non-causal, segments, and rectangular 32 x 64 JAX blocks at
+# SHAPE; and the kernels' head dims 32, 64 and 128 at S = 96 and 160,
+# which the bf16 forward's key tile (FWD_KEY_TILE_BF16 = 64) leaves
+# ragged (the Pallas blocks divide S)
 KERNEL_CASES = {
     "causal": dict(causal=True, segments=False, blocks=(32, 32)),
     "noncausal": dict(causal=False, segments=False, blocks=(32, 32)),
     "causal_segments": dict(causal=True, segments=True, blocks=(32, 32)),
     "rect_blocks_32x64": dict(causal=True, segments=False, blocks=(32, 64)),
+    "d32_ragged_s96": dict(causal=True, segments=False, blocks=(32, 32),
+                           shape=(1, 2, 96, 32)),
+    "d64_noncausal_segments_s160": dict(causal=False, segments=True,
+                                        blocks=(32, 32),
+                                        shape=(1, 2, 160, 64)),
+    "d128_ragged_segments_s96": dict(causal=True, segments=True,
+                                     blocks=(32, 32), shape=(1, 1, 96, 128)),
 }
 
 
 @pytest.mark.parametrize("name", sorted(KERNEL_CASES))
 def test_forward_plain_version_matches_pallas_kernel(name):
     c = KERNEL_CASES[name]
-    q, k, v, _, seg = _inputs(0, segments=c["segments"])
+    q, k, v, _, seg = _inputs(0, c.get("shape", SHAPE), c["segments"])
     o_j, lse_j = _flash_fwd(_j(q), _j(k), _j(v), _j(seg), c["causal"],
                             *c["blocks"], True)
     o, lse = flash_fwd_ref(_t(q), _t(k), _t(v), _t(seg), causal=c["causal"])
@@ -88,7 +98,7 @@ def test_forward_plain_version_matches_pallas_kernel(name):
 @pytest.mark.parametrize("name", sorted(KERNEL_CASES))
 def test_backward_plain_versions_match_pallas_kernels(name):
     c = KERNEL_CASES[name]
-    q, k, v, do, seg = _inputs(1, segments=c["segments"])
+    q, k, v, do, seg = _inputs(1, c.get("shape", SHAPE), c["segments"])
     o_j, lse_j = _flash_fwd(_j(q), _j(k), _j(v), _j(seg), c["causal"],
                             *c["blocks"], True)
     dq_j, dk_j, dv_j = _flash_bwd(_j(q), _j(k), _j(v), _j(seg), o_j, lse_j,
@@ -130,7 +140,7 @@ def test_bf16_forward_plain_version_matches_pallas_kernel(name):
     """bf16 q, k, v: o within one bf16 ulp of the largest value, lse
     (f32 in both) within 1e-5."""
     c = KERNEL_CASES[name]
-    q, k, v, _, seg = _inputs(0, segments=c["segments"])
+    q, k, v, _, seg = _inputs(0, c.get("shape", SHAPE), c["segments"])
     (tq, tk, tv), (jq, jk, jv) = _bf16((q, k, v))
     o_j, lse_j = _flash_fwd(jq, jk, jv, _j(seg), c["causal"], *c["blocks"],
                             True)
@@ -146,7 +156,7 @@ def test_bf16_backward_plain_versions_match_pallas_kernels(name):
     """bf16 q, k, v, dO and the Pallas forward's o and lse: dq, dk, dv
     in bf16 within one bf16 ulp of the largest value."""
     c = KERNEL_CASES[name]
-    q, k, v, do, seg = _inputs(1, segments=c["segments"])
+    q, k, v, do, seg = _inputs(1, c.get("shape", SHAPE), c["segments"])
     (tq, tk, tv, tdo), (jq, jk, jv, jdo) = _bf16((q, k, v, do))
     o_j, lse_j = _flash_fwd(jq, jk, jv, _j(seg), c["causal"], *c["blocks"],
                             True)
@@ -491,11 +501,74 @@ def test_cpu_calls_keep_the_plain_versions_outside_the_domain():
     assert torch.equal(out, o_r)
 
 
+def test_bf16_forward_key_tile_is_one_constant():
+    """The plain forward's default ``block_k`` is the bf16 K1 kernel's key
+    tile: the constant the wrapper holds the built library to, and the
+    one the kernel source compiles (``kFwdKeyTileBf16``), so that p is
+    rounded against the same running max on both sides."""
+    import inspect
+    import re
+
+    from quintnet_tpu_torch.ops import build, flash_kernels
+
+    default = inspect.signature(flash_kernels.flash_fwd_ref).parameters[
+        "block_k"].default
+    assert default == flash_kernels.FWD_KEY_TILE_BF16
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    (tile,) = re.findall(r"constexpr int kFwdKeyTileBf16 = (\d+);", src)
+    assert int(tile) == flash_kernels.FWD_KEY_TILE_BF16
+    assert "return kFwdKeyTileBf16;" in src
+
+
+def test_library_with_another_key_tile_is_refused(monkeypatch):
+    """A flash-attention library whose bf16 forward tiles keys otherwise
+    than ``FWD_KEY_TILE_BF16`` is refused when it loads, before any
+    launch."""
+    from quintnet_tpu_torch.ops import build, flash_kernels
+
+    class Entry:
+        def __init__(self, ret=0):
+            self.ret = ret
+
+        def __call__(self, *args):
+            return self.ret
+
+    class FakeLibrary:
+        pass
+
+    lib = FakeLibrary()
+    for dt in flash_kernels.KERNEL_DTYPES.values():
+        for name in ("flash_fwd", "flash_bwd_dkv", "flash_bwd_dq"):
+            setattr(lib, f"{name}_{dt}", Entry())
+    lib.flash_attention_error_string = Entry(b"")
+    lib.flash_fwd_bf16_key_tile = Entry(2 * flash_kernels.FWD_KEY_TILE_BF16)
+    monkeypatch.setattr(build, "load", lambda name: lib)
+    with pytest.raises(RuntimeError, match="tiles keys by 128"):
+        flash_kernels._lib()
+    lib.flash_fwd_bf16_key_tile = Entry(flash_kernels.FWD_KEY_TILE_BF16)
+    assert flash_kernels._lib() is lib
+
+
 def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
     """Each library's name hashes its source and every ``csrc/*.cuh``
     header: editing a header changes both libraries' paths (so both
-    rebuild), editing a source only its own."""
+    rebuild), editing a source only its own. The port's own sources:
+    the wgmma, TMA and mbarrier header that the bf16 K1 and K2 include
+    rebuilds both libraries when it changes."""
+    import shutil
+
     from quintnet_tpu_torch.ops import build
+
+    real = tmp_path / "real"
+    shutil.copytree(build.CSRC, real)
+    assert '#include "wgmma_bf16.cuh"' in (
+        real / "flash_attention.cu").read_text()
+    monkeypatch.setattr(build, "CSRC", real)
+    libs = ("flash_attention", "paged_attention")
+    before = {n: build.library_path(n) for n in libs}
+    with open(real / "wgmma_bf16.cuh", "a") as f:
+        f.write("// edited\n")
+    assert all(build.library_path(n) != before[n] for n in libs)
 
     for name in ("a", "b"):
         (tmp_path / f"{name}.cu").write_text(f'#include "h.cuh"\n// {name}\n')
