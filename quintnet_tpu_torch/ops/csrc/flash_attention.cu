@@ -113,7 +113,6 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
-#include "mma_bf16.cuh"
 #include "mma_tf32.cuh"
 #include "wgmma_bf16.cuh"
 
@@ -704,36 +703,36 @@ flash_bwd_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict_
 // what the kernels must hide is the latency of each tile's loads and of the
 // block's own prologue (its owned rows and first stage) and epilogue.
 //
-// K1 and K2 are built for Hopper (wgmma_bf16.cuh). Times below: NVIDIA
+// All three are built for Hopper (wgmma_bf16.cuh). Times below: NVIDIA
 // H100 80GB HBM3 at 700 W, the train shape, CUDA graphs of 20 calls
 // (chip_smoke.py; PERF.md has the runs).
 //   * Warp specialisation. A block is one consumer warpgroup, which owns 64
-//     rows (queries in K1, keys in K2) and runs every product as wgmma, and
-//     one producer warp, which keeps TMA loads of the streamed tiles in
-//     flight through a ring of stages (3; 2 for K1 at D = 128). Each stage
-//     has a full mbarrier (TMA bytes plus the producer warp's 32 arrivals,
-//     after it stored the stage's short rows: segment ids, lse, delta) and an
-//     empty one (one arrival per consumer warp once the warp's products have
-//     read the stage). Blocks of 160 threads fit 3 (K1) or 2 (K2) to an SM,
-//     so one block's prologue, softmax and epilogue overlap the others'
-//     products. Alternatives measured on earlier versions of these kernels
-//     in development chip runs (same card, chip_smoke._graph_ms): a
-//     producer warpgroup with setmaxnreg (24 / 232 registers): ptxas
+//     rows (queries in K1 and K3, keys in K2) and runs every product as wgmma,
+//     and one producer warp, which keeps TMA loads of the streamed tiles in
+//     flight through a ring of stages (3; 2 for K1 and K3 at D = 128). Each
+//     stage has a full mbarrier (TMA bytes plus the producer warp's 32
+//     arrivals, after it stored the stage's short rows: segment ids, lse,
+//     delta) and an empty one (one arrival per consumer warp once the warp's
+//     products have read the stage). Blocks of 160 threads fit 3 (K1, K3) or 2
+//     (K2) to an SM at D <= 64, so one block's prologue, softmax and epilogue
+//     overlap the others' products. Alternatives measured on earlier versions
+//     of K1 and K2 in development chip runs (same card, chip_smoke._graph_ms):
+//     a producer warpgroup with setmaxnreg (24 / 232 registers): ptxas
 //     allocates one budget for the whole kernel, so at two blocks an SM it
 //     capped the consumer at 128 registers and K2 spilled (K1 0.125 ms, K2
 //     0.20), and at one block an SM only one consumer ran (0.165, 0.23); two
 //     consumer warpgroups sharing each stage (128 rows a block): 288 threads
 //     allocate registers as 384, so one block an SM (K1 0.070, K2 0.143); two
-//     64-row tiles per warpgroup in K1: spills at the 168-register cap
-//     (0.097); the next tile's q k^T issued during the softmax (double s
-//     accumulators): 0.087. This form: K1 0.061, K2 0.117 (the mma.sync
-//     kernels they replace: 0.092, 0.174).
-//   * The masks cost one compare a score: each row (K1) or key (K2) carries
+//     64-row tiles per warpgroup in K1: spills at the 168-register cap (0.097);
+//     the next tile's q k^T issued during the softmax (double s accumulators):
+//     0.087. This form: K1 0.061, K2 0.117 (the mma.sync kernels they replace:
+//     0.092, 0.174).
+//   * The masks cost one compare a score: each row (K1, K3) or key (K2) carries
 //     the limit that causality and the ragged edge set, and segment ids are
-//     read as int2 pairs. The first version tested visible() per score;
-//     ptxas turned that into predicated code on every tile, masked or not,
-//     which took 2,300 of the 4,400 cycles a tile (clock64 spans of an
-//     instrumented development build).
+//     read as int2 pairs. The first version tested visible() per score; ptxas
+//     turned that into predicated code on every tile, masked or not, which took
+//     2,300 of the 4,400 cycles a tile (clock64 spans of an instrumented
+//     development build).
 //   * TMA. q, k, v, do are read through 3-D tensor maps [B*H, S, D] (rows
 //     past S zero-filled by the hardware: a 2-D map over B*H*S rows would
 //     read the next head's rows), with the swizzle the wgmma descriptors
@@ -755,23 +754,41 @@ flash_bwd_dq_3xtf32_kernel(const float* __restrict__ q, const float* __restrict_
 //     with k and v as A; p^T and ds^T go from the accumulators to bf16
 //     register A operands of dv += p^T do and dk += ds^T q (do and q
 //     MN-major). lse and delta are read as float2, once per 8 columns.
-//   * What still limits them (clock64 spans of an instrumented development
-//     build, per K1 block of 4.5 tiles at the train shape: 12.5k cycles):
-//     the softmax on the accumulators (4.1k), waiting for q (1.7k) and for
-//     stages (0.9k), the two products (2.5k, latency: the tensor pipe is
-//     idle during the softmax unless another block fills it) and the
-//     epilogue (1.7k). Halving the softmax's instructions moved nothing, so
-//     it is latency, not instruction throughput.
+//   * K3: the block's q and do are loaded once (TMA, beside the first stage),
+//     and its rows' lse and delta once into registers (two rows a thread) while
+//     those loads fly; k, v and the key segment ids stream through the ring, 64
+//     key rows a stage at every D (kDqKeyTileBf16). s = q k^T and dp = do v^T
+//     as wgmma m64n64k16 (q, do, k, v K-major), issued before one wait; p =
+//     exp(scale s - lse) straight from the stored lse (one ex2 of an FMA: no
+//     running max) and ds = p (dp scale - delta scale) on the accumulators; ds
+//     rounded to bf16 becomes the register A operand of dq += ds k (m64nDk16),
+//     k being the same stage read MN-major through the descriptor's transpose,
+//     so no tile is copied. dq stays in f32 accumulators across the loop and is
+//     written once. Forms measured in development chip runs
+//     (chip_smoke._graph_ms; train shape / S = 4,096, B = 1): 2 blocks an SM
+//     0.074-0.076 / 0.115-0.117 ms (3 stages; 2 stages 0.076 / 0.111, 4 stages
+//     0.074 / 0.110), this form at 3 blocks an SM (128 registers, no spill)
+//     0.064-0.066 / 0.115-0.120 (2 stages the same within the spread); the dq
+//     product of tile kt left in flight while tile kt + 1's s and dp are
+//     issued: ptxas serialises the wgmma (C7518, the accumulators in flight
+//     across the loop's branches), 0.089 / 0.147 at 2 blocks and 0.072 / 0.137
+//     at 3. The mma.sync kernel it replaces: 0.132 / 0.230. At D = 128 three
+//     blocks an SM cap the registers at 128 and spill, so two.
+//   * What still limits K1 and K2 (clock64 spans of an instrumented development
+//     build, per K1 block of 4.5 tiles at the train shape: 12.5k cycles): the
+//     softmax on the accumulators (4.1k), waiting for q (1.7k) and for stages
+//     (0.9k), the two products (2.5k, latency: the tensor pipe is idle during
+//     the softmax unless another block fills it) and the epilogue (1.7k).
+//     Halving the softmax's instructions moved nothing, so it is latency, not
+//     instruction throughput.
 //   * Each output element still has one writer (no atomics), so launches are
 //     bitwise repeatable.
 //   * Waits on an mbarrier trap after kMbarMaxPolls polls: a protocol fault
 //     fails the launch instead of hanging the card.
-// K3 is the first, simple form: mma.sync.m16n8k16 on tiles staged by a
-// two-stage cp.async ring with rows padded to D + 8 elements (mma_bf16.cuh).
 
 constexpr int kFwdKeyTileBf16 = 64;  // K1's key tile (flash_kernels.FWD_KEY_TILE_BF16)
 constexpr int kWsThreads = kWarpgroup + 32;  // consumer warpgroup + producer warp
-constexpr int kRowsBf16 = 64;        // K3: key rows a stage
+constexpr int kDqKeyTileBf16 = 64;  // K3's key tile
 
 // K1 bf16: shared memory (byte offsets from a 1,024-byte boundary)
 template <int D>
@@ -1185,189 +1202,187 @@ flash_bwd_dkv_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
   }
 }
 
-// rows row0 .. row0+ROWS-1 of a [S, D] bf16 slab into smem [ROWS][D + kPadH],
-// in flight; rows past S are zero-filled
-template <int D, int ROWS>
-__device__ __forceinline__ void cp_rows_bf16(uint16_t* dst, const uint16_t* __restrict__ src,
-                                             int row0, int S) {
-  constexpr int V = D / 8;
-  for (int i = threadIdx.x; i < ROWS * V; i += kMmaThreads) {
-    const int r = i / V;
-    const int c = (i - r * V) * 8;
-    const bool ok = row0 + r < S;
-    cp_async16(dst + r * (D + kPadH) + c, src + (size_t)(ok ? row0 + r : 0) * D + c,
-               ok ? 16 : 0);
-  }
-}
-
-// the 16 rows r0.. of a warp's [16, D] accumulator into a [S, D] bf16 output
+// K3 bf16: shared memory (byte offsets from a 1,024-byte boundary). Key
+// rows a stage: 64 (kDqKeyTileBf16).
 template <int D>
-__device__ __forceinline__ void store_acc_bf16(uint16_t* __restrict__ dst, int r0, int S, int g,
-                                               int t, const float (&acc)[D / 8][4]) {
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int r = r0 + g + 8 * h;
-    if (r >= S) continue;
-#pragma unroll
-    for (int n = 0; n < D / 8; ++n)
-      *reinterpret_cast<uint32_t*>(dst + (size_t)r * D + 8 * n + 2 * t) =
-          pack_bf16(acc[n][2 * h], acc[n][2 * h + 1]);
-  }
-}
-
-// K3 bf16: as K3 (s = q k^T, dp = do v^T, then dq += ds k).
-template <int D>
-struct DqSmemBf16 {
-  static constexpr int LD = D + kPadH;
-  static constexpr int BK = kRowsBf16;
-  static constexpr size_t own_bytes =
-      2 * (size_t)kOwn * LD * 2 + 3 * kOwn * 4;  // q, do; lse, delta, seg
-  static constexpr size_t stage_bytes = 2 * (size_t)BK * LD * 2 + BK * 4;  // k, v; seg
-  static constexpr size_t bytes = own_bytes + 2 * stage_bytes;
+struct DqBf16 {
+  static constexpr int BK = kDqKeyTileBf16;
+  static constexpr int kStages = D == 128 ? 2 : 3;
+  static constexpr int kBlocksPerSm = D == 128 ? 2 : 3;
+  static constexpr int kTileOwn = kOwn * D * 2;  // q or do
+  static constexpr int kTileK = BK * D * 2;      // k or v
+  static constexpr int kQ = 0, kDo = kTileOwn;
+  static constexpr int kRing = 2 * kTileOwn;  // stage st: k at kRing + 2 st kTileK, v after it
+  static constexpr int kSeg = kRing + kStages * 2 * kTileK;  // key segment ids [kStages][BK]
+  static constexpr int kBar = kSeg + kStages * BK * 4;       // full, empty [kStages]; q and do
+  static constexpr size_t bytes = kBar + (2 * kStages + 1) * 8 + 1024;  // + alignment
 };
 
 template <int D>
-__global__ void __launch_bounds__(kMmaThreads, 1)
-flash_bwd_dq_bf16_kernel(const uint16_t* __restrict__ q, const uint16_t* __restrict__ k,
-                         const uint16_t* __restrict__ v, const uint16_t* __restrict__ dout,
+__global__ void __launch_bounds__(kWsThreads, DqBf16<D>::kBlocksPerSm)
+flash_bwd_dq_bf16_kernel(const __grid_constant__ CUtensorMap q_map,
+                         const __grid_constant__ CUtensorMap k_map,
+                         const __grid_constant__ CUtensorMap v_map,
+                         const __grid_constant__ CUtensorMap do_map,
                          const float* __restrict__ lse, const float* __restrict__ delta,
                          const int* __restrict__ seg, uint16_t* __restrict__ dq, int H, int S,
                          int causal, float scale) {
-  using L = DqSmemBf16<D>;
-  constexpr int LD = L::LD, BK = L::BK, NT = BK / 8, KS = D / 16;
-  extern __shared__ __align__(16) unsigned char smem_h[];
-  uint16_t* q_s = reinterpret_cast<uint16_t*>(smem_h);        // [64][LD]
-  uint16_t* do_s = q_s + kOwn * LD;                            // [64][LD]
-  float* lse_s = reinterpret_cast<float*>(do_s + kOwn * LD);   // [64]
-  float* delta_s = lse_s + kOwn;                               // [64]
-  int* segq_s = reinterpret_cast<int*>(delta_s + kOwn);        // [64]
-  unsigned char* ring = smem_h + L::own_bytes;
-  // stage st: k, v [BK][LD]; seg [BK]
-  auto tile = [&](int st, int i) {
-    return reinterpret_cast<uint16_t*>(ring + st * L::stage_bytes) + i * BK * LD;
-  };
-  auto segk_s = [&](int st) {
-    return reinterpret_cast<int*>(ring + st * L::stage_bytes + 2 * (size_t)BK * LD * 2);
-  };
+  using L = DqBf16<D>;
+  constexpr int BK = L::BK, NT = BK / 8, KS = D / 16, ST = L::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align1024(smem_raw);
+  int* segk_all = reinterpret_cast<int*>(sm + L::kSeg);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::kBar);
+  uint64_t* empty = full + ST;
+  uint64_t* qbar = empty + ST;
 
-  const int nt_own = (S + kOwn - 1) / kOwn;
-  const int qt = nt_own - 1 - blockIdx.x;
+  const int nt = (S + kOwn - 1) / kOwn;
+  const int qt = nt - 1 - blockIdx.x;  // longest causal rows first
   const int bh = blockIdx.y;
   const int q0 = qt * kOwn;
-  const size_t base = (size_t)bh * S * D;
   const size_t rbase = (size_t)bh * S;
   const int* seg_b = seg != nullptr ? seg + (size_t)(bh / H) * S : nullptr;
-  const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
-  const int qw = warp * 16;
+  // causal: the k tiles up to the last real query of the tile
+  const int nk = causal ? (min(q0 + kOwn, S) + BK - 1) / BK : (S + BK - 1) / BK;
 
-  auto stage_load = [&](int st, int kt) {
-    const int k0 = kt * BK;
-    cp_rows_bf16<D, BK>(tile(st, 0), k + base, k0, S);
-    cp_rows_bf16<D, BK>(tile(st, 1), v + base, k0, S);
-    if (seg_b != nullptr) cp_vec<BK>(segk_s(st), seg_b, k0, S);
-  };
-
-  const int q_end = min(q0 + kOwn, S);
-  const int nk = causal ? (q_end + BK - 1) / BK : (S + BK - 1) / BK;
-  cp_rows_bf16<D, kOwn>(q_s, q + base, q0, S);
-  cp_rows_bf16<D, kOwn>(do_s, dout + base, q0, S);
-  cp_vec<kOwn>(lse_s, lse + rbase, q0, S);
-  cp_vec<kOwn>(delta_s, delta + rbase, q0, S);
-  if (seg_b != nullptr) cp_vec<kOwn>(segq_s, seg_b, q0, S);
-  stage_load(0, 0);
-  cp_async_commit();
-
-  float dq_acc[D / 8][4];
-#pragma unroll
-  for (int n = 0; n < D / 8; ++n)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) dq_acc[n][e] = 0.f;
-
-  float lse2[2] = {0.f, 0.f}, delta_r[2] = {0.f, 0.f};
-  int q_lo = 0, q_hi = 0;
-  for (int kt = 0; kt < nk; ++kt) {
-    const int st = kt & 1;
-    if (kt + 1 < nk) {
-      stage_load(st ^ 1, kt + 1);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < ST; ++i) {
+      mbar_init(&full[i], 32);
+      mbar_init(&empty[i], 4);  // one arrival a consumer warp
     }
-    __syncthreads();
-    if (kt == 0) {
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        lse2[h] = lse_s[qw + g + 8 * h] * kLog2e;
-        delta_r[h] = delta_s[qw + g + 8 * h];
-      }
-      if (seg_b != nullptr) seg_range_rows<kOwn>(segq_s, min(kOwn, S - q0), q_lo, q_hi);
-    }
-    const int k0 = kt * BK;
-    bool live = true;
-    if (seg_b != nullptr) {
-      int k_lo, k_hi;
-      seg_range_rows<BK>(segk_s(st), min(BK, S - k0), k_lo, k_hi);
-      live = !(k_hi < q_lo || k_lo > q_hi);
-    }
-    if (live) {
-      const uint16_t* ks = tile(st, 0);
-      const uint16_t* vs = tile(st, 1);
-      float s[NT][4], dp[NT][4];
-#pragma unroll
-      for (int j = 0; j < NT; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) s[j][e] = dp[j][e] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < KS; ++kk) {
-        uint32_t qa[4], da[4];
-        frag_a16<LD>(q_s, qw, 16 * kk, qa);
-        frag_a16<LD>(do_s, qw, 16 * kk, da);
-#pragma unroll
-        for (int j = 0; j < NT; j += 2) {
-          uint32_t kb[4], vb[4];
-          frag_bt16<LD>(ks, 8 * j, 16 * kk, kb);
-          frag_bt16<LD>(vs, 8 * j, 16 * kk, vb);
-          mma_bf16(s[j], qa, kb[0], kb[1]);
-          mma_bf16(s[j + 1], qa, kb[2], kb[3]);
-          mma_bf16(dp[j], da, vb[0], vb[1]);
-          mma_bf16(dp[j + 1], da, vb[2], vb[3]);
-        }
-      }
-      const bool needs_mask =
-          (causal && k0 + BK - 1 > q0) || k0 + BK > S || q0 + kOwn > S || seg_b != nullptr;
-      const int* sk = seg_b != nullptr ? segk_s(st) : nullptr;
-#pragma unroll
-      for (int j = 0; j < NT; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const int ql = qw + g + 8 * (e >> 1);
-          const int kl = 8 * j + 2 * t + (e & 1);
-          float p = ex2(fmaf(s[j][e], scale * kLog2e, -lse2[e >> 1]));
-          if (needs_mask &&
-              !visible(q0 + ql, k0 + kl, S, causal, seg_b != nullptr ? segq_s : nullptr, sk, ql, kl))
-            p = 0.f;
-          dp[j][e] = p * (dp[j][e] - delta_r[e >> 1]) * scale;
-        }
-      }
-      // dq += ds k: ds rounded to bf16 as A
-#pragma unroll
-      for (int m = 0; m < NT / 2; ++m) {
-        uint32_t dsa[4];
-        acc_pair_as_a(dp[2 * m], dp[2 * m + 1], dsa);
-#pragma unroll
-        for (int n = 0; n < D / 8; n += 2) {
-          uint32_t b[4];
-          frag_bn16<LD>(ks, 16 * m, 8 * n, b);
-          mma_bf16(dq_acc[n], dsa, b[0], b[1]);
-          mma_bf16(dq_acc[n + 1], dsa, b[2], b[3]);
-        }
-      }
-    }
-    __syncthreads();
+    mbar_init(qbar, 1);
+    mbar_fence_init();
   }
+  __syncthreads();
 
-  store_acc_bf16<D>(dq + base, q0 + qw, S, g, t, dq_acc);
+  if (threadIdx.x >= kWarpgroup) {
+    // producer warp: q and do once, then k, v (and the key segment ids) of
+    // tile kt into stage kt % ST once the consumer has released it; all in
+    // flight together at the start
+    const int lane = threadIdx.x - kWarpgroup;
+    if (lane == 0) {
+      mbar_arrive_expect_tx(qbar, 2 * L::kTileOwn);
+      tma_rows<D, kOwn>(sm + L::kQ, &q_map, qbar, q0, bh);
+      tma_rows<D, kOwn>(sm + L::kDo, &do_map, qbar, q0, bh);
+    }
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % ST;
+      mbar_wait(&empty[st], ((kt / ST) & 1) ^ 1);
+      const int k0 = kt * BK;
+      if (seg_b != nullptr)
+        for (int i = lane; i < BK; i += 32) segk_all[st * BK + i] = k0 + i < S ? seg_b[k0 + i] : 0;
+      if (lane == 0) {
+        mbar_arrive_expect_tx(&full[st], 2 * L::kTileK);
+        unsigned char* kv = sm + L::kRing + st * 2 * L::kTileK;
+        tma_rows<D, BK>(kv, &k_map, &full[st], k0, bh);
+        tma_rows<D, BK>(kv + L::kTileK, &v_map, &full[st], k0, bh);
+      } else {
+        mbar_arrive(&full[st]);
+      }
+    }
+  } else {
+    // consumer warpgroup: warp w owns query rows 16w .. 16w + 15 of the tile
+    const int warp = threadIdx.x / 32, g = (threadIdx.x & 31) / 4, t = threadIdx.x & 3;
+    // row h (q0 + 16w + g + 8h) sees the keys c < lim[h] (causality and the
+    // ragged edge; none for a row past S) whose segment id is segq[h]; its
+    // lse (in base-2 units) and -delta scale are read once, while the first
+    // loads are in flight
+    int lim[2], segq[2] = {0, 0};
+    float lse2[2], dsc[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * warp + g + 8 * h;
+      const bool ok = row < S;
+      lim[h] = !ok ? -1 : causal ? min(row + 1, S) : S;
+      lse2[h] = ok ? lse[rbase + row] * kLog2e : 0.f;
+      dsc[h] = ok ? -delta[rbase + row] * scale : 0.f;
+      if (seg_b != nullptr && ok) segq[h] = seg_b[row];
+    }
+    int q_lo = 0, q_hi = 0;
+    if (seg_b != nullptr) seg_range_rows<kOwn>(seg_b + q0, min(kOwn, S - q0), q_lo, q_hi);
+    const uint32_t q_s = smem_u32(sm + L::kQ), do_s = smem_u32(sm + L::kDo);
+    const float scale2 = scale * kLog2e;
+    float dq_acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(qbar, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      const int st = kt % ST;
+      mbar_wait(&full[st], (kt / ST) & 1);
+      const int k0 = kt * BK;
+      const int* sk = segk_all + st * BK;
+      bool live = true;
+      if (seg_b != nullptr) {
+        int k_lo, k_hi;
+        seg_range_rows<BK>(sk, min(BK, S - k0), k_lo, k_hi);
+        live = !(k_hi < q_lo || k_lo > q_hi);
+      }
+      if (live) {
+        const uint32_t k_s = smem_u32(sm + L::kRing + st * 2 * L::kTileK);
+        const uint32_t v_s = k_s + L::kTileK;
+        // s = q k^T and dp = do v^T: query rows, key columns
+        float s[BK / 2], dp[BK / 2];
+        wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss<BK>(s, desc_k<D, kOwn>(q_s, kk), desc_k<D, BK>(k_s, kk), kk > 0);
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk)
+          wgmma_ss<BK>(dp, desc_k<D, kOwn>(do_s, kk), desc_k<D, BK>(v_s, kk), kk > 0);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(s);
+        fence_regs(dp);
+
+        // p = exp(scale s - lse) from the stored lse (no running max), then
+        // ds = p (dp scale - delta scale) in place of dp
+        const bool needs_mask =
+            (causal && k0 + BK - 1 > q0) || k0 + BK > S || q0 + kOwn > S || seg_b != nullptr;
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          int2 sv = make_int2(0, 0);
+          if (needs_mask && seg_b != nullptr) sv = *reinterpret_cast<const int2*>(sk + 8 * j + 2 * t);
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float p = ex2(fmaf(s[4 * j + e], scale2, -lse2[e >> 1]));
+            if (needs_mask) {  // one compare a score (and the ids): no per-element branches
+              bool ok = k0 + 8 * j + 2 * t + (e & 1) < lim[e >> 1];
+              if (seg_b != nullptr) ok = ok && segq[e >> 1] == ((e & 1) ? sv.y : sv.x);
+              p = ok ? p : 0.f;
+            }
+            dp[4 * j + e] = p * fmaf(dp[4 * j + e], scale, dsc[e >> 1]);
+          }
+        }
+        // dq += ds k: ds rounded to bf16 as the register A operand, k the
+        // same stage read MN-major
+        uint32_t dsa[BK / 16][4];
+#pragma unroll
+        for (int m = 0; m < BK / 16; ++m) acc_as_a16(dp, m, dsa[m]);
+        fence_regs(dsa);  // the packing lands before the fence
+        fence_regs(dq_acc);
+        wgmma_fence();
+#pragma unroll
+        for (int m = 0; m < BK / 16; ++m) wgmma_rs<D>(dq_acc, dsa[m], desc_mn<D, BK>(k_s, m), 1);
+        wgmma_commit();
+        wgmma_wait<0>();
+        fence_regs(dq_acc);
+        fence_regs(dsa);
+      }
+      __syncwarp();  // the warp's reads of the stage are done
+      if ((threadIdx.x & 31) == 0) mbar_arrive(&empty[st]);
+    }
+
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = q0 + 16 * warp + g + 8 * h;
+      if (row >= S) continue;
+      uint16_t* dqr = dq + (rbase + row) * D;
+#pragma unroll
+      for (int n = 0; n < D / 8; ++n)
+        *reinterpret_cast<uint32_t*>(dqr + 8 * n + 2 * t) =
+            pack_bf16(dq_acc[4 * n + 2 * h], dq_acc[4 * n + 2 * h + 1]);
+    }
+  }
 }
 
 // ---------------------------------------------------------------------------
@@ -1460,16 +1475,19 @@ template <int D>
 int launch_dq_bf16(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, const void* seg, void* dq, int B, int H,
                    int S, int causal, cudaStream_t stream) {
-  const size_t smem = DqSmemBf16<D>::bytes;
-  cudaError_t e = allow_smem(flash_bwd_dq_bf16_kernel<D>, smem);
+  using L = DqBf16<D>;
+  CUtensorMap q_map, k_map, v_map, do_map;
+  cudaError_t e = bf16_rows_map(&q_map, q, B * H, S, D, kOwn);
+  if (e == cudaSuccess) e = bf16_rows_map(&do_map, dout, B * H, S, D, kOwn);
+  if (e == cudaSuccess) e = bf16_rows_map(&k_map, k, B * H, S, D, L::BK);
+  if (e == cudaSuccess) e = bf16_rows_map(&v_map, v, B * H, S, D, L::BK);
+  if (e == cudaSuccess) e = allow_smem(flash_bwd_dq_bf16_kernel<D>, L::bytes);
   if (e != cudaSuccess) return (int)e;
   const dim3 grid((S + kOwn - 1) / kOwn, B * H);
-  flash_bwd_dq_bf16_kernel<D><<<grid, kMmaThreads, smem, stream>>>(
-      static_cast<const uint16_t*>(q), static_cast<const uint16_t*>(k),
-      static_cast<const uint16_t*>(v), static_cast<const uint16_t*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<const int*>(seg), static_cast<uint16_t*>(dq), H, S, causal,
-      1.0f / sqrtf((float)D));
+  flash_bwd_dq_bf16_kernel<D><<<grid, kWsThreads, L::bytes, stream>>>(
+      q_map, k_map, v_map, do_map, static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<const int*>(seg), static_cast<uint16_t*>(dq),
+      H, S, causal, 1.0f / sqrtf((float)D));
   return (int)cudaGetLastError();
 }
 

@@ -41,8 +41,6 @@
 #include <cuda.h>  // CUtensorMap and its enums (types only: no -lcuda)
 #include <cuda_runtime.h>
 
-#include "mma_bf16.cuh"  // pack_bf16
-
 namespace {
 
 constexpr int kWarpgroup = 128;  // threads of one warpgroup
@@ -158,6 +156,18 @@ template <int D, int ROWS>
 __device__ __forceinline__ uint64_t desc_mn(uint32_t base, int m) {
   using T = SwTile<D>;
   return gmma_desc<D>(base + m * 16 * T::kRowBytes, ROWS * T::kRowBytes, T::kGroup);
+}
+
+// ---- bf16 values --------------------------------------------------------------
+
+// Elements are handled as raw 16-bit patterns (uint16_t); the only
+// conversion is f32 -> bf16 by cvt.rn.bf16x2.f32 (round to nearest, ties to
+// even: what torch's .to(torch.bfloat16) and JAX's astype do). Two f32 ->
+// one register of two bf16, lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  uint32_t r;
+  asm("cvt.rn.bf16x2.f32 %0, %1, %2;" : "=r"(r) : "f"(hi), "f"(lo));
+  return r;
 }
 
 // ---- wgmma -----------------------------------------------------------------

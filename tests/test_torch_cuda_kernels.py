@@ -901,6 +901,29 @@ def test_bf16_flash_kernels_match_plain_versions(cuda_device, name):
         assert _rel_err(got.float(), want.float()) <= BF16_TOL
 
 
+BF16_VS_F32_TOL = 2.0 ** -5  # x max |ref|: four bf16 ulps of the largest
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", sorted(FLASH_CASES))
+def test_bf16_dq_matches_f32_plain_version(cuda_device, name):
+    """K3 in bf16 against the f32 plain version on the same bf16 values
+    (lse and delta from the f32 plain forward): dq within four bf16 ulps
+    of the largest value, room for the rounding of ds and of dq."""
+    c = FLASH_CASES[name]
+    q, k, v, do, seg = _bf16_case(3, **c)
+    causal = c["causal"]
+    qf, kf, vf, dof = (t.float() for t in (q, k, v, do))
+    o_f, lse_f = flash_fwd_ref(qf, kf, vf, seg, causal=causal)
+    delta = flash_delta(o_f, dof)
+    dq = flash_bwd_dq(q, k, v, do, lse_f, delta, seg, causal=causal)
+    torch.cuda.synchronize()
+    dq_f = flash_bwd_dq_ref(qf, kf, vf, dof, lse_f, delta, seg,
+                            causal=causal)
+    assert dq.dtype == torch.bfloat16 and torch.isfinite(dq).all()
+    assert _rel_err(dq.float(), dq_f) <= BF16_VS_F32_TOL
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("D", [32, 64, 128])
 @pytest.mark.parametrize("causal", [True, False])

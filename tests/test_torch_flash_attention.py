@@ -553,8 +553,8 @@ def test_library_path_follows_the_shared_headers(tmp_path, monkeypatch):
     """Each library's name hashes its source and every ``csrc/*.cuh``
     header: editing a header changes both libraries' paths (so both
     rebuild), editing a source only its own. The port's own sources:
-    the wgmma, TMA and mbarrier header that the bf16 K1 and K2 include
-    rebuilds both libraries when it changes."""
+    the wgmma, TMA and mbarrier header that the bf16 K1, K2 and K3
+    include rebuilds both libraries when it changes."""
     import shutil
 
     from quintnet_tpu_torch.ops import build
