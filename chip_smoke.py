@@ -20,7 +20,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    tails at every serve bucket (P = 32-512) and 16 and 1,024 at start 0,
    in f32 and int8, and at the offset 37 that is not block-aligned,
    GQA decode at groups 2 and 4 and GQA prefill at group 4. Flash
-   attention (K1 forward, K2 dK/dV, K3 dQ): (B, H, S) = (8, 12, 1024)
+   attention (K1 forward, K2 dK/dV, K3 dQ): (B, H, S) = (32, 12, 512)
+   causal (the train phase's micro-batch), (32, 6, 512) and (4, 6, 512)
+   causal (the mesh phase's tp2 and dp2 x tp2 ranks), (8, 12, 1024)
    causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
    causal with a ragged last tile, (8, 12, 256) non-causal and
    (1, 12, 4096) causal, each in f32 and again in bf16 (the same values
@@ -136,11 +138,34 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    micro-batches x the 8 steps run, with no call routed away from them.
    Prints the save and restore wall times and the checkpoint's bytes;
    the checkpoint lives in a temporary directory, deleted at the end.
+7. **mesh** — GPT-2 124M (f32, seed 0, dropout 0, the train phase's
+   AdamW) trained on meshes of ranks that are processes sharing
+   ``cuda:0`` over gloo (``torch.multiprocessing`` spawn, a FileStore;
+   NCCL refuses two ranks of one communicator on one device, and gloo
+   stages each collective through host memory). First the single-rank
+   references in deterministic mode (global 64 rows in 2 micro-batches,
+   and 16 rows in 4), written to a temporary file; then a 2-rank probe
+   of which collectives gloo runs on CUDA tensors (all_reduce, which the
+   path needs, must); then dp2 (one micro-batch of 32 a rank: every step
+   loss, parameter and both Adam moments equal to the reference bit for
+   bit), tp2 (2 micro-batches of 32, 6 heads a rank) and dp2 x tp2 (16
+   rows, 4 a rank and micro-batch), 2 steps each through ``Trainer.fit``
+   on every rank (tp: the first loss within 1e-5 relative, every
+   gradient leaf gathered whole and taken back through
+   ``gpt2_from_tp_layout`` within 1e-3 of its largest magnitude, the
+   step losses within 1e-4). On every rank the counts are zeroed just
+   before ``fit`` and read just after: K1, K2, K3 each n_layer x
+   micro-batches x steps, none routed; then one step timed (wall ms,
+   peak memory) and one under ``torch.profiler`` with each collective
+   entered on a drained device (the flash kernels n_layer x
+   micro-batches by name, and the share of that step inside the
+   ``collective:*`` ranges). A rank that raises or dies fails the
+   phase.
 
 Then one JSON line of per-kernel numbers (K4 once per variant the
 serve phases launched and path; K1-K3 in f32 with the train and resume
-phases' launches together, in bf16 with the train_bf16 phase's), the
-card's name and power
+phases' launches and every mesh rank's together, in bf16 with the
+train_bf16 phase's), the card's name and power
 limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is not available or the package is missing.
@@ -660,14 +685,19 @@ def _flash_cases():
     sdpa = torch.nn.functional.scaled_dot_product_attention
     gen = torch.Generator(device=DEVICE).manual_seed(4321)
     rng = np.random.default_rng(4321)
-    D, H = 64, 12
-    # the first row is the train phase's shape: micro-batch 32 of 512
-    shapes = [(TRAIN_CASE, 32, 512, True, False),
-              ("causal_B8_S1024", 8, 1024, True, False),
-              ("causal_segments_B4_S512", 4, 512, True, True),
-              ("causal_ragged_B2_S300", 2, 300, True, False),
-              ("noncausal_B8_S256", 8, 256, False, False),
-              ("causal_B1_S4096", 1, 4096, True, False)]
+    D = 64
+    # (name, B, H, S, causal, segments): the first row is the train
+    # phase's shape, micro-batch 32 of 512; the next two the mesh phase's
+    # on a tp2 rank (micro-batch 32, 6 local heads) and a dp2 x tp2 rank
+    # (micro-batch 4, 6 local heads)
+    shapes = [(TRAIN_CASE, 32, 12, 512, True, False),
+              ("mesh_tp2_B32_H6_S512", 32, 6, 512, True, False),
+              ("mesh_dp2tp2_B4_H6_S512", 4, 6, 512, True, False),
+              ("causal_B8_S1024", 8, 12, 1024, True, False),
+              ("causal_segments_B4_S512", 4, 12, 512, True, True),
+              ("causal_ragged_B2_S300", 2, 12, 300, True, False),
+              ("noncausal_B8_S256", 8, 12, 256, False, False),
+              ("causal_B1_S4096", 1, 12, 4096, True, False)]
     f32_tols = {key: ("rel", KERNEL_TOL)
                 for key in ("o", "lse", "dq", "dk", "dv")}
     bf16_tols = {"o": ("rel", BF16_TOL), "lse": ("abs", LSE_TOL_BF16),
@@ -677,7 +707,7 @@ def _flash_cases():
                       for key in ("o", "dq", "dk", "dv")},
                    "lse": ("abs", LSE_TOL_BF16)}
     results = []
-    for name, B, S, causal, use_seg in shapes:
+    for name, B, H, S, causal, use_seg in shapes:
         q32, k32, v32, do32 = (torch.randn((B, H, S, D), generator=gen,
                                            device=DEVICE) for _ in range(4))
         seg_np = _packed_segments(rng, B, S) if use_seg else None
@@ -1020,7 +1050,7 @@ def _lost_records(prof):
         if e.id not in device_ids))
 
 
-def _profiled(run, spans=(), expect=None):
+def _profiled(run, spans=(), expect=None, agree=None):
     """(profile, device ops by name) of a window of ``run()`` under
     ``torch.profiler``. The profiler drops a kernel record now and then
     (``_lost_records``); a window that lost records is reported on a line
@@ -1030,7 +1060,11 @@ def _profiled(run, spans=(), expect=None):
     again, ``PROFILED_WINDOWS`` windows at most, since the records lost
     may be the expected kernels'. The caller's gate stays exact: it
     fails on a shortfall that no lost record explains, on a count above
-    the launches, and on a shortfall still there in the last window."""
+    the launches, and on a shortfall still there in the last window.
+
+    ``agree``: where ``run()`` makes collectives, every rank must run it
+    as often as the others; ``agree(again)`` turns this rank's wish to
+    profile again into the world's (``_any_rank``)."""
     from torch.profiler import ProfilerActivity, profile
 
     for window in range(1, PROFILED_WINDOWS + 1):
@@ -1046,6 +1080,8 @@ def _profiled(run, spans=(), expect=None):
             if seen < n:
                 short[sym] = {"records": seen, "launched": n}
         again = bool(short and lost) and window < PROFILED_WINDOWS
+        if agree is not None:
+            again = agree(again)
         if lost:
             _emit({"check": "profiled window lost kernel records",
                    "window": window, "lost_records": sum(lost.values()),
@@ -1053,6 +1089,16 @@ def _profiled(run, spans=(), expect=None):
                    "profiled_again": again})
         if not again:
             return prof, by_name
+
+
+def _any_rank(flag: bool) -> bool:
+    """True on every rank when ``flag`` is true on any rank of the
+    world (a CPU tensor through the default group, gloo)."""
+    import torch.distributed as dist
+
+    t = torch.tensor([int(flag)])
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
 
 
 def _kernel_share(eng, cfg, rng, *, window_update=False) -> dict:
@@ -2034,6 +2080,437 @@ def phase_resume():
 
 
 # ---------------------------------------------------------------------
+# phase 7: GPT-2 124M on dp, tp and dp x tp meshes, the ranks on one card
+# ---------------------------------------------------------------------
+
+# name -> (mesh dims, mesh names, micro-batches a rank, global rows)
+MESH_RUNS = {
+    "dp2": ([2], ["dp"], 1, 64),
+    "tp2": ([2], ["tp"], 2, 64),
+    "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16),
+}
+MESH_STEPS = 2
+# NCCL refuses two ranks of one communicator on one card: the ranks share
+# the card over gloo, which stages every collective through host memory
+MESH_BACKEND = "gloo"
+MESH_TIMEOUT_S = 480             # one world, from spawn to the last result
+MESH_TOL = {"first_loss": 1e-5, "grad": 1e-3, "step_loss": 1e-4}
+# the collectives tried on CUDA tensors over gloo (point-to-point is not:
+# gloo would be handed a device pointer)
+PROBED = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
+          "all_to_all")
+
+
+def _mesh_config(rows, n_micro, sizes=None):
+    """The train phase's optimiser and batch on the mesh ``sizes``."""
+    from quintnet_tpu_torch.core.config import Config
+
+    d = {"training": {
+        "batch_size": rows, "gradient_accumulation_steps": n_micro,
+        "optimizer": "adamw", "learning_rate": 5e-5, "weight_decay": 0.01,
+        "grad_clip_norm": 1.0, "log_every": 0, "seed": 0}}
+    if sizes:
+        d["mesh_dim"], d["mesh_name"] = list(sizes.values()), list(sizes)
+    return Config.from_dict(d)
+
+
+def _flat_cpu(tree):
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+
+    return {".".join(k): v.detach().cpu().clone()
+            for k, v in tree_leaves(tree)}
+
+
+def _mesh_reference(cfg, host, n_micro, device, path):
+    """The single-rank run a mesh run is held to, in deterministic mode:
+    the first batch's loss and every gradient leaf (``n_micro``
+    micro-batches), then ``MESH_STEPS`` steps of ``Trainer.fit`` from the
+    same seed: the step losses, the parameters and both Adam moments.
+    Saved as CPU tensors to ``path``; returns the losses."""
+    from quintnet_tpu_torch.models.gpt2 import gpt2_model_spec
+    from quintnet_tpu_torch.parallel.dp import accumulate_grads
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    tr = Trainer(_mesh_config(len(host[0][0]), n_micro),
+                 gpt2_model_spec(cfg, use_flash=True), task_type="clm",
+                 device=device, log_fn=lambda m: None)
+    params, opt_state = tr.init_state()
+    loss, grads = accumulate_grads(tr.model.loss_fn, params,
+                                   tr.device_batch(*host[0]), n_micro)
+    ref = {"first_loss": loss.detach().cpu(),
+           "grads": {".".join(k): g.cpu() for k, g in grads.items()}}
+    del grads
+    losses = _recording(tr)
+    tr.fit(lambda ep: [host[ep]], epochs=MESH_STEPS, params=params,
+           opt_state=opt_state)
+    p, st = tr.final_state
+    ref.update(losses=[v.detach().cpu() for v in losses],
+               params=_flat_cpu(p), mu=_flat_cpu(st["mu"]),
+               nu=_flat_cpu(st["nu"]))
+    torch.save(ref, path)
+    return {"first_loss": float(loss), "losses": [float(v) for v in losses]}
+
+
+def _join_rank(rank, world, store, device):
+    """Deterministic f32 on this rank, joined to the world over
+    ``MESH_BACKEND``."""
+    from quintnet_tpu_torch.core import runtime
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if device == "cpu":
+        torch.set_num_threads(1)
+    torch.use_deterministic_algorithms(True)
+    return runtime.initialize(backend=MESH_BACKEND,
+                              init_method=f"file://{store}", rank=rank,
+                              world_size=world, device=device)
+
+
+def _probe_rank(rank, world, store, device):
+    """Which collectives gloo runs on this device's tensors: each one on a
+    small tensor, its value checked; a collective that raises is reported
+    with its message."""
+    from quintnet_tpu_torch.core import collectives as cc
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.core.mesh import mesh_from_sizes
+
+    dev = _join_rank(rank, world, store, device)
+    try:
+        ax = mesh_from_sizes(dp=world).axis("dp")
+        x = torch.arange(4.0, device=dev) + 10 * rank
+        tries = {
+            "all_reduce": (lambda: cc.all_reduce(x, ax),
+                           sum(torch.arange(4.0) + 10 * r
+                               for r in range(world))),
+            "broadcast": (lambda: _broadcast(x), torch.arange(4.0)),
+            "all_gather": (lambda: cc.all_gather(x, ax, gather_dim=0),
+                           torch.cat([torch.arange(4.0) + 10 * r
+                                      for r in range(world)])),
+            "reduce_scatter": (
+                lambda: cc.reduce_scatter(x, ax, scatter_dim=0),
+                sum(torch.arange(4.0) + 10 * r for r in range(world))
+                .chunk(world)[rank]),
+            "all_to_all": (
+                lambda: cc.all_to_all(x, ax, split_dim=0, concat_dim=0),
+                torch.cat([(torch.arange(4.0) + 10 * r).chunk(world)[rank]
+                           for r in range(world)])),
+        }
+        out = {}
+        for name in PROBED:
+            fn, want = tries[name]
+            try:
+                got = fn()
+                out[name] = ("ok" if torch.equal(got.cpu(), want)
+                             else f"wrong value {got.tolist()}")
+            except RuntimeError as e:
+                out[name] = f"raised {type(e).__name__}: {str(e)[:160]}"
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def _broadcast(x):
+    import torch.distributed as dist
+
+    y = x.clone()
+    dist.broadcast(y, src=0)
+    return y
+
+
+def _nest(flat):
+    """{"a.b.c": leaf} -> nested dicts."""
+    out = {}
+    for key, v in flat.items():
+        d = out
+        *head, last = key.split(".")
+        for k in head:
+            d = d.setdefault(k, {})
+        d[last] = v
+    return out
+
+
+def _gather_full(grads, specs, mesh, cfg, tp):
+    """Every rank's shards of a gradient (or parameter) tree ({path:
+    tensor}) gathered whole on the CPU (gloo) and taken back to the
+    standard fused-QKV layout: {"a.b": tensor}."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+    from quintnet_tpu_torch.models.gpt2 import gpt2_from_tp_layout
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
+
+    spec = {".".join(k): v for k, v in tree_leaves(specs)}
+    full = {}
+    for path, g in grads.items():
+        key = path if isinstance(path, str) else ".".join(path)
+        full[key] = gather_leaf(g.detach().cpu().contiguous(), spec[key],
+                                mesh)
+    back = gpt2_from_tp_layout(_nest(full), cfg, tp)
+    return {".".join(k): v for k, v in tree_leaves(back)}
+
+
+def _leaf_errors(got, want):
+    """key -> max |got - want| / max |want| (want's largest magnitude)."""
+    return {k: float((got[k] - want[k]).abs().max()
+                     / want[k].abs().max().clamp_min(1e-30)) for k in want}
+
+
+def _first_difference(losses, state, ref):
+    """None when a run's step losses and its ``state`` ({"params", "mu",
+    "nu"}: {key: CPU tensor}) equal the reference bit for bit; else what
+    differs first (a step loss, else the first leaf, with its largest
+    difference)."""
+    if len(losses) != len(ref["losses"]):
+        return f"{len(losses)} steps, the reference {len(ref['losses'])}"
+    for i, (a, b) in enumerate(zip(losses, ref["losses"])):
+        if not torch.equal(a, b):
+            return f"step {i} loss {float(a)!r} != {float(b)!r}"
+    for part in ("params", "mu", "nu"):
+        if set(state[part]) != set(ref[part]):
+            odd = sorted(set(state[part]) ^ set(ref[part]))
+            return f"{part}: leaves {odd}"
+        for k, v in state[part].items():
+            if not torch.equal(v, ref[part][k]):
+                d = float((v.double() - ref[part][k].double()).abs().max())
+                return f"{part}.{k}: max |diff| {d!r}"
+    return None
+
+
+def _mesh_rank(rank, world, store, run, host, ref_path, model, device):
+    """One rank of a mesh run: the first batch's loss and gradients (tp
+    runs; gathered whole and held to the reference), then the main path
+    (``Trainer.fit``, ``MESH_STEPS`` steps, launch counts zeroed just
+    before and read just after), the run held to the reference (dp: bit
+    for bit; tp: the f32 train tolerances), then on the card one step
+    timed and one profiled."""
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+    from quintnet_tpu_torch.parallel.dp import accumulate_grads
+    from quintnet_tpu_torch.parallel.train_step import reduce_grads
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    mesh_dim, mesh_name, n_micro, rows = run
+    sizes = dict(zip(mesh_name, mesh_dim))
+    tp = sizes.get("tp", 1)
+    cfg = GPT2Config(**model)
+    dev = _join_rank(rank, world, store, device)
+    try:
+        tr = Trainer(_mesh_config(rows, n_micro, sizes),
+                     gpt2_model_spec(cfg, use_flash=True), task_type="clm",
+                     device=dev, log_fn=lambda m: None)
+        strat = tr.strategy
+        ref = torch.load(ref_path, mmap=True)
+        params, opt_state = tr.init_state()
+        out = {"rank": rank, "coords": strat.mesh.coords,
+               "strategy": strat.name, "device": str(dev)}
+        if tp > 1:
+            loss_fn, _ = strat.model_fns(tr.model)
+            names = strat.mesh.axis_names
+            loss, grads = accumulate_grads(loss_fn, params,
+                                           tr.device_batch(*host[0]),
+                                           n_micro)
+            reduce_grads(grads, strat.param_specs(tr.model), strat.mesh,
+                         data_axes=tuple(a for a in strat.batch_axes
+                                         if a in names),
+                         model_axes=strat.model_axes)
+            first = float(strat.mean_over_batch(loss))
+            want = float(ref["first_loss"])
+            out["first_loss"] = first
+            out["first_loss_rel"] = abs(first - want) / abs(want)
+            err = _leaf_errors(_gather_full(
+                grads, strat.param_specs(tr.model), strat.mesh, cfg, tp),
+                ref["grads"])
+            del grads
+            worst = max(err, key=err.get)
+            out["worst_grad_leaf"], out["worst_grad_rel_err"] = (worst,
+                                                                 err[worst])
+        # the main path: counts zeroed just before, read just after
+        losses = _recording(tr)
+        _zero_counts()
+        tr.fit(lambda ep: [host[ep]], epochs=MESH_STEPS, params=params,
+               opt_state=opt_state)
+        out["launches"] = _counts()
+        out["routed"] = flash_attention.routed
+        p, st = tr.final_state
+        out["losses"] = [float(v) for v in losses]
+        out["loss_rel"] = [abs(float(a) - float(b)) / abs(float(b))
+                           for a, b in zip(losses, ref["losses"])]
+        if tp == 1:
+            out["first_difference"] = _first_difference(
+                [v.detach().cpu() for v in losses],
+                {"params": _flat_cpu(p), "mu": _flat_cpu(st["mu"]),
+                 "nu": _flat_cpu(st["nu"])}, ref)
+        del ref
+        if dev.type == "cuda":
+            out.update(_mesh_step_share(tr, p, st, host[0],
+                                        cfg.n_layer * n_micro))
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def _mesh_step_share(trainer, params, opt_state, b, per_step):
+    """One step timed (no profiler; host clock, synced) with the rank's
+    peak memory, then one step under ``torch.profiler`` in which every
+    collective starts on a drained device (``core/collectives.
+    communicate`` wrapped with a synchronize), so the ``collective:*``
+    ranges time the collectives alone: their share of that step, and the
+    flash kernels' launches in it by name."""
+    from quintnet_tpu_torch.core import collectives as cc
+
+    batch = trainer.device_batch(*b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer.step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    walls = []
+
+    def run():
+        t = time.perf_counter()
+        trainer.step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+
+    communicate = cc.communicate
+
+    def drained(*args, **kwargs):
+        torch.cuda.synchronize()
+        return communicate(*args, **kwargs)
+
+    cc.communicate = drained
+    try:
+        prof, by_name = _profiled(run, expect={
+            FLASH_SYMBOLS[k]: per_step for k in FLASH_KERNELS},
+            agree=_any_rank)
+    finally:
+        cc.communicate = communicate
+    coll = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("collective:")):
+            coll[e.name] += e.cpu_time_total / 1e3
+    launched = {k: sum(n for name, (_, n) in by_name.items()
+                       if FLASH_SYMBOLS[k] in name) for k in FLASH_KERNELS}
+    return {"step_ms": wall * 1e3, "peak_memory_gib": peak / 2 ** 30,
+            "profiled_step_ms": walls[-1] * 1e3,
+            "collective_ms": dict(coll),
+            "collective_share_of_profiled_step":
+                sum(coll.values()) / (walls[-1] * 1e3),
+            "profiled_launches": launched}
+
+
+def phase_mesh():
+    import dataclasses
+    import tempfile
+
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config.base()          # every dropout rate 0
+    seq = 512
+    ds = SummarizationDataset.synthetic(64 * 4, ByteTokenizer(),
+                                        max_length=seq, seed=0)
+    host64 = [next(iter(ds.batches(64, seed=i))) for i in range(MESH_STEPS)]
+    model = dataclasses.asdict(cfg)
+    counts = collections.Counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        refs = {}
+        torch.use_deterministic_algorithms(True)
+        try:
+            for rows, n_micro in ((64, 2), (16, 4)):
+                host = [(x[:rows], y[:rows]) for x, y in host64]
+                path = os.path.join(tmp, f"ref{rows}.pt")
+                refs[rows] = (host, path, _mesh_reference(
+                    cfg, host, n_micro, DEVICE, path))
+        finally:
+            torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+        probe = runtime.spawn_world(_probe_rank, 2, "cuda:0", timeout=120)
+        _emit({"phase": "mesh", "check": "gloo collectives on CUDA "
+               "tensors (2 ranks, cuda:0)", "results": probe[0]})
+        if probe[0]["all_reduce"] != "ok" or probe[1] != probe[0]:
+            raise AssertionError(f"gloo all_reduce on CUDA tensors: {probe}")
+        for name, run in MESH_RUNS.items():
+            mesh_dim, mesh_name, n_micro, rows = run
+            world = int(np.prod(mesh_dim))
+            host, path, ref = refs[rows]
+            print(f"mesh {name}: backend {MESH_BACKEND}, world size "
+                  f"{world}, every rank on cuda:0", flush=True)
+            t0 = time.perf_counter()
+            ranks = runtime.spawn_world(_mesh_rank, world, run, host, path,
+                                        model, "cuda:0",
+                                        timeout=MESH_TIMEOUT_S)
+            res = _check_mesh_run(name, run, ranks, ref, cfg.n_layer)
+            res["world_wall_s"] = time.perf_counter() - t0
+            _emit(res)
+            for r in ranks:
+                counts.update(r["launches"])
+    return dict(counts)
+
+
+def _check_mesh_run(name, run, ranks, ref, n_layer):
+    """The gates of one mesh run over its ranks' reports; returns the
+    run's JSON line."""
+    mesh_dim, mesh_name, n_micro, rows = run
+    per_kernel = n_layer * n_micro * MESH_STEPS
+    want = {"flash_fwd": per_kernel, "flash_bwd_dkv": per_kernel,
+            "flash_bwd_dq": per_kernel, "paged_attention": 0}
+    for r in ranks:
+        where = f"mesh {name} rank {r['rank']} {r['coords']}"
+        if r["launches"] != want:
+            raise AssertionError(f"{where}: launches {r['launches']}; "
+                                 f"expected {want} (n_layer x micro-batches"
+                                 f" x steps)")
+        if r["routed"]:
+            raise AssertionError(f"{where}: {r['routed']} calls routed away "
+                                 f"from the kernels")
+        if "profiled_launches" in r and r["profiled_launches"] != {
+                k: n_layer * n_micro for k in FLASH_KERNELS}:
+            raise AssertionError(f"{where}: profiler saw "
+                                 f"{r['profiled_launches']} flash kernels a "
+                                 f"step; expected {n_layer * n_micro} each")
+        if "first_difference" in r:
+            if r["first_difference"] is not None:
+                raise AssertionError(
+                    f"{where}: not bit-identical to the single-rank run: "
+                    f"{r['first_difference']}")
+        else:
+            if not r["first_loss_rel"] <= MESH_TOL["first_loss"]:
+                raise AssertionError(f"{where}: first loss {r['first_loss']}"
+                                     f" vs {ref['first_loss']} (rel "
+                                     f"{r['first_loss_rel']})")
+            if not r["worst_grad_rel_err"] <= MESH_TOL["grad"]:
+                raise AssertionError(
+                    f"{where}: gradient {r['worst_grad_leaf']}: max |diff| "
+                    f"/ max |ref| = {r['worst_grad_rel_err']}")
+            bad = [e for e in r["loss_rel"]
+                   if not e <= MESH_TOL["step_loss"]]
+            if bad or not all(np.isfinite(r["losses"])):
+                raise AssertionError(f"{where}: step losses {r['losses']} vs"
+                                     f" {ref['losses']}")
+    return {"phase": "mesh", "run": name,
+            "mesh": dict(zip(mesh_name, mesh_dim)), "backend": MESH_BACKEND,
+            "world_size": len(ranks), "ranks_device": "cuda:0 (shared)",
+            "model": "gpt2-124M f32 (random init, seed 0), flash attention",
+            "global_rows": rows, "seq_len": 512,
+            "micro_batches_a_rank": n_micro, "steps": MESH_STEPS,
+            "heads_a_rank": 12 // dict(zip(mesh_name, mesh_dim)).get("tp", 1),
+            "optimizer": "adamw lr 5e-5 wd 0.01 clip 1.0",
+            "reference_losses": ref["losses"],
+            "gate": ("bit for bit: step losses, params, mu, nu"
+                     if "first_difference" in ranks[0] else MESH_TOL),
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("launches", "routed")} for r in ranks],
+            "launches_a_rank": want,
+            "note": ("collectives staged through host memory by gloo; "
+                     "every rank shares one card"),
+            "card": _smi()}
+
+
+# ---------------------------------------------------------------------
 
 def _variant_of(by_variant):
     """The one K4 variant a serve run launched."""
@@ -2062,6 +2539,8 @@ def main() -> int:
     phase_vit()
     torch.cuda.empty_cache()
     _res, resume_counts = phase_resume()
+    torch.cuda.empty_cache()
+    mesh_counts = phase_mesh()
 
     def entry(name, source, replaces, launches, rows, head):
         return {"name": name, "route": "cuda", "source": source,
@@ -2091,7 +2570,8 @@ def main() -> int:
                 "quintnet_tpu/ops/paged_attention.py:91",
                 launches["by_path"].get(path, 0), rows, head))
     for name, replaces in FLASH_KERNELS.items():
-        for tag, launches in (("", train_counts[name] + resume_counts[name]),
+        for tag, launches in (("", train_counts[name] + resume_counts[name]
+                               + mesh_counts.get(name, 0)),
                               ("[bf16]", bf16_counts[name])):
             rows = [r for r in flash_rows if r["kernel"] == name + tag]
             kernels.append(entry(

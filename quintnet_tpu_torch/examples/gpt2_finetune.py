@@ -1,18 +1,24 @@
-"""GPT-2 summarization finetune on one device.
+"""GPT-2 summarization finetune on the config's dp x tp mesh.
 
-Port of ``quintnet_tpu/examples/gpt2_finetune.py``. Run::
+Port of ``quintnet_tpu/examples/gpt2_finetune.py``, one process per
+rank (``examples/common.launch``)::
 
-    python -m quintnet_tpu_torch.examples.gpt2_finetune --steps 4
     python -m quintnet_tpu_torch.examples.gpt2_finetune --tiny --steps 4 \\
-        --device cpu
+        --device cpu                                  # gloo, 4 CPU ranks
+    # 4 cards over NCCL (not yet run on cards): spawned here, or torchrun
+    python -m quintnet_tpu_torch.examples.gpt2_finetune --steps 4
+    torchrun --nproc-per-node 4 -m quintnet_tpu_torch.examples.gpt2_finetune
 
 It reads the reference finetune config (``gpt2_config.json`` beside this
 file: the JAX package's ``gpt2_config.yaml`` in JSON, which loads
 without PyYAML; ``--config`` takes either form). That config asks for a
-2 x 2 x 2 dp x tp x pp mesh; the port trains on one device, so the mesh
-is forced to one device, its dp ranks' micro-batches become gradient
-accumulation steps (the global batch and the micro-batch stay the
-reference's: 512 and 32), and the example says so. The data is the
+2 x 2 x 2 dp x tp x pp mesh with the ``zero1_adamw`` optimizer and the
+1F1B schedule. The port trains its dp and tp axes as the config says;
+pipelines and ZeRO are not ported yet (ROADMAP.md §1, item 3c), so pp =
+2 is forced to 1 (the micro-batches stay the reference's: the global
+batch 512 and 8 accumulation steps of 32 rows on each dp rank) and
+``zero1_`` is dropped (ZeRO-1 only shards AdamW's state over dp: the
+update is the same), and the example says so. The data is the
 synthetic summarization set unless ``--csv`` names an article/highlights
 file; the tokenizer is the byte-level one. Attention goes through
 ``ops.flash_attention`` (the K1-K3 kernels on the card), except that the
@@ -27,6 +33,8 @@ moment in bf16.
 
 ``--tiny`` trains a 4-layer, 32-wide GPT-2 on 64-token rows (a smoke
 run); ``--steps N`` stops each epoch after N optimizer steps.
+``--device`` and ``--backend`` choose where the ranks run
+(``examples/common.py``).
 """
 
 from __future__ import annotations
@@ -34,6 +42,8 @@ from __future__ import annotations
 import argparse
 import itertools
 import os
+
+from quintnet_tpu_torch.examples.common import add_launch_args, launch
 
 
 def main(argv=None):
@@ -48,29 +58,56 @@ def main(argv=None):
                          "train set)")
     ap.add_argument("--tiny", action="store_true",
                     help="use a tiny GPT-2 (smoke runs)")
-    ap.add_argument("--device", default="cuda")
+    add_launch_args(ap)
     ap.add_argument("--checkpoint-dir", default=None)
     args = ap.parse_args(argv)
 
+    from quintnet_tpu_torch.core.config import load_config
+
+    cfg = load_config(args.config)
+    for note in port_mesh(cfg):
+        print(note)
+    return launch(_finetune, args, cfg.mesh.world_size, cfg)
+
+
+def port_mesh(cfg):
+    """Fit the config to what the port trains, in place; returns the
+    notes to print: pp forced to 1 (the pipeline's micro-batches stay
+    each dp rank's accumulation steps) and ``zero1_``/``zero2_`` dropped
+    from the optimizer (ZeRO-1/2 shard AdamW's state and gradients over
+    dp; the update is the same), both waiting for ROADMAP.md §1, item
+    3c."""
+    from quintnet_tpu_torch.core.config import MeshConfig
+
+    notes = []
+    if cfg.pp_size > 1:
+        sizes = {a: s for a, s in cfg.mesh.axis_sizes.items() if a != "pp"}
+        notes.append(
+            f"mesh {cfg.mesh.axis_sizes}: pp = {cfg.pp_size} forced to 1 "
+            f"(pipelines are not ported yet, ROADMAP.md §1, item 3c); "
+            f"training on {sizes or {'dp': 1}}")
+        cfg.mesh = (MeshConfig(list(sizes.values()), list(sizes))
+                    if sizes else MeshConfig())
+        cfg.strategy_name = "auto"
+    opt = cfg.training.optimizer.lower()
+    if opt.startswith(("zero1_", "zero2_")):
+        notes.append(f"optimizer {cfg.training.optimizer} -> "
+                     f"{opt[len('zero1_'):]} (ZeRO state sharding is not "
+                     f"ported yet, ROADMAP.md §1, item 3c; the update is "
+                     f"the same)")
+        cfg.training.optimizer = opt[len("zero1_"):]
+    return notes
+
+
+def _finetune(args, cfg):
     import torch
 
-    from quintnet_tpu_torch.core.config import MeshConfig, load_config
+    from quintnet_tpu_torch.core import runtime
     from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
     from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
     from quintnet_tpu_torch.train.trainer import Trainer
 
-    cfg = load_config(args.config)
-    if cfg.mesh.world_size > 1:
-        # the data-parallel ranks' micro-batches become accumulation
-        # steps: the same global batch and per-device micro-batch
-        split = cfg.dp_size * cfg.ep_size
-        cfg.training.gradient_accumulation_steps *= split
-        print(f"mesh {cfg.mesh.axis_sizes} forced to one device: the port "
-              f"trains on one device (ROADMAP.md §1, slice 3); "
-              f"gradient_accumulation_steps x {split} = "
-              f"{cfg.training.gradient_accumulation_steps}")
-        cfg.mesh = MeshConfig()
-        cfg.strategy_name = "single"
+    say = print if runtime.is_main_process() else (lambda *a: None)
     if args.epochs:
         cfg.training.epochs = args.epochs
 
@@ -111,24 +148,27 @@ def main(argv=None):
                      else None)
     model = gpt2_model_spec(gcfg, remat=cfg.training.remat_mode,
                             use_flash=True, compute_dtype=compute_dtype)
+    device = runtime.device() if runtime.is_multiprocess() else args.device
     trainer = Trainer(cfg, model, task_type="clm",
-                      checkpoint_dir=args.checkpoint_dir, device=args.device)
-    print(f"strategy={trainer.strategy.name} device={trainer.device} "
-          f"gpt2 n_layer={gcfg.n_layer} n_embd={gcfg.n_embd} "
-          f"pdrops={gcfg.pdrops} dtype={cfg.training.dtype} "
-          f"adam_mu_dtype={cfg.training.adam_mu_dtype}")
+                      checkpoint_dir=args.checkpoint_dir, device=device)
+    say(f"strategy={trainer.strategy.name} mesh={trainer.strategy.mesh.shape}"
+        f" device={trainer.device} "
+        f"gpt2 n_layer={gcfg.n_layer} n_embd={gcfg.n_embd} "
+        f"pdrops={gcfg.pdrops} dtype={cfg.training.dtype} "
+        f"adam_mu_dtype={cfg.training.adam_mu_dtype}")
 
     def train_batches(epoch):
         batches = train_ds.batches(bs, seed=epoch)
         return itertools.islice(batches, args.steps) if args.steps else batches
 
-    # validation in micro-batches: a whole global batch of full-vocab
-    # logits would not fit one device
+    # validation in micro-batches (one a dp rank): a whole global batch
+    # of full-vocab logits would not fit one device
+    val_rows = micro * cfg.dp_size * cfg.ep_size
     hist = trainer.fit(
         train_batches,
-        val_batches_fn=lambda ep: val_ds.batches(micro, shuffle=False))
-    print(f"done in {hist.wall_time_s:.1f}s; "
-          f"train_loss {hist.train_loss[-1]:.4f}")
+        val_batches_fn=lambda ep: val_ds.batches(val_rows, shuffle=False))
+    say(f"done in {hist.wall_time_s:.1f}s; "
+        f"train_loss {hist.train_loss[-1]:.4f}")
     return hist
 
 

@@ -1,7 +1,7 @@
 """GPT-2 (124M "base" through XL): config, init, forward and CLM loss.
 
-Port of ``quintnet_tpu/models/gpt2.py`` for one device. Parameters keep
-the JAX pytree layout::
+Port of ``quintnet_tpu/models/gpt2.py`` (dense, with the tp hooks).
+Parameters keep the JAX pytree layout::
 
     {"embedding": {"wte": [V, D], "wpe": [T, D]},
      "blocks": {"ln1", "attn": {"qkv", "proj"}, "ln2", "mlp": {"fc",
@@ -11,8 +11,12 @@ the JAX pytree layout::
 with linear weights ``[in, out]`` and the lm head tied to ``wte``.
 :func:`gpt2_apply` is the dense causal forward — the oracle the paged
 serving path is held to on the card; :func:`gpt2_model_spec` is the
-single-device training model (forward, CLM loss, dropout from a
-``torch.Generator``, optional flash attention and remat).
+training model (forward, CLM loss, dropout from a ``torch.Generator``,
+optional flash attention and remat) on one device or, with ``tp_axis``,
+on this rank's tp shards (:func:`gpt2_partition_specs`: the blocks
+Megatron-sharded in the tp-blocked qkv layout of
+:func:`gpt2_to_tp_layout`, embeddings, LayerNorms and the tied head
+replicated).
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ class GPT2Config:
     0 = off) and ``segment_eos_id`` (packed-document isolation: a new
     attention segment starts after each such token). :meth:`from_dict`
     keeps every field named here and drops the JAX config's other keys
-    (MoE routing, vocab and sequence parallelism)."""
+    (MoE routing, sequence parallelism). ``vocab_parallel`` is carried
+    so that a tp run that asks for it raises (ROADMAP.md §1, item 6)."""
 
     vocab_size: int = 50257
     n_positions: int = 1024
@@ -61,6 +66,7 @@ class GPT2Config:
     # (serve/families.py) and where it trains (gpt2_model_spec)
     n_experts: int = 0
     padded_vocab_size: Optional[int] = None
+    vocab_parallel: bool = False
 
     @property
     def pdrops(self):
@@ -184,19 +190,25 @@ def segment_ids_from_input(input_ids, cfg: GPT2Config):
     return (torch.cumsum(is_eos, dim=1, dtype=torch.int32) - is_eos)
 
 
-def gpt2_blocks(params_blocks, h, cfg: GPT2Config, *, remat=False,
-                use_flash: bool = False, generator=None, segment_ids=None):
+def gpt2_blocks(params_blocks, h, cfg: GPT2Config, *, tp_axis=None,
+                remat=False, use_flash: bool = False, generator=None,
+                segment_ids=None):
     """The stacked causal blocks; ``generator`` enables training
-    dropout."""
+    dropout. With ``tp_axis`` (a
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) the blocks are this
+    rank's tp shards and attention runs on ``n_head / tp`` local
+    heads."""
+    tp = 1 if tp_axis is None else tp_axis.size
     _, attn_p, resid_p = cfg.pdrops
     return stacked_blocks_apply(
-        params_blocks, h, num_heads=cfg.n_head, causal=True, act=gelu,
-        use_flash=use_flash, remat=remat, attn_pdrop=attn_p,
-        resid_pdrop=resid_p, generator=generator, segment_ids=segment_ids)
+        params_blocks, h, num_heads=cfg.n_head // tp, causal=True, act=gelu,
+        tp_axis=tp_axis, use_flash=use_flash, remat=remat,
+        attn_pdrop=attn_p, resid_pdrop=resid_p, generator=generator,
+        segment_ids=segment_ids)
 
 
-def gpt2_hidden(params, input_ids, cfg: GPT2Config, *, remat=False,
-                use_flash: bool = False, generator=None):
+def gpt2_hidden(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
+                remat=False, use_flash: bool = False, generator=None):
     """embed + blocks -> final hidden states [B, T, D] (the pre-head
     half of :func:`gpt2_forward`; the chunked loss starts from here).
     The JAX twin also returns the MoE aux loss; the port is dense-only."""
@@ -204,17 +216,19 @@ def gpt2_hidden(params, input_ids, cfg: GPT2Config, *, remat=False,
         generator = None
     h = gpt2_embed(params, input_ids, embd_pdrop=cfg.pdrops[0],
                    generator=generator)
-    return gpt2_blocks(params["blocks"], h, cfg, remat=remat,
-                       use_flash=use_flash, generator=generator,
+    return gpt2_blocks(params["blocks"], h, cfg, tp_axis=tp_axis,
+                       remat=remat, use_flash=use_flash, generator=generator,
                        segment_ids=segment_ids_from_input(input_ids, cfg))
 
 
-def gpt2_forward(params, input_ids, cfg: GPT2Config, *, remat=False,
-                 use_flash: bool = False, generator=None):
+def gpt2_forward(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
+                 remat=False, use_flash: bool = False, generator=None):
     """-> logits [B, T, V] f32. ``generator``: training dropout (None is
-    eval)."""
+    eval). ``tp_axis``: the params are this rank's tp shards; the
+    logits come out whole (the tied head is replicated)."""
     return gpt2_logits(params, gpt2_hidden(params, input_ids, cfg,
-                                           remat=remat, use_flash=use_flash,
+                                           tp_axis=tp_axis, remat=remat,
+                                           use_flash=use_flash,
                                            generator=generator), cfg)
 
 
@@ -268,13 +282,62 @@ def perplexity(loss):
     return torch.exp(torch.clamp(torch.as_tensor(loss), max=20.0))
 
 
+def gpt2_partition_specs(cfg: Optional[GPT2Config] = None, *,
+                         tp_axis: Optional[str] = "tp",
+                         pp_axis: Optional[str] = None):
+    """The spec tree of :func:`gpt2_init`'s params (``parallel/tp.py``):
+    blocks column/row-sharded over ``tp_axis``, embeddings and the final
+    LayerNorm replicated (the tied head reads ``wte`` whole). A
+    vocab-parallel table (``cfg.vocab_parallel``) and ``pp_axis`` are not
+    ported yet (ROADMAP.md §1, items 6 and 3c)."""
+    from quintnet_tpu_torch.parallel.tp import block_specs
+
+    _check_mesh_options(cfg, tp_axis, pp_axis)
+    return {
+        "embedding": {"wte": (), "wpe": ()},
+        "blocks": block_specs(tp_axis=tp_axis, stacked=True),
+        "head": {"ln_f": {"scale": (), "bias": ()}},
+    }
+
+
+def _check_mesh_options(cfg, tp_axis, pp_axis) -> None:
+    if pp_axis is not None:
+        raise NotImplementedError(
+            "GPT-2 blocks sharded over a pipeline axis are not ported yet "
+            "(ROADMAP.md §1, item 3c)")
+    if cfg is not None and cfg.vocab_parallel and tp_axis is not None:
+        raise NotImplementedError(
+            "vocab_parallel GPT-2 under tp (the vocab-sharded table and "
+            "clm_loss_vp) is not ported yet (ROADMAP.md §1, item 6)")
+
+
+def gpt2_to_tp_layout(params, cfg: GPT2Config, tp: int):
+    """Standard [q|k|v] fused-QKV columns -> the tp-blocked layout
+    (``parallel/tp.py``); a new tree sharing every other leaf. Identity
+    at tp = 1."""
+    from quintnet_tpu_torch.parallel.tp import tree_qkv_layout
+
+    return tree_qkv_layout(params, cfg.n_head, tp)
+
+
+def gpt2_from_tp_layout(params, cfg: GPT2Config, tp: int):
+    """Inverse of :func:`gpt2_to_tp_layout`: back to the standard [q|k|v]
+    columns (for export, and to compare a tp run's gathered params or
+    gradients with a single-device run)."""
+    from quintnet_tpu_torch.parallel.tp import tree_qkv_layout
+
+    return tree_qkv_layout(params, cfg.n_head, tp, to_blocked=False)
+
+
 def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
                     compute_dtype=None):
-    """The single-device training model: ``init(generator)`` and
-    ``loss_fn(params, batch, generator=None)`` over ``batch =
-    (input_ids, labels)``, following the JAX ``gpt2_model_spec``'s
-    single-device loss: the chunked CLM loss when ``cfg.loss_chunk > 0``,
-    else the full-logits one. ``generator`` drives the dropout masks.
+    """The training model: ``init(generator)`` and ``loss_fn(params,
+    batch, generator=None, *, tp_axis=None)`` over ``batch = (input_ids,
+    labels)``, following the JAX ``gpt2_model_spec``'s dense loss: the
+    chunked CLM loss when ``cfg.loss_chunk > 0``, else the full-logits
+    one. ``generator`` drives the dropout masks; ``tp_axis`` runs the
+    blocks on this rank's tp shards (``partition_specs``,
+    ``to_tp_layout``).
 
     ``compute_dtype`` (``torch.bfloat16``; None is f32): the parameters
     stay f32 and are cast once per ``loss_fn`` call, and that one tree
@@ -284,7 +347,7 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     the loss are f32.
 
     Not ported (each raises ``NotImplementedError``, ROADMAP.md §1):
-    MoE configs, ``remat="dots"``."""
+    MoE configs, ``remat="dots"``, ``vocab_parallel`` under tp."""
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
 
     if cfg.n_experts > 0:
@@ -295,17 +358,21 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
             "remat='dots' is not ported; use remat=True or False "
             "(ROADMAP.md §1, slice 2)")
 
-    def loss_fn(params, batch, generator=None):
+    def loss_fn(params, batch, generator=None, *, tp_axis=None):
         input_ids, labels = batch
+        if tp_axis is not None:
+            _check_mesh_options(cfg, tp_axis, None)
         p = cast_floating(params, compute_dtype)
+        kw = dict(tp_axis=tp_axis, remat=remat, use_flash=use_flash,
+                  generator=generator)
         if cfg.loss_chunk > 0:
-            h = gpt2_hidden(p, input_ids, cfg, remat=remat,
-                            use_flash=use_flash, generator=generator)
+            h = gpt2_hidden(p, input_ids, cfg, **kw)
             return clm_loss_chunked(p, h, labels, cfg, chunk=cfg.loss_chunk)
-        return clm_loss(gpt2_forward(p, input_ids, cfg, remat=remat,
-                                     use_flash=use_flash,
-                                     generator=generator), labels)
+        return clm_loss(gpt2_forward(p, input_ids, cfg, **kw), labels)
 
-    return ModelSpec(init=lambda generator: gpt2_init(generator, cfg),
-                     loss_fn=loss_fn, depth=cfg.n_layer,
-                     needs_rng=cfg.needs_dropout)
+    return ModelSpec(
+        init=lambda generator: gpt2_init(generator, cfg),
+        loss_fn=loss_fn, depth=cfg.n_layer, needs_rng=cfg.needs_dropout,
+        partition_specs=lambda tp_axis=None: gpt2_partition_specs(
+            cfg, tp_axis=tp_axis),
+        to_tp_layout=lambda p, tp: gpt2_to_tp_layout(p, cfg, tp))

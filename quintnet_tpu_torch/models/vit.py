@@ -1,7 +1,7 @@
 """Vision Transformer for image classification (MNIST-scale).
 
-Port of ``quintnet_tpu/models/vit.py`` for one device. Parameters keep
-the JAX pytree layout::
+Port of ``quintnet_tpu/models/vit.py`` (dense, with the tp hooks).
+Parameters keep the JAX pytree layout::
 
     {"embedding": {"patch": {"w", "b"}, "cls": [1, 1, D],
                    "pos": [1, N + 1, D]},
@@ -15,15 +15,18 @@ pre-LN with a ReLU MLP and plain dense, non-causal attention, as the
 reference runs them (no flash attention: at S = 17 and head dim 16 the
 JAX package uses none either); the head reads the CLS position.
 
-Not ported: MoE ViT (``n_experts > 0``: ROADMAP.md §1, item 4) and the
-mesh hooks (partition specs, the tp layout, pipeline functions: item
-3).
+With ``tp_axis`` the blocks run on this rank's tp shards
+(:func:`vit_partition_specs`, :func:`vit_to_tp_layout`); the embedding
+and the head are replicated. Not ported: MoE ViT (``n_experts > 0``:
+ROADMAP.md §1, item 4) and the pipeline functions (item 3c).
 """
 
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
+from typing import Optional
+
 import torch
 
 from quintnet_tpu_torch.nn.attention import mha_init
@@ -36,7 +39,7 @@ from quintnet_tpu_torch.train.metrics import accuracy
 
 __all__ = ["ViTConfig", "accuracy", "cross_entropy_loss", "vit_apply",
            "vit_embed", "vit_forward", "vit_head", "vit_init",
-           "vit_model_spec"]
+           "vit_model_spec", "vit_partition_specs", "vit_to_tp_layout"]
 
 
 @dataclass(frozen=True)
@@ -142,8 +145,8 @@ def vit_head(p_head, x):
     return linear_apply(p_head["fc"], layer_norm_apply(p_head["ln"], x[:, 0]))
 
 
-def vit_forward(params, images, cfg: ViTConfig, *, remat=False,
-                compute_dtype=None, generator=None):
+def vit_forward(params, images, cfg: ViTConfig, *, tp_axis=None,
+                remat=False, compute_dtype=None, generator=None):
     """[B, H, W, C] (or [B, C, H, W], detected by the channel count) ->
     ``(logits [B, num_classes] f32, moe_aux)``; ``moe_aux`` is 0 (the
     port's ViT is dense). ``generator``: training dropout at
@@ -151,7 +154,9 @@ def vit_forward(params, images, cfg: ViTConfig, *, remat=False,
     in that order; None is eval. ``remat=True`` recomputes each block in
     backward (``torch.utils.checkpoint``). ``compute_dtype``
     (``torch.bfloat16``; None is f32) casts the images and the
-    parameters at use; the logits come back in f32."""
+    parameters at use; the logits come back in f32. ``tp_axis`` (a
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`): the blocks are this
+    rank's tp shards, attention on ``num_heads / tp`` local heads."""
     _dense_only(cfg)
     if images.ndim == 4 and images.shape[1] == cfg.in_channels \
             and images.shape[-1] != cfg.in_channels:
@@ -163,18 +168,20 @@ def vit_forward(params, images, cfg: ViTConfig, *, remat=False,
         generator = None
     x = vit_embed(params["embedding"], images, cfg.patch_size,
                   pdrop=cfg.dropout, generator=generator)
+    tp = 1 if tp_axis is None else tp_axis.size
     x = stacked_blocks_apply(
-        params["blocks"], x, num_heads=cfg.num_heads, causal=False,
-        act=torch.relu, remat=remat, attn_pdrop=cfg.dropout,
+        params["blocks"], x, num_heads=cfg.num_heads // tp, causal=False,
+        act=torch.relu, tp_axis=tp_axis, remat=remat, attn_pdrop=cfg.dropout,
         resid_pdrop=cfg.dropout, generator=generator)
     logits = vit_head(params["head"], x).float()
     return logits, torch.zeros((), device=logits.device)
 
 
-def vit_apply(params, images, cfg: ViTConfig, *, remat=False,
+def vit_apply(params, images, cfg: ViTConfig, *, tp_axis=None, remat=False,
               compute_dtype=None, generator=None):
     """Logits only — the eval and inference view."""
-    logits, _ = vit_forward(params, images, cfg, remat=remat,
+    logits, _ = vit_forward(params, images, cfg, tp_axis=tp_axis,
+                            remat=remat,
                             compute_dtype=compute_dtype, generator=generator)
     return logits
 
@@ -186,30 +193,63 @@ def cross_entropy_loss(logits, labels):
     return -logp.gather(-1, labels.long()[:, None])[:, 0].mean()
 
 
+def vit_partition_specs(cfg: Optional[ViTConfig] = None, *,
+                        tp_axis: Optional[str] = "tp",
+                        pp_axis: Optional[str] = None):
+    """The spec tree of :func:`vit_init`'s params (``parallel/tp.py``):
+    the blocks column/row-sharded over ``tp_axis``, the embedding and the
+    head replicated. ``pp_axis`` is not ported yet (ROADMAP.md §1, item
+    3c)."""
+    from quintnet_tpu_torch.parallel.tp import block_specs
+
+    if pp_axis is not None:
+        raise NotImplementedError(
+            "ViT blocks sharded over a pipeline axis are not ported yet "
+            "(ROADMAP.md §1, item 3c)")
+    return {
+        "embedding": {"patch": {"w": (), "b": ()}, "cls": (), "pos": ()},
+        "blocks": block_specs(tp_axis=tp_axis, stacked=True),
+        "head": {"ln": {"scale": (), "bias": ()},
+                 "fc": {"w": (), "b": ()}},
+    }
+
+
+def vit_to_tp_layout(params, cfg: ViTConfig, tp: int):
+    """Standard fused-QKV columns -> the tp-blocked layout
+    (``parallel/tp.py``); identity at tp = 1."""
+    from quintnet_tpu_torch.parallel.tp import tree_qkv_layout
+
+    return tree_qkv_layout(params, cfg.num_heads, tp)
+
+
 def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
-    """The single-device training model: ``loss_fn(params, (images,
-    labels), generator=None)`` (cross entropy), ``eval_metrics_fn``
-    (loss and accuracy, no dropout), both computing in
-    ``compute_dtype`` (see :func:`vit_forward`)."""
+    """The training model: ``loss_fn(params, (images, labels),
+    generator=None, *, tp_axis=None)`` (cross entropy),
+    ``eval_metrics_fn`` (loss and accuracy, no dropout), both computing
+    in ``compute_dtype`` (see :func:`vit_forward`), on one device or on
+    this rank's tp shards."""
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
 
     _dense_only(cfg)
 
-    def loss_fn(params, batch, generator=None):
+    def loss_fn(params, batch, generator=None, *, tp_axis=None):
         x, y = batch
-        logits, _ = vit_forward(params, x, cfg, remat=remat,
-                                compute_dtype=compute_dtype,
+        logits, _ = vit_forward(params, x, cfg, tp_axis=tp_axis,
+                                remat=remat, compute_dtype=compute_dtype,
                                 generator=generator)
         return cross_entropy_loss(logits, y)
 
-    def eval_metrics_fn(params, batch):
+    def eval_metrics_fn(params, batch, *, tp_axis=None):
         x, y = batch
-        logits, _ = vit_forward(params, x, cfg, remat=remat,
-                                compute_dtype=compute_dtype)
+        logits, _ = vit_forward(params, x, cfg, tp_axis=tp_axis,
+                                remat=remat, compute_dtype=compute_dtype)
         return {"loss": cross_entropy_loss(logits, y),
                 "accuracy": accuracy(logits, y)}
 
-    return ModelSpec(init=lambda generator: vit_init(generator, cfg),
-                     loss_fn=loss_fn, depth=cfg.depth,
-                     needs_rng=cfg.needs_dropout,
-                     eval_metrics_fn=eval_metrics_fn)
+    return ModelSpec(
+        init=lambda generator: vit_init(generator, cfg), loss_fn=loss_fn,
+        depth=cfg.depth, needs_rng=cfg.needs_dropout,
+        eval_metrics_fn=eval_metrics_fn,
+        partition_specs=lambda tp_axis=None: vit_partition_specs(
+            cfg, tp_axis=tp_axis),
+        to_tp_layout=lambda p, tp: vit_to_tp_layout(p, cfg, tp))

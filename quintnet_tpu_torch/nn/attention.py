@@ -1,6 +1,6 @@
 """Multi-head attention: the dense causal path and the paged serving path.
 
-Port of ``quintnet_tpu/nn/attention.py`` for one device (no tp/sp).
+Port of ``quintnet_tpu/nn/attention.py`` (tp, no sp).
 The dense half (:func:`sdpa`, :func:`mha_apply`) is the training and
 eval forward: plain attention, or with ``use_flash`` the
 ``ops.flash_attention`` dispatcher (the flash kernels on the card);
@@ -33,6 +33,7 @@ from quintnet_tpu_torch.ops.flash_attention import flash_attention
 from quintnet_tpu_torch.ops.paged_attention import (  # noqa: F401
     _gather_kv, paged_attention, paged_gather, paged_gather_dequant,
     paged_gather_scales, paged_quant_window_update, store_rows)
+from quintnet_tpu_torch.parallel.tp import row_parallel_linear
 
 
 def mha_init(generator: torch.Generator, dim: int, *, lead=()):
@@ -77,18 +78,26 @@ def sdpa(q, k, v, *, causal: bool, pdrop: float = 0.0, generator=None,
 
 
 def mha_apply(p, x, *, num_heads: int, causal: bool = False,
-              use_flash: bool = False, attn_pdrop: float = 0.0,
+              tp_axis=None, use_flash: bool = False, attn_pdrop: float = 0.0,
               resid_pdrop: float = 0.0, generator=None, segment_ids=None):
     """x [B, S, D] -> [B, S, D]: fused qkv, attention (plain, or the
     flash dispatcher with ``use_flash``), proj. With ``generator``
     (training): dropout at ``attn_pdrop`` on the attention
     probabilities and at ``resid_pdrop`` after the projection.
-    ``segment_ids`` [B, S] masks attention across packed documents."""
+    ``segment_ids`` [B, S] masks attention across packed documents.
+
+    ``num_heads`` is the number of LOCAL heads: with ``tp_axis`` (a
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) qkv is
+    column-sharded in the tp-blocked layout (``parallel/tp.py``), so this
+    rank computes ``num_heads = heads / tp`` whole heads ([B, H/tp, S,
+    Dh] into the flash kernels), and proj is row-sharded with one sum
+    over tp before its bias; the residual dropout comes after the sum,
+    so its mask agrees on every tp rank."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
     attend = flash_attention if use_flash else sdpa
     o = attend(q, k, v, causal=causal, pdrop=attn_pdrop,
                generator=generator, segment_ids=segment_ids)
-    y = linear_apply(p["proj"], _merge_heads(o))
+    y = row_parallel_linear(p["proj"], _merge_heads(o), axis=tp_axis)
     if generator is not None and resid_pdrop > 0.0:
         y = dropout(generator, y, resid_pdrop, deterministic=False)
     return y

@@ -17,6 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from quintnet_tpu_torch.core.pytree import tree_map
+from quintnet_tpu_torch.parallel.tp import row_parallel_linear
 
 
 def cast_floating(tree, dtype):
@@ -106,12 +107,17 @@ def patchify(images, patch_size: int):
     return x.reshape(b, (h // p) * (w // p), p * p * c)
 
 
-def mlp_apply(p, x, *, act=gelu, pdrop: float = 0.0, generator=None):
+def mlp_apply(p, x, *, act=gelu, tp_axis=None, pdrop: float = 0.0,
+              generator=None):
     """fc -> act -> proj (GPT-2's MLP with GELU, ViT's with
     ``act=torch.relu``); with ``generator``, dropout at
-    ``pdrop`` on the output (the reference's post-projection dropout)."""
+    ``pdrop`` on the output (the reference's post-projection dropout).
+    With ``tp_axis`` (a :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`)
+    fc is column-sharded [D, hidden/tp] and proj row-sharded [hidden/tp,
+    D]: one sum over tp after proj, the dropout after it, so its mask
+    agrees on every tp rank."""
     h = act(linear_apply(p["fc"], x))
-    y = linear_apply(p["proj"], h)
+    y = row_parallel_linear(p["proj"], h, axis=tp_axis)
     if generator is not None and pdrop > 0.0:
         y = dropout(generator, y, pdrop, deterministic=False)
     return y

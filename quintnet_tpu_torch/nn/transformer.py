@@ -1,8 +1,9 @@
 """Pre-LN transformer block (GPT-2): training/eval, paged decode,
 paged prefill and paged verify.
 
-Port of ``quintnet_tpu/nn/transformer.py`` for one device, dense MLP
-only. Block parameters arrive as ONE layer's slice of the stacked
+Port of ``quintnet_tpu/nn/transformer.py``, dense MLP only, with the
+tp hooks (``tp_axis``; sp, ep and fsdp are not ported). Block
+parameters arrive as ONE layer's slice of the stacked
 ``[L, ...]`` tree (:func:`layer_params`); a Python loop over layers
 stands in for ``lax.scan`` (:func:`stacked_blocks_apply`).
 """
@@ -38,30 +39,34 @@ def unstack_layers(tree, depth: int):
     return list(tree.unbind(0))
 
 
-def _block_mlp(p, x, *, act, pdrop: float = 0.0, generator=None):
+def _block_mlp(p, x, *, act, tp_axis=None, pdrop: float = 0.0,
+               generator=None):
     return x + mlp_apply(p["mlp"], layer_norm_apply(p["ln2"], x), act=act,
-                         pdrop=pdrop, generator=generator)
+                         tp_axis=tp_axis, pdrop=pdrop, generator=generator)
 
 
 def block_apply(p, x, *, num_heads: int, causal: bool = False,
-                act: Callable = gelu, use_flash: bool = False,
+                act: Callable = gelu, tp_axis=None, use_flash: bool = False,
                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
                 generator=None, segment_ids=None):
     """Block forward. ``generator`` turns on training dropout
     (``attn_pdrop`` on the attention probabilities, ``resid_pdrop`` after
     the attention and MLP projections); None is eval. ``use_flash``
-    sends attention through ``ops.flash_attention``."""
+    sends attention through ``ops.flash_attention``. ``tp_axis``: the
+    block's shards are tp-sharded (qkv and fc column, the projections
+    row, LayerNorms replicated) and ``num_heads`` is the local count."""
     x = x + mha_apply(p["attn"], layer_norm_apply(p["ln1"], x),
-                      num_heads=num_heads, causal=causal,
+                      num_heads=num_heads, causal=causal, tp_axis=tp_axis,
                       use_flash=use_flash, attn_pdrop=attn_pdrop,
                       resid_pdrop=resid_pdrop, generator=generator,
                       segment_ids=segment_ids)
-    return _block_mlp(p, x, act=act, pdrop=resid_pdrop, generator=generator)
+    return _block_mlp(p, x, act=act, tp_axis=tp_axis, pdrop=resid_pdrop,
+                      generator=generator)
 
 
 def stacked_blocks_apply(stacked_params, x, *, num_heads: int,
                          causal: bool = False, act: Callable = gelu,
-                         use_flash: bool = False, remat=False,
+                         tp_axis=None, use_flash: bool = False, remat=False,
                          attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
                          generator=None, segment_ids=None):
     """Run a ``[depth, ...]``-stacked block tree layer by layer.
@@ -82,7 +87,7 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int,
     if remat not in (True, False):
         raise ValueError(f"unknown remat {remat!r}")
     depth = next(tree_leaves(stacked_params))[1].shape[0]
-    kw = dict(num_heads=num_heads, causal=causal, act=act,
+    kw = dict(num_heads=num_heads, causal=causal, act=act, tp_axis=tp_axis,
               use_flash=use_flash, attn_pdrop=attn_pdrop,
               resid_pdrop=resid_pdrop, segment_ids=segment_ids)
     for p in unstack_layers(stacked_params, depth):

@@ -10,7 +10,9 @@ table or preempt the youngest admission -> one batched decode step for
 every active slot -> retire finished rows.
 
 - ``prefill``: one request at a time; the uncached tail right-padded to
-  a power-of-two bucket (``analysis/specs.prefill_buckets``). With a
+  the smallest bucket of the ladder (``prefill_bucket_sizes``, or the
+  powers of two up to ``prefill_len``:
+  ``analysis/specs.prefill_buckets``). With a
   prefix-cache hit the table references the cached blocks and the tail
   starts at an offset; a chain that ends inside a partially-filled
   cached block is copied on write into the request's first private
@@ -24,7 +26,10 @@ the hand-written CUDA kernel. PyTorch runs eagerly, so the bucket
 ladder bounds tensor shapes rather than compiled programs.
 
 Options of the JAX constructor that this port does not serve yet raise
-``NotImplementedError`` naming their ROADMAP.md item; none is ignored.
+``NotImplementedError`` naming their ROADMAP.md item unless they hold
+the JAX default ("off") value; none is ignored. ``attn_kernel`` takes
+``"xla"`` only: the port has one paged-attention path (the kernel on
+the card, its plain version on the CPU), held to JAX's XLA path.
 Host<->device traffic per step is O(max_slots) integers plus the
 sampled tokens; the pool and parameters stay on the device.
 """
@@ -32,7 +37,7 @@ sampled tokens; the pool and parameters stay on the device.
 from __future__ import annotations
 
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -60,7 +65,31 @@ _NOT_PORTED = {
     "weights_dtype": "'Serving features': serve/weight_quant.py",
     "temperature": "'Generation': per-request RNG chain for sampled "
                    "serving",
+    "top_k": "§1, item 5 ('Generation and sampled serving'): top-k "
+             "sampling",
+    "top_p": "§1, item 5 ('Generation and sampled serving'): top-p "
+             "sampling",
+    "tp_axis": "§1, item 7 ('Serving features'): tp and ep serving meshes",
+    "lora_targets": "§1, item 7 ('Serving features'): serve/adapters.py "
+                    "(multi-LoRA)",
+    "lora_max_rank": "§1, item 7 ('Serving features'): serve/adapters.py "
+                     "(multi-LoRA)",
+    "lora_rank_bucket_sizes": "§1, item 7 ('Serving features'): "
+                              "serve/adapters.py (multi-LoRA)",
+    "prefill_chunk_budget": "§1, item 7 ('Serving features'): "
+                            "serve/longctx.py (chunked prefill)",
+    "kv_tier_promote_budget_bytes": "§1, item 7 ('Serving features'): "
+                                    "serve/kv_tier.py (host KV tier)",
+    "logger": "§1, item 8 ('Fleet, obs and ft'): the engine's logger",
+    "log_every": "§1, item 8 ('Fleet, obs and ft'): the engine's logger",
+    "clock": "§1, item 8 ('Fleet, obs and ft'): the engine's clock",
+    "tracer": "§1, item 8 ('Fleet, obs and ft'): obs/ tracing",
+    "recorder": "§1, item 8 ('Fleet, obs and ft'): obs/ flight recorder",
 }
+# the JAX constructor's default of each option above that has one other
+# than None/False/0: passing it is passing nothing
+_JAX_OFF = {"top_p": 1.0, "tp_axis": "tp", "lora_max_rank": 8,
+            "clock": time.monotonic}
 
 
 def _not_ported(option: str, value):
@@ -71,12 +100,13 @@ def _not_ported(option: str, value):
 
 def check_admissible(prompt_len: int, max_new_tokens: int, *,
                      max_seq_len: int, usable_blocks: int,
-                     block_size: int) -> None:
+                     block_size: int,
+                     prefill_len: Optional[int] = None) -> None:
     """Submit-time rejection of requests an engine with these limits
     can NEVER run (standalone, so a dispatcher holding only
-    ``limits()`` can check too). The prefill buckets cover
-    ``max_seq_len``, so a preemption-resume prefill of prompt +
-    generated always fits one."""
+    ``limits()`` can check too). A preemption-resume prefills prompt +
+    generated (up to total - 1 tokens), so ``prefill_len`` (default:
+    ``max_seq_len``) must cover that."""
     if prompt_len < 1:
         raise ValueError("empty prompt")
     if max_new_tokens < 1:
@@ -86,6 +116,11 @@ def check_admissible(prompt_len: int, max_new_tokens: int, *,
         raise ValueError(
             f"prompt {prompt_len} + max_new {max_new_tokens} "
             f"exceeds max_seq_len={max_seq_len}")
+    if prefill_len is not None and total - 1 > prefill_len:
+        raise ValueError(
+            f"prompt {prompt_len} + max_new {max_new_tokens} - 1 "
+            f"exceeds prefill_len={prefill_len} (resume after preemption "
+            f"prefills prompt + generated tokens)")
     worst = -(-total // block_size)
     if worst > usable_blocks:
         raise ValueError(
@@ -103,20 +138,50 @@ class ServeEngine:
     def __init__(self, family: Family, params, *, device="cuda",
                  max_slots: int = 8, block_size: int = 16,
                  num_blocks: int = 64, max_seq_len: Optional[int] = None,
+                 prefill_len: Optional[int] = None,
+                 prefill_bucket_sizes: Optional[Sequence[int]] = None,
                  prefix_cache: bool = True, spec=None, adapters=None,
+                 lora_targets: Optional[Sequence[str]] = None,
+                 lora_max_rank: int = 8,
+                 lora_rank_bucket_sizes: Optional[Sequence[int]] = None,
                  eos_token_id: Optional[int] = None,
-                 temperature: float = 0.0, policy: str = "fcfs",
-                 mesh=None, sp_axis: Optional[str] = None,
+                 temperature: float = 0.0, top_k: int = 0,
+                 top_p: float = 1.0, policy: str = "fcfs",
+                 mesh=None, tp_axis: str = "tp",
+                 sp_axis: Optional[str] = None,
                  ep_axis: Optional[str] = None,
-                 chunked_prefill: bool = False, kv_dtype=None,
-                 weights_dtype=None, kv_tier_bytes: int = 0):
+                 chunked_prefill: bool = False,
+                 prefill_chunk_budget: Optional[int] = None,
+                 kv_dtype=None, weights_dtype=None, kv_tier_bytes: int = 0,
+                 kv_tier_promote_budget_bytes: Optional[int] = None,
+                 attn_kernel: str = "xla", logger=None, log_every: int = 0,
+                 clock=time.monotonic, tracer=None, recorder=None):
         for option, value in (
                 ("spec", spec), ("adapters", adapters),
                 ("kv_tier_bytes", kv_tier_bytes),
                 ("chunked_prefill", chunked_prefill), ("mesh", mesh),
-                ("sp_axis", sp_axis), ("ep_axis", ep_axis)):
-            if value not in (None, False, 0):  # the JAX "off" values
-                _not_ported(option, value)
+                ("sp_axis", sp_axis), ("ep_axis", ep_axis),
+                ("top_k", top_k), ("top_p", top_p), ("tp_axis", tp_axis),
+                ("lora_targets", lora_targets),
+                ("lora_max_rank", lora_max_rank),
+                ("lora_rank_bucket_sizes", lora_rank_bucket_sizes),
+                ("prefill_chunk_budget", prefill_chunk_budget),
+                ("kv_tier_promote_budget_bytes",
+                 kv_tier_promote_budget_bytes),
+                ("logger", logger), ("log_every", log_every),
+                ("clock", clock), ("tracer", tracer),
+                ("recorder", recorder)):
+            off = _JAX_OFF.get(option)
+            if value is off or value in (None, False, 0) or (
+                    off is not None and not callable(off) and value == off):
+                continue                        # the JAX "off" value
+            _not_ported(option, value)
+        if attn_kernel != "xla":
+            raise ValueError(
+                f"attn_kernel={attn_kernel!r}: the port takes 'xla' only — "
+                f"it has one paged-attention path (ops/paged_attention: "
+                f"the kernel on the card, its plain version on the CPU), "
+                f"held to the JAX engine's attn_kernel='xla'")
         if weights_dtype not in (None, "f32"):
             _not_ported("weights_dtype", weights_dtype)
         if temperature > 0.0:
@@ -134,9 +199,21 @@ class ServeEngine:
             raise ValueError(
                 f"max_seq_len {self.max_seq_len} exceeds the model's "
                 f"n_positions {family.max_positions}")
-        # a preemption-resume prefills prompt + generated, up to the
-        # whole sequence, so the bucket ladder covers max_seq_len
-        self.prefill_buckets = prefill_buckets(self.max_seq_len)
+        # a preemption-resume prefills prompt + generated, up to
+        # prefill_len (default: the whole sequence), so the ladder must
+        # cover it
+        self.prefill_len = int(prefill_len or self.max_seq_len)
+        buckets = tuple(sorted(set(
+            int(b) for b in (prefill_bucket_sizes
+                             or prefill_buckets(self.prefill_len)))))
+        if not buckets or buckets[0] < 1:
+            raise ValueError(f"invalid prefill buckets {buckets}")
+        if buckets[-1] < self.prefill_len:
+            raise ValueError(
+                f"largest prefill bucket {buckets[-1]} does not cover "
+                f"prefill_len={self.prefill_len} (a preemption-resume "
+                f"prefill can need the full length)")
+        self.prefill_buckets = buckets
 
         self.kv_policy = make_policy(
             kv_dtype if kv_dtype is not None else family.kv_dtype)
@@ -215,6 +292,7 @@ class ServeEngine:
     def limits(self) -> Dict[str, int]:
         """The admissibility bounds :func:`check_admissible` takes."""
         return {"max_seq_len": self.max_seq_len,
+                "prefill_len": self.prefill_len,
                 "usable_blocks": self.pool.usable_blocks,
                 "block_size": self.pool.block_size}
 

@@ -79,8 +79,9 @@ def gpt2_family(cfg) -> Family:
             "features': MoE serving)")
     if cfg.padded_vocab_size:
         raise NotImplementedError(
-            "padded-vocab GPT-2 serving is not ported yet (ROADMAP.md, "
-            "'GPT-2': mask_padded_cols with a padded vocab)")
+            "padded-vocab GPT-2 serving is not ported yet (ROADMAP.md §1, "
+            "item 7, 'Serving features': padded-vocab GPT-2, "
+            "mask_padded_cols)")
     L = cfg.n_layer
 
     def prefill_from(params, k_pool, v_pool, ids, start: int, t0: int,

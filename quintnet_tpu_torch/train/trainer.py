@@ -23,9 +23,18 @@ does not read ``training.dtype``: the bf16 compute it names is the
 model's (``gpt2_model_spec(compute_dtype=)``), chosen by the example
 (``examples/gpt2_finetune.py``).
 
+On a mesh (strategies ``dp``, ``tp``, ``dp_tp``: one process per rank,
+``core/runtime.initialize`` first) every rank builds the same full
+parameters from the seed and keeps its shards
+(``Strategy.shard_params``), each step cuts the global batch to the
+rank's rows (``Strategy.shard_batch``), only rank 0 logs, and
+validation metrics are averaged over dp.
+
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): preemption handling, fault injection and goodput (``ft=``, item
-8), every strategy but ``single`` (item 3), ``remat_policy="dots"``.
+8), checkpoints of a run over more than one rank (sharded checkpoints,
+item 3c), the strategies with pp, ep or sp (``get_strategy``),
+``remat_policy="dots"``.
 The JAX loop's host-side knobs for its asynchronous dispatch
 (``sync_every``, ``prefetch``) have no use in the eager port and are
 ignored.
@@ -43,6 +52,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from quintnet_tpu_torch.core import runtime
 from quintnet_tpu_torch.core.config import Config
 from quintnet_tpu_torch.core.device import resolve_device
 from quintnet_tpu_torch.core.pytree import DECAY_KEYS, tree_leaves, tree_map
@@ -297,7 +307,8 @@ def _as_params(tree):
 
 
 class Trainer:
-    """``fit()`` over ``(x, y)`` numpy batches on one device.
+    """``fit()`` over ``(x, y)`` numpy batches on one device or on this
+    rank of a mesh.
 
     ``task_type``: ``"classification"`` (the model's ``eval_metrics_fn``
     gives accuracy) or ``"clm"`` (adds perplexity to the epoch log and to
@@ -323,7 +334,15 @@ class Trainer:
         self.task_type = task_type
         self.checkpoint_dir = checkpoint_dir
         self.log = log_fn
+        if checkpoint_dir and self.strategy.mesh.size > 1:
+            raise NotImplementedError(
+                f"checkpoint_dir on a mesh of {self.strategy.mesh.size} ranks "
+                f"(sharded checkpoints) is not ported yet (ROADMAP.md §1, "
+                f"item 3c)")
+        if not runtime.is_main_process():
+            self.log = lambda msg: None     # one log per job: rank 0
         self.step_fn = self.strategy.make_train_step(model, self.optimizer)
+        self._loss_fn, self._eval_fn = self.strategy.model_fns(model)
         self._mgrs: Dict[str, object] = {}
         self._last_ckpt_step = None     # newest step written or restored
         # steps the restore fallback proved unreadable: replay re-reaches
@@ -339,11 +358,14 @@ class Trainer:
     def init_state(self, seed: Optional[int] = None):
         """Fresh parameters from ``model.init`` with a generator on the
         trainer's device seeded from ``training.seed`` (or ``seed``), and
-        a fresh optimizer state."""
+        a fresh optimizer state. On a mesh every rank draws the same full
+        parameters and keeps its shards."""
         seed = self.config.training.seed if seed is None else seed
         gen = torch.Generator(device=self.device).manual_seed(seed)
-        params = _as_params(self.model.init(gen))
-        return params, self.optimizer.init(params)
+        params = _as_params(self.strategy.shard_params(
+            self.model, self.model.init(gen)))
+        return params, self.strategy.init_opt_state(self.model,
+                                                    self.optimizer, params)
 
     def resume_or_init(self, seed: Optional[int] = None):
         """``(params, opt_state, start_epoch)`` from the newest checkpoint
@@ -463,40 +485,47 @@ class Trainer:
             mgr.wait_until_finished()
 
     def device_batch(self, xb, yb):
-        """A host ``(x, y)`` pair -> tensors on the trainer's device:
-        floating arrays (images) as f32, integer ones (token ids, labels)
-        as int64."""
+        """A host ``(x, y)`` global batch -> this rank's rows
+        (``Strategy.shard_batch``; all of them on one device) as tensors
+        on the trainer's device: floating arrays (images) as f32, integer
+        ones (token ids, labels) as int64."""
         def put(a):
             t = torch.as_tensor(np.asarray(a))
             dtype = torch.float32 if t.is_floating_point() else torch.int64
             return t.to(self.device, dtype=dtype, non_blocking=True)
 
+        xb, yb = self.strategy.shard_batch((xb, yb))
         return put(xb), put(yb)
 
     def step_generator(self, epoch: int, step: int):
         """The dropout generator of one step, seeded from (config seed,
-        epoch, step) as the JAX trainer seeds its step; None when the
-        model has no dropout."""
+        epoch, step) as the JAX trainer seeds its step, with this rank's
+        dp coordinate folded in on a mesh
+        (``Strategy.dropout_generator``); None when the model has no
+        dropout."""
         if not self.model.needs_rng:
             return None
         seed = (self.config.training.seed * 2_000_003 + epoch * 1_000_003
                 + step) & 0x7FFFFFFF
-        return torch.Generator(device=self.device).manual_seed(seed)
+        return self.strategy.dropout_generator(seed, self.device)
 
     # -- evaluation ----------------------------------------------------
     def evaluate(self, params, batches: Iterable) -> Dict[str, float]:
         """The mean over ``batches`` of each metric (no dropout, no
         gradients): the model's ``eval_metrics_fn`` where it has one
-        (ViT: loss and accuracy), else its loss; clm adds perplexity."""
-        fn = self.model.eval_metrics_fn
+        (ViT: loss and accuracy), else its loss; clm adds perplexity. On
+        a mesh each batch's metrics are averaged over the dp ranks'
+        rows first."""
+        fn = self._eval_fn
         acc: Dict[str, list] = {}
         with torch.no_grad():
             for xb, yb in batches:
                 batch = self.device_batch(xb, yb)
                 mets = (fn(params, batch) if fn is not None
-                        else {"loss": self.model.loss_fn(params, batch)})
+                        else {"loss": self._loss_fn(params, batch)})
                 for k, v in mets.items():
-                    acc.setdefault(k, []).append(v)
+                    acc.setdefault(k, []).append(
+                        self.strategy.mean_over_batch(v))
         # one device->host read per metric, then the mean of the batch
         # values in f64, as the JAX trainer takes it
         out = {k: float(np.mean(torch.stack(vs).tolist()))

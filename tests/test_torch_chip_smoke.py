@@ -106,3 +106,117 @@ def test_shortfall_reaches_the_gate(windows, lost):
     _, by_name = chip_smoke._profiled(lambda: None, expect={"flash": 4})
     assert len(used) == (chip_smoke.PROFILED_WINDOWS if lost else 1)
     assert by_name["void flash<64>(...)"][1] == 3
+
+
+def _profiled_rank(rank, world, firsts):
+    """``_profiled`` on one rank of a gloo world with stand-in windows,
+    the first made from ``firsts[rank]`` ((kernels, lost) for
+    ``_window``), then full ones; each ``run()`` makes one all-reduce, as
+    a training step does. Returns (steps run, flash records returned)."""
+    import torch.distributed as dist
+
+    windows = [_window(*firsts[rank])] + [_window({"flash": 4})] * 2
+
+    class Profile:
+        def __init__(self, activities):
+            pass
+
+        def __enter__(self):
+            return windows.pop(0)
+
+        def __exit__(self, *exc):
+            return False
+
+    torch.profiler.profile = Profile       # this rank's own process
+    torch.cuda.synchronize = lambda: None
+    steps = []
+
+    def run():
+        t = torch.ones(1)
+        dist.all_reduce(t)
+        steps.append(float(t))
+
+    _, by_name = chip_smoke._profiled(run, expect={"flash": 4},
+                                      agree=chip_smoke._any_rank)
+    dist.barrier()
+    return len(steps), by_name["void flash<64>(...)"][1]
+
+
+def test_profiling_again_is_the_worlds_decision(tmp_path):
+    """Rank 0's first window came short beside a lost record, rank 1's
+    did not: both profile a second window, so every rank runs as many
+    steps (with their collectives) and none waits on the other."""
+    from _torch_dist import run_world
+
+    firsts = [({"flash": 3}, ["(no op)"]), ({"flash": 4}, [])]
+    assert run_world(_profiled_rank, 2, tmp_path, firsts, timeout=60) == [
+        (2, 4), (2, 4)]
+
+
+# ---------------------------------------------------------------------
+# the mesh phase's host side, on CPU ranks at a tiny size
+# ---------------------------------------------------------------------
+
+def test_first_difference_names_what_differs_first():
+    ref = {"losses": [torch.tensor(2.0), torch.tensor(1.5)],
+           "params": {"a.w": torch.ones(3), "b": torch.zeros(2)},
+           "mu": {"a.w": torch.ones(3), "b": torch.zeros(2)},
+           "nu": {"a.w": torch.ones(3), "b": torch.zeros(2)}}
+    state = {k: {n: t.clone() for n, t in ref[k].items()}
+             for k in ("params", "mu", "nu")}
+    losses = [t.clone() for t in ref["losses"]]
+    assert chip_smoke._first_difference(losses, state, ref) is None
+    state["mu"]["b"][1] = 0.5
+    assert chip_smoke._first_difference(losses, state, ref) == \
+        "mu.b: max |diff| 0.5"
+    state["params"]["a.w"][0] = torch.nextafter(torch.tensor(1.0),
+                                                torch.tensor(2.0))
+    assert chip_smoke._first_difference(losses, state, ref).startswith(
+        "params.a.w")
+    losses[1] = torch.tensor(1.5000001)
+    assert chip_smoke._first_difference(losses, state, ref).startswith(
+        "step 1 loss")
+    assert "steps" in chip_smoke._first_difference(losses[:1], state, ref)
+
+
+def test_mesh_tp2_run_on_two_cpu_ranks(tmp_path):
+    """``runtime.spawn_world`` runs ``_mesh_rank`` on two gloo CPU ranks (tp = 2,
+    tiny GPT-2): the results come back by rank, the first-batch gradients
+    gathered whole from the tp shards (``_gather_full``) match the
+    single-rank reference within the phase's f32 gates, and a rank that
+    raises fails the call."""
+    import dataclasses
+
+    import numpy as np
+
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config.tiny(n_layer=2)
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 128, (8, 32)), rng.integers(0, 128, (8, 32)))
+            for _ in range(chip_smoke.MESH_STEPS)]
+    path = str(tmp_path / "ref.pt")
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = chip_smoke._mesh_reference(cfg, host, 2, "cpu", path)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    run = ([2], ["tp"], 2, 8)
+    ranks = runtime.spawn_world(chip_smoke._mesh_rank, 2, run, host, path,
+                                dataclasses.asdict(cfg), "cpu", timeout=120,
+                                store_dir=str(tmp_path))
+    assert [r["rank"] for r in ranks] == [0, 1]
+    assert [r["coords"] for r in ranks] == [{"tp": 0}, {"tp": 1}]
+    for r in ranks:
+        assert r["strategy"] == "tp"
+        assert r["first_loss_rel"] <= chip_smoke.MESH_TOL["first_loss"]
+        assert r["worst_grad_rel_err"] <= 1e-5        # f32 on the CPU
+        assert max(r["loss_rel"]) <= chip_smoke.MESH_TOL["step_loss"]
+        assert r["losses"] == ranks[0]["losses"]
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=1e-5)
+    with pytest.raises(AssertionError, match=r"rank \d raised"):
+        runtime.spawn_world(chip_smoke._mesh_rank, 2, ([2], ["dp"], 1, 8),
+                            host, str(tmp_path / "missing.pt"),
+                            dataclasses.asdict(cfg), "cpu", timeout=120,
+                            store_dir=str(tmp_path))

@@ -33,7 +33,10 @@ def test_importing_every_module_loads_no_jax():
               "train.metrics", "examples.gpt2_finetune", "models.vit",
               "train.checkpoint", "ft.cursor", "ft.restore", "ft.preempt",
               "utils.safetensors_io", "utils.profiling", "utils.logger",
-              "tools.verify_vit", "examples.train_single_device"):
+              "tools.verify_vit", "examples.train_single_device",
+              "core.runtime", "core.mesh", "core.collectives",
+              "parallel.dp", "parallel.tp", "examples.simple_dp",
+              "examples.simple_tp"):
         assert f"quintnet_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -10,6 +10,8 @@ preemption under a small pool. Plus the port's own surfaces
 against the JAX twins, and every option that is not ported raising.
 """
 
+import time
+
 import jax
 import numpy as np
 import pytest
@@ -200,6 +202,76 @@ def test_unported_options_raise(params, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(gpt2_family(CFG), params[1], device="cpu",
                     **{option: value})
+
+
+def test_custom_prefill_ladder_streams_identical_to_jax(params):
+    """``prefill_len`` and ``prefill_bucket_sizes`` as the JAX engine
+    takes them (``quintnet_tpu/serve/engine.py:470-483``): the same
+    ladder, the same greedy streams."""
+    kw = dict(prefill_len=24, prefill_bucket_sizes=(24, 6, 12, 6))
+    je, te = _engines(params, **kw)
+    assert te.prefill_buckets == je.prefill_buckets == (6, 12, 24)
+    assert te.limits()["prefill_len"] == 24
+    script = [(0, p, 6) for p in _prompts(3, (5, 9, 3, 13, 7))]
+    for w, g in zip(_drive(je, script), _drive(te, script)):
+        np.testing.assert_array_equal(g, w)
+    for eng in (je, te):     # prompt + new - 1 past prefill_len: never
+        with pytest.raises(ValueError, match="prefill_len"):
+            eng.submit(_prompts(4, (20,))[0], 8)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(prefill_len=24, prefill_bucket_sizes=(4, 8, 16)),
+    dict(prefill_bucket_sizes=(8, 16)),
+    dict(prefill_bucket_sizes=(0, 8, 40))],
+    ids=["short_of_prefill_len", "short_of_max_seq_len", "zero_bucket"])
+def test_bad_prefill_ladder_raises_in_both(params, kw):
+    jp, tp = params
+    base = dict(max_slots=4, block_size=4, num_blocks=48, max_seq_len=40)
+    with pytest.raises(ValueError, match="bucket"):
+        JaxServeEngine(jax_gpt2_family(JCFG), jp, **base, **kw)
+    with pytest.raises(ValueError, match="bucket"):
+        ServeEngine(gpt2_family(CFG), tp, device="cpu", **base, **kw)
+
+
+# each JAX option the port does not serve yet: a value that asks for it,
+# the JAX default ("off"), and the ROADMAP.md item its message names
+JAX_ONLY_OPTIONS = {
+    "top_k": (40, 0, "item 5"), "top_p": (0.9, 1.0, "item 5"),
+    "tp_axis": ("model", "tp", "item 7"),
+    "lora_targets": (("qkv",), None, "item 7"),
+    "lora_max_rank": (16, 8, "item 7"),
+    "lora_rank_bucket_sizes": ((4, 8), None, "item 7"),
+    "prefill_chunk_budget": (8, None, "item 7"),
+    "kv_tier_promote_budget_bytes": (1 << 20, None, "item 7"),
+    "logger": (print, None, "item 8"), "log_every": (10, 0, "item 8"),
+    "clock": (lambda: 0.0, time.monotonic, "item 8"),
+    "tracer": (object(), None, "item 8"),
+    "recorder": (object(), None, "item 8"),
+}
+
+
+@pytest.mark.parametrize("option", sorted(JAX_ONLY_OPTIONS))
+def test_jax_only_options_raise_naming_their_item(params, option):
+    on, off, item = JAX_ONLY_OPTIONS[option]
+    with pytest.raises(NotImplementedError, match=item):
+        ServeEngine(gpt2_family(CFG), params[1], device="cpu",
+                    **{option: on})
+    eng = ServeEngine(gpt2_family(CFG), params[1], device="cpu",
+                      max_seq_len=40, **{option: off})
+    assert eng.prefill_buckets == prefill_buckets(40)
+
+
+def test_attn_kernel_takes_xla_only(params):
+    ServeEngine(gpt2_family(CFG), params[1], device="cpu", attn_kernel="xla")
+    with pytest.raises(ValueError, match="'xla' only"):
+        ServeEngine(gpt2_family(CFG), params[1], device="cpu",
+                    attn_kernel="pallas")
+
+
+def test_padded_vocab_message_names_serving_features():
+    with pytest.raises(NotImplementedError, match="item 7, 'Serving "):
+        gpt2_family(GPT2Config.tiny(padded_vocab_size=256))
 
 
 @pytest.mark.parametrize("cfg", [GPT2Config.tiny(n_experts=4),

@@ -27,6 +27,7 @@ compiler options) computes it.
 """
 
 import json
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -280,13 +281,15 @@ def test_config_copy_loads_like_the_reference_yaml():
 
 
 def test_finetune_example_runs_on_one_cpu(tmp_path, capsys):
+    """A config asking for pp = 2 and ZeRO-1: the example trains it on
+    one CPU (pp forced to 1, zero1_ dropped) and says so."""
     from quintnet_tpu_torch.examples import gpt2_finetune
 
-    cfg = {"model": {"n_layer": 2}, "mesh_dim": [2, 2], "mesh_name": ["dp",
-                                                                     "tp"],
+    cfg = {"model": {"n_layer": 2}, "mesh_dim": [1, 2],
+           "mesh_name": ["dp", "pp"],
            "training": {"batch_size": 4, "gradient_accumulation_steps": 2,
                         "optimizer": "zero1_adamw", "learning_rate": 1e-3,
-                        "log_every": 0},
+                        "schedule": "1f1b", "log_every": 0},
            "data": {"max_seq_length": 32, "train_samples": 8,
                     "val_samples": 4}}
     path = tmp_path / "cfg.json"
@@ -294,7 +297,22 @@ def test_finetune_example_runs_on_one_cpu(tmp_path, capsys):
     hist = gpt2_finetune.main(["--config", str(path), "--tiny", "--steps",
                                "1", "--epochs", "1", "--device", "cpu"])
     assert len(hist.train_loss) == 1 and np.isfinite(hist.train_loss[0])
-    assert "forced to one device" in capsys.readouterr().out
+    out = capsys.readouterr().out
+    assert "pp = 2 forced to 1" in out and "zero1_adamw -> adamw" in out
+    assert "strategy=single" in out
+
+
+def test_finetune_example_takes_dp_and_tp_from_the_config():
+    """The reference config's 2 x 2 x 2 mesh becomes dp x tp = 2 x 2."""
+    from quintnet_tpu_torch.examples.gpt2_finetune import port_mesh
+
+    root = Path(__file__).resolve().parents[1]
+    cfg = load_config(str(root / "quintnet_tpu_torch/examples/"
+                                 "gpt2_config.json"))
+    notes = port_mesh(cfg)
+    assert cfg.mesh.axis_sizes == {"dp": 2, "tp": 2}
+    assert cfg.training.optimizer == "adamw" and len(notes) == 2
+    assert cfg.micro_batch_size_resolved() == 32
 
 
 def test_metrics():
@@ -309,7 +327,9 @@ def _not_ported_cases():
     tiny = GPT2Config.tiny()
     spec = gpt2_model_spec(tiny)
     cfg = Config.from_dict({})
-    mesh_cfg = Config.from_dict({"mesh_dim": [2], "mesh_name": ["dp"]})
+    mesh_cfg = Config.from_dict({"mesh_dim": [2], "mesh_name": ["pp"]})
+    zero_cfg = Config.from_dict({"mesh_dim": [2], "mesh_name": ["dp"],
+                                 "training": {"optimizer": "zero1_adamw"}})
     stacked = {"w": torch.zeros(2, 3)}
 
     def trainer(**kw):
@@ -322,7 +342,7 @@ def _not_ported_cases():
         "verify_vit_tp2": lambda: verify_vit("ckpt", ViTConfig(), tp=2,
                                              device="cpu"),
         "fault_tolerance": lambda: trainer().fit(lambda e: [], ft=object()),
-        "strategy_dp": lambda: get_strategy("dp", cfg),
+        "strategy_dp": lambda: get_strategy("dp", zero_cfg),
         "mesh_of_two": lambda: get_strategy(None, mesh_cfg),
         "remat_dots_spec": lambda: gpt2_model_spec(tiny, remat="dots"),
         "remat_dots_blocks": lambda: stacked_blocks_apply(
