@@ -22,7 +22,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    GQA decode at groups 2 and 4 and GQA prefill at group 4. Flash
    attention (K1 forward, K2 dK/dV, K3 dQ): (B, H, S) = (32, 12, 512)
    causal (the train phase's micro-batch), (32, 6, 512) and (4, 6, 512)
-   causal (the mesh phase's tp2 and dp2 x tp2 ranks), (8, 12, 1024)
+   causal (the mesh phase's tp2 and dp2 x tp2 ranks), (4, 12, 512),
+   (2, 12, 512) and (2, 6, 512) causal in f32 only (its pp2, dp2 x pp2
+   and dp2 x tp2 x pp2 ranks' micro-batches), (8, 12, 1024)
    causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
    causal with a ragged last tile, (8, 12, 256) non-causal and
    (1, 12, 4096) causal, each in f32 and again in bf16 (the same values
@@ -144,23 +146,33 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    NCCL refuses two ranks of one communicator on one device, and gloo
    stages each collective through host memory). First the single-rank
    references in deterministic mode (global 64 rows in 2 micro-batches,
-   and 16 rows in 4), written to a temporary file; then a 2-rank probe
-   of which collectives gloo runs on CUDA tensors (all_reduce, which the
-   path needs, must); then dp2 (one micro-batch of 32 a rank: every step
-   loss, parameter and both Adam moments equal to the reference bit for
-   bit), tp2 (2 micro-batches of 32, 6 heads a rank) and dp2 x tp2 (16
-   rows, 4 a rank and micro-batch), 2 steps each through ``Trainer.fit``
-   on every rank (tp: the first loss within 1e-5 relative, every
-   gradient leaf gathered whole and taken back through
+   16 rows in 4 and in 8: each run is held to the reference whose
+   micro-batches are its dp ranks' micro-batches together), written to
+   temporary files; then a 2-rank probe of which collectives gloo runs
+   on CUDA tensors (all_reduce, all_gather, reduce_scatter and the
+   pipeline's shift, an ``all_to_all_single`` with uneven splits, must);
+   then, 2 steps each through ``Trainer.fit`` on every rank: dp2 (one
+   micro-batch of 32 a rank: every step loss, parameter and both Adam
+   moments equal to the reference bit for bit), tp2 (2 micro-batches of
+   32, 6 heads a rank), dp2 x tp2 (16 rows, 4 a rank and micro-batch),
+   and the pipelines on 16 rows in 4 micro-batches a rank: pp2 with
+   AFAB (6 layers a rank), dp2 x pp2 with ``1f1b_stored`` and
+   ``zero2_adamw``, dp2 x tp2 x pp2 (the finetune config's mesh) with
+   ``1f1b`` and ``zero1_adamw`` (tp and pp: the first loss, through the
+   run's own schedule, within 1e-5 relative, every gradient leaf
+   gathered whole over tp and pp and taken back through
    ``gpt2_from_tp_layout`` within 1e-3 of its largest magnitude, the
-   step losses within 1e-4). On every rank the counts are zeroed just
-   before ``fit`` and read just after: K1, K2, K3 each n_layer x
-   micro-batches x steps, none routed; then one step timed (wall ms,
-   peak memory) and one under ``torch.profiler`` with each collective
-   entered on a drained device (the flash kernels n_layer x
-   micro-batches by name, and the share of that step inside the
-   ``collective:*`` ranges). A rank that raises or dies fails the
-   phase.
+   step losses within 1e-4; under ZeRO each rank's Adam moment chunks
+   within 1e-3 of the same chunk of the reference's moments). On every
+   rank the counts are zeroed just before ``fit`` and read just after:
+   K2 and K3 each the stage's layers x micro-batches x steps, K1 the
+   same (twice under ``1f1b``, whose backward sub-step reruns the
+   forward), none routed; then one step timed (wall ms, peak memory,
+   the optimizer state's bytes beside the replicated state's) and one
+   under ``torch.profiler`` with each collective entered on a drained
+   device (the flash kernels by name a step, and the share of that
+   step inside the ``collective:*`` ranges). A rank that raises or dies
+   fails the phase.
 
 Then one JSON line of per-kernel numbers (K4 once per variant the
 serve phases launched and path; K1-K3 in f32 with the train and resume
@@ -686,13 +698,19 @@ def _flash_cases():
     gen = torch.Generator(device=DEVICE).manual_seed(4321)
     rng = np.random.default_rng(4321)
     D = 64
-    # (name, B, H, S, causal, segments): the first row is the train
-    # phase's shape, micro-batch 32 of 512; the next two the mesh phase's
-    # on a tp2 rank (micro-batch 32, 6 local heads) and a dp2 x tp2 rank
-    # (micro-batch 4, 6 local heads)
+    # (name, B, H, S, causal, segments[, dtypes]): the first row is the
+    # train phase's shape, micro-batch 32 of 512; the next five the mesh
+    # phase's on a tp2 rank (micro-batch 32, 6 local heads), a dp2 x tp2
+    # rank (micro-batch 4, 6 local heads), and in f32 the pipeline runs'
+    # ranks: pp2 (micro-batch 4), dp2 x pp2 (2) and dp2 x tp2 x pp2 (2,
+    # 6 local heads)
+    f32 = (torch.float32,)
     shapes = [(TRAIN_CASE, 32, 12, 512, True, False),
               ("mesh_tp2_B32_H6_S512", 32, 6, 512, True, False),
               ("mesh_dp2tp2_B4_H6_S512", 4, 6, 512, True, False),
+              ("mesh_pp2_B4_H12_S512", 4, 12, 512, True, False, f32),
+              ("mesh_dp2pp2_B2_H12_S512", 2, 12, 512, True, False, f32),
+              ("mesh_3d_B2_H6_S512", 2, 6, 512, True, False, f32),
               ("causal_B8_S1024", 8, 12, 1024, True, False),
               ("causal_segments_B4_S512", 4, 12, 512, True, True),
               ("causal_ragged_B2_S300", 2, 12, 300, True, False),
@@ -707,12 +725,13 @@ def _flash_cases():
                       for key in ("o", "dq", "dk", "dv")},
                    "lse": ("abs", LSE_TOL_BF16)}
     results = []
-    for name, B, H, S, causal, use_seg in shapes:
+    for name, B, H, S, causal, use_seg, *dtypes in shapes:
         q32, k32, v32, do32 = (torch.randn((B, H, S, D), generator=gen,
                                            device=DEVICE) for _ in range(4))
         seg_np = _packed_segments(rng, B, S) if use_seg else None
         seg = None if seg_np is None else torch.from_numpy(seg_np).to(DEVICE)
-        for dtype in (torch.float32, torch.bfloat16):
+        for dtype in (dtypes[0] if dtypes else (torch.float32,
+                                                torch.bfloat16)):
             bf16 = dtype == torch.bfloat16
             tag = "[bf16]" if bf16 else ""
             q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
@@ -2083,11 +2102,18 @@ def phase_resume():
 # phase 7: GPT-2 124M on dp, tp and dp x tp meshes, the ranks on one card
 # ---------------------------------------------------------------------
 
-# name -> (mesh dims, mesh names, micro-batches a rank, global rows)
+# name -> (mesh dims, mesh names, micro-batches a rank, global rows[,
+# pipeline schedule, optimizer]); on a pp mesh the micro-batches are the
+# pipeline's (training.gradient_accumulation_steps)
 MESH_RUNS = {
     "dp2": ([2], ["dp"], 1, 64),
     "tp2": ([2], ["tp"], 2, 64),
     "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16),
+    "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw"),
+    "dp2pp2_stored_zero2": ([2, 2], ["dp", "pp"], 4, 16, "1f1b_stored",
+                            "zero2_adamw"),
+    "3d_1f1b_zero1": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
+                      "zero1_adamw"),
 }
 MESH_STEPS = 2
 # NCCL refuses two ranks of one communicator on one card: the ranks share
@@ -2096,19 +2122,41 @@ MESH_BACKEND = "gloo"
 MESH_TIMEOUT_S = 480             # one world, from spawn to the last result
 MESH_TOL = {"first_loss": 1e-5, "grad": 1e-3, "step_loss": 1e-4}
 # the collectives tried on CUDA tensors over gloo (point-to-point is not:
-# gloo would be handed a device pointer)
+# gloo would be handed a device pointer); "shift" is the pipeline's
+# shift, which on gloo CUDA tensors is an all_to_all_single whose split
+# sizes are zero except toward the neighbour (core/collectives.py)
 PROBED = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
-          "all_to_all")
+          "all_to_all", "shift")
+# the probed collectives the mesh runs need: a failure stops the phase
+PROBE_GATED = ("all_reduce", "all_gather", "reduce_scatter", "shift")
 
 
-def _mesh_config(rows, n_micro, sizes=None):
+def _run_parts(run):
+    """(mesh dims, names, micro-batches a rank, rows, schedule,
+    optimizer) of a MESH_RUNS entry."""
+    mesh_dim, mesh_name, n_micro, rows, *rest = run
+    schedule, optimizer = rest or ("afab", "adamw")
+    return mesh_dim, mesh_name, n_micro, rows, schedule, optimizer
+
+
+def _ref_micro(run):
+    """The single-rank reference's micro-batches for a run: each dp
+    rank's micro-batches times dp (the dp mean of each rank's mean of
+    micro-batch means is the mean over all of them)."""
+    mesh_dim, mesh_name, n_micro, *_ = _run_parts(run)
+    return n_micro * dict(zip(mesh_name, mesh_dim)).get("dp", 1)
+
+
+def _mesh_config(rows, n_micro, sizes=None, schedule="afab",
+                 optimizer="adamw"):
     """The train phase's optimiser and batch on the mesh ``sizes``."""
     from quintnet_tpu_torch.core.config import Config
 
     d = {"training": {
         "batch_size": rows, "gradient_accumulation_steps": n_micro,
-        "optimizer": "adamw", "learning_rate": 5e-5, "weight_decay": 0.01,
-        "grad_clip_norm": 1.0, "log_every": 0, "seed": 0}}
+        "optimizer": optimizer, "learning_rate": 5e-5, "weight_decay": 0.01,
+        "grad_clip_norm": 1.0, "log_every": 0, "seed": 0,
+        "schedule": schedule}}
     if sizes:
         d["mesh_dim"], d["mesh_name"] = list(sizes.values()), list(sizes)
     return Config.from_dict(d)
@@ -2194,6 +2242,10 @@ def _probe_rank(rank, world, store, device):
                 lambda: cc.all_to_all(x, ax, split_dim=0, concat_dim=0),
                 torch.cat([(torch.arange(4.0) + 10 * r).chunk(world)[rank]
                            for r in range(world)])),
+            "shift": (
+                lambda: cc.ppermute_shift(x, ax, shift=1, wrap=False),
+                torch.arange(4.0) + 10 * (rank - 1) if rank
+                else torch.zeros(4)),
         }
         out = {}
         for name in PROBED:
@@ -2274,45 +2326,101 @@ def _first_difference(losses, state, ref):
     return None
 
 
+def _first_grads(tr, params, batch, n_micro, schedule):
+    """The first batch's loss (averaged over dp) and gradients (reduced
+    over the mesh, every leaf whole as the optimizer would see it before
+    ZeRO's chunking) on this rank, through the run's own path: the
+    pipeline's schedule on a pp mesh, else the accumulated loss."""
+    from quintnet_tpu_torch.parallel.dp import accumulate_grads
+    from quintnet_tpu_torch.parallel.pp import (make_1f1b_grad_fn,
+                                                make_afab_loss_fn)
+    from quintnet_tpu_torch.parallel.train_step import reduce_grads
+
+    strat = tr.strategy
+    names = strat.mesh.axis_names
+    if strat.uses_pp:
+        fns = tr.model.pipeline_fns(tp_axis=strat.axis_or_none("tp"))
+        pspec = strat._pipeline_spec()
+        if schedule == "afab":
+            loss, grads = accumulate_grads(make_afab_loss_fn(*fns, pspec),
+                                           params, batch, 1)
+        else:
+            loss, grads = make_1f1b_grad_fn(
+                *fns, pspec, store_activations=schedule == "1f1b_stored")(
+                    params, batch)
+    else:
+        loss_fn, _ = strat.model_fns(tr.model)
+        loss, grads = accumulate_grads(loss_fn, params, batch, n_micro)
+    reduce_grads(grads, strat.param_specs(tr.model), strat.mesh,
+                 data_axes=tuple(a for a in strat.batch_axes if a in names),
+                 model_axes=strat.model_axes,
+                 partial_axes=strat.partial_axes)
+    return strat.mean_over_batch(loss), grads
+
+
+def _moment_chunk_errors(st, ref, strat, model, cfg, tp):
+    """Under ZeRO: this rank's Adam moment chunks against the same chunk
+    of the single-rank reference's moments (taken to the tp layout, cut
+    to this rank's tp and pp shards, flattened in ZeRO's order): max
+    |diff| / max |reference chunk| for mu and nu."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
+    from quintnet_tpu_torch.models.gpt2 import gpt2_to_tp_layout
+    from quintnet_tpu_torch.parallel import zero
+    from quintnet_tpu_torch.parallel.tp import shard_leaf
+
+    ax = strat.mesh.axis(strat.zero1_axis)
+    out = {}
+    for m in ("mu", "nu"):
+        full = gpt2_to_tp_layout(_nest(ref[m]), cfg, tp)
+        local = tree_map(lambda t, sp: shard_leaf(t, sp, strat.mesh), full,
+                         strat.param_specs(model))
+        flat = zero.flatten(dict(tree_leaves(local)), zero.flat_order(local))
+        want = zero.local_chunk(flat, ax.size, ax.index,
+                                zero.chunk_size(flat.numel(), ax.size))
+        got = st[m].detach().float().cpu()
+        if got.shape != want.shape:
+            raise AssertionError(f"{m} chunk {tuple(got.shape)}, want "
+                                 f"{tuple(want.shape)}")
+        out[m] = float((got - want).abs().max()
+                       / want.abs().max().clamp_min(1e-30))
+    return out
+
+
 def _mesh_rank(rank, world, store, run, host, ref_path, model, device):
-    """One rank of a mesh run: the first batch's loss and gradients (tp
-    runs; gathered whole and held to the reference), then the main path
-    (``Trainer.fit``, ``MESH_STEPS`` steps, launch counts zeroed just
-    before and read just after), the run held to the reference (dp: bit
-    for bit; tp: the f32 train tolerances), then on the card one step
-    timed and one profiled."""
+    """One rank of a mesh run: the first batch's loss and gradients on a
+    tp or pp mesh (through the run's own schedule; gathered whole and
+    held to the reference), then the main path (``Trainer.fit``,
+    ``MESH_STEPS`` steps, launch counts zeroed just before and read just
+    after), the run held to the reference (dp: bit for bit; tp and pp:
+    the f32 train tolerances; under ZeRO also each moment chunk), then on
+    the card one step timed and one profiled."""
     from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.core.pytree import tree_leaves
     from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
     from quintnet_tpu_torch.ops.flash_attention import flash_attention
-    from quintnet_tpu_torch.parallel.dp import accumulate_grads
-    from quintnet_tpu_torch.parallel.train_step import reduce_grads
     from quintnet_tpu_torch.train.trainer import Trainer
 
-    mesh_dim, mesh_name, n_micro, rows = run
+    mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
+        _run_parts(run)
     sizes = dict(zip(mesh_name, mesh_dim))
-    tp = sizes.get("tp", 1)
+    tp, pp = sizes.get("tp", 1), sizes.get("pp", 1)
     cfg = GPT2Config(**model)
     dev = _join_rank(rank, world, store, device)
     try:
-        tr = Trainer(_mesh_config(rows, n_micro, sizes),
+        tr = Trainer(_mesh_config(rows, n_micro, sizes, schedule, optimizer),
                      gpt2_model_spec(cfg, use_flash=True), task_type="clm",
                      device=dev, log_fn=lambda m: None)
         strat = tr.strategy
         ref = torch.load(ref_path, mmap=True)
         params, opt_state = tr.init_state()
         out = {"rank": rank, "coords": strat.mesh.coords,
-               "strategy": strat.name, "device": str(dev)}
-        if tp > 1:
-            loss_fn, _ = strat.model_fns(tr.model)
-            names = strat.mesh.axis_names
-            loss, grads = accumulate_grads(loss_fn, params,
-                                           tr.device_batch(*host[0]),
-                                           n_micro)
-            reduce_grads(grads, strat.param_specs(tr.model), strat.mesh,
-                         data_axes=tuple(a for a in strat.batch_axes
-                                         if a in names),
-                         model_axes=strat.model_axes)
-            first = float(strat.mean_over_batch(loss))
+               "strategy": strat.name, "device": str(dev),
+               "zero": [strat.zero1_axis, strat.zero_stage]}
+        exact = tp == 1 and pp == 1
+        if not exact:
+            loss, grads = _first_grads(tr, params, tr.device_batch(*host[0]),
+                                       n_micro, schedule)
+            first = float(loss)
             want = float(ref["first_loss"])
             out["first_loss"] = first
             out["first_loss_rel"] = abs(first - want) / abs(want)
@@ -2334,7 +2442,15 @@ def _mesh_rank(rank, world, store, run, host, ref_path, model, device):
         out["losses"] = [float(v) for v in losses]
         out["loss_rel"] = [abs(float(a) - float(b)) / abs(float(b))
                            for a, b in zip(losses, ref["losses"])]
-        if tp == 1:
+        n_local = sum(v.numel() for _, v in tree_leaves(p))
+        out["opt_state_bytes"] = sum(
+            v.numel() * v.element_size() for m in ("mu", "nu")
+            for _, v in tree_leaves(st[m]))
+        out["replicated_opt_state_bytes"] = 2 * n_local * 4
+        if strat.zero1_axis is not None:
+            out["moment_chunk_rel_err"] = _moment_chunk_errors(
+                st, ref, strat, tr.model, cfg, tp)
+        if exact:
             out["first_difference"] = _first_difference(
                 [v.detach().cpu() for v in losses],
                 {"params": _flat_cpu(p), "mu": _flat_cpu(st["mu"]),
@@ -2342,10 +2458,21 @@ def _mesh_rank(rank, world, store, run, host, ref_path, model, device):
         del ref
         if dev.type == "cuda":
             out.update(_mesh_step_share(tr, p, st, host[0],
-                                        cfg.n_layer * n_micro))
+                                        _per_step(run, cfg.n_layer)))
         return out
     finally:
         runtime.shutdown()
+
+
+def _per_step(run, n_layer):
+    """Each flash kernel's launches a step on one rank of ``run``: its
+    stage's layers x its micro-batches, the forward twice under ``1f1b``
+    (the backward sub-step reruns it)."""
+    mesh_dim, mesh_name, n_micro, _, schedule, _ = _run_parts(run)
+    pp = dict(zip(mesh_name, mesh_dim)).get("pp", 1)
+    n = n_layer // pp * n_micro
+    return {"flash_fwd": n * (2 if pp > 1 and schedule == "1f1b" else 1),
+            "flash_bwd_dkv": n, "flash_bwd_dq": n}
 
 
 def _mesh_step_share(trainer, params, opt_state, b, per_step):
@@ -2382,7 +2509,7 @@ def _mesh_step_share(trainer, params, opt_state, b, per_step):
     cc.communicate = drained
     try:
         prof, by_name = _profiled(run, expect={
-            FLASH_SYMBOLS[k]: per_step for k in FLASH_KERNELS},
+            FLASH_SYMBOLS[k]: per_step[k] for k in FLASH_KERNELS},
             agree=_any_rank)
     finally:
         cc.communicate = communicate
@@ -2420,23 +2547,27 @@ def phase_mesh():
         refs = {}
         torch.use_deterministic_algorithms(True)
         try:
-            for rows, n_micro in ((64, 2), (16, 4)):
+            for rows, n_micro in sorted({(r[3], _ref_micro(r))
+                                         for r in MESH_RUNS.values()}):
                 host = [(x[:rows], y[:rows]) for x, y in host64]
-                path = os.path.join(tmp, f"ref{rows}.pt")
-                refs[rows] = (host, path, _mesh_reference(
+                path = os.path.join(tmp, f"ref{rows}_{n_micro}.pt")
+                refs[rows, n_micro] = (host, path, _mesh_reference(
                     cfg, host, n_micro, DEVICE, path))
         finally:
             torch.use_deterministic_algorithms(False)
         torch.cuda.empty_cache()
         probe = runtime.spawn_world(_probe_rank, 2, "cuda:0", timeout=120)
         _emit({"phase": "mesh", "check": "gloo collectives on CUDA "
-               "tensors (2 ranks, cuda:0)", "results": probe[0]})
-        if probe[0]["all_reduce"] != "ok" or probe[1] != probe[0]:
-            raise AssertionError(f"gloo all_reduce on CUDA tensors: {probe}")
+               "tensors (2 ranks, cuda:0)", "results": probe,
+               "gated": PROBE_GATED})
+        bad = [k for k in PROBE_GATED
+               if any(r[k] != "ok" for r in probe)]
+        if bad:
+            raise AssertionError(f"gloo {bad} on CUDA tensors: {probe}")
         for name, run in MESH_RUNS.items():
-            mesh_dim, mesh_name, n_micro, rows = run
+            mesh_dim, mesh_name, n_micro, rows, *_ = run
             world = int(np.prod(mesh_dim))
-            host, path, ref = refs[rows]
+            host, path, ref = refs[rows, _ref_micro(run)]
             print(f"mesh {name}: backend {MESH_BACKEND}, world size "
                   f"{world}, every rank on cuda:0", flush=True)
             t0 = time.perf_counter()
@@ -2454,24 +2585,26 @@ def phase_mesh():
 def _check_mesh_run(name, run, ranks, ref, n_layer):
     """The gates of one mesh run over its ranks' reports; returns the
     run's JSON line."""
-    mesh_dim, mesh_name, n_micro, rows = run
-    per_kernel = n_layer * n_micro * MESH_STEPS
-    want = {"flash_fwd": per_kernel, "flash_bwd_dkv": per_kernel,
-            "flash_bwd_dq": per_kernel, "paged_attention": 0}
+    mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
+        _run_parts(run)
+    sizes = dict(zip(mesh_name, mesh_dim))
+    per_step = _per_step(run, n_layer)
+    want = {k: n * MESH_STEPS for k, n in per_step.items()}
+    want["paged_attention"] = 0
     for r in ranks:
         where = f"mesh {name} rank {r['rank']} {r['coords']}"
         if r["launches"] != want:
             raise AssertionError(f"{where}: launches {r['launches']}; "
-                                 f"expected {want} (n_layer x micro-batches"
-                                 f" x steps)")
+                                 f"expected {want} (the stage's layers x "
+                                 f"micro-batches x steps, the forward twice"
+                                 f" under 1f1b)")
         if r["routed"]:
             raise AssertionError(f"{where}: {r['routed']} calls routed away "
                                  f"from the kernels")
-        if "profiled_launches" in r and r["profiled_launches"] != {
-                k: n_layer * n_micro for k in FLASH_KERNELS}:
+        if "profiled_launches" in r and r["profiled_launches"] != per_step:
             raise AssertionError(f"{where}: profiler saw "
                                  f"{r['profiled_launches']} flash kernels a "
-                                 f"step; expected {n_layer * n_micro} each")
+                                 f"step; expected {per_step}")
         if "first_difference" in r:
             if r["first_difference"] is not None:
                 raise AssertionError(
@@ -2491,22 +2624,39 @@ def _check_mesh_run(name, run, ranks, ref, n_layer):
             if bad or not all(np.isfinite(r["losses"])):
                 raise AssertionError(f"{where}: step losses {r['losses']} vs"
                                      f" {ref['losses']}")
-    return {"phase": "mesh", "run": name,
-            "mesh": dict(zip(mesh_name, mesh_dim)), "backend": MESH_BACKEND,
+        if optimizer.startswith("zero"):
+            if r["zero"] != ["dp", int(optimizer[4])]:
+                raise AssertionError(f"{where}: ZeRO {r['zero']} for "
+                                     f"{optimizer}")
+            bad = {m: e for m, e in r["moment_chunk_rel_err"].items()
+                   if not e <= MESH_TOL["grad"]}
+            if bad:
+                raise AssertionError(f"{where}: Adam moment chunks {bad} "
+                                     f"(max |diff| / max |ref chunk|)")
+    pp = sizes.get("pp", 1)
+    gate = ("bit for bit: step losses, params, mu, nu"
+            if "first_difference" in ranks[0] else dict(MESH_TOL))
+    if optimizer.startswith("zero"):
+        gate["moment_chunks"] = MESH_TOL["grad"]
+    return {"phase": "mesh", "run": name, "mesh": sizes,
+            "backend": MESH_BACKEND,
             "world_size": len(ranks), "ranks_device": "cuda:0 (shared)",
             "model": "gpt2-124M f32 (random init, seed 0), flash attention",
             "global_rows": rows, "seq_len": 512,
             "micro_batches_a_rank": n_micro, "steps": MESH_STEPS,
-            "heads_a_rank": 12 // dict(zip(mesh_name, mesh_dim)).get("tp", 1),
-            "optimizer": "adamw lr 5e-5 wd 0.01 clip 1.0",
+            "schedule": schedule if pp > 1 else None,
+            "layers_a_rank": n_layer // pp,
+            "heads_a_rank": 12 // sizes.get("tp", 1),
+            "optimizer": f"{optimizer} lr 5e-5 wd 0.01 clip 1.0",
+            "reference": f"one rank, {rows} rows in {_ref_micro(run)} "
+                         f"micro-batches",
             "reference_losses": ref["losses"],
-            "gate": ("bit for bit: step losses, params, mu, nu"
-                     if "first_difference" in ranks[0] else MESH_TOL),
+            "gate": gate,
             "ranks": [{k: v for k, v in r.items()
                        if k not in ("launches", "routed")} for r in ranks],
             "launches_a_rank": want,
             "note": ("collectives staged through host memory by gloo; "
-                     "every rank shares one card"),
+                     "every rank shares one card (not NVLink)"),
             "card": _smi()}
 
 

@@ -20,7 +20,16 @@ check_vma=False)``, not the reference's Megatron rules, so that
 
 Every call runs inside a ``torch.profiler.record_function`` range named
 ``collective:<name>`` (:func:`communicate`). A backend that cannot run a
-collective on the tensors' device raises; nothing is staged elsewhere.
+collective on the tensors' device raises; nothing is staged elsewhere
+(gloo stages CUDA tensors through host memory inside its own
+collectives, for a shift as for an all-reduce).
+
+The shift's implementation is chosen by the axis group's backend, not by
+trying one and catching its failure: NCCL, and gloo on CPU tensors, run
+point-to-point (``dist.batch_isend_irecv``); gloo on CUDA tensors would
+be handed a device pointer for point-to-point, so there the shift is one
+``dist.all_to_all_single`` over the axis whose split sizes are zero
+except toward the neighbour (:func:`_shift_all_to_all`).
 """
 
 from __future__ import annotations
@@ -101,25 +110,57 @@ def _all_to_all(x, ax: MeshAxis, split_dim: int, concat_dim: int):
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
 
-def _shift(x, ax: MeshAxis, shift: int, wrap: bool):
-    """Member i's x arrives at member i + shift; members nobody sends to
-    (the edges without ``wrap``) receive zeros."""
+def _neighbours(ax: MeshAxis, shift: int, wrap: bool):
+    """(member this one sends to, member it receives from) along ``ax``;
+    None where there is none (the edges without ``wrap``)."""
     n, i = ax.size, ax.index
-    x = x.contiguous()
-    out = torch.zeros_like(x)
     dst, src = i + shift, i - shift
     if wrap:
         dst, src = dst % n, src % n
+    return (dst if 0 <= dst < n else None), (src if 0 <= src < n else None)
+
+
+def _shift(x, ax: MeshAxis, shift: int, wrap: bool):
+    """Member i's x arrives at member i + shift; members nobody sends to
+    (the edges without ``wrap``) receive zeros."""
+    x = x.contiguous()
+    if x.is_cuda and dist.get_backend(ax.group) == "gloo":
+        return _shift_all_to_all(x, ax, shift, wrap)
+    return _shift_p2p(x, ax, shift, wrap)
+
+
+def _shift_p2p(x, ax: MeshAxis, shift: int, wrap: bool):
+    out = torch.zeros_like(x)
+    dst, src = _neighbours(ax, shift, wrap)
     ops = []
-    if 0 <= dst < n:
+    if dst is not None:
         ops.append(dist.P2POp(dist.isend, x, ax.ranks[dst], group=ax.group))
-    if 0 <= src < n:
+    if src is not None:
         ops.append(dist.P2POp(dist.irecv, out, ax.ranks[src],
                               group=ax.group))
     if ops:
         for req in communicate("ppermute", dist.batch_isend_irecv, ops):
             req.wait()
     return out
+
+
+def _shift_all_to_all(x, ax: MeshAxis, shift: int, wrap: bool):
+    """The shift as one all-to-all over the whole axis: this member's
+    flat x is the split toward its destination, every other split is
+    empty, and the one non-empty split that arrives comes from its
+    source. Every member of the axis takes part, senders or not."""
+    dst, src = _neighbours(ax, shift, wrap)
+    n = x.numel()
+    send_sizes = [n if j == dst else 0 for j in range(ax.size)]
+    recv_sizes = [n if j == src else 0 for j in range(ax.size)]
+    recv = x.new_empty((n if src is not None else 0,))
+    communicate("ppermute", dist.all_to_all_single, recv,
+                x.reshape(-1) if dst is not None else x.new_empty((0,)),
+                output_split_sizes=recv_sizes, input_split_sizes=send_sizes,
+                group=ax.group)
+    if src is None:
+        return torch.zeros_like(x)
+    return recv.reshape(x.shape)
 
 
 # ---------------------------------------------------------------------

@@ -1,29 +1,29 @@
-"""GPT-2 summarization finetune on the config's dp x tp mesh.
+"""GPT-2 summarization finetune on the config's dp x tp x pp mesh.
 
 Port of ``quintnet_tpu/examples/gpt2_finetune.py``, one process per
 rank (``examples/common.launch``)::
 
     python -m quintnet_tpu_torch.examples.gpt2_finetune --tiny --steps 4 \\
-        --device cpu                                  # gloo, 4 CPU ranks
-    # 4 cards over NCCL (not yet run on cards): spawned here, or torchrun
+        --device cpu                                  # gloo, 8 CPU ranks
+    # 8 ranks sharing one card over gloo
+    python -m quintnet_tpu_torch.examples.gpt2_finetune --steps 2 \\
+        --device cuda:0 --backend gloo
+    # 8 cards over NCCL (not yet run on cards): spawned here, or torchrun
     python -m quintnet_tpu_torch.examples.gpt2_finetune --steps 4
-    torchrun --nproc-per-node 4 -m quintnet_tpu_torch.examples.gpt2_finetune
+    torchrun --nproc-per-node 8 -m quintnet_tpu_torch.examples.gpt2_finetune
 
 It reads the reference finetune config (``gpt2_config.json`` beside this
 file: the JAX package's ``gpt2_config.yaml`` in JSON, which loads
-without PyYAML; ``--config`` takes either form). That config asks for a
-2 x 2 x 2 dp x tp x pp mesh with the ``zero1_adamw`` optimizer and the
-1F1B schedule. The port trains its dp and tp axes as the config says;
-pipelines and ZeRO are not ported yet (ROADMAP.md §1, item 3c), so pp =
-2 is forced to 1 (the micro-batches stay the reference's: the global
-batch 512 and 8 accumulation steps of 32 rows on each dp rank) and
-``zero1_`` is dropped (ZeRO-1 only shards AdamW's state over dp: the
-update is the same), and the example says so. The data is the
-synthetic summarization set unless ``--csv`` names an article/highlights
-file; the tokenizer is the byte-level one. Attention goes through
-``ops.flash_attention`` (the K1-K3 kernels on the card), except that the
-config's ``attn_pdrop = 0.1`` sends it to the plain blockwise path,
-which carries the dropout: no kernel runs at that rate.
+without PyYAML; ``--config`` takes either form) and trains what it asks
+for, as the JAX example does: a 2 x 2 x 2 dp x tp x pp mesh (8 ranks)
+with the 1F1B schedule over its 8 accumulation steps (the pipeline's
+micro-batches) and ``zero1_adamw`` (AdamW with its state sharded over
+dp). The data is the synthetic summarization set unless ``--csv`` names
+an article/highlights file; the tokenizer is the byte-level one.
+Attention goes through ``ops.flash_attention`` (the K1-K3 kernels on
+the card), except that the config's ``attn_pdrop = 0.1`` sends it to
+the plain blockwise path, which carries the dropout: no kernel runs at
+that rate.
 
 ``training.dtype`` chooses the compute dtype as in the JAX example:
 ``bfloat16`` casts the f32 parameters to bf16 at use (the K1-K3 bf16
@@ -65,38 +65,7 @@ def main(argv=None):
     from quintnet_tpu_torch.core.config import load_config
 
     cfg = load_config(args.config)
-    for note in port_mesh(cfg):
-        print(note)
     return launch(_finetune, args, cfg.mesh.world_size, cfg)
-
-
-def port_mesh(cfg):
-    """Fit the config to what the port trains, in place; returns the
-    notes to print: pp forced to 1 (the pipeline's micro-batches stay
-    each dp rank's accumulation steps) and ``zero1_``/``zero2_`` dropped
-    from the optimizer (ZeRO-1/2 shard AdamW's state and gradients over
-    dp; the update is the same), both waiting for ROADMAP.md §1, item
-    3c."""
-    from quintnet_tpu_torch.core.config import MeshConfig
-
-    notes = []
-    if cfg.pp_size > 1:
-        sizes = {a: s for a, s in cfg.mesh.axis_sizes.items() if a != "pp"}
-        notes.append(
-            f"mesh {cfg.mesh.axis_sizes}: pp = {cfg.pp_size} forced to 1 "
-            f"(pipelines are not ported yet, ROADMAP.md §1, item 3c); "
-            f"training on {sizes or {'dp': 1}}")
-        cfg.mesh = (MeshConfig(list(sizes.values()), list(sizes))
-                    if sizes else MeshConfig())
-        cfg.strategy_name = "auto"
-    opt = cfg.training.optimizer.lower()
-    if opt.startswith(("zero1_", "zero2_")):
-        notes.append(f"optimizer {cfg.training.optimizer} -> "
-                     f"{opt[len('zero1_'):]} (ZeRO state sharding is not "
-                     f"ported yet, ROADMAP.md §1, item 3c; the update is "
-                     f"the same)")
-        cfg.training.optimizer = opt[len("zero1_"):]
-    return notes
 
 
 def _finetune(args, cfg):
@@ -155,7 +124,8 @@ def _finetune(args, cfg):
         f" device={trainer.device} "
         f"gpt2 n_layer={gcfg.n_layer} n_embd={gcfg.n_embd} "
         f"pdrops={gcfg.pdrops} dtype={cfg.training.dtype} "
-        f"adam_mu_dtype={cfg.training.adam_mu_dtype}")
+        f"adam_mu_dtype={cfg.training.adam_mu_dtype} "
+        f"schedule={cfg.training.schedule} optimizer={cfg.training.optimizer}")
 
     def train_batches(epoch):
         batches = train_ds.batches(bs, seed=epoch)

@@ -15,8 +15,9 @@ training model (forward, CLM loss, dropout from a ``torch.Generator``,
 optional flash attention and remat) on one device or, with ``tp_axis``,
 on this rank's tp shards (:func:`gpt2_partition_specs`: the blocks
 Megatron-sharded in the tp-blocked qkv layout of
-:func:`gpt2_to_tp_layout`, embeddings, LayerNorms and the tied head
-replicated).
+:func:`gpt2_to_tp_layout` and their depth cut over pp, embeddings,
+LayerNorms and the tied head replicated); :func:`gpt2_pipeline_fns` is
+the same model cut into pipeline stages.
 """
 
 from __future__ import annotations
@@ -286,25 +287,23 @@ def gpt2_partition_specs(cfg: Optional[GPT2Config] = None, *,
                          tp_axis: Optional[str] = "tp",
                          pp_axis: Optional[str] = None):
     """The spec tree of :func:`gpt2_init`'s params (``parallel/tp.py``):
-    blocks column/row-sharded over ``tp_axis``, embeddings and the final
-    LayerNorm replicated (the tied head reads ``wte`` whole). A
-    vocab-parallel table (``cfg.vocab_parallel``) and ``pp_axis`` are not
-    ported yet (ROADMAP.md §1, items 6 and 3c)."""
+    blocks column/row-sharded over ``tp_axis`` and their stacked depth
+    over ``pp_axis``, embeddings and the final LayerNorm replicated (the
+    tied head reads ``wte`` whole, on the last stage as the embedding
+    does on the first). A vocab-parallel table (``cfg.vocab_parallel``)
+    is not ported yet (ROADMAP.md §1, item 6)."""
     from quintnet_tpu_torch.parallel.tp import block_specs
 
-    _check_mesh_options(cfg, tp_axis, pp_axis)
+    _check_mesh_options(cfg, tp_axis)
     return {
         "embedding": {"wte": (), "wpe": ()},
-        "blocks": block_specs(tp_axis=tp_axis, stacked=True),
+        "blocks": block_specs(tp_axis=tp_axis, stacked=True,
+                              pp_axis=pp_axis),
         "head": {"ln_f": {"scale": (), "bias": ()}},
     }
 
 
-def _check_mesh_options(cfg, tp_axis, pp_axis) -> None:
-    if pp_axis is not None:
-        raise NotImplementedError(
-            "GPT-2 blocks sharded over a pipeline axis are not ported yet "
-            "(ROADMAP.md §1, item 3c)")
+def _check_mesh_options(cfg, tp_axis) -> None:
     if cfg is not None and cfg.vocab_parallel and tp_axis is not None:
         raise NotImplementedError(
             "vocab_parallel GPT-2 under tp (the vocab-sharded table and "
@@ -329,6 +328,48 @@ def gpt2_from_tp_layout(params, cfg: GPT2Config, tp: int):
     return tree_qkv_layout(params, cfg.n_head, tp, to_blocked=False)
 
 
+def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, remat=False,
+                      use_flash: bool = False, compute_dtype=None):
+    """``(embed_fn, stage_fn, head_loss_fn)`` for ``parallel/pp.py``:
+    the dense GPT-2 cut into the embedding (stage 0), this rank's
+    stacked blocks (every stage; ``tp_axis`` a
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis` runs them on its tp
+    shards) and the tied head's CLM loss (the last stage; the chunked
+    loss when ``cfg.loss_chunk > 0``). ``compute_dtype`` casts the
+    parameters each function reads at use, as :func:`gpt2_model_spec`
+    does. The ``generator`` keyword of the embedding and the stage
+    drives dropout; the schedules hand each (micro-batch, stage) its
+    own."""
+    if cfg.segment_eos_id is not None:
+        raise NotImplementedError(
+            "segment_eos_id under pipeline parallelism is not wired "
+            "(stage fns receive hidden states, not token ids, so the "
+            "segment vector cannot be derived mid-pipeline); use "
+            "dp/tp/ep meshes for packed-document isolation")
+    _check_mesh_options(cfg, tp_axis)
+
+    def part(params, *keys):
+        return cast_floating({k: params[k] for k in keys}, compute_dtype)
+
+    def embed_fn(params, input_ids, generator=None):
+        return gpt2_embed(part(params, "embedding"), input_ids,
+                          embd_pdrop=cfg.pdrops[0],
+                          generator=generator if cfg.needs_dropout else None)
+
+    def stage_fn(blocks_local, h, generator=None):
+        return gpt2_blocks(cast_floating(blocks_local, compute_dtype), h, cfg,
+                           tp_axis=tp_axis, remat=remat, use_flash=use_flash,
+                           generator=generator if cfg.needs_dropout else None)
+
+    def head_loss_fn(params, h, labels):
+        p = part(params, "embedding", "head")
+        if cfg.loss_chunk > 0:
+            return clm_loss_chunked(p, h, labels, cfg, chunk=cfg.loss_chunk)
+        return clm_loss(gpt2_logits(p, h, cfg), labels)
+
+    return embed_fn, stage_fn, head_loss_fn
+
+
 def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
                     compute_dtype=None):
     """The training model: ``init(generator)`` and ``loss_fn(params,
@@ -338,6 +379,9 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     one. ``generator`` drives the dropout masks; ``tp_axis`` runs the
     blocks on this rank's tp shards (``partition_specs``,
     ``to_tp_layout``).
+
+    On a pp mesh the strategy runs :func:`gpt2_pipeline_fns` instead
+    of ``loss_fn``.
 
     ``compute_dtype`` (``torch.bfloat16``; None is f32): the parameters
     stay f32 and are cast once per ``loss_fn`` call, and that one tree
@@ -361,7 +405,7 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     def loss_fn(params, batch, generator=None, *, tp_axis=None):
         input_ids, labels = batch
         if tp_axis is not None:
-            _check_mesh_options(cfg, tp_axis, None)
+            _check_mesh_options(cfg, tp_axis)
         p = cast_floating(params, compute_dtype)
         kw = dict(tp_axis=tp_axis, remat=remat, use_flash=use_flash,
                   generator=generator)
@@ -373,6 +417,9 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     return ModelSpec(
         init=lambda generator: gpt2_init(generator, cfg),
         loss_fn=loss_fn, depth=cfg.n_layer, needs_rng=cfg.needs_dropout,
-        partition_specs=lambda tp_axis=None: gpt2_partition_specs(
-            cfg, tp_axis=tp_axis),
-        to_tp_layout=lambda p, tp: gpt2_to_tp_layout(p, cfg, tp))
+        partition_specs=lambda tp_axis=None, pp_axis=None:
+            gpt2_partition_specs(cfg, tp_axis=tp_axis, pp_axis=pp_axis),
+        to_tp_layout=lambda p, tp: gpt2_to_tp_layout(p, cfg, tp),
+        pipeline_fns=lambda tp_axis=None: gpt2_pipeline_fns(
+            cfg, tp_axis=tp_axis, remat=remat, use_flash=use_flash,
+            compute_dtype=compute_dtype))

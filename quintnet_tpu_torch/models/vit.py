@@ -17,8 +17,9 @@ JAX package uses none either); the head reads the CLS position.
 
 With ``tp_axis`` the blocks run on this rank's tp shards
 (:func:`vit_partition_specs`, :func:`vit_to_tp_layout`); the embedding
-and the head are replicated. Not ported: MoE ViT (``n_experts > 0``:
-ROADMAP.md §1, item 4) and the pipeline functions (item 3c).
+and the head are replicated; :func:`vit_pipeline_fns` cuts the model
+into pipeline stages (``parallel/pp.py``). Not ported: MoE ViT
+(``n_experts > 0``: ROADMAP.md §1, item 4).
 """
 
 from __future__ import annotations
@@ -39,7 +40,8 @@ from quintnet_tpu_torch.train.metrics import accuracy
 
 __all__ = ["ViTConfig", "accuracy", "cross_entropy_loss", "vit_apply",
            "vit_embed", "vit_forward", "vit_head", "vit_init",
-           "vit_model_spec", "vit_partition_specs", "vit_to_tp_layout"]
+           "vit_model_spec", "vit_partition_specs", "vit_pipeline_fns",
+           "vit_to_tp_layout"]
 
 
 @dataclass(frozen=True)
@@ -158,9 +160,7 @@ def vit_forward(params, images, cfg: ViTConfig, *, tp_axis=None,
     :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`): the blocks are this
     rank's tp shards, attention on ``num_heads / tp`` local heads."""
     _dense_only(cfg)
-    if images.ndim == 4 and images.shape[1] == cfg.in_channels \
-            and images.shape[-1] != cfg.in_channels:
-        images = images.permute(0, 2, 3, 1)      # NCHW -> NHWC
+    images = _nhwc(images, cfg)
     if compute_dtype is not None:
         images = images.to(compute_dtype)
         params = cast_floating(params, compute_dtype)
@@ -197,18 +197,14 @@ def vit_partition_specs(cfg: Optional[ViTConfig] = None, *,
                         tp_axis: Optional[str] = "tp",
                         pp_axis: Optional[str] = None):
     """The spec tree of :func:`vit_init`'s params (``parallel/tp.py``):
-    the blocks column/row-sharded over ``tp_axis``, the embedding and the
-    head replicated. ``pp_axis`` is not ported yet (ROADMAP.md §1, item
-    3c)."""
+    the blocks column/row-sharded over ``tp_axis`` and their stacked
+    depth over ``pp_axis``, the embedding and the head replicated."""
     from quintnet_tpu_torch.parallel.tp import block_specs
 
-    if pp_axis is not None:
-        raise NotImplementedError(
-            "ViT blocks sharded over a pipeline axis are not ported yet "
-            "(ROADMAP.md §1, item 3c)")
     return {
         "embedding": {"patch": {"w": (), "b": ()}, "cls": (), "pos": ()},
-        "blocks": block_specs(tp_axis=tp_axis, stacked=True),
+        "blocks": block_specs(tp_axis=tp_axis, stacked=True,
+                              pp_axis=pp_axis),
         "head": {"ln": {"scale": (), "bias": ()},
                  "fc": {"w": (), "b": ()}},
     }
@@ -222,12 +218,56 @@ def vit_to_tp_layout(params, cfg: ViTConfig, tp: int):
     return tree_qkv_layout(params, cfg.num_heads, tp)
 
 
+def _nhwc(images, cfg: ViTConfig):
+    """[B, C, H, W] (detected by the channel count) -> [B, H, W, C]."""
+    if images.ndim == 4 and images.shape[1] == cfg.in_channels \
+            and images.shape[-1] != cfg.in_channels:
+        return images.permute(0, 2, 3, 1)
+    return images
+
+
+def vit_pipeline_fns(cfg: ViTConfig, *, tp_axis=None, remat=False,
+                     compute_dtype=None):
+    """``(embed_fn, stage_fn, head_loss_fn)`` for ``parallel/pp.py``:
+    the patch embedding (stage 0), this rank's stacked blocks (every
+    stage, on its tp shards with ``tp_axis``) and the classifier's cross
+    entropy (the last stage), computing in ``compute_dtype`` as
+    :func:`vit_forward` does."""
+    _dense_only(cfg)
+
+    def cast(tree):
+        return cast_floating(tree, compute_dtype)
+
+    def embed_fn(params, images, generator=None):
+        images = _nhwc(images, cfg)
+        if compute_dtype is not None:
+            images = images.to(compute_dtype)
+        return vit_embed(cast(params["embedding"]), images, cfg.patch_size,
+                         pdrop=cfg.dropout,
+                         generator=generator if cfg.needs_dropout else None)
+
+    def stage_fn(blocks_local, h, generator=None):
+        tp = 1 if tp_axis is None else tp_axis.size
+        return stacked_blocks_apply(
+            cast(blocks_local), h, num_heads=cfg.num_heads // tp,
+            causal=False, act=torch.relu, tp_axis=tp_axis, remat=remat,
+            attn_pdrop=cfg.dropout, resid_pdrop=cfg.dropout,
+            generator=generator if cfg.needs_dropout else None)
+
+    def head_loss_fn(params, h, y):
+        return cross_entropy_loss(vit_head(cast(params["head"]), h).float(),
+                                  y)
+
+    return embed_fn, stage_fn, head_loss_fn
+
+
 def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
     """The training model: ``loss_fn(params, (images, labels),
     generator=None, *, tp_axis=None)`` (cross entropy),
     ``eval_metrics_fn`` (loss and accuracy, no dropout), both computing
     in ``compute_dtype`` (see :func:`vit_forward`), on one device or on
-    this rank's tp shards."""
+    this rank's tp shards; on a pp mesh :func:`vit_pipeline_fns` (and
+    loss and accuracy through the forward pipeline)."""
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
 
     _dense_only(cfg)
@@ -246,10 +286,25 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
         return {"loss": cross_entropy_loss(logits, y),
                 "accuracy": accuracy(logits, y)}
 
+    def pipeline_eval_fns(tp_axis=None):
+        embed_fn, stage_fn, _ = vit_pipeline_fns(
+            cfg, tp_axis=tp_axis, remat=remat, compute_dtype=compute_dtype)
+
+        def head_metrics_fn(params, h, y):
+            logits = vit_head(cast_floating(params["head"], compute_dtype),
+                              h).float()
+            return {"loss": cross_entropy_loss(logits, y),
+                    "accuracy": accuracy(logits, y)}
+
+        return embed_fn, stage_fn, head_metrics_fn
+
     return ModelSpec(
         init=lambda generator: vit_init(generator, cfg), loss_fn=loss_fn,
         depth=cfg.depth, needs_rng=cfg.needs_dropout,
         eval_metrics_fn=eval_metrics_fn,
-        partition_specs=lambda tp_axis=None: vit_partition_specs(
-            cfg, tp_axis=tp_axis),
-        to_tp_layout=lambda p, tp: vit_to_tp_layout(p, cfg, tp))
+        partition_specs=lambda tp_axis=None, pp_axis=None:
+            vit_partition_specs(cfg, tp_axis=tp_axis, pp_axis=pp_axis),
+        to_tp_layout=lambda p, tp: vit_to_tp_layout(p, cfg, tp),
+        pipeline_fns=lambda tp_axis=None: vit_pipeline_fns(
+            cfg, tp_axis=tp_axis, remat=remat, compute_dtype=compute_dtype),
+        pipeline_eval_fns=pipeline_eval_fns)

@@ -22,7 +22,9 @@ def accumulate_grads(loss_fn: Callable, params, batch, n_micro: int,
                      generator=None):
     """``(mean loss, {path: mean grad})`` over ``n_micro`` equal slices
     of every tensor in ``batch`` (all [batch, ...]). ``generator``
-    (dropout) is consumed by the micro-batches in turn."""
+    (dropout) is consumed by the micro-batches in turn. A leaf the loss
+    does not use gets a zero gradient (a pipeline stage's share of the
+    embedding or the head it does not run)."""
     paths, leaves = zip(*tree_leaves(params))
     n = batch[0].shape[0]
     if n % n_micro:
@@ -33,7 +35,8 @@ def accumulate_grads(loss_fn: Callable, params, batch, n_micro: int,
     for m in range(n_micro):
         mb = tuple(x[m * size:(m + 1) * size] for x in batch)
         loss = loss_fn(params, mb, generator)
-        g = torch.autograd.grad(loss, leaves)
+        g = torch.autograd.grad(loss, leaves, allow_unused=True,
+                                materialize_grads=True)
         if grads is None:
             loss_sum, grads = loss.detach(), list(g)
         else:

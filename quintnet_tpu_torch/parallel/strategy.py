@@ -1,13 +1,17 @@
 """Strategy facade: which mesh axes take which role, and the train step.
 
 Port of ``quintnet_tpu/parallel/strategy.py`` for the strategies
-``single``, ``dp``, ``tp`` and ``dp_tp``. A strategy is data: the mesh
-(one process per rank, ``core/mesh.py``), the axes the batch is sharded
-over (``batch_axes``), the axes the model is sharded over, whose loss is
-computed redundantly (``model_axes``), and the pipeline axes
-(``partial_axes``). Every other strategy of the JAX package raises
-``NotImplementedError`` naming its ROADMAP.md item: pp, 1F1B, ZeRO-1/2
-and fsdp (§1, item 3c), ep and MoE (item 4), sp (item 6).
+``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``, ``tp_pp`` and
+``3d``. A strategy is data: the mesh (one process per rank,
+``core/mesh.py``), the axes the batch is sharded over (``batch_axes``),
+the axes the model is sharded over, whose loss is computed redundantly
+(``model_axes``), and the pipeline axes (``partial_axes``). With pp the
+step runs ``training.schedule``'s pipeline (``parallel/pp.py``: AFAB,
+``1f1b`` or ``1f1b_stored``) over ``gradient_accumulation_steps``
+micro-batches; a ``zero1_``/``zero2_`` optimizer shards its state over
+dp (``parallel/zero.py``). Every other strategy of the JAX package
+raises ``NotImplementedError`` naming its ROADMAP.md item: fsdp (§1,
+item 3d), ep and MoE (item 4), sp (item 6).
 """
 
 from __future__ import annotations
@@ -39,10 +43,9 @@ STRATEGY_AXES = {
     "4d": ("dp", "tp", "pp", "sp"),
     "5d": ("dp", "tp", "pp", "sp", "ep"),
 }
-PORTED = ("single", "dp", "tp", "dp_tp")
+PORTED = ("single", "dp", "tp", "pp", "dp_tp", "dp_pp", "tp_pp", "3d")
 # the ROADMAP.md item each axis of the strategies still to port waits for
 AXIS_ITEMS = {
-    "pp": "§1, item 3c (pipeline parallelism)",
     "ep": "§1, item 4 (MoE expert parallelism)",
     "sp": "§1, item 6 (sequence parallelism)",
 }
@@ -62,13 +65,17 @@ class ModelSpec:
     tp_axis=None)`` -> scalar loss on this rank's shards, the generator
     driving training dropout and ``tp_axis`` the tp
     :class:`~quintnet_tpu_torch.core.mesh.MeshAxis` (None without tp);
-    ``depth`` the layer count; ``needs_rng`` True when the model uses
-    dropout; ``eval_metrics_fn(params, batch, *, tp_axis=None) -> {name:
-    device scalar}`` (optional: ViT gives loss and accuracy);
-    ``partition_specs(tp_axis=None)`` -> the spec tree (axis names;
-    ``parallel/tp.py``) and ``to_tp_layout(params, tp)`` -> the params
-    in the tp-blocked fused-QKV layout, both needed on a mesh. (The JAX
-    spec's pipeline functions wait for ROADMAP.md §1, item 3c.)"""
+    ``depth`` the layer count (pp must divide it); ``needs_rng`` True
+    when the model uses dropout; ``eval_metrics_fn(params, batch, *,
+    tp_axis=None) -> {name: device scalar}`` (optional: ViT gives loss
+    and accuracy); ``partition_specs(tp_axis=None, pp_axis=None)`` -> the
+    spec tree (axis names; ``parallel/tp.py``) and ``to_tp_layout(params,
+    tp)`` -> the params in the tp-blocked fused-QKV layout, both needed
+    on a mesh; ``pipeline_fns(tp_axis=None)`` -> ``(embed_fn, stage_fn,
+    head_loss_fn)`` for ``parallel/pp.py`` and, optionally,
+    ``pipeline_eval_fns(tp_axis=None)`` -> ``(embed_fn, stage_fn,
+    head_metrics_fn)`` (without it a pp evaluation reports the loss
+    alone)."""
 
     init: Callable[[Any], Any]
     loss_fn: Callable
@@ -77,6 +84,8 @@ class ModelSpec:
     eval_metrics_fn: Optional[Callable] = None
     partition_specs: Optional[Callable] = None
     to_tp_layout: Optional[Callable] = None
+    pipeline_fns: Optional[Callable] = None
+    pipeline_eval_fns: Optional[Callable] = None
 
 
 @dataclass
@@ -100,17 +109,39 @@ class Strategy:
     def _axis_name(self, axis: str) -> Optional[str]:
         return axis if self.mesh.shape.get(axis, 1) > 1 else None
 
+    @property
+    def uses_pp(self) -> bool:
+        return any(self.mesh.shape.get(a, 1) > 1 for a in self.partial_axes)
+
+    @property
+    def zero1_axis(self) -> Optional[str]:
+        """``"dp"`` when the config asks for a ``zero1_*``/``zero2_*``
+        optimizer on a mesh with dp > 1: the optimizer state is then
+        sharded over dp (``parallel/zero.py``)."""
+        if (self.config.training.optimizer.lower().startswith(
+                ("zero1", "zero2")) and self.mesh.shape.get("dp", 1) > 1):
+            return "dp"
+        return None
+
+    @property
+    def zero_stage(self) -> int:
+        """2: the gradients are reduce-scattered over dp too."""
+        return 2 if self.config.training.optimizer.lower().startswith(
+            "zero2") else 1
+
     # -- placement -----------------------------------------------------
     def param_specs(self, model: ModelSpec):
         if model.partition_specs is None:
             raise ValueError(f"strategy {self.name!r} needs the model's "
                              f"partition_specs")
-        return model.partition_specs(tp_axis=self._axis_name("tp"))
+        return model.partition_specs(tp_axis=self._axis_name("tp"),
+                                     pp_axis=self._axis_name("pp"))
 
     def shard_params(self, model: ModelSpec, params):
         """Full params (every rank holds the same, from the same seed) ->
         this rank's shards: the tp layout, then each dim that names a
-        present axis cut to this rank's chunk."""
+        present axis cut to this rank's chunk (the stacked blocks' depth
+        over pp: stage s holds layers ``s L/pp .. (s + 1) L/pp - 1``)."""
         from quintnet_tpu_torch.core.pytree import tree_map
         from quintnet_tpu_torch.parallel.tp import shard_leaf
 
@@ -143,8 +174,14 @@ class Strategy:
         return tuple(out)
 
     def init_opt_state(self, model: ModelSpec, optimizer, params):
-        """The optimizer state of this rank's shards (every moment has
-        its parameter's shape, so it is sharded like it)."""
+        """The optimizer state of this rank's shards: every moment has its
+        parameter's shape, so it is sharded like it; under ZeRO the
+        moments are this rank's flat chunk over dp."""
+        if self.zero1_axis is not None:
+            from quintnet_tpu_torch.parallel.zero import init_chunk_state
+
+            return init_chunk_state(optimizer, params, self.mesh,
+                                    axis=self.zero1_axis)
         return optimizer.init(params)
 
     def dropout_generator(self, seed: int, device):
@@ -170,8 +207,14 @@ class Strategy:
     # -- the step ------------------------------------------------------
     def model_fns(self, model: ModelSpec):
         """``(loss_fn(params, batch, generator=None), eval_fn(params,
-        batch) or None)`` with this rank's tp axis bound."""
+        batch) or None)`` with this rank's tp axis bound. On a pp mesh
+        the loss is None (the pipeline's step has its own) and the
+        evaluation is the forward pipeline (``parallel/pp.
+        make_afab_eval_fn``) over the model's ``pipeline_eval_fns``, or
+        the loss alone from its ``pipeline_fns``."""
         tp_axis = self.axis_or_none("tp")
+        if self.uses_pp:
+            return None, self._pipeline_eval_fn(model, tp_axis)
         if tp_axis is None:
             return model.loss_fn, model.eval_metrics_fn
 
@@ -184,23 +227,78 @@ class Strategy:
                 return _fn(params, batch, tp_axis=tp_axis)
         return loss, ev
 
+    def _pipeline_spec(self):
+        from quintnet_tpu_torch.parallel.pp import PipelineSpec
+
+        return PipelineSpec(
+            n_micro=self.config.training.gradient_accumulation_steps,
+            pp_axis=self.mesh.axis("pp"))
+
+    def _pipeline_eval_fn(self, model: ModelSpec, tp_axis):
+        from quintnet_tpu_torch.parallel.pp import (SplitHead,
+                                                    make_afab_eval_fn)
+
+        if model.pipeline_eval_fns is not None:
+            embed_fn, stage_fn, head = model.pipeline_eval_fns(
+                tp_axis=tp_axis)
+        else:
+            embed_fn, stage_fn, loss_head = model.pipeline_fns(
+                tp_axis=tp_axis)
+            if isinstance(loss_head, SplitHead):
+                head = SplitHead(loss_head.local_fn,
+                                 lambda local, y, valid, _r=loss_head.
+                                 reduce_fn: {"loss": _r(local, y, valid)})
+            else:
+                def head(p, h, y, _h=loss_head):
+                    return {"loss": _h(p, h, y)}
+        return make_afab_eval_fn(embed_fn, stage_fn, head,
+                                 self._pipeline_spec())
+
     def make_train_step(self, model: ModelSpec, optimizer):
+        """The step of this strategy: one device's, the mesh step over
+        accumulated micro-batches, or on pp the schedule
+        ``training.schedule`` names (``afab``; ``1f1b``/``one_f_one_b``
+        or ``1f1b_stored``) over ``gradient_accumulation_steps``
+        micro-batches (the step's own accumulation is then 1)."""
         from quintnet_tpu_torch.parallel.train_step import (
             make_parallel_train_step, make_train_step)
 
         t = self.config.training
-        loss, _ = self.model_fns(model)
         if self.name == "single":
+            loss, _ = self.model_fns(model)
             return make_train_step(
                 loss, optimizer,
                 grad_accum_steps=t.gradient_accumulation_steps,
                 grad_clip_norm=t.grad_clip_norm, needs_rng=model.needs_rng)
-        return make_parallel_train_step(
-            self.mesh, loss, optimizer, self.param_specs(model),
-            batch_axes=self.batch_axes, model_axes=self.model_axes,
-            partial_axes=self.partial_axes,
-            grad_accum_steps=t.gradient_accumulation_steps,
-            grad_clip_norm=t.grad_clip_norm, needs_rng=model.needs_rng)
+        common = dict(batch_axes=self.batch_axes, model_axes=self.model_axes,
+                      partial_axes=self.partial_axes,
+                      grad_clip_norm=t.grad_clip_norm,
+                      zero1_axis=self.zero1_axis, zero_stage=self.zero_stage,
+                      needs_rng=model.needs_rng)
+        specs = self.param_specs(model)
+        if not self.uses_pp:
+            loss, _ = self.model_fns(model)
+            return make_parallel_train_step(
+                self.mesh, loss, optimizer, specs,
+                grad_accum_steps=t.gradient_accumulation_steps, **common)
+        from quintnet_tpu_torch.parallel.pp import (make_1f1b_grad_fn,
+                                                    make_afab_loss_fn,
+                                                    validate_pp)
+
+        if model.pipeline_fns is None:
+            raise ValueError(f"strategy {self.name!r} needs the model's "
+                             f"pipeline_fns")
+        validate_pp(model.depth, self.mesh.shape["pp"])
+        fns = model.pipeline_fns(tp_axis=self.axis_or_none("tp"))
+        pspec = self._pipeline_spec()
+        sched = t.schedule.lower()
+        if sched in ("1f1b", "one_f_one_b", "1f1b_stored"):
+            grad_fn = make_1f1b_grad_fn(
+                *fns, pspec, store_activations=sched == "1f1b_stored")
+            return make_parallel_train_step(self.mesh, None, optimizer,
+                                            specs, grad_fn=grad_fn, **common)
+        return make_parallel_train_step(self.mesh, make_afab_loss_fn(
+            *fns, pspec), optimizer, specs, **common)
 
 
 def get_strategy(name: Optional[str] = None,
@@ -210,9 +308,10 @@ def get_strategy(name: Optional[str] = None,
     rank the process group must already be joined
     (``core/runtime.initialize``) with a world of the mesh's size; every
     rank calls this in the same order (it creates the mesh's process
-    groups). ``single``, ``dp``, ``tp`` and ``dp_tp`` are ported; other
-    strategies raise ``NotImplementedError`` naming their ROADMAP.md
-    item, unknown names ``ValueError``."""
+    groups). ``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``,
+    ``tp_pp`` and ``3d`` are ported; the others, and fsdp, raise
+    ``NotImplementedError`` naming their ROADMAP.md item, unknown names
+    ``ValueError``."""
     config = config or Config.from_dict({})
     sizes = dict(config.mesh.axis_sizes)
     active = tuple(a for a, s in sizes.items() if s > 1)
@@ -244,10 +343,7 @@ def get_strategy(name: Optional[str] = None,
         if dp <= 1:
             raise ValueError("training.fsdp requires a dp mesh axis of size "
                              "> 1; this mesh has none")
-        raise _not_ported("training.fsdp (ZeRO-3)", "§1, item 3c")
-    if t.optimizer.lower().startswith(("zero1", "zero2")) and dp > 1:
-        raise _not_ported(f"optimizer {t.optimizer!r} (ZeRO-1/2 state "
-                          f"sharding over dp)", "§1, item 3c")
+        raise _not_ported("training.fsdp (ZeRO-3)", "§1, item 3d")
     mesh = build_mesh(MeshSpec.from_config(config.mesh))
     return Strategy(
         name=name, config=config, mesh=mesh,

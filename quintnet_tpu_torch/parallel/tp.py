@@ -12,7 +12,7 @@ its columns ordered [q_0|k_0|v_0|q_1|k_1|v_1|...] per tp shard, so a
 contiguous column slice gives each rank whole heads of q, k and v
 (:func:`qkv_blocked_from_standard`). The FSDP spec transforms
 (``fsdp_shard_specs``, ``fsdp_gather_dims``, ``fsdp_info``) are not
-ported yet (ROADMAP.md §1, item 3c).
+ported yet (ROADMAP.md §1, item 3d).
 """
 
 from __future__ import annotations
@@ -132,7 +132,7 @@ def tree_qkv_layout(params, num_heads: int, tp: int, *,
 
 # ---------------------------------------------------------------------
 # spec helpers. ``stacked`` prepends the depth dim of stacked block
-# trees; ``pp_axis`` would shard it (pipelines: ROADMAP.md §1, item 3c).
+# trees; ``pp_axis`` shards it over the pipeline stages.
 # ---------------------------------------------------------------------
 
 def _lead(tail, stacked: bool, pp_axis: Optional[str]):

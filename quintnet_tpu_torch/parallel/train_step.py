@@ -1,4 +1,4 @@
-"""Train steps: the single-device step, and the step over a dp x tp mesh.
+"""Train steps: the single-device step, and the step over a dp x tp x pp mesh.
 
 Port of ``quintnet_tpu/parallel/train_step.py`` (and the single-device
 path of ``parallel/dp.py``). The global batch (or, on a mesh, this
@@ -14,8 +14,10 @@ computed redundantly on every member of a model axis (tp), and the
 collectives' backward is JAX's transpose (``core/collectives.py``), so
 every gradient arrives scaled by the product of the model axes' sizes,
 which is divided out; leaves replicated over a model axis hold only
-their rank's partial sum and are summed over it; the data axes (dp)
-take the mean.
+their rank's partial sum and are summed over it; the pipeline axis
+(pp) sums the replicated leaves' partial gradients without the
+division; the data axes (dp) take the mean. The pipeline schedules are
+``parallel/pp.py``, the dp-sharded optimizer state ``parallel/zero.py``.
 """
 
 from __future__ import annotations
@@ -63,8 +65,9 @@ def reduce_grads(grads, param_specs, mesh: Mesh, *,
     ``model_axes`` (tp): every leaf is divided by the product of their
     sizes (the redundancy the sum-transpose of each in-model all-reduce
     creates), after leaves replicated over a model axis are summed over
-    it. ``partial_axes`` (pp: not ported yet) are summed without the
-    division. ``data_axes`` take the mean, except over an axis a leaf is
+    it. ``partial_axes`` (pp) are summed without the division: the loss
+    is not redundant there, but the replicated leaves (the embedding on
+    stage 0, the head on the last stage) hold partial gradients. ``data_axes`` take the mean, except over an axis a leaf is
     sharded on, which divides by that axis's size."""
     redundancy = 1
     for a in model_axes:
@@ -173,8 +176,8 @@ def make_train_step(loss_fn: Callable, optimizer, *,
     return step
 
 
-def make_parallel_train_step(mesh: Mesh, loss_fn: Callable, optimizer,
-                             param_specs, *,
+def make_parallel_train_step(mesh: Mesh, loss_fn: Optional[Callable],
+                             optimizer, param_specs, *,
                              batch_axes: Sequence[str] = ("dp",),
                              model_axes: Sequence[str] = ("tp", "sp"),
                              partial_axes: Sequence[str] = ("pp",),
@@ -182,47 +185,79 @@ def make_parallel_train_step(mesh: Mesh, loss_fn: Callable, optimizer,
                              grad_clip_norm: Optional[float] = None,
                              grad_fn: Optional[Callable] = None,
                              zero1_axis: Optional[str] = None,
+                             zero_stage: int = 1,
                              needs_rng: bool = False):
     """-> ``step(params, opt_state, batch, generator=None) -> (params,
     opt_state, loss)`` for this rank of ``mesh``: ``loss_fn(params,
     batch, generator)`` sees this rank's parameter shards and its LOCAL
-    batch and may run collectives itself (tp sums inside the model).
-    Accumulate over ``grad_accum_steps`` micro-batches, reduce the
-    gradients (:func:`reduce_grads`), average the loss over the data
-    axes, clip to the global norm of the sharded tree, update in place.
-    ``generator``: this rank's dropout generator
+    batch and may run collectives itself (tp sums inside the model, the
+    pipeline's shifts). Accumulate over ``grad_accum_steps`` micro-batches,
+    reduce the gradients (:func:`reduce_grads`), average the loss over the
+    data axes, clip to the global norm of the sharded tree, update in
+    place. ``generator``: this rank's dropout generator
     (:func:`device_dropout_generator`), used when ``needs_rng``.
 
-    ``grad_fn`` (1F1B schedules) and ``zero1_axis`` (ZeRO-1/2) are not
-    ported yet and raise ``NotImplementedError`` (ROADMAP.md §1, item
-    3c)."""
-    if grad_fn is not None:
-        raise NotImplementedError(
-            "make_parallel_train_step(grad_fn=...) (1F1B pipeline "
-            "schedules) is not ported yet (ROADMAP.md §1, item 3c)")
-    if zero1_axis is not None:
-        raise NotImplementedError(
-            f"make_parallel_train_step(zero1_axis={zero1_axis!r}) (ZeRO-1/2 "
-            f"optimizer-state sharding) is not ported yet (ROADMAP.md §1, "
-            f"item 3c)")
+    ``grad_fn(params, batch, generator) -> (loss, {path: grad})``: a
+    schedule that computes its own gradients (1F1B, ``parallel/pp.py``)
+    in place of accumulating ``loss_fn``'s.
+
+    ``zero1_axis`` (``"dp"``): the optimizer state is sharded over that
+    axis (``parallel/zero.py``). ``zero_stage`` 1 takes each rank's chunk
+    of the fully reduced gradients; 2 leaves the zero axis out of
+    :func:`reduce_grads` and reduce-scatters it into the chunk instead,
+    clips in chunk space, and without ``grad_fn`` and with accumulation
+    accumulates in chunk space."""
+    from quintnet_tpu_torch.parallel import zero
+
     names = mesh.axis_names
     data_axes = tuple(a for a in batch_axes if a in names)
     maxes = tuple(a for a in model_axes if a in names)
     paxes = tuple(a for a in partial_axes if a in names)
+    zero2 = zero1_axis is not None and zero_stage == 2
+    if zero2:
+        _, zero_update, zero_update_chunk = zero.make_zero2(
+            optimizer, param_specs, mesh, axis=zero1_axis,
+            clip_norm=grad_clip_norm)
+    elif zero1_axis is not None:
+        _, zero_update = zero.make_zero1(optimizer, mesh, axis=zero1_axis)
 
-    def step(params, opt_state, batch, generator=None):
-        loss, grads = accumulate_grads(loss_fn, params, batch,
-                                       grad_accum_steps,
-                                       generator if needs_rng else None)
-        reduce_grads(grads, param_specs, mesh, data_axes=data_axes,
-                     model_axes=maxes, partial_axes=paxes)
+    def mean_loss(loss):
         if data_axes:
             loss = cc.all_reduce_(loss.clone(), mesh.axis(data_axes),
                                   mean=True)
-        if grad_clip_norm is not None:
+        return loss
+
+    def step(params, opt_state, batch, generator=None):
+        gen = generator if needs_rng else None
+        if zero2 and grad_fn is None and grad_accum_steps > 1:
+            # the full-size gradient never exists across micro-batches
+            loss, g_chunk = zero.accumulate_grads_zero2(
+                loss_fn, params, batch, grad_accum_steps, mesh=mesh,
+                axis=zero1_axis, data_axes=data_axes, model_axes=maxes,
+                partial_axes=paxes, param_specs=param_specs, generator=gen)
+            zero_update_chunk(g_chunk, opt_state, params)
+            return params, opt_state, mean_loss(loss)
+        if grad_fn is not None:
+            loss, grads = grad_fn(params, batch, gen)
+        else:
+            loss, grads = accumulate_grads(loss_fn, params, batch,
+                                           grad_accum_steps, gen)
+        # ZeRO-2: the zero axis's mean is the reduce-scatter into the chunk
+        reduce_grads(grads, param_specs, mesh,
+                     data_axes=(tuple(a for a in data_axes
+                                      if a != zero1_axis)
+                                if zero2 else data_axes),
+                     model_axes=maxes, partial_axes=paxes)
+        loss = mean_loss(loss)
+        if grad_clip_norm is not None and not zero2:
+            # pp-sharded leaves are partial over pp too: include it so
+            # the global norm counts every shard once
             clip_sharded_grads(grads, param_specs, grad_clip_norm, mesh,
                                model_axes=maxes + paxes + data_axes)
-        optimizer.update(grads, opt_state, params)
+        if zero1_axis is not None:
+            zero_update(grads, opt_state, params)
+        else:
+            optimizer.update(grads, opt_state, params)
         return params, opt_state, loss
 
     return step

@@ -23,17 +23,21 @@ does not read ``training.dtype``: the bf16 compute it names is the
 model's (``gpt2_model_spec(compute_dtype=)``), chosen by the example
 (``examples/gpt2_finetune.py``).
 
-On a mesh (strategies ``dp``, ``tp``, ``dp_tp``: one process per rank,
-``core/runtime.initialize`` first) every rank builds the same full
-parameters from the seed and keeps its shards
-(``Strategy.shard_params``), each step cuts the global batch to the
-rank's rows (``Strategy.shard_batch``), only rank 0 logs, and
-validation metrics are averaged over dp.
+On a mesh (strategies ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``,
+``tp_pp``, ``3d``: one process per rank, ``core/runtime.initialize``
+first) every rank builds the same full parameters from the seed and
+keeps its shards (``Strategy.shard_params``), the optimizer state comes
+from ``Strategy.init_opt_state`` (a flat dp chunk under ZeRO), each step
+cuts the global batch to the rank's rows (``Strategy.shard_batch``),
+only rank 0 logs, and validation metrics are averaged over dp. On pp
+the step's loss is summed over the stages, so every rank logs the same
+value, and validation runs the forward pipeline
+(``Strategy.model_fns``).
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): preemption handling, fault injection and goodput (``ft=``, item
 8), checkpoints of a run over more than one rank (sharded checkpoints,
-item 3c), the strategies with pp, ep or sp (``get_strategy``),
+item 3d), the strategies with ep or sp and fsdp (``get_strategy``),
 ``remat_policy="dots"``.
 The JAX loop's host-side knobs for its asynchronous dispatch
 (``sync_every``, ``prefetch``) have no use in the eager port and are
@@ -161,8 +165,13 @@ class Optimizer:
         return state
 
     @torch.no_grad()
-    def update(self, grads: Dict, state: Dict, params) -> None:
-        """``grads``: ``{path: gradient}`` for every leaf of ``params``."""
+    def update(self, grads: Dict, state: Dict, params, *,
+               decay_mask: Optional[Dict] = None) -> None:
+        """``grads``: ``{path: gradient}`` for every leaf of ``params``.
+        ``decay_mask`` (``{path: 0/1 tensor shaped like the leaf}``): the
+        decay's elementwise mask, for a flat ZeRO chunk whose elements
+        have no key of their own (``parallel/zero.py``; the JAX
+        ``masked_decay``'s extra argument); None masks by leaf key."""
         lr = self.lr(state["count"]) if callable(self.lr) else self.lr
         state["count"] += 1
         t = state["count"]
@@ -188,10 +197,13 @@ class Optimizer:
             nu[path].mul_(self.b2).addcmul_(g, g, value=1.0 - self.b2)
             u = (m / bc1) / ((nu[path] / bc2).sqrt() + self.eps)
             # masked decay: weight matrices and embedding tables only,
-            # by the leaf's own key (``core.pytree.decay_mask``)
-            if self.kind == "adamw" and self.weight_decay \
-                    and path[-1] in DECAY_KEYS:
-                u.add_(p, alpha=self.weight_decay)
+            # by the leaf's own key (``core.pytree.decay_mask``) or the
+            # elementwise mask
+            if self.kind == "adamw" and self.weight_decay:
+                if decay_mask is not None:
+                    u.add_(p * decay_mask[path], alpha=self.weight_decay)
+                elif path[-1] in DECAY_KEYS:
+                    u.add_(p, alpha=self.weight_decay)
             p.add_(u, alpha=-lr)
 
 
@@ -211,8 +223,10 @@ def first_moment(mu, g, b1: float):
 
 def make_optimizer(cfg: Config) -> Optimizer:
     """The optimizer ``cfg.training.optimizer`` names: adam | adamw |
-    sgd (a ``zero1_``/``zero2_`` prefix shards the state over dp in the
-    JAX package and means nothing on one device, so it is dropped).
+    sgd. A ``zero1_``/``zero2_`` prefix names the same update with its
+    state sharded over dp: the strategy reads the prefix from the config
+    (``Strategy.zero1_axis``, ``zero_stage``) and the optimizer runs on
+    each rank's flat chunk (``parallel/zero.py``).
     AdamW's decay defaults to 0.01. ``adam_mu_dtype="bfloat16"`` stores
     Adam's first moment in bf16 (the JAX ``mu_dtype``; ``nu`` stays
     f32)."""
@@ -338,7 +352,7 @@ class Trainer:
             raise NotImplementedError(
                 f"checkpoint_dir on a mesh of {self.strategy.mesh.size} ranks "
                 f"(sharded checkpoints) is not ported yet (ROADMAP.md §1, "
-                f"item 3c)")
+                f"item 3d)")
         if not runtime.is_main_process():
             self.log = lambda msg: None     # one log per job: rank 0
         self.step_fn = self.strategy.make_train_step(model, self.optimizer)
@@ -513,9 +527,10 @@ class Trainer:
     def evaluate(self, params, batches: Iterable) -> Dict[str, float]:
         """The mean over ``batches`` of each metric (no dropout, no
         gradients): the model's ``eval_metrics_fn`` where it has one
-        (ViT: loss and accuracy), else its loss; clm adds perplexity. On
-        a mesh each batch's metrics are averaged over the dp ranks'
-        rows first."""
+        (ViT: loss and accuracy), else its loss; on pp the forward
+        pipeline's (its micro-batches are ``gradient_accumulation_steps``
+        slices of each rank's rows); clm adds perplexity. On a mesh each
+        batch's metrics are averaged over the dp ranks' rows first."""
         fn = self._eval_fn
         acc: Dict[str, list] = {}
         with torch.no_grad():

@@ -406,3 +406,329 @@ def dp_world_case(rank, world, dp_args, gpt2_args):
     (:func:`dp_case`) and the GPT-2 dp x tp = 2 x 2 step."""
     return {"dp": dp_case(rank, world, *dp_args),
             "gpt2": gpt2_mesh_case(rank, world, *gpt2_args)}
+
+
+# ---------------------------------------------------------------------
+# pipelines: AFAB, 1F1B and 1F1B-stored against one device
+# ---------------------------------------------------------------------
+
+PP_SCHEDULES = ("afab", "1f1b", "1f1b_stored")
+
+
+def pp_model(name, kw):
+    """The tiny model of a pipeline case: ``("gpt2", GPT2Config.tiny
+    kwargs)`` or ``("vit", ViTConfig kwargs)``."""
+    if name == "gpt2":
+        from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
+
+        return gpt2_model_spec(GPT2Config.tiny(**kw), use_flash=True)
+    from quintnet_tpu_torch.models.vit import ViTConfig, vit_model_spec
+
+    return vit_model_spec(ViTConfig(**kw))
+
+
+def pp_params(name, np_params):
+    from quintnet_tpu_torch.bridge import (gpt2_params_from_numpy,
+                                           vit_params_from_numpy)
+
+    fn = gpt2_params_from_numpy if name == "gpt2" else vit_params_from_numpy
+    return fn(np_params, "cpu")
+
+
+def pipeline_grads(mesh, model, full, batch, schedule, n_micro,
+                   generator=None):
+    """(pp-summed loss, every gradient leaf gathered whole) of one step of
+    ``schedule`` over ``mesh``'s pp axis, the gradients reduced over pp
+    as the train step reduces them."""
+    from quintnet_tpu_torch.parallel.pp import (PipelineSpec,
+                                                make_1f1b_grad_fn,
+                                                make_afab_loss_fn)
+    from quintnet_tpu_torch.parallel.tp import gather_leaf, shard_leaf
+    from quintnet_tpu_torch.parallel.train_step import (accumulate_grads,
+                                                        reduce_grads)
+
+    specs = model.partition_specs(pp_axis="pp")
+    local = tree_map(lambda t, s: shard_leaf(t.detach(), s, mesh)
+                     .requires_grad_(True), full, specs)
+    fns = model.pipeline_fns()
+    pspec = PipelineSpec(n_micro, mesh.axis("pp"))
+    if schedule == "afab":
+        loss, grads = accumulate_grads(make_afab_loss_fn(*fns, pspec), local,
+                                       batch, 1, generator)
+    else:
+        loss, grads = make_1f1b_grad_fn(
+            *fns, pspec, store_activations=schedule == "1f1b_stored")(
+                local, batch, generator)
+    reduce_grads(grads, specs, mesh, data_axes=(), model_axes=(),
+                 partial_axes=("pp",))
+    by_path = dict(tree_leaves(specs))
+    return float(loss), {".".join(k): _np(gather_leaf(g, by_path[k], mesh))
+                         for k, g in grads.items()}
+
+
+def _shift_forms(mesh):
+    """The shift's two implementations (point-to-point and the
+    all-to-all that gloo runs on CUDA tensors) on this rank's pp axis,
+    for each direction with and without wrap: {(shift, wrap): (p2p,
+    all_to_all)}."""
+    ax = mesh.axis("pp")
+    x = torch.arange(6.0).reshape(2, 3) + 10 * ax.index
+    return {(sh, wrap): (_np(cc._shift_p2p(x, ax, sh, wrap)),
+                         _np(cc._shift_all_to_all(x, ax, sh, wrap)))
+            for sh in (1, -1) for wrap in (False, True)}
+
+
+def pp_world_case(rank, world, runs, drop_run, n_micro):
+    """tests/test_torch_pp.py's world: every (model, pp, schedule) of
+    ``runs`` (each a (name, model kwargs, numpy params, x, y, pp)) on an
+    (x, pp) mesh of this world (x holds replicas), the dropout run (a
+    GPT-2 run with a step seed) under every schedule, and the shift's
+    two implementations on pp = world."""
+    from quintnet_tpu_torch.core.mesh import MeshSpec, build_mesh
+
+    out = {}
+    meshes = {}
+    for name, kw, np_params, x, y, pp in runs:
+        if pp not in meshes:
+            meshes[pp] = build_mesh(MeshSpec.create(x=world // pp, pp=pp))
+        model = pp_model(name, kw)
+        full = pp_params(name, np_params)
+        batch = (torch.tensor(x), torch.tensor(y))
+        for sched in PP_SCHEDULES:
+            out[(name, pp, sched)] = pipeline_grads(
+                meshes[pp], model, full, batch, sched, n_micro)
+    name, kw, np_params, x, y, pp, seed = drop_run
+    model = pp_model(name, kw)
+    full = pp_params(name, np_params)
+    for sched in PP_SCHEDULES:
+        out[("dropout", sched)] = pipeline_grads(
+            meshes[pp], model, full, (torch.tensor(x), torch.tensor(y)),
+            sched, n_micro, torch.Generator().manual_seed(seed))
+    out["shift"] = _shift_forms(meshes[world])
+    return out
+
+
+# ---------------------------------------------------------------------
+# ZeRO-1/2 against replicated AdamW, and the 3D 1F1B ZeRO step
+# ---------------------------------------------------------------------
+
+ZERO_TRAINING = {"learning_rate": 1e-3, "weight_decay": 0.01,
+                 "grad_clip_norm": 1.0}
+
+
+def _zero_vit_runs(mesh, np_params, x, y, runs):
+    """Each (tag, optimizer, accumulation, mu dtype) of ``runs``: three
+    steps of ``make_parallel_train_step`` on ``mesh`` (batch over dp,
+    tp = the mesh's), recording each step's loss, the parameters after
+    steps 1 and 3 gathered whole (tp-blocked layout), this rank's Adam
+    state after step 1 (flat in ``parallel/zero``'s order: a ZeRO chunk,
+    or the replicated moments flattened) and the chunk length."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.models.vit import (ViTConfig, cross_entropy_loss,
+                                               vit_apply, vit_partition_specs,
+                                               vit_to_tp_layout)
+    from quintnet_tpu_torch.parallel import zero
+    from quintnet_tpu_torch.parallel.tp import gather_leaf, shard_leaf
+    from quintnet_tpu_torch.parallel.train_step import \
+        make_parallel_train_step
+    from quintnet_tpu_torch.train.trainer import make_optimizer
+
+    cfg = ViTConfig(**ZERO_VIT)
+    tp = mesh.shape.get("tp", 1)
+    tp_axis = mesh.axis("tp") if tp > 1 else None
+    specs = vit_partition_specs(cfg, tp_axis="tp" if tp > 1 else None)
+    by_path = dict(tree_leaves(specs))
+    dp = mesh.axis("dp")
+    n = len(x) // dp.size
+    batch = (torch.tensor(x[dp.index * n:(dp.index + 1) * n]),
+             torch.tensor(y[dp.index * n:(dp.index + 1) * n]))
+
+    def loss_fn(p, b, generator=None):
+        return cross_entropy_loss(vit_apply(p, b[0], cfg, tp_axis=tp_axis),
+                                  b[1])
+
+    out = {}
+    for tag, optimizer, accum, mu_dtype in runs:
+        opt = make_optimizer(Config.from_dict({"training": dict(
+            ZERO_TRAINING, optimizer="adamw",
+            adam_mu_dtype=mu_dtype or "float32")}))
+        zaxis = "dp" if optimizer.startswith("zero") else None
+        full = _vit_params(np_params)
+        params = tree_map(lambda t, s: shard_leaf(t.detach(), s, mesh)
+                          .requires_grad_(True),
+                          vit_to_tp_layout(full, cfg, tp), specs)
+        state = (zero.init_chunk_state(opt, params, mesh) if zaxis
+                 else opt.init(params))
+        step = make_parallel_train_step(
+            mesh, loss_fn, opt, specs, batch_axes=("dp",),
+            model_axes=("tp",) if tp > 1 else (), partial_axes=(),
+            grad_accum_steps=accum,
+            grad_clip_norm=ZERO_TRAINING["grad_clip_norm"],
+            zero1_axis=zaxis, zero_stage=2 if optimizer.startswith("zero2")
+            else 1)
+        run = {"losses": []}
+        for i in range(3):
+            params, state, loss = step(params, state, batch)
+            run["losses"].append(float(loss))
+            if i in (0, 2):
+                run[f"params{i + 1}"] = {
+                    ".".join(k): _np(gather_leaf(v.detach(), by_path[k],
+                                                 mesh)).copy()
+                    for k, v in tree_leaves(params)}
+            if i == 0:
+                order = zero.flat_order(params)
+                for m in ("mu", "nu"):
+                    st = state[m]
+                    run[m] = (st.detach().float().numpy().copy() if zaxis else
+                              zero.flatten(dict(tree_leaves(st)), order)
+                              .float().numpy())
+                    run[m + "_dtype"] = str((st if zaxis else next(
+                        v for _, v in tree_leaves(st))).dtype)
+                run["n_local"] = sum(v.numel() for _, v in tree_leaves(params))
+        out[tag] = run
+    return out
+
+
+def _chunk_norm_case(mesh, np_params, x, y):
+    """The global norm of a dp x tp ViT's reduced gradients two ways:
+    ``clip_sharded_grads``'s (``sharded_global_norm``) and ZeRO-2's,
+    from this rank's dp chunk with ``zero.grad_weights``."""
+    from quintnet_tpu_torch.models.vit import (ViTConfig, cross_entropy_loss,
+                                               vit_apply, vit_partition_specs,
+                                               vit_to_tp_layout)
+    from quintnet_tpu_torch.parallel import zero
+    from quintnet_tpu_torch.parallel.tp import shard_leaf
+    from quintnet_tpu_torch.parallel.train_step import (accumulate_grads,
+                                                        reduce_grads,
+                                                        sharded_global_norm)
+
+    cfg = ViTConfig(**ZERO_VIT)
+    specs = vit_partition_specs(cfg)
+    tp_axis = mesh.axis("tp")
+    params = tree_map(lambda t, s: shard_leaf(t.detach(), s, mesh)
+                      .requires_grad_(True),
+                      vit_to_tp_layout(_vit_params(np_params), cfg, 2), specs)
+    dp = mesh.axis("dp")
+    n = len(x) // dp.size
+    _, grads = accumulate_grads(
+        lambda p, b, g=None: cross_entropy_loss(
+            vit_apply(p, b[0], cfg, tp_axis=tp_axis), b[1]), params,
+        (torch.tensor(x[dp.index * n:(dp.index + 1) * n]),
+         torch.tensor(y[dp.index * n:(dp.index + 1) * n])), 1)
+    reduce_grads(grads, specs, mesh, data_axes=("dp",), model_axes=("tp",))
+    want = float(sharded_global_norm(grads, specs, mesh,
+                                     model_axes=("tp", "dp")))
+    order = zero.flat_order(params)
+    chunk = zero.chunk_size(sum(v.numel() for v in grads.values()), dp.size)
+    g = zero.local_chunk(zero.flatten(grads, order), dp.size, dp.index,
+                         chunk)
+    w = zero.local_chunk(zero.grad_weights(params, specs, mesh,
+                                           skip_axis="dp"),
+                         dp.size, dp.index, chunk)
+    ss = cc.all_reduce_((w * g.square()).sum(), mesh.axis(mesh.axis_names))
+    return want, float(torch.sqrt(ss))
+
+
+ZERO_VIT = dict(image_size=14, patch_size=7, in_channels=1, hidden_dim=16,
+                depth=4, num_heads=2, num_classes=10)
+ZERO_VIT_RUNS = (("adamw", "adamw", 1, None),
+                 ("zero1_adamw", "zero1_adamw", 1, None),
+                 ("zero2_adamw", "zero2_adamw", 1, None))
+
+
+def _gpt2_3d_step(gpt2_np, ids, optimizer):
+    """One step of the tiny GPT-2 (4 layers, 4 heads) on the 2 x 2 x 2 dp x
+    tp x pp mesh through ``get_strategy`` (1F1B over 2 micro-batches,
+    ``optimizer``, clip 1.0): the loss, the parameters gathered whole
+    (tp-blocked layout), this rank's Adam ``mu`` chunk and its
+    coordinates."""
+    from quintnet_tpu_torch.bridge import gpt2_params_from_numpy
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.parallel import zero
+    from quintnet_tpu_torch.parallel.strategy import get_strategy
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
+    from quintnet_tpu_torch.train.trainer import make_optimizer
+
+    config = Config.from_dict({
+        "mesh_dim": [2, 2, 2], "mesh_name": ["dp", "tp", "pp"],
+        "training": dict(GPT2_3D_TRAINING, optimizer=optimizer)})
+    model = pp_model("gpt2", GPT2_3D)
+    strat = get_strategy(None, config)
+    opt = make_optimizer(config)
+    params = tree_map(lambda t: t.requires_grad_(True), strat.shard_params(
+        model, gpt2_params_from_numpy(gpt2_np, "cpu")))
+    state = strat.init_opt_state(model, opt, params)
+    step = strat.make_train_step(model, opt)
+    batch = strat.shard_batch((torch.tensor(ids), torch.tensor(ids)))
+    params, state, loss = step(params, state, batch)
+    specs = dict(tree_leaves(strat.param_specs(model)))
+    return {"strategy": strat.name, "zero": (strat.zero1_axis,
+                                             strat.zero_stage),
+            "loss": float(loss), "coords": strat.mesh.coords,
+            "params": {".".join(k): _np(gather_leaf(v.detach(), specs[k],
+                                                    strat.mesh))
+                       for k, v in tree_leaves(params)},
+            "mu": _np(state["mu"] if torch.is_tensor(state["mu"]) else
+                      zero.flatten(dict(tree_leaves(state["mu"])),
+                                   zero.flat_order(params)))}
+
+
+GPT2_3D = dict(n_layer=4, n_head=4)
+GPT2_3D_TRAINING = {"batch_size": 32, "gradient_accumulation_steps": 2,
+                    "schedule": "1f1b", "learning_rate": 1e-3,
+                    "weight_decay": 0.01, "grad_clip_norm": 1.0}
+
+
+def zero_world_case(rank, world, vit_np, x, y, gpt2_np, ids):
+    """tests/test_torch_zero.py's world of 8 ranks: the ViT ZeRO runs on
+    dp = 2 (an (x = 4, dp = 2) mesh: x holds replicas) and on dp x tp =
+    2 x 2 (x = 2), ZeRO-2 chunk accumulation and the bf16 first moment on
+    dp = 2, the chunk-space norm, and the 3D 1F1B GPT-2 step with
+    ``zero2_adamw`` and ``zero1_adamw``."""
+    from quintnet_tpu_torch.core.mesh import MeshSpec, build_mesh
+
+    dp2 = build_mesh(MeshSpec.create(x=world // 2, dp=2))
+    dptp = build_mesh(MeshSpec.create(x=world // 4, dp=2, tp=2))
+    out = {"dp2": _zero_vit_runs(dp2, vit_np, x, y, ZERO_VIT_RUNS + (
+        ("zero1_acc2", "zero1_adamw", 2, None),
+        ("zero2_acc2", "zero2_adamw", 2, None),
+        ("adamw_mu_bf16", "adamw", 1, "bfloat16"),
+        ("zero1_mu_bf16", "zero1_adamw", 1, "bfloat16"))),
+        "dptp": _zero_vit_runs(dptp, vit_np, x, y, ZERO_VIT_RUNS),
+        "norm": _chunk_norm_case(dptp, vit_np, x, y),
+        "coords": {"dp2": dp2.coords, "dptp": dptp.coords}}
+    out["3d"] = {opt: _gpt2_3d_step(gpt2_np, ids, opt)
+                 for opt in ("zero2_adamw", "zero1_adamw")}
+    return out
+
+
+# ---------------------------------------------------------------------
+# the strategy facade's axis roles on pp and ZeRO meshes
+# ---------------------------------------------------------------------
+
+def strategy_roles(name, sizes, training):
+    """``get_strategy(name, config)``'s name and axis roles (with
+    ``zero1_axis`` and ``zero_stage``) for a mesh ``sizes``."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.parallel.strategy import get_strategy
+
+    s = get_strategy(name, Config.from_dict({
+        "mesh_dim": list(sizes.values()), "mesh_name": list(sizes),
+        "training": training}))
+    return {"name": s.name, "batch_axes": s.batch_axes,
+            "model_axes": s.model_axes, "partial_axes": s.partial_axes,
+            "zero1_axis": s.zero1_axis, "zero_stage": s.zero_stage,
+            "uses_pp": s.uses_pp}
+
+
+def strategy_case(rank, world, cases):
+    """:func:`strategy_roles` of each (case id, name, sizes, training)
+    of ``cases``, one after the other (each builds its own mesh). A
+    barrier at the end: no rank leaves the world (and closes its
+    connections) before every rank has finished joining it."""
+    import torch.distributed as dist
+
+    out = {cid: strategy_roles(name, sizes, training)
+           for cid, name, sizes, training in cases}
+    dist.barrier()
+    return out

@@ -220,3 +220,50 @@ def test_mesh_tp2_run_on_two_cpu_ranks(tmp_path):
                             host, str(tmp_path / "missing.pt"),
                             dataclasses.asdict(cfg), "cpu", timeout=120,
                             store_dir=str(tmp_path))
+
+
+@pytest.mark.parametrize("name", ["pp2_afab", "dp2pp2_stored_zero2",
+                                  "3d_1f1b_zero1"])
+def test_mesh_pipeline_runs_on_cpu_ranks(tmp_path, name):
+    """The mesh phase's pipeline runs (``MESH_RUNS``: their meshes,
+    schedules, optimizers and micro-batches) on gloo CPU ranks with a
+    tiny GPT-2 (4 layers, 4 heads): every rank's first loss and
+    gathered first-batch gradients, step losses and (under ZeRO) Adam
+    moment chunks within the phase's gates of the single-rank reference
+    with the matching micro-batches, the ZeRO stage the optimizer names,
+    and a ZeRO rank's optimizer state half the replicated one's."""
+    import dataclasses
+
+    import numpy as np
+
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+
+    run = chip_smoke.MESH_RUNS[name]
+    mesh_dim, _, _, rows, _, optimizer = chip_smoke._run_parts(run)
+    cfg = GPT2Config.tiny(n_layer=4)
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 128, (rows, 32)),
+             rng.integers(0, 128, (rows, 32)))
+            for _ in range(chip_smoke.MESH_STEPS)]
+    path = str(tmp_path / "ref.pt")
+    torch.use_deterministic_algorithms(True)
+    try:
+        ref = chip_smoke._mesh_reference(cfg, host, chip_smoke._ref_micro(run),
+                                         "cpu", path)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    ranks = runtime.spawn_world(chip_smoke._mesh_rank, int(np.prod(mesh_dim)),
+                                run, host, path, dataclasses.asdict(cfg),
+                                "cpu", timeout=180, store_dir=str(tmp_path))
+    for r in ranks:
+        assert r["first_loss_rel"] <= chip_smoke.MESH_TOL["first_loss"]
+        assert r["worst_grad_rel_err"] <= 1e-5          # f32 on the CPU
+        assert max(r["loss_rel"]) <= chip_smoke.MESH_TOL["step_loss"]
+        assert r["losses"] == ranks[0]["losses"]
+        if optimizer.startswith("zero"):
+            assert r["zero"] == ["dp", int(optimizer[4])]
+            assert max(r["moment_chunk_rel_err"].values()) <= 1e-5
+            assert r["opt_state_bytes"] * 2 >= \
+                r["replicated_opt_state_bytes"] >= r["opt_state_bytes"] * 2 - 8
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=1e-5)

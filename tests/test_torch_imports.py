@@ -36,7 +36,8 @@ def test_importing_every_module_loads_no_jax():
               "tools.verify_vit", "examples.train_single_device",
               "core.runtime", "core.mesh", "core.collectives",
               "parallel.dp", "parallel.tp", "examples.simple_dp",
-              "examples.simple_tp"):
+              "examples.simple_tp", "parallel.pp", "parallel.zero",
+              "examples.simple_pp", "examples.full_3d"):
         assert f"quintnet_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

@@ -1,20 +1,30 @@
 """The port's strategy facade and runtime (parallel/strategy.py,
-core/runtime.py) without a world: which strategies are ported, what the
-others raise, and that the runtime takes its backend and device from the
-caller.
+core/runtime.py): which strategies are ported, the axis roles of the pp
+and ZeRO strategies against JAX's, what the others raise, and that the
+runtime takes its backend and device from the caller.
 
 ``get_strategy`` builds ``single`` on one device here; ``auto`` picks
 ``dp``, ``tp`` and ``dp_tp`` on the gloo worlds of
 ``tests/test_torch_tp.py`` and ``tests/test_torch_dp.py`` (their runs
-assert the strategy name). Every strategy that needs pp, sp or ep, and
-ZeRO-1/2 and fsdp over dp, raise ``NotImplementedError`` naming their
-ROADMAP.md item before any process group is touched.
+assert the strategy name). The pp strategies (``pp``, ``dp_pp``,
+``tp_pp``, ``3d``, and ``auto`` on their meshes) and ZeRO-1/2 over dp
+are built on gloo worlds of 2, 4 and 8 CPU ranks here, each held to the
+roles JAX's ``get_strategy`` gives the same config (``batch_axes``,
+``model_axes``, ``partial_axes``, ``zero1_axis``, ``zero_stage``).
+fsdp, and every strategy that needs sp or ep, raise
+``NotImplementedError`` naming their ROADMAP.md item before any process
+group is touched.
 """
 
+import numpy as np
 import pytest
 import torch
 
+from _torch_dist import run_world
+from _torch_dist_cases import strategy_case, strategy_roles
+from quintnet_tpu.core.config import Config as JaxConfig
 from quintnet_tpu.parallel.strategy import STRATEGY_AXES as JAX_AXES
+from quintnet_tpu.parallel.strategy import get_strategy as jax_get_strategy
 from quintnet_tpu_torch.core import runtime
 from quintnet_tpu_torch.core.config import Config
 from quintnet_tpu_torch.parallel.strategy import (PORTED, STRATEGY_AXES,
@@ -29,7 +39,8 @@ def _cfg(sizes, **training):
 
 def test_strategy_names_are_jax_names():
     assert STRATEGY_AXES == JAX_AXES
-    assert PORTED == ("single", "dp", "tp", "dp_tp")
+    assert PORTED == ("single", "dp", "tp", "pp", "dp_tp", "dp_pp", "tp_pp",
+                      "3d")
 
 
 def test_single_on_one_device():
@@ -39,21 +50,64 @@ def test_single_on_one_device():
     assert get_strategy("dp", _cfg({"dp": 1})).name == "dp"   # JAX allows
 
 
+# case id -> (strategy name, mesh, training); these raised before the
+# pipelines and ZeRO were ported and now build with JAX's roles
+PORTED_CASES = {
+    "pp": ("pp", {"pp": 2}, {}),
+    "dp_pp": ("dp_pp", {"dp": 2, "pp": 2}, {}),
+    "3d": ("3d", {"dp": 2, "tp": 2, "pp": 2}, {}),
+    "auto_pp": (None, {"pp": 2}, {}),
+    "1f1b": ("tp_pp", {"tp": 2, "pp": 2}, {"schedule": "1f1b"}),
+    "zero1": ("dp", {"dp": 2}, {"optimizer": "zero1_adamw"}),
+    "zero2": ("dp_tp", {"dp": 2, "tp": 2}, {"optimizer": "zero2_adam"}),
+    "pp_by_name_on_one_device": ("pp", {"dp": 1}, {}),
+}
+
+
+def _jax_roles(name, sizes, training):
+    s = jax_get_strategy(name, JaxConfig.from_dict({
+        "mesh_dim": list(sizes.values()), "mesh_name": list(sizes),
+        "training": training}))
+    return {"name": s.name, "batch_axes": s.batch_axes,
+            "model_axes": s.model_axes, "partial_axes": s.partial_axes,
+            "zero1_axis": s.zero1_axis, "zero_stage": s.zero_stage,
+            "uses_pp": s.uses_pp}
+
+
+@pytest.fixture(scope="module")
+def roles(tmp_path_factory):
+    """Every case of PORTED_CASES built on a world of its mesh's size
+    (one world per size; the one-rank case in this process)."""
+    by_world = {}
+    for cid, (name, sizes, training) in PORTED_CASES.items():
+        by_world.setdefault(int(np.prod(list(sizes.values()))), []).append(
+            (cid, name, sizes, training))
+    out = {}
+    for n, cases in sorted(by_world.items()):
+        if n == 1:
+            out.update({cid: [strategy_roles(name, sizes, training)]
+                        for cid, name, sizes, training in cases})
+            continue
+        ranks = run_world(strategy_case, n, tmp_path_factory.mktemp(f"s{n}"),
+                          cases, timeout=120)
+        for cid, *_ in cases:
+            out[cid] = [r[cid] for r in ranks]
+    return out
+
+
+@pytest.mark.parametrize("case", sorted(PORTED_CASES))
+def test_pp_and_zero_strategies_take_jax_roles(roles, case):
+    want = _jax_roles(*PORTED_CASES[case])
+    for got in roles[case]:
+        assert got == want
+
+
 NOT_PORTED = {
-    "pp": ("pp", {"pp": 2}, {}, "item 3c"),
-    "dp_pp": ("dp_pp", {"dp": 2, "pp": 2}, {}, "item 3c"),
-    "3d": ("3d", {"dp": 2, "tp": 2, "pp": 2}, {}, "item 3c"),
-    "auto_pp": (None, {"pp": 2}, {}, "item 3c"),
-    "1f1b": ("tp_pp", {"tp": 2, "pp": 2}, {"schedule": "1f1b"}, "item 3c"),
     "sp": ("sp", {"sp": 2}, {}, "item 6"),
     "dp_sp": (None, {"dp": 2, "sp": 2}, {}, "item 6"),
     "ep": ("ep", {"ep": 2}, {}, "item 4"),
     "dp_ep": ("dp_ep", {"dp": 2, "ep": 2}, {}, "item 4"),
-    "zero1": ("dp", {"dp": 2}, {"optimizer": "zero1_adamw"}, "item 3c"),
-    "zero2": ("dp_tp", {"dp": 2, "tp": 2}, {"optimizer": "zero2_adam"},
-              "item 3c"),
-    "fsdp": ("dp", {"dp": 2}, {"fsdp": True}, "item 3c"),
-    "pp_by_name_on_one_device": ("pp", {"dp": 1}, {}, "item 3c"),
+    "fsdp": ("dp", {"dp": 2}, {"fsdp": True}, "item 3d"),
 }
 
 
@@ -123,3 +177,29 @@ def test_simple_dp_example_takes_its_world_from_nproc(capfd):
                            "1", "--limit", "64"]) is None
     out = capfd.readouterr().out
     assert out.count("strategy=dp mesh={'dp': 2} device=cpu") == 1
+
+
+def test_simple_pp_example_runs_on_four_cpu_ranks(capfd):
+    """``examples/simple_pp.py`` spawns ``pp_config.json``'s 4 stages
+    (1F1B over 4 micro-batches), trains 2 steps and evaluates through the
+    forward pipeline; only rank 0 prints."""
+    from quintnet_tpu_torch.examples import simple_pp
+
+    assert simple_pp.main(["--device", "cpu", "--epochs", "1", "--limit",
+                           "64"]) is None
+    out = capfd.readouterr().out
+    assert out.count("strategy=pp mesh={'pp': 4} device=cpu") == 1
+    assert out.count("final val_accuracy") == 1
+
+
+def test_full_3d_example_runs_on_eight_cpu_ranks(capfd):
+    """``examples/full_3d.py`` spawns ``config.json``'s 2 x 2 x 2 dp x tp x
+    pp mesh (1F1B over 2 micro-batches) and trains 2 steps."""
+    from quintnet_tpu_torch.examples import full_3d
+
+    assert full_3d.main(["--device", "cpu", "--epochs", "1", "--limit",
+                         "64"]) is None
+    out = capfd.readouterr().out
+    assert out.count("strategy=3d mesh={'dp': 2, 'tp': 2, 'pp': 2} "
+                     "device=cpu") == 1
+    assert out.count("final val_accuracy") == 1

@@ -280,9 +280,10 @@ def test_config_copy_loads_like_the_reference_yaml():
     assert port.training.remat_mode is False
 
 
-def test_finetune_example_runs_on_one_cpu(tmp_path, capsys):
-    """A config asking for pp = 2 and ZeRO-1: the example trains it on
-    one CPU (pp forced to 1, zero1_ dropped) and says so."""
+def test_finetune_example_runs_on_one_cpu(tmp_path, capfd):
+    """A config asking for pp = 2, ZeRO-1 and 1F1B: the example trains it
+    as asked, 2 pipeline stages on CPU ranks (ZeRO over a dp of 1 shards
+    nothing), and says so."""
     from quintnet_tpu_torch.examples import gpt2_finetune
 
     cfg = {"model": {"n_layer": 2}, "mesh_dim": [1, 2],
@@ -294,25 +295,35 @@ def test_finetune_example_runs_on_one_cpu(tmp_path, capsys):
                     "val_samples": 4}}
     path = tmp_path / "cfg.json"
     path.write_text(json.dumps(cfg))
-    hist = gpt2_finetune.main(["--config", str(path), "--tiny", "--steps",
-                               "1", "--epochs", "1", "--device", "cpu"])
-    assert len(hist.train_loss) == 1 and np.isfinite(hist.train_loss[0])
-    out = capsys.readouterr().out
-    assert "pp = 2 forced to 1" in out and "zero1_adamw -> adamw" in out
-    assert "strategy=single" in out
+    assert gpt2_finetune.main(["--config", str(path), "--tiny", "--steps",
+                               "1", "--epochs", "1", "--device", "cpu"]) \
+        is None
+    out = capfd.readouterr().out
+    assert "strategy=pp mesh={'dp': 1, 'pp': 2}" in out
+    assert "schedule=1f1b optimizer=zero1_adamw" in out
+    assert out.count("done in") == 1 and "forced" not in out
 
 
-def test_finetune_example_takes_dp_and_tp_from_the_config():
-    """The reference config's 2 x 2 x 2 mesh becomes dp x tp = 2 x 2."""
-    from quintnet_tpu_torch.examples.gpt2_finetune import port_mesh
+def test_finetune_example_takes_dp_and_tp_from_the_config(capfd):
+    """The reference config's 2 x 2 x 2 dp x tp x pp mesh, 1F1B and
+    zero1_adamw are trained as they stand (8 CPU ranks, one step of the
+    tiny model): the example no longer rewrites the mesh or the
+    optimizer."""
+    from quintnet_tpu_torch.examples import gpt2_finetune
 
     root = Path(__file__).resolve().parents[1]
-    cfg = load_config(str(root / "quintnet_tpu_torch/examples/"
-                                 "gpt2_config.json"))
-    notes = port_mesh(cfg)
-    assert cfg.mesh.axis_sizes == {"dp": 2, "tp": 2}
-    assert cfg.training.optimizer == "adamw" and len(notes) == 2
+    path = root / "quintnet_tpu_torch/examples/gpt2_config.json"
+    cfg = load_config(str(path))
+    assert cfg.mesh.axis_sizes == {"dp": 2, "tp": 2, "pp": 2}
+    assert cfg.training.optimizer == "zero1_adamw"
     assert cfg.micro_batch_size_resolved() == 32
+    assert not hasattr(gpt2_finetune, "port_mesh")
+    assert gpt2_finetune.main(["--tiny", "--steps", "1", "--epochs", "1",
+                               "--device", "cpu"]) is None
+    out = capfd.readouterr().out
+    assert out.count("strategy=3d mesh={'dp': 2, 'tp': 2, 'pp': 2}") == 1
+    assert "schedule=1f1b optimizer=zero1_adamw" in out
+    assert out.count("done in") == 1
 
 
 def test_metrics():
@@ -327,9 +338,10 @@ def _not_ported_cases():
     tiny = GPT2Config.tiny()
     spec = gpt2_model_spec(tiny)
     cfg = Config.from_dict({})
-    mesh_cfg = Config.from_dict({"mesh_dim": [2], "mesh_name": ["pp"]})
+    mesh_cfg = Config.from_dict({"mesh_dim": [2], "mesh_name": ["sp"]})
     zero_cfg = Config.from_dict({"mesh_dim": [2], "mesh_name": ["dp"],
-                                 "training": {"optimizer": "zero1_adamw"}})
+                                 "training": {"optimizer": "zero1_adamw",
+                                              "fsdp": True}})
     stacked = {"w": torch.zeros(2, 3)}
 
     def trainer(**kw):
