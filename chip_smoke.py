@@ -21,10 +21,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    in f32 and int8, and at the offset 37 that is not block-aligned,
    GQA decode at groups 2 and 4 and GQA prefill at group 4. Flash
    attention (K1 forward, K2 dK/dV, K3 dQ): (B, H, S) = (32, 12, 512)
-   causal (the train phase's micro-batch), (32, 6, 512) and (4, 6, 512)
-   causal (the mesh phase's tp2 and dp2 x tp2 ranks), (4, 12, 512),
-   (2, 12, 512) and (2, 6, 512) causal in f32 only (its pp2, dp2 x pp2
-   and dp2 x tp2 x pp2 ranks' micro-batches), (8, 12, 1024)
+   causal (the train phase's micro-batch and an fsdp_dp2 rank's),
+   (32, 6, 512) and (4, 6, 512) causal (the mesh phase's tp2 and dp2 x
+   tp2 and fsdp_dp2tp2 ranks), (4, 12, 512), (2, 12, 512) and (2, 6,
+   512) causal (its pp2, dp2 x pp2 and dp2 x tp2 x pp2 ranks'
+   micro-batches, the last in bf16 the 3d_bf16 run's), (8, 12, 1024)
    causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
    causal with a ragged last tile, (8, 12, 256) non-causal and
    (1, 12, 4096) causal, each in f32 and again in bf16 (the same values
@@ -146,38 +147,57 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    NCCL refuses two ranks of one communicator on one device, and gloo
    stages each collective through host memory). First the single-rank
    references in deterministic mode (global 64 rows in 2 micro-batches,
-   16 rows in 4 and in 8: each run is held to the reference whose
-   micro-batches are its dp ranks' micro-batches together), written to
-   temporary files; then a 2-rank probe of which collectives gloo runs
-   on CUDA tensors (all_reduce, all_gather, reduce_scatter and the
-   pipeline's shift, an ``all_to_all_single`` with uneven splits, must);
-   then, 2 steps each through ``Trainer.fit`` on every rank: dp2 (one
-   micro-batch of 32 a rank: every step loss, parameter and both Adam
-   moments equal to the reference bit for bit), tp2 (2 micro-batches of
-   32, 6 heads a rank), dp2 x tp2 (16 rows, 4 a rank and micro-batch),
-   and the pipelines on 16 rows in 4 micro-batches a rank: pp2 with
+   16 rows in 4 and in 8, the last also in bf16: each run is held to the
+   reference whose micro-batches are its dp ranks' micro-batches
+   together), written to temporary files; then a 2-rank probe of which
+   collectives gloo runs on CUDA tensors (all_reduce, all_gather,
+   reduce_scatter and the pipeline's shift, an ``all_to_all_single``
+   with uneven splits, and all_reduce in bf16 must); then, 2 steps each
+   through ``Trainer.fit`` on every rank, the runs of one world size in
+   turn in one world (a rank's process, torch's import and the card's
+   context paid once a size, not once a run): dp2 (one micro-batch of 32 a
+   rank: every step loss, parameter and both Adam moments equal to the
+   reference bit for bit), tp2 (2 micro-batches of 32, 6 heads a rank),
+   dp2 x tp2 (16 rows, 4 a rank and micro-batch), fsdp_dp2 and
+   fsdp_dp2tp2 (the same two meshes with ``training.fsdp``: the blocks
+   stored half on each dp rank and gathered layer by layer; every rank
+   holds half of its blocks; on dp alone the dp2 gate, bit for bit; with
+   tp the tp gates and both moments, gathered whole, within 1e-3 of the
+   reference's), and the pipelines on 16 rows in 4 micro-batches a rank: pp2 with
    AFAB (6 layers a rank), dp2 x pp2 with ``1f1b_stored`` and
    ``zero2_adamw``, dp2 x tp2 x pp2 (the finetune config's mesh) with
-   ``1f1b`` and ``zero1_adamw`` (tp and pp: the first loss, through the
-   run's own schedule, within 1e-5 relative, every gradient leaf
-   gathered whole over tp and pp and taken back through
+   ``1f1b`` and ``zero1_adamw`` (tp, pp and fsdp: the first loss,
+   through the run's own schedule, within 1e-5 relative, every gradient
+   leaf gathered whole over tp, pp and dp and taken back through
    ``gpt2_from_tp_layout`` within 1e-3 of its largest magnitude, the
    step losses within 1e-4; under ZeRO each rank's Adam moment chunks
-   within 1e-3 of the same chunk of the reference's moments). On every
-   rank the counts are zeroed just before ``fit`` and read just after:
-   K2 and K3 each the stage's layers x micro-batches x steps, K1 the
-   same (twice under ``1f1b``, whose backward sub-step reruns the
-   forward), none routed; then one step timed (wall ms, peak memory,
-   the optimizer state's bytes beside the replicated state's) and one
-   under ``torch.profiler`` with each collective entered on a drained
-   device (the flash kernels by name a step, and the share of that
-   step inside the ``collective:*`` ranges). A rank that raises or dies
-   fails the phase.
+   within 1e-3 of the same chunk of the reference's moments). The 3D
+   run checkpoints every step (``Trainer(checkpoint_dir=)``: every rank
+   writes its part) and records its parameters gathered after step 1;
+   3d_ckpt_resume cuts its directory after step 1, and a fresh world of
+   8 ranks resumes from it and takes step 2: every rank's step-2 loss,
+   History, parameters and both moment chunks equal the uncut run's bit
+   for bit, and step 1 restored in this process with no mesh equals the
+   uncut run's parameters after step 1 bit for bit (the tp-blocked
+   layout). 3d_bf16 is the 3D run in bf16 (``training.dtype`` and
+   ``adam_mu_dtype`` bfloat16) against the single-rank bf16 run at the
+   train_bf16 phase's gates (first loss 1e-2, gradients 5e-2, step
+   losses 1e-2, moment chunks 5e-2). On every rank the counts are zeroed
+   just before ``fit`` and read just after: K2 and K3 each the stage's
+   layers x micro-batches x steps, K1 the same (twice under ``1f1b``,
+   whose backward sub-step reruns the forward), all of the run's dtype,
+   none routed; then one step timed (wall ms, peak memory, the optimizer
+   state's bytes beside the replicated state's) and one under
+   ``torch.profiler`` with each collective entered on a drained device
+   (the flash kernels of the run's dtype by name a step, and the share
+   of that step inside the ``collective:*`` ranges). The save and
+   restore seconds and the step's bytes are printed. A rank that raises
+   or dies fails the phase.
 
 Then one JSON line of per-kernel numbers (K4 once per variant the
 serve phases launched and path; K1-K3 in f32 with the train and resume
-phases' launches and every mesh rank's together, in bf16 with the
-train_bf16 phase's), the card's name and power
+phases' launches and every f32 mesh rank's together, in bf16 with the
+train_bf16 phase's and the 3d_bf16 ranks'), the card's name and power
 limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is not available or the package is missing.
@@ -698,19 +718,19 @@ def _flash_cases():
     gen = torch.Generator(device=DEVICE).manual_seed(4321)
     rng = np.random.default_rng(4321)
     D = 64
-    # (name, B, H, S, causal, segments[, dtypes]): the first row is the
-    # train phase's shape, micro-batch 32 of 512; the next five the mesh
-    # phase's on a tp2 rank (micro-batch 32, 6 local heads), a dp2 x tp2
-    # rank (micro-batch 4, 6 local heads), and in f32 the pipeline runs'
-    # ranks: pp2 (micro-batch 4), dp2 x pp2 (2) and dp2 x tp2 x pp2 (2,
-    # 6 local heads)
-    f32 = (torch.float32,)
+    # (name, B, H, S, causal, segments): the first row is the train
+    # phase's shape, micro-batch 32 of 512, and an fsdp_dp2 rank's (32
+    # rows, all 12 heads); the next five the mesh phase's on a tp2 rank
+    # (micro-batch 32, 6 local heads), a dp2 x tp2 and fsdp_dp2tp2 rank
+    # (micro-batch 4, 6 local heads), and the pipeline runs' ranks: pp2
+    # (micro-batch 4), dp2 x pp2 (2) and dp2 x tp2 x pp2 (2, 6 local
+    # heads; in bf16 the 3d_bf16 run's)
     shapes = [(TRAIN_CASE, 32, 12, 512, True, False),
               ("mesh_tp2_B32_H6_S512", 32, 6, 512, True, False),
               ("mesh_dp2tp2_B4_H6_S512", 4, 6, 512, True, False),
-              ("mesh_pp2_B4_H12_S512", 4, 12, 512, True, False, f32),
-              ("mesh_dp2pp2_B2_H12_S512", 2, 12, 512, True, False, f32),
-              ("mesh_3d_B2_H6_S512", 2, 6, 512, True, False, f32),
+              ("mesh_pp2_B4_H12_S512", 4, 12, 512, True, False),
+              ("mesh_dp2pp2_B2_H12_S512", 2, 12, 512, True, False),
+              ("mesh_3d_B2_H6_S512", 2, 6, 512, True, False),
               ("causal_B8_S1024", 8, 12, 1024, True, False),
               ("causal_segments_B4_S512", 4, 12, 512, True, True),
               ("causal_ragged_B2_S300", 2, 12, 300, True, False),
@@ -725,13 +745,12 @@ def _flash_cases():
                       for key in ("o", "dq", "dk", "dv")},
                    "lse": ("abs", LSE_TOL_BF16)}
     results = []
-    for name, B, H, S, causal, use_seg, *dtypes in shapes:
+    for name, B, H, S, causal, use_seg in shapes:
         q32, k32, v32, do32 = (torch.randn((B, H, S, D), generator=gen,
                                            device=DEVICE) for _ in range(4))
         seg_np = _packed_segments(rng, B, S) if use_seg else None
         seg = None if seg_np is None else torch.from_numpy(seg_np).to(DEVICE)
-        for dtype in (dtypes[0] if dtypes else (torch.float32,
-                                                torch.bfloat16)):
+        for dtype in (torch.float32, torch.bfloat16):
             bf16 = dtype == torch.bfloat16
             tag = "[bf16]" if bf16 else ""
             q, k, v, do = (t.to(dtype) for t in (q32, k32, v32, do32))
@@ -1111,13 +1130,11 @@ def _profiled(run, spans=(), expect=None, agree=None):
 
 
 def _any_rank(flag: bool) -> bool:
-    """True on every rank when ``flag`` is true on any rank of the
-    world (a CPU tensor through the default group, gloo)."""
-    import torch.distributed as dist
+    """True on every rank when ``flag`` is true on any rank of the world
+    (``core/runtime.any_rank``)."""
+    from quintnet_tpu_torch.core import runtime
 
-    t = torch.tensor([int(flag)])
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
-    return bool(t.item())
+    return runtime.any_rank(flag)
 
 
 def _kernel_share(eng, cfg, rng, *, window_update=False) -> dict:
@@ -2103,40 +2120,74 @@ def phase_resume():
 # ---------------------------------------------------------------------
 
 # name -> (mesh dims, mesh names, micro-batches a rank, global rows[,
-# pipeline schedule, optimizer]); on a pp mesh the micro-batches are the
-# pipeline's (training.gradient_accumulation_steps)
+# pipeline schedule, optimizer[, options]]); on a pp mesh the
+# micro-batches are the pipeline's (training.gradient_accumulation_steps).
+# Options (``_run_opts``): "fsdp" (training.fsdp: ZeRO-3 over dp),
+# "dtype" ("bfloat16": bf16 compute from f32 masters, Adam mu in bf16),
+# "save" (checkpoint every step into the phase's work directory: the
+# uncut run of the resume check), "resume" (a fresh world restores the
+# named run's step 1 and takes step 2)
 MESH_RUNS = {
     "dp2": ([2], ["dp"], 1, 64),
     "tp2": ([2], ["tp"], 2, 64),
     "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16),
+    "fsdp_dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"fsdp": True}),
+    "fsdp_dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw",
+                    {"fsdp": True}),
     "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw"),
     "dp2pp2_stored_zero2": ([2, 2], ["dp", "pp"], 4, 16, "1f1b_stored",
                             "zero2_adamw"),
     "3d_1f1b_zero1": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
-                      "zero1_adamw"),
+                      "zero1_adamw", {"save": True}),
+    "3d_ckpt_resume": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
+                       "zero1_adamw", {"resume": "3d_1f1b_zero1"}),
+    "3d_bf16": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b", "zero1_adamw",
+                {"dtype": "bfloat16"}),
 }
 MESH_STEPS = 2
 # NCCL refuses two ranks of one communicator on one card: the ranks share
 # the card over gloo, which stages every collective through host memory
 MESH_BACKEND = "gloo"
-MESH_TIMEOUT_S = 480             # one world, from spawn to the last result
+MESH_TIMEOUT_S = 900             # one world, spawn to its last run's result
 MESH_TOL = {"first_loss": 1e-5, "grad": 1e-3, "step_loss": 1e-4}
+# bf16 mesh runs: the train_bf16 phase's gates (bf16 compute on both
+# sides, rounded at every op), the moment chunks at the gradients' gate
+MESH_TOL_BF16 = {"first_loss": 1e-2, "grad": 5e-2, "step_loss": 1e-2}
 # the collectives tried on CUDA tensors over gloo (point-to-point is not:
 # gloo would be handed a device pointer); "shift" is the pipeline's
 # shift, which on gloo CUDA tensors is an all_to_all_single whose split
 # sizes are zero except toward the neighbour (core/collectives.py)
 PROBED = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
-          "all_to_all", "shift")
+          "all_to_all", "shift", "all_reduce_bf16", "all_gather_bf16",
+          "reduce_scatter_bf16")
 # the probed collectives the mesh runs need: a failure stops the phase
-PROBE_GATED = ("all_reduce", "all_gather", "reduce_scatter", "shift")
+# (bf16: tp's activation sums of the 3d_bf16 run)
+PROBE_GATED = ("all_reduce", "all_gather", "reduce_scatter", "shift",
+               "all_reduce_bf16")
 
 
 def _run_parts(run):
     """(mesh dims, names, micro-batches a rank, rows, schedule,
     optimizer) of a MESH_RUNS entry."""
     mesh_dim, mesh_name, n_micro, rows, *rest = run
-    schedule, optimizer = rest or ("afab", "adamw")
+    schedule, optimizer = rest[:2] or ("afab", "adamw")
     return mesh_dim, mesh_name, n_micro, rows, schedule, optimizer
+
+
+def _run_opts(run) -> dict:
+    """The options of a MESH_RUNS entry (see there)."""
+    return run[6] if len(run) > 6 else {}
+
+
+def _run_training(run) -> dict:
+    """The config's training keys a run's options set."""
+    opts = _run_opts(run)
+    out = {}
+    if opts.get("fsdp"):
+        out["fsdp"] = True
+    if opts.get("dtype") == "bfloat16":
+        out.update(TRAIN_BF16)
+    return out
 
 
 def _ref_micro(run):
@@ -2148,15 +2199,16 @@ def _ref_micro(run):
 
 
 def _mesh_config(rows, n_micro, sizes=None, schedule="afab",
-                 optimizer="adamw"):
-    """The train phase's optimiser and batch on the mesh ``sizes``."""
+                 optimizer="adamw", **training):
+    """The train phase's optimiser and batch on the mesh ``sizes``;
+    ``training``: further keys (fsdp, the bf16 dtypes)."""
     from quintnet_tpu_torch.core.config import Config
 
     d = {"training": {
         "batch_size": rows, "gradient_accumulation_steps": n_micro,
         "optimizer": optimizer, "learning_rate": 5e-5, "weight_decay": 0.01,
         "grad_clip_norm": 1.0, "log_every": 0, "seed": 0,
-        "schedule": schedule}}
+        "schedule": schedule, **training}}
     if sizes:
         d["mesh_dim"], d["mesh_name"] = list(sizes.values()), list(sizes)
     return Config.from_dict(d)
@@ -2169,18 +2221,28 @@ def _flat_cpu(tree):
             for k, v in tree_leaves(tree)}
 
 
-def _mesh_reference(cfg, host, n_micro, device, path):
+def _mesh_model(cfg, dtype=None):
+    """The mesh runs' GPT-2 training model (flash attention; bf16
+    compute from the f32 masters when ``dtype`` says so)."""
+    from quintnet_tpu_torch.models.gpt2 import gpt2_model_spec
+
+    return gpt2_model_spec(cfg, use_flash=True, compute_dtype=(
+        torch.bfloat16 if dtype == "bfloat16" else None))
+
+
+def _mesh_reference(cfg, host, n_micro, device, path, *, dtype=None):
     """The single-rank run a mesh run is held to, in deterministic mode:
     the first batch's loss and every gradient leaf (``n_micro``
     micro-batches), then ``MESH_STEPS`` steps of ``Trainer.fit`` from the
-    same seed: the step losses, the parameters and both Adam moments.
-    Saved as CPU tensors to ``path``; returns the losses."""
-    from quintnet_tpu_torch.models.gpt2 import gpt2_model_spec
+    same seed: the step losses, the parameters and both Adam moments
+    (``dtype="bfloat16"``: bf16 compute and a bf16 first moment). Saved
+    as CPU tensors to ``path``; returns the losses."""
     from quintnet_tpu_torch.parallel.dp import accumulate_grads
     from quintnet_tpu_torch.train.trainer import Trainer
 
-    tr = Trainer(_mesh_config(len(host[0][0]), n_micro),
-                 gpt2_model_spec(cfg, use_flash=True), task_type="clm",
+    extra = TRAIN_BF16 if dtype == "bfloat16" else {}
+    tr = Trainer(_mesh_config(len(host[0][0]), n_micro, **extra),
+                 _mesh_model(cfg, dtype), task_type="clm",
                  device=device, log_fn=lambda m: None)
     params, opt_state = tr.init_state()
     loss, grads = accumulate_grads(tr.model.loss_fn, params,
@@ -2226,27 +2288,35 @@ def _probe_rank(rank, world, store, device):
     try:
         ax = mesh_from_sizes(dp=world).axis("dp")
         x = torch.arange(4.0, device=dev) + 10 * rank
-        tries = {
-            "all_reduce": (lambda: cc.all_reduce(x, ax),
+        ops = {
+            "all_reduce": (lambda t: cc.all_reduce(t, ax),
                            sum(torch.arange(4.0) + 10 * r
                                for r in range(world))),
-            "broadcast": (lambda: _broadcast(x), torch.arange(4.0)),
-            "all_gather": (lambda: cc.all_gather(x, ax, gather_dim=0),
+            "broadcast": (_broadcast, torch.arange(4.0)),
+            "all_gather": (lambda t: cc.all_gather(t, ax, gather_dim=0),
                            torch.cat([torch.arange(4.0) + 10 * r
                                       for r in range(world)])),
             "reduce_scatter": (
-                lambda: cc.reduce_scatter(x, ax, scatter_dim=0),
+                lambda t: cc.reduce_scatter(t, ax, scatter_dim=0),
                 sum(torch.arange(4.0) + 10 * r for r in range(world))
                 .chunk(world)[rank]),
             "all_to_all": (
-                lambda: cc.all_to_all(x, ax, split_dim=0, concat_dim=0),
+                lambda t: cc.all_to_all(t, ax, split_dim=0, concat_dim=0),
                 torch.cat([(torch.arange(4.0) + 10 * r).chunk(world)[rank]
                            for r in range(world)])),
             "shift": (
-                lambda: cc.ppermute_shift(x, ax, shift=1, wrap=False),
+                lambda t: cc.ppermute_shift(t, ax, shift=1, wrap=False),
                 torch.arange(4.0) + 10 * (rank - 1) if rank
                 else torch.zeros(4)),
         }
+        tries = {name: (lambda fn=fn: fn(x), want)
+                 for name, (fn, want) in ops.items()}
+        # bf16 (small integers: exact): the 3d_bf16 run's tp sums
+        xb = x.to(torch.bfloat16)
+        for name in ("all_reduce", "all_gather", "reduce_scatter"):
+            fn, want = ops[name]
+            tries[name + "_bf16"] = (lambda fn=fn: fn(xb),
+                                     want.to(torch.bfloat16))
         out = {}
         for name in PROBED:
             fn, want = tries[name]
@@ -2386,79 +2456,304 @@ def _moment_chunk_errors(st, ref, strat, model, cfg, tp):
     return out
 
 
-def _mesh_rank(rank, world, store, run, host, ref_path, model, device):
-    """One rank of a mesh run: the first batch's loss and gradients on a
-    tp or pp mesh (through the run's own schedule; gathered whole and
-    held to the reference), then the main path (``Trainer.fit``,
-    ``MESH_STEPS`` steps, launch counts zeroed just before and read just
-    after), the run held to the reference (dp: bit for bit; tp and pp:
-    the f32 train tolerances; under ZeRO also each moment chunk), then on
-    the card one step timed and one profiled."""
-    from quintnet_tpu_torch.core import runtime
+def _block_shares(params, specs, mesh):
+    """(elements of the blocks this rank holds, elements it would hold
+    without fsdp on the same mesh: each dp-sharded leaf times dp)."""
     from quintnet_tpu_torch.core.pytree import tree_leaves
-    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
+    from quintnet_tpu_torch.parallel.tp import spec_axes
+
+    by_path = dict(tree_leaves(specs))
+    held = unsharded = 0
+    for path, v in tree_leaves(params):
+        n = v.numel()
+        full = n * (mesh.shape["dp"] if "dp" in spec_axes(by_path[path])
+                    else 1)
+        if path[0] == "blocks":
+            held, unsharded = held + n, unsharded + full
+    return held, unsharded
+
+
+def _local_unsharded_numel(params, specs, mesh):
+    """This rank's parameter elements without fsdp (each dp-sharded leaf
+    times dp): what its replicated optimizer state would cover."""
+    held, unsharded = _block_shares(params, specs, mesh)
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+
+    total = sum(v.numel() for _, v in tree_leaves(params))
+    return total - held + unsharded
+
+
+def _gather_state(p, st, specs, mesh, cfg, tp):
+    """The parameters and both Adam moments (sharded like them) gathered
+    whole in the standard layout: {part: {"a.b": CPU tensor}}."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+
+    return {part: _gather_full(dict(tree_leaves(tree)), specs, mesh, cfg,
+                               tp)
+            for part, tree in (("params", p), ("mu", st["mu"]),
+                               ("nu", st["nu"]))}
+
+
+def _state_errors(state, ref):
+    """Per part of a gathered state (:func:`_gather_state`), the worst
+    leaf against the reference's and its max |diff| / max |reference|."""
+    out = {}
+    for part, full in state.items():
+        err = _leaf_errors({k: v.float() for k, v in full.items()},
+                           {k: v.float() for k, v in ref[part].items()})
+        worst = max(err, key=err.get)
+        out[part] = [worst, err[worst]]
+    return out
+
+
+def _timed_calls(obj, name):
+    """Make ``obj.name`` record each call's wall seconds (synced on the
+    card); returns the list it appends to."""
+    times, fn = [], getattr(obj, name)
+
+    def wrapped(*args, **kwargs):
+        if torch.cuda.is_available():
+            torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args, **kwargs)
+        times.append(time.perf_counter() - t)
+        return out
+
+    setattr(obj, name, wrapped)
+    return times
+
+
+def _after_first_step(trainer, path):
+    """Make the trainer's first step also gather the updated parameters
+    whole over the mesh (the tp-blocked layout the run holds them in, on
+    the CPU over gloo) and, on rank 0, save them to ``path``."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
+
+    step_fn, done = trainer.step_fn, []
+    strat = trainer.strategy
+
+    def step(*args, **kwargs):
+        out = step_fn(*args, **kwargs)
+        if not done:
+            done.append(True)
+            specs = dict(tree_leaves(strat.param_specs(trainer.model)))
+            full = {".".join(k): gather_leaf(v.detach().cpu().contiguous(),
+                                             specs[k], strat.mesh)
+                    for k, v in tree_leaves(out[0])}
+            if strat.mesh.rank == 0:
+                torch.save(full, path)
+        return out
+
+    trainer.step_fn = step
+
+
+def _launches_by_dtype():
+    wrappers = _wrappers()
+    return {name: dict(wrappers[name].launches_by_dtype)
+            for name in FLASH_KERNELS}
+
+
+def _mesh_rank(rank, world, store, run, host, ref_path, model, device,
+               work=None):
+    """One rank of a world that runs one mesh run (``_mesh_run``)."""
+    from quintnet_tpu_torch.core import runtime
+
+    dev = _join_rank(rank, world, store, device)
+    try:
+        return _mesh_run(rank, dev, run, host, ref_path, model, work)
+    finally:
+        runtime.shutdown()
+
+
+def _mesh_world(rank, world, store, device, jobs):
+    """One rank of a world that runs several mesh runs of its size in
+    turn, ``jobs`` a list of ``(name, (run, host, ref_path, model,
+    work))``: the costs of a rank's process (its start, torch's import,
+    the card's context, the profiler's first use) are paid once, not
+    once a run. Each run builds its own trainer and mesh, zeroes the
+    counts before its main path and frees what it held after; returns
+    ``{name: (this rank's report, its wall seconds)}``."""
+    import gc
+
+    from quintnet_tpu_torch.core import runtime
+
+    dev = _join_rank(rank, world, store, device)
+    try:
+        out = {}
+        for name, args in jobs:
+            t0 = time.perf_counter()
+            report = _mesh_run(rank, dev, *args)
+            gc.collect()
+            if dev.type == "cuda":
+                torch.cuda.empty_cache()
+            runtime.barrier()
+            out[name] = (report, time.perf_counter() - t0)
+        return out
+    finally:
+        runtime.shutdown()
+
+
+def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
+    """One rank's part of a mesh run, in a joined world on ``dev``: the
+    first batch's loss and gradients on a
+    tp, pp or fsdp mesh (through the run's own schedule; gathered whole
+    and held to the reference), then the main path (``Trainer.fit``,
+    ``MESH_STEPS`` steps, launch counts zeroed just before and read just
+    after), the run held to the reference (dp, fsdp or not: bit for
+    bit; tp and pp: the f32 train tolerances (with fsdp the moments
+    too), in
+    bf16 the train_bf16 phase's; under ZeRO also each moment chunk), then
+    on the card one step timed and one profiled. Given ``work``, a run
+    with the "save" option checkpoints every step into it and leaves
+    there what the resume check compares with: the parameters gathered
+    whole after step 1 (rank 0) and each rank's final state."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
+        _run_parts(run)
+    opts = _run_opts(run)
+    sizes = dict(zip(mesh_name, mesh_dim))
+    tp, pp = sizes.get("tp", 1), sizes.get("pp", 1)
+    cfg = GPT2Config(**model)
+    ckpt = (os.path.join(work, "ckpt") if opts.get("save") and work
+            else None)
+    tr = Trainer(_mesh_config(rows, n_micro, sizes, schedule, optimizer,
+                              **_run_training(run)),
+                 _mesh_model(cfg, opts.get("dtype")), task_type="clm",
+                 device=dev, log_fn=lambda m: None, checkpoint_dir=ckpt)
+    strat = tr.strategy
+    specs = strat.param_specs(tr.model)
+    ref = torch.load(ref_path, mmap=True)
+    params, opt_state = tr.init_state()
+    out = {"rank": rank, "coords": strat.mesh.coords,
+           "strategy": strat.name, "device": str(dev),
+           "zero": [strat.zero1_axis, strat.zero_stage],
+           "fsdp": strat.fsdp_axis}
+    exact = tp == 1 and pp == 1
+    if not exact:
+        loss, grads = _first_grads(tr, params, tr.device_batch(*host[0]),
+                                   n_micro, schedule)
+        first = float(loss)
+        want = float(ref["first_loss"])
+        out["first_loss"] = first
+        out["first_loss_rel"] = abs(first - want) / abs(want)
+        err = _leaf_errors(_gather_full(grads, specs, strat.mesh, cfg,
+                                        tp), ref["grads"])
+        del grads
+        worst = max(err, key=err.get)
+        out["worst_grad_leaf"], out["worst_grad_rel_err"] = (worst,
+                                                             err[worst])
+    if strat.fsdp_axis is not None:
+        held, unsharded = _block_shares(params, specs, strat.mesh)
+        out["resident_block_fraction"] = held / unsharded
+    # the main path: counts zeroed just before, read just after
+    losses = _recording(tr)
+    if ckpt:
+        saves = _timed_calls(tr, "save_state")
+        _after_first_step(tr, os.path.join(work, "after1.pt"))
+    _zero_counts()
+    hist = tr.fit(lambda ep: [host[ep]], epochs=MESH_STEPS,
+                  params=params, opt_state=opt_state)
+    out["launches"] = _counts()
+    out["launches_by_dtype"] = _launches_by_dtype()
+    out["routed"] = flash_attention.routed
+    p, st = tr.final_state
+    out["losses"] = [float(v) for v in losses]
+    out["loss_rel"] = [abs(float(a) - float(b)) / abs(float(b))
+                       for a, b in zip(losses, ref["losses"])]
+    mu_size = next(v for _, v in tree_leaves(st["mu"])).element_size()
+    out["opt_state_bytes"] = sum(
+        v.numel() * v.element_size() for m in ("mu", "nu")
+        for _, v in tree_leaves(st[m]))
+    out["replicated_opt_state_bytes"] = _local_unsharded_numel(
+        p, specs, strat.mesh) * (mu_size + 4)
+    if strat.zero1_axis is not None:
+        out["moment_chunk_rel_err"] = _moment_chunk_errors(
+            st, ref, strat, tr.model, cfg, tp)
+    if exact or strat.fsdp_axis is not None:
+        state = _gather_state(p, st, specs, strat.mesh, cfg, tp)
+        if exact:
+            out["first_difference"] = _first_difference(
+                [v.detach().cpu() for v in losses], state, ref)
+        else:
+            out["state_rel_err"] = _state_errors(state, ref)
+        del state
+    del ref
+    if ckpt:
+        out["save_s"] = saves
+        if rank == 0:
+            out["checkpoint_bytes"] = tr._manager().step_bytes(1)
+        torch.save({"params": _flat_cpu(p),
+                    "mu": st["mu"].detach().cpu(),
+                    "nu": st["nu"].detach().cpu(),
+                    "losses": [v.detach().cpu() for v in losses],
+                    "train_loss": hist.train_loss},
+                   os.path.join(work, f"final-{rank}.pt"))
+    if dev.type == "cuda":
+        out.update(_mesh_step_share(
+            tr, p, st, host[0], _per_step(run, cfg.n_layer),
+            symbols=(FLASH_SYMBOLS_BF16 if opts.get("dtype") == "bfloat16"
+                     else FLASH_SYMBOLS)))
+    return out
+
+
+def _resume_rank(rank, world, store, run, host, model, device, work):
+    """One rank of a fresh world on the saved run's mesh: ``Trainer.fit``
+    with its checkpoint directory (which holds step 1 alone: the cut
+    run) restores this rank's part of step 1 and takes step 2 (launch
+    counts zeroed just before and read just after); its step-2 loss, its
+    History, its parameters and both moment chunks must equal the uncut
+    run's on this rank bit for bit."""
+    import quintnet_tpu_torch.ft.restore as ft_restore
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
     from quintnet_tpu_torch.ops.flash_attention import flash_attention
     from quintnet_tpu_torch.train.trainer import Trainer
 
     mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
         _run_parts(run)
     sizes = dict(zip(mesh_name, mesh_dim))
-    tp, pp = sizes.get("tp", 1), sizes.get("pp", 1)
     cfg = GPT2Config(**model)
     dev = _join_rank(rank, world, store, device)
     try:
-        tr = Trainer(_mesh_config(rows, n_micro, sizes, schedule, optimizer),
-                     gpt2_model_spec(cfg, use_flash=True), task_type="clm",
-                     device=dev, log_fn=lambda m: None)
-        strat = tr.strategy
-        ref = torch.load(ref_path, mmap=True)
-        params, opt_state = tr.init_state()
-        out = {"rank": rank, "coords": strat.mesh.coords,
-               "strategy": strat.name, "device": str(dev),
-               "zero": [strat.zero1_axis, strat.zero_stage]}
-        exact = tp == 1 and pp == 1
-        if not exact:
-            loss, grads = _first_grads(tr, params, tr.device_batch(*host[0]),
-                                       n_micro, schedule)
-            first = float(loss)
-            want = float(ref["first_loss"])
-            out["first_loss"] = first
-            out["first_loss_rel"] = abs(first - want) / abs(want)
-            err = _leaf_errors(_gather_full(
-                grads, strat.param_specs(tr.model), strat.mesh, cfg, tp),
-                ref["grads"])
-            del grads
-            worst = max(err, key=err.get)
-            out["worst_grad_leaf"], out["worst_grad_rel_err"] = (worst,
-                                                                 err[worst])
-        # the main path: counts zeroed just before, read just after
+        tr = Trainer(_mesh_config(rows, n_micro, sizes, schedule, optimizer,
+                                  **_run_training(run)),
+                     _mesh_model(cfg), task_type="clm", device=dev,
+                     log_fn=lambda m: None,
+                     checkpoint_dir=os.path.join(work, "ckpt"))
+        restores = _timed_calls(ft_restore, "restore_with_fallback")
+        resumed = []
+        resume_state = tr.resume_state
+
+        def recorded(*args, **kwargs):
+            got = resume_state(*args, **kwargs)
+            resumed.append(got[2].global_step)
+            return got
+
+        tr.resume_state = recorded
         losses = _recording(tr)
         _zero_counts()
-        tr.fit(lambda ep: [host[ep]], epochs=MESH_STEPS, params=params,
-               opt_state=opt_state)
-        out["launches"] = _counts()
-        out["routed"] = flash_attention.routed
+        hist = tr.fit(lambda ep: [host[ep]], epochs=MESH_STEPS)
+        out = {"rank": rank, "coords": tr.strategy.mesh.coords,
+               "launches": _counts(),
+               "launches_by_dtype": _launches_by_dtype(),
+               "routed": flash_attention.routed,
+               "restored_global_step": resumed, "restore_s": restores,
+               "losses": [float(v) for v in losses]}
         p, st = tr.final_state
-        out["losses"] = [float(v) for v in losses]
-        out["loss_rel"] = [abs(float(a) - float(b)) / abs(float(b))
-                           for a, b in zip(losses, ref["losses"])]
-        n_local = sum(v.numel() for _, v in tree_leaves(p))
-        out["opt_state_bytes"] = sum(
-            v.numel() * v.element_size() for m in ("mu", "nu")
-            for _, v in tree_leaves(st[m]))
-        out["replicated_opt_state_bytes"] = 2 * n_local * 4
-        if strat.zero1_axis is not None:
-            out["moment_chunk_rel_err"] = _moment_chunk_errors(
-                st, ref, strat, tr.model, cfg, tp)
-        if exact:
-            out["first_difference"] = _first_difference(
-                [v.detach().cpu() for v in losses],
-                {"params": _flat_cpu(p), "mu": _flat_cpu(st["mu"]),
-                 "nu": _flat_cpu(st["nu"])}, ref)
-        del ref
-        if dev.type == "cuda":
-            out.update(_mesh_step_share(tr, p, st, host[0],
-                                        _per_step(run, cfg.n_layer)))
+        uncut = torch.load(os.path.join(work, f"final-{rank}.pt"))
+        out["first_difference"] = _first_difference(
+            [v.detach().cpu() for v in losses],
+            {"params": _flat_cpu(p), "mu": {"chunk": st["mu"].detach().cpu()},
+             "nu": {"chunk": st["nu"].detach().cpu()}},
+            {"losses": uncut["losses"][1:], "params": uncut["params"],
+             "mu": {"chunk": uncut["mu"]}, "nu": {"chunk": uncut["nu"]}})
+        out["history_equal"] = hist.train_loss == uncut["train_loss"]
+        out["train_loss"] = hist.train_loss
         return out
     finally:
         runtime.shutdown()
@@ -2475,7 +2770,8 @@ def _per_step(run, n_layer):
             "flash_bwd_dkv": n, "flash_bwd_dq": n}
 
 
-def _mesh_step_share(trainer, params, opt_state, b, per_step):
+def _mesh_step_share(trainer, params, opt_state, b, per_step,
+                     symbols=FLASH_SYMBOLS):
     """One step timed (no profiler; host clock, synced) with the rank's
     peak memory, then one step under ``torch.profiler`` in which every
     collective starts on a drained device (``core/collectives.
@@ -2509,7 +2805,7 @@ def _mesh_step_share(trainer, params, opt_state, b, per_step):
     cc.communicate = drained
     try:
         prof, by_name = _profiled(run, expect={
-            FLASH_SYMBOLS[k]: per_step[k] for k in FLASH_KERNELS},
+            symbols[k]: per_step[k] for k in FLASH_KERNELS},
             agree=_any_rank)
     finally:
         cc.communicate = communicate
@@ -2519,13 +2815,102 @@ def _mesh_step_share(trainer, params, opt_state, b, per_step):
                 and e.name.startswith("collective:")):
             coll[e.name] += e.cpu_time_total / 1e3
     launched = {k: sum(n for name, (_, n) in by_name.items()
-                       if FLASH_SYMBOLS[k] in name) for k in FLASH_KERNELS}
+                       if symbols[k] in name) for k in FLASH_KERNELS}
     return {"step_ms": wall * 1e3, "peak_memory_gib": peak / 2 ** 30,
             "profiled_step_ms": walls[-1] * 1e3,
             "collective_ms": dict(coll),
             "collective_share_of_profiled_step":
                 sum(coll.values()) / (walls[-1] * 1e3),
             "profiled_launches": launched}
+
+
+def _cut_after_first_step(work):
+    """The saved run's checkpoint directory as a run cut after step 1
+    leaves it: every later step removed. Returns the steps left."""
+    import shutil
+
+    from quintnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(os.path.join(work, "ckpt"))
+    for step in mgr.all_steps():
+        if step > 1:
+            shutil.rmtree(os.path.join(mgr.directory, str(step)))
+    return mgr.all_steps()
+
+
+def _restore_without_mesh(work):
+    """Step 1 of the saved run restored in this one process with no mesh
+    (``CheckpointManager.restore()``: whole host arrays in the saved
+    layout, the tp-blocked QKV): its seconds and bytes, and the first
+    parameter that differs from the uncut run's parameters after step 1,
+    gathered whole (None: every one bit for bit)."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+    from quintnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    mgr = CheckpointManager(os.path.join(work, "ckpt"))
+    t = time.perf_counter()
+    state = mgr.restore(step=1)
+    secs = time.perf_counter() - t
+    got = {".".join(k): v for k, v in tree_leaves(state["params"])}
+    want = torch.load(os.path.join(work, "after1.pt"))
+    diff = None
+    if set(got) != set(want):
+        diff = f"leaves {sorted(set(got) ^ set(want))}"
+    for k in sorted(want) if diff is None else ():
+        if not torch.equal(got[k], want[k]):
+            d = float((got[k].double() - want[k].double()).abs().max())
+            diff = f"{k}: max |diff| {d!r}"
+            break
+    return {"restore_s": secs, "bytes": mgr.step_bytes(1),
+            "first_difference": diff, "saved_mesh": mgr.sharding(1)["mesh"],
+            "leaves": len(got)}
+
+
+def _mesh_worlds():
+    """World size -> the MESH_RUNS that share one world of that size, in
+    the table's order; a run with the "resume" option gets a fresh world
+    of its own ("resume"), after the run it resumes."""
+    worlds = {}
+    for name, run in MESH_RUNS.items():
+        key = ("resume" if _run_opts(run).get("resume")
+               else int(np.prod(run[0])))
+        worlds.setdefault(key, []).append(name)
+    return worlds
+
+
+def _add_launches(counts, ranks):
+    """Add each rank's launches, by kernel and dtype, to ``counts``."""
+    for r in ranks:
+        for kern, by in r["launches_by_dtype"].items():
+            for dt, n in by.items():
+                counts[dt][kern] += n
+
+
+def _resume_world(name, run, refs, tmp, model, cfg):
+    """The resume run: a fresh world restores the saved run's step 1 and
+    takes step 2; then step 1 restored in this process with no mesh."""
+    from quintnet_tpu_torch.core import runtime
+
+    opts = _run_opts(run)
+    host = refs[run[3], _ref_micro(run), opts.get("dtype", "")][0]
+    work = os.path.join(tmp, opts["resume"])
+    world = int(np.prod(run[0]))
+    print(f"mesh {name}: backend {MESH_BACKEND}, world size {world}, "
+          f"every rank on cuda:0", flush=True)
+    t0 = time.perf_counter()
+    steps = _cut_after_first_step(work)
+    ranks = runtime.spawn_world(_resume_rank, world, run, host, model,
+                                "cuda:0", work, timeout=MESH_TIMEOUT_S)
+    res = _check_resume_run(name, run, ranks, cfg.n_layer)
+    res["steps_left_by_the_cut"] = steps
+    res["no_mesh_restore"] = one = _restore_without_mesh(work)
+    if one["first_difference"] is not None:
+        raise AssertionError(
+            f"mesh {name}: step 1 restored with no mesh differs from the "
+            f"uncut run's parameters after step 1: "
+            f"{one['first_difference']}")
+    res["world_wall_s"] = time.perf_counter() - t0
+    return ranks, res
 
 
 def phase_mesh():
@@ -2542,17 +2927,18 @@ def phase_mesh():
                                         max_length=seq, seed=0)
     host64 = [next(iter(ds.batches(64, seed=i))) for i in range(MESH_STEPS)]
     model = dataclasses.asdict(cfg)
-    counts = collections.Counter()
+    counts = {"f32": collections.Counter(), "bf16": collections.Counter()}
     with tempfile.TemporaryDirectory() as tmp:
         refs = {}
         torch.use_deterministic_algorithms(True)
         try:
-            for rows, n_micro in sorted({(r[3], _ref_micro(r))
-                                         for r in MESH_RUNS.values()}):
+            for rows, n_micro, dtype in sorted(
+                    {(r[3], _ref_micro(r), _run_opts(r).get("dtype", ""))
+                     for r in MESH_RUNS.values()}):
                 host = [(x[:rows], y[:rows]) for x, y in host64]
-                path = os.path.join(tmp, f"ref{rows}_{n_micro}.pt")
-                refs[rows, n_micro] = (host, path, _mesh_reference(
-                    cfg, host, n_micro, DEVICE, path))
+                path = os.path.join(tmp, f"ref{rows}_{n_micro}{dtype}.pt")
+                refs[rows, n_micro, dtype] = (host, path, _mesh_reference(
+                    cfg, host, n_micro, DEVICE, path, dtype=dtype or None))
         finally:
             torch.use_deterministic_algorithms(False)
         torch.cuda.empty_cache()
@@ -2564,22 +2950,82 @@ def phase_mesh():
                if any(r[k] != "ok" for r in probe)]
         if bad:
             raise AssertionError(f"gloo {bad} on CUDA tensors: {probe}")
-        for name, run in MESH_RUNS.items():
-            mesh_dim, mesh_name, n_micro, rows, *_ = run
-            world = int(np.prod(mesh_dim))
-            host, path, ref = refs[rows, _ref_micro(run)]
-            print(f"mesh {name}: backend {MESH_BACKEND}, world size "
-                  f"{world}, every rank on cuda:0", flush=True)
+        for world, names in _mesh_worlds().items():
+            if world == "resume":
+                (name,) = names
+                run = MESH_RUNS[name]
+                ranks, res = _resume_world(name, run, refs, tmp, model, cfg)
+                _emit(res)
+                _add_launches(counts, ranks)
+                continue
+            jobs = []
+            for name in names:
+                run = MESH_RUNS[name]
+                opts = _run_opts(run)
+                host, path, _ = refs[run[3], _ref_micro(run),
+                                     opts.get("dtype", "")]
+                work = os.path.join(tmp, name)
+                os.makedirs(work, exist_ok=True)
+                jobs.append((name, (run, host, path, model, work)))
+            print(f"mesh {', '.join(names)}: backend {MESH_BACKEND}, world "
+                  f"size {world}, every rank on cuda:0, one world",
+                  flush=True)
             t0 = time.perf_counter()
-            ranks = runtime.spawn_world(_mesh_rank, world, run, host, path,
-                                        model, "cuda:0",
-                                        timeout=MESH_TIMEOUT_S)
-            res = _check_mesh_run(name, run, ranks, ref, cfg.n_layer)
-            res["world_wall_s"] = time.perf_counter() - t0
-            _emit(res)
-            for r in ranks:
-                counts.update(r["launches"])
-    return dict(counts)
+            got = runtime.spawn_world(_mesh_world, world, "cuda:0", jobs,
+                                      timeout=MESH_TIMEOUT_S)
+            wall = time.perf_counter() - t0
+            for name in names:
+                run = MESH_RUNS[name]
+                ranks = [g[name][0] for g in got]
+                res = _check_mesh_run(
+                    name, run, ranks,
+                    refs[run[3], _ref_micro(run),
+                         _run_opts(run).get("dtype", "")][2], cfg.n_layer)
+                res["run_wall_s"] = got[0][name][1]
+                res["world_wall_s"] = wall
+                res["world_runs"] = names
+                _emit(res)
+                _add_launches(counts, ranks)
+    return {dt: dict(c) for dt, c in counts.items()}
+
+
+def _check_resume_run(name, run, ranks, n_layer):
+    """The gates of the resumed world: each rank restored step 1, ran
+    the flash kernels of one step (none routed), and ended equal to the
+    uncut run bit for bit; returns the run's JSON line."""
+    per_step = _per_step(run, n_layer)
+    want = {k: {"f32": n} for k, n in per_step.items()}
+    for r in ranks:
+        where = f"mesh {name} rank {r['rank']} {r['coords']}"
+        if r["restored_global_step"] != [1]:
+            raise AssertionError(f"{where}: restored global step "
+                                 f"{r['restored_global_step']}, not [1]")
+        if r["launches_by_dtype"] != want or r["launches"][
+                "paged_attention"] or r["routed"]:
+            raise AssertionError(f"{where}: launches {r['launches_by_dtype']}"
+                                 f" (routed {r['routed']}); expected {want}")
+        if r["first_difference"] is not None or not r["history_equal"]:
+            raise AssertionError(
+                f"{where}: the resumed step 2 is not the uncut run's bit "
+                f"for bit: {r['first_difference']}; History "
+                f"{r['train_loss']}")
+    mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
+        _run_parts(run)
+    return {"phase": "mesh", "run": name,
+            "mesh": dict(zip(mesh_name, mesh_dim)), "backend": MESH_BACKEND,
+            "world_size": len(ranks), "ranks_device": "cuda:0 (shared)",
+            "model": "gpt2-124M f32 (random init, seed 0), flash attention",
+            "schedule": schedule, "optimizer": optimizer,
+            "resumed_from": _run_opts(run)["resume"] + " step 1",
+            "gate": "bit for bit: step-2 loss, History, every parameter, "
+                    "both moment chunks on every rank; no-mesh restore == "
+                    "the uncut run's parameters after step 1",
+            "ranks": [{k: v for k, v in r.items()
+                       if k not in ("launches", "routed")} for r in ranks],
+            "launches_a_rank": want,
+            "note": ("collectives staged through host memory by gloo; "
+                     "every rank shares one card (not NVLink)"),
+            "card": _smi()}
 
 
 def _check_mesh_run(name, run, ranks, ref, n_layer):
@@ -2587,15 +3033,23 @@ def _check_mesh_run(name, run, ranks, ref, n_layer):
     run's JSON line."""
     mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
         _run_parts(run)
+    opts = _run_opts(run)
     sizes = dict(zip(mesh_name, mesh_dim))
+    bf16 = opts.get("dtype") == "bfloat16"
+    tol = MESH_TOL_BF16 if bf16 else MESH_TOL
+    fsdp = bool(opts.get("fsdp"))
+    exact = sizes.get("tp", 1) == 1 and sizes.get("pp", 1) == 1
     per_step = _per_step(run, n_layer)
     want = {k: n * MESH_STEPS for k, n in per_step.items()}
     want["paged_attention"] = 0
+    want_dtype = {k: {"bf16" if bf16 else "f32": n * MESH_STEPS}
+                  for k, n in per_step.items()}
     for r in ranks:
         where = f"mesh {name} rank {r['rank']} {r['coords']}"
-        if r["launches"] != want:
-            raise AssertionError(f"{where}: launches {r['launches']}; "
-                                 f"expected {want} (the stage's layers x "
+        if r["launches"] != want or r["launches_by_dtype"] != want_dtype:
+            raise AssertionError(f"{where}: launches {r['launches']}, by "
+                                 f"dtype {r['launches_by_dtype']}; expected "
+                                 f"{want_dtype} (the stage's layers x "
                                  f"micro-batches x steps, the forward twice"
                                  f" under 1f1b)")
         if r["routed"]:
@@ -2605,43 +3059,48 @@ def _check_mesh_run(name, run, ranks, ref, n_layer):
             raise AssertionError(f"{where}: profiler saw "
                                  f"{r['profiled_launches']} flash kernels a "
                                  f"step; expected {per_step}")
-        if "first_difference" in r:
+        if exact:
             if r["first_difference"] is not None:
                 raise AssertionError(
                     f"{where}: not bit-identical to the single-rank run: "
                     f"{r['first_difference']}")
         else:
-            if not r["first_loss_rel"] <= MESH_TOL["first_loss"]:
+            if not r["first_loss_rel"] <= tol["first_loss"]:
                 raise AssertionError(f"{where}: first loss {r['first_loss']}"
                                      f" vs {ref['first_loss']} (rel "
                                      f"{r['first_loss_rel']})")
-            if not r["worst_grad_rel_err"] <= MESH_TOL["grad"]:
+            if not r["worst_grad_rel_err"] <= tol["grad"]:
                 raise AssertionError(
                     f"{where}: gradient {r['worst_grad_leaf']}: max |diff| "
                     f"/ max |ref| = {r['worst_grad_rel_err']}")
-            bad = [e for e in r["loss_rel"]
-                   if not e <= MESH_TOL["step_loss"]]
+            bad = [e for e in r["loss_rel"] if not e <= tol["step_loss"]]
             if bad or not all(np.isfinite(r["losses"])):
                 raise AssertionError(f"{where}: step losses {r['losses']} vs"
                                      f" {ref['losses']}")
+        if fsdp:
+            _check_fsdp_rank(where, r, sizes)
         if optimizer.startswith("zero"):
             if r["zero"] != ["dp", int(optimizer[4])]:
                 raise AssertionError(f"{where}: ZeRO {r['zero']} for "
                                      f"{optimizer}")
             bad = {m: e for m, e in r["moment_chunk_rel_err"].items()
-                   if not e <= MESH_TOL["grad"]}
+                   if not e <= tol["grad"]}
             if bad:
                 raise AssertionError(f"{where}: Adam moment chunks {bad} "
                                      f"(max |diff| / max |ref chunk|)")
     pp = sizes.get("pp", 1)
-    gate = ("bit for bit: step losses, params, mu, nu"
-            if "first_difference" in ranks[0] else dict(MESH_TOL))
+    gate = ("bit for bit: step losses, params, mu, nu" if exact
+            else dict(tol))
+    if fsdp and not exact:
+        gate["state"] = f"mu, nu <= {tol['grad']}"
     if optimizer.startswith("zero"):
-        gate["moment_chunks"] = MESH_TOL["grad"]
+        gate["moment_chunks"] = tol["grad"]
     return {"phase": "mesh", "run": name, "mesh": sizes,
             "backend": MESH_BACKEND,
             "world_size": len(ranks), "ranks_device": "cuda:0 (shared)",
-            "model": "gpt2-124M f32 (random init, seed 0), flash attention",
+            "model": (f"gpt2-124M {'bf16 compute, mu bf16' if bf16 else 'f32'}"
+                      f" (random init, seed 0), flash attention"),
+            "fsdp": fsdp,
             "global_rows": rows, "seq_len": 512,
             "micro_batches_a_rank": n_micro, "steps": MESH_STEPS,
             "schedule": schedule if pp > 1 else None,
@@ -2649,15 +3108,36 @@ def _check_mesh_run(name, run, ranks, ref, n_layer):
             "heads_a_rank": 12 // sizes.get("tp", 1),
             "optimizer": f"{optimizer} lr 5e-5 wd 0.01 clip 1.0",
             "reference": f"one rank, {rows} rows in {_ref_micro(run)} "
-                         f"micro-batches",
+                         f"micro-batches{', bf16' if bf16 else ''}",
             "reference_losses": ref["losses"],
             "gate": gate,
             "ranks": [{k: v for k, v in r.items()
                        if k not in ("launches", "routed")} for r in ranks],
-            "launches_a_rank": want,
+            "launches_a_rank": want_dtype,
             "note": ("collectives staged through host memory by gloo; "
                      "every rank shares one card (not NVLink)"),
             "card": _smi()}
+
+
+def _check_fsdp_rank(where, r, sizes):
+    """An fsdp rank: it holds half of the blocks (every block leaf on dp
+    alone; on dp x tp the tp-sharded biases, which have no free dim, stay
+    whole). On dp alone the run's gate is bit for bit (the caller's); with
+    tp its gathered moments agree with the single-rank run's within the
+    gradients' gate."""
+    tp = sizes.get("tp", 1)
+    frac = r["resident_block_fraction"]
+    if not (frac == 0.5 if tp == 1 else 0.5 < frac < 0.51):
+        raise AssertionError(f"{where}: holds {frac} of its blocks under "
+                             f"fsdp over dp = 2")
+    if tp == 1:
+        return
+    err = r["state_rel_err"]
+    bound = MESH_TOL["grad"]
+    bad = {p: err[p] for p in ("mu", "nu") if not err[p][1] <= bound}
+    if bad:
+        raise AssertionError(f"{where}: gathered {bad} (worst leaf, max "
+                             f"|diff| / max |ref|) over {bound}")
 
 
 # ---------------------------------------------------------------------
@@ -2668,12 +3148,30 @@ def _variant_of(by_variant):
     return variant
 
 
+def _cache_bytecode_in_checkout():
+    """Every rank of a mesh run is a fresh interpreter that imports torch
+    (and, under the profiler, its compiler stack): where no bytecode can
+    be kept beside the sources (a read-only install, or writing it turned
+    off) each process compiles ~1,000 modules again, seconds of CPU
+    apiece with every rank sharing the host. Keep it in the checkout's
+    gitignored ``.pycache/`` instead, for this process and the ranks it
+    spawns."""
+    prefix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                          ".pycache")
+    os.environ["PYTHONPYCACHEPREFIX"] = prefix
+    os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+    sys.pycache_prefix = prefix
+    sys.dont_write_bytecode = False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: torch.cuda.is_available() is False — this "
               "script runs on a CUDA card only", file=sys.stderr)
         return 2
     import quintnet_tpu_torch  # noqa: F401  (fails here without the repo)
+
+    _cache_bytecode_in_checkout()
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -2721,8 +3219,9 @@ def main() -> int:
                 launches["by_path"].get(path, 0), rows, head))
     for name, replaces in FLASH_KERNELS.items():
         for tag, launches in (("", train_counts[name] + resume_counts[name]
-                               + mesh_counts.get(name, 0)),
-                              ("[bf16]", bf16_counts[name])):
+                               + mesh_counts["f32"].get(name, 0)),
+                              ("[bf16]", bf16_counts[name]
+                               + mesh_counts["bf16"].get(name, 0))):
             rows = [r for r in flash_rows if r["kernel"] == name + tag]
             kernels.append(entry(
                 name + tag, "quintnet_tpu_torch/ops/csrc/flash_attention.cu",

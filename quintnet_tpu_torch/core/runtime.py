@@ -122,6 +122,36 @@ def device() -> torch.device:
     return _joined["device"]
 
 
+def any_rank(flag: bool) -> bool:
+    """True on every rank when ``flag`` is true on any rank of the world
+    (one max all-reduce through the default group: a CPU tensor on gloo,
+    this rank's device on NCCL): how the ranks turn a local observation
+    into one decision of the whole world. Without a world, ``flag``
+    itself."""
+    if not is_multiprocess():
+        return bool(flag)
+    dev = "cpu" if dist.get_backend() == "gloo" else device()
+    t = torch.tensor([int(bool(flag))], device=dev)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
+def broadcast_object(obj, src: int = 0):
+    """Rank ``src``'s ``obj`` (picklable) on every rank of the world;
+    without a world, ``obj`` itself."""
+    if not is_multiprocess():
+        return obj
+    box = [obj]
+    dist.broadcast_object_list(box, src=src, device=device())
+    return box[0]
+
+
+def barrier() -> None:
+    """Wait for every rank of the world (a no-op without one)."""
+    if is_multiprocess():
+        dist.barrier()
+
+
 def _rank_main(rank, world, store, fn, args, results):
     try:
         results.put((rank, True, fn(rank, world, store, *args)))

@@ -21,7 +21,8 @@ import os
 
 def parse_args(default_config: str, argv=None, axis=None):
     """The ViT examples' arguments; ``axis``: the example's one mesh
-    axis, whose size ``--nproc`` sets."""
+    axis, whose size ``--nproc`` sets (for ``dp`` also ``--fsdp``, which
+    turns ``training.fsdp`` on)."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--config", default=default_config)
     add_launch_args(ap)
@@ -30,6 +31,10 @@ def parse_args(default_config: str, argv=None, axis=None):
                         help=f"ranks to spawn here: the mesh becomes "
                              f"{axis} = N (default: the config's mesh)")
         ap.set_defaults(axis=axis)
+    if axis == "dp":
+        ap.add_argument("--fsdp", action="store_true",
+                        help="ZeRO-3: shard the blocks, their gradients and "
+                             "Adam's moments over dp (training.fsdp)")
     ap.add_argument("--epochs", type=int, default=None)
     ap.add_argument("--limit", type=int, default=None,
                     help="cap train/val samples per epoch (smoke runs)")
@@ -110,11 +115,14 @@ def _mnist(data_dir, split):
 def run_vit(args, strategy_name: str = "auto", *, one_device: bool = False):
     """Train the config's ViT on its mesh (:func:`launch`), evaluating
     each epoch on the test split. ``one_device``: force the config's mesh
-    to one device (``train_single_device``). Resumes from
-    ``--checkpoint-dir`` when it holds a checkpoint (one device only)."""
+    to one device (``train_single_device``). Saves to and resumes from
+    ``--checkpoint-dir`` (on a mesh every rank writes its part of each
+    step, ``train/checkpoint.py``)."""
     from quintnet_tpu_torch.core.config import MeshConfig, load_config
 
     cfg = load_config(args.config)
+    if getattr(args, "fsdp", False):
+        cfg.training.fsdp = True
     if getattr(args, "nproc", None):
         cfg.mesh = MeshConfig(mesh_dim=[args.nproc], mesh_name=[args.axis])
     if one_device:
@@ -149,7 +157,8 @@ def _train_vit(args, cfg, strategy_name):
                       checkpoint_dir=args.checkpoint_dir, device=device)
     say(f"strategy={strategy.name} mesh={strategy.mesh.shape} "
         f"device={trainer.device} data={source} ({len(xtr)} train, "
-        f"{len(xte)} test)")
+        f"{len(xte)} test)" + (" fsdp over dp" if strategy.fsdp_axis
+                               else ""))
     hist = trainer.fit(
         lambda ep, start=0: make_batches(train, bs, seed=ep,
                                          start_batch=start),

@@ -33,6 +33,11 @@ moment in bf16.
 
 ``--tiny`` trains a 4-layer, 32-wide GPT-2 on 64-token rows (a smoke
 run); ``--steps N`` stops each epoch after N optimizer steps.
+``--checkpoint-dir`` saves every rank's part of each step there (and
+resumes from it), with ``model_config.json`` (the model's geometry and
+its tp layout) beside the steps. Starting from Hugging Face weights
+(the JAX example's ``--checkpoint``) waits for ``models/gpt2_io.py``
+(ROADMAP.md §1, item 9).
 ``--device`` and ``--backend`` choose where the ranks run
 (``examples/common.py``).
 """
@@ -120,6 +125,17 @@ def _finetune(args, cfg):
     device = runtime.device() if runtime.is_multiprocess() else args.device
     trainer = Trainer(cfg, model, task_type="clm",
                       checkpoint_dir=args.checkpoint_dir, device=device)
+    if args.checkpoint_dir and runtime.is_main_process():
+        # the model's geometry beside the checkpoints, so a later tool
+        # can rebuild the restore template without the run's flags
+        import dataclasses
+        import json
+
+        os.makedirs(args.checkpoint_dir, exist_ok=True)
+        with open(os.path.join(args.checkpoint_dir, "model_config.json"),
+                  "w") as f:
+            json.dump({"family": "gpt2", "tp_layout": cfg.tp_size,
+                       **dataclasses.asdict(gcfg)}, f, indent=1)
     say(f"strategy={trainer.strategy.name} mesh={trainer.strategy.mesh.shape}"
         f" device={trainer.device} "
         f"gpt2 n_layer={gcfg.n_layer} n_embd={gcfg.n_embd} "

@@ -10,6 +10,10 @@ Port of ``quintnet_tpu/examples/simple_dp.py``, one process per rank::
     # dp = 2 ranks instead of the config's 4
     python -m quintnet_tpu_torch.examples.simple_dp --device cpu --nproc 2 \\
         --epochs 1 --limit 256
+    # ZeRO-3: the blocks, their gradients and Adam's moments sharded over
+    # dp (or training.fsdp: true in the config), with checkpoints
+    python -m quintnet_tpu_torch.examples.simple_dp --device cpu --nproc 2 \\
+        --fsdp --epochs 1 --limit 256 --checkpoint-dir /tmp/ck
     # one process a card under torchrun (not yet run on cards): the
     # config's 4 ranks, or --nproc N beside --nproc-per-node N
     torchrun --nproc-per-node 4 -m quintnet_tpu_torch.examples.simple_dp

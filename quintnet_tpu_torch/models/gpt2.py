@@ -16,8 +16,9 @@ optional flash attention and remat) on one device or, with ``tp_axis``,
 on this rank's tp shards (:func:`gpt2_partition_specs`: the blocks
 Megatron-sharded in the tp-blocked qkv layout of
 :func:`gpt2_to_tp_layout` and their depth cut over pp, embeddings,
-LayerNorms and the tied head replicated); :func:`gpt2_pipeline_fns` is
-the same model cut into pipeline stages.
+LayerNorms and the tied head replicated; under ZeRO-3/FSDP the blocks
+are also sharded over dp and gathered layer by layer);
+:func:`gpt2_pipeline_fns` is the same model cut into pipeline stages.
 """
 
 from __future__ import annotations
@@ -193,23 +194,25 @@ def segment_ids_from_input(input_ids, cfg: GPT2Config):
 
 def gpt2_blocks(params_blocks, h, cfg: GPT2Config, *, tp_axis=None,
                 remat=False, use_flash: bool = False, generator=None,
-                segment_ids=None):
+                segment_ids=None, fsdp=None):
     """The stacked causal blocks; ``generator`` enables training
     dropout. With ``tp_axis`` (a
     :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) the blocks are this
     rank's tp shards and attention runs on ``n_head / tp`` local
-    heads."""
+    heads. ``fsdp``: ``(axis, gather dims)`` of dp-sharded blocks
+    (:func:`_fsdp_info`, ``stacked_blocks_apply``)."""
     tp = 1 if tp_axis is None else tp_axis.size
     _, attn_p, resid_p = cfg.pdrops
     return stacked_blocks_apply(
         params_blocks, h, num_heads=cfg.n_head // tp, causal=True, act=gelu,
         tp_axis=tp_axis, use_flash=use_flash, remat=remat,
         attn_pdrop=attn_p, resid_pdrop=resid_p, generator=generator,
-        segment_ids=segment_ids)
+        segment_ids=segment_ids, fsdp=fsdp)
 
 
 def gpt2_hidden(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
-                remat=False, use_flash: bool = False, generator=None):
+                remat=False, use_flash: bool = False, generator=None,
+                fsdp=None):
     """embed + blocks -> final hidden states [B, T, D] (the pre-head
     half of :func:`gpt2_forward`; the chunked loss starts from here).
     The JAX twin also returns the MoE aux loss; the port is dense-only."""
@@ -219,18 +222,22 @@ def gpt2_hidden(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
                    generator=generator)
     return gpt2_blocks(params["blocks"], h, cfg, tp_axis=tp_axis,
                        remat=remat, use_flash=use_flash, generator=generator,
-                       segment_ids=segment_ids_from_input(input_ids, cfg))
+                       segment_ids=segment_ids_from_input(input_ids, cfg),
+                       fsdp=fsdp)
 
 
 def gpt2_forward(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
-                 remat=False, use_flash: bool = False, generator=None):
+                 remat=False, use_flash: bool = False, generator=None,
+                 fsdp=None):
     """-> logits [B, T, V] f32. ``generator``: training dropout (None is
     eval). ``tp_axis``: the params are this rank's tp shards; the
-    logits come out whole (the tied head is replicated)."""
+    logits come out whole (the tied head is replicated). ``fsdp``: the
+    blocks are dp-sharded and gathered layer by layer."""
     return gpt2_logits(params, gpt2_hidden(params, input_ids, cfg,
                                            tp_axis=tp_axis, remat=remat,
                                            use_flash=use_flash,
-                                           generator=generator), cfg)
+                                           generator=generator, fsdp=fsdp),
+                       cfg)
 
 
 def gpt2_apply(params, input_ids, cfg: GPT2Config, *,
@@ -285,22 +292,39 @@ def perplexity(loss):
 
 def gpt2_partition_specs(cfg: Optional[GPT2Config] = None, *,
                          tp_axis: Optional[str] = "tp",
-                         pp_axis: Optional[str] = None):
+                         pp_axis: Optional[str] = None,
+                         fsdp_axis: Optional[str] = None):
     """The spec tree of :func:`gpt2_init`'s params (``parallel/tp.py``):
     blocks column/row-sharded over ``tp_axis`` and their stacked depth
     over ``pp_axis``, embeddings and the final LayerNorm replicated (the
     tied head reads ``wte`` whole, on the last stage as the embedding
-    does on the first). A vocab-parallel table (``cfg.vocab_parallel``)
-    is not ported yet (ROADMAP.md §1, item 6)."""
-    from quintnet_tpu_torch.parallel.tp import block_specs
+    does on the first). ``fsdp_axis``: the blocks also sharded over it,
+    one free dim a leaf (``parallel/tp.fsdp_shard_specs``). A
+    vocab-parallel table (``cfg.vocab_parallel``) is not ported yet
+    (ROADMAP.md §1, item 6)."""
+    from quintnet_tpu_torch.parallel.tp import block_specs, fsdp_shard_specs
 
     _check_mesh_options(cfg, tp_axis)
+    bspecs = block_specs(tp_axis=tp_axis, stacked=True, pp_axis=pp_axis)
+    if fsdp_axis is not None:
+        bspecs = fsdp_shard_specs(bspecs, fsdp_axis)
     return {
         "embedding": {"wte": (), "wpe": ()},
-        "blocks": block_specs(tp_axis=tp_axis, stacked=True,
-                              pp_axis=pp_axis),
+        "blocks": bspecs,
         "head": {"ln_f": {"scale": (), "bias": ()}},
     }
+
+
+def _fsdp_info(cfg: GPT2Config, tp_axis, fsdp_axis):
+    """``(fsdp_axis, gather dims)`` of the blocks, or None: the gather
+    dims from the same specs that lay the shards out."""
+    import functools
+
+    from quintnet_tpu_torch.parallel.tp import fsdp_info
+
+    return fsdp_info(functools.partial(gpt2_partition_specs, cfg),
+                     fsdp_axis, tp_axis=None if tp_axis is None
+                     else tp_axis.names[0])
 
 
 def _check_mesh_options(cfg, tp_axis) -> None:
@@ -373,12 +397,14 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, remat=False,
 def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
                     compute_dtype=None):
     """The training model: ``init(generator)`` and ``loss_fn(params,
-    batch, generator=None, *, tp_axis=None)`` over ``batch = (input_ids,
-    labels)``, following the JAX ``gpt2_model_spec``'s dense loss: the
-    chunked CLM loss when ``cfg.loss_chunk > 0``, else the full-logits
-    one. ``generator`` drives the dropout masks; ``tp_axis`` runs the
-    blocks on this rank's tp shards (``partition_specs``,
-    ``to_tp_layout``).
+    batch, generator=None, *, tp_axis=None, fsdp_axis=None)`` over
+    ``batch = (input_ids, labels)``, following the JAX
+    ``gpt2_model_spec``'s dense loss: the chunked CLM loss when
+    ``cfg.loss_chunk > 0``, else the full-logits one. ``generator``
+    drives the dropout masks; ``tp_axis`` runs the blocks on this rank's
+    tp shards (``partition_specs``, ``to_tp_layout``); ``fsdp_axis``
+    (ZeRO-3) on blocks also sharded over it, each layer gathered just
+    before use.
 
     On a pp mesh the strategy runs :func:`gpt2_pipeline_fns` instead
     of ``loss_fn``.
@@ -402,13 +428,15 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
             "remat='dots' is not ported; use remat=True or False "
             "(ROADMAP.md §1, slice 2)")
 
-    def loss_fn(params, batch, generator=None, *, tp_axis=None):
+    def loss_fn(params, batch, generator=None, *, tp_axis=None,
+                fsdp_axis=None):
         input_ids, labels = batch
         if tp_axis is not None:
             _check_mesh_options(cfg, tp_axis)
         p = cast_floating(params, compute_dtype)
         kw = dict(tp_axis=tp_axis, remat=remat, use_flash=use_flash,
-                  generator=generator)
+                  generator=generator,
+                  fsdp=_fsdp_info(cfg, tp_axis, fsdp_axis))
         if cfg.loss_chunk > 0:
             h = gpt2_hidden(p, input_ids, cfg, **kw)
             return clm_loss_chunked(p, h, labels, cfg, chunk=cfg.loss_chunk)
@@ -417,8 +445,9 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     return ModelSpec(
         init=lambda generator: gpt2_init(generator, cfg),
         loss_fn=loss_fn, depth=cfg.n_layer, needs_rng=cfg.needs_dropout,
-        partition_specs=lambda tp_axis=None, pp_axis=None:
-            gpt2_partition_specs(cfg, tp_axis=tp_axis, pp_axis=pp_axis),
+        partition_specs=lambda tp_axis=None, pp_axis=None, fsdp_axis=None:
+            gpt2_partition_specs(cfg, tp_axis=tp_axis, pp_axis=pp_axis,
+                                 fsdp_axis=fsdp_axis),
         to_tp_layout=lambda p, tp: gpt2_to_tp_layout(p, cfg, tp),
         pipeline_fns=lambda tp_axis=None: gpt2_pipeline_fns(
             cfg, tp_axis=tp_axis, remat=remat, use_flash=use_flash,

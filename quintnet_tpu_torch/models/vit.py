@@ -17,7 +17,9 @@ JAX package uses none either); the head reads the CLS position.
 
 With ``tp_axis`` the blocks run on this rank's tp shards
 (:func:`vit_partition_specs`, :func:`vit_to_tp_layout`); the embedding
-and the head are replicated; :func:`vit_pipeline_fns` cuts the model
+and the head are replicated (under ZeRO-3/FSDP the blocks are also
+sharded over dp and gathered layer by layer);
+:func:`vit_pipeline_fns` cuts the model
 into pipeline stages (``parallel/pp.py``). Not ported: MoE ViT
 (``n_experts > 0``: ROADMAP.md §1, item 4).
 """
@@ -148,7 +150,7 @@ def vit_head(p_head, x):
 
 
 def vit_forward(params, images, cfg: ViTConfig, *, tp_axis=None,
-                remat=False, compute_dtype=None, generator=None):
+                remat=False, compute_dtype=None, generator=None, fsdp=None):
     """[B, H, W, C] (or [B, C, H, W], detected by the channel count) ->
     ``(logits [B, num_classes] f32, moe_aux)``; ``moe_aux`` is 0 (the
     port's ViT is dense). ``generator``: training dropout at
@@ -158,7 +160,9 @@ def vit_forward(params, images, cfg: ViTConfig, *, tp_axis=None,
     (``torch.bfloat16``; None is f32) casts the images and the
     parameters at use; the logits come back in f32. ``tp_axis`` (a
     :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`): the blocks are this
-    rank's tp shards, attention on ``num_heads / tp`` local heads."""
+    rank's tp shards, attention on ``num_heads / tp`` local heads.
+    ``fsdp``: ``(axis, gather dims)`` of dp-sharded blocks
+    (``stacked_blocks_apply``)."""
     _dense_only(cfg)
     images = _nhwc(images, cfg)
     if compute_dtype is not None:
@@ -172,7 +176,7 @@ def vit_forward(params, images, cfg: ViTConfig, *, tp_axis=None,
     x = stacked_blocks_apply(
         params["blocks"], x, num_heads=cfg.num_heads // tp, causal=False,
         act=torch.relu, tp_axis=tp_axis, remat=remat, attn_pdrop=cfg.dropout,
-        resid_pdrop=cfg.dropout, generator=generator)
+        resid_pdrop=cfg.dropout, generator=generator, fsdp=fsdp)
     logits = vit_head(params["head"], x).float()
     return logits, torch.zeros((), device=logits.device)
 
@@ -195,16 +199,21 @@ def cross_entropy_loss(logits, labels):
 
 def vit_partition_specs(cfg: Optional[ViTConfig] = None, *,
                         tp_axis: Optional[str] = "tp",
-                        pp_axis: Optional[str] = None):
+                        pp_axis: Optional[str] = None,
+                        fsdp_axis: Optional[str] = None):
     """The spec tree of :func:`vit_init`'s params (``parallel/tp.py``):
-    the blocks column/row-sharded over ``tp_axis`` and their stacked
-    depth over ``pp_axis``, the embedding and the head replicated."""
-    from quintnet_tpu_torch.parallel.tp import block_specs
+    the blocks column/row-sharded over ``tp_axis``, their stacked depth
+    over ``pp_axis`` and, with ``fsdp_axis``, one free dim a leaf over it
+    (``parallel/tp.fsdp_shard_specs``); the embedding and the head
+    replicated."""
+    from quintnet_tpu_torch.parallel.tp import block_specs, fsdp_shard_specs
 
+    bspecs = block_specs(tp_axis=tp_axis, stacked=True, pp_axis=pp_axis)
+    if fsdp_axis is not None:
+        bspecs = fsdp_shard_specs(bspecs, fsdp_axis)
     return {
         "embedding": {"patch": {"w": (), "b": ()}, "cls": (), "pos": ()},
-        "blocks": block_specs(tp_axis=tp_axis, stacked=True,
-                              pp_axis=pp_axis),
+        "blocks": bspecs,
         "head": {"ln": {"scale": (), "bias": ()},
                  "fc": {"w": (), "b": ()}},
     }
@@ -263,26 +272,38 @@ def vit_pipeline_fns(cfg: ViTConfig, *, tp_axis=None, remat=False,
 
 def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
     """The training model: ``loss_fn(params, (images, labels),
-    generator=None, *, tp_axis=None)`` (cross entropy),
+    generator=None, *, tp_axis=None, fsdp_axis=None)`` (cross entropy),
     ``eval_metrics_fn`` (loss and accuracy, no dropout), both computing
     in ``compute_dtype`` (see :func:`vit_forward`), on one device or on
-    this rank's tp shards; on a pp mesh :func:`vit_pipeline_fns` (and
-    loss and accuracy through the forward pipeline)."""
+    this rank's tp (and, with ``fsdp_axis``, dp-sharded) blocks; on a pp
+    mesh :func:`vit_pipeline_fns` (and loss and accuracy through the
+    forward pipeline)."""
+    import functools
+
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
+    from quintnet_tpu_torch.parallel.tp import fsdp_info
 
     _dense_only(cfg)
 
-    def loss_fn(params, batch, generator=None, *, tp_axis=None):
+    def fsdp(tp_axis, fsdp_axis):
+        return fsdp_info(functools.partial(vit_partition_specs, cfg),
+                         fsdp_axis, tp_axis=None if tp_axis is None
+                         else tp_axis.names[0])
+
+    def loss_fn(params, batch, generator=None, *, tp_axis=None,
+                fsdp_axis=None):
         x, y = batch
         logits, _ = vit_forward(params, x, cfg, tp_axis=tp_axis,
                                 remat=remat, compute_dtype=compute_dtype,
-                                generator=generator)
+                                generator=generator,
+                                fsdp=fsdp(tp_axis, fsdp_axis))
         return cross_entropy_loss(logits, y)
 
-    def eval_metrics_fn(params, batch, *, tp_axis=None):
+    def eval_metrics_fn(params, batch, *, tp_axis=None, fsdp_axis=None):
         x, y = batch
         logits, _ = vit_forward(params, x, cfg, tp_axis=tp_axis,
-                                remat=remat, compute_dtype=compute_dtype)
+                                remat=remat, compute_dtype=compute_dtype,
+                                fsdp=fsdp(tp_axis, fsdp_axis))
         return {"loss": cross_entropy_loss(logits, y),
                 "accuracy": accuracy(logits, y)}
 
@@ -302,8 +323,9 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
         init=lambda generator: vit_init(generator, cfg), loss_fn=loss_fn,
         depth=cfg.depth, needs_rng=cfg.needs_dropout,
         eval_metrics_fn=eval_metrics_fn,
-        partition_specs=lambda tp_axis=None, pp_axis=None:
-            vit_partition_specs(cfg, tp_axis=tp_axis, pp_axis=pp_axis),
+        partition_specs=lambda tp_axis=None, pp_axis=None, fsdp_axis=None:
+            vit_partition_specs(cfg, tp_axis=tp_axis, pp_axis=pp_axis,
+                                fsdp_axis=fsdp_axis),
         to_tp_layout=lambda p, tp: vit_to_tp_layout(p, cfg, tp),
         pipeline_fns=lambda tp_axis=None: vit_pipeline_fns(
             cfg, tp_axis=tp_axis, remat=remat, compute_dtype=compute_dtype),

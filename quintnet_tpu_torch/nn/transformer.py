@@ -2,7 +2,8 @@
 paged prefill and paged verify.
 
 Port of ``quintnet_tpu/nn/transformer.py``, dense MLP only, with the
-tp hooks (``tp_axis``; sp, ep and fsdp are not ported). Block
+tp hooks (``tp_axis``) and ZeRO-3/FSDP (``fsdp``: the layer's shards
+gathered just before use); sp and ep are not ported. Block
 parameters arrive as ONE layer's slice of the stacked
 ``[L, ...]`` tree (:func:`layer_params`); a Python loop over layers
 stands in for ``lax.scan`` (:func:`stacked_blocks_apply`).
@@ -14,7 +15,8 @@ from typing import Callable
 
 from torch.utils.checkpoint import checkpoint
 
-from quintnet_tpu_torch.core.pytree import tree_leaves
+from quintnet_tpu_torch.core import collectives as cc
+from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
 from quintnet_tpu_torch.nn.attention import (mha_apply, mha_decode,
                                              mha_prefill_paged,
                                              mha_verify_paged)
@@ -64,11 +66,21 @@ def block_apply(p, x, *, num_heads: int, causal: bool = False,
                       generator=generator)
 
 
+def gather_layer(p, fsdp):
+    """One layer's FSDP shards all-gathered whole: ``fsdp = (axis,
+    gather dims)``, a dim of -1 leaves the leaf as it is
+    (``parallel/tp.fsdp_gather_dims``). The gather's backward is a
+    reduce-scatter, so the layer's gradients come back sharded."""
+    axis, dims = fsdp
+    return tree_map(lambda x, dim: (cc.all_gather(x, axis, gather_dim=dim)
+                                    if dim >= 0 else x), p, dims)
+
+
 def stacked_blocks_apply(stacked_params, x, *, num_heads: int,
                          causal: bool = False, act: Callable = gelu,
                          tp_axis=None, use_flash: bool = False, remat=False,
                          attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
-                         generator=None, segment_ids=None):
+                         generator=None, segment_ids=None, fsdp=None):
     """Run a ``[depth, ...]``-stacked block tree layer by layer.
 
     ``remat=True`` recomputes each block in backward
@@ -78,6 +90,16 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int,
     under remat each layer records the generator's state before it runs
     and its recomputation replays from that state, so backward sees the
     forward's masks and the generator ends where the forward left it.
+
+    ``fsdp = (axis, gather_dims)`` (ZeRO-3/FSDP): the stacked params
+    arrive sharded over ``axis`` (a
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`; one dim a leaf,
+    ``parallel/tp.fsdp_shard_specs``) and each layer is all-gathered
+    here, just before use (:func:`gather_layer`), so one layer's full
+    weights exist at a time. Under remat the gather sits inside the
+    checkpointed body: backward gathers again rather than keeping the
+    full layers.
+
     ``remat="dots"`` (keep matmul outputs, recompute the rest) is not
     ported: ROADMAP.md §1, slice 2."""
     if remat == "dots":
@@ -90,22 +112,28 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int,
     kw = dict(num_heads=num_heads, causal=causal, act=act, tp_axis=tp_axis,
               use_flash=use_flash, attn_pdrop=attn_pdrop,
               resid_pdrop=resid_pdrop, segment_ids=segment_ids)
+
+    def apply(p, x, generator):
+        if fsdp is not None:
+            p = gather_layer(p, fsdp)
+        return block_apply(p, x, generator=generator, **kw)
+
     for p in unstack_layers(stacked_params, depth):
         if not remat:
-            x = block_apply(p, x, generator=generator, **kw)
+            x = apply(p, x, generator)
             continue
         state = None if generator is None else generator.get_state()
         calls = []
 
         def body(p, x, state=state, calls=calls):
             if state is None:
-                return block_apply(p, x, generator=None, **kw)
+                return apply(p, x, None)
             replay = bool(calls)
             calls.append(1)
             outer = generator.get_state()
             generator.set_state(state)
             try:
-                return block_apply(p, x, generator=generator, **kw)
+                return apply(p, x, generator)
             finally:
                 # a recomputation leaves no trace (it may also be cut
                 # short by checkpoint's early stop, which raises)

@@ -9,9 +9,11 @@ the axes the model is sharded over, whose loss is computed redundantly
 step runs ``training.schedule``'s pipeline (``parallel/pp.py``: AFAB,
 ``1f1b`` or ``1f1b_stored``) over ``gradient_accumulation_steps``
 micro-batches; a ``zero1_``/``zero2_`` optimizer shards its state over
-dp (``parallel/zero.py``). Every other strategy of the JAX package
-raises ``NotImplementedError`` naming its ROADMAP.md item: fsdp (§1,
-item 3d), ep and MoE (item 4), sp (item 6).
+dp (``parallel/zero.py``); ``training.fsdp`` (ZeRO-3) stores the blocks
+sharded over dp and gathers each layer just before use, so their
+gradients and Adam moments live sharded too. Every other strategy of
+the JAX package raises ``NotImplementedError`` naming its ROADMAP.md
+item: ep and MoE (§1, item 4), sp (item 6).
 """
 
 from __future__ import annotations
@@ -62,13 +64,15 @@ class ModelSpec:
 
     ``init(generator)`` -> full (host-global) param tree on
     ``generator.device``; ``loss_fn(params, batch, generator=None, *,
-    tp_axis=None)`` -> scalar loss on this rank's shards, the generator
-    driving training dropout and ``tp_axis`` the tp
-    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis` (None without tp);
-    ``depth`` the layer count (pp must divide it); ``needs_rng`` True
-    when the model uses dropout; ``eval_metrics_fn(params, batch, *,
-    tp_axis=None) -> {name: device scalar}`` (optional: ViT gives loss
-    and accuracy); ``partition_specs(tp_axis=None, pp_axis=None)`` -> the
+    tp_axis=None, fsdp_axis=None)`` -> scalar loss on this rank's shards,
+    the generator driving training dropout, ``tp_axis`` the tp
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis` (None without tp)
+    and ``fsdp_axis`` the axis the blocks are ZeRO-3-sharded over (None
+    without fsdp); ``depth`` the layer count (pp must divide it);
+    ``needs_rng`` True when the model uses dropout;
+    ``eval_metrics_fn(params, batch, *, tp_axis=None, fsdp_axis=None) ->
+    {name: device scalar}`` (optional: ViT gives loss and accuracy);
+    ``partition_specs(tp_axis=None, pp_axis=None, fsdp_axis=None)`` -> the
     spec tree (axis names; ``parallel/tp.py``) and ``to_tp_layout(params,
     tp)`` -> the params in the tp-blocked fused-QKV layout, both needed
     on a mesh; ``pipeline_fns(tp_axis=None)`` -> ``(embed_fn, stage_fn,
@@ -124,6 +128,15 @@ class Strategy:
         return None
 
     @property
+    def fsdp_axis(self) -> Optional[str]:
+        """``"dp"`` under ZeRO-3/FSDP (``training.fsdp`` on a mesh with
+        dp > 1): the blocks are stored dp-sharded and each layer is
+        all-gathered just before use (``nn/transformer.py``)."""
+        if self.config.training.fsdp and self.mesh.shape.get("dp", 1) > 1:
+            return "dp"
+        return None
+
+    @property
     def zero_stage(self) -> int:
         """2: the gradients are reduce-scattered over dp too."""
         return 2 if self.config.training.optimizer.lower().startswith(
@@ -134,14 +147,18 @@ class Strategy:
         if model.partition_specs is None:
             raise ValueError(f"strategy {self.name!r} needs the model's "
                              f"partition_specs")
+        kw = {}
+        if self.fsdp_axis is not None:
+            kw["fsdp_axis"] = self.fsdp_axis
         return model.partition_specs(tp_axis=self._axis_name("tp"),
-                                     pp_axis=self._axis_name("pp"))
+                                     pp_axis=self._axis_name("pp"), **kw)
 
     def shard_params(self, model: ModelSpec, params):
         """Full params (every rank holds the same, from the same seed) ->
         this rank's shards: the tp layout, then each dim that names a
         present axis cut to this rank's chunk (the stacked blocks' depth
-        over pp: stage s holds layers ``s L/pp .. (s + 1) L/pp - 1``)."""
+        over pp: stage s holds layers ``s L/pp .. (s + 1) L/pp - 1``;
+        under fsdp one dim of each block leaf over dp)."""
         from quintnet_tpu_torch.core.pytree import tree_map
         from quintnet_tpu_torch.parallel.tp import shard_leaf
 
@@ -175,8 +192,9 @@ class Strategy:
 
     def init_opt_state(self, model: ModelSpec, optimizer, params):
         """The optimizer state of this rank's shards: every moment has its
-        parameter's shape, so it is sharded like it; under ZeRO the
-        moments are this rank's flat chunk over dp."""
+        parameter's shape, so it is sharded like it (under fsdp, over dp
+        too); under ZeRO-1/2 the moments are this rank's flat chunk over
+        dp."""
         if self.zero1_axis is not None:
             from quintnet_tpu_torch.parallel.zero import init_chunk_state
 
@@ -207,24 +225,29 @@ class Strategy:
     # -- the step ------------------------------------------------------
     def model_fns(self, model: ModelSpec):
         """``(loss_fn(params, batch, generator=None), eval_fn(params,
-        batch) or None)`` with this rank's tp axis bound. On a pp mesh
-        the loss is None (the pipeline's step has its own) and the
-        evaluation is the forward pipeline (``parallel/pp.
+        batch) or None)`` with this rank's tp and fsdp axes bound. On a
+        pp mesh the loss is None (the pipeline's step has its own) and
+        the evaluation is the forward pipeline (``parallel/pp.
         make_afab_eval_fn``) over the model's ``pipeline_eval_fns``, or
         the loss alone from its ``pipeline_fns``."""
         tp_axis = self.axis_or_none("tp")
         if self.uses_pp:
             return None, self._pipeline_eval_fn(model, tp_axis)
-        if tp_axis is None:
+        kw = {}
+        if tp_axis is not None:
+            kw["tp_axis"] = tp_axis
+        if self.fsdp_axis is not None:
+            kw["fsdp_axis"] = self.mesh.axis(self.fsdp_axis)
+        if not kw:
             return model.loss_fn, model.eval_metrics_fn
 
         def loss(params, batch, generator=None):
-            return model.loss_fn(params, batch, generator, tp_axis=tp_axis)
+            return model.loss_fn(params, batch, generator, **kw)
 
         ev = model.eval_metrics_fn
         if ev is not None:
             def ev(params, batch, _fn=model.eval_metrics_fn):
-                return _fn(params, batch, tp_axis=tp_axis)
+                return _fn(params, batch, **kw)
         return loss, ev
 
     def _pipeline_spec(self):
@@ -263,6 +286,7 @@ class Strategy:
         from quintnet_tpu_torch.parallel.train_step import (
             make_parallel_train_step, make_train_step)
 
+        check_fsdp(self.config)
         t = self.config.training
         if self.name == "single":
             loss, _ = self.model_fns(model)
@@ -301,6 +325,33 @@ class Strategy:
             *fns, pspec), optimizer, specs, **common)
 
 
+def check_fsdp(config: Config) -> None:
+    """JAX's three guards on ``training.fsdp``, with its exception types
+    and messages: fsdp needs a dp axis of size > 1 (``ValueError``), is
+    not wired under pp (``NotImplementedError``) and subsumes ZeRO-1/2
+    (``ValueError``). Decided from the config alone, so
+    :func:`get_strategy` raises before any process group is touched."""
+    t = config.training
+    if not t.fsdp:
+        return
+    sizes = dict(config.mesh.axis_sizes)
+    if sizes.get("dp", 1) <= 1:
+        raise ValueError(
+            "training.fsdp requires a dp mesh axis of size > 1 "
+            f"(mesh: {sizes}); with no dp axis there is nothing to shard "
+            "over — remove the flag or add dp")
+    if sizes.get("pp", 1) > 1:
+        raise NotImplementedError(
+            "training.fsdp under pipeline parallelism is not wired (stage "
+            "fns receive raw block shards); use dp/tp/sp/ep meshes, or "
+            "zero1_*/zero2_* optimizers with pp")
+    if t.optimizer.lower().startswith(("zero1", "zero2")):
+        raise ValueError(
+            "training.fsdp already shards gradients and optimizer state "
+            "over dp (ZeRO-3 subsumes 1/2); use a plain adam/adamw "
+            "optimizer name with fsdp")
+
+
 def get_strategy(name: Optional[str] = None,
                  config: Optional[Config] = None) -> Strategy:
     """Build the strategy ``name`` over ``config.mesh``; ``None`` or
@@ -309,9 +360,9 @@ def get_strategy(name: Optional[str] = None,
     (``core/runtime.initialize``) with a world of the mesh's size; every
     rank calls this in the same order (it creates the mesh's process
     groups). ``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``,
-    ``tp_pp`` and ``3d`` are ported; the others, and fsdp, raise
-    ``NotImplementedError`` naming their ROADMAP.md item, unknown names
-    ``ValueError``."""
+    ``tp_pp`` and ``3d`` are ported, with ``training.fsdp`` on the meshes
+    :func:`check_fsdp` allows; the others raise ``NotImplementedError``
+    naming their ROADMAP.md item, unknown names ``ValueError``."""
     config = config or Config.from_dict({})
     sizes = dict(config.mesh.axis_sizes)
     active = tuple(a for a, s in sizes.items() if s > 1)
@@ -337,13 +388,7 @@ def get_strategy(name: Optional[str] = None,
     if name == "single" and config.mesh.world_size > 1:
         raise ValueError(f"strategy 'single' on a mesh of "
                          f"{config.mesh.world_size} devices ({sizes})")
-    t = config.training
-    dp = sizes.get("dp", 1)
-    if t.fsdp:
-        if dp <= 1:
-            raise ValueError("training.fsdp requires a dp mesh axis of size "
-                             "> 1; this mesh has none")
-        raise _not_ported("training.fsdp (ZeRO-3)", "§1, item 3d")
+    check_fsdp(config)
     mesh = build_mesh(MeshSpec.from_config(config.mesh))
     return Strategy(
         name=name, config=config, mesh=mesh,

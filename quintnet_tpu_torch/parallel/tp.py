@@ -10,9 +10,10 @@ is a fully replicated leaf.
 Fused-QKV layout: the global [D, 3D] QKV weight is stored tp-blocked,
 its columns ordered [q_0|k_0|v_0|q_1|k_1|v_1|...] per tp shard, so a
 contiguous column slice gives each rank whole heads of q, k and v
-(:func:`qkv_blocked_from_standard`). The FSDP spec transforms
-(``fsdp_shard_specs``, ``fsdp_gather_dims``, ``fsdp_info``) are not
-ported yet (ROADMAP.md §1, item 3d).
+(:func:`qkv_blocked_from_standard`). The ZeRO-3/FSDP spec transforms
+(:func:`fsdp_shard_specs`, :func:`fsdp_gather_dims`, :func:`fsdp_info`)
+give the dp-sharded storage layout of the stacked blocks and the dim
+each layer is all-gathered along before use.
 """
 
 from __future__ import annotations
@@ -175,6 +176,67 @@ def block_specs(*, tp_axis="tp", stacked=True, pp_axis=None):
     }
 
 
+# ---------------------------------------------------------------------
+# ZeRO-3 / FSDP spec transforms
+# ---------------------------------------------------------------------
+
+def _map_specs(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_specs(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def fsdp_shard_specs(specs_tree, axis: str):
+    """Insert ``axis`` into the first free (None) dim >= 1 of every
+    stacked leaf's spec: the ZeRO-3/FSDP storage layout, in which each
+    block leaf keeps 1/axis_size of one dimension resident and the layer
+    loop all-gathers the layer just before use
+    (``nn/transformer.stacked_blocks_apply(fsdp=)``). A leaf with no free
+    dim (a tp-sharded bias vector) stays replicated: correct, just not
+    sharded."""
+
+    def one(spec):
+        parts = list(spec)
+        for i in range(1, len(parts)):
+            if parts[i] is None:
+                parts[i] = axis
+                return tuple(parts)
+        return spec
+
+    return _map_specs(one, specs_tree)
+
+
+def fsdp_gather_dims(specs_tree, axis: str):
+    """Per leaf, the dim to gather in the PER-LAYER view (the stacked dim
+    0 removed): the index of ``axis`` in the spec minus 1, or -1 when the
+    leaf is not fsdp-sharded (no gather)."""
+
+    def one(spec):
+        for i, part in enumerate(spec):
+            if part == axis or (isinstance(part, (tuple, list))
+                                and axis in part):
+                return i - 1
+        return -1
+
+    return _map_specs(one, specs_tree)
+
+
+def fsdp_info(partition_specs_fn, fsdp_axis, **spec_kw):
+    """``(fsdp_axis, per-leaf gather dims)`` for ``stacked_blocks_apply``,
+    or None without ``fsdp_axis`` (an axis name, or this rank's
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`, handed back as it
+    is). One derivation for every model family: the blocks' specs are
+    rebuilt through the SAME spec builder that lays the storage out
+    (``pp_axis=None``: fsdp under pp is refused by the strategy), so the
+    gather dims cannot drift from the sharding."""
+    if fsdp_axis is None:
+        return None
+    name = fsdp_axis if isinstance(fsdp_axis, str) else fsdp_axis.names[0]
+    bspecs = partition_specs_fn(pp_axis=None, fsdp_axis=name,
+                                **spec_kw)["blocks"]
+    return fsdp_axis, fsdp_gather_dims(bspecs, name)
+
+
 def spec_axes(spec) -> set:
     """Mesh axis names appearing in a spec."""
     axes = set()
@@ -188,6 +250,18 @@ def spec_axes(spec) -> set:
     return axes
 
 
+def block_index(part, sizes, coords):
+    """``(index, count)`` of the block that the rank at ``coords`` (axis
+    name -> coordinate) holds along one spec entry (an axis name or a
+    tuple of names, row-major over them), on a mesh of ``sizes`` (axis
+    name -> size): where a shard lives in its whole leaf, for
+    :func:`shard_leaf` and the sharded checkpoints alike."""
+    idx, count = 0, 1
+    for a in ((part,) if isinstance(part, str) else part):
+        idx, count = idx * sizes[a] + coords[a], count * sizes[a]
+    return idx, count
+
+
 def shard_leaf(x, spec, mesh):
     """This rank's block of a full (host-global) leaf under ``spec``:
     each dim that names axes of size > 1 is cut to this rank's chunk
@@ -196,14 +270,15 @@ def shard_leaf(x, spec, mesh):
     for dim, part in enumerate(spec):
         if part is None:
             continue
-        ax = mesh.axis(part)
-        if ax.size == 1:
+        ax = mesh.axis(part)     # names the mesh's axes, in its order
+        idx, count = block_index(part, mesh.shape, mesh.coords)
+        if count == 1:
             continue
-        if out.shape[dim] % ax.size:
+        if out.shape[dim] % count:
             raise ValueError(f"dim {dim} of size {out.shape[dim]} does not "
                              f"split over {ax!r}")
-        size = out.shape[dim] // ax.size
-        out = out.narrow(dim, ax.index * size, size)
+        size = out.shape[dim] // count
+        out = out.narrow(dim, idx * size, size)
     return out if out is x else out.contiguous().clone()
 
 

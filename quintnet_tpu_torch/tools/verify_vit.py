@@ -1,15 +1,19 @@
-"""Single-device reload verifier for ViT training.
+"""Single-device reload verifier for ViT training, one device or a mesh.
 
 Port of ``quintnet_tpu/tools/verify_vit.py``: reload the newest
-checkpoint with no trainer, evaluate ``vit_apply`` over the test split
-and compare its accuracy with the one the training run reported::
+checkpoint with no trainer and no mesh, evaluate ``vit_apply`` over the
+test split and compare its accuracy with the one the training run
+reported::
 
     python -m quintnet_tpu_torch.tools.verify_vit --checkpoint-dir ckpt \\
         [--expected-accuracy 0.93] [--data-dir data] [--device cpu]
 
-Checkpoints of tensor-parallel runs (``--tp > 1``, whose fused QKV
-columns are stored in the tp-blocked order) wait for the mesh
-(ROADMAP.md §1, item 3).
+A checkpoint of a sharded run (``train/checkpoint.py``) comes back as
+whole host arrays in the layout the run held them; a tensor-parallel
+run's fused QKV columns are in the tp-blocked order and are put back in
+the standard [q|k|v] order (``parallel/tp.qkv_standard_from_blocked``).
+The tp is the one the step records (its mesh), so unlike the JAX tool
+this one takes no ``--tp``.
 """
 
 from __future__ import annotations
@@ -21,28 +25,33 @@ import numpy as np
 import torch
 
 
-def verify_vit(checkpoint_dir: str, cfg, *, tp: int = 1,
+def verify_vit(checkpoint_dir: str, cfg, *,
                data: Optional[Tuple[np.ndarray, np.ndarray]] = None,
                data_dir: Optional[str] = None, batch_size: int = 256,
                device="cuda") -> dict:
     """Newest checkpoint -> ``{"epoch", "loss", "accuracy",
     "n_examples"}`` over ``data`` (default: ``load_mnist(data_dir,
     split="test")``) in batches of ``batch_size`` (a remainder is
-    dropped, as the trainer's ``make_batches`` drops it)."""
+    dropped, as the trainer's ``make_batches`` drops it). The fused QKV
+    is put back in the standard layout from the tp the step records (1
+    for a one-device step)."""
     from quintnet_tpu_torch.core.device import resolve_device
     from quintnet_tpu_torch.core.pytree import tree_map
     from quintnet_tpu_torch.models.vit import (accuracy, cross_entropy_loss,
                                                vit_apply)
+    from quintnet_tpu_torch.parallel.tp import tree_qkv_layout
     from quintnet_tpu_torch.train.checkpoint import CheckpointManager
 
-    if tp > 1:
-        raise NotImplementedError(
-            f"tp={tp}: checkpoints of tensor-parallel runs are not ported "
-            f"(the tp-blocked QKV layout comes with the mesh, ROADMAP.md "
-            f"§1, item 3)")
     dev = resolve_device(device)
-    state = CheckpointManager(checkpoint_dir).restore()
-    params = tree_map(lambda t: t.to(dev), state["params"])
+    mgr = CheckpointManager(checkpoint_dir)
+    record = mgr.sharding()
+    saved_tp = (dict(zip(record["mesh"]["names"],
+                         record["mesh"]["sizes"])).get("tp", 1)
+                if record is not None else 1)
+    state = mgr.restore()          # whole host arrays, no mesh involved
+    params = tree_qkv_layout(state["params"], cfg.num_heads, saved_tp,
+                             to_blocked=False)
+    params = tree_map(lambda t: t.to(dev), params)
     if data is None:
         from quintnet_tpu_torch.data.datasets import load_mnist
 
@@ -68,8 +77,6 @@ def verify_vit(checkpoint_dir: str, cfg, *, tp: int = 1,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--checkpoint-dir", required=True)
-    ap.add_argument("--tp", type=int, default=1,
-                    help="tp size of the run that wrote the checkpoint")
     ap.add_argument("--data-dir", default=None)
     ap.add_argument("--hidden-dim", type=int, default=64)
     ap.add_argument("--depth", type=int, default=8)
@@ -86,8 +93,7 @@ def main(argv=None):
 
     cfg = ViTConfig(hidden_dim=args.hidden_dim, depth=args.depth,
                     num_heads=args.num_heads, patch_size=args.patch_size)
-    res = verify_vit(args.checkpoint_dir, cfg, tp=args.tp,
-                     data_dir=args.data_dir, batch_size=args.batch_size,
+    res = verify_vit(args.checkpoint_dir, cfg, data_dir=args.data_dir, batch_size=args.batch_size,
                      device=args.device)
     print(f"reloaded epoch {res['epoch']}: loss {res['loss']:.4f} "
           f"accuracy {res['accuracy']:.4f} ({res['n_examples']} examples)")

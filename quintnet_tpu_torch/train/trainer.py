@@ -1,6 +1,6 @@
-"""Trainer: a config-driven epoch loop over the single-device step.
+"""Trainer: a config-driven epoch loop over the train step, on one device or a mesh.
 
-Port of ``quintnet_tpu/train/trainer.py`` for one device:
+Port of ``quintnet_tpu/train/trainer.py``:
 :func:`make_lr_schedule` (the same values as the optax schedules the
 JAX package builds), the optimizers of :func:`make_optimizer` as plain
 functions over the parameter dict (AdamW is ``scale_by_adam``, then the
@@ -9,7 +9,7 @@ decay masked by key name, then the learning rate — the JAX chain, not
 :class:`Trainer` (``init_state``, ``fit``, ``evaluate`` with the
 model's own metrics, checkpoints and step-granular resume).
 
-Resume is step-granular and bit-exact on one device: checkpoints
+Resume is step-granular and bit-exact: checkpoints
 (``train/checkpoint.py``) carry the parameters, the optimizer state and
 the host-side cursor (``ft/cursor.py``: epoch, step, the epoch's loss
 sum, ``History``); the dropout generator of a step is seeded from
@@ -24,20 +24,26 @@ model's (``gpt2_model_spec(compute_dtype=)``), chosen by the example
 (``examples/gpt2_finetune.py``).
 
 On a mesh (strategies ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``,
-``tp_pp``, ``3d``: one process per rank, ``core/runtime.initialize``
-first) every rank builds the same full parameters from the seed and
-keeps its shards (``Strategy.shard_params``), the optimizer state comes
-from ``Strategy.init_opt_state`` (a flat dp chunk under ZeRO), each step
-cuts the global batch to the rank's rows (``Strategy.shard_batch``),
-only rank 0 logs, and validation metrics are averaged over dp. On pp
-the step's loss is summed over the stages, so every rank logs the same
-value, and validation runs the forward pipeline
-(``Strategy.model_fns``).
+``tp_pp``, ``3d``, with ``training.fsdp`` on dp and dp x tp: one process
+per rank, ``core/runtime.initialize`` first) every rank builds the same
+full parameters from the seed and keeps its shards
+(``Strategy.shard_params``), the optimizer state comes from
+``Strategy.init_opt_state`` (a flat dp chunk under ZeRO-1/2, sharded
+like the blocks under fsdp), each step cuts the global batch to the
+rank's rows (``Strategy.shard_batch``), only rank 0 logs, and
+validation metrics are averaged over dp. On pp the step's loss is
+summed over the stages, so every rank logs the same value, and
+validation runs the forward pipeline (``Strategy.model_fns``).
+Checkpoints on a mesh are one logical step written by every rank
+(``train/checkpoint.py``): the parameters and moments as the ranks hold
+them, the cursor once; resume restores each rank's part, and a damaged
+step makes the whole world fall back to the same older one. A decision
+that leads to a save (the time cadence, the best epoch) is taken by the
+whole world, so no rank saves alone.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): preemption handling, fault injection and goodput (``ft=``, item
-8), checkpoints of a run over more than one rank (sharded checkpoints,
-item 3d), the strategies with ep or sp and fsdp (``get_strategy``),
+8), the strategies with ep or sp (``get_strategy``),
 ``remat_policy="dots"``.
 The JAX loop's host-side knobs for its asynchronous dispatch
 (``sync_every``, ``prefetch``) have no use in the eager port and are
@@ -348,11 +354,6 @@ class Trainer:
         self.task_type = task_type
         self.checkpoint_dir = checkpoint_dir
         self.log = log_fn
-        if checkpoint_dir and self.strategy.mesh.size > 1:
-            raise NotImplementedError(
-                f"checkpoint_dir on a mesh of {self.strategy.mesh.size} ranks "
-                f"(sharded checkpoints) is not ported yet (ROADMAP.md §1, "
-                f"item 3d)")
         if not runtime.is_main_process():
             self.log = lambda msg: None     # one log per job: rank 0
         self.step_fn = self.strategy.make_train_step(model, self.optimizer)
@@ -415,7 +416,7 @@ class Trainer:
 
         state, cursor_dict, step, skipped = restore_with_fallback(
             mgr, {"params": params, "opt": opt_state, "epoch": 0},
-            log=self.log)
+            specs=self._state_specs(opt_state), log=self.log)
         self._last_ckpt_step = step
         self._bad_ckpt_steps = set(skipped)
         cursor = TrainCursor.from_dict(cursor_dict)
@@ -432,16 +433,44 @@ class Trainer:
         return _as_params(state["params"]), state["opt"], cursor
 
     def _manager(self, *, best: bool = False):
-        """One CheckpointManager per directory, reused across saves."""
+        """One CheckpointManager per directory, reused across saves (on a
+        mesh, every rank's manager over the strategy's mesh)."""
         from quintnet_tpu_torch.train.checkpoint import CheckpointManager
 
         key = "best" if best else "main"
         if key not in self._mgrs:
+            mesh = self.strategy.mesh
             self._mgrs[key] = (
                 CheckpointManager(self.checkpoint_dir.rstrip("/") + "-best",
-                                  max_to_keep=1) if best
-                else CheckpointManager(self.checkpoint_dir))
+                                  max_to_keep=1, mesh=mesh) if best
+                else CheckpointManager(self.checkpoint_dir, mesh=mesh))
         return self._mgrs[key]
+
+    def _state_specs(self, opt_state):
+        """The spec tree of a saved train state on the strategy's mesh
+        (None on one device): the parameters' specs, the moments sharded
+        like them or, under ZeRO-1/2, per-rank chunks."""
+        from quintnet_tpu_torch.train.checkpoint import CHUNK
+
+        if self.strategy.mesh.size == 1:
+            return None
+        ps = self.strategy.param_specs(self.model)
+        opt = {k: (CHUNK if torch.is_tensor(v) else ps)
+               if k in ("mu", "nu") else () for k, v in opt_state.items()}
+        return {"params": ps, "opt": opt}
+
+    def _save_meta(self):
+        s = self.strategy
+        return {"strategy": s.name,
+                "zero_stage": 0 if s.zero1_axis is None else s.zero_stage,
+                "fsdp": s.fsdp_axis is not None}
+
+    def _agree(self, flag: bool) -> bool:
+        """``flag`` as a decision of the whole world (true when any rank's
+        is): a save that one rank decides alone would leave the others
+        out of its collectives."""
+        return runtime.any_rank(flag) if self.strategy.mesh.size > 1 \
+            else flag
 
     def save(self, epoch: int, params, opt_state):
         """Epoch-indexed save without a cursor, for callers that drive
@@ -449,7 +478,8 @@ class Trainer:
         if not self.checkpoint_dir:
             return
         self._manager().save(
-            epoch, {"params": params, "opt": opt_state, "epoch": epoch})
+            epoch, {"params": params, "opt": opt_state, "epoch": epoch},
+            specs=self._state_specs(opt_state), meta=self._save_meta())
 
     def save_state(self, params, opt_state, cursor, *,
                    boundary: bool = False) -> float:
@@ -477,7 +507,8 @@ class Trainer:
                  else cursor.epoch)
         self._manager().save(
             step, {"params": params, "opt": opt_state, "epoch": epoch},
-            cursor=cursor.to_dict(), force=force)
+            cursor=cursor.to_dict(), force=force,
+            specs=self._state_specs(opt_state), meta=self._save_meta())
         self._last_ckpt_step = step
         self._last_ckpt_midepoch = cursor.step_in_epoch != 0
         self._bad_ckpt_steps.discard(step)
@@ -491,7 +522,8 @@ class Trainer:
             return
         self._manager(best=True).save(
             epoch, {"params": params, "opt": opt_state, "epoch": epoch,
-                    "val_loss": val_loss})
+                    "val_loss": val_loss},
+            specs=self._state_specs(opt_state), meta=self._save_meta())
 
     def wait_for_saves(self):
         """Barrier on in-flight checkpoint writes."""
@@ -647,7 +679,10 @@ class Trainer:
                         msg += f" ({sps * xb.shape[1] / 1e3:.1f}k tok/s)"
                     self.log(msg)
                     t_win = time.time()
-                if cadence.should_save(global_step):
+                save_now = cadence.should_save(global_step)
+                if cadence.every_seconds:      # each rank's own clock
+                    save_now = self._agree(save_now)
+                if save_now:
                     flush()
                     self.save_state(params, opt_state,
                                     cursor_at(epoch, i + 1))
@@ -669,7 +704,7 @@ class Trainer:
                     if k in ev:
                         hist.val_metric.append(ev[k])
                         msg += f" val_{k} {ev[k]:.4f}"
-                if ev["loss"] < hist.best_val_loss:
+                if self._agree(ev["loss"] < hist.best_val_loss):
                     hist.best_val_loss = ev["loss"]
                     hist.best_epoch = epoch
                     self.save_best(epoch, params, opt_state, ev["loss"])

@@ -9,6 +9,8 @@ name.
 
 from __future__ import annotations
 
+import os
+
 import numpy as np
 import torch
 
@@ -276,7 +278,7 @@ def tp_case(rank, world, arrays, np_params, x, y):
 # ---------------------------------------------------------------------
 
 def _gpt2_strategy_step(rank, world, mesh_dim, mesh_name, np_params, ids,
-                        labels, accum, cfg_kw):
+                        labels, accum, cfg_kw, training=None):
     from quintnet_tpu_torch.bridge import gpt2_params_from_numpy
     from quintnet_tpu_torch.core.config import Config
     from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
@@ -288,7 +290,8 @@ def _gpt2_strategy_step(rank, world, mesh_dim, mesh_name, np_params, ids,
         "mesh_dim": mesh_dim, "mesh_name": mesh_name,
         "training": {"optimizer": "adamw", "learning_rate": 1e-2,
                      "weight_decay": 0.01, "grad_clip_norm": 0.5,
-                     "gradient_accumulation_steps": accum}})
+                     "gradient_accumulation_steps": accum,
+                     **(training or {})}})
     gcfg = GPT2Config.tiny(**cfg_kw)
     model = gpt2_model_spec(gcfg, use_flash=True)
     strat = get_strategy(None, config)
@@ -308,17 +311,22 @@ def _gpt2_strategy_step(rank, world, mesh_dim, mesh_name, np_params, ids,
                                              strat.mesh))
                 for k, v in tree_leaves(tree)}
 
+    mu = dict(tree_leaves(state["mu"]))
     return {"strategy": strat.name, "loss": float(loss),
             "params": gathered(params), "mu": gathered(state["mu"]),
-            "coords": strat.mesh.coords}
+            "coords": strat.mesh.coords, "fsdp_axis": strat.fsdp_axis,
+            "specs": {".".join(k): v for k, v in specs.items()},
+            "local_numel": {".".join(k): (v.numel(), mu[k].numel())
+                            for k, v in tree_leaves(params)
+                            if k[0] == "blocks"}}
 
 
 def gpt2_mesh_case(rank, world, np_params, ids, labels, runs):
-    """Every (mesh_dim, mesh_name, accum) run of ``runs`` in this world,
-    one after the other."""
+    """Every (mesh_dim, mesh_name, accum[, training keys]) run of
+    ``runs`` in this world, one after the other."""
     return [_gpt2_strategy_step(rank, world, md, mn, np_params, ids, labels,
-                                acc, {"n_layer": 2})
-            for md, mn, acc in runs]
+                                acc, {"n_layer": 2}, *training)
+            for md, mn, acc, *training in runs]
 
 
 # ---------------------------------------------------------------------
@@ -363,28 +371,36 @@ def dropout_case(rank, world, np_params, ids, labels, seed):
 # Trainer.fit on dp = 2 against one device
 # ---------------------------------------------------------------------
 
-def trainer_case(rank, world, np_params, batches, val):
+def trainer_case(rank, world, np_params, batches, val, training=None):
     from quintnet_tpu_torch.bridge import gpt2_params_from_numpy
     from quintnet_tpu_torch.core.config import Config
     from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
     from quintnet_tpu_torch.train.trainer import Trainer
 
     config = Config.from_dict({
         "mesh_dim": [world], "mesh_name": ["dp"],
         "training": {"optimizer": "sgd", "learning_rate": 0.1,
-                     "grad_clip_norm": 1.0, "log_every": 1, "seed": 0}})
+                     "grad_clip_norm": 1.0, "log_every": 1, "seed": 0,
+                     **(training or {})}})
     logs = []
     tr = Trainer(config, gpt2_model_spec(GPT2Config.tiny(n_layer=2)),
                  task_type="clm", device="cpu", log_fn=logs.append)
     params = tree_map(lambda t: t.requires_grad_(True),
-                      gpt2_params_from_numpy(np_params, "cpu"))
+                      tr.strategy.shard_params(tr.model, gpt2_params_from_numpy(
+                          np_params, "cpu")))
     hist = tr.fit(lambda ep: [batches[ep]], epochs=len(batches),
-                  params=params, opt_state=tr.optimizer.init(params),
+                  params=params, opt_state=tr.strategy.init_opt_state(
+                      tr.model, tr.optimizer, params),
                   val_batches_fn=lambda ep: [val])
     p, s = tr.final_state
+    specs = dict(tree_leaves(tr.strategy.param_specs(tr.model)))
     return {"train_loss": hist.train_loss, "val_loss": hist.val_loss,
-            "params": _flat(p), "logs": len(logs),
-            "strategy": tr.strategy.name}
+            "params": {".".join(k): _np(gather_leaf(v.detach(), specs[k],
+                                                    tr.strategy.mesh))
+                       for k, v in tree_leaves(p)},
+            "logs": len(logs), "strategy": tr.strategy.name,
+            "fsdp_axis": tr.strategy.fsdp_axis}
 
 
 # ---------------------------------------------------------------------
@@ -708,7 +724,8 @@ def zero_world_case(rank, world, vit_np, x, y, gpt2_np, ids):
 
 def strategy_roles(name, sizes, training):
     """``get_strategy(name, config)``'s name and axis roles (with
-    ``zero1_axis`` and ``zero_stage``) for a mesh ``sizes``."""
+    ``zero1_axis``, ``zero_stage`` and ``fsdp_axis``) for a mesh
+    ``sizes``."""
     from quintnet_tpu_torch.core.config import Config
     from quintnet_tpu_torch.parallel.strategy import get_strategy
 
@@ -718,7 +735,7 @@ def strategy_roles(name, sizes, training):
     return {"name": s.name, "batch_axes": s.batch_axes,
             "model_axes": s.model_axes, "partial_axes": s.partial_axes,
             "zero1_axis": s.zero1_axis, "zero_stage": s.zero_stage,
-            "uses_pp": s.uses_pp}
+            "uses_pp": s.uses_pp, "fsdp_axis": s.fsdp_axis}
 
 
 def strategy_case(rank, world, cases):
@@ -731,4 +748,373 @@ def strategy_case(rank, world, cases):
     out = {cid: strategy_roles(name, sizes, training)
            for cid, name, sizes, training in cases}
     dist.barrier()
+    return out
+
+
+# ---------------------------------------------------------------------
+# ZeRO-3 / FSDP: the steps of tests/test_torch_fsdp.py
+# ---------------------------------------------------------------------
+
+def fsdp_model(name, kw, remat=False):
+    """The tiny model of an fsdp case (``pp_model``'s, without flash
+    attention for GPT-2 so that the CPU runs the plain attention either
+    way, and with ``remat``)."""
+    if name == "gpt2":
+        from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
+
+        return gpt2_model_spec(GPT2Config.tiny(**kw), remat=remat)
+    from quintnet_tpu_torch.models.vit import ViTConfig, vit_model_spec
+
+    return vit_model_spec(ViTConfig(**kw), remat=remat)
+
+
+def fsdp_sgd_step(name, kw, np_params, x, y, accum=1, remat=False,
+                  sizes=None):
+    """One SGD step (lr 0.05, no clipping) of the tiny model through
+    ``get_strategy`` on the mesh ``sizes`` with ``training.fsdp`` (one
+    device without ``sizes``): the loss and every parameter gathered
+    whole."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.parallel.strategy import get_strategy
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
+    from quintnet_tpu_torch.train.trainer import make_optimizer
+
+    training = {"optimizer": "sgd", "learning_rate": 0.05,
+                "gradient_accumulation_steps": accum}
+    d = {"training": training}
+    if sizes:
+        d.update(mesh_dim=list(sizes.values()), mesh_name=list(sizes))
+        training["fsdp"] = True
+    config = Config.from_dict(d)
+    model = fsdp_model(name, kw, remat)
+    strat = get_strategy(None, config)
+    opt = make_optimizer(config)
+    params = tree_map(lambda t: t.requires_grad_(True), strat.shard_params(
+        model, pp_params(name, np_params)))
+    state = strat.init_opt_state(model, opt, params)
+    batch = strat.shard_batch((torch.tensor(x), torch.tensor(y)))
+    params, state, loss = strat.make_train_step(model, opt)(params, state,
+                                                            batch)
+    specs = dict(tree_leaves(strat.param_specs(model)))
+    return {"loss": float(loss), "fsdp_axis": strat.fsdp_axis,
+            "params": {".".join(k): _np(gather_leaf(v.detach(), specs[k],
+                                                    strat.mesh))
+                       for k, v in tree_leaves(params)}}
+
+
+def fsdp_dp2_world_case(rank, world, gpt2_args, sgd_runs, trainer_args):
+    """tests/test_torch_fsdp.py's world of 2 ranks (dp = 2, fsdp): the
+    GPT-2 AdamW step (:func:`gpt2_mesh_case`), the SGD steps of
+    ``sgd_runs`` (tag -> :func:`fsdp_sgd_step`'s arguments: GPT-2 plain,
+    under remat and with accumulation, ViT) and ``Trainer.fit`` with
+    evaluation."""
+    out = {"gpt2": gpt2_mesh_case(rank, world, *gpt2_args),
+           "trainer": trainer_case(rank, world, *trainer_args,
+                                   {"fsdp": True})}
+    for tag, (name, kw, np_params, x, y, accum, remat) in sgd_runs.items():
+        out[tag] = fsdp_sgd_step(name, kw, np_params, x, y, accum, remat,
+                                 sizes={"dp": world})
+    return out
+
+
+# ---------------------------------------------------------------------
+# sharded checkpoints on a 2 x 2 x 2 world (tests/test_torch_checkpoint_
+# mesh.py)
+# ---------------------------------------------------------------------
+
+def _leaves_np(tree):
+    return {".".join(k): _np(v).copy() if torch.is_tensor(v)
+            else np.asarray(v) for k, v in tree_leaves(tree)}
+
+
+def _vit_3d_state(vit_np, optimizer):
+    """The tiny ViT's 3D strategy, its shards and their fresh optimizer
+    state under ``optimizer``, and the spec tree of the saved state."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.parallel.strategy import get_strategy
+    from quintnet_tpu_torch.train.checkpoint import CHUNK
+    from quintnet_tpu_torch.train.trainer import make_optimizer
+
+    config = Config.from_dict({"mesh_dim": [2, 2, 2],
+                               "mesh_name": ["dp", "tp", "pp"],
+                               "training": {"optimizer": optimizer}})
+    strat = get_strategy(None, config)
+    model = pp_model("vit", CKPT_VIT)
+    opt = make_optimizer(config)
+    params = strat.shard_params(model, pp_params("vit", vit_np))
+    state = strat.init_opt_state(model, opt, params)
+    ps = strat.param_specs(model)
+    specs = {"params": ps, "opt": {k: ((CHUNK if torch.is_tensor(v) else ps)
+                                       if k in ("mu", "nu") else ())
+                                   for k, v in state.items()}}
+    return strat, model, params, state, specs
+
+
+CKPT_VIT = dict(image_size=14, patch_size=7, in_channels=1, hidden_dim=16,
+                depth=4, num_heads=2, num_classes=10)
+
+
+def _round_trip(vit_np, optimizer, directory):
+    """Save steps 0 and 5 of a 3D ViT state (moments made non-zero) with
+    ``max_to_keep=2`` and restore the newest onto fresh zeros: equal bit
+    for bit on this rank?"""
+    from quintnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    strat, _, params, state, specs = _vit_3d_state(vit_np, optimizer)
+    with torch.no_grad():     # moments as a run leaves them: replicas
+        for i, name in enumerate(("mu", "nu")):    # agree, chunks do not
+            if torch.is_tensor(state[name]):
+                state[name].copy_(torch.arange(state[name].numel()) * 0.5
+                                  + strat.mesh.rank + i)
+            else:
+                state[name] = tree_map(lambda p: p * 2.0 + i, params)
+    state["count"] = 7
+    saved = {"params": params, "opt": state, "step": 0}
+    mgr = CheckpointManager(directory, max_to_keep=2, mesh=strat.mesh)
+    for step in (0, 5):
+        mgr.save(step, dict(saved, step=step), specs=specs,
+                 meta={"strategy": strat.name})
+    zeros = tree_map(torch.zeros_like, {"params": params, "opt": {
+        k: v for k, v in state.items() if k != "count"}})
+    zeros["opt"]["count"] = 0
+    zeros["step"] = 0
+    got = mgr.restore(zeros, specs=specs)
+    want = _leaves_np(dict(saved, step=5))
+    have = _leaves_np(got)
+    return {"steps": mgr.all_steps(), "equal": set(want) == set(have) and all(
+        np.array_equal(have[k], want[k]) for k in want),
+        "count_type": type(got["opt"]["count"]).__name__}
+
+
+def _restore_elsewhere(vit_np, directory):
+    """A 3D save (tp = 2, ZeRO-1 chunks) restored onto a dp = 8 mesh of
+    the same world: the parameters converted to the standard QKV layout
+    with the head count, and refused without it; the chunks refused."""
+    from quintnet_tpu_torch.core.mesh import MeshSpec, build_mesh
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
+    from quintnet_tpu_torch.train.checkpoint import (CheckpointManager,
+                                                     MeshMismatchError)
+
+    strat, model, params, state, specs = _vit_3d_state(vit_np,
+                                                       "zero1_adam")
+    CheckpointManager(directory, mesh=strat.mesh).save(
+        1, {"params": params, "opt": state}, specs=specs)
+    dp8 = build_mesh(MeshSpec.create(dp=8))
+    mgr = CheckpointManager(directory, mesh=dp8)
+    full = pp_params("vit", vit_np)
+    template = {"params": tree_map(torch.zeros_like, full)}
+    out = {}
+    try:
+        mgr.restore(template)
+    except MeshMismatchError as e:
+        out["no_heads"] = str(e)
+    try:
+        mgr.restore({"params": template["params"],
+                     "opt": {"mu": torch.zeros_like(state["mu"])}},
+                    num_heads=CKPT_VIT["num_heads"])
+    except MeshMismatchError as e:
+        out["chunks"] = str(e)
+    got = mgr.restore(template, num_heads=CKPT_VIT["num_heads"])
+    out["params"] = {".".join(k): _np(gather_leaf(v, (), dp8))
+                     for k, v in tree_leaves(got["params"])}
+    return out
+
+
+def _vit_3d_fit(directory, xtr, ytr, xte, yte):
+    """The tiny ViT trained one epoch on the 2 x 2 x 2 mesh (1F1B over 2
+    micro-batches, Adam) with a checkpoint directory; its reported val
+    accuracy."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.data.datasets import ArrayDataset, make_batches
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    config = Config.from_dict({
+        "mesh_dim": [2, 2, 2], "mesh_name": ["dp", "tp", "pp"],
+        "training": {"batch_size": 32, "gradient_accumulation_steps": 2,
+                     "schedule": "1f1b", "optimizer": "adam",
+                     "learning_rate": 1e-3, "grad_clip_norm": None,
+                     "epochs": 1, "log_every": 0}})
+    tr = Trainer(config, pp_model("vit", CKPT_VIT), task_type="classification",
+                 checkpoint_dir=directory, device="cpu",
+                 log_fn=lambda m: None)
+    train, test = ArrayDataset(xtr, ytr), ArrayDataset(xte, yte)
+    hist = tr.fit(lambda ep, start=0: make_batches(train, 32, seed=ep,
+                                                   start_batch=start),
+                  val_batches_fn=lambda ep: make_batches(test, 32,
+                                                         shuffle=False))
+    return hist.val_metric[-1]
+
+
+def _gpt2_trainer(directory, mesh_sizes, training):
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    config = Config.from_dict({
+        "mesh_dim": list(mesh_sizes.values()),
+        "mesh_name": list(mesh_sizes),
+        "training": {"learning_rate": 1e-3, "weight_decay": 0.01,
+                     "grad_clip_norm": 1.0, "log_every": 0, "seed": 0,
+                     **training}})
+    return Trainer(config, pp_model("gpt2", GPT2_3D), task_type="clm",
+                   checkpoint_dir=directory, device="cpu",
+                   log_fn=lambda m: None)
+
+
+def _gathered(trainer, tree):
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
+
+    specs = dict(tree_leaves(trainer.strategy.param_specs(trainer.model)))
+    # a copy: a replicated leaf's "gather" is the live parameter itself
+    return {".".join(k): _np(gather_leaf(v.detach(), specs[k],
+                                         trainer.strategy.mesh)).copy()
+            for k, v in tree_leaves(tree)}
+
+
+def _cut_resume(directory, mesh_sizes, training, batches):
+    """A run of ``len(batches)`` one-batch epochs uncut (saving every
+    epoch), then its directory cut after step 1 and a fresh Trainer
+    resuming from it: this rank's uncut and resumed final parameters
+    (gathered whole) and moments (this rank's own: a ZeRO chunk or the
+    sharded leaves), both Histories, and the uncut parameters after step
+    1 gathered whole."""
+    import shutil
+
+    import torch.distributed as dist
+
+    uncut = _gpt2_trainer(directory, mesh_sizes, training)
+    first = []
+    step_fn = uncut.step_fn
+
+    def step(*args, **kwargs):
+        out = step_fn(*args, **kwargs)
+        if not first:
+            first.append(_gathered(uncut, out[0]))
+        return out
+
+    uncut.step_fn = step
+    h_uncut = uncut.fit(lambda ep: [batches[ep]], epochs=len(batches))
+    p_u, s_u = uncut.final_state
+    if dist.get_rank() == 0:
+        for name in os.listdir(directory):
+            if name.isdigit() and int(name) > 1:
+                shutil.rmtree(os.path.join(directory, name))
+    dist.barrier()
+    resumed = _gpt2_trainer(directory, mesh_sizes, training)
+    h_res = resumed.fit(lambda ep: [batches[ep]], epochs=len(batches))
+    p_r, s_r = resumed.final_state
+    return {"uncut": (_gathered(uncut, p_u), _leaves_np(s_u["mu"]),
+                      _leaves_np(s_u["nu"]), h_uncut.train_loss),
+            "resumed": (_gathered(resumed, p_r), _leaves_np(s_r["mu"]),
+                        _leaves_np(s_r["nu"]), h_res.train_loss),
+            "after1": first[0], "steps": sorted(
+                int(n) for n in os.listdir(directory) if n.isdigit())}
+
+
+def _truncated_rank_file(directory):
+    """The newest step of a 3D ZeRO-1 run's directory with rank 3's shard
+    file cut in half: whether this rank's own read of it fails, and the
+    step every rank's ``Trainer.resume_state`` falls back to."""
+    import torch.distributed as dist
+
+    from quintnet_tpu_torch.train.checkpoint import shard_file
+
+    tr = _gpt2_trainer(directory, {"dp": 2, "tp": 2, "pp": 2},
+                       GPT2_3D_CUT)
+    mgr = tr._manager()
+    newest = mgr.latest_step()
+    if dist.get_rank() == 0:
+        path = os.path.join(directory, str(newest), shard_file(3))
+        with open(path, "r+b") as f:
+            f.truncate(os.path.getsize(path) // 2)
+    dist.barrier()
+    params, opt_state = tr.init_state()
+    try:
+        mgr.restore({"params": params, "opt": opt_state, "epoch": 0},
+                    step=newest, specs=tr._state_specs(opt_state))
+        own_read_failed = False
+    except Exception:  # noqa: BLE001 — any failure of this rank's read
+        own_read_failed = True
+    _, _, cursor = tr.resume_state()
+    return {"newest": newest, "own_read_failed": own_read_failed,
+            "resumed_at": cursor.global_step,
+            "bad_steps": sorted(tr._bad_ckpt_steps)}
+
+
+def _failed_save(directory, vit_np):
+    """A save in which rank 5 fails to write its part, and two in which
+    rank 0 fails to make the step's directory or to rename it: every rank
+    raises and no step is listed; then a save killed before its rename (a
+    hidden directory left behind) is not listed and the next manager
+    clears it."""
+    import torch.distributed as dist
+
+    from quintnet_tpu_torch.train import checkpoint
+    from quintnet_tpu_torch.utils import safetensors_io as st
+
+    strat, _, params, state, specs = _vit_3d_state(vit_np, "adam")
+    mgr = checkpoint.CheckpointManager(directory, mesh=strat.mesh)
+    save_file = st.save_file
+
+    def failing(*args, **kwargs):
+        raise OSError("disk full (injected)")
+
+    if dist.get_rank() == 5:
+        st.save_file = failing
+    try:
+        mgr.save(9, {"params": params, "opt": state}, specs=specs)
+        raised = None
+    except (OSError, RuntimeError) as e:
+        raised = f"{type(e).__name__}: {e}"
+    finally:
+        st.save_file = save_file
+    listed = mgr.all_steps()
+    left = sorted(os.listdir(directory))
+    dist.barrier()
+    rank0 = {}
+    for name in ("_tmp_dir", "_commit"):    # rank 0 fails before / after
+        if dist.get_rank() == 0:            # the others write their parts
+            setattr(mgr, name, failing)
+        try:
+            mgr.save(11, {"params": params, "opt": state}, specs=specs)
+            rank0[name] = [None]
+        except (OSError, RuntimeError) as e:
+            rank0[name] = [f"{type(e).__name__}: {e}"]
+        finally:
+            mgr.__dict__.pop(name, None)
+        rank0[name] += [mgr.all_steps(), sorted(os.listdir(directory))]
+        dist.barrier()
+    killed = os.path.join(directory, ".tmp-10-killed")
+    if dist.get_rank() == 0:
+        os.makedirs(killed)
+        with open(os.path.join(killed, checkpoint.shard_file(0)), "wb") as f:
+            f.write(b"\0" * 16)
+    dist.barrier()
+    listed_killed = mgr.all_steps()
+    checkpoint.CheckpointManager(directory, mesh=strat.mesh)
+    return {"raised": raised, "listed": listed, "left": left,
+            "rank0": rank0, "listed_killed": listed_killed,
+            "after_clean": sorted(os.listdir(directory))}
+
+
+GPT2_3D_CUT = dict(GPT2_3D_TRAINING, batch_size=8,
+                   optimizer="zero1_adamw")
+FSDP_CUT = {"batch_size": 8, "optimizer": "adamw", "fsdp": True}
+
+
+def ckpt_world_case(rank, world, vit_np, data, gpt2_batches, dirs):
+    """tests/test_torch_checkpoint_mesh.py's world of 8 ranks: the 3D
+    round trips (Adam, ZeRO-1), a restore onto a dp = 8 mesh, the 3D ViT
+    fit whose checkpoint ``verify_vit`` reloads, the cut-and-resume of a
+    3D ZeRO-1 GPT-2 run and of an fsdp dp x tp = 4 x 2 run, a truncated
+    rank file, and a failed save."""
+    out = {"round_trip": {opt: _round_trip(vit_np, opt, dirs[opt])
+                          for opt in ("adam", "zero1_adam")},
+           "elsewhere": _restore_elsewhere(vit_np, dirs["elsewhere"]),
+           "val_accuracy": _vit_3d_fit(dirs["vit"], *data),
+           "3d": _cut_resume(dirs["3d"], {"dp": 2, "tp": 2, "pp": 2},
+                             GPT2_3D_CUT, gpt2_batches),
+           "fsdp": _cut_resume(dirs["fsdp"], {"dp": 4, "tp": 2}, FSDP_CUT,
+                               gpt2_batches)}
+    out["truncated"] = _truncated_rank_file(dirs["3d"])
+    out["failed_save"] = _failed_save(dirs["failed"], vit_np)
     return out

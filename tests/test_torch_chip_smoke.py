@@ -5,6 +5,7 @@ a gated kernel came short beside lost records, at most
 ``PROFILED_WINDOWS`` windows, and the gate then counts in the window
 returned."""
 
+import os
 import types
 
 import pytest
@@ -197,11 +198,16 @@ def test_mesh_tp2_run_on_two_cpu_ranks(tmp_path):
     host = [(rng.integers(0, 128, (8, 32)), rng.integers(0, 128, (8, 32)))
             for _ in range(chip_smoke.MESH_STEPS)]
     path = str(tmp_path / "ref.pt")
+    # one thread, as every rank has (chip_smoke._join_rank): a CPU
+    # reduction's grouping follows the thread count
+    threads = torch.get_num_threads()
     torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
     try:
         ref = chip_smoke._mesh_reference(cfg, host, 2, "cpu", path)
     finally:
         torch.use_deterministic_algorithms(False)
+        torch.set_num_threads(threads)
     run = ([2], ["tp"], 2, 8)
     ranks = runtime.spawn_world(chip_smoke._mesh_rank, 2, run, host, path,
                                 dataclasses.asdict(cfg), "cpu", timeout=120,
@@ -247,12 +253,17 @@ def test_mesh_pipeline_runs_on_cpu_ranks(tmp_path, name):
              rng.integers(0, 128, (rows, 32)))
             for _ in range(chip_smoke.MESH_STEPS)]
     path = str(tmp_path / "ref.pt")
+    # one thread, as every rank has (chip_smoke._join_rank): a CPU
+    # reduction's grouping follows the thread count
+    threads = torch.get_num_threads()
     torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
     try:
         ref = chip_smoke._mesh_reference(cfg, host, chip_smoke._ref_micro(run),
                                          "cpu", path)
     finally:
         torch.use_deterministic_algorithms(False)
+        torch.set_num_threads(threads)
     ranks = runtime.spawn_world(chip_smoke._mesh_rank, int(np.prod(mesh_dim)),
                                 run, host, path, dataclasses.asdict(cfg),
                                 "cpu", timeout=180, store_dir=str(tmp_path))
@@ -267,3 +278,165 @@ def test_mesh_pipeline_runs_on_cpu_ranks(tmp_path, name):
             assert r["opt_state_bytes"] * 2 >= \
                 r["replicated_opt_state_bytes"] >= r["opt_state_bytes"] * 2 - 8
     np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=1e-5)
+
+
+def _tiny_run_inputs(tmp_path, name, host=None):
+    """``MESH_RUNS[name]`` with a tiny GPT-2 (4 layers, 4 heads): its
+    config, host batches (made unless given) and work directory, and,
+    unless the run resumes another, its single-rank reference with the
+    run's micro-batches (and dtype) written to a file: ``(cfg, host,
+    work, path, ref)``."""
+    import numpy as np
+
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+
+    run = chip_smoke.MESH_RUNS[name]
+    rows = chip_smoke._run_parts(run)[3]
+    opts = chip_smoke._run_opts(run)
+    cfg = GPT2Config.tiny(n_layer=4)
+    if host is None:
+        rng = np.random.default_rng(0)
+        host = [(rng.integers(0, 128, (rows, 32)),
+                 rng.integers(0, 128, (rows, 32)))
+                for _ in range(chip_smoke.MESH_STEPS)]
+    work = str(tmp_path / opts.get("resume", name))
+    os.makedirs(work, exist_ok=True)
+    if opts.get("resume"):
+        return cfg, host, work, None, None
+    path = str(tmp_path / f"ref_{name}.pt")
+    # one thread, as every rank has (chip_smoke._join_rank): a CPU
+    # reduction's grouping follows the thread count
+    threads = torch.get_num_threads()
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
+    try:
+        ref = chip_smoke._mesh_reference(
+            cfg, host, chip_smoke._ref_micro(run), "cpu", path,
+            dtype=opts.get("dtype"))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.set_num_threads(threads)
+    return cfg, host, work, path, ref
+
+
+def _tiny_mesh_run(tmp_path, name, host=None):
+    """``MESH_RUNS[name]`` on gloo CPU ranks with a tiny GPT-2 (4 layers,
+    4 heads): the single-rank reference with the run's micro-batches
+    (and dtype), then every rank's report; the host batches come back
+    for a later run."""
+    import dataclasses
+
+    import numpy as np
+
+    from quintnet_tpu_torch.core import runtime
+
+    run = chip_smoke.MESH_RUNS[name]
+    world = int(np.prod(run[0]))
+    cfg, host, work, path, ref = _tiny_run_inputs(tmp_path, name, host)
+    if path is None:
+        steps = chip_smoke._cut_after_first_step(work)
+        ranks = runtime.spawn_world(
+            chip_smoke._resume_rank, world, run, host,
+            dataclasses.asdict(cfg), "cpu", work, timeout=180,
+            store_dir=str(tmp_path))
+        return steps, ranks, work, host
+    ranks = runtime.spawn_world(
+        chip_smoke._mesh_rank, world, run, host, path,
+        dataclasses.asdict(cfg), "cpu", work, timeout=180,
+        store_dir=str(tmp_path))
+    return ref, ranks, work, host
+
+
+def test_mesh_runs_of_one_size_share_one_world(tmp_path):
+    """``_mesh_world`` runs fsdp_dp2 and then pp2_afab in one world of two
+    CPU ranks, as the card's mesh phase runs every world size's runs:
+    each run holds its own gates (fsdp_dp2 bit for bit the single-rank
+    run, pp2_afab within the f32 gates), the second undisturbed by the
+    first, and each run's wall time comes back beside its report."""
+    import dataclasses
+
+    from quintnet_tpu_torch.core import runtime
+
+    assert chip_smoke._mesh_worlds() == {
+        2: ["dp2", "tp2", "fsdp_dp2", "pp2_afab"],
+        4: ["dp2tp2", "fsdp_dp2tp2", "dp2pp2_stored_zero2"],
+        8: ["3d_1f1b_zero1", "3d_bf16"], "resume": ["3d_ckpt_resume"]}
+    jobs, refs = [], {}
+    for name in ("fsdp_dp2", "pp2_afab"):
+        cfg, host, work, path, refs[name] = _tiny_run_inputs(tmp_path, name)
+        jobs.append((name, (chip_smoke.MESH_RUNS[name], host, path,
+                            dataclasses.asdict(cfg), work)))
+    got = runtime.spawn_world(chip_smoke._mesh_world, 2, "cpu", jobs,
+                              timeout=180, store_dir=str(tmp_path))
+    for g in got:
+        assert list(g) == ["fsdp_dp2", "pp2_afab"]
+        (fsdp, t_fsdp), (pp, t_pp) = g["fsdp_dp2"], g["pp2_afab"]
+        assert fsdp["first_difference"] is None and fsdp["fsdp"] == "dp"
+        assert pp["strategy"] == "pp" and pp["fsdp"] is None
+        assert pp["first_loss_rel"] <= chip_smoke.MESH_TOL["first_loss"]
+        assert pp["worst_grad_rel_err"] <= 1e-5         # f32 on the CPU
+        assert max(pp["loss_rel"]) <= chip_smoke.MESH_TOL["step_loss"]
+        assert t_fsdp > 0 and t_pp > 0
+
+
+@pytest.mark.parametrize("name", ["fsdp_dp2", "fsdp_dp2tp2"])
+def test_mesh_fsdp_runs_on_cpu_ranks(tmp_path, name):
+    """The mesh phase's fsdp runs on gloo CPU ranks: on dp alone every
+    step loss, parameter and both moments equal to the single-rank run
+    bit for bit (the dp2 gate); with tp the first loss, gradients and
+    step losses within the f32 gates and the gathered moments within the
+    gradients' gate; each rank holding half of its blocks
+    (``_check_fsdp_rank``); the optimizer state smaller than the
+    replicated one's."""
+    import numpy as np
+
+    ref, ranks, _, _ = _tiny_mesh_run(tmp_path, name)
+    sizes = dict(zip(*reversed(chip_smoke.MESH_RUNS[name][:2])))
+    for r in ranks:
+        assert r["fsdp"] == "dp"
+        assert r["strategy"] == {"fsdp_dp2": "dp",
+                                 "fsdp_dp2tp2": "dp_tp"}[name]
+        if name == "fsdp_dp2":
+            assert r["first_difference"] is None
+        else:
+            assert r["first_loss_rel"] <= chip_smoke.MESH_TOL["first_loss"]
+            assert r["worst_grad_rel_err"] <= 1e-5      # f32 on the CPU
+            assert max(r["loss_rel"]) <= chip_smoke.MESH_TOL["step_loss"]
+        chip_smoke._check_fsdp_rank(name, r, sizes)
+        assert r["opt_state_bytes"] < 0.8 * r["replicated_opt_state_bytes"]
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=1e-5)
+
+
+def test_mesh_3d_bf16_run_on_cpu_ranks(tmp_path):
+    """The 3d_bf16 run (bf16 compute, bf16 Adam mu) on 8 CPU ranks
+    against the single-rank bf16 run, within the train_bf16 gates."""
+    ref, ranks, _, _ = _tiny_mesh_run(tmp_path, "3d_bf16")
+    tol = chip_smoke.MESH_TOL_BF16
+    for r in ranks:
+        assert r["zero"] == ["dp", 1] and r["strategy"] == "3d"
+        assert r["first_loss_rel"] <= tol["first_loss"]
+        assert r["worst_grad_rel_err"] <= tol["grad"]
+        assert max(r["loss_rel"]) <= tol["step_loss"]
+        assert max(r["moment_chunk_rel_err"].values()) <= tol["grad"]
+        # mu bf16 (2 bytes) and nu f32 (4) against 8 bytes replicated
+        assert r["opt_state_bytes"] * 2 >= r["replicated_opt_state_bytes"]
+
+
+def test_mesh_3d_checkpoint_resume_on_cpu_ranks(tmp_path):
+    """The 3D run saves every step; cut after step 1, a fresh world of 8
+    ranks resumes and takes step 2 equal to the uncut run bit for bit;
+    step 1 restored with no mesh equals the uncut parameters after step
+    1."""
+    _, saved, work, host = _tiny_mesh_run(tmp_path, "3d_1f1b_zero1")
+    assert all(len(r["save_s"]) == chip_smoke.MESH_STEPS for r in saved)
+    assert saved[0]["checkpoint_bytes"] > 0
+    steps, ranks, _, _ = _tiny_mesh_run(tmp_path, "3d_ckpt_resume", host)
+    assert steps == [1]
+    for r in ranks:
+        assert r["restored_global_step"] == [1]
+        assert r["first_difference"] is None and r["history_equal"]
+        assert r["losses"] == saved[r["rank"]]["losses"][1:]
+    one = chip_smoke._restore_without_mesh(work)
+    assert one["first_difference"] is None and one["leaves"] == 16
+    assert one["saved_mesh"] == {"names": ["dp", "tp", "pp"],
+                                 "sizes": [2, 2, 2]}
