@@ -28,7 +28,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    micro-batches, the last in bf16 the 3d_bf16 run's), (8, 12, 1024)
    causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
    causal with a ragged last tile, (8, 12, 256) non-causal and
-   (1, 12, 4096) causal, each in f32 and again in bf16 (the same values
+   (1, 12, 4096) causal, and Llama-3.2-1B's (4, 32, 1024) causal, the
+   same packed and a tp2 rank's (4, 16, 1024), each in f32 and again in
+   bf16 (the same values
    rounded to bf16; the bf16 kernels against their bf16 plain versions
    within 2^-7 of the largest magnitude, lse within 1e-5, and against
    the f32 plain versions on the same bf16 values within 2^-5). Prints
@@ -112,6 +114,25 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    step's wall time, tokens/s, peak memory and, under ``torch.profiler``,
    the GEMM time, the bf16 kernels' time and the idle share.
 
+4c. **llama_train** — Llama-3.2-1B (``LlamaConfig.llama32_1b()``
+   uncut: vocab 128,256, width 2,048, 16 layers, 32 query and 8 kv
+   heads, FFN 8,192, tied, llama3 rope scaling; 1.24 B f32 parameters
+   from seed 0) on 8 rows of 1,024 token ids over the whole vocab in 2
+   micro-batches, AdamW (lr 3e-4, decay 0.1, cosine after 2 warmup
+   steps, clip 1.0): the train phase's f32 gates on the first batch's
+   loss and every gradient leaf, flash against plain attention, then 4
+   steps each way. The flash run is the main path: each of K1-K3
+   launches 16 x 2 x 4 times (counts zeroed just before, read just
+   after), every call through the kernels (0 routed), and 16 x 2 a step
+   by name in the profiler. Prints the step's wall time, input
+   positions/s, peak memory and the idle share.
+4d. **llama_train_bf16** — the same in bf16 (``training.dtype`` and
+   ``adam_mu_dtype``): the train_bf16 gates, the first loss within 2e-2
+   of llama_train's, only the bf16 K1-K3.
+4e. **llama_packed** — one flash-vs-plain first batch of the same model
+   with ``segment_eos_id`` on packed rows (documents of 64-400 tokens,
+   each ended by that id): the kernels' packed-segment path at (4, 32,
+   1024), the f32 gates, K1-K3 each 16 x 2 launches.
 5. **vit** — the reference ViT at full width (``examples/config.yaml``'s
    model block: image 28, patch 7, 1 channel, hidden 64, depth 8, 4
    heads, 10 classes; its training block on one device: global batch 32
@@ -157,16 +178,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    turn in one world (a rank's process, torch's import and the card's
    context paid once a size, not once a run): dp2 (one micro-batch of 32 a
    rank: every step loss, parameter and both Adam moments equal to the
-   reference bit for bit), tp2 (2 micro-batches of 32, 6 heads a rank),
+   reference bit for bit), tp2 (2 micro-batches of 32, 6 heads a rank;
+   since slice 14 dp2, tp2 and fsdp_dp2 are cut to 6 layers, for the
+   script's time limit),
    dp2 x tp2 (16 rows, 4 a rank and micro-batch), fsdp_dp2 and
    fsdp_dp2tp2 (the same two meshes with ``training.fsdp``: the blocks
    stored half on each dp rank and gathered layer by layer; every rank
    holds half of its blocks; on dp alone the dp2 gate, bit for bit; with
    tp the tp gates and both moments, gathered whole, within 1e-3 of the
-   reference's), and the pipelines on 16 rows in 4 micro-batches a rank: pp2 with
-   AFAB (6 layers a rank), dp2 x pp2 with ``1f1b_stored`` and
-   ``zero2_adamw``, dp2 x tp2 x pp2 (the finetune config's mesh) with
-   ``1f1b`` and ``zero1_adamw`` (tp, pp and fsdp: the first loss,
+   reference's), and the pipelines on 16 rows in 4 micro-batches a
+   rank: pp2 with AFAB (6 layers a rank), dp2 x pp2 with
+   ``1f1b_stored`` and ``zero2_adamw``, dp2 x tp2 x pp2 (the finetune
+   config's mesh; its three runs cut to 6 layers, 3 a stage, since
+   slice 14) with ``1f1b`` and ``zero1_adamw`` (tp, pp and fsdp: the
+   first loss,
    through the run's own schedule, within 1e-5 relative, every gradient
    leaf gathered whole over tp, pp and dp and taken back through
    ``gpt2_from_tp_layout`` within 1e-3 of its largest magnitude, the
@@ -182,7 +207,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    layout). 3d_bf16 is the 3D run in bf16 (``training.dtype`` and
    ``adam_mu_dtype`` bfloat16) against the single-rank bf16 run at the
    train_bf16 phase's gates (first loss 1e-2, gradients 5e-2, step
-   losses 1e-2, moment chunks 5e-2). On every rank the counts are zeroed
+   losses 1e-2, moment chunks 5e-2). The slice-14 runs (``MESH_MODELS``;
+   each run prints its cut): Llama-3.2-1B's widths cut to 4 layers on
+   rows of 1,024 (llama_tp2: 16 query and 4 kv heads a rank;
+   llama_fsdp_dp2; llama_dp2pp2_1f1b_zero1: the tied table on both
+   stages), Llama-MoE (2 layers, 8 SwiGLU experts, top-2, from
+   ``llama_init``) on ep = 2 and GPT-2 124M with 8 mlp experts (top-2)
+   on ep x tp = 2 x 2, the experts' capacity a micro-batch's tokens (no
+   drop), each at the f32 gates against the single-rank run with the
+   same micro-batches (ep is a batch axis), the losses with the aux
+   term, and every first-batch routing decision as the reference's
+   (a flip only within ``ROUTE_TIE`` of its router probabilities; the
+   agreement and the drops reported). On every rank the counts are zeroed
    just before ``fit`` and read just after: K2 and K3 each the stage's
    layers x micro-batches x steps, K1 the same (twice under ``1f1b``,
    whose backward sub-step reruns the forward), all of the run's dtype,
@@ -195,9 +231,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    or dies fails the phase.
 
 Then one JSON line of per-kernel numbers (K4 once per variant the
-serve phases launched and path; K1-K3 in f32 with the train and resume
-phases' launches and every f32 mesh rank's together, in bf16 with the
-train_bf16 phase's and the 3d_bf16 ranks'), the card's name and power
+serve phases launched and path; K1-K3 in f32 with the train, resume,
+llama_train and llama_packed phases' launches and every f32 mesh rank's
+together, in bf16 with the train_bf16 and llama_train_bf16 phases' and
+the 3d_bf16 ranks'), the card's name and power
 limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is not available or the package is missing.
@@ -242,6 +279,7 @@ LSE_TOL_BF16 = 1e-5              # absolute: lse is f32 in both
 TIMED_ITERS = 20
 DEVICE = "cuda"
 TRAIN_CASE = "causal_B32_S512_train"
+LLAMA_CASE = "llama_B4_H32_S1024"
 FLASH_KERNELS = {                # wrapper -> the TPU kernel it replaces
     "flash_fwd": "quintnet_tpu/ops/pallas_attention.py:97",
     "flash_bwd_dkv": "quintnet_tpu/ops/pallas_attention.py:259",
@@ -258,6 +296,10 @@ FLASH_SYMBOLS_BF16 = {           # the bf16 instantiations
     "flash_bwd_dq": "flash_bwd_dq_bf16_kernel",
 }
 HGMMA_BF16 = "HGMMA.F32.BF16"       # wgmma m64nNk16, bf16 in, f32 out
+# device kernels counted as GEMMs in a step's breakdown: CUTLASS's and
+# cuBLAS's classic names, and cuBLAS's nvjet kernels (the bf16 GEMMs of
+# the llama_train_bf16 step)
+GEMM_NAMES = ("gemm", "nvjet")
 PAGED_SYMBOLS = {                # K4 path -> its CUDA kernel's name
     "decode": "paged_decode_split_kernel",
     "prefill": "paged_prefill_3xtf32_kernel",
@@ -724,7 +766,11 @@ def _flash_cases():
     # (micro-batch 32, 6 local heads), a dp2 x tp2 and fsdp_dp2tp2 rank
     # (micro-batch 4, 6 local heads), and the pipeline runs' ranks: pp2
     # (micro-batch 4), dp2 x pp2 (2) and dp2 x tp2 x pp2 (2, 6 local
-    # heads; in bf16 the 3d_bf16 run's)
+    # heads; in bf16 the 3d_bf16 run's); then Llama-3.2-1B's: a
+    # micro-batch of 4 rows of 1,024 with all 32 heads (the llama_train
+    # phases; the 16 kv heads repeated to 32 before the call), the same
+    # with packed-document segment ids (llama_packed) and a tp = 2 rank's
+    # 16 heads (the llama_tp2 mesh run)
     shapes = [(TRAIN_CASE, 32, 12, 512, True, False),
               ("mesh_tp2_B32_H6_S512", 32, 6, 512, True, False),
               ("mesh_dp2tp2_B4_H6_S512", 4, 6, 512, True, False),
@@ -735,7 +781,10 @@ def _flash_cases():
               ("causal_segments_B4_S512", 4, 12, 512, True, True),
               ("causal_ragged_B2_S300", 2, 12, 300, True, False),
               ("noncausal_B8_S256", 8, 12, 256, False, False),
-              ("causal_B1_S4096", 1, 12, 4096, True, False)]
+              ("causal_B1_S4096", 1, 12, 4096, True, False),
+              (LLAMA_CASE, 4, 32, 1024, True, False),
+              ("llama_packed_B4_H32_S1024", 4, 32, 1024, True, True),
+              ("llama_tp2_B4_H16_S1024", 4, 16, 1024, True, False)]
     f32_tols = {key: ("rel", KERNEL_TOL)
                 for key in ("o", "lse", "dq", "dk", "dv")}
     bf16_tols = {"o": ("rel", BF16_TOL), "lse": ("abs", LSE_TOL_BF16),
@@ -1537,7 +1586,7 @@ def _train_share(trainer, params, opt_state, batches, want,
                       "launches_per_step": launches,
                       "share_of_step": per_step(us) / (wall * 1e3)}
     gemm_us = sum(us for ev, (us, _) in by_name.items()
-                  if "gemm" in ev.lower())
+                  if any(g in ev.lower() for g in GEMM_NAMES))
     out.update({
         "device_busy_ms_per_step": per_step(busy_us),
         "device_idle_share": 1.0 - per_step(busy_us) / (wall * 1e3),
@@ -1773,6 +1822,234 @@ def phase_train_bf16(f32_first_loss):
                             symbols=FLASH_SYMBOLS_BF16))
     _emit(res)
     return res, {name: v["bf16"] for name, v in by_dtype.items()}
+
+
+# ---------------------------------------------------------------------
+# phases 4c-4e: Llama-3.2-1B trained on the card
+# ---------------------------------------------------------------------
+
+LLAMA_SEQ = 1024
+LLAMA_ROWS, LLAMA_MICRO, LLAMA_STEPS = 8, 2, 4
+# Llama-3's <|end_of_text|>: the packed phase's document separator
+LLAMA_EOS = 128001
+
+
+def _llama_ids(cfg, rows, seq, seed):
+    """[rows, seq] token ids drawn uniformly over the whole vocab from
+    ``seed`` (int64), with no separator among them."""
+    ids = np.random.default_rng(seed).integers(0, cfg.vocab_size - 1,
+                                               (rows, seq))
+    return np.where(ids >= LLAMA_EOS, ids + 1, ids).astype(np.int64)
+
+
+def _llama_packed_ids(cfg, rows, seq, seed):
+    """Packed rows: documents of 64-400 tokens, each ended by
+    ``LLAMA_EOS`` (the layout ``PackedLMDataset`` produces), cut to
+    ``seq`` a row."""
+    rng = np.random.default_rng(seed)
+    ids = _llama_ids(cfg, rows, seq, seed)
+    for r in range(rows):
+        pos = -1
+        while True:
+            pos += int(rng.integers(64, 400))
+            if pos >= seq:
+                break
+            ids[r, pos] = LLAMA_EOS
+    return ids
+
+
+def _llama_trainer(cfg, use_flash, dtype=None):
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.models.llama import llama_model_spec
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    tcfg = Config.from_dict({"training": {
+        "batch_size": LLAMA_ROWS, "gradient_accumulation_steps": LLAMA_MICRO,
+        "optimizer": "adamw", "learning_rate": 3e-4, "weight_decay": 0.1,
+        "lr_schedule": "cosine", "warmup_steps": 2, "decay_steps": 8,
+        "grad_clip_norm": 1.0, "log_every": 0, "seed": 0,
+        **(TRAIN_BF16 if dtype == torch.bfloat16 else {})}})
+    return Trainer(tcfg, llama_model_spec(cfg, use_flash=use_flash,
+                                          compute_dtype=dtype),
+                   task_type="clm", device=DEVICE, log_fn=lambda m: None)
+
+
+def _first_batch(flash, plain, params, batch, tols, name):
+    """The first global batch's loss and every gradient leaf, flash
+    against plain attention from the same weights, held to ``tols``
+    (first_loss, grad); returns (flash loss, plain loss, rel diff, worst
+    leaf, its error)."""
+    from quintnet_tpu_torch.parallel.train_step import accumulate_grads
+
+    loss_f, g_f = accumulate_grads(flash.model.loss_fn, params, batch,
+                                   LLAMA_MICRO)
+    loss_p, g_p = accumulate_grads(plain.model.loss_fn, params, batch,
+                                   LLAMA_MICRO)
+    rel = abs(float(loss_f) - float(loss_p)) / abs(float(loss_p))
+    if not rel <= tols["first_loss"]:
+        raise AssertionError(f"{name} first-step loss: flash {float(loss_f)}"
+                             f" vs plain {float(loss_p)} (rel {rel})")
+    not_f32 = [".".join(k) for k, g in g_f.items()
+               if g.dtype != torch.float32]
+    if not_f32:
+        raise AssertionError(f"{name} gradient leaves not f32: {not_f32}")
+    err = {".".join(k): float((g_f[k] - g_p[k]).abs().max()
+                              / g_p[k].abs().max().clamp_min(1e-30))
+           for k in g_p}
+    worst = max(err, key=err.get)
+    if not err[worst] <= tols["grad"]:
+        raise AssertionError(f"{name} gradient {worst}: max |flash - plain| "
+                             f"/ max |plain| = {err[worst]} > {tols['grad']}")
+    return float(loss_f), float(loss_p), rel, worst, err[worst]
+
+
+def phase_llama_train(dtype=None, f32_first_loss=None):
+    """Llama-3.2-1B (``LlamaConfig.llama32_1b()``: full width, 16 layers,
+    1.24 B parameters, f32 masters from seed 0) on rows of 1,024 token
+    ids over the whole vocab: the first batch's loss and gradients flash
+    against plain attention, then 4 steps of AdamW with a cosine
+    schedule each way. The flash run is the main path (counts zeroed just
+    before, read just after); ``dtype`` bfloat16 computes in bf16 with a
+    bf16 first moment."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
+    from quintnet_tpu_torch.models.llama import LlamaConfig, llama_init
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+
+    bf16 = dtype == torch.bfloat16
+    name = "llama_train_bf16" if bf16 else "llama_train"
+    tol = MESH_TOL_BF16 if bf16 else MESH_TOL
+    symbols = FLASH_SYMBOLS_BF16 if bf16 else FLASH_SYMBOLS
+    cfg = LlamaConfig.llama32_1b()
+    host = [(ids, ids) for ids in (
+        _llama_ids(cfg, LLAMA_ROWS, LLAMA_SEQ, i)
+        for i in range(LLAMA_STEPS + 4))]
+    params0 = llama_init(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    n_params = sum(v.numel() for _, v in tree_leaves(params0))
+
+    def fresh():
+        return tree_map(lambda p: p.detach().clone().requires_grad_(True),
+                        params0)
+
+    flash, plain = _llama_trainer(cfg, True, dtype), _llama_trainer(
+        cfg, False, dtype)
+    p = fresh()
+    loss_f, loss_p, rel, worst, worst_err = _first_batch(
+        flash, plain, p, flash.device_batch(*host[0]), tol, name)
+    del p
+    f32_rel = None
+    if bf16:
+        f32_rel = abs(loss_f - f32_first_loss) / abs(f32_first_loss)
+        if not f32_rel <= 2e-2:
+            raise AssertionError(f"{name}: first loss {loss_f} vs the f32 "
+                                 f"phase's {f32_first_loss} (rel {f32_rel})")
+    torch.cuda.empty_cache()
+
+    params = fresh()
+    opt_state = flash.optimizer.init(params)
+    torch.cuda.reset_peak_memory_stats()
+    _zero_counts()
+    hist_f = flash.fit(lambda ep: [host[ep]], epochs=LLAMA_STEPS,
+                       params=params, opt_state=opt_state)
+    counts = _counts()
+    peaks = {"flash_fit": torch.cuda.max_memory_allocated() / 2 ** 30}
+    by_dtype = _launches_by_dtype()
+    routed = flash_attention.routed
+    per_kernel = cfg.n_layers * LLAMA_MICRO * LLAMA_STEPS
+    want = {k: {"bf16" if bf16 else "f32": per_kernel} for k in FLASH_KERNELS}
+    if routed or by_dtype != want or counts["paged_attention"]:
+        raise AssertionError(f"{name}: launches {by_dtype} (routed {routed},"
+                             f" paged {counts['paged_attention']}); expected "
+                             f"{want} (n_layers x micro-batches x steps)")
+    pp = fresh()
+    torch.cuda.reset_peak_memory_stats()
+    hist_p = plain.fit(lambda ep: [host[ep]], epochs=LLAMA_STEPS, params=pp,
+                       opt_state=plain.optimizer.init(pp))
+    # the plain fit holds the flash run's state beside its own
+    peaks["plain_fit_beside_flash_state"] = (
+        torch.cuda.max_memory_allocated() / 2 ** 30)
+    del pp
+    torch.cuda.empty_cache()
+    for i, (a, b) in enumerate(zip(hist_f.train_loss, hist_p.train_loss)):
+        if not (np.isfinite(a) and abs(a - b) <= tol["step_loss"] * abs(b)):
+            raise AssertionError(f"{name} step {i}: loss flash {a} vs plain "
+                                 f"{b}")
+    res = {"phase": name,
+           "model": f"Llama-3.2-1B widths, all {cfg.n_layers} layers "
+                    f"({n_params} parameters, random init, seed 0)"
+                    + (", bf16 compute from f32 masters, Adam mu bf16"
+                       if bf16 else ", f32"),
+           "global_batch": LLAMA_ROWS, "micro_batches": LLAMA_MICRO,
+           "seq_len": LLAMA_SEQ, "steps": LLAMA_STEPS,
+           "data": "token ids uniform over the vocab (seed = step)",
+           "optimizer": "adamw lr 3e-4 wd 0.1, cosine (2 warmup, 8 decay "
+                        "steps), clip 1.0",
+           "gates": dict(tol), "first_loss_flash": loss_f,
+           "first_loss_plain": loss_p, "first_loss_rel_diff": rel,
+           "worst_grad_leaf": worst, "worst_grad_rel_err": worst_err,
+           "loss_flash": hist_f.train_loss, "loss_plain": hist_p.train_loss,
+           "launches": counts, "launches_by_dtype": by_dtype,
+           "flash_attention_routed": routed, "peak_memory_gib_runs": peaks}
+    if bf16:
+        res.update(first_loss_f32=f32_first_loss,
+                   first_loss_rel_to_f32=f32_rel)
+    res.update(_train_share(flash, params, opt_state, host[LLAMA_STEPS:],
+                            {k: per_kernel // LLAMA_STEPS
+                             for k in FLASH_KERNELS}, symbols=symbols))
+    res["card"] = _smi()
+    _emit(res)
+    return res, {k: v["bf16" if bf16 else "f32"] for k, v in by_dtype.items()}
+
+
+def phase_llama_packed():
+    """One flash-vs-plain step of Llama-3.2-1B at full width on packed
+    rows (``segment_eos_id`` = ``LLAMA_EOS``, documents of 64-400
+    tokens): the kernels' packed-segment path at (4, 32, 1,024), the f32
+    gates. Counts zeroed just before the flash step, read just after."""
+    import dataclasses
+
+    from quintnet_tpu_torch.core.pytree import tree_map
+    from quintnet_tpu_torch.models.gpt2 import segment_ids_from_input
+    from quintnet_tpu_torch.models.llama import LlamaConfig, llama_init
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+
+    cfg = dataclasses.replace(LlamaConfig.llama32_1b(),
+                              segment_eos_id=LLAMA_EOS)
+    ids = _llama_packed_ids(cfg, LLAMA_ROWS, LLAMA_SEQ, 100)
+    params = tree_map(lambda p: p.requires_grad_(True), llama_init(
+        torch.Generator(device=DEVICE).manual_seed(0), cfg))
+    flash, plain = _llama_trainer(cfg, True), _llama_trainer(cfg, False)
+    batch = flash.device_batch(ids, ids)
+    seg = segment_ids_from_input(batch[0], cfg)
+    docs = int((seg.max(dim=1).values + 1).sum())
+    _zero_counts()
+    loss_f, loss_p, rel, worst, worst_err = _first_batch(
+        flash, plain, params, batch, MESH_TOL, "llama_packed")
+    by_dtype = _launches_by_dtype()
+    routed = flash_attention.routed
+    want = {k: {"f32": cfg.n_layers * LLAMA_MICRO} for k in FLASH_KERNELS}
+    if routed or by_dtype != want:
+        raise AssertionError(f"llama_packed: launches {by_dtype} (routed "
+                             f"{routed}); expected {want}")
+    dense = dataclasses.replace(cfg, segment_eos_id=None)
+    with torch.no_grad():
+        cross = float(_llama_trainer(dense, True).model.loss_fn(
+            params, (batch[0][:LLAMA_ROWS // LLAMA_MICRO],
+                     batch[1][:LLAMA_ROWS // LLAMA_MICRO])))
+    res = {"phase": "llama_packed",
+           "model": f"Llama-3.2-1B widths, all {cfg.n_layers} layers, f32 "
+                    f"(seed 0), segment_eos_id {LLAMA_EOS}",
+           "rows": LLAMA_ROWS, "micro_batches": LLAMA_MICRO,
+           "seq_len": LLAMA_SEQ, "documents": docs,
+           "gates": {k: MESH_TOL[k] for k in ("first_loss", "grad")},
+           "first_loss_flash": loss_f, "first_loss_plain": loss_p,
+           "first_loss_rel_diff": rel, "worst_grad_leaf": worst,
+           "worst_grad_rel_err": worst_err,
+           "first_micro_batch_loss_without_isolation": cross,
+           "launches_by_dtype": by_dtype, "flash_attention_routed": routed,
+           "card": _smi()}
+    _emit(res)
+    del params
+    return res, {k: v["f32"] for k, v in by_dtype.items()}
 
 
 # ---------------------------------------------------------------------
@@ -2122,28 +2399,58 @@ def phase_resume():
 # name -> (mesh dims, mesh names, micro-batches a rank, global rows[,
 # pipeline schedule, optimizer[, options]]); on a pp mesh the
 # micro-batches are the pipeline's (training.gradient_accumulation_steps).
-# Options (``_run_opts``): "fsdp" (training.fsdp: ZeRO-3 over dp),
+# Options (``_run_opts``): "model" (MESH_MODELS: the run's model, GPT-2
+# 124M by default), "layers" (GPT-2 cut to that depth: the script's time
+# limit), "time_deterministic" (steps timed with deterministic mode on
+# and off in turns), "fsdp" (training.fsdp: ZeRO-3 over dp),
 # "dtype" ("bfloat16": bf16 compute from f32 masters, Adam mu in bf16),
 # "save" (checkpoint every step into the phase's work directory: the
 # uncut run of the resume check), "resume" (a fresh world restores the
 # named run's step 1 and takes step 2)
 MESH_RUNS = {
-    "dp2": ([2], ["dp"], 1, 64),
-    "tp2": ([2], ["tp"], 2, 64),
+    "dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"layers": 6}),
+    "tp2": ([2], ["tp"], 2, 64, "afab", "adamw", {"layers": 6}),
     "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16),
-    "fsdp_dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"fsdp": True}),
+    "fsdp_dp2": ([2], ["dp"], 1, 64, "afab", "adamw",
+                 {"fsdp": True, "layers": 6}),
     "fsdp_dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw",
                     {"fsdp": True}),
     "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw"),
     "dp2pp2_stored_zero2": ([2, 2], ["dp", "pp"], 4, 16, "1f1b_stored",
                             "zero2_adamw"),
     "3d_1f1b_zero1": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
-                      "zero1_adamw", {"save": True}),
+                      "zero1_adamw", {"save": True, "layers": 6}),
     "3d_ckpt_resume": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
-                       "zero1_adamw", {"resume": "3d_1f1b_zero1"}),
+                       "zero1_adamw", {"resume": "3d_1f1b_zero1",
+                                       "layers": 6}),
     "3d_bf16": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b", "zero1_adamw",
-                {"dtype": "bfloat16"}),
+                {"dtype": "bfloat16", "layers": 6}),
+    # Llama-3.2-1B widths cut to 4 layers (2 with experts), rows of 1,024
+    "llama_tp2": ([2], ["tp"], 2, 8, "afab", "adamw", {"model": "llama"}),
+    "llama_fsdp_dp2": ([2], ["dp"], 1, 8, "afab", "adamw",
+                       {"model": "llama", "fsdp": True}),
+    "llama_moe_ep2": ([2], ["ep"], 1, 4, "afab", "adamw",
+                      {"model": "llama_moe", "time_deterministic": True}),
+    "llama_dp2pp2_1f1b_zero1": ([2, 2], ["dp", "pp"], 2, 8, "1f1b",
+                                "zero1_adamw", {"model": "llama"}),
+    # GPT-2 124M, 12 layers, 8 mlp experts a block, top-2
+    "gpt2_moe_ep2tp2": ([2, 2], ["ep", "tp"], 1, 8, "afab", "adamw",
+                        {"model": "gpt2_moe"}),
 }
+# model -> (what it is, its sequence length); built by _run_model
+MESH_MODELS = {
+    "gpt2": ("gpt2-124M", 512),
+    "gpt2_moe": ("gpt2-124M with 8 mlp experts a block, top-2", 512),
+    "llama": ("Llama-3.2-1B widths cut to 4 layers", 1024),
+    "llama_moe": ("Llama-3.2-1B widths cut to 2 layers, 8 SwiGLU experts "
+                  "a block, top-2 (Mixtral's routing)", 1024),
+}
+# a flipped routing decision (flash vs plain, or across the mesh) is
+# allowed only where its two router probabilities are this close: the
+# serve phase's near-tie rule applied to the router
+ROUTE_TIE = 1e-5
+# the parts of a single-rank reference a mesh run may read (_ref_needs)
+REF_PARTS = ("grads", "params", "mu", "nu")
 MESH_STEPS = 2
 # NCCL refuses two ranks of one communicator on one card: the ranks share
 # the card over gloo, which stages every collective through host memory
@@ -2163,7 +2470,7 @@ PROBED = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
 # the probed collectives the mesh runs need: a failure stops the phase
 # (bf16: tp's activation sums of the 3d_bf16 run)
 PROBE_GATED = ("all_reduce", "all_gather", "reduce_scatter", "shift",
-               "all_reduce_bf16")
+               "all_reduce_bf16", "all_to_all")
 
 
 def _run_parts(run):
@@ -2191,11 +2498,82 @@ def _run_training(run) -> dict:
 
 
 def _ref_micro(run):
-    """The single-rank reference's micro-batches for a run: each dp
-    rank's micro-batches times dp (the dp mean of each rank's mean of
-    micro-batch means is the mean over all of them)."""
+    """The single-rank reference's micro-batches for a run: each batch
+    rank's micro-batches times the ranks over the batch axes, dp and ep
+    (the mean of each rank's mean of micro-batch means is the mean over
+    all of them)."""
     mesh_dim, mesh_name, n_micro, *_ = _run_parts(run)
-    return n_micro * dict(zip(mesh_name, mesh_dim)).get("dp", 1)
+    sizes = dict(zip(mesh_name, mesh_dim))
+    return n_micro * sizes.get("dp", 1) * sizes.get("ep", 1)
+
+
+def _run_model(run):
+    """The config of a run's model (``MESH_MODELS``). A MoE model's
+    expert capacity is a micro-batch's token count: no assignment can
+    drop (Mixtral is dropless), on a rank or in the reference."""
+    import dataclasses
+
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+    from quintnet_tpu_torch.models.llama import LlamaConfig
+
+    kind = _run_opts(run).get("model", "gpt2")
+    seq = MESH_MODELS[kind][1]
+    tokens = run[3] // _ref_micro(run) * seq
+    if kind == "gpt2":
+        return dataclasses.replace(
+            GPT2Config.base(), n_layer=_run_opts(run).get("layers", 12))
+    if kind == "gpt2_moe":
+        return dataclasses.replace(GPT2Config.base(), n_experts=8,
+                                   expert_top_k=2, expert_capacity=tokens)
+    cfg = dataclasses.replace(LlamaConfig.llama32_1b(), n_layers=4)
+    if kind == "llama":
+        return cfg
+    return dataclasses.replace(cfg, n_layers=2, n_experts=8, expert_top_k=2,
+                               expert_capacity=tokens)
+
+
+def _model_dict(cfg) -> dict:
+    """A model config as a picklable dict naming its family."""
+    import dataclasses
+
+    from quintnet_tpu_torch.models.llama import LlamaConfig
+
+    family = "llama" if isinstance(cfg, LlamaConfig) else "gpt2"
+    return {"family": family, **dataclasses.asdict(cfg)}
+
+
+def _model_cfg(model: dict):
+    """The inverse of :func:`_model_dict` (a dict without "family" is
+    GPT-2's)."""
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+    from quintnet_tpu_torch.models.llama import LlamaConfig
+
+    d = dict(model)
+    if d.pop("family", "gpt2") == "llama":
+        return LlamaConfig(**{**d, "rope_scaling": tuple(d["rope_scaling"])
+                              if d["rope_scaling"] else None})
+    return GPT2Config(**d)
+
+
+def _depth(cfg) -> int:
+    return getattr(cfg, "n_layer", None) or cfg.n_layers
+
+
+def _heads(cfg) -> int:
+    return getattr(cfg, "n_head", None) or cfg.n_heads
+
+
+def _tp_layout(cfg, tree, tp, to_blocked=True):
+    """A param-shaped tree to (or from) the tp layout of its family:
+    GPT-2's tp-blocked fused QKV; Llama's identity."""
+    from quintnet_tpu_torch.models.gpt2 import (GPT2Config,
+                                                gpt2_from_tp_layout,
+                                                gpt2_to_tp_layout)
+
+    if not isinstance(cfg, GPT2Config):
+        return tree
+    return (gpt2_to_tp_layout if to_blocked else gpt2_from_tp_layout)(
+        tree, cfg, tp)
 
 
 def _mesh_config(rows, n_micro, sizes=None, schedule="afab",
@@ -2222,21 +2600,79 @@ def _flat_cpu(tree):
 
 
 def _mesh_model(cfg, dtype=None):
-    """The mesh runs' GPT-2 training model (flash attention; bf16
-    compute from the f32 masters when ``dtype`` says so)."""
-    from quintnet_tpu_torch.models.gpt2 import gpt2_model_spec
+    """The mesh runs' training model of ``cfg``'s family (flash
+    attention; bf16 compute from the f32 masters when ``dtype`` says
+    so)."""
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
+    from quintnet_tpu_torch.models.llama import llama_model_spec
 
-    return gpt2_model_spec(cfg, use_flash=True, compute_dtype=(
+    spec = gpt2_model_spec if isinstance(cfg, GPT2Config) else \
+        llama_model_spec
+    return spec(cfg, use_flash=True, compute_dtype=(
         torch.bfloat16 if dtype == "bfloat16" else None))
 
 
-def _mesh_reference(cfg, host, n_micro, device, path, *, dtype=None):
+class _Routes:
+    """Records every top-k routing decision while it is entered
+    (``nn/moe._route`` wrapped): a list of (router probabilities [S, E],
+    chosen experts [S, k]) on the CPU, one a MoE call in call order."""
+
+    def __enter__(self):
+        from quintnet_tpu_torch.nn import moe
+
+        self.calls, self._route = [], moe._route
+
+        def route(probs, k):
+            vals, idx = self._route(probs, k)
+            self.calls.append((probs.detach().cpu(), idx.detach().cpu()))
+            return vals, idx
+
+        moe._route = route
+        return self
+
+    def __exit__(self, *exc):
+        from quintnet_tpu_torch.nn import moe
+
+        moe._route = self._route
+        return False
+
+
+def _route_report(calls, ref_calls, capacity):
+    """Routing of a run's first batch against the reference's (the
+    reference's calls for this rank's micro-batches, in order): the share
+    of decisions that agree, the largest router-probability gap of a
+    flipped one (a flip is a near-tie only within ``ROUTE_TIE``), and
+    the assignments past ``capacity`` (dropped)."""
+    same = total = 0
+    gap = 0.0
+    dropped = 0
+    for (p, idx), (p_ref, idx_ref) in zip(calls, ref_calls):
+        if idx.shape != idx_ref.shape:
+            raise AssertionError(f"routing shapes {tuple(idx.shape)} vs "
+                                 f"{tuple(idx_ref.shape)}")
+        eq = idx == idx_ref
+        same, total = same + int(eq.sum()), total + eq.numel()
+        if not eq.all():
+            a = p_ref.gather(1, idx_ref)[~eq]
+            b = p_ref.gather(1, idx)[~eq]
+            gap = max(gap, float((a - b).abs().max()))
+        counts = torch.bincount(idx.reshape(-1), minlength=p.shape[1])
+        dropped += int((counts - capacity).clamp_min(0).sum())
+    return {"decisions": total, "agree_share": same / max(total, 1),
+            "max_flip_gap": gap, "dropped": dropped}
+
+
+def _mesh_reference(cfg, host, n_micro, device, path, *, dtype=None,
+                    keep=REF_PARTS):
     """The single-rank run a mesh run is held to, in deterministic mode:
     the first batch's loss and every gradient leaf (``n_micro``
-    micro-batches), then ``MESH_STEPS`` steps of ``Trainer.fit`` from the
+    micro-batches; with experts, every routing decision), then
+    ``MESH_STEPS`` steps of ``Trainer.fit`` from the
     same seed: the step losses, the parameters and both Adam moments
     (``dtype="bfloat16"``: bf16 compute and a bf16 first moment). Saved
-    as CPU tensors to ``path``; returns the losses."""
+    as CPU tensors to ``path``, with only the parts of ``REF_PARTS`` in
+    ``keep`` (``_ref_needs``: the card's disk takes 45 GiB of writes a
+    call); returns the losses."""
     from quintnet_tpu_torch.parallel.dp import accumulate_grads
     from quintnet_tpu_torch.train.trainer import Trainer
 
@@ -2245,20 +2681,38 @@ def _mesh_reference(cfg, host, n_micro, device, path, *, dtype=None):
                  _mesh_model(cfg, dtype), task_type="clm",
                  device=device, log_fn=lambda m: None)
     params, opt_state = tr.init_state()
-    loss, grads = accumulate_grads(tr.model.loss_fn, params,
-                                   tr.device_batch(*host[0]), n_micro)
-    ref = {"first_loss": loss.detach().cpu(),
-           "grads": {".".join(k): g.cpu() for k, g in grads.items()}}
+    with _Routes() as routes:
+        loss, grads = accumulate_grads(tr.model.loss_fn, params,
+                                       tr.device_batch(*host[0]), n_micro)
+    ref = {"first_loss": loss.detach().cpu(), "routes": routes.calls}
+    if "grads" in keep:
+        ref["grads"] = {".".join(k): g.cpu() for k, g in grads.items()}
     del grads
     losses = _recording(tr)
     tr.fit(lambda ep: [host[ep]], epochs=MESH_STEPS, params=params,
            opt_state=opt_state)
     p, st = tr.final_state
-    ref.update(losses=[v.detach().cpu() for v in losses],
-               params=_flat_cpu(p), mu=_flat_cpu(st["mu"]),
-               nu=_flat_cpu(st["nu"]))
+    ref["losses"] = [v.detach().cpu() for v in losses]
+    for part, tree in (("params", p), ("mu", st["mu"]), ("nu", st["nu"])):
+        if part in keep:
+            ref[part] = _flat_cpu(tree)
     torch.save(ref, path)
     return {"first_loss": float(loss), "losses": [float(v) for v in losses]}
+
+
+def _ref_needs(run) -> set:
+    """The parts of its reference a run's gates read: a run gated bit for
+    bit the final parameters and moments, the others the first-batch
+    gradients, a ZeRO run the moments (its chunks), fsdp with tp the
+    moments (gathered)."""
+    sizes = dict(zip(run[1], run[0]))
+    if _exact(run):
+        return {"params", "mu", "nu"}
+    need = {"grads"}
+    if _run_parts(run)[5].startswith("zero") or (_run_opts(run).get("fsdp")
+                                     and sizes.get("tp", 1) > 1):
+        need |= {"mu", "nu"}
+    return need
 
 
 def _join_rank(rank, world, store, device):
@@ -2354,9 +2808,9 @@ def _nest(flat):
 def _gather_full(grads, specs, mesh, cfg, tp):
     """Every rank's shards of a gradient (or parameter) tree ({path:
     tensor}) gathered whole on the CPU (gloo) and taken back to the
-    standard fused-QKV layout: {"a.b": tensor}."""
+    standard layout of ``cfg``'s family (GPT-2's fused QKV): {"a.b":
+    tensor}."""
     from quintnet_tpu_torch.core.pytree import tree_leaves
-    from quintnet_tpu_torch.models.gpt2 import gpt2_from_tp_layout
     from quintnet_tpu_torch.parallel.tp import gather_leaf
 
     spec = {".".join(k): v for k, v in tree_leaves(specs)}
@@ -2365,7 +2819,7 @@ def _gather_full(grads, specs, mesh, cfg, tp):
         key = path if isinstance(path, str) else ".".join(path)
         full[key] = gather_leaf(g.detach().cpu().contiguous(), spec[key],
                                 mesh)
-    back = gpt2_from_tp_layout(_nest(full), cfg, tp)
+    back = _tp_layout(cfg, _nest(full), tp, to_blocked=False)
     return {".".join(k): v for k, v in tree_leaves(back)}
 
 
@@ -2409,7 +2863,7 @@ def _first_grads(tr, params, batch, n_micro, schedule):
     strat = tr.strategy
     names = strat.mesh.axis_names
     if strat.uses_pp:
-        fns = tr.model.pipeline_fns(tp_axis=strat.axis_or_none("tp"))
+        fns = strat.pipeline_fns(tr.model)
         pspec = strat._pipeline_spec()
         if schedule == "afab":
             loss, grads = accumulate_grads(make_afab_loss_fn(*fns, pspec),
@@ -2434,14 +2888,13 @@ def _moment_chunk_errors(st, ref, strat, model, cfg, tp):
     to this rank's tp and pp shards, flattened in ZeRO's order): max
     |diff| / max |reference chunk| for mu and nu."""
     from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
-    from quintnet_tpu_torch.models.gpt2 import gpt2_to_tp_layout
     from quintnet_tpu_torch.parallel import zero
     from quintnet_tpu_torch.parallel.tp import shard_leaf
 
     ax = strat.mesh.axis(strat.zero1_axis)
     out = {}
     for m in ("mu", "nu"):
-        full = gpt2_to_tp_layout(_nest(ref[m]), cfg, tp)
+        full = _tp_layout(cfg, _nest(ref[m]), tp)
         local = tree_map(lambda t, sp: shard_leaf(t, sp, strat.mesh), full,
                          strat.param_specs(model))
         flat = zero.flatten(dict(tree_leaves(local)), zero.flat_order(local))
@@ -2499,6 +2952,8 @@ def _state_errors(state, ref):
     leaf against the reference's and its max |diff| / max |reference|."""
     out = {}
     for part, full in state.items():
+        if part not in ref:
+            continue
         err = _leaf_errors({k: v.float() for k, v in full.items()},
                            {k: v.float() for k, v in ref[part].items()})
         worst = max(err, key=err.get)
@@ -2609,7 +3064,6 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
     there what the resume check compares with: the parameters gathered
     whole after step 1 (rank 0) and each rank's final state."""
     from quintnet_tpu_torch.core.pytree import tree_leaves
-    from quintnet_tpu_torch.models.gpt2 import GPT2Config
     from quintnet_tpu_torch.ops.flash_attention import flash_attention
     from quintnet_tpu_torch.train.trainer import Trainer
 
@@ -2618,7 +3072,7 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
     opts = _run_opts(run)
     sizes = dict(zip(mesh_name, mesh_dim))
     tp, pp = sizes.get("tp", 1), sizes.get("pp", 1)
-    cfg = GPT2Config(**model)
+    cfg = _model_cfg(model)
     ckpt = (os.path.join(work, "ckpt") if opts.get("save") and work
             else None)
     tr = Trainer(_mesh_config(rows, n_micro, sizes, schedule, optimizer,
@@ -2633,10 +3087,20 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
            "strategy": strat.name, "device": str(dev),
            "zero": [strat.zero1_axis, strat.zero_stage],
            "fsdp": strat.fsdp_axis}
-    exact = tp == 1 and pp == 1
+    experts = getattr(cfg, "n_experts", 0)
+    exact = _exact(run)
     if not exact:
-        loss, grads = _first_grads(tr, params, tr.device_batch(*host[0]),
-                                   n_micro, schedule)
+        with _Routes() as routes:
+            loss, grads = _first_grads(tr, params,
+                                       tr.device_batch(*host[0]), n_micro,
+                                       schedule)
+        if experts:
+            batch = tuple(a for a in ("dp", "ep") if sizes.get(a, 1) > 1)
+            c = strat.mesh.axis(batch).index if batch else 0
+            L = _depth(cfg) // pp
+            mine = ref["routes"][c * n_micro * L:(c + 1) * n_micro * L]
+            out["routing"] = _route_report(routes.calls, mine,
+                                           cfg.expert_capacity)
         first = float(loss)
         want = float(ref["first_loss"])
         out["first_loss"] = first
@@ -2674,7 +3138,7 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
     if strat.zero1_axis is not None:
         out["moment_chunk_rel_err"] = _moment_chunk_errors(
             st, ref, strat, tr.model, cfg, tp)
-    if exact or strat.fsdp_axis is not None:
+    if exact or (strat.fsdp_axis is not None and "mu" in ref):
         state = _gather_state(p, st, specs, strat.mesh, cfg, tp)
         if exact:
             out["first_difference"] = _first_difference(
@@ -2695,10 +3159,40 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
                    os.path.join(work, f"final-{rank}.pt"))
     if dev.type == "cuda":
         out.update(_mesh_step_share(
-            tr, p, st, host[0], _per_step(run, cfg.n_layer),
+            tr, p, st, host[0], _per_step(run, _depth(cfg)),
             symbols=(FLASH_SYMBOLS_BF16 if opts.get("dtype") == "bfloat16"
                      else FLASH_SYMBOLS)))
+        if opts.get("time_deterministic"):
+            # what deterministic mode costs: steps with it on and off in
+            # turns (on, off, off, on: gloo's host staging drifts); off,
+            # the dispatch's and combine's index_add take atomics
+            times = {True: [], False: []}
+            for det in (True, False, False, True):
+                torch.use_deterministic_algorithms(det)
+                try:
+                    times[det].append(_wall_step_ms(tr, p, st, host[0]))
+                finally:
+                    torch.use_deterministic_algorithms(True)
+            out["step_ms_deterministic_on_off"] = [times[True], times[False]]
     return out
+
+
+def _wall_step_ms(trainer, params, opt_state, b) -> float:
+    """One step's wall time (no profiler; host clock, synced)."""
+    batch = trainer.device_batch(*b)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    trainer.step_fn(params, opt_state, batch)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def _exact(run) -> bool:
+    """A run gated bit for bit against its reference: dense GPT-2 on dp
+    alone (fsdp or not). The others take the f32 (or bf16) tolerances."""
+    sizes = dict(zip(run[1], run[0]))
+    return (_run_opts(run).get("model", "gpt2") == "gpt2"
+            and sizes.get("tp", 1) == 1 and sizes.get("pp", 1) == 1)
 
 
 def _resume_rank(rank, world, store, run, host, model, device, work):
@@ -2710,14 +3204,13 @@ def _resume_rank(rank, world, store, run, host, model, device, work):
     run's on this rank bit for bit."""
     import quintnet_tpu_torch.ft.restore as ft_restore
     from quintnet_tpu_torch.core import runtime
-    from quintnet_tpu_torch.models.gpt2 import GPT2Config
     from quintnet_tpu_torch.ops.flash_attention import flash_attention
     from quintnet_tpu_torch.train.trainer import Trainer
 
     mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
         _run_parts(run)
     sizes = dict(zip(mesh_name, mesh_dim))
-    cfg = GPT2Config(**model)
+    cfg = _model_cfg(model)
     dev = _join_rank(rank, world, store, device)
     try:
         tr = Trainer(_mesh_config(rows, n_micro, sizes, schedule, optimizer,
@@ -2886,13 +3379,23 @@ def _add_launches(counts, ranks):
                 counts[dt][kern] += n
 
 
-def _resume_world(name, run, refs, tmp, model, cfg):
+def _ref_key(run):
+    """The reference a run is held to: (model, rows, micro-batches,
+    dtype)."""
+    opts = _run_opts(run)
+    return (opts.get("model", "gpt2"), opts.get("layers", 0), run[3],
+            _ref_micro(run), opts.get("dtype", ""))
+
+
+def _resume_world(name, run, refs, tmp):
     """The resume run: a fresh world restores the saved run's step 1 and
     takes step 2; then step 1 restored in this process with no mesh."""
     from quintnet_tpu_torch.core import runtime
 
     opts = _run_opts(run)
-    host = refs[run[3], _ref_micro(run), opts.get("dtype", "")][0]
+    host = refs[_ref_key(run)][0]
+    cfg = _run_model(run)
+    model = _model_dict(cfg)
     work = os.path.join(tmp, opts["resume"])
     world = int(np.prod(run[0]))
     print(f"mesh {name}: backend {MESH_BACKEND}, world size {world}, "
@@ -2901,7 +3404,7 @@ def _resume_world(name, run, refs, tmp, model, cfg):
     steps = _cut_after_first_step(work)
     ranks = runtime.spawn_world(_resume_rank, world, run, host, model,
                                 "cuda:0", work, timeout=MESH_TIMEOUT_S)
-    res = _check_resume_run(name, run, ranks, cfg.n_layer)
+    res = _check_resume_run(name, run, ranks, _depth(cfg))
     res["steps_left_by_the_cut"] = steps
     res["no_mesh_restore"] = one = _restore_without_mesh(work)
     if one["first_difference"] is not None:
@@ -2913,32 +3416,51 @@ def _resume_world(name, run, refs, tmp, model, cfg):
     return ranks, res
 
 
+def _mesh_hosts(kind):
+    """``MESH_STEPS`` host batches of 64 rows for a model of
+    ``MESH_MODELS``: GPT-2's the train phase's summarization rows of 512
+    byte tokens, Llama's 1,024 token ids over the vocab (seed = step)."""
+    from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
+
+    seq = MESH_MODELS[kind][1]
+    if kind.startswith("gpt2"):
+        ds = SummarizationDataset.synthetic(64 * 4, ByteTokenizer(),
+                                            max_length=seq, seed=0)
+        return [next(iter(ds.batches(64, seed=i)))
+                for i in range(MESH_STEPS)]
+    from quintnet_tpu_torch.models.llama import LlamaConfig
+
+    return [(ids, ids) for ids in (
+        _llama_ids(LlamaConfig.llama32_1b(), 64, seq, 1000 + i)
+        for i in range(MESH_STEPS))]
+
+
 def phase_mesh():
-    import dataclasses
     import tempfile
 
     from quintnet_tpu_torch.core import runtime
-    from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
-    from quintnet_tpu_torch.models.gpt2 import GPT2Config
 
-    cfg = GPT2Config.base()          # every dropout rate 0
-    seq = 512
-    ds = SummarizationDataset.synthetic(64 * 4, ByteTokenizer(),
-                                        max_length=seq, seed=0)
-    host64 = [next(iter(ds.batches(64, seed=i))) for i in range(MESH_STEPS)]
-    model = dataclasses.asdict(cfg)
     counts = {"f32": collections.Counter(), "bf16": collections.Counter()}
     with tempfile.TemporaryDirectory() as tmp:
         refs = {}
         torch.use_deterministic_algorithms(True)
         try:
-            for rows, n_micro, dtype in sorted(
-                    {(r[3], _ref_micro(r), _run_opts(r).get("dtype", ""))
-                     for r in MESH_RUNS.values()}):
-                host = [(x[:rows], y[:rows]) for x, y in host64]
-                path = os.path.join(tmp, f"ref{rows}_{n_micro}{dtype}.pt")
-                refs[rows, n_micro, dtype] = (host, path, _mesh_reference(
-                    cfg, host, n_micro, DEVICE, path, dtype=dtype or None))
+            hosts = {}
+            for key in sorted({_ref_key(r) for r in MESH_RUNS.values()}):
+                kind, _, rows, n_micro, dtype = key
+                run = next(r for r in MESH_RUNS.values()
+                           if _ref_key(r) == key)
+                if kind not in hosts:
+                    hosts[kind] = _mesh_hosts(kind)
+                host = [(x[:rows], y[:rows]) for x, y in hosts[kind]]
+                path = os.path.join(tmp, "ref_" + "_".join(map(str, key))
+                                    + ".pt")
+                keep = set().union(*(_ref_needs(r) for r in MESH_RUNS.values()
+                                     if _ref_key(r) == key))
+                refs[key] = (host, path, _mesh_reference(
+                    _run_model(run), host, n_micro, DEVICE, path,
+                    dtype=dtype or None, keep=keep))
+                torch.cuda.empty_cache()
         finally:
             torch.use_deterministic_algorithms(False)
         torch.cuda.empty_cache()
@@ -2954,19 +3476,18 @@ def phase_mesh():
             if world == "resume":
                 (name,) = names
                 run = MESH_RUNS[name]
-                ranks, res = _resume_world(name, run, refs, tmp, model, cfg)
+                ranks, res = _resume_world(name, run, refs, tmp)
                 _emit(res)
                 _add_launches(counts, ranks)
                 continue
             jobs = []
             for name in names:
                 run = MESH_RUNS[name]
-                opts = _run_opts(run)
-                host, path, _ = refs[run[3], _ref_micro(run),
-                                     opts.get("dtype", "")]
+                host, path, _ = refs[_ref_key(run)]
                 work = os.path.join(tmp, name)
                 os.makedirs(work, exist_ok=True)
-                jobs.append((name, (run, host, path, model, work)))
+                jobs.append((name, (run, host, path,
+                                    _model_dict(_run_model(run)), work)))
             print(f"mesh {', '.join(names)}: backend {MESH_BACKEND}, world "
                   f"size {world}, every rank on cuda:0, one world",
                   flush=True)
@@ -2977,10 +3498,9 @@ def phase_mesh():
             for name in names:
                 run = MESH_RUNS[name]
                 ranks = [g[name][0] for g in got]
-                res = _check_mesh_run(
-                    name, run, ranks,
-                    refs[run[3], _ref_micro(run),
-                         _run_opts(run).get("dtype", "")][2], cfg.n_layer)
+                res = _check_mesh_run(name, run, ranks,
+                                      refs[_ref_key(run)][2],
+                                      _run_model(run))
                 res["run_wall_s"] = got[0][name][1]
                 res["world_wall_s"] = wall
                 res["world_runs"] = names
@@ -3017,6 +3537,7 @@ def _check_resume_run(name, run, ranks, n_layer):
             "model": "gpt2-124M f32 (random init, seed 0), flash attention",
             "schedule": schedule, "optimizer": optimizer,
             "resumed_from": _run_opts(run)["resume"] + " step 1",
+            "cut": f"{n_layer} of 12 layers",
             "gate": "bit for bit: step-2 loss, History, every parameter, "
                     "both moment chunks on every rank; no-mesh restore == "
                     "the uncut run's parameters after step 1",
@@ -3028,9 +3549,9 @@ def _check_resume_run(name, run, ranks, n_layer):
             "card": _smi()}
 
 
-def _check_mesh_run(name, run, ranks, ref, n_layer):
-    """The gates of one mesh run over its ranks' reports; returns the
-    run's JSON line."""
+def _check_mesh_run(name, run, ranks, ref, cfg):
+    """The gates of one mesh run over its ranks' reports (``cfg``: the
+    run's model); returns the run's JSON line."""
     mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
         _run_parts(run)
     opts = _run_opts(run)
@@ -3038,7 +3559,9 @@ def _check_mesh_run(name, run, ranks, ref, n_layer):
     bf16 = opts.get("dtype") == "bfloat16"
     tol = MESH_TOL_BF16 if bf16 else MESH_TOL
     fsdp = bool(opts.get("fsdp"))
-    exact = sizes.get("tp", 1) == 1 and sizes.get("pp", 1) == 1
+    exact = _exact(run)
+    n_layer = _depth(cfg)
+    kind = opts.get("model", "gpt2")
     per_step = _per_step(run, n_layer)
     want = {k: n * MESH_STEPS for k, n in per_step.items()}
     want["paged_attention"] = 0
@@ -3077,6 +3600,13 @@ def _check_mesh_run(name, run, ranks, ref, n_layer):
             if bad or not all(np.isfinite(r["losses"])):
                 raise AssertionError(f"{where}: step losses {r['losses']} vs"
                                      f" {ref['losses']}")
+        if "routing" in r:
+            rt = r["routing"]
+            if rt["dropped"] or not rt["max_flip_gap"] <= ROUTE_TIE:
+                raise AssertionError(
+                    f"{where}: routing {rt}: a dropped assignment, or a "
+                    f"flipped decision whose router probabilities are "
+                    f"more than {ROUTE_TIE} apart")
         if fsdp:
             _check_fsdp_rank(where, r, sizes)
         if optimizer.startswith("zero"):
@@ -3095,17 +3625,26 @@ def _check_mesh_run(name, run, ranks, ref, n_layer):
         gate["state"] = f"mu, nu <= {tol['grad']}"
     if optimizer.startswith("zero"):
         gate["moment_chunks"] = tol["grad"]
+    if getattr(cfg, "n_experts", 0):
+        gate["routing"] = (f"no drop; a flipped decision within {ROUTE_TIE} "
+                           f"of its router probabilities")
     return {"phase": "mesh", "run": name, "mesh": sizes,
             "backend": MESH_BACKEND,
             "world_size": len(ranks), "ranks_device": "cuda:0 (shared)",
-            "model": (f"gpt2-124M {'bf16 compute, mu bf16' if bf16 else 'f32'}"
+            "model": (f"{MESH_MODELS[kind][0]} "
+                      f"{'bf16 compute, mu bf16' if bf16 else 'f32'}"
                       f" (random init, seed 0), flash attention"),
+            "cut": (f"{n_layer} of {16 if kind.startswith('llama') else 12}"
+                    f" layers" + (f"; expert capacity {cfg.expert_capacity}"
+                                  f" = a micro-batch's tokens (dropless)"
+                                  if getattr(cfg, "n_experts", 0)
+                                  else "")),
             "fsdp": fsdp,
-            "global_rows": rows, "seq_len": 512,
+            "global_rows": rows, "seq_len": MESH_MODELS[kind][1],
             "micro_batches_a_rank": n_micro, "steps": MESH_STEPS,
             "schedule": schedule if pp > 1 else None,
             "layers_a_rank": n_layer // pp,
-            "heads_a_rank": 12 // sizes.get("tp", 1),
+            "heads_a_rank": _heads(cfg) // sizes.get("tp", 1),
             "optimizer": f"{optimizer} lr 5e-5 wd 0.01 clip 1.0",
             "reference": f"one rank, {rows} rows in {_ref_micro(run)} "
                          f"micro-batches{', bf16' if bf16 else ''}",
@@ -3184,6 +3723,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     _res, bf16_counts = phase_train_bf16(train_res["first_loss_flash"])
     torch.cuda.empty_cache()
+    llama_res, llama_counts = phase_llama_train()
+    torch.cuda.empty_cache()
+    _res, llama_bf16_counts = phase_llama_train(
+        torch.bfloat16, llama_res["first_loss_flash"])
+    torch.cuda.empty_cache()
+    _res, packed_counts = phase_llama_packed()
+    torch.cuda.empty_cache()
     phase_vit()
     torch.cuda.empty_cache()
     _res, resume_counts = phase_resume()
@@ -3219,8 +3765,10 @@ def main() -> int:
                 launches["by_path"].get(path, 0), rows, head))
     for name, replaces in FLASH_KERNELS.items():
         for tag, launches in (("", train_counts[name] + resume_counts[name]
+                               + llama_counts[name] + packed_counts[name]
                                + mesh_counts["f32"].get(name, 0)),
                               ("[bf16]", bf16_counts[name]
+                               + llama_bf16_counts[name]
                                + mesh_counts["bf16"].get(name, 0))):
             rows = [r for r in flash_rows if r["kernel"] == name + tag]
             kernels.append(entry(

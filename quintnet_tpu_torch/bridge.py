@@ -1,9 +1,12 @@
-"""GPT-2 and ViT parameters between the JAX pytree and the port.
+"""GPT-2, ViT and Llama parameters between the JAX pytree and the port.
 
-Both packages use the same nested-dict layouts (``models/gpt2.py``,
-``models/vit.py``), so the bridge is a leaf-for-leaf copy: numpy arrays
-in, tensors out, and back, after a check of the layout against the
-model's leaf list. The JAX side hands over ``jax.tree.map(np.asarray,
+The packages use the same nested-dict layouts (``models/gpt2.py``,
+``models/vit.py``, ``models/llama.py``), so the bridge is a leaf-for-leaf
+copy: numpy arrays in, tensors out, and back, after a check of the
+layout against the model's leaf list. A MoE tree carries ``blocks.moe``
+in place of ``blocks.mlp`` (the router and the experts, each expert leaf
+[L, E, ...] with the global expert dim after the layer dim, E the
+router's last dim). The JAX side hands over ``jax.tree.map(np.asarray,
 params)``; nothing here imports jax.
 """
 
@@ -38,6 +41,41 @@ VIT_LEAVES = (
     (("head", "fc", "w"), 2), (("head", "fc", "b"), 1),
 )
 
+# a dense Llama with an untied head (a tied one has no head.lm.w)
+LLAMA_LEAVES = (
+    (("embedding", "tok"), 2),
+    (("blocks", "ln1", "scale"), 2),
+    *((("blocks", "attn", n, "w"), 3) for n in ("q", "k", "v", "o")),
+    (("blocks", "ln2", "scale"), 2),
+    *((("blocks", "mlp", n, "w"), 3) for n in ("gate", "up", "down")),
+    (("head", "ln_f", "scale"), 1), (("head", "lm", "w"), 2),
+)
+
+# MoE FFNs in place of blocks.mlp: GPT-2/ViT experts (w1 b1 w2 b2) and
+# Llama's SwiGLU experts (wg wu wd)
+MLP_EXPERT_LEAVES = ((("blocks", "moe", "router", "w"), 3),
+                     (("blocks", "moe", "w1"), 4),
+                     (("blocks", "moe", "b1"), 3),
+                     (("blocks", "moe", "w2"), 4),
+                     (("blocks", "moe", "b2"), 3))
+SWIGLU_EXPERT_LEAVES = ((("blocks", "moe", "router", "w"), 3),
+                        *((("blocks", "moe", n), 4)
+                          for n in ("wg", "wu", "wd")))
+
+
+def _variant(leaves, tree, experts):
+    """``leaves`` as ``tree`` has them: the MoE leaves in place of the
+    MLP's when ``blocks.moe`` is present, and without the untied head
+    when a Llama tree ties it."""
+    blocks = tree.get("blocks", {}) if isinstance(tree, dict) else {}
+    out = [leaf for leaf in leaves
+           if not ("moe" in blocks and leaf[0][:2] == ("blocks", "mlp"))]
+    if "moe" in blocks:
+        out += experts
+    if leaves is LLAMA_LEAVES and "lm" not in tree.get("head", {}):
+        out = [leaf for leaf in out if leaf[0] != ("head", "lm", "w")]
+    return tuple(out)
+
 
 def _leaves(tree, prefix=()):
     if isinstance(tree, dict):
@@ -47,12 +85,15 @@ def _leaves(tree, prefix=()):
         yield prefix, tree
 
 
-def _check_layout(tree, leaves=GPT2_LEAVES, model="GPT-2") -> None:
+def _check_layout(tree, leaves=GPT2_LEAVES, model="GPT-2",
+                  experts=MLP_EXPERT_LEAVES) -> None:
+    leaves = _variant(leaves, tree, experts)
     got = dict(_leaves(tree))
     want = {p for p, _ in leaves}
+    kind = "MoE" if ("blocks", "moe", "router", "w") in want else "dense"
     if set(got) != want:
         raise ValueError(
-            f"not a dense {model} param tree: missing "
+            f"not a {kind} {model} param tree: missing "
             f"{sorted('.'.join(p) for p in want - set(got))}, unexpected "
             f"{sorted('.'.join(p) for p in set(got) - want)}")
     depths = set()
@@ -66,6 +107,14 @@ def _check_layout(tree, leaves=GPT2_LEAVES, model="GPT-2") -> None:
     if len(depths) != 1:
         raise ValueError(f"block leaves disagree on the layer count: "
                          f"{sorted(depths)}")
+    if ("blocks", "moe", "router", "w") in got:
+        n = {p[-1]: tuple(got[p].shape) for p, _ in experts}
+        E = n["w"][-1]
+        odd = sorted(k for k, shape in n.items()
+                     if k != "w" and shape[1] != E)
+        if odd:
+            raise ValueError(f"expert leaves {odd} do not lead with the "
+                             f"router's {E} experts after the layer dim")
 
 
 def _map(tree, fn):
@@ -101,4 +150,20 @@ def vit_params_to_numpy(params):
     """A port ViT param tree -> nested dicts of numpy arrays (host
     copies)."""
     _check_layout(params, VIT_LEAVES, "ViT")
+    return _map(params, lambda t: t.detach().cpu().numpy().copy())
+
+
+def llama_params_from_numpy(tree, device="cuda"):
+    """JAX Llama params (dense or MoE, tied or not) as nested dicts of
+    numpy arrays -> the same tree of tensors on ``device``."""
+    _check_layout(tree, LLAMA_LEAVES, "Llama", SWIGLU_EXPERT_LEAVES)
+    dev = resolve_device(device)
+    return _map(tree, lambda a: torch.from_numpy(np.array(a, copy=True)).to(
+        dev))
+
+
+def llama_params_to_numpy(params):
+    """A port Llama param tree -> nested dicts of numpy arrays (host
+    copies)."""
+    _check_layout(params, LLAMA_LEAVES, "Llama", SWIGLU_EXPERT_LEAVES)
     return _map(params, lambda t: t.detach().cpu().numpy().copy())

@@ -33,6 +33,9 @@ moment in bf16.
 
 ``--tiny`` trains a 4-layer, 32-wide GPT-2 on 64-token rows (a smoke
 run); ``--steps N`` stops each epoch after N optimizer steps.
+``--experts N`` makes every block's MLP a top-2 MoE of N experts
+(GPT-2-MoE from random weights; an ``ep`` axis in the config's mesh
+shards them).
 ``--checkpoint-dir`` saves every rank's part of each step there (and
 resumes from it), with ``model_config.json`` (the model's geometry and
 its tp layout) beside the steps. Starting from Hugging Face weights
@@ -63,6 +66,9 @@ def main(argv=None):
                          "train set)")
     ap.add_argument("--tiny", action="store_true",
                     help="use a tiny GPT-2 (smoke runs)")
+    ap.add_argument("--experts", type=int, default=0,
+                    help="n_experts: turn the model into a GPT-2-MoE "
+                         "(top-2 routed expert MLPs, ep-shardable)")
     add_launch_args(ap)
     ap.add_argument("--checkpoint-dir", default=None)
     args = ap.parse_args(argv)
@@ -94,6 +100,10 @@ def _finetune(args, cfg):
         gcfg = GPT2Config.from_dict(
             {**cfg.model.extra, **{k: v for k, v in vars(cfg.model).items()
                                    if not isinstance(v, dict)}})
+    if args.experts:
+        import dataclasses
+
+        gcfg = dataclasses.replace(gcfg, n_experts=args.experts)
     max_len = int(cfg.data.get("max_seq_length", 512))
     if args.tiny:
         max_len = min(max_len, gcfg.n_positions)
@@ -139,6 +149,7 @@ def _finetune(args, cfg):
     say(f"strategy={trainer.strategy.name} mesh={trainer.strategy.mesh.shape}"
         f" device={trainer.device} "
         f"gpt2 n_layer={gcfg.n_layer} n_embd={gcfg.n_embd} "
+        f"experts={gcfg.n_experts} "
         f"pdrops={gcfg.pdrops} dtype={cfg.training.dtype} "
         f"adam_mu_dtype={cfg.training.adam_mu_dtype} "
         f"schedule={cfg.training.schedule} optimizer={cfg.training.optimizer}")

@@ -1,21 +1,25 @@
 """GPT-2 (124M "base" through XL): config, init, forward and CLM loss.
 
-Port of ``quintnet_tpu/models/gpt2.py`` (dense, with the tp hooks).
-Parameters keep the JAX pytree layout::
+Port of ``quintnet_tpu/models/gpt2.py`` (dense and MoE, with the tp and
+ep hooks). Parameters keep the JAX pytree layout::
 
     {"embedding": {"wte": [V, D], "wpe": [T, D]},
      "blocks": {"ln1", "attn": {"qkv", "proj"}, "ln2", "mlp": {"fc",
                 "proj"}}      # every leaf stacked [L, ...]
      "head": {"ln_f": {"scale", "bias"}}}
 
-with linear weights ``[in, out]`` and the lm head tied to ``wte``.
+with linear weights ``[in, out]`` and the lm head tied to ``wte``; with
+``n_experts > 0`` each block's ``mlp`` is a MoE FFN ``moe`` (``{"router":
+{"w"}, "w1", "b1", "w2", "b2"}``, the expert dim after the layer dim:
+``nn/moe.py``) whose load-balance loss joins the CLM loss.
 :func:`gpt2_apply` is the dense causal forward — the oracle the paged
 serving path is held to on the card; :func:`gpt2_model_spec` is the
 training model (forward, CLM loss, dropout from a ``torch.Generator``,
 optional flash attention and remat) on one device or, with ``tp_axis``,
 on this rank's tp shards (:func:`gpt2_partition_specs`: the blocks
 Megatron-sharded in the tp-blocked qkv layout of
-:func:`gpt2_to_tp_layout` and their depth cut over pp, embeddings,
+:func:`gpt2_to_tp_layout`, the experts over ep, and their depth cut over
+pp, embeddings,
 LayerNorms and the tied head replicated; under ZeRO-3/FSDP the blocks
 are also sharded over dp and gathered layer by layer);
 :func:`gpt2_pipeline_fns` is the same model cut into pipeline stages.
@@ -33,11 +37,19 @@ from torch.utils.checkpoint import checkpoint
 
 from quintnet_tpu_torch.nn.attention import mha_init
 from quintnet_tpu_torch.nn.layers import (cast_floating, dropout, gelu,
-                                          layer_norm_apply, layer_norm_init,
-                                          linear_init)
-from quintnet_tpu_torch.nn.transformer import stacked_blocks_apply
+                                          keep_router_f32, layer_norm_apply,
+                                          layer_norm_init, linear_init)
+from quintnet_tpu_torch.nn.moe import MoEArgs, moe_init
+from quintnet_tpu_torch.nn.transformer import (REMAT_DOTS_ITEM,
+                                               stacked_blocks_apply)
 
 IGNORE_INDEX = -100  # labels at -100 carry no loss (prompt and padding)
+
+
+def _cast_tree(tree, dtype):
+    """The mixed-precision cast, the MoE router kept at f32 (its gate
+    order is bf16-sensitive)."""
+    return cast_floating(tree, dtype, exclude=keep_router_f32)
 
 
 @dataclass(frozen=True)
@@ -46,10 +58,15 @@ class GPT2Config:
     and the per-site rates (None falls back to ``dropout``),
     ``loss_chunk`` (CLM loss in sequence chunks of this many positions,
     0 = off) and ``segment_eos_id`` (packed-document isolation: a new
-    attention segment starts after each such token). :meth:`from_dict`
-    keeps every field named here and drops the JAX config's other keys
-    (MoE routing, sequence parallelism). ``vocab_parallel`` is carried
-    so that a tp run that asks for it raises (ROADMAP.md §1, item 6)."""
+    attention segment starts after each such token). MoE: ``n_experts``
+    (0 is dense), ``expert_top_k``, ``capacity_factor``,
+    ``expert_capacity`` (a rank's capacity an expert, None: from the
+    factor), ``aux_loss_weight``, ``router_z_weight`` and
+    ``router_type`` (``"topk"``; ``"expert_choice"`` is non-causal and
+    refused by :attr:`moe_args`). :meth:`from_dict` keeps every field
+    named here and drops the JAX config's other keys (sequence
+    parallelism). ``vocab_parallel`` is carried so that a tp run that
+    asks for it raises (ROADMAP.md §1, item 6)."""
 
     vocab_size: int = 50257
     n_positions: int = 1024
@@ -63,10 +80,14 @@ class GPT2Config:
     resid_pdrop: Optional[float] = None
     loss_chunk: int = 0
     segment_eos_id: Optional[int] = None
-    # MoE (0 = dense) and vocab padding: carried so a JAX config maps
-    # over field for field; the port rejects MoE where it serves
-    # (serve/families.py) and where it trains (gpt2_model_spec)
+    # MoE (0 = dense); serving refuses it (serve/families.py)
     n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    expert_capacity: Optional[int] = None
+    aux_loss_weight: float = 1e-2
+    router_z_weight: float = 0.0
+    router_type: str = "topk"
     padded_vocab_size: Optional[int] = None
     vocab_parallel: bool = False
 
@@ -89,6 +110,26 @@ class GPT2Config:
     @property
     def head_dim(self) -> int:
         return self.n_embd // self.n_head
+
+    @property
+    def moe_args(self) -> Optional[MoEArgs]:
+        """``nn/moe.MoEArgs`` of this config, or None when dense."""
+        if self.n_experts <= 0:
+            return None
+        if self.router_type == "expert_choice":
+            # expert choice selects over the whole flattened sequence:
+            # position t would see later positions
+            raise ValueError(
+                "expert_choice routing is non-causal and unsupported "
+                "for the causal LM families; use router_type='topk' "
+                "(expert_choice remains available at the nn/moe.py "
+                "layer for non-autoregressive models)")
+        return MoEArgs(n_experts=self.n_experts, top_k=self.expert_top_k,
+                       capacity_factor=self.capacity_factor,
+                       capacity=self.expert_capacity,
+                       aux_weight=self.aux_loss_weight,
+                       z_weight=self.router_z_weight,
+                       router=self.router_type)
 
     @property
     def table_vocab_size(self) -> int:
@@ -140,16 +181,50 @@ def gpt2_init(generator: torch.Generator, cfg: GPT2Config):
         "ln1": layer_norm_init(D, lead=(L,), device=dev),
         "attn": mha_init(generator, D, lead=(L,)),
         "ln2": layer_norm_init(D, lead=(L,), device=dev),
-        "mlp": {"fc": linear_init(generator, D, cfg.mlp_hidden, lead=(L,)),
-                "proj": linear_init(generator, cfg.mlp_hidden, D,
-                                    lead=(L,))},
     }
+    if cfg.n_experts > 0:
+        blocks["moe"] = moe_init(generator, D, cfg.mlp_hidden,
+                                 cfg.n_experts, lead=(L,))
+    else:
+        blocks["mlp"] = {
+            "fc": linear_init(generator, D, cfg.mlp_hidden, lead=(L,)),
+            "proj": linear_init(generator, cfg.mlp_hidden, D, lead=(L,))}
     return {
         "embedding": {"wte": normal((cfg.table_vocab_size, D), 0.02),
                       "wpe": normal((cfg.n_positions, D), 0.01)},
         "blocks": blocks,
         "head": {"ln_f": layer_norm_init(D, device=dev)},
     }
+
+
+def gpt2_upcycle_to_moe(params, cfg: GPT2Config, generator=None):
+    """Sparse upcycling: dense GPT-2 params -> MoE params for a config
+    with ``n_experts > 0``. Every expert starts as a copy of the dense
+    MLP and the router near zero (N(0, 0.01) from ``generator``, a fresh
+    one seeded 0 by default), so routing starts near uniform and the
+    model near the dense one. A dense config or MoE params come back as
+    they are."""
+    if cfg.n_experts <= 0 or "moe" in params["blocks"]:
+        return params
+    E = cfg.n_experts
+    blocks = dict(params["blocks"])
+    mlp = blocks.pop("mlp")
+    w = mlp["fc"]["w"]
+    if generator is None:
+        generator = torch.Generator(device=w.device).manual_seed(0)
+
+    def per_expert(x):  # [L, ...] -> [L, E, ...]
+        return x.detach()[:, None].expand(
+            x.shape[0], E, *x.shape[1:]).clone()
+
+    blocks["moe"] = {
+        "router": {"w": 1e-2 * torch.randn(
+            (w.shape[0], cfg.n_embd, E), generator=generator,
+            device=generator.device).to(w.device)},
+        "w1": per_expert(mlp["fc"]["w"]), "b1": per_expert(mlp["fc"]["b"]),
+        "w2": per_expert(mlp["proj"]["w"]),
+        "b2": per_expert(mlp["proj"]["b"])}
+    return {**params, "blocks": blocks}
 
 
 def gpt2_embed(params, input_ids, *, embd_pdrop: float = 0.0,
@@ -193,57 +268,62 @@ def segment_ids_from_input(input_ids, cfg: GPT2Config):
 
 
 def gpt2_blocks(params_blocks, h, cfg: GPT2Config, *, tp_axis=None,
-                remat=False, use_flash: bool = False, generator=None,
-                segment_ids=None, fsdp=None):
-    """The stacked causal blocks; ``generator`` enables training
-    dropout. With ``tp_axis`` (a
-    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) the blocks are this
-    rank's tp shards and attention runs on ``n_head / tp`` local
-    heads. ``fsdp``: ``(axis, gather dims)`` of dp-sharded blocks
+                ep_axis=None, remat=False, use_flash: bool = False,
+                generator=None, segment_ids=None, fsdp=None):
+    """The stacked causal blocks: ``h``, or ``(h, moe_aux)`` when
+    ``cfg.n_experts > 0``. ``generator`` enables training dropout. With
+    ``tp_axis`` (a :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) the
+    blocks are this rank's tp shards and attention runs on ``n_head /
+    tp`` local heads; ``ep_axis``: the experts are this rank's ep shard.
+    ``fsdp``: ``(axis, gather dims)`` of dp-sharded blocks
     (:func:`_fsdp_info`, ``stacked_blocks_apply``)."""
     tp = 1 if tp_axis is None else tp_axis.size
     _, attn_p, resid_p = cfg.pdrops
     return stacked_blocks_apply(
         params_blocks, h, num_heads=cfg.n_head // tp, causal=True, act=gelu,
         tp_axis=tp_axis, use_flash=use_flash, remat=remat,
+        moe_args=cfg.moe_args, ep_axis=ep_axis,
         attn_pdrop=attn_p, resid_pdrop=resid_p, generator=generator,
         segment_ids=segment_ids, fsdp=fsdp)
 
 
 def gpt2_hidden(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
-                remat=False, use_flash: bool = False, generator=None,
-                fsdp=None):
-    """embed + blocks -> final hidden states [B, T, D] (the pre-head
-    half of :func:`gpt2_forward`; the chunked loss starts from here).
-    The JAX twin also returns the MoE aux loss; the port is dense-only."""
+                ep_axis=None, remat=False, use_flash: bool = False,
+                generator=None, fsdp=None):
+    """embed + blocks -> (final hidden states [B, T, D], moe_aux), the
+    aux 0 for a dense config: the pre-head half of :func:`gpt2_forward`
+    (the chunked loss starts from here)."""
     if generator is not None and not cfg.needs_dropout:
         generator = None
     h = gpt2_embed(params, input_ids, embd_pdrop=cfg.pdrops[0],
                    generator=generator)
-    return gpt2_blocks(params["blocks"], h, cfg, tp_axis=tp_axis,
-                       remat=remat, use_flash=use_flash, generator=generator,
-                       segment_ids=segment_ids_from_input(input_ids, cfg),
-                       fsdp=fsdp)
+    out = gpt2_blocks(params["blocks"], h, cfg, tp_axis=tp_axis,
+                      ep_axis=ep_axis, remat=remat, use_flash=use_flash,
+                      generator=generator,
+                      segment_ids=segment_ids_from_input(input_ids, cfg),
+                      fsdp=fsdp)
+    return out if cfg.n_experts > 0 else (out, h.new_zeros(
+        (), dtype=torch.float32))
 
 
 def gpt2_forward(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
-                 remat=False, use_flash: bool = False, generator=None,
-                 fsdp=None):
-    """-> logits [B, T, V] f32. ``generator``: training dropout (None is
-    eval). ``tp_axis``: the params are this rank's tp shards; the
-    logits come out whole (the tied head is replicated). ``fsdp``: the
+                 ep_axis=None, remat=False, use_flash: bool = False,
+                 generator=None, fsdp=None):
+    """-> (logits [B, T, V] f32, moe_aux). ``generator``: training
+    dropout (None is eval). ``tp_axis``: the params are this rank's tp
+    shards; the logits come out whole (the tied head is replicated).
+    ``ep_axis``: the experts are this rank's ep shard. ``fsdp``: the
     blocks are dp-sharded and gathered layer by layer."""
-    return gpt2_logits(params, gpt2_hidden(params, input_ids, cfg,
-                                           tp_axis=tp_axis, remat=remat,
-                                           use_flash=use_flash,
-                                           generator=generator, fsdp=fsdp),
-                       cfg)
+    h, aux = gpt2_hidden(params, input_ids, cfg, tp_axis=tp_axis,
+                         ep_axis=ep_axis, remat=remat, use_flash=use_flash,
+                         generator=generator, fsdp=fsdp)
+    return gpt2_logits(params, h, cfg), aux
 
 
 def gpt2_apply(params, input_ids, cfg: GPT2Config, *,
                use_flash: bool = False):
     """Eval-mode causal forward: [B, T] ids -> [B, T, V] f32 logits."""
-    return gpt2_forward(params, input_ids, cfg, use_flash=use_flash)
+    return gpt2_forward(params, input_ids, cfg, use_flash=use_flash)[0]
 
 
 def clm_loss(logits, labels):
@@ -293,19 +373,26 @@ def perplexity(loss):
 def gpt2_partition_specs(cfg: Optional[GPT2Config] = None, *,
                          tp_axis: Optional[str] = "tp",
                          pp_axis: Optional[str] = None,
+                         ep_axis: Optional[str] = None,
                          fsdp_axis: Optional[str] = None):
     """The spec tree of :func:`gpt2_init`'s params (``parallel/tp.py``):
     blocks column/row-sharded over ``tp_axis`` and their stacked depth
-    over ``pp_axis``, embeddings and the final LayerNorm replicated (the
-    tied head reads ``wte`` whole, on the last stage as the embedding
-    does on the first). ``fsdp_axis``: the blocks also sharded over it,
-    one free dim a leaf (``parallel/tp.fsdp_shard_specs``). A
-    vocab-parallel table (``cfg.vocab_parallel``) is not ported yet
-    (ROADMAP.md §1, item 6)."""
+    over ``pp_axis``, MoE experts over ``ep_axis`` (``nn/moe.moe_specs``),
+    embeddings and the final LayerNorm replicated (the tied head reads
+    ``wte`` whole, on the last stage as the embedding does on the
+    first). ``fsdp_axis``: the blocks also sharded over it, one free dim
+    a leaf (``parallel/tp.fsdp_shard_specs``). A vocab-parallel table
+    (``cfg.vocab_parallel``) is not ported yet (ROADMAP.md §1, item
+    6)."""
+    from quintnet_tpu_torch.nn.moe import moe_specs
     from quintnet_tpu_torch.parallel.tp import block_specs, fsdp_shard_specs
 
     _check_mesh_options(cfg, tp_axis)
     bspecs = block_specs(tp_axis=tp_axis, stacked=True, pp_axis=pp_axis)
+    if cfg is not None and cfg.n_experts > 0:
+        del bspecs["mlp"]
+        bspecs["moe"] = moe_specs(ep_axis=ep_axis, tp_axis=tp_axis,
+                                  stacked=True, pp_axis=pp_axis)
     if fsdp_axis is not None:
         bspecs = fsdp_shard_specs(bspecs, fsdp_axis)
     return {
@@ -315,16 +402,16 @@ def gpt2_partition_specs(cfg: Optional[GPT2Config] = None, *,
     }
 
 
-def _fsdp_info(cfg: GPT2Config, tp_axis, fsdp_axis):
+def _fsdp_info(cfg: GPT2Config, tp_axis, fsdp_axis, ep_axis=None):
     """``(fsdp_axis, gather dims)`` of the blocks, or None: the gather
     dims from the same specs that lay the shards out."""
     import functools
 
-    from quintnet_tpu_torch.parallel.tp import fsdp_info
+    from quintnet_tpu_torch.parallel.tp import axis_name, fsdp_info
 
     return fsdp_info(functools.partial(gpt2_partition_specs, cfg),
-                     fsdp_axis, tp_axis=None if tp_axis is None
-                     else tp_axis.names[0])
+                     fsdp_axis, tp_axis=axis_name(tp_axis),
+                     ep_axis=axis_name(ep_axis))
 
 
 def _check_mesh_options(cfg, tp_axis) -> None:
@@ -352,18 +439,21 @@ def gpt2_from_tp_layout(params, cfg: GPT2Config, tp: int):
     return tree_qkv_layout(params, cfg.n_head, tp, to_blocked=False)
 
 
-def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, remat=False,
-                      use_flash: bool = False, compute_dtype=None):
+def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, ep_axis=None,
+                      remat=False, use_flash: bool = False,
+                      compute_dtype=None):
     """``(embed_fn, stage_fn, head_loss_fn)`` for ``parallel/pp.py``:
-    the dense GPT-2 cut into the embedding (stage 0), this rank's
-    stacked blocks (every stage; ``tp_axis`` a
+    GPT-2 cut into the embedding (stage 0), this rank's stacked blocks
+    (every stage; ``tp_axis`` a
     :class:`~quintnet_tpu_torch.core.mesh.MeshAxis` runs them on its tp
-    shards) and the tied head's CLM loss (the last stage; the chunked
-    loss when ``cfg.loss_chunk > 0``). ``compute_dtype`` casts the
-    parameters each function reads at use, as :func:`gpt2_model_spec`
-    does. The ``generator`` keyword of the embedding and the stage
-    drives dropout; the schedules hand each (micro-batch, stage) its
-    own."""
+    shards, ``ep_axis`` its experts on its ep shard) and the tied head's
+    CLM loss (the last stage; the chunked loss when ``cfg.loss_chunk >
+    0``). A MoE config's ``stage_fn`` returns ``(h, aux)``: the
+    schedules add every stage's aux to the loss. ``compute_dtype`` casts
+    the parameters each function reads at use (the router kept f32), as
+    :func:`gpt2_model_spec` does. The ``generator`` keyword of the
+    embedding and the stage drives dropout; the schedules hand each
+    (micro-batch, stage) its own."""
     if cfg.segment_eos_id is not None:
         raise NotImplementedError(
             "segment_eos_id under pipeline parallelism is not wired "
@@ -373,7 +463,7 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, remat=False,
     _check_mesh_options(cfg, tp_axis)
 
     def part(params, *keys):
-        return cast_floating({k: params[k] for k in keys}, compute_dtype)
+        return _cast_tree({k: params[k] for k in keys}, compute_dtype)
 
     def embed_fn(params, input_ids, generator=None):
         return gpt2_embed(part(params, "embedding"), input_ids,
@@ -381,8 +471,9 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, remat=False,
                           generator=generator if cfg.needs_dropout else None)
 
     def stage_fn(blocks_local, h, generator=None):
-        return gpt2_blocks(cast_floating(blocks_local, compute_dtype), h, cfg,
-                           tp_axis=tp_axis, remat=remat, use_flash=use_flash,
+        return gpt2_blocks(_cast_tree(blocks_local, compute_dtype), h, cfg,
+                           tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
+                           use_flash=use_flash,
                            generator=generator if cfg.needs_dropout else None)
 
     def head_loss_fn(params, h, labels):
@@ -397,58 +488,60 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, remat=False,
 def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
                     compute_dtype=None):
     """The training model: ``init(generator)`` and ``loss_fn(params,
-    batch, generator=None, *, tp_axis=None, fsdp_axis=None)`` over
-    ``batch = (input_ids, labels)``, following the JAX
-    ``gpt2_model_spec``'s dense loss: the chunked CLM loss when
-    ``cfg.loss_chunk > 0``, else the full-logits one. ``generator``
-    drives the dropout masks; ``tp_axis`` runs the blocks on this rank's
-    tp shards (``partition_specs``, ``to_tp_layout``); ``fsdp_axis``
-    (ZeRO-3) on blocks also sharded over it, each layer gathered just
-    before use.
+    batch, generator=None, *, tp_axis=None, fsdp_axis=None,
+    ep_axis=None)`` over ``batch = (input_ids, labels)``, following the
+    JAX ``gpt2_model_spec``'s loss: the chunked CLM loss when
+    ``cfg.loss_chunk > 0``, else the full-logits one, plus the MoE aux
+    loss of a MoE config. ``generator`` drives the dropout masks;
+    ``tp_axis`` runs the blocks on this rank's tp shards
+    (``partition_specs``, ``to_tp_layout``); ``ep_axis`` the experts on
+    this rank's ep shard; ``fsdp_axis`` (ZeRO-3) on blocks also sharded
+    over it, each layer gathered just before use.
 
     On a pp mesh the strategy runs :func:`gpt2_pipeline_fns` instead
     of ``loss_fn``.
 
     ``compute_dtype`` (``torch.bfloat16``; None is f32): the parameters
-    stay f32 and are cast once per ``loss_fn`` call, and that one tree
-    feeds the embedding, the blocks and the tied head, as the JAX
-    ``_cast_tree`` does (``wte``'s two cotangents then add up in the
-    compute dtype before the cast brings them back to f32). Logits and
-    the loss are f32.
+    stay f32 and are cast once per ``loss_fn`` call (the MoE router kept
+    f32), and that one tree feeds the embedding, the blocks and the tied
+    head, as the JAX ``_cast_tree`` does (``wte``'s two cotangents then
+    add up in the compute dtype before the cast brings them back to
+    f32). Logits and the loss are f32.
 
-    Not ported (each raises ``NotImplementedError``, ROADMAP.md §1):
-    MoE configs, ``remat="dots"``, ``vocab_parallel`` under tp."""
+    Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
+    place): ``remat="dots"``, ``vocab_parallel`` under tp."""
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
 
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            "MoE GPT-2 training is not ported (ROADMAP.md §1, item 4)")
     if remat == "dots":
         raise NotImplementedError(
             "remat='dots' is not ported; use remat=True or False "
-            "(ROADMAP.md §1, slice 2)")
+            f"({REMAT_DOTS_ITEM})")
+    cfg.moe_args  # noqa: B018  (refuses expert_choice here, not later)
 
     def loss_fn(params, batch, generator=None, *, tp_axis=None,
-                fsdp_axis=None):
+                fsdp_axis=None, ep_axis=None):
         input_ids, labels = batch
         if tp_axis is not None:
             _check_mesh_options(cfg, tp_axis)
-        p = cast_floating(params, compute_dtype)
-        kw = dict(tp_axis=tp_axis, remat=remat, use_flash=use_flash,
-                  generator=generator,
-                  fsdp=_fsdp_info(cfg, tp_axis, fsdp_axis))
+        p = _cast_tree(params, compute_dtype)
+        kw = dict(tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
+                  use_flash=use_flash, generator=generator,
+                  fsdp=_fsdp_info(cfg, tp_axis, fsdp_axis, ep_axis))
         if cfg.loss_chunk > 0:
-            h = gpt2_hidden(p, input_ids, cfg, **kw)
-            return clm_loss_chunked(p, h, labels, cfg, chunk=cfg.loss_chunk)
-        return clm_loss(gpt2_forward(p, input_ids, cfg, **kw), labels)
+            h, aux = gpt2_hidden(p, input_ids, cfg, **kw)
+            return clm_loss_chunked(p, h, labels, cfg,
+                                    chunk=cfg.loss_chunk) + aux
+        logits, aux = gpt2_forward(p, input_ids, cfg, **kw)
+        return clm_loss(logits, labels) + aux
 
     return ModelSpec(
         init=lambda generator: gpt2_init(generator, cfg),
         loss_fn=loss_fn, depth=cfg.n_layer, needs_rng=cfg.needs_dropout,
-        partition_specs=lambda tp_axis=None, pp_axis=None, fsdp_axis=None:
-            gpt2_partition_specs(cfg, tp_axis=tp_axis, pp_axis=pp_axis,
-                                 fsdp_axis=fsdp_axis),
+        partition_specs=lambda tp_axis=None, pp_axis=None, fsdp_axis=None,
+        ep_axis=None: gpt2_partition_specs(
+            cfg, tp_axis=tp_axis, pp_axis=pp_axis, ep_axis=ep_axis,
+            fsdp_axis=fsdp_axis),
         to_tp_layout=lambda p, tp: gpt2_to_tp_layout(p, cfg, tp),
-        pipeline_fns=lambda tp_axis=None: gpt2_pipeline_fns(
-            cfg, tp_axis=tp_axis, remat=remat, use_flash=use_flash,
-            compute_dtype=compute_dtype))
+        pipeline_fns=lambda tp_axis=None, ep_axis=None: gpt2_pipeline_fns(
+            cfg, tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
+            use_flash=use_flash, compute_dtype=compute_dtype))

@@ -1,6 +1,7 @@
 """Vision Transformer for image classification (MNIST-scale).
 
-Port of ``quintnet_tpu/models/vit.py`` (dense, with the tp hooks).
+Port of ``quintnet_tpu/models/vit.py`` (dense and MoE, with the tp and
+ep hooks).
 Parameters keep the JAX pytree layout::
 
     {"embedding": {"patch": {"w", "b"}, "cls": [1, 1, D],
@@ -13,15 +14,17 @@ so :mod:`quintnet_tpu_torch.bridge` carries JAX weights over leaf for
 leaf. The patch embedding is patchify plus one linear; the blocks are
 pre-LN with a ReLU MLP and plain dense, non-causal attention, as the
 reference runs them (no flash attention: at S = 17 and head dim 16 the
-JAX package uses none either); the head reads the CLS position.
+JAX package uses none either); the head reads the CLS position. With
+``n_experts > 0`` each block's MLP is a MoE FFN (``nn/moe.py``; ViT is
+not causal, so both routers, top-k and expert choice, are allowed) and
+its load-balance loss joins the cross entropy.
 
 With ``tp_axis`` the blocks run on this rank's tp shards
 (:func:`vit_partition_specs`, :func:`vit_to_tp_layout`); the embedding
 and the head are replicated (under ZeRO-3/FSDP the blocks are also
 sharded over dp and gathered layer by layer);
 :func:`vit_pipeline_fns` cuts the model
-into pipeline stages (``parallel/pp.py``). Not ported: MoE ViT
-(``n_experts > 0``: ROADMAP.md §1, item 4).
+into pipeline stages (``parallel/pp.py``).
 """
 
 from __future__ import annotations
@@ -33,6 +36,7 @@ from typing import Optional
 import torch
 
 from quintnet_tpu_torch.nn.attention import mha_init
+from quintnet_tpu_torch.nn.moe import MoEArgs, moe_init
 from quintnet_tpu_torch.nn.layers import (cast_floating, dropout,
                                           layer_norm_apply, layer_norm_init,
                                           linear_apply, linear_init,
@@ -50,8 +54,11 @@ __all__ = ["ViTConfig", "accuracy", "cross_entropy_loss", "vit_apply",
 class ViTConfig:
     """The reference ViT's sizes (``examples/config.yaml``). ``dropout``
     is one rate for the embedding, attention and residual sites (the
-    reference ViT has none: 0.0). ``n_experts > 0`` (MoE) is not
-    ported."""
+    reference ViT has none: 0.0). MoE (``n_experts > 0``):
+    ``expert_top_k``, ``capacity_factor``, ``expert_capacity``,
+    ``aux_loss_weight`` and ``router_type`` (``"topk"`` or
+    ``"expert_choice"``), as :class:`~quintnet_tpu_torch.models.gpt2.
+    GPT2Config` has them."""
 
     image_size: int = 28
     patch_size: int = 7
@@ -63,6 +70,22 @@ class ViTConfig:
     num_classes: int = 10
     dropout: float = 0.0
     n_experts: int = 0
+    expert_top_k: int = 2
+    capacity_factor: float = 1.25
+    expert_capacity: Optional[int] = None
+    aux_loss_weight: float = 1e-2
+    router_type: str = "topk"
+
+    @property
+    def moe_args(self) -> Optional[MoEArgs]:
+        """``nn/moe.MoEArgs`` of this config, or None when dense."""
+        if self.n_experts <= 0:
+            return None
+        return MoEArgs(n_experts=self.n_experts, top_k=self.expert_top_k,
+                       capacity_factor=self.capacity_factor,
+                       capacity=self.expert_capacity,
+                       aux_weight=self.aux_loss_weight,
+                       router=self.router_type)
 
     @property
     def needs_dropout(self) -> bool:
@@ -89,19 +112,11 @@ class ViTConfig:
         return ViTConfig(**d)
 
 
-def _dense_only(cfg: ViTConfig) -> None:
-    if cfg.n_experts > 0:
-        raise NotImplementedError(
-            f"MoE ViT (n_experts={cfg.n_experts}) is not ported: the port's "
-            f"ViT has a dense MLP (ROADMAP.md §1, item 4)")
-
-
 def vit_init(generator: torch.Generator, cfg: ViTConfig):
     """Random f32 ViT params on ``generator.device``, drawn like the JAX
     package's ``vit_init`` (Kaiming-uniform linears, cls and pos ~ N(0,
     0.02), unit LayerNorms) but from torch's RNG — the two never give the
     same numbers, so parity goes through :mod:`quintnet_tpu_torch.bridge`."""
-    _dense_only(cfg)
     dev = generator.device
     L, D = cfg.depth, cfg.hidden_dim
     patch_dim = cfg.patch_size * cfg.patch_size * cfg.in_channels
@@ -119,10 +134,12 @@ def vit_init(generator: torch.Generator, cfg: ViTConfig):
             "ln1": layer_norm_init(D, lead=(L,), device=dev),
             "attn": mha_init(generator, D, lead=(L,)),
             "ln2": layer_norm_init(D, lead=(L,), device=dev),
-            "mlp": {"fc": linear_init(generator, D, cfg.mlp_hidden,
-                                      lead=(L,)),
-                    "proj": linear_init(generator, cfg.mlp_hidden, D,
-                                        lead=(L,))},
+            **({"moe": moe_init(generator, D, cfg.mlp_hidden, cfg.n_experts,
+                                lead=(L,))} if cfg.n_experts > 0 else
+               {"mlp": {"fc": linear_init(generator, D, cfg.mlp_hidden,
+                                          lead=(L,)),
+                        "proj": linear_init(generator, cfg.mlp_hidden, D,
+                                            lead=(L,))}}),
         },
         "head": {
             "ln": layer_norm_init(D, device=dev),
@@ -150,10 +167,12 @@ def vit_head(p_head, x):
 
 
 def vit_forward(params, images, cfg: ViTConfig, *, tp_axis=None,
-                remat=False, compute_dtype=None, generator=None, fsdp=None):
+                ep_axis=None, remat=False, compute_dtype=None,
+                generator=None, fsdp=None):
     """[B, H, W, C] (or [B, C, H, W], detected by the channel count) ->
-    ``(logits [B, num_classes] f32, moe_aux)``; ``moe_aux`` is 0 (the
-    port's ViT is dense). ``generator``: training dropout at
+    ``(logits [B, num_classes] f32, moe_aux)``; ``moe_aux`` is 0 for a
+    dense config, else the blocks' summed load-balance loss (experts on
+    this rank's ep shard with ``ep_axis``). ``generator``: training dropout at
     ``cfg.dropout`` on the embedding, attention and residual sites, drawn
     in that order; None is eval. ``remat=True`` recomputes each block in
     backward (``torch.utils.checkpoint``). ``compute_dtype``
@@ -163,7 +182,6 @@ def vit_forward(params, images, cfg: ViTConfig, *, tp_axis=None,
     rank's tp shards, attention on ``num_heads / tp`` local heads.
     ``fsdp``: ``(axis, gather dims)`` of dp-sharded blocks
     (``stacked_blocks_apply``)."""
-    _dense_only(cfg)
     images = _nhwc(images, cfg)
     if compute_dtype is not None:
         images = images.to(compute_dtype)
@@ -173,12 +191,14 @@ def vit_forward(params, images, cfg: ViTConfig, *, tp_axis=None,
     x = vit_embed(params["embedding"], images, cfg.patch_size,
                   pdrop=cfg.dropout, generator=generator)
     tp = 1 if tp_axis is None else tp_axis.size
-    x = stacked_blocks_apply(
+    out = stacked_blocks_apply(
         params["blocks"], x, num_heads=cfg.num_heads // tp, causal=False,
-        act=torch.relu, tp_axis=tp_axis, remat=remat, attn_pdrop=cfg.dropout,
-        resid_pdrop=cfg.dropout, generator=generator, fsdp=fsdp)
-    logits = vit_head(params["head"], x).float()
-    return logits, torch.zeros((), device=logits.device)
+        act=torch.relu, tp_axis=tp_axis, remat=remat, moe_args=cfg.moe_args,
+        ep_axis=ep_axis, attn_pdrop=cfg.dropout, resid_pdrop=cfg.dropout,
+        generator=generator, fsdp=fsdp)
+    x, aux = out if cfg.n_experts > 0 else (out, torch.zeros(
+        (), device=x.device))
+    return vit_head(params["head"], x).float(), aux
 
 
 def vit_apply(params, images, cfg: ViTConfig, *, tp_axis=None, remat=False,
@@ -200,15 +220,22 @@ def cross_entropy_loss(logits, labels):
 def vit_partition_specs(cfg: Optional[ViTConfig] = None, *,
                         tp_axis: Optional[str] = "tp",
                         pp_axis: Optional[str] = None,
+                        ep_axis: Optional[str] = None,
                         fsdp_axis: Optional[str] = None):
     """The spec tree of :func:`vit_init`'s params (``parallel/tp.py``):
-    the blocks column/row-sharded over ``tp_axis``, their stacked depth
-    over ``pp_axis`` and, with ``fsdp_axis``, one free dim a leaf over it
+    the blocks column/row-sharded over ``tp_axis``, MoE experts over
+    ``ep_axis``, their stacked depth over ``pp_axis`` and, with
+    ``fsdp_axis``, one free dim a leaf over it
     (``parallel/tp.fsdp_shard_specs``); the embedding and the head
     replicated."""
+    from quintnet_tpu_torch.nn.moe import moe_specs
     from quintnet_tpu_torch.parallel.tp import block_specs, fsdp_shard_specs
 
     bspecs = block_specs(tp_axis=tp_axis, stacked=True, pp_axis=pp_axis)
+    if cfg is not None and cfg.n_experts > 0:
+        del bspecs["mlp"]
+        bspecs["moe"] = moe_specs(ep_axis=ep_axis, tp_axis=tp_axis,
+                                  stacked=True, pp_axis=pp_axis)
     if fsdp_axis is not None:
         bspecs = fsdp_shard_specs(bspecs, fsdp_axis)
     return {
@@ -235,14 +262,14 @@ def _nhwc(images, cfg: ViTConfig):
     return images
 
 
-def vit_pipeline_fns(cfg: ViTConfig, *, tp_axis=None, remat=False,
-                     compute_dtype=None):
+def vit_pipeline_fns(cfg: ViTConfig, *, tp_axis=None, ep_axis=None,
+                     remat=False, compute_dtype=None):
     """``(embed_fn, stage_fn, head_loss_fn)`` for ``parallel/pp.py``:
     the patch embedding (stage 0), this rank's stacked blocks (every
-    stage, on its tp shards with ``tp_axis``) and the classifier's cross
-    entropy (the last stage), computing in ``compute_dtype`` as
+    stage, on its tp shards with ``tp_axis``, its experts' ep shard with
+    ``ep_axis``; ``(h, aux)`` for a MoE config) and the classifier's
+    cross entropy (the last stage), computing in ``compute_dtype`` as
     :func:`vit_forward` does."""
-    _dense_only(cfg)
 
     def cast(tree):
         return cast_floating(tree, compute_dtype)
@@ -260,6 +287,7 @@ def vit_pipeline_fns(cfg: ViTConfig, *, tp_axis=None, remat=False,
         return stacked_blocks_apply(
             cast(blocks_local), h, num_heads=cfg.num_heads // tp,
             causal=False, act=torch.relu, tp_axis=tp_axis, remat=remat,
+            moe_args=cfg.moe_args, ep_axis=ep_axis,
             attn_pdrop=cfg.dropout, resid_pdrop=cfg.dropout,
             generator=generator if cfg.needs_dropout else None)
 
@@ -272,7 +300,8 @@ def vit_pipeline_fns(cfg: ViTConfig, *, tp_axis=None, remat=False,
 
 def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
     """The training model: ``loss_fn(params, (images, labels),
-    generator=None, *, tp_axis=None, fsdp_axis=None)`` (cross entropy),
+    generator=None, *, tp_axis=None, fsdp_axis=None, ep_axis=None)``
+    (cross entropy, plus the aux loss of a MoE config),
     ``eval_metrics_fn`` (loss and accuracy, no dropout), both computing
     in ``compute_dtype`` (see :func:`vit_forward`), on one device or on
     this rank's tp (and, with ``fsdp_axis``, dp-sharded) blocks; on a pp
@@ -281,35 +310,37 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
     import functools
 
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
-    from quintnet_tpu_torch.parallel.tp import fsdp_info
+    from quintnet_tpu_torch.parallel.tp import axis_name, fsdp_info
 
-    _dense_only(cfg)
-
-    def fsdp(tp_axis, fsdp_axis):
+    def fsdp(tp_axis, fsdp_axis, ep_axis):
         return fsdp_info(functools.partial(vit_partition_specs, cfg),
-                         fsdp_axis, tp_axis=None if tp_axis is None
-                         else tp_axis.names[0])
+                         fsdp_axis, tp_axis=axis_name(tp_axis),
+                         ep_axis=axis_name(ep_axis))
 
     def loss_fn(params, batch, generator=None, *, tp_axis=None,
-                fsdp_axis=None):
+                fsdp_axis=None, ep_axis=None):
         x, y = batch
-        logits, _ = vit_forward(params, x, cfg, tp_axis=tp_axis,
-                                remat=remat, compute_dtype=compute_dtype,
-                                generator=generator,
-                                fsdp=fsdp(tp_axis, fsdp_axis))
-        return cross_entropy_loss(logits, y)
+        logits, aux = vit_forward(params, x, cfg, tp_axis=tp_axis,
+                                  ep_axis=ep_axis, remat=remat,
+                                  compute_dtype=compute_dtype,
+                                  generator=generator,
+                                  fsdp=fsdp(tp_axis, fsdp_axis, ep_axis))
+        return cross_entropy_loss(logits, y) + aux
 
-    def eval_metrics_fn(params, batch, *, tp_axis=None, fsdp_axis=None):
+    def eval_metrics_fn(params, batch, *, tp_axis=None, fsdp_axis=None,
+                        ep_axis=None):
         x, y = batch
         logits, _ = vit_forward(params, x, cfg, tp_axis=tp_axis,
-                                remat=remat, compute_dtype=compute_dtype,
-                                fsdp=fsdp(tp_axis, fsdp_axis))
+                                ep_axis=ep_axis, remat=remat,
+                                compute_dtype=compute_dtype,
+                                fsdp=fsdp(tp_axis, fsdp_axis, ep_axis))
         return {"loss": cross_entropy_loss(logits, y),
                 "accuracy": accuracy(logits, y)}
 
-    def pipeline_eval_fns(tp_axis=None):
+    def pipeline_eval_fns(tp_axis=None, ep_axis=None):
         embed_fn, stage_fn, _ = vit_pipeline_fns(
-            cfg, tp_axis=tp_axis, remat=remat, compute_dtype=compute_dtype)
+            cfg, tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
+            compute_dtype=compute_dtype)
 
         def head_metrics_fn(params, h, y):
             logits = vit_head(cast_floating(params["head"], compute_dtype),
@@ -323,10 +354,12 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
         init=lambda generator: vit_init(generator, cfg), loss_fn=loss_fn,
         depth=cfg.depth, needs_rng=cfg.needs_dropout,
         eval_metrics_fn=eval_metrics_fn,
-        partition_specs=lambda tp_axis=None, pp_axis=None, fsdp_axis=None:
-            vit_partition_specs(cfg, tp_axis=tp_axis, pp_axis=pp_axis,
-                                fsdp_axis=fsdp_axis),
+        partition_specs=lambda tp_axis=None, pp_axis=None, fsdp_axis=None,
+        ep_axis=None: vit_partition_specs(
+            cfg, tp_axis=tp_axis, pp_axis=pp_axis, ep_axis=ep_axis,
+            fsdp_axis=fsdp_axis),
         to_tp_layout=lambda p, tp: vit_to_tp_layout(p, cfg, tp),
-        pipeline_fns=lambda tp_axis=None: vit_pipeline_fns(
-            cfg, tp_axis=tp_axis, remat=remat, compute_dtype=compute_dtype),
+        pipeline_fns=lambda tp_axis=None, ep_axis=None: vit_pipeline_fns(
+            cfg, tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
+            compute_dtype=compute_dtype),
         pipeline_eval_fns=pipeline_eval_fns)

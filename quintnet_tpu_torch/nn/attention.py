@@ -1,6 +1,7 @@
 """Multi-head attention: the dense causal path and the paged serving path.
 
-Port of ``quintnet_tpu/nn/attention.py`` (tp, no sp).
+Port of ``quintnet_tpu/nn/attention.py`` (tp, no sp), with Llama's
+rotary tables and GQA's ``repeat_kv``.
 The dense half (:func:`sdpa`, :func:`mha_apply`) is the training and
 eval forward: plain attention, or with ``use_flash`` the
 ``ops.flash_attention`` dispatcher (the flash kernels on the card);
@@ -39,6 +40,41 @@ from quintnet_tpu_torch.parallel.tp import row_parallel_linear
 def mha_init(generator: torch.Generator, dim: int, *, lead=()):
     return {"qkv": linear_init(generator, dim, 3 * dim, lead=lead),
             "proj": linear_init(generator, dim, dim, lead=lead)}
+
+
+def rope_cos_sin(positions, head_dim: int, *, theta: float = 10000.0,
+                 inv_freq=None):
+    """Rotary tables for integer ``positions`` [...]: (cos, sin), each
+    [..., head_dim] f32, the half-dim frequencies duplicated (HF Llama's
+    layout: lanes i and i + d/2 share a frequency). ``inv_freq`` [d/2]
+    replaces the plain ``1 / theta^(2i/d)`` (rope scaling:
+    ``models/llama.llama3_scaled_inv_freq``)."""
+    if inv_freq is None:
+        inv_freq = 1.0 / (theta ** (torch.arange(
+            0, head_dim, 2, dtype=torch.float32, device=positions.device)
+            / head_dim))
+    ang = positions.float()[..., None] * inv_freq.to(positions.device)
+    ang = torch.cat([ang, ang], dim=-1)
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, cos, sin):
+    """Rotate [B, H, S, Dh] by tables broadcastable to it ([S, Dh]): HF's
+    rotate_half, computed in f32 and cast back to ``x``'s dtype."""
+    d = x.shape[-1]
+    x1, x2 = x[..., : d // 2], x[..., d // 2:]
+    rotated = torch.cat([-x2, x1], dim=-1)
+    return (x.float() * cos + rotated.float() * sin).to(x.dtype)
+
+
+def repeat_kv(x, n_rep: int):
+    """[B, Hkv, S, Dh] -> [B, Hkv * n_rep, S, Dh] (GQA: each kv head
+    shared by ``n_rep`` query heads; groups contiguous, HF's order)."""
+    if n_rep == 1:
+        return x
+    b, h, s, d = x.shape
+    return x[:, :, None].expand(b, h, n_rep, s, d).reshape(b, h * n_rep,
+                                                           s, d)
 
 
 def _split_heads(qkv, num_heads: int):

@@ -1,7 +1,8 @@
 """Core layers as apply functions over plain parameter dicts.
 
-Port of ``quintnet_tpu/nn/layers.py`` (linear, LayerNorm, GELU, the
-MLP, dropout, ViT's patchify and the mixed-precision cast).
+Port of ``quintnet_tpu/nn/layers.py`` (linear, LayerNorm, RMSNorm,
+GELU, the MLP, Llama's SwiGLU, dropout, ViT's patchify and the
+mixed-precision cast, which keeps the MoE router in f32).
 Conventions carried over: parameters are dicts of tensors in the JAX
 layout — linear weights ``[in, out]`` so the forward is ``x @ w``,
 LayerNorm ``{"scale", "bias"}`` — normalisation runs in f32 whatever
@@ -20,17 +21,38 @@ from quintnet_tpu_torch.core.pytree import tree_map
 from quintnet_tpu_torch.parallel.tp import row_parallel_linear
 
 
-def cast_floating(tree, dtype):
+def cast_floating(tree, dtype, *, exclude=None):
     """Floating-point tensor leaves of ``tree`` cast to ``dtype`` (None
     is a no-op); integer tensors (token ids inside a batch) and python
     numbers pass through. The cast-at-use policy of mixed precision:
     storage stays in f32 master copies, and the cast's backward brings
     each gradient back to the leaf's own dtype. A leaf already in
-    ``dtype`` is returned as it is."""
+    ``dtype`` is returned as it is. ``exclude(path) -> bool`` (``path``
+    the tuple of dict keys down to the leaf) keeps matching leaves at
+    their stored dtype (:func:`keep_router_f32`)."""
     if dtype is None:
         return tree
-    return tree_map(lambda x: x.to(dtype) if torch.is_tensor(x)
-                    and x.is_floating_point() else x, tree)
+
+    def cast(x):
+        return (x.to(dtype) if torch.is_tensor(x) and x.is_floating_point()
+                else x)
+
+    if exclude is None:
+        return tree_map(cast, tree)
+
+    def walk(t, path):
+        if isinstance(t, dict):
+            return {k: walk(v, path + (k,)) for k, v in t.items()}
+        return t if exclude(path) else cast(t)
+
+    return walk(tree, ())
+
+
+def keep_router_f32(path) -> bool:
+    """:func:`cast_floating`'s ``exclude`` pinning the MoE router weights
+    at f32: the order of the gates changes under bf16 rounding
+    (``nn/moe.py``)."""
+    return "router" in path
 
 
 def linear_init(generator: torch.Generator, in_features: int,
@@ -74,6 +96,41 @@ def layer_norm_apply(p, x, *, eps: float = 1e-5):
     var = x32.var(dim=-1, keepdim=True, unbiased=False)
     y = (x32 - mean) * torch.rsqrt(var + eps)
     return (y * p["scale"] + p["bias"]).to(dtype)
+
+
+def rms_norm_init(dim: int, *, device, lead=()):
+    """RMSNorm (Llama): a unit scale, no bias, f32 on ``device``."""
+    return {"scale": torch.ones((*lead, dim), device=device)}
+
+
+def rms_norm_apply(p, x, *, eps: float = 1e-6):
+    """``x * rsqrt(mean(x^2) + eps) * scale``, accumulated in f32 and
+    cast back to the input dtype once (HF Llama's semantics up to the
+    order of the scale and the cast)."""
+    dtype = x.dtype
+    x32 = x.float()
+    y = x32 * torch.rsqrt(x32.square().mean(dim=-1, keepdim=True) + eps)
+    return (y * p["scale"]).to(dtype)
+
+
+def swiglu_init(generator: torch.Generator, dim: int, hidden: int, *,
+                lead=()):
+    """Llama's MLP: gate and up [D, H], down [H, D], no biases,
+    Kaiming-uniform fan-in as :func:`linear_init`."""
+    def w(i, o):
+        return {"w": linear_init(generator, i, o, lead=lead)["w"]}
+
+    return {"gate": w(dim, hidden), "up": w(dim, hidden),
+            "down": w(hidden, dim)}
+
+
+def swiglu_apply(p, x, *, tp_axis=None):
+    """``silu(x @ gate) * (x @ up) @ down``. With ``tp_axis`` (a
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) gate and up are
+    column-sharded [D, H/tp] and down row-sharded [H/tp, D]: one sum over
+    tp after down."""
+    h = F.silu(x @ p["gate"]["w"]) * (x @ p["up"]["w"])
+    return row_parallel_linear(p["down"], h, axis=tp_axis)
 
 
 def dropout(generator, x, rate: float, *, deterministic: bool):

@@ -1,18 +1,20 @@
-"""Pre-LN transformer block (GPT-2): training/eval, paged decode,
+"""Pre-LN transformer block (GPT-2, ViT): training/eval, paged decode,
 paged prefill and paged verify.
 
-Port of ``quintnet_tpu/nn/transformer.py``, dense MLP only, with the
-tp hooks (``tp_axis``) and ZeRO-3/FSDP (``fsdp``: the layer's shards
-gathered just before use); sp and ep are not ported. Block
-parameters arrive as ONE layer's slice of the stacked
-``[L, ...]`` tree (:func:`layer_params`); a Python loop over layers
-stands in for ``lax.scan`` (:func:`stacked_blocks_apply`).
+Port of ``quintnet_tpu/nn/transformer.py`` with the tp hooks
+(``tp_axis``), ZeRO-3/FSDP (``fsdp``: the layer's shards gathered just
+before use) and the MoE FFN (``moe_args``, experts sharded over
+``ep_axis``); sp is not ported. Block parameters arrive as ONE layer's
+slice of the stacked ``[L, ...]`` tree (:func:`layer_params`); a Python
+loop over layers stands in for ``lax.scan`` (:func:`stacked_blocks_apply`,
+which also runs Llama's block through ``body_fn``).
 """
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
+import torch
 from torch.utils.checkpoint import checkpoint
 
 from quintnet_tpu_torch.core import collectives as cc
@@ -20,7 +22,12 @@ from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
 from quintnet_tpu_torch.nn.attention import (mha_apply, mha_decode,
                                              mha_prefill_paged,
                                              mha_verify_paged)
-from quintnet_tpu_torch.nn.layers import gelu, layer_norm_apply, mlp_apply
+from quintnet_tpu_torch.nn.layers import (dropout, gelu, layer_norm_apply,
+                                          mlp_apply)
+from quintnet_tpu_torch.nn.moe import moe_apply
+
+# where the options not ported yet are queued
+REMAT_DOTS_ITEM = "ROADMAP.md §2, K1-K3 still owed, item 4"
 
 
 def layer_params(tree, layer: int):
@@ -49,21 +56,33 @@ def _block_mlp(p, x, *, act, tp_axis=None, pdrop: float = 0.0,
 
 def block_apply(p, x, *, num_heads: int, causal: bool = False,
                 act: Callable = gelu, tp_axis=None, use_flash: bool = False,
+                moe_args=None, ep_axis=None,
                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
                 generator=None, segment_ids=None):
-    """Block forward. ``generator`` turns on training dropout
-    (``attn_pdrop`` on the attention probabilities, ``resid_pdrop`` after
-    the attention and MLP projections); None is eval. ``use_flash``
-    sends attention through ``ops.flash_attention``. ``tp_axis``: the
-    block's shards are tp-sharded (qkv and fc column, the projections
-    row, LayerNorms replicated) and ``num_heads`` is the local count."""
+    """Block forward: ``x`` for a dense block, ``(x, aux_loss)`` with
+    ``moe_args`` (the MLP is then a MoE FFN, ``p["moe"]``, experts
+    sharded over ``ep_axis``; aux is this rank's load-balance term).
+    ``generator`` turns on training dropout (``attn_pdrop`` on the
+    attention probabilities, ``resid_pdrop`` after the attention and MLP
+    projections); None is eval. ``use_flash`` sends attention through
+    ``ops.flash_attention``. ``tp_axis``: the block's shards are
+    tp-sharded (qkv and fc column, the projections row, LayerNorms
+    replicated) and ``num_heads`` is the local count."""
     x = x + mha_apply(p["attn"], layer_norm_apply(p["ln1"], x),
                       num_heads=num_heads, causal=causal, tp_axis=tp_axis,
                       use_flash=use_flash, attn_pdrop=attn_pdrop,
                       resid_pdrop=resid_pdrop, generator=generator,
                       segment_ids=segment_ids)
-    return _block_mlp(p, x, act=act, tp_axis=tp_axis, pdrop=resid_pdrop,
-                      generator=generator)
+    if moe_args is None:
+        return _block_mlp(p, x, act=act, tp_axis=tp_axis, pdrop=resid_pdrop,
+                          generator=generator)
+    y, aux = moe_apply(p["moe"], layer_norm_apply(p["ln2"], x), moe_args,
+                       ep_axis=ep_axis, tp_axis=tp_axis, act=act)
+    if generator is not None and resid_pdrop > 0.0:
+        # after the combine, whose output every tp rank holds whole: the
+        # mask agrees on every tp rank
+        y = dropout(generator, y, resid_pdrop, deterministic=False)
+    return x + y, aux
 
 
 def gather_layer(p, fsdp):
@@ -76,12 +95,20 @@ def gather_layer(p, fsdp):
                                     if dim >= 0 else x), p, dims)
 
 
-def stacked_blocks_apply(stacked_params, x, *, num_heads: int,
+def stacked_blocks_apply(stacked_params, x, *, num_heads: int = 0,
                          causal: bool = False, act: Callable = gelu,
                          tp_axis=None, use_flash: bool = False, remat=False,
+                         moe_args=None, ep_axis=None,
                          attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
-                         generator=None, segment_ids=None, fsdp=None):
+                         generator=None, segment_ids=None, fsdp=None,
+                         body_fn: Optional[Callable] = None):
     """Run a ``[depth, ...]``-stacked block tree layer by layer.
+
+    ``body_fn(layer_params, x, generator)`` replaces the pre-LN block
+    (:func:`block_apply` with the keywords here): Llama's block plugs in
+    and keeps the loop, remat and fsdp. With ``moe_args`` each layer
+    returns ``(x, aux)`` and the result is ``(out, sum of the layers'
+    aux)``.
 
     ``remat=True`` recomputes each block in backward
     (``torch.utils.checkpoint``, non-reentrant), trading compute for
@@ -101,46 +128,59 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int,
     full layers.
 
     ``remat="dots"`` (keep matmul outputs, recompute the rest) is not
-    ported: ROADMAP.md §1, slice 2."""
+    ported: ROADMAP.md §2, K1-K3 still owed, item 4."""
     if remat == "dots":
         raise NotImplementedError(
             "remat='dots' (save matmul outputs, recompute the rest) is not "
-            "ported; use remat=True or False (ROADMAP.md §1, slice 2)")
+            f"ported; use remat=True or False ({REMAT_DOTS_ITEM})")
     if remat not in (True, False):
         raise ValueError(f"unknown remat {remat!r}")
     depth = next(tree_leaves(stacked_params))[1].shape[0]
-    kw = dict(num_heads=num_heads, causal=causal, act=act, tp_axis=tp_axis,
-              use_flash=use_flash, attn_pdrop=attn_pdrop,
-              resid_pdrop=resid_pdrop, segment_ids=segment_ids)
+    if body_fn is None:
+        kw = dict(num_heads=num_heads, causal=causal, act=act,
+                  tp_axis=tp_axis, use_flash=use_flash, moe_args=moe_args,
+                  ep_axis=ep_axis, attn_pdrop=attn_pdrop,
+                  resid_pdrop=resid_pdrop, segment_ids=segment_ids)
+
+        def body_fn(p, x, generator):
+            return block_apply(p, x, generator=generator, **kw)
 
     def apply(p, x, generator):
         if fsdp is not None:
             p = gather_layer(p, fsdp)
-        return block_apply(p, x, generator=generator, **kw)
+        return body_fn(p, x, generator)
 
+    auxes = []
     for p in unstack_layers(stacked_params, depth):
         if not remat:
-            x = apply(p, x, generator)
-            continue
-        state = None if generator is None else generator.get_state()
-        calls = []
+            out = apply(p, x, generator)
+        else:
+            state = None if generator is None else generator.get_state()
+            calls = []
 
-        def body(p, x, state=state, calls=calls):
-            if state is None:
-                return apply(p, x, None)
-            replay = bool(calls)
-            calls.append(1)
-            outer = generator.get_state()
-            generator.set_state(state)
-            try:
-                return apply(p, x, generator)
-            finally:
-                # a recomputation leaves no trace (it may also be cut
-                # short by checkpoint's early stop, which raises)
-                if replay:
-                    generator.set_state(outer)
+            def body(p, x, state=state, calls=calls):
+                if state is None:
+                    return apply(p, x, None)
+                replay = bool(calls)
+                calls.append(1)
+                outer = generator.get_state()
+                generator.set_state(state)
+                try:
+                    return apply(p, x, generator)
+                finally:
+                    # a recomputation leaves no trace (it may also be cut
+                    # short by checkpoint's early stop, which raises)
+                    if replay:
+                        generator.set_state(outer)
 
-        x = checkpoint(body, p, x, use_reentrant=False)
+            out = checkpoint(body, p, x, use_reentrant=False)
+        if moe_args is not None:
+            x, aux = out
+            auxes.append(aux)
+        else:
+            x = out
+    if moe_args is not None:
+        return x, torch.stack(auxes).sum()
     return x
 
 

@@ -27,8 +27,9 @@ one dtype; ``lse`` and ``delta`` float32) with D in ``HEAD_DIMS`` and B x
 H <= 65,535 (:func:`kernel_domain_error`, the one rule both the
 wrappers' checks and the dispatcher of ``ops/flash_attention.py``
 read): the wrappers raise outside it (float16 ``NotImplementedError``,
-ROADMAP.md §2, K1-K3 fp16 tiles), and the dispatcher sends such calls
-to the plain blockwise attention instead, as the JAX dispatcher does.
+ROADMAP.md §2, K1-K3 still owed, item 5), and the dispatcher sends such
+calls to the plain blockwise attention instead, as the JAX dispatcher
+does.
 Each wrapper picks its kernel by dtype (``flash_fwd_f32`` or
 ``flash_fwd_bf16``, ...) and counts its launches in ``.launches`` (all)
 and ``.launches_by_dtype`` (``"f32"``, ``"bf16"``).
@@ -181,8 +182,8 @@ def kernel_domain_error(shape, dtype):
     if dtype == torch.float16:
         return NotImplementedError(
             "the flash-attention kernels take float32 and bfloat16; "
-            "float16 tiles are not ported (ROADMAP.md §2, K1-K3 fp16 "
-            "tiles)")
+            "float16 tiles are not ported (ROADMAP.md §2, K1-K3 still "
+            "owed, item 5: fp16 tiles)")
     if dtype not in KERNEL_DTYPES:
         return TypeError(f"the flash-attention kernels take float32 or "
                          f"bfloat16; got {dtype}")

@@ -13,8 +13,9 @@ in three functions (``models/gpt2.py``, ``models/vit.py``):
 ``generator`` is passed only with dropout: each (micro-batch, stage)
 gets generators seeded from the step generator's seed, so a recomputed
 micro-batch draws the forward's masks again (:func:`_mb_generators`).
-The port's models are dense: a stage returns the activation alone (the
-JAX schedules also carry an MoE auxiliary loss).
+A MoE model's ``stage_fn`` returns ``(h, aux)``, its blocks' load-balance
+loss: every active stage adds its aux / M to the loss, and 1F1B seeds
+its gradient on every stage (:func:`_stage_out`).
 
 Schedules, with JAX's tick algebra (P stages, M micro-batches; stage s
 forwards micro-batch ``t - s`` at tick t):
@@ -102,6 +103,15 @@ def _call_embed(embed_fn, params, x, g):
 def _call_stage(stage_fn, blocks, h, g):
     return stage_fn(blocks, h) if g is None else stage_fn(blocks, h,
                                                           generator=g)
+
+
+def _stage_out(out):
+    """A stage's result as ``(h, aux or None)``: a dense stack returns the
+    activation alone, a MoE stack ``(h, aux)`` (aux as f32)."""
+    if isinstance(out, tuple):
+        h, aux = out
+        return h, aux.float()
+    return out, None
 
 
 def _eval_shape(fn, *args):
@@ -200,7 +210,10 @@ def make_afab_loss_fn(embed_fn: Callable, stage_fn: Callable,
                 g_e, g_s = _mb_generators(generator, m, s)
                 h_in = (_Tie.apply(_call_embed(embed_fn, params, xs[m], g_e),
                                    h_recv) if first else h_recv)
-                h_out = _call_stage(stage_fn, params["blocks"], h_in, g_s)
+                h_out, aux = _stage_out(
+                    _call_stage(stage_fn, params["blocks"], h_in, g_s))
+                if aux is not None:   # every active stage's blocks
+                    local = local + aux / M
             else:
                 h_out = h_recv          # nothing to compute: pass it on
             valid = last and active
@@ -248,7 +261,8 @@ def make_afab_eval_fn(embed_fn: Callable, stage_fn: Callable,
             if active:
                 h_in = _call_embed(embed_fn, params, xs[m], None) if first \
                     else h_recv
-                h_out = _call_stage(stage_fn, params["blocks"], h_in, None)
+                h_out, _ = _stage_out(
+                    _call_stage(stage_fn, params["blocks"], h_in, None))
             else:
                 h_out = h_recv
             valid = last and active
@@ -273,7 +287,9 @@ def make_1f1b_grad_fn(embed_fn: Callable, stage_fn: Callable,
     ``make_parallel_train_step(grad_fn=...)`` with
     ``partial_axes=("pp",)``. The loss is summed over pp (the same on
     every rank); the gradients are this rank's partials, summed over the
-    micro-batches (each micro-batch's loss carries its ``1 / M``).
+    micro-batches (each micro-batch's loss carries its ``1 / M``). A
+    MoE stage's aux loss (``1 / M`` too) is seeded with 1 on every stage
+    at its backward sub-step and summed into the loss over pp.
 
     ``store_activations=False`` (``1f1b``): the backward sub-step reruns
     the micro-batch's forward from its saved stage input under autograd.
@@ -298,15 +314,18 @@ def make_1f1b_grad_fn(embed_fn: Callable, stage_fn: Callable,
         loss_acc = torch.zeros((), device=dev)
 
         def mb_fn(h_recv, m):
-            """One micro-batch on this stage: (stage output, loss / M).
-            The head runs on the last stage only (a SplitHead's reduce
-            part everywhere)."""
+            """One micro-batch on this stage: (stage output, loss / M,
+            aux / M or None). The head runs on the last stage only (a
+            SplitHead's reduce part everywhere); a MoE stage's aux on
+            every stage."""
             g_e, g_s = _mb_generators(generator, m, s)
             h_in = _call_embed(embed_fn, params, xs[m], g_e) if first \
                 else h_recv
-            h_out = _call_stage(stage_fn, params["blocks"], h_in, g_s)
-            return h_out, _apply_head(head_loss_fn, params, h_out, ys[m],
-                                      last) / M
+            h_out, aux = _stage_out(
+                _call_stage(stage_fn, params["blocks"], h_in, g_s))
+            return (h_out, _apply_head(head_loss_fn, params, h_out, ys[m],
+                                       last) / M,
+                    None if aux is None else aux / M)
 
         h_send = g_send = zeros
         for t in range(T):
@@ -319,14 +338,16 @@ def make_1f1b_grad_fn(embed_fn: Callable, stage_fn: Callable,
                 if store_activations:
                     h_in = h_recv.detach().requires_grad_(not first)
                     with torch.enable_grad():
-                        h_out, loss_f = mb_fn(h_in, m_f)
-                    slots[slot] = (h_in, h_out, loss_f)
+                        h_out, loss_f, aux_f = mb_fn(h_in, m_f)
+                    slots[slot] = (h_in, h_out, loss_f, aux_f)
                 else:
                     with torch.no_grad():
-                        h_out, loss_f = mb_fn(h_recv, m_f)
+                        h_out, loss_f, aux_f = mb_fn(h_recv, m_f)
                     slots[slot] = h_recv
                 if last:
                     loss_acc += loss_f.detach()
+                if aux_f is not None:
+                    loss_acc += aux_f.detach()
                 h_send = h_out.detach()
             else:
                 h_send = zeros
@@ -338,14 +359,17 @@ def make_1f1b_grad_fn(embed_fn: Callable, stage_fn: Callable,
             if 0 <= m_b < M:
                 slot = m_b % CAP
                 if store_activations:
-                    h_in, h_out, loss_b = slots[slot]
+                    h_in, h_out, loss_b, aux_b = slots[slot]
                 else:
                     h_in = slots[slot].requires_grad_(not first)
                     with torch.enable_grad():
-                        h_out, loss_b = mb_fn(h_in, m_b)
+                        h_out, loss_b, aux_b = mb_fn(h_in, m_b)
                 slots[slot] = None
                 outs, seeds = (([loss_b], [torch.ones_like(loss_b)]) if last
                                else ([h_out], [g_recv]))
+                if aux_b is not None:     # every stage's own aux
+                    outs, seeds = outs + [aux_b], seeds + [
+                        torch.ones_like(aux_b)]
                 inputs = leaves if first else leaves + (h_in,)
                 gs = torch.autograd.grad(outs, inputs, seeds,
                                          allow_unused=True)

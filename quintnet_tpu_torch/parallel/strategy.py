@@ -1,9 +1,12 @@
 """Strategy facade: which mesh axes take which role, and the train step.
 
 Port of ``quintnet_tpu/parallel/strategy.py`` for the strategies
-``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``, ``tp_pp`` and
-``3d``. A strategy is data: the mesh (one process per rank,
-``core/mesh.py``), the axes the batch is sharded over (``batch_axes``),
+``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``, ``tp_pp``,
+``3d`` and those with expert parallelism, ``ep``, ``dp_ep``, ``ep_tp``,
+``ep_pp`` and ``3d_ep``. A strategy is data: the mesh (one process per
+rank, ``core/mesh.py``), the axes the batch is sharded over
+(``batch_axes``: dp and ep, which is a data axis whose ranks also own
+different experts),
 the axes the model is sharded over, whose loss is computed redundantly
 (``model_axes``), and the pipeline axes (``partial_axes``). With pp the
 step runs ``training.schedule``'s pipeline (``parallel/pp.py``: AFAB,
@@ -11,9 +14,9 @@ step runs ``training.schedule``'s pipeline (``parallel/pp.py``: AFAB,
 micro-batches; a ``zero1_``/``zero2_`` optimizer shards its state over
 dp (``parallel/zero.py``); ``training.fsdp`` (ZeRO-3) stores the blocks
 sharded over dp and gathers each layer just before use, so their
-gradients and Adam moments live sharded too. Every other strategy of
-the JAX package raises ``NotImplementedError`` naming its ROADMAP.md
-item: ep and MoE (§1, item 4), sp (item 6).
+gradients and Adam moments live sharded too. The strategies with sp
+(``sp``, ``dp_sp``, ``4d``, ``5d``) raise ``NotImplementedError`` naming
+ROADMAP.md §1, item 6.
 """
 
 from __future__ import annotations
@@ -45,10 +48,10 @@ STRATEGY_AXES = {
     "4d": ("dp", "tp", "pp", "sp"),
     "5d": ("dp", "tp", "pp", "sp", "ep"),
 }
-PORTED = ("single", "dp", "tp", "pp", "dp_tp", "dp_pp", "tp_pp", "3d")
+PORTED = ("single", "dp", "tp", "pp", "dp_tp", "dp_pp", "tp_pp", "3d",
+          "ep", "dp_ep", "ep_tp", "ep_pp", "3d_ep")
 # the ROADMAP.md item each axis of the strategies still to port waits for
 AXIS_ITEMS = {
-    "ep": "§1, item 4 (MoE expert parallelism)",
     "sp": "§1, item 6 (sequence parallelism)",
 }
 
@@ -68,7 +71,10 @@ class ModelSpec:
     the generator driving training dropout, ``tp_axis`` the tp
     :class:`~quintnet_tpu_torch.core.mesh.MeshAxis` (None without tp)
     and ``fsdp_axis`` the axis the blocks are ZeRO-3-sharded over (None
-    without fsdp); ``depth`` the layer count (pp must divide it);
+    without fsdp); on a mesh with ep > 1 every function below is also
+    handed ``ep_axis`` (the loss, the evaluation and the pipeline
+    functions the ep :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`,
+    the specs its name); ``depth`` the layer count (pp must divide it);
     ``needs_rng`` True when the model uses dropout;
     ``eval_metrics_fn(params, batch, *, tp_axis=None, fsdp_axis=None) ->
     {name: device scalar}`` (optional: ViT gives loss and accuracy);
@@ -150,6 +156,8 @@ class Strategy:
         kw = {}
         if self.fsdp_axis is not None:
             kw["fsdp_axis"] = self.fsdp_axis
+        if self._axis_name("ep") is not None:
+            kw["ep_axis"] = "ep"
         return model.partition_specs(tp_axis=self._axis_name("tp"),
                                      pp_axis=self._axis_name("pp"), **kw)
 
@@ -233,7 +241,7 @@ class Strategy:
         tp_axis = self.axis_or_none("tp")
         if self.uses_pp:
             return None, self._pipeline_eval_fn(model, tp_axis)
-        kw = {}
+        kw = self._ep_kw()
         if tp_axis is not None:
             kw["tp_axis"] = tp_axis
         if self.fsdp_axis is not None:
@@ -250,6 +258,18 @@ class Strategy:
                 return _fn(params, batch, **kw)
         return loss, ev
 
+    def _ep_kw(self) -> dict:
+        """``{"ep_axis": the ep MeshAxis}`` on a mesh with ep > 1, else
+        empty: models without experts never see the keyword."""
+        ep = self.axis_or_none("ep")
+        return {} if ep is None else {"ep_axis": ep}
+
+    def pipeline_fns(self, model: ModelSpec):
+        """The model's ``(embed_fn, stage_fn, head_loss_fn)`` on this
+        rank's tp and ep axes."""
+        return model.pipeline_fns(tp_axis=self.axis_or_none("tp"),
+                                  **self._ep_kw())
+
     def _pipeline_spec(self):
         from quintnet_tpu_torch.parallel.pp import PipelineSpec
 
@@ -263,10 +283,9 @@ class Strategy:
 
         if model.pipeline_eval_fns is not None:
             embed_fn, stage_fn, head = model.pipeline_eval_fns(
-                tp_axis=tp_axis)
+                tp_axis=tp_axis, **self._ep_kw())
         else:
-            embed_fn, stage_fn, loss_head = model.pipeline_fns(
-                tp_axis=tp_axis)
+            embed_fn, stage_fn, loss_head = self.pipeline_fns(model)
             if isinstance(loss_head, SplitHead):
                 head = SplitHead(loss_head.local_fn,
                                  lambda local, y, valid, _r=loss_head.
@@ -313,7 +332,7 @@ class Strategy:
             raise ValueError(f"strategy {self.name!r} needs the model's "
                              f"pipeline_fns")
         validate_pp(model.depth, self.mesh.shape["pp"])
-        fns = model.pipeline_fns(tp_axis=self.axis_or_none("tp"))
+        fns = self.pipeline_fns(model)
         pspec = self._pipeline_spec()
         sched = t.schedule.lower()
         if sched in ("1f1b", "one_f_one_b", "1f1b_stored"):
@@ -360,9 +379,11 @@ def get_strategy(name: Optional[str] = None,
     (``core/runtime.initialize``) with a world of the mesh's size; every
     rank calls this in the same order (it creates the mesh's process
     groups). ``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``,
-    ``tp_pp`` and ``3d`` are ported, with ``training.fsdp`` on the meshes
-    :func:`check_fsdp` allows; the others raise ``NotImplementedError``
-    naming their ROADMAP.md item, unknown names ``ValueError``."""
+    ``tp_pp``, ``3d``, ``ep``, ``dp_ep``, ``ep_tp``, ``ep_pp`` and
+    ``3d_ep`` are ported, with ``training.fsdp`` on the meshes
+    :func:`check_fsdp` allows; those with sp raise
+    ``NotImplementedError`` naming their ROADMAP.md item, unknown names
+    ``ValueError``."""
     config = config or Config.from_dict({})
     sizes = dict(config.mesh.axis_sizes)
     active = tuple(a for a, s in sizes.items() if s > 1)

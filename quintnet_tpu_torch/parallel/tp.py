@@ -231,10 +231,18 @@ def fsdp_info(partition_specs_fn, fsdp_axis, **spec_kw):
     gather dims cannot drift from the sharding."""
     if fsdp_axis is None:
         return None
-    name = fsdp_axis if isinstance(fsdp_axis, str) else fsdp_axis.names[0]
+    name = axis_name(fsdp_axis)
     bspecs = partition_specs_fn(pp_axis=None, fsdp_axis=name,
                                 **spec_kw)["blocks"]
     return fsdp_axis, fsdp_gather_dims(bspecs, name)
+
+
+def axis_name(axis) -> Optional[str]:
+    """The name of an axis given as a name or as this rank's
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis` (None stays None)."""
+    if axis is None or isinstance(axis, str):
+        return axis
+    return axis.names[0]
 
 
 def spec_axes(spec) -> set:

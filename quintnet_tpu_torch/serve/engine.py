@@ -54,17 +54,22 @@ from quintnet_tpu_torch.serve.scheduler import (FINISHED, Request,
 # constructor options of the JAX engine that are still to port, with
 # the ROADMAP.md item each belongs to
 _NOT_PORTED = {
-    "spec": "'Serving features': serve/spec.py (speculative decoding)",
-    "adapters": "'Serving features': serve/adapters.py (multi-LoRA)",
-    "kv_tier_bytes": "'Serving features': serve/kv_tier.py (host KV tier)",
-    "chunked_prefill": "'Serving features': serve/longctx.py (chunked "
-                       "prefill)",
-    "mesh": "'Serving features': tp/sp/ep serving meshes",
-    "sp_axis": "'Serving features': serve/longctx.py (sp prefill)",
-    "ep_axis": "'Serving features': MoE serving",
-    "weights_dtype": "'Serving features': serve/weight_quant.py",
-    "temperature": "'Generation': per-request RNG chain for sampled "
-                   "serving",
+    "spec": "§1, item 7 ('Serving features'): serve/spec.py "
+            "(speculative decoding)",
+    "adapters": "§1, item 7 ('Serving features'): serve/adapters.py "
+                "(multi-LoRA)",
+    "kv_tier_bytes": "§1, item 7 ('Serving features'): serve/kv_tier.py "
+                     "(host KV tier)",
+    "chunked_prefill": "§1, item 7 ('Serving features'): serve/longctx.py "
+                       "(chunked prefill)",
+    "mesh": "§1, item 7 ('Serving features'): tp/sp/ep serving meshes",
+    "sp_axis": "§1, item 7 ('Serving features'): serve/longctx.py "
+               "(sp prefill)",
+    "ep_axis": "§1, item 7 ('Serving features'): MoE serving",
+    "weights_dtype": "§1, item 7 ('Serving features'): "
+                     "serve/weight_quant.py",
+    "temperature": "§1, item 5 ('Generation and sampled serving'): a "
+                   "per-request RNG chain for sampled serving",
     "top_k": "§1, item 5 ('Generation and sampled serving'): top-k "
              "sampling",
     "top_p": "§1, item 5 ('Generation and sampled serving'): top-p "

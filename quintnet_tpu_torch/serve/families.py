@@ -75,8 +75,8 @@ def _pools_out(k_pool, v_pool, kv_scales):
 def gpt2_family(cfg) -> Family:
     if cfg.n_experts > 0:
         raise NotImplementedError(
-            "MoE GPT-2 serving is not ported yet (ROADMAP.md, 'Serving "
-            "features': MoE serving)")
+            "MoE GPT-2 serving is not ported yet (ROADMAP.md §1, item 7, "
+            "'Serving features': MoE serving)")
     if cfg.padded_vocab_size:
         raise NotImplementedError(
             "padded-vocab GPT-2 serving is not ported yet (ROADMAP.md §1, "

@@ -802,19 +802,29 @@ def fsdp_sgd_step(name, kw, np_params, x, y, accum=1, remat=False,
                        for k, v in tree_leaves(params)}}
 
 
-def fsdp_dp2_world_case(rank, world, gpt2_args, sgd_runs, trainer_args):
+def fsdp_dp2_world_case(rank, world, gpt2_args, sgd_runs, trainer_args,
+                        jobs=None):
     """tests/test_torch_fsdp.py's world of 2 ranks (dp = 2, fsdp): the
     GPT-2 AdamW step (:func:`gpt2_mesh_case`), the SGD steps of
     ``sgd_runs`` (tag -> :func:`fsdp_sgd_step`'s arguments: GPT-2 plain,
-    under remat and with accumulation, ViT) and ``Trainer.fit`` with
-    evaluation."""
+    under remat and with accumulation, ViT), ``Trainer.fit`` with
+    evaluation and the ``jobs`` of :func:`jobs_world_case` (Llama)."""
     out = {"gpt2": gpt2_mesh_case(rank, world, *gpt2_args),
            "trainer": trainer_case(rank, world, *trainer_args,
                                    {"fsdp": True})}
     for tag, (name, kw, np_params, x, y, accum, remat) in sgd_runs.items():
         out[tag] = fsdp_sgd_step(name, kw, np_params, x, y, accum, remat,
                                  sizes={"dp": world})
+    out.update(jobs_world_case(rank, world, jobs or {}))
     return out
+
+
+def fsdp_dp4tp2_world_case(rank, world, gpt2_args, jobs):
+    """tests/test_torch_fsdp.py's world of 8 ranks: the GPT-2 AdamW step
+    on dp x tp = 4 x 2 (:func:`gpt2_mesh_case`) and the ``jobs`` of
+    :func:`jobs_world_case` (the MoE GPT-2 on dp x ep = 4 x 2)."""
+    return {"gpt2": gpt2_mesh_case(rank, world, *gpt2_args),
+            **jobs_world_case(rank, world, jobs)}
 
 
 # ---------------------------------------------------------------------
@@ -1118,3 +1128,133 @@ def ckpt_world_case(rank, world, vit_np, data, gpt2_batches, dirs):
     out["truncated"] = _truncated_rank_file(dirs["3d"])
     out["failed_save"] = _failed_save(dirs["failed"], vit_np)
     return out
+
+
+# ---------------------------------------------------------------------
+# Llama and MoE (tests/test_torch_llama.py, tests/test_torch_moe.py and
+# the Llama and MoE cases of tests/test_torch_fsdp.py)
+# ---------------------------------------------------------------------
+
+def family_model(family, kw, *, use_flash=False, remat=False):
+    """The tiny training model of a family: ``GPT2Config.tiny(**kw)``,
+    ``ViTConfig(**kw)`` or ``LlamaConfig.tiny(**kw)``."""
+    if family == "gpt2":
+        from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
+
+        return gpt2_model_spec(GPT2Config.tiny(**kw), use_flash=use_flash,
+                               remat=remat)
+    if family == "vit":
+        from quintnet_tpu_torch.models.vit import ViTConfig, vit_model_spec
+
+        return vit_model_spec(ViTConfig(**kw), remat=remat)
+    from quintnet_tpu_torch.models.llama import LlamaConfig, llama_model_spec
+
+    return llama_model_spec(LlamaConfig.tiny(**kw), use_flash=use_flash,
+                            remat=remat)
+
+
+def family_params(family, np_params):
+    """JAX params (numpy) of a family -> the port's tensors on the CPU."""
+    from quintnet_tpu_torch import bridge
+
+    fn = {"gpt2": bridge.gpt2_params_from_numpy,
+          "vit": bridge.vit_params_from_numpy,
+          "llama": bridge.llama_params_from_numpy}[family]
+    return fn(np_params, "cpu")
+
+
+def strategy_steps(family, kw, np_params, x, y, sizes=None, *,
+                   training=None, steps=1, use_flash=False, more=0):
+    """``steps`` optimizer steps of the tiny model through
+    ``get_strategy`` on the mesh ``sizes`` (one device without), by
+    default SGD at lr 0.05 with no clipping (the JAX goldens'
+    ``optax.sgd(0.05)``): the step losses, ``more`` further step losses,
+    and every parameter gathered whole (in the layout the run holds: the
+    tp-blocked fused QKV of GPT-2 and ViT)."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.parallel.strategy import get_strategy
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
+    from quintnet_tpu_torch.train.trainer import make_optimizer
+
+    d = {"training": {"optimizer": "sgd", "learning_rate": 0.05,
+                      "grad_clip_norm": None, **(training or {})}}
+    if sizes:
+        d.update(mesh_dim=list(sizes.values()), mesh_name=list(sizes))
+    config = Config.from_dict(d)
+    model = family_model(family, kw, use_flash=use_flash)
+    strat = get_strategy(None, config)
+    opt = make_optimizer(config)
+    params = tree_map(lambda t: t.requires_grad_(True), strat.shard_params(
+        model, family_params(family, np_params)))
+    state = strat.init_opt_state(model, opt, params)
+    batch = strat.shard_batch((torch.tensor(x), torch.tensor(y)))
+    step = strat.make_train_step(model, opt)
+    losses = []
+    for _ in range(steps + more):
+        params, state, loss = step(params, state, batch)
+        losses.append(float(loss))
+    specs = dict(tree_leaves(strat.param_specs(model)))
+    return {"strategy": strat.name, "losses": losses[:steps],
+            "more": losses[steps:], "coords": strat.mesh.coords,
+            "fsdp_axis": strat.fsdp_axis,
+            "specs": {".".join(k): v for k, v in specs.items()},
+            "params": {".".join(k): _np(gather_leaf(v.detach(), specs[k],
+                                                    strat.mesh))
+                       for k, v in tree_leaves(params)}}
+
+
+def moe_layer_case(sizes, np_params, x, args_kw, *, tp=False,
+                   replicated_x=False, expert_type="mlp"):
+    """``nn/moe.moe_apply`` on this rank of the mesh ``sizes`` (ep, and
+    tp with ``tp``): the experts this rank's shard, ``x`` [B, T, D] cut to
+    its ep rows (whole with ``replicated_x``). Returns (this rank's
+    output rows, its ep coordinate)."""
+    from quintnet_tpu_torch.core.mesh import mesh_from_sizes
+    from quintnet_tpu_torch.nn.moe import MoEArgs, moe_apply, moe_specs
+    from quintnet_tpu_torch.parallel.tp import shard_leaf
+
+    mesh = mesh_from_sizes(**sizes)
+    specs = moe_specs(ep_axis="ep", tp_axis="tp" if tp else None,
+                      expert_type=expert_type)
+    p = tree_map(lambda a, s: shard_leaf(torch.tensor(a), s, mesh),
+                 np_params, specs)
+    ep = mesh.axis("ep")
+    xt = torch.tensor(x)
+    if not replicated_x:
+        k = xt.shape[0] // ep.size
+        xt = xt[ep.index * k:(ep.index + 1) * k]
+    y, _ = moe_apply(p, xt, MoEArgs(**args_kw), ep_axis=ep,
+                     tp_axis=mesh.axis("tp") if tp else None)
+    return _np(y), ep.index
+
+
+def moe_trainer_case(rank, world, kw, ids, sizes):
+    """``Trainer.fit`` (one epoch of one batch, AdamW lr 1e-3) and its
+    evaluation of a MoE GPT-2 on the mesh ``sizes``."""
+    from quintnet_tpu_torch.core.config import Config
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
+    from quintnet_tpu_torch.train.trainer import Trainer
+
+    config = Config.from_dict({
+        "mesh_dim": list(sizes.values()), "mesh_name": list(sizes),
+        "training": {"batch_size": len(ids), "optimizer": "adamw",
+                     "learning_rate": 1e-3, "epochs": 1, "log_every": 0}})
+    tr = Trainer(config, gpt2_model_spec(GPT2Config.tiny(**kw)),
+                 task_type="clm", device="cpu", log_fn=lambda m: None)
+    t = torch.tensor(ids)
+    hist = tr.fit(lambda ep: [(t, t)], epochs=1,
+                  val_batches_fn=lambda ep: [(t, t)])
+    return {"strategy": tr.strategy.name, "train_loss": hist.train_loss,
+            "val_loss": hist.val_loss}
+
+
+def jobs_world_case(rank, world, jobs):
+    """Every job of ``jobs`` (tag -> (kind, args, kwargs)) in this world,
+    one after the other; kinds: ``"steps"`` (:func:`strategy_steps`),
+    ``"layer"`` (:func:`moe_layer_case`), ``"trainer"``
+    (:func:`moe_trainer_case`)."""
+    run = {"steps": strategy_steps, "layer": moe_layer_case,
+           "trainer": lambda *a, **k: moe_trainer_case(rank, world, *a,
+                                                       **k)}
+    return {tag: run[kind](*args, **kwargs)
+            for tag, (kind, args, kwargs) in jobs.items()}

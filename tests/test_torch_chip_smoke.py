@@ -358,8 +358,10 @@ def test_mesh_runs_of_one_size_share_one_world(tmp_path):
     from quintnet_tpu_torch.core import runtime
 
     assert chip_smoke._mesh_worlds() == {
-        2: ["dp2", "tp2", "fsdp_dp2", "pp2_afab"],
-        4: ["dp2tp2", "fsdp_dp2tp2", "dp2pp2_stored_zero2"],
+        2: ["dp2", "tp2", "fsdp_dp2", "pp2_afab", "llama_tp2",
+            "llama_fsdp_dp2", "llama_moe_ep2"],
+        4: ["dp2tp2", "fsdp_dp2tp2", "dp2pp2_stored_zero2",
+            "llama_dp2pp2_1f1b_zero1", "gpt2_moe_ep2tp2"],
         8: ["3d_1f1b_zero1", "3d_bf16"], "resume": ["3d_ckpt_resume"]}
     jobs, refs = [], {}
     for name in ("fsdp_dp2", "pp2_afab"):
@@ -440,3 +442,121 @@ def test_mesh_3d_checkpoint_resume_on_cpu_ranks(tmp_path):
     assert one["first_difference"] is None and one["leaves"] == 16
     assert one["saved_mesh"] == {"names": ["dp", "tp", "pp"],
                                  "sizes": [2, 2, 2]}
+
+
+# the new mesh runs' models cut to test size (the card's: MESH_MODELS)
+TINY_SEQ = 32
+
+
+def _tiny_model(name):
+    """``MESH_RUNS[name]``'s model family at test size: a 4-layer tiny
+    Llama, a 2-layer tiny Llama-MoE (8 SwiGLU experts, top-2) or a
+    2-layer tiny GPT-2-MoE (8 mlp experts, top-2), the experts' capacity
+    a micro-batch's tokens (dropless), as ``_run_model`` sets it."""
+    import dataclasses
+
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+    from quintnet_tpu_torch.models.llama import LlamaConfig
+
+    run = chip_smoke.MESH_RUNS[name]
+    kind = chip_smoke._run_opts(run)["model"]
+    tokens = run[3] // chip_smoke._ref_micro(run) * TINY_SEQ
+    if kind == "gpt2_moe":
+        return GPT2Config.tiny(n_layer=2, n_experts=8, expert_top_k=2,
+                               expert_capacity=tokens)
+    cfg = LlamaConfig.tiny(n_layers=4)
+    if kind == "llama":
+        return cfg
+    return dataclasses.replace(cfg, n_layers=2, n_experts=8,
+                               expert_capacity=tokens)
+
+
+def _filled_launches(run, ranks, cfg):
+    """Reports as the card gives them: the CPU runs the kernels' plain
+    versions, so the launch counts the card makes are put in (the
+    stage's layers x micro-batches x steps), leaving every other gate to
+    the run."""
+    per_step = chip_smoke._per_step(run, chip_smoke._depth(cfg))
+    for r in ranks:
+        r["launches"] = {k: n * chip_smoke.MESH_STEPS
+                         for k, n in per_step.items()}
+        r["launches"]["paged_attention"] = 0
+        r["launches_by_dtype"] = {k: {"f32": n * chip_smoke.MESH_STEPS}
+                                  for k, n in per_step.items()}
+    return ranks
+
+
+@pytest.mark.parametrize("world", [2, 4])
+def test_llama_and_moe_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch, world):
+    """The slice's mesh runs (llama_tp2, llama_fsdp_dp2, llama_moe_ep2 in
+    a world of 2; llama_dp2pp2_1f1b_zero1 and gpt2_moe_ep2tp2 in a world
+    of 4) on gloo CPU ranks with their models at test size, each against
+    its single-rank reference (the losses with the aux term), through
+    ``_check_mesh_run``'s own gates (MESH_TOL: the first loss, every
+    gradient leaf gathered whole over tp, pp, dp and ep, the step losses,
+    the ZeRO moment chunks, fsdp's half of the blocks, and for the MoE
+    runs every first-batch routing decision equal to the reference's,
+    none dropped)."""
+    import numpy as np
+
+    from quintnet_tpu_torch.core import runtime
+
+    names = [n for n in chip_smoke._mesh_worlds()[world]
+             if n.startswith(("llama", "gpt2_moe"))]
+    jobs, refs, cfgs = [], {}, {}
+    threads = torch.get_num_threads()
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
+    try:
+        for name in names:
+            run = chip_smoke.MESH_RUNS[name]
+            cfgs[name] = cfg = _tiny_model(name)
+            rng = np.random.default_rng(0)
+            host = [(rng.integers(0, 128, (run[3], TINY_SEQ)),) * 2
+                    for _ in range(chip_smoke.MESH_STEPS)]
+            path = str(tmp_path / f"ref_{name}.pt")
+            refs[name] = chip_smoke._mesh_reference(
+                cfg, host, chip_smoke._ref_micro(run), "cpu", path)
+            work = str(tmp_path / name)
+            os.makedirs(work)
+            jobs.append((name, (run, host, path, chip_smoke._model_dict(cfg),
+                                work)))
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.set_num_threads(threads)
+    got = runtime.spawn_world(chip_smoke._mesh_world, world, "cpu", jobs,
+                              timeout=300, store_dir=str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "_smi", lambda: "(no card)")
+    for name in names:
+        run = chip_smoke.MESH_RUNS[name]
+        ranks = _filled_launches(run, [g[name][0] for g in got], cfgs[name])
+        res = chip_smoke._check_mesh_run(name, run, ranks, refs[name],
+                                         cfgs[name])
+        assert res["layers_a_rank"] * dict(zip(run[1], run[0])).get(
+            "pp", 1) == chip_smoke._depth(cfgs[name])
+        for r in ranks:
+            assert r["worst_grad_rel_err"] <= 1e-5      # f32 on the CPU
+            if "moe" in name:
+                assert r["routing"]["agree_share"] == 1.0
+                assert r["routing"]["dropped"] == 0
+                assert r["strategy"] in ("ep", "ep_tp")
+            if name == "llama_fsdp_dp2":
+                assert r["fsdp"] == "dp"
+        np.testing.assert_allclose(ranks[0]["losses"], refs[name]["losses"],
+                                   rtol=1e-5)
+
+
+def test_moe_mesh_model_is_dropless_at_card_size():
+    """The card's MoE runs set the experts' capacity to a micro-batch's
+    token count, so no routing can drop; the reference takes the same
+    micro-batches (ep is a batch axis)."""
+    for name in ("llama_moe_ep2", "gpt2_moe_ep2tp2"):
+        run = chip_smoke.MESH_RUNS[name]
+        cfg = chip_smoke._run_model(run)
+        seq = chip_smoke.MESH_MODELS[chip_smoke._run_opts(run)["model"]][1]
+        sizes = dict(zip(run[1], run[0]))
+        assert chip_smoke._ref_micro(run) == run[2] * sizes["ep"]
+        assert cfg.expert_capacity == run[3] // chip_smoke._ref_micro(
+            run) * seq
+        assert cfg.n_experts == 8 and cfg.expert_top_k == 2
+    assert "all_to_all" in chip_smoke.PROBE_GATED

@@ -18,7 +18,14 @@ gradient accumulation, with ``remat=True`` (equal to the plain fsdp step
 within ``rtol=1e-5, atol=1e-6``) and for the tiny ViT (its loss also
 against JAX's); ``Trainer.fit`` with evaluation under fsdp against the
 single-device Trainer; and JAX's three guards with JAX's exception types
-and messages.
+and messages. The other families (``test_fsdp.py``'s
+``test_fsdp_llama_and_vit_match_single_device`` and
+``test_fsdp_moe_ep_matches_single_device``): the tiny Llama's SGD step
+under fsdp on dp = 2 against JAX's single-device step (loss
+``rtol=1e-5``, parameters ``rtol=2e-4, atol=1e-5``), and the MoE GPT-2's
+on dp x ep = 4 x 2 (the 8-rank world; its expert leaves carry ep AND an
+fsdp dim) against JAX's single-device loss at ``rtol=1e-4``, the JAX
+test's, with the spec transform of every family against JAX's.
 """
 
 import jax
@@ -29,8 +36,8 @@ import pytest
 from jax.sharding import PartitionSpec as P
 
 from _torch_dist import run_world
-from _torch_dist_cases import (VIT_TINY, fsdp_dp2_world_case, fsdp_sgd_step,
-                               gpt2_mesh_case)
+from _torch_dist_cases import (VIT_TINY, fsdp_dp2_world_case,
+                               fsdp_dp4tp2_world_case, fsdp_sgd_step)
 from _torch_mesh_checks import check_gpt2_steps, check_step
 from _torch_mesh_checks import port_single_gpt2_step
 from quintnet_tpu.core.config import Config as JaxConfig
@@ -42,6 +49,7 @@ from quintnet_tpu.models.gpt2 import \
 from quintnet_tpu.models.vit import ViTConfig as JaxViTConfig
 from quintnet_tpu.models.vit import vit_init as jax_vit_init
 from quintnet_tpu.models.vit import vit_model_spec as jax_vit_spec
+from quintnet_tpu.models import llama as jl
 from quintnet_tpu.models.vit import vit_partition_specs as jax_vit_specs
 from quintnet_tpu.parallel import tp as jtp
 from quintnet_tpu.parallel.strategy import get_strategy as jax_get_strategy
@@ -61,6 +69,10 @@ FSDP = {"fsdp": True}
 DP2_RUN = ([2], ["dp"], 1, FSDP)
 DPTP_RUN = ([4, 2], ["dp", "tp"], 1, FSDP)       # __graft_entry__'s dry run
 VIT_KW = dict(VIT_TINY)
+MOE_KW = dict(GPT2_KW, n_experts=4, expert_top_k=2, expert_capacity=4096,
+              aux_loss_weight=0.0)
+SGD = {"optimizer": "sgd", "learning_rate": 0.05, "grad_clip_norm": None,
+       "fsdp": True}
 
 
 def _flat(tree, prefix=()):
@@ -90,8 +102,12 @@ def inputs():
         jax.random.key(0), JaxViTConfig(**VIT_KW)))
     ids, labels = _gpt2_batch()
     x, y = _vit_batch()
+    llama = jax.tree.map(np.asarray, jl.llama_init(
+        jax.random.key(0), jl.LlamaConfig.tiny()))
+    moe = jax.tree.map(np.asarray, jax_gpt2_init(
+        jax.random.key(0), JaxGPT2Config.tiny(**MOE_KW)))
     return {"gpt2": gpt2, "vit": vit, "ids": ids, "labels": labels,
-            "x": x, "y": y,
+            "x": x, "y": y, "llama": llama, "moe": moe,
             "sgd": {"plain": ("gpt2", GPT2_KW, gpt2, ids, labels, 1, False),
                     "remat": ("gpt2", GPT2_KW, gpt2, ids, labels, 1, True),
                     "acc2": ("gpt2", GPT2_KW, gpt2, ids, labels, 2, False),
@@ -102,17 +118,23 @@ def inputs():
 
 @pytest.fixture(scope="module")
 def dp2(inputs, tmp_path_factory):
+    ids = inputs["ids"]
+    jobs = {"llama": ("steps", ("llama", {}, inputs["llama"], ids, ids,
+                                {"dp": 2}), {"training": SGD})}
     return run_world(fsdp_dp2_world_case, 2, tmp_path_factory.mktemp("f2"),
                      (inputs["gpt2"], inputs["ids"], inputs["labels"],
-                      [DP2_RUN]), inputs["sgd"], inputs["trainer"],
+                      [DP2_RUN]), inputs["sgd"], inputs["trainer"], jobs,
                      timeout=240)
 
 
 @pytest.fixture(scope="module")
 def dptp(inputs, tmp_path_factory):
-    return run_world(gpt2_mesh_case, 8, tmp_path_factory.mktemp("f8"),
-                     inputs["gpt2"], inputs["ids"], inputs["labels"],
-                     [DPTP_RUN], timeout=240)
+    ids = inputs["ids"]
+    jobs = {"moe": ("steps", ("gpt2", MOE_KW, inputs["moe"], ids, ids,
+                              {"dp": 4, "ep": 2}), {"training": SGD})}
+    return run_world(fsdp_dp4tp2_world_case, 8, tmp_path_factory.mktemp(
+        "f8"), (inputs["gpt2"], inputs["ids"], inputs["labels"],
+                [DPTP_RUN]), jobs, timeout=240)
 
 
 def _tuples(jax_specs):
@@ -157,7 +179,7 @@ def test_spec_transform_and_gather_dims_match_jax(family, tp_axis):
 def test_fsdp_adamw_step_matches_jax_and_single_device(inputs, dp2, dptp,
                                                        mesh):
     ranks, run = ((dp2, DP2_RUN) if mesh == "dp2" else (dptp, DPTP_RUN))
-    gathered = [r["gpt2"] if mesh == "dp2" else r for r in ranks]
+    gathered = [r["gpt2"] for r in ranks]
     check_gpt2_steps(gathered, inputs["gpt2"], inputs["ids"],
                      inputs["labels"], [run])
     loss, want, want_mu = port_single_gpt2_step(
@@ -189,7 +211,7 @@ def test_params_and_moments_are_sharded(inputs, dp2, dptp, mesh):
     Adam's moment of it sharded the same way; a leaf with no free dim
     (the tp-sharded biases) stays whole."""
     ranks, dp = (([r["gpt2"] for r in dp2], 2) if mesh == "dp2"
-                 else (dptp, 4))
+                 else ([r["gpt2"] for r in dptp], 4))
     full = dict(_flat(inputs["gpt2"]))
     tp = 2 if mesh == "dp4_tp2" else 1
     sharded = 0
@@ -292,3 +314,57 @@ def test_fsdp_guards_match_jax(case):
     with pytest.raises(exc) as got:
         get_strategy(name, Config.from_dict(d))
     assert str(got.value) == str(want.value)
+
+
+def test_fsdp_llama_and_vit_match_single_device(inputs, dp2):
+    """The Llama under fsdp on dp = 2 (the ViT's half is the ``vit`` case
+    of :func:`test_fsdp_sgd_step_matches_single_device`): the step ==
+    JAX's single-device SGD step, loss and parameters."""
+    jp = jax.tree.map(jnp.asarray, inputs["llama"])
+    x = jnp.asarray(inputs["ids"])
+    model = jl.llama_model_spec(jl.LlamaConfig.tiny())
+    loss, g = jax.value_and_grad(model.loss_fn)(jp, (x, x))
+    want = dict(_flat(jax.tree.map(lambda p, d: np.asarray(p - 0.05 * d),
+                                   jp, g)))
+    for r in dp2:
+        got = r["llama"]
+        assert got["strategy"] == "dp" and got["fsdp_axis"] == "dp"
+        assert got["specs"]["blocks.attn.q.w"] == (None, "dp", None)
+        np.testing.assert_allclose(got["losses"], [float(loss)], rtol=1e-5)
+        for k, w in want.items():
+            np.testing.assert_allclose(got["params"][k], w, rtol=2e-4,
+                                       atol=1e-5, err_msg=k)
+
+
+def test_fsdp_moe_ep_matches_single_device(inputs, dptp):
+    """fsdp composes with expert parallelism: every expert leaf carries
+    ep AND an fsdp dim, and the step's loss == JAX's single device."""
+    x = jnp.asarray(inputs["ids"])
+    ref = jax_gpt2_spec(JaxGPT2Config.tiny(**MOE_KW)).loss_fn(
+        jax.tree.map(jnp.asarray, inputs["moe"]), (x, x))
+    for r in dptp:
+        got = r["moe"]
+        assert got["strategy"] == "dp_ep" and got["fsdp_axis"] == "dp"
+        assert got["specs"]["blocks.moe.w1"] == (None, "ep", "dp", None)
+        np.testing.assert_allclose(got["losses"], [float(ref)], rtol=1e-4)
+
+
+@pytest.mark.parametrize("tp_axis", ["tp", None])
+def test_moe_and_llama_spec_transforms_match_jax(tp_axis):
+    """The fsdp spec transform of the MoE GPT-2 (experts over ep) and of
+    the Llama (dense and MoE) blocks, as JAX's."""
+    from quintnet_tpu_torch.models.llama import (LlamaConfig,
+                                                 llama_partition_specs)
+
+    port = gpt2_partition_specs(GPT2Config.tiny(**MOE_KW), tp_axis=tp_axis,
+                                ep_axis="ep", fsdp_axis="dp")
+    jspec = jax_gpt2_specs(JaxGPT2Config.tiny(**MOE_KW), tp_axis=tp_axis,
+                           ep_axis="ep", fsdp_axis="dp")
+    assert port == _tuples(jspec)
+    for kw in ({}, {"n_experts": 4}):
+        port = llama_partition_specs(LlamaConfig.tiny(**kw), tp_axis=tp_axis,
+                                     ep_axis="ep", fsdp_axis="dp")
+        jspec = jl.llama_partition_specs(jl.LlamaConfig.tiny(**kw),
+                                         tp_axis=tp_axis, ep_axis="ep",
+                                         fsdp_axis="dp")
+        assert port == _tuples(jspec)

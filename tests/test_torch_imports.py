@@ -37,7 +37,8 @@ def test_importing_every_module_loads_no_jax():
               "core.runtime", "core.mesh", "core.collectives",
               "parallel.dp", "parallel.tp", "examples.simple_dp",
               "examples.simple_tp", "parallel.pp", "parallel.zero",
-              "examples.simple_pp", "examples.full_3d"):
+              "examples.simple_pp", "examples.full_3d", "models.llama",
+              "nn.moe", "examples.llama_pretrain"):
         assert f"quintnet_tpu_torch.{m}" in mods
     code = (
         "import importlib, json, sys\n"

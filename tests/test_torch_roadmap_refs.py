@@ -1,0 +1,138 @@
+"""Every ROADMAP.md place the port's ``NotImplementedError`` messages name
+exists.
+
+The port refuses what it has not ported yet with a message that names
+where ROADMAP.md queues it: ``§N`` (a ``### N.`` heading of its open
+items), ``§1, item M`` (a numbered item of §1), ``§2, K1-K3 still owed,
+item M`` (the K1-K3 kernels' "Still owed" list in §2) or a quoted item
+title. The messages are read from the sources (the string constants
+inside each ``NotImplementedError(...)`` call, with the module-level
+string constants they name) and from the tables the engine and the
+strategy build theirs from; ROADMAP.md's headings and numbered items are
+parsed, and each named place must be there.
+"""
+
+import ast
+import re
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PKG = ROOT / "quintnet_tpu_torch"
+PLACE = re.compile(r"§\s*(\d+)(?:,?\s*(?:K1-K3 still owed,\s*)?item\s+"
+                   r"(\d+))?|'([^']+)'")
+
+
+def _roadmap():
+    """(sections {N: text}, §1 item titles {M: title}, the K1-K3 still
+    owed items {M: title}) of ROADMAP.md's open items."""
+    text = (ROOT / "ROADMAP.md").read_text()
+    parts = re.split(r"^### (\d+)\. .*$", text, flags=re.M)
+    sections = {int(n): body for n, body in zip(parts[1::2], parts[2::2])}
+    items = {int(m): t for m, t in re.findall(
+        r"^(\d+)\. \*\*(.+?)\*\*", sections.get(1, ""), flags=re.M)}
+    k13 = sections.get(2, "").split("- **K4")[0]
+    owed = k13.split("Still owed")[-1] if "Still owed" in k13 else ""
+    still = {int(m): t for m, t in re.findall(
+        r"^\s+(\d+)\. \*\*(.+?)\*\*", owed, flags=re.M)}
+    return sections, items, still
+
+
+def _strings(node, consts):
+    """Every string in ``node``'s subtree, module-level string constants
+    it names included."""
+    out = []
+    for n in ast.walk(node):
+        if isinstance(n, ast.Constant) and isinstance(n.value, str):
+            out.append(n.value)
+        elif isinstance(n, ast.Name) and n.id in consts:
+            out.append(consts[n.id])
+    return " ".join(out)
+
+
+def _messages():
+    """(file, message) of every NotImplementedError the port builds
+    whose text names ROADMAP.md, and the entries of the engine's and the
+    strategy's tables of items."""
+    out = []
+    for path in sorted(PKG.rglob("*.py")):
+        tree = ast.parse(path.read_text())
+        consts = {t.id: n.value.value for n in tree.body
+                  if isinstance(n, ast.Assign)
+                  and isinstance(n.value, ast.Constant)
+                  and isinstance(n.value.value, str)
+                  for t in n.targets if isinstance(t, ast.Name)}
+        for n in ast.walk(tree):
+            if (isinstance(n, ast.Call) and isinstance(n.func, ast.Name)
+                    and n.func.id == "NotImplementedError"):
+                msg = " ".join(_strings(n, consts).split())
+                dynamic = any(isinstance(f, ast.FormattedValue)
+                              for f in ast.walk(n))
+                # a place filled in at run time comes from a table
+                # checked below
+                if "ROADMAP" in msg and (_places(msg) or not dynamic):
+                    out.append((str(path.relative_to(ROOT)), msg))
+    from quintnet_tpu_torch.parallel.strategy import AXIS_ITEMS
+    from quintnet_tpu_torch.serve.engine import _NOT_PORTED
+
+    for table, entries in (("engine", _NOT_PORTED), ("strategy", AXIS_ITEMS)):
+        out += [(table, "ROADMAP.md, " + v) for v in entries.values()]
+    return out
+
+
+def _places(msg):
+    """The places one message names: ("§", N), ("item", N, M) and
+    ("title", text)."""
+    tail = msg.split("ROADMAP.md", 1)[1]
+    tail = tail.split(")")[0] if "(" not in tail.split(")")[0] else tail
+    found = []
+    for sec, item, title in PLACE.findall(tail):
+        if title:
+            found.append(("title", title))
+        elif item:
+            owed = "still owed" in tail
+            found.append(("owed" if owed else "item", int(sec), int(item)))
+        else:
+            found.append(("§", int(sec)))
+    return found
+
+
+def test_messages_are_found():
+    msgs = _messages()
+    files = {f for f, _ in msgs}
+    for want in ("quintnet_tpu_torch/nn/transformer.py",
+                 "quintnet_tpu_torch/models/gpt2.py",
+                 "quintnet_tpu_torch/models/llama.py",
+                 "quintnet_tpu_torch/ops/flash_kernels.py",
+                 "quintnet_tpu_torch/serve/families.py", "strategy",
+                 "engine"):
+        assert want in files, sorted(files)
+    assert all(_places(m) for _, m in msgs), [
+        m for _, m in msgs if not _places(m)]
+
+
+@pytest.mark.parametrize("where,msg", _messages())
+def test_every_named_roadmap_place_exists(where, msg):
+    sections, items, still = _roadmap()
+    titles = list(items.values()) + list(still.values())
+    for place in _places(msg):
+        if place[0] == "title":
+            assert any(t.startswith(place[1]) for t in titles), (
+                where, msg, place)
+            continue
+        assert place[1] in sections, (where, msg, place)
+        if place[0] == "item":
+            assert place[1] == 1 and place[2] in items, (where, msg, place)
+        if place[0] == "owed":
+            assert place[1] == 2 and place[2] in still, (where, msg, place)
+
+
+def test_remat_dots_points_at_the_k1_k3_item():
+    """``remat="dots"`` is queued as the K1-K3 kernels' still-owed item
+    about it (the message once named a section that no longer exists)."""
+    from quintnet_tpu_torch.nn.transformer import REMAT_DOTS_ITEM
+
+    _, _, still = _roadmap()
+    (place,) = _places(REMAT_DOTS_ITEM)
+    assert place[0] == "owed" and "remat" in still[place[2]]

@@ -11,10 +11,11 @@ assert the strategy name). The pp strategies (``pp``, ``dp_pp``,
 are built on gloo worlds of 2, 4 and 8 CPU ranks here, each held to the
 roles JAX's ``get_strategy`` gives the same config (``batch_axes``,
 ``model_axes``, ``partial_axes``, ``zero1_axis``, ``zero_stage``), as
-are ``training.fsdp`` on dp and dp x tp (``fsdp_axis``). Every strategy
-that needs sp or ep raises ``NotImplementedError`` naming its ROADMAP.md
-item, and fsdp under pp JAX's ``NotImplementedError``, before any
-process group is touched.
+are ``training.fsdp`` on dp and dp x tp (``fsdp_axis``) and the ep
+strategies (``ep``, ``dp_ep``, ``ep_tp``, ``ep_pp``: ep is a batch
+axis). Every strategy that needs sp raises ``NotImplementedError``
+naming its ROADMAP.md item (a mesh with ep and sp too), and fsdp under
+pp JAX's ``NotImplementedError``, before any process group is touched.
 """
 
 import numpy as np
@@ -41,7 +42,7 @@ def _cfg(sizes, **training):
 def test_strategy_names_are_jax_names():
     assert STRATEGY_AXES == JAX_AXES
     assert PORTED == ("single", "dp", "tp", "pp", "dp_tp", "dp_pp", "tp_pp",
-                      "3d")
+                      "3d", "ep", "dp_ep", "ep_tp", "ep_pp", "3d_ep")
 
 
 def test_single_on_one_device():
@@ -64,6 +65,12 @@ PORTED_CASES = {
     "pp_by_name_on_one_device": ("pp", {"dp": 1}, {}),
     "fsdp_dp": ("dp", {"dp": 2}, {"fsdp": True}),
     "fsdp_dp_tp": ("dp_tp", {"dp": 2, "tp": 2}, {"fsdp": True}),
+    "ep": ("ep", {"ep": 2}, {}),
+    "dp_ep": ("dp_ep", {"dp": 2, "ep": 2}, {}),
+    "ep_tp": ("ep_tp", {"ep": 2, "tp": 2}, {}),
+    "ep_pp_1f1b": ("ep_pp", {"ep": 2, "pp": 2}, {"schedule": "1f1b"}),
+    "auto_ep_zero1": (None, {"dp": 2, "ep": 2},
+                      {"optimizer": "zero1_adamw"}),
 }
 
 
@@ -107,12 +114,15 @@ def test_pp_and_zero_strategies_take_jax_roles(roles, case):
 
 # case id -> (strategy, mesh, training, what the NotImplementedError
 # says): the ROADMAP.md item of a strategy still to port; fsdp is ported
-# and refused only under pp, with JAX's message
+# and refused only under pp, with JAX's message. ep is ported: its cases
+# are meshes that have sp as well (4d and 5d), refused for the sp.
 NOT_PORTED = {
     "sp": ("sp", {"sp": 2}, {}, "ROADMAP.md, §1, item 6"),
     "dp_sp": (None, {"dp": 2, "sp": 2}, {}, "ROADMAP.md, §1, item 6"),
-    "ep": ("ep", {"ep": 2}, {}, "ROADMAP.md, §1, item 4"),
-    "dp_ep": ("dp_ep", {"dp": 2, "ep": 2}, {}, "ROADMAP.md, §1, item 4"),
+    "ep": ("5d", {"dp": 2, "tp": 2, "pp": 2, "sp": 2, "ep": 2}, {},
+           "ROADMAP.md, §1, item 6"),
+    "dp_ep": (None, {"dp": 2, "ep": 2, "sp": 2}, {},
+              "ROADMAP.md, §1, item 6"),
     "fsdp": ("dp_pp", {"dp": 2, "pp": 2}, {"fsdp": True},
              "fsdp under pipeline parallelism is not wired"),
 }

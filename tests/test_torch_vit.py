@@ -15,6 +15,7 @@ and its reason as in ``tests/test_torch_train.py``); measured worst
 1.08 (``head.fc.b``, reference width), the tiny model's loss equal.
 """
 
+import dataclasses
 from pathlib import Path
 
 import jax
@@ -302,12 +303,24 @@ def test_init_matches_the_jax_layout_and_statistics():
 
 @pytest.mark.parametrize("where", ["spec", "init", "forward"])
 def test_moe_vit_raises_naming_roadmap(where):
+    """MoE ViT was refused (ROADMAP.md §1, item 4) until it was ported:
+    the spec, init and forward now take it, and the one thing left to
+    raise is a router nobody defines (``ValueError``, as in JAX)."""
     cfg = ViTConfig(n_experts=4, **TINY)
-    call = {"spec": lambda: vit_model_spec(cfg),
-            "init": lambda: vit_init(torch.Generator(), cfg),
-            "forward": lambda: vit_apply({}, torch.zeros(1, 28, 28, 1), cfg)}
-    with pytest.raises(NotImplementedError, match="ROADMAP.md §1, item 4"):
-        call[where]()
+    params = vit_init(torch.Generator().manual_seed(0), cfg)
+    images = torch.zeros(2, cfg.image_size, cfg.image_size, 1)
+    if where == "spec":
+        assert vit_model_spec(cfg).partition_specs(ep_axis="ep")[
+            "blocks"]["moe"]["w1"] == (None, "ep", None, None)
+    elif where == "init":
+        assert tuple(params["blocks"]["moe"]["w1"].shape) == (
+            cfg.depth, 4, cfg.hidden_dim, cfg.mlp_hidden)
+        assert "mlp" not in params["blocks"]
+    else:
+        assert vit_apply(params, images, cfg).shape == (2, 10)
+    with pytest.raises(ValueError, match="unknown router"):
+        vit_apply(params, images, dataclasses.replace(cfg,
+                                                      router_type="nope"))
 
 
 def test_config_from_the_reference_model_block():
