@@ -73,6 +73,27 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    running) against the device's busy time and the kernel's time
    (``torch.profiler``, next steps; K4's device kernels found by symbol,
    ``PAGED_SYMBOLS``, n_layer decode kernels a step or the run fails).
+2b. **serve_sampled** — the same script through a sampled engine
+   (temperature 0.8, top-k 50, top-p 0.95, f32 pool; each request at
+   its rid's seed, the engine's default), counts zeroed just before and
+   read just after: K4 as the serve phase counts it; a fresh engine
+   gives the same streams bit for bit, and so does one whose pool (48
+   blocks) is too small for the script's working set (it must preempt);
+   each stream equals the port's ``gpt2_generate`` of its prompt at its
+   seed on the card up to the first position where the two best
+   perturbed scores (filtered logits / T + the chain's noise, from the
+   dense forward) lie within ``F32_GAP`` (reported; anywhere else
+   fails); the chain's integers for one [8, 50,257] draw equal the
+   CPU's bit for bit. Prints the steady sampled decode step beside the
+   greedy one (``_kernel_share``).
+2c. **generate** — the dense decoders (plain attention, as JAX's: no
+   kernel launches): greedy ``gpt2_generate`` on 2 prompts of 64 (32
+   new tokens) against the greedy engine's streams under the serve
+   phase's near-tie rule; ``gpt2_beam_search`` at beams 1 equal to
+   greedy and at beams 4 scoring at least greedy's teacher-forced
+   log-probability; Llama-3.2-1B uncut (seed 0): ``llama_prefill``'s
+   last logits within 1e-4 of ``llama_apply``'s on 4 x 128 prompts, and
+   ``llama_generate`` greedy for 16 new tokens.
 3. **serve_kv** — the same script once per KV layout policy
    (fake_quant, int8, bf16, fp8), each run's counts zeroed just before
    it: every launch is the policy's kernel variant, n_layer x (decode
@@ -101,6 +122,17 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    next steps under ``torch.profiler`` the device's busy time and the
    three kernels' share of the step (each kernel's profiled launches a
    step must be n_layer x micro-batches).
+4a. **lora_train** — LoRA (rank 8, alpha 16, targets qkv/proj/fc) over
+   frozen GPT-2 124M f32 weights (seed 0) on the train phase's data
+   (64 rows of 512 in 2 micro-batches), attention through the flash
+   dispatcher: the first batch's adapter gradients through K1-K3 against
+   plain attention (every adapter made non-trivial first), each leaf
+   within 1e-5 of its largest magnitude; then the main path, 2 Adam
+   steps of ``make_lora_train_step`` from zero-init ``b`` (counts zeroed
+   just before, read just after: each of K1-K3 12 x 2 x 2, none
+   routed); every base parameter unchanged bit for bit; the step time,
+   the adapters' Adam state beside a full finetune's, ``save_lora`` /
+   ``load_lora`` bit for bit, and the merged model generating.
 4b. **train_bf16** — the same model, data, optimizer and shapes with
    ``training.dtype: bfloat16`` (the f32 master weights cast to bf16 at
    use) and ``adam_mu_dtype: bfloat16``: the first batch's loss and
@@ -179,7 +211,8 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    context paid once a size, not once a run): dp2 (one micro-batch of 32 a
    rank: every step loss, parameter and both Adam moments equal to the
    reference bit for bit), tp2 (2 micro-batches of 32, 6 heads a rank;
-   since slice 14 dp2, tp2 and fsdp_dp2 are cut to 6 layers, for the
+   since slice 14 dp2, tp2 and fsdp_dp2 are cut to 6 layers, and since
+   slice 15 dp2 x tp2, fsdp_dp2tp2, pp2 and dp2 x pp2 too, for the
    script's time limit),
    dp2 x tp2 (16 rows, 4 a rank and micro-batch), fsdp_dp2 and
    fsdp_dp2tp2 (the same two meshes with ``training.fsdp``: the blocks
@@ -187,7 +220,7 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    holds half of its blocks; on dp alone the dp2 gate, bit for bit; with
    tp the tp gates and both moments, gathered whole, within 1e-3 of the
    reference's), and the pipelines on 16 rows in 4 micro-batches a
-   rank: pp2 with AFAB (6 layers a rank), dp2 x pp2 with
+   rank: pp2 with AFAB (3 layers a rank), dp2 x pp2 with
    ``1f1b_stored`` and ``zero2_adamw``, dp2 x tp2 x pp2 (the finetune
    config's mesh; its three runs cut to 6 layers, 3 a stage, since
    slice 14) with ``1f1b`` and ``zero1_adamw`` (tp, pp and fsdp: the
@@ -230,9 +263,13 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    restore seconds and the step's bytes are printed. A rank that raises
    or dies fails the phase.
 
-Then one JSON line of per-kernel numbers (K4 once per variant the
-serve phases launched and path; K1-K3 in f32 with the train, resume,
-llama_train and llama_packed phases' launches and every f32 mesh rank's
+Then one JSON line of each phase's wall seconds (the mesh phase's
+single-rank references also on a line of their own), one of
+per-kernel numbers (K4 once per variant the
+serve phases launched and path, the f32 pool's with the serve and
+serve_sampled runs' launches; K1-K3 in f32 with the train, lora_train,
+resume, llama_train and llama_packed phases' launches and every f32 mesh
+rank's
 together, in bf16 with the train_bf16 and llama_train_bf16 phases' and
 the 3d_bf16 ranks'), the card's name and power
 limit (``nvidia-smi``), and as the last line
@@ -1400,6 +1437,298 @@ def phase_serve():
 
 
 # ---------------------------------------------------------------------
+# phase 2b: sampled serving through K4
+# ---------------------------------------------------------------------
+
+SAMPLED = {"temperature": 0.8, "top_k": 50, "top_p": 0.95}
+# the preemption run's pool: 47 usable blocks of 16 hold any one request
+# of the script (27 blocks at most) but not its working set (~95)
+PREEMPT_BLOCKS = 48
+
+
+def _sampled_engine(params, cfg, num_blocks=320):
+    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
+
+    eng = ServeEngine(gpt2_family(cfg), params, device=DEVICE, max_slots=8,
+                      block_size=16, num_blocks=num_blocks, kv_dtype="f32",
+                      **SAMPLED)
+    eng.warmup()
+    torch.cuda.synchronize()
+    return eng
+
+
+def _perturbed_gap(params, cfg, seq, t0, i, seed):
+    """The gap between the two best perturbed scores (filtered logits /
+    T + the chain's noise) the dense forward gives request token ``i``:
+    teacher-forced over ``seq[:t0 + i]``, drawn at (``seed``, ``i``)."""
+    from quintnet_tpu_torch.models.gpt2 import gpt2_apply
+    from quintnet_tpu_torch.models.gpt2_generate import (chain_gumbel,
+                                                         filter_logits)
+
+    ids = torch.from_numpy(seq[:t0 + i].astype(np.int64)).to(DEVICE)[None]
+    with torch.no_grad():
+        logits = gpt2_apply(params, ids, cfg)[:, -1]
+    scores = filter_logits(logits, **SAMPLED) + chain_gumbel(
+        [seed], [i], logits.shape[-1], logits.device)
+    top2 = torch.topk(scores[0], 2).values
+    return float(top2[0] - top2[1])
+
+
+def _check_sampled_vs_dense(params, cfg, eng, rids, prompts):
+    """Each request's sampled stream against the port's dense decoder,
+    ``gpt2_generate`` of its prompt at its seed (the rid, the engine's
+    default) on the card: equal up to the first position where the two
+    best perturbed scores lie within the serve phase's near-tie gap
+    (``F32_GAP``); a divergence anywhere else fails. Returns (tokens
+    agreeing, tokens compared, divergences)."""
+    from quintnet_tpu_torch.models.gpt2_generate import gpt2_generate
+
+    agree, compared, diverged = 0, 0, []
+    for rid, prompt in zip(rids, prompts):
+        out = eng.result(rid)
+        gen = out[len(prompt):]
+        dense = gpt2_generate(params, prompt[None], cfg,
+                              max_new_tokens=len(gen), seed=rid,
+                              **SAMPLED)[0, len(prompt):]
+        diff = np.nonzero(gen != dense)[0]
+        n = len(gen) if diff.size == 0 else int(diff[0])
+        agree += n
+        compared += len(gen)
+        if diff.size:
+            gap = _perturbed_gap(params, cfg, out, len(prompt), n, rid)
+            diverged.append({"rid": rid, "step": n, "engine": int(gen[n]),
+                             "dense": int(dense[n]),
+                             "perturbed_top2_gap": gap})
+            if gap >= F32_GAP:
+                raise AssertionError(
+                    f"request {rid} step {n}: sampled engine token "
+                    f"{int(gen[n])} != dense decoder {int(dense[n])} with "
+                    f"perturbed top-2 gap {gap} (>= {F32_GAP})")
+    return agree, compared, diverged
+
+
+def _first_divergence(a, b):
+    """(request index, position) of the first token two runs' streams
+    differ at, or None."""
+    for r, (x, y) in enumerate(zip(a, b)):
+        if not np.array_equal(x, y):
+            n = min(len(x), len(y))
+            d = np.nonzero(x[:n] != y[:n])[0]
+            return r, int(d[0]) if d.size else n
+    return None
+
+
+def _chain_card_equals_cpu():
+    """One step's [8, 50,257] draw of the chain's integers on the card and
+    on the CPU, bit for bit."""
+    from quintnet_tpu_torch.models.gpt2_generate import chain_bits
+
+    seeds, ctr = list(range(8)), [0, 1, 5, 31, 32, 100, 999, 7]
+    card = chain_bits(seeds, ctr, 50257, DEVICE).cpu()
+    cpu = chain_bits(seeds, ctr, 50257, "cpu")
+    if not torch.equal(card, cpu):
+        raise AssertionError(
+            f"the chain's integers differ card vs CPU at "
+            f"{int((card != cpu).sum())} of {cpu.numel()}")
+    return cpu.numel()
+
+
+def phase_serve_sampled(params, cfg, greedy):
+    """``_serve_script`` through a sampled engine (``SAMPLED``, f32 pool,
+    each request at its rid's seed): K4 launches as the serve phase
+    counts them, the streams reproduced by a fresh engine bit for bit
+    and by one whose pool is too small (preemptions) bit for bit, held
+    to the dense decoder up to near-ties, the chain's integers card ==
+    CPU, and the steady sampled decode step beside the greedy one
+    (``greedy``: the serve phase's result)."""
+    eng = _sampled_engine(params, cfg)
+    _zero_counts()
+    rids, prompts, steps, rng = _serve_script(eng, cfg)
+    counts = _counts()
+    launches = _launches()
+    _check_serve_run(eng, cfg, rids, launches)
+    streams = [eng.result(r) for r in rids]
+
+    again = _sampled_engine(params, cfg)
+    rids2, _, _, _ = _serve_script(again, cfg)
+    div = _first_divergence(streams, [again.result(r) for r in rids2])
+    if div is not None:
+        raise AssertionError(f"sampled streams not reproduced by a fresh "
+                             f"engine: request {div[0]}, token {div[1]}")
+    del again
+    small = _sampled_engine(params, cfg, num_blocks=PREEMPT_BLOCKS)
+    rids3, _, _, _ = _serve_script(small, cfg)
+    preempted = small.metrics.preempted
+    if preempted < 1:
+        raise AssertionError(f"the {PREEMPT_BLOCKS}-block pool preempted "
+                             f"nothing")
+    div = _first_divergence(streams, [small.result(r) for r in rids3])
+    if div is not None:
+        raise AssertionError(
+            f"preempted run differs from the uninterrupted one: request "
+            f"{div[0]}, token {div[1]} ({preempted} preemptions)")
+    del small
+
+    agree, compared, diverged = _check_sampled_vs_dense(params, cfg, eng,
+                                                        rids, prompts)
+    noise = _chain_card_equals_cpu()
+    res = {"phase": "serve_sampled",
+           "model": "gpt2-124M (random init, seed 0)", "kv_dtype": "f32",
+           "sampling": SAMPLED, "seeds": "each request's rid",
+           "launches": counts, "launches_by_variant":
+           launches["by_variant"], "launches_by_path": launches["by_path"],
+           "reproduced_by_fresh_engine": True,
+           "preemption_run": {"num_blocks": PREEMPT_BLOCKS,
+                              "preemptions": preempted, "streams_equal":
+                              True},
+           "tokens_agreeing_with_dense": agree,
+           "tokens_compared_with_dense": compared,
+           "divergences_at_near_ties": diverged,
+           "chain_integers_card_equal_cpu": noise}
+    res.update(_serve_numbers(eng, rids, prompts, steps))
+    share = _kernel_share(eng, cfg, rng)
+    res.update(share)
+    res["decode_step_ms_sampled_vs_greedy"] = [share["decode_step_ms"],
+                                               greedy["decode_step_ms"]]
+    _emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------
+# phase 2c: the dense decoders (greedy, beam search; Llama-3.2-1B)
+# ---------------------------------------------------------------------
+
+GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW = 2, 64, 32
+LLAMA_GEN_ROWS, LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 4, 128, 16
+
+
+def _greedy_gap_check(params, cfg, seq, t0, i):
+    """The dense top-2 logit gap at request token ``i`` (teacher-forced
+    over ``seq[:t0 + i]``)."""
+    from quintnet_tpu_torch.models.gpt2 import gpt2_apply
+
+    ids = torch.from_numpy(seq[:t0 + i].astype(np.int64)).to(DEVICE)[None]
+    with torch.no_grad():
+        top2 = torch.topk(gpt2_apply(params, ids, cfg)[0, -1], 2).values
+    return float(top2[0] - top2[1])
+
+
+def _seq_logprob(params, cfg, rows, t0):
+    """Teacher-forced log-probability of each row's tokens after ``t0``."""
+    from quintnet_tpu_torch.models.gpt2 import gpt2_apply
+
+    full = torch.from_numpy(rows.astype(np.int64)).to(DEVICE)
+    with torch.no_grad():
+        logp = torch.log_softmax(gpt2_apply(params, full, cfg), dim=-1)
+    tok = logp[:, :-1].gather(2, full[:, 1:, None])[:, :, 0]
+    return tok[:, t0 - 1:].sum(dim=1).cpu().numpy()
+
+
+def phase_generate(params, cfg):
+    """GPT-2 124M's dense decoders on the card: greedy ``gpt2_generate``
+    (2 prompts of 64, 32 new tokens) against the greedy engine's streams
+    (equal up to a near-tie, as the serve phase's rule), beam search at 4
+    beams (beams 1 == greedy; the beam's log-probability >= greedy's),
+    then Llama-3.2-1B uncut (seed 0): ``llama_generate`` greedy on 4 x
+    128 prompts, 16 new tokens, its prefill's last logits within 1e-4 of
+    the full forward's."""
+    from quintnet_tpu_torch.models.gpt2_generate import (gpt2_beam_search,
+                                                         gpt2_generate)
+    from quintnet_tpu_torch.serve import ServeEngine, generate, gpt2_family
+
+    rng = np.random.default_rng(5)
+    ids = rng.integers(0, cfg.vocab_size, (GEN_PROMPTS, GEN_PROMPT_LEN)
+                       ).astype(np.int32)
+    # the dense decoders run plain attention, as JAX's: no kernel
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    dense = gpt2_generate(params, ids, cfg, max_new_tokens=GEN_NEW)
+    dense_s = time.perf_counter() - t0
+    beam1 = gpt2_beam_search(params, ids, cfg, beams=1,
+                             max_new_tokens=GEN_NEW)
+    t0 = time.perf_counter()
+    beam4 = gpt2_beam_search(params, ids, cfg, beams=4,
+                             max_new_tokens=GEN_NEW)
+    beam_s = time.perf_counter() - t0
+    if any(_counts().values()):
+        raise AssertionError(f"the dense decoders launched {_counts()}")
+    eng = ServeEngine(gpt2_family(cfg), params, device=DEVICE, max_slots=8,
+                      block_size=16, num_blocks=64)
+    served = generate(eng, list(ids), max_new_tokens=GEN_NEW)
+    near = []
+    for r, (d, e) in enumerate(zip(dense, served)):
+        diff = np.nonzero(d != e)[0]
+        if diff.size:
+            i = int(diff[0]) - GEN_PROMPT_LEN
+            gap = _greedy_gap_check(params, cfg, d, GEN_PROMPT_LEN, i)
+            near.append({"row": r, "step": i, "dense": int(d[diff[0]]),
+                         "engine": int(e[diff[0]]), "top2_gap": gap})
+            if gap >= F32_GAP:
+                raise AssertionError(f"greedy gpt2_generate row {r} step "
+                                     f"{i} != engine with top-2 gap {gap}")
+    del eng
+    if not np.array_equal(beam1, dense):
+        raise AssertionError("gpt2_beam_search(beams=1) != greedy "
+                             "gpt2_generate")
+    lp_g = _seq_logprob(params, cfg, dense, GEN_PROMPT_LEN)
+    lp_b = _seq_logprob(params, cfg, beam4, GEN_PROMPT_LEN)
+    if not (lp_b >= lp_g - 1e-4).all():
+        raise AssertionError(f"beam-4 log-probability {lp_b} below greedy "
+                             f"{lp_g}")
+    res = {"phase": "generate", "model": "gpt2-124M (random init, seed 0)",
+           "prompts": [GEN_PROMPTS, GEN_PROMPT_LEN], "new_tokens": GEN_NEW,
+           "greedy_vs_engine_near_ties": near,
+           "greedy_tokens_equal_engine": int(sum(
+               (d == e).sum() for d, e in zip(dense, served))
+               - GEN_PROMPTS * GEN_PROMPT_LEN),
+           "beam1_equals_greedy": True,
+           "logprob_greedy": lp_g.tolist(), "logprob_beam4": lp_b.tolist(),
+           "dense_generate_s": dense_s, "beam4_s": beam_s,
+           "dense_decoder_launches": 0}
+    res.update(_llama_generate_check())
+    _emit(res)
+    return res
+
+
+def _llama_generate_check():
+    from quintnet_tpu_torch.models.llama import (LlamaConfig, llama_apply,
+                                                 llama_init)
+    from quintnet_tpu_torch.models.llama_generate import (llama_generate,
+                                                          llama_prefill)
+
+    cfg = LlamaConfig.llama32_1b()
+    params = llama_init(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    ids = _llama_ids(cfg, LLAMA_GEN_ROWS, LLAMA_GEN_PROMPT, 3)
+    t = torch.from_numpy(ids.astype(np.int64)).to(DEVICE)
+    with torch.no_grad():
+        pre, _ = llama_prefill(params, t, cfg,
+                               cache_len=LLAMA_GEN_PROMPT + LLAMA_GEN_NEW)
+        full = llama_apply(params, t, cfg)[:, -1]
+    err = float((pre - full).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f"llama_prefill's last logits differ from the "
+                             f"full forward's by {err} (> 1e-4)")
+    del pre, full
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = llama_generate(params, ids, cfg, max_new_tokens=LLAMA_GEN_NEW)
+    wall = time.perf_counter() - t0
+    new = out[:, LLAMA_GEN_PROMPT:]
+    if out.shape != (LLAMA_GEN_ROWS, LLAMA_GEN_PROMPT + LLAMA_GEN_NEW) or (
+            new < 0).any() or (new >= cfg.vocab_size).any():
+        raise AssertionError(f"llama_generate gave {out.shape} / ids out "
+                             f"of the vocab")
+    del params
+    torch.cuda.empty_cache()
+    return {"llama": "Llama-3.2-1B uncut (random init, seed 0)",
+            "llama_prompts": [LLAMA_GEN_ROWS, LLAMA_GEN_PROMPT],
+            "llama_new_tokens": LLAMA_GEN_NEW,
+            "llama_prefill_vs_full_forward_max_abs": err,
+            "llama_generate_s": wall}
+
+
+# ---------------------------------------------------------------------
 # phase 3: GPT-2 124M served from quantized and narrow KV pools
 # ---------------------------------------------------------------------
 
@@ -1693,6 +2022,160 @@ def phase_train():
            "flash_attention_routed": flash_attention.routed}
     res.update(_train_share(flash, params, opt_state, host[steps:],
                             {k: v // steps for k, v in want.items()}))
+    _emit(res)
+    return res, counts
+
+
+# ---------------------------------------------------------------------
+# phase 4a: LoRA adapters over GPT-2 124M through K1-K3
+# ---------------------------------------------------------------------
+
+LORA = {"rank": 8, "alpha": 16.0, "targets": ("qkv", "proj", "fc")}
+LORA_STEPS, LORA_GRAD_TOL = 2, 1e-5
+
+
+def phase_lora_train():
+    """LoRA (``LORA``) over frozen GPT-2 124M f32 weights (seed 0) on the
+    train phase's data and micro-batches (64 rows of 512 in 2), attention
+    through the flash dispatcher: the adapters' gradients on the first
+    batch through K1-K3 against plain attention (every adapter made
+    non-trivial first, so every leaf carries a gradient; each leaf
+    within ``LORA_GRAD_TOL`` of its largest magnitude), then the main
+    path: ``LORA_STEPS`` Adam steps of ``make_lora_train_step`` from
+    zero-init ``b``, counts zeroed just before and read just after (each
+    of K1-K3 12 layers x 2 micro-batches x steps, none routed); the base
+    unchanged bit for bit, the step time, the Adam state's bytes beside
+    a full finetune's, ``save_lora``/``load_lora`` bit for bit and the
+    merged model generating."""
+    import tempfile
+
+    from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
+    from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
+    from quintnet_tpu_torch.models.gpt2 import (GPT2Config, clm_loss,
+                                                gpt2_forward, gpt2_init)
+    from quintnet_tpu_torch.models.gpt2_generate import gpt2_generate
+    from quintnet_tpu_torch.models.lora import (LoRAConfig, load_lora,
+                                                lora_init, lora_merge_tree,
+                                                lora_param_count,
+                                                make_lora_train_step,
+                                                save_lora)
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+    from quintnet_tpu_torch.parallel.train_step import accumulate_grads
+    from quintnet_tpu_torch.train.trainer import Optimizer
+
+    cfg = GPT2Config.base()
+    seq, batch, n_micro = 512, 64, 2
+    ds = SummarizationDataset.synthetic(batch * 4, ByteTokenizer(),
+                                        max_length=seq, seed=0)
+    host = [next(iter(ds.batches(batch, seed=i)))
+            for i in range(LORA_STEPS + 2)]
+    dev = [tuple(torch.from_numpy(a.astype(np.int64)).to(DEVICE)
+                 for a in b) for b in host]
+    params = gpt2_init(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    base_copy = tree_map(lambda p: p.detach().clone(), params)
+    lcfg = LoRAConfig(**LORA)
+
+    def loss_fn(use_flash):
+        def fn(base, lora, mb):
+            merged = lora_merge_tree(base, lora, lcfg)
+            return clm_loss(gpt2_forward(merged, mb[0], cfg,
+                                         use_flash=use_flash)[0], mb[1])
+        return fn
+
+    # the gradient gate: every adapter non-trivial
+    gen = torch.Generator(device=DEVICE).manual_seed(2)
+    probe = tree_map(lambda t: (t + 0.01 * torch.randn(
+        t.shape, generator=gen, device=DEVICE)).requires_grad_(True),
+        lora_init(torch.Generator(device=DEVICE).manual_seed(1),
+                  params["blocks"], lcfg))
+    grads = {}
+    for use_flash in (True, False):
+        fn = loss_fn(use_flash)
+        grads[use_flash] = accumulate_grads(
+            lambda lo, mb, _g: fn(params, lo, mb), probe, dev[0], n_micro)
+    (loss_f, g_f), (loss_p, g_p) = grads[True], grads[False]
+    grad_err = {".".join(k): float((g_f[k] - g_p[k]).abs().max()
+                                   / g_p[k].abs().max().clamp_min(1e-30))
+                for k in g_p}
+    worst = max(grad_err, key=grad_err.get)
+    if not grad_err[worst] <= LORA_GRAD_TOL:
+        raise AssertionError(f"adapter gradient {worst}: max |flash - "
+                             f"plain| / max |plain| = {grad_err[worst]} > "
+                             f"{LORA_GRAD_TOL}")
+    del probe, grads, g_f, g_p
+
+    lora = lora_init(torch.Generator(device=DEVICE).manual_seed(1),
+                     params["blocks"], lcfg)
+    opt = Optimizer("adam", 1e-3)
+    state = opt.init(lora)
+    step = make_lora_train_step(None, loss_fn(True), opt,
+                                grad_accum_steps=n_micro)
+    # main path: counts zeroed just before, read just after
+    _zero_counts()
+    losses = []
+    for b in dev[:LORA_STEPS]:
+        lora, state, loss = step(params, lora, state, b)
+        losses.append(float(loss))
+    counts = _counts()
+    per_kernel = cfg.n_layer * n_micro * LORA_STEPS
+    want = {"flash_fwd": per_kernel, "flash_bwd_dkv": per_kernel,
+            "flash_bwd_dq": per_kernel, "paged_attention": 0}
+    if counts != want or flash_attention.routed:
+        raise AssertionError(f"launches {counts}, routed "
+                             f"{flash_attention.routed}; expected {want} "
+                             f"(n_layer x micro-batches x steps), 0 routed")
+    if not all(np.isfinite(losses)):
+        raise AssertionError(f"LoRA losses {losses}")
+    for path, p in tree_leaves(params):
+        if not torch.equal(p, dict(tree_leaves(base_copy))[path]):
+            raise AssertionError(f"base parameter {'.'.join(path)} moved")
+    del base_copy
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    for b in dev[LORA_STEPS:]:
+        lora, state, loss = step(params, lora, state, b)
+    float(loss)
+    step_ms = (time.perf_counter() - t0) / (len(dev) - LORA_STEPS) * 1e3
+    peak = torch.cuda.max_memory_allocated()
+    n_lora = lora_param_count(lora)
+    n_base = sum(p.numel() for _, p in tree_leaves(params))
+    adam_bytes = sum(t.numel() * t.element_size() for part in ("mu", "nu")
+                     for _, t in tree_leaves(state[part]))
+
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "adapters.safetensors")
+        save_lora(lora, lcfg, path)
+        file_bytes = os.path.getsize(path)
+        back, lcfg2 = load_lora(path, device=DEVICE)
+    if lcfg2 != lcfg or {k: v for k, v in tree_leaves(back)}.keys() != {
+            k: v for k, v in tree_leaves(lora)}.keys() or not all(
+            torch.equal(v, dict(tree_leaves(back))[k])
+            for k, v in tree_leaves(lora)):
+        raise AssertionError("save_lora / load_lora did not round-trip "
+                             "bit for bit")
+    merged = lora_merge_tree(params, back, lcfg)
+    out = gpt2_generate(merged, host[0][0][:1, :32], cfg, max_new_tokens=8)
+    if out.shape != (1, 40) or (out[:, 32:] >= cfg.vocab_size).any():
+        raise AssertionError(f"the merged model generated {out}")
+    res = {"phase": "lora_train", "model": "gpt2-124M f32 (random init, "
+           "seed 0), frozen", "lora": {**LORA, "targets":
+                                       list(LORA["targets"])},
+           "global_batch": batch, "micro_batches": n_micro, "seq_len": seq,
+           "optimizer": "adam lr 1e-3 (adapters only)",
+           "first_loss_flash": float(loss_f), "first_loss_plain":
+           float(loss_p), "worst_adapter_grad_leaf": worst,
+           "worst_adapter_grad_rel_err": grad_err[worst],
+           "losses": losses, "launches": counts,
+           "flash_attention_routed": flash_attention.routed,
+           "base_unchanged": True, "step_ms": step_ms,
+           "peak_memory_gib": peak / 2 ** 30,
+           "adapter_params": n_lora, "base_params": n_base,
+           "adam_state_bytes_lora": adam_bytes,
+           "adam_state_bytes_full_finetune": 2 * 4 * n_base,
+           "adapter_file_bytes": file_bytes,
+           "save_load_bit_for_bit": True, "merged_generates": True}
     _emit(res)
     return res, counts
 
@@ -2410,14 +2893,14 @@ def phase_resume():
 MESH_RUNS = {
     "dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"layers": 6}),
     "tp2": ([2], ["tp"], 2, 64, "afab", "adamw", {"layers": 6}),
-    "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16),
+    "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw", {"layers": 6}),
     "fsdp_dp2": ([2], ["dp"], 1, 64, "afab", "adamw",
                  {"fsdp": True, "layers": 6}),
     "fsdp_dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw",
-                    {"fsdp": True}),
-    "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw"),
+                    {"fsdp": True, "layers": 6}),
+    "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw", {"layers": 6}),
     "dp2pp2_stored_zero2": ([2, 2], ["dp", "pp"], 4, 16, "1f1b_stored",
-                            "zero2_adamw"),
+                            "zero2_adamw", {"layers": 6}),
     "3d_1f1b_zero1": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
                       "zero1_adamw", {"save": True, "layers": 6}),
     "3d_ckpt_resume": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
@@ -3443,6 +3926,7 @@ def phase_mesh():
     counts = {"f32": collections.Counter(), "bf16": collections.Counter()}
     with tempfile.TemporaryDirectory() as tmp:
         refs = {}
+        t0 = time.perf_counter()
         torch.use_deterministic_algorithms(True)
         try:
             hosts = {}
@@ -3464,6 +3948,8 @@ def phase_mesh():
         finally:
             torch.use_deterministic_algorithms(False)
         torch.cuda.empty_cache()
+        _emit({"phase": "mesh", "references": len(refs),
+               "references_s": round(time.perf_counter() - t0, 3)})
         probe = runtime.spawn_world(_probe_rank, 2, "cuda:0", timeout=120)
         _emit({"phase": "mesh", "check": "gloo collectives on CUDA "
                "tensors (2 ranks, cuda:0)", "results": probe,
@@ -3714,27 +4200,41 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    paged_rows, flash_rows = phase_kernels()
-    serve_res, _, (params, cfg, f32_streams) = phase_serve()
-    _res, kv_runs = phase_serve_kv(params, cfg, f32_streams)
+    t_start = time.perf_counter()
+    walls = {}
+
+    def timed(name, fn, *args):
+        """Run one phase, its wall seconds into ``walls``, the card's
+        cache emptied after it."""
+        t0 = time.perf_counter()
+        out = fn(*args)
+        walls[name] = round(time.perf_counter() - t0, 3)
+        torch.cuda.empty_cache()
+        return out
+
+    paged_rows, flash_rows = timed("kernels", phase_kernels)
+    serve_res, _, (params, cfg, f32_streams) = timed("serve", phase_serve)
+    sampled_res = timed("serve_sampled", phase_serve_sampled, params, cfg,
+                        serve_res)
+    timed("generate", phase_generate, params, cfg)
+    _res, kv_runs = timed("serve_kv", phase_serve_kv, params, cfg,
+                          f32_streams)
     del params
     torch.cuda.empty_cache()
-    train_res, train_counts = phase_train()
-    torch.cuda.empty_cache()
-    _res, bf16_counts = phase_train_bf16(train_res["first_loss_flash"])
-    torch.cuda.empty_cache()
-    llama_res, llama_counts = phase_llama_train()
-    torch.cuda.empty_cache()
-    _res, llama_bf16_counts = phase_llama_train(
-        torch.bfloat16, llama_res["first_loss_flash"])
-    torch.cuda.empty_cache()
-    _res, packed_counts = phase_llama_packed()
-    torch.cuda.empty_cache()
-    phase_vit()
-    torch.cuda.empty_cache()
-    _res, resume_counts = phase_resume()
-    torch.cuda.empty_cache()
-    mesh_counts = phase_mesh()
+    train_res, train_counts = timed("train", phase_train)
+    _res, lora_counts = timed("lora_train", phase_lora_train)
+    _res, bf16_counts = timed("train_bf16", phase_train_bf16,
+                              train_res["first_loss_flash"])
+    llama_res, llama_counts = timed("llama_train", phase_llama_train)
+    _res, llama_bf16_counts = timed(
+        "llama_train_bf16", phase_llama_train, torch.bfloat16,
+        llama_res["first_loss_flash"])
+    _res, packed_counts = timed("llama_packed", phase_llama_packed)
+    timed("vit", phase_vit)
+    _res, resume_counts = timed("resume", phase_resume)
+    mesh_counts = timed("mesh", phase_mesh)
+    _emit({"phase": "walls", "seconds": walls,
+           "total_s": round(time.perf_counter() - t_start, 3)})
 
     def entry(name, source, replaces, launches, rows, head):
         return {"name": name, "route": "cuda", "source": source,
@@ -3748,8 +4248,11 @@ def main() -> int:
     # one entry per (variant, path) with the launches of that path in the
     # variant's serve run, timed at the decode shape or at prefill P = 128
     # (start 0); the train micro-batch for flash attention
+    # the f32 pool's launches: the greedy and the sampled serve runs
     runs = {_variant_of(serve_res["launches_by_variant"]): {
-        "by_path": serve_res["launches_by_path"]}}
+        "by_path": {path: serve_res["launches_by_path"].get(path, 0)
+                    + sampled_res["launches_by_path"].get(path, 0)
+                    for path in PAGED_SYMBOLS}}}
     for launches in kv_runs.values():
         runs[_variant_of(launches["by_variant"])] = launches
     kernels = []
@@ -3765,6 +4268,7 @@ def main() -> int:
                 launches["by_path"].get(path, 0), rows, head))
     for name, replaces in FLASH_KERNELS.items():
         for tag, launches in (("", train_counts[name] + resume_counts[name]
+                               + lora_counts[name]
                                + llama_counts[name] + packed_counts[name]
                                + mesh_counts["f32"].get(name, 0)),
                               ("[bf16]", bf16_counts[name]

@@ -1,4 +1,5 @@
-"""GPT-2, ViT and Llama parameters between the JAX pytree and the port.
+"""GPT-2, ViT and Llama parameters and LoRA adapters between the JAX
+pytree and the port.
 
 The packages use the same nested-dict layouts (``models/gpt2.py``,
 ``models/vit.py``, ``models/llama.py``), so the bridge is a leaf-for-leaf
@@ -167,3 +168,40 @@ def llama_params_to_numpy(params):
     copies)."""
     _check_layout(params, LLAMA_LEAVES, "Llama", SWIGLU_EXPERT_LEAVES)
     return _map(params, lambda t: t.detach().cpu().numpy().copy())
+
+
+def lora_params_from_numpy(tree, device="cuda"):
+    """A JAX LoRA adapter tree (``models/lora.lora_init``'s layout: an
+    ``{"a", "b"}`` pair at each adapted linear's path) as nested dicts of
+    numpy arrays -> the same tree of tensors on ``device``."""
+    _check_lora(tree)
+    dev = resolve_device(device)
+    return _map(tree, lambda a: torch.from_numpy(np.array(a, copy=True)).to(
+        dev))
+
+
+def lora_params_to_numpy(lora):
+    """A port LoRA adapter tree -> nested dicts of numpy arrays (host
+    copies)."""
+    _check_lora(lora)
+    return _map(lora, lambda t: t.detach().cpu().numpy().copy())
+
+
+def _check_lora(tree):
+    """Every leaf of an adapter tree is an ``a`` [..., in, r] or ``b``
+    [..., r, out] of a pair whose rank dims agree."""
+    def walk(node, path):
+        if not isinstance(node, dict):
+            raise ValueError(f"LoRA tree leaf at {'.'.join(path)} is not "
+                             f"an {{a, b}} pair")
+        if set(node) == {"a", "b"}:
+            a, b = node["a"], node["b"]
+            if a.ndim < 2 or a.shape[-1] != b.shape[-2]:
+                raise ValueError(f"LoRA pair {'.'.join(path)}: a "
+                                 f"{tuple(a.shape)} and b {tuple(b.shape)} "
+                                 f"disagree on the rank")
+            return
+        for k, v in node.items():
+            walk(v, path + (k,))
+
+    walk(tree, ())

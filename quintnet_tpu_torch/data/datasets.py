@@ -311,3 +311,18 @@ class SummarizationDataset:
             enc = [self.encode_row(*self.rows[j]) for j in idx[i:i + batch_size]]
             yield (np.stack([e[0] for e in enc]),
                    np.stack([e[1] for e in enc]))
+
+    def eval_prompts(self, *, max_prompt_len: int, limit: Optional[int] = None
+                     ) -> List[Tuple[List[int], str]]:
+        """(prompt token ids, reference summary) pairs for the generation
+        eval (``train/metrics.evaluate_generation``). Prompts are
+        LEFT-truncated (the "...\n\nTL;DR: " tail kept) to at most
+        ``max_prompt_len`` tokens and rounded DOWN to a multiple of 8 (so
+        few distinct lengths batch together), as in the JAX package."""
+        out = []
+        for article, summary in self.rows[: limit or len(self.rows)]:
+            ids = self.tok.encode(article + self.PROMPT)
+            n = min(len(ids), max_prompt_len)
+            n = max((n // 8) * 8, min(n, 8))
+            out.append((ids[len(ids) - n:], summary))
+        return out

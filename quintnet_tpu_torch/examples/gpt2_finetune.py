@@ -36,6 +36,17 @@ run); ``--steps N`` stops each epoch after N optimizer steps.
 ``--experts N`` makes every block's MLP a top-2 MoE of N experts
 (GPT-2-MoE from random weights; an ``ep`` axis in the config's mesh
 shards them).
+``--gen-eval N`` then generates summaries for N validation rows with
+the KV-cache decoder and reports ROUGE-1/2/L and BLEU
+(``train/metrics.evaluate_generation``): the trained parameters are
+gathered whole from every rank and taken back from the tp layout, and
+rank 0 decodes on its device; greedy unless ``--gen-temp`` (then
+``--gen-top-k``/``--gen-top-p`` filter the sampling chain, seeded by
+``training.seed``), beam search with ``--gen-beams``::
+
+    python -m quintnet_tpu_torch.examples.gpt2_finetune --tiny --steps 1 \
+        --epochs 1 --device cpu --gen-eval 4
+
 ``--checkpoint-dir`` saves every rank's part of each step there (and
 resumes from it), with ``model_config.json`` (the model's geometry and
 its tp layout) beside the steps. Starting from Hugging Face weights
@@ -69,6 +80,17 @@ def main(argv=None):
     ap.add_argument("--experts", type=int, default=0,
                     help="n_experts: turn the model into a GPT-2-MoE "
                          "(top-2 routed expert MLPs, ep-shardable)")
+    ap.add_argument("--gen-eval", type=int, default=0, metavar="N",
+                    help="after training, generate summaries for N val "
+                         "samples (KV-cache decoder) and report "
+                         "ROUGE-1/2/L + BLEU (greedy unless --gen-temp)")
+    ap.add_argument("--gen-temp", type=float, default=0.0,
+                    help="sampling temperature for --gen-eval (0=greedy)")
+    ap.add_argument("--gen-top-k", type=int, default=0)
+    ap.add_argument("--gen-top-p", type=float, default=1.0)
+    ap.add_argument("--gen-beams", type=int, default=1,
+                    help="beam width for --gen-eval (single-device "
+                         "decode)")
     add_launch_args(ap)
     ap.add_argument("--checkpoint-dir", default=None)
     args = ap.parse_args(argv)
@@ -166,7 +188,50 @@ def _finetune(args, cfg):
         val_batches_fn=lambda ep: val_ds.batches(val_rows, shuffle=False))
     say(f"done in {hist.wall_time_s:.1f}s; "
         f"train_loss {hist.train_loss[-1]:.4f}")
+    if args.gen_eval:
+        scores = _gen_eval(args, cfg, gcfg, trainer, val_ds, tok, max_len)
+        if scores is not None:
+            say("generation eval:",
+                {k: round(v, 4) for k, v in scores.items()})
     return hist
+
+
+def _gen_eval(args, cfg, gcfg, trainer, val_ds, tok, max_len):
+    """ROUGE/BLEU of ``--gen-eval`` rows on the trained weights: every
+    leaf gathered whole over the mesh (a collective: every rank takes
+    part), taken back from the tp layout, decoded on rank 0 alone
+    (others return None)."""
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+    from quintnet_tpu_torch.models.gpt2 import gpt2_from_tp_layout
+    from quintnet_tpu_torch.parallel.tp import gather_leaf
+    from quintnet_tpu_torch.train.metrics import evaluate_generation
+
+    params = trainer.final_state[0]
+    mesh = trainer.strategy.mesh
+    if mesh is not None and mesh.size > 1:
+        specs = dict(tree_leaves(
+            trainer.strategy.param_specs(trainer.model)))
+
+        def gathered(tree, path=()):
+            if isinstance(tree, dict):
+                return {k: gathered(v, path + (k,)) for k, v in tree.items()}
+            return gather_leaf(tree.detach(), specs[path], mesh)
+
+        params = gathered(params)
+    if not runtime.is_main_process():
+        return None
+    params = gpt2_from_tp_layout(params, gcfg, cfg.tp_size)
+    max_prompt = max(max_len // 2, 8)
+    prompts = val_ds.eval_prompts(max_prompt_len=max_prompt,
+                                  limit=args.gen_eval)
+    return evaluate_generation(
+        params, gcfg, prompts, tok,
+        max_new_tokens=min(64, gcfg.n_positions - max_prompt),
+        eos_token_id=getattr(tok, "eos_token_id", None),
+        temperature=args.gen_temp, top_k=args.gen_top_k,
+        top_p=args.gen_top_p, beams=args.gen_beams,
+        seed=cfg.training.seed)
 
 
 if __name__ == "__main__":

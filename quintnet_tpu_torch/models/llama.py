@@ -1,7 +1,8 @@
-"""Llama-family causal LM (RMSNorm, rotary, SwiGLU, GQA): the training half.
+"""Llama-family causal LM (RMSNorm, rotary, SwiGLU, GQA): training and the
+dense KV-cache blocks.
 
-Port of ``quintnet_tpu/models/llama.py`` without its serving paths and
-its Hugging Face interop. Parameters keep the JAX pytree layout::
+Port of ``quintnet_tpu/models/llama.py`` without its paged serving paths
+and its Hugging Face interop. Parameters keep the JAX pytree layout::
 
     {"embedding": {"tok": [V, D]},
      "blocks": {"ln1": {"scale"}, "attn": {"q", "k", "v", "o": {"w"}},
@@ -24,9 +25,14 @@ with one sum; gate/up column- and down row-sharded, one sum: GPT-2's
 Megatron pattern, with ``n_kv_heads % tp == 0``. Separate q/k/v need no
 fused-QKV reblocking, so the tp layout is the identity.
 
+:func:`llama_block_prefill` and :func:`llama_block_decode`'s dense branch
+carry the generation decoders (``models/llama_generate.py``); the cache
+stays UNrepeated ([B, Hkv, T, hd]) and is repeated on read.
+
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP.md
-place: the serving paths (``llama_block_prefill*``,
-``llama_block_verify_paged``, ``llama_block_decode``: §1, item 7), the
+place: the paged serving paths (``llama_block_prefill_paged*``,
+``llama_block_verify_paged``, ``llama_block_decode`` with a block
+table: §1, item 7), the
 HF interop (``llama_from_hf_state``, ``llama_to_hf_state``,
 ``LlamaConfig.from_hf_config``: §1, item 9), ``vocab_parallel`` under tp
 (§1, item 6) and ``remat="dots"`` (§2).
@@ -43,7 +49,8 @@ import torch
 
 from quintnet_tpu_torch.models.gpt2 import (clm_loss, mask_padded_cols,
                                             segment_ids_from_input)
-from quintnet_tpu_torch.nn.attention import (apply_rope, repeat_kv,
+from quintnet_tpu_torch.nn.attention import (apply_rope,
+                                             dense_cache_attend, repeat_kv,
                                              rope_cos_sin, sdpa)
 from quintnet_tpu_torch.nn.layers import (cast_floating, keep_router_f32,
                                           linear_init, rms_norm_apply,
@@ -176,12 +183,10 @@ def _serving_not_ported(name):
     return fn
 
 
-llama_block_prefill = _serving_not_ported("llama_block_prefill")
 llama_block_prefill_paged = _serving_not_ported("llama_block_prefill_paged")
 llama_block_prefill_paged_sp = _serving_not_ported(
     "llama_block_prefill_paged_sp")
 llama_block_verify_paged = _serving_not_ported("llama_block_verify_paged")
-llama_block_decode = _serving_not_ported("llama_block_decode")
 
 
 def llama3_scaled_inv_freq(cfg: LlamaConfig, device=None):
@@ -335,6 +340,47 @@ def llama_block_apply(p, x, cfg: LlamaConfig, *, cos, sin, tp_axis=None,
     x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis)
     x, aux = llama_mlp_residual(p, x, cfg, tp_axis=tp_axis, ep_axis=ep_axis)
     return (x, aux) if cfg.n_experts > 0 else x
+
+
+def llama_block_prefill(p, x, cfg: LlamaConfig, cos, sin, tp_axis=None):
+    """Causal block forward that also returns this layer's UNrepeated
+    (k, v) [B, Hkv(/tp), S, hd] for the decode cache (plain attention on
+    the repeated K/V). Under ``tp_axis`` the heads are this rank's, with
+    one sum over tp in the residual."""
+    tp = 1 if tp_axis is None else tp_axis.size
+    a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
+    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    rep = q.shape[1] // k.shape[1]
+    o = sdpa(q, repeat_kv(k, rep), repeat_kv(v, rep), causal=True)
+    x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis)
+    x, _aux = llama_mlp_residual(p, x, cfg, tp_axis=tp_axis)
+    return x, (k, v)
+
+
+def llama_block_decode(p, x, kc, vc, pos, cfg: LlamaConfig, cos, sin,
+                       tp_axis=None, block_tables=None, block_size=None,
+                       kv_scales=None, policy=None):
+    """One cached token: ``x`` [B, 1, D], caches [B, Hkv(/tp), T, hd]
+    UNrepeated, ``pos`` the host write position, ``cos``/``sin`` the
+    rope tables at ``pos`` -> (x, (kc, vc)), the caches written in
+    place. The kv heads are repeated on read; the query attends to
+    positions ``<= pos`` (plain attention, as the JAX dense branch). The
+    paged branch (``block_tables``: Llama serving) is not ported
+    (ROADMAP.md §1, item 7)."""
+    if block_tables is not None or kv_scales is not None:
+        raise NotImplementedError(
+            f"llama_block_decode over the paged pool (Llama serving) is "
+            f"not ported yet ({SERVING_ITEM})")
+    tp = 1 if tp_axis is None else tp_axis.size
+    a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
+    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    kc[:, :, pos] = k[:, :, 0].to(kc.dtype)
+    vc[:, :, pos] = v[:, :, 0].to(vc.dtype)
+    rep = q.shape[1] // kc.shape[1]
+    o = dense_cache_attend(q, repeat_kv(kc, rep), repeat_kv(vc, rep), pos)
+    x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis)
+    x, _aux = llama_mlp_residual(p, x, cfg, tp_axis=tp_axis)
+    return x, (kc, vc)
 
 
 def _positions(b, s, device):

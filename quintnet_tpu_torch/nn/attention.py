@@ -6,7 +6,11 @@ The dense half (:func:`sdpa`, :func:`mha_apply`) is the training and
 eval forward: plain attention, or with ``use_flash`` the
 ``ops.flash_attention`` dispatcher (the flash kernels on the card);
 attention-probability and residual dropout draw from a
-``torch.Generator``. The paged half writes a
+``torch.Generator``. The dense KV-cache decoders
+(``models/gpt2_generate.py``, ``models/llama_generate.py``) prefill
+through ``mha_apply(return_kv=True)`` and decode through
+:func:`mha_decode`'s dense branch, both plain attention. The paged half
+writes a
 run's K/V through the block table into the flat pool views and reads
 the row back through ``ops.paged_attention.paged_attention`` — the
 CUDA kernel on the card, the gathered-view math on the CPU. There is
@@ -114,8 +118,9 @@ def sdpa(q, k, v, *, causal: bool, pdrop: float = 0.0, generator=None,
 
 
 def mha_apply(p, x, *, num_heads: int, causal: bool = False,
-              tp_axis=None, use_flash: bool = False, attn_pdrop: float = 0.0,
-              resid_pdrop: float = 0.0, generator=None, segment_ids=None):
+              tp_axis=None, use_flash: bool = False, return_kv: bool = False,
+              attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
+              generator=None, segment_ids=None):
     """x [B, S, D] -> [B, S, D]: fused qkv, attention (plain, or the
     flash dispatcher with ``use_flash``), proj. With ``generator``
     (training): dropout at ``attn_pdrop`` on the attention
@@ -128,7 +133,11 @@ def mha_apply(p, x, *, num_heads: int, causal: bool = False,
     rank computes ``num_heads = heads / tp`` whole heads ([B, H/tp, S,
     Dh] into the flash kernels), and proj is row-sharded with one sum
     over tp before its bias; the residual dropout comes after the sum,
-    so its mask agrees on every tp rank."""
+    so its mask agrees on every tp rank.
+
+    ``return_kv=True`` also returns this rank's per-head (k, v) [B, H, S,
+    Dh]: the prefill half of the dense KV-cache decoder
+    (``models/gpt2_generate.py``)."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
     attend = flash_attention if use_flash else sdpa
     o = attend(q, k, v, causal=causal, pdrop=attn_pdrop,
@@ -136,6 +145,8 @@ def mha_apply(p, x, *, num_heads: int, causal: bool = False,
     y = row_parallel_linear(p["proj"], _merge_heads(o), axis=tp_axis)
     if generator is not None and resid_pdrop > 0.0:
         y = dropout(generator, y, resid_pdrop, deterministic=False)
+    if return_kv:
+        return y, (k, v)
     return y
 
 
@@ -294,16 +305,54 @@ def mha_verify_paged(p, x, k_cache, v_cache, positions, tail_lens, *,
     return _paged_out(p, o, pools)
 
 
+def dense_cache_attend(q, k_cache, v_cache, pos: int):
+    """One query position against a dense cache: ``q`` [B, H, 1, Dh],
+    caches [B, H, T, Dh] whose positions ``<= pos`` are written; the
+    unwritten tail is masked with ``finfo.min`` (f32 scores and softmax,
+    as :func:`sdpa`). Returns o [B, H, 1, Dh]."""
+    dh = q.shape[-1]
+    scores = torch.einsum("bhsd,bhtd->bhst", q, k_cache).float() \
+        / math.sqrt(dh)
+    valid = torch.arange(k_cache.shape[2], device=q.device) <= pos
+    scores = scores.masked_fill(~valid, torch.finfo(torch.float32).min)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    return torch.einsum("bhst,bhtd->bhsd", probs, v_cache)
+
+
 def mha_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
-               block_tables, block_size: int, kv_scales=None, policy=None):
-    """Single-token paged attention for every row: ``x`` [B, 1, D],
-    flat pool views, ``pos`` [B] int32 per-row positions,
-    ``block_tables`` [B, M] int32. Pool handling as in
-    :func:`mha_prefill_paged`; a scaled decode requantizes one block a
-    row (``max_blocks=1``). Returns (y, k_cache, v_cache[, k_scale,
-    v_scale]). The JAX package's dense single-request branch
-    (``block_tables=None``) is not ported (ROADMAP.md, 'Generation')."""
+               tp_axis=None, block_tables=None, block_size=None,
+               kv_scales=None, policy=None):
+    """Single-token cached attention.
+
+    Dense (the generation decoders, ``block_tables=None``): ``x``
+    [B, 1, D], caches [B, H, T, Dh] (this rank's heads under
+    ``tp_axis``, whose proj is row-sharded with one sum over tp), ``pos``
+    the host int write position shared by the batch. The token's (k, v)
+    are written at ``pos`` in place and the query attends to positions
+    ``<= pos`` in plain PyTorch (no kernel, as the JAX package's dense
+    branch runs no Pallas kernel). Returns (y, k_cache, v_cache).
+
+    Paged (the serving engine): ``x`` [B, 1, D], flat pool views,
+    ``pos`` [B] int32 per-row positions, ``block_tables`` [B, M] int32.
+    Pool handling as in :func:`mha_prefill_paged`; a scaled decode
+    requantizes one block a row (``max_blocks=1``). Returns (y, k_cache,
+    v_cache[, k_scale, v_scale]). tp serving meshes are not ported
+    (ROADMAP.md §1, item 7)."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    if block_tables is None:
+        if kv_scales is not None:
+            raise ValueError(
+                "scaled KV layout policies exist only for the paged pool "
+                "(block_tables is required)")
+        k_cache[:, :, pos] = k[:, :, 0].to(k_cache.dtype)
+        v_cache[:, :, pos] = v[:, :, 0].to(v_cache.dtype)
+        o = dense_cache_attend(q, k_cache, v_cache, pos)
+        y = row_parallel_linear(p["proj"], _merge_heads(o), axis=tp_axis)
+        return y, k_cache, v_cache
+    if tp_axis is not None:
+        raise NotImplementedError(
+            "paged decode on a tp mesh is not ported yet (ROADMAP.md §1, "
+            "item 7)")
     if kv_scales is None:
         paged_cache_update(k_cache, v_cache, k[:, :, 0], v[:, :, 0], pos,
                            block_tables=block_tables, block_size=block_size)

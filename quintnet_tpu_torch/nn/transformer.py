@@ -1,5 +1,5 @@
-"""Pre-LN transformer block (GPT-2, ViT): training/eval, paged decode,
-paged prefill and paged verify.
+"""Pre-LN transformer block (GPT-2, ViT): training/eval, dense KV-cache
+prefill and decode, paged decode, paged prefill and paged verify.
 
 Port of ``quintnet_tpu/nn/transformer.py`` with the tp hooks
 (``tp_axis``), ZeRO-3/FSDP (``fsdp``: the layer's shards gathered just
@@ -215,14 +215,42 @@ def block_verify_paged(p, x, k_cache, v_cache, positions, tail_lens, *,
     return (_block_mlp(p, x + y, act=act), *pools)
 
 
+def _decode_mlp(p, x, *, act, moe_args, tp_axis):
+    """The MLP half of a cached block step: dense, or a MoE FFN whose aux
+    loss generation has no use for."""
+    if moe_args is None:
+        return _block_mlp(p, x, act=act, tp_axis=tp_axis)
+    y, _aux = moe_apply(p["moe"], layer_norm_apply(p["ln2"], x), moe_args,
+                        tp_axis=tp_axis, act=act)
+    return x + y
+
+
+def block_prefill(p, x, *, num_heads: int, act: Callable = gelu,
+                  moe_args=None, tp_axis=None):
+    """Causal block forward that also returns this layer's (k, v)
+    [B, H, S, Dh]: the prefill half of KV-cache generation, plain
+    attention. ``tp_axis``: head-sharded, ``num_heads`` is LOCAL heads
+    and the cache holds only this rank's heads."""
+    a, (k, v) = mha_apply(p["attn"], layer_norm_apply(p["ln1"], x),
+                          num_heads=num_heads, causal=True, return_kv=True,
+                          tp_axis=tp_axis)
+    return _decode_mlp(p, x + a, act=act, moe_args=moe_args,
+                       tp_axis=tp_axis), (k, v)
+
+
 def block_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
-                 act: Callable = gelu, block_tables, block_size: int,
-                 kv_scales=None, policy=None):
-    """Single-token paged block step for every row (x [S, 1, D], per-row
-    ``pos``). Returns (x, k_cache, v_cache[, k_scale, v_scale]); pools
-    updated in place."""
+                 act: Callable = gelu, moe_args=None, tp_axis=None,
+                 block_tables=None, block_size=None, kv_scales=None,
+                 policy=None):
+    """Single-token cached block step (``nn/attention.mha_decode``).
+    Dense (``block_tables=None``, the generation decoders): caches
+    [B, H, T, Dh], ``pos`` the host write position, ``moe_args`` and
+    ``tp_axis`` as :func:`block_prefill`. Paged (the serving engine):
+    x [S, 1, D], flat pool views, per-row ``pos``. Returns (x, k_cache,
+    v_cache[, k_scale, v_scale]); caches and pools updated in place."""
     y, *pools = mha_decode(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache, pos,
-        num_heads=num_heads, block_tables=block_tables,
+        num_heads=num_heads, tp_axis=tp_axis, block_tables=block_tables,
         block_size=block_size, kv_scales=kv_scales, policy=policy)
-    return (_block_mlp(p, x + y, act=act), *pools)
+    return (_decode_mlp(p, x + y, act=act, moe_args=moe_args,
+                        tp_axis=tp_axis), *pools)

@@ -17,20 +17,26 @@ from quintnet_tpu_torch.serve.scheduler import FINISHED
 
 
 def generate(engine: ServeEngine, prompts: Sequence, *, max_new_tokens,
-             priorities=None,
+             seeds=None, priorities=None,
              max_steps: Optional[int] = None) -> List[np.ndarray]:
     """Run ``prompts`` to completion; one [T0_i + n_generated_i] array
     per prompt, order preserved. ``max_new_tokens``: int or per-prompt
-    sequence. Rows stop early at the engine's ``eos_token_id``."""
+    sequence. ``seeds``: optional per-prompt sampling seeds (JAX's
+    ``keys``) — pass the seeds independent ``gpt2_generate`` calls would
+    get to reproduce them; None gives each request the engine's default
+    (its rid). Rows stop early at the engine's ``eos_token_id``."""
     n = len(prompts)
     if isinstance(max_new_tokens, int):
         max_new_tokens = [max_new_tokens] * n
+    if seeds is None:
+        seeds = [None] * n
     if priorities is None:
         priorities = [0] * n
-    if not len(max_new_tokens) == len(priorities) == n:
+    if not len(max_new_tokens) == len(seeds) == len(priorities) == n:
         raise ValueError("per-prompt argument lengths must match prompts")
-    rids = [engine.submit(p, m, priority=pr)
-            for p, m, pr in zip(prompts, max_new_tokens, priorities)]
+    rids = [engine.submit(p, m, priority=pr, seed=sd)
+            for p, m, sd, pr in zip(prompts, max_new_tokens, seeds,
+                                    priorities)]
     engine.run(max_steps=max_steps)
     unfinished = [r for r in rids if engine.request(r).state != FINISHED]
     if unfinished:
@@ -48,14 +54,15 @@ def generate(engine: ServeEngine, prompts: Sequence, *, max_new_tokens,
 
 def generate_stream(engine: ServeEngine, prompt, *, max_new_tokens: int,
                     on_token: Callable[[int, int, bool], None],
-                    priority: int = 0,
+                    priority: int = 0, seed: Optional[int] = None,
                     max_steps: Optional[int] = None) -> np.ndarray:
     """Streaming single-request generation: ``on_token(rid, token,
-    is_last)`` fires per token (the prefill token included). Blocks
-    until the request finishes; other queued requests keep progressing
-    in the same steps."""
+    is_last)`` fires per token (the prefill token included). ``seed``:
+    the request's sampling seed (default: its rid). Blocks until the
+    request finishes; other queued requests keep progressing in the same
+    steps."""
     rid = engine.submit(prompt, max_new_tokens, priority=priority,
-                        on_token=on_token)
+                        seed=seed, on_token=on_token)
     steps = 0
     while engine.request(rid).state != FINISHED:
         if max_steps is not None and steps >= max_steps:

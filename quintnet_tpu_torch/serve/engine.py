@@ -1,9 +1,10 @@
 """Continuous-batching step loop over the paged KV pool.
 
 Port of ``quintnet_tpu/serve/engine.py``, default path only: one
-device, greedy decoding, prefix cache on, and every KV pool layout of
-the ladder (``kv_dtype``: f32, bf16, int8, fp8, fake_quant;
-``serve/kv_quant.py``) on the CPU and on the card. Per step: admit
+device, greedy or sampled decoding (``temperature``, ``top_k``,
+``top_p``), prefix cache on, and every KV pool layout of the ladder
+(``kv_dtype``: f32, bf16, int8, fp8, fake_quant; ``serve/kv_quant.py``)
+on the CPU and on the card. Per step: admit
 waiting requests (each prefills only the uncached tail of its prompt,
 in the smallest bucket that holds it) -> grow every active slot's block
 table or preempt the youngest admission -> one batched decode step for
@@ -20,6 +21,17 @@ every active slot -> retire finished rows.
   scaled policy);
 - ``decode``: ONE step for all ``max_slots`` rows; inactive rows point
   at the pool's null block and their outputs are dropped.
+
+Sampling (``temperature > 0``): every request carries a seed
+(``submit(seed=)``, by default its rid, as the JAX engine folds the rid
+into ``key(0)``) and draws its token ``i`` from the port's
+counter-based chain at (seed, i) (``models/gpt2_generate.
+sample_logits``): the first token after its prefill, each later one
+after a decode step, all rows of a step in one draw. The chain keeps no
+state, so a preempted request re-prefills ``prompt + generated`` and
+keeps drawing at counter ``len(generated)``: its stream is the one it
+would have had uninterrupted, and the one ``gpt2_generate`` gives its
+prompt at the same seed. Greedy (``temperature <= 0``) is the argmax.
 
 Every layer of both goes through ``ops.paged_attention`` — on the card
 the hand-written CUDA kernel. PyTorch runs eagerly, so the bucket
@@ -44,6 +56,7 @@ import torch
 
 from quintnet_tpu_torch.analysis.specs import prefill_buckets
 from quintnet_tpu_torch.core.device import resolve_device
+from quintnet_tpu_torch.models.gpt2_generate import sample_logits
 from quintnet_tpu_torch.serve.families import Family
 from quintnet_tpu_torch.serve.kv_pool import KVPool
 from quintnet_tpu_torch.serve.kv_quant import make_policy
@@ -68,12 +81,6 @@ _NOT_PORTED = {
     "ep_axis": "§1, item 7 ('Serving features'): MoE serving",
     "weights_dtype": "§1, item 7 ('Serving features'): "
                      "serve/weight_quant.py",
-    "temperature": "§1, item 5 ('Generation and sampled serving'): a "
-                   "per-request RNG chain for sampled serving",
-    "top_k": "§1, item 5 ('Generation and sampled serving'): top-k "
-             "sampling",
-    "top_p": "§1, item 5 ('Generation and sampled serving'): top-p "
-             "sampling",
     "tp_axis": "§1, item 7 ('Serving features'): tp and ep serving meshes",
     "lora_targets": "§1, item 7 ('Serving features'): serve/adapters.py "
                     "(multi-LoRA)",
@@ -93,8 +100,7 @@ _NOT_PORTED = {
 }
 # the JAX constructor's default of each option above that has one other
 # than None/False/0: passing it is passing nothing
-_JAX_OFF = {"top_p": 1.0, "tp_axis": "tp", "lora_max_rank": 8,
-            "clock": time.monotonic}
+_JAX_OFF = {"tp_axis": "tp", "lora_max_rank": 8, "clock": time.monotonic}
 
 
 def _not_ported(option: str, value):
@@ -166,7 +172,7 @@ class ServeEngine:
                 ("kv_tier_bytes", kv_tier_bytes),
                 ("chunked_prefill", chunked_prefill), ("mesh", mesh),
                 ("sp_axis", sp_axis), ("ep_axis", ep_axis),
-                ("top_k", top_k), ("top_p", top_p), ("tp_axis", tp_axis),
+                ("tp_axis", tp_axis),
                 ("lora_targets", lora_targets),
                 ("lora_max_rank", lora_max_rank),
                 ("lora_rank_bucket_sizes", lora_rank_bucket_sizes),
@@ -189,8 +195,9 @@ class ServeEngine:
                 f"held to the JAX engine's attn_kernel='xla'")
         if weights_dtype not in (None, "f32"):
             _not_ported("weights_dtype", weights_dtype)
-        if temperature > 0.0:
-            _not_ported("temperature", temperature)
+        self.temperature = float(temperature)
+        self.top_k = int(top_k)
+        self.top_p = float(top_p)
         self.device = resolve_device(device)
         self.family = family
         self.params = _to_device(params, self.device)
@@ -247,14 +254,23 @@ class ServeEngine:
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
 
+    def _sample(self, logits, seeds, counters) -> torch.Tensor:
+        """Every row's next token [S] from [S, V] logits: row s drawn at
+        chain counter ``counters[s]`` of ``seeds[s]`` (JAX's
+        ``_sample_rows``), the argmax when greedy."""
+        return sample_logits(logits, seeds, counters,
+                             temperature=self.temperature, top_k=self.top_k,
+                             top_p=self.top_p)
+
     @torch.no_grad()
     def _prefill(self, ids: np.ndarray, start: int, t0: int,
-                 table_row: np.ndarray, cow_src: int, cow_len: int) -> int:
-        """Copy-on-write, then prefill the tail; returns the greedy
-        next token. ``cow_len`` slots of block ``cow_src`` are copied
-        into the block holding position ``start`` BEFORE the tail
-        lands: the cached block stays immutable while the index
-        references it."""
+                 table_row: np.ndarray, cow_src: int, cow_len: int):
+        """Copy-on-write, then prefill the tail; returns the logits [1, V]
+        at position ``t0 - 1`` (the caller draws the request's next token
+        from them). ``cow_len`` slots of block ``cow_src`` are copied
+        into the block holding position ``start`` BEFORE the tail lands:
+        the cached block stays immutable while the index references
+        it."""
         bs = self.pool.block_size
         k_pool, v_pool, *scales = self.pool.caches()
         if cow_len > 0:
@@ -271,18 +287,20 @@ class ServeEngine:
             self.params, k_pool, v_pool, self._dev(ids), start, t0,
             self._dev(table_row), bs, **self._kv_kw(scales))
         self.pool.update(*pools)
-        return int(torch.argmax(logits[0]).item())
+        return logits
 
     @torch.no_grad()
-    def _decode(self, tok: np.ndarray, pos: np.ndarray,
-                tables: np.ndarray) -> np.ndarray:
-        """One batched decode step; returns the greedy tokens [S]."""
+    def _decode(self, tok: np.ndarray, pos: np.ndarray, tables: np.ndarray,
+                seeds, counters) -> np.ndarray:
+        """One batched decode step; returns the next token of every row
+        [S], row s drawn at (``seeds[s]``, ``counters[s]``)."""
         k_pool, v_pool, *scales = self.pool.caches()
         logits, *pools = self.family.decode(
             self.params, k_pool, v_pool, self._dev(tok), self._dev(pos),
             self._dev(tables), self.pool.block_size, **self._kv_kw(scales))
         self.pool.update(*pools)
-        return torch.argmax(logits, dim=-1).to(torch.int32).cpu().numpy()
+        nxt = self._sample(logits, seeds, counters)
+        return nxt.to(torch.int32).cpu().numpy()
 
     def _kv_kw(self, scales) -> dict:
         """The contracts' quantized-KV arguments: the scale tensors and
@@ -302,9 +320,13 @@ class ServeEngine:
                 "block_size": self.pool.block_size}
 
     def submit(self, prompt, max_new_tokens: int, *, priority: int = 0,
-               on_token=None) -> int:
-        """Queue one greedy request; returns its id. ``on_token(rid,
-        token, is_last)`` fires as each token is produced."""
+               seed: Optional[int] = None, on_token=None) -> int:
+        """Queue one request; returns its id. ``seed``: the request's
+        sampling chain (default: its rid, the counterpart of the JAX
+        engine's ``fold_in(key(0), rid)``); pass the seed an independent
+        ``gpt2_generate`` call of the prompt gets to reproduce it token
+        for token. ``on_token(rid, token, is_last)`` fires as each token
+        is produced."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         check_admissible(prompt.size, max_new_tokens, **self.limits())
         rid = self._rid_counter
@@ -312,7 +334,8 @@ class ServeEngine:
         req = Request(rid=rid, prompt=prompt,
                       max_new_tokens=int(max_new_tokens),
                       priority=int(priority),
-                      arrival=self._arrival_counter, on_token=on_token)
+                      arrival=self._arrival_counter, on_token=on_token,
+                      seed=rid if seed is None else int(seed))
         self._arrival_counter += 1
         req.submit_time = self.clock()
         self._results[rid] = req
@@ -433,8 +456,10 @@ class ServeEngine:
         tail = tokens[start:t0]
         ids = np.zeros((1, self._bucket_for(len(tail))), np.int32)
         ids[0, :len(tail)] = tail
-        tok0 = self._prefill(ids, start, t0, self._tables[slot],
-                             plan.cow_src or 0, plan.cow_len)
+        logits = self._prefill(ids, start, t0, self._tables[slot],
+                               plan.cow_src or 0, plan.cow_len)
+        tok0 = int(self._sample(logits, [req.seed],
+                                [len(req.generated)])[0].item())
         if plan.cow_src is not None:
             self.pool.release([plan.cow_src])  # pinned for the copy only
         self._tok[slot] = tok0
@@ -494,7 +519,11 @@ class ServeEngine:
         decode_tokens = 0
         active = self._active_slots()
         if active:
-            nxt = self._decode(self._tok, self._pos, self._tables)
+            rows = self._slot_req
+            nxt = self._decode(
+                self._tok, self._pos, self._tables,
+                [r.seed if r is not None else 0 for r in rows],
+                [len(r.generated) if r is not None else 0 for r in rows])
             for slot in active:
                 token = int(nxt[slot])
                 self._tok[slot] = token
@@ -525,8 +554,9 @@ class ServeEngine:
         zrow = np.zeros((self.table_width,), np.int32)
         for b in self.prefill_buckets:
             self._prefill(np.zeros((1, b), np.int32), 0, 1, zrow, 0, 0)
+        zeros = [0] * len(self._tok)
         self._decode(np.zeros_like(self._tok), np.zeros_like(self._pos),
-                     np.zeros_like(self._tables))
+                     np.zeros_like(self._tables), zeros, zeros)
 
     def run(self, *, max_steps: Optional[int] = None) -> None:
         """Step until all submitted work is finished (or ``max_steps``)."""

@@ -31,11 +31,14 @@ FINISHED = "finished"
 @dataclass
 class RequestProgress:
     """Portable host-side resume payload for one unfinished request:
-    the original prompt and the tokens generated so far. Any engine
-    built from the same (family, params) that re-prefills ``prompt +
-    generated`` continues a greedy stream exactly where it stopped.
-    (The JAX payload also carries the evolved sampling key; the port
-    serves greedy decoding only.)"""
+    the original prompt, the tokens generated so far and the request's
+    sampling seed. Any engine built from the same (family, params and
+    sampling settings) that re-prefills ``prompt + generated`` and keeps
+    drawing at chain counter ``len(generated)`` of ``seed``
+    (``models/gpt2_generate.sample_logits``) continues the stream
+    exactly where it stopped, greedy or sampled. The JAX payload carries
+    the evolved key (``key_data``) instead: the port's chain has no
+    evolving state, so ``(seed, len(generated))`` is the whole of it."""
 
     rid: int
     prompt: np.ndarray
@@ -43,6 +46,7 @@ class RequestProgress:
     max_new_tokens: int
     priority: int = 0
     preemptions: int = 0
+    seed: int = 0
 
 
 @dataclass
@@ -57,6 +61,8 @@ class Request:
     priority: int = 0                       # lower = more urgent
     arrival: int = 0                        # monotone submit stamp
     on_token: Optional[Callable] = None     # streaming callback
+    seed: int = 0                           # sampling chain (resume state
+                                            # with len(generated))
 
     # --- runtime (engine-managed) ---
     state: str = WAITING
@@ -90,7 +96,7 @@ class Request:
             rid=self.rid, prompt=np.array(self.prompt, copy=True),
             generated=list(self.generated),
             max_new_tokens=self.max_new_tokens, priority=self.priority,
-            preemptions=self.preemptions)
+            preemptions=self.preemptions, seed=self.seed)
 
 
 class Scheduler:

@@ -1003,3 +1003,23 @@ def test_tiny_bf16_training_step_on_card_matches_cpu(cuda_device):
     for path, g in grads_cpu.items():
         assert grads[path].dtype == torch.float32
         assert _rel_err(grads[path].cpu(), g) <= 5e-2, path
+
+
+@pytest.mark.cuda
+def test_sampling_chain_integers_equal_on_the_card(cuda_device):
+    """The sampling chain's int64 hash gives the card the CPU's integers
+    (one serve step's [8, 50,257] draw), and a sampled draw from the
+    same logits picks the same tokens."""
+    from quintnet_tpu_torch.models.gpt2_generate import (chain_bits,
+                                                         sample_logits)
+
+    seeds = list(range(8))
+    ctr = [0, 1, 2, 3, 100, 1000, 31, 7]
+    cpu = chain_bits(seeds, ctr, 50257, "cpu")
+    assert torch.equal(chain_bits(seeds, ctr, 50257, cuda_device).cpu(),
+                       cpu)
+    logits = torch.randn(8, 50257, generator=torch.Generator().manual_seed(0))
+    kw = dict(temperature=0.8, top_k=50, top_p=0.95)
+    assert torch.equal(
+        sample_logits(logits.to(cuda_device), seeds, ctr, **kw).cpu(),
+        sample_logits(logits, seeds, ctr, **kw))

@@ -109,12 +109,15 @@ def test_sample_logits_filters():
     logits = torch.tensor([[0.1, 2.0, -1.0, 1.9, 0.5]] * 64)
     greedy = sample_logits(logits, temperature=0.0)
     assert greedy.tolist() == [1] * 64
-    gen = torch.Generator().manual_seed(0)
-    top2 = sample_logits(logits, gen, temperature=1.0, top_k=2)
+    # the sampling chain: row b at seed 0 + b, counter 0
+    top2 = sample_logits(logits, 0, 0, temperature=1.0, top_k=2)
     assert set(top2.tolist()) == {1, 3}
+    # the same seeds and counters draw the same tokens
+    assert torch.equal(sample_logits(logits, 0, 0, temperature=1.0,
+                                     top_k=2), top2)
     # nucleus at 0.5 keeps the top token only (it holds >= half the mass
     # after temperature 0.1 sharpening)
-    nucleus = sample_logits(logits, gen, temperature=0.1, top_p=0.5)
+    nucleus = sample_logits(logits, 7, 3, temperature=0.1, top_p=0.5)
     assert nucleus.tolist() == [1] * 64
 
 

@@ -318,8 +318,12 @@ def test_bf16_loss_near_f32():
 
 
 REFUSED = {
-    "prefill": lambda: pl.llama_block_prefill(None, None, None, None, None),
-    "decode": lambda: pl.llama_block_decode(),
+    # the dense prefill and decode blocks are ported (the generation
+    # decoders); their paged serving forms still refuse
+    "prefill": lambda: pl.llama_block_prefill_paged_sp(),
+    "decode": lambda: pl.llama_block_decode(
+        None, None, None, None, 0, pl.LlamaConfig.tiny(), None, None,
+        block_tables=torch.zeros((1, 1), dtype=torch.int32), block_size=4),
     "verify": lambda: pl.llama_block_verify_paged(),
     "prefill_paged": lambda: pl.llama_block_prefill_paged(),
     "from_hf_state": lambda: pl.llama_from_hf_state({}, pl.LlamaConfig()),

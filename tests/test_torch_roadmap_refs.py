@@ -102,7 +102,9 @@ def test_messages_are_found():
     msgs = _messages()
     files = {f for f, _ in msgs}
     for want in ("quintnet_tpu_torch/nn/transformer.py",
+                 "quintnet_tpu_torch/nn/attention.py",
                  "quintnet_tpu_torch/models/gpt2.py",
+                 "quintnet_tpu_torch/models/gpt2_generate.py",
                  "quintnet_tpu_torch/models/llama.py",
                  "quintnet_tpu_torch/ops/flash_kernels.py",
                  "quintnet_tpu_torch/serve/families.py", "strategy",
@@ -136,3 +138,23 @@ def test_remat_dots_points_at_the_k1_k3_item():
     _, _, still = _roadmap()
     (place,) = _places(REMAT_DOTS_ITEM)
     assert place[0] == "owed" and "remat" in still[place[2]]
+
+
+def test_generation_refusals_name_items_6_and_7():
+    """The generation slice's refusals: vocab-parallel decoding is queued
+    with sequence parallelism (item 6), paged Llama decoding and tp
+    paged decoding with the serving features (item 7)."""
+    _, items, _ = _roadmap()
+    by_file = {}
+    for where, msg in _messages():
+        by_file.setdefault(where, []).append(msg)
+    for where, needle, item in (
+            ("quintnet_tpu_torch/models/gpt2_generate.py", "vocab-parallel",
+             6),
+            ("quintnet_tpu_torch/models/llama.py", "llama_block_decode", 7),
+            ("quintnet_tpu_torch/nn/attention.py", "tp mesh", 7)):
+        msgs = [m for m in by_file[where] if needle in m]
+        assert msgs, (where, needle)
+        for m in msgs:
+            assert ("item", 1, item) in _places(m), (where, m)
+            assert item in items

@@ -197,7 +197,7 @@ def test_submit_rejects_what_can_never_run(params):
 @pytest.mark.parametrize("option,value", [
     ("spec", True), ("adapters", object()), ("kv_tier_bytes", 1 << 20),
     ("chunked_prefill", True), ("mesh", object()), ("sp_axis", "sp"),
-    ("ep_axis", "ep"), ("weights_dtype", "int8"), ("temperature", 0.7)])
+    ("ep_axis", "ep"), ("weights_dtype", "int8")])
 def test_unported_options_raise(params, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(gpt2_family(CFG), params[1], device="cpu",
@@ -237,7 +237,6 @@ def test_bad_prefill_ladder_raises_in_both(params, kw):
 # each JAX option the port does not serve yet: a value that asks for it,
 # the JAX default ("off"), and the ROADMAP.md item its message names
 JAX_ONLY_OPTIONS = {
-    "top_k": (40, 0, "item 5"), "top_p": (0.9, 1.0, "item 5"),
     "tp_axis": ("model", "tp", "item 7"),
     "lora_targets": (("qkv",), None, "item 7"),
     "lora_max_rank": (16, 8, "item 7"),
@@ -259,6 +258,20 @@ def test_jax_only_options_raise_naming_their_item(params, option):
                     **{option: on})
     eng = ServeEngine(gpt2_family(CFG), params[1], device="cpu",
                       max_seq_len=40, **{option: off})
+    assert eng.prefill_buckets == prefill_buckets(40)
+
+
+@pytest.mark.parametrize("option,on,off", [
+    ("temperature", 0.7, 0.0), ("top_k", 40, 0), ("top_p", 0.9, 1.0)])
+def test_sampling_options_are_served(params, option, on, off):
+    """The sampling options, once refused naming item 5, are served: the
+    engine takes a value that asks for them and their JAX default."""
+    eng = ServeEngine(gpt2_family(CFG), params[1], device="cpu",
+                      **{option: on})
+    assert getattr(eng, option) == on
+    eng = ServeEngine(gpt2_family(CFG), params[1], device="cpu",
+                      max_seq_len=40, **{option: off})
+    assert getattr(eng, option) == off
     assert eng.prefill_buckets == prefill_buckets(40)
 
 
