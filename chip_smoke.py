@@ -29,7 +29,9 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    causal, (4, 12, 512) causal with packed-segment ids, (2, 12, 300)
    causal with a ragged last tile, (8, 12, 256) non-causal and
    (1, 12, 4096) causal, and Llama-3.2-1B's (4, 32, 1024) causal, the
-   same packed and a tp2 rank's (4, 16, 1024), each in f32 and again in
+   same packed and a tp2 rank's (4, 16, 1024) (also a llama_sp2_ulysses
+   rank's), and an sp2_ulysses rank's (4, 6, 1024) causal: half of
+   GPT-2's heads over all its positions, each in f32 and again in
    bf16 (the same values
    rounded to bf16; the bf16 kernels against their bf16 plain versions
    within 2^-7 of the largest magnitude, lse within 1e-5, and against
@@ -204,8 +206,10 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    reference whose micro-batches are its dp ranks' micro-batches
    together), written to temporary files; then a 2-rank probe of which
    collectives gloo runs on CUDA tensors (all_reduce, all_gather,
-   reduce_scatter and the pipeline's shift, an ``all_to_all_single``
-   with uneven splits, and all_reduce in bf16 must); then, 2 steps each
+   reduce_scatter, the pipeline's shift and a ``ppermute`` with an idle
+   sender, each an ``all_to_all_single`` with uneven splits, the
+   all_to_all at the sp2_ulysses run's q/k/v shape (timed), and
+   all_reduce in bf16 must); then, 2 steps each
    through ``Trainer.fit`` on every rank, the runs of one world size in
    turn in one world (a rank's process, torch's import and the card's
    context paid once a size, not once a run): dp2 (one micro-batch of 32 a
@@ -251,11 +255,20 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    same micro-batches (ep is a batch axis), the losses with the aux
    term, and every first-batch routing decision as the reference's
    (a flip only within ``ROUTE_TIE`` of its router probabilities; the
-   agreement and the drops reported). On every rank the counts are zeroed
+   agreement and the drops reported). The slice-16 runs, sequence
+   parallel on sp = 2 in the 2-rank world: GPT-2 124M uncut (12 layers)
+   on 8 rows of its whole 1,024 positions, 512 a rank, 2 micro-batches,
+   in each ``sp_mode`` (sp2_ring, sp2_zigzag: plain attention per chunk
+   pair, no flash launch; sp2_ulysses: K1-K3 on 6 of the 12 heads over
+   all 1,024 positions), and Llama-3.2-1B's widths at 4 layers by
+   Ulysses (llama_sp2_ulysses, llama_tp2's reference), each at the f32
+   gates against one rank on the same rows (all three GPT-2 runs one
+   reference, whose step is also timed beside theirs). On every rank
+   the counts are zeroed
    just before ``fit`` and read just after: K2 and K3 each the stage's
    layers x micro-batches x steps, K1 the same (twice under ``1f1b``,
-   whose backward sub-step reruns the forward), all of the run's dtype,
-   none routed; then one step timed (wall ms, peak memory, the optimizer
+   whose backward sub-step reruns the forward; none in ring and zigzag),
+   all of the run's dtype, none routed; then one step timed (wall ms, peak memory, the optimizer
    state's bytes beside the replicated state's) and one under
    ``torch.profiler`` with each collective entered on a drained device
    (the flash kernels of the run's dtype by name a step, and the share
@@ -317,6 +330,7 @@ TIMED_ITERS = 20
 DEVICE = "cuda"
 TRAIN_CASE = "causal_B32_S512_train"
 LLAMA_CASE = "llama_B4_H32_S1024"
+ULYSSES_CASE = "sp2_ulysses_B4_H6_S1024"
 FLASH_KERNELS = {                # wrapper -> the TPU kernel it replaces
     "flash_fwd": "quintnet_tpu/ops/pallas_attention.py:97",
     "flash_bwd_dkv": "quintnet_tpu/ops/pallas_attention.py:259",
@@ -807,7 +821,9 @@ def _flash_cases():
     # micro-batch of 4 rows of 1,024 with all 32 heads (the llama_train
     # phases; the 16 kv heads repeated to 32 before the call), the same
     # with packed-document segment ids (llama_packed) and a tp = 2 rank's
-    # 16 heads (the llama_tp2 mesh run)
+    # 16 heads (the llama_tp2 mesh run, and llama_sp2_ulysses: its 32
+    # repeated heads over sp = 2); last an sp2_ulysses rank's: a
+    # micro-batch of 4 rows, 6 of the 12 heads over all 1,024 positions
     shapes = [(TRAIN_CASE, 32, 12, 512, True, False),
               ("mesh_tp2_B32_H6_S512", 32, 6, 512, True, False),
               ("mesh_dp2tp2_B4_H6_S512", 4, 6, 512, True, False),
@@ -821,7 +837,8 @@ def _flash_cases():
               ("causal_B1_S4096", 1, 12, 4096, True, False),
               (LLAMA_CASE, 4, 32, 1024, True, False),
               ("llama_packed_B4_H32_S1024", 4, 32, 1024, True, True),
-              ("llama_tp2_B4_H16_S1024", 4, 16, 1024, True, False)]
+              ("llama_tp2_B4_H16_S1024", 4, 16, 1024, True, False),
+              (ULYSSES_CASE, 4, 6, 1024, True, False)]
     f32_tols = {key: ("rel", KERNEL_TOL)
                 for key in ("o", "lse", "dq", "dk", "dv")}
     bf16_tols = {"o": ("rel", BF16_TOL), "lse": ("abs", LSE_TOL_BF16),
@@ -2889,7 +2906,8 @@ def phase_resume():
 # "dtype" ("bfloat16": bf16 compute from f32 masters, Adam mu in bf16),
 # "save" (checkpoint every step into the phase's work directory: the
 # uncut run of the resume check), "resume" (a fresh world restores the
-# named run's step 1 and takes step 2)
+# named run's step 1 and takes step 2), "sp_mode" (on an sp mesh: "ring",
+# "zigzag" or "ulysses"; only Ulysses runs the flash kernels)
 MESH_RUNS = {
     "dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"layers": 6}),
     "tp2": ([2], ["tp"], 2, 64, "afab", "adamw", {"layers": 6}),
@@ -2919,10 +2937,21 @@ MESH_RUNS = {
     # GPT-2 124M, 12 layers, 8 mlp experts a block, top-2
     "gpt2_moe_ep2tp2": ([2, 2], ["ep", "tp"], 1, 8, "afab", "adamw",
                         {"model": "gpt2_moe"}),
+    # sequence parallel: GPT-2 124M uncut at its 1,024 positions, 512 a
+    # rank, in each mode; Llama-3.2-1B widths (4 layers) by Ulysses
+    "sp2_ring": ([2], ["sp"], 2, 8, "afab", "adamw",
+                 {"model": "gpt2_1k", "sp_mode": "ring"}),
+    "sp2_zigzag": ([2], ["sp"], 2, 8, "afab", "adamw",
+                   {"model": "gpt2_1k", "sp_mode": "zigzag"}),
+    "sp2_ulysses": ([2], ["sp"], 2, 8, "afab", "adamw",
+                    {"model": "gpt2_1k", "sp_mode": "ulysses"}),
+    "llama_sp2_ulysses": ([2], ["sp"], 2, 8, "afab", "adamw",
+                          {"model": "llama", "sp_mode": "ulysses"}),
 }
 # model -> (what it is, its sequence length); built by _run_model
 MESH_MODELS = {
     "gpt2": ("gpt2-124M", 512),
+    "gpt2_1k": ("gpt2-124M at its 1,024 positions", 1024),
     "gpt2_moe": ("gpt2-124M with 8 mlp experts a block, top-2", 512),
     "llama": ("Llama-3.2-1B widths cut to 4 layers", 1024),
     "llama_moe": ("Llama-3.2-1B widths cut to 2 layers, 8 SwiGLU experts "
@@ -2945,15 +2974,21 @@ MESH_TOL = {"first_loss": 1e-5, "grad": 1e-3, "step_loss": 1e-4}
 MESH_TOL_BF16 = {"first_loss": 1e-2, "grad": 5e-2, "step_loss": 1e-2}
 # the collectives tried on CUDA tensors over gloo (point-to-point is not:
 # gloo would be handed a device pointer); "shift" is the pipeline's
-# shift, which on gloo CUDA tensors is an all_to_all_single whose split
-# sizes are zero except toward the neighbour (core/collectives.py)
+# shift and "ppermute" a permutation with an idle sender (zigzag's
+# relayout), both an all_to_all_single on gloo CUDA tensors whose split
+# sizes are zero except toward the destination (core/collectives.py);
+# "all_to_all_ulysses" is the sp2_ulysses run's q/k/v exchange at its
+# shape (PROBE_ULYSSES), timed
 PROBED = ("all_reduce", "broadcast", "all_gather", "reduce_scatter",
-          "all_to_all", "shift", "all_reduce_bf16", "all_gather_bf16",
-          "reduce_scatter_bf16")
+          "all_to_all", "shift", "ppermute", "all_to_all_ulysses",
+          "all_reduce_bf16", "all_gather_bf16", "reduce_scatter_bf16")
 # the probed collectives the mesh runs need: a failure stops the phase
 # (bf16: tp's activation sums of the 3d_bf16 run)
 PROBE_GATED = ("all_reduce", "all_gather", "reduce_scatter", "shift",
-               "all_reduce_bf16", "all_to_all")
+               "ppermute", "all_to_all_ulysses", "all_reduce_bf16",
+               "all_to_all")
+# q, k, v stacked [3, B, H, S / sp, D] of an sp2_ulysses micro-batch
+PROBE_ULYSSES = (3, 4, 12, 512, 64)
 
 
 def _run_parts(run):
@@ -3002,7 +3037,7 @@ def _run_model(run):
     kind = _run_opts(run).get("model", "gpt2")
     seq = MESH_MODELS[kind][1]
     tokens = run[3] // _ref_micro(run) * seq
-    if kind == "gpt2":
+    if kind in ("gpt2", "gpt2_1k"):
         return dataclasses.replace(
             GPT2Config.base(), n_layer=_run_opts(run).get("layers", 12))
     if kind == "gpt2_moe":
@@ -3082,16 +3117,16 @@ def _flat_cpu(tree):
             for k, v in tree_leaves(tree)}
 
 
-def _mesh_model(cfg, dtype=None):
+def _mesh_model(cfg, dtype=None, sp_mode="ring"):
     """The mesh runs' training model of ``cfg``'s family (flash
     attention; bf16 compute from the f32 masters when ``dtype`` says
-    so)."""
+    so; ``sp_mode``: its attention on an sp mesh)."""
     from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
     from quintnet_tpu_torch.models.llama import llama_model_spec
 
     spec = gpt2_model_spec if isinstance(cfg, GPT2Config) else \
         llama_model_spec
-    return spec(cfg, use_flash=True, compute_dtype=(
+    return spec(cfg, use_flash=True, sp_mode=sp_mode, compute_dtype=(
         torch.bfloat16 if dtype == "bfloat16" else None))
 
 
@@ -3155,7 +3190,8 @@ def _mesh_reference(cfg, host, n_micro, device, path, *, dtype=None,
     (``dtype="bfloat16"``: bf16 compute and a bf16 first moment). Saved
     as CPU tensors to ``path``, with only the parts of ``REF_PARTS`` in
     ``keep`` (``_ref_needs``: the card's disk takes 45 GiB of writes a
-    call); returns the losses."""
+    call); returns the losses and one more step's wall ms and peak memory
+    (what a mesh run's step is set beside)."""
     from quintnet_tpu_torch.parallel.dp import accumulate_grads
     from quintnet_tpu_torch.train.trainer import Trainer
 
@@ -3180,7 +3216,13 @@ def _mesh_reference(cfg, host, n_micro, device, path, *, dtype=None,
         if part in keep:
             ref[part] = _flat_cpu(tree)
     torch.save(ref, path)
-    return {"first_loss": float(loss), "losses": [float(v) for v in losses]}
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    return {"first_loss": float(loss), "losses": [float(v) for v in losses],
+            "step_ms": _wall_step_ms(tr, p, st, host[0]),
+            "peak_memory_gib": (torch.cuda.max_memory_allocated() / 2 ** 30
+                                if on_card else None)}
 
 
 def _ref_needs(run) -> set:
@@ -3245,9 +3287,23 @@ def _probe_rank(rank, world, store, device):
                 lambda t: cc.ppermute_shift(t, ax, shift=1, wrap=False),
                 torch.arange(4.0) + 10 * (rank - 1) if rank
                 else torch.zeros(4)),
+            # member 0 sends to 1, member 1 sends nothing: 0 gets zeros
+            "ppermute": (
+                lambda t: cc.ppermute(t, ax, [(0, 1)]),
+                torch.arange(4.0) if rank == 1 else torch.zeros(4)),
         }
         tries = {name: (lambda fn=fn: fn(x), want)
                  for name, (fn, want) in ops.items()}
+        # heads h and member s: h + 1000 s; after the exchange member r
+        # holds its heads' chunk of every member's slice, in member order
+        _, B, H, S, D = PROBE_ULYSSES
+        head = torch.arange(float(H)).reshape(1, 1, H, 1, 1)
+        qkv = (head + 1000.0 * rank).expand(PROBE_ULYSSES).to(dev)
+        mine = head[:, :, rank * H // world:(rank + 1) * H // world]
+        tries["all_to_all_ulysses"] = (
+            lambda: cc.all_to_all(qkv, ax, split_dim=2, concat_dim=3),
+            torch.cat([(mine + 1000.0 * r).expand(3, B, H // world, S, D)
+                       for r in range(world)], dim=3))
         # bf16 (small integers: exact): the 3d_bf16 run's tp sums
         xb = x.to(torch.bfloat16)
         for name in ("all_reduce", "all_gather", "reduce_scatter"):
@@ -3259,13 +3315,30 @@ def _probe_rank(rank, world, store, device):
             fn, want = tries[name]
             try:
                 got = fn()
-                out[name] = ("ok" if torch.equal(got.cpu(), want)
-                             else f"wrong value {got.tolist()}")
+                out[name] = ("ok" if torch.equal(got.cpu(), want) else
+                             f"wrong value {got.flatten()[:8].tolist()}")
             except RuntimeError as e:
                 out[name] = f"raised {type(e).__name__}: {str(e)[:160]}"
+        if out["all_to_all_ulysses"] == "ok":
+            out["all_to_all_ulysses_ms"] = _collective_ms(
+                tries["all_to_all_ulysses"][0], torch.device(dev))
         return out
     finally:
         runtime.shutdown()
+
+
+def _collective_ms(fn, dev, calls=5) -> float:
+    """Mean wall ms of ``calls`` calls of a collective after one warm-up
+    (host clock, a card drained before and after: gloo stages CUDA
+    tensors through host memory)."""
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    fn()
+    sync()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    sync()
+    return (time.perf_counter() - t0) * 1e3 / calls
 
 
 def _broadcast(x):
@@ -3560,8 +3633,10 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
             else None)
     tr = Trainer(_mesh_config(rows, n_micro, sizes, schedule, optimizer,
                               **_run_training(run)),
-                 _mesh_model(cfg, opts.get("dtype")), task_type="clm",
-                 device=dev, log_fn=lambda m: None, checkpoint_dir=ckpt)
+                 _mesh_model(cfg, opts.get("dtype"),
+                             opts.get("sp_mode", "ring")),
+                 task_type="clm", device=dev, log_fn=lambda m: None,
+                 checkpoint_dir=ckpt)
     strat = tr.strategy
     specs = strat.param_specs(tr.model)
     ref = torch.load(ref_path, mmap=True)
@@ -3661,12 +3736,15 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
 
 
 def _wall_step_ms(trainer, params, opt_state, b) -> float:
-    """One step's wall time (no profiler; host clock, synced)."""
+    """One step's wall time (no profiler; host clock, synced on the
+    card)."""
     batch = trainer.device_batch(*b)
-    torch.cuda.synchronize()
+    sync = (torch.cuda.synchronize
+            if torch.device(trainer.device).type == "cuda" else (lambda: None))
+    sync()
     t0 = time.perf_counter()
     trainer.step_fn(params, opt_state, batch)
-    torch.cuda.synchronize()
+    sync()
     return (time.perf_counter() - t0) * 1e3
 
 
@@ -3675,7 +3753,7 @@ def _exact(run) -> bool:
     alone (fsdp or not). The others take the f32 (or bf16) tolerances."""
     sizes = dict(zip(run[1], run[0]))
     return (_run_opts(run).get("model", "gpt2") == "gpt2"
-            and sizes.get("tp", 1) == 1 and sizes.get("pp", 1) == 1)
+            and all(sizes.get(a, 1) == 1 for a in ("tp", "pp", "sp")))
 
 
 def _resume_rank(rank, world, store, run, host, model, device, work):
@@ -3738,10 +3816,14 @@ def _resume_rank(rank, world, store, run, host, model, device, work):
 def _per_step(run, n_layer):
     """Each flash kernel's launches a step on one rank of ``run``: its
     stage's layers x its micro-batches, the forward twice under ``1f1b``
-    (the backward sub-step reruns it)."""
+    (the backward sub-step reruns it); none on an sp mesh in ring or
+    zigzag mode (plain attention per chunk pair, as in JAX)."""
     mesh_dim, mesh_name, n_micro, _, schedule, _ = _run_parts(run)
-    pp = dict(zip(mesh_name, mesh_dim)).get("pp", 1)
-    n = n_layer // pp * n_micro
+    sizes = dict(zip(mesh_name, mesh_dim))
+    pp = sizes.get("pp", 1)
+    ring = (sizes.get("sp", 1) > 1
+            and _run_opts(run).get("sp_mode", "ring") != "ulysses")
+    n = 0 if ring else n_layer // pp * n_micro
     return {"flash_fwd": n * (2 if pp > 1 and schedule == "1f1b" else 1),
             "flash_bwd_dkv": n, "flash_bwd_dq": n}
 
@@ -3939,8 +4021,8 @@ def phase_mesh():
                 host = [(x[:rows], y[:rows]) for x, y in hosts[kind]]
                 path = os.path.join(tmp, "ref_" + "_".join(map(str, key))
                                     + ".pt")
-                keep = set().union(*(_ref_needs(r) for r in MESH_RUNS.values()
-                                     if _ref_key(r) == key))
+                runs = [r for r in MESH_RUNS.values() if _ref_key(r) == key]
+                keep = set().union(*(_ref_needs(r) for r in runs))
                 refs[key] = (host, path, _mesh_reference(
                     _run_model(run), host, n_micro, DEVICE, path,
                     dtype=dtype or None, keep=keep))
@@ -4051,8 +4133,8 @@ def _check_mesh_run(name, run, ranks, ref, cfg):
     per_step = _per_step(run, n_layer)
     want = {k: n * MESH_STEPS for k, n in per_step.items()}
     want["paged_attention"] = 0
-    want_dtype = {k: {"bf16" if bf16 else "f32": n * MESH_STEPS}
-                  for k, n in per_step.items()}
+    want_dtype = {k: {"bf16" if bf16 else "f32": n * MESH_STEPS} if n
+                  else {} for k, n in per_step.items()}
     for r in ranks:
         where = f"mesh {name} rank {r['rank']} {r['coords']}"
         if r["launches"] != want or r["launches_by_dtype"] != want_dtype:
@@ -4135,6 +4217,11 @@ def _check_mesh_run(name, run, ranks, ref, cfg):
             "reference": f"one rank, {rows} rows in {_ref_micro(run)} "
                          f"micro-batches{', bf16' if bf16 else ''}",
             "reference_losses": ref["losses"],
+            "single_rank_step_ms": ref["step_ms"],
+            "single_rank_peak_memory_gib": ref["peak_memory_gib"],
+            **({"sp_mode": opts.get("sp_mode", "ring"),
+                "seq_a_rank": MESH_MODELS[kind][1] // sizes["sp"]}
+               if sizes.get("sp", 1) > 1 else {}),
             "gate": gate,
             "ranks": [{k: v for k, v in r.items()
                        if k not in ("launches", "routed")} for r in ranks],

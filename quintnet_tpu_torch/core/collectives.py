@@ -16,7 +16,8 @@ check_vma=False)``, not the reference's Megatron rules, so that
 - ``all_gather``             -> ``reduce_scatter``;
 - ``reduce_scatter``         -> ``all_gather``;
 - ``all_to_all``             -> the reverse ``all_to_all``;
-- a shift (ppermute)         -> the opposite shift, zeros at the edges.
+- ``ppermute`` (a shift is one) -> the inverse permutation (the
+  opposite shift), zeros where nothing is sent.
 
 Every call runs inside a ``torch.profiler.record_function`` range named
 ``collective:<name>`` (:func:`communicate`). A backend that cannot run a
@@ -24,12 +25,13 @@ collective on the tensors' device raises; nothing is staged elsewhere
 (gloo stages CUDA tensors through host memory inside its own
 collectives, for a shift as for an all-reduce).
 
-The shift's implementation is chosen by the axis group's backend, not by
-trying one and catching its failure: NCCL, and gloo on CPU tensors, run
-point-to-point (``dist.batch_isend_irecv``); gloo on CUDA tensors would
-be handed a device pointer for point-to-point, so there the shift is one
+A permutation's implementation (``ppermute``, and the shift that the
+pipelines and the ring run) is chosen by the axis group's backend, not
+by trying one and catching its failure: NCCL, and gloo on CPU tensors,
+run point-to-point (``dist.batch_isend_irecv``); gloo on CUDA tensors
+would be handed a device pointer for point-to-point, so there it is one
 ``dist.all_to_all_single`` over the axis whose split sizes are zero
-except toward the neighbour (:func:`_shift_all_to_all`).
+except toward the destination (:func:`_permute_all_to_all`).
 """
 
 from __future__ import annotations
@@ -120,18 +122,36 @@ def _neighbours(ax: MeshAxis, shift: int, wrap: bool):
     return (dst if 0 <= dst < n else None), (src if 0 <= src < n else None)
 
 
-def _shift(x, ax: MeshAxis, shift: int, wrap: bool):
-    """Member i's x arrives at member i + shift; members nobody sends to
-    (the edges without ``wrap``) receive zeros."""
+def _endpoints(ax: MeshAxis, perm):
+    """(member this one sends to, member it receives from) under ``perm``
+    (JAX's ``lax.ppermute`` pairs ``(source, destination)``); None where
+    the permutation names none."""
+    i = ax.index
+    dsts = [d for s, d in perm if s == i]
+    srcs = [s for s, d in perm if d == i]
+    if len(dsts) > 1 or len(srcs) > 1:
+        raise ValueError(f"ppermute: {perm} sends or receives twice at "
+                         f"member {i}")
+    for s, d in perm:
+        if not (0 <= s < ax.size and 0 <= d < ax.size):
+            raise ValueError(f"ppermute: {perm} names a member outside "
+                             f"0..{ax.size - 1}")
+    return (dsts[0] if dsts else None), (srcs[0] if srcs else None)
+
+
+def _permute(x, ax: MeshAxis, dst, src):
+    """This member's x goes to member ``dst`` and it receives member
+    ``src``'s (either None: nothing sent, zeros received)."""
     x = x.contiguous()
     if x.is_cuda and dist.get_backend(ax.group) == "gloo":
-        return _shift_all_to_all(x, ax, shift, wrap)
-    return _shift_p2p(x, ax, shift, wrap)
+        return _permute_all_to_all(x, ax, dst, src)
+    return _permute_p2p(x, ax, dst, src)
 
 
-def _shift_p2p(x, ax: MeshAxis, shift: int, wrap: bool):
+def _permute_p2p(x, ax: MeshAxis, dst, src):
+    if dst == ax.index:          # a fixed point: kept, nothing on the wire
+        return x.clone()
     out = torch.zeros_like(x)
-    dst, src = _neighbours(ax, shift, wrap)
     ops = []
     if dst is not None:
         ops.append(dist.P2POp(dist.isend, x, ax.ranks[dst], group=ax.group))
@@ -144,12 +164,11 @@ def _shift_p2p(x, ax: MeshAxis, shift: int, wrap: bool):
     return out
 
 
-def _shift_all_to_all(x, ax: MeshAxis, shift: int, wrap: bool):
-    """The shift as one all-to-all over the whole axis: this member's
-    flat x is the split toward its destination, every other split is
-    empty, and the one non-empty split that arrives comes from its
-    source. Every member of the axis takes part, senders or not."""
-    dst, src = _neighbours(ax, shift, wrap)
+def _permute_all_to_all(x, ax: MeshAxis, dst, src):
+    """The permutation as one all-to-all over the whole axis: this
+    member's flat x is the split toward its destination, every other
+    split is empty, and the one non-empty split that arrives comes from
+    its source. Every member of the axis takes part, senders or not."""
     n = x.numel()
     send_sizes = [n if j == dst else 0 for j in range(ax.size)]
     recv_sizes = [n if j == src else 0 for j in range(ax.size)]
@@ -212,15 +231,41 @@ class _AllToAll(torch.autograd.Function):
         return _all_to_all(g, ctx.ax, concat_dim, split_dim), None, None, None
 
 
-class _Shift(torch.autograd.Function):
+class _Permute(torch.autograd.Function):
+    """A permutation (a shift is one); its backward is the inverse
+    permutation: the cotangent goes back from destination to source."""
+
     @staticmethod
-    def forward(ctx, x, ax, shift, wrap):
-        ctx.ax, ctx.shift, ctx.wrap = ax, shift, wrap
-        return _shift(x, ax, shift, wrap)
+    def forward(ctx, x, ax, dst, src):
+        ctx.ax, ctx.ends = ax, (dst, src)
+        return _permute(x, ax, dst, src)
 
     @staticmethod
     def backward(ctx, g):
-        return _shift(g, ctx.ax, -ctx.shift, ctx.wrap), None, None, None
+        dst, src = ctx.ends
+        return _permute(g, ctx.ax, src, dst), None, None, None
+
+
+class _Tie(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, a, *others):
+        ctx.n = len(others)
+        return a.view_as(a)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (g,) + (None,) * ctx.n
+
+
+def tie(a, *others):
+    """``a`` as it is, with ``others`` made inputs of it in the autograd
+    graph: they get no gradient, but every backward that reaches ``a``
+    also reaches (with zeros) whatever they depend on. A collective's
+    backward is a collective that every member of its axis must enter:
+    a result that one rank does not use (a masked ring chunk, a pipeline
+    tick with nothing to compute) is tied in so that its collective's
+    backward still runs there."""
+    return _Tie.apply(a, *others)
 
 
 # ---------------------------------------------------------------------
@@ -291,7 +336,21 @@ def ppermute_shift(x, axis: AxisNames, mesh: Optional[Mesh] = None, *,
     ax = resolve_axis(axis, mesh)
     if ax.size == 1:
         return x if wrap or shift == 0 else torch.zeros_like(x)
-    return _Shift.apply(x, ax, int(shift), bool(wrap))
+    return _Permute.apply(x, ax, *_neighbours(ax, int(shift), bool(wrap)))
+
+
+def ppermute(x, axis: AxisNames, perm, mesh: Optional[Mesh] = None):
+    """JAX's ``lax.ppermute``: ``perm`` is a list of ``(source,
+    destination)`` members of ``axis``; member ``source``'s x arrives at
+    ``destination``, and a member nobody sends to receives zeros. The
+    backward is the inverse permutation. A permutation of fixed points
+    only (zigzag's even chunks at sp = 2) puts nothing on the wire: every
+    member sees the same ``perm``, so all of them skip it together."""
+    ax = resolve_axis(axis, mesh)
+    dst, src = _endpoints(ax, perm)
+    if ax.size == 1 or all(s == d for s, d in perm):
+        return x if src is not None else torch.zeros_like(x)
+    return _Permute.apply(x, ax, dst, src)
 
 
 def send_forward(x, axis: AxisNames = "pp", mesh: Optional[Mesh] = None):

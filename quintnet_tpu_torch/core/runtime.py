@@ -21,6 +21,7 @@ check); ``torchrun`` starts them otherwise.
 from __future__ import annotations
 
 import os
+import pickle
 import queue
 import tempfile
 import time
@@ -152,8 +153,10 @@ def barrier() -> None:
         dist.barrier()
 
 
-def _rank_main(rank, world, store, fn, args, results):
+def _rank_main(rank, world, store, call_path, results):
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         results.put((rank, True, fn(rank, world, store, *args)))
     except BaseException:  # noqa: B036 -- reported; the parent raises
         results.put((rank, False, traceback.format_exc()))
@@ -167,6 +170,13 @@ def spawn_world(fn, world: int, *args, timeout: Optional[float] = None,
     of a ``FileStore`` (in a fresh directory under ``store_dir``) for
     ``init_method=f"file://{store}"``; ``fn`` joins the world itself.
 
+    ``fn`` and ``args`` reach the ranks through a file in that directory,
+    not down each child's pipe: ``spawn`` writes a process's arguments
+    into its pipe before it starts the next process, and a child reads
+    them only after importing the parent's main module, so arguments
+    larger than the pipe's buffer would start the ranks one after the
+    other.
+
     A rank that raises or dies, or a world not done within ``timeout``
     seconds (None: no limit), raises ``AssertionError`` here, after every
     rank is stopped."""
@@ -177,8 +187,11 @@ def spawn_world(fn, world: int, *args, timeout: Optional[float] = None,
     got = {}
     with tempfile.TemporaryDirectory(dir=store_dir) as tmp:
         store = os.path.join(tmp, "store")
+        call_path = os.path.join(tmp, "call.pkl")
+        with open(call_path, "wb") as f:
+            pickle.dump((fn, args), f)
         procs = [ctx.Process(target=_rank_main, daemon=True,
-                             args=(r, world, store, fn, args, results))
+                             args=(r, world, store, call_path, results))
                  for r in range(world)]
         for p in procs:
             p.start()

@@ -19,8 +19,9 @@ with a cosine schedule after 10 warmup steps, clipping at 1.0 and
 over dp instead). Attention goes through ``ops.flash_attention`` (the
 K1-K3 kernels on the card).
 
-``--mesh dp2,tp2`` names the mesh (axes dp, tp, pp, ep; an sp part
-raises ``NotImplementedError``: ROADMAP.md §1, item 6); ``--experts N``
+``--mesh dp2,tp2`` names the mesh (axes dp, tp, pp, sp, ep; on an sp
+axis each rank holds a slice of the sequence, attended by zigzag ring
+attention, as in the JAX example); ``--experts N``
 makes every block a SwiGLU MoE of N experts (Mixtral-style; an ep axis
 shards them); ``--isolate-docs`` masks attention across the packed
 documents (segment ids from the EOS separator). ``--device`` and
@@ -87,7 +88,7 @@ def main(argv=None):
             "optimizer": "adamw" if args.fsdp else "zero2_adamw",
             "learning_rate": 3e-3, "lr_schedule": "cosine",
             "warmup_steps": 10, "decay_steps": 200, "grad_clip_norm": 1.0,
-            "log_every": 20, "fsdp": args.fsdp}})
+            "log_every": 20, "fsdp": args.fsdp, "sp_mode": "zigzag"}})
     return launch(_pretrain, args, cfg.mesh.world_size, cfg)
 
 
@@ -114,7 +115,7 @@ def _pretrain(args, cfg):
     else:
         lcfg = dataclasses.replace(getattr(LlamaConfig, args.preset)(), **moe)
     strat = get_strategy("auto", cfg)
-    model = llama_model_spec(lcfg, use_flash=True)
+    model = llama_model_spec(lcfg, use_flash=True, sp_mode="zigzag")
     say(f"strategy={strat.name} mesh={strat.mesh.shape} llama "
         f"dim={lcfg.dim} L={lcfg.n_layers} gqa {lcfg.n_heads}/"
         f"{lcfg.n_kv_heads} experts={lcfg.n_experts}")

@@ -35,6 +35,7 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from quintnet_tpu_torch.core import collectives as cc
 from quintnet_tpu_torch.nn.attention import mha_init
 from quintnet_tpu_torch.nn.layers import (cast_floating, dropout, gelu,
                                           keep_router_f32, layer_norm_apply,
@@ -66,7 +67,7 @@ class GPT2Config:
     refused by :attr:`moe_args`). :meth:`from_dict` keeps every field
     named here and drops the JAX config's other keys (sequence
     parallelism). ``vocab_parallel`` is carried so that a tp run that
-    asks for it raises (ROADMAP.md §1, item 6)."""
+    asks for it raises (ROADMAP.md §1, item 6b)."""
 
     vocab_size: int = 50257
     n_positions: int = 1024
@@ -227,13 +228,17 @@ def gpt2_upcycle_to_moe(params, cfg: GPT2Config, generator=None):
     return {**params, "blocks": blocks}
 
 
-def gpt2_embed(params, input_ids, *, embd_pdrop: float = 0.0,
+def gpt2_embed(params, input_ids, *, sp_axis=None, embd_pdrop: float = 0.0,
                generator=None):
     """[B, T] ids -> token + position embeddings [B, T, D]; with
-    ``generator``, dropout at ``embd_pdrop`` on the sum."""
+    ``generator``, dropout at ``embd_pdrop`` on the sum. ``sp_axis`` (a
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`): the ids are this
+    rank's slice of the sequence, whose positions start at ``index *
+    T``."""
     emb = params["embedding"]
     T = input_ids.shape[-1]
-    h = emb["wte"][input_ids] + emb["wpe"][:T][None]
+    start = 0 if sp_axis is None else sp_axis.index * T
+    h = emb["wte"][input_ids] + emb["wpe"][start:start + T][None]
     if generator is not None and embd_pdrop > 0.0:
         h = dropout(generator, h, embd_pdrop, deterministic=False)
     return h
@@ -257,73 +262,94 @@ def gpt2_logits(params, h, cfg: GPT2Config):
     return logits
 
 
-def segment_ids_from_input(input_ids, cfg: GPT2Config):
+def segment_ids_from_input(input_ids, cfg: GPT2Config, *, sp_axis=None):
     """[B, S] token ids -> [B, S] int32 attention segment ids, or None
     when ``cfg.segment_eos_id`` is unset: the exclusive running count of
-    the separator (each EOS closes its own document)."""
+    the separator (each EOS closes its own document). ``sp_axis``: the
+    ids are this rank's slice of the sequence, and the count is offset by
+    the separators of every earlier slice (one [sp, B] all-gather), so
+    the ids are global and the sp attentions compare them across
+    chunks."""
     if cfg.segment_eos_id is None:
         return None
     is_eos = (input_ids == cfg.segment_eos_id).to(torch.int32)
-    return (torch.cumsum(is_eos, dim=1, dtype=torch.int32) - is_eos)
+    seg = torch.cumsum(is_eos, dim=1, dtype=torch.int32) - is_eos
+    if sp_axis is not None:
+        counts = cc.all_gather(is_eos.sum(dim=1, dtype=torch.int32),
+                               sp_axis, gather_dim=0, tiled=False)  # [sp, B]
+        seg = seg + counts[:sp_axis.index].sum(dim=0,
+                                               dtype=torch.int32)[:, None]
+    return seg
 
 
 def gpt2_blocks(params_blocks, h, cfg: GPT2Config, *, tp_axis=None,
-                ep_axis=None, remat=False, use_flash: bool = False,
-                generator=None, segment_ids=None, fsdp=None):
+                sp_axis=None, sp_mode: str = "ring", ep_axis=None,
+                remat=False, use_flash: bool = False, generator=None,
+                segment_ids=None, fsdp=None):
     """The stacked causal blocks: ``h``, or ``(h, moe_aux)`` when
     ``cfg.n_experts > 0``. ``generator`` enables training dropout. With
     ``tp_axis`` (a :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) the
     blocks are this rank's tp shards and attention runs on ``n_head /
     tp`` local heads; ``ep_axis``: the experts are this rank's ep shard.
     ``fsdp``: ``(axis, gather dims)`` of dp-sharded blocks
-    (:func:`_fsdp_info`, ``stacked_blocks_apply``)."""
+    (:func:`_fsdp_info`, ``stacked_blocks_apply``). ``sp_axis``: ``h`` is
+    this rank's slice of the sequence, attended by ``sp_mode``."""
     tp = 1 if tp_axis is None else tp_axis.size
     _, attn_p, resid_p = cfg.pdrops
     return stacked_blocks_apply(
         params_blocks, h, num_heads=cfg.n_head // tp, causal=True, act=gelu,
-        tp_axis=tp_axis, use_flash=use_flash, remat=remat,
+        tp_axis=tp_axis, sp_axis=sp_axis, sp_mode=sp_mode,
+        use_flash=use_flash, remat=remat,
         moe_args=cfg.moe_args, ep_axis=ep_axis,
         attn_pdrop=attn_p, resid_pdrop=resid_p, generator=generator,
         segment_ids=segment_ids, fsdp=fsdp)
 
 
 def gpt2_hidden(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
-                ep_axis=None, remat=False, use_flash: bool = False,
-                generator=None, fsdp=None):
+                sp_axis=None, sp_mode: str = "ring", ep_axis=None,
+                remat=False, use_flash: bool = False, generator=None,
+                fsdp=None):
     """embed + blocks -> (final hidden states [B, T, D], moe_aux), the
     aux 0 for a dense config: the pre-head half of :func:`gpt2_forward`
     (the chunked loss starts from here)."""
     if generator is not None and not cfg.needs_dropout:
         generator = None
-    h = gpt2_embed(params, input_ids, embd_pdrop=cfg.pdrops[0],
-                   generator=generator)
+    h = gpt2_embed(params, input_ids, sp_axis=sp_axis,
+                   embd_pdrop=cfg.pdrops[0], generator=generator)
     out = gpt2_blocks(params["blocks"], h, cfg, tp_axis=tp_axis,
-                      ep_axis=ep_axis, remat=remat, use_flash=use_flash,
-                      generator=generator,
-                      segment_ids=segment_ids_from_input(input_ids, cfg),
+                      sp_axis=sp_axis, sp_mode=sp_mode, ep_axis=ep_axis,
+                      remat=remat, use_flash=use_flash, generator=generator,
+                      segment_ids=segment_ids_from_input(input_ids, cfg,
+                                                         sp_axis=sp_axis),
                       fsdp=fsdp)
     return out if cfg.n_experts > 0 else (out, h.new_zeros(
         (), dtype=torch.float32))
 
 
 def gpt2_forward(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
-                 ep_axis=None, remat=False, use_flash: bool = False,
-                 generator=None, fsdp=None):
+                 sp_axis=None, sp_mode: str = "ring", ep_axis=None,
+                 remat=False, use_flash: bool = False, generator=None,
+                 fsdp=None):
     """-> (logits [B, T, V] f32, moe_aux). ``generator``: training
     dropout (None is eval). ``tp_axis``: the params are this rank's tp
     shards; the logits come out whole (the tied head is replicated).
-    ``ep_axis``: the experts are this rank's ep shard. ``fsdp``: the
-    blocks are dp-sharded and gathered layer by layer."""
+    ``sp_axis``: the ids are this rank's slice of the sequence and so are
+    the logits (attention by ``sp_mode``). ``ep_axis``: the experts are
+    this rank's ep shard. ``fsdp``: the blocks are dp-sharded and
+    gathered layer by layer."""
     h, aux = gpt2_hidden(params, input_ids, cfg, tp_axis=tp_axis,
-                         ep_axis=ep_axis, remat=remat, use_flash=use_flash,
+                         sp_axis=sp_axis, sp_mode=sp_mode, ep_axis=ep_axis,
+                         remat=remat, use_flash=use_flash,
                          generator=generator, fsdp=fsdp)
     return gpt2_logits(params, h, cfg), aux
 
 
-def gpt2_apply(params, input_ids, cfg: GPT2Config, *,
-               use_flash: bool = False):
-    """Eval-mode causal forward: [B, T] ids -> [B, T, V] f32 logits."""
-    return gpt2_forward(params, input_ids, cfg, use_flash=use_flash)[0]
+def gpt2_apply(params, input_ids, cfg: GPT2Config, *, sp_axis=None,
+               sp_mode: str = "ring", use_flash: bool = False):
+    """Eval-mode causal forward: [B, T] ids -> [B, T, V] f32 logits (with
+    ``sp_axis``, this rank's slice of the sequence in and out)."""
+    return gpt2_forward(params, input_ids, cfg, sp_axis=sp_axis,
+                        sp_mode=sp_mode, use_flash=use_flash)[0]
 
 
 def clm_loss(logits, labels):
@@ -335,6 +361,33 @@ def clm_loss(logits, labels):
                           targets.reshape(-1), ignore_index=IGNORE_INDEX,
                           reduction="sum")
     return nll / (targets != IGNORE_INDEX).sum().clamp_min(1)
+
+
+def _sp_shift_targets(labels, sp_axis):
+    """The next-token targets of this rank's slice of the sequence: its
+    last position targets the FIRST label of the next rank's slice (one
+    shift); the global last position (the last rank's last column)
+    targets nothing."""
+    first_next = cc.ppermute_shift(labels[:, :1].contiguous(), sp_axis,
+                                   shift=-1, wrap=False)
+    targets = torch.cat([labels[:, 1:], first_next], dim=1)
+    if sp_axis.index == sp_axis.size - 1:
+        targets[:, -1] = IGNORE_INDEX
+    return targets
+
+
+def clm_loss_sp(logits, labels, *, sp_axis):
+    """The CLM loss with the sequence sharded over ``sp_axis``: the
+    target shift crosses the slices (:func:`_sp_shift_targets`) and the
+    mean is global (the sums of the NLL and of the valid targets over
+    sp), so the value is :func:`clm_loss` on the gathered sequence."""
+    targets = _sp_shift_targets(labels, sp_axis).long()
+    nll = F.cross_entropy(logits.float().reshape(-1, logits.shape[-1]),
+                          targets.reshape(-1), ignore_index=IGNORE_INDEX,
+                          reduction="sum")
+    total = cc.all_reduce(nll, sp_axis)
+    count = cc.all_reduce((targets != IGNORE_INDEX).sum().float(), sp_axis)
+    return total / count.clamp_min(1)
 
 
 def clm_loss_chunked(params, h, labels, cfg: GPT2Config, *, chunk: int):
@@ -418,7 +471,7 @@ def _check_mesh_options(cfg, tp_axis) -> None:
     if cfg is not None and cfg.vocab_parallel and tp_axis is not None:
         raise NotImplementedError(
             "vocab_parallel GPT-2 under tp (the vocab-sharded table and "
-            "clm_loss_vp) is not ported yet (ROADMAP.md §1, item 6)")
+            "clm_loss_vp) is not ported yet (ROADMAP.md §1, item 6b)")
 
 
 def gpt2_to_tp_layout(params, cfg: GPT2Config, tp: int):
@@ -439,9 +492,9 @@ def gpt2_from_tp_layout(params, cfg: GPT2Config, tp: int):
     return tree_qkv_layout(params, cfg.n_head, tp, to_blocked=False)
 
 
-def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, ep_axis=None,
-                      remat=False, use_flash: bool = False,
-                      compute_dtype=None):
+def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, sp_axis=None,
+                      sp_mode: str = "ring", ep_axis=None, remat=False,
+                      use_flash: bool = False, compute_dtype=None):
     """``(embed_fn, stage_fn, head_loss_fn)`` for ``parallel/pp.py``:
     GPT-2 cut into the embedding (stage 0), this rank's stacked blocks
     (every stage; ``tp_axis`` a
@@ -449,7 +502,11 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, ep_axis=None,
     shards, ``ep_axis`` its experts on its ep shard) and the tied head's
     CLM loss (the last stage; the chunked loss when ``cfg.loss_chunk >
     0``). A MoE config's ``stage_fn`` returns ``(h, aux)``: the
-    schedules add every stage's aux to the loss. ``compute_dtype`` casts
+    schedules add every stage's aux to the loss. ``sp_axis``: every
+    function sees this rank's slice of the sequence, and the head is a
+    ``parallel/pp.SplitHead`` whose collective-free part computes the
+    logits and whose reduce part, run on every stage, the loss over sp
+    (:func:`clm_loss_sp`). ``compute_dtype`` casts
     the parameters each function reads at use (the router kept f32), as
     :func:`gpt2_model_spec` does. The ``generator`` keyword of the
     embedding and the stage drives dropout; the schedules hand each
@@ -467,14 +524,24 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, ep_axis=None,
 
     def embed_fn(params, input_ids, generator=None):
         return gpt2_embed(part(params, "embedding"), input_ids,
-                          embd_pdrop=cfg.pdrops[0],
+                          sp_axis=sp_axis, embd_pdrop=cfg.pdrops[0],
                           generator=generator if cfg.needs_dropout else None)
 
     def stage_fn(blocks_local, h, generator=None):
         return gpt2_blocks(_cast_tree(blocks_local, compute_dtype), h, cfg,
-                           tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
-                           use_flash=use_flash,
+                           tp_axis=tp_axis, sp_axis=sp_axis, sp_mode=sp_mode,
+                           ep_axis=ep_axis, remat=remat, use_flash=use_flash,
                            generator=generator if cfg.needs_dropout else None)
+
+    if sp_axis is not None:
+        from quintnet_tpu_torch.parallel.pp import SplitHead
+
+        def head_local_fn(params, h, labels):
+            return gpt2_logits(part(params, "embedding", "head"), h, cfg)
+
+        return embed_fn, stage_fn, SplitHead(
+            head_local_fn, lambda logits, labels, valid: sp_head_loss(
+                logits, labels, valid, sp_axis))
 
     def head_loss_fn(params, h, labels):
         p = part(params, "embedding", "head")
@@ -485,8 +552,23 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, ep_axis=None,
     return embed_fn, stage_fn, head_loss_fn
 
 
+def sp_head_loss(logits, labels, valid: bool, sp_axis):
+    """A pipeline head's reduce part under sp: :func:`clm_loss_sp` (its
+    collectives entered on every stage and tick), 0 where ``valid`` is
+    False."""
+    loss = clm_loss_sp(logits, labels, sp_axis=sp_axis)
+    return loss if valid else torch.zeros_like(loss)
+
+
+def sequence_batch_specs(batch_axes, sp_axis=None):
+    """The (input_ids, labels) specs (``Strategy.shard_batch``): rows over
+    the batch axes, the sequence over ``sp_axis`` (a name)."""
+    spec = (tuple(batch_axes) or None, sp_axis)
+    return (spec, spec)
+
+
 def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
-                    compute_dtype=None):
+                    sp_mode: str = "ring", compute_dtype=None):
     """The training model: ``init(generator)`` and ``loss_fn(params,
     batch, generator=None, *, tp_axis=None, fsdp_axis=None,
     ep_axis=None)`` over ``batch = (input_ids, labels)``, following the
@@ -496,7 +578,11 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     ``tp_axis`` runs the blocks on this rank's tp shards
     (``partition_specs``, ``to_tp_layout``); ``ep_axis`` the experts on
     this rank's ep shard; ``fsdp_axis`` (ZeRO-3) on blocks also sharded
-    over it, each layer gathered just before use.
+    over it, each layer gathered just before use; ``sp_axis`` (handed on
+    a mesh with sp > 1) on this rank's slice of the sequence
+    (``batch_specs``), attention by ``sp_mode`` (``"ring"``, ``"zigzag"``
+    or ``"ulysses"``) and :func:`clm_loss_sp` (the chunked loss is not
+    used under sp, as in JAX).
 
     On a pp mesh the strategy runs :func:`gpt2_pipeline_fns` instead
     of ``loss_fn``.
@@ -519,19 +605,22 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     cfg.moe_args  # noqa: B018  (refuses expert_choice here, not later)
 
     def loss_fn(params, batch, generator=None, *, tp_axis=None,
-                fsdp_axis=None, ep_axis=None):
+                fsdp_axis=None, ep_axis=None, sp_axis=None):
         input_ids, labels = batch
         if tp_axis is not None:
             _check_mesh_options(cfg, tp_axis)
         p = _cast_tree(params, compute_dtype)
-        kw = dict(tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
-                  use_flash=use_flash, generator=generator,
+        kw = dict(tp_axis=tp_axis, sp_axis=sp_axis, sp_mode=sp_mode,
+                  ep_axis=ep_axis, remat=remat, use_flash=use_flash,
+                  generator=generator,
                   fsdp=_fsdp_info(cfg, tp_axis, fsdp_axis, ep_axis))
-        if cfg.loss_chunk > 0:
+        if cfg.loss_chunk > 0 and sp_axis is None:
             h, aux = gpt2_hidden(p, input_ids, cfg, **kw)
             return clm_loss_chunked(p, h, labels, cfg,
                                     chunk=cfg.loss_chunk) + aux
         logits, aux = gpt2_forward(p, input_ids, cfg, **kw)
+        if sp_axis is not None:
+            return clm_loss_sp(logits, labels, sp_axis=sp_axis) + aux
         return clm_loss(logits, labels) + aux
 
     return ModelSpec(
@@ -542,6 +631,8 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
             cfg, tp_axis=tp_axis, pp_axis=pp_axis, ep_axis=ep_axis,
             fsdp_axis=fsdp_axis),
         to_tp_layout=lambda p, tp: gpt2_to_tp_layout(p, cfg, tp),
-        pipeline_fns=lambda tp_axis=None, ep_axis=None: gpt2_pipeline_fns(
-            cfg, tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
-            use_flash=use_flash, compute_dtype=compute_dtype))
+        pipeline_fns=lambda tp_axis=None, ep_axis=None, sp_axis=None:
+        gpt2_pipeline_fns(cfg, tp_axis=tp_axis, sp_axis=sp_axis,
+                          sp_mode=sp_mode, ep_axis=ep_axis, remat=remat,
+                          use_flash=use_flash, compute_dtype=compute_dtype),
+        batch_specs=sequence_batch_specs)

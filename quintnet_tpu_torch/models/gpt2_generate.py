@@ -48,7 +48,7 @@ from quintnet_tpu_torch.nn.moe import _topk
 from quintnet_tpu_torch.nn.transformer import (block_decode, block_prefill,
                                                layer_params)
 
-VP_ITEM = "ROADMAP.md §1, item 6 ('Sequence parallel')"
+VP_ITEM = "ROADMAP.md §1, item 6b ('Vocab parallel')"
 
 # ---------------------------------------------------------------------
 # the counter-based sampling chain

@@ -35,7 +35,7 @@ place: the paged serving paths (``llama_block_prefill_paged*``,
 table: §1, item 7), the
 HF interop (``llama_from_hf_state``, ``llama_to_hf_state``,
 ``LlamaConfig.from_hf_config``: §1, item 9), ``vocab_parallel`` under tp
-(§1, item 6) and ``remat="dots"`` (§2).
+(§1, item 6b) and ``remat="dots"`` (§2).
 """
 
 from __future__ import annotations
@@ -47,11 +47,15 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from quintnet_tpu_torch.models.gpt2 import (clm_loss, mask_padded_cols,
-                                            segment_ids_from_input)
+from quintnet_tpu_torch.models.gpt2 import (clm_loss, clm_loss_sp,
+                                            sequence_batch_specs,
+                                            mask_padded_cols,
+                                            segment_ids_from_input,
+                                            sp_head_loss)
 from quintnet_tpu_torch.nn.attention import (apply_rope,
                                              dense_cache_attend, repeat_kv,
-                                             rope_cos_sin, sdpa)
+                                             rope_cos_sin, sdpa,
+                                             sp_attention)
 from quintnet_tpu_torch.nn.layers import (cast_floating, keep_router_f32,
                                           linear_init, rms_norm_apply,
                                           rms_norm_init, swiglu_apply,
@@ -64,7 +68,7 @@ from quintnet_tpu_torch.parallel.tp import row_parallel_linear
 
 SERVING_ITEM = "ROADMAP.md §1, item 7 ('Serving features')"
 HF_ITEM = "ROADMAP.md §1, item 9 ('Analysis, data and tools')"
-VP_ITEM = "ROADMAP.md §1, item 6 ('Sequence parallel')"
+VP_ITEM = "ROADMAP.md §1, item 6b ('Vocab parallel')"
 
 
 @dataclass(frozen=True)
@@ -325,18 +329,27 @@ def llama_mlp_residual(p, x, cfg: LlamaConfig, *, tp_axis=None,
 
 
 def llama_block_apply(p, x, cfg: LlamaConfig, *, cos, sin, tp_axis=None,
+                      sp_axis=None, sp_mode: str = "ring",
                       use_flash: bool = False, ep_axis=None,
                       segment_ids=None):
     """One block: ``x`` for a dense config, ``(x, aux)`` for MoE. Causal
     attention on the GQA-repeated K/V: ``ops.flash_attention`` with
-    ``use_flash``, else the plain ``sdpa``."""
+    ``use_flash``, else the plain ``sdpa``; with ``sp_axis`` (``x`` this
+    rank's slice of the sequence, ``cos``/``sin`` at its global
+    positions) by ``sp_mode``, after the repeat, so Ulysses splits the
+    repeated heads."""
     tp = 1 if tp_axis is None else tp_axis.size
     a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
     q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
     rep = q.shape[1] // k.shape[1]
     k, v = repeat_kv(k, rep), repeat_kv(v, rep)
-    attend = flash_attention if use_flash else sdpa
-    o = attend(q, k, v, causal=True, segment_ids=segment_ids)
+    if sp_axis is not None:
+        o = sp_attention(q, k, v, sp_axis=sp_axis, sp_mode=sp_mode,
+                         causal=True, use_flash=use_flash,
+                         segment_ids=segment_ids)
+    else:
+        attend = flash_attention if use_flash else sdpa
+        o = attend(q, k, v, causal=True, segment_ids=segment_ids)
     x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis)
     x, aux = llama_mlp_residual(p, x, cfg, tp_axis=tp_axis, ep_axis=ep_axis)
     return (x, aux) if cfg.n_experts > 0 else x
@@ -383,33 +396,41 @@ def llama_block_decode(p, x, kc, vc, pos, cfg: LlamaConfig, cos, sin,
     return x, (kc, vc)
 
 
-def _positions(b, s, device):
-    """Position ids of a [b, s] batch (no sp: the local sequence is the
-    global one)."""
+def _positions(b, s, device, sp_axis=None):
+    """Global position ids of a [b, s] batch: with ``sp_axis`` the local
+    sequence is this rank's slice, starting at ``index * s`` (rope must
+    see global positions, as ``gpt2_embed``'s table does)."""
     del b
-    return torch.arange(s, device=device)
+    start = 0 if sp_axis is None else sp_axis.index * s
+    return torch.arange(start, start + s, device=device)
 
 
 def _blocks(blocks, h, cfg: LlamaConfig, *, tp_axis, ep_axis, remat,
-            use_flash, segment_ids=None, fsdp=None):
+            use_flash, sp_axis=None, sp_mode: str = "ring",
+            segment_ids=None, fsdp=None):
     """The stacked blocks over ``h``: ``h``, or ``(h, aux)`` for MoE."""
-    cos, sin = llama_rope_tables(_positions(*h.shape[:2], h.device), cfg)
+    cos, sin = llama_rope_tables(
+        _positions(*h.shape[:2], h.device, sp_axis), cfg)
     body = functools.partial(llama_block_apply, cfg=cfg, cos=cos, sin=sin,
-                             tp_axis=tp_axis, use_flash=use_flash,
+                             tp_axis=tp_axis, sp_axis=sp_axis,
+                             sp_mode=sp_mode, use_flash=use_flash,
                              ep_axis=ep_axis, segment_ids=segment_ids)
     return stacked_blocks_apply(
         blocks, h, remat=remat, moe_args=cfg.moe_args, fsdp=fsdp,
-        body_fn=lambda p, x, generator: body(p, x))
+        sp_axis=sp_axis, body_fn=lambda p, x, generator: body(p, x))
 
 
 def llama_hidden(params, input_ids, cfg: LlamaConfig, *, tp_axis=None,
-                 ep_axis=None, remat=False, use_flash: bool = False,
-                 fsdp=None):
-    """-> (final hidden states [B, S, D], moe aux total: 0 for dense)."""
+                 sp_axis=None, sp_mode: str = "ring", ep_axis=None,
+                 remat=False, use_flash: bool = False, fsdp=None):
+    """-> (final hidden states [B, S, D], moe aux total: 0 for dense).
+    ``sp_axis``: the ids are this rank's slice of the sequence."""
     h = params["embedding"]["tok"][input_ids]
     out = _blocks(params["blocks"], h, cfg, tp_axis=tp_axis,
                   ep_axis=ep_axis, remat=remat, use_flash=use_flash,
-                  segment_ids=segment_ids_from_input(input_ids, cfg),
+                  sp_axis=sp_axis, sp_mode=sp_mode,
+                  segment_ids=segment_ids_from_input(input_ids, cfg,
+                                                     sp_axis=sp_axis),
                   fsdp=fsdp)
     return out if cfg.n_experts > 0 else (out, h.new_zeros(
         (), dtype=torch.float32))
@@ -428,10 +449,12 @@ def llama_logits(params, h, cfg: LlamaConfig):
 
 
 def llama_apply(params, input_ids, cfg: LlamaConfig, *, tp_axis=None,
-                ep_axis=None, remat=False, use_flash: bool = False):
+                sp_axis=None, sp_mode: str = "ring", ep_axis=None,
+                remat=False, use_flash: bool = False):
     """[B, S] ids -> [B, S, V] f32 logits (the aux loss dropped)."""
     h, _ = llama_hidden(params, input_ids, cfg, tp_axis=tp_axis,
-                        ep_axis=ep_axis, remat=remat, use_flash=use_flash)
+                        sp_axis=sp_axis, sp_mode=sp_mode, ep_axis=ep_axis,
+                        remat=remat, use_flash=use_flash)
     return llama_logits(params, h, cfg)
 
 
@@ -495,14 +518,17 @@ def _validate_tp(cfg: LlamaConfig, tp: int, params):
 
 
 def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
-                     compute_dtype=None):
+                     sp_mode: str = "ring", compute_dtype=None):
     """The training model (``parallel/strategy.ModelSpec``):
     ``loss_fn(params, (input_ids, labels), generator=None, *,
-    tp_axis=None, fsdp_axis=None, ep_axis=None)``, the CLM loss plus a
-    MoE config's aux loss; ``pipeline_fns(tp_axis=None, ep_axis=None)``
-    for ``parallel/pp.py`` (tied embeddings: the table's two partial
-    gradients, stage 0's and the last stage's, add up over pp in
-    ``reduce_grads``). Llama has no dropout (the generator is ignored).
+    tp_axis=None, fsdp_axis=None, ep_axis=None, sp_axis=None)``, the CLM
+    loss plus a MoE config's aux loss; ``pipeline_fns(tp_axis=None,
+    ep_axis=None, sp_axis=None)`` for ``parallel/pp.py`` (tied
+    embeddings: the table's two partial gradients, stage 0's and the
+    last stage's, add up over pp in ``reduce_grads``). ``sp_axis``: the
+    batch's sequence sharded over sp (``batch_specs``), attention by
+    ``sp_mode``, the loss :func:`~quintnet_tpu_torch.models.gpt2.
+    clm_loss_sp` (in the pipelines a ``SplitHead``'s reduce part). Llama has no dropout (the generator is ignored).
     ``compute_dtype`` (``torch.bfloat16``; None is f32) casts the f32
     parameters once a call, the MoE router kept f32; logits and the loss
     are f32."""
@@ -519,7 +545,7 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
         return cast_floating(p, compute_dtype, exclude=keep_router_f32)
 
     def loss_fn(params, batch, generator=None, *, tp_axis=None,
-                fsdp_axis=None, ep_axis=None):
+                fsdp_axis=None, ep_axis=None, sp_axis=None):
         input_ids, labels = batch
         if tp_axis is not None:
             _check_mesh_options(cfg, tp_axis)
@@ -528,11 +554,15 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
                          ep_axis=axis_name(ep_axis))
         p = cast(params)
         h, aux = llama_hidden(p, input_ids, cfg, tp_axis=tp_axis,
+                              sp_axis=sp_axis, sp_mode=sp_mode,
                               ep_axis=ep_axis, remat=remat,
                               use_flash=use_flash, fsdp=fsdp)
-        return clm_loss(llama_logits(p, h, cfg), labels) + aux
+        logits = llama_logits(p, h, cfg)
+        if sp_axis is not None:
+            return clm_loss_sp(logits, labels, sp_axis=sp_axis) + aux
+        return clm_loss(logits, labels) + aux
 
-    def pipeline_fns(tp_axis=None, ep_axis=None):
+    def pipeline_fns(tp_axis=None, ep_axis=None, sp_axis=None):
         if cfg.segment_eos_id is not None:
             raise NotImplementedError(
                 "segment_eos_id under pipeline parallelism is not wired "
@@ -545,11 +575,22 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
 
         def stage_fn(blocks_local, h, generator=None):
             return _blocks(cast(blocks_local), h, cfg, tp_axis=tp_axis,
-                           ep_axis=ep_axis, remat=remat, use_flash=use_flash)
+                           ep_axis=ep_axis, remat=remat, use_flash=use_flash,
+                           sp_axis=sp_axis, sp_mode=sp_mode)
+
+        def head_logits(params, h, labels):
+            p = cast({k: params[k] for k in ("embedding", "head")})
+            return llama_logits(p, h, cfg)
+
+        if sp_axis is not None:
+            from quintnet_tpu_torch.parallel.pp import SplitHead
+
+            return embed_fn, stage_fn, SplitHead(
+                head_logits, lambda logits, labels, valid: sp_head_loss(
+                    logits, labels, valid, sp_axis))
 
         def head_loss_fn(params, h, labels):
-            p = cast({k: params[k] for k in ("embedding", "head")})
-            return clm_loss(llama_logits(p, h, cfg), labels)
+            return clm_loss(head_logits(params, h, labels), labels)
 
         return embed_fn, stage_fn, head_loss_fn
 
@@ -561,4 +602,4 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
             cfg, tp_axis=tp_axis, pp_axis=pp_axis, ep_axis=ep_axis,
             fsdp_axis=fsdp_axis),
         to_tp_layout=lambda p, tp: _validate_tp(cfg, tp, p),
-        pipeline_fns=pipeline_fns)
+        pipeline_fns=pipeline_fns, batch_specs=sequence_batch_specs)

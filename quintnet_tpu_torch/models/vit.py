@@ -306,7 +306,10 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
     in ``compute_dtype`` (see :func:`vit_forward`), on one device or on
     this rank's tp (and, with ``fsdp_axis``, dp-sharded) blocks; on a pp
     mesh :func:`vit_pipeline_fns` (and loss and accuracy through the
-    forward pipeline)."""
+    forward pipeline). Every function takes ``sp_axis`` and ignores it,
+    as JAX's does: the ViT does not shard its 17 positions, so on a mesh
+    with sp its batch is replicated over sp and the loss is redundant
+    there, like tp's."""
     import functools
 
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
@@ -318,7 +321,7 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
                          ep_axis=axis_name(ep_axis))
 
     def loss_fn(params, batch, generator=None, *, tp_axis=None,
-                fsdp_axis=None, ep_axis=None):
+                fsdp_axis=None, ep_axis=None, sp_axis=None):
         x, y = batch
         logits, aux = vit_forward(params, x, cfg, tp_axis=tp_axis,
                                   ep_axis=ep_axis, remat=remat,
@@ -328,7 +331,7 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
         return cross_entropy_loss(logits, y) + aux
 
     def eval_metrics_fn(params, batch, *, tp_axis=None, fsdp_axis=None,
-                        ep_axis=None):
+                        ep_axis=None, sp_axis=None):
         x, y = batch
         logits, _ = vit_forward(params, x, cfg, tp_axis=tp_axis,
                                 ep_axis=ep_axis, remat=remat,
@@ -337,7 +340,7 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
         return {"loss": cross_entropy_loss(logits, y),
                 "accuracy": accuracy(logits, y)}
 
-    def pipeline_eval_fns(tp_axis=None, ep_axis=None):
+    def pipeline_eval_fns(tp_axis=None, ep_axis=None, sp_axis=None):
         embed_fn, stage_fn, _ = vit_pipeline_fns(
             cfg, tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
             compute_dtype=compute_dtype)
@@ -359,7 +362,7 @@ def vit_model_spec(cfg: ViTConfig, *, remat=False, compute_dtype=None):
             cfg, tp_axis=tp_axis, pp_axis=pp_axis, ep_axis=ep_axis,
             fsdp_axis=fsdp_axis),
         to_tp_layout=lambda p, tp: vit_to_tp_layout(p, cfg, tp),
-        pipeline_fns=lambda tp_axis=None, ep_axis=None: vit_pipeline_fns(
-            cfg, tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
-            compute_dtype=compute_dtype),
+        pipeline_fns=lambda tp_axis=None, ep_axis=None, sp_axis=None:
+        vit_pipeline_fns(cfg, tp_axis=tp_axis, ep_axis=ep_axis, remat=remat,
+                         compute_dtype=compute_dtype),
         pipeline_eval_fns=pipeline_eval_fns)

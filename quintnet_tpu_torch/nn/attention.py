@@ -1,7 +1,8 @@
 """Multi-head attention: the dense causal path and the paged serving path.
 
-Port of ``quintnet_tpu/nn/attention.py`` (tp, no sp), with Llama's
-rotary tables and GQA's ``repeat_kv``.
+Port of ``quintnet_tpu/nn/attention.py`` (tp; sp in training: ring,
+zigzag and Ulysses), with Llama's rotary tables and GQA's
+``repeat_kv``.
 The dense half (:func:`sdpa`, :func:`mha_apply`) is the training and
 eval forward: plain attention, or with ``use_flash`` the
 ``ops.flash_attention`` dispatcher (the flash kernels on the card);
@@ -117,8 +118,38 @@ def sdpa(q, k, v, *, causal: bool, pdrop: float = 0.0, generator=None,
     return torch.einsum("bhst,bhtd->bhsd", probs, v)
 
 
+SP_MODES = ("ring", "zigzag", "ulysses")
+
+
+def sp_attention(q, k, v, *, sp_axis, sp_mode: str = "ring",
+                 causal: bool = False, use_flash: bool = False,
+                 pdrop: float = 0.0, generator=None, segment_ids=None):
+    """Attention over a sequence sharded on ``sp_axis`` by ``sp_mode``:
+    ``"ring"`` (K/V rotation, ``ops/ring_attention.py``), ``"zigzag"``
+    (the load-balanced causal ring) or ``"ulysses"`` (the head-scatter
+    all-to-all, ``ops/ulysses_attention.py``: the flash kernels with
+    ``use_flash``; ring and zigzag are plain attention per chunk, as in
+    JAX). Another mode raises JAX's ``ValueError``."""
+    kw = dict(axis=sp_axis, causal=causal, pdrop=pdrop, generator=generator,
+              segment_ids=segment_ids)
+    if sp_mode == "ulysses":
+        from quintnet_tpu_torch.ops.ulysses_attention import \
+            ulysses_attention
+
+        return ulysses_attention(q, k, v, use_flash=use_flash, **kw)
+    if sp_mode not in SP_MODES:
+        raise ValueError(f"unknown sp_mode {sp_mode!r}; expected 'ring', "
+                         "'zigzag' or 'ulysses'")
+    from quintnet_tpu_torch.ops import ring_attention as ring
+
+    fn = (ring.zigzag_ring_attention if sp_mode == "zigzag"
+          else ring.ring_attention)
+    return fn(q, k, v, **kw)
+
+
 def mha_apply(p, x, *, num_heads: int, causal: bool = False,
-              tp_axis=None, use_flash: bool = False, return_kv: bool = False,
+              tp_axis=None, sp_axis=None, sp_mode: str = "ring",
+              use_flash: bool = False, return_kv: bool = False,
               attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
               generator=None, segment_ids=None):
     """x [B, S, D] -> [B, S, D]: fused qkv, attention (plain, or the
@@ -135,13 +166,23 @@ def mha_apply(p, x, *, num_heads: int, causal: bool = False,
     over tp before its bias; the residual dropout comes after the sum,
     so its mask agrees on every tp rank.
 
+    ``sp_axis`` (a MeshAxis): ``x`` is this rank's slice of the sequence
+    and attention runs sequence-parallel by ``sp_mode``
+    (:func:`sp_attention`); ``segment_ids`` is then this rank's [B,
+    S_local] slice of the GLOBAL ids (``models/gpt2.
+    segment_ids_from_input(sp_axis=)``).
+
     ``return_kv=True`` also returns this rank's per-head (k, v) [B, H, S,
     Dh]: the prefill half of the dense KV-cache decoder
     (``models/gpt2_generate.py``)."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
-    attend = flash_attention if use_flash else sdpa
-    o = attend(q, k, v, causal=causal, pdrop=attn_pdrop,
-               generator=generator, segment_ids=segment_ids)
+    kw = dict(causal=causal, pdrop=attn_pdrop, generator=generator,
+              segment_ids=segment_ids)
+    if sp_axis is not None:
+        o = sp_attention(q, k, v, sp_axis=sp_axis, sp_mode=sp_mode,
+                         use_flash=use_flash, **kw)
+    else:
+        o = (flash_attention if use_flash else sdpa)(q, k, v, **kw)
     y = row_parallel_linear(p["proj"], _merge_heads(o), axis=tp_axis)
     if generator is not None and resid_pdrop > 0.0:
         y = dropout(generator, y, resid_pdrop, deterministic=False)

@@ -2,12 +2,14 @@
 prefill and decode, paged decode, paged prefill and paged verify.
 
 Port of ``quintnet_tpu/nn/transformer.py`` with the tp hooks
-(``tp_axis``), ZeRO-3/FSDP (``fsdp``: the layer's shards gathered just
-before use) and the MoE FFN (``moe_args``, experts sharded over
-``ep_axis``); sp is not ported. Block parameters arrive as ONE layer's
-slice of the stacked ``[L, ...]`` tree (:func:`layer_params`); a Python
-loop over layers stands in for ``lax.scan`` (:func:`stacked_blocks_apply`,
-which also runs Llama's block through ``body_fn``).
+(``tp_axis``), sequence parallelism (``sp_axis``, ``sp_mode``: the
+attention of ``nn/attention.mha_apply``), ZeRO-3/FSDP (``fsdp``: the
+layer's shards gathered just before use) and the MoE FFN
+(``moe_args``, experts sharded over ``ep_axis``). Block parameters
+arrive as ONE layer's slice of the stacked ``[L, ...]`` tree
+(:func:`layer_params`); a Python loop over layers stands in for
+``lax.scan`` (:func:`stacked_blocks_apply`, which also runs Llama's
+block through ``body_fn``).
 """
 
 from __future__ import annotations
@@ -55,7 +57,8 @@ def _block_mlp(p, x, *, act, tp_axis=None, pdrop: float = 0.0,
 
 
 def block_apply(p, x, *, num_heads: int, causal: bool = False,
-                act: Callable = gelu, tp_axis=None, use_flash: bool = False,
+                act: Callable = gelu, tp_axis=None, sp_axis=None,
+                sp_mode: str = "ring", use_flash: bool = False,
                 moe_args=None, ep_axis=None,
                 attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
                 generator=None, segment_ids=None):
@@ -67,12 +70,13 @@ def block_apply(p, x, *, num_heads: int, causal: bool = False,
     projections); None is eval. ``use_flash`` sends attention through
     ``ops.flash_attention``. ``tp_axis``: the block's shards are
     tp-sharded (qkv and fc column, the projections row, LayerNorms
-    replicated) and ``num_heads`` is the local count."""
+    replicated) and ``num_heads`` is the local count. ``sp_axis``: ``x``
+    is this rank's slice of the sequence, attended by ``sp_mode``."""
     x = x + mha_apply(p["attn"], layer_norm_apply(p["ln1"], x),
                       num_heads=num_heads, causal=causal, tp_axis=tp_axis,
-                      use_flash=use_flash, attn_pdrop=attn_pdrop,
-                      resid_pdrop=resid_pdrop, generator=generator,
-                      segment_ids=segment_ids)
+                      sp_axis=sp_axis, sp_mode=sp_mode, use_flash=use_flash,
+                      attn_pdrop=attn_pdrop, resid_pdrop=resid_pdrop,
+                      generator=generator, segment_ids=segment_ids)
     if moe_args is None:
         return _block_mlp(p, x, act=act, tp_axis=tp_axis, pdrop=resid_pdrop,
                           generator=generator)
@@ -97,7 +101,8 @@ def gather_layer(p, fsdp):
 
 def stacked_blocks_apply(stacked_params, x, *, num_heads: int = 0,
                          causal: bool = False, act: Callable = gelu,
-                         tp_axis=None, use_flash: bool = False, remat=False,
+                         tp_axis=None, sp_axis=None, sp_mode: str = "ring",
+                         use_flash: bool = False, remat=False,
                          moe_args=None, ep_axis=None,
                          attn_pdrop: float = 0.0, resid_pdrop: float = 0.0,
                          generator=None, segment_ids=None, fsdp=None,
@@ -108,7 +113,9 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int = 0,
     (:func:`block_apply` with the keywords here): Llama's block plugs in
     and keeps the loop, remat and fsdp. With ``moe_args`` each layer
     returns ``(x, aux)`` and the result is ``(out, sum of the layers'
-    aux)``.
+    aux)``, the sum averaged over ``sp_axis`` (each sp rank routes its
+    own positions; the mean keeps the aux as redundant over sp as the
+    main loss, whose gradient ``reduce_grads`` divides by sp).
 
     ``remat=True`` recomputes each block in backward
     (``torch.utils.checkpoint``, non-reentrant), trading compute for
@@ -138,7 +145,8 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int = 0,
     depth = next(tree_leaves(stacked_params))[1].shape[0]
     if body_fn is None:
         kw = dict(num_heads=num_heads, causal=causal, act=act,
-                  tp_axis=tp_axis, use_flash=use_flash, moe_args=moe_args,
+                  tp_axis=tp_axis, sp_axis=sp_axis, sp_mode=sp_mode,
+                  use_flash=use_flash, moe_args=moe_args,
                   ep_axis=ep_axis, attn_pdrop=attn_pdrop,
                   resid_pdrop=resid_pdrop, segment_ids=segment_ids)
 
@@ -180,7 +188,10 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int = 0,
         else:
             x = out
     if moe_args is not None:
-        return x, torch.stack(auxes).sum()
+        aux = torch.stack(auxes).sum()
+        if sp_axis is not None:
+            aux = cc.all_reduce_mean(aux, sp_axis)
+        return x, aux
     return x
 
 

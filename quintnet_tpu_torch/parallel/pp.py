@@ -28,7 +28,7 @@ forwards micro-batch ``t - s`` at tick t):
   the same order. A rank skips the compute of its inactive ticks but
   passes the received activation on, so each rank's graph is one chain
   through all T shifts; the chain starts from zeros tied to a parameter
-  and ends tied into the loss (:class:`_Tie`), so that
+  and ends tied into the loss (``core/collectives.tie``), so that
   ``torch.autograd.grad`` reaches every shift on every rank.
 - **1F1B** (:func:`make_1f1b_grad_fn`) is a gradient function: T = M +
   2(P - 1) ticks, each a forward sub-step (micro-batch ``t - s``) and a
@@ -157,20 +157,6 @@ def _apply_head(head, params, h, y, want: bool):
     return torch.zeros((), device=h.device)
 
 
-class _Tie(torch.autograd.Function):
-    """``a`` as it is, with ``b`` made an input of it in the graph: ``b``
-    gets no gradient, but everything ``b`` depends on is reached by a
-    backward that reaches ``a``."""
-
-    @staticmethod
-    def forward(ctx, a, b):
-        return a.view_as(a)
-
-    @staticmethod
-    def backward(ctx, g):
-        return g, None
-
-
 def _first_param(params):
     return next(v for _, v in tree_leaves(params) if v.requires_grad)
 
@@ -199,7 +185,7 @@ def make_afab_loss_fn(embed_fn: Callable, stage_fn: Callable,
         tmpl = _eval_shape(embed_fn, params, xs[0])
         # the chain starts at zeros that depend on a parameter, so every
         # rank's every shift lies on a path to the parameters
-        h_send = _Tie.apply(_zeros(tmpl, dev), anchor)
+        h_send = cc.tie(_zeros(tmpl, dev), anchor)
         local = torch.zeros((), device=dev)
         split = isinstance(head_loss_fn, SplitHead)
         for t in range(M + P - 1):
@@ -208,7 +194,7 @@ def make_afab_loss_fn(embed_fn: Callable, stage_fn: Callable,
             active = 0 <= m < M
             if active:
                 g_e, g_s = _mb_generators(generator, m, s)
-                h_in = (_Tie.apply(_call_embed(embed_fn, params, xs[m], g_e),
+                h_in = (cc.tie(_call_embed(embed_fn, params, xs[m], g_e),
                                    h_recv) if first else h_recv)
                 h_out, aux = _stage_out(
                     _call_stage(stage_fn, params["blocks"], h_in, g_s))
@@ -222,7 +208,7 @@ def make_afab_loss_fn(embed_fn: Callable, stage_fn: Callable,
                     head_loss_fn, params, h_out, ys[min(max(m, 0), M - 1)],
                     valid) / M
             h_send = h_out
-        local = _Tie.apply(local, h_send)
+        local = cc.tie(local, h_send)
         total = cc.all_reduce_(local.detach().clone(), ax)
         return local + (total - local).detach()
 

@@ -1,22 +1,22 @@
 """Strategy facade: which mesh axes take which role, and the train step.
 
-Port of ``quintnet_tpu/parallel/strategy.py`` for the strategies
-``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``, ``tp_pp``,
-``3d`` and those with expert parallelism, ``ep``, ``dp_ep``, ``ep_tp``,
-``ep_pp`` and ``3d_ep``. A strategy is data: the mesh (one process per
-rank, ``core/mesh.py``), the axes the batch is sharded over
-(``batch_axes``: dp and ep, which is a data axis whose ranks also own
-different experts),
-the axes the model is sharded over, whose loss is computed redundantly
-(``model_axes``), and the pipeline axes (``partial_axes``). With pp the
+Port of ``quintnet_tpu/parallel/strategy.py``: every strategy of
+``STRATEGY_AXES`` (``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``,
+``dp_pp``, ``tp_pp``, ``3d``, those with expert parallelism, ``ep``,
+``dp_ep``, ``ep_tp``, ``ep_pp`` and ``3d_ep``, and those with sequence
+parallelism, ``sp``, ``dp_sp``, ``4d`` and ``5d``). A strategy is data:
+the mesh (one process per rank, ``core/mesh.py``), the axes the batch
+rows are sharded over (``batch_axes``: dp and ep, which is a data axis
+whose ranks also own different experts), the axes the model is sharded
+over, whose loss is computed redundantly (``model_axes``: tp, and sp,
+over which a model's ``batch_specs`` shard the sequence), and the
+pipeline axes (``partial_axes``). With pp the
 step runs ``training.schedule``'s pipeline (``parallel/pp.py``: AFAB,
 ``1f1b`` or ``1f1b_stored``) over ``gradient_accumulation_steps``
 micro-batches; a ``zero1_``/``zero2_`` optimizer shards its state over
 dp (``parallel/zero.py``); ``training.fsdp`` (ZeRO-3) stores the blocks
 sharded over dp and gathers each layer just before use, so their
-gradients and Adam moments live sharded too. The strategies with sp
-(``sp``, ``dp_sp``, ``4d``, ``5d``) raise ``NotImplementedError`` naming
-ROADMAP.md §1, item 6.
+gradients and Adam moments live sharded too.
 """
 
 from __future__ import annotations
@@ -48,17 +48,6 @@ STRATEGY_AXES = {
     "4d": ("dp", "tp", "pp", "sp"),
     "5d": ("dp", "tp", "pp", "sp", "ep"),
 }
-PORTED = ("single", "dp", "tp", "pp", "dp_tp", "dp_pp", "tp_pp", "3d",
-          "ep", "dp_ep", "ep_tp", "ep_pp", "3d_ep")
-# the ROADMAP.md item each axis of the strategies still to port waits for
-AXIS_ITEMS = {
-    "sp": "§1, item 6 (sequence parallelism)",
-}
-
-
-def _not_ported(what: str, item: str):
-    return NotImplementedError(f"{what} is not ported yet (ROADMAP.md, "
-                               f"{item})")
 
 
 @dataclass
@@ -74,7 +63,10 @@ class ModelSpec:
     without fsdp); on a mesh with ep > 1 every function below is also
     handed ``ep_axis`` (the loss, the evaluation and the pipeline
     functions the ep :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`,
-    the specs its name); ``depth`` the layer count (pp must divide it);
+    the specs its name), and on a mesh with sp > 1 the loss, the
+    evaluation and the pipeline functions ``sp_axis`` (a model that does
+    not shard the sequence takes it and ignores it: its batch is then
+    replicated over sp); ``depth`` the layer count (pp must divide it);
     ``needs_rng`` True when the model uses dropout;
     ``eval_metrics_fn(params, batch, *, tp_axis=None, fsdp_axis=None) ->
     {name: device scalar}`` (optional: ViT gives loss and accuracy);
@@ -85,7 +77,10 @@ class ModelSpec:
     head_loss_fn)`` for ``parallel/pp.py`` and, optionally,
     ``pipeline_eval_fns(tp_axis=None)`` -> ``(embed_fn, stage_fn,
     head_metrics_fn)`` (without it a pp evaluation reports the loss
-    alone)."""
+    alone); ``batch_specs(batch_axes, sp_axis=None)`` -> one spec a batch
+    array (a dim's axis name, tuple of names or None; JAX's
+    ``PartitionSpec``), without it every array's rows over
+    ``batch_axes``."""
 
     init: Callable[[Any], Any]
     loss_fn: Callable
@@ -96,6 +91,7 @@ class ModelSpec:
     to_tp_layout: Optional[Callable] = None
     pipeline_fns: Optional[Callable] = None
     pipeline_eval_fns: Optional[Callable] = None
+    batch_specs: Optional[Callable] = None
 
 
 @dataclass
@@ -178,25 +174,42 @@ class Strategy:
         return tree_map(lambda x, s: shard_leaf(x, s, self.mesh), params,
                         self.param_specs(model))
 
-    def shard_batch(self, batch):
+    def shard_batch(self, batch, model: Optional[ModelSpec] = None):
         """A host-global batch (a tuple of numpy arrays or tensors, each
-        [global_batch, ...]) -> this rank's rows along its coordinate over
-        ``batch_axes``; the tp ranks of one dp coordinate take the same
-        rows."""
-        axes = tuple(a for a in self.batch_axes
-                     if self.mesh.shape.get(a, 1) > 1)
-        if not axes:
-            return batch
-        ax = self.mesh.axis(axes)
-        out = []
-        for x in batch:
-            n = x.shape[0]
+        [global_batch, ...]) -> this rank's block: the rows along its
+        coordinate over ``batch_axes`` (the tp ranks of one dp coordinate
+        take the same rows) and, by the ``model``'s ``batch_specs`` (GPT-2
+        and Llama put the sequence dim over sp), the sequence along its
+        sp coordinate. On an sp mesh the ``model`` is required: without
+        its specs every sp rank would get the whole sequence while the
+        loss takes it for this rank's slice."""
+        if model is None and self.mesh.shape.get("sp", 1) > 1:
+            raise ValueError("shard_batch on an sp mesh needs the model: "
+                             "its batch_specs cut the sequence over sp")
+        axes = tuple(a for a in self.batch_axes if a in self.mesh.shape)
+        if model is not None and model.batch_specs is not None:
+            specs = model.batch_specs(axes, sp_axis=self._axis_name("sp"))
+        else:
+            specs = [(axes,)] * len(batch)
+        return tuple(self._block(x, spec) for x, spec in zip(batch, specs))
+
+    def _block(self, x, spec):
+        """This rank's block of a host array under ``spec`` (a view)."""
+        for dim, part in enumerate(spec):
+            names = (part,) if isinstance(part, str) else tuple(part or ())
+            names = tuple(a for a in self.mesh.axis_names
+                          if a in names and self.mesh.shape[a] > 1)
+            if not names:
+                continue
+            ax = self.mesh.axis(names)
+            n = x.shape[dim]
             if n % ax.size:
-                raise ValueError(f"batch of {n} rows does not split over "
-                                 f"{ax!r}")
+                raise ValueError(f"batch dim {dim} of size {n} does not "
+                                 f"split over {ax!r}")
             k = n // ax.size
-            out.append(x[ax.index * k:(ax.index + 1) * k])
-        return tuple(out)
+            x = x[(slice(None),) * dim + (slice(ax.index * k,
+                                                (ax.index + 1) * k),)]
+        return x
 
     def init_opt_state(self, model: ModelSpec, optimizer, params):
         """The optimizer state of this rank's shards: every moment has its
@@ -212,8 +225,8 @@ class Strategy:
 
     def dropout_generator(self, seed: int, device):
         """This rank's dropout generator for a step seeded ``seed``
-        (``train_step.device_dropout_generator``: dp coordinates folded
-        in, tp never)."""
+        (``train_step.device_dropout_generator``: the dp, ep and sp
+        coordinates folded in, tp never)."""
         from quintnet_tpu_torch.parallel.train_step import \
             device_dropout_generator
 
@@ -233,15 +246,15 @@ class Strategy:
     # -- the step ------------------------------------------------------
     def model_fns(self, model: ModelSpec):
         """``(loss_fn(params, batch, generator=None), eval_fn(params,
-        batch) or None)`` with this rank's tp and fsdp axes bound. On a
-        pp mesh the loss is None (the pipeline's step has its own) and
-        the evaluation is the forward pipeline (``parallel/pp.
+        batch) or None)`` with this rank's tp, sp, ep and fsdp axes bound.
+        On a pp mesh the loss is None (the pipeline's step has its own)
+        and the evaluation is the forward pipeline (``parallel/pp.
         make_afab_eval_fn``) over the model's ``pipeline_eval_fns``, or
         the loss alone from its ``pipeline_fns``."""
         tp_axis = self.axis_or_none("tp")
         if self.uses_pp:
             return None, self._pipeline_eval_fn(model, tp_axis)
-        kw = self._ep_kw()
+        kw = self._axis_kw()
         if tp_axis is not None:
             kw["tp_axis"] = tp_axis
         if self.fsdp_axis is not None:
@@ -258,17 +271,18 @@ class Strategy:
                 return _fn(params, batch, **kw)
         return loss, ev
 
-    def _ep_kw(self) -> dict:
-        """``{"ep_axis": the ep MeshAxis}`` on a mesh with ep > 1, else
-        empty: models without experts never see the keyword."""
-        ep = self.axis_or_none("ep")
-        return {} if ep is None else {"ep_axis": ep}
+    def _axis_kw(self) -> dict:
+        """``ep_axis`` and ``sp_axis`` (each the MeshAxis) for the axes of
+        size > 1: a model never sees the keyword of an axis its mesh
+        lacks."""
+        return {f"{a}_axis": ax for a in ("ep", "sp")
+                if (ax := self.axis_or_none(a)) is not None}
 
     def pipeline_fns(self, model: ModelSpec):
         """The model's ``(embed_fn, stage_fn, head_loss_fn)`` on this
-        rank's tp and ep axes."""
+        rank's tp, sp and ep axes."""
         return model.pipeline_fns(tp_axis=self.axis_or_none("tp"),
-                                  **self._ep_kw())
+                                  **self._axis_kw())
 
     def _pipeline_spec(self):
         from quintnet_tpu_torch.parallel.pp import PipelineSpec
@@ -283,7 +297,7 @@ class Strategy:
 
         if model.pipeline_eval_fns is not None:
             embed_fn, stage_fn, head = model.pipeline_eval_fns(
-                tp_axis=tp_axis, **self._ep_kw())
+                tp_axis=tp_axis, **self._axis_kw())
         else:
             embed_fn, stage_fn, loss_head = self.pipeline_fns(model)
             if isinstance(loss_head, SplitHead):
@@ -378,31 +392,21 @@ def get_strategy(name: Optional[str] = None,
     rank the process group must already be joined
     (``core/runtime.initialize``) with a world of the mesh's size; every
     rank calls this in the same order (it creates the mesh's process
-    groups). ``single``, ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``,
-    ``tp_pp``, ``3d``, ``ep``, ``dp_ep``, ``ep_tp``, ``ep_pp`` and
-    ``3d_ep`` are ported, with ``training.fsdp`` on the meshes
-    :func:`check_fsdp` allows; those with sp raise
-    ``NotImplementedError`` naming their ROADMAP.md item, unknown names
+    groups). Every strategy of ``STRATEGY_AXES`` is built, with
+    ``training.fsdp`` on the meshes :func:`check_fsdp` allows; ``auto`` on
+    axes no strategy names exactly (dp x sp x ep, say) is JAX's
+    ``"custom"``, with the same roles; unknown names raise
     ``ValueError``."""
     config = config or Config.from_dict({})
     sizes = dict(config.mesh.axis_sizes)
     active = tuple(a for a, s in sizes.items() if s > 1)
-    for a in active:
-        if a in AXIS_ITEMS:
-            raise _not_ported(f"a mesh with {a} = {sizes[a]} (strategy "
-                              f"{name or 'auto'!r})", AXIS_ITEMS[a])
     if name in (None, "auto"):
         name = next((k for k, v in STRATEGY_AXES.items()
-                     if sorted(v) == sorted(active)), None)
-        if name is None:
-            raise ValueError(f"no strategy has exactly the axes {active}")
+                     if sorted(v) == sorted(active)), "custom")
     elif name not in STRATEGY_AXES:
         raise ValueError(f"unknown strategy {name!r}; known: "
                          f"{sorted(STRATEGY_AXES)}")
-    if name not in PORTED:
-        missing = [a for a in STRATEGY_AXES[name] if a in AXIS_ITEMS]
-        raise _not_ported(f"strategy {name!r}", AXIS_ITEMS[missing[0]])
-    for a in STRATEGY_AXES[name]:
+    for a in STRATEGY_AXES.get(name, ()):
         if sizes.get(a, 1) <= 1 and config.mesh.world_size > 1:
             raise ValueError(f"strategy {name!r} needs mesh axis {a!r} > 1; "
                              f"mesh is {sizes}")

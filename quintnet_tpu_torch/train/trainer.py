@@ -23,15 +23,17 @@ does not read ``training.dtype``: the bf16 compute it names is the
 model's (``gpt2_model_spec(compute_dtype=)``), chosen by the example
 (``examples/gpt2_finetune.py``).
 
-On a mesh (strategies ``dp``, ``tp``, ``pp``, ``dp_tp``, ``dp_pp``,
-``tp_pp``, ``3d``, with ``training.fsdp`` on dp and dp x tp: one process
-per rank, ``core/runtime.initialize`` first) every rank builds the same
+On a mesh (every strategy of ``parallel/strategy.py``, over dp, tp, pp,
+sp and ep, with ``training.fsdp`` on dp and dp x tp: one process per
+rank, ``core/runtime.initialize`` first) every rank builds the same
 full parameters from the seed and keeps its shards
 (``Strategy.shard_params``), the optimizer state comes from
 ``Strategy.init_opt_state`` (a flat dp chunk under ZeRO-1/2, sharded
 like the blocks under fsdp), each step cuts the global batch to the
-rank's rows (``Strategy.shard_batch``), only rank 0 logs, and
-validation metrics are averaged over dp. On pp the step's loss is
+rank's rows and, under sp, its slice of the sequence
+(``Strategy.shard_batch`` with the model's ``batch_specs``), only rank
+0 logs, and validation metrics are averaged over dp (under sp the loss
+is already the global one on every sp rank). On pp the step's loss is
 summed over the stages, so every rank logs the same value, and
 validation runs the forward pipeline (``Strategy.model_fns``).
 Checkpoints on a mesh are one logical step written by every rank
@@ -43,8 +45,7 @@ whole world, so no rank saves alone.
 
 Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
 item): preemption handling, fault injection and goodput (``ft=``, item
-8), the strategies with ep or sp (``get_strategy``),
-``remat_policy="dots"``.
+8), ``remat_policy="dots"``.
 The JAX loop's host-side knobs for its asynchronous dispatch
 (``sync_every``, ``prefetch``) have no use in the eager port and are
 ignored.
@@ -531,8 +532,9 @@ class Trainer:
             mgr.wait_until_finished()
 
     def device_batch(self, xb, yb):
-        """A host ``(x, y)`` global batch -> this rank's rows
-        (``Strategy.shard_batch``; all of them on one device) as tensors
+        """A host ``(x, y)`` global batch -> this rank's block (its rows,
+        and under sp its slice of the sequence: ``Strategy.shard_batch``
+        with the model's ``batch_specs``; all of it on one device) as tensors
         on the trainer's device: floating arrays (images) as f32, integer
         ones (token ids, labels) as int64."""
         def put(a):
@@ -540,7 +542,7 @@ class Trainer:
             dtype = torch.float32 if t.is_floating_point() else torch.int64
             return t.to(self.device, dtype=dtype, non_blocking=True)
 
-        xb, yb = self.strategy.shard_batch((xb, yb))
+        xb, yb = self.strategy.shard_batch((xb, yb), self.model)
         return put(xb), put(yb)
 
     def step_generator(self, epoch: int, step: int):

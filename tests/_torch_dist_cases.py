@@ -489,9 +489,11 @@ def _shift_forms(mesh):
     all_to_all)}."""
     ax = mesh.axis("pp")
     x = torch.arange(6.0).reshape(2, 3) + 10 * ax.index
-    return {(sh, wrap): (_np(cc._shift_p2p(x, ax, sh, wrap)),
-                         _np(cc._shift_all_to_all(x, ax, sh, wrap)))
+    ends = {(sh, wrap): cc._neighbours(ax, sh, wrap)
             for sh in (1, -1) for wrap in (False, True)}
+    return {k: (_np(cc._permute_p2p(x, ax, *e)),
+                _np(cc._permute_all_to_all(x, ax, *e)))
+            for k, e in ends.items()}
 
 
 def pp_world_case(rank, world, runs, drop_run, n_micro):
@@ -1135,14 +1137,16 @@ def ckpt_world_case(rank, world, vit_np, data, gpt2_batches, dirs):
 # the Llama and MoE cases of tests/test_torch_fsdp.py)
 # ---------------------------------------------------------------------
 
-def family_model(family, kw, *, use_flash=False, remat=False):
+def family_model(family, kw, *, use_flash=False, remat=False,
+                 sp_mode="ring"):
     """The tiny training model of a family: ``GPT2Config.tiny(**kw)``,
-    ``ViTConfig(**kw)`` or ``LlamaConfig.tiny(**kw)``."""
+    ``ViTConfig(**kw)`` or ``LlamaConfig.tiny(**kw)`` (``sp_mode``: the
+    sequence-parallel attention of GPT-2 and Llama on an sp mesh)."""
     if family == "gpt2":
         from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_model_spec
 
         return gpt2_model_spec(GPT2Config.tiny(**kw), use_flash=use_flash,
-                               remat=remat)
+                               remat=remat, sp_mode=sp_mode)
     if family == "vit":
         from quintnet_tpu_torch.models.vit import ViTConfig, vit_model_spec
 
@@ -1150,7 +1154,7 @@ def family_model(family, kw, *, use_flash=False, remat=False):
     from quintnet_tpu_torch.models.llama import LlamaConfig, llama_model_spec
 
     return llama_model_spec(LlamaConfig.tiny(**kw), use_flash=use_flash,
-                            remat=remat)
+                            remat=remat, sp_mode=sp_mode)
 
 
 def family_params(family, np_params):
@@ -1164,13 +1168,16 @@ def family_params(family, np_params):
 
 
 def strategy_steps(family, kw, np_params, x, y, sizes=None, *,
-                   training=None, steps=1, use_flash=False, more=0):
+                   training=None, steps=1, use_flash=False, more=0,
+                   sp_mode="ring"):
     """``steps`` optimizer steps of the tiny model through
     ``get_strategy`` on the mesh ``sizes`` (one device without), by
     default SGD at lr 0.05 with no clipping (the JAX goldens'
     ``optax.sgd(0.05)``): the step losses, ``more`` further step losses,
     and every parameter gathered whole (in the layout the run holds: the
-    tp-blocked fused QKV of GPT-2 and ViT)."""
+    tp-blocked fused QKV of GPT-2 and ViT). On an sp mesh the batch's
+    sequence is cut by the model's ``batch_specs`` and attention runs by
+    ``sp_mode``."""
     from quintnet_tpu_torch.core.config import Config
     from quintnet_tpu_torch.parallel.strategy import get_strategy
     from quintnet_tpu_torch.parallel.tp import gather_leaf
@@ -1181,13 +1188,13 @@ def strategy_steps(family, kw, np_params, x, y, sizes=None, *,
     if sizes:
         d.update(mesh_dim=list(sizes.values()), mesh_name=list(sizes))
     config = Config.from_dict(d)
-    model = family_model(family, kw, use_flash=use_flash)
+    model = family_model(family, kw, use_flash=use_flash, sp_mode=sp_mode)
     strat = get_strategy(None, config)
     opt = make_optimizer(config)
     params = tree_map(lambda t: t.requires_grad_(True), strat.shard_params(
         model, family_params(family, np_params)))
     state = strat.init_opt_state(model, opt, params)
-    batch = strat.shard_batch((torch.tensor(x), torch.tensor(y)))
+    batch = strat.shard_batch((torch.tensor(x), torch.tensor(y)), model)
     step = strat.make_train_step(model, opt)
     losses = []
     for _ in range(steps + more):

@@ -1,5 +1,5 @@
-"""JAX's GPT-2 mesh step and the comparison the port's mesh tests share
-(not collected by pytest: leading underscore)."""
+"""JAX's GPT-2 mesh step, its single-device step and the comparisons the
+port's mesh tests share (not collected by pytest: leading underscore)."""
 
 import jax
 import jax.numpy as jnp
@@ -44,6 +44,49 @@ def _jax_gpt2_step(np_params, ids, labels, mesh_dim, mesh_name, accum,
     return (strat.name, float(loss),
             dict(_flat(jax.tree.map(np.asarray, params))),
             dict(_flat(jax.tree.map(np.asarray, mu))))
+
+
+def jax_single_steps(family, kw, np_params, ids, training, steps=1):
+    """JAX's single-device step(s) of the tiny ``family`` model
+    (``GPT2Config.tiny(**kw)`` or ``LlamaConfig.tiny(**kw)``) on the whole
+    batch ``(ids, ids)``, through its ``get_strategy("single")`` and
+    ``make_optimizer`` on the ``training`` keys (a ``zero1_``/``zero2_``
+    optimizer as its plain update): (step losses, {dotted path: params})."""
+    from quintnet_tpu.models import llama as jllama
+
+    name = training.get("optimizer", "sgd").split("_")[-1]
+    config = JaxConfig.from_dict({"training": dict(training,
+                                                   optimizer=name)})
+    strat = jax_get_strategy("single", config)
+    if family == "gpt2":
+        spec = jax_gpt2_spec(JaxGPT2Config.tiny(**kw))
+    else:
+        spec = jllama.llama_model_spec(jllama.LlamaConfig.tiny(**kw))
+    opt = jax_make_optimizer(config)
+    p = strat.shard_params(spec, jax.tree.map(jnp.asarray, np_params))
+    s = strat.init_opt_state(spec, opt, p)
+    b = strat.shard_batch((jnp.asarray(ids), jnp.asarray(ids)), spec)
+    step = strat.make_train_step(spec, opt)
+    losses = []
+    for _ in range(steps):
+        p, s, loss = step(p, s, b)
+        losses.append(float(loss))
+    return losses, dict(_flat(jax.tree.map(np.asarray, p)))
+
+
+def tp_blocked(kw, flat, tp):
+    """A flat GPT-2 tree ({dotted path: array}) in the tp-blocked fused
+    QKV layout of ``tp`` (the layout a tp run holds)."""
+    if tp == 1:
+        return flat
+    nested = {}
+    for k, v in flat.items():
+        d = nested
+        *head, last = k.split(".")
+        for h in head:
+            d = d.setdefault(h, {})
+        d[last] = v
+    return dict(_flat(gpt2_to_tp_layout(nested, GPT2Config.tiny(**kw), tp)))
 
 
 def port_single_gpt2_step(np_params, ids, labels):

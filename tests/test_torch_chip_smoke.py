@@ -359,7 +359,8 @@ def test_mesh_runs_of_one_size_share_one_world(tmp_path):
 
     assert chip_smoke._mesh_worlds() == {
         2: ["dp2", "tp2", "fsdp_dp2", "pp2_afab", "llama_tp2",
-            "llama_fsdp_dp2", "llama_moe_ep2"],
+            "llama_fsdp_dp2", "llama_moe_ep2", "sp2_ring", "sp2_zigzag",
+            "sp2_ulysses", "llama_sp2_ulysses"],
         4: ["dp2tp2", "fsdp_dp2tp2", "dp2pp2_stored_zero2",
             "llama_dp2pp2_1f1b_zero1", "gpt2_moe_ep2tp2"],
         8: ["3d_1f1b_zero1", "3d_bf16"], "resume": ["3d_ckpt_resume"]}
@@ -482,7 +483,7 @@ def _filled_launches(run, ranks, cfg):
                          for k, n in per_step.items()}
         r["launches"]["paged_attention"] = 0
         r["launches_by_dtype"] = {k: {"f32": n * chip_smoke.MESH_STEPS}
-                                  for k, n in per_step.items()}
+                                  if n else {} for k, n in per_step.items()}
     return ranks
 
 
@@ -560,3 +561,107 @@ def test_moe_mesh_model_is_dropless_at_card_size():
             run) * seq
         assert cfg.n_experts == 8 and cfg.expert_top_k == 2
     assert "all_to_all" in chip_smoke.PROBE_GATED
+
+
+SP_RUNS = ("sp2_ring", "sp2_zigzag", "sp2_ulysses")
+
+
+def test_sp_mesh_runs_parse_and_share_the_two_rank_world():
+    """The sequence-parallel runs: GPT-2 124M uncut at its 1,024
+    positions on sp = 2 in each mode, and Llama by Ulysses; all in the
+    2-rank world; the three GPT-2 runs one reference, the Llama run
+    llama_tp2's; K1-K3 a step only under Ulysses (12 layers x 2
+    micro-batches; Llama's 4 x 2); the permutation and the Ulysses
+    exchange probed and gated."""
+    runs = {n: chip_smoke.MESH_RUNS[n] for n in SP_RUNS
+            + ("llama_sp2_ulysses",)}
+    for name, run in runs.items():
+        mesh_dim, mesh_name, n_micro, rows, schedule, optimizer = \
+            chip_smoke._run_parts(run)
+        assert (mesh_dim, mesh_name, n_micro, rows, schedule, optimizer) \
+            == ([2], ["sp"], 2, 8, "afab", "adamw")
+        assert name in chip_smoke._mesh_worlds()[2]
+        assert not chip_smoke._exact(run)
+    for name in SP_RUNS:
+        cfg = chip_smoke._run_model(runs[name])
+        assert (cfg.n_layer, cfg.n_embd, cfg.n_head) == (12, 768, 12)
+        assert chip_smoke.MESH_MODELS["gpt2_1k"][1] == cfg.n_positions \
+            == 1024
+    assert len({chip_smoke._ref_key(runs[n]) for n in SP_RUNS}) == 1
+    assert chip_smoke._ref_key(runs["llama_sp2_ulysses"]) == \
+        chip_smoke._ref_key(chip_smoke.MESH_RUNS["llama_tp2"])
+    zero = {k: 0 for k in chip_smoke.FLASH_KERNELS}
+    assert chip_smoke._per_step(runs["sp2_ring"], 12) == zero
+    assert chip_smoke._per_step(runs["sp2_zigzag"], 12) == zero
+    assert chip_smoke._per_step(runs["sp2_ulysses"], 12) == {
+        k: 24 for k in chip_smoke.FLASH_KERNELS}
+    assert chip_smoke._per_step(runs["llama_sp2_ulysses"], 4) == {
+        k: 8 for k in chip_smoke.FLASH_KERNELS}
+    for name in ("ppermute", "all_to_all_ulysses"):
+        assert name in chip_smoke.PROBED and name in chip_smoke.PROBE_GATED
+    # an sp2_ulysses rank's K1-K3 shape: 4 rows, 6 heads, 1,024 positions
+    assert chip_smoke.ULYSSES_CASE == "sp2_ulysses_B4_H6_S1024"
+    assert chip_smoke.PROBE_ULYSSES == (3, 4, 12, 512, 64)
+
+
+def test_probe_collectives_on_cpu_ranks(tmp_path):
+    """``_probe_rank`` on two gloo CPU ranks: every probed collective
+    gives its expected value (the permutation with an idle sender and
+    the Ulysses exchange at the card's shape too), and the exchange is
+    timed."""
+    from quintnet_tpu_torch.core import runtime
+
+    got = runtime.spawn_world(chip_smoke._probe_rank, 2, "cpu", timeout=120,
+                              store_dir=str(tmp_path))
+    for r in got:
+        assert all(r[k] == "ok" for k in chip_smoke.PROBED), r
+        assert r["all_to_all_ulysses_ms"] > 0
+
+
+def test_sp_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch):
+    """sp2_ring, sp2_zigzag and sp2_ulysses in one world of two gloo CPU
+    ranks with a tiny GPT-2 (4 layers, 4 heads) on rows of 32, against
+    one single-rank reference through ``_check_mesh_run``'s own gates
+    (the first loss, every gradient leaf, the step losses): the
+    sequence split over the ranks, 16 positions each."""
+    import numpy as np
+
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+
+    cfg = GPT2Config.tiny(n_layer=4)
+    run0 = chip_smoke.MESH_RUNS[SP_RUNS[0]]
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 128, (run0[3], TINY_SEQ)),) * 2
+            for _ in range(chip_smoke.MESH_STEPS)]
+    path = str(tmp_path / "ref.pt")
+    threads = torch.get_num_threads()
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
+    try:
+        ref = chip_smoke._mesh_reference(cfg, host,
+                                         chip_smoke._ref_micro(run0), "cpu",
+                                         path)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.set_num_threads(threads)
+    jobs = []
+    for name in SP_RUNS:
+        work = str(tmp_path / name)
+        os.makedirs(work)
+        jobs.append((name, (chip_smoke.MESH_RUNS[name], host, path,
+                            chip_smoke._model_dict(cfg), work)))
+    got = runtime.spawn_world(chip_smoke._mesh_world, 2, "cpu", jobs,
+                              timeout=300, store_dir=str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "_smi", lambda: "(no card)")
+    for name in SP_RUNS:
+        run = chip_smoke.MESH_RUNS[name]
+        ranks = _filled_launches(run, [g[name][0] for g in got], cfg)
+        res = chip_smoke._check_mesh_run(name, run, ranks, ref, cfg)
+        assert res["sp_mode"] == chip_smoke._run_opts(run)["sp_mode"]
+        assert res["seq_a_rank"] == 512
+        for r in ranks:
+            assert r["strategy"] == "sp"
+            assert r["worst_grad_rel_err"] <= 1e-5      # f32 on the CPU
+        np.testing.assert_allclose(ranks[0]["losses"], ref["losses"],
+                                   rtol=1e-5)

@@ -514,6 +514,10 @@ FLASH_CASES = {
     **{f"ragged_s300_d{D}_noncausal_seg": dict(B=2, H=2, S=300, D=D,
                                                causal=False, seg=True)
        for D in (32, 64, 128)},
+    # an sp2_ulysses rank's call in chip_smoke.py: 4 rows, 6 of GPT-2's 12
+    # heads, over all 1,024 positions after the head scatter
+    "ulysses_sp2_B4_H6_S1024": dict(B=4, H=6, S=1024, D=64, causal=True,
+                                    seg=False),
 }
 
 

@@ -3,13 +3,14 @@ exists.
 
 The port refuses what it has not ported yet with a message that names
 where ROADMAP.md queues it: ``§N`` (a ``### N.`` heading of its open
-items), ``§1, item M`` (a numbered item of §1), ``§2, K1-K3 still owed,
+items), ``§1, item M`` (a numbered item of §1), ``§1, item Mx`` (a
+lettered part ``- **Mx. title**`` of item M), ``§2, K1-K3 still owed,
 item M`` (the K1-K3 kernels' "Still owed" list in §2) or a quoted item
-title. The messages are read from the sources (the string constants
-inside each ``NotImplementedError(...)`` call, with the module-level
-string constants they name) and from the tables the engine and the
-strategy build theirs from; ROADMAP.md's headings and numbered items are
-parsed, and each named place must be there.
+or part title. The messages are read from the sources (the string
+constants inside each ``NotImplementedError(...)`` call, with the
+module-level string constants they name) and from the table the engine
+builds its own from; ROADMAP.md's headings, numbered items and their
+lettered parts are parsed, and each named place must be there.
 """
 
 import ast
@@ -21,17 +22,21 @@ import pytest
 ROOT = Path(__file__).resolve().parents[1]
 PKG = ROOT / "quintnet_tpu_torch"
 PLACE = re.compile(r"§\s*(\d+)(?:,?\s*(?:K1-K3 still owed,\s*)?item\s+"
-                   r"(\d+))?|'([^']+)'")
+                   r"(\d+)([a-z]?))?|'([^']+)'")
 
 
 def _roadmap():
-    """(sections {N: text}, §1 item titles {M: title}, the K1-K3 still
-    owed items {M: title}) of ROADMAP.md's open items."""
+    """(sections {N: text}, §1 item titles {M: title} and lettered part
+    titles {"Mx": title}, the K1-K3 still owed items {M: title}) of
+    ROADMAP.md's open items."""
     text = (ROOT / "ROADMAP.md").read_text()
     parts = re.split(r"^### (\d+)\. .*$", text, flags=re.M)
     sections = {int(n): body for n, body in zip(parts[1::2], parts[2::2])}
     items = {int(m): t for m, t in re.findall(
         r"^(\d+)\. \*\*(.+?)\*\*", sections.get(1, ""), flags=re.M)}
+    items.update({m + x: t for m, x, t in re.findall(
+        r"^\s+- \*\*(\d+)([a-z])\. (.+?)\*\*", sections.get(1, ""),
+        flags=re.M)})
     k13 = sections.get(2, "").split("- **K4")[0]
     owed = k13.split("Still owed")[-1] if "Still owed" in k13 else ""
     still = {int(m): t for m, t in re.findall(
@@ -53,8 +58,8 @@ def _strings(node, consts):
 
 def _messages():
     """(file, message) of every NotImplementedError the port builds
-    whose text names ROADMAP.md, and the entries of the engine's and the
-    strategy's tables of items."""
+    whose text names ROADMAP.md, and the entries of the engine's table
+    of items."""
     out = []
     for path in sorted(PKG.rglob("*.py")):
         tree = ast.parse(path.read_text())
@@ -73,26 +78,25 @@ def _messages():
                 # checked below
                 if "ROADMAP" in msg and (_places(msg) or not dynamic):
                     out.append((str(path.relative_to(ROOT)), msg))
-    from quintnet_tpu_torch.parallel.strategy import AXIS_ITEMS
     from quintnet_tpu_torch.serve.engine import _NOT_PORTED
 
-    for table, entries in (("engine", _NOT_PORTED), ("strategy", AXIS_ITEMS)):
-        out += [(table, "ROADMAP.md, " + v) for v in entries.values()]
+    out += [("engine", "ROADMAP.md, " + v) for v in _NOT_PORTED.values()]
     return out
 
 
 def _places(msg):
-    """The places one message names: ("§", N), ("item", N, M) and
-    ("title", text)."""
+    """The places one message names: ("§", N), ("item", N, M) (M an
+    int, or "Mx" for a lettered part) and ("title", text)."""
     tail = msg.split("ROADMAP.md", 1)[1]
     tail = tail.split(")")[0] if "(" not in tail.split(")")[0] else tail
     found = []
-    for sec, item, title in PLACE.findall(tail):
+    for sec, item, part, title in PLACE.findall(tail):
         if title:
             found.append(("title", title))
         elif item:
             owed = "still owed" in tail
-            found.append(("owed" if owed else "item", int(sec), int(item)))
+            found.append(("owed" if owed else "item", int(sec),
+                          item + part if part else int(item)))
         else:
             found.append(("§", int(sec)))
     return found
@@ -107,8 +111,7 @@ def test_messages_are_found():
                  "quintnet_tpu_torch/models/gpt2_generate.py",
                  "quintnet_tpu_torch/models/llama.py",
                  "quintnet_tpu_torch/ops/flash_kernels.py",
-                 "quintnet_tpu_torch/serve/families.py", "strategy",
-                 "engine"):
+                 "quintnet_tpu_torch/serve/families.py", "engine"):
         assert want in files, sorted(files)
     assert all(_places(m) for _, m in msgs), [
         m for _, m in msgs if not _places(m)]
@@ -142,15 +145,16 @@ def test_remat_dots_points_at_the_k1_k3_item():
 
 def test_generation_refusals_name_items_6_and_7():
     """The generation slice's refusals: vocab-parallel decoding is queued
-    with sequence parallelism (item 6), paged Llama decoding and tp
-    paged decoding with the serving features (item 7)."""
+    as vocab parallelism (item 6's part 6b, after sequence parallelism,
+    6a), paged Llama decoding and tp paged decoding with the serving
+    features (item 7)."""
     _, items, _ = _roadmap()
     by_file = {}
     for where, msg in _messages():
         by_file.setdefault(where, []).append(msg)
     for where, needle, item in (
             ("quintnet_tpu_torch/models/gpt2_generate.py", "vocab-parallel",
-             6),
+             "6b"),
             ("quintnet_tpu_torch/models/llama.py", "llama_block_decode", 7),
             ("quintnet_tpu_torch/nn/attention.py", "tp mesh", 7)):
         msgs = [m for m in by_file[where] if needle in m]

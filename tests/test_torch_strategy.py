@@ -11,11 +11,13 @@ assert the strategy name). The pp strategies (``pp``, ``dp_pp``,
 are built on gloo worlds of 2, 4 and 8 CPU ranks here, each held to the
 roles JAX's ``get_strategy`` gives the same config (``batch_axes``,
 ``model_axes``, ``partial_axes``, ``zero1_axis``, ``zero_stage``), as
-are ``training.fsdp`` on dp and dp x tp (``fsdp_axis``) and the ep
+are ``training.fsdp`` on dp and dp x tp (``fsdp_axis``), the ep
 strategies (``ep``, ``dp_ep``, ``ep_tp``, ``ep_pp``: ep is a batch
-axis). Every strategy that needs sp raises ``NotImplementedError``
-naming its ROADMAP.md item (a mesh with ep and sp too), and fsdp under
-pp JAX's ``NotImplementedError``, before any process group is touched.
+axis) and the sp ones (``sp``, ``dp_sp``, and JAX's ``custom`` on dp x
+sp x ep, tp x pp x sp and dp x tp x sp: sp is a model axis; ``4d`` and
+``5d`` are built by the slow goldens of ``tests/test_torch_sp_5d.py``).
+fsdp under pp raises JAX's ``NotImplementedError`` before any process
+group is touched.
 """
 
 import numpy as np
@@ -29,8 +31,7 @@ from quintnet_tpu.parallel.strategy import STRATEGY_AXES as JAX_AXES
 from quintnet_tpu.parallel.strategy import get_strategy as jax_get_strategy
 from quintnet_tpu_torch.core import runtime
 from quintnet_tpu_torch.core.config import Config
-from quintnet_tpu_torch.parallel.strategy import (PORTED, STRATEGY_AXES,
-                                                  get_strategy)
+from quintnet_tpu_torch.parallel.strategy import STRATEGY_AXES, get_strategy
 
 
 def _cfg(sizes, **training):
@@ -40,9 +41,9 @@ def _cfg(sizes, **training):
 
 
 def test_strategy_names_are_jax_names():
+    """Every strategy of the JAX package is ported: the port's table is
+    JAX's, and the role cases below build those with sp too."""
     assert STRATEGY_AXES == JAX_AXES
-    assert PORTED == ("single", "dp", "tp", "pp", "dp_tp", "dp_pp", "tp_pp",
-                      "3d", "ep", "dp_ep", "ep_tp", "ep_pp", "3d_ep")
 
 
 def test_single_on_one_device():
@@ -71,6 +72,14 @@ PORTED_CASES = {
     "ep_pp_1f1b": ("ep_pp", {"ep": 2, "pp": 2}, {"schedule": "1f1b"}),
     "auto_ep_zero1": (None, {"dp": 2, "ep": 2},
                       {"optimizer": "zero1_adamw"}),
+    # these raised before sequence parallelism was ported
+    "sp": ("sp", {"sp": 2}, {}),
+    "dp_sp": (None, {"dp": 2, "sp": 2}, {}),
+    "dp_sp_ep": (None, {"dp": 2, "sp": 2, "ep": 2},
+                 {"optimizer": "zero1_adamw"}),
+    "tp_pp_sp_1f1b": (None, {"tp": 2, "pp": 2, "sp": 2}, {"schedule": "1f1b"}),
+    "dp_tp_sp_zero2": (None, {"dp": 2, "tp": 2, "sp": 2},
+                       {"optimizer": "zero2_adamw"}),
 }
 
 
@@ -113,16 +122,9 @@ def test_pp_and_zero_strategies_take_jax_roles(roles, case):
 
 
 # case id -> (strategy, mesh, training, what the NotImplementedError
-# says): the ROADMAP.md item of a strategy still to port; fsdp is ported
-# and refused only under pp, with JAX's message. ep is ported: its cases
-# are meshes that have sp as well (4d and 5d), refused for the sp.
+# says): every strategy is ported; fsdp is refused under pp, with JAX's
+# message
 NOT_PORTED = {
-    "sp": ("sp", {"sp": 2}, {}, "ROADMAP.md, §1, item 6"),
-    "dp_sp": (None, {"dp": 2, "sp": 2}, {}, "ROADMAP.md, §1, item 6"),
-    "ep": ("5d", {"dp": 2, "tp": 2, "pp": 2, "sp": 2, "ep": 2}, {},
-           "ROADMAP.md, §1, item 6"),
-    "dp_ep": (None, {"dp": 2, "ep": 2, "sp": 2}, {},
-              "ROADMAP.md, §1, item 6"),
     "fsdp": ("dp_pp", {"dp": 2, "pp": 2}, {"fsdp": True},
              "fsdp under pipeline parallelism is not wired"),
 }

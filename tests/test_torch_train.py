@@ -341,7 +341,8 @@ def _not_ported_cases():
     whose option is now ported and that raises the ported behaviour's
     own error (fsdp with a ZeRO optimizer: JAX's ``ValueError``;
     ``verify_vit(tp=2)``: the port reads the tp from the step it reloads,
-    so it takes none)."""
+    so it takes none; an sp mesh without a joined world: the
+    ``RuntimeError`` of every mesh strategy there)."""
     tiny = GPT2Config.tiny()
     spec = gpt2_model_spec(tiny)
     cfg = Config.from_dict({})
@@ -369,7 +370,9 @@ def _not_ported_cases():
         "fault_tolerance": lambda: trainer().fit(lambda e: [], ft=object()),
         "strategy_dp": (lambda: get_strategy("dp", zero_cfg), ValueError,
                         "ZeRO-3 subsumes 1/2"),
-        "mesh_of_two": lambda: get_strategy(None, mesh_cfg),
+        # sp is ported: a 2-rank sp mesh builds, given a joined world
+        "mesh_of_two": (lambda: get_strategy(None, mesh_cfg), RuntimeError,
+                        "torch.distributed"),
         "remat_dots_spec": lambda: gpt2_model_spec(tiny, remat="dots"),
         "remat_dots_blocks": lambda: stacked_blocks_apply(
             stacked, torch.zeros(1, 2, 3), num_heads=1, remat="dots"),
