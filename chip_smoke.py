@@ -361,6 +361,8 @@ PAGED_STORE_TYPES = 4            # f32, bf16, fp8, int8
 # K4 prefill buckets timed at start 0, f32 and int8: the serve phase's
 # prefills reach 32-512 (prompts of 32-400 tokens), plus 1,024
 PREFILL_BUCKETS = (32, 64, 128, 256, 512, 1024)
+# K4 verify widths: a draft bucket (2, 4, 8) + the row's last token
+VERIFY_WIDTHS = (3, 5, 9)
 
 
 def _wrappers():
@@ -613,6 +615,20 @@ def _paged_cases():
             gen, name=f"verify_{layout}_S8_P4", S=8, Hq=H, Hkv=H, P=4,
             starts=[1019, 700, 511, 300, 129, 64, 17, 0], dead=(7,),
             layout=layout))
+    # speculative decoding's verify step (serve_spec): drafts of 2, 4 and
+    # 8 behind each row's last token on 8 rows at their own starts, P = 3
+    # on the decode path, 5 and 9 on the prefill path
+    for layout in ("f32", "int8"):
+        for P in VERIFY_WIDTHS:
+            cases.append(_paged_case(
+                gen, name=f"verify_{layout}_S8_P{P}", S=8, Hq=H, Hkv=H, P=P,
+                starts=[1019 - P, 700, 511, 300, 129, 64, 17, 0], dead=(7,),
+                layout=layout))
+    # chunked prefill (serve_chunked): a 1,000-token prompt's later
+    # chunks, bucket 256 at offsets 256 and 768
+    for st in (256, 768):
+        cases.append(_paged_case(gen, name=f"prefill_chunk_P256_start{st}",
+                                 S=1, Hq=H, Hkv=H, P=256, starts=[st]))
     cases.append(_paged_case(gen, name="decode_gqa_int8", S=8, Hq=H,
                              Hkv=H // 2, P=1,
                              starts=[900, 450, 31, 16, 15, 200, 5, 0],
@@ -822,8 +838,11 @@ def _flash_cases():
     # phases; the 16 kv heads repeated to 32 before the call), the same
     # with packed-document segment ids (llama_packed) and a tp = 2 rank's
     # 16 heads (the llama_tp2 mesh run, and llama_sp2_ulysses: its 32
-    # repeated heads over sp = 2); last an sp2_ulysses rank's: a
-    # micro-batch of 4 rows, 6 of the 12 heads over all 1,024 positions
+    # repeated heads over sp = 2); then an sp2_ulysses rank's: a
+    # micro-batch of 4 rows, 6 of the 12 heads over all 1,024 positions;
+    # last the vocab-parallel runs' ranks: vp_tp2 (micro-batch 8, 6 local
+    # heads) and vp_tp2_sp2 (micro-batch 4, 3 heads over all 512
+    # positions after Ulysses' exchange); llama_vp_tp2's is llama_tp2's
     shapes = [(TRAIN_CASE, 32, 12, 512, True, False),
               ("mesh_tp2_B32_H6_S512", 32, 6, 512, True, False),
               ("mesh_dp2tp2_B4_H6_S512", 4, 6, 512, True, False),
@@ -838,7 +857,9 @@ def _flash_cases():
               (LLAMA_CASE, 4, 32, 1024, True, False),
               ("llama_packed_B4_H32_S1024", 4, 32, 1024, True, True),
               ("llama_tp2_B4_H16_S1024", 4, 16, 1024, True, False),
-              (ULYSSES_CASE, 4, 6, 1024, True, False)]
+              (ULYSSES_CASE, 4, 6, 1024, True, False),
+              ("vp_tp2_B8_H6_S512", 8, 6, 512, True, False),
+              ("vp_tp2_sp2_B4_H3_S512", 4, 3, 512, True, False)]
     f32_tols = {key: ("rel", KERNEL_TOL)
                 for key in ("o", "lse", "dq", "dk", "dv")}
     bf16_tols = {"o": ("rel", BF16_TOL), "lse": ("abs", LSE_TOL_BF16),
@@ -1464,14 +1485,7 @@ PREEMPT_BLOCKS = 48
 
 
 def _sampled_engine(params, cfg, num_blocks=320):
-    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
-
-    eng = ServeEngine(gpt2_family(cfg), params, device=DEVICE, max_slots=8,
-                      block_size=16, num_blocks=num_blocks, kv_dtype="f32",
-                      **SAMPLED)
-    eng.warmup()
-    torch.cuda.synchronize()
-    return eng
+    return _engine_on_card(params, cfg, num_blocks=num_blocks, **SAMPLED)
 
 
 def _perturbed_gap(params, cfg, seq, t0, i, seed):
@@ -1612,6 +1626,316 @@ def phase_serve_sampled(params, cfg, greedy):
 
 
 # ---------------------------------------------------------------------
+# phase 2b': speculative decoding and chunked prefill through K4
+# ---------------------------------------------------------------------
+
+SPEC_REQUESTS = 8
+SPEC_SEEDS = tuple(range(100, 100 + SPEC_REQUESTS))
+# serve_chunked: one document of 1,000 tokens (+16 new) through prefill
+# buckets up to 256, at most 256 chunk tokens a step, while three
+# streams decode; the widened engine's window holds it whole (1,024)
+CHUNK_PROMPT, CHUNK_NEW, CHUNK_WINDOW, CHUNK_BUDGET = 1000, 16, 256, 256
+CHUNK_STREAMS, CHUNK_STREAM_NEW = (40, 75, 120), 48
+
+
+def _spec_traffic(cfg, rng):
+    """serve_spec's requests: even ones tile a random 5-16-token pattern
+    (to 48-160 tokens), odd ones are random (32-200 tokens); 32-64 new
+    tokens each."""
+    prompts = []
+    for i in range(SPEC_REQUESTS):
+        if i % 2 == 0:
+            pat = rng.integers(0, cfg.vocab_size, int(rng.integers(5, 17)))
+            prompts.append(np.tile(pat, 10)[:int(rng.integers(48, 161))])
+        else:
+            prompts.append(rng.integers(0, cfg.vocab_size,
+                                        int(rng.integers(32, 201))))
+    return ([p.astype(np.int32) for p in prompts],
+            [int(n) for n in rng.integers(32, 65, SPEC_REQUESTS)])
+
+
+def _engine_on_card(params, cfg, **kw):
+    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
+
+    kw = {"max_slots": 8, "block_size": 16, "num_blocks": 320,
+          "kv_dtype": "f32", **kw}
+    eng = ServeEngine(gpt2_family(cfg), params, device=DEVICE, **kw)
+    eng.warmup()
+    torch.cuda.synchronize()
+    return eng
+
+
+class _Calls:
+    """Counts an engine's decode calls and records the run width of each
+    of its verify calls (its bound methods wrapped)."""
+
+    def __init__(self, eng):
+        self.decode, self.verify, self.committed = 0, [], 0
+        decode, verify, step = eng._decode, eng._verify, eng._verify_step
+
+        def counted_decode(*a, **k):
+            self.decode += 1
+            return decode(*a, **k)
+
+        def recorded_verify(ids, *a, **k):
+            self.verify.append(int(ids.shape[1]))
+            return verify(ids, *a, **k)
+
+        def verify_step(*a, **k):
+            out = step(*a, **k)
+            self.committed += out[0]
+            return out
+
+        eng._decode, eng._verify = counted_decode, recorded_verify
+        eng._verify_step = verify_step
+
+
+def _run_requests(eng, prompts, max_new, seeds):
+    """Submit every request, step to the end: (streams, wall s)."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    rids = [eng.submit(p, n, seed=s) for p, n, s in zip(prompts, max_new,
+                                                        seeds)]
+    eng.run()
+    torch.cuda.synchronize()
+    return [eng.result(r) for r in rids], time.perf_counter() - t0
+
+
+def _near_tie_compare(params, cfg, got, want, prompts, seeds=None):
+    """Streams ``got`` against ``want`` (one device, two paths through
+    K4): equal up to each request's first differing token, which must be
+    a near-tie: the dense top-2 logit gap there (with ``seeds``, the gap
+    of the two best perturbed scores at the request's seed) below
+    ``F32_GAP``. Returns (tokens agreeing, compared, divergences)."""
+    agree = compared = 0
+    div = []
+    for r, (g, w, p) in enumerate(zip(got, want, prompts)):
+        a, b = g[len(p):], w[len(p):]
+        if len(a) != len(b):
+            raise AssertionError(f"request {r}: {len(a)} tokens vs "
+                                 f"{len(b)}")
+        d = np.nonzero(a != b)[0]
+        agree += len(a) if d.size == 0 else int(d[0])
+        compared += len(a)
+        if d.size == 0:
+            continue
+        i = int(d[0])
+        gap = (_perturbed_gap(params, cfg, g, len(p), i, seeds[r])
+               if seeds is not None
+               else _greedy_gap_check(params, cfg, g, len(p), i))
+        div.append({"request": r, "step": i, "got": int(a[i]),
+                    "want": int(b[i]), "top2_gap": gap})
+        if gap >= F32_GAP:
+            raise AssertionError(
+                f"request {r} step {i}: token {int(a[i])} != {int(b[i])} "
+                f"with top-2 gap {gap} (>= {F32_GAP})")
+    return agree, compared, div
+
+
+def _check_launches(launches, variant, want):
+    """K4's launches of one run: ``want`` by path, all of ``variant``."""
+    total = sum(want.values())
+    if (launches["total"] != total
+            or launches["by_variant"] != ({variant: total} if total else {})
+            or {k: launches["by_path"].get(k, 0) for k in want} != want):
+        raise AssertionError(f"paged_attention launched {launches}; "
+                             f"expected {want} by path, all {variant}")
+
+
+def phase_serve_spec(params, cfg):
+    """Speculative decoding on GPT-2 124M (f32 pool, 8 slots): 8 requests,
+    half tiling a short pattern, greedy and sampled (``SAMPLED``), each
+    run spec-off and spec-on. Gates: spec-on streams == spec-off up to
+    reported near-ties; K4 == n_layer x (decode calls + prefills) and
+    n_layer x verify calls, each verify on the path of its width (P = 3:
+    decode; 5, 9: prefill), all f32 passthrough; fake_quant with spec ==
+    f32 with spec bit for bit. Reported: acceptance, tokens a verify
+    step, engine steps and wall time on and off (random weights: the
+    acceptance is random-weight dynamics, not a model's)."""
+    from quintnet_tpu_torch.ops.paged_attention import _path
+
+    prompts, max_new = _spec_traffic(cfg, np.random.default_rng(17))
+    L = cfg.n_layer
+    res = {"phase": "serve_spec", "model": "gpt2-124M (random init, seed "
+           "0)", "kv_dtype": "f32", "slots": 8, "spec": "SpecConfig() "
+           "(n-gram drafts, max 8, verify buckets 2/4/8)",
+           "prompt_lens": [len(p) for p in prompts], "max_new": max_new,
+           "seeds": list(SPEC_SEEDS), "runs": {},
+           "launches_by_path": {"decode": 0, "prefill": 0}}
+    greedy_on = None
+    for mode, kw in (("greedy", {}), ("sampled", SAMPLED)):
+        off = _engine_on_card(params, cfg, **kw)
+        s_off, wall_off = _run_requests(off, prompts, max_new, SPEC_SEEDS)
+        steps_off = off.metrics.steps
+        del off
+        on = _engine_on_card(params, cfg, spec=True, **kw)
+        calls = _Calls(on)
+        _zero_counts()                  # the main path: spec-on
+        s_on, wall_on = _run_requests(on, prompts, max_new, SPEC_SEEDS)
+        launches = _launches()
+        m = on.metrics
+        if m.spec_steps < 1 or len(calls.verify) != m.spec_steps:
+            raise AssertionError(f"{mode}: {m.spec_steps} verify steps, "
+                                 f"{len(calls.verify)} verify calls")
+        want = {"decode": L * calls.decode, "prefill": L * m.admitted}
+        for P in calls.verify:
+            want[_path(cfg.n_head, cfg.n_head, P)] += L
+        _check_launches(launches, _variant(on.pool), want)
+        for k in want:
+            res["launches_by_path"][k] += want[k]
+        agree, compared, div = _near_tie_compare(
+            params, cfg, s_on, s_off, prompts,
+            SPEC_SEEDS if mode == "sampled" else None)
+        s = m.summary()
+        res["runs"][mode] = {
+            "launches_by_path": want,
+            "verify_calls_by_width": dict(collections.Counter(
+                calls.verify)),
+            "tokens_agreeing_spec_on_vs_off": agree,
+            "tokens_compared": compared, "divergences_at_near_ties": div,
+            "draft_tokens": s["draft_tokens"],
+            "accepted_draft_tokens": s["accepted_draft_tokens"],
+            "draft_acceptance_rate": s["draft_acceptance_rate"],
+            "verify_steps": m.spec_steps, "decode_calls": calls.decode,
+            "tokens_per_verify_step": calls.committed / m.spec_steps,
+            "tokens_per_decode_step": s["tokens_per_decode_step"],
+            "engine_steps_on_off": [m.steps, steps_off],
+            "wall_s_on_off": [wall_on, wall_off]}
+        if mode == "greedy":
+            greedy_on = s_on
+        del on
+        torch.cuda.empty_cache()
+    fq = _engine_on_card(params, cfg, spec=True, kv_dtype="fake_quant")
+    s_fq, _ = _run_requests(fq, prompts, max_new, SPEC_SEEDS)
+    d = _first_divergence(greedy_on, s_fq)
+    if d is not None:
+        raise AssertionError(f"fake_quant with spec differs from f32 with "
+                             f"spec: request {d[0]}, token {d[1]}")
+    res["fake_quant_with_spec_equals_f32"] = True
+    res["card"] = _smi()
+    _emit(res)
+    return res
+
+
+def _chunk_script(eng, cfg, rng):
+    """serve_chunked's traffic: three short streams admitted and decoding,
+    then the 1,000-token document. Returns (streams, prompts, per-step
+    records of the document's prefill: wall s, decode tokens, chunk
+    tokens; the wall s of the steps after it, decoding only)."""
+    short = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+             for n in CHUNK_STREAMS]
+    doc = rng.integers(0, cfg.vocab_size, CHUNK_PROMPT).astype(np.int32)
+    rids = [eng.submit(p, CHUNK_STREAM_NEW) for p in short]
+    eng.step()
+    rid = eng.submit(doc, CHUNK_NEW)
+    during, after = [], []
+    m = eng.metrics
+    while eng.request(rid).state != "finished":
+        torch.cuda.synchronize()
+        d0, c0, t = m.decode_tokens, m.chunk_tokens, time.perf_counter()
+        first = eng.request(rid).first_token_time is None
+        eng.step()
+        torch.cuda.synchronize()
+        rec = (time.perf_counter() - t, m.decode_tokens - d0,
+               m.chunk_tokens - c0)
+        (during if first else after).append(rec)
+    eng.run()
+    return ([eng.result(r) for r in rids + [rid]], short + [doc], during,
+            after)
+
+
+def phase_serve_chunked(params, cfg):
+    """Chunked prefill on GPT-2 124M (f32 pool): the 1,000-token document
+    through buckets up to 256, 256 chunk tokens a step, while three
+    streams decode; the same traffic through an engine whose window holds
+    the document whole (prefill_len 1,024: one P = 1,024 prefill). Gates:
+    tokens equal the widened engine's up to reported near-ties, the
+    document's last-position logits within 1e-4; every stream in flight
+    gets a token every step of the document's prefill; chunk tokens a
+    step <= the budget; K4 prefill == n_layer x chunks (the widened
+    engine: n_layer x prefills), decode == n_layer x decode calls.
+    Reported: the decode step's ms while chunking against the step that
+    prefills the whole document."""
+    L = cfg.n_layer
+    runs, logits = {}, {}
+    for name, kw in (("widened", {"prefill_len": 1024}),
+                     ("chunked", {"prefill_len": CHUNK_WINDOW,
+                                  "chunked_prefill": True,
+                                  "prefill_chunk_budget": CHUNK_BUDGET})):
+        eng = _engine_on_card(params, cfg, max_slots=4, max_seq_len=1024,
+                              **kw)
+        calls = _Calls(eng)
+        prefill = eng._prefill
+
+        def recorded(ids, start, t0, *a, _name=name, _pf=prefill):
+            out = _pf(ids, start, t0, *a)
+            if t0 == CHUNK_PROMPT:
+                logits[_name] = out.detach().cpu()
+            return out
+
+        eng._prefill = recorded
+        _zero_counts()
+        streams, prompts, during, after = _chunk_script(
+            eng, cfg, np.random.default_rng(23))
+        launches = _launches()
+        m = eng.metrics
+        n_prefills = m.prefill_chunks if eng.chunked_prefill else m.admitted
+        want = {"decode": L * calls.decode, "prefill": L * n_prefills}
+        _check_launches(launches, _variant(eng.pool), want)
+        runs[name] = {"streams": streams, "prompts": prompts,
+                      "launches_by_path": want,
+                      "engine_steps": m.steps,
+                      "prefill_chunks": m.prefill_chunks,
+                      "document_prefill_steps": len(during),
+                      "document_prefill_step_ms": [
+                          w * 1e3 for w, _, _ in during],
+                      "decode_tokens_in_those_steps": [
+                          d for _, d, _ in during],
+                      "chunk_tokens_a_step": [c for _, _, c in during],
+                      "steady_decode_step_ms": float(np.median(
+                          [w for w, _, _ in after])) * 1e3}
+        del eng
+        torch.cuda.empty_cache()
+    ch = runs["chunked"]
+    if max(ch["chunk_tokens_a_step"]) > CHUNK_BUDGET:
+        raise AssertionError(f"chunk tokens a step {ch['chunk_tokens_a_step']}"
+                             f" over the budget {CHUNK_BUDGET}")
+    if min(ch["decode_tokens_in_those_steps"]) < len(CHUNK_STREAMS):
+        raise AssertionError(
+            f"a stream starved while the document prefilled: decode tokens"
+            f" a step {ch['decode_tokens_in_those_steps']} (< "
+            f"{len(CHUNK_STREAMS)} streams)")
+    if ch["prefill_chunks"] < -(-CHUNK_PROMPT // CHUNK_BUDGET):
+        raise AssertionError(f"{ch['prefill_chunks']} chunks")
+    logit_err = float((logits["chunked"] - logits["widened"]).abs().max())
+    if not logit_err <= 1e-4:
+        raise AssertionError(f"the document's last logits differ by "
+                             f"{logit_err} chunked vs widened (> 1e-4)")
+    agree, compared, div = _near_tie_compare(
+        params, cfg, ch.pop("streams"), runs["widened"].pop("streams"),
+        ch["prompts"])
+    wide = runs["widened"]
+    for r in runs.values():
+        del r["prompts"]
+    res = {"phase": "serve_chunked",
+           "model": "gpt2-124M (random init, seed 0)", "kv_dtype": "f32",
+           "document_tokens": CHUNK_PROMPT, "document_new": CHUNK_NEW,
+           "streams": list(CHUNK_STREAMS), "stream_new": CHUNK_STREAM_NEW,
+           "chunked": {"prefill_len": CHUNK_WINDOW,
+                       "prefill_chunk_budget": CHUNK_BUDGET},
+           "widened": {"prefill_len": 1024},
+           "tokens_agreeing_chunked_vs_widened": agree,
+           "tokens_compared": compared, "divergences_at_near_ties": div,
+           "document_last_logits_max_abs_err": logit_err,
+           "decode_step_ms_while_chunking": float(np.median(
+               ch["document_prefill_step_ms"])),
+           "monolithic_prefill_step_ms": wide["document_prefill_step_ms"],
+           "runs": runs, "card": _smi()}
+    _emit(res)
+    return res
+
+
+# ---------------------------------------------------------------------
 # phase 2c: the dense decoders (greedy, beam search; Llama-3.2-1B)
 # ---------------------------------------------------------------------
 
@@ -1619,12 +1943,12 @@ GEN_PROMPTS, GEN_PROMPT_LEN, GEN_NEW = 2, 64, 32
 LLAMA_GEN_ROWS, LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 4, 128, 16
 
 
-def _greedy_gap_check(params, cfg, seq, t0, i):
+def _greedy_gap_check(params, cfg, seq, t0, i, device=DEVICE):
     """The dense top-2 logit gap at request token ``i`` (teacher-forced
     over ``seq[:t0 + i]``)."""
     from quintnet_tpu_torch.models.gpt2 import gpt2_apply
 
-    ids = torch.from_numpy(seq[:t0 + i].astype(np.int64)).to(DEVICE)[None]
+    ids = torch.from_numpy(seq[:t0 + i].astype(np.int64)).to(device)[None]
     with torch.no_grad():
         top2 = torch.topk(gpt2_apply(params, ids, cfg)[0, -1], 2).values
     return float(top2[0] - top2[1])
@@ -2907,7 +3231,12 @@ def phase_resume():
 # "save" (checkpoint every step into the phase's work directory: the
 # uncut run of the resume check), "resume" (a fresh world restores the
 # named run's step 1 and takes step 2), "sp_mode" (on an sp mesh: "ring",
-# "zigzag" or "ulysses"; only Ulysses runs the flash kernels)
+# "zigzag" or "ulysses"; only Ulysses runs the flash kernels), "vp" (the
+# model's ``vocab_parallel``: its table's rows sharded over tp),
+# "pad_vocab" (the table padded to that many rows; the reference is the
+# single rank with the same padded table), "generate" (after training,
+# ``gpt2_generate_tp`` that many greedy tokens from the vocab-sharded
+# parameters, held to one device's ``gpt2_generate``)
 MESH_RUNS = {
     "dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"layers": 6}),
     "tp2": ([2], ["tp"], 2, 64, "afab", "adamw", {"layers": 6}),
@@ -2947,6 +3276,17 @@ MESH_RUNS = {
                     {"model": "gpt2_1k", "sp_mode": "ulysses"}),
     "llama_sp2_ulysses": ([2], ["sp"], 2, 8, "afab", "adamw",
                           {"model": "llama", "sp_mode": "ulysses"}),
+    # vocab parallel: GPT-2 124M uncut, its table padded 50,257 -> 50,304
+    # rows (25,152 a rank), then 16 greedy tokens by gpt2_generate_tp;
+    # Llama-3.2-1B widths at 4 layers (128,256 rows, 64,128 a rank); GPT-2
+    # at 6 layers on tp x sp by Ulysses (clm_loss_vp with the sp shift)
+    "vp_tp2": ([2], ["tp"], 2, 16, "afab", "adamw",
+               {"vp": True, "pad_vocab": 50304, "generate": 16}),
+    "llama_vp_tp2": ([2], ["tp"], 2, 8, "afab", "adamw",
+                     {"model": "llama", "vp": True}),
+    "vp_tp2_sp2": ([2, 2], ["tp", "sp"], 2, 8, "afab", "adamw",
+                   {"vp": True, "pad_vocab": 50304, "layers": 6,
+                    "sp_mode": "ulysses"}),
 }
 # model -> (what it is, its sequence length); built by _run_model
 MESH_MODELS = {
@@ -3034,12 +3374,18 @@ def _run_model(run):
     from quintnet_tpu_torch.models.gpt2 import GPT2Config
     from quintnet_tpu_torch.models.llama import LlamaConfig
 
-    kind = _run_opts(run).get("model", "gpt2")
+    opts = _run_opts(run)
+    if opts.get("vp"):
+        return dataclasses.replace(
+            _run_model(run[:6] + ({k: v for k, v in opts.items()
+                                   if k != "vp"},)),
+            vocab_parallel=True, padded_vocab_size=opts.get("pad_vocab"))
+    kind = opts.get("model", "gpt2")
     seq = MESH_MODELS[kind][1]
     tokens = run[3] // _ref_micro(run) * seq
     if kind in ("gpt2", "gpt2_1k"):
         return dataclasses.replace(
-            GPT2Config.base(), n_layer=_run_opts(run).get("layers", 12))
+            GPT2Config.base(), n_layer=opts.get("layers", 12))
     if kind == "gpt2_moe":
         return dataclasses.replace(GPT2Config.base(), n_experts=8,
                                    expert_top_k=2, expert_capacity=tokens)
@@ -3379,6 +3725,50 @@ def _gather_full(grads, specs, mesh, cfg, tp):
     return {".".join(k): v for k, v in tree_leaves(back)}
 
 
+def _table_key(cfg) -> str:
+    """The flat key of the embedding table of ``cfg``'s family."""
+    return "embedding.tok" if hasattr(cfg, "n_layers") else "embedding.wte"
+
+
+def _vp_generate(dev, params, specs, mesh, cfg, tp, n_new):
+    """``gpt2_generate_tp`` greedy (2 prompts) from a run's final
+    vocab-sharded parameters against ``gpt2_generate`` on one device from
+    the same parameters gathered whole: equal up to each row's first
+    differing token, which must be a near-tie (the dense top-2 gap there
+    below ``F32_GAP``)."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
+    from quintnet_tpu_torch.models.gpt2_generate import (gpt2_generate,
+                                                         gpt2_generate_tp)
+
+    t0 = min(64, cfg.n_positions // 4)
+    n_new = min(n_new, cfg.n_positions - t0)
+    ids = np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (2, t0)).astype(np.int32)
+    sync = torch.cuda.synchronize if dev.type == "cuda" else (lambda: None)
+    sync()
+    t = time.perf_counter()
+    got = gpt2_generate_tp(params, ids, cfg, mesh=mesh, max_new_tokens=n_new)
+    sync()
+    tp_s = time.perf_counter() - t
+    one = tree_map(lambda v: v.to(dev), _nest(_gather_full(
+        dict(tree_leaves(params)), specs, mesh, cfg, tp)))
+    want = gpt2_generate(one, ids, cfg, max_new_tokens=n_new)
+    div, agree = [], 0
+    for r in range(len(ids)):
+        d = np.nonzero(got[r, t0:] != want[r, t0:])[0]
+        agree += n_new if d.size == 0 else int(d[0])
+        if d.size:
+            i = int(d[0])
+            gap = _greedy_gap_check(one, cfg, got[r], t0, i, device=dev)
+            div.append({"row": r, "step": i, "tp": int(got[r, t0 + i]),
+                        "one_device": int(want[r, t0 + i]),
+                        "top2_gap": gap})
+    return {"rows": len(ids), "prompt": t0, "new_tokens": n_new,
+            "tokens_agreeing": agree, "divergences": div,
+            "tp_generate_s": tp_s,
+            "padded_ids_emitted": int((got[:, t0:] >= cfg.vocab_size).sum())}
+
+
 def _leaf_errors(got, want):
     """key -> max |got - want| / max |want| (want's largest magnitude)."""
     return {k: float((got[k] - want[k]).abs().max()
@@ -3663,15 +4053,24 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
         want = float(ref["first_loss"])
         out["first_loss"] = first
         out["first_loss_rel"] = abs(first - want) / abs(want)
-        err = _leaf_errors(_gather_full(grads, specs, strat.mesh, cfg,
-                                        tp), ref["grads"])
-        del grads
+        full = _gather_full(grads, specs, strat.mesh, cfg, tp)
+        err = _leaf_errors(full, ref["grads"])
+        if getattr(cfg, "padded_vocab_size", None):
+            # a padded column takes no probability: its row's gradient
+            # is exactly 0
+            out["padded_rows_grad_max"] = float(
+                full[_table_key(cfg)][cfg.vocab_size:].abs().max())
+        del grads, full
         worst = max(err, key=err.get)
         out["worst_grad_leaf"], out["worst_grad_rel_err"] = (worst,
                                                              err[worst])
     if strat.fsdp_axis is not None:
         held, unsharded = _block_shares(params, specs, strat.mesh)
         out["resident_block_fraction"] = held / unsharded
+    if getattr(cfg, "vocab_parallel", False):
+        t = params["embedding"][_table_key(cfg).split(".")[1]]
+        out["table_rows_a_rank"] = int(t.shape[0])
+        out["table_mb_a_rank"] = t.numel() * t.element_size() / 1e6
     # the main path: counts zeroed just before, read just after
     losses = _recording(tr)
     if ckpt:
@@ -3715,6 +4114,9 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
                     "losses": [v.detach().cpu() for v in losses],
                     "train_loss": hist.train_loss},
                    os.path.join(work, f"final-{rank}.pt"))
+    if opts.get("generate"):
+        out["generate"] = _vp_generate(dev, p, specs, strat.mesh, cfg, tp,
+                                       opts["generate"])
     if dev.type == "cuda":
         out.update(_mesh_step_share(
             tr, p, st, host[0], _per_step(run, _depth(cfg)),
@@ -3945,11 +4347,13 @@ def _add_launches(counts, ranks):
 
 
 def _ref_key(run):
-    """The reference a run is held to: (model, rows, micro-batches,
-    dtype)."""
+    """The reference a run is held to: (model, layers, rows,
+    micro-batches, dtype, padded table rows). ``vocab_parallel`` without
+    tp changes nothing, so a vp run shares its model's reference unless
+    its table is padded."""
     opts = _run_opts(run)
     return (opts.get("model", "gpt2"), opts.get("layers", 0), run[3],
-            _ref_micro(run), opts.get("dtype", ""))
+            _ref_micro(run), opts.get("dtype", ""), opts.get("pad_vocab", 0))
 
 
 def _resume_world(name, run, refs, tmp):
@@ -4013,7 +4417,7 @@ def phase_mesh():
         try:
             hosts = {}
             for key in sorted({_ref_key(r) for r in MESH_RUNS.values()}):
-                kind, _, rows, n_micro, dtype = key
+                kind, _, rows, n_micro, dtype, _ = key
                 run = next(r for r in MESH_RUNS.values()
                            if _ref_key(r) == key)
                 if kind not in hosts:
@@ -4177,6 +4581,8 @@ def _check_mesh_run(name, run, ranks, ref, cfg):
                     f"more than {ROUTE_TIE} apart")
         if fsdp:
             _check_fsdp_rank(where, r, sizes)
+        if getattr(cfg, "vocab_parallel", False):
+            _check_vp_rank(where, r, cfg, sizes)
         if optimizer.startswith("zero"):
             if r["zero"] != ["dp", int(optimizer[4])]:
                 raise AssertionError(f"{where}: ZeRO {r['zero']} for "
@@ -4196,6 +4602,15 @@ def _check_mesh_run(name, run, ranks, ref, cfg):
     if getattr(cfg, "n_experts", 0):
         gate["routing"] = (f"no drop; a flipped decision within {ROUTE_TIE} "
                            f"of its router probabilities")
+    vp = {}
+    if getattr(cfg, "vocab_parallel", False):
+        gate["vocab"] = (f"table rows a rank = {cfg.table_vocab_size} / tp;"
+                         f" padded rows' gradient exactly 0; tp generation "
+                         f"== one device up to a near-tie (< {F32_GAP})")
+        vp = {"vocab": {"vocab_size": cfg.vocab_size,
+                        "table_rows": cfg.table_vocab_size,
+                        "table_rows_a_rank": ranks[0]["table_rows_a_rank"],
+                        "table_mb_a_rank": ranks[0]["table_mb_a_rank"]}}
     return {"phase": "mesh", "run": name, "mesh": sizes,
             "backend": MESH_BACKEND,
             "world_size": len(ranks), "ranks_device": "cuda:0 (shared)",
@@ -4222,13 +4637,33 @@ def _check_mesh_run(name, run, ranks, ref, cfg):
             **({"sp_mode": opts.get("sp_mode", "ring"),
                 "seq_a_rank": MESH_MODELS[kind][1] // sizes["sp"]}
                if sizes.get("sp", 1) > 1 else {}),
-            "gate": gate,
+            "gate": gate, **vp,
             "ranks": [{k: v for k, v in r.items()
                        if k not in ("launches", "routed")} for r in ranks],
             "launches_a_rank": want_dtype,
             "note": ("collectives staged through host memory by gloo; "
                      "every rank shares one card (not NVLink)"),
             "card": _smi()}
+
+
+def _check_vp_rank(where, r, cfg, sizes):
+    """A vocab-parallel rank: it holds its 1/tp of the table's rows, a
+    padded row took no gradient, and its tp generation (where the run
+    asked for one) equals one device's up to a near-tie and emitted no
+    padding id."""
+    tp = sizes.get("tp", 1)
+    if r["table_rows_a_rank"] != cfg.table_vocab_size // tp:
+        raise AssertionError(f"{where}: {r['table_rows_a_rank']} table rows"
+                             f" ({cfg.table_vocab_size} / {tp} expected)")
+    if r.get("padded_rows_grad_max", 0.0) != 0.0:
+        raise AssertionError(f"{where}: padded rows' gradient "
+                             f"{r['padded_rows_grad_max']} (not 0)")
+    g = r.get("generate")
+    if g is not None:
+        bad = [d for d in g["divergences"] if not d["top2_gap"] < F32_GAP]
+        if bad or g["padded_ids_emitted"]:
+            raise AssertionError(f"{where}: tp generation vs one device: "
+                                 f"{g}")
 
 
 def _check_fsdp_rank(where, r, sizes):
@@ -4303,6 +4738,8 @@ def main() -> int:
     serve_res, _, (params, cfg, f32_streams) = timed("serve", phase_serve)
     sampled_res = timed("serve_sampled", phase_serve_sampled, params, cfg,
                         serve_res)
+    spec_res = timed("serve_spec", phase_serve_spec, params, cfg)
+    chunk_res = timed("serve_chunked", phase_serve_chunked, params, cfg)
     timed("generate", phase_generate, params, cfg)
     _res, kv_runs = timed("serve_kv", phase_serve_kv, params, cfg,
                           f32_streams)
@@ -4335,10 +4772,15 @@ def main() -> int:
     # one entry per (variant, path) with the launches of that path in the
     # variant's serve run, timed at the decode shape or at prefill P = 128
     # (start 0); the train micro-batch for flash attention
-    # the f32 pool's launches: the greedy and the sampled serve runs
+    # the f32 pool's launches: the greedy and the sampled serve runs, the
+    # spec-on runs (verify by its width's path) and the chunked and
+    # widened document runs
+    f32_runs = ([serve_res["launches_by_path"],
+                 sampled_res["launches_by_path"],
+                 spec_res["launches_by_path"]]
+                + [r["launches_by_path"] for r in chunk_res["runs"].values()])
     runs = {_variant_of(serve_res["launches_by_variant"]): {
-        "by_path": {path: serve_res["launches_by_path"].get(path, 0)
-                    + sampled_res["launches_by_path"].get(path, 0)
+        "by_path": {path: sum(r.get(path, 0) for r in f32_runs)
                     for path in PAGED_SYMBOLS}}}
     for launches in kv_runs.values():
         runs[_variant_of(launches["by_variant"])] = launches

@@ -1,8 +1,9 @@
 """Shape ladders the serving engine derives its programs from.
 
 The port's own copies of ``quintnet_tpu/analysis/specs.py``'s
-``prefill_buckets`` and ``kv_layout_policies`` (the JAX module is pure
-Python, but importing anything under ``quintnet_tpu`` pulls in jax).
+``prefill_buckets``, ``verify_buckets`` and ``kv_layout_policies`` (the
+JAX module is pure Python, but importing anything under ``quintnet_tpu``
+pulls in jax).
 """
 
 from __future__ import annotations
@@ -22,6 +23,23 @@ def prefill_buckets(prefill_len: int, *, floor: int = 16) -> Tuple[int, ...]:
         out.append(b)
         b *= 2
     out.append(prefill_len)
+    return tuple(out)
+
+
+def verify_buckets(max_draft: int, *, floor: int = 2) -> Tuple[int, ...]:
+    """The draft-length ladder of the speculative verify step
+    (``serve/spec.py``): powers of two from ``floor`` up to (and capped
+    at) ``max_draft``; ``max_draft=8`` gives ``(2, 4, 8)``. A step whose
+    longest draft is k runs at the smallest bucket >= k, its width the
+    bucket + 1 tokens a row (the slot's last token rides in front)."""
+    if max_draft < 1:
+        raise ValueError(f"max_draft must be >= 1; got {max_draft}")
+    out = []
+    b = floor
+    while b < max_draft:
+        out.append(b)
+        b *= 2
+    out.append(max_draft)
     return tuple(out)
 
 

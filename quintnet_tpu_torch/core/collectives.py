@@ -17,7 +17,9 @@ check_vma=False)``, not the reference's Megatron rules, so that
 - ``reduce_scatter``         -> ``all_gather``;
 - ``all_to_all``             -> the reverse ``all_to_all``;
 - ``ppermute`` (a shift is one) -> the inverse permutation (the
-  opposite shift), zeros where nothing is sent.
+  opposite shift), zeros where nothing is sent;
+- ``all_reduce_max`` (pmax) has none, as JAX's pmax has no JVP rule:
+  its callers take it of a detached value (a stabiliser).
 
 Every call runs inside a ``torch.profiler.record_function`` range named
 ``collective:<name>`` (:func:`communicate`). A backend that cannot run a
@@ -276,6 +278,22 @@ def all_reduce(x, axis: AxisNames, mesh: Optional[Mesh] = None):
     """Sum over the members of ``axis`` (psum)."""
     ax = resolve_axis(axis, mesh)
     return x if ax.size == 1 else _AllReduce.apply(x, ax)
+
+
+def all_reduce_max(x, axis: AxisNames, mesh: Optional[Mesh] = None):
+    """Elementwise max over the members of ``axis`` (pmax). It has no
+    gradient, as JAX's pmax has no JVP rule: ``x`` must not require one
+    (the callers detach it first, as JAX puts ``stop_gradient`` before
+    the pmax)."""
+    ax = resolve_axis(axis, mesh)
+    if x.requires_grad:
+        raise ValueError("all_reduce_max has no gradient: detach x first")
+    if ax.size == 1:
+        return x
+    out = x.contiguous().clone()
+    communicate("all_reduce_max", dist.all_reduce, out,
+                op=dist.ReduceOp.MAX, group=ax.group)
+    return out
 
 
 def all_reduce_mean(x, axis: AxisNames, mesh: Optional[Mesh] = None):

@@ -1,6 +1,7 @@
-"""Long-context training walkthrough: sequence parallelism end to end.
+"""Long-context walkthrough: sequence-parallel training, and chunked
+prefill serving.
 
-Port of the training half of ``quintnet_tpu/examples/long_context.py``.
+Port of ``quintnet_tpu/examples/long_context.py``.
 Every activation's SEQUENCE dim is sharded over the ``sp`` mesh axis
 (``--nproc`` ranks) and attention runs exactly across the shards:
 
@@ -24,8 +25,18 @@ on the card its Ulysses attention runs blockwise (counted in
 ``flash_attention.routed``); GPT-2 124M at its 1,024 positions on sp = 2
 through K1-K3 is ``chip_smoke.py``'s ``sp2_ulysses`` run.
 
-``--serve`` (the chunked-prefill serving half of the JAX example) raises
-``NotImplementedError``: chunked prefill is ROADMAP.md §1, item 7.
+``--serve`` is the serving half: one document-length prompt (384 tokens
+by default), longer than the engine's whole prefill window (64), served
+by the chunked-prefill engine (``serve/longctx.py``: admitted whole, fed
+through bucket-sized chunks at most 64 tokens a step) and checked token
+for token against an engine whose window was widened to hold it::
+
+    python -m quintnet_tpu_torch.examples.long_context --serve --device cpu
+    python -m quintnet_tpu_torch.examples.long_context --serve   # the card
+
+``--serve --simulate N`` with N > 1 (the chunks' attention sequence
+parallel over N devices) raises ``NotImplementedError``: sp prefill is
+ROADMAP.md §1, item 7.
 """
 
 from __future__ import annotations
@@ -48,13 +59,24 @@ def main(argv=None):
     ap.add_argument("--steps", type=int, default=3)
     ap.add_argument("--batch", type=int, default=2)
     ap.add_argument("--serve", action="store_true",
-                    help="the serving half (chunked prefill): not ported")
+                    help="serving: one document-length prompt through the "
+                         "chunked-prefill engine instead of training")
+    ap.add_argument("--serve-prompt", type=int, default=384,
+                    help="--serve prompt length (tokens)")
+    ap.add_argument("--serve-new", type=int, default=8,
+                    help="--serve generated tokens")
+    ap.add_argument("--simulate", type=int, default=None,
+                    help="--serve: devices the chunks' attention is "
+                         "sequence-parallel over (only 1 is ported)")
     add_launch_args(ap)
     args = ap.parse_args(argv)
     if args.serve:
-        raise NotImplementedError(
-            "--serve runs the chunked-prefill serving engine "
-            f"(serve/longctx.py), which is not ported yet ({SERVE_ITEM})")
+        if (args.simulate or 1) > 1:
+            raise NotImplementedError(
+                "--serve --simulate N > 1 runs each chunk's attention "
+                "sequence-parallel (ring_paged_prefill), which is not "
+                f"ported yet ({SERVE_ITEM}: sp prefill)")
+        return serve_demo(args)
 
     from quintnet_tpu_torch.core.config import Config
 
@@ -64,6 +86,49 @@ def main(argv=None):
                      "optimizer": "adamw", "learning_rate": 1e-3,
                      "grad_clip_norm": 1.0}})
     return launch(_train, args, cfg.mesh.world_size, cfg)
+
+
+def serve_demo(args):
+    """One long prompt through the chunked engine, then through an
+    engine whose prefill window holds it whole: the same tokens. Returns
+    the generated tokens."""
+    import numpy as np
+    import torch
+
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from quintnet_tpu_torch.serve import ServeEngine, generate, gpt2_family
+
+    cfg = GPT2Config.tiny(n_layer=2, n_positions=1024)
+    gen = torch.Generator(device=args.device).manual_seed(0)
+    params = gpt2_init(gen, cfg)
+    family = gpt2_family(cfg)
+    prompt = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (args.serve_prompt,)).astype(np.int32)
+    window = budget = 64
+    kw = dict(device=args.device, max_slots=4, block_size=16,
+              num_blocks=128, max_seq_len=cfg.n_positions)
+    chunked = ServeEngine(family, params, prefill_len=window,
+                          chunked_prefill=True, prefill_chunk_budget=budget,
+                          **kw)
+    print(f"prompt {len(prompt)} tokens vs prefill window {window} (top "
+          f"bucket {chunked.prefill_buckets[-1]}), chunk budget "
+          f"{budget}/step, device {chunked.device}")
+    t0 = time.perf_counter()
+    out = generate(chunked, [prompt], max_new_tokens=args.serve_new,
+                   seeds=[1], max_steps=2000)[0]
+    dt = time.perf_counter() - t0
+    m = chunked.metrics
+    print(f"served in {m.steps} engine steps / {dt:.2f}s: "
+          f"{m.prefill_chunks} chunks, {m.chunk_tokens_per_step:.1f} chunk "
+          f"tokens/step (<= {budget} by construction)")
+    want = generate(ServeEngine(family, params, **kw), [prompt],
+                    max_new_tokens=args.serve_new, seeds=[1])[0]
+    same = bool(np.array_equal(out, want))
+    print(f"identical to the widened single-shot engine: {same}")
+    print("generated:", out[len(prompt):].tolist())
+    if not same:
+        raise SystemExit("chunked output diverged from single-shot")
+    return out[len(prompt):]
 
 
 def _model_config(args):

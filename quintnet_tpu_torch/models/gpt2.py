@@ -20,8 +20,10 @@ on this rank's tp shards (:func:`gpt2_partition_specs`: the blocks
 Megatron-sharded in the tp-blocked qkv layout of
 :func:`gpt2_to_tp_layout`, the experts over ep, and their depth cut over
 pp, embeddings,
-LayerNorms and the tied head replicated; under ZeRO-3/FSDP the blocks
-are also sharded over dp and gathered layer by layer);
+LayerNorms and the tied head replicated, or with ``vocab_parallel`` the
+table's rows sharded over tp and the loss :func:`clm_loss_vp`; under
+ZeRO-3/FSDP the blocks are also sharded over dp and gathered layer by
+layer);
 :func:`gpt2_pipeline_fns` is the same model cut into pipeline stages.
 """
 
@@ -66,8 +68,12 @@ class GPT2Config:
     ``router_type`` (``"topk"``; ``"expert_choice"`` is non-causal and
     refused by :attr:`moe_args`). :meth:`from_dict` keeps every field
     named here and drops the JAX config's other keys (sequence
-    parallelism). ``vocab_parallel`` is carried so that a tp run that
-    asks for it raises (ROADMAP.md §1, item 6b)."""
+    parallelism). ``vocab_parallel``: under tp, ``wte``'s rows are
+    sharded over the tp ranks (the embedding a masked lookup and one sum,
+    the loss :func:`clm_loss_vp` on the vocab-sharded logits), which needs
+    ``table_vocab_size % tp == 0``: ``padded_vocab_size`` pads the table
+    (50,257 -> 50,304), and the padded columns are masked out of every
+    softmax. Without tp it changes nothing."""
 
     vocab_size: int = 50257
     n_positions: int = 1024
@@ -229,16 +235,22 @@ def gpt2_upcycle_to_moe(params, cfg: GPT2Config, generator=None):
 
 
 def gpt2_embed(params, input_ids, *, sp_axis=None, embd_pdrop: float = 0.0,
-               generator=None):
+               generator=None, vp_axis=None):
     """[B, T] ids -> token + position embeddings [B, T, D]; with
     ``generator``, dropout at ``embd_pdrop`` on the sum. ``sp_axis`` (a
     :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`): the ids are this
     rank's slice of the sequence, whose positions start at ``index *
-    T``."""
+    T``. ``vp_axis``: ``wte`` is this rank's rows of the vocabulary
+    (``parallel/tp.vocab_parallel_embedding``: ids outside them add
+    zeros, one sum over the axis)."""
+    from quintnet_tpu_torch.parallel.tp import vocab_parallel_embedding
+
     emb = params["embedding"]
     T = input_ids.shape[-1]
     start = 0 if sp_axis is None else sp_axis.index * T
-    h = emb["wte"][input_ids] + emb["wpe"][start:start + T][None]
+    tok = vocab_parallel_embedding({"table": emb["wte"]}, input_ids,
+                                   axis=vp_axis)
+    h = tok + emb["wpe"][start:start + T][None]
     if generator is not None and embd_pdrop > 0.0:
         h = dropout(generator, h, embd_pdrop, deterministic=False)
     return h
@@ -252,7 +264,9 @@ def mask_padded_cols(logits, cfg: GPT2Config):
 
 
 def gpt2_logits(params, h, cfg: GPT2Config):
-    """ln_f, then the tied head: logits = ln_f(h) @ wte^T, in f32."""
+    """ln_f, then the tied head: logits = ln_f(h) @ wte^T, in f32; a
+    padded vocabulary's columns masked on a whole table (a vocab-sharded
+    table gives this rank's columns, masked by :func:`clm_loss_vp`)."""
     h = layer_norm_apply(params["head"]["ln_f"], h,
                          eps=cfg.layer_norm_epsilon)
     logits = (h @ params["embedding"]["wte"].T).float()
@@ -315,7 +329,8 @@ def gpt2_hidden(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
     if generator is not None and not cfg.needs_dropout:
         generator = None
     h = gpt2_embed(params, input_ids, sp_axis=sp_axis,
-                   embd_pdrop=cfg.pdrops[0], generator=generator)
+                   embd_pdrop=cfg.pdrops[0], generator=generator,
+                   vp_axis=vocab_axis(cfg, tp_axis))
     out = gpt2_blocks(params["blocks"], h, cfg, tp_axis=tp_axis,
                       sp_axis=sp_axis, sp_mode=sp_mode, ep_axis=ep_axis,
                       remat=remat, use_flash=use_flash, generator=generator,
@@ -332,7 +347,8 @@ def gpt2_forward(params, input_ids, cfg: GPT2Config, *, tp_axis=None,
                  fsdp=None):
     """-> (logits [B, T, V] f32, moe_aux). ``generator``: training
     dropout (None is eval). ``tp_axis``: the params are this rank's tp
-    shards; the logits come out whole (the tied head is replicated).
+    shards; the logits come out whole (the tied head is replicated), or
+    with ``cfg.vocab_parallel`` as this rank's columns [B, T, V/tp].
     ``sp_axis``: the ids are this rank's slice of the sequence and so are
     the logits (attention by ``sp_mode``). ``ep_axis``: the experts are
     this rank's ep shard. ``fsdp``: the blocks are dp-sharded and
@@ -390,6 +406,60 @@ def clm_loss_sp(logits, labels, *, sp_axis):
     return total / count.clamp_min(1)
 
 
+def clm_loss_vp(local_logits, labels, *, tp_axis, sp_axis=None,
+                vocab_size: Optional[int] = None):
+    """The CLM loss from VOCAB-SHARDED logits [B, T, V/tp] (this rank's
+    columns, ``tp_axis``'s index-th block): the full logits exist on no
+    rank. The log-sum-exp is ``log(sum_tp(sum(exp(local - m)))) + m``
+    with ``m`` the max over tp, taken without a gradient (a stabiliser:
+    the softmax's gradient flows through the exponentials and the sum);
+    the target's logit comes from the one rank whose columns hold it,
+    summed over tp. ``vocab_size`` masks the padded columns (those at or
+    past it) to the float minimum. ``sp_axis``: the target shift of
+    :func:`clm_loss_sp`, and the mean over the whole sequence. Equals
+    :func:`clm_loss` (or :func:`clm_loss_sp`) on the gathered logits."""
+    if sp_axis is None:
+        logits, targets = local_logits[:, :-1], labels[:, 1:]
+    else:
+        logits, targets = local_logits, _sp_shift_targets(labels, sp_axis)
+    logits = logits.float()
+    vp = logits.shape[-1]
+    start = cc.axis_index(tp_axis) * vp
+    if vocab_size is not None:
+        col = start + torch.arange(vp, device=logits.device)
+        logits = logits.masked_fill(col >= vocab_size,
+                                    torch.finfo(torch.float32).min)
+    targets = targets.long()
+    valid = targets != IGNORE_INDEX
+    m = cc.all_reduce_max(logits.detach().amax(dim=-1), tp_axis)
+    se = torch.exp(logits - m[..., None]).sum(dim=-1)
+    lse = torch.log(cc.all_reduce(se, tp_axis)) + m
+    local_t = torch.where(valid, targets, 0) - start
+    in_shard = (local_t >= 0) & (local_t < vp)
+    tl = logits.gather(-1, local_t.clamp(0, vp - 1)[..., None])[..., 0]
+    tl = cc.all_reduce(torch.where(in_shard, tl, torch.zeros_like(tl)),
+                       tp_axis)
+    total = torch.where(valid, lse - tl, torch.zeros_like(tl)).sum()
+    count = valid.sum().float()
+    if sp_axis is not None:
+        total = cc.all_reduce(total, sp_axis)
+        count = cc.all_reduce(count, sp_axis)
+    return total / count.clamp_min(1)
+
+
+def vocab_axis(cfg, tp_axis):
+    """The axis a model's table (GPT-2's or Llama's) is sharded over:
+    ``tp_axis`` under ``cfg.vocab_parallel``, else None."""
+    return tp_axis if cfg.vocab_parallel else None
+
+
+def _vp_loss(cfg: GPT2Config, logits, labels, tp_axis, sp_axis):
+    """:func:`clm_loss_vp` with ``cfg``'s padded columns masked."""
+    return clm_loss_vp(logits, labels, tp_axis=tp_axis, sp_axis=sp_axis,
+                       vocab_size=(cfg.vocab_size if cfg.padded_vocab_size
+                                   else None))
+
+
 def clm_loss_chunked(params, h, labels, cfg: GPT2Config, *, chunk: int):
     """The CLM loss straight from the final hidden states, in sequence
     chunks of ``chunk`` positions: each chunk's [B, chunk, V] logits are
@@ -434,13 +504,13 @@ def gpt2_partition_specs(cfg: Optional[GPT2Config] = None, *,
     embeddings and the final LayerNorm replicated (the tied head reads
     ``wte`` whole, on the last stage as the embedding does on the
     first). ``fsdp_axis``: the blocks also sharded over it, one free dim
-    a leaf (``parallel/tp.fsdp_shard_specs``). A vocab-parallel table
-    (``cfg.vocab_parallel``) is not ported yet (ROADMAP.md §1, item
-    6)."""
+    a leaf (``parallel/tp.fsdp_shard_specs``). ``cfg.vocab_parallel``:
+    ``wte``'s rows over ``tp_axis``, so ``reduce_grads`` does not sum its
+    gradient over tp (the loss's and the embedding's sums over tp supply
+    that factor once, and the division by tp takes it out)."""
     from quintnet_tpu_torch.nn.moe import moe_specs
     from quintnet_tpu_torch.parallel.tp import block_specs, fsdp_shard_specs
 
-    _check_mesh_options(cfg, tp_axis)
     bspecs = block_specs(tp_axis=tp_axis, stacked=True, pp_axis=pp_axis)
     if cfg is not None and cfg.n_experts > 0:
         del bspecs["mlp"]
@@ -448,8 +518,9 @@ def gpt2_partition_specs(cfg: Optional[GPT2Config] = None, *,
                                   stacked=True, pp_axis=pp_axis)
     if fsdp_axis is not None:
         bspecs = fsdp_shard_specs(bspecs, fsdp_axis)
+    vp = cfg is not None and cfg.vocab_parallel and tp_axis is not None
     return {
-        "embedding": {"wte": (), "wpe": ()},
+        "embedding": {"wte": (tp_axis, None) if vp else (), "wpe": ()},
         "blocks": bspecs,
         "head": {"ln_f": {"scale": (), "bias": ()}},
     }
@@ -467,19 +538,24 @@ def _fsdp_info(cfg: GPT2Config, tp_axis, fsdp_axis, ep_axis=None):
                      ep_axis=axis_name(ep_axis))
 
 
-def _check_mesh_options(cfg, tp_axis) -> None:
-    if cfg is not None and cfg.vocab_parallel and tp_axis is not None:
-        raise NotImplementedError(
-            "vocab_parallel GPT-2 under tp (the vocab-sharded table and "
-            "clm_loss_vp) is not ported yet (ROADMAP.md §1, item 6b)")
+def check_vocab_split(cfg, tp: int) -> None:
+    """A vocab-parallel table must split evenly over ``tp``."""
+    if cfg.vocab_parallel and tp > 1 and cfg.table_vocab_size % tp != 0:
+        raise ValueError(
+            f"vocab_parallel needs (padded_)vocab_size % tp == 0; got "
+            f"{cfg.table_vocab_size} % {tp}. Set padded_vocab_size "
+            f"(e.g. 50257 -> 50304); padded columns are masked out of "
+            f"the loss.")
 
 
 def gpt2_to_tp_layout(params, cfg: GPT2Config, tp: int):
     """Standard [q|k|v] fused-QKV columns -> the tp-blocked layout
     (``parallel/tp.py``); a new tree sharing every other leaf. Identity
-    at tp = 1."""
+    at tp = 1. A vocab-parallel table must split over tp
+    (:func:`check_vocab_split`)."""
     from quintnet_tpu_torch.parallel.tp import tree_qkv_layout
 
+    check_vocab_split(cfg, tp)
     return tree_qkv_layout(params, cfg.n_head, tp)
 
 
@@ -506,7 +582,9 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, sp_axis=None,
     function sees this rank's slice of the sequence, and the head is a
     ``parallel/pp.SplitHead`` whose collective-free part computes the
     logits and whose reduce part, run on every stage, the loss over sp
-    (:func:`clm_loss_sp`). ``compute_dtype`` casts
+    (:func:`clm_loss_sp`); so is it under ``cfg.vocab_parallel`` with
+    ``tp_axis`` (the embedding's lookup sums over tp, the reduce part is
+    :func:`clm_loss_vp`). ``compute_dtype`` casts
     the parameters each function reads at use (the router kept f32), as
     :func:`gpt2_model_spec` does. The ``generator`` keyword of the
     embedding and the stage drives dropout; the schedules hand each
@@ -517,7 +595,7 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, sp_axis=None,
             "(stage fns receive hidden states, not token ids, so the "
             "segment vector cannot be derived mid-pipeline); use "
             "dp/tp/ep meshes for packed-document isolation")
-    _check_mesh_options(cfg, tp_axis)
+    vp_axis = vocab_axis(cfg, tp_axis)
 
     def part(params, *keys):
         return _cast_tree({k: params[k] for k in keys}, compute_dtype)
@@ -525,7 +603,8 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, sp_axis=None,
     def embed_fn(params, input_ids, generator=None):
         return gpt2_embed(part(params, "embedding"), input_ids,
                           sp_axis=sp_axis, embd_pdrop=cfg.pdrops[0],
-                          generator=generator if cfg.needs_dropout else None)
+                          generator=generator if cfg.needs_dropout else None,
+                          vp_axis=vp_axis)
 
     def stage_fn(blocks_local, h, generator=None):
         return gpt2_blocks(_cast_tree(blocks_local, compute_dtype), h, cfg,
@@ -533,7 +612,7 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, sp_axis=None,
                            ep_axis=ep_axis, remat=remat, use_flash=use_flash,
                            generator=generator if cfg.needs_dropout else None)
 
-    if sp_axis is not None:
+    if sp_axis is not None or vp_axis is not None:
         from quintnet_tpu_torch.parallel.pp import SplitHead
 
         def head_local_fn(params, h, labels):
@@ -541,7 +620,7 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, sp_axis=None,
 
         return embed_fn, stage_fn, SplitHead(
             head_local_fn, lambda logits, labels, valid: sp_head_loss(
-                logits, labels, valid, sp_axis))
+                logits, labels, valid, sp_axis, cfg=cfg, vp_axis=vp_axis))
 
     def head_loss_fn(params, h, labels):
         p = part(params, "embedding", "head")
@@ -552,11 +631,15 @@ def gpt2_pipeline_fns(cfg: GPT2Config, *, tp_axis=None, sp_axis=None,
     return embed_fn, stage_fn, head_loss_fn
 
 
-def sp_head_loss(logits, labels, valid: bool, sp_axis):
-    """A pipeline head's reduce part under sp: :func:`clm_loss_sp` (its
-    collectives entered on every stage and tick), 0 where ``valid`` is
-    False."""
-    loss = clm_loss_sp(logits, labels, sp_axis=sp_axis)
+def sp_head_loss(logits, labels, valid: bool, sp_axis, *, cfg=None,
+                 vp_axis=None):
+    """A pipeline head's reduce part under sp or vocab parallelism:
+    :func:`clm_loss_sp`, or with ``vp_axis`` :func:`clm_loss_vp` of
+    ``cfg`` (their collectives entered on every stage and tick), 0 where
+    ``valid`` is False."""
+    loss = (_vp_loss(cfg, logits, labels, vp_axis, sp_axis)
+            if vp_axis is not None
+            else clm_loss_sp(logits, labels, sp_axis=sp_axis))
     return loss if valid else torch.zeros_like(loss)
 
 
@@ -582,7 +665,9 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     a mesh with sp > 1) on this rank's slice of the sequence
     (``batch_specs``), attention by ``sp_mode`` (``"ring"``, ``"zigzag"``
     or ``"ulysses"``) and :func:`clm_loss_sp` (the chunked loss is not
-    used under sp, as in JAX).
+    used under sp, as in JAX); with ``cfg.vocab_parallel`` and
+    ``tp_axis``, the vocab-sharded table and :func:`clm_loss_vp` (the
+    chunked loss is not used there either).
 
     On a pp mesh the strategy runs :func:`gpt2_pipeline_fns` instead
     of ``loss_fn``.
@@ -594,8 +679,8 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     add up in the compute dtype before the cast brings them back to
     f32). Logits and the loss are f32.
 
-    Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-    place): ``remat="dots"``, ``vocab_parallel`` under tp."""
+    Not ported (raises ``NotImplementedError`` naming its ROADMAP.md
+    place): ``remat="dots"``."""
     from quintnet_tpu_torch.parallel.strategy import ModelSpec
 
     if remat == "dots":
@@ -607,18 +692,19 @@ def gpt2_model_spec(cfg: GPT2Config, *, remat=False, use_flash: bool = False,
     def loss_fn(params, batch, generator=None, *, tp_axis=None,
                 fsdp_axis=None, ep_axis=None, sp_axis=None):
         input_ids, labels = batch
-        if tp_axis is not None:
-            _check_mesh_options(cfg, tp_axis)
+        vp_axis = vocab_axis(cfg, tp_axis)
         p = _cast_tree(params, compute_dtype)
         kw = dict(tp_axis=tp_axis, sp_axis=sp_axis, sp_mode=sp_mode,
                   ep_axis=ep_axis, remat=remat, use_flash=use_flash,
                   generator=generator,
                   fsdp=_fsdp_info(cfg, tp_axis, fsdp_axis, ep_axis))
-        if cfg.loss_chunk > 0 and sp_axis is None:
+        if cfg.loss_chunk > 0 and sp_axis is None and vp_axis is None:
             h, aux = gpt2_hidden(p, input_ids, cfg, **kw)
             return clm_loss_chunked(p, h, labels, cfg,
                                     chunk=cfg.loss_chunk) + aux
         logits, aux = gpt2_forward(p, input_ids, cfg, **kw)
+        if vp_axis is not None:
+            return _vp_loss(cfg, logits, labels, vp_axis, sp_axis) + aux
         if sp_axis is not None:
             return clm_loss_sp(logits, labels, sp_axis=sp_axis) + aux
         return clm_loss(logits, labels) + aux

@@ -12,7 +12,9 @@ Port of ``quintnet_tpu/models/gpt2_generate.py``:
 - **EOS**: finished rows keep emitting ``eos_token_id``;
 - **beam search** (:func:`beam_autoregress`, :func:`gpt2_beam_search`)
   and **tp-sharded decoding** (:func:`gpt2_generate_tp`: head-sharded
-  caches, one sum over tp in every cached attention and MLP step).
+  caches, one sum over tp in every cached attention and MLP step; with
+  ``cfg.vocab_parallel`` the vocab-sharded table: a masked lookup and
+  one sum, and the logits' columns gathered over tp).
 
 Both decoders run plain attention, as the JAX package's do (no Pallas
 kernel there, no CUDA kernel here).
@@ -42,13 +44,14 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_logits
-from quintnet_tpu_torch.nn.layers import gelu
+from quintnet_tpu_torch.models.gpt2 import (GPT2Config, gpt2_logits,
+                                            mask_padded_cols, vocab_axis)
+from quintnet_tpu_torch.nn.layers import gelu, layer_norm_apply
 from quintnet_tpu_torch.nn.moe import _topk
 from quintnet_tpu_torch.nn.transformer import (block_decode, block_prefill,
                                                layer_params)
-
-VP_ITEM = "ROADMAP.md §1, item 6b ('Vocab parallel')"
+from quintnet_tpu_torch.core import collectives as cc
+from quintnet_tpu_torch.parallel.tp import vocab_parallel_embedding
 
 # ---------------------------------------------------------------------
 # the counter-based sampling chain
@@ -180,23 +183,32 @@ def _local_heads(cfg: GPT2Config, tp_axis) -> int:
     return cfg.n_head if tp_axis is None else cfg.n_head // tp_axis.size
 
 
-def _check_vp(cfg, tp_axis) -> None:
-    if tp_axis is not None and cfg.vocab_parallel:
-        raise NotImplementedError(
-            f"vocab-parallel decoding (cfg.vocab_parallel under tp) is not "
-            f"ported yet ({VP_ITEM})")
+def gather_vocab_logits(local, cfg, vp_axis):
+    """Full-vocab f32 logits from this rank's columns [.., V/tp]: gathered
+    over ``vp_axis``, a padded vocabulary's columns masked (decoding must
+    never emit an id past ``vocab_size``)."""
+    full = cc.all_gather(local.float(), vp_axis, gather_dim=-1)
+    return mask_padded_cols(full, cfg) if cfg.padded_vocab_size else full
 
 
 def _embed_tok(emb, ids, cfg: GPT2Config, tp_axis=None):
-    """Token embedding (the vocab-parallel branch is refused)."""
-    _check_vp(cfg, tp_axis)
-    return emb["wte"][ids]
+    """Token embedding; under vocab parallelism the lookup of this rank's
+    rows and one sum over tp."""
+    return vocab_parallel_embedding({"table": emb["wte"]}, ids,
+                                    axis=vocab_axis(cfg, tp_axis))
 
 
 def _logits(params, h, cfg: GPT2Config, tp_axis=None):
-    """Full-vocab f32 logits (the head is replicated under tp)."""
-    _check_vp(cfg, tp_axis)
-    return gpt2_logits(params, h, cfg)
+    """Full-vocab f32 logits: the replicated head's, or under vocab
+    parallelism this rank's columns of the tied head, gathered
+    (:func:`gather_vocab_logits`)."""
+    vp_axis = vocab_axis(cfg, tp_axis)
+    if vp_axis is None:
+        return gpt2_logits(params, h, cfg)
+    h = layer_norm_apply(params["head"]["ln_f"], h,
+                         eps=cfg.layer_norm_epsilon)
+    return gather_vocab_logits(h @ params["embedding"]["wte"].T, cfg,
+                               vp_axis)
 
 
 def _stack_caches(kvs, cache_len: int):
@@ -438,14 +450,14 @@ def gpt2_generate_tp(params, input_ids, cfg: GPT2Config, *, mesh,
     sharded by ``gpt2_partition_specs``): head-sharded prefill and decode
     with one sum over tp in every attention and MLP step, the replicated
     head's logits the same on every rank, so every rank draws the same
-    tokens. Returns the tokens (numpy) on every rank. The vocab-parallel
-    table (``cfg.vocab_parallel``) is not ported (ROADMAP.md §1, item
-    6)."""
+    tokens. Returns the tokens (numpy) on every rank. With
+    ``cfg.vocab_parallel`` the table is vocab-sharded too
+    (``gpt2_partition_specs``): the embedding a masked lookup and one sum,
+    the logits gathered over tp with padded columns masked."""
     if max_new_tokens < 1:
         return np.asarray(input_ids)
     _check_len(input_ids, max_new_tokens, cfg.n_positions)
     axis = mesh.axis(tp_axis)
-    _check_vp(cfg, axis)
     ids = _ids_on(input_ids, params["embedding"]["wte"])
     out = _generate_body(params, ids, row_seeds(seed, ids.shape[0]), cfg,
                          int(max_new_tokens), eos_token_id,

@@ -34,8 +34,9 @@ place: the paged serving paths (``llama_block_prefill_paged*``,
 ``llama_block_verify_paged``, ``llama_block_decode`` with a block
 table: §1, item 7), the
 HF interop (``llama_from_hf_state``, ``llama_to_hf_state``,
-``LlamaConfig.from_hf_config``: §1, item 9), ``vocab_parallel`` under tp
-(§1, item 6b) and ``remat="dots"`` (§2).
+``LlamaConfig.from_hf_config``: §1, item 9) and ``remat="dots"`` (§2).
+``vocab_parallel`` under tp shards ``tok``'s rows (and an untied head's
+columns) over the tp ranks, as GPT-2's (``models/gpt2.clm_loss_vp``).
 """
 
 from __future__ import annotations
@@ -47,7 +48,9 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
-from quintnet_tpu_torch.models.gpt2 import (clm_loss, clm_loss_sp,
+from quintnet_tpu_torch.models.gpt2 import (_vp_loss, vocab_axis,
+                                            check_vocab_split, clm_loss,
+                                            clm_loss_sp,
                                             sequence_batch_specs,
                                             mask_padded_cols,
                                             segment_ids_from_input,
@@ -64,11 +67,11 @@ from quintnet_tpu_torch.nn.moe import MoEArgs, moe_apply, moe_init, moe_specs
 from quintnet_tpu_torch.nn.transformer import (REMAT_DOTS_ITEM,
                                                stacked_blocks_apply)
 from quintnet_tpu_torch.ops.flash_attention import flash_attention
-from quintnet_tpu_torch.parallel.tp import row_parallel_linear
+from quintnet_tpu_torch.parallel.tp import (row_parallel_linear,
+                                            vocab_parallel_embedding)
 
 SERVING_ITEM = "ROADMAP.md §1, item 7 ('Serving features')"
 HF_ITEM = "ROADMAP.md §1, item 9 ('Analysis, data and tools')"
-VP_ITEM = "ROADMAP.md §1, item 6b ('Vocab parallel')"
 
 
 @dataclass(frozen=True)
@@ -78,9 +81,10 @@ class LlamaConfig:
     original_max_position)`` or None (unscaled). MoE as GPT-2's
     (``n_experts`` 0 is dense; expert choice is refused:
     non-causal). ``segment_eos_id``: packed-document isolation, a new
-    attention segment after each such token. ``vocab_parallel`` and
-    ``padded_vocab_size`` are carried so that a tp run that asks for a
-    vocab-sharded table raises; ``scan_unroll`` has no meaning in a
+    attention segment after each such token. ``vocab_parallel``: under tp
+    the table's rows sharded over the ranks (``padded_vocab_size`` pads
+    it to a multiple of tp; the padded columns are masked out of every
+    softmax); ``scan_unroll`` has no meaning in a
     Python loop over layers and is carried only so configs map over."""
 
     vocab_size: int = 32000
@@ -424,8 +428,11 @@ def llama_hidden(params, input_ids, cfg: LlamaConfig, *, tp_axis=None,
                  sp_axis=None, sp_mode: str = "ring", ep_axis=None,
                  remat=False, use_flash: bool = False, fsdp=None):
     """-> (final hidden states [B, S, D], moe aux total: 0 for dense).
-    ``sp_axis``: the ids are this rank's slice of the sequence."""
-    h = params["embedding"]["tok"][input_ids]
+    ``sp_axis``: the ids are this rank's slice of the sequence;
+    ``cfg.vocab_parallel`` with ``tp_axis``: ``tok`` is this rank's rows
+    of the table."""
+    h = vocab_parallel_embedding({"table": params["embedding"]["tok"]},
+                                 input_ids, axis=vocab_axis(cfg, tp_axis))
     out = _blocks(params["blocks"], h, cfg, tp_axis=tp_axis,
                   ep_axis=ep_axis, remat=remat, use_flash=use_flash,
                   sp_axis=sp_axis, sp_mode=sp_mode,
@@ -438,7 +445,8 @@ def llama_hidden(params, input_ids, cfg: LlamaConfig, *, tp_axis=None,
 
 def llama_logits(params, h, cfg: LlamaConfig):
     """ln_f and the lm head (tied: ``tok``^T), f32; a padded vocab's
-    columns masked on a full-width table."""
+    columns masked on a full-width table (a vocab-sharded one gives this
+    rank's columns, masked by ``clm_loss_vp``)."""
     h = rms_norm_apply(params["head"]["ln_f"], h, eps=cfg.rms_eps)
     w = (params["embedding"]["tok"].T if cfg.tie_embeddings
          else params["head"]["lm"]["w"])
@@ -471,10 +479,11 @@ def llama_partition_specs(cfg: Optional[LlamaConfig] = None, *,
     q/k/v, gate and up column-sharded over ``tp_axis``, o and down
     row-sharded, the experts over ``ep_axis``, the stacked depth over
     ``pp_axis`` and, with ``fsdp_axis``, one free dim of each block leaf
-    over it; the embedding, the norms and the head replicated."""
+    over it; the embedding, the norms and the head replicated, or with
+    ``cfg.vocab_parallel`` the table's rows (an untied head's columns)
+    over ``tp_axis``."""
     from quintnet_tpu_torch.parallel.tp import fsdp_shard_specs
 
-    _check_mesh_options(cfg, tp_axis)
     t = tp_axis
     col, row, rep = (pp_axis, None, t), (pp_axis, t, None), (pp_axis, None)
     blocks: Dict[str, Any] = {
@@ -491,25 +500,19 @@ def llama_partition_specs(cfg: Optional[LlamaConfig] = None, *,
                          "down": {"w": row}}
     if fsdp_axis is not None:
         blocks = fsdp_shard_specs(blocks, fsdp_axis)
-    specs = {"embedding": {"tok": ()}, "blocks": blocks,
+    vp = cfg is not None and cfg.vocab_parallel and t is not None
+    specs = {"embedding": {"tok": (t, None) if vp else ()}, "blocks": blocks,
              "head": {"ln_f": {"scale": ()}}}
     if cfg is None or not cfg.tie_embeddings:
-        specs["head"]["lm"] = {"w": ()}
+        specs["head"]["lm"] = {"w": (None, t) if vp else ()}
     return specs
-
-
-def _check_mesh_options(cfg, tp_axis) -> None:
-    if cfg is not None and cfg.vocab_parallel and tp_axis is not None:
-        raise NotImplementedError(
-            f"vocab_parallel Llama under tp (the vocab-sharded table and "
-            f"clm_loss_vp) is not ported yet ({VP_ITEM})")
 
 
 def _validate_tp(cfg: LlamaConfig, tp: int, params):
     """The tp layout: the identity (separate q/k/v need no reblocking),
     after the checks that tp can take this config."""
     if tp > 1:
-        _check_mesh_options(cfg, "tp")
+        check_vocab_split(cfg, tp)
         if cfg.n_heads % tp or cfg.n_kv_heads % tp:
             raise ValueError(
                 f"tp={tp} must divide n_heads={cfg.n_heads} and "
@@ -528,7 +531,9 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
     last stage's, add up over pp in ``reduce_grads``). ``sp_axis``: the
     batch's sequence sharded over sp (``batch_specs``), attention by
     ``sp_mode``, the loss :func:`~quintnet_tpu_torch.models.gpt2.
-    clm_loss_sp` (in the pipelines a ``SplitHead``'s reduce part). Llama has no dropout (the generator is ignored).
+    clm_loss_sp` (in the pipelines a ``SplitHead``'s reduce part);
+    ``cfg.vocab_parallel`` with ``tp_axis``: the vocab-sharded table and
+    ``clm_loss_vp`` (a ``SplitHead`` too). Llama has no dropout (the generator is ignored).
     ``compute_dtype`` (``torch.bfloat16``; None is f32) casts the f32
     parameters once a call, the MoE router kept f32; logits and the loss
     are f32."""
@@ -547,8 +552,6 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
     def loss_fn(params, batch, generator=None, *, tp_axis=None,
                 fsdp_axis=None, ep_axis=None, sp_axis=None):
         input_ids, labels = batch
-        if tp_axis is not None:
-            _check_mesh_options(cfg, tp_axis)
         fsdp = fsdp_info(functools.partial(llama_partition_specs, cfg),
                          fsdp_axis, tp_axis=axis_name(tp_axis),
                          ep_axis=axis_name(ep_axis))
@@ -558,6 +561,8 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
                               ep_axis=ep_axis, remat=remat,
                               use_flash=use_flash, fsdp=fsdp)
         logits = llama_logits(p, h, cfg)
+        if vocab_axis(cfg, tp_axis) is not None:
+            return _vp_loss(cfg, logits, labels, tp_axis, sp_axis) + aux
         if sp_axis is not None:
             return clm_loss_sp(logits, labels, sp_axis=sp_axis) + aux
         return clm_loss(logits, labels) + aux
@@ -568,10 +573,12 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
                 "segment_eos_id under pipeline parallelism is not wired "
                 "(stage fns receive hidden states, not token ids); use "
                 "dp/tp/ep meshes for packed-document isolation")
-        _check_mesh_options(cfg, tp_axis)
+        vp_axis = vocab_axis(cfg, tp_axis)
 
         def embed_fn(params, input_ids, generator=None):
-            return cast(params["embedding"])["tok"][input_ids]
+            return vocab_parallel_embedding(
+                {"table": cast(params["embedding"])["tok"]}, input_ids,
+                axis=vp_axis)
 
         def stage_fn(blocks_local, h, generator=None):
             return _blocks(cast(blocks_local), h, cfg, tp_axis=tp_axis,
@@ -582,12 +589,13 @@ def llama_model_spec(cfg: LlamaConfig, *, remat=False, use_flash: bool = False,
             p = cast({k: params[k] for k in ("embedding", "head")})
             return llama_logits(p, h, cfg)
 
-        if sp_axis is not None:
+        if sp_axis is not None or vp_axis is not None:
             from quintnet_tpu_torch.parallel.pp import SplitHead
 
             return embed_fn, stage_fn, SplitHead(
                 head_logits, lambda logits, labels, valid: sp_head_loss(
-                    logits, labels, valid, sp_axis))
+                    logits, labels, valid, sp_axis, cfg=cfg,
+                    vp_axis=vp_axis))
 
         def head_loss_fn(params, h, labels):
             return clm_loss(head_logits(params, h, labels), labels)

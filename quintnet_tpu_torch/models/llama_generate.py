@@ -16,32 +16,49 @@ from typing import Optional, Sequence, Union
 import numpy as np
 import torch
 
-from quintnet_tpu_torch.models.gpt2_generate import (_check_len,
-                                                     _check_vp, _ids_on,
+from quintnet_tpu_torch.models.gpt2 import vocab_axis
+from quintnet_tpu_torch.models.gpt2_generate import (_check_len, _ids_on,
                                                      _stack_caches,
                                                      autoregress,
                                                      beam_autoregress,
+                                                     gather_vocab_logits,
                                                      row_seeds)
 from quintnet_tpu_torch.models.llama import (LlamaConfig, llama_block_decode,
                                              llama_block_prefill,
                                              llama_logits, llama_rope_tables)
 from quintnet_tpu_torch.nn.transformer import layer_params
+from quintnet_tpu_torch.parallel.tp import vocab_parallel_embedding
+
+
+def _embed(params, ids, cfg: LlamaConfig, tp_axis):
+    """Token lookup; under vocab parallelism this rank's rows and one sum
+    over tp."""
+    return vocab_parallel_embedding({"table": params["embedding"]["tok"]},
+                                    ids, axis=vocab_axis(cfg, tp_axis))
+
+
+def _full_logits(params, h, cfg: LlamaConfig, tp_axis):
+    """Full-vocab f32 logits; under vocab parallelism this rank's
+    columns gathered over tp, padded columns masked."""
+    logits = llama_logits(params, h, cfg)
+    vp_axis = vocab_axis(cfg, tp_axis)
+    return (logits if vp_axis is None
+            else gather_vocab_logits(logits, cfg, vp_axis))
 
 
 def llama_prefill(params, input_ids, cfg: LlamaConfig, *, cache_len: int,
                   tp_axis=None):
     """[B, T0] -> (last-position logits [B, V], (k, v) caches
     [L, B, H_kv(/tp), cache_len, Dh])."""
-    _check_vp(cfg, tp_axis)
     T0 = input_ids.shape[1]
-    h = params["embedding"]["tok"][input_ids]
+    h = _embed(params, input_ids, cfg, tp_axis)
     cos, sin = llama_rope_tables(torch.arange(T0, device=h.device), cfg)
     kvs = []
     for layer in range(cfg.n_layers):
         h, kv = llama_block_prefill(layer_params(params["blocks"], layer), h,
                                     cfg, cos, sin, tp_axis=tp_axis)
         kvs.append(kv)
-    return (llama_logits(params, h[:, -1:, :], cfg)[:, 0, :],
+    return (_full_logits(params, h[:, -1:, :], cfg, tp_axis)[:, 0, :],
             _stack_caches(kvs, cache_len))
 
 
@@ -49,15 +66,14 @@ def llama_decode_step(params, tok, pos: int, caches, cfg: LlamaConfig,
                       tp_axis=None):
     """One cached step: ``tok`` [B] at host position ``pos`` ->
     (logits [B, V], the caches, written in place)."""
-    _check_vp(cfg, tp_axis)
-    x = params["embedding"]["tok"][tok[:, None].long()]
+    x = _embed(params, tok[:, None].long(), cfg, tp_axis)
     cos, sin = llama_rope_tables(torch.tensor([pos], device=x.device), cfg)
     ks, vs = caches
     for layer in range(cfg.n_layers):
         x, _ = llama_block_decode(layer_params(params["blocks"], layer), x,
                                   ks[layer], vs[layer], pos, cfg, cos, sin,
                                   tp_axis=tp_axis)
-    return llama_logits(params, x, cfg)[:, 0, :], (ks, vs)
+    return _full_logits(params, x, cfg, tp_axis)[:, 0, :], (ks, vs)
 
 
 def _llama_generate_body(params, ids, seeds, cfg: LlamaConfig,
@@ -103,12 +119,13 @@ def llama_generate_tp(params, input_ids, cfg: LlamaConfig, *, mesh,
     """tp-sharded Llama decoding on this rank of ``mesh``: ``params`` this
     rank's shards in the training layout (``llama_partition_specs``),
     head-sharded GQA caches, one sum over tp in every attention and MLP
-    step; every rank returns the same tokens."""
+    step, and with ``cfg.vocab_parallel`` the vocab-sharded table (its
+    logits gathered, padded columns masked); every rank returns the same
+    tokens."""
     if max_new_tokens < 1:
         return np.asarray(input_ids)
     _check_len(input_ids, max_new_tokens, cfg.n_positions)
     axis = mesh.axis(tp_axis)
-    _check_vp(cfg, axis)
     ids = _ids_on(input_ids, params["embedding"]["tok"])
     out = _llama_generate_body(params, ids, row_seeds(seed, ids.shape[0]),
                                cfg, int(max_new_tokens), eos_token_id,

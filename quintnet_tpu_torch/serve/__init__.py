@@ -9,6 +9,8 @@
   preemption with exact resume;
 - :mod:`families` — the GPT-2 prefill/decode/verify contracts over the
   paged blocks;
+- :mod:`spec` — speculative decoding's config and n-gram drafter;
+- :mod:`longctx` — chunked prefill's planning pieces;
 - :mod:`engine` — the step loop;
 - :mod:`api` — ``generate`` / ``generate_stream``;
 - :mod:`metrics` — step gauges, TTFT / latency percentiles.
@@ -18,9 +20,11 @@ from quintnet_tpu_torch.serve.api import generate, generate_stream
 from quintnet_tpu_torch.serve.engine import ServeEngine, check_admissible
 from quintnet_tpu_torch.serve.families import Family, gpt2_family
 from quintnet_tpu_torch.serve.kv_pool import KVPool
+from quintnet_tpu_torch.serve.longctx import plan_chunks
 from quintnet_tpu_torch.serve.metrics import ServeMetrics
 from quintnet_tpu_torch.serve.scheduler import Request, Scheduler
+from quintnet_tpu_torch.serve.spec import NgramDrafter, SpecConfig
 
-__all__ = ["KVPool", "Request", "Scheduler", "ServeEngine", "ServeMetrics",
-           "Family", "check_admissible", "generate", "generate_stream",
-           "gpt2_family"]
+__all__ = ["KVPool", "NgramDrafter", "Request", "Scheduler", "ServeEngine",
+           "ServeMetrics", "SpecConfig", "Family", "check_admissible",
+           "generate", "generate_stream", "gpt2_family", "plan_chunks"]

@@ -1,14 +1,18 @@
 """Continuous-batching step loop over the paged KV pool.
 
-Port of ``quintnet_tpu/serve/engine.py``, default path only: one
-device, greedy or sampled decoding (``temperature``, ``top_k``,
-``top_p``), prefix cache on, and every KV pool layout of the ladder
-(``kv_dtype``: f32, bf16, int8, fp8, fake_quant; ``serve/kv_quant.py``)
-on the CPU and on the card. Per step: admit
-waiting requests (each prefills only the uncached tail of its prompt,
-in the smallest bucket that holds it) -> grow every active slot's block
-table or preempt the youngest admission -> one batched decode step for
-every active slot -> retire finished rows.
+Port of ``quintnet_tpu/serve/engine.py`` on one device: greedy or
+sampled decoding (``temperature``, ``top_k``, ``top_p``), prefix cache
+on, every KV pool layout of the ladder (``kv_dtype``: f32, bf16, int8,
+fp8, fake_quant; ``serve/kv_quant.py``), speculative decoding
+(``spec=``, ``serve/spec.py``) and chunked prefill (``chunked_prefill``,
+``prefill_chunk_budget``; ``serve/longctx.py``), on the CPU and on the
+card. Per step: admit waiting requests (each prefills only the uncached
+tail of its prompt, in the smallest bucket that holds it; a chunked
+engine only allocates its table) -> (chunked) feed at most
+``prefill_chunk_budget`` prompt tokens of chunks -> grow every active
+slot's block table or preempt the youngest admission -> one batched
+decode step, or one verify step, for every generating slot -> retire
+finished rows.
 
 - ``prefill``: one request at a time; the uncached tail right-padded to
   the smallest bucket of the ladder (``prefill_bucket_sizes``, or the
@@ -20,7 +24,26 @@ every active slot -> retire finished rows.
   block before the tail lands (with the source block's scales, under a
   scaled policy);
 - ``decode``: ONE step for all ``max_slots`` rows; inactive rows point
-  at the pool's null block and their outputs are dropped.
+  at the pool's null block and their outputs are dropped;
+- ``verify`` (``spec``): the decode step widened to the bucket + 1
+  tokens a row (``SpecConfig.buckets``): each generating slot's last
+  token and its n-gram draft, scored in one forward; the engine commits
+  the longest prefix of the draft the model agrees with plus one bonus
+  token, several tokens a step on predictable text and never fewer than
+  one. The draft's K/V lands in TENTATIVE pool blocks, committed or
+  rolled back before the step ends, so published chains never hold a
+  draft position. The candidate at run position j of a slot is drawn at
+  chain counter ``len(generated) + j``, the counter plain decoding
+  would draw that token at, so the committed stream is the spec-off
+  stream, sampled too.
+
+Chunked prefill (``chunked_prefill=True``): a prompt longer than the
+largest bucket is admitted whole (its table allocated up front) and fed
+through the bucket-width prefill calls at growing offsets, at most
+``prefill_chunk_budget`` tokens a step, oldest admission first; slots
+already generating decode every step meanwhile. Its first token is drawn
+once, after the last chunk, at counter ``len(generated)``; a
+mid-prefill slot publishes the chunks that landed when it is preempted.
 
 Sampling (``temperature > 0``): every request carries a seed
 (``submit(seed=)``, by default its rid, as the JAX engine folds the rid
@@ -60,21 +83,19 @@ from quintnet_tpu_torch.models.gpt2_generate import sample_logits
 from quintnet_tpu_torch.serve.families import Family
 from quintnet_tpu_torch.serve.kv_pool import KVPool
 from quintnet_tpu_torch.serve.kv_quant import make_policy
+from quintnet_tpu_torch.serve.longctx import ChunkState
 from quintnet_tpu_torch.serve.metrics import ServeMetrics
 from quintnet_tpu_torch.serve.scheduler import (FINISHED, Request,
                                                 Scheduler)
+from quintnet_tpu_torch.serve.spec import NgramDrafter, SpecConfig
 
 # constructor options of the JAX engine that are still to port, with
 # the ROADMAP.md item each belongs to
 _NOT_PORTED = {
-    "spec": "§1, item 7 ('Serving features'): serve/spec.py "
-            "(speculative decoding)",
     "adapters": "§1, item 7 ('Serving features'): serve/adapters.py "
                 "(multi-LoRA)",
     "kv_tier_bytes": "§1, item 7 ('Serving features'): serve/kv_tier.py "
                      "(host KV tier)",
-    "chunked_prefill": "§1, item 7 ('Serving features'): serve/longctx.py "
-                       "(chunked prefill)",
     "mesh": "§1, item 7 ('Serving features'): tp/sp/ep serving meshes",
     "sp_axis": "§1, item 7 ('Serving features'): serve/longctx.py "
                "(sp prefill)",
@@ -88,8 +109,6 @@ _NOT_PORTED = {
                      "(multi-LoRA)",
     "lora_rank_bucket_sizes": "§1, item 7 ('Serving features'): "
                               "serve/adapters.py (multi-LoRA)",
-    "prefill_chunk_budget": "§1, item 7 ('Serving features'): "
-                            "serve/longctx.py (chunked prefill)",
     "kv_tier_promote_budget_bytes": "§1, item 7 ('Serving features'): "
                                     "serve/kv_tier.py (host KV tier)",
     "logger": "§1, item 8 ('Fleet, obs and ft'): the engine's logger",
@@ -112,12 +131,15 @@ def _not_ported(option: str, value):
 def check_admissible(prompt_len: int, max_new_tokens: int, *,
                      max_seq_len: int, usable_blocks: int,
                      block_size: int,
-                     prefill_len: Optional[int] = None) -> None:
+                     prefill_len: Optional[int] = None,
+                     chunked_prefill: bool = False) -> None:
     """Submit-time rejection of requests an engine with these limits
     can NEVER run (standalone, so a dispatcher holding only
     ``limits()`` can check too). A preemption-resume prefills prompt +
     generated (up to total - 1 tokens), so ``prefill_len`` (default:
-    ``max_seq_len``) must cover that."""
+    ``max_seq_len``) must cover that, unless ``chunked_prefill``: a
+    chunked engine feeds any prefill through the buckets, so only
+    ``max_seq_len`` and the pool remain."""
     if prompt_len < 1:
         raise ValueError("empty prompt")
     if max_new_tokens < 1:
@@ -127,11 +149,15 @@ def check_admissible(prompt_len: int, max_new_tokens: int, *,
         raise ValueError(
             f"prompt {prompt_len} + max_new {max_new_tokens} "
             f"exceeds max_seq_len={max_seq_len}")
-    if prefill_len is not None and total - 1 > prefill_len:
+    if (prefill_len is not None and total - 1 > prefill_len
+            and not chunked_prefill):
         raise ValueError(
             f"prompt {prompt_len} + max_new {max_new_tokens} - 1 "
             f"exceeds prefill_len={prefill_len} (resume after preemption "
-            f"prefills prompt + generated tokens)")
+            f"prefills prompt + generated tokens). Long prompts are "
+            f"served by the chunked-prefill mode: "
+            f"ServeEngine(chunked_prefill=True) admits any prompt the "
+            f"pool can hold and feeds it through bucket-sized chunks")
     worst = -(-total // block_size)
     if worst > usable_blocks:
         raise ValueError(
@@ -168,15 +194,13 @@ class ServeEngine:
                  attn_kernel: str = "xla", logger=None, log_every: int = 0,
                  clock=time.monotonic, tracer=None, recorder=None):
         for option, value in (
-                ("spec", spec), ("adapters", adapters),
-                ("kv_tier_bytes", kv_tier_bytes),
-                ("chunked_prefill", chunked_prefill), ("mesh", mesh),
+                ("adapters", adapters),
+                ("kv_tier_bytes", kv_tier_bytes), ("mesh", mesh),
                 ("sp_axis", sp_axis), ("ep_axis", ep_axis),
                 ("tp_axis", tp_axis),
                 ("lora_targets", lora_targets),
                 ("lora_max_rank", lora_max_rank),
                 ("lora_rank_bucket_sizes", lora_rank_bucket_sizes),
-                ("prefill_chunk_budget", prefill_chunk_budget),
                 ("kv_tier_promote_budget_bytes",
                  kv_tier_promote_budget_bytes),
                 ("logger", logger), ("log_every", log_every),
@@ -205,6 +229,14 @@ class ServeEngine:
         self.eos_token_id = eos_token_id
         self.clock = time.monotonic
         self.prefix_cache = bool(prefix_cache)
+        # speculative decoding: None/False off, True the defaults, or a
+        # SpecConfig; drafting is host-side numpy
+        if spec is True:
+            spec = SpecConfig()
+        elif spec is False:
+            spec = None
+        self.spec: Optional[SpecConfig] = spec
+        self.drafter = NgramDrafter(spec) if spec is not None else None
 
         self.max_seq_len = int(max_seq_len or family.max_positions)
         if self.max_seq_len > family.max_positions:
@@ -226,6 +258,17 @@ class ServeEngine:
                 f"prefill_len={self.prefill_len} (a preemption-resume "
                 f"prefill can need the full length)")
         self.prefill_buckets = buckets
+        # chunked prefill: prompts past the top bucket are admitted whole
+        # and fed through the bucket calls, at most this many prompt
+        # tokens an engine step
+        self.chunked_prefill = bool(chunked_prefill)
+        self.prefill_chunk_budget = (buckets[-1]
+                                     if prefill_chunk_budget is None
+                                     else int(prefill_chunk_budget))
+        if self.prefill_chunk_budget < 1:
+            raise ValueError(
+                f"prefill_chunk_budget must be >= 1; got "
+                f"{self.prefill_chunk_budget}")
 
         self.kv_policy = make_policy(
             kv_dtype if kv_dtype is not None else family.kv_dtype)
@@ -244,6 +287,9 @@ class ServeEngine:
         self._tables = np.zeros((S, M), np.int32)
         self._slot_req: List[Optional[Request]] = [None] * S
         self._slot_blocks: List[List[int]] = [[] for _ in range(S)]
+        # a slot mid chunked prefill (longctx.ChunkState) owns its table
+        # but rides no decode or verify step yet
+        self._slot_chunk: List[Optional[ChunkState]] = [None] * S
         self._results: Dict[int, Request] = {}
         self._rid_counter = 0
         self._arrival_counter = 0
@@ -302,6 +348,26 @@ class ServeEngine:
         nxt = self._sample(logits, seeds, counters)
         return nxt.to(torch.int32).cpu().numpy()
 
+    @torch.no_grad()
+    def _verify(self, ids: np.ndarray, starts: np.ndarray,
+                tail_lens: np.ndarray, tables: np.ndarray, seeds,
+                counters) -> np.ndarray:
+        """One batched verify step over [S, P] runs; returns the
+        candidate token at every run position [S, P], row s position j
+        drawn at (``seeds[s]``, ``counters[s] + j``): the token plain
+        decoding would draw there."""
+        k_pool, v_pool, *scales = self.pool.caches()
+        logits, *pools = self.family.verify(
+            self.params, k_pool, v_pool, self._dev(ids), self._dev(starts),
+            self._dev(tail_lens), self._dev(tables), self.pool.block_size,
+            **self._kv_kw(scales))
+        self.pool.update(*pools)
+        S, P, V = logits.shape
+        toks = self._sample(logits.reshape(S * P, V),
+                            [sd for sd in seeds for _ in range(P)],
+                            [c + j for c in counters for j in range(P)])
+        return toks.reshape(S, P).to(torch.int32).cpu().numpy()
+
     def _kv_kw(self, scales) -> dict:
         """The contracts' quantized-KV arguments: the scale tensors and
         the policy under a scaled policy, nothing otherwise."""
@@ -317,7 +383,8 @@ class ServeEngine:
         return {"max_seq_len": self.max_seq_len,
                 "prefill_len": self.prefill_len,
                 "usable_blocks": self.pool.usable_blocks,
-                "block_size": self.pool.block_size}
+                "block_size": self.pool.block_size,
+                "chunked_prefill": self.chunked_prefill}
 
     def submit(self, prompt, max_new_tokens: int, *, priority: int = 0,
                seed: Optional[int] = None, on_token=None) -> int:
@@ -367,6 +434,12 @@ class ServeEngine:
         return [i for i, r in enumerate(self._slot_req) if r is not None]
 
     def _clear_slot(self, slot: int) -> None:
+        st = self._slot_chunk[slot]
+        if st is not None and st.cow_pinned:
+            # a slot cleared before its first chunk ran still holds the
+            # admission's pin on the copy-on-write source
+            self.pool.release([st.cow_src])
+        self._slot_chunk[slot] = None
         self._slot_req[slot] = None
         self._slot_blocks[slot] = []
         self._tables[slot] = 0
@@ -469,6 +542,72 @@ class ServeEngine:
             self._retire(slot)
         return len(tail), start
 
+    # ------------------------------------------------------------------
+    # chunked prefill (serve/longctx.py)
+    # ------------------------------------------------------------------
+    def _admit_slot_chunked(self, slot: int, req: Request) -> int:
+        """Chunked admission: the request's WHOLE table allocated now,
+        no prefill yet (:meth:`_feed_chunks` streams the uncached tail).
+        ``_pos`` counts the positions holding valid K/V (the cached ones
+        so far), so a publish on preemption stays right. Returns the
+        prefix-cache hit."""
+        plan = self._allocate_slot(slot, req)
+        self._pos[slot] = plan.cached_tokens
+        self._tok[slot] = 0
+        self._slot_chunk[slot] = ChunkState(
+            next=plan.cached_tokens, t0=req.total_len, cow_src=plan.cow_src,
+            cow_len=plan.cow_len, cow_pinned=plan.cow_src is not None)
+        return plan.cached_tokens
+
+    def _run_chunk(self, slot: int, req: Request, st: ChunkState, n: int,
+                   finished: List[int]) -> None:
+        """One ``n``-token chunk at offset ``st.next`` in the smallest
+        bucket that holds it: the prefill call a prefix-cache tail makes.
+        Only the last chunk draws the first new token."""
+        tokens = req.output_ids()
+        ids = np.zeros((1, self._bucket_for(n)), np.int32)
+        ids[0, :n] = tokens[st.next:st.next + n]
+        cow = st.cow_pinned
+        logits = self._prefill(ids, st.next, st.next + n, self._tables[slot],
+                               st.cow_src if cow else 0,
+                               st.cow_len if cow else 0)
+        if cow:
+            self.pool.release([st.cow_src])   # pinned for the copy only
+            st.cow_pinned = False
+        st.next += n
+        self._pos[slot] = st.next
+        if not st.done:
+            return
+        self._slot_chunk[slot] = None
+        tok0 = int(self._sample(logits, [req.seed],
+                                [len(req.generated)])[0].item())
+        self._tok[slot] = tok0
+        self.metrics.record_admit()
+        if self._append_token(slot, tok0):
+            finished.append(self._retire(slot))
+
+    def _feed_chunks(self, finished: List[int]) -> Tuple[int, int]:
+        """At most ``prefill_chunk_budget`` prompt tokens of chunks this
+        step, oldest admission first, the whole budget to one request
+        before the next. Returns (prompt tokens fed, chunks)."""
+        budget = self.prefill_chunk_budget
+        top = self.prefill_buckets[-1]
+        tokens_done = chunks = 0
+        order = sorted((s for s in self._active_slots()
+                        if self._slot_chunk[s] is not None),
+                       key=lambda s: self._slot_req[s].admit_seq)
+        for slot in order:
+            req, st = self._slot_req[slot], self._slot_chunk[slot]
+            while budget > 0 and self._slot_chunk[slot] is st:
+                n = min(st.remaining, top, budget)
+                self._run_chunk(slot, req, st, n, finished)
+                budget -= n
+                tokens_done += n
+                chunks += 1
+            if budget <= 0:
+                break
+        return tokens_done, chunks
+
     def _grow_or_preempt(self) -> None:
         """Every active slot must hold the block its next write needs;
         when the pool is dry, evict the youngest admission. Oldest
@@ -497,9 +636,110 @@ class ServeEngine:
                              if self._slot_req[s] is victim)
                 self._preempt(vslot)
 
+    # ------------------------------------------------------------------
+    # speculative decoding (serve/spec.py)
+    # ------------------------------------------------------------------
+    def _propose_drafts(self, active: List[int]):
+        """Every generating slot's draft ``{slot: tokens}`` when some slot
+        drafted at least ``spec.min_draft`` tokens, else None (plain
+        decode). A draft is at most ``remaining_new_tokens - 1`` long:
+        the bonus token always fits the budget."""
+        if self.drafter is None:
+            return None
+        drafts: Dict[int, np.ndarray] = {}
+        worthwhile = False
+        for slot in active:
+            req = self._slot_req[slot]
+            cap = min(self.spec.max_draft, req.remaining_new_tokens - 1)
+            d = (self.drafter.draft(req.output_ids(), cap)
+                 if cap >= 1 else np.zeros((0,), np.int32))
+            drafts[slot] = d
+            worthwhile |= len(d) >= self.spec.min_draft
+        return drafts if worthwhile else None
+
+    def _verify_step(self, active: List[int],
+                     drafts: Dict[int, np.ndarray],
+                     finished: List[int]) -> Tuple[int, int, int]:
+        """One batched verify: every generating slot's run (last token +
+        draft) written through the pool and scored; each slot commits the
+        longest matching prefix of its draft plus one bonus token, and
+        the rest rolls back. The blocks the draft needs beyond the slot's
+        own are taken TENTATIVE (a draft shrinks until they can be:
+        speculation never preempts); after acceptance those the committed
+        length reaches are committed, the others rolled back. Returns
+        (committed tokens, drafted tokens, accepted draft tokens)."""
+        S = self.max_slots
+        tentative: Dict[int, List[int]] = {}
+        for slot in active:
+            d = drafts[slot]
+            pos = int(self._pos[slot])
+            have = len(self._slot_blocks[slot])
+            while len(d):
+                need = self.pool.blocks_for(pos + len(d) + 1) - have
+                if need <= 0 or self.pool.can_acquire(need):
+                    break
+                d = d[:-1]
+            drafts[slot] = d
+            need = max(0, self.pool.blocks_for(pos + len(d) + 1) - have)
+            got = self.pool.tentative_acquire(need) if need else []
+            assert got is not None  # can_acquire checked just above
+            tentative[slot] = got
+            self._tables[slot][have:have + len(got)] = got
+
+        # the bucket of the SURVIVING drafts: the narrower call is cheaper
+        P = self.spec.bucket_for(max(len(drafts[s]) for s in active)) + 1
+        ids = np.zeros((S, P), np.int32)
+        starts = np.zeros((S,), np.int32)
+        tail_lens = np.zeros((S,), np.int32)
+        tables = np.zeros_like(self._tables)   # other rows: the null block
+        seeds, counters = [0] * S, [0] * S
+        for slot in active:
+            d, req = drafts[slot], self._slot_req[slot]
+            ids[slot, 0] = self._tok[slot]
+            ids[slot, 1:1 + len(d)] = d
+            starts[slot] = self._pos[slot]
+            tail_lens[slot] = len(d) + 1
+            tables[slot] = self._tables[slot]
+            seeds[slot], counters[slot] = req.seed, len(req.generated)
+        toks = self._verify(ids, starts, tail_lens, tables, seeds, counters)
+
+        committed = drafted = accepted = 0
+        for slot in active:
+            d, t = drafts[slot], toks[slot]
+            a = 0
+            while a < len(d) and int(t[a]) == int(d[a]):
+                a += 1
+            # commit t[0..a]: each is the token plain decoding draws
+            # there; stop early on EOS or the budget
+            pos0 = int(self._pos[slot])
+            c, done = 0, False
+            while c <= a and not done:
+                done = self._append_token(slot, int(t[c]))
+                c += 1
+            self._tok[slot] = int(t[c - 1])
+            self._pos[slot] = pos0 + c
+            have0 = len(self._slot_blocks[slot])
+            got = tentative[slot]
+            keep = max(0, min(len(got),
+                              self.pool.blocks_for(pos0 + c) - have0))
+            if keep:
+                self.pool.commit_tentative(got[:keep])
+                self._slot_blocks[slot].extend(got[:keep])
+            if got[keep:]:
+                self.pool.rollback_tentative(got[keep:])
+                self._tables[slot][have0 + keep:have0 + len(got)] = 0
+            committed += c
+            drafted += len(d)
+            # committed draft tokens: t[0..c-1] but the bonus at a
+            accepted += min(c, a)
+            if done:
+                finished.append(self._retire(slot))
+        return committed, drafted, accepted
+
     def step(self) -> List[int]:
-        """One scheduler iteration: admit -> grow/preempt -> one decode
-        step for every active slot -> retire. Returns the ids of the
+        """One scheduler iteration: admit -> (chunked) feed the budget's
+        chunks -> grow/preempt -> one decode step, or one verify step,
+        for every generating slot -> retire. Returns the ids of the
         requests that finished this step."""
         finished: List[int] = []
         prefill_tokens = prefix_hit_tokens = 0
@@ -508,23 +748,45 @@ class ServeEngine:
             req = self.scheduler.next_admission(len(free))
             if req is None:
                 break
+            if self.chunked_prefill:
+                prefix_hit_tokens += self._admit_slot_chunked(free[0], req)
+                continue
             tail, hit = self._admit_one(free[0], req)
             prefill_tokens += tail
             prefix_hit_tokens += hit
             if self._slot_req[free[0]] is None:  # retired at prefill
                 finished.append(req.rid)
 
+        prefill_chunks = 0
+        if self.chunked_prefill:
+            fed, prefill_chunks = self._feed_chunks(finished)
+            prefill_tokens += fed
+
         self._grow_or_preempt()
 
-        decode_tokens = 0
+        decode_tokens = draft_tokens = accepted_draft = 0
         active = self._active_slots()
-        if active:
+        decoding = [s for s in active if self._slot_chunk[s] is None]
+        prefilling = [s for s in active if self._slot_chunk[s] is not None]
+        drafts = self._propose_drafts(decoding) if decoding else None
+        if drafts is not None:
+            decode_tokens, draft_tokens, accepted_draft = self._verify_step(
+                decoding, drafts, finished)
+        elif decoding:
+            tok, pos, tables = self._tok, self._pos, self._tables
+            if prefilling:
+                # mid-prefill rows look inactive to the decode step: their
+                # write goes to the null block, not to position _pos of
+                # their real table
+                tok, pos, tables = tok.copy(), pos.copy(), tables.copy()
+                tok[prefilling] = pos[prefilling] = 0
+                tables[prefilling] = 0
             rows = self._slot_req
             nxt = self._decode(
-                self._tok, self._pos, self._tables,
+                tok, pos, tables,
                 [r.seed if r is not None else 0 for r in rows],
                 [len(r.generated) if r is not None else 0 for r in rows])
-            for slot in active:
+            for slot in decoding:
                 token = int(nxt[slot])
                 self._tok[slot] = token
                 self._pos[slot] += 1
@@ -542,21 +804,30 @@ class ServeEngine:
             prefill_tokens=prefill_tokens,
             decode_tokens=decode_tokens,
             prefix_hit_tokens=prefix_hit_tokens,
+            spec_step=drafts is not None,
+            draft_tokens=draft_tokens,
+            accepted_draft_tokens=accepted_draft,
+            prefill_chunks=prefill_chunks,
             kv_cache_evictions=self.pool.cache_evictions)
         return finished
 
     def warmup(self) -> None:
-        """Run every prefill bucket and the decode step once before
-        traffic (builds the CUDA kernel, warms the allocator and the
-        BLAS handles). All-zero tables: every write lands in the null
-        block; outputs are discarded and no request or metric state is
-        touched."""
+        """Run every prefill bucket, the decode step and (with ``spec``)
+        every verify bucket once before traffic (builds the CUDA kernel,
+        warms the allocator and the BLAS handles). All-zero tables: every
+        write lands in the null block; outputs are discarded and no
+        request or metric state is touched."""
         zrow = np.zeros((self.table_width,), np.int32)
         for b in self.prefill_buckets:
             self._prefill(np.zeros((1, b), np.int32), 0, 1, zrow, 0, 0)
         zeros = [0] * len(self._tok)
         self._decode(np.zeros_like(self._tok), np.zeros_like(self._pos),
                      np.zeros_like(self._tables), zeros, zeros)
+        for k in (self.spec.buckets if self.spec is not None else ()):
+            S = len(self._tok)
+            self._verify(np.zeros((S, k + 1), np.int32),
+                         np.zeros((S,), np.int32), np.ones((S,), np.int32),
+                         np.zeros_like(self._tables), zeros, zeros)
 
     def run(self, *, max_steps: Optional[int] = None) -> None:
         """Step until all submitted work is finished (or ``max_steps``)."""

@@ -1,7 +1,9 @@
 """Model-family adapters for the serving engine (GPT-2).
 
 Port of ``quintnet_tpu/serve/families.py`` for the default serving
-path: one device, dense blocks. A Python loop over layers replaces
+path: one device, dense blocks, the vocabulary whole or padded (a padded
+table's columns past ``vocab_size`` masked to the float minimum, so no
+request can be served a padding id). A Python loop over layers replaces
 ``lax.scan``; each layer's pool views ``k_pool[l]``/``v_pool[l]`` (and
 scale views ``k_scale[l]``/``v_scale[l]``) are updated in place.
 
@@ -77,11 +79,6 @@ def gpt2_family(cfg) -> Family:
         raise NotImplementedError(
             "MoE GPT-2 serving is not ported yet (ROADMAP.md §1, item 7, "
             "'Serving features': MoE serving)")
-    if cfg.padded_vocab_size:
-        raise NotImplementedError(
-            "padded-vocab GPT-2 serving is not ported yet (ROADMAP.md §1, "
-            "item 7, 'Serving features': padded-vocab GPT-2, "
-            "mask_padded_cols)")
     L = cfg.n_layer
 
     def prefill_from(params, k_pool, v_pool, ids, start: int, t0: int,

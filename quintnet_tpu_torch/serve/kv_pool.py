@@ -1,7 +1,7 @@
 """Paged KV-cache pool: refcounted blocks + prefix cache + free list.
 
-Port of ``quintnet_tpu/serve/kv_pool.py`` without the host tier, the
-speculative (tentative) blocks and chain export/import.
+Port of ``quintnet_tpu/serve/kv_pool.py`` without the host tier and
+chain export/import.
 
 KV memory is one pool of ``num_blocks`` blocks of ``block_size`` token
 slots shared by every in-flight request; each request's block table
@@ -24,6 +24,12 @@ holding positions ``[n - fill, n)``; retire/preempt PUBLISH blocks
 instead of freeing them; refcount-zero published blocks are retained
 in an LRU set and evicted only after the free list runs dry. A request
 whose reusable chain ends inside a partial block copies it on write.
+
+Speculative decoding's draft K/V lands in TENTATIVE blocks
+(:meth:`KVPool.tentative_acquire`), which the engine commits or rolls
+back within the step that took them; :meth:`KVPool.publish` refuses a
+tentative block, so the prefix index only ever holds committed
+positions.
 """
 
 from __future__ import annotations
@@ -107,6 +113,7 @@ class KVPool:
         self._touch_counter = 0
         # lazy-deletion heap over (touch stamp, block)
         self._lru_heap: List[Tuple[int, int]] = []
+        self._tentative: Set[int] = set()
         self.cache_evictions = 0
 
     # ---- accounting -------------------------------------------------
@@ -150,6 +157,16 @@ class KVPool:
 
     def blocks_for(self, n_tokens: int) -> int:
         return -(-n_tokens // self.block_size)
+
+    def can_acquire(self, n: int) -> bool:
+        return n <= self.num_available
+
+    def refcount(self, block: int) -> int:
+        return self._ref[block]
+
+    def is_cached(self, block: int) -> bool:
+        """Is the block referenced by the prefix index (published)?"""
+        return block in self._block_key
 
     # ---- acquire / release ------------------------------------------
     def _touch(self, b: int) -> None:
@@ -230,6 +247,42 @@ class KVPool:
                     self._free.append(b)
                     self._free_set.add(b)
 
+    # ---- tentative (speculative-tail) blocks -------------------------
+    def is_tentative(self, block: int) -> bool:
+        return block in self._tentative
+
+    @property
+    def num_tentative(self) -> int:
+        return len(self._tentative)
+
+    def tentative_acquire(self, n: int) -> Optional[List[int]]:
+        """``n`` private blocks for a speculative tail, marked tentative
+        until :meth:`commit_tentative` or :meth:`rollback_tentative` (the
+        same allocator as :meth:`acquire`; None, never a part, when it
+        cannot cover ``n``)."""
+        got = self.acquire(n)
+        if got is not None:
+            self._tentative.update(got)
+        return got
+
+    def commit_tentative(self, blocks: Sequence[int]) -> None:
+        """Accepted drafts reach into ``blocks``: they become ordinary
+        private blocks of their request (the reference they hold is its
+        table's)."""
+        for b in blocks:
+            if b not in self._tentative:
+                raise ValueError(f"block {b} is not tentative")
+            self._tentative.remove(b)
+
+    def rollback_tentative(self, blocks: Sequence[int]) -> None:
+        """Rejected drafts in ``blocks``: their reference is dropped and
+        they go back to the allocator (never published, in no table)."""
+        for b in blocks:
+            if b not in self._tentative:
+                raise ValueError(f"block {b} is not tentative")
+            self._tentative.remove(b)
+        self.release(blocks)
+
     # ---- prefix index -----------------------------------------------
     @staticmethod
     def _key(tokens: np.ndarray, n: int) -> bytes:
@@ -296,12 +349,20 @@ class KVPool:
                 n_tokens: int) -> None:
         """Index ``blocks`` as the cached chain for ``tokens[:n_tokens]``
         (retire/preempt). Publish BEFORE release: release retains
-        published blocks."""
+        published blocks. A tentative block among those the chain uses is
+        refused: published chains hold committed positions only."""
         if not self.prefix_cache or n_tokens <= 0:
             return
         tokens = np.asarray(tokens, np.int32).reshape(-1)
         n_tokens = min(int(n_tokens), len(tokens))
         q, f = divmod(n_tokens, self.block_size)
+        bad = [b for b in blocks[:q + (1 if f else 0)]
+               if b in self._tentative]
+        if bad:
+            raise ValueError(
+                f"publish would index tentative block(s) {bad}: "
+                f"speculative drafts must be committed or rolled back "
+                f"before a request's blocks are published")
         for j in range(q):
             self._publish_one(blocks[j], self._key(
                 tokens, (j + 1) * self.block_size))

@@ -4,10 +4,11 @@ A copy of ``quintnet_tpu/serve/metrics.py`` (numpy-only; the port may
 not import the JAX package). Counters the engine records every step
 (running/waiting/preempted, KV-block utilization, prefill vs decode
 tokens) and per-request marks (submit, first token, finish) from which
-TTFT and tok/s percentiles are derived. Ledgers for features the port
-does not serve yet stay at zero (inert until the feature is ported):
-``spec_steps``/``draft_tokens``/``accepted_draft_tokens`` (speculation),
-``chunk_steps``/``chunk_tokens`` (chunked prefill),
+TTFT and tok/s percentiles are derived, with the speculation ledger
+(``spec_steps``/``draft_tokens``/``accepted_draft_tokens``) and the
+chunked-prefill one (``prefill_chunks``/``chunk_steps``/
+``chunk_tokens``). Ledgers for features the port does not serve yet stay
+at zero (inert until the feature is ported):
 ``kv_demotions``/``kv_promotions``/``host_hit_tokens``/
 ``host_tier_bytes`` (the host tier), the ``moe_*`` fields (MoE), the
 per-adapter TTFTs (adapters); ``weights_dtype`` stays ``"f32"``. The

@@ -360,9 +360,9 @@ def test_mesh_runs_of_one_size_share_one_world(tmp_path):
     assert chip_smoke._mesh_worlds() == {
         2: ["dp2", "tp2", "fsdp_dp2", "pp2_afab", "llama_tp2",
             "llama_fsdp_dp2", "llama_moe_ep2", "sp2_ring", "sp2_zigzag",
-            "sp2_ulysses", "llama_sp2_ulysses"],
+            "sp2_ulysses", "llama_sp2_ulysses", "vp_tp2", "llama_vp_tp2"],
         4: ["dp2tp2", "fsdp_dp2tp2", "dp2pp2_stored_zero2",
-            "llama_dp2pp2_1f1b_zero1", "gpt2_moe_ep2tp2"],
+            "llama_dp2pp2_1f1b_zero1", "gpt2_moe_ep2tp2", "vp_tp2_sp2"],
         8: ["3d_1f1b_zero1", "3d_bf16"], "resume": ["3d_ckpt_resume"]}
     jobs, refs = [], {}
     for name in ("fsdp_dp2", "pp2_afab"):
@@ -665,3 +665,83 @@ def test_sp_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch):
             assert r["worst_grad_rel_err"] <= 1e-5      # f32 on the CPU
         np.testing.assert_allclose(ranks[0]["losses"], ref["losses"],
                                    rtol=1e-5)
+
+
+VP_RUNS = ("vp_tp2", "llama_vp_tp2", "vp_tp2_sp2")
+
+
+def test_vp_mesh_runs_parse():
+    """The vocab-parallel runs: GPT-2 124M uncut with its table padded to
+    50,304 rows on tp = 2 (25,152 a rank; then 16 greedy tokens by
+    ``gpt2_generate_tp``), Llama-3.2-1B widths at 4 layers on tp = 2
+    (sharing llama_tp2's reference: vp without tp changes nothing), GPT-2
+    at 6 layers on tp x sp by Ulysses in the 4-rank world."""
+    runs = {n: chip_smoke.MESH_RUNS[n] for n in VP_RUNS}
+    cfgs = {n: chip_smoke._run_model(r) for n, r in runs.items()}
+    for name, cfg in cfgs.items():
+        assert cfg.vocab_parallel and not chip_smoke._exact(runs[name])
+    g = cfgs["vp_tp2"]
+    assert (g.n_layer, g.vocab_size, g.table_vocab_size) == (12, 50257, 50304)
+    assert chip_smoke._run_opts(runs["vp_tp2"])["generate"] == 16
+    assert cfgs["vp_tp2_sp2"].n_layer == 6
+    assert cfgs["llama_vp_tp2"].table_vocab_size == 128256
+    assert chip_smoke._ref_key(runs["llama_vp_tp2"]) == \
+        chip_smoke._ref_key(chip_smoke.MESH_RUNS["llama_tp2"])
+    assert len({chip_smoke._ref_key(r) for r in runs.values()}) == 3
+    worlds = chip_smoke._mesh_worlds()
+    assert {"vp_tp2", "llama_vp_tp2"} <= set(worlds[2])
+    assert "vp_tp2_sp2" in worlds[4]
+    assert chip_smoke._per_step(runs["vp_tp2_sp2"], 6) == {
+        k: 12 for k in chip_smoke.FLASH_KERNELS}
+
+
+@pytest.mark.parametrize("name,sizes", [("vp_tp2", {"tp": 2}),
+                                        ("vp_tp2_sp2", {"tp": 2, "sp": 2})])
+def test_vp_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch, name, sizes):
+    """A vocab-parallel run on gloo CPU ranks with a tiny GPT-2 whose
+    table is padded 123 -> 128 rows, through ``_check_mesh_run``'s own
+    gates: the first loss, every gradient leaf (the sharded table
+    gathered), the step losses, the table rows a rank, the padded rows'
+    zero gradient and, for vp_tp2, the tp generation against one
+    device."""
+    import dataclasses
+
+    import numpy as np
+
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+
+    run = chip_smoke.MESH_RUNS[name]
+    assert dict(zip(run[1], run[0])) == sizes
+    cfg = GPT2Config.tiny(n_layer=2, vocab_size=123, padded_vocab_size=128,
+                          vocab_parallel=True)
+    rng = np.random.default_rng(0)
+    host = [(rng.integers(0, 123, (run[3], TINY_SEQ)),) * 2
+            for _ in range(chip_smoke.MESH_STEPS)]
+    path = str(tmp_path / "ref.pt")
+    threads = torch.get_num_threads()
+    torch.use_deterministic_algorithms(True)
+    torch.set_num_threads(1)
+    try:
+        ref = chip_smoke._mesh_reference(
+            dataclasses.replace(cfg, vocab_parallel=False), host,
+            chip_smoke._ref_micro(run), "cpu", path)
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.set_num_threads(threads)
+    world = int(np.prod(list(sizes.values())))
+    ranks = runtime.spawn_world(chip_smoke._mesh_rank, world, run, host,
+                                path, chip_smoke._model_dict(cfg), "cpu",
+                                timeout=300, store_dir=str(tmp_path))
+    monkeypatch.setattr(chip_smoke, "_smi", lambda: "(no card)")
+    ranks = _filled_launches(run, ranks, cfg)
+    res = chip_smoke._check_mesh_run(name, run, ranks, ref, cfg)
+    assert res["vocab"]["table_rows_a_rank"] == 64
+    for r in ranks:
+        assert r["worst_grad_rel_err"] <= 1e-5          # f32 on the CPU
+        assert r["padded_rows_grad_max"] == 0.0
+        if name == "vp_tp2":
+            g = r["generate"]
+            assert g["divergences"] == [] and g["padded_ids_emitted"] == 0
+            assert g["tokens_agreeing"] == 2 * g["new_tokens"]
+    np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=1e-5)

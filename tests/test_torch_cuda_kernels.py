@@ -217,6 +217,28 @@ def test_decode_path_matches_plain_version(cuda_device, layout, name):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["f32", "int8"])
+@pytest.mark.parametrize("P,path", [(3, "decode"), (5, "prefill"),
+                                    (9, "prefill")])
+def test_verify_shapes_match_plain_version(cuda_device, layout, P, path):
+    """Speculative decoding's verify step: 8 rows of P = draft + 1 query
+    positions at per-row starts (one row dead), GPT-2's MHA: P = 3 on the
+    decode path, 5 and 9 (drafts of 4 and 8) on the prefill path; the
+    int8 case is the scaled variant with the fresh run."""
+    args, kw = _narrow_case(5, layout, S=8, Hq=4, Hkv=4, P=P, D=64,
+                            starts=[0, 5, 16, 31, 60, 100 - P, 7, 0],
+                            dead=(7,))
+    assert kernel_path(args[0], args[1]) == path
+    before = paged_attention.launches_by_path[path]
+    got = paged_attention(*args, block_size=BS, **kw)
+    torch.cuda.synchronize()
+    assert paged_attention.launches_by_path[path] == before + 1
+    want = paged_attention_ref(*args, block_size=BS, **kw)
+    assert torch.isfinite(got).all()
+    assert float((got - want).abs().max()) <= 1e-4
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize("Hq,Hkv,P,path", [
     (4, 4, 4, "decode"), (8, 2, 1, "decode"), (4, 2, 2, "decode"),
     (4, 4, 5, "prefill"), (8, 4, 3, "prefill"), (8, 1, 1, "prefill")])

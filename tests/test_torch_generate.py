@@ -38,7 +38,6 @@ from quintnet_tpu_torch.bridge import (gpt2_params_from_numpy,
 from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_apply
 from quintnet_tpu_torch.models.gpt2_generate import (gpt2_decode_step,
                                                      gpt2_generate,
-                                                     gpt2_generate_tp,
                                                      gpt2_prefill)
 from quintnet_tpu_torch.models.llama import LlamaConfig, llama_apply
 from quintnet_tpu_torch.models.llama_generate import (llama_decode_step,
@@ -186,22 +185,6 @@ def test_length_guard_and_zero_new_tokens(gpt2, llama):
     _, lp, _, lcfg = llama
     with pytest.raises(ValueError, match="n_positions"):
         llama_generate(lp, ids, lcfg, max_new_tokens=lcfg.n_positions)
-
-
-class _StubMesh:
-    class _Axis:
-        size = 2
-
-    def axis(self, name):
-        return self._Axis()
-
-
-def test_vocab_parallel_decoding_names_item_6(gpt2):
-    _, tp, _, _ = gpt2
-    cfg = GPT2Config.tiny(n_layer=2, vocab_parallel=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        gpt2_generate_tp(tp, _ids(6), cfg, mesh=_StubMesh(),
-                         max_new_tokens=2)
 
 
 # ---------------------------------------------------------------------

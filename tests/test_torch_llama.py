@@ -331,8 +331,6 @@ REFUSED = {
     "from_hf_config": lambda: pl.LlamaConfig.from_hf_config(object()),
     "remat_dots": lambda: pl.llama_model_spec(pl.LlamaConfig.tiny(),
                                               remat="dots"),
-    "vocab_parallel_tp": lambda: pl.llama_partition_specs(
-        pl.LlamaConfig.tiny(vocab_parallel=True), tp_axis="tp"),
 }
 
 
@@ -341,7 +339,7 @@ def test_refusals_name_their_roadmap_item(name):
     want = {"prefill": "item 7", "decode": "item 7", "verify": "item 7",
             "prefill_paged": "item 7", "from_hf_state": "item 9",
             "to_hf_state": "item 9", "from_hf_config": "item 9",
-            "remat_dots": "§2", "vocab_parallel_tp": "item 6"}[name]
+            "remat_dots": "§2"}[name]
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         REFUSED[name]()
     assert want in str(e.value)

@@ -107,8 +107,6 @@ def test_messages_are_found():
     files = {f for f, _ in msgs}
     for want in ("quintnet_tpu_torch/nn/transformer.py",
                  "quintnet_tpu_torch/nn/attention.py",
-                 "quintnet_tpu_torch/models/gpt2.py",
-                 "quintnet_tpu_torch/models/gpt2_generate.py",
                  "quintnet_tpu_torch/models/llama.py",
                  "quintnet_tpu_torch/ops/flash_kernels.py",
                  "quintnet_tpu_torch/serve/families.py", "engine"):
@@ -147,14 +145,13 @@ def test_generation_refusals_name_items_6_and_7():
     """The generation slice's refusals: vocab-parallel decoding is queued
     as vocab parallelism (item 6's part 6b, after sequence parallelism,
     6a), paged Llama decoding and tp paged decoding with the serving
-    features (item 7)."""
+    features (item 7). (Vocab-parallel decoding, once refused as item
+    6b, is served.)"""
     _, items, _ = _roadmap()
     by_file = {}
     for where, msg in _messages():
         by_file.setdefault(where, []).append(msg)
     for where, needle, item in (
-            ("quintnet_tpu_torch/models/gpt2_generate.py", "vocab-parallel",
-             "6b"),
             ("quintnet_tpu_torch/models/llama.py", "llama_block_decode", 7),
             ("quintnet_tpu_torch/nn/attention.py", "tp mesh", 7)):
         msgs = [m for m in by_file[where] if needle in m]

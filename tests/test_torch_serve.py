@@ -195,8 +195,8 @@ def test_submit_rejects_what_can_never_run(params):
 
 
 @pytest.mark.parametrize("option,value", [
-    ("spec", True), ("adapters", object()), ("kv_tier_bytes", 1 << 20),
-    ("chunked_prefill", True), ("mesh", object()), ("sp_axis", "sp"),
+    ("adapters", object()), ("kv_tier_bytes", 1 << 20),
+    ("mesh", object()), ("sp_axis", "sp"),
     ("ep_axis", "ep"), ("weights_dtype", "int8")])
 def test_unported_options_raise(params, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -241,7 +241,6 @@ JAX_ONLY_OPTIONS = {
     "lora_targets": (("qkv",), None, "item 7"),
     "lora_max_rank": (16, 8, "item 7"),
     "lora_rank_bucket_sizes": ((4, 8), None, "item 7"),
-    "prefill_chunk_budget": (8, None, "item 7"),
     "kv_tier_promote_budget_bytes": (1 << 20, None, "item 7"),
     "logger": (print, None, "item 8"), "log_every": (10, 0, "item 8"),
     "clock": (lambda: 0.0, time.monotonic, "item 8"),
@@ -282,13 +281,7 @@ def test_attn_kernel_takes_xla_only(params):
                     attn_kernel="pallas")
 
 
-def test_padded_vocab_message_names_serving_features():
-    with pytest.raises(NotImplementedError, match="item 7, 'Serving "):
-        gpt2_family(GPT2Config.tiny(padded_vocab_size=256))
-
-
-@pytest.mark.parametrize("cfg", [GPT2Config.tiny(n_experts=4),
-                                 GPT2Config.tiny(padded_vocab_size=256)])
+@pytest.mark.parametrize("cfg", [GPT2Config.tiny(n_experts=4)])
 def test_unported_model_configs_raise(cfg):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         gpt2_family(cfg)

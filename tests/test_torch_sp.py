@@ -539,7 +539,9 @@ def test_shard_batch_on_sp_mesh_needs_the_model(w4):
 def test_long_context_example_trains_on_cpu_ranks(capfd):
     """``examples/long_context.py`` spawns its sp ranks (here 2, Ulysses
     over a tiny GPT-2 at 128 positions), trains, and only rank 0 prints;
-    ``--serve`` (chunked prefill) raises, naming its ROADMAP.md item."""
+    ``--serve`` (chunked prefill) serves a prompt past its window as the
+    widened engine does, and ``--serve --simulate 2`` (sp prefill) raises,
+    naming its ROADMAP.md item."""
     from quintnet_tpu_torch.examples import long_context
 
     assert long_context.main(["--device", "cpu", "--nproc", "2", "--seq",
@@ -549,4 +551,9 @@ def test_long_context_example_trains_on_cpu_ranks(capfd):
     assert out.count("mesh sp=2, seq 128 -> 64/rank, sp_mode=ulysses") == 1
     assert out.count("step 1: loss") == 1
     with pytest.raises(NotImplementedError, match="item 7"):
-        long_context.main(["--serve"])
+        long_context.main(["--serve", "--simulate", "2"])
+    assert len(long_context.main(["--serve", "--device", "cpu",
+                                  "--serve-prompt", "150",
+                                  "--serve-new", "3"])) == 3
+    assert "identical to the widened single-shot engine: True" in \
+        capfd.readouterr().out
