@@ -57,7 +57,11 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    bf16, fp8, fake_quant: dequantize on load and, for the scaled int8
    and fake_quant, the fresh-K/V override), a P = 128 prefill tail per
    other layout, the verify shape (8 rows x 4 queries, f32 and int8)
-   and int8 GQA; then two exact checks: on each K4 path (the decode
+   and int8 GQA; since slice 18 Llama-3.2-1B's GQA (32 query heads on
+   8 kv heads: decode in f32 and int8, prefill P = 128 in f32 and int8,
+   verify P = 3 on the prefill path) and a tp2 GPT-2 rank's 6 heads
+   (decode, prefill P = 128), each a kernels-line entry of its own
+   (``line``); then two exact checks: on each K4 path (the decode
    case, the P = 128 prefill at start 37) fake_quant equals f32 bit for
    bit, and ``paged_quant_window_update`` on the card equals the same
    call on the CPU byte for byte.
@@ -108,6 +112,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    through each pool at the verify shape (``paged_eval_nll``, 4 rows x
    256 tokens, and the second half scored against the first written
    earlier): fake_quant within 1e-6 of f32, the others within 2e-3.
+3b. **serve_llama** — Llama-3.2-1B uncut (16 layers, vocab 128,256,
+   random weights from seed 0) served by ``llama_family``: the pool
+   holds the 8 UNrepeated kv heads and K4 takes the group of 4. 8
+   requests of 16-200 tokens, 32 new each, counts zeroed just before
+   and read just after every run: greedy (f32 pool) against the dense
+   ``llama_apply`` teacher-forced under the near-tie rule, with the
+   steady decode step profiled (16 decode-path kernels a step); sampled
+   against ``llama_generate`` at each request's seed (perturbed
+   near-ties); an int8 pool under the narrow-layout rule (>= 90%, a flip
+   only at a gap < 0.05); speculation on 4 tiled prompts against
+   spec-off (its verifies on the prefill path). K4 == 16 x (decode
+   steps + prefills [+ verifies]) by path in every run.
 4. **train** — GPT-2 124M (f32, random weights from seed 0, every
    dropout rate 0) trained by the port's ``Trainer`` with AdamW (lr
    5e-5, decay 0.01, clip 1.0) on ``SummarizationDataset.synthetic``
@@ -273,8 +289,23 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    ``torch.profiler`` with each collective entered on a drained device
    (the flash kernels of the run's dtype by name a step, and the share
    of that step inside the ``collective:*`` ranges). The save and
-   restore seconds and the step's bytes are printed. A rank that raises
-   or dies fails the phase.
+   restore seconds and the step's bytes are printed. Since slice 18 the
+   serving mesh runs join the 2-rank world (``SERVE_MESH_RUNS``; their
+   one-device references made first, by the same code): the engine on
+   both ranks of tp = 2 (GPT-2 124M; Llama-3.2-1B widths at 4 layers),
+   sp = 2 (GPT-2 124M: serve_chunked's document through chunks of 256,
+   128 positions a rank, while 3 streams decode) and ep = 2 (GPT-2 124M
+   widths at 6 layers with 8 experts, top-2: dropless, and at the
+   default capacity factor 1.25, which drops), greedy and sampled, with
+   deterministic mode OFF on the ranks: the ranks' streams and routing
+   summaries equal bit for bit, each rank's streams equal to one
+   device's up to near-ties (the routing summary equal too under ep;
+   with drops one device's engine is reported beside, and the traffic
+   must drop), the document's last logits within 1e-4, K4 == layers x
+   decode calls (+ prefills off sp) a rank; a steady decode window timed
+   and profiled (the ``collective:*`` share). Since slice
+   18 gpt2_moe_ep2tp2 is cut to 6 layers. A rank that raises or dies
+   fails the phase.
 
 Then one JSON line of each phase's wall seconds (the mesh phase's
 single-rank references also on a line of their own), one of
@@ -284,7 +315,11 @@ serve_sampled runs' launches; K1-K3 in f32 with the train, lora_train,
 resume, llama_train and llama_packed phases' launches and every f32 mesh
 rank's
 together, in bf16 with the train_bf16 and llama_train_bf16 phases' and
-the 3d_bf16 ranks'), the card's name and power
+the 3d_bf16 ranks'; since slice 18 K4 also at Llama's GQA shapes with
+serve_llama's launches and at a tp2 rank's shapes, GPT-2's 6 heads and
+Llama's 16 on 4, with serve_tp2's and serve_tp2_llama's ranks'; the
+other serving mesh ranks' count on GPT-2's f32 lines), the card's name
+and power
 limit (``nvidia-smi``), and as the last line
 ``{"ok": true, "device": {...}}``. Exits non-zero without a result when
 CUDA is not available or the package is missing.
@@ -633,6 +668,40 @@ def _paged_cases():
                              Hkv=H // 2, P=1,
                              starts=[900, 450, 31, 16, 15, 200, 5, 0],
                              dead=(7,), layout="int8"))
+    # the serving slice's shapes: Llama-3.2-1B (32 query heads on 8 kv
+    # heads, group 4 = the decode path's row limit) decode in f32 and
+    # int8, prefill P = 128 in f32 and int8 and verify P = 3 (12 rows a
+    # group: the prefill path); a tp2 GPT-2 rank's 6 heads and a tp2
+    # Llama rank's 16 query heads on 4 kv heads, decode and prefill.
+    # "line": the kernels-line entry each stands for, "main" the path it
+    # must take (the first of a line's cases on a path times it)
+    LQ, LKV = 32, 8
+
+    def line(tag, path):
+        cases[-1].update(line=tag, main=path)
+
+    for layout in ("f32", "int8"):
+        cases.append(_paged_case(gen, name=f"llama_decode_{layout}", S=8,
+                                 Hq=LQ, Hkv=LKV, P=1, starts=DECODE_STARTS,
+                                 dead=(7,), layout=layout))
+        line("llama_gqa4", "decode")
+        cases.append(_paged_case(gen, name=f"llama_prefill_{layout}_P128",
+                                 S=1, Hq=LQ, Hkv=LKV, P=128, starts=[0],
+                                 layout=layout))
+        line("llama_gqa4", "prefill")
+    cases.append(_paged_case(gen, name="llama_verify_f32_S8_P3", S=8, Hq=LQ,
+                             Hkv=LKV, P=3,
+                             starts=[1016, 700, 511, 300, 129, 64, 17, 0],
+                             dead=(7,)))
+    line("llama_gqa4", "prefill")
+    for tag, hq, hkv in SERVE_MESH_LINES.values():
+        cases.append(_paged_case(gen, name=f"{tag}_decode", S=8, Hq=hq,
+                                 Hkv=hkv, P=1, starts=DECODE_STARTS,
+                                 dead=(7,)))
+        line(tag, "decode")
+        cases.append(_paged_case(gen, name=f"{tag}_prefill_P128", S=1,
+                                 Hq=hq, Hkv=hkv, P=128, starts=[0]))
+        line(tag, "prefill")
     results, outs = [], {}
     for c in cases:
         args = (c["q"], c["k"], c["v"], c["tables"], c["starts"])
@@ -655,7 +724,7 @@ def _paged_cases():
                "variant": kernel_variant(c["k"],
                                          c["kw"].get("kv_scales")),
                "path": path,
-               "main": c.get("main"),
+               "main": c.get("main"), "line": c.get("line"),
                "pool_dtype": str(c["k"].dtype).replace("torch.", ""),
                "shape_q": list(c["q"].shape),
                "kv_heads": c["k"].shape[1], "starts": c["starts"].tolist(),
@@ -1121,6 +1190,27 @@ def phase_kernels():
 # phase 2: GPT-2 124M served on the card
 # ---------------------------------------------------------------------
 
+def _dense_logits(params, ids, cfg):
+    """The model's dense eval forward, [B, T] ids -> [B, T, V] logits:
+    GPT-2's or Llama's, by the config's family."""
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_apply
+    from quintnet_tpu_torch.models.llama import llama_apply
+
+    return (gpt2_apply if isinstance(cfg, GPT2Config) else llama_apply)(
+        params, ids, cfg)
+
+
+def _dense_generate(params, ids, cfg, **kw):
+    """The family's dense KV-cache decoder (``gpt2_generate`` or
+    ``llama_generate``)."""
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+    from quintnet_tpu_torch.models.gpt2_generate import gpt2_generate
+    from quintnet_tpu_torch.models.llama_generate import llama_generate
+
+    fn = gpt2_generate if isinstance(cfg, GPT2Config) else llama_generate
+    return fn(params, ids, cfg, **kw)
+
+
 def _check_against_dense(params, cfg, eng, rids, prompts, gap_limit):
     """Teacher-forced greedy oracle: one dense forward per request over
     prompt + generated[:-1]; the argmax at each prompt-end-or-later
@@ -1135,7 +1225,7 @@ def _check_against_dense(params, cfg, eng, rids, prompts, gap_limit):
         gen = out[len(prompt):]
         seq = torch.from_numpy(out[:-1].astype(np.int64)).to(DEVICE)[None]
         with torch.no_grad():
-            logits = gpt2_apply(params, seq, cfg)[0]
+            logits = _dense_logits(params, seq, cfg)[0]
         if not torch.isfinite(logits).all():
             raise AssertionError(f"request {rid}: dense logits not finite")
         rows = logits[len(prompt) - 1:]
@@ -1233,7 +1323,7 @@ def _profiled(run, spans=(), expect=None, agree=None):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
-            torch.cuda.synchronize()
+            _sync()
         by_name = _device_ops(prof, spans)
         lost = _lost_records(prof)
         short = {}
@@ -1295,7 +1385,7 @@ def _kernel_share(eng, cfg, rng, *, window_update=False) -> dict:
     # one device kernel a decode-path call (its splits combine inside the
     # cluster launch): every steady step is a decode step, so n_layer
     # decode-path kernels a step and no prefill
-    want = {"decode": cfg.n_layer * steps, "prefill": 0}
+    want = {"decode": _depth(cfg) * steps, "prefill": 0}
     try:
         prof, by_name = _profiled(
             lambda: [eng.step() for _ in range(steps)],
@@ -1393,9 +1483,9 @@ def _check_serve_run(eng, cfg, rids, launches):
     the prefix cache hit; every request finished."""
     m = eng.metrics
     variant = _variant(eng.pool)
-    expected = cfg.n_layer * (m.decode_steps + m.admitted)
-    by_path = {"decode": cfg.n_layer * m.decode_steps,
-               "prefill": cfg.n_layer * m.admitted}
+    L = _depth(cfg)
+    expected = L * (m.decode_steps + m.admitted)
+    by_path = {"decode": L * m.decode_steps, "prefill": L * m.admitted}
     if (launches["total"] != expected
             or launches["by_variant"] != {variant: expected}
             or launches["by_path"] != by_path):
@@ -1492,13 +1582,12 @@ def _perturbed_gap(params, cfg, seq, t0, i, seed):
     """The gap between the two best perturbed scores (filtered logits /
     T + the chain's noise) the dense forward gives request token ``i``:
     teacher-forced over ``seq[:t0 + i]``, drawn at (``seed``, ``i``)."""
-    from quintnet_tpu_torch.models.gpt2 import gpt2_apply
     from quintnet_tpu_torch.models.gpt2_generate import (chain_gumbel,
                                                          filter_logits)
 
     ids = torch.from_numpy(seq[:t0 + i].astype(np.int64)).to(DEVICE)[None]
     with torch.no_grad():
-        logits = gpt2_apply(params, ids, cfg)[:, -1]
+        logits = _dense_logits(params, ids, cfg)[:, -1]
     scores = filter_logits(logits, **SAMPLED) + chain_gumbel(
         [seed], [i], logits.shape[-1], logits.device)
     top2 = torch.topk(scores[0], 2).values
@@ -1506,27 +1595,26 @@ def _perturbed_gap(params, cfg, seq, t0, i, seed):
 
 
 def _check_sampled_vs_dense(params, cfg, eng, rids, prompts):
-    """Each request's sampled stream against the port's dense decoder,
-    ``gpt2_generate`` of its prompt at its seed (the rid, the engine's
-    default) on the card: equal up to the first position where the two
-    best perturbed scores lie within the serve phase's near-tie gap
-    (``F32_GAP``); a divergence anywhere else fails. Returns (tokens
-    agreeing, tokens compared, divergences)."""
-    from quintnet_tpu_torch.models.gpt2_generate import gpt2_generate
-
+    """Each request's sampled stream against the port's dense decoder
+    (``gpt2_generate`` or ``llama_generate``) of its prompt at its seed on
+    the card: equal up to the first position where the two best perturbed
+    scores lie within the serve phase's near-tie gap (``F32_GAP``); a
+    divergence anywhere else fails. Returns (tokens agreeing, tokens
+    compared, divergences)."""
     agree, compared, diverged = 0, 0, []
     for rid, prompt in zip(rids, prompts):
         out = eng.result(rid)
         gen = out[len(prompt):]
-        dense = gpt2_generate(params, prompt[None], cfg,
-                              max_new_tokens=len(gen), seed=rid,
-                              **SAMPLED)[0, len(prompt):]
+        seed = eng.request(rid).seed
+        dense = _dense_generate(params, prompt[None], cfg,
+                                max_new_tokens=len(gen), seed=seed,
+                                **SAMPLED)[0, len(prompt):]
         diff = np.nonzero(gen != dense)[0]
         n = len(gen) if diff.size == 0 else int(diff[0])
         agree += n
         compared += len(gen)
         if diff.size:
-            gap = _perturbed_gap(params, cfg, out, len(prompt), n, rid)
+            gap = _perturbed_gap(params, cfg, out, len(prompt), n, seed)
             diverged.append({"rid": rid, "step": n, "engine": int(gen[n]),
                              "dense": int(dense[n]),
                              "perturbed_top2_gap": gap})
@@ -1690,14 +1778,21 @@ class _Calls:
         eng._verify_step = verify_step
 
 
+def _sync() -> None:
+    """Wait for the card (no-op where there is none: the CPU rehearsals
+    of the serving mesh runs in ``tests/test_torch_chip_smoke.py``)."""
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+
+
 def _run_requests(eng, prompts, max_new, seeds):
     """Submit every request, step to the end: (streams, wall s)."""
-    torch.cuda.synchronize()
+    _sync()
     t0 = time.perf_counter()
     rids = [eng.submit(p, n, seed=s) for p, n, s in zip(prompts, max_new,
                                                         seeds)]
     eng.run()
-    torch.cuda.synchronize()
+    _sync()
     return [eng.result(r) for r in rids], time.perf_counter() - t0
 
 
@@ -1831,11 +1926,11 @@ def _chunk_script(eng, cfg, rng):
     during, after = [], []
     m = eng.metrics
     while eng.request(rid).state != "finished":
-        torch.cuda.synchronize()
+        _sync()
         d0, c0, t = m.decode_tokens, m.chunk_tokens, time.perf_counter()
         first = eng.request(rid).first_token_time is None
         eng.step()
-        torch.cuda.synchronize()
+        _sync()
         rec = (time.perf_counter() - t, m.decode_tokens - d0,
                m.chunk_tokens - c0)
         (during if first else after).append(rec)
@@ -1946,11 +2041,9 @@ LLAMA_GEN_ROWS, LLAMA_GEN_PROMPT, LLAMA_GEN_NEW = 4, 128, 16
 def _greedy_gap_check(params, cfg, seq, t0, i, device=DEVICE):
     """The dense top-2 logit gap at request token ``i`` (teacher-forced
     over ``seq[:t0 + i]``)."""
-    from quintnet_tpu_torch.models.gpt2 import gpt2_apply
-
     ids = torch.from_numpy(seq[:t0 + i].astype(np.int64)).to(device)[None]
     with torch.no_grad():
-        top2 = torch.topk(gpt2_apply(params, ids, cfg)[0, -1], 2).values
+        top2 = torch.topk(_dense_logits(params, ids, cfg)[0, -1], 2).values
     return float(top2[0] - top2[1])
 
 
@@ -2187,6 +2280,163 @@ def phase_serve_kv(params, cfg, f32_streams):
            "paged_eval_nll": nll, "second_half_nll": split,
            "gate": {"fake_quant": NLL_EXACT, "others": NLL_LIMIT}})
     return out, runs
+
+
+# ---------------------------------------------------------------------
+# phase 3b: Llama-3.2-1B served through K4's GQA path
+# ---------------------------------------------------------------------
+
+# 8 requests of 16-200 prompt tokens, 32 new tokens each, at these seeds
+LLAMA_SERVE_LENS = (16, 200, 64, 120, 33, 180, 90, 150)
+LLAMA_SERVE_NEW = 32
+LLAMA_SERVE_SEEDS = tuple(range(200, 208))
+# the spec-on run: 4 requests tiling a short pattern, 24 new tokens
+LLAMA_SPEC_REQUESTS, LLAMA_SPEC_NEW = 4, 24
+
+
+def _llama_engine(params, cfg, **kw):
+    from quintnet_tpu_torch.serve import ServeEngine, llama_family
+
+    kw = {"max_slots": 8, "block_size": 16, "num_blocks": 200,
+          "max_seq_len": 512, "kv_dtype": "f32", **kw}
+    eng = ServeEngine(llama_family(cfg), params, device=DEVICE, **kw)
+    t0 = time.perf_counter()
+    eng.warmup()
+    torch.cuda.synchronize()
+    return eng, time.perf_counter() - t0
+
+
+def _llama_script(eng, prompts):
+    """Every request at once, stepped to the end: (rids, per-step (wall
+    s, admissions, decode tokens))."""
+    steps = []
+    rids = [eng.submit(p, LLAMA_SERVE_NEW, seed=sd)
+            for p, sd in zip(prompts, LLAMA_SERVE_SEEDS)]
+    while eng.has_work:
+        a0, d0 = eng.metrics.admitted, eng.metrics.decode_tokens
+        t = time.perf_counter()
+        eng.step()                  # ends in a device->host token copy
+        steps.append((time.perf_counter() - t, eng.metrics.admitted - a0,
+                      eng.metrics.decode_tokens - d0))
+    return rids, steps
+
+
+def phase_serve_llama():
+    """Llama-3.2-1B uncut (16 layers, 32 query heads on 8 kv heads, vocab
+    128,256; random weights, seed 0) served by the engine with
+    ``llama_family``: the pool holds the 8 UNrepeated kv heads and K4
+    takes the GQA group (group 4: the decode path at P = 1). Gates: greedy
+    streams vs the dense ``llama_apply`` teacher-forced (near-tie rule),
+    sampled streams vs ``llama_generate`` at each seed (near-tie rule),
+    the int8 pool under the narrow-layout rule (>= 90% agreement, a flip
+    only at a gap < 0.05), speculation's streams vs spec-off (its verify
+    calls at P = 3, 5, 9 on the prefill path: 12-36 rows a kv head), and
+    K4 == 16 x (decode steps + prefills [+ verifies]) by path in every
+    run; the profiled decode steps 16 decode-path kernels a step.
+    Reported: decode step ms, decode tokens/s, KV bytes a token."""
+    from quintnet_tpu_torch.models.llama import LlamaConfig, llama_init
+    from quintnet_tpu_torch.ops.paged_attention import _path
+
+    cfg = LlamaConfig.llama32_1b()
+    params = llama_init(torch.Generator(device=DEVICE).manual_seed(0), cfg)
+    L = cfg.n_layers
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in LLAMA_SERVE_LENS]
+    res = {"phase": "serve_llama",
+           "model": "Llama-3.2-1B uncut (random init, seed 0)",
+           "heads": [cfg.n_heads, cfg.n_kv_heads, cfg.head_dim],
+           "prompt_lens": list(LLAMA_SERVE_LENS),
+           "max_new_tokens": LLAMA_SERVE_NEW, "runs": {}}
+    by_variant = {}
+
+    def main_path(name, gap, **kw):
+        eng, warm = _llama_engine(params, cfg, **kw)
+        _zero_counts()
+        rids, steps = _llama_script(eng, prompts)
+        launches = _launches()
+        m = eng.metrics
+        if m.finished != len(rids):
+            raise AssertionError(f"{name}: {m.finished} of {len(rids)} "
+                                 f"finished")
+        _check_launches(launches, _variant(eng.pool),
+                        {"decode": L * m.decode_steps,
+                         "prefill": L * m.admitted})
+        run = {"kv_dtype": eng.kv_policy.name, "warmup_s": warm,
+               "launches_by_path": launches["by_path"]}
+        run.update(_serve_numbers(eng, rids, prompts, steps))
+        by_variant.setdefault(_variant(eng.pool), collections.Counter()
+                              ).update(launches["by_path"])
+        if gap is not None:
+            checked, mism = _check_against_dense(params, cfg, eng, rids,
+                                                 prompts, gap)
+            run.update({"tokens_checked_vs_dense": checked,
+                        "agree_with_dense": 1.0 - len(mism) / checked,
+                        "mismatches": mism})
+        res["runs"][name] = run
+        return eng, rids
+
+    eng, rids = main_path("greedy_f32", F32_GAP)
+    res["runs"]["greedy_f32"].update(
+        _kernel_share(eng, cfg, np.random.default_rng(5)))
+    del eng
+    torch.cuda.empty_cache()
+    eng, rids = main_path("sampled_f32", None, **SAMPLED)
+    agree, compared, div = _check_sampled_vs_dense(params, cfg, eng, rids,
+                                                   prompts)
+    res["runs"]["sampled_f32"].update({
+        "sampling": SAMPLED, "seeds": list(LLAMA_SERVE_SEEDS),
+        "tokens_agreeing_with_llama_generate": agree,
+        "tokens_compared": compared, "divergences_at_near_ties": div})
+    del eng
+    torch.cuda.empty_cache()
+    eng, _ = main_path("greedy_int8", NARROW_GAP, kv_dtype="int8")
+    agree = res["runs"]["greedy_int8"]["agree_with_dense"]
+    if agree < 0.9:
+        raise AssertionError(f"int8 Llama: {agree} of tokens agree with "
+                             f"the dense greedy (< 0.9)")
+    del eng
+    torch.cuda.empty_cache()
+
+    # speculation: verify calls through the paged verify block
+    srng = np.random.default_rng(37)
+    sp_prompts = [np.tile(srng.integers(0, cfg.vocab_size,
+                                        int(srng.integers(5, 12))), 12)[:96]
+                  .astype(np.int32) for _ in range(LLAMA_SPEC_REQUESTS)]
+    new = [LLAMA_SPEC_NEW] * LLAMA_SPEC_REQUESTS
+    seeds = LLAMA_SERVE_SEEDS[:LLAMA_SPEC_REQUESTS]
+    off, _ = _llama_engine(params, cfg)
+    s_off, wall_off = _run_requests(off, sp_prompts, new, seeds)
+    del off
+    on, _ = _llama_engine(params, cfg, spec=True)
+    calls = _Calls(on)
+    _zero_counts()
+    s_on, wall_on = _run_requests(on, sp_prompts, new, seeds)
+    launches = _launches()
+    m = on.metrics
+    want = {"decode": L * calls.decode, "prefill": L * m.admitted}
+    for P in calls.verify:
+        want[_path(cfg.n_heads, cfg.n_kv_heads, P)] += L
+    _check_launches(launches, "f32", want)
+    by_variant["f32"].update(want)
+    agree, compared, div = _near_tie_compare(params, cfg, s_on, s_off,
+                                             sp_prompts)
+    res["runs"]["spec_f32"] = {
+        "launches_by_path": want, "verify_calls_by_width": dict(
+            collections.Counter(calls.verify)),
+        "verify_paths": {P: _path(cfg.n_heads, cfg.n_kv_heads, P)
+                         for P in sorted(set(calls.verify))},
+        "tokens_agreeing_spec_on_vs_off": agree,
+        "tokens_compared": compared, "divergences_at_near_ties": div,
+        "draft_acceptance_rate": m.summary()["draft_acceptance_rate"],
+        "wall_s_on_off": [wall_on, wall_off]}
+    del on, params
+    torch.cuda.empty_cache()
+    res["launches_by_variant_and_path"] = {v: dict(c)
+                                           for v, c in by_variant.items()}
+    res["card"] = _smi()
+    _emit(res)
+    return res
 
 
 # ---------------------------------------------------------------------
@@ -3263,9 +3513,10 @@ MESH_RUNS = {
                       {"model": "llama_moe", "time_deterministic": True}),
     "llama_dp2pp2_1f1b_zero1": ([2, 2], ["dp", "pp"], 2, 8, "1f1b",
                                 "zero1_adamw", {"model": "llama"}),
-    # GPT-2 124M, 12 layers, 8 mlp experts a block, top-2
+    # GPT-2 124M, 8 mlp experts a block, top-2; cut to 6 layers since
+    # the serving mesh runs joined the mesh phase (script time)
     "gpt2_moe_ep2tp2": ([2, 2], ["ep", "tp"], 1, 8, "afab", "adamw",
-                        {"model": "gpt2_moe"}),
+                        {"model": "gpt2_moe", "layers": 6}),
     # sequence parallel: GPT-2 124M uncut at its 1,024 positions, 512 a
     # rank, in each mode; Llama-3.2-1B widths (4 layers) by Ulysses
     "sp2_ring": ([2], ["sp"], 2, 8, "afab", "adamw",
@@ -3388,7 +3639,8 @@ def _run_model(run):
             GPT2Config.base(), n_layer=opts.get("layers", 12))
     if kind == "gpt2_moe":
         return dataclasses.replace(GPT2Config.base(), n_experts=8,
-                                   expert_top_k=2, expert_capacity=tokens)
+                                   expert_top_k=2, expert_capacity=tokens,
+                                   n_layer=opts.get("layers", 12))
     cfg = dataclasses.replace(LlamaConfig.llama32_1b(), n_layers=4)
     if kind == "llama":
         return cfg
@@ -3955,6 +4207,324 @@ def _launches_by_dtype():
             for name in FLASH_KERNELS}
 
 
+# ---------------------------------------------------------------------
+# the serving meshes: one engine on every rank of a 2-rank world
+# ---------------------------------------------------------------------
+
+# name -> mesh, model, engine options, traffic. "short": SERVE_MESH_LENS
+# prompts, greedy and sampled; "document": serve_chunked's 1,000-token
+# document through sp = 2 chunks of 256 (128 positions a rank) while 3
+# streams decode. Each joins the 2-rank world of MESH_RUNS.
+# "gpt2_moe_drops" is serve_ep2's model at the default capacity factor:
+# its decode calls drop assignments, so dead rows and pad columns compete
+# with live tokens for expert slots (gated: the ranks agree bit for bit)
+SERVE_MESH_RUNS = {
+    "serve_tp2": ({"tp": 2}, "gpt2", {}, "short"),
+    "serve_tp2_llama": ({"tp": 2}, "llama", {}, "short"),
+    "serve_sp2": ({"sp": 2}, "gpt2", {
+        "sp_axis": "sp", "max_slots": 4, "max_seq_len": 1024,
+        "prefill_len": CHUNK_WINDOW, "chunked_prefill": True,
+        "prefill_chunk_budget": CHUNK_BUDGET}, "document"),
+    "serve_ep2": ({"ep": 2}, "gpt2_moe", {"ep_axis": "ep"}, "short"),
+    "serve_ep2_drops": ({"ep": 2}, "gpt2_moe_drops", {"ep_axis": "ep"},
+                        "short"),
+}
+# the kernels-line entry of each run's K4 launches by its rank's head
+# shape: a tp rank's own (tag, query heads, kv heads), timed at cases of
+# that shape; the rest (12 GPT-2 heads a rank) on GPT-2's lines
+SERVE_MESH_LINES = {"serve_tp2": ("tp2_gpt2", 6, 6),
+                    "serve_tp2_llama": ("tp2_llama", 16, 4)}
+SERVE_MESH_LENS, SERVE_MESH_NEW = (32, 200, 120, 57), 24
+SERVE_MESH_SEEDS = (300, 301, 302, 303)
+# the steady window each run times (host clock, synced) and profiles
+SERVE_MESH_WINDOW = 6
+
+
+def _serve_mesh_cfg(model):
+    """GPT-2 124M uncut; Llama-3.2-1B widths cut to 4 layers; GPT-2 124M
+    widths cut to 6 layers with 8 mlp experts a block, top-2, dropless
+    (capacity factor E / k = 4: C is each call's token count, so the
+    dense forward routes every token as the engine does) or,
+    "gpt2_moe_drops", at the default capacity factor 1.25."""
+    import dataclasses
+
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+    from quintnet_tpu_torch.models.llama import LlamaConfig
+
+    if model == "llama":
+        return dataclasses.replace(LlamaConfig.llama32_1b(), n_layers=4)
+    if model == "gpt2_moe":
+        return dataclasses.replace(GPT2Config.base(), n_layer=6,
+                                   n_experts=8, expert_top_k=2,
+                                   capacity_factor=4.0)
+    if model == "gpt2_moe_drops":
+        return dataclasses.replace(GPT2Config.base(), n_layer=6,
+                                   n_experts=8, expert_top_k=2)
+    return GPT2Config.base()
+
+
+def _serve_mesh_params(cfg, device):
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from quintnet_tpu_torch.models.llama import llama_init
+
+    gen = torch.Generator(device=device).manual_seed(0)
+    return (gpt2_init if isinstance(cfg, GPT2Config) else llama_init)(
+        gen, cfg)
+
+
+def _serve_mesh_traffic(name, cfg, params, device, mesh=None):
+    """One serving run's main paths on this rank (``mesh``) or on one
+    device (None): per mode a fresh engine, warmed, counts zeroed, the
+    traffic, counts read; then the steady window (``_serve_window``).
+    Returns a JSON-able report (streams as lists)."""
+    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family, \
+        llama_family
+
+    sizes, model, kw, traffic = SERVE_MESH_RUNS[name]
+    family = (llama_family if model == "llama" else gpt2_family)(cfg)
+    if mesh is None:
+        kw = {k: v for k, v in kw.items() if k not in ("sp_axis",
+                                                        "ep_axis")}
+    elif sizes.get("tp", 1) > 1:
+        params = _tp_layout(cfg, params, sizes["tp"])
+    mesh_kw = {"mesh": mesh} if mesh is not None else {}
+    L = _depth(cfg)
+    out = {"runs": {}}
+    modes = (("greedy", {}),) if traffic == "document" else (
+        ("greedy", {}), ("sampled", SAMPLED))
+    for mode, skw in modes:
+        eng = ServeEngine(family, params, device=device, **{
+            "max_slots": 8, "block_size": 16, "num_blocks": 320,
+            "max_seq_len": 512, **kw, **skw}, **mesh_kw)
+        eng.warmup()
+        _sync()
+        calls = _Calls(eng)
+        run = {}
+        if traffic == "document":
+            logits = {}
+            prefill = eng._prefill
+
+            def recorded(ids, start, t0, *a):
+                lg = prefill(ids, start, t0, *a)
+                if t0 == CHUNK_PROMPT:
+                    logits["doc"] = lg.detach().cpu()
+                return lg
+
+            eng._prefill = recorded
+            _zero_counts()
+            t0 = time.perf_counter()
+            streams, prompts, during, _after = _chunk_script(
+                eng, cfg, np.random.default_rng(23))
+            run["wall_s"] = time.perf_counter() - t0
+            run["document_last_logits"] = logits["doc"][0].tolist()
+            run["chunk_step_ms"] = [w * 1e3 for w, _, _ in during]
+            seeds = None
+        else:
+            rng = np.random.default_rng(41)
+            prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+                       for n in SERVE_MESH_LENS]
+            seeds = SERVE_MESH_SEEDS
+            _zero_counts()
+            streams, run["wall_s"] = _run_requests(
+                eng, prompts, [SERVE_MESH_NEW] * len(prompts), seeds)
+        launches = _launches()
+        m = eng.metrics
+        # sp prefill is the ring (plain attention): no K4 prefill
+        prefills = (0 if eng.sp_axis else m.prefill_chunks
+                    if eng.chunked_prefill else m.admitted)
+        want = {"decode": L * calls.decode, "prefill": L * prefills}
+        if torch.device(device).type == "cuda":   # the CPU launches none
+            _check_launches(launches, _variant(eng.pool), want)
+        summary = m.summary()
+        run.update({"streams": [x.tolist() for x in streams],
+                    "prompt_lens": [len(p) for p in prompts],
+                    "seeds": None if seeds is None else list(seeds),
+                    "launches_by_path": want, "steps": m.steps,
+                    "prefill_chunks": m.prefill_chunks,
+                    "moe": {k: (v if not isinstance(v, dict) else dict(v))
+                            for k, v in summary.items()
+                            if k.startswith("moe")}})
+        out["runs"][mode] = run
+        if mode == "greedy":
+            out.update(_serve_window(eng, cfg, mesh))
+        del eng
+        if torch.cuda.is_available():
+            torch.cuda.empty_cache()
+    return out
+
+
+def _serve_window(eng, cfg, mesh):
+    """A steady window of decode steps (8 rows of 100-token prompts):
+    ``SERVE_MESH_WINDOW`` steps timed with no profiler (host clock,
+    synced), then as many under ``torch.profiler`` with every collective
+    entered on a drained device (``core/collectives.communicate`` wrapped
+    with a synchronize), so the ``collective:*`` ranges time the
+    collectives alone: their share of the profiled steps, and K4's decode
+    kernels a step by symbol (n_layer)."""
+    from quintnet_tpu_torch.core import collectives as cc
+
+    n = SERVE_MESH_WINDOW
+    rng = np.random.default_rng(43)
+    for _ in range(eng.max_slots):
+        eng.submit(rng.integers(0, cfg.vocab_size, 100),
+                   (2 + PROFILED_WINDOWS) * n + 4)
+    eng.step()
+    eng.step()
+    _sync()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        eng.step()
+    wall = time.perf_counter() - t0
+    walls = []
+
+    def run():
+        t = time.perf_counter()
+        for _ in range(n):
+            eng.step()
+        _sync()
+        walls.append(time.perf_counter() - t)
+
+    communicate = cc.communicate
+
+    def drained(*args, **kwargs):
+        _sync()
+        return communicate(*args, **kwargs)
+
+    cc.communicate = drained
+    try:
+        prof, by_name = _profiled(
+            run, expect={PAGED_SYMBOLS["decode"]: _depth(cfg) * n},
+            agree=_any_rank if mesh is not None else None)
+    finally:
+        cc.communicate = communicate
+    eng.run()
+    coll = collections.Counter()
+    for e in prof.events():
+        if (e.device_type == torch.autograd.DeviceType.CPU
+                and e.name.startswith("collective:")):
+            coll[e.name] += e.cpu_time_total / 1e3
+    decode_k = sum(k for name, (_, k) in by_name.items()
+                   if PAGED_SYMBOLS["decode"] in name)
+    busy = sum(us for us, _ in by_name.values())
+    if busy > 0 and decode_k != _depth(cfg) * n:
+        raise AssertionError(f"profiler: {decode_k} K4 decode kernels over "
+                             f"{n} steps; expected {_depth(cfg) * n}")
+    return {"decode_step_ms": wall / n * 1e3,
+            "profiled_step_ms": walls[-1] / n * 1e3,
+            "collective_ms_per_step": {k: v / n for k, v in coll.items()},
+            "collective_share_of_profiled_step":
+                sum(coll.values()) / (walls[-1] * 1e3),
+            "k4_decode_kernels_profiled_per_step": decode_k / n}
+
+
+def _serve_mesh_run(rank, dev, name, model):
+    """One rank's part of a serving mesh run, in a joined world: the
+    run's mesh, the params of ``model`` (``_model_dict``) from seed 0 on
+    this rank's device, and :func:`_serve_mesh_traffic` on the mesh."""
+    from quintnet_tpu_torch.core.mesh import MeshSpec, build_mesh
+
+    sizes = SERVE_MESH_RUNS[name][0]
+    mesh = build_mesh(MeshSpec.create(**sizes))
+    cfg = _model_cfg(model)
+    params = _serve_mesh_params(cfg, dev)
+    # the ranks agree by the engine's own determinism, not by the
+    # deterministic mode ``_join_rank`` sets for the training runs
+    torch.use_deterministic_algorithms(False)
+    try:
+        out = _serve_mesh_traffic(name, cfg, params, dev, mesh)
+    finally:
+        torch.use_deterministic_algorithms(True)
+    out.update({"rank": rank, "coords": mesh.coords})
+    return out
+
+
+def _check_serve_mesh(name, ranks, ref, params, cfg):
+    """The gates of a serving mesh run: every rank's streams and routing
+    summary the same as every other rank's, bit for bit; each rank's
+    streams equal to one device's up to near-ties (the serve rule: tp
+    re-associates the head and MLP sums, sp the attention's, ep changes
+    the expert products' shapes); the document's last logits within 1e-4
+    (sp); the routing summary equal to one device's (ep, dropless). With
+    drops ("gpt2_moe_drops") one float-order flip of a routing decision
+    may move which assignments drop, far from any near-tie: one device's
+    engine is reported beside, and the traffic must drop. Returns its
+    JSON line."""
+    sizes, model, _, traffic = SERVE_MESH_RUNS[name]
+    res = {"phase": "mesh", "run": name, "mesh": sizes,
+           "model": _SERVE_MESH_MODELS[model], "traffic": traffic,
+           "one_device": {"decode_step_ms": ref["decode_step_ms"],
+                          "profiled_step_ms": ref["profiled_step_ms"]},
+           "runs": {}, "ranks": []}
+    drops = model == "gpt2_moe_drops"
+    for mode, want in ref["runs"].items():
+        first = ranks[0]["runs"][mode]
+        for r in ranks[1:]:
+            for key in ("streams", "moe"):
+                if r["runs"][mode][key] != first[key]:
+                    raise AssertionError(f"mesh {name} {mode}: ranks 0 and "
+                                         f"{r['rank']} differ in {key}")
+        got = [np.asarray(x, np.int32) for x in first["streams"]]
+        wst = [np.asarray(x, np.int32) for x in want["streams"]]
+        prompts = [x[:n] for x, n in zip(wst, want["prompt_lens"])]
+        if drops:
+            div = None
+            agree = compared = 0
+            for g, w, p in zip(got, wst, prompts):
+                d = np.nonzero(g[len(p):] != w[len(p):])[0]
+                agree += len(w) - len(p) if d.size == 0 else int(d[0])
+                compared += len(w) - len(p)
+        else:
+            agree, compared, div = _near_tie_compare(
+                params, cfg, got, wst, prompts, want["seeds"]
+                if mode == "sampled" else None)
+        run = {"tokens_agreeing_with_one_device": agree,
+               "tokens_compared": compared,
+               "divergences_at_near_ties": div,
+               "launches_by_path_a_rank": first["launches_by_path"],
+               "wall_s_a_rank": [r["runs"][mode]["wall_s"] for r in ranks],
+               "wall_s_one_device": want["wall_s"]}
+        if traffic == "document":
+            err = max(float(np.abs(np.asarray(
+                r["runs"][mode]["document_last_logits"])
+                - np.asarray(want["document_last_logits"])).max())
+                for r in ranks)
+            if not err <= 1e-4:
+                raise AssertionError(f"mesh {name}: the document's last "
+                                     f"logits differ by {err} (> 1e-4)")
+            run["document_last_logits_max_abs_err"] = err
+            run["chunk_step_ms_a_rank"] = first["chunk_step_ms"]
+            run["chunk_step_ms_one_device"] = want["chunk_step_ms"]
+        if first["moe"]:
+            same = first["moe"] == want["moe"]
+            if drops and not first["moe"]["moe_dropped_tokens"] > 0:
+                raise AssertionError(f"mesh {name} {mode}: no assignment "
+                                     f"dropped")
+            if not (same or drops):
+                raise AssertionError(
+                    f"mesh {name} {mode}: routing {first['moe']} != one "
+                    f"device's {want['moe']}")
+            run.update({"routing_summary": first["moe"],
+                        "routing_summary_equal_one_device": same})
+        res["runs"][mode] = run
+    for r in ranks:
+        res["ranks"].append({k: r[k] for k in (
+            "rank", "coords", "decode_step_ms", "profiled_step_ms",
+            "collective_ms_per_step", "collective_share_of_profiled_step",
+            "k4_decode_kernels_profiled_per_step")})
+    return res
+
+
+_SERVE_MESH_MODELS = {
+    "gpt2": "gpt2-124M (random init, seed 0)",
+    "llama": "Llama-3.2-1B widths cut to 4 layers (random init, seed 0)",
+    "gpt2_moe": "gpt2-124M widths cut to 6 layers, 8 mlp experts a "
+                "block, top-2, capacity factor 4 (dropless; random init, "
+                "seed 0)",
+    "gpt2_moe_drops": "gpt2-124M widths cut to 6 layers, 8 mlp experts a "
+                      "block, top-2, capacity factor 1.25 (random init, "
+                      "seed 0)"}
+
+
 def _mesh_rank(rank, world, store, run, host, ref_path, model, device,
                work=None):
     """One rank of a world that runs one mesh run (``_mesh_run``)."""
@@ -3984,7 +4554,9 @@ def _mesh_world(rank, world, store, device, jobs):
         out = {}
         for name, args in jobs:
             t0 = time.perf_counter()
-            report = _mesh_run(rank, dev, *args)
+            report = (_serve_mesh_run(rank, dev, name, *args)
+                      if name in SERVE_MESH_RUNS
+                      else _mesh_run(rank, dev, *args))
             gc.collect()
             if dev.type == "cuda":
                 torch.cuda.empty_cache()
@@ -4125,7 +4697,7 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
         if opts.get("time_deterministic"):
             # what deterministic mode costs: steps with it on and off in
             # turns (on, off, off, on: gloo's host staging drifts); off,
-            # the dispatch's and combine's index_add take atomics
+            # the dispatch's index_add and its backward take atomics
             times = {True: [], False: []}
             for det in (True, False, False, True):
                 torch.use_deterministic_algorithms(det)
@@ -4410,6 +4982,8 @@ def phase_mesh():
     from quintnet_tpu_torch.core import runtime
 
     counts = {"f32": collections.Counter(), "bf16": collections.Counter()}
+    # K4 by path of the serving ranks, by kernels-line entry
+    serve_paged = collections.defaultdict(collections.Counter)
     with tempfile.TemporaryDirectory() as tmp:
         refs = {}
         t0 = time.perf_counter()
@@ -4434,7 +5008,17 @@ def phase_mesh():
         finally:
             torch.use_deterministic_algorithms(False)
         torch.cuda.empty_cache()
+        # the serving runs' one-device references (and the params their
+        # near-tie checks read), on the card before the worlds start
+        serve_refs = {}
+        for name in SERVE_MESH_RUNS:
+            cfg = _serve_mesh_cfg(SERVE_MESH_RUNS[name][1])
+            params = _serve_mesh_params(cfg, DEVICE)
+            serve_refs[name] = (_serve_mesh_traffic(name, cfg, params,
+                                                    DEVICE), params, cfg)
+            torch.cuda.empty_cache()
         _emit({"phase": "mesh", "references": len(refs),
+               "serve_references": len(serve_refs),
                "references_s": round(time.perf_counter() - t0, 3)})
         probe = runtime.spawn_world(_probe_rank, 2, "cuda:0", timeout=120)
         _emit({"phase": "mesh", "check": "gloo collectives on CUDA "
@@ -4460,6 +5044,10 @@ def phase_mesh():
                 os.makedirs(work, exist_ok=True)
                 jobs.append((name, (run, host, path,
                                     _model_dict(_run_model(run)), work)))
+            if world == 2:              # the serving runs join this world
+                names = names + list(SERVE_MESH_RUNS)
+                jobs += [(name, (_model_dict(serve_refs[name][2]),))
+                         for name in SERVE_MESH_RUNS]
             print(f"mesh {', '.join(names)}: backend {MESH_BACKEND}, world "
                   f"size {world}, every rank on cuda:0, one world",
                   flush=True)
@@ -4468,8 +5056,19 @@ def phase_mesh():
                                       timeout=MESH_TIMEOUT_S)
             wall = time.perf_counter() - t0
             for name in names:
-                run = MESH_RUNS[name]
                 ranks = [g[name][0] for g in got]
+                if name in SERVE_MESH_RUNS:
+                    ref, params, cfg = serve_refs[name]
+                    res = _check_serve_mesh(name, ranks, ref, params, cfg)
+                    res.update({"run_wall_s": got[0][name][1],
+                                "world_wall_s": wall, "card": _smi()})
+                    _emit(res)
+                    for r in ranks:
+                        for run in r["runs"].values():
+                            tag = SERVE_MESH_LINES.get(name, ("",))[0]
+                            serve_paged[tag].update(run["launches_by_path"])
+                    continue
+                run = MESH_RUNS[name]
                 res = _check_mesh_run(name, run, ranks,
                                       refs[_ref_key(run)][2],
                                       _run_model(run))
@@ -4478,7 +5077,10 @@ def phase_mesh():
                 res["world_runs"] = names
                 _emit(res)
                 _add_launches(counts, ranks)
-    return {dt: dict(c) for dt, c in counts.items()}
+        del serve_refs
+    out = {dt: dict(c) for dt, c in counts.items()}
+    out["serve_paged"] = {k: dict(c) for k, c in serve_paged.items()}
+    return out
 
 
 def _check_resume_run(name, run, ranks, n_layer):
@@ -4745,6 +5347,7 @@ def main() -> int:
                           f32_streams)
     del params
     torch.cuda.empty_cache()
+    llama_serve = timed("serve_llama", phase_serve_llama)
     train_res, train_counts = timed("train", phase_train)
     _res, lora_counts = timed("lora_train", phase_lora_train)
     _res, bf16_counts = timed("train_bf16", phase_train_bf16,
@@ -4773,11 +5376,13 @@ def main() -> int:
     # variant's serve run, timed at the decode shape or at prefill P = 128
     # (start 0); the train micro-batch for flash attention
     # the f32 pool's launches: the greedy and the sampled serve runs, the
-    # spec-on runs (verify by its width's path) and the chunked and
-    # widened document runs
+    # spec-on runs (verify by its width's path), the chunked and widened
+    # document runs and the serving mesh ranks of GPT-2's 12 heads (sp2,
+    # ep2)
+    serve_paged = mesh_counts["serve_paged"]
     f32_runs = ([serve_res["launches_by_path"],
                  sampled_res["launches_by_path"],
-                 spec_res["launches_by_path"]]
+                 spec_res["launches_by_path"], serve_paged.get("", {})]
                 + [r["launches_by_path"] for r in chunk_res["runs"].values()])
     runs = {_variant_of(serve_res["launches_by_variant"]): {
         "by_path": {path: sum(r.get(path, 0) for r in f32_runs)
@@ -4788,13 +5393,33 @@ def main() -> int:
     for variant, launches in runs.items():
         for path in PAGED_SYMBOLS:
             rows = [r for r in paged_rows if r["variant"] == variant
-                    and r["path"] == path]
+                    and r["path"] == path and not r["line"]]
             head = next(r for r in rows if r["main"] == path)
             kernels.append(entry(
                 f"paged_attention[{variant}, {path}]",
                 "quintnet_tpu_torch/ops/csrc/paged_attention.cu",
                 "quintnet_tpu/ops/paged_attention.py:91",
                 launches["by_path"].get(path, 0), rows, head))
+    # the serving slice's shapes: Llama-3.2-1B's GQA (launches of the
+    # serve_llama runs) and a tp2 rank's heads (both ranks' K4 launches
+    # in serve_tp2, in serve_tp2_llama), each timed at its case ("line")
+    by_line = {("f32", tag): launches
+               for tag, launches in serve_paged.items() if tag}
+    for variant, launches in llama_serve[
+            "launches_by_variant_and_path"].items():
+        by_line[(variant, "llama_gqa4")] = launches
+    for (variant, tag), launches in by_line.items():
+        for path in PAGED_SYMBOLS:
+            rows = [r for r in paged_rows if r["line"] == tag
+                    and r["variant"] == variant and r["path"] == path]
+            if not rows:
+                continue
+            kernels.append(entry(
+                f"paged_attention[{variant}, {path}, {tag}]",
+                "quintnet_tpu_torch/ops/csrc/paged_attention.cu",
+                "quintnet_tpu/ops/paged_attention.py:91",
+                launches.get(path, 0), rows,
+                next(r for r in rows if r["main"] == path)))
     for name, replaces in FLASH_KERNELS.items():
         for tag, launches in (("", train_counts[name] + resume_counts[name]
                                + lora_counts[name]

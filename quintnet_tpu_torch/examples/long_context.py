@@ -34,9 +34,15 @@ for token against an engine whose window was widened to hold it::
     python -m quintnet_tpu_torch.examples.long_context --serve --device cpu
     python -m quintnet_tpu_torch.examples.long_context --serve   # the card
 
-``--serve --simulate N`` with N > 1 (the chunks' attention sequence
-parallel over N devices) raises ``NotImplementedError``: sp prefill is
-ROADMAP.md §1, item 7.
+With ``--serve --simulate N`` the chunks also run sequence-parallel:
+N ranks (gloo) each serve the same request on an ``sp`` mesh of N, every
+chunk split over them and attended by the ring over the paged pool
+(``nn/attention.ring_paged_prefill``)::
+
+    python -m quintnet_tpu_torch.examples.long_context --serve --device cpu \
+        --simulate 2
+    python -m quintnet_tpu_torch.examples.long_context --serve \
+        --device cuda:0 --backend gloo --simulate 2      # the card
 """
 
 from __future__ import annotations
@@ -45,8 +51,6 @@ import argparse
 import time
 
 from quintnet_tpu_torch.examples.common import add_launch_args, launch
-
-SERVE_ITEM = "ROADMAP.md §1, item 7 ('Serving features')"
 
 
 def main(argv=None):
@@ -66,17 +70,12 @@ def main(argv=None):
     ap.add_argument("--serve-new", type=int, default=8,
                     help="--serve generated tokens")
     ap.add_argument("--simulate", type=int, default=None,
-                    help="--serve: devices the chunks' attention is "
-                         "sequence-parallel over (only 1 is ported)")
+                    help="--serve: ranks the chunks' attention is "
+                         "sequence-parallel over (an sp mesh of N)")
     add_launch_args(ap)
     args = ap.parse_args(argv)
     if args.serve:
-        if (args.simulate or 1) > 1:
-            raise NotImplementedError(
-                "--serve --simulate N > 1 runs each chunk's attention "
-                "sequence-parallel (ring_paged_prefill), which is not "
-                f"ported yet ({SERVE_ITEM}: sp prefill)")
-        return serve_demo(args)
+        return launch(serve_demo, args, args.simulate or 1)
 
     from quintnet_tpu_torch.core.config import Config
 
@@ -89,43 +88,51 @@ def main(argv=None):
 
 
 def serve_demo(args):
-    """One long prompt through the chunked engine, then through an
-    engine whose prefill window holds it whole: the same tokens. Returns
-    the generated tokens."""
+    """One long prompt through the chunked engine (on every rank of an
+    sp mesh of ``--simulate`` ranks when that is above 1), then through
+    an engine whose prefill window holds it whole: the same tokens.
+    Returns the generated tokens."""
     import numpy as np
     import torch
 
+    from quintnet_tpu_torch.core import runtime
+    from quintnet_tpu_torch.core.mesh import mesh_from_sizes
     from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
     from quintnet_tpu_torch.serve import ServeEngine, generate, gpt2_family
 
+    print_ = print if runtime.is_main_process() else (lambda *a: None)
+    sp = args.simulate or 1
+    device = runtime.device() if runtime.is_multiprocess() else args.device
     cfg = GPT2Config.tiny(n_layer=2, n_positions=1024)
-    gen = torch.Generator(device=args.device).manual_seed(0)
+    gen = torch.Generator(device=device).manual_seed(0)
     params = gpt2_init(gen, cfg)
     family = gpt2_family(cfg)
     prompt = np.random.default_rng(0).integers(
         0, cfg.vocab_size, (args.serve_prompt,)).astype(np.int32)
     window = budget = 64
-    kw = dict(device=args.device, max_slots=4, block_size=16,
+    kw = dict(device=device, max_slots=4, block_size=16,
               num_blocks=128, max_seq_len=cfg.n_positions)
+    mesh_kw = ({"mesh": mesh_from_sizes(sp=sp), "sp_axis": "sp"}
+               if sp > 1 else {})
     chunked = ServeEngine(family, params, prefill_len=window,
                           chunked_prefill=True, prefill_chunk_budget=budget,
-                          **kw)
-    print(f"prompt {len(prompt)} tokens vs prefill window {window} (top "
-          f"bucket {chunked.prefill_buckets[-1]}), chunk budget "
-          f"{budget}/step, device {chunked.device}")
+                          **kw, **mesh_kw)
+    print_(f"prompt {len(prompt)} tokens vs prefill window {window} (top "
+           f"bucket {chunked.prefill_buckets[-1]}), chunk budget "
+           f"{budget}/step, sp={sp}, device {chunked.device}")
     t0 = time.perf_counter()
     out = generate(chunked, [prompt], max_new_tokens=args.serve_new,
                    seeds=[1], max_steps=2000)[0]
     dt = time.perf_counter() - t0
     m = chunked.metrics
-    print(f"served in {m.steps} engine steps / {dt:.2f}s: "
-          f"{m.prefill_chunks} chunks, {m.chunk_tokens_per_step:.1f} chunk "
-          f"tokens/step (<= {budget} by construction)")
+    print_(f"served in {m.steps} engine steps / {dt:.2f}s: "
+           f"{m.prefill_chunks} chunks, {m.chunk_tokens_per_step:.1f} "
+           f"chunk tokens/step (<= {budget} by construction)")
     want = generate(ServeEngine(family, params, **kw), [prompt],
                     max_new_tokens=args.serve_new, seeds=[1])[0]
     same = bool(np.array_equal(out, want))
-    print(f"identical to the widened single-shot engine: {same}")
-    print("generated:", out[len(prompt):].tolist())
+    print_(f"identical to the widened single-shot engine: {same}")
+    print_("generated:", out[len(prompt):].tolist())
     if not same:
         raise SystemExit("chunked output diverged from single-shot")
     return out[len(prompt):]

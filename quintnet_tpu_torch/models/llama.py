@@ -1,8 +1,8 @@
-"""Llama-family causal LM (RMSNorm, rotary, SwiGLU, GQA): training and the
-dense KV-cache blocks.
+"""Llama-family causal LM (RMSNorm, rotary, SwiGLU, GQA): training, the
+dense KV-cache blocks and the paged serving blocks.
 
-Port of ``quintnet_tpu/models/llama.py`` without its paged serving paths
-and its Hugging Face interop. Parameters keep the JAX pytree layout::
+Port of ``quintnet_tpu/models/llama.py`` without its Hugging Face
+interop. Parameters keep the JAX pytree layout::
 
     {"embedding": {"tok": [V, D]},
      "blocks": {"ln1": {"scale"}, "attn": {"q", "k", "v", "o": {"w"}},
@@ -27,13 +27,17 @@ fused-QKV reblocking, so the tp layout is the identity.
 
 :func:`llama_block_prefill` and :func:`llama_block_decode`'s dense branch
 carry the generation decoders (``models/llama_generate.py``); the cache
-stays UNrepeated ([B, Hkv, T, hd]) and is repeated on read.
+stays UNrepeated ([B, Hkv, T, hd]) and is repeated on read. The paged
+blocks (:func:`llama_block_prefill_paged`,
+:func:`llama_block_verify_paged`, :func:`llama_block_decode` with a
+block table, and the sequence-parallel
+:func:`llama_block_prefill_paged_sp`) carry the serving engine
+(``serve/families.llama_family``): the pool holds the UNrepeated kv
+heads and ``ops.paged_attention`` takes the GQA group itself, so nothing
+is repeated on the pool or on the kernel's inputs.
 
 Not ported, each raising ``NotImplementedError`` naming its ROADMAP.md
-place: the paged serving paths (``llama_block_prefill_paged*``,
-``llama_block_verify_paged``, ``llama_block_decode`` with a block
-table: §1, item 7), the
-HF interop (``llama_from_hf_state``, ``llama_to_hf_state``,
+place: the HF interop (``llama_from_hf_state``, ``llama_to_hf_state``,
 ``LlamaConfig.from_hf_config``: §1, item 9) and ``remat="dots"`` (§2).
 ``vocab_parallel`` under tp shards ``tok``'s rows (and an untied head's
 columns) over the tp ranks, as GPT-2's (``models/gpt2.clm_loss_vp``).
@@ -56,7 +60,11 @@ from quintnet_tpu_torch.models.gpt2 import (_vp_loss, vocab_axis,
                                             segment_ids_from_input,
                                             sp_head_loss)
 from quintnet_tpu_torch.nn.attention import (apply_rope,
-                                             dense_cache_attend, repeat_kv,
+                                             dense_cache_attend,
+                                             paged_attend_decode,
+                                             paged_attend_prefill,
+                                             paged_attend_verify, repeat_kv,
+                                             ring_paged_prefill,
                                              rope_cos_sin, sdpa,
                                              sp_attention)
 from quintnet_tpu_torch.nn.layers import (cast_floating, keep_router_f32,
@@ -70,7 +78,6 @@ from quintnet_tpu_torch.ops.flash_attention import flash_attention
 from quintnet_tpu_torch.parallel.tp import (row_parallel_linear,
                                             vocab_parallel_embedding)
 
-SERVING_ITEM = "ROADMAP.md §1, item 7 ('Serving features')"
 HF_ITEM = "ROADMAP.md §1, item 9 ('Analysis, data and tools')"
 
 
@@ -180,21 +187,6 @@ def llama_to_hf_state(params, cfg: LlamaConfig):
     raise NotImplementedError(
         f"exporting to a Hugging Face Llama state dict is not ported yet "
         f"({HF_ITEM})")
-
-
-def _serving_not_ported(name):
-    def fn(*args, **kwargs):
-        raise NotImplementedError(
-            f"{name} (Llama serving) is not ported yet ({SERVING_ITEM})")
-
-    fn.__name__ = name
-    return fn
-
-
-llama_block_prefill_paged = _serving_not_ported("llama_block_prefill_paged")
-llama_block_prefill_paged_sp = _serving_not_ported(
-    "llama_block_prefill_paged_sp")
-llama_block_verify_paged = _serving_not_ported("llama_block_verify_paged")
 
 
 def llama3_scaled_inv_freq(cfg: LlamaConfig, device=None):
@@ -321,15 +313,19 @@ def llama_attn_residual(p_attn, x, o, *, tp_axis=None):
 
 
 def llama_mlp_residual(p, x, cfg: LlamaConfig, *, tp_axis=None,
-                       ep_axis=None):
-    """-> (x + FFN(ln2(x)), moe aux), the aux 0 for a dense block."""
+                       ep_axis=None, return_stats: bool = False):
+    """-> (x + FFN(ln2(x)), moe aux), the aux 0 for a dense block; with
+    ``return_stats`` also the MoE routing stats (None for a dense
+    block)."""
     h = rms_norm_apply(p["ln2"], x, eps=cfg.rms_eps)
     if "moe" in p:
-        y, aux = moe_apply(p["moe"], h, cfg.moe_args, ep_axis=ep_axis,
-                           tp_axis=tp_axis)
-        return x + y, aux
-    return (x + swiglu_apply(p["mlp"], h, tp_axis=tp_axis),
-            x.new_zeros((), dtype=torch.float32))
+        y, aux, *stats = moe_apply(p["moe"], h, cfg.moe_args,
+                                   ep_axis=ep_axis, tp_axis=tp_axis,
+                                   return_stats=return_stats)
+        return (x + y, aux, *stats)
+    out = (x + swiglu_apply(p["mlp"], h, tp_axis=tp_axis),
+           x.new_zeros((), dtype=torch.float32))
+    return (*out, None) if return_stats else out
 
 
 def llama_block_apply(p, x, cfg: LlamaConfig, *, cos, sin, tp_axis=None,
@@ -375,22 +371,35 @@ def llama_block_prefill(p, x, cfg: LlamaConfig, cos, sin, tp_axis=None):
 
 
 def llama_block_decode(p, x, kc, vc, pos, cfg: LlamaConfig, cos, sin,
-                       tp_axis=None, block_tables=None, block_size=None,
-                       kv_scales=None, policy=None):
-    """One cached token: ``x`` [B, 1, D], caches [B, Hkv(/tp), T, hd]
-    UNrepeated, ``pos`` the host write position, ``cos``/``sin`` the
-    rope tables at ``pos`` -> (x, (kc, vc)), the caches written in
-    place. The kv heads are repeated on read; the query attends to
-    positions ``<= pos`` (plain attention, as the JAX dense branch). The
-    paged branch (``block_tables``: Llama serving) is not ported
-    (ROADMAP.md §1, item 7)."""
-    if block_tables is not None or kv_scales is not None:
-        raise NotImplementedError(
-            f"llama_block_decode over the paged pool (Llama serving) is "
-            f"not ported yet ({SERVING_ITEM})")
+                       tp_axis=None, ep_axis=None, block_tables=None,
+                       block_size=None, kv_scales=None, policy=None):
+    """One cached token: ``x`` [B, 1, D] -> (x, caches).
+
+    Dense (``block_tables=None``, the generation decoders): caches [B,
+    Hkv(/tp), T, hd] UNrepeated, ``pos`` the host write position,
+    ``cos``/``sin`` the rope tables at ``pos``; the caches are written in
+    place and repeated on read, the query attends to positions ``<=
+    pos`` (plain attention, as the JAX dense branch) -> (x, (kc, vc)).
+
+    Paged (``block_tables`` [B, M], the serving engine): caches are flat
+    pool views [N_blocks*block_size, Hkv(/tp), hd] of UNrepeated kv
+    heads, ``pos`` [B] int32 per-row positions, ``cos``/``sin`` [B, 1,
+    1, hd] per-row rope tables; ``ops.paged_attention`` takes the GQA
+    group. ``kv_scales``/``policy``: a scaled KV layout
+    (``serve/kv_quant.py``). ``ep_axis``: a MoE block's experts sharded
+    over ep. -> (x, (kc, vc[, k_scale, v_scale][, moe_stats]))."""
     tp = 1 if tp_axis is None else tp_axis.size
     a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
     q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    if block_tables is not None:
+        o, *pools = paged_attend_decode(
+            q, k, v, kc, vc, pos, block_tables=block_tables,
+            block_size=block_size, kv_scales=kv_scales, policy=policy)
+        return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis)
+    if kv_scales is not None:
+        raise ValueError(
+            "scaled KV layout policies exist only for the paged pool "
+            "(block_tables is required)")
     kc[:, :, pos] = k[:, :, 0].to(kc.dtype)
     vc[:, :, pos] = v[:, :, 0].to(vc.dtype)
     rep = q.shape[1] // kc.shape[1]
@@ -398,6 +407,78 @@ def llama_block_decode(p, x, kc, vc, pos, cfg: LlamaConfig, cos, sin,
     x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis)
     x, _aux = llama_mlp_residual(p, x, cfg, tp_axis=tp_axis)
     return x, (kc, vc)
+
+
+def _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis):
+    """The paged blocks' tail: o projection and residual, the FFN, and
+    (x, pools[ + (moe stats,)])."""
+    x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis)
+    x, _aux, stats = llama_mlp_residual(p, x, cfg, tp_axis=tp_axis,
+                                        ep_axis=ep_axis, return_stats=True)
+    return x, (tuple(pools) if stats is None else (*pools, stats))
+
+
+def llama_block_prefill_paged(p, x, kc, vc, positions, tail_len,
+                              cfg: LlamaConfig, cos, sin, tp_axis=None,
+                              ep_axis=None, block_tables=None,
+                              block_size=None, kv_scales=None, policy=None):
+    """Chunked prefill over the paged pool (the serve engine's
+    prefix-cached path): x [1, P, D] tail hidden states at absolute
+    ``positions`` [P], caches flat pool views [N_blocks*block_size,
+    Hkv(/tp), hd]; ``cos``/``sin`` [P, hd] at the SAME positions. The
+    tail's UNrepeated (k, v) go through the request's table row
+    ``block_tables`` [M] and each query attends causally to the whole row
+    (``nn/attention.paged_attend_prefill``). -> (x, (kc, vc[, k_scale,
+    v_scale][, moe_stats]))."""
+    tp = 1 if tp_axis is None else tp_axis.size
+    a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
+    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    o, *pools = paged_attend_prefill(
+        q, k, v, kc, vc, positions, tail_len, block_tables=block_tables,
+        block_size=block_size, kv_scales=kv_scales, policy=policy)
+    return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis)
+
+
+def llama_block_prefill_paged_sp(p, x, kc, vc, start: int, t0: int,
+                                 cfg: LlamaConfig, cos, sin, *, sp_axis,
+                                 tp_axis=None, block_tables=None,
+                                 block_size=None, kv_scales=None,
+                                 policy=None):
+    """Sequence-parallel chunked prefill block: x [1, Pl, D] is this sp
+    rank's slice of the chunk, ``cos``/``sin`` [Pl, hd] at the rank's
+    absolute positions (``start + rank*Pl + arange(Pl)``). Attention is
+    ``nn/attention.ring_paged_prefill`` (the UNrepeated K/V on the wire,
+    one all-gather for the sp-replicated pool write). -> (x, (kc, vc[,
+    k_scale, v_scale]))."""
+    tp = 1 if tp_axis is None else tp_axis.size
+    a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
+    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    o, *pools = ring_paged_prefill(
+        q, k, v, start, t0, kc, vc, sp_axis=sp_axis,
+        block_tables=block_tables, block_size=block_size,
+        kv_scales=kv_scales, policy=policy)
+    x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis)
+    x, _aux = llama_mlp_residual(p, x, cfg, tp_axis=tp_axis)
+    return x, tuple(pools)
+
+
+def llama_block_verify_paged(p, x, kc, vc, positions, tail_lens,
+                             cfg: LlamaConfig, cos, sin, tp_axis=None,
+                             ep_axis=None, block_tables=None,
+                             block_size=None, kv_scales=None, policy=None):
+    """Batched draft-verify block step over the paged pool: x [S, P, D]
+    per-slot runs at absolute ``positions`` [S, P], ``cos``/``sin`` [S,
+    1, P, hd] at the same positions, ``block_tables`` [S, M]; columns at
+    or beyond ``tail_lens[s]`` are pad (``nn/attention.
+    paged_attend_verify``). -> (x, (kc, vc[, k_scale, v_scale][,
+    moe_stats]))."""
+    tp = 1 if tp_axis is None else tp_axis.size
+    a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
+    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    o, *pools = paged_attend_verify(
+        q, k, v, kc, vc, positions, tail_lens, block_tables=block_tables,
+        block_size=block_size, kv_scales=kv_scales, policy=policy)
+    return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis)
 
 
 def _positions(b, s, device, sp_axis=None):

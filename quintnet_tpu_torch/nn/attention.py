@@ -1,8 +1,8 @@
 """Multi-head attention: the dense causal path and the paged serving path.
 
 Port of ``quintnet_tpu/nn/attention.py`` (tp; sp in training: ring,
-zigzag and Ulysses), with Llama's rotary tables and GQA's
-``repeat_kv``.
+zigzag and Ulysses; sp in serving: the ring over the paged pool), with
+Llama's rotary tables and GQA's ``repeat_kv``.
 The dense half (:func:`sdpa`, :func:`mha_apply`) is the training and
 eval forward: plain attention, or with ``use_flash`` the
 ``ops.flash_attention`` dispatcher (the flash kernels on the card);
@@ -15,7 +15,12 @@ writes a
 run's K/V through the block table into the flat pool views and reads
 the row back through ``ops.paged_attention.paged_attention`` — the
 CUDA kernel on the card, the gathered-view math on the CPU. There is
-no ``attn_kernel`` switch.
+no ``attn_kernel`` switch. Under ``tp_axis`` (a
+:class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) every paged function
+works on this rank's heads of a head-sharded pool, and the output
+projection is row-parallel with one sum over tp.
+:func:`ring_paged_prefill` (sequence-parallel prefill over ``sp_axis``)
+runs plain attention, as JAX's ring does: no kernel.
 
 Pool writes are IN PLACE: ``k_cache``/``v_cache`` are views of the
 engine's ``[L, slots, H, Dh]`` pool tensors and are updated where they
@@ -38,7 +43,8 @@ from quintnet_tpu_torch.ops.flash_attention import flash_attention
 # keeps them
 from quintnet_tpu_torch.ops.paged_attention import (  # noqa: F401
     _gather_kv, paged_attention, paged_gather, paged_gather_dequant,
-    paged_gather_scales, paged_quant_window_update, store_rows)
+    last_null_rows, paged_gather_scales, paged_quant_window_update,
+    store_rows)
 from quintnet_tpu_torch.parallel.tp import row_parallel_linear
 
 
@@ -200,11 +206,12 @@ def paged_cache_update(k_cache, v_cache, k, v, pos, *, block_tables,
     """Write one token's (k, v) [B, H, Dh] per row at that row's
     position ``pos`` [B] through ``block_tables`` [B, M], narrowed to the
     pool's dtype. Inactive rows carry an all-zero table row and pos 0:
-    their writes land in the null block 0, which nobody reads. In
-    place."""
+    their writes land in the null block's row 0 (the last such row's
+    values, :func:`last_null_rows`), which only they read. In place."""
     pos = pos.long()
     blk = block_tables.gather(1, (pos // block_size)[:, None])[:, 0].long()
     idx = blk * block_size + pos % block_size
+    k, v = last_null_rows(idx, k, v)
     store_rows(k_cache, idx, k.to(k_cache.dtype))
     store_rows(v_cache, idx, v.to(v_cache.dtype))
     return k_cache, v_cache
@@ -215,7 +222,8 @@ def paged_prefill_update(k_cache, v_cache, k, v, positions, tail_len, *,
     """Write one request's tail (k, v) [H, P, Dh] at absolute
     ``positions`` [P] through its table row ``block_tables`` [M]. Pad
     columns (index >= ``tail_len``) and positions past the table go to
-    the null block. In place."""
+    the null block (the last pad column's values, :func:`last_null_rows`).
+    In place."""
     P = positions.shape[0]
     positions = positions.long()
     blk_idx = (positions // block_size).clamp(0, block_tables.shape[0] - 1)
@@ -224,8 +232,9 @@ def paged_prefill_update(k_cache, v_cache, k, v, positions, tail_len, *,
                       block_tables.long()[blk_idx] * block_size
                       + positions % block_size,
                       torch.zeros_like(positions))
-    store_rows(k_cache, idx, k.transpose(0, 1).to(k_cache.dtype))
-    store_rows(v_cache, idx, v.transpose(0, 1).to(v_cache.dtype))
+    k, v = last_null_rows(idx, k.transpose(0, 1), v.transpose(0, 1))
+    store_rows(k_cache, idx, k.to(k_cache.dtype))
+    store_rows(v_cache, idx, v.to(v_cache.dtype))
     return k_cache, v_cache
 
 
@@ -234,7 +243,8 @@ def paged_verify_update(k_cache, v_cache, k, v, positions, tail_lens, *,
     """Write EVERY row's short run (k, v) [S, H, P, Dh] at ``positions``
     [S, P] (``start_s + arange(P)``) through ``block_tables`` [S, M] in
     one scatter. Columns at or beyond a row's ``tail_lens[s]`` (pad,
-    inactive rows) go to the null block. In place."""
+    inactive rows) go to the null block (the last such column's values,
+    :func:`last_null_rows`). In place."""
     S, P = positions.shape
     M = block_tables.shape[1]
     positions = positions.long()
@@ -245,10 +255,10 @@ def paged_verify_update(k_cache, v_cache, k, v, positions, tail_lens, *,
     idx = torch.where(live, blk * block_size + positions % block_size,
                       torch.zeros_like(positions)).reshape(S * P)
     H, Dh = k.shape[1], k.shape[3]
-    store_rows(k_cache, idx,
-               k.transpose(1, 2).reshape(S * P, H, Dh).to(k_cache.dtype))
-    store_rows(v_cache, idx,
-               v.transpose(1, 2).reshape(S * P, H, Dh).to(v_cache.dtype))
+    k, v = last_null_rows(idx, k.transpose(1, 2).reshape(S * P, H, Dh),
+                          v.transpose(1, 2).reshape(S * P, H, Dh))
+    store_rows(k_cache, idx, k.to(k_cache.dtype))
+    store_rows(v_cache, idx, v.to(v_cache.dtype))
     return k_cache, v_cache
 
 
@@ -280,70 +290,262 @@ def _paged_attention_scaled(policy, k_cache, v_cache, ks, vs, q, k, v,
     return o, k_cache, v_cache, ks, vs
 
 
-def _paged_out(p, o, pools):
-    """proj of the merged heads, then the pools the caller hands back:
+def _paged_out(p, o, pools, tp_axis=None):
+    """proj of the merged heads (row-parallel under ``tp_axis``: one sum
+    over tp before the bias), then the pools the caller hands back:
     (y, k, v) passthrough, (y, k, v, k_scale, v_scale) scaled."""
-    return (linear_apply(p["proj"], _merge_heads(o)), *pools)
+    return (row_parallel_linear(p["proj"], _merge_heads(o), axis=tp_axis),
+            *pools)
 
 
-def mha_prefill_paged(p, x, k_cache, v_cache, positions, tail_len, *,
-                      num_heads: int, block_tables, block_size: int,
-                      kv_scales=None, policy=None):
-    """Chunked prefill over the paged pool for ONE request: ``x``
-    [1, P, D] tail hidden states at ``positions`` (``start +
-    arange(P)``, int32). Each tail query attends causally to the whole
-    row — cached prefix plus fresh tail — through the paged-attention
-    kernel. Passthrough pools take the tail's K/V first and the kernel
-    reads it back; under a scaled policy (``kv_scales`` = this layer's
-    (k_scale, v_scale), ``policy``) the kernel reads the pre-write pool
-    with the fresh run overriding it, then the touched blocks are
-    requantized. Returns (y [1, P, D], k_cache, v_cache[, k_scale,
-    v_scale])."""
-    q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+def paged_attend_prefill(q, k, v, k_cache, v_cache, positions, tail_len,
+                         *, block_tables, block_size: int, kv_scales=None,
+                         policy=None):
+    """The pool half of a one-request prefill: ``q`` [1, Hq, P, Dh] and
+    the tail's UNrepeated ``k``/``v`` [1, Hkv, P, Dh] at ``positions``
+    [P] (``start + arange(P)``, int32), ``block_tables`` [M] its table
+    row. Each query attends causally to the whole row (cached prefix
+    plus fresh tail) through ``ops.paged_attention``, which takes the GQA
+    group itself. Passthrough pools take the tail's K/V first and the
+    kernel reads it back; under a scaled policy (``kv_scales`` = this
+    layer's (k_scale, v_scale), ``policy``) the kernel reads the
+    pre-write pool with the fresh run overriding it, then the touched
+    blocks are requantized. The kernel takes contiguous q and runs
+    (Llama's come transposed). Returns (o [1, Hq, P, Dh], k_cache,
+    v_cache[, k_scale, v_scale])."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
     tables = block_tables[None]
     if kv_scales is None:
         paged_prefill_update(k_cache, v_cache, k[0], v[0], positions,
                              tail_len, block_tables=block_tables,
                              block_size=block_size)
-        o = paged_attention(q, k_cache, v_cache, tables, positions[:1],
-                            block_size=block_size)
-        return _paged_out(p, o, (k_cache, v_cache))
+        return (paged_attention(q, k_cache, v_cache, tables, positions[:1],
+                                block_size=block_size), k_cache, v_cache)
     lens = torch.full((1,), int(tail_len), dtype=torch.int32,
                       device=positions.device)
-    o, *pools = _paged_attention_scaled(
+    return _paged_attention_scaled(
         policy, k_cache, v_cache, *kv_scales, q, k, v, positions[None, :],
         lens, tables, block_size=block_size,
         max_blocks=_quant_span(positions.shape[0], block_size,
                                block_tables.shape[0]))
-    return _paged_out(p, o, pools)
+
+
+def paged_attend_verify(q, k, v, k_cache, v_cache, positions, tail_lens,
+                        *, block_tables, block_size: int, kv_scales=None,
+                        policy=None):
+    """:func:`paged_attend_prefill` batched over rows: ``q`` [S, Hq, P,
+    Dh], runs ``k``/``v`` [S, Hkv, P, Dh] at ``positions`` [S, P],
+    ``block_tables`` [S, M]; columns at or beyond ``tail_lens[s]`` are
+    pad (their writes go to the null block)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if kv_scales is None:
+        paged_verify_update(k_cache, v_cache, k, v, positions, tail_lens,
+                            block_tables=block_tables,
+                            block_size=block_size)
+        return (paged_attention(q, k_cache, v_cache, block_tables,
+                                positions[:, 0].contiguous(),
+                                block_size=block_size), k_cache, v_cache)
+    return _paged_attention_scaled(
+        policy, k_cache, v_cache, *kv_scales, q, k, v, positions, tail_lens,
+        block_tables, block_size=block_size,
+        max_blocks=_quant_span(positions.shape[1], block_size,
+                               block_tables.shape[1]))
+
+
+def paged_attend_decode(q, k, v, k_cache, v_cache, pos, *, block_tables,
+                        block_size: int, kv_scales=None, policy=None):
+    """One token a row: ``q`` [S, Hq, 1, Dh], ``k``/``v`` [S, Hkv, 1,
+    Dh] at ``pos`` [S] int32; a scaled decode requantizes one block a
+    row (``max_blocks=1``)."""
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if kv_scales is None:
+        paged_cache_update(k_cache, v_cache, k[:, :, 0], v[:, :, 0], pos,
+                           block_tables=block_tables, block_size=block_size)
+        return (paged_attention(q, k_cache, v_cache, block_tables, pos,
+                                block_size=block_size), k_cache, v_cache)
+    return _paged_attention_scaled(
+        policy, k_cache, v_cache, *kv_scales, q, k, v, pos[:, None],
+        torch.ones_like(pos), block_tables, block_size=block_size,
+        max_blocks=1)
+
+
+def mha_prefill_paged(p, x, k_cache, v_cache, positions, tail_len, *,
+                      num_heads: int, block_tables, block_size: int,
+                      tp_axis=None, kv_scales=None, policy=None):
+    """Chunked prefill over the paged pool for ONE request: ``x``
+    [1, P, D] tail hidden states at ``positions`` (``start +
+    arange(P)``, int32), attended by :func:`paged_attend_prefill`.
+    ``num_heads`` is LOCAL heads under ``tp_axis``. Returns (y [1, P,
+    D], k_cache, v_cache[, k_scale, v_scale])."""
+    q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    o, *pools = paged_attend_prefill(
+        q, k, v, k_cache, v_cache, positions, tail_len,
+        block_tables=block_tables, block_size=block_size,
+        kv_scales=kv_scales, policy=policy)
+    return _paged_out(p, o, pools, tp_axis)
 
 
 def mha_verify_paged(p, x, k_cache, v_cache, positions, tail_lens, *,
                      num_heads: int, block_tables, block_size: int,
-                     kv_scales=None, policy=None):
+                     tp_axis=None, kv_scales=None, policy=None):
     """Batched verify attention over the paged pool: EVERY row scores a
     short run ``x`` [S, P, D] at ``positions`` [S, P] against its own
     cached row — the decode step widened from 1 to P tokens a row (the
     teacher-forced scoring of ``serve/kv_quant.paged_eval_nll``, and
     speculative decoding's target step). Columns at or beyond
-    ``tail_lens[s]`` are pad. Pool handling as in
-    :func:`mha_prefill_paged`, batched over rows. Returns (y [S, P, D],
-    k_cache, v_cache[, k_scale, v_scale])."""
+    ``tail_lens[s]`` are pad (:func:`paged_attend_verify`); ``tp_axis``
+    as :func:`mha_prefill_paged`. Returns (y [S, P, D], k_cache,
+    v_cache[, k_scale, v_scale])."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    o, *pools = paged_attend_verify(
+        q, k, v, k_cache, v_cache, positions, tail_lens,
+        block_tables=block_tables, block_size=block_size,
+        kv_scales=kv_scales, policy=policy)
+    return _paged_out(p, o, pools, tp_axis)
+
+
+# ---------------------------------------------------------------------
+# sequence-parallel prefill over the paged pool
+# ---------------------------------------------------------------------
+
+def _online_merge(m, l, acc, m_new, l_new, o_new):
+    """Fold one chunk's (row max, probability sum, weighted V) into the
+    running online-softmax accumulators; identity (-inf, 0, 0)."""
+    m_tot = torch.maximum(m, m_new)
+    m_base = torch.where(torch.isfinite(m_tot), m_tot,
+                         torch.zeros_like(m_tot))
+
+    def rescale(mm):
+        c = torch.exp(torch.where(torch.isfinite(mm), mm - m_base,
+                                  torch.full_like(mm, -math.inf)))
+        return torch.where(torch.isfinite(c), c, torch.zeros_like(c))
+
+    c_old, c_new = rescale(m), rescale(m_new)
+    return (m_tot, l * c_old + l_new * c_new,
+            acc * c_old[..., None] + o_new * c_new[..., None])
+
+
+def ring_paged_prefill(q, k, v, start: int, t0: int, k_cache, v_cache, *,
+                       sp_axis, block_tables, block_size: int,
+                       kv_scales=None, policy=None):
+    """Sequence-parallel chunk attention over the paged pool: ring
+    attention across ``sp_axis`` (a
+    :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) for the chunk's own
+    K/V, merged online with each local query's attention over the
+    already-resident pool prefix; then ONE all-gather reassembles the
+    whole chunk's K/V for the pool write, which every rank makes (the
+    pool is replicated over sp).
+
+    ``q`` [1, Hq, Pl, Dh] is this rank's slice of the chunk's queries
+    (rank i owns positions ``start + i*Pl .. start + (i+1)*Pl``),
+    ``k``/``v`` [1, Hkv, Pl, Dh] the matching UNrepeated slice (GQA
+    repeats locally, never on the wire). Positions at or beyond ``t0``
+    are bucket pad: their keys are masked out of every score and their
+    pool writes land in the null block. The K/V pair rotates ``sp - 1``
+    times by ``core/collectives.ppermute`` (JAX's scan makes an ``sp``-th
+    rotation whose result it discards); a chunk's positions need no wire,
+    since the chunk a rank holds at step j came from rank ``i - j``.
+    Plain attention (f32 scores, -inf masks), as JAX's ring: no kernel.
+
+    Returns (o [1, Hq, Pl, Dh], k_cache, v_cache[, k_scale, v_scale]),
+    the pools updated in place."""
+    from quintnet_tpu_torch.core import collectives as cc
+
+    sp, idx = sp_axis.size, sp_axis.index
+    _, hq, pl, dh = q.shape
+    rep = hq // k.shape[1]
+    scale = 1.0 / math.sqrt(dh)
+    dev = q.device
+    q_pos = start + idx * pl + torch.arange(pl, device=dev)        # [Pl]
+    qf = q.float()
+
+    def contrib(k_in, v_in, mask):
+        """(m, l, o) of the local queries against one K/V chunk under
+        ``mask`` [Pl, T]; fully masked rows give the merge identity."""
+        kf = repeat_kv(k_in, rep).float()
+        vf = repeat_kv(v_in, rep).float()
+        s = torch.einsum("bhqd,bhtd->bhqt", qf, kf) * scale
+        s = s.masked_fill(~mask, -math.inf)
+        m = s.amax(dim=-1)
+        m_safe = torch.where(torch.isfinite(m), m, torch.zeros_like(m))
+        p = torch.where(mask, torch.exp(s - m_safe[..., None]),
+                        torch.zeros_like(s))
+        return m, p.sum(dim=-1), torch.einsum("bhqt,bhtd->bhqd", p, vf)
+
+    # the resident prefix: before this chunk's write the pool holds
+    # exactly positions [0, start) of the request, which every local
+    # query sees (a scaled pool dequantized, identically on every rank)
+    tables = block_tables[None]
+    k_pool, v_pool = _gather_kv(k_cache, v_cache, kv_scales, tables,
+                                block_size=block_size)
+    pool_mask = (torch.arange(k_pool.shape[2], device=dev)
+                 < start)[None, :].expand(pl, -1)
+    m, l, acc = contrib(k_pool, v_pool, pool_mask)
+
+    kv = torch.stack([k, v])
+    perm = [(i, (i + 1) % sp) for i in range(sp)]
+    for step in range(sp):
+        src = (idx - step) % sp
+        k_pos = start + src * pl + torch.arange(pl, device=dev)
+        mask = (k_pos[None, :] <= q_pos[:, None]) & (k_pos[None, :] < t0)
+        m, l, acc = _online_merge(m, l, acc, *contrib(kv[0], kv[1], mask))
+        if step < sp - 1:
+            kv = cc.ppermute(kv, sp_axis, perm)
+    o = (acc / l.clamp(min=1e-30)[..., None]).to(q.dtype)
+
+    # the chunk's K/V in rank (= sequence) order for the pool write;
+    # positions are start + arange(P) by construction
+    kv_full = cc.all_gather(torch.stack([k[0], v[0]]), sp_axis,
+                            gather_dim=2)                 # [2, Hkv, P, Dh]
+    positions = start + torch.arange(pl * sp, dtype=torch.int32,
+                                     device=dev)
     if kv_scales is None:
-        paged_verify_update(k_cache, v_cache, k, v, positions, tail_lens,
-                            block_tables=block_tables,
-                            block_size=block_size)
-        o = paged_attention(q, k_cache, v_cache, block_tables,
-                            positions[:, 0].contiguous(),
-                            block_size=block_size)
-        return _paged_out(p, o, (k_cache, v_cache))
-    o, *pools = _paged_attention_scaled(
-        policy, k_cache, v_cache, *kv_scales, q, k, v, positions, tail_lens,
-        block_tables, block_size=block_size,
-        max_blocks=_quant_span(positions.shape[1], block_size,
-                               block_tables.shape[1]))
-    return _paged_out(p, o, pools)
+        paged_prefill_update(k_cache, v_cache, kv_full[0], kv_full[1],
+                             positions, t0 - start,
+                             block_tables=block_tables,
+                             block_size=block_size)
+        return o, k_cache, v_cache
+    lens = torch.full((1,), t0 - start, dtype=torch.int32, device=dev)
+    span = _quant_span(pl * sp, block_size, block_tables.shape[0])
+    for cache, sc, vals in ((k_cache, kv_scales[0], kv_full[0]),
+                            (v_cache, kv_scales[1], kv_full[1])):
+        paged_quant_window_update(policy, cache, sc, vals[None],
+                                  positions[None, :], lens,
+                                  block_tables=tables,
+                                  block_size=block_size, max_blocks=span)
+    return (o, k_cache, v_cache, *kv_scales)
+
+
+def sp_last_hidden(h, start: int, t0: int, *, sp_axis):
+    """The chunk's LAST true position's hidden row on every sp rank: ``h``
+    [1, Pl, D] is a rank's slice (positions ``start + rank*Pl +
+    arange(Pl)``); position ``t0 - 1`` lives on one rank, and one sum of
+    that row and the other ranks' zeros hands every rank the [1, 1, D]
+    row the logits head reads."""
+    from quintnet_tpu_torch.core import collectives as cc
+
+    pl = h.shape[1]
+    j = t0 - 1 - start - sp_axis.index * pl
+    row = (h[:, j:j + 1] if 0 <= j < pl
+           else torch.zeros_like(h[:, :1]))
+    return cc.all_reduce(row, sp_axis)
+
+
+def mha_prefill_paged_sp(p, x, k_cache, v_cache, start: int, t0: int, *,
+                         num_heads: int, sp_axis, tp_axis=None,
+                         block_tables, block_size: int, kv_scales=None,
+                         policy=None):
+    """:func:`mha_prefill_paged`'s sequence-parallel sibling: ``x``
+    [1, Pl, D] is this sp rank's slice of the chunk's hidden states, the
+    attention :func:`ring_paged_prefill`; the output projection is
+    position-wise and stays local. Returns (y, k_cache, v_cache[,
+    k_scale, v_scale])."""
+    q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    o, *pools = ring_paged_prefill(
+        q, k, v, start, t0, k_cache, v_cache, sp_axis=sp_axis,
+        block_tables=block_tables, block_size=block_size,
+        kv_scales=kv_scales, policy=policy)
+    return _paged_out(p, o, pools, tp_axis)
 
 
 def dense_cache_attend(q, k_cache, v_cache, pos: int):
@@ -374,11 +576,10 @@ def mha_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
     branch runs no Pallas kernel). Returns (y, k_cache, v_cache).
 
     Paged (the serving engine): ``x`` [B, 1, D], flat pool views,
-    ``pos`` [B] int32 per-row positions, ``block_tables`` [B, M] int32.
-    Pool handling as in :func:`mha_prefill_paged`; a scaled decode
-    requantizes one block a row (``max_blocks=1``). Returns (y, k_cache,
-    v_cache[, k_scale, v_scale]). tp serving meshes are not ported
-    (ROADMAP.md §1, item 7)."""
+    ``pos`` [B] int32 per-row positions, ``block_tables`` [B, M] int32,
+    attended by :func:`paged_attend_decode`; ``tp_axis`` as
+    :func:`mha_prefill_paged`. Returns (y, k_cache, v_cache[, k_scale,
+    v_scale])."""
     q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
     if block_tables is None:
         if kv_scales is not None:
@@ -390,18 +591,7 @@ def mha_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
         o = dense_cache_attend(q, k_cache, v_cache, pos)
         y = row_parallel_linear(p["proj"], _merge_heads(o), axis=tp_axis)
         return y, k_cache, v_cache
-    if tp_axis is not None:
-        raise NotImplementedError(
-            "paged decode on a tp mesh is not ported yet (ROADMAP.md §1, "
-            "item 7)")
-    if kv_scales is None:
-        paged_cache_update(k_cache, v_cache, k[:, :, 0], v[:, :, 0], pos,
-                           block_tables=block_tables, block_size=block_size)
-        o = paged_attention(q, k_cache, v_cache, block_tables, pos,
-                            block_size=block_size)
-        return _paged_out(p, o, (k_cache, v_cache))
-    o, *pools = _paged_attention_scaled(
-        policy, k_cache, v_cache, *kv_scales, q, k, v, pos[:, None],
-        torch.ones_like(pos), block_tables, block_size=block_size,
-        max_blocks=1)
-    return _paged_out(p, o, pools)
+    o, *pools = paged_attend_decode(
+        q, k, v, k_cache, v_cache, pos, block_tables=block_tables,
+        block_size=block_size, kv_scales=kv_scales, policy=policy)
+    return _paged_out(p, o, pools, tp_axis)

@@ -3,13 +3,14 @@
 Port of ``quintnet_tpu/nn/moe.py``. Routing is dense math with static
 shapes: a top-k gate over a [S, E] router product in f32, a capacity C
 a rank and expert, and the assignments past capacity written to a dump
-row (E * C) that nobody reads. Dispatch and combine are scatter-adds
-(``index_add``) into a [E * C, D] buffer and back. With ``ep_axis`` (a
-:class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) each rank owns E / ep
-experts, and one ``all_to_all`` over ep each way sends every expert's
-rows to its owner and the outputs back. With ``tp_axis`` each expert's
-FFN is also column/row-sharded over tp (one sum after the second
-product).
+row (E * C) that nobody reads. Dispatch is a scatter-add (``index_add``)
+into a [E * C, D] buffer, one writer a kept slot; combine gathers the
+buffer back and sums each token's k outputs in a fixed order. With
+``ep_axis`` (a :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) each
+rank owns E / ep experts, and one ``all_to_all`` over ep each way sends
+every expert's rows to its owner and the outputs back. With
+``tp_axis`` each expert's FFN is also column/row-sharded over tp (one
+sum after the second product).
 
 Gradients: ep is a *data* axis (tokens are sharded over it) while the
 expert weights are sharded over it; the all_to_all's backward hands
@@ -183,7 +184,9 @@ def moe_apply(p, x, args: MoEArgs, *, ep_axis=None, tp_axis=None, act=gelu,
 
     ybuf = torch.cat([y.reshape(E * C, D), y.new_zeros((1, D))], dim=0)
     yc = ybuf[slot] * val_f.to(y.dtype)[:, None]
-    yt = y.new_zeros((S, D)).index_add(0, s_of, yc)
+    # each token's k outputs summed in choice order (rows j*S + s): the
+    # same bits on every run and rank, as a scatter-add's atomics are not
+    yt = yc.reshape(k, S, D).sum(dim=0)
 
     f_e = oh.sum(dim=0).float() / (S * k)
     p_e = probs.mean(dim=0)

@@ -1,5 +1,6 @@
 """Pre-LN transformer block (GPT-2, ViT): training/eval, dense KV-cache
-prefill and decode, paged decode, paged prefill and paged verify.
+prefill and decode, paged decode, paged prefill (also sequence-parallel)
+and paged verify.
 
 Port of ``quintnet_tpu/nn/transformer.py`` with the tp hooks
 (``tp_axis``), sequence parallelism (``sp_axis``, ``sp_mode``: the
@@ -23,6 +24,7 @@ from quintnet_tpu_torch.core import collectives as cc
 from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
 from quintnet_tpu_torch.nn.attention import (mha_apply, mha_decode,
                                              mha_prefill_paged,
+                                             mha_prefill_paged_sp,
                                              mha_verify_paged)
 from quintnet_tpu_torch.nn.layers import (dropout, gelu, layer_norm_apply,
                                           mlp_apply)
@@ -195,45 +197,82 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int = 0,
     return x
 
 
+def _serve_mlp(p, x, *, act, moe_args=None, ep_axis=None, tp_axis=None):
+    """The MLP half of a serving block step -> ``(x, routing stats or
+    None)``: a MoE block also hands back its routing counts
+    (``nn/moe.moe_apply(return_stats=True)``), which the serving
+    contracts append to their return; the aux loss has no use here."""
+    if moe_args is None:
+        return _block_mlp(p, x, act=act, tp_axis=tp_axis), None
+    y, _aux, stats = moe_apply(p["moe"], layer_norm_apply(p["ln2"], x),
+                               moe_args, ep_axis=ep_axis, tp_axis=tp_axis,
+                               act=act, return_stats=True)
+    return x + y, stats
+
+
+def _serve_out(x, pools, stats):
+    """(x, *pools[, stats]): a MoE block appends its routing stats."""
+    return (x, *pools) if stats is None else (x, *pools, stats)
+
+
 def block_prefill_paged(p, x, k_cache, v_cache, positions, tail_len, *,
                         num_heads: int, act: Callable = gelu,
+                        moe_args=None, ep_axis=None, tp_axis=None,
                         block_tables, block_size: int, kv_scales=None,
                         policy=None):
     """Chunked-prefill block step over the paged pool (x [1, P, D] at
     absolute ``positions``). ``kv_scales``/``policy``: this layer's
-    (k_scale, v_scale) views under a scaled KV layout. Returns (x,
-    k_cache, v_cache[, k_scale, v_scale]); the pool views are updated in
+    (k_scale, v_scale) views under a scaled KV layout. ``tp_axis``:
+    head-sharded pool and ``num_heads`` local; ``moe_args``/``ep_axis``:
+    a MoE FFN, experts sharded over ep. Returns (x, k_cache, v_cache[,
+    k_scale, v_scale][, moe_stats]); the pool views are updated in
     place."""
     y, *pools = mha_prefill_paged(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache,
-        positions, tail_len, num_heads=num_heads,
+        positions, tail_len, num_heads=num_heads, tp_axis=tp_axis,
         block_tables=block_tables, block_size=block_size,
         kv_scales=kv_scales, policy=policy)
-    return (_block_mlp(p, x + y, act=act), *pools)
+    x, stats = _serve_mlp(p, x + y, act=act, moe_args=moe_args,
+                          ep_axis=ep_axis, tp_axis=tp_axis)
+    return _serve_out(x, pools, stats)
+
+
+def block_prefill_paged_sp(p, x, k_cache, v_cache, start: int, t0: int, *,
+                           num_heads: int, sp_axis, act: Callable = gelu,
+                           tp_axis=None, block_tables, block_size: int,
+                           kv_scales=None, policy=None):
+    """Sequence-parallel chunked-prefill block step
+    (``nn/attention.mha_prefill_paged_sp``): x [1, Pl, D] is this sp
+    rank's slice of the chunk at positions ``start + rank*Pl +
+    arange(Pl)``; the attention rides the ring over ``sp_axis``, the
+    LN/MLP halves are position-wise and stay local. A MoE block never
+    gets here (the engine refuses MoE with sp). Returns (x, k_cache,
+    v_cache[, k_scale, v_scale]) with the whole chunk's K/V written into
+    the sp-replicated pool."""
+    y, *pools = mha_prefill_paged_sp(
+        p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache, start,
+        t0, num_heads=num_heads, sp_axis=sp_axis, tp_axis=tp_axis,
+        block_tables=block_tables, block_size=block_size,
+        kv_scales=kv_scales, policy=policy)
+    return (_block_mlp(p, x + y, act=act, tp_axis=tp_axis), *pools)
 
 
 def block_verify_paged(p, x, k_cache, v_cache, positions, tail_lens, *,
-                       num_heads: int, act: Callable = gelu, block_tables,
+                       num_heads: int, act: Callable = gelu, moe_args=None,
+                       ep_axis=None, tp_axis=None, block_tables,
                        block_size: int, kv_scales=None, policy=None):
     """Batched verify block step (x [S, P, D] per-row runs at absolute
-    ``positions`` [S, P]). Returns (x, k_cache, v_cache[, k_scale,
-    v_scale]); pools updated in place."""
+    ``positions`` [S, P]); ``tp_axis``, ``moe_args``, ``ep_axis`` as
+    :func:`block_prefill_paged`. Returns (x, k_cache, v_cache[, k_scale,
+    v_scale][, moe_stats]); pools updated in place."""
     y, *pools = mha_verify_paged(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache,
-        positions, tail_lens, num_heads=num_heads,
+        positions, tail_lens, num_heads=num_heads, tp_axis=tp_axis,
         block_tables=block_tables, block_size=block_size,
         kv_scales=kv_scales, policy=policy)
-    return (_block_mlp(p, x + y, act=act), *pools)
-
-
-def _decode_mlp(p, x, *, act, moe_args, tp_axis):
-    """The MLP half of a cached block step: dense, or a MoE FFN whose aux
-    loss generation has no use for."""
-    if moe_args is None:
-        return _block_mlp(p, x, act=act, tp_axis=tp_axis)
-    y, _aux = moe_apply(p["moe"], layer_norm_apply(p["ln2"], x), moe_args,
-                        tp_axis=tp_axis, act=act)
-    return x + y
+    x, stats = _serve_mlp(p, x + y, act=act, moe_args=moe_args,
+                          ep_axis=ep_axis, tp_axis=tp_axis)
+    return _serve_out(x, pools, stats)
 
 
 def block_prefill(p, x, *, num_heads: int, act: Callable = gelu,
@@ -245,23 +284,26 @@ def block_prefill(p, x, *, num_heads: int, act: Callable = gelu,
     a, (k, v) = mha_apply(p["attn"], layer_norm_apply(p["ln1"], x),
                           num_heads=num_heads, causal=True, return_kv=True,
                           tp_axis=tp_axis)
-    return _decode_mlp(p, x + a, act=act, moe_args=moe_args,
-                       tp_axis=tp_axis), (k, v)
+    x, _stats = _serve_mlp(p, x + a, act=act, moe_args=moe_args,
+                           tp_axis=tp_axis)
+    return x, (k, v)
 
 
 def block_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
-                 act: Callable = gelu, moe_args=None, tp_axis=None,
-                 block_tables=None, block_size=None, kv_scales=None,
-                 policy=None):
+                 act: Callable = gelu, moe_args=None, ep_axis=None,
+                 tp_axis=None, block_tables=None, block_size=None,
+                 kv_scales=None, policy=None):
     """Single-token cached block step (``nn/attention.mha_decode``).
     Dense (``block_tables=None``, the generation decoders): caches
     [B, H, T, Dh], ``pos`` the host write position, ``moe_args`` and
     ``tp_axis`` as :func:`block_prefill`. Paged (the serving engine):
-    x [S, 1, D], flat pool views, per-row ``pos``. Returns (x, k_cache,
-    v_cache[, k_scale, v_scale]); caches and pools updated in place."""
+    x [S, 1, D], flat pool views, per-row ``pos``; ``ep_axis`` shards a
+    MoE block's experts. Returns (x, k_cache, v_cache[, k_scale,
+    v_scale][, moe_stats]); caches and pools updated in place."""
     y, *pools = mha_decode(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache, pos,
         num_heads=num_heads, tp_axis=tp_axis, block_tables=block_tables,
         block_size=block_size, kv_scales=kv_scales, policy=policy)
-    return (_decode_mlp(p, x + y, act=act, moe_args=moe_args,
-                        tp_axis=tp_axis), *pools)
+    x, stats = _serve_mlp(p, x + y, act=act, moe_args=moe_args,
+                          ep_axis=ep_axis, tp_axis=tp_axis)
+    return _serve_out(x, pools, stats)

@@ -78,8 +78,27 @@ def store_rows(cache: torch.Tensor, idx: torch.Tensor,
                vals: torch.Tensor) -> None:
     """``cache[idx] = vals`` along dim 0, in place, for any store dtype
     (``vals`` already in the cache's dtype). Duplicate indices (the null
-    block) keep one of their values."""
+    block) keep one of their values: pass ``vals`` through
+    :func:`last_null_rows` first so that all of them are the same."""
     _bytes_view(cache)[idx.long()] = _bytes_view(vals.contiguous())
+
+
+def last_null_rows(idx: torch.Tensor, *vals: torch.Tensor):
+    """``vals`` (each [n, ...], one row per entry of ``idx`` [n]) with
+    every row whose index is 0 replaced by the last such row. Rows that
+    take no part in a step (dead slots, pad columns) all write to row 0,
+    the null block, and a dead row or a pad column reads it back. CUDA's
+    ``index_put_`` keeps an arbitrary one of duplicate rows, so without
+    this the null block, and through MoE routing under a capacity cut
+    live tokens too, would differ from run to run and from rank to rank
+    of a mesh. With every duplicate the
+    same bits, any scatter order leaves what a sequential scatter (the
+    CPU's, the JAX package's) leaves: the last writer's row."""
+    null = idx == 0
+    last = torch.where(null, torch.arange(idx.shape[0], device=idx.device),
+                       0).amax().reshape(1)
+    return tuple(torch.where(null.view(-1, *(1,) * (v.dim() - 1)),
+                             v.index_select(0, last), v) for v in vals)
 
 
 def paged_gather(cache, block_tables, *, block_size: int):
@@ -367,8 +386,10 @@ def paged_quant_window_update(policy, cache, scales, vals, positions,
     position zeroed (a recycled block's stale bytes must not inflate the
     new absmax), fresh per-block-per-head scales computed, and the
     requantized blocks and scales scattered back. Untouched window slots
-    target the null block. Byte-identical to the reference on every
-    real block.
+    target the null block, every one of them zeros with the zeros'
+    scale, so any scatter order leaves the same bytes there (a dead row's
+    ``lens`` is 0). Byte-identical to the reference on every real
+    block.
 
     ``vals``: [S, H, P, D]; ``positions``: [S, P] contiguous; ``lens``:
     [S]. Returns (cache, scales), the same tensors."""

@@ -1,4 +1,5 @@
-"""Continuous-batching GPT-2 serving over a paged KV pool, on the card.
+"""Continuous-batching GPT-2 and Llama serving over a paged KV pool, on
+the card, on one device or on every rank of a tp, sp or ep mesh.
 
 - :mod:`kv_pool` — refcounted KV blocks, per-request block tables, the
   prefix cache (token-keyed index, LRU retention, copy-on-write);
@@ -7,10 +8,11 @@
   ``paged_eval_nll``;
 - :mod:`scheduler` — FCFS / priority admission, youngest-first
   preemption with exact resume;
-- :mod:`families` — the GPT-2 prefill/decode/verify contracts over the
-  paged blocks;
+- :mod:`families` — the GPT-2 and Llama prefill/decode/verify (and
+  sequence-parallel prefill) contracts over the paged blocks;
 - :mod:`spec` — speculative decoding's config and n-gram drafter;
-- :mod:`longctx` — chunked prefill's planning pieces;
+- :mod:`longctx` — chunked prefill's planning pieces and the sp
+  bucket check;
 - :mod:`engine` — the step loop;
 - :mod:`api` — ``generate`` / ``generate_stream``;
 - :mod:`metrics` — step gauges, TTFT / latency percentiles.
@@ -18,7 +20,8 @@
 
 from quintnet_tpu_torch.serve.api import generate, generate_stream
 from quintnet_tpu_torch.serve.engine import ServeEngine, check_admissible
-from quintnet_tpu_torch.serve.families import Family, gpt2_family
+from quintnet_tpu_torch.serve.families import (Family, gpt2_family,
+                                               llama_family)
 from quintnet_tpu_torch.serve.kv_pool import KVPool
 from quintnet_tpu_torch.serve.longctx import plan_chunks
 from quintnet_tpu_torch.serve.metrics import ServeMetrics
@@ -27,4 +30,5 @@ from quintnet_tpu_torch.serve.spec import NgramDrafter, SpecConfig
 
 __all__ = ["KVPool", "NgramDrafter", "Request", "Scheduler", "ServeEngine",
            "ServeMetrics", "SpecConfig", "Family", "check_admissible",
-           "generate", "generate_stream", "gpt2_family", "plan_chunks"]
+           "generate", "generate_stream", "gpt2_family", "llama_family",
+           "plan_chunks"]

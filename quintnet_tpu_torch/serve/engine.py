@@ -1,12 +1,35 @@
 """Continuous-batching step loop over the paged KV pool.
 
-Port of ``quintnet_tpu/serve/engine.py`` on one device: greedy or
-sampled decoding (``temperature``, ``top_k``, ``top_p``), prefix cache
-on, every KV pool layout of the ladder (``kv_dtype``: f32, bf16, int8,
-fp8, fake_quant; ``serve/kv_quant.py``), speculative decoding
-(``spec=``, ``serve/spec.py``) and chunked prefill (``chunked_prefill``,
-``prefill_chunk_budget``; ``serve/longctx.py``), on the CPU and on the
-card. Per step: admit waiting requests (each prefills only the uncached
+Port of ``quintnet_tpu/serve/engine.py``: greedy or sampled decoding
+(``temperature``, ``top_k``, ``top_p``), prefix cache on, every KV pool
+layout of the ladder (``kv_dtype``: f32, bf16, int8, fp8, fake_quant;
+``serve/kv_quant.py``), speculative decoding (``spec=``,
+``serve/spec.py``) and chunked prefill (``chunked_prefill``,
+``prefill_chunk_budget``; ``serve/longctx.py``), for any family of
+``serve/families.py`` (GPT-2, Llama, their MoE forms), on the CPU and on
+the card, on one device or on every rank of a mesh.
+
+Serving meshes (``mesh``, a :class:`~quintnet_tpu_torch.core.mesh.Mesh`,
+with ``tp_axis``, ``sp_axis``, ``ep_axis``): the port's counterpart of
+JAX's ``shard_map`` step is the same engine on every rank of the mesh,
+given the same requests in the same order. The host scheduler is
+deterministic and reads only tokens that every rank computes from the
+same bits, so every rank admits, grows, preempts and retires alike.
+Those bits need no deterministic mode: rows that take no part in a step
+write the same values to the null block in any order
+(``ops/paged_attention.last_null_rows``), and MoE's combine sums each
+token's experts in a fixed order, so under a capacity cut the dead rows
+and pad columns that compete with live tokens for expert slots route
+alike on every rank. tp:
+the params are this rank's shards (cut here from the whole tree in the
+training layout, ``Family.partition_specs``), the pool holds this rank's
+kv heads, and every attention and MLP ends in one sum over tp. sp: each
+prefill bucket is split over the ranks and attended by the ring over the
+paged pool (``nn/attention.ring_paged_prefill``; the pool and decode are
+replicated). ep: a MoE family's experts are sharded, one all-to-all each
+way per MoE layer, and the routing counts of every call feed the
+metrics' ``moe_*`` keys. An axis of size 1 runs the single-device
+code. Per step: admit waiting requests (each prefills only the uncached
 tail of its prompt, in the smallest bucket that holds it; a chunked
 engine only allocates its table) -> (chunked) feed at most
 ``prefill_chunk_budget`` prompt tokens of chunks -> grow every active
@@ -79,11 +102,13 @@ import torch
 
 from quintnet_tpu_torch.analysis.specs import prefill_buckets
 from quintnet_tpu_torch.core.device import resolve_device
+from quintnet_tpu_torch.core.pytree import tree_map
 from quintnet_tpu_torch.models.gpt2_generate import sample_logits
+from quintnet_tpu_torch.parallel.tp import shard_leaf
 from quintnet_tpu_torch.serve.families import Family
 from quintnet_tpu_torch.serve.kv_pool import KVPool
 from quintnet_tpu_torch.serve.kv_quant import make_policy
-from quintnet_tpu_torch.serve.longctx import ChunkState
+from quintnet_tpu_torch.serve.longctx import ChunkState, validate_sp_buckets
 from quintnet_tpu_torch.serve.metrics import ServeMetrics
 from quintnet_tpu_torch.serve.scheduler import (FINISHED, Request,
                                                 Scheduler)
@@ -96,13 +121,8 @@ _NOT_PORTED = {
                 "(multi-LoRA)",
     "kv_tier_bytes": "§1, item 7 ('Serving features'): serve/kv_tier.py "
                      "(host KV tier)",
-    "mesh": "§1, item 7 ('Serving features'): tp/sp/ep serving meshes",
-    "sp_axis": "§1, item 7 ('Serving features'): serve/longctx.py "
-               "(sp prefill)",
-    "ep_axis": "§1, item 7 ('Serving features'): MoE serving",
     "weights_dtype": "§1, item 7 ('Serving features'): "
                      "serve/weight_quant.py",
-    "tp_axis": "§1, item 7 ('Serving features'): tp and ep serving meshes",
     "lora_targets": "§1, item 7 ('Serving features'): serve/adapters.py "
                     "(multi-LoRA)",
     "lora_max_rank": "§1, item 7 ('Serving features'): serve/adapters.py "
@@ -119,7 +139,7 @@ _NOT_PORTED = {
 }
 # the JAX constructor's default of each option above that has one other
 # than None/False/0: passing it is passing nothing
-_JAX_OFF = {"tp_axis": "tp", "lora_max_rank": 8, "clock": time.monotonic}
+_JAX_OFF = {"lora_max_rank": 8, "clock": time.monotonic}
 
 
 def _not_ported(option: str, value):
@@ -168,9 +188,10 @@ def check_admissible(prompt_len: int, max_new_tokens: int, *,
 
 class ServeEngine:
     """Paged continuous-batching engine for one family on one device
-    (``"cuda"`` by default; ``"cpu"`` only when asked). ``max_slots``
-    rows decode together; the pool holds ``num_blocks`` blocks of
-    ``block_size`` positions (block 0 is the null block)."""
+    (``"cuda"`` by default; ``"cpu"`` only when asked), or on this rank
+    of ``mesh``. ``max_slots`` rows decode together; the pool holds
+    ``num_blocks`` blocks of ``block_size`` positions (block 0 is the
+    null block)."""
 
     def __init__(self, family: Family, params, *, device="cuda",
                  max_slots: int = 8, block_size: int = 16,
@@ -195,9 +216,7 @@ class ServeEngine:
                  clock=time.monotonic, tracer=None, recorder=None):
         for option, value in (
                 ("adapters", adapters),
-                ("kv_tier_bytes", kv_tier_bytes), ("mesh", mesh),
-                ("sp_axis", sp_axis), ("ep_axis", ep_axis),
-                ("tp_axis", tp_axis),
+                ("kv_tier_bytes", kv_tier_bytes),
                 ("lora_targets", lora_targets),
                 ("lora_max_rank", lora_max_rank),
                 ("lora_rank_bucket_sizes", lora_rank_bucket_sizes),
@@ -224,7 +243,8 @@ class ServeEngine:
         self.top_p = float(top_p)
         self.device = resolve_device(device)
         self.family = family
-        self.params = _to_device(params, self.device)
+        self._mesh_axes(family, mesh, tp_axis, sp_axis, ep_axis)
+        self.params = _to_device(self._shard(params), self.device)
         self.max_slots = int(max_slots)
         self.eos_token_id = eos_token_id
         self.clock = time.monotonic
@@ -270,10 +290,15 @@ class ServeEngine:
                 f"prefill_chunk_budget must be >= 1; got "
                 f"{self.prefill_chunk_budget}")
 
+        if self._sp is not None:
+            validate_sp_buckets(buckets, self._sp.size)
+
         self.kv_policy = make_policy(
             kv_dtype if kv_dtype is not None else family.kv_dtype)
+        # a tp rank's pool holds its kv heads (and [L, N, Hkv/tp] scales)
+        tp = 1 if self._tp is None else self._tp.size
         self.pool = KVPool(
-            n_layers=family.n_layers, n_kv_heads=family.n_kv_heads,
+            n_layers=family.n_layers, n_kv_heads=family.n_kv_heads // tp,
             head_dim=family.head_dim, block_size=block_size,
             num_blocks=num_blocks, policy=self.kv_policy,
             device=self.device, prefix_cache=self.prefix_cache)
@@ -295,7 +320,149 @@ class ServeEngine:
         self._arrival_counter = 0
 
     # ------------------------------------------------------------------
-    # the two programs
+    # serving meshes
+    # ------------------------------------------------------------------
+    def _mesh_axes(self, family: Family, mesh, tp_axis, sp_axis,
+                   ep_axis) -> None:
+        """The JAX constructor's mesh checks, with its errors. Sets the
+        axis names JAX's engine keeps (``tp_axis``, ``sp_axis``,
+        ``ep_axis``; an sp or ep axis of size 1 is None) and this rank's
+        :class:`~quintnet_tpu_torch.core.mesh.MeshAxis` of each axis of
+        size > 1 (``_tp``, ``_sp``, ``_ep``); a mesh with every axis at
+        size 1 runs exactly the single-device code."""
+        self.mesh = mesh
+        self.tp_axis = tp_axis if mesh is not None else None
+        self.sp_axis: Optional[str] = None
+        if sp_axis is not None and (mesh is None
+                                    or sp_axis not in mesh.shape):
+            # an explicitly requested sp axis the mesh does not carry is a
+            # misconfiguration, not a degenerate case
+            raise ValueError(
+                f"sp_axis={sp_axis!r} is not an axis of the mesh "
+                f"({None if mesh is None else tuple(mesh.shape)}); "
+                f"pass a mesh with that axis (size 1 falls back to "
+                f"the plain programs) or drop sp_axis")
+        if (mesh is not None and sp_axis is not None
+                and mesh.shape[sp_axis] > 1):
+            if family.prefill_from_sp is None:
+                raise ValueError(
+                    f"family {family.name!r} has no sequence-parallel "
+                    f"prefill path (Family.prefill_from_sp is None)")
+            if tp_axis in mesh.shape and mesh.shape[tp_axis] > 1:
+                raise NotImplementedError(
+                    "sequence-parallel prefill does not yet compose "
+                    "with tensor parallelism — use an sp-only mesh "
+                    "(tp x sp is a future extension)")
+            self.sp_axis = sp_axis
+        if self.sp_axis is not None or (
+                mesh is not None and tp_axis not in mesh.shape):
+            # sp-only mesh: params and pool replicated, no tp collectives
+            self.tp_axis = None
+        # MoE serving: an ep axis of size > 1 shards the experts (one
+        # all-to-all each way per MoE layer); size 1 runs the
+        # dense-replicated MoE math
+        moe = getattr(family.cfg, "moe_args", None)
+        self.moe_args = moe
+        self._moe_on = moe is not None
+        self._moe_acc: List[Dict] = []
+        self.ep_axis: Optional[str] = None
+        if moe is not None:
+            if not 1 <= moe.top_k <= moe.n_experts:
+                raise ValueError(
+                    f"MoEArgs.top_k={moe.top_k} must be in "
+                    f"[1, n_experts={moe.n_experts}]")
+            if moe.capacity is not None and int(moe.capacity) < 1:
+                raise ValueError(
+                    f"MoEArgs.capacity={moe.capacity} gives every "
+                    f"expert a non-positive token buffer (every "
+                    f"routed token would be dropped) — pass a "
+                    f"positive capacity, or None to derive it from "
+                    f"capacity_factor")
+            if moe.capacity is None and moe.capacity_factor <= 0:
+                raise ValueError(
+                    f"MoEArgs.capacity_factor={moe.capacity_factor} "
+                    f"must be > 0 — it sizes the per-expert token "
+                    f"buffer C = ceil(S*top_k/E * capacity_factor)")
+            if self.sp_axis is not None:
+                raise NotImplementedError(
+                    "sequence-parallel prefill does not yet compose "
+                    "with MoE families — drop sp_axis")
+        if ep_axis is not None:
+            if moe is None:
+                raise ValueError(
+                    f"ep_axis={ep_axis!r} requires an MoE family "
+                    f"(cfg.n_experts > 0); this {family.name!r} config "
+                    f"is dense")
+            if mesh is None or ep_axis not in mesh.shape:
+                raise ValueError(
+                    f"ep_axis={ep_axis!r} is not an axis of the mesh "
+                    f"({None if mesh is None else tuple(mesh.shape)}); "
+                    f"pass a mesh with that axis (size 1 falls back to "
+                    f"the dense-replicated MoE programs) or drop "
+                    f"ep_axis")
+            ep = int(mesh.shape[ep_axis])
+            if moe.n_experts % ep != 0:
+                raise ValueError(
+                    f"n_experts={moe.n_experts} must be divisible by "
+                    f"the ep axis size {ep} — each rank owns "
+                    f"n_experts/ep experts (nn/moe.py moe_specs)")
+            if ep > 1:
+                self.ep_axis = ep_axis
+
+        def live(name):
+            return (mesh.axis(name) if name is not None
+                    and mesh.shape[name] > 1 else None)
+
+        self._tp, self._sp, self._ep = (live(self.tp_axis),
+                                        live(self.sp_axis),
+                                        live(self.ep_axis))
+
+    def _shard(self, params):
+        """This rank's shards of ``params`` (the whole tree in the
+        family's training layout: GPT-2's fused QKV tp-blocked,
+        ``gpt2_to_tp_layout``) under the family's partition specs over
+        the live tp and ep axes; the tree as it is otherwise."""
+        if self._tp is None and self._ep is None:
+            return params
+        specs = self.family.partition_specs(
+            self.tp_axis if self._tp is not None else None,
+            self.ep_axis if self._ep is not None else None)
+        return tree_map(lambda t, spec: shard_leaf(t, spec, self.mesh),
+                        params, specs)
+
+    def _call(self, fn, *args, kv_kw):
+        """One family contract on this rank, its MoE routing stats (the
+        trailing output of a MoE family) banked for the step's ledger;
+        returns (logits, *pools)."""
+        out = fn(self.params, *args, **kv_kw, tp_axis=self._tp,
+                 ep_axis=self._ep)
+        if self._moe_on:
+            *out, st = out
+            self._moe_acc.append({k: v.detach().cpu().numpy()
+                                  for k, v in st.items()})
+        return out
+
+    def _drain_moe(self) -> Dict[str, object]:
+        """Fold the routing stats banked since the last step into
+        ``record_step`` keywords. ``expert_tokens`` counts routed demand
+        BEFORE the capacity cut (post-cut counts saturate at capacity
+        under a hot expert)."""
+        acc, self._moe_acc = self._moe_acc, []
+        if not acc:
+            return {}
+        return {
+            "moe_expert_tokens": np.sum(
+                [a["expert_tokens"] for a in acc], axis=0),
+            "moe_routed_tokens": float(
+                np.sum([a["assigned"] for a in acc])),
+            "moe_dropped_tokens": float(
+                np.sum([a["dropped"] for a in acc])),
+            "moe_router_entropy": float(
+                np.mean([a["entropy"] for a in acc])),
+        }
+
+    # ------------------------------------------------------------------
+    # the programs
     # ------------------------------------------------------------------
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
@@ -329,9 +496,19 @@ class ServeEngine:
             # block's scales
             for sc in scales:
                 sc[:, dst] = sc[:, cow_src]
-        logits, *pools = self.family.prefill_from(
-            self.params, k_pool, v_pool, self._dev(ids), start, t0,
-            self._dev(table_row), bs, **self._kv_kw(scales))
+        if self._sp is not None:
+            # this rank's slice of the bucket; the ring runs inside
+            pl = ids.shape[1] // self._sp.size
+            ids = ids[:, self._sp.index * pl:(self._sp.index + 1) * pl]
+            logits, *pools = self.family.prefill_from_sp(
+                self.params, k_pool, v_pool, self._dev(ids), start, t0,
+                self._dev(table_row), bs, sp_axis=self._sp,
+                **self._kv_kw(scales))
+        else:
+            logits, *pools = self._call(
+                self.family.prefill_from, k_pool, v_pool, self._dev(ids),
+                start, t0, self._dev(table_row), bs,
+                kv_kw=self._kv_kw(scales))
         self.pool.update(*pools)
         return logits
 
@@ -341,9 +518,10 @@ class ServeEngine:
         """One batched decode step; returns the next token of every row
         [S], row s drawn at (``seeds[s]``, ``counters[s]``)."""
         k_pool, v_pool, *scales = self.pool.caches()
-        logits, *pools = self.family.decode(
-            self.params, k_pool, v_pool, self._dev(tok), self._dev(pos),
-            self._dev(tables), self.pool.block_size, **self._kv_kw(scales))
+        logits, *pools = self._call(
+            self.family.decode, k_pool, v_pool, self._dev(tok),
+            self._dev(pos), self._dev(tables), self.pool.block_size,
+            kv_kw=self._kv_kw(scales))
         self.pool.update(*pools)
         nxt = self._sample(logits, seeds, counters)
         return nxt.to(torch.int32).cpu().numpy()
@@ -357,10 +535,10 @@ class ServeEngine:
         drawn at (``seeds[s]``, ``counters[s] + j``): the token plain
         decoding would draw there."""
         k_pool, v_pool, *scales = self.pool.caches()
-        logits, *pools = self.family.verify(
-            self.params, k_pool, v_pool, self._dev(ids), self._dev(starts),
-            self._dev(tail_lens), self._dev(tables), self.pool.block_size,
-            **self._kv_kw(scales))
+        logits, *pools = self._call(
+            self.family.verify, k_pool, v_pool, self._dev(ids),
+            self._dev(starts), self._dev(tail_lens), self._dev(tables),
+            self.pool.block_size, kv_kw=self._kv_kw(scales))
         self.pool.update(*pools)
         S, P, V = logits.shape
         toks = self._sample(logits.reshape(S * P, V),
@@ -808,7 +986,8 @@ class ServeEngine:
             draft_tokens=draft_tokens,
             accepted_draft_tokens=accepted_draft,
             prefill_chunks=prefill_chunks,
-            kv_cache_evictions=self.pool.cache_evictions)
+            kv_cache_evictions=self.pool.cache_evictions,
+            **(self._drain_moe() if self._moe_on else {}))
         return finished
 
     def warmup(self) -> None:
@@ -828,6 +1007,7 @@ class ServeEngine:
             self._verify(np.zeros((S, k + 1), np.int32),
                          np.zeros((S,), np.int32), np.ones((S,), np.int32),
                          np.zeros_like(self._tables), zeros, zeros)
+        self._moe_acc.clear()      # warm-up routing is not traffic
 
     def run(self, *, max_steps: Optional[int] = None) -> None:
         """Step until all submitted work is finished (or ``max_steps``)."""

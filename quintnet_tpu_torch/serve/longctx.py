@@ -1,9 +1,12 @@
-"""Long-context serving: the host side of chunked prefill.
+"""Long-context serving: the host side of chunked and sequence-parallel
+prefill.
 
-Port of the chunked half of ``quintnet_tpu/serve/longctx.py``
-(``ChunkState``, ``plan_chunks``); its sequence-parallel half
-(``validate_sp_buckets`` and the sp prefill) is not ported (ROADMAP.md
-§1, item 7).
+Port of ``quintnet_tpu/serve/longctx.py`` (``ChunkState``,
+``plan_chunks``, ``validate_sp_buckets``). Sequence-parallel prefill
+(``ServeEngine(mesh=, sp_axis=)``) splits every prefill bucket over the
+sp ranks and runs the ring over the paged pool
+(``nn/attention.ring_paged_prefill``); it composes with chunking, each
+chunk split over sp in turn.
 
 With ``ServeEngine(chunked_prefill=True)`` a prompt longer than the
 largest prefill bucket is admitted WHOLE (its block table allocated up
@@ -67,3 +70,17 @@ def plan_chunks(tail_len: int, *, buckets: Sequence[int],
         out.append((off, n))
         off += n
     return out
+
+
+def validate_sp_buckets(buckets: Sequence[int], sp: int) -> None:
+    """Every prefill bucket must split evenly over the sp ranks: the
+    bucket is the chunk each rank takes its slice of. Raises naming the
+    offending buckets (the fix: ``prefill_bucket_sizes``, or a
+    ``prefill_len``, divisible by the sp degree)."""
+    bad = [b for b in buckets if b % sp]
+    if bad:
+        raise ValueError(
+            f"prefill bucket(s) {bad} not divisible by sp={sp}: the "
+            f"sequence-parallel prefill shards each bucket's ids over "
+            f"the sp axis — pass prefill_bucket_sizes (or a "
+            f"prefill_len) divisible by {sp}")

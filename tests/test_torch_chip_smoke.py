@@ -5,6 +5,7 @@ a gated kernel came short beside lost records, at most
 ``PROFILED_WINDOWS`` windows, and the gate then counts in the window
 returned."""
 
+import dataclasses
 import os
 import types
 
@@ -745,3 +746,117 @@ def test_vp_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch, name, sizes):
             assert g["divergences"] == [] and g["padded_ids_emitted"] == 0
             assert g["tokens_agreeing"] == 2 * g["new_tokens"]
     np.testing.assert_allclose(ranks[0]["losses"], ref["losses"], rtol=1e-5)
+
+
+def test_serve_mesh_runs_parse_and_join_the_two_rank_world():
+    """The serving mesh runs (``SERVE_MESH_RUNS``): tp = 2 on GPT-2 124M
+    uncut and on Llama-3.2-1B widths at 4 layers, sp = 2 on GPT-2 124M
+    (the 1,000-token document through buckets of 256, 128 positions a
+    rank), ep = 2 on GPT-2 124M widths at 6 layers with 8 experts,
+    top-2, dropless and at the default capacity factor 1.25; every mesh two ranks wide (they
+    join the mesh phase's 2-rank world), and the training runs' worlds
+    unchanged."""
+    runs = chip_smoke.SERVE_MESH_RUNS
+    assert set(runs) == {"serve_tp2", "serve_tp2_llama", "serve_sp2",
+                         "serve_ep2", "serve_ep2_drops"}
+    assert all(sum(v for v in r[0].values()) == 2 for r in runs.values())
+    gpt2 = chip_smoke._serve_mesh_cfg("gpt2")
+    assert (gpt2.n_layer, gpt2.n_embd, gpt2.n_head) == (12, 768, 12)
+    llama = chip_smoke._serve_mesh_cfg("llama")
+    assert (llama.n_layers, llama.dim, llama.n_heads,
+            llama.n_kv_heads) == (4, 2048, 32, 8)
+    moe = chip_smoke._serve_mesh_cfg("gpt2_moe")
+    assert (moe.n_layer, moe.n_embd, moe.n_experts,
+            moe.expert_top_k) == (6, 768, 8, 2)
+    # dropless: C = each call's tokens
+    assert moe.capacity_factor * moe.expert_top_k == moe.n_experts
+    drops = chip_smoke._serve_mesh_cfg("gpt2_moe_drops")
+    assert drops.capacity_factor == 1.25         # JAX's default
+    assert drops == dataclasses.replace(moe, capacity_factor=1.25)
+    from quintnet_tpu_torch.analysis.specs import prefill_buckets
+
+    sp = runs["serve_sp2"][2]
+    assert sp["prefill_len"] == 256 and sp["chunked_prefill"]
+    assert all(b % 2 == 0 for b in prefill_buckets(sp["prefill_len"]))
+    assert 2 in chip_smoke._mesh_worlds()
+
+
+def test_serve_mesh_launches_count_on_their_ranks_head_shapes():
+    """Each serving mesh run's K4 launches go to the kernels-line entry
+    timed at its rank's head shape: a tp2 rank's (GPT-2 6 on 6, Llama 16
+    query heads on 4 kv heads) to its own; every other run's ranks hold
+    GPT-2's 12 heads and count on GPT-2's lines."""
+    lines = chip_smoke.SERVE_MESH_LINES
+    assert {tag for tag, _, _ in lines.values()} == {"tp2_gpt2",
+                                                     "tp2_llama"}
+    for name, (sizes, model, _, _) in chip_smoke.SERVE_MESH_RUNS.items():
+        cfg = chip_smoke._serve_mesh_cfg(model)
+        hq = getattr(cfg, "n_head", None) or cfg.n_heads
+        hkv = getattr(cfg, "n_kv_heads", None) or hq
+        tp = sizes.get("tp", 1)
+        if name in lines:
+            assert (hq // tp, hkv // tp) == lines[name][1:], name
+        else:
+            assert tp == 1 and (hq, hkv) == (12, 12), name
+
+
+def _tiny_serve_cfg(model):
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+    from quintnet_tpu_torch.models.llama import LlamaConfig
+
+    if model == "llama":
+        return LlamaConfig.tiny(n_layers=2, n_positions=512)
+    if model == "gpt2_moe":
+        return GPT2Config.tiny(n_layer=2, n_experts=8, expert_top_k=2,
+                               capacity_factor=4.0, n_positions=1024)
+    if model == "gpt2_moe_drops":
+        return GPT2Config.tiny(n_layer=2, n_experts=8, expert_top_k=2,
+                               n_positions=1024)
+    return GPT2Config.tiny(n_layer=2, n_positions=1024)
+
+
+def test_serve_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch):
+    """Every serving mesh run in one world of two gloo CPU ranks
+    (``_mesh_world``, as the mesh phase runs them) with its model at test
+    size, each against its one-device reference made by the same
+    ``_serve_mesh_traffic``, through ``_check_serve_mesh``'s own gates:
+    the ranks' streams equal to each other and to one device's up to
+    near-ties, greedy and sampled; the document's last logits (sp); the
+    routing summary (ep; with drops the ranks' own, equal, and some
+    assignment dropped). Each rank reports its steady decode step and
+    the collectives' share of it (none under sp: decode runs replicated,
+    and the ring lives in the prefill)."""
+    from quintnet_tpu_torch.core import runtime
+
+    refs, jobs = {}, []
+    for name, (_, model, _, _) in chip_smoke.SERVE_MESH_RUNS.items():
+        cfg = _tiny_serve_cfg(model)
+        params = chip_smoke._serve_mesh_params(cfg, "cpu")
+        refs[name] = (chip_smoke._serve_mesh_traffic(name, cfg, params,
+                                                     "cpu"), params, cfg)
+        jobs.append((name, (chip_smoke._model_dict(cfg),)))
+    got = runtime.spawn_world(chip_smoke._mesh_world, 2, "cpu", jobs,
+                              timeout=600, store_dir=str(tmp_path))
+    for name in chip_smoke.SERVE_MESH_RUNS:
+        ref, params, cfg = refs[name]
+        ranks = [g[name][0] for g in got]
+        res = chip_smoke._check_serve_mesh(name, ranks, ref, params, cfg)
+        assert [r["coords"] for r in res["ranks"]] == [
+            {k: 0 for k in chip_smoke.SERVE_MESH_RUNS[name][0]},
+            {k: 1 for k in chip_smoke.SERVE_MESH_RUNS[name][0]}]
+        for mode, run in res["runs"].items():
+            assert run["tokens_compared"] > 0
+            div = run["divergences_at_near_ties"]
+            if name == "serve_ep2_drops":
+                assert div is None
+                assert run["routing_summary"]["moe_dropped_tokens"] > 0
+            else:
+                assert len(div) <= 1, (name, mode)
+        if name == "serve_sp2":
+            assert res["runs"]["greedy"][
+                "document_last_logits_max_abs_err"] <= 1e-5
+        for r in res["ranks"]:
+            assert r["decode_step_ms"] > 0
+            share = r["collective_share_of_profiled_step"]
+            # sp decodes replicated, with no collective
+            assert (share == 0 if name == "serve_sp2" else 0 < share < 1)

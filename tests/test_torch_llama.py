@@ -318,14 +318,8 @@ def test_bf16_loss_near_f32():
 
 
 REFUSED = {
-    # the dense prefill and decode blocks are ported (the generation
-    # decoders); their paged serving forms still refuse
-    "prefill": lambda: pl.llama_block_prefill_paged_sp(),
-    "decode": lambda: pl.llama_block_decode(
-        None, None, None, None, 0, pl.LlamaConfig.tiny(), None, None,
-        block_tables=torch.zeros((1, 1), dtype=torch.int32), block_size=4),
-    "verify": lambda: pl.llama_block_verify_paged(),
-    "prefill_paged": lambda: pl.llama_block_prefill_paged(),
+    # the dense and paged serving blocks are ported (the generation
+    # decoders; Llama serving, tests/test_torch_serve_llama.py)
     "from_hf_state": lambda: pl.llama_from_hf_state({}, pl.LlamaConfig()),
     "to_hf_state": lambda: pl.llama_to_hf_state({}, pl.LlamaConfig()),
     "from_hf_config": lambda: pl.LlamaConfig.from_hf_config(object()),
@@ -336,8 +330,7 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refusals_name_their_roadmap_item(name):
-    want = {"prefill": "item 7", "decode": "item 7", "verify": "item 7",
-            "prefill_paged": "item 7", "from_hf_state": "item 9",
+    want = {"from_hf_state": "item 9",
             "to_hf_state": "item 9", "from_hf_config": "item 9",
             "remat_dots": "§2"}[name]
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:

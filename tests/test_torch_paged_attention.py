@@ -505,3 +505,83 @@ def test_paged_gather_matches_jax():
                               block_size=BS)
     got = tattn.paged_gather(_t(k), _t(tables), block_size=BS)
     np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+
+
+def _reversed_store(real):
+    """``store_rows`` with the rows written last to first: of duplicate
+    indices the FIRST row's values win (a scatter on the card may keep
+    any of them)."""
+    def store(cache, idx, vals):
+        real(cache, idx.flip(0), vals.flip(0))
+    return store
+
+
+def _null_writes(update):
+    """One pool write whose rows include several bound for the null block
+    with different values (dead rows, pad columns, untouched window
+    blocks); returns the pools (and scales) it leaves."""
+    from quintnet_tpu_torch.ops.paged_attention import \
+        paged_quant_window_update
+    from quintnet_tpu_torch.serve.kv_quant import make_policy
+
+    rng = np.random.default_rng(21)
+    S, H = 4, 2
+    _, kp, vp, tables, _ = _case(22, S=S, Hq=H, Hkv=H, P=1,
+                                 starts=[0] * S, dead=(1, 3))
+    kp, vp = _t(kp), _t(vp)
+    tables = _t(tables)
+    if update == "decode":
+        k, v = (_t(rng.standard_normal((S, H, D)).astype(np.float32))
+                for _ in range(2))
+        pos = torch.tensor([6, 0, 11, 0], dtype=torch.int32)
+        tattn.paged_cache_update(kp, vp, k, v, pos, block_tables=tables,
+                                 block_size=BS)
+        return kp, vp
+    if update == "prefill":
+        k, v = (_t(rng.standard_normal((H, 8, D)).astype(np.float32))
+                for _ in range(2))
+        pos = 3 + torch.arange(8, dtype=torch.int32)
+        tattn.paged_prefill_update(kp, vp, k, v, pos, 3,
+                                   block_tables=tables[0], block_size=BS)
+        return kp, vp
+    P = 3
+    k, v = (_t(rng.standard_normal((S, H, P, D)).astype(np.float32))
+            for _ in range(2))
+    starts = torch.tensor([5, 0, 9, 0], dtype=torch.int32)
+    positions = starts[:, None] + torch.arange(P, dtype=torch.int32)
+    lens = torch.tensor([2, 0, 3, 0], dtype=torch.int32)
+    if update == "verify":
+        tattn.paged_verify_update(kp, vp, k, v, positions, lens,
+                                  block_tables=tables, block_size=BS)
+        return kp, vp
+    policy = make_policy("int8")
+    kq = torch.zeros(kp.shape, dtype=torch.int8)
+    scales = torch.full((kp.shape[0] // BS, H), 0.01)
+    paged_quant_window_update(policy, kq, scales, k, positions, lens,
+                              block_tables=tables, block_size=BS,
+                              max_blocks=2)
+    return kq, scales
+
+
+@pytest.mark.parametrize("update", ["decode", "prefill", "verify",
+                                    "window"])
+def test_null_block_writes_do_not_depend_on_scatter_order(monkeypatch,
+                                                          update):
+    """Every row bound for the null block carries the last such row's
+    values (``last_null_rows``; the scaled window's are all zeros), so
+    the pool a write leaves, null block and scales included, is the same
+    bit for bit whichever duplicate a scatter keeps: the CUDA scatter's
+    arbitrary choice cannot make dead rows and pad columns, which read
+    the null block back, differ from run to run or from rank to rank
+    (where MoE routing under a capacity cut would carry the difference
+    into live tokens)."""
+    from quintnet_tpu_torch.ops import paged_attention as ops_pa
+
+    want = _null_writes(update)
+    monkeypatch.setattr(tattn, "store_rows",
+                        _reversed_store(tattn.store_rows))
+    monkeypatch.setattr(ops_pa, "store_rows",
+                        _reversed_store(ops_pa.store_rows))
+    got = _null_writes(update)
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())

@@ -196,8 +196,7 @@ def test_submit_rejects_what_can_never_run(params):
 
 @pytest.mark.parametrize("option,value", [
     ("adapters", object()), ("kv_tier_bytes", 1 << 20),
-    ("mesh", object()), ("sp_axis", "sp"),
-    ("ep_axis", "ep"), ("weights_dtype", "int8")])
+    ("weights_dtype", "int8")])
 def test_unported_options_raise(params, option, value):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         ServeEngine(gpt2_family(CFG), params[1], device="cpu",
@@ -237,7 +236,6 @@ def test_bad_prefill_ladder_raises_in_both(params, kw):
 # each JAX option the port does not serve yet: a value that asks for it,
 # the JAX default ("off"), and the ROADMAP.md item its message names
 JAX_ONLY_OPTIONS = {
-    "tp_axis": ("model", "tp", "item 7"),
     "lora_targets": (("qkv",), None, "item 7"),
     "lora_max_rank": (16, 8, "item 7"),
     "lora_rank_bucket_sizes": ((4, 8), None, "item 7"),
@@ -279,12 +277,6 @@ def test_attn_kernel_takes_xla_only(params):
     with pytest.raises(ValueError, match="'xla' only"):
         ServeEngine(gpt2_family(CFG), params[1], device="cpu",
                     attn_kernel="pallas")
-
-
-@pytest.mark.parametrize("cfg", [GPT2Config.tiny(n_experts=4)])
-def test_unported_model_configs_raise(cfg):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        gpt2_family(cfg)
 
 
 @pytest.mark.parametrize("n", [1, 16, 40, 100, 1024])

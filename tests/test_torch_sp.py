@@ -540,8 +540,9 @@ def test_long_context_example_trains_on_cpu_ranks(capfd):
     """``examples/long_context.py`` spawns its sp ranks (here 2, Ulysses
     over a tiny GPT-2 at 128 positions), trains, and only rank 0 prints;
     ``--serve`` (chunked prefill) serves a prompt past its window as the
-    widened engine does, and ``--serve --simulate 2`` (sp prefill) raises,
-    naming its ROADMAP.md item."""
+    widened engine does, and ``--serve --simulate 2`` (sp prefill: every
+    chunk split over 2 ranks, the ring over the paged pool) serves it on
+    both ranks as the widened engine does, rank 0 printing."""
     from quintnet_tpu_torch.examples import long_context
 
     assert long_context.main(["--device", "cpu", "--nproc", "2", "--seq",
@@ -550,8 +551,13 @@ def test_long_context_example_trains_on_cpu_ranks(capfd):
     out = capfd.readouterr().out
     assert out.count("mesh sp=2, seq 128 -> 64/rank, sp_mode=ulysses") == 1
     assert out.count("step 1: loss") == 1
-    with pytest.raises(NotImplementedError, match="item 7"):
-        long_context.main(["--serve", "--simulate", "2"])
+    assert long_context.main(["--serve", "--device", "cpu", "--simulate",
+                              "2", "--serve-prompt", "150",
+                              "--serve-new", "3"]) is None
+    out = capfd.readouterr().out
+    assert out.count("identical to the widened single-shot engine: "
+                     "True") == 1
+    assert "sp=2" in out
     assert len(long_context.main(["--serve", "--device", "cpu",
                                   "--serve-prompt", "150",
                                   "--serve-new", "3"])) == 3
