@@ -122,8 +122,43 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    against ``llama_generate`` at each request's seed (perturbed
    near-ties); an int8 pool under the narrow-layout rule (>= 90%, a flip
    only at a gap < 0.05); speculation on 4 tiled prompts against
-   spec-off (its verifies on the prefill path). K4 == 16 x (decode
-   steps + prefills [+ verifies]) by path in every run.
+   spec-off (its verifies on the prefill path); since slice 19 int8
+   weights (``weights_dtype="int8"``, f32 pool) under the narrow-layout
+   rule against the f32 dense greedy and the serve rule against the
+   dense forward of its own dequantized weights, its decode step and
+   weight bytes beside f32's. K4 == 16 x (decode steps + prefills [+
+   verifies]) by path in every run.
+3c. **serve_wq** (slice 19) — GPT-2 124M on the serve script with its
+   block matmuls' weights packed (``weights_dtype``: fake_quant, bf16,
+   int8, fp8; f32 pool), counts zeroed just before each run and read
+   just after: fake_quant's streams equal the f32 run's bit for bit;
+   bf16, int8 and fp8 equal to the dense forward of their own
+   dequantized weights up to near-ties, and >= 90% equal to the f32
+   dense greedy (bf16 and int8 flipping only at a gap < 0.05;
+   ``WQ_GAP``); teacher-forced NLL through an f32 pool with the packed
+   weights (fake_quant equal to f32, int8 and fp8 within 0.05: JAX's
+   gate); the targeted weights' bytes f32 / int8 >= 3.5. Prints each
+   run's decode step and tokens/s.
+3d. **serve_tier** (slice 19) — GPT-2 124M with the prefix cache and a
+   1 GiB host tier on a pool of 40 blocks: three 256-token prefixes,
+   each request (prefix + 32-token tail, 16 new) alone, three rounds.
+   Demotions, promotions and host hits > 0 and no demotion inside a
+   decode dispatch; the streams equal bit for bit those of a pool that
+   never evicts, and, up to near-ties, the dense greedy and the same
+   pool with the tier off; a chain demoted and promoted back byte for
+   byte from an f32 and an int8 pool (the scale rows too); K4 == 12 x
+   (decode steps + prefills). Prints the host hits' TTFT against the
+   re-prefills' and the demotion and promotion ms a block.
+3e. **serve_lora** (slice 19) — GPT-2 124M serving three LoRA tenants
+   (ranks 4, 8, 16 from ``lora_init``, their b moved off zero) and the
+   base model in one batch of 8 staggered requests, greedy and sampled:
+   every stream equal to a dedicated engine serving its tenant's merged
+   weights up to near-ties (the merged model's dense top-2 gap, or its
+   perturbed gap, < 1e-3); every decode call at the smallest rank
+   bucket covering the adapters bound then (buckets 16, 8 and 4 all
+   used); every pin released; K4 == 12 x (decode steps + prefills) in
+   every run. Reported: the same greedy batch with int8 weights under
+   the adapters.
 4. **train** — GPT-2 124M (f32, random weights from seed 0, every
    dropout rate 0) trained by the port's ``Trainer`` with AdamW (lr
    5e-5, decay 0.01, clip 1.0) on ``SummarizationDataset.synthetic``
@@ -304,14 +339,18 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    must drop), the document's last logits within 1e-4, K4 == layers x
    decode calls (+ prefills off sp) a rank; a steady decode window timed
    and profiled (the ``collective:*`` share). Since slice
-   18 gpt2_moe_ep2tp2 is cut to 6 layers. A rank that raises or dies
+   18 gpt2_moe_ep2tp2 is cut to 6 layers. Since slice 19, for the
+   script's time limit, every GPT-2 training run cut to 6 layers is cut
+   to 4, the sp and vp GPT-2 runs and the GPT-2 serving mesh runs to 6,
+   and the Llama training runs to 2 layers. A rank that raises or dies
    fails the phase.
 
 Then one JSON line of each phase's wall seconds (the mesh phase's
 single-rank references also on a line of their own), one of
 per-kernel numbers (K4 once per variant the
 serve phases launched and path, the f32 pool's with the serve and
-serve_sampled runs' launches; K1-K3 in f32 with the train, lora_train,
+serve_sampled runs' launches (and since slice 19 serve_wq's, serve_tier's
+and serve_lora's f32-pool runs'); K1-K3 in f32 with the train, lora_train,
 resume, llama_train and llama_packed phases' launches and every f32 mesh
 rank's
 together, in bf16 with the train_bf16 and llama_train_bf16 phases' and
@@ -1486,7 +1525,10 @@ def _check_serve_run(eng, cfg, rids, launches):
     L = _depth(cfg)
     expected = L * (m.decode_steps + m.admitted)
     by_path = {"decode": L * m.decode_steps, "prefill": L * m.admitted}
-    if (launches["total"] != expected
+    # the CPU (the rehearsals in tests/test_torch_chip_smoke.py) runs the
+    # kernel's plain version, which launches nothing
+    if torch.device(DEVICE).type == "cuda" and (
+            launches["total"] != expected
             or launches["by_variant"] != {variant: expected}
             or launches["by_path"] != by_path):
         raise AssertionError(
@@ -1514,6 +1556,8 @@ def _serve_numbers(eng, rids, prompts, steps):
             "decode_only_steps": len(decode_only),
             "decode_tokens_per_s": (sum(d for _, d in decode_only)
                                     / sum(w for w, _ in decode_only)),
+            "decode_step_ms_p50": float(np.median(
+                [w for w, _ in decode_only]) * 1e3),
             "ttft_p50_s": m.summary()["ttft_s"]["p50"]}
 
 
@@ -1525,14 +1569,14 @@ def _launches():
             "by_path": dict(paged_attention.launches_by_path)}
 
 
-def _serve_engine(params, cfg, kv_dtype="f32"):
+def _serve_engine(params, cfg, kv_dtype="f32", **kw):
     from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
 
     eng = ServeEngine(gpt2_family(cfg), params, device=DEVICE, max_slots=8,
-                      block_size=16, num_blocks=320, kv_dtype=kv_dtype)
+                      block_size=16, num_blocks=320, kv_dtype=kv_dtype, **kw)
     t0 = time.perf_counter()
     eng.warmup()
-    torch.cuda.synchronize()
+    _sync()
     return eng, time.perf_counter() - t0
 
 
@@ -1749,7 +1793,7 @@ def _engine_on_card(params, cfg, **kw):
           "kv_dtype": "f32", **kw}
     eng = ServeEngine(gpt2_family(cfg), params, device=DEVICE, **kw)
     eng.warmup()
-    torch.cuda.synchronize()
+    _sync()
     return eng
 
 
@@ -2283,6 +2327,546 @@ def phase_serve_kv(params, cfg, f32_streams):
 
 
 # ---------------------------------------------------------------------
+# phase 3c: packed serving weights (serve/weight_quant.py)
+# ---------------------------------------------------------------------
+
+WQ_POLICIES = ("fake_quant", "bf16", "int8", "fp8")
+# the narrow-layout rule's top-2 gap limit against the f32 dense greedy,
+# by policy: fp8 weights' rounding (e4m3: up to 2^-4 of each weight)
+# flipped a token at a gap of 0.079 on GPT-2 124M on an H100 (PERF.md
+# §6), above the limit set for narrow KV pools; fp8 is held instead by the
+# >= 90% agreement, JAX's NLL gate and the dense forward of its own
+# dequantized weights (every flip printed with its gap)
+WQ_GAP = {"bf16": NARROW_GAP, "int8": NARROW_GAP, "fp8": float("inf")}
+# |NLL - f32 NLL| of packed weights: JAX's gate (tests/test_weight_quant.py)
+WQ_NLL_LIMIT = 0.05
+# f32 / int8 bytes of the targeted block weights: JAX's gate
+WQ_BYTES_RATIO = 3.5
+
+
+def _packed(params, cfg, name):
+    """GPT-2's params with its ``weight_targets`` packed by policy
+    ``name`` (what the engine builds from ``weights_dtype=name``)."""
+    from quintnet_tpu_torch.serve import gpt2_family
+    from quintnet_tpu_torch.serve.weight_quant import (make_weight_policy,
+                                                       present_targets,
+                                                       quantize_params)
+
+    targets = present_targets(params, gpt2_family(cfg).weight_targets)
+    return quantize_params(params, targets, make_weight_policy(name))
+
+
+def _dequantized(params, family, name):
+    """``params`` with each of the family's targeted weights replaced by
+    its packed form dequantized to f32 (``w_q * w_scale``): the dense
+    model a ``weights_dtype=name`` engine serves."""
+    from quintnet_tpu_torch.serve.weight_quant import (make_weight_policy,
+                                                       present_targets,
+                                                       quantize_params)
+
+    targets = present_targets(params, family.weight_targets)
+    q = quantize_params(params, targets, make_weight_policy(name))
+    blocks = {k: dict(v) if isinstance(v, dict) else v
+              for k, v in params["blocks"].items()}
+    for part, leaf in targets:
+        node = q["blocks"][part][leaf]
+        w = node["w"].float()
+        if "w_scale" in node:
+            w = w * node["w_scale"].unsqueeze(-2)
+        blocks[part][leaf] = {**params["blocks"][part][leaf], "w": w}
+    return {**params, "blocks": blocks}
+
+
+def _check_own_dense(params, family, cfg, eng, rids, prompts, name):
+    """The packed engine's greedy streams against the dense forward of
+    its own dequantized weights, under the serve rule (a flip only at a
+    top-2 gap < ``F32_GAP``): the packed path serves its model."""
+    own = _dequantized(params, family, name)
+    checked, near = _check_against_dense(own, cfg, eng, rids, prompts,
+                                         F32_GAP)
+    del own
+    return {"tokens_checked_vs_own_dense": checked,
+            "near_ties_vs_own_dense": near}
+
+
+def _free_card() -> None:
+    if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def phase_serve_wq(params, cfg, f32_streams):
+    """GPT-2 124M served with the block matmuls' weights packed by each
+    layout policy (``weights_dtype``: fake_quant, bf16, int8, fp8) on
+    the serve phase's script from an f32 pool, counts zeroed just before
+    each run and read just after (K4 as the serve phase counts it):
+    fake_quant's streams equal the f32 run's bit for bit; bf16, int8 and
+    fp8 against the dense forward of their own dequantized weights under
+    the serve rule (a flip only at a top-2 gap < 1e-3), and against the
+    f32 dense greedy under the narrow-layout rule (>= 90% of tokens
+    equal; a flip only at a gap < 0.05 for bf16 and int8, ``WQ_GAP``).
+    Then
+    teacher-forced NLL through an f32 pool (``paged_eval_nll``, 4 rows x
+    256 tokens) with the weights packed: fake_quant's equal to f32's,
+    int8's and fp8's within 0.05 of it; and the targeted weights' bytes,
+    f32 / int8 >= 3.5. Returns (results, each run's K4 launches by
+    path)."""
+    from quintnet_tpu_torch.ops.paged_attention import paged_attention
+    from quintnet_tpu_torch.serve import KVPool, gpt2_family
+    from quintnet_tpu_torch.serve.kv_quant import paged_eval_nll
+    from quintnet_tpu_torch.serve.weight_quant import (present_targets,
+                                                       weight_bytes)
+
+    out, runs = {}, []
+    for name in WQ_POLICIES:
+        eng, warmup_s = _serve_engine(params, cfg, weights_dtype=name)
+        # this policy's main path: counts zeroed just before, read after
+        _zero_counts()
+        rids, prompts, steps, _rng = _serve_script(eng, cfg)
+        launches = _launches()
+        _check_serve_run(eng, cfg, rids, launches)
+        res = {"phase": "serve_wq", "weights_dtype": name,
+               "model": "gpt2-124M (random init, seed 0)",
+               "kv_dtype": "f32", "weight_bytes": eng.weight_bytes,
+               "warmup_s": warmup_s, "launches": launches}
+        if name == "fake_quant":
+            if not all(np.array_equal(eng.result(r), w)
+                       for r, w in zip(rids, f32_streams)):
+                raise AssertionError("fake_quant weights: token streams "
+                                     "differ from the f32 run's")
+            res["streams_identical_to_f32"] = True
+        else:
+            res.update(_check_own_dense(params, gpt2_family(cfg), cfg, eng,
+                                        rids, prompts, name))
+            checked, mism = _check_against_dense(params, cfg, eng, rids,
+                                                 prompts, WQ_GAP[name])
+            agree = 1.0 - len(mism) / checked
+            res.update({"tokens_checked_vs_dense": checked,
+                        "agree_with_dense": agree, "mismatches": mism,
+                        "gap_limit": WQ_GAP[name]})
+            if agree < 0.9:
+                raise AssertionError(f"{name} weights: {agree:.3f} of "
+                                     f"tokens agree with the dense greedy "
+                                     f"(< 0.9)")
+        res.update(_serve_numbers(eng, rids, prompts, steps))
+        _emit(res)
+        runs.append(launches["by_path"])
+        out[name] = res
+        del eng
+        _free_card()
+
+    targets = present_targets(params, gpt2_family(cfg).weight_targets)
+    f32_bytes = weight_bytes(params, targets)
+    ratio = f32_bytes / out["int8"]["weight_bytes"]
+    if ratio < WQ_BYTES_RATIO:
+        raise AssertionError(f"f32 / int8 weight bytes {ratio} < "
+                             f"{WQ_BYTES_RATIO}")
+    # teacher-forced NLL through the pool with the weights packed
+    rows = np.random.default_rng(7).integers(
+        0, cfg.vocab_size, (NLL_ROWS, NLL_LEN)).astype(np.int32)
+    nll = {}
+    for name in ("f32",) + WQ_POLICIES:
+        pool = KVPool(n_layers=cfg.n_layer, n_kv_heads=cfg.n_head,
+                      head_dim=cfg.n_embd // cfg.n_head, block_size=16,
+                      num_blocks=1 + NLL_ROWS * NLL_LEN // 16,
+                      device=DEVICE)
+        _zero_counts()
+        nll[name] = paged_eval_nll(gpt2_family(cfg),
+                                   _packed(params, cfg, name), pool, rows)
+        launched = dict(paged_attention.launches_by_variant)
+        if torch.device(DEVICE).type == "cuda" and launched != {
+                "f32": cfg.n_layer}:
+            raise AssertionError(f"paged_eval_nll {name} weights: "
+                                 f"launches {launched}")
+    if nll["fake_quant"] != nll["f32"]:
+        raise AssertionError(f"fake_quant weights' NLL {nll['fake_quant']}"
+                             f" != f32's {nll['f32']}")
+    for name in ("int8", "fp8"):
+        if not abs(nll[name] - nll["f32"]) <= WQ_NLL_LIMIT:
+            raise AssertionError(f"{name} weights' NLL {nll[name]} vs f32 "
+                                 f"{nll['f32']}: |delta| > {WQ_NLL_LIMIT}")
+    summary = {"phase": "serve_wq_nll", "rows": NLL_ROWS,
+               "tokens": NLL_LEN, "paged_eval_nll": nll,
+               "gate": WQ_NLL_LIMIT, "weight_bytes": {
+                   "f32": f32_bytes, **{n: out[n]["weight_bytes"]
+                                        for n in WQ_POLICIES}},
+               "f32_over_int8_bytes": ratio}
+    _emit(summary)
+    out["nll"] = summary
+    return out, runs
+
+
+# ---------------------------------------------------------------------
+# phase 3d: the host KV tier (serve/kv_tier.py)
+# ---------------------------------------------------------------------
+
+# three shared 256-token prefixes, each request one of them + its own
+# 32-token tail and 16 new tokens, one request at a time, three rounds:
+# a request needs 19 blocks of 16, the tier engine's pool holds 40, so
+# each round's third prefix evicts (demotes) the oldest chain and the
+# next round finds it in the host tier
+TIER_PREFIX, TIER_TAIL, TIER_NEW, TIER_ROUNDS = 256, 32, 16, 3
+TIER_BLOCKS = 41
+TIER_BYTES = 1 << 30
+
+
+def _tier_prompts(cfg):
+    rng = np.random.default_rng(51)
+    prefixes = [rng.integers(0, cfg.vocab_size, TIER_PREFIX).astype(np.int32)
+                for _ in range(3)]
+    return [np.concatenate([prefixes[i % 3], rng.integers(
+        0, cfg.vocab_size, TIER_TAIL).astype(np.int32)])
+        for i in range(3 * TIER_ROUNDS)]
+
+
+def _one_at_a_time(eng, prompts):
+    """Each request alone, run to its end: (rids, streams, TTFT s
+    each)."""
+    rids, streams, ttfts = [], [], []
+    for prompt in prompts:
+        rid = eng.submit(prompt, TIER_NEW)
+        while eng.has_work:
+            eng.step()
+        req = eng.request(rid)
+        rids.append(rid)
+        streams.append(eng.result(rid))
+        ttfts.append(req.first_token_time - req.submit_time)
+    return rids, streams, ttfts
+
+
+def _record_bytes(t):
+    return t.contiguous().view(torch.uint8)
+
+
+def _tier_round_trip(eng, tokens):
+    """The published chain of ``tokens`` exported from the device, every
+    cached block then evicted (demoted), the chain promoted back and
+    exported again: the records (K/V as stored, and the scale rows)
+    byte-equal. Returns (blocks, demote ms a block, promote ms a
+    block)."""
+    pool, tier = eng.pool, eng.kv_tier
+    before = pool.export_chain(tokens)
+    n = len(before["blocks"])
+    d0 = tier.demotions
+    _sync()
+    t0 = time.perf_counter()
+    held = pool.acquire(pool.num_available)     # evicts every cached block
+    _sync()
+    demote_s = time.perf_counter() - t0
+    pool.release(held)
+    demoted = tier.demotions - d0
+    covered, keys = pool.plan_promotion(tokens)
+    if len(keys) != n or covered != before["n_tokens"]:
+        raise AssertionError(f"host tier holds {len(keys)} of the chain's "
+                             f"{n} blocks ({covered} tokens)")
+    _sync()
+    t0 = time.perf_counter()
+    taken, promoted = pool.promote_chain(keys)
+    _sync()
+    promote_s = time.perf_counter() - t0
+    after = pool.export_chain(tokens)
+    if promoted != n or len(after["blocks"]) != n:
+        raise AssertionError(f"promoted {promoted} of {n} blocks")
+    for a, b in zip(before["blocks"], after["blocks"]):
+        for f in a:
+            same = (a[f] == b[f] if f == "fill" else torch.equal(
+                _record_bytes(a[f]), _record_bytes(b[f])))
+            if not same:
+                raise AssertionError(f"demoted and promoted block's {f} "
+                                     f"differs from the block before")
+    return n, demote_s * 1e3 / max(demoted, 1), promote_s * 1e3 / n
+
+
+def _check_k4(eng, cfg, launches):
+    """K4 of one engine run: layers x (decode steps + prefills) by path,
+    all in the pool's variant (on the card)."""
+    m = eng.metrics
+    L = _depth(cfg)
+    want = {"decode": L * m.decode_steps, "prefill": L * m.admitted}
+    if torch.device(DEVICE).type == "cuda":
+        _check_launches(launches, _variant(eng.pool), want)
+    return want
+
+
+def phase_serve_tier(params, cfg):
+    """GPT-2 124M with the prefix cache and a host tier
+    (``kv_tier_bytes``, the default promote budget of 4 blocks a step)
+    on a pool of 40 blocks: three rounds of three 256-token prefixes,
+    each request alone (``TIER_*``), counts zeroed just before and read
+    just after. Gates: demotions, promotions and host-hit tokens > 0,
+    ``_decode_blocked_demotions`` == 0; the streams equal bit for bit
+    those of an engine whose pool (320 blocks) never evicts (the same
+    calls on the bytes the tier restores), and the dense greedy up to
+    near-ties (``F32_GAP``); the same pool with the tier off (which
+    re-prefills the evicted prefixes in other call shapes) up to
+    near-ties; K4 == 12 x (decode steps + prefills). Then a chain
+    demoted and promoted back byte for byte, from the f32 pool and from
+    an int8 pool (the scale rows too). Reported: each request's TTFT,
+    host hit against the tier-off re-prefill, and the demotion and
+    promotion ms a block."""
+    prompts = _tier_prompts(cfg)
+    engines = {
+        "tier": _engine_on_card(params, cfg, num_blocks=TIER_BLOCKS,
+                                kv_tier_bytes=TIER_BYTES),
+        "no_tier": _engine_on_card(params, cfg, num_blocks=TIER_BLOCKS),
+        "never_evicts": _engine_on_card(params, cfg),
+    }
+    res = {"phase": "serve_tier", "model": "gpt2-124M (random init, seed 0)",
+           "prefix_tokens": TIER_PREFIX, "tail_tokens": TIER_TAIL,
+           "new_tokens": TIER_NEW, "requests": len(prompts),
+           "pool_blocks": TIER_BLOCKS - 1, "runs": {}}
+    streams, rids, runs = {}, {}, []
+    for name, eng in engines.items():
+        _zero_counts()
+        rids[name], streams[name], ttfts = _one_at_a_time(eng, prompts)
+        want = _check_k4(eng, cfg, _launches())
+        runs.append(want)
+        res["runs"][name] = {"ttft_ms": [t * 1e3 for t in ttfts],
+                             "cache_evictions": eng.pool.cache_evictions,
+                             "launches_by_path": want}
+    on = engines["tier"]
+    tier, m = on.kv_tier, on.metrics.summary()
+    if not (tier.demotions > 0 and tier.promotions > 0
+            and m["host_hit_tokens"] > 0):
+        raise AssertionError(f"the tier saw no traffic: {tier.summary()}")
+    if on._decode_blocked_demotions != 0:
+        raise AssertionError(f"{on._decode_blocked_demotions} demotions "
+                             f"during a decode dispatch")
+    if engines["never_evicts"].pool.cache_evictions != 0:
+        raise AssertionError("the reference pool evicted")
+    first = _first_divergence(streams["tier"], streams["never_evicts"])
+    if first is not None:
+        raise AssertionError(f"tier-on stream differs from the never-"
+                             f"evicting pool's at (request, position) "
+                             f"{first}")
+    agree, compared, div = _near_tie_compare(
+        params, cfg, streams["no_tier"], streams["tier"], prompts)
+    checked, near = _check_against_dense(params, cfg, on, rids["tier"],
+                                         prompts, F32_GAP)
+    res.update({"tier": tier.summary(), "host_hit_tokens":
+                m["host_hit_tokens"],
+                "decode_blocked_demotions": on._decode_blocked_demotions,
+                "streams_identical_to_never_evicting_pool": True,
+                "tokens_agreeing_tier_off_same_pool": agree,
+                "tokens_compared": compared,
+                "divergences_at_near_ties": div,
+                "tokens_checked_vs_dense": checked, "near_ties": near})
+    # TTFT: the later rounds host-hit with the tier and re-prefill without
+    hits = range(3, len(prompts))
+    res["ttft_ms_p50_host_hit"] = float(np.median(
+        [res["runs"]["tier"]["ttft_ms"][i] for i in hits]))
+    res["ttft_ms_p50_reprefill"] = float(np.median(
+        [res["runs"]["no_tier"]["ttft_ms"][i] for i in hits]))
+    last = streams["tier"][-1][:-1]
+    n, demote_ms, promote_ms = _tier_round_trip(on, last)
+    res["round_trip"] = {"f32": {"blocks": n, "demote_ms_per_block":
+                                 demote_ms, "promote_ms_per_block":
+                                 promote_ms}}
+    del engines
+    _free_card()
+    # an int8 pool: one request, then the round trip (scales included)
+    eng = _engine_on_card(params, cfg, num_blocks=TIER_BLOCKS,
+                          kv_tier_bytes=TIER_BYTES, kv_dtype="int8")
+    _zero_counts()
+    _, out, _ = _one_at_a_time(eng, prompts[:1])
+    res["runs"]["int8_tier"] = {"launches_by_path": _check_k4(
+        eng, cfg, _launches())}
+    n, demote_ms, promote_ms = _tier_round_trip(eng, out[0][:-1])
+    res["round_trip"]["int8"] = {"blocks": n, "demote_ms_per_block":
+                                 demote_ms, "promote_ms_per_block":
+                                 promote_ms}
+    del eng
+    _free_card()
+    _emit(res)
+    return res, runs
+
+
+# ---------------------------------------------------------------------
+# phase 3e: multi-tenant LoRA (serve/adapters.py)
+# ---------------------------------------------------------------------
+
+# three tenants (adapters of ranks 4, 8, 16 on qkv/proj/fc from
+# lora_init at these seeds, b moved off zero) and the base model, 8
+# requests of 33-150 tokens arriving over 10 steps, 24 new tokens each:
+# rank 16 is bound first and retires first, so the decode bucket steps
+# down 16 -> 8 -> 4 near the end
+LORA_TENANTS = (("t4", 4, 101), ("t8", 8, 102), ("t16", 16, 103))
+LORA_AIDS = ("t16", "t8", None, "t4", "t16", None, "t8", "t4")
+LORA_LENS = (40, 96, 64, 150, 72, 33, 120, 80)
+LORA_ARRIVALS = (0, 0, 0, 2, 4, 6, 8, 10)
+LORA_SEEDS = tuple(range(400, 408))
+LORA_NEW = 24
+LORA_B_STD = 0.02
+LORA_SEQ, LORA_MAX_RANK = 256, 16
+
+
+def _lora_tenants(params):
+    """id -> (adapter tree on the card, LoRAConfig)."""
+    from quintnet_tpu_torch.models.lora import LoRAConfig, lora_init
+    from quintnet_tpu_torch.serve.adapters import (adapter_factor_paths,
+                                                   tree_at)
+
+    out = {}
+    for aid, rank, seed in LORA_TENANTS:
+        lcfg = LoRAConfig(rank=rank, alpha=2.0 * rank)
+        gen = torch.Generator(device=DEVICE).manual_seed(seed)
+        lora = lora_init(gen, params["blocks"], lcfg)
+        for path in adapter_factor_paths(lora):
+            node = tree_at(lora, path)
+            node["b"] = torch.randn(node["b"].shape, generator=gen,
+                                    device=DEVICE) * LORA_B_STD
+        out[aid] = (lora, lcfg)
+    return out
+
+
+def _lora_traffic(eng, prompts):
+    """``LORA_AIDS``' requests at ``LORA_ARRIVALS`` steps, each at its
+    seed; every decode call's rank bucket recorded beside the largest
+    rank bound then. Returns (streams, [(bucket, bound rank)])."""
+    calls = []
+    decode = eng._decode
+
+    def recorded(*a, **k):
+        top = max((int(eng._slot_rank[s]) for s in eng._active_slots()),
+                  default=0)
+        calls.append((eng._decode_rank_bucket(), top))
+        return decode(*a, **k)
+
+    eng._decode = recorded
+    rids, done, step = {}, 0, 0
+    while done < len(prompts) or eng.has_work:
+        while done < len(prompts) and LORA_ARRIVALS[done] <= step:
+            rids[done] = eng.submit(prompts[done], LORA_NEW,
+                                    seed=LORA_SEEDS[done],
+                                    adapter_id=LORA_AIDS[done])
+            done += 1
+        eng.step()
+        step += 1
+    return [eng.result(rids[i]) for i in range(len(prompts))], calls
+
+
+def _check_buckets(eng, calls):
+    """Each decode call at the smallest ladder bucket covering the
+    largest rank bound then; returns the calls per bucket."""
+    for bucket, top in calls:
+        want = min(b for b in eng.lora_rank_buckets if b >= top)
+        if bucket != want:
+            raise AssertionError(f"decode at rank bucket {bucket} with "
+                                 f"rank {top} bound (want {want})")
+    return dict(collections.Counter(b for b, _ in calls))
+
+
+def _lora_dedicated(params, cfg, tenants, got, prompts, mode_kw):
+    """Each tenant's requests against a dedicated engine serving its
+    ``lora_merge_tree`` weights (the base model's against the plain
+    weights), at the same seeds: equal up to near-ties (the dense top-2
+    gap of the merged model < ``F32_GAP`` greedy, the perturbed gap
+    sampled). Returns (per tenant: agreeing, compared, divergences,
+    the K4 launches by path of its run)."""
+    from quintnet_tpu_torch.models.lora import lora_merge_tree
+
+    out = {}
+    for aid in ("t4", "t8", "t16", None):
+        idx = [i for i, a in enumerate(LORA_AIDS) if a == aid]
+        merged = (params if aid is None else
+                  lora_merge_tree(params, *tenants[aid]))
+        eng = _engine_on_card(merged, cfg, max_seq_len=LORA_SEQ, **mode_kw)
+        _zero_counts()
+        want, _ = _run_requests(eng, [prompts[i] for i in idx],
+                                [LORA_NEW] * len(idx),
+                                [LORA_SEEDS[i] for i in idx])
+        launches = _check_k4(eng, cfg, _launches())
+        seeds = [LORA_SEEDS[i] for i in idx] if mode_kw else None
+        agree, compared, div = _near_tie_compare(
+            merged, cfg, [got[i] for i in idx], want,
+            [prompts[i] for i in idx], seeds)
+        out[aid or "base"] = {"tokens_agreeing": agree,
+                              "tokens_compared": compared,
+                              "divergences_at_near_ties": div,
+                              "launches_by_path": launches}
+        del eng, merged
+        _free_card()
+    return out
+
+
+def _common_prefix(a, b) -> int:
+    """Tokens two streams share before their first difference."""
+    n = min(len(a), len(b))
+    d = np.nonzero(a[:n] != b[:n])[0]
+    return n if d.size == 0 else int(d[0])
+
+
+def phase_serve_lora(params, cfg):
+    """GPT-2 124M serving three LoRA tenants (ranks 4, 8, 16; ``LORA_*``)
+    and the base model in one heterogeneous batch with staggered
+    arrivals, greedy and sampled (``SAMPLED``), from an f32 pool, counts
+    zeroed just before each run and read just after. Gates: every
+    stream equals a dedicated engine serving its tenant's merged weights
+    up to near-ties; each decode call at the smallest rank bucket that
+    covers the adapters bound then; every pin released at retire; K4 ==
+    12 x (decode steps + prefills) in every run. Reported, not gated: the
+    same greedy batch with int8 weights under the adapters (the delta in
+    full precision on top), its agreement with the f32 batch."""
+    from quintnet_tpu_torch.serve import AdapterRegistry
+
+    rng = np.random.default_rng(61)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in LORA_LENS]
+    tenants = _lora_tenants(params)
+    res = {"phase": "serve_lora", "model": "gpt2-124M (random init, seed 0)",
+           "tenants": {aid: rank for aid, rank, _ in LORA_TENANTS},
+           "requests": list(LORA_AIDS), "prompt_lens": list(LORA_LENS),
+           "max_new_tokens": LORA_NEW, "runs": {}}
+    runs, f32_greedy = [], None
+    for mode, mode_kw, wkw in (("greedy", {}, {}), ("sampled", SAMPLED, {}),
+                               ("greedy_int8_weights", {},
+                                {"weights_dtype": "int8"})):
+        reg = AdapterRegistry()
+        for aid, (lora, lcfg) in tenants.items():
+            reg.register(aid, tree=lora, cfg=lcfg)
+        eng = _engine_on_card(params, cfg, adapters=reg,
+                              max_seq_len=LORA_SEQ,
+                              lora_max_rank=LORA_MAX_RANK, **mode_kw, **wkw)
+        _zero_counts()
+        _sync()
+        t0 = time.perf_counter()
+        got, calls = _lora_traffic(eng, prompts)
+        _sync()
+        wall = time.perf_counter() - t0
+        launches = _check_k4(eng, cfg, _launches())
+        runs.append(launches)
+        pinned = {a: reg.entry(a).refs for a in reg.adapter_ids}
+        if any(pinned.values()):
+            raise AssertionError(f"pins left after retire: {pinned}")
+        run = {"wall_s": wall, "launches_by_path": launches,
+               "decode_calls_by_rank_bucket": _check_buckets(eng, calls),
+               "peak_running": eng.metrics.peak_running,
+               "per_adapter": {a: {k: v for k, v in d.items()
+                                   if k in ("requests", "gen_tokens")}
+                               for a, d in eng.metrics.summary()[
+                                   "adapters"].items()},
+               "weight_bytes": eng.weight_bytes}
+        if mode == "greedy_int8_weights":
+            run["new_tokens_equal_to_f32_run"] = [
+                _common_prefix(g, w) - len(p)
+                for g, w, p in zip(got, f32_greedy, prompts)]
+        else:
+            run["vs_dedicated_merged"] = _lora_dedicated(
+                params, cfg, tenants, got, prompts, mode_kw)
+            runs += [d["launches_by_path"]
+                     for d in run["vs_dedicated_merged"].values()]
+        if mode == "greedy":
+            f32_greedy = got
+            if len(run["decode_calls_by_rank_bucket"]) < 2:
+                raise AssertionError("the decode rank bucket never "
+                                     "changed with the bound adapters")
+        res["runs"][mode] = run
+        del eng, reg
+        _free_card()
+    _emit(res)
+    return res, runs
+
+
+# ---------------------------------------------------------------------
 # phase 3b: Llama-3.2-1B served through K4's GQA path
 # ---------------------------------------------------------------------
 
@@ -2363,6 +2947,8 @@ def phase_serve_llama():
                         {"decode": L * m.decode_steps,
                          "prefill": L * m.admitted})
         run = {"kv_dtype": eng.kv_policy.name, "warmup_s": warm,
+               "weights_dtype": eng.weights_dtype,
+               "weight_bytes": eng.weight_bytes,
                "launches_by_path": launches["by_path"]}
         run.update(_serve_numbers(eng, rids, prompts, steps))
         by_variant.setdefault(_variant(eng.pool), collections.Counter()
@@ -2395,6 +2981,23 @@ def phase_serve_llama():
     if agree < 0.9:
         raise AssertionError(f"int8 Llama: {agree} of tokens agree with "
                              f"the dense greedy (< 0.9)")
+    del eng
+    torch.cuda.empty_cache()
+    # serve_wq on Llama: int8 weights (q/k/v/o, gate/up/down packed once),
+    # the f32 pool, the narrow-layout rule against the f32 dense greedy
+    eng, rids = main_path("greedy_int8_weights", NARROW_GAP,
+                          weights_dtype="int8")
+    run = res["runs"]["greedy_int8_weights"]
+    run.update(_check_own_dense(params, eng.family, cfg, eng, rids,
+                                prompts, "int8"))
+    if run["agree_with_dense"] < 0.9:
+        raise AssertionError(f"int8-weight Llama: {run['agree_with_dense']}"
+                             f" of tokens agree with the dense greedy "
+                             f"(< 0.9)")
+    run["f32_over_int8_weight_bytes"] = (
+        res["runs"]["greedy_f32"]["weight_bytes"] / run["weight_bytes"])
+    run["decode_step_ms_p50_f32"] = res["runs"]["greedy_f32"][
+        "decode_step_ms_p50"]
     del eng
     torch.cuda.empty_cache()
 
@@ -3488,24 +4091,25 @@ def phase_resume():
 # ``gpt2_generate_tp`` that many greedy tokens from the vocab-sharded
 # parameters, held to one device's ``gpt2_generate``)
 MESH_RUNS = {
-    "dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"layers": 6}),
-    "tp2": ([2], ["tp"], 2, 64, "afab", "adamw", {"layers": 6}),
-    "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw", {"layers": 6}),
+    "dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"layers": 4}),
+    "tp2": ([2], ["tp"], 2, 64, "afab", "adamw", {"layers": 4}),
+    "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw", {"layers": 4}),
     "fsdp_dp2": ([2], ["dp"], 1, 64, "afab", "adamw",
-                 {"fsdp": True, "layers": 6}),
+                 {"fsdp": True, "layers": 4}),
     "fsdp_dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw",
-                    {"fsdp": True, "layers": 6}),
-    "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw", {"layers": 6}),
+                    {"fsdp": True, "layers": 4}),
+    "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw", {"layers": 4}),
     "dp2pp2_stored_zero2": ([2, 2], ["dp", "pp"], 4, 16, "1f1b_stored",
-                            "zero2_adamw", {"layers": 6}),
+                            "zero2_adamw", {"layers": 4}),
     "3d_1f1b_zero1": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
-                      "zero1_adamw", {"save": True, "layers": 6}),
+                      "zero1_adamw", {"save": True, "layers": 4}),
     "3d_ckpt_resume": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
                        "zero1_adamw", {"resume": "3d_1f1b_zero1",
-                                       "layers": 6}),
+                                       "layers": 4}),
     "3d_bf16": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b", "zero1_adamw",
-                {"dtype": "bfloat16", "layers": 6}),
-    # Llama-3.2-1B widths cut to 4 layers (2 with experts), rows of 1,024
+                {"dtype": "bfloat16", "layers": 4}),
+    # Llama-3.2-1B widths cut to 2 layers (4 before slice 19), rows of
+    # 1,024
     "llama_tp2": ([2], ["tp"], 2, 8, "afab", "adamw", {"model": "llama"}),
     "llama_fsdp_dp2": ([2], ["dp"], 1, 8, "afab", "adamw",
                        {"model": "llama", "fsdp": True}),
@@ -3514,29 +4118,33 @@ MESH_RUNS = {
     "llama_dp2pp2_1f1b_zero1": ([2, 2], ["dp", "pp"], 2, 8, "1f1b",
                                 "zero1_adamw", {"model": "llama"}),
     # GPT-2 124M, 8 mlp experts a block, top-2; cut to 6 layers since
-    # the serving mesh runs joined the mesh phase (script time)
+    # the serving mesh runs joined the mesh phase, to 4 since slice 19
+    # (script time)
     "gpt2_moe_ep2tp2": ([2, 2], ["ep", "tp"], 1, 8, "afab", "adamw",
-                        {"model": "gpt2_moe", "layers": 6}),
-    # sequence parallel: GPT-2 124M uncut at its 1,024 positions, 512 a
-    # rank, in each mode; Llama-3.2-1B widths (4 layers) by Ulysses
+                        {"model": "gpt2_moe", "layers": 4}),
+    # sequence parallel: GPT-2 124M widths at its 1,024 positions, 512 a
+    # rank, in each mode, cut to 6 layers since slice 19 (script time);
+    # Llama-3.2-1B widths (2 layers) by Ulysses
     "sp2_ring": ([2], ["sp"], 2, 8, "afab", "adamw",
-                 {"model": "gpt2_1k", "sp_mode": "ring"}),
+                 {"model": "gpt2_1k", "sp_mode": "ring", "layers": 6}),
     "sp2_zigzag": ([2], ["sp"], 2, 8, "afab", "adamw",
-                   {"model": "gpt2_1k", "sp_mode": "zigzag"}),
+                   {"model": "gpt2_1k", "sp_mode": "zigzag", "layers": 6}),
     "sp2_ulysses": ([2], ["sp"], 2, 8, "afab", "adamw",
-                    {"model": "gpt2_1k", "sp_mode": "ulysses"}),
+                    {"model": "gpt2_1k", "sp_mode": "ulysses", "layers": 6}),
     "llama_sp2_ulysses": ([2], ["sp"], 2, 8, "afab", "adamw",
                           {"model": "llama", "sp_mode": "ulysses"}),
-    # vocab parallel: GPT-2 124M uncut, its table padded 50,257 -> 50,304
-    # rows (25,152 a rank), then 16 greedy tokens by gpt2_generate_tp;
-    # Llama-3.2-1B widths at 4 layers (128,256 rows, 64,128 a rank); GPT-2
-    # at 6 layers on tp x sp by Ulysses (clm_loss_vp with the sp shift)
+    # vocab parallel: GPT-2 124M widths (6 layers since slice 19), its
+    # table padded 50,257 -> 50,304 rows (25,152 a rank), then 16 greedy
+    # tokens by gpt2_generate_tp; Llama-3.2-1B widths at 2 layers (128,256
+    # rows, 64,128 a rank); GPT-2 at 4 layers on tp x sp by Ulysses
+    # (clm_loss_vp with the sp shift)
     "vp_tp2": ([2], ["tp"], 2, 16, "afab", "adamw",
-               {"vp": True, "pad_vocab": 50304, "generate": 16}),
+               {"vp": True, "pad_vocab": 50304, "generate": 16,
+                "layers": 6}),
     "llama_vp_tp2": ([2], ["tp"], 2, 8, "afab", "adamw",
                      {"model": "llama", "vp": True}),
     "vp_tp2_sp2": ([2, 2], ["tp", "sp"], 2, 8, "afab", "adamw",
-                   {"vp": True, "pad_vocab": 50304, "layers": 6,
+                   {"vp": True, "pad_vocab": 50304, "layers": 4,
                     "sp_mode": "ulysses"}),
 }
 # model -> (what it is, its sequence length); built by _run_model
@@ -3544,7 +4152,7 @@ MESH_MODELS = {
     "gpt2": ("gpt2-124M", 512),
     "gpt2_1k": ("gpt2-124M at its 1,024 positions", 1024),
     "gpt2_moe": ("gpt2-124M with 8 mlp experts a block, top-2", 512),
-    "llama": ("Llama-3.2-1B widths cut to 4 layers", 1024),
+    "llama": ("Llama-3.2-1B widths cut to 2 layers", 1024),
     "llama_moe": ("Llama-3.2-1B widths cut to 2 layers, 8 SwiGLU experts "
                   "a block, top-2 (Mixtral's routing)", 1024),
 }
@@ -3641,7 +4249,7 @@ def _run_model(run):
         return dataclasses.replace(GPT2Config.base(), n_experts=8,
                                    expert_top_k=2, expert_capacity=tokens,
                                    n_layer=opts.get("layers", 12))
-    cfg = dataclasses.replace(LlamaConfig.llama32_1b(), n_layers=4)
+    cfg = dataclasses.replace(LlamaConfig.llama32_1b(), n_layers=2)
     if kind == "llama":
         return cfg
     return dataclasses.replace(cfg, n_layers=2, n_experts=8, expert_top_k=2,
@@ -4241,7 +4849,8 @@ SERVE_MESH_WINDOW = 6
 
 
 def _serve_mesh_cfg(model):
-    """GPT-2 124M uncut; Llama-3.2-1B widths cut to 4 layers; GPT-2 124M
+    """GPT-2 124M widths cut to 6 layers (since slice 19, script time);
+    Llama-3.2-1B widths cut to 4 layers; GPT-2 124M
     widths cut to 6 layers with 8 mlp experts a block, top-2, dropless
     (capacity factor E / k = 4: C is each call's token count, so the
     dense forward routes every token as the engine does) or,
@@ -4260,7 +4869,7 @@ def _serve_mesh_cfg(model):
     if model == "gpt2_moe_drops":
         return dataclasses.replace(GPT2Config.base(), n_layer=6,
                                    n_experts=8, expert_top_k=2)
-    return GPT2Config.base()
+    return dataclasses.replace(GPT2Config.base(), n_layer=6)
 
 
 def _serve_mesh_params(cfg, device):
@@ -4515,7 +5124,7 @@ def _check_serve_mesh(name, ranks, ref, params, cfg):
 
 
 _SERVE_MESH_MODELS = {
-    "gpt2": "gpt2-124M (random init, seed 0)",
+    "gpt2": "gpt2-124M widths cut to 6 layers (random init, seed 0)",
     "llama": "Llama-3.2-1B widths cut to 4 layers (random init, seed 0)",
     "gpt2_moe": "gpt2-124M widths cut to 6 layers, 8 mlp experts a "
                 "block, top-2, capacity factor 4 (dropless; random init, "
@@ -5345,6 +5954,10 @@ def main() -> int:
     timed("generate", phase_generate, params, cfg)
     _res, kv_runs = timed("serve_kv", phase_serve_kv, params, cfg,
                           f32_streams)
+    _res, wq_runs = timed("serve_wq", phase_serve_wq, params, cfg,
+                          f32_streams)
+    _res, tier_runs = timed("serve_tier", phase_serve_tier, params, cfg)
+    _res, lora_runs = timed("serve_lora", phase_serve_lora, params, cfg)
     del params
     torch.cuda.empty_cache()
     llama_serve = timed("serve_llama", phase_serve_llama)
@@ -5377,13 +5990,14 @@ def main() -> int:
     # (start 0); the train micro-batch for flash attention
     # the f32 pool's launches: the greedy and the sampled serve runs, the
     # spec-on runs (verify by its width's path), the chunked and widened
-    # document runs and the serving mesh ranks of GPT-2's 12 heads (sp2,
-    # ep2)
+    # document runs, the serving mesh ranks of GPT-2's 12 heads (sp2,
+    # ep2), and since slice 19 the packed-weight, host-tier and LoRA runs
     serve_paged = mesh_counts["serve_paged"]
     f32_runs = ([serve_res["launches_by_path"],
                  sampled_res["launches_by_path"],
                  spec_res["launches_by_path"], serve_paged.get("", {})]
-                + [r["launches_by_path"] for r in chunk_res["runs"].values()])
+                + [r["launches_by_path"] for r in chunk_res["runs"].values()]
+                + wq_runs + tier_runs + lora_runs)
     runs = {_variant_of(serve_res["launches_by_variant"]): {
         "by_path": {path: sum(r.get(path, 0) for r in f32_runs)
                     for path in PAGED_SYMBOLS}}}

@@ -1,9 +1,10 @@
 """Shape ladders the serving engine derives its programs from.
 
 The port's own copies of ``quintnet_tpu/analysis/specs.py``'s
-``prefill_buckets``, ``verify_buckets`` and ``kv_layout_policies`` (the
-JAX module is pure Python, but importing anything under ``quintnet_tpu``
-pulls in jax).
+``prefill_buckets``, ``verify_buckets``, ``kv_layout_policies``,
+``weight_layout_policies`` and ``lora_rank_buckets`` (the JAX module
+is pure Python, but importing anything under ``quintnet_tpu`` pulls in
+jax).
 """
 
 from __future__ import annotations
@@ -49,3 +50,28 @@ def kv_layout_policies() -> Tuple[str, ...]:
     absmax scales, ``fp8`` unscaled float8_e4m3fn passthrough, and the
     ``fake_quant`` identity-scale proof policy."""
     return ("f32", "bf16", "int8", "fp8", "fake_quant")
+
+
+def weight_layout_policies() -> Tuple[str, ...]:
+    """The weight layout-policy ladder (``serve/weight_quant.py``):
+    ``f32`` identity, ``bf16`` passthrough narrowing, ``int8``/``fp8``
+    with per-output-channel absmax scales, and the ``fake_quant``
+    identity-scale proof policy (bit-identical to f32)."""
+    return ("f32", "bf16", "int8", "fp8", "fake_quant")
+
+
+def lora_rank_buckets(max_rank: int, *, floor: int = 4) -> Tuple[int, ...]:
+    """The adapter-rank ladder of multi-tenant LoRA serving
+    (``serve/adapters.py``): powers of two from ``floor`` up to, and
+    capped at, ``max_rank``. A decode step runs at the smallest bucket
+    covering the largest bound adapter's rank; prefill and verify run at
+    the top bucket."""
+    if max_rank < 1:
+        raise ValueError(f"max_rank must be >= 1; got {max_rank}")
+    out = []
+    b = floor
+    while b < max_rank:
+        out.append(b)
+        b *= 2
+    out.append(max_rank)
+    return tuple(out)

@@ -67,16 +67,17 @@ from quintnet_tpu_torch.nn.attention import (apply_rope,
                                              ring_paged_prefill,
                                              rope_cos_sin, sdpa,
                                              sp_attention)
+from quintnet_tpu_torch.core import collectives as cc
 from quintnet_tpu_torch.nn.layers import (cast_floating, keep_router_f32,
-                                          linear_init, rms_norm_apply,
+                                          linear_init, lora_delta,
+                                          quantized_matmul, rms_norm_apply,
                                           rms_norm_init, swiglu_apply,
                                           swiglu_init)
 from quintnet_tpu_torch.nn.moe import MoEArgs, moe_apply, moe_init, moe_specs
 from quintnet_tpu_torch.nn.transformer import (REMAT_DOTS_ITEM,
                                                stacked_blocks_apply)
 from quintnet_tpu_torch.ops.flash_attention import flash_attention
-from quintnet_tpu_torch.parallel.tp import (row_parallel_linear,
-                                            vocab_parallel_embedding)
+from quintnet_tpu_torch.parallel.tp import vocab_parallel_embedding
 
 HF_ITEM = "ROADMAP.md §1, item 9 ('Analysis, data and tools')"
 
@@ -285,9 +286,15 @@ def llama_upcycle_to_moe(params, cfg: LlamaConfig, generator=None):
     return {**params, "blocks": blocks}
 
 
-def llama_qkv(p_attn, a_in, cfg: LlamaConfig, cos, sin, *, tp: int = 1):
+def llama_qkv(p_attn, a_in, cfg: LlamaConfig, cos, sin, *, tp: int = 1,
+              lora=None, lora_scale=None):
     """Normalised input [B, S, D] -> (q [B, Hq/tp, S, hd] rotated, k
-    [B, Hkv/tp, S, hd] rotated, v): k and v NOT repeated (GQA)."""
+    [B, Hkv/tp, S, hd] rotated, v): k and v NOT repeated (GQA). The
+    projections go through ``quantized_matmul`` (packed serving
+    weights); ``lora``/``lora_scale``: packed per-slot adapters, each
+    present q/k/v target adding its delta before the head split and the
+    rope (``nn/layers.lora_delta``). q, k, v come out transposed (not
+    contiguous)."""
     if cfg.n_heads % tp or cfg.n_kv_heads % tp:
         raise ValueError(
             f"tp={tp} must divide n_heads={cfg.n_heads} and "
@@ -296,34 +303,44 @@ def llama_qkv(p_attn, a_in, cfg: LlamaConfig, cos, sin, *, tp: int = 1):
     hd = cfg.head_dim
 
     def heads(name, n):
-        return (a_in @ p_attn[name]["w"]).reshape(b, s, n, hd).transpose(
-            1, 2)
+        y = quantized_matmul(a_in, p_attn[name])
+        if lora is not None and name in lora:
+            y = y + lora_delta(a_in, lora[name], lora_scale)
+        return y.reshape(b, s, n, hd).transpose(1, 2)
 
     q = apply_rope(heads("q", cfg.n_heads // tp), cos, sin)
     k = apply_rope(heads("k", cfg.n_kv_heads // tp), cos, sin)
     return q, k, heads("v", cfg.n_kv_heads // tp)
 
 
-def llama_attn_residual(p_attn, x, o, *, tp_axis=None):
+def llama_attn_residual(p_attn, x, o, *, tp_axis=None, lora=None,
+                        lora_scale=None):
     """Attention output [B, H, S, hd] -> o projection (one sum over tp)
-    plus the residual."""
+    plus the residual. ``lora``: an ``o`` target adds its per-slot delta
+    before the sum."""
     b, _, s, _ = o.shape
     o = o.transpose(1, 2).reshape(b, s, -1)
-    return x + row_parallel_linear(p_attn["o"], o, axis=tp_axis)
+    y = quantized_matmul(o, p_attn["o"])
+    if lora is not None and "o" in lora:
+        y = y + lora_delta(o, lora["o"], lora_scale)
+    return x + (y if tp_axis is None else cc.all_reduce(y, tp_axis))
 
 
 def llama_mlp_residual(p, x, cfg: LlamaConfig, *, tp_axis=None,
-                       ep_axis=None, return_stats: bool = False):
+                       ep_axis=None, lora=None, lora_scale=None,
+                       return_stats: bool = False):
     """-> (x + FFN(ln2(x)), moe aux), the aux 0 for a dense block; with
     ``return_stats`` also the MoE routing stats (None for a dense
-    block)."""
+    block). ``lora``: packed per-slot gate/up/down adapters (a MoE
+    block has no LoRA targets)."""
     h = rms_norm_apply(p["ln2"], x, eps=cfg.rms_eps)
     if "moe" in p:
         y, aux, *stats = moe_apply(p["moe"], h, cfg.moe_args,
                                    ep_axis=ep_axis, tp_axis=tp_axis,
                                    return_stats=return_stats)
         return (x + y, aux, *stats)
-    out = (x + swiglu_apply(p["mlp"], h, tp_axis=tp_axis),
+    out = (x + swiglu_apply(p["mlp"], h, tp_axis=tp_axis, lora=lora,
+                            lora_scale=lora_scale),
            x.new_zeros((), dtype=torch.float32))
     return (*out, None) if return_stats else out
 
@@ -372,7 +389,8 @@ def llama_block_prefill(p, x, cfg: LlamaConfig, cos, sin, tp_axis=None):
 
 def llama_block_decode(p, x, kc, vc, pos, cfg: LlamaConfig, cos, sin,
                        tp_axis=None, ep_axis=None, block_tables=None,
-                       block_size=None, kv_scales=None, policy=None):
+                       block_size=None, lora=None, lora_scale=None,
+                       kv_scales=None, policy=None):
     """One cached token: ``x`` [B, 1, D] -> (x, caches).
 
     Dense (``block_tables=None``, the generation decoders): caches [B,
@@ -387,15 +405,19 @@ def llama_block_decode(p, x, kc, vc, pos, cfg: LlamaConfig, cos, sin,
     1, hd] per-row rope tables; ``ops.paged_attention`` takes the GQA
     group. ``kv_scales``/``policy``: a scaled KV layout
     (``serve/kv_quant.py``). ``ep_axis``: a MoE block's experts sharded
-    over ep. -> (x, (kc, vc[, k_scale, v_scale][, moe_stats]))."""
+    over ep. ``lora``/``lora_scale``: this layer's packed per-slot
+    adapters (``serve/adapters.py``), every slot's rows. -> (x, (kc,
+    vc[, k_scale, v_scale][, moe_stats]))."""
     tp = 1 if tp_axis is None else tp_axis.size
     a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
-    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp,
+                        **_lora_kw(lora, "attn", lora_scale))
     if block_tables is not None:
         o, *pools = paged_attend_decode(
             q, k, v, kc, vc, pos, block_tables=block_tables,
             block_size=block_size, kv_scales=kv_scales, policy=policy)
-        return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis)
+        return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis,
+                                lora, lora_scale)
     if kv_scales is not None:
         raise ValueError(
             "scaled KV layout policies exist only for the paged pool "
@@ -409,34 +431,48 @@ def llama_block_decode(p, x, kc, vc, pos, cfg: LlamaConfig, cos, sin,
     return x, (kc, vc)
 
 
-def _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis):
+def _lora_kw(lora, name, lora_scale):
+    """The ``attn`` or ``mlp`` part of one layer's packed adapters as
+    keyword arguments."""
+    return {"lora": None if lora is None else lora.get(name),
+            "lora_scale": lora_scale}
+
+
+def _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis, lora=None,
+                     lora_scale=None):
     """The paged blocks' tail: o projection and residual, the FFN, and
     (x, pools[ + (moe stats,)])."""
-    x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis)
+    x = llama_attn_residual(p["attn"], x, o, tp_axis=tp_axis,
+                            **_lora_kw(lora, "attn", lora_scale))
     x, _aux, stats = llama_mlp_residual(p, x, cfg, tp_axis=tp_axis,
-                                        ep_axis=ep_axis, return_stats=True)
+                                        ep_axis=ep_axis, return_stats=True,
+                                        **_lora_kw(lora, "mlp", lora_scale))
     return x, (tuple(pools) if stats is None else (*pools, stats))
 
 
 def llama_block_prefill_paged(p, x, kc, vc, positions, tail_len,
                               cfg: LlamaConfig, cos, sin, tp_axis=None,
                               ep_axis=None, block_tables=None,
-                              block_size=None, kv_scales=None, policy=None):
+                              block_size=None, lora=None, lora_scale=None,
+                              kv_scales=None, policy=None):
     """Chunked prefill over the paged pool (the serve engine's
     prefix-cached path): x [1, P, D] tail hidden states at absolute
     ``positions`` [P], caches flat pool views [N_blocks*block_size,
     Hkv(/tp), hd]; ``cos``/``sin`` [P, hd] at the SAME positions. The
     tail's UNrepeated (k, v) go through the request's table row
     ``block_tables`` [M] and each query attends causally to the whole row
-    (``nn/attention.paged_attend_prefill``). -> (x, (kc, vc[, k_scale,
-    v_scale][, moe_stats]))."""
+    (``nn/attention.paged_attend_prefill``). ``lora``: the request's
+    packed adapter rows [1, ...]. -> (x, (kc, vc[, k_scale, v_scale][,
+    moe_stats]))."""
     tp = 1 if tp_axis is None else tp_axis.size
     a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
-    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp,
+                        **_lora_kw(lora, "attn", lora_scale))
     o, *pools = paged_attend_prefill(
         q, k, v, kc, vc, positions, tail_len, block_tables=block_tables,
         block_size=block_size, kv_scales=kv_scales, policy=policy)
-    return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis)
+    return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis, lora,
+                            lora_scale)
 
 
 def llama_block_prefill_paged_sp(p, x, kc, vc, start: int, t0: int,
@@ -465,20 +501,23 @@ def llama_block_prefill_paged_sp(p, x, kc, vc, start: int, t0: int,
 def llama_block_verify_paged(p, x, kc, vc, positions, tail_lens,
                              cfg: LlamaConfig, cos, sin, tp_axis=None,
                              ep_axis=None, block_tables=None,
-                             block_size=None, kv_scales=None, policy=None):
+                             block_size=None, lora=None, lora_scale=None,
+                             kv_scales=None, policy=None):
     """Batched draft-verify block step over the paged pool: x [S, P, D]
     per-slot runs at absolute ``positions`` [S, P], ``cos``/``sin`` [S,
     1, P, hd] at the same positions, ``block_tables`` [S, M]; columns at
     or beyond ``tail_lens[s]`` are pad (``nn/attention.
-    paged_attend_verify``). -> (x, (kc, vc[, k_scale, v_scale][,
-    moe_stats]))."""
+    paged_attend_verify``); ``lora``: every slot's packed adapter rows.
+    -> (x, (kc, vc[, k_scale, v_scale][, moe_stats]))."""
     tp = 1 if tp_axis is None else tp_axis.size
     a_in = rms_norm_apply(p["ln1"], x, eps=cfg.rms_eps)
-    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp)
+    q, k, v = llama_qkv(p["attn"], a_in, cfg, cos, sin, tp=tp,
+                        **_lora_kw(lora, "attn", lora_scale))
     o, *pools = paged_attend_verify(
         q, k, v, kc, vc, positions, tail_lens, block_tables=block_tables,
         block_size=block_size, kv_scales=kv_scales, policy=policy)
-    return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis)
+    return _paged_block_out(p, x, o, pools, cfg, tp_axis, ep_axis, lora,
+                            lora_scale)
 
 
 def _positions(b, s, device, sp_axis=None):

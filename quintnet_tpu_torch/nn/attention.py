@@ -36,7 +36,9 @@ import math
 
 import torch
 
-from quintnet_tpu_torch.nn.layers import dropout, linear_apply, linear_init
+from quintnet_tpu_torch.core import collectives as cc
+from quintnet_tpu_torch.nn.layers import (dropout, linear_apply, linear_init,
+                                         lora_delta, quantized_matmul)
 from quintnet_tpu_torch.ops.flash_attention import flash_attention
 # the gathered-view reads live in the ops layer, beside the kernel's
 # plain version that uses them; re-exported here, where the JAX package
@@ -290,12 +292,30 @@ def _paged_attention_scaled(policy, k_cache, v_cache, ks, vs, q, k, v,
     return o, k_cache, v_cache, ks, vs
 
 
-def _paged_out(p, o, pools, tp_axis=None):
-    """proj of the merged heads (row-parallel under ``tp_axis``: one sum
-    over tp before the bias), then the pools the caller hands back:
-    (y, k, v) passthrough, (y, k, v, k_scale, v_scale) scaled."""
-    return (row_parallel_linear(p["proj"], _merge_heads(o), axis=tp_axis),
-            *pools)
+def _serve_qkv(p, x, num_heads: int, lora=None, lora_scale=None):
+    """The serving paths' qkv projection through ``quantized_matmul``
+    (packed weights), a packed per-slot LoRA delta on it before the head
+    split (``nn/layers.lora_delta``), then q, k, v [B, H, S, Dh]."""
+    qkv = linear_apply(p["qkv"], x)
+    if lora is not None and "qkv" in lora:
+        qkv = qkv + lora_delta(x, lora["qkv"], lora_scale)
+    return _split_heads(qkv, num_heads)
+
+
+def _paged_out(p, o, pools, tp_axis=None, lora=None, lora_scale=None):
+    """proj of the merged heads through ``quantized_matmul``, its LoRA
+    delta, one sum over tp under ``tp_axis`` (row-parallel), then the
+    bias; then the pools the caller hands back: (y, k, v) passthrough,
+    (y, k, v, k_scale, v_scale) scaled."""
+    o = _merge_heads(o)
+    y = quantized_matmul(o, p["proj"])
+    if lora is not None and "proj" in lora:
+        y = y + lora_delta(o, lora["proj"], lora_scale)
+    if tp_axis is not None:
+        y = cc.all_reduce(y, tp_axis)
+    if "b" in p["proj"]:
+        y = y + p["proj"]["b"]
+    return (y, *pools)
 
 
 def paged_attend_prefill(q, k, v, k_cache, v_cache, positions, tail_len,
@@ -371,37 +391,41 @@ def paged_attend_decode(q, k, v, k_cache, v_cache, pos, *, block_tables,
 
 def mha_prefill_paged(p, x, k_cache, v_cache, positions, tail_len, *,
                       num_heads: int, block_tables, block_size: int,
-                      tp_axis=None, kv_scales=None, policy=None):
+                      tp_axis=None, lora=None, lora_scale=None,
+                      kv_scales=None, policy=None):
     """Chunked prefill over the paged pool for ONE request: ``x``
     [1, P, D] tail hidden states at ``positions`` (``start +
     arange(P)``, int32), attended by :func:`paged_attend_prefill`.
-    ``num_heads`` is LOCAL heads under ``tp_axis``. Returns (y [1, P,
-    D], k_cache, v_cache[, k_scale, v_scale])."""
-    q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    ``num_heads`` is LOCAL heads under ``tp_axis``. ``lora``/
+    ``lora_scale``: the request's packed adapter rows [1, ...]
+    (``nn/layers.lora_delta``) on qkv and proj. Returns (y [1, P, D],
+    k_cache, v_cache[, k_scale, v_scale])."""
+    q, k, v = _serve_qkv(p, x, num_heads, lora, lora_scale)
     o, *pools = paged_attend_prefill(
         q, k, v, k_cache, v_cache, positions, tail_len,
         block_tables=block_tables, block_size=block_size,
         kv_scales=kv_scales, policy=policy)
-    return _paged_out(p, o, pools, tp_axis)
+    return _paged_out(p, o, pools, tp_axis, lora, lora_scale)
 
 
 def mha_verify_paged(p, x, k_cache, v_cache, positions, tail_lens, *,
                      num_heads: int, block_tables, block_size: int,
-                     tp_axis=None, kv_scales=None, policy=None):
+                     tp_axis=None, lora=None, lora_scale=None,
+                     kv_scales=None, policy=None):
     """Batched verify attention over the paged pool: EVERY row scores a
     short run ``x`` [S, P, D] at ``positions`` [S, P] against its own
     cached row — the decode step widened from 1 to P tokens a row (the
     teacher-forced scoring of ``serve/kv_quant.paged_eval_nll``, and
     speculative decoding's target step). Columns at or beyond
     ``tail_lens[s]`` are pad (:func:`paged_attend_verify`); ``tp_axis``
-    as :func:`mha_prefill_paged`. Returns (y [S, P, D], k_cache,
-    v_cache[, k_scale, v_scale])."""
-    q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    and ``lora`` (every slot's rows) as :func:`mha_prefill_paged`.
+    Returns (y [S, P, D], k_cache, v_cache[, k_scale, v_scale])."""
+    q, k, v = _serve_qkv(p, x, num_heads, lora, lora_scale)
     o, *pools = paged_attend_verify(
         q, k, v, k_cache, v_cache, positions, tail_lens,
         block_tables=block_tables, block_size=block_size,
         kv_scales=kv_scales, policy=policy)
-    return _paged_out(p, o, pools, tp_axis)
+    return _paged_out(p, o, pools, tp_axis, lora, lora_scale)
 
 
 # ---------------------------------------------------------------------
@@ -539,8 +563,9 @@ def mha_prefill_paged_sp(p, x, k_cache, v_cache, start: int, t0: int, *,
     [1, Pl, D] is this sp rank's slice of the chunk's hidden states, the
     attention :func:`ring_paged_prefill`; the output projection is
     position-wise and stays local. Returns (y, k_cache, v_cache[,
-    k_scale, v_scale])."""
-    q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    k_scale, v_scale]). Takes no adapters (the engine refuses adapters
+    on an sp mesh)."""
+    q, k, v = _serve_qkv(p, x, num_heads)
     o, *pools = ring_paged_prefill(
         q, k, v, start, t0, k_cache, v_cache, sp_axis=sp_axis,
         block_tables=block_tables, block_size=block_size,
@@ -564,7 +589,7 @@ def dense_cache_attend(q, k_cache, v_cache, pos: int):
 
 def mha_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
                tp_axis=None, block_tables=None, block_size=None,
-               kv_scales=None, policy=None):
+               lora=None, lora_scale=None, kv_scales=None, policy=None):
     """Single-token cached attention.
 
     Dense (the generation decoders, ``block_tables=None``): ``x``
@@ -577,10 +602,10 @@ def mha_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
 
     Paged (the serving engine): ``x`` [B, 1, D], flat pool views,
     ``pos`` [B] int32 per-row positions, ``block_tables`` [B, M] int32,
-    attended by :func:`paged_attend_decode`; ``tp_axis`` as
-    :func:`mha_prefill_paged`. Returns (y, k_cache, v_cache[, k_scale,
-    v_scale])."""
-    q, k, v = _split_heads(linear_apply(p["qkv"], x), num_heads)
+    attended by :func:`paged_attend_decode`; ``tp_axis`` and ``lora``
+    (every slot's rows) as :func:`mha_prefill_paged`. Returns (y,
+    k_cache, v_cache[, k_scale, v_scale])."""
+    q, k, v = _serve_qkv(p, x, num_heads, lora, lora_scale)
     if block_tables is None:
         if kv_scales is not None:
             raise ValueError(
@@ -594,4 +619,4 @@ def mha_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
     o, *pools = paged_attend_decode(
         q, k, v, k_cache, v_cache, pos, block_tables=block_tables,
         block_size=block_size, kv_scales=kv_scales, policy=policy)
-    return _paged_out(p, o, pools, tp_axis)
+    return _paged_out(p, o, pools, tp_axis, lora, lora_scale)

@@ -1,8 +1,10 @@
 """Core layers as apply functions over plain parameter dicts.
 
 Port of ``quintnet_tpu/nn/layers.py`` (linear, LayerNorm, RMSNorm,
-GELU, the MLP, Llama's SwiGLU, dropout, ViT's patchify and the
-mixed-precision cast, which keeps the MoE router in f32).
+GELU, the MLP, Llama's SwiGLU, dropout, ViT's patchify, the
+mixed-precision cast, which keeps the MoE router in f32, and the
+serving seams: ``quantized_matmul`` for packed weights and
+``lora_delta`` for per-slot adapters).
 Conventions carried over: parameters are dicts of tensors in the JAX
 layout — linear weights ``[in, out]`` so the forward is ``x @ w``,
 LayerNorm ``{"scale", "bias"}`` — normalisation runs in f32 whatever
@@ -17,8 +19,8 @@ import math
 import torch
 import torch.nn.functional as F
 
+from quintnet_tpu_torch.core import collectives as cc
 from quintnet_tpu_torch.core.pytree import tree_map
-from quintnet_tpu_torch.parallel.tp import row_parallel_linear
 
 
 def cast_floating(tree, dtype, *, exclude=None):
@@ -71,13 +73,50 @@ def linear_init(generator: torch.Generator, in_features: int,
             "b": u((*lead, out_features))}
 
 
+def quantized_matmul(x, node):
+    """``x @ dequant(node)``: the seam every serving matmul goes through
+    (``serve/weight_quant.py``). ``node`` is a linear param node ``{"w":
+    [.., in, out]}`` whose ``w`` MAY be packed (int8 / float8, or bf16
+    under f32 activations) and which MAY carry a per-output-channel
+    ``"w_scale"`` [.., out] f32 leaf. A weight in another dtype than
+    ``x`` is upcast to it first (torch's ``@`` does not promote the way
+    ``jnp.dot`` does; in eager mode the upcast is a full-width copy each
+    call). The scale commutes out of the contraction, so dequantization
+    is one multiply on the output: ``(x @ w_q) * scale``. Without a scale
+    and with ``w`` in ``x``'s dtype this is ``x @ w``; under the
+    fake_quant policy (f32 storage, all-ones scales) it is bit-identical
+    (``y * 1.0``). Bias and LoRA deltas are the caller's, both full
+    precision on top."""
+    w = node["w"]
+    if w.dtype != x.dtype:
+        w = w.to(x.dtype)
+    y = x @ w
+    if "w_scale" in node:
+        y = y * node["w_scale"]
+    return y
+
+
 def linear_apply(p, x):
-    """``x @ w (+ b)`` — the full-precision path of the JAX package's
-    ``quantized_matmul`` (packed weights are not ported)."""
-    y = x @ p["w"]
+    """``x @ w (+ b)`` through :func:`quantized_matmul`."""
+    y = quantized_matmul(x, p)
     if "b" in p:
         y = y + p["b"]
     return y
+
+
+def lora_delta(x, node, scale):
+    """Per-slot low-rank delta of multi-tenant LoRA serving
+    (``serve/adapters.py``): each row of the batch applies its own
+    adapter. ``x`` [S, T, in] per-slot activations; ``node`` the packed
+    adapters ``{"a": [S, in, r], "b": [S, r, out]}`` (zero rows for
+    base-model slots: a zero adapter's delta is exactly zero); ``scale``
+    [S] per-slot ``alpha / rank``. Returns ``scale_s * (x_s @ a_s) @
+    b_s`` [S, T, out] in ``x``'s dtype. Under tp a column-parallel
+    target's ``b`` arrives out-sharded (the local columns' delta) and a
+    row-parallel target's ``a`` in-sharded (a partial sum that the
+    layer's own sum over tp completes): no new collective."""
+    h = torch.bmm(x, node["a"])
+    return (torch.bmm(h, node["b"]) * scale[:, None, None]).to(x.dtype)
 
 
 def layer_norm_init(dim: int, *, device, lead=()):
@@ -124,13 +163,24 @@ def swiglu_init(generator: torch.Generator, dim: int, hidden: int, *,
             "down": w(hidden, dim)}
 
 
-def swiglu_apply(p, x, *, tp_axis=None):
+def swiglu_apply(p, x, *, tp_axis=None, lora=None, lora_scale=None):
     """``silu(x @ gate) * (x @ up) @ down``. With ``tp_axis`` (a
     :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`) gate and up are
     column-sharded [D, H/tp] and down row-sharded [H/tp, D]: one sum over
-    tp after down."""
-    h = F.silu(x @ p["gate"]["w"]) * (x @ p["up"]["w"])
-    return row_parallel_linear(p["down"], h, axis=tp_axis)
+    tp after down. ``lora``/``lora_scale``: this layer's packed per-slot
+    adapters (:func:`lora_delta`); each present target (gate, up, down)
+    adds its delta on that matmul, before the activation and the sum."""
+    g = quantized_matmul(x, p["gate"])
+    u = quantized_matmul(x, p["up"])
+    if lora is not None and "gate" in lora:
+        g = g + lora_delta(x, lora["gate"], lora_scale)
+    if lora is not None and "up" in lora:
+        u = u + lora_delta(x, lora["up"], lora_scale)
+    h = F.silu(g) * u
+    y = quantized_matmul(h, p["down"])
+    if lora is not None and "down" in lora:
+        y = y + lora_delta(h, lora["down"], lora_scale)
+    return y if tp_axis is None else cc.all_reduce(y, tp_axis)
 
 
 def dropout(generator, x, rate: float, *, deterministic: bool):
@@ -165,16 +215,27 @@ def patchify(images, patch_size: int):
 
 
 def mlp_apply(p, x, *, act=gelu, tp_axis=None, pdrop: float = 0.0,
-              generator=None):
+              generator=None, lora=None, lora_scale=None):
     """fc -> act -> proj (GPT-2's MLP with GELU, ViT's with
     ``act=torch.relu``); with ``generator``, dropout at
     ``pdrop`` on the output (the reference's post-projection dropout).
     With ``tp_axis`` (a :class:`~quintnet_tpu_torch.core.mesh.MeshAxis`)
     fc is column-sharded [D, hidden/tp] and proj row-sharded [hidden/tp,
-    D]: one sum over tp after proj, the dropout after it, so its mask
-    agrees on every tp rank."""
-    h = act(linear_apply(p["fc"], x))
-    y = row_parallel_linear(p["proj"], h, axis=tp_axis)
+    D]: one sum over tp after proj, then its bias, the dropout after it,
+    so its mask agrees on every tp rank. ``lora``/``lora_scale``: packed
+    per-slot adapters (:func:`lora_delta`), fc's delta before the
+    activation, proj's before the sum."""
+    h = linear_apply(p["fc"], x)
+    if lora is not None and "fc" in lora:
+        h = h + lora_delta(x, lora["fc"], lora_scale)
+    h = act(h)
+    y = quantized_matmul(h, p["proj"])
+    if lora is not None and "proj" in lora:
+        y = y + lora_delta(h, lora["proj"], lora_scale)
+    if tp_axis is not None:
+        y = cc.all_reduce(y, tp_axis)
+    if "b" in p["proj"]:
+        y = y + p["proj"]["b"]
     if generator is not None and pdrop > 0.0:
         y = dropout(generator, y, pdrop, deterministic=False)
     return y

@@ -197,13 +197,18 @@ def stacked_blocks_apply(stacked_params, x, *, num_heads: int = 0,
     return x
 
 
-def _serve_mlp(p, x, *, act, moe_args=None, ep_axis=None, tp_axis=None):
+def _serve_mlp(p, x, *, act, moe_args=None, ep_axis=None, tp_axis=None,
+               lora=None, lora_scale=None):
     """The MLP half of a serving block step -> ``(x, routing stats or
     None)``: a MoE block also hands back its routing counts
     (``nn/moe.moe_apply(return_stats=True)``), which the serving
-    contracts append to their return; the aux loss has no use here."""
+    contracts append to their return; the aux loss has no use here.
+    ``lora``: this layer's packed per-slot ``mlp`` adapters (MoE blocks
+    have no LoRA targets)."""
     if moe_args is None:
-        return _block_mlp(p, x, act=act, tp_axis=tp_axis), None
+        return x + mlp_apply(p["mlp"], layer_norm_apply(p["ln2"], x),
+                             act=act, tp_axis=tp_axis, lora=lora,
+                             lora_scale=lora_scale), None
     y, _aux, stats = moe_apply(p["moe"], layer_norm_apply(p["ln2"], x),
                                moe_args, ep_axis=ep_axis, tp_axis=tp_axis,
                                act=act, return_stats=True)
@@ -215,25 +220,34 @@ def _serve_out(x, pools, stats):
     return (x, *pools) if stats is None else (x, *pools, stats)
 
 
+def _sub(lora, name):
+    """The ``attn`` or ``mlp`` part of one layer's packed adapters."""
+    return None if lora is None else lora.get(name)
+
+
 def block_prefill_paged(p, x, k_cache, v_cache, positions, tail_len, *,
                         num_heads: int, act: Callable = gelu,
                         moe_args=None, ep_axis=None, tp_axis=None,
-                        block_tables, block_size: int, kv_scales=None,
-                        policy=None):
+                        block_tables, block_size: int, lora=None,
+                        lora_scale=None, kv_scales=None, policy=None):
     """Chunked-prefill block step over the paged pool (x [1, P, D] at
     absolute ``positions``). ``kv_scales``/``policy``: this layer's
     (k_scale, v_scale) views under a scaled KV layout. ``tp_axis``:
     head-sharded pool and ``num_heads`` local; ``moe_args``/``ep_axis``:
-    a MoE FFN, experts sharded over ep. Returns (x, k_cache, v_cache[,
-    k_scale, v_scale][, moe_stats]); the pool views are updated in
-    place."""
+    a MoE FFN, experts sharded over ep. ``lora``/``lora_scale``: this
+    layer's packed per-slot adapters (``serve/adapters.py``), its
+    ``attn`` part to the attention, its ``mlp`` part to the MLP. Returns
+    (x, k_cache, v_cache[, k_scale, v_scale][, moe_stats]); the pool
+    views are updated in place."""
     y, *pools = mha_prefill_paged(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache,
         positions, tail_len, num_heads=num_heads, tp_axis=tp_axis,
         block_tables=block_tables, block_size=block_size,
+        lora=_sub(lora, "attn"), lora_scale=lora_scale,
         kv_scales=kv_scales, policy=policy)
     x, stats = _serve_mlp(p, x + y, act=act, moe_args=moe_args,
-                          ep_axis=ep_axis, tp_axis=tp_axis)
+                          ep_axis=ep_axis, tp_axis=tp_axis,
+                          lora=_sub(lora, "mlp"), lora_scale=lora_scale)
     return _serve_out(x, pools, stats)
 
 
@@ -260,18 +274,21 @@ def block_prefill_paged_sp(p, x, k_cache, v_cache, start: int, t0: int, *,
 def block_verify_paged(p, x, k_cache, v_cache, positions, tail_lens, *,
                        num_heads: int, act: Callable = gelu, moe_args=None,
                        ep_axis=None, tp_axis=None, block_tables,
-                       block_size: int, kv_scales=None, policy=None):
+                       block_size: int, lora=None, lora_scale=None,
+                       kv_scales=None, policy=None):
     """Batched verify block step (x [S, P, D] per-row runs at absolute
-    ``positions`` [S, P]); ``tp_axis``, ``moe_args``, ``ep_axis`` as
-    :func:`block_prefill_paged`. Returns (x, k_cache, v_cache[, k_scale,
-    v_scale][, moe_stats]); pools updated in place."""
+    ``positions`` [S, P]); ``tp_axis``, ``moe_args``, ``ep_axis`` and
+    ``lora`` as :func:`block_prefill_paged`. Returns (x, k_cache,
+    v_cache[, k_scale, v_scale][, moe_stats]); pools updated in place."""
     y, *pools = mha_verify_paged(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache,
         positions, tail_lens, num_heads=num_heads, tp_axis=tp_axis,
         block_tables=block_tables, block_size=block_size,
+        lora=_sub(lora, "attn"), lora_scale=lora_scale,
         kv_scales=kv_scales, policy=policy)
     x, stats = _serve_mlp(p, x + y, act=act, moe_args=moe_args,
-                          ep_axis=ep_axis, tp_axis=tp_axis)
+                          ep_axis=ep_axis, tp_axis=tp_axis,
+                          lora=_sub(lora, "mlp"), lora_scale=lora_scale)
     return _serve_out(x, pools, stats)
 
 
@@ -292,18 +309,21 @@ def block_prefill(p, x, *, num_heads: int, act: Callable = gelu,
 def block_decode(p, x, k_cache, v_cache, pos, *, num_heads: int,
                  act: Callable = gelu, moe_args=None, ep_axis=None,
                  tp_axis=None, block_tables=None, block_size=None,
-                 kv_scales=None, policy=None):
+                 lora=None, lora_scale=None, kv_scales=None, policy=None):
     """Single-token cached block step (``nn/attention.mha_decode``).
     Dense (``block_tables=None``, the generation decoders): caches
     [B, H, T, Dh], ``pos`` the host write position, ``moe_args`` and
     ``tp_axis`` as :func:`block_prefill`. Paged (the serving engine):
     x [S, 1, D], flat pool views, per-row ``pos``; ``ep_axis`` shards a
-    MoE block's experts. Returns (x, k_cache, v_cache[, k_scale,
-    v_scale][, moe_stats]); caches and pools updated in place."""
+    MoE block's experts; ``lora`` as :func:`block_prefill_paged`.
+    Returns (x, k_cache, v_cache[, k_scale, v_scale][, moe_stats]);
+    caches and pools updated in place."""
     y, *pools = mha_decode(
         p["attn"], layer_norm_apply(p["ln1"], x), k_cache, v_cache, pos,
         num_heads=num_heads, tp_axis=tp_axis, block_tables=block_tables,
-        block_size=block_size, kv_scales=kv_scales, policy=policy)
+        block_size=block_size, lora=_sub(lora, "attn"),
+        lora_scale=lora_scale, kv_scales=kv_scales, policy=policy)
     x, stats = _serve_mlp(p, x + y, act=act, moe_args=moe_args,
-                          ep_axis=ep_axis, tp_axis=tp_axis)
+                          ep_axis=ep_axis, tp_axis=tp_axis,
+                          lora=_sub(lora, "mlp"), lora_scale=lora_scale)
     return _serve_out(x, pools, stats)

@@ -17,14 +17,16 @@ from quintnet_tpu_torch.serve.scheduler import FINISHED
 
 
 def generate(engine: ServeEngine, prompts: Sequence, *, max_new_tokens,
-             seeds=None, priorities=None,
+             seeds=None, priorities=None, adapter_ids=None,
              max_steps: Optional[int] = None) -> List[np.ndarray]:
     """Run ``prompts`` to completion; one [T0_i + n_generated_i] array
     per prompt, order preserved. ``max_new_tokens``: int or per-prompt
     sequence. ``seeds``: optional per-prompt sampling seeds (JAX's
     ``keys``) — pass the seeds independent ``gpt2_generate`` calls would
     get to reproduce them; None gives each request the engine's default
-    (its rid). Rows stop early at the engine's ``eos_token_id``."""
+    (its rid). ``adapter_ids``: optional per-prompt LoRA adapters
+    (``serve/adapters.py``; None entries ride the base model). Rows stop
+    early at the engine's ``eos_token_id``."""
     n = len(prompts)
     if isinstance(max_new_tokens, int):
         max_new_tokens = [max_new_tokens] * n
@@ -32,11 +34,14 @@ def generate(engine: ServeEngine, prompts: Sequence, *, max_new_tokens,
         seeds = [None] * n
     if priorities is None:
         priorities = [0] * n
-    if not len(max_new_tokens) == len(seeds) == len(priorities) == n:
+    if adapter_ids is None:
+        adapter_ids = [None] * n
+    if not (len(max_new_tokens) == len(seeds) == len(priorities)
+            == len(adapter_ids) == n):
         raise ValueError("per-prompt argument lengths must match prompts")
-    rids = [engine.submit(p, m, priority=pr, seed=sd)
-            for p, m, sd, pr in zip(prompts, max_new_tokens, seeds,
-                                    priorities)]
+    rids = [engine.submit(p, m, priority=pr, seed=sd, adapter_id=a)
+            for p, m, sd, pr, a in zip(prompts, max_new_tokens, seeds,
+                                       priorities, adapter_ids)]
     engine.run(max_steps=max_steps)
     unfinished = [r for r in rids if engine.request(r).state != FINISHED]
     if unfinished:

@@ -3,11 +3,38 @@
 Port of ``quintnet_tpu/serve/engine.py``: greedy or sampled decoding
 (``temperature``, ``top_k``, ``top_p``), prefix cache on, every KV pool
 layout of the ladder (``kv_dtype``: f32, bf16, int8, fp8, fake_quant;
-``serve/kv_quant.py``), speculative decoding (``spec=``,
-``serve/spec.py``) and chunked prefill (``chunked_prefill``,
+``serve/kv_quant.py``), every weight layout (``weights_dtype``: the same
+names; ``serve/weight_quant.py``), the host KV tier (``kv_tier_bytes``,
+``kv_tier_promote_budget_bytes``; ``serve/kv_tier.py``), multi-tenant
+LoRA (``adapters``, ``lora_targets``, ``lora_max_rank``,
+``lora_rank_bucket_sizes``; ``serve/adapters.py``), speculative decoding
+(``spec=``, ``serve/spec.py``) and chunked prefill (``chunked_prefill``,
 ``prefill_chunk_budget``; ``serve/longctx.py``), for any family of
 ``serve/families.py`` (GPT-2, Llama, their MoE forms), on the CPU and on
 the card, on one device or on every rank of a mesh.
+
+Weights (``weights_dtype``): the family's ``weight_targets`` are packed
+once at build, after the adapters read the full-precision tree and
+before a tp rank's shards are cut; every serving matmul dequantizes
+inside ``nn/layers.quantized_matmul``.
+
+Host tier (``kv_tier_bytes`` > 0, with the prefix cache): evicting a
+published block demotes it to a host record. When the queue head's
+chain goes on past the device index into the tier, the request waits
+``PROMOTING`` while at most the promote budget's blocks are copied back
+each step (default 4 blocks), every other slot decoding meanwhile; then
+its admission finds a device prefix hit. Demotions happen on the
+allocation path only: ``_decode_blocked_demotions`` counts those seen
+during a plain decode dispatch and stays 0.
+
+Adapters: ``submit(adapter_id=)`` pins the adapter in the registry until
+the request retires; the admitted slot's rows of the packed ``[L, S, in,
+R]`` / ``[L, S, R, out]`` factors are written (zero rows: the base
+model), and every prefill, decode and verify adds each slot's delta on
+the targeted matmuls. Decode runs at the smallest rank bucket covering
+the bound adapters, prefill and verify at the top bucket. The prefix
+index is namespaced by the adapter id. Adapters compose with tp (the
+factors cut like their weights) but not with sp or ep.
 
 Serving meshes (``mesh``, a :class:`~quintnet_tpu_torch.core.mesh.Mesh`,
 with ``tp_axis``, ``sp_axis``, ``ep_axis``): the port's counterpart of
@@ -83,7 +110,8 @@ Every layer of both goes through ``ops.paged_attention`` — on the card
 the hand-written CUDA kernel. PyTorch runs eagerly, so the bucket
 ladder bounds tensor shapes rather than compiled programs.
 
-Options of the JAX constructor that this port does not serve yet raise
+Options of the JAX constructor that this port does not serve yet (the
+logger, the clock and the observability hooks) raise
 ``NotImplementedError`` naming their ROADMAP.md item unless they hold
 the JAX default ("off") value; none is ignored. ``attn_kernel`` takes
 ``"xla"`` only: the port has one paged-attention path (the kernel on
@@ -100,37 +128,34 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from quintnet_tpu_torch.analysis.specs import prefill_buckets
+from quintnet_tpu_torch.analysis.specs import (lora_rank_buckets,
+                                               prefill_buckets)
 from quintnet_tpu_torch.core.device import resolve_device
 from quintnet_tpu_torch.core.pytree import tree_map
 from quintnet_tpu_torch.models.gpt2_generate import sample_logits
 from quintnet_tpu_torch.parallel.tp import shard_leaf
+from quintnet_tpu_torch.serve.adapters import (AdapterRegistry,
+                                               adapter_factor_paths,
+                                               adapter_paths, nest,
+                                               packed_lora_spec_flat, tree_at)
 from quintnet_tpu_torch.serve.families import Family
 from quintnet_tpu_torch.serve.kv_pool import KVPool
 from quintnet_tpu_torch.serve.kv_quant import make_policy
+from quintnet_tpu_torch.serve.kv_tier import HostTier, PromotionState
 from quintnet_tpu_torch.serve.longctx import ChunkState, validate_sp_buckets
 from quintnet_tpu_torch.serve.metrics import ServeMetrics
-from quintnet_tpu_torch.serve.scheduler import (FINISHED, Request,
-                                                Scheduler)
+from quintnet_tpu_torch.serve.scheduler import (FINISHED, PROMOTING, WAITING,
+                                                Request, Scheduler)
 from quintnet_tpu_torch.serve.spec import NgramDrafter, SpecConfig
+from quintnet_tpu_torch.serve.weight_quant import (augment_weight_specs,
+                                                   make_weight_policy,
+                                                   present_targets,
+                                                   quantize_params,
+                                                   weight_bytes)
 
 # constructor options of the JAX engine that are still to port, with
 # the ROADMAP.md item each belongs to
 _NOT_PORTED = {
-    "adapters": "§1, item 7 ('Serving features'): serve/adapters.py "
-                "(multi-LoRA)",
-    "kv_tier_bytes": "§1, item 7 ('Serving features'): serve/kv_tier.py "
-                     "(host KV tier)",
-    "weights_dtype": "§1, item 7 ('Serving features'): "
-                     "serve/weight_quant.py",
-    "lora_targets": "§1, item 7 ('Serving features'): serve/adapters.py "
-                    "(multi-LoRA)",
-    "lora_max_rank": "§1, item 7 ('Serving features'): serve/adapters.py "
-                     "(multi-LoRA)",
-    "lora_rank_bucket_sizes": "§1, item 7 ('Serving features'): "
-                              "serve/adapters.py (multi-LoRA)",
-    "kv_tier_promote_budget_bytes": "§1, item 7 ('Serving features'): "
-                                    "serve/kv_tier.py (host KV tier)",
     "logger": "§1, item 8 ('Fleet, obs and ft'): the engine's logger",
     "log_every": "§1, item 8 ('Fleet, obs and ft'): the engine's logger",
     "clock": "§1, item 8 ('Fleet, obs and ft'): the engine's clock",
@@ -139,7 +164,10 @@ _NOT_PORTED = {
 }
 # the JAX constructor's default of each option above that has one other
 # than None/False/0: passing it is passing nothing
-_JAX_OFF = {"lora_max_rank": 8, "clock": time.monotonic}
+_JAX_OFF = {"clock": time.monotonic}
+_NO_ADAPTERS = ("this engine was built without adapters "
+                "(ServeEngine(adapters=AdapterRegistry(...))); "
+                "cannot serve adapter_id requests")
 
 
 def _not_ported(option: str, value):
@@ -152,14 +180,18 @@ def check_admissible(prompt_len: int, max_new_tokens: int, *,
                      max_seq_len: int, usable_blocks: int,
                      block_size: int,
                      prefill_len: Optional[int] = None,
-                     chunked_prefill: bool = False) -> None:
+                     max_slots: int = 0,
+                     chunked_prefill: bool = False,
+                     prefix_cache: bool = True,
+                     kv_tier: bool = False) -> None:
     """Submit-time rejection of requests an engine with these limits
     can NEVER run (standalone, so a dispatcher holding only
     ``limits()`` can check too). A preemption-resume prefills prompt +
     generated (up to total - 1 tokens), so ``prefill_len`` (default:
     ``max_seq_len``) must cover that, unless ``chunked_prefill``: a
     chunked engine feeds any prefill through the buckets, so only
-    ``max_seq_len`` and the pool remain."""
+    ``max_seq_len`` and the pool remain. ``max_slots``, ``prefix_cache``
+    and ``kv_tier`` ride along in ``limits()`` and are no bound."""
     if prompt_len < 1:
         raise ValueError("empty prompt")
     if max_new_tokens < 1:
@@ -215,19 +247,11 @@ class ServeEngine:
                  attn_kernel: str = "xla", logger=None, log_every: int = 0,
                  clock=time.monotonic, tracer=None, recorder=None):
         for option, value in (
-                ("adapters", adapters),
-                ("kv_tier_bytes", kv_tier_bytes),
-                ("lora_targets", lora_targets),
-                ("lora_max_rank", lora_max_rank),
-                ("lora_rank_bucket_sizes", lora_rank_bucket_sizes),
-                ("kv_tier_promote_budget_bytes",
-                 kv_tier_promote_budget_bytes),
                 ("logger", logger), ("log_every", log_every),
                 ("clock", clock), ("tracer", tracer),
                 ("recorder", recorder)):
             off = _JAX_OFF.get(option)
-            if value is off or value in (None, False, 0) or (
-                    off is not None and not callable(off) and value == off):
+            if value is off or value in (None, False, 0):
                 continue                        # the JAX "off" value
             _not_ported(option, value)
         if attn_kernel != "xla":
@@ -236,15 +260,12 @@ class ServeEngine:
                 f"it has one paged-attention path (ops/paged_attention: "
                 f"the kernel on the card, its plain version on the CPU), "
                 f"held to the JAX engine's attn_kernel='xla'")
-        if weights_dtype not in (None, "f32"):
-            _not_ported("weights_dtype", weights_dtype)
         self.temperature = float(temperature)
         self.top_k = int(top_k)
         self.top_p = float(top_p)
         self.device = resolve_device(device)
         self.family = family
-        self._mesh_axes(family, mesh, tp_axis, sp_axis, ep_axis)
-        self.params = _to_device(self._shard(params), self.device)
+        self._mesh_axes(family, mesh, tp_axis, sp_axis, ep_axis, adapters)
         self.max_slots = int(max_slots)
         self.eos_token_id = eos_token_id
         self.clock = time.monotonic
@@ -257,6 +278,9 @@ class ServeEngine:
             spec = None
         self.spec: Optional[SpecConfig] = spec
         self.drafter = NgramDrafter(spec) if spec is not None else None
+        # multi-tenant LoRA: from the full-precision tree, before packing
+        self._init_adapters(family, params, adapters, lora_targets,
+                            lora_max_rank, lora_rank_bucket_sizes)
 
         self.max_seq_len = int(max_seq_len or family.max_positions)
         if self.max_seq_len > family.max_positions:
@@ -278,6 +302,8 @@ class ServeEngine:
                 f"prefill_len={self.prefill_len} (a preemption-resume "
                 f"prefill can need the full length)")
         self.prefill_buckets = buckets
+        if self._sp is not None:
+            validate_sp_buckets(buckets, self._sp.size)
         # chunked prefill: prompts past the top bucket are admitted whole
         # and fed through the bucket calls, at most this many prompt
         # tokens an engine step
@@ -290,18 +316,63 @@ class ServeEngine:
                 f"prefill_chunk_budget must be >= 1; got "
                 f"{self.prefill_chunk_budget}")
 
-        if self._sp is not None:
-            validate_sp_buckets(buckets, self._sp.size)
+        # weight layout: the targets packed once, on the whole tree (a
+        # row-parallel weight's scale is the absmax over its whole in
+        # dim), then this rank's shards cut and moved to the device
+        self.weight_policy = make_weight_policy(weights_dtype)
+        self.weights_dtype = self.weight_policy.name
+        self._weight_targets = present_targets(params,
+                                               family.weight_targets)
+        if self.weight_policy.name != "f32" and not self._weight_targets:
+            raise ValueError(
+                f"family {family.name!r} has no weight targets in this "
+                f"param tree; weights_dtype={self.weights_dtype!r} "
+                f"would be a silent no-op")
+        params = quantize_params(params, self._weight_targets,
+                                 self.weight_policy)
+        self.weight_bytes = weight_bytes(params, self._weight_targets)
+        self.params = _to_device(self._shard(params), self.device)
 
         self.kv_policy = make_policy(
             kv_dtype if kv_dtype is not None else family.kv_dtype)
         # a tp rank's pool holds its kv heads (and [L, N, Hkv/tp] scales)
         tp = 1 if self._tp is None else self._tp.size
+        # the host tier under the prefix cache; a tp rank's records hold
+        # its head shard of a block, counted as whole blocks
+        self.kv_tier: Optional[HostTier] = None
+        if int(kv_tier_bytes) > 0:
+            if not self.prefix_cache:
+                raise ValueError(
+                    "kv_tier_bytes requires prefix_cache=True — the "
+                    "host tier spills the prefix cache; with the "
+                    "cache off there is nothing to demote")
+            self.kv_tier = HostTier(byte_budget=int(kv_tier_bytes),
+                                    shards=tp)
+        elif int(kv_tier_bytes) < 0:
+            raise ValueError(
+                f"kv_tier_bytes must be >= 0; got {kv_tier_bytes}")
         self.pool = KVPool(
             n_layers=family.n_layers, n_kv_heads=family.n_kv_heads // tp,
             head_dim=family.head_dim, block_size=block_size,
             num_blocks=num_blocks, policy=self.kv_policy,
-            device=self.device, prefix_cache=self.prefix_cache)
+            device=self.device, prefix_cache=self.prefix_cache,
+            host_tier=self.kv_tier)
+        # the per-step promotion budget in blocks (whole blocks' bytes,
+        # as the JAX engine counts them), 4 blocks by default
+        bpb = self.pool.bytes_per_block * tp
+        budget_bytes = (4 * bpb if kv_tier_promote_budget_bytes is None
+                        else int(kv_tier_promote_budget_bytes))
+        if budget_bytes < 1:
+            raise ValueError(
+                f"kv_tier_promote_budget_bytes must be >= 1; got "
+                f"{budget_bytes}")
+        self._promote_budget_blocks = max(1, budget_bytes // bpb)
+        # promotions in flight by rid, and the rids whose promotion ran
+        # already (one round an admission try: no promote/evict livelock)
+        self._promoting: Dict[int, PromotionState] = {}
+        self._promotion_done: set = set()
+        # demotions seen during a plain decode dispatch (0 by phasing)
+        self._decode_blocked_demotions = 0
         self.table_width = self.pool.blocks_for(self.max_seq_len)
         self.scheduler = Scheduler(self.pool, policy=policy)
         self.metrics = ServeMetrics(clock=self.clock)
@@ -320,10 +391,235 @@ class ServeEngine:
         self._arrival_counter = 0
 
     # ------------------------------------------------------------------
+    # multi-tenant LoRA (serve/adapters.py)
+    # ------------------------------------------------------------------
+    def _init_adapters(self, family: Family, params, adapters, lora_targets,
+                       lora_max_rank, lora_rank_bucket_sizes) -> None:
+        """The JAX constructor's adapter set-up: None is an adapter-blind
+        engine; an AdapterRegistry (or True, a fresh one) arms the
+        per-slot packed factors, one (a, b) pair a targeted matmul,
+        ``[L, S, in, R]`` / ``[L, S, R, out]`` on the device (this rank's
+        cut under tp), zero rows for base-model slots."""
+        if adapters is True:
+            adapters = AdapterRegistry()
+        elif adapters is False:
+            adapters = None
+        self.adapters: Optional[AdapterRegistry] = adapters
+        if adapters is None:
+            return
+        targets = tuple(lora_targets or family.lora_targets)
+        if not targets:
+            raise ValueError(
+                f"family {family.name!r} declares no default LoRA "
+                f"targets; pass lora_targets=")
+        self.lora_targets = targets
+        self._lora_paths = adapter_paths(params["blocks"], targets)
+        if not self._lora_paths:
+            raise ValueError(
+                f"no LoRA targets {targets} found in the model's "
+                f"block tree")
+        rb = tuple(sorted(set(
+            int(b) for b in (lora_rank_bucket_sizes
+                             or lora_rank_buckets(lora_max_rank)))))
+        if not rb or rb[0] < 1:
+            raise ValueError(f"invalid LoRA rank buckets {rb}")
+        self.lora_rank_buckets = rb
+        self.lora_max_rank = rb[-1]
+        self._lora_specs = None
+        if self._tp is not None:
+            self._lora_specs = packed_lora_spec_flat(
+                family.partition_specs(self.tp_axis)["blocks"],
+                self._lora_paths)
+        S, R = self.max_slots, self.lora_max_rank
+        self._lora_shapes: Dict = {}
+        self._lora_dev: Dict = {}
+        for path in self._lora_paths:
+            w = tree_at(params["blocks"], path)["w"]
+            L, fin, fout = w.shape
+            self._lora_shapes[path] = (L, fin, fout)
+            zeros = dict(dtype=w.dtype, device=self.device)
+            self._lora_dev[path] = {
+                "a": self._pack_cut(torch.zeros((L, S, fin, R), **zeros),
+                                    path, "a"),
+                "b": self._pack_cut(torch.zeros((L, S, R, fout), **zeros),
+                                    path, "b")}
+        self._lora_scale = np.zeros((S,), np.float32)
+        self._slot_rank = np.zeros((S,), np.int32)
+        self._slot_adapter: List[Optional[str]] = [None] * S
+        self._lora_args_cache: Dict = {}
+
+    def _pack_cut(self, t: torch.Tensor, path, factor: str) -> torch.Tensor:
+        """A packed factor tensor (whole) -> this rank's cut, on the
+        device: ``a`` cut on its in dim, ``b`` on its out dim, as their
+        weight (``packed_lora_spec_flat``)."""
+        if self._lora_specs is not None:
+            t = shard_leaf(t, self._lora_specs[path][factor], self.mesh)
+        return t.to(self.device)
+
+    def _adapter_shape_check(self, entry) -> None:
+        """An adapter must train a subset of this engine's packed paths
+        with [L, in, r] / [L, r, out] factors and a rank within the
+        ladder: checked at submit, so a bad tenant file fails its own
+        request, never a shared step."""
+        packed = set(self._lora_paths)
+        unserved = [p for p in adapter_factor_paths(entry.tree)
+                    if p not in packed]
+        if unserved:
+            raise ValueError(
+                f"adapter {entry.adapter_id!r} trains "
+                f"{['.'.join(p) for p in unserved]} which this engine "
+                f"does not serve (lora_targets={self.lora_targets}) — "
+                f"its output would silently diverge from the merged "
+                f"weights")
+        found = 0
+        for path in self._lora_paths:
+            node = tree_at(entry.tree, path)
+            if node is None:
+                continue
+            found += 1
+            a_shape, b_shape = tuple(node["a"].shape), tuple(node["b"].shape)
+            L, fin, fout = self._lora_shapes[path]
+            r = a_shape[-1]
+            if not (a_shape == (L, fin, r) and b_shape == (L, r, fout)):
+                raise ValueError(
+                    f"adapter {entry.adapter_id!r} factor shapes at "
+                    f"{'.'.join(path)} ({a_shape}, {b_shape}) do not "
+                    f"match this engine's blocks "
+                    f"([{L}, {fin}, r], [{L}, r, {fout}])")
+            if r != entry.rank:
+                raise ValueError(
+                    f"adapter {entry.adapter_id!r} rank mismatch at "
+                    f"{'.'.join(path)}: factors have r={r}, config "
+                    f"says {entry.rank}")
+        if found == 0:
+            raise ValueError(
+                f"adapter {entry.adapter_id!r} targets none of this "
+                f"engine's LoRA paths {self.lora_targets}")
+        if entry.rank > self.lora_max_rank:
+            raise ValueError(
+                f"adapter {entry.adapter_id!r} rank {entry.rank} "
+                f"exceeds the engine's top rank bucket "
+                f"{self.lora_max_rank} (lora_max_rank)")
+
+    def validate_adapter(self, adapter_id: str) -> None:
+        """Can this engine serve ``adapter_id`` now? Raises ValueError or
+        KeyError if not. The entry is pinned during the check."""
+        if self.adapters is None:
+            raise ValueError(_NO_ADAPTERS)
+        entry = self.adapters.acquire(adapter_id)
+        try:
+            self._adapter_shape_check(entry)
+        finally:
+            self.adapters.release(adapter_id)
+
+    def _pin_adapter(self, adapter_id: Optional[str]) -> None:
+        """Submit-time pin and check: the adapter loads if evicted, and
+        its refcount holds it resident for the request's lifetime."""
+        if adapter_id is None:
+            return
+        if self.adapters is None:
+            raise ValueError(_NO_ADAPTERS)
+        entry = self.adapters.acquire(adapter_id)
+        try:
+            self._adapter_shape_check(entry)
+        except (ValueError, KeyError):
+            self.adapters.release(adapter_id)
+            raise
+
+    def _write_slot_pack(self, slot: int, factors: Dict) -> None:
+        """One slot's rows ``{path: (a [L, in, R], b [L, R, out])}``
+        (whole) into the packed tensors: only this slot's rows move to
+        the device. The args cache views the tensors: cleared first."""
+        self._lora_args_cache.clear()
+        for path, (a, b) in factors.items():
+            dev = self._lora_dev[path]
+            dev["a"][:, slot] = self._pack_cut(a[:, None], path, "a")[:, 0]
+            dev["b"][:, slot] = self._pack_cut(b[:, None], path, "b")[:, 0]
+
+    def _bind_slot_adapter(self, slot: int, adapter_id: str) -> None:
+        """The adapter's factors into the slot's rows, the rank padded
+        with zeros (a target it does not train stays zero: the base
+        matmul). GPT-2's qkv ``b`` is re-blocked for tp
+        (``Family.lora_layout``)."""
+        entry = self.adapters.ensure_resident(adapter_id)
+        tp = 1 if self._tp is None else self._tp.size
+        R = self.lora_max_rank
+        factors = {}
+        for path in self._lora_paths:
+            L, fin, fout = self._lora_shapes[path]
+            dtype = self._lora_dev[path]["a"].dtype
+            a = torch.zeros((L, fin, R), dtype=dtype, device=self.device)
+            b = torch.zeros((L, R, fout), dtype=dtype, device=self.device)
+            node = tree_at(entry.tree, path)
+            if node is not None:
+                na, nb = node["a"], node["b"]
+                if self.family.lora_layout is not None:
+                    nb = self.family.lora_layout(path, nb, tp)
+                r = na.shape[-1]
+                a[:, :, :r] = na
+                b[:, :r, :] = nb
+            factors[path] = (a, b)
+        self._write_slot_pack(slot, factors)
+        self._lora_scale[slot] = entry.scale
+        self._slot_rank[slot] = entry.rank
+        self._slot_adapter[slot] = adapter_id
+
+    def _unbind_slot_adapter(self, slot: int) -> None:
+        if self._slot_adapter[slot] is None:
+            return
+        self._lora_args_cache.clear()
+        for dev in self._lora_dev.values():
+            dev["a"][:, slot] = 0
+            dev["b"][:, slot] = 0
+        self._lora_scale[slot] = 0.0
+        self._slot_rank[slot] = 0
+        self._slot_adapter[slot] = None
+
+    def _decode_rank_bucket(self) -> int:
+        """The smallest ladder bucket covering the largest rank bound to
+        an occupied slot (the smallest when every slot is base: zero
+        factors at any width are exact)."""
+        top = max((int(self._slot_rank[s]) for s in self._active_slots()),
+                  default=0)
+        for b in self.lora_rank_buckets:
+            if b >= top:
+                return b
+        raise AssertionError(
+            f"bound rank {top} exceeds the top bucket — submit-time "
+            f"validation should have rejected the adapter")
+
+    def _lora_args(self, kind: str, *, slot: Optional[int] = None,
+                   rank_bucket: Optional[int] = None) -> dict:
+        """The ``lora``/``lora_scale`` keywords of one family call, as
+        views of the packed tensors (cached until a binding changes):
+        ``prefill``: the slot's [1]-row slice at the top bucket;
+        ``decode``: every slot at ``rank_bucket``; ``verify``: every slot
+        at the top bucket."""
+        if kind == "prefill":
+            key = ("prefill", slot)
+            if key not in self._lora_args_cache:
+                flat = {p: {"a": d["a"][:, slot:slot + 1],
+                            "b": d["b"][:, slot:slot + 1]}
+                        for p, d in self._lora_dev.items()}
+                self._lora_args_cache[key] = {
+                    "lora": nest(flat),
+                    "lora_scale": self._dev(self._lora_scale[slot:slot + 1])}
+            return self._lora_args_cache[key]
+        R = rank_bucket if kind == "decode" else self.lora_max_rank
+        key = (kind, R)
+        if key not in self._lora_args_cache:
+            flat = {p: {"a": d["a"][..., :R], "b": d["b"][:, :, :R, :]}
+                    for p, d in self._lora_dev.items()}
+            self._lora_args_cache[key] = {
+                "lora": nest(flat),
+                "lora_scale": self._dev(self._lora_scale)}
+        return self._lora_args_cache[key]
+
+    # ------------------------------------------------------------------
     # serving meshes
     # ------------------------------------------------------------------
     def _mesh_axes(self, family: Family, mesh, tp_axis, sp_axis,
-                   ep_axis) -> None:
+                   ep_axis, adapters=None) -> None:
         """The JAX constructor's mesh checks, with its errors. Sets the
         axis names JAX's engine keeps (``tp_axis``, ``sp_axis``,
         ``ep_axis``; an sp or ep axis of size 1 is None) and this rank's
@@ -353,6 +649,10 @@ class ServeEngine:
                     "sequence-parallel prefill does not yet compose "
                     "with tensor parallelism — use an sp-only mesh "
                     "(tp x sp is a future extension)")
+            if adapters:
+                raise NotImplementedError(
+                    "sequence-parallel prefill does not yet compose "
+                    "with multi-tenant adapters")
             self.sp_axis = sp_axis
         if self.sp_axis is not None or (
                 mesh is not None and tp_axis not in mesh.shape):
@@ -400,6 +700,11 @@ class ServeEngine:
                     f"pass a mesh with that axis (size 1 falls back to "
                     f"the dense-replicated MoE programs) or drop "
                     f"ep_axis")
+            if adapters:
+                raise NotImplementedError(
+                    "expert-parallel serving does not yet compose "
+                    "with multi-tenant adapters — drop ep_axis or "
+                    "serve adapters on a replicated MoE engine")
             ep = int(mesh.shape[ep_axis])
             if moe.n_experts % ep != 0:
                 raise ValueError(
@@ -427,15 +732,19 @@ class ServeEngine:
         specs = self.family.partition_specs(
             self.tp_axis if self._tp is not None else None,
             self.ep_axis if self._ep is not None else None)
+        if self.weight_policy.scaled:
+            # each w_scale cut like its weight's out dim
+            specs = augment_weight_specs(specs, self._weight_targets)
         return tree_map(lambda t, spec: shard_leaf(t, spec, self.mesh),
                         params, specs)
 
-    def _call(self, fn, *args, kv_kw):
-        """One family contract on this rank, its MoE routing stats (the
-        trailing output of a MoE family) banked for the step's ledger;
-        returns (logits, *pools)."""
-        out = fn(self.params, *args, **kv_kw, tp_axis=self._tp,
-                 ep_axis=self._ep)
+    def _call(self, fn, *args, kv_kw, lora_kw=None):
+        """One family contract on this rank (``lora_kw``: the packed
+        adapters' keywords), its MoE routing stats (the trailing output
+        of a MoE family) banked for the step's ledger; returns (logits,
+        *pools)."""
+        out = fn(self.params, *args, **kv_kw, **(lora_kw or {}),
+                 tp_axis=self._tp, ep_axis=self._ep)
         if self._moe_on:
             *out, st = out
             self._moe_acc.append({k: v.detach().cpu().numpy()
@@ -477,13 +786,14 @@ class ServeEngine:
 
     @torch.no_grad()
     def _prefill(self, ids: np.ndarray, start: int, t0: int,
-                 table_row: np.ndarray, cow_src: int, cow_len: int):
+                 table_row: np.ndarray, cow_src: int, cow_len: int, *,
+                 slot: int = 0):
         """Copy-on-write, then prefill the tail; returns the logits [1, V]
         at position ``t0 - 1`` (the caller draws the request's next token
         from them). ``cow_len`` slots of block ``cow_src`` are copied
         into the block holding position ``start`` BEFORE the tail lands:
         the cached block stays immutable while the index references
-        it."""
+        it. With adapters, the tail runs under ``slot``'s bound rows."""
         bs = self.pool.block_size
         k_pool, v_pool, *scales = self.pool.caches()
         if cow_len > 0:
@@ -508,20 +818,31 @@ class ServeEngine:
             logits, *pools = self._call(
                 self.family.prefill_from, k_pool, v_pool, self._dev(ids),
                 start, t0, self._dev(table_row), bs,
-                kv_kw=self._kv_kw(scales))
+                kv_kw=self._kv_kw(scales),
+                lora_kw=(self._lora_args("prefill", slot=slot)
+                         if self.adapters is not None else None))
         self.pool.update(*pools)
         return logits
 
     @torch.no_grad()
     def _decode(self, tok: np.ndarray, pos: np.ndarray, tables: np.ndarray,
-                seeds, counters) -> np.ndarray:
+                seeds, counters, *,
+                rank_bucket: Optional[int] = None) -> np.ndarray:
         """One batched decode step; returns the next token of every row
-        [S], row s drawn at (``seeds[s]``, ``counters[s]``)."""
+        [S], row s drawn at (``seeds[s]``, ``counters[s]``). With
+        adapters, at ``rank_bucket`` (default: the smallest covering the
+        bound adapters)."""
         k_pool, v_pool, *scales = self.pool.caches()
+        lora_kw = None
+        if self.adapters is not None:
+            lora_kw = self._lora_args(
+                "decode", rank_bucket=(self._decode_rank_bucket()
+                                       if rank_bucket is None
+                                       else rank_bucket))
         logits, *pools = self._call(
             self.family.decode, k_pool, v_pool, self._dev(tok),
             self._dev(pos), self._dev(tables), self.pool.block_size,
-            kv_kw=self._kv_kw(scales))
+            kv_kw=self._kv_kw(scales), lora_kw=lora_kw)
         self.pool.update(*pools)
         nxt = self._sample(logits, seeds, counters)
         return nxt.to(torch.int32).cpu().numpy()
@@ -538,13 +859,20 @@ class ServeEngine:
         logits, *pools = self._call(
             self.family.verify, k_pool, v_pool, self._dev(ids),
             self._dev(starts), self._dev(tail_lens), self._dev(tables),
-            self.pool.block_size, kv_kw=self._kv_kw(scales))
+            self.pool.block_size, kv_kw=self._kv_kw(scales),
+            lora_kw=(self._lora_args("verify")
+                     if self.adapters is not None else None))
         self.pool.update(*pools)
         S, P, V = logits.shape
         toks = self._sample(logits.reshape(S * P, V),
                             [sd for sd in seeds for _ in range(P)],
                             [c + j for c in counters for j in range(P)])
         return toks.reshape(S, P).to(torch.int32).cpu().numpy()
+
+    def _slot_kw(self, slot: int) -> dict:
+        """``_prefill``'s slot keyword: only an engine with adapters
+        takes it (the prefill call keeps its six positional arguments)."""
+        return {} if self.adapters is None else {"slot": slot}
 
     def _kv_kw(self, scales) -> dict:
         """The contracts' quantized-KV arguments: the scale tensors and
@@ -557,30 +885,40 @@ class ServeEngine:
     # submission / results
     # ------------------------------------------------------------------
     def limits(self) -> Dict[str, int]:
-        """The admissibility bounds :func:`check_admissible` takes."""
+        """The engine's static limits, the bounds
+        :func:`check_admissible` takes among them, and whether a host
+        tier is attached."""
         return {"max_seq_len": self.max_seq_len,
                 "prefill_len": self.prefill_len,
                 "usable_blocks": self.pool.usable_blocks,
                 "block_size": self.pool.block_size,
-                "chunked_prefill": self.chunked_prefill}
+                "max_slots": self.max_slots,
+                "chunked_prefill": self.chunked_prefill,
+                "prefix_cache": self.prefix_cache,
+                "kv_tier": self.kv_tier is not None}
 
     def submit(self, prompt, max_new_tokens: int, *, priority: int = 0,
-               seed: Optional[int] = None, on_token=None) -> int:
+               seed: Optional[int] = None, on_token=None,
+               adapter_id: Optional[str] = None) -> int:
         """Queue one request; returns its id. ``seed``: the request's
         sampling chain (default: its rid, the counterpart of the JAX
         engine's ``fold_in(key(0), rid)``); pass the seed an independent
         ``gpt2_generate`` call of the prompt gets to reproduce it token
         for token. ``on_token(rid, token, is_last)`` fires as each token
-        is produced."""
+        is produced. ``adapter_id``: serve the request through that LoRA
+        adapter (None: the base model), pinned in the registry until the
+        request finishes."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         check_admissible(prompt.size, max_new_tokens, **self.limits())
+        self._pin_adapter(adapter_id)
         rid = self._rid_counter
         self._rid_counter += 1
         req = Request(rid=rid, prompt=prompt,
                       max_new_tokens=int(max_new_tokens),
                       priority=int(priority),
                       arrival=self._arrival_counter, on_token=on_token,
-                      seed=rid if seed is None else int(seed))
+                      seed=rid if seed is None else int(seed),
+                      adapter_id=adapter_id)
         self._arrival_counter += 1
         req.submit_time = self.clock()
         self._results[rid] = req
@@ -623,14 +961,17 @@ class ServeEngine:
         self._tables[slot] = 0
         self._tok[slot] = 0
         self._pos[slot] = 0
+        if self.adapters is not None:
+            self._unbind_slot_adapter(slot)
 
     def _release_slot_blocks(self, slot: int) -> None:
-        """Publish the slot's valid-KV prefix (``_pos`` positions), then
-        drop its references — publish first: release retains published
-        blocks."""
+        """Publish the slot's valid-KV prefix (``_pos`` positions) under
+        its adapter's namespace, then drop its references — publish
+        first: release retains published blocks."""
         req = self._slot_req[slot]
         blocks = self._slot_blocks[slot]
-        self.pool.publish(req.output_ids(), blocks, int(self._pos[slot]))
+        self.pool.publish(req.output_ids(), blocks, int(self._pos[slot]),
+                          namespace=req.adapter_id)
         self.pool.release(blocks)
 
     def _retire(self, slot: int) -> int:
@@ -639,8 +980,48 @@ class ServeEngine:
         self._clear_slot(slot)
         req.state = FINISHED
         req.finish_time = self.clock()
-        self.metrics.record_finish(req.finish_time - req.submit_time)
+        self.metrics.record_finish(req.finish_time - req.submit_time,
+                                   adapter_id=req.adapter_id)
+        if req.adapter_id is not None:
+            self.adapters.release(req.adapter_id)   # the submit-time pin
         return req.rid
+
+    # ---- host-tier promotion (serve/kv_tier.py) ----------------------
+    def _start_promotion(self, req: Request) -> bool:
+        """Probe the queue head's chain across both tiers (capped at
+        ``len(tokens) - 1``, as admission is); on a host hit park it
+        ``PROMOTING`` with the keys to bring back."""
+        tokens = req.output_ids()
+        _covered, keys = self.pool.plan_promotion(
+            tokens, max_tokens=len(tokens) - 1, namespace=req.adapter_id)
+        if not keys:
+            return False
+        req.state = PROMOTING
+        self._promoting[req.rid] = PromotionState(req=req, keys=keys)
+        return True
+
+    def _feed_promotions(self) -> None:
+        """Advance every promotion in flight by at most the per-step
+        block budget, shared among them: the copies land while the other
+        slots keep decoding. A finished promotion sets its request
+        WAITING, and this step's admission finds the promoted chain as a
+        device hit. A promotion that can make no progress while nothing
+        runs (no block can be had and no retirement will free one) is
+        ended: admission re-prefills, never wedges."""
+        budget = self._promote_budget_blocks
+        for rid in list(self._promoting):
+            if budget <= 0:
+                break
+            st = self._promoting[rid]
+            taken, blocks = self.pool.promote_chain(
+                st.keys[st.next:], max_blocks=budget)
+            st.next += taken
+            budget -= blocks
+            if st.done or (taken == 0 and blocks == 0
+                           and not self._active_slots()):
+                self._promoting.pop(rid)
+                self._promotion_done.add(rid)
+                st.req.state = WAITING
 
     def _preempt(self, slot: int) -> None:
         """Evict: publish + release the blocks (the chain usually
@@ -657,10 +1038,13 @@ class ServeEngine:
         budget)."""
         req = self._slot_req[slot]
         req.generated.append(int(token))
+        if req.adapter_id is not None:
+            self.metrics.record_adapter_token(req.adapter_id)
         now = self.clock()
         if req.first_token_time is None:
             req.first_token_time = now
-            self.metrics.record_first_token(now - req.submit_time)
+            self.metrics.record_first_token(now - req.submit_time,
+                                            adapter_id=req.adapter_id)
         elif req.last_token_time is not None:
             self.metrics.record_itl(now - req.last_token_time)
         req.last_token_time = now
@@ -707,8 +1091,12 @@ class ServeEngine:
         tail = tokens[start:t0]
         ids = np.zeros((1, self._bucket_for(len(tail))), np.int32)
         ids[0, :len(tail)] = tail
+        if self.adapters is not None and req.adapter_id is not None:
+            # bound BEFORE the prefill: the tail runs under the adapter
+            self._bind_slot_adapter(slot, req.adapter_id)
         logits = self._prefill(ids, start, t0, self._tables[slot],
-                               plan.cow_src or 0, plan.cow_len)
+                               plan.cow_src or 0, plan.cow_len,
+                               **self._slot_kw(slot))
         tok0 = int(self._sample(logits, [req.seed],
                                 [len(req.generated)])[0].item())
         if plan.cow_src is not None:
@@ -732,6 +1120,8 @@ class ServeEngine:
         plan = self._allocate_slot(slot, req)
         self._pos[slot] = plan.cached_tokens
         self._tok[slot] = 0
+        if self.adapters is not None and req.adapter_id is not None:
+            self._bind_slot_adapter(slot, req.adapter_id)
         self._slot_chunk[slot] = ChunkState(
             next=plan.cached_tokens, t0=req.total_len, cow_src=plan.cow_src,
             cow_len=plan.cow_len, cow_pinned=plan.cow_src is not None)
@@ -748,7 +1138,8 @@ class ServeEngine:
         cow = st.cow_pinned
         logits = self._prefill(ids, st.next, st.next + n, self._tables[slot],
                                st.cow_src if cow else 0,
-                               st.cow_len if cow else 0)
+                               st.cow_len if cow else 0,
+                               **self._slot_kw(slot))
         if cow:
             self.pool.release([st.cow_src])   # pinned for the copy only
             st.cow_pinned = False
@@ -915,17 +1306,30 @@ class ServeEngine:
         return committed, drafted, accepted
 
     def step(self) -> List[int]:
-        """One scheduler iteration: admit -> (chunked) feed the budget's
-        chunks -> grow/preempt -> one decode step, or one verify step,
-        for every generating slot -> retire. Returns the ids of the
-        requests that finished this step."""
+        """One scheduler iteration: (host tier) feed the promotions'
+        budget -> admit -> (chunked) feed the budget's chunks ->
+        grow/preempt -> one decode step, or one verify step, for every
+        generating slot -> retire. Returns the ids of the requests that
+        finished this step."""
         finished: List[int] = []
         prefill_tokens = prefix_hit_tokens = 0
+        if self._promoting:
+            self._feed_promotions()
         while True:
             free = self._free_slots()
+            if self.kv_tier is not None:
+                w = self.scheduler.waiting
+                # the third admission outcome, a host hit: the head's
+                # chain goes on in the host tier; park it PROMOTING (one
+                # round an admission try) rather than re-prefill it
+                if (w and w[0].state == WAITING
+                        and w[0].rid not in self._promotion_done
+                        and self._start_promotion(w[0])):
+                    break
             req = self.scheduler.next_admission(len(free))
             if req is None:
                 break
+            self._promotion_done.discard(req.rid)
             if self.chunked_prefill:
                 prefix_hit_tokens += self._admit_slot_chunked(free[0], req)
                 continue
@@ -960,6 +1364,9 @@ class ServeEngine:
                 tok[prefilling] = pos[prefilling] = 0
                 tables[prefilling] = 0
             rows = self._slot_req
+            # the plain decode dispatch acquires no block, so it can set
+            # off no demotion copy: the counter proves it every step
+            demo0 = 0 if self.kv_tier is None else self.kv_tier.demotions
             nxt = self._decode(
                 tok, pos, tables,
                 [r.seed if r is not None else 0 for r in rows],
@@ -971,7 +1378,11 @@ class ServeEngine:
                 decode_tokens += 1
                 if self._append_token(slot, token):
                     finished.append(self._retire(slot))
+            if self.kv_tier is not None:
+                self._decode_blocked_demotions += (self.kv_tier.demotions
+                                                   - demo0)
 
+        tier = self.kv_tier
         self.metrics.record_step(
             running=len(self._active_slots()),
             waiting=len(self.scheduler.waiting),
@@ -979,6 +1390,8 @@ class ServeEngine:
             kv_blocks_total=self.pool.usable_blocks,
             kv_pool_bytes=self.pool.pool_bytes,
             kv_bytes_per_token=self.pool.bytes_per_token,
+            weight_bytes=self.weight_bytes,
+            weights_dtype=self.weights_dtype,
             prefill_tokens=prefill_tokens,
             decode_tokens=decode_tokens,
             prefix_hit_tokens=prefix_hit_tokens,
@@ -987,12 +1400,19 @@ class ServeEngine:
             accepted_draft_tokens=accepted_draft,
             prefill_chunks=prefill_chunks,
             kv_cache_evictions=self.pool.cache_evictions,
+            kv_demotions=0 if tier is None else tier.demotions,
+            kv_promotions=0 if tier is None else tier.promotions,
+            kv_host_evictions=0 if tier is None else tier.evictions,
+            host_hit_tokens=0 if tier is None else tier.promoted_tokens,
+            host_tier_bytes=0 if tier is None else tier.bytes_used,
+            decode_blocked_demotions=self._decode_blocked_demotions,
             **(self._drain_moe() if self._moe_on else {}))
         return finished
 
     def warmup(self) -> None:
-        """Run every prefill bucket, the decode step and (with ``spec``)
-        every verify bucket once before traffic (builds the CUDA kernel,
+        """Run every prefill bucket, the decode step (at every LoRA rank
+        bucket) and (with ``spec``) every verify bucket once before
+        traffic (builds the CUDA kernel,
         warms the allocator and the BLAS handles). All-zero tables: every
         write lands in the null block; outputs are discarded and no
         request or metric state is touched."""
@@ -1000,8 +1420,11 @@ class ServeEngine:
         for b in self.prefill_buckets:
             self._prefill(np.zeros((1, b), np.int32), 0, 1, zrow, 0, 0)
         zeros = [0] * len(self._tok)
-        self._decode(np.zeros_like(self._tok), np.zeros_like(self._pos),
-                     np.zeros_like(self._tables), zeros, zeros)
+        for rank in (self.lora_rank_buckets if self.adapters is not None
+                     else (None,)):
+            self._decode(np.zeros_like(self._tok), np.zeros_like(self._pos),
+                         np.zeros_like(self._tables), zeros, zeros,
+                         rank_bucket=rank)
         for k in (self.spec.buckets if self.spec is not None else ()):
             S = len(self._tok)
             self._verify(np.zeros((S, k + 1), np.int32),

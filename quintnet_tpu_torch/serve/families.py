@@ -33,6 +33,11 @@ with the whole chunk in its (sp-replicated) pool and the same logits.
 
 Every contract also takes:
 
+- ``lora=None, lora_scale=None`` (prefill, decode and verify;
+  ``serve/adapters.py``): the packed per-slot adapters, ``{"attn":
+  {target: {"a": [L, S, in, r], "b": [L, S, r, out]}}, "mlp": {...}}``
+  (S = 1 for a prefill: the request's row) and the [S] scales; each
+  layer takes its ``[l]`` slice (``nn/layers.lora_delta``);
 - ``kv_scales=None, policy=None`` (``serve/kv_quant.py``): under a
   scaled policy (int8, fake_quant) ``kv_scales`` is the pool's
   ``(k_scale, v_scale)``, each ``[L, num_blocks, H_kv]``, and the return
@@ -54,7 +59,7 @@ pool's device.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Any, Callable, Optional
+from typing import Any, Callable, Optional, Tuple
 
 import torch
 
@@ -84,6 +89,15 @@ class Family:
     partition_specs: Callable
     prefill_from_sp: Optional[Callable] = None
     kv_dtype: Any = torch.float32
+    # the engine's default LoRA target names (models/lora.py)
+    lora_targets: Tuple[str, ...] = ()
+    # paths (under one block node) of the linears a weight layout policy
+    # packs (serve/weight_quant.py): embeddings, the head, the norms and
+    # MoE experts stay full precision
+    weight_targets: Tuple[Tuple[str, ...], ...] = ()
+    # (path, b factor [L, r, out], tp) -> b in the serving weights' tp
+    # layout (GPT-2's fused qkv is tp-blocked); None is the identity
+    lora_layout: Optional[Callable] = None
 
 
 def _layer_pools(k_pool, v_pool, kv_scales, layer: int):
@@ -121,6 +135,11 @@ def _run_layers(h, n_layers: int, step, k_pool, v_pool, kv_scales, moe):
     return h, pools
 
 
+def _layer_lora(lora, layer: int):
+    """Layer ``layer``'s slice of the packed adapters (or None)."""
+    return None if lora is None else layer_params(lora, layer)
+
+
 def _positions(start: int, n: int, device):
     return torch.arange(start, start + n, dtype=torch.int32, device=device)
 
@@ -131,6 +150,8 @@ def _positions(start: int, n: int, device):
 
 def gpt2_family(cfg) -> Family:
     from quintnet_tpu_torch.models.gpt2 import gpt2_partition_specs
+    from quintnet_tpu_torch.models.lora import DEFAULT_TARGETS
+    from quintnet_tpu_torch.parallel.tp import qkv_blocked_from_standard
 
     L, moe = cfg.n_layer, cfg.moe_args is not None
 
@@ -142,7 +163,8 @@ def gpt2_family(cfg) -> Family:
 
     def prefill_from(params, k_pool, v_pool, ids, start: int, t0: int,
                      table_row, block_size: int, kv_scales=None,
-                     policy=None, tp_axis=None, ep_axis=None):
+                     policy=None, tp_axis=None, ep_axis=None, lora=None,
+                     lora_scale=None):
         positions = _positions(start, ids.shape[1], ids.device)
         h = embed(params, ids, positions, tp_axis)
 
@@ -152,6 +174,7 @@ def gpt2_family(cfg) -> Family:
                 t0 - start, num_heads=_local_heads(cfg, tp_axis), act=gelu,
                 moe_args=cfg.moe_args, ep_axis=ep_axis, tp_axis=tp_axis,
                 block_tables=table_row, block_size=block_size,
+                lora=_layer_lora(lora, layer), lora_scale=lora_scale,
                 kv_scales=sc, policy=policy)
 
         h, pools = _run_layers(h, L, step, k_pool, v_pool, kv_scales, moe)
@@ -159,7 +182,8 @@ def gpt2_family(cfg) -> Family:
         return (_logits(params, h_last, cfg, tp_axis)[:, 0, :], *pools)
 
     def decode(params, k_pool, v_pool, tok, pos, tables, block_size: int,
-               kv_scales=None, policy=None, tp_axis=None, ep_axis=None):
+               kv_scales=None, policy=None, tp_axis=None, ep_axis=None,
+               lora=None, lora_scale=None):
         x = embed(params, tok[:, None], pos[:, None], tp_axis)
 
         def step(layer, h, kc, vc, sc):
@@ -167,15 +191,16 @@ def gpt2_family(cfg) -> Family:
                 layer_params(params["blocks"], layer), h, kc, vc, pos,
                 num_heads=_local_heads(cfg, tp_axis), act=gelu,
                 moe_args=cfg.moe_args, ep_axis=ep_axis, tp_axis=tp_axis,
-                block_tables=tables, block_size=block_size, kv_scales=sc,
-                policy=policy)
+                block_tables=tables, block_size=block_size,
+                lora=_layer_lora(lora, layer), lora_scale=lora_scale,
+                kv_scales=sc, policy=policy)
 
         x, pools = _run_layers(x, L, step, k_pool, v_pool, kv_scales, moe)
         return (_logits(params, x, cfg, tp_axis)[:, 0, :], *pools)
 
     def verify(params, k_pool, v_pool, ids, starts, tail_lens, tables,
                block_size: int, kv_scales=None, policy=None, tp_axis=None,
-               ep_axis=None):
+               ep_axis=None, lora=None, lora_scale=None):
         positions = (starts[:, None]
                      + torch.arange(ids.shape[1], dtype=torch.int32,
                                     device=ids.device)[None, :])  # [S, P]
@@ -186,8 +211,9 @@ def gpt2_family(cfg) -> Family:
                 layer_params(params["blocks"], layer), x, kc, vc, positions,
                 tail_lens, num_heads=_local_heads(cfg, tp_axis), act=gelu,
                 moe_args=cfg.moe_args, ep_axis=ep_axis, tp_axis=tp_axis,
-                block_tables=tables, block_size=block_size, kv_scales=sc,
-                policy=policy)
+                block_tables=tables, block_size=block_size,
+                lora=_layer_lora(lora, layer), lora_scale=lora_scale,
+                kv_scales=sc, policy=policy)
 
         h, pools = _run_layers(h, L, step, k_pool, v_pool, kv_scales, moe)
         return (_logits(params, h, cfg, tp_axis), *pools)
@@ -211,13 +237,24 @@ def gpt2_family(cfg) -> Family:
         h_last = sp_last_hidden(h, start, t0, sp_axis=sp_axis)
         return (_logits(params, h_last, cfg, tp_axis)[:, 0, :], *pools)
 
+    def lora_layout(path, b, tp):
+        # the serving weights' fused qkv columns are tp-blocked
+        # (parallel/tp.gpt2_to_tp_layout): an adapter's b, trained on the
+        # standard [q|k|v] columns, is re-blocked the same way
+        if path[-1] == "qkv" and tp > 1:
+            return qkv_blocked_from_standard(b, cfg.n_head, tp)
+        return b
+
     return Family(
         name="gpt2", cfg=cfg, n_layers=L, n_kv_heads=cfg.n_head,
         head_dim=cfg.n_embd // cfg.n_head, max_positions=cfg.n_positions,
         prefill_from=prefill_from, decode=decode, verify=verify,
         prefill_from_sp=prefill_from_sp,
         partition_specs=lambda tp_axis, ep_axis=None: gpt2_partition_specs(
-            cfg, tp_axis=tp_axis, ep_axis=ep_axis))
+            cfg, tp_axis=tp_axis, ep_axis=ep_axis),
+        lora_targets=DEFAULT_TARGETS, lora_layout=lora_layout,
+        weight_targets=(("attn", "qkv"), ("attn", "proj"), ("mlp", "fc"),
+                        ("mlp", "proj")))
 
 
 # --------------------------------------------------------------------
@@ -236,6 +273,7 @@ def llama_family(cfg) -> Family:
                                                  llama_rope_tables)
     from quintnet_tpu_torch.models.llama_generate import (_embed,
                                                           _full_logits)
+    from quintnet_tpu_torch.models.lora import LLAMA_TARGETS
 
     L, moe = cfg.n_layers, cfg.moe_args is not None
 
@@ -245,7 +283,8 @@ def llama_family(cfg) -> Family:
 
     def prefill_from(params, k_pool, v_pool, ids, start: int, t0: int,
                      table_row, block_size: int, kv_scales=None,
-                     policy=None, tp_axis=None, ep_axis=None):
+                     policy=None, tp_axis=None, ep_axis=None, lora=None,
+                     lora_scale=None):
         positions = _positions(start, ids.shape[1], ids.device)
         h = _embed(params, ids.long(), cfg, tp_axis)
         cos, sin = llama_rope_tables(positions, cfg)           # [P, hd]
@@ -255,6 +294,7 @@ def llama_family(cfg) -> Family:
                 layer_params(params["blocks"], layer), x, kc, vc, positions,
                 t0 - start, cfg, cos, sin, tp_axis=tp_axis, ep_axis=ep_axis,
                 block_tables=table_row, block_size=block_size,
+                lora=_layer_lora(lora, layer), lora_scale=lora_scale,
                 kv_scales=sc, policy=policy))
 
         h, pools = _run_layers(h, L, step, k_pool, v_pool, kv_scales, moe)
@@ -262,7 +302,8 @@ def llama_family(cfg) -> Family:
         return (_full_logits(params, h_last, cfg, tp_axis)[:, 0, :], *pools)
 
     def decode(params, k_pool, v_pool, tok, pos, tables, block_size: int,
-               kv_scales=None, policy=None, tp_axis=None, ep_axis=None):
+               kv_scales=None, policy=None, tp_axis=None, ep_axis=None,
+               lora=None, lora_scale=None):
         x = _embed(params, tok[:, None].long(), cfg, tp_axis)   # [S, 1, D]
         cos, sin = llama_rope_tables(pos, cfg)                  # [S, hd]
         cos, sin = cos[:, None, None, :], sin[:, None, None, :]
@@ -271,15 +312,16 @@ def llama_family(cfg) -> Family:
             return flat(llama_block_decode(
                 layer_params(params["blocks"], layer), h, kc, vc, pos, cfg,
                 cos, sin, tp_axis=tp_axis, ep_axis=ep_axis,
-                block_tables=tables, block_size=block_size, kv_scales=sc,
-                policy=policy))
+                block_tables=tables, block_size=block_size,
+                lora=_layer_lora(lora, layer), lora_scale=lora_scale,
+                kv_scales=sc, policy=policy))
 
         x, pools = _run_layers(x, L, step, k_pool, v_pool, kv_scales, moe)
         return (_full_logits(params, x, cfg, tp_axis)[:, 0, :], *pools)
 
     def verify(params, k_pool, v_pool, ids, starts, tail_lens, tables,
                block_size: int, kv_scales=None, policy=None, tp_axis=None,
-               ep_axis=None):
+               ep_axis=None, lora=None, lora_scale=None):
         positions = (starts[:, None]
                      + torch.arange(ids.shape[1], dtype=torch.int32,
                                     device=ids.device)[None, :])  # [S, P]
@@ -291,8 +333,9 @@ def llama_family(cfg) -> Family:
             return flat(llama_block_verify_paged(
                 layer_params(params["blocks"], layer), x, kc, vc, positions,
                 tail_lens, cfg, cos, sin, tp_axis=tp_axis, ep_axis=ep_axis,
-                block_tables=tables, block_size=block_size, kv_scales=sc,
-                policy=policy))
+                block_tables=tables, block_size=block_size,
+                lora=_layer_lora(lora, layer), lora_scale=lora_scale,
+                kv_scales=sc, policy=policy))
 
         h, pools = _run_layers(h, L, step, k_pool, v_pool, kv_scales, moe)
         return (_full_logits(params, h, cfg, tp_axis), *pools)
@@ -323,4 +366,8 @@ def llama_family(cfg) -> Family:
         prefill_from=prefill_from, decode=decode, verify=verify,
         prefill_from_sp=prefill_from_sp,
         partition_specs=lambda tp_axis, ep_axis=None: llama_partition_specs(
-            cfg, tp_axis=tp_axis, ep_axis=ep_axis))
+            cfg, tp_axis=tp_axis, ep_axis=ep_axis),
+        lora_targets=LLAMA_TARGETS,
+        weight_targets=(("attn", "q"), ("attn", "k"), ("attn", "v"),
+                        ("attn", "o"), ("mlp", "gate"), ("mlp", "up"),
+                        ("mlp", "down")))

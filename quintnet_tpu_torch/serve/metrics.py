@@ -7,12 +7,11 @@ tokens) and per-request marks (submit, first token, finish) from which
 TTFT and tok/s percentiles are derived, with the speculation ledger
 (``spec_steps``/``draft_tokens``/``accepted_draft_tokens``) and the
 chunked-prefill one (``prefill_chunks``/``chunk_steps``/
-``chunk_tokens``). Ledgers for features the port does not serve yet stay
-at zero (inert until the feature is ported):
-``kv_demotions``/``kv_promotions``/``host_hit_tokens``/
-``host_tier_bytes`` (the host tier), the ``moe_*`` fields (MoE), the
-per-adapter TTFTs (adapters); ``weights_dtype`` stays ``"f32"``. The
-copy is kept whole so ``summary()`` has the JAX package's keys.
+``chunk_tokens``), the host tier's (``kv_demotions``/``kv_promotions``/
+``host_hit_tokens``/``host_tier_bytes``/``decode_blocked_demotions``),
+the weight layout's (``weight_bytes``, ``weights_dtype``), MoE routing's
+(``moe_*``) and the adapters' (``per_adapter``). The copy is kept whole
+so ``summary()`` has the JAX package's keys.
 
 All timing uses a caller-injectable clock so tests can drive
 deterministic "wall time" without sleeping.

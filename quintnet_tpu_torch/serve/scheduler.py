@@ -24,6 +24,11 @@ import numpy as np
 from quintnet_tpu_torch.serve.kv_pool import KVPool
 
 WAITING = "waiting"
+# host-to-device KV promotion in flight (serve/kv_tier.py): the request
+# stays at the head of the waiting queue, and next_admission holds it
+# (and so everything behind it) until the engine's per-step feed has
+# brought its host-tier chain back and set it WAITING again
+PROMOTING = "promoting"
 RUNNING = "running"
 FINISHED = "finished"
 
@@ -38,7 +43,9 @@ class RequestProgress:
     (``models/gpt2_generate.sample_logits``) continues the stream
     exactly where it stopped, greedy or sampled. The JAX payload carries
     the evolved key (``key_data``) instead: the port's chain has no
-    evolving state, so ``(seed, len(generated))`` is the whole of it."""
+    evolving state, so ``(seed, len(generated))`` is the whole of it.
+    ``adapter_id``: the request's LoRA adapter (``serve/adapters.py``),
+    None for the base model."""
 
     rid: int
     prompt: np.ndarray
@@ -47,6 +54,7 @@ class RequestProgress:
     priority: int = 0
     preemptions: int = 0
     seed: int = 0
+    adapter_id: Optional[str] = None
 
 
 @dataclass
@@ -63,6 +71,7 @@ class Request:
     on_token: Optional[Callable] = None     # streaming callback
     seed: int = 0                           # sampling chain (resume state
                                             # with len(generated))
+    adapter_id: Optional[str] = None        # LoRA adapter (None: base)
 
     # --- runtime (engine-managed) ---
     state: str = WAITING
@@ -96,7 +105,8 @@ class Request:
             rid=self.rid, prompt=np.array(self.prompt, copy=True),
             generated=list(self.generated),
             max_new_tokens=self.max_new_tokens, priority=self.priority,
-            preemptions=self.preemptions, seed=self.seed)
+            preemptions=self.preemptions, seed=self.seed,
+            adapter_id=self.adapter_id)
 
 
 class Scheduler:
@@ -135,9 +145,11 @@ class Scheduler:
         """The pool's AdmitPlan for this request: its whole prefill
         (prompt + generated) plus the first decode write slot; only
         blocks not already in the prefix cache count against the
-        allocator."""
+        allocator. The request's adapter namespaces the lookup: the same
+        tokens hold other K/V under another adapter."""
         return self.pool.plan_admission(req.output_ids(),
-                                        req.total_len + 1)
+                                        req.total_len + 1,
+                                        namespace=req.adapter_id)
 
     def next_admission(self, free_slots: int) -> Optional[Request]:
         """Pop the head waiting request if it is admissible, else None.
@@ -147,6 +159,11 @@ class Scheduler:
         if self.pool.num_available == 0:
             return None
         head = self.waiting[0]
+        if head.state == PROMOTING:
+            # its host-tier chain is on the way back: admitting it now
+            # would re-prefill what the promotion is about to bring, and
+            # admitting anything else would jump the queue
+            return None
         plan = self.admission_plan(head)
         if not self.pool.can_admit(plan):
             return None

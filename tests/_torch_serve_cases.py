@@ -34,9 +34,24 @@ def _cfg(family: str, cfg_kw):
     return (LlamaConfig if family == "llama" else GPT2Config).tiny(**cfg_kw)
 
 
+def _registry(adapters):
+    """The port's registry of a job's adapters: id -> (numpy LoRA tree,
+    rank, alpha)."""
+    from quintnet_tpu_torch.bridge import lora_params_from_numpy
+    from quintnet_tpu_torch.models.lora import LoRAConfig
+    from quintnet_tpu_torch.serve import AdapterRegistry
+
+    reg = AdapterRegistry()
+    for aid, (tree, rank, alpha) in adapters.items():
+        reg.register(aid, tree=lora_params_from_numpy(tree, "cpu"),
+                     cfg=LoRAConfig(rank=rank, alpha=alpha))
+    return reg
+
+
 def run_engine_job(job, trees, mesh=None):
     """One engine run of ``job`` (a dict: family, cfg_kw, params key,
-    engine kw, the requests) on ``mesh`` (None: one device). Returns the
+    engine kw, the requests (prompt, max_new, seed[, adapter id]), and
+    optionally adapters) on ``mesh`` (None: one device). Returns the
     streams and what the tests read of the engine."""
     from quintnet_tpu_torch.serve import (ServeEngine, gpt2_family,
                                           llama_family)
@@ -48,12 +63,15 @@ def run_engine_job(job, trees, mesh=None):
         tp = mesh.shape[job.get("engine", {}).get("tp_axis", "tp")]
     params = _params(job["family"], trees[job["params"]], cfg, tp)
     fam = (llama_family if job["family"] == "llama" else gpt2_family)(cfg)
-    eng = ServeEngine(fam, params, device="cpu", mesh=mesh,
-                      **job.get("engine", {}))
+    kw = dict(job.get("engine", {}))
+    if job.get("adapters"):
+        kw["adapters"] = _registry(job["adapters"])
+    eng = ServeEngine(fam, params, device="cpu", mesh=mesh, **kw)
     outs = []
     for wave in job["waves"]:
-        rids = [eng.submit(np.asarray(p, np.int32), m, seed=sd)
-                for p, m, sd in wave]
+        rids = [eng.submit(np.asarray(r[0], np.int32), r[1], seed=r[2],
+                           adapter_id=r[3] if len(r) > 3 else None)
+                for r in wave]
         steps = 0
         while eng.has_work:
             eng.step()
@@ -69,6 +87,7 @@ def run_engine_job(job, trees, mesh=None):
             "prefix_hit_tokens": eng.metrics.prefix_hit_tokens,
             "prefill_chunks": eng.metrics.prefill_chunks,
             "blocks_used": eng.pool.num_used,
+            "weight_bytes": eng.weight_bytes,
             "moe": {k: v for k, v in summary.items()
                     if k.startswith("moe")}}
 

@@ -568,11 +568,11 @@ SP_RUNS = ("sp2_ring", "sp2_zigzag", "sp2_ulysses")
 
 
 def test_sp_mesh_runs_parse_and_share_the_two_rank_world():
-    """The sequence-parallel runs: GPT-2 124M uncut at its 1,024
-    positions on sp = 2 in each mode, and Llama by Ulysses; all in the
-    2-rank world; the three GPT-2 runs one reference, the Llama run
-    llama_tp2's; K1-K3 a step only under Ulysses (12 layers x 2
-    micro-batches; Llama's 4 x 2); the permutation and the Ulysses
+    """The sequence-parallel runs: GPT-2 124M widths (6 layers) at its
+    1,024 positions on sp = 2 in each mode, and Llama by Ulysses; all in
+    the 2-rank world; the three GPT-2 runs one reference, the Llama run
+    llama_tp2's; K1-K3 a step only under Ulysses (6 layers x 2
+    micro-batches; Llama's 2 x 2); the permutation and the Ulysses
     exchange probed and gated."""
     runs = {n: chip_smoke.MESH_RUNS[n] for n in SP_RUNS
             + ("llama_sp2_ulysses",)}
@@ -585,19 +585,20 @@ def test_sp_mesh_runs_parse_and_share_the_two_rank_world():
         assert not chip_smoke._exact(run)
     for name in SP_RUNS:
         cfg = chip_smoke._run_model(runs[name])
-        assert (cfg.n_layer, cfg.n_embd, cfg.n_head) == (12, 768, 12)
+        assert (cfg.n_layer, cfg.n_embd, cfg.n_head) == (6, 768, 12)
         assert chip_smoke.MESH_MODELS["gpt2_1k"][1] == cfg.n_positions \
             == 1024
     assert len({chip_smoke._ref_key(runs[n]) for n in SP_RUNS}) == 1
     assert chip_smoke._ref_key(runs["llama_sp2_ulysses"]) == \
         chip_smoke._ref_key(chip_smoke.MESH_RUNS["llama_tp2"])
     zero = {k: 0 for k in chip_smoke.FLASH_KERNELS}
-    assert chip_smoke._per_step(runs["sp2_ring"], 12) == zero
-    assert chip_smoke._per_step(runs["sp2_zigzag"], 12) == zero
-    assert chip_smoke._per_step(runs["sp2_ulysses"], 12) == {
-        k: 24 for k in chip_smoke.FLASH_KERNELS}
-    assert chip_smoke._per_step(runs["llama_sp2_ulysses"], 4) == {
-        k: 8 for k in chip_smoke.FLASH_KERNELS}
+    assert chip_smoke._per_step(runs["sp2_ring"], 6) == zero
+    assert chip_smoke._per_step(runs["sp2_zigzag"], 6) == zero
+    assert chip_smoke._per_step(runs["sp2_ulysses"], 6) == {
+        k: 12 for k in chip_smoke.FLASH_KERNELS}
+    assert chip_smoke._run_model(runs["llama_sp2_ulysses"]).n_layers == 2
+    assert chip_smoke._per_step(runs["llama_sp2_ulysses"], 2) == {
+        k: 4 for k in chip_smoke.FLASH_KERNELS}
     for name in ("ppermute", "all_to_all_ulysses"):
         assert name in chip_smoke.PROBED and name in chip_smoke.PROBE_GATED
     # an sp2_ulysses rank's K1-K3 shape: 4 rows, 6 heads, 1,024 positions
@@ -672,19 +673,20 @@ VP_RUNS = ("vp_tp2", "llama_vp_tp2", "vp_tp2_sp2")
 
 
 def test_vp_mesh_runs_parse():
-    """The vocab-parallel runs: GPT-2 124M uncut with its table padded to
-    50,304 rows on tp = 2 (25,152 a rank; then 16 greedy tokens by
-    ``gpt2_generate_tp``), Llama-3.2-1B widths at 4 layers on tp = 2
-    (sharing llama_tp2's reference: vp without tp changes nothing), GPT-2
-    at 6 layers on tp x sp by Ulysses in the 4-rank world."""
+    """The vocab-parallel runs: GPT-2 124M widths (6 layers) with its
+    table padded to 50,304 rows on tp = 2 (25,152 a rank; then 16 greedy
+    tokens by ``gpt2_generate_tp``), Llama-3.2-1B widths at 2 layers on
+    tp = 2 (sharing llama_tp2's reference: vp without tp changes
+    nothing), GPT-2 at 4 layers on tp x sp by Ulysses in the 4-rank
+    world."""
     runs = {n: chip_smoke.MESH_RUNS[n] for n in VP_RUNS}
     cfgs = {n: chip_smoke._run_model(r) for n, r in runs.items()}
     for name, cfg in cfgs.items():
         assert cfg.vocab_parallel and not chip_smoke._exact(runs[name])
     g = cfgs["vp_tp2"]
-    assert (g.n_layer, g.vocab_size, g.table_vocab_size) == (12, 50257, 50304)
+    assert (g.n_layer, g.vocab_size, g.table_vocab_size) == (6, 50257, 50304)
     assert chip_smoke._run_opts(runs["vp_tp2"])["generate"] == 16
-    assert cfgs["vp_tp2_sp2"].n_layer == 6
+    assert cfgs["vp_tp2_sp2"].n_layer == 4
     assert cfgs["llama_vp_tp2"].table_vocab_size == 128256
     assert chip_smoke._ref_key(runs["llama_vp_tp2"]) == \
         chip_smoke._ref_key(chip_smoke.MESH_RUNS["llama_tp2"])
@@ -692,8 +694,8 @@ def test_vp_mesh_runs_parse():
     worlds = chip_smoke._mesh_worlds()
     assert {"vp_tp2", "llama_vp_tp2"} <= set(worlds[2])
     assert "vp_tp2_sp2" in worlds[4]
-    assert chip_smoke._per_step(runs["vp_tp2_sp2"], 6) == {
-        k: 12 for k in chip_smoke.FLASH_KERNELS}
+    assert chip_smoke._per_step(runs["vp_tp2_sp2"], 4) == {
+        k: 8 for k in chip_smoke.FLASH_KERNELS}
 
 
 @pytest.mark.parametrize("name,sizes", [("vp_tp2", {"tp": 2}),
@@ -750,7 +752,8 @@ def test_vp_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch, name, sizes):
 
 def test_serve_mesh_runs_parse_and_join_the_two_rank_world():
     """The serving mesh runs (``SERVE_MESH_RUNS``): tp = 2 on GPT-2 124M
-    uncut and on Llama-3.2-1B widths at 4 layers, sp = 2 on GPT-2 124M
+    widths at 6 layers and on Llama-3.2-1B widths at 4 layers, sp = 2 on
+    GPT-2 124M widths at 6 layers
     (the 1,000-token document through buckets of 256, 128 positions a
     rank), ep = 2 on GPT-2 124M widths at 6 layers with 8 experts,
     top-2, dropless and at the default capacity factor 1.25; every mesh two ranks wide (they
@@ -761,7 +764,7 @@ def test_serve_mesh_runs_parse_and_join_the_two_rank_world():
                          "serve_ep2", "serve_ep2_drops"}
     assert all(sum(v for v in r[0].values()) == 2 for r in runs.values())
     gpt2 = chip_smoke._serve_mesh_cfg("gpt2")
-    assert (gpt2.n_layer, gpt2.n_embd, gpt2.n_head) == (12, 768, 12)
+    assert (gpt2.n_layer, gpt2.n_embd, gpt2.n_head) == (6, 768, 12)
     llama = chip_smoke._serve_mesh_cfg("llama")
     assert (llama.n_layers, llama.dim, llama.n_heads,
             llama.n_kv_heads) == (4, 2048, 32, 8)
@@ -860,3 +863,104 @@ def test_serve_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch):
             share = r["collective_share_of_profiled_step"]
             # sp decodes replicated, with no collective
             assert (share == 0 if name == "serve_sp2" else 0 < share < 1)
+
+
+# ---------------------------------------------------------------------
+# the slice-19 serving phases (serve_wq, serve_tier, serve_lora)
+# ---------------------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tiny_gpt2():
+    """A tiny GPT-2 at 1,024 positions, on one CPU thread (the test
+    workers share the cores)."""
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    cfg = GPT2Config.tiny(n_layer=2, n_positions=1024)
+    yield gpt2_init(torch.Generator().manual_seed(0), cfg), cfg
+    torch.set_num_threads(threads)
+
+
+def _on_cpu(monkeypatch):
+    """The phases' own code on the CPU: the kernels' plain versions,
+    which launch nothing (the launch gates apply on the card)."""
+    monkeypatch.setattr(chip_smoke, "DEVICE", "cpu")
+    monkeypatch.setattr(chip_smoke, "SERVE_LENS", [32, 100, 60, 57, 90])
+
+
+def _launch_arithmetic(run, decode_steps, admitted, layers=2):
+    assert run == {"decode": layers * decode_steps,
+                   "prefill": layers * admitted}
+
+
+def test_serve_wq_phase_on_cpu(monkeypatch, tiny_gpt2):
+    """serve_wq on a tiny GPT-2: fake_quant's streams equal the f32
+    serve run's, the narrow policies pass the narrow-layout rule, the
+    NLL and bytes gates hold, and each run's K4 launches by path (the
+    kernels line's f32 counts) are the serve rule's arithmetic."""
+    _on_cpu(monkeypatch)
+    params, cfg = tiny_gpt2
+    eng, _ = chip_smoke._serve_engine(params, cfg)
+    rids, _, _, _ = chip_smoke._serve_script(eng, cfg)
+    f32 = [eng.result(r) for r in rids]
+    res, runs = chip_smoke.phase_serve_wq(params, cfg, f32)
+    assert res["fake_quant"]["streams_identical_to_f32"]
+    for name in ("bf16", "int8", "fp8"):
+        assert res[name]["agree_with_dense"] >= 0.9
+    nll = res["nll"]["paged_eval_nll"]
+    assert nll["fake_quant"] == nll["f32"]
+    assert res["nll"]["f32_over_int8_bytes"] >= 3.5
+    assert len(runs) == len(chip_smoke.WQ_POLICIES)
+    for name, run in zip(chip_smoke.WQ_POLICIES, runs):
+        # the CPU launches nothing: the counts the card must show are the
+        # engine's steps, held by _check_serve_run there
+        assert run == {}
+        assert res[name]["decode_step_ms_p50"] > 0
+
+
+def test_serve_tier_phase_on_cpu(monkeypatch, tiny_gpt2):
+    """serve_tier on a tiny GPT-2: the tier demotes and promotes, never
+    during a decode dispatch; the streams equal the never-evicting
+    pool's bit for bit; a chain demoted and promoted back byte for byte
+    from an f32 and an int8 pool; the K4 arithmetic of each run."""
+    _on_cpu(monkeypatch)
+    params, cfg = tiny_gpt2
+    res, runs = chip_smoke.phase_serve_tier(params, cfg)
+    assert res["tier"]["demotions"] > 0 and res["tier"]["promotions"] > 0
+    assert res["host_hit_tokens"] > 0
+    assert res["decode_blocked_demotions"] == 0
+    assert res["streams_identical_to_never_evicting_pool"]
+    assert res["runs"]["never_evicts"]["cache_evictions"] == 0
+    assert res["runs"]["tier"]["cache_evictions"] > 0
+    for pool in ("f32", "int8"):
+        assert res["round_trip"][pool]["blocks"] > 0
+    assert len(runs) == 3
+    n = 3 * chip_smoke.TIER_ROUNDS
+    for run in runs:
+        _launch_arithmetic(run, n * (chip_smoke.TIER_NEW - 1), n)
+
+
+def test_serve_lora_phase_on_cpu(monkeypatch, tiny_gpt2):
+    """serve_lora on a tiny GPT-2: every tenant's stream equals its
+    dedicated merged engine's up to near-ties (none here: on the CPU the
+    two orders of summation agree on every token), the decode bucket
+    follows the bound adapters (every bucket of the ladder used), the
+    pins are released, and each run's K4 arithmetic."""
+    _on_cpu(monkeypatch)
+    params, cfg = tiny_gpt2
+    res, runs = chip_smoke.phase_serve_lora(params, cfg)
+    for mode in ("greedy", "sampled"):
+        run = res["runs"][mode]
+        assert set(run["decode_calls_by_rank_bucket"]) == {4, 8, 16}
+        for tenant, d in run["vs_dedicated_merged"].items():
+            assert d["tokens_compared"] > 0
+            assert d["tokens_agreeing"] == d["tokens_compared"], tenant
+        assert run["per_adapter"]["t4"]["requests"] == 2
+    stacked = res["runs"]["greedy_int8_weights"]
+    assert stacked["weight_bytes"] < res["runs"]["greedy"]["weight_bytes"]
+    assert len(stacked["new_tokens_equal_to_f32_run"]) == 8
+    # 3 adapter runs + 4 dedicated engines for each of the two modes
+    assert len(runs) == 3 + 2 * 4
+    for run in runs:
+        assert set(run) == {"decode", "prefill"} and run["prefill"] > 0

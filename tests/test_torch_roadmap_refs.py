@@ -143,9 +143,11 @@ def test_generation_refusals_name_items_6_and_7():
     """The generation slice's refusals are all served now: vocab-parallel
     decoding (item 6's part 6b), and with the serving meshes (item 7)
     paged Llama decoding, tp paged decoding, MoE GPT-2 serving and the
-    engine's ``mesh``/``tp_axis``/``sp_axis``/``ep_axis``. No message
-    names them and the engine's table of items holds none of them;
-    items 6 and 7 are still there for the refusals that remain."""
+    engine's ``mesh``/``tp_axis``/``sp_axis``/``ep_axis``, and with the
+    rest of item 7 the host tier, the weight layouts and the adapters.
+    No message names them and the engine's table of items holds none of
+    them (item 8's five options are what it holds); items 6 and 7 are
+    still listed in ROADMAP.md."""
     from quintnet_tpu_torch.serve.engine import _NOT_PORTED
 
     _, items, _ = _roadmap()
@@ -160,4 +162,10 @@ def test_generation_refusals_name_items_6_and_7():
         assert not [m for m in by_file.get(where, []) if needle in m], (
             where, needle)
     assert not {"mesh", "tp_axis", "sp_axis", "ep_axis"} & set(_NOT_PORTED)
+    assert not {"adapters", "kv_tier_bytes", "weights_dtype", "lora_targets",
+                "lora_max_rank", "lora_rank_bucket_sizes",
+                "kv_tier_promote_budget_bytes"} & set(_NOT_PORTED)
+    assert set(_NOT_PORTED) == {"logger", "log_every", "clock", "tracer",
+                                "recorder"}
+    assert all("item 8" in v for v in _NOT_PORTED.values())
     assert 6 in items and 7 in items

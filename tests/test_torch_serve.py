@@ -194,15 +194,6 @@ def test_submit_rejects_what_can_never_run(params):
     assert not te.has_work
 
 
-@pytest.mark.parametrize("option,value", [
-    ("adapters", object()), ("kv_tier_bytes", 1 << 20),
-    ("weights_dtype", "int8")])
-def test_unported_options_raise(params, option, value):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ServeEngine(gpt2_family(CFG), params[1], device="cpu",
-                    **{option: value})
-
-
 def test_custom_prefill_ladder_streams_identical_to_jax(params):
     """``prefill_len`` and ``prefill_bucket_sizes`` as the JAX engine
     takes them (``quintnet_tpu/serve/engine.py:470-483``): the same
@@ -236,10 +227,6 @@ def test_bad_prefill_ladder_raises_in_both(params, kw):
 # each JAX option the port does not serve yet: a value that asks for it,
 # the JAX default ("off"), and the ROADMAP.md item its message names
 JAX_ONLY_OPTIONS = {
-    "lora_targets": (("qkv",), None, "item 7"),
-    "lora_max_rank": (16, 8, "item 7"),
-    "lora_rank_bucket_sizes": ((4, 8), None, "item 7"),
-    "kv_tier_promote_budget_bytes": (1 << 20, None, "item 7"),
     "logger": (print, None, "item 8"), "log_every": (10, 0, "item 8"),
     "clock": (lambda: 0.0, time.monotonic, "item 8"),
     "tracer": (object(), None, "item 8"),
@@ -256,6 +243,96 @@ def test_jax_only_options_raise_naming_their_item(params, option):
     eng = ServeEngine(gpt2_family(CFG), params[1], device="cpu",
                       max_seq_len=40, **{option: off})
     assert eng.prefill_buckets == prefill_buckets(40)
+
+
+# item 7's serving options, served since the host tier, the weight
+# layouts and the adapters were ported: each one's JAX default, and the
+# values JAX's constructor refuses (a sp mesh for the adapters); the
+# lora_* options count only with adapters on
+ITEM7_OPTIONS = {
+    "adapters": (None, [{"mesh": "sp"}]),
+    "kv_tier_bytes": (0, [{"kv_tier_bytes": -1},
+                          {"kv_tier_bytes": 1 << 20,
+                           "prefix_cache": False}]),
+    "weights_dtype": (None, [{"weights_dtype": "int4"}]),
+    "lora_targets": (None, [{"lora_targets": ("nope",)}]),
+    "lora_max_rank": (8, [{"lora_max_rank": 0}]),
+    "lora_rank_bucket_sizes": (None, [{"lora_rank_bucket_sizes": (0, 8)}]),
+    "kv_tier_promote_budget_bytes": (None, [
+        {"kv_tier_promote_budget_bytes": 0, "kv_tier_bytes": 1 << 20},
+        {"kv_tier_promote_budget_bytes": -5, "kv_tier_bytes": 1 << 20}]),
+}
+SMALL = {"max_slots": 2, "block_size": 4, "num_blocks": 16,
+         "max_seq_len": 24}
+
+
+def _item7_kw(option, kw, mesh_cls, registry_cls):
+    """An engine's keywords for one case: the lora_* options and a
+    ``mesh: "sp"`` case run with adapters on."""
+    kw = dict(kw)
+    if kw.pop("mesh", None) == "sp":
+        kw["mesh"], kw["sp_axis"] = mesh_cls(), "sp"
+    if option.startswith("lora") or option == "adapters":
+        kw["adapters"] = registry_cls()
+    return kw
+
+
+def _sp_meshes():
+    from jax.sharding import Mesh as JaxMesh
+
+    from quintnet_tpu_torch.core.mesh import Mesh, MeshSpec
+    return (lambda: Mesh(MeshSpec.create(sp=2), 0, {}),
+            lambda: JaxMesh(np.array(jax.devices()[:2]), ("sp",)))
+
+
+@pytest.mark.parametrize("kind", ["refusals", "default"])
+@pytest.mark.parametrize("option", sorted(ITEM7_OPTIONS))
+def test_item7_options_are_served(params, option, kind):
+    """Each option JAX's constructor takes for item 7: ``refusals``, the
+    values JAX refuses raise the same error type with the same message
+    in both engines; ``default``, its JAX default builds the engine
+    that omitting it builds (the same ladder, tier, layout and streams).
+    These replace the refusal cases the option had while unported."""
+    from quintnet_tpu.serve import AdapterRegistry as JaxRegistry
+    from quintnet_tpu_torch.serve import AdapterRegistry
+
+    jp, tp = params
+    default, refusals = ITEM7_OPTIONS[option]
+    tmesh, jmesh = _sp_meshes()
+    if kind == "refusals":
+        for kw in refusals:
+            errs = []
+            for make, mesh, reg in (
+                    (lambda **k: ServeEngine(gpt2_family(CFG), tp,
+                                             device="cpu", **k), tmesh,
+                     AdapterRegistry),
+                    (lambda **k: JaxServeEngine(jax_gpt2_family(JCFG), jp,
+                                                **k), jmesh, JaxRegistry)):
+                with pytest.raises((ValueError, NotImplementedError)) as ex:
+                    make(**SMALL, **_item7_kw(option, kw, mesh, reg))
+                errs.append(ex.value)
+            assert type(errs[0]) is type(errs[1]), (kw, errs)
+            assert str(errs[0]) == str(errs[1])
+        return
+    engines = []
+    for kw in ({option: default}, {}):
+        kw = _item7_kw(option, kw, tmesh, AdapterRegistry)
+        engines.append(ServeEngine(gpt2_family(CFG), tp, device="cpu",
+                                   **SMALL, **kw))
+    a, b = engines
+    assert a.prefill_buckets == b.prefill_buckets
+    assert (a.kv_tier, b.kv_tier) == (None, None)
+    assert a.weights_dtype == b.weights_dtype == "f32"
+    assert a.weight_bytes == b.weight_bytes
+    assert (a.adapters is None) == (b.adapters is None)
+    if a.adapters is not None:
+        assert a.lora_rank_buckets == b.lora_rank_buckets == (4, 8)
+        assert a.lora_targets == b.lora_targets
+    assert a._promote_budget_blocks == b._promote_budget_blocks == 4
+    prompt = _prompts(9, (5,))[0]
+    np.testing.assert_array_equal(
+        generate(a, [prompt], max_new_tokens=4)[0],
+        generate(b, [prompt], max_new_tokens=4)[0])
 
 
 @pytest.mark.parametrize("option,on,off", [

@@ -17,7 +17,14 @@ the engine does not read), on JAX's weights (bridged): each rank's greedy
 streams equal JAX's engine on the same mesh (8 virtual CPU devices,
 ``shard_map``) token for token, and its sampled streams the port's own
 one-device engine (JAX draws from ``jax.random`` keys). The routing
-summaries of ep2 and ep2 x tp2 equal JAX's. ``ring_paged_prefill``'s
+summaries of ep2 and ep2 x tp2 equal JAX's. Since the host tier, packed
+weights and adapters were ported, tp2 also serves int8 weights (each
+``w_scale`` cut like its weight's out dim; greedy equal to JAX's tp2
+int8 engine) and fake_quant weights (the f32 streams bit for bit), and
+two LoRA tenants beside a base request (``a`` cut on its in dim, ``b``
+on its out dim, GPT-2's qkv ``b`` re-blocked; equal to JAX's tp2 engine
+and to dedicated one-device engines on the merged weights).
+``ring_paged_prefill``'s
 output slice and pools on each rank equal JAX's inside ``shard_map``
 over sp = 2 within 1e-5 (f32 and int8 pools, a chunk at a nonzero
 offset), the pools' unchanged blocks exactly.
@@ -41,6 +48,7 @@ from quintnet_tpu.models.llama import llama_init as jax_llama_init
 from quintnet_tpu.serve import ServeEngine as JaxServeEngine
 from quintnet_tpu.serve import gpt2_family as jax_gpt2_family
 from quintnet_tpu.serve import llama_family as jax_llama_family
+from quintnet_tpu_torch.bridge import gpt2_params_from_numpy
 from quintnet_tpu_torch.core.mesh import Mesh, MeshSpec, mesh_from_sizes
 from quintnet_tpu_torch.models.gpt2 import GPT2Config
 from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
@@ -72,6 +80,10 @@ def _wave(seed, lengths, max_new=6, seed0=50):
 
 
 SHORT = _wave(0, (5, 9, 3))
+# two tenants of ranks 4 and 8 and a base-model request (tp2_lora)
+LORA_WAVE = [(p, m, sd, aid) for (p, m, sd), aid in zip(
+    _wave(4, (6, 5, 7), max_new=8, seed0=70),
+    ("tenant-a", "tenant-b", None))]
 LONG = _wave(1, (40,)) + _wave(2, (150,), seed0=60)
 PREFIX = _prompts(3, (9, 4))
 PREFIX_WAVES = [[(PREFIX[0], 4, 1)], [(PREFIX[0] + PREFIX[1], 4, 2)]]
@@ -86,6 +98,11 @@ JOBS = {
                  [SHORT]),
     "tp2_fake_quant": ("gpt2", {"dp": 2, "tp": 2},
                        {**BASE, "kv_dtype": "fake_quant"}, [SHORT]),
+    "tp2_wq_fake_quant": ("gpt2", {"dp": 2, "tp": 2},
+                          {**BASE, "weights_dtype": "fake_quant"}, [SHORT]),
+    "tp2_wq_int8": ("gpt2", {"dp": 2, "tp": 2},
+                    {**BASE, "weights_dtype": "int8"}, [SHORT]),
+    "tp2_lora": ("gpt2", {"dp": 2, "tp": 2}, BASE, [LORA_WAVE]),
     "tp2_prefix": ("gpt2", {"dp": 2, "tp": 2}, BASE, PREFIX_WAVES),
     "tp2_llama": ("llama", {"dp": 2, "tp": 2}, BASE, [SHORT]),
     "tp2_llama_int8": ("llama", {"dp": 2, "tp": 2},
@@ -118,14 +135,34 @@ JOBS = {
 KW = {"gpt2": GPT2_KW, "gpt2_moe": MOE_KW, "llama": LLAMA_KW}
 # the mesh runs held to JAX's engine on the same mesh (greedy)
 JAX_HELD = ("tp2", "tp2_llama", "sp2", "sp2_chunked", "sp4", "sp2_llama",
-            "ep2", "ep2tp2")
+            "ep2", "ep2tp2", "tp2_wq_int8", "tp2_lora")
+# tp2_lora's tenants: JAX's lora_init, moved off their zero b
+TENANTS = {"tenant-a": (1, 4), "tenant-b": (2, 8)}
+
+
+def _tenants():
+    """id -> (JAX's numpy LoRA tree, rank, alpha) on GPT-2's blocks."""
+    from quintnet_tpu.models import lora as jlora
+
+    blocks = _jax_init("gpt2")["blocks"]
+    out = {}
+    for aid, (seed, rank) in TENANTS.items():
+        lo = jlora.lora_init(jax.random.key(seed), blocks,
+                             jlora.LoRAConfig(rank=rank, alpha=2.0 * rank))
+        lo = jax.tree.map(lambda leaf: leaf + 0.02 * jax.random.normal(
+            jax.random.key(seed + 100), leaf.shape), lo)
+        out[aid] = (jax.tree.map(np.asarray, lo), rank, 2.0 * rank)
+    return out
 
 
 def _job(name):
     model, mesh, engine, waves = JOBS[name]
-    return {"family": "llama" if model == "llama" else "gpt2",
-            "cfg_kw": KW[model], "params": model, "mesh": mesh,
-            "engine": engine, "waves": waves}
+    job = {"family": "llama" if model == "llama" else "gpt2",
+           "cfg_kw": KW[model], "params": model, "mesh": mesh,
+           "engine": engine, "waves": waves}
+    if name == "tp2_lora":
+        job["adapters"] = _tenants()
+    return job
 
 
 def _jax_init(model):
@@ -214,12 +251,22 @@ def _jax_run(name, jparams):
     if "tp" in sizes and model != "llama":
         params = jax_tp_layout(params, cfg, sizes["tp"])
     fam = (jax_llama_family if model == "llama" else jax_gpt2_family)(cfg)
-    eng = JaxServeEngine(fam, params, mesh=_jax_mesh(sizes),
-                         **job["engine"])
+    kw = dict(job["engine"])
+    if job.get("adapters"):
+        from quintnet_tpu.models.lora import LoRAConfig as JaxLoRAConfig
+        from quintnet_tpu.serve import AdapterRegistry as JaxRegistry
+
+        kw["adapters"] = JaxRegistry()
+        for aid, (tree, rank, alpha) in job["adapters"].items():
+            kw["adapters"].register(aid, tree=tree, cfg=JaxLoRAConfig(
+                rank=rank, alpha=alpha))
+    eng = JaxServeEngine(fam, params, mesh=_jax_mesh(sizes), **kw)
     outs = []
     for wave in job["waves"]:
-        rids = [eng.submit(np.asarray(p, np.int32), m,
-                           key=jax.random.key(sd)) for p, m, sd in wave]
+        rids = [eng.submit(np.asarray(r[0], np.int32), r[1],
+                           key=jax.random.key(r[2]),
+                           adapter_id=r[3] if len(r) > 3 else None)
+                for r in wave]
         while eng.has_work:
             eng.step()
         outs += [eng.result(r) for r in rids]
@@ -273,6 +320,43 @@ def test_ranks_agree_on_every_host_decision(world):
 def test_fake_quant_on_tp_equals_f32_on_tp(world):
     for r in world:
         assert _same(r["tp2_fake_quant"]["streams"], r["tp2"]["streams"])
+
+
+def test_fake_quant_weights_on_tp_equal_f32_on_tp(world):
+    """Scaled weights on tp = 2: each ``w_scale`` cut like its weight's
+    out dim (``serve/weight_quant.augment_weight_specs``); fake_quant's
+    streams are the f32 streams bit for bit, and every rank accounts the
+    whole tree's weight bytes, as JAX's engine does."""
+    for r in world:
+        assert _same(r["tp2_wq_fake_quant"]["streams"],
+                     r["tp2"]["streams"])
+        assert (r["tp2_wq_int8"]["weight_bytes"]
+                < r["tp2"]["weight_bytes"] / 3.5)
+
+
+def test_adapters_on_tp_equal_the_dedicated_merged_engines(world, trees):
+    """Multi-tenant LoRA on tp = 2: the packed factors cut like their
+    weights (``a`` on its in dim, ``b`` on its out dim, GPT-2's qkv ``b``
+    re-blocked by the family's layout hook); each request's stream is a
+    dedicated one-device engine's on that tenant's merged weights."""
+    from quintnet_tpu_torch.bridge import lora_params_from_numpy
+    from quintnet_tpu_torch.models.lora import LoRAConfig, lora_merge_tree
+
+    tenants = _tenants()
+    cfg = GPT2Config.tiny(**GPT2_KW)
+    for i, (p, m, sd, aid) in enumerate(LORA_WAVE):
+        tp = gpt2_params_from_numpy(trees["gpt2"], "cpu")
+        if aid is not None:
+            tree, rank, alpha = tenants[aid]
+            tp = lora_merge_tree(tp, lora_params_from_numpy(tree, "cpu"),
+                                 LoRAConfig(rank=rank, alpha=alpha))
+        eng = ServeEngine(gpt2_family(cfg), tp, device="cpu",
+                          **{**BASE, "max_slots": 1})
+        rid = eng.submit(np.asarray(p, np.int32), m, seed=sd)
+        eng.run()
+        for r in world:
+            assert np.array_equal(r["tp2_lora"]["streams"][i],
+                                  eng.result(rid)), (i, aid)
 
 
 @pytest.mark.parametrize("name,heads", [
