@@ -159,6 +159,28 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    used); every pin released; K4 == 12 x (decode steps + prefills) in
    every run. Reported: the same greedy batch with int8 weights under
    the adapters.
+3f. **serve_fleet** (slice 20) — GPT-2 124M (12 layers, the serve
+   phases' weights) served by a ``ServeFleet`` of 3 replicas (4 slots,
+   f32 pools, obs on, a crash directory), 16 requests of 32-256 tokens,
+   32 new each, all submitted at once, replica r1 killed after its 8th
+   step (``ChaosMonkey``, mode raise); greedy, then sampled
+   (``SAMPLED``) at each fid's seed. Counts zeroed just before each run
+   and read just after. Gates: greedy streams equal the dense greedy up
+   to near-ties (the serve rule), sampled ones the port's single engine
+   at the same seeds up to perturbed near-ties; at least one migration;
+   exactly one death in the event log, the armed ``ChaosKilled``; a
+   crash dump that ``load_crash_dump`` reads, holding the dead replica's
+   step ring; the fleet's exposition parses; K4 launched from all 3
+   replica threads and no other (``launches_by_thread``), n_layer x
+   (decode steps + prefills) over every engine, the dead one included.
+   Then on one engine: tracing on vs off, streams byte-equal and the
+   same host ops, device operations and device-to-host copies a step
+   (``torch.profiler``); a clock advancing 10 ms a read retires a
+   running request with ``DeadlineExceeded``, its blocks returned (none
+   held after, its chain hit on resubmission). Prints the fleet's wall
+   s, TTFT / ITL percentiles, each replica's step p50 (recorder rings),
+   migrations, sheds, peak memory and what stays allocated after
+   ``close()``, beside the card's name and power limit.
 4. **train** — GPT-2 124M (f32, random weights from seed 0, every
    dropout rate 0) trained by the port's ``Trainer`` with AdamW (lr
    5e-5, decay 0.01, clip 1.0) on ``SummarizationDataset.synthetic``
@@ -350,7 +372,9 @@ single-rank references also on a line of their own), one of
 per-kernel numbers (K4 once per variant the
 serve phases launched and path, the f32 pool's with the serve and
 serve_sampled runs' launches (and since slice 19 serve_wq's, serve_tier's
-and serve_lora's f32-pool runs'); K1-K3 in f32 with the train, lora_train,
+and serve_lora's f32-pool runs', since slice 20 serve_fleet's prefills;
+its decode launches on a line of the replicas' 4-slot shape); K1-K3 in
+f32 with the train, lora_train,
 resume, llama_train and llama_packed phases' launches and every f32 mesh
 rank's
 together, in bf16 with the train_bf16 and llama_train_bf16 phases' and
@@ -371,11 +395,13 @@ train_bf16 phase's GEMMs) run on cuBLAS's bf16 tensor-core path.
 from __future__ import annotations
 
 import collections
+import gc
 import json
 import os
 import subprocess
 import sys
 import time
+import weakref
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 # cuBLAS's deterministic mode (the resume phase) needs a fixed workspace,
@@ -450,19 +476,26 @@ def _wrappers():
 
 
 def _zero_counts() -> None:
+    """Every wrapper's counts to 0, each under the wrapper's lock (the
+    serving fleet launches from several threads)."""
     from quintnet_tpu_torch.ops.flash_attention import flash_attention
 
     for fn in _wrappers().values():
-        fn.launches = 0
-        for by in ("launches_by_variant", "launches_by_path",
-                   "launches_by_dtype"):
-            if hasattr(fn, by):
-                getattr(fn, by).clear()
+        with fn.count_lock:
+            fn.launches = 0
+            for by in ("launches_by_variant", "launches_by_path",
+                       "launches_by_dtype", "launches_by_thread"):
+                if hasattr(fn, by):
+                    getattr(fn, by).clear()
     flash_attention.routed = 0
 
 
 def _counts() -> dict:
-    return {name: fn.launches for name, fn in _wrappers().items()}
+    out = {}
+    for name, fn in _wrappers().items():
+        with fn.count_lock:
+            out[name] = fn.launches
+    return out
 
 
 def _timed_ms(fn) -> float:
@@ -741,6 +774,11 @@ def _paged_cases():
         cases.append(_paged_case(gen, name=f"{tag}_prefill_P128", S=1,
                                  Hq=hq, Hkv=hkv, P=128, starts=[0]))
         line(tag, "prefill")
+    # the serving fleet's decode shape (serve_fleet): a replica's 4 slots
+    # at the contexts of its prompts of 32-256 tokens, 32 new
+    cases.append(_paged_case(gen, name="fleet_decode_S4", S=FLEET_SLOTS,
+                             Hq=H, Hkv=H, P=1, starts=[287, 200, 96, 40]))
+    line("fleet_s4", "decode")
     results, outs = [], {}
     for c in cases:
         args = (c["q"], c["k"], c["v"], c["tables"], c["starts"])
@@ -1564,9 +1602,11 @@ def _serve_numbers(eng, rids, prompts, steps):
 def _launches():
     from quintnet_tpu_torch.ops.paged_attention import paged_attention
 
-    return {"total": paged_attention.launches,
-            "by_variant": dict(paged_attention.launches_by_variant),
-            "by_path": dict(paged_attention.launches_by_path)}
+    with paged_attention.count_lock:
+        return {"total": paged_attention.launches,
+                "by_variant": dict(paged_attention.launches_by_variant),
+                "by_path": dict(paged_attention.launches_by_path),
+                "by_thread": dict(paged_attention.launches_by_thread)}
 
 
 def _serve_engine(params, cfg, kv_dtype="f32", **kw):
@@ -2864,6 +2904,363 @@ def phase_serve_lora(params, cfg):
         _free_card()
     _emit(res)
     return res, runs
+
+
+# ---------------------------------------------------------------------
+# phase 3f: the in-process serving fleet (obs, deadlines, migration)
+# ---------------------------------------------------------------------
+
+FLEET_REPLICAS = 3
+FLEET_SLOTS = 4
+FLEET_BLOCKS = 160               # 159 usable blocks of 16 a replica
+FLEET_REQUESTS = 16
+FLEET_NEW = 32
+FLEET_KILL = ("r1", 8)           # the armed death: replica, after step
+FLEET_THREADS = tuple(f"fleet-r{i}" for i in range(FLEET_REPLICAS))
+# the inertness and deadline scripts on one engine
+INERT_LENS = (32, 48, 40, 64)
+INERT_NEW = 8
+DEADLINE_TICK_S = 0.01           # the fake clock's step a read
+DEADLINE_S = 0.5
+
+
+def _fleet_prompts(cfg):
+    rng = np.random.default_rng(71)
+    return [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+            for n in rng.integers(32, 257, FLEET_REQUESTS)]
+
+
+def _fleet_engine(params, cfg, **kw):
+    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
+
+    return ServeEngine(gpt2_family(cfg), params, device=DEVICE,
+                       max_slots=FLEET_SLOTS, block_size=16,
+                       num_blocks=FLEET_BLOCKS, kv_dtype="f32", **kw)
+
+
+def _fleet_run(params, cfg, prompts, crash_dir, mode_kw):
+    """One fleet run, the main path: 3 replicas sharing ``params`` (the
+    factory closes over the one tree on the card), obs on, a crash
+    directory, r1 killed after its 8th step; every request submitted at
+    once at its fid's seed (the default). K4's counts zeroed just before
+    the submissions and read just after the last result. Returns (the
+    fleet, closed; the fids; the streams; the launches; wall s)."""
+    from quintnet_tpu_torch.fleet import ServeFleet
+    from quintnet_tpu_torch.ft import ChaosMonkey
+
+    fleet = ServeFleet(lambda: _fleet_engine(params, cfg, **mode_kw),
+                       n_replicas=FLEET_REPLICAS, obs=True,
+                       crash_dir=crash_dir,
+                       chaos=ChaosMonkey(kill_at_step=FLEET_KILL[1],
+                                         mode="raise",
+                                         target=FLEET_KILL[0]))
+    victim = next(r for r in fleet.replicas if r.name == FLEET_KILL[0])
+    dead_pool = weakref.ref(victim.engine.pool.k)
+    del victim
+    try:
+        _zero_counts()
+        _sync()
+        t0 = time.perf_counter()
+        fids = [fleet.submit(p, FLEET_NEW) for p in prompts]
+        outs = [fleet.result(f, timeout=600) for f in fids]
+        _sync()
+        wall = time.perf_counter() - t0
+        launches = _launches()
+        # the dump is written by the dispatcher outside the fleet lock
+        t_wait = time.perf_counter()
+        while not fleet.crash_dumps and time.perf_counter() - t_wait < 30:
+            time.sleep(0.01)
+    finally:
+        fleet.close()
+    # the restart dropped the dead engine: nothing keeps its pool
+    gc.collect()
+    if fleet.metrics.restarts and dead_pool() is not None:
+        raise AssertionError("the dead replica's KV pool outlived its "
+                             "restart")
+    return fleet, fids, outs, launches, wall
+
+
+def _check_fleet_run(fleet, cfg, launches):
+    """The armed death and only it; a migration; every replica thread
+    launched K4, and nothing else did; K4 == n_layer x (decode steps +
+    prefills) over every engine that served, the dead one included."""
+    from quintnet_tpu_torch.obs import load_crash_dump
+
+    deaths = fleet.events.snapshot(kind="replica_death")
+    armed = [(FLEET_KILL[0], f"ChaosKilled: chaos kill after global step "
+                             f"{FLEET_KILL[1]}")]
+    if [(d["replica"], d["error"]) for d in deaths] != armed:
+        raise AssertionError(f"replica deaths {deaths}; expected only the "
+                             f"armed one {armed}")
+    m = fleet.metrics
+    if m.migrations < 1 or m.finished != FLEET_REQUESTS or m.shed:
+        raise AssertionError(f"fleet metrics {m.summary()}")
+    if not fleet.crash_dumps:
+        raise AssertionError("no crash dump written")
+    dump = load_crash_dump(fleet.crash_dumps[0])
+    if dump["replica"] != FLEET_KILL[0] or not dump["ring"]:
+        raise AssertionError(f"crash dump of {dump['replica']} with "
+                             f"{len(dump['ring'])} step records")
+    engines = ([r.engine.metrics for r in fleet.replicas]
+               + list(fleet._retired_metrics))
+    L = _depth(cfg)
+    want = {"decode": L * sum(e.decode_steps for e in engines),
+            "prefill": L * sum(e.admitted for e in engines)}
+    if torch.device(DEVICE).type == "cuda":
+        _check_launches(launches, "f32", want)
+        if set(launches["by_thread"]) != set(FLEET_THREADS):
+            raise AssertionError(
+                f"K4 launched by threads {launches['by_thread']}; "
+                f"expected every replica thread {FLEET_THREADS} and no "
+                f"other")
+    return want, dump
+
+
+def _fleet_numbers(fleet, wall):
+    """Wall s, TTFT (fleet clock: queue wait included) and ITL
+    percentiles, each replica's step p50 from its recorder ring (the
+    dead one's from its crash dump), migrated and shed counts."""
+    s = fleet.summary()
+    rings = {r.name: r.engine.recorder.snapshot() for r in fleet.replicas}
+    rings[FLEET_KILL[0] + " (dead)"] = fleet.last_crash["ring"]
+    return {"wall_s": wall,
+            "ttft_s": s["ttft_s"], "itl_s": s["engine"]["itl_s"],
+            "latency_s": s["latency_s"],
+            "step_ms_p50": {name: float(np.median(
+                [r["t1"] - r["t0"] for r in ring]) * 1e3) if ring else None
+                for name, ring in rings.items()},
+            "steps": {name: len(ring) for name, ring in rings.items()},
+            "migrations": s["migrations"], "shed": s["shed"],
+            "replica_deaths": s["replica_deaths"],
+            "restarts": s["restarts"],
+            "gen_tokens": s["engine"]["gen_tokens"]}
+
+
+def _op_census(run):
+    """(host aten ops, device operations, device-to-host copies, lost
+    records) of ``run()`` in one ``torch.profiler`` window: device
+    operations are the device records (kernels, copies, sets) plus the
+    launches whose records the profiler dropped (``_lost_records``)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU]
+    if torch.device(DEVICE).type == "cuda":
+        acts.append(ProfilerActivity.CUDA)
+    with profile(activities=acts) as prof:
+        run()
+        _sync()
+    host = dev = dtoh = 0
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            dev += 1
+            dtoh += "DtoH" in e.name
+        elif e.name.startswith("aten::"):
+            host += 1
+    lost = sum(_lost_records(prof).values())
+    return {"host_aten_ops": host, "device_ops": dev + lost,
+            "dtoh_copies": dtoh, "lost_records": lost}
+
+
+CENSUS = ("steps", "host_aten_ops", "device_ops", "dtoh_copies")
+
+
+def _census_run(params, cfg, prompts, observed):
+    """The inertness script on a fresh warmed engine, tracer and recorder
+    armed or not: its streams, steps and op census."""
+    from quintnet_tpu_torch import obs
+
+    eng = _fleet_engine(params, cfg)
+    eng.warmup()
+    if observed:
+        eng.tracer = obs.Tracer(clock=eng.clock)
+        eng.recorder = obs.StepRecorder(capacity=256, clock=eng.clock)
+    streams = []
+
+    def run():
+        streams[:] = _run_requests(eng, prompts, [INERT_NEW] * len(prompts),
+                                   [0] * len(prompts))[0]
+
+    out = {**_op_census(run), "steps": eng.metrics.steps,
+           "streams": [s.tobytes() for s in streams]}
+    if observed:
+        out["spans"] = sum(len(eng.tracer.spans(t))
+                           for t in eng.tracer.trace_ids())
+        out["records"] = len(eng.recorder)
+    del eng
+    _free_card()
+    return out
+
+
+def _inertness(params, cfg):
+    """The same greedy script on two warmed engines, one with the tracer
+    and the recorder armed: streams byte-equal, and the same steps, host
+    ops, device operations and device-to-host copies. A census that
+    differs beside records the profiler dropped is taken again, both
+    sides (``PROFILED_WINDOWS`` at most: a dropped copy record cannot be
+    told from a copy not made); one that differs without is a fault."""
+    rng = np.random.default_rng(72)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+               for n in INERT_LENS]
+    for window in range(1, PROFILED_WINDOWS + 1):
+        off, on = (_census_run(params, cfg, prompts, observed)
+                   for observed in (False, True))
+        if on["streams"] != off["streams"]:
+            raise AssertionError("tracing on changed the streams")
+        differs = {k: (off[k], on[k]) for k in CENSUS if on[k] != off[k]}
+        lost = off["lost_records"] + on["lost_records"]
+        if not differs:
+            break
+        if not lost or window == PROFILED_WINDOWS:
+            raise AssertionError(f"tracing on vs off differs: {differs}")
+        _emit({"check": "inertness census differed beside lost records",
+               "window": window, "differs": differs, "lost_records": lost})
+    if not (on["spans"] and on["records"] == on["steps"]):
+        raise AssertionError(f"the observer observed {on['spans']} "
+                             f"spans, {on['records']} step records")
+    return {"steps": on["steps"], "spans": on["spans"], "windows": window,
+            **{f"{k}_per_step": on[k] / on["steps"] for k in CENSUS[1:]},
+            "lost_records_off_on": [off["lost_records"],
+                                    on["lost_records"]]}
+
+
+class _TickClock:
+    """A fake clock advancing ``dt`` on every read."""
+
+    def __init__(self, dt):
+        self.t, self.dt = 0.0, dt
+
+    def __call__(self):
+        self.t += self.dt
+        return self.t
+
+
+def _deadline(params, cfg):
+    """One engine on a clock that advances a fixed step a read: a running
+    request past its deadline is retired with ``DeadlineExceeded`` mid
+    decode, its blocks go back (nothing held after the run, its chain
+    hits on a resubmission), and the other request finishes."""
+    from quintnet_tpu_torch.serve.scheduler import DeadlineExceeded
+
+    rng = np.random.default_rng(73)
+    p1, p2 = (rng.integers(0, cfg.vocab_size, n).astype(np.int32)
+              for n in (64, 48))
+    eng = _fleet_engine(params, cfg, clock=_TickClock(DEADLINE_TICK_S))
+    r1 = eng.submit(p1, 4 * FLEET_NEW, deadline_s=DEADLINE_S)
+    r2 = eng.submit(p2, FLEET_NEW)
+    eng.run()
+    try:
+        eng.result(r1)
+        raise AssertionError("the deadline did not retire its request")
+    except DeadlineExceeded as e:
+        got = e.generated
+    if (not 0 < got < 4 * FLEET_NEW
+            or len(eng.result(r2)) != len(p2) + FLEET_NEW):
+        raise AssertionError(f"retired after {got} tokens")
+    held = eng.pool.num_used
+    hits0 = eng.metrics.prefix_hit_tokens
+    eng.submit(p1, 4)
+    eng.run()
+    hit = eng.metrics.prefix_hit_tokens - hits0
+    if held or hit < len(p1) // 2 or eng.metrics.deadline_exceeded != 1:
+        raise AssertionError(f"after the deadline: {held} blocks held, "
+                             f"{hit} tokens hit on resubmission")
+    del eng
+    _free_card()
+    return {"generated_before_deadline": got, "blocks_held_after": held,
+            "resubmission_prefix_hit_tokens": hit}
+
+
+def phase_serve_fleet(params, cfg):
+    """GPT-2 124M (12 layers, the serve phases' weights) served by a
+    3-replica ``ServeFleet`` (``FLEET_*``: 4 slots, f32 pools, obs on, a
+    crash directory), 16 requests of 32-256 tokens, 32 new each, all
+    submitted at once; r1 killed after its 8th step (``ChaosMonkey``,
+    mode raise). Greedy, then sampled (``SAMPLED``) at each fid's seed.
+    Gates: greedy streams equal the dense greedy up to near-ties
+    (``_check_against_dense``), sampled ones the port's single engine at
+    the same seeds up to perturbed near-ties; a migration, exactly the
+    armed death, a crash dump that loads, the fleet's exposition parses;
+    K4 from all 3 replica threads and no other, n_layer x (decode steps
+    + prefills) over every engine. Then on one engine: tracing on vs off
+    equal in streams, host ops, device operations and device-to-host
+    copies; a deadline on a ticking clock retires a running request
+    typed with its blocks returned. Prints the fleet's wall s, TTFT and
+    ITL percentiles, each replica's step p50, migrations, sheds, peak
+    memory and the memory left after close, beside the card's name and
+    power limit."""
+    import tempfile
+
+    from quintnet_tpu_torch.obs import parse_exposition, render_exposition
+
+    prompts = _fleet_prompts(cfg)
+    smi = _smi() if torch.device(DEVICE).type == "cuda" else "(no card)"
+    res = {"phase": "serve_fleet", "model": "gpt2-124M (random init, "
+           "seed 0)", "card": smi, "replicas": FLEET_REPLICAS,
+           "max_slots": FLEET_SLOTS, "requests": FLEET_REQUESTS,
+           "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": FLEET_NEW, "kill": list(FLEET_KILL),
+           "runs": {}}
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces",
+                               lambda: None)
+    if torch.cuda.is_available():
+        # the baseline: what the earlier phases still hold once collected
+        gc.collect()
+        clear_workspaces()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+    totals = {"decode": 0, "prefill": 0}
+    with tempfile.TemporaryDirectory() as crash_root:
+        for mode, mode_kw in (("greedy", {}), ("sampled", SAMPLED)):
+            fleet, fids, outs, launches, wall = _fleet_run(
+                params, cfg, prompts, os.path.join(crash_root, mode),
+                mode_kw)
+            want, dump = _check_fleet_run(fleet, cfg, launches)
+            for k in totals:
+                totals[k] += want[k]
+            run = _fleet_numbers(fleet, wall)
+            run["launches_by_path"] = want
+            run["launches_by_thread"] = launches["by_thread"]
+            run["crash_dump"] = {"ring": len(dump["ring"]),
+                                 "requests": len(dump["requests"]),
+                                 "traces": len(dump["traces"])}
+            text = render_exposition(fleet.metrics.summary(),
+                                     fleet.engine_summaries(),
+                                     health=fleet.health())
+            run["exposition_samples"] = len(parse_exposition(text))
+            if mode == "greedy":
+                checked, ties = _check_against_dense(
+                    params, cfg, fleet, fids, prompts, F32_GAP)
+                run["tokens_checked_vs_dense"] = checked
+                run["near_ties"] = ties
+            else:
+                one = _fleet_engine(params, cfg, **mode_kw)
+                want_streams = _run_requests(one, prompts,
+                                             [FLEET_NEW] * len(prompts),
+                                             fids)[0]
+                del one
+                agree, compared, div = _near_tie_compare(
+                    params, cfg, outs, want_streams, prompts, seeds=fids)
+                run["tokens_agreeing_with_one_engine"] = agree
+                run["tokens_compared"] = compared
+                run["divergences_at_near_ties"] = div
+            res["runs"][mode] = run
+            del fleet, outs
+            gc.collect()
+            _free_card()
+    res["inertness"] = _inertness(params, cfg)
+    res["deadline"] = _deadline(params, cfg)
+    if torch.cuda.is_available():
+        gc.collect()
+        res["max_memory_allocated_bytes"] = torch.cuda.max_memory_allocated()
+        res["memory_allocated_after_close_bytes"] = (
+            torch.cuda.memory_allocated() - before)
+        # each thread's cuBLAS handle keeps a workspace (the size
+        # CUBLAS_WORKSPACE_CONFIG sets) in the caching allocator
+        clear_workspaces()
+        res["memory_allocated_after_close_and_cublas_workspaces_cleared_"
+            "bytes"] = torch.cuda.memory_allocated() - before
+    _emit(res)
+    return res, totals
 
 
 # ---------------------------------------------------------------------
@@ -5958,6 +6355,7 @@ def main() -> int:
                           f32_streams)
     _res, tier_runs = timed("serve_tier", phase_serve_tier, params, cfg)
     _res, lora_runs = timed("serve_lora", phase_serve_lora, params, cfg)
+    _res, fleet_runs = timed("serve_fleet", phase_serve_fleet, params, cfg)
     del params
     torch.cuda.empty_cache()
     llama_serve = timed("serve_llama", phase_serve_llama)
@@ -5991,11 +6389,14 @@ def main() -> int:
     # the f32 pool's launches: the greedy and the sampled serve runs, the
     # spec-on runs (verify by its width's path), the chunked and widened
     # document runs, the serving mesh ranks of GPT-2's 12 heads (sp2,
-    # ep2), and since slice 19 the packed-weight, host-tier and LoRA runs
+    # ep2), and since slice 19 the packed-weight, host-tier and LoRA runs;
+    # since slice 20 the serving fleet's prefills (its decode launches are
+    # on the fleet_s4 line, the replicas' 4-slot shape)
     serve_paged = mesh_counts["serve_paged"]
     f32_runs = ([serve_res["launches_by_path"],
                  sampled_res["launches_by_path"],
-                 spec_res["launches_by_path"], serve_paged.get("", {})]
+                 spec_res["launches_by_path"], serve_paged.get("", {}),
+                 {"prefill": fleet_runs["prefill"]}]
                 + [r["launches_by_path"] for r in chunk_res["runs"].values()]
                 + wq_runs + tier_runs + lora_runs)
     runs = {_variant_of(serve_res["launches_by_variant"]): {
@@ -6022,6 +6423,7 @@ def main() -> int:
     for variant, launches in llama_serve[
             "launches_by_variant_and_path"].items():
         by_line[(variant, "llama_gqa4")] = launches
+    by_line[("f32", "fleet_s4")] = {"decode": fleet_runs["decode"]}
     for (variant, tag), launches in by_line.items():
         for path in PAGED_SYMBOLS:
             rows = [r for r in paged_rows if r["line"] == tag

@@ -2,7 +2,7 @@
 
 Port of ``CadenceController`` from ``quintnet_tpu/ft/preempt.py``. The
 preemption handler (SIGTERM -> emergency snapshot) is not ported yet
-(ROADMAP.md §1, item 8).
+(ROADMAP.md §1, item 8c).
 """
 
 from __future__ import annotations

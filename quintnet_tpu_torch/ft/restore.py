@@ -8,7 +8,7 @@ the ranks try the same steps (rank 0's listing) and pass a step only
 when every rank loaded its part of it (an all-reduced flag), so a rank
 whose file is damaged never resumes from another step than its peers.
 The ``chaos`` hook of the reference (fault injection) is not ported yet
-(ROADMAP.md §1, item 8).
+(ROADMAP.md §1, item 8c).
 """
 
 from __future__ import annotations

@@ -8,6 +8,13 @@ source or header rebuilds, an unchanged one loads. Nothing
 is built at import time: :func:`load` runs on the first launch, so a
 machine without ``nvcc`` can import every module. :func:`build` starts
 one ``nvcc`` per missing source, all at once, and waits for them all.
+
+Thread-safe: the serving fleet's replica threads launch their first
+kernels at the same moment. :func:`load` builds and loads a library
+once under one module lock (the other threads wait for it), and each
+build writes a temporary file named by process AND thread, renamed
+into place when it is whole. :func:`typed` sets a loaded library's
+``ctypes`` signatures once, under the same lock.
 """
 
 from __future__ import annotations
@@ -17,8 +24,9 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Callable, Dict, Iterable
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
@@ -26,6 +34,8 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LIBS: Dict[str, ctypes.CDLL] = {}
+# guards _LIBS, the builds load() starts and each library's signatures
+_LOCK = threading.RLock()
 
 
 def nvcc_path() -> str:
@@ -68,7 +78,8 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
     for n in names:
         if paths[n].exists():
             continue
-        tmp = paths[n].with_suffix(f".{os.getpid()}.tmp")
+        tmp = paths[n].with_suffix(
+            f".{os.getpid()}-{threading.get_ident()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
                str(CSRC / f"{n}.cu")]
         procs[n] = (tmp, subprocess.Popen(
@@ -88,9 +99,28 @@ def build(names: Iterable[str]) -> Dict[str, Path]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use:
+    one build and one library whichever threads ask at once."""
     lib = _LIBS.get(name)
-    if lib is None:
-        lib = ctypes.CDLL(str(build([name])[name]))
-        _LIBS[name] = lib
+    if lib is not None:
+        return lib
+    with _LOCK:
+        lib = _LIBS.get(name)
+        if lib is None:
+            lib = ctypes.CDLL(str(build([name])[name]))
+            _LIBS[name] = lib
+    return lib
+
+
+def typed(lib: ctypes.CDLL, set_signatures: Callable) -> ctypes.CDLL:
+    """``lib`` after ``set_signatures(lib)`` has run on it exactly once
+    (the ``argtypes`` / ``restype`` a loader declares): a thread never
+    calls an entry point whose signature another thread is still
+    setting."""
+    if getattr(lib, "_typed", False):
+        return lib
+    with _LOCK:
+        if not getattr(lib, "_typed", False):
+            set_signatures(lib)
+            lib._typed = True
     return lib

@@ -32,7 +32,8 @@ calls to the plain blockwise attention instead, as the JAX dispatcher
 does.
 Each wrapper picks its kernel by dtype (``flash_fwd_f32`` or
 ``flash_fwd_bf16``, ...) and counts its launches in ``.launches`` (all)
-and ``.launches_by_dtype`` (``"f32"``, ``"bf16"``).
+and ``.launches_by_dtype`` (``"f32"``, ``"bf16"``), under
+``.count_lock`` (read or clear them under it).
 
 In bf16 the kernels round where the Pallas kernels cast: scores,
 softmax statistics, ``lse``, ``p`` and ``ds`` are f32, ``p`` is rounded
@@ -48,6 +49,7 @@ from __future__ import annotations
 import collections
 import ctypes
 import math
+import threading
 
 import torch
 
@@ -152,26 +154,26 @@ def flash_bwd_dq_ref(q, k, v, do, lse, delta, segment_ids=None, *,
 # the kernels
 # ---------------------------------------------------------------------
 
+def _signatures(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    for dt in KERNEL_DTYPES.values():
+        for name, n_ptr in (("flash_fwd", 6), ("flash_bwd_dkv", 9),
+                            ("flash_bwd_dq", 8)):
+            fn = getattr(lib, f"{name}_{dt}")
+            fn.argtypes = [vp] * n_ptr + [ci] * 5 + [vp]
+            fn.restype = ci
+    lib.flash_attention_error_string.argtypes = [ci]
+    lib.flash_attention_error_string.restype = ctypes.c_char_p
+    lib.flash_fwd_bf16_key_tile.restype = ci
+    tile = lib.flash_fwd_bf16_key_tile()
+    if tile != FWD_KEY_TILE_BF16:
+        raise RuntimeError(
+            f"the bf16 forward kernel tiles keys by {tile}, the plain "
+            f"version by FWD_KEY_TILE_BF16 = {FWD_KEY_TILE_BF16}")
+
+
 def _lib():
-    lib = build.load(_KERNEL)
-    if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        for dt in KERNEL_DTYPES.values():
-            for name, n_ptr in (("flash_fwd", 6), ("flash_bwd_dkv", 9),
-                                ("flash_bwd_dq", 8)):
-                fn = getattr(lib, f"{name}_{dt}")
-                fn.argtypes = [vp] * n_ptr + [ci] * 5 + [vp]
-                fn.restype = ci
-        lib.flash_attention_error_string.argtypes = [ci]
-        lib.flash_attention_error_string.restype = ctypes.c_char_p
-        lib.flash_fwd_bf16_key_tile.restype = ci
-        tile = lib.flash_fwd_bf16_key_tile()
-        if tile != FWD_KEY_TILE_BF16:
-            raise RuntimeError(
-                f"the bf16 forward kernel tiles keys by {tile}, the plain "
-                f"version by FWD_KEY_TILE_BF16 = {FWD_KEY_TILE_BF16}")
-        lib._typed = True
-    return lib
+    return build.typed(build.load(_KERNEL), _signatures)
 
 
 def kernel_domain_error(shape, dtype):
@@ -264,8 +266,9 @@ def _entry(name, q):
 
 
 def _counted(wrapper, q):
-    wrapper.launches += 1
-    wrapper.launches_by_dtype[KERNEL_DTYPES[q.dtype]] += 1
+    with wrapper.count_lock:
+        wrapper.launches += 1
+        wrapper.launches_by_dtype[KERNEL_DTYPES[q.dtype]] += 1
 
 
 def _on_cpu(q, name):
@@ -341,6 +344,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, segment_ids=None, *,
 for _wrapper in (flash_fwd, flash_bwd_dkv, flash_bwd_dq):
     _wrapper.launches = 0
     _wrapper.launches_by_dtype = collections.Counter()
+    _wrapper.count_lock = threading.Lock()
 
 
 def flash_delta(o, do):

@@ -26,7 +26,10 @@ and the tiled kernel for wider calls (prefill). Each call counts one
 launch in ``paged_attention.launches``, one under its variant in
 ``paged_attention.launches_by_variant`` and one under its path
 (``"decode"`` / ``"prefill"``, :func:`kernel_path`) in
-``paged_attention.launches_by_path``.
+``paged_attention.launches_by_path`` and one under the launching
+thread's name in ``paged_attention.launches_by_thread`` (the serving
+fleet launches from one worker thread a replica). The counts change
+under ``paged_attention.count_lock``; read or clear them under it.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import collections
 import ctypes
 import functools
 import math
+import threading
 
 import torch
 
@@ -193,21 +197,20 @@ def paged_attention_ref(q, k_pool, v_pool, block_tables, starts, *,
     return torch.einsum("shpt,shtd->shpd", probs, v_all)
 
 
+def _signatures(lib) -> None:
+    vp, ci = ctypes.c_void_p, ctypes.c_int
+    lib.paged_attention_run.argtypes = [ci] + [vp] * 10 + [ci] * 7 + [vp]
+    lib.paged_attention_run.restype = ci
+    lib.paged_attention_error_string.argtypes = [ci]
+    lib.paged_attention_error_string.restype = ctypes.c_char_p
+    lib.paged_attention_max_head_dim.argtypes = []
+    lib.paged_attention_max_head_dim.restype = ci
+    lib.paged_attention_decode_path.argtypes = [ci] * 3
+    lib.paged_attention_decode_path.restype = ci
+
+
 def _lib():
-    lib = build.load(_KERNEL)
-    if not getattr(lib, "_typed", False):
-        vp, ci = ctypes.c_void_p, ctypes.c_int
-        lib.paged_attention_run.argtypes = ([ci] + [vp] * 10 + [ci] * 7
-                                            + [vp])
-        lib.paged_attention_run.restype = ci
-        lib.paged_attention_error_string.argtypes = [ci]
-        lib.paged_attention_error_string.restype = ctypes.c_char_p
-        lib.paged_attention_max_head_dim.argtypes = []
-        lib.paged_attention_max_head_dim.restype = ci
-        lib.paged_attention_decode_path.argtypes = [ci] * 3
-        lib.paged_attention_decode_path.restype = ci
-        lib._typed = True
-    return lib
+    return build.typed(build.load(_KERNEL), _signatures)
 
 
 def _check_cuda_args(q, k_pool, v_pool, block_tables, starts,
@@ -360,16 +363,21 @@ def paged_attention(q, k_pool, v_pool, block_tables, starts, *,
         msg = _lib().paged_attention_error_string(err).decode()
         raise RuntimeError(f"paged_attention kernel launch failed: "
                            f"cuda error {err} ({msg})")
-    paged_attention.launches += 1
-    paged_attention.launches_by_variant[kernel_variant(k_pool,
-                                                       kv_scales)] += 1
-    paged_attention.launches_by_path[path] += 1
+    with paged_attention.count_lock:
+        paged_attention.launches += 1
+        paged_attention.launches_by_variant[kernel_variant(
+            k_pool, kv_scales)] += 1
+        paged_attention.launches_by_path[path] += 1
+        paged_attention.launches_by_thread[
+            threading.current_thread().name] += 1
     return out
 
 
 paged_attention.launches = 0
 paged_attention.launches_by_variant = collections.Counter()
 paged_attention.launches_by_path = collections.Counter()
+paged_attention.launches_by_thread = collections.Counter()
+paged_attention.count_lock = threading.Lock()
 
 
 def paged_quant_window_update(policy, cache, scales, vals, positions,

@@ -110,14 +110,30 @@ Every layer of both goes through ``ops.paged_attention`` — on the card
 the hand-written CUDA kernel. PyTorch runs eagerly, so the bucket
 ladder bounds tensor shapes rather than compiled programs.
 
-Options of the JAX constructor that this port does not serve yet (the
-logger, the clock and the observability hooks) raise
-``NotImplementedError`` naming their ROADMAP.md item unless they hold
-the JAX default ("off") value; none is ignored. ``attn_kernel`` takes
-``"xla"`` only: the port has one paged-attention path (the kernel on
-the card, its plain version on the CPU), held to JAX's XLA path.
-Host<->device traffic per step is O(max_slots) integers plus the
-sampled tokens; the pool and parameters stay on the device.
+Lifecycle (the fleet's surface, ``fleet/``): ``submit(deadline_s=)``
+with a per-step sweep that retires running and waiting requests past
+their deadline with a typed :class:`~quintnet_tpu_torch.serve.
+scheduler.DeadlineExceeded` (a running slot's blocks published first);
+``pause_admissions`` / ``resume_admissions`` / ``drain``;
+``export_progress`` / ``restore_progress`` (committed tokens and the
+seed: a migrated request re-prefills ``prompt + generated`` on this
+engine's own pool and keeps drawing at counter ``len(generated)``,
+exact mid-prefill and mid-speculation too); and the prefix chain's
+``peek_kv_chain`` / ``export_kv_chain`` / ``import_kv_chain``.
+
+Observation (``obs/``): ``clock`` (injectable, ``time.monotonic`` by
+default), ``logger`` + ``log_every`` (``ServeMetrics.log_step``),
+``tracer`` (per-request spans under ``trace_id``) and ``recorder`` (a
+``StepRecord`` a step). Both hooks are plain attributes (a fleet arms
+them after the factory ran) and inert: they read host state the step
+already holds — no ``.item()``, ``.cpu()`` or ``synchronize()`` is
+added for them, so the device work and the device-to-host copies of a
+step are the same with them on and off, and so are the tokens.
+
+``attn_kernel`` takes ``"xla"`` only: the port has one paged-attention
+path (the kernel on the card, its plain version on the CPU), held to
+JAX's XLA path. Host<->device traffic per step is O(max_slots) integers
+plus the sampled tokens; the pool and parameters stay on the device.
 """
 
 from __future__ import annotations
@@ -133,6 +149,7 @@ from quintnet_tpu_torch.analysis.specs import (lora_rank_buckets,
 from quintnet_tpu_torch.core.device import resolve_device
 from quintnet_tpu_torch.core.pytree import tree_map
 from quintnet_tpu_torch.models.gpt2_generate import sample_logits
+from quintnet_tpu_torch.obs.recorder import StepRecord
 from quintnet_tpu_torch.parallel.tp import shard_leaf
 from quintnet_tpu_torch.serve.adapters import (AdapterRegistry,
                                                adapter_factor_paths,
@@ -145,7 +162,8 @@ from quintnet_tpu_torch.serve.kv_tier import HostTier, PromotionState
 from quintnet_tpu_torch.serve.longctx import ChunkState, validate_sp_buckets
 from quintnet_tpu_torch.serve.metrics import ServeMetrics
 from quintnet_tpu_torch.serve.scheduler import (FINISHED, PROMOTING, WAITING,
-                                                Request, Scheduler)
+                                                DeadlineExceeded, Request,
+                                                RequestProgress, Scheduler)
 from quintnet_tpu_torch.serve.spec import NgramDrafter, SpecConfig
 from quintnet_tpu_torch.serve.weight_quant import (augment_weight_specs,
                                                    make_weight_policy,
@@ -153,27 +171,9 @@ from quintnet_tpu_torch.serve.weight_quant import (augment_weight_specs,
                                                    quantize_params,
                                                    weight_bytes)
 
-# constructor options of the JAX engine that are still to port, with
-# the ROADMAP.md item each belongs to
-_NOT_PORTED = {
-    "logger": "§1, item 8 ('Fleet, obs and ft'): the engine's logger",
-    "log_every": "§1, item 8 ('Fleet, obs and ft'): the engine's logger",
-    "clock": "§1, item 8 ('Fleet, obs and ft'): the engine's clock",
-    "tracer": "§1, item 8 ('Fleet, obs and ft'): obs/ tracing",
-    "recorder": "§1, item 8 ('Fleet, obs and ft'): obs/ flight recorder",
-}
-# the JAX constructor's default of each option above that has one other
-# than None/False/0: passing it is passing nothing
-_JAX_OFF = {"clock": time.monotonic}
 _NO_ADAPTERS = ("this engine was built without adapters "
                 "(ServeEngine(adapters=AdapterRegistry(...))); "
                 "cannot serve adapter_id requests")
-
-
-def _not_ported(option: str, value):
-    raise NotImplementedError(
-        f"ServeEngine({option}={value!r}) is not ported yet (ROADMAP.md, "
-        f"{_NOT_PORTED[option]})")
 
 
 def check_admissible(prompt_len: int, max_new_tokens: int, *,
@@ -246,14 +246,6 @@ class ServeEngine:
                  kv_tier_promote_budget_bytes: Optional[int] = None,
                  attn_kernel: str = "xla", logger=None, log_every: int = 0,
                  clock=time.monotonic, tracer=None, recorder=None):
-        for option, value in (
-                ("logger", logger), ("log_every", log_every),
-                ("clock", clock), ("tracer", tracer),
-                ("recorder", recorder)):
-            off = _JAX_OFF.get(option)
-            if value is off or value in (None, False, 0):
-                continue                        # the JAX "off" value
-            _not_ported(option, value)
         if attn_kernel != "xla":
             raise ValueError(
                 f"attn_kernel={attn_kernel!r}: the port takes 'xla' only — "
@@ -268,7 +260,14 @@ class ServeEngine:
         self._mesh_axes(family, mesh, tp_axis, sp_axis, ep_axis, adapters)
         self.max_slots = int(max_slots)
         self.eos_token_id = eos_token_id
-        self.clock = time.monotonic
+        self.logger = logger
+        self.log_every = int(log_every)
+        self.clock = clock
+        # observability (obs/): a Tracer records per-request spans, a
+        # StepRecorder the per-step ring; plain attributes, so a fleet
+        # can arm them after its factory built the engine
+        self.tracer = tracer
+        self.recorder = recorder
         self.prefix_cache = bool(prefix_cache)
         # speculative decoding: None/False off, True the defaults, or a
         # SpecConfig; drafting is host-side numpy
@@ -389,6 +388,7 @@ class ServeEngine:
         self._results: Dict[int, Request] = {}
         self._rid_counter = 0
         self._arrival_counter = 0
+        self._admissions_paused = False
 
     # ------------------------------------------------------------------
     # multi-tenant LoRA (serve/adapters.py)
@@ -897,9 +897,17 @@ class ServeEngine:
                 "prefix_cache": self.prefix_cache,
                 "kv_tier": self.kv_tier is not None}
 
+    def _enqueue(self, req: Request) -> int:
+        req.submit_time = self.clock()
+        self._results[req.rid] = req
+        self.scheduler.submit(req)
+        return req.rid
+
     def submit(self, prompt, max_new_tokens: int, *, priority: int = 0,
                seed: Optional[int] = None, on_token=None,
-               adapter_id: Optional[str] = None) -> int:
+               adapter_id: Optional[str] = None,
+               deadline_s: Optional[float] = None,
+               trace_id: Optional[str] = None) -> int:
         """Queue one request; returns its id. ``seed``: the request's
         sampling chain (default: its rid, the counterpart of the JAX
         engine's ``fold_in(key(0), rid)``); pass the seed an independent
@@ -907,9 +915,16 @@ class ServeEngine:
         for token. ``on_token(rid, token, is_last)`` fires as each token
         is produced. ``adapter_id``: serve the request through that LoRA
         adapter (None: the base model), pinned in the registry until the
-        request finishes."""
+        request finishes. ``deadline_s``: the whole request's budget from
+        now, enforced every step: a request past it, waiting or running,
+        is retired with :class:`DeadlineExceeded` (``result()`` raises
+        it). ``trace_id``: the request's observability identity (default
+        ``req-<rid>``); never influences output."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         check_admissible(prompt.size, max_new_tokens, **self.limits())
+        if deadline_s is not None and deadline_s <= 0:
+            raise ValueError(
+                f"deadline_s={deadline_s} already expired at submit")
         self._pin_adapter(adapter_id)
         rid = self._rid_counter
         self._rid_counter += 1
@@ -918,18 +933,69 @@ class ServeEngine:
                       priority=int(priority),
                       arrival=self._arrival_counter, on_token=on_token,
                       seed=rid if seed is None else int(seed),
-                      adapter_id=adapter_id)
+                      adapter_id=adapter_id,
+                      deadline=(None if deadline_s is None
+                                else self.clock() + float(deadline_s)),
+                      trace_id=trace_id or f"req-{rid}")
         self._arrival_counter += 1
-        req.submit_time = self.clock()
-        self._results[rid] = req
-        self.scheduler.submit(req)
-        return rid
+        if self.tracer is not None:
+            self.tracer.event(req.trace_id, "submit", rid=rid,
+                              prompt_len=int(prompt.size),
+                              max_new_tokens=int(max_new_tokens),
+                              adapter_id=adapter_id,
+                              priority=int(priority))
+        return self._enqueue(req)
+
+    def restore_progress(self, progress: RequestProgress, *,
+                         on_token=None) -> int:
+        """Admit a request MIGRATED from another engine of the same
+        (family, params, sampling settings), from its exported
+        :class:`RequestProgress`. The resume is the preemption path: the
+        next admission prefills ``prompt + generated`` (less any prefix
+        hit in this engine's pool) and keeps drawing at counter
+        ``len(generated)`` of the progress' seed, so the continuation is
+        the exporter's own stream. Returns this engine's (new) request
+        id; ``on_token`` fires only for tokens generated here."""
+        prompt = np.asarray(progress.prompt, np.int32).reshape(-1)
+        if len(progress.generated) >= progress.max_new_tokens:
+            raise ValueError(
+                f"nothing left to generate: {len(progress.generated)} of "
+                f"{progress.max_new_tokens} tokens already produced")
+        check_admissible(prompt.size, progress.max_new_tokens,
+                         **self.limits())
+        # the migrated request keeps its adapter: this engine's registry
+        # loads it if it has never served (or has evicted) the tenant
+        self._pin_adapter(progress.adapter_id)
+        rid = self._rid_counter
+        self._rid_counter += 1
+        req = Request(rid=rid, prompt=prompt,
+                      max_new_tokens=int(progress.max_new_tokens),
+                      priority=int(progress.priority),
+                      arrival=self._arrival_counter, on_token=on_token,
+                      seed=int(progress.seed),
+                      adapter_id=progress.adapter_id,
+                      deadline=(None if progress.deadline_s is None
+                                else self.clock()
+                                + float(progress.deadline_s)),
+                      trace_id=progress.trace_id or f"req-{rid}")
+        self._arrival_counter += 1
+        req.generated = list(progress.generated)
+        req.preemptions = int(progress.preemptions)
+        if self.tracer is not None:
+            # the migrated timeline continues here under the same id
+            self.tracer.event(req.trace_id, "restore", rid=rid,
+                              generated=len(req.generated),
+                              preemptions=req.preemptions,
+                              adapter_id=req.adapter_id)
+        return self._enqueue(req)
 
     def result(self, rid: int) -> np.ndarray:
         req = self._results[rid]
         if req.state != FINISHED:
             raise RuntimeError(f"request {rid} not finished "
                                f"(state={req.state})")
+        if req.error is not None:
+            raise req.error
         return req.output_ids()
 
     def request(self, rid: int) -> Request:
@@ -982,9 +1048,60 @@ class ServeEngine:
         req.finish_time = self.clock()
         self.metrics.record_finish(req.finish_time - req.submit_time,
                                    adapter_id=req.adapter_id)
+        if self.tracer is not None:
+            self.tracer.event(req.trace_id, "finish", rid=req.rid,
+                              generated=len(req.generated),
+                              preemptions=req.preemptions,
+                              handed_off=False)
         if req.adapter_id is not None:
             self.adapters.release(req.adapter_id)   # the submit-time pin
         return req.rid
+
+    def _fail_request(self, req: Request, error: BaseException) -> None:
+        """Terminal typed failure: FINISHED, but ``result()`` raises
+        ``error``; no token is emitted (the error ends the stream)."""
+        req.error = error
+        req.state = FINISHED
+        req.finish_time = self.clock()
+        if req.adapter_id is not None:
+            self.adapters.release(req.adapter_id)   # the submit-time pin
+
+    def _sweep_deadlines(self, finished: List[int]) -> None:
+        """Retire every request past its deadline: running slots (their
+        valid K/V published first, so a retry of the prompt re-prefills
+        almost nothing) and waiting ones (a PROMOTING one keeps what its
+        promotion already landed)."""
+        now = self.clock()
+        for slot in self._active_slots():
+            req = self._slot_req[slot]
+            if req.deadline is None or now < req.deadline:
+                continue
+            self._release_slot_blocks(slot)
+            self._clear_slot(slot)
+            self._fail_request(req, DeadlineExceeded(
+                f"request {req.rid} exceeded its deadline after "
+                f"{len(req.generated)}/{req.max_new_tokens} tokens; "
+                f"retired mid-decode (blocks published)",
+                rid=req.rid, generated=len(req.generated)))
+            self.metrics.record_deadline_exceeded()
+            if self.tracer is not None:
+                self.tracer.event(req.trace_id, "deadline_exceeded",
+                                  generated=len(req.generated),
+                                  where="running")
+            finished.append(req.rid)
+        expired = [r for r in self.scheduler.waiting
+                   if r.deadline is not None and now >= r.deadline]
+        for req in expired:
+            self.scheduler.waiting.remove(req)
+            self._promoting.pop(req.rid, None)
+            self._fail_request(req, DeadlineExceeded(
+                f"request {req.rid} still waiting at its deadline; "
+                f"never admitted", rid=req.rid, generated=0))
+            self.metrics.record_deadline_exceeded()
+            if self.tracer is not None:
+                self.tracer.event(req.trace_id, "deadline_exceeded",
+                                  generated=0, where="waiting")
+            finished.append(req.rid)
 
     # ---- host-tier promotion (serve/kv_tier.py) ----------------------
     def _start_promotion(self, req: Request) -> bool:
@@ -992,12 +1109,15 @@ class ServeEngine:
         ``len(tokens) - 1``, as admission is); on a host hit park it
         ``PROMOTING`` with the keys to bring back."""
         tokens = req.output_ids()
-        _covered, keys = self.pool.plan_promotion(
+        covered, keys = self.pool.plan_promotion(
             tokens, max_tokens=len(tokens) - 1, namespace=req.adapter_id)
         if not keys:
             return False
         req.state = PROMOTING
         self._promoting[req.rid] = PromotionState(req=req, keys=keys)
+        if self.tracer is not None:
+            self.tracer.event(req.trace_id, "kv_promote", phase="start",
+                              blocks=len(keys), covered_tokens=int(covered))
         return True
 
     def _feed_promotions(self) -> None:
@@ -1013,15 +1133,32 @@ class ServeEngine:
             if budget <= 0:
                 break
             st = self._promoting[rid]
+            req = st.req
+            if req.state != PROMOTING:       # failed while parked
+                self._promoting.pop(rid, None)
+                continue
             taken, blocks = self.pool.promote_chain(
                 st.keys[st.next:], max_blocks=budget)
             st.next += taken
             budget -= blocks
+            if blocks and self.tracer is not None:
+                self.tracer.event(req.trace_id, "kv_promote", phase="feed",
+                                  blocks=blocks, remaining=st.remaining)
             if st.done or (taken == 0 and blocks == 0
                            and not self._active_slots()):
                 self._promoting.pop(rid)
                 self._promotion_done.add(rid)
-                st.req.state = WAITING
+                req.state = WAITING
+                if self.tracer is not None:
+                    self.tracer.event(req.trace_id, "kv_promote",
+                                      phase="done", promoted_keys=st.next)
+
+    def peek_kv_chain(self, tokens, *,
+                      namespace: Optional[str] = None) -> int:
+        """Token positions this engine could serve warm for ``tokens``
+        (the device chain and its host-tier extension); read-only."""
+        tokens = np.asarray(tokens, np.int32).reshape(-1)
+        return self.pool.peek_chain_tokens(tokens, namespace=namespace)
 
     def _preempt(self, slot: int) -> None:
         """Evict: publish + release the blocks (the chain usually
@@ -1031,6 +1168,10 @@ class ServeEngine:
         self._clear_slot(slot)
         req.preemptions += 1
         self.metrics.record_preempt()
+        if self.tracer is not None:
+            self.tracer.event(req.trace_id, "preempt",
+                              generated=len(req.generated),
+                              preemptions=req.preemptions)
         self.scheduler.push_front(req)
 
     def _append_token(self, slot: int, token: int) -> bool:
@@ -1080,16 +1221,39 @@ class ServeEngine:
         self._tables[slot, :len(blocks)] = blocks
         return plan
 
+    def _trace_admit(self, req: Request, plan, *, evictions: int,
+                     chunked: bool) -> None:
+        """The admission's spans: the queue wait closed, and the plan's
+        outcome (prefix hit, copy on write, evictions it forced)."""
+        tr = self.tracer
+        if tr is None:
+            return
+        now = self.clock()
+        tr.add(req.trace_id, "queue", t0=req.submit_time, t1=now,
+               preemptions=req.preemptions)
+        tr.event(req.trace_id, "admit",
+                 cached_tokens=int(plan.cached_tokens),
+                 shared_blocks=len(plan.shared_blocks),
+                 new_blocks=int(plan.n_new_blocks),
+                 cow=plan.cow_src is not None, cow_len=int(plan.cow_len),
+                 evictions_forced=int(evictions), chunked=chunked,
+                 adapter_id=req.adapter_id)
+
     def _admit_one(self, slot: int, req: Request) -> Tuple[int, int]:
         """Admit ``req`` into ``slot``: reuse the longest cached prefix,
         prefill only the uncached tail. Returns (tail tokens prefilled,
         cached tokens reused)."""
         t0 = req.total_len
         tokens = req.output_ids()
+        ev0 = self.pool.cache_evictions
         plan = self._allocate_slot(slot, req)
+        self._trace_admit(req, plan,
+                          evictions=self.pool.cache_evictions - ev0,
+                          chunked=False)
         start = plan.cached_tokens
         tail = tokens[start:t0]
-        ids = np.zeros((1, self._bucket_for(len(tail))), np.int32)
+        bucket = self._bucket_for(len(tail))
+        ids = np.zeros((1, bucket), np.int32)
         ids[0, :len(tail)] = tail
         if self.adapters is not None and req.adapter_id is not None:
             # bound BEFORE the prefill: the tail runs under the adapter
@@ -1104,6 +1268,9 @@ class ServeEngine:
         self._tok[slot] = tok0
         self._pos[slot] = t0
         self.metrics.record_admit()
+        if self.tracer is not None:
+            self.tracer.event(req.trace_id, "prefill", tokens=len(tail),
+                              bucket=bucket, start=int(start))
         if self._append_token(slot, tok0):
             self._retire(slot)
         return len(tail), start
@@ -1117,9 +1284,14 @@ class ServeEngine:
         ``_pos`` counts the positions holding valid K/V (the cached ones
         so far), so a publish on preemption stays right. Returns the
         prefix-cache hit."""
+        ev0 = self.pool.cache_evictions
         plan = self._allocate_slot(slot, req)
+        self._trace_admit(req, plan,
+                          evictions=self.pool.cache_evictions - ev0,
+                          chunked=True)
         self._pos[slot] = plan.cached_tokens
         self._tok[slot] = 0
+        req.prefilled = plan.cached_tokens
         if self.adapters is not None and req.adapter_id is not None:
             self._bind_slot_adapter(slot, req.adapter_id)
         self._slot_chunk[slot] = ChunkState(
@@ -1133,7 +1305,8 @@ class ServeEngine:
         bucket that holds it: the prefill call a prefix-cache tail makes.
         Only the last chunk draws the first new token."""
         tokens = req.output_ids()
-        ids = np.zeros((1, self._bucket_for(n)), np.int32)
+        bucket = self._bucket_for(n)
+        ids = np.zeros((1, bucket), np.int32)
         ids[0, :n] = tokens[st.next:st.next + n]
         cow = st.cow_pinned
         logits = self._prefill(ids, st.next, st.next + n, self._tables[slot],
@@ -1145,6 +1318,11 @@ class ServeEngine:
             st.cow_pinned = False
         st.next += n
         self._pos[slot] = st.next
+        req.prefilled = st.next
+        if self.tracer is not None:
+            self.tracer.event(req.trace_id, "prefill_chunk", tokens=int(n),
+                              bucket=bucket, start=st.next - n,
+                              final=st.done)
         if not st.done:
             return
         self._slot_chunk[slot] = None
@@ -1301,21 +1479,34 @@ class ServeEngine:
             drafted += len(d)
             # committed draft tokens: t[0..c-1] but the bonus at a
             accepted += min(c, a)
+            if self.tracer is not None:
+                self.tracer.event(self._slot_req[slot].trace_id, "verify",
+                                  committed=c, drafted=len(d),
+                                  accepted=min(c, a))
             if done:
                 finished.append(self._retire(slot))
         return committed, drafted, accepted
 
     def step(self) -> List[int]:
-        """One scheduler iteration: (host tier) feed the promotions'
-        budget -> admit -> (chunked) feed the budget's chunks ->
-        grow/preempt -> one decode step, or one verify step, for every
-        generating slot -> retire. Returns the ids of the requests that
-        finished this step."""
+        """One scheduler iteration: retire requests past their deadline
+        -> (host tier) feed the promotions' budget -> admit (unless
+        paused) -> (chunked) feed the budget's chunks -> grow/preempt ->
+        one decode step, or one verify step, for every generating slot
+        -> retire. Returns the ids of the requests that finished this
+        step (a deadline's retirements included)."""
         finished: List[int] = []
         prefill_tokens = prefix_hit_tokens = 0
+        # the recorder's window is two host clock reads around the
+        # step: no device drain is added to time it
+        rec = self.recorder
+        if rec is not None:
+            rec_t0 = self.clock()
+            rec_admitted0 = self.metrics.admitted
+            rec_preempted0 = self.metrics.preempted
+        self._sweep_deadlines(finished)
         if self._promoting:
             self._feed_promotions()
-        while True:
+        while not self._admissions_paused:
             free = self._free_slots()
             if self.kv_tier is not None:
                 w = self.scheduler.waiting
@@ -1376,6 +1567,10 @@ class ServeEngine:
                 self._tok[slot] = token
                 self._pos[slot] += 1
                 decode_tokens += 1
+                if self.tracer is not None:
+                    self.tracer.event(self._slot_req[slot].trace_id,
+                                      "decode", token=token,
+                                      pos=int(self._pos[slot]))
                 if self._append_token(slot, token):
                     finished.append(self._retire(slot))
             if self.kv_tier is not None:
@@ -1383,6 +1578,7 @@ class ServeEngine:
                                                    - demo0)
 
         tier = self.kv_tier
+        moe_kw = self._drain_moe() if self._moe_on else {}
         self.metrics.record_step(
             running=len(self._active_slots()),
             waiting=len(self.scheduler.waiting),
@@ -1406,7 +1602,29 @@ class ServeEngine:
             host_hit_tokens=0 if tier is None else tier.promoted_tokens,
             host_tier_bytes=0 if tier is None else tier.bytes_used,
             decode_blocked_demotions=self._decode_blocked_demotions,
-            **(self._drain_moe() if self._moe_on else {}))
+            **moe_kw)
+        if rec is not None:
+            m = self.metrics
+            rec.record(StepRecord(
+                step=m.steps, t0=rec_t0, t1=self.clock(),
+                running=m.running, waiting=m.waiting,
+                decoding=len(decoding), prefilling=len(prefilling),
+                admitted=m.admitted - rec_admitted0,
+                finished=len(finished),
+                preempted=m.preempted - rec_preempted0,
+                kv_blocks_used=m.kv_blocks_used,
+                kv_blocks_total=m.kv_blocks_total,
+                prefill_tokens=prefill_tokens,
+                decode_tokens=decode_tokens,
+                prefix_hit_tokens=prefix_hit_tokens,
+                prefill_chunks=prefill_chunks,
+                spec_step=drafts is not None, draft_tokens=draft_tokens,
+                accepted_draft_tokens=accepted_draft,
+                # the routing stats' host copies the metrics just used
+                attrs={k: (v.tolist() if isinstance(v, np.ndarray)
+                           else v) for k, v in moe_kw.items()}))
+        if self.log_every:
+            self.metrics.log_step(self.logger, every=self.log_every)
         return finished
 
     def warmup(self) -> None:
@@ -1440,6 +1658,87 @@ class ServeEngine:
                 break
             self.step()
             steps += 1
+
+    # ------------------------------------------------------------------
+    # pause / drain / progress export (the fleet's migration surface)
+    # ------------------------------------------------------------------
+    @property
+    def admissions_paused(self) -> bool:
+        return self._admissions_paused
+
+    def pause_admissions(self) -> None:
+        """Stop admitting from the waiting queue; active slots keep
+        decoding. While paused, ``run()`` spins if only waiting work is
+        left (``has_work`` counts the queue): pair pausing with
+        :meth:`drain` or :meth:`step`."""
+        self._admissions_paused = True
+
+    def resume_admissions(self) -> None:
+        self._admissions_paused = False
+
+    def drain(self, *, max_steps: Optional[int] = None) -> List[int]:
+        """Finish the ACTIVE slots without admitting anything new (pause
+        admissions, step until no slot is occupied). Waiting requests
+        stay queued: export them (:meth:`export_progress`) or
+        :meth:`resume_admissions`. Returns the rids finished meanwhile."""
+        self.pause_admissions()
+        finished: List[int] = []
+        steps = 0
+        while self._active_slots():
+            if max_steps is not None and steps >= max_steps:
+                raise RuntimeError(
+                    f"drain: {len(self._active_slots())} slot(s) still "
+                    f"active after {max_steps} steps")
+            finished.extend(self.step())
+            steps += 1
+        return finished
+
+    def export_progress(self) -> List[RequestProgress]:
+        """Every UNFINISHED request's resume payload (running slots and
+        the waiting queue), in rid order: the committed tokens and the
+        seed, exact at any step boundary — also after the owning worker
+        died between steps (the fleet's migration). Read-only."""
+        now = self.clock()
+        out = [self._slot_req[s].progress(now=now)
+               for s in self._active_slots()]
+        out += [req.progress(now=now) for req in self.scheduler.waiting]
+        out.sort(key=lambda p: p.rid)
+        if self.tracer is not None:
+            for p in out:
+                self.tracer.event(p.trace_id, "export",
+                                  generated=len(p.generated),
+                                  prefilled=int(p.prefilled))
+        return out
+
+    # ------------------------------------------------------------------
+    # KV chain export / import (the pool's, as host data)
+    # ------------------------------------------------------------------
+    def export_kv_chain(self, tokens, *, namespace: Optional[str] = None,
+                        trace_id: Optional[str] = None) -> Optional[Dict]:
+        """The pool's published chain for ``tokens`` as host data
+        (:meth:`KVPool.export_chain`); None when it is gone (the caller
+        re-prefills, which is always correct: the chain is cache)."""
+        chain = self.pool.export_chain(tokens, namespace=namespace)
+        if self.tracer is not None:
+            self.tracer.event(trace_id, "kv_export",
+                              found=chain is not None,
+                              n_tokens=(0 if chain is None
+                                        else int(chain["n_tokens"])),
+                              namespace=namespace)
+        return chain
+
+    def import_kv_chain(self, chain: Dict, *,
+                        namespace: Optional[str] = None,
+                        trace_id: Optional[str] = None) -> int:
+        """A transferred chain into this pool as a warm prefix
+        (:meth:`KVPool.import_chain`); returns the positions now cached
+        (0: pool full or cache off). ``ValueError`` on a geometry or
+        layout mismatch."""
+        n = self.pool.import_chain(chain, namespace=namespace)
+        if self.tracer is not None:
+            self.tracer.event(trace_id, "kv_import", n_tokens=int(n),
+                              namespace=namespace)
+        return n
 
 
 def _to_device(tree, device: torch.device):

@@ -33,6 +33,22 @@ RUNNING = "running"
 FINISHED = "finished"
 
 
+class DeadlineExceeded(RuntimeError):
+    """Typed mid-generation retirement: the request's deadline passed
+    while it was admitted, so the engine stopped spending pool capacity
+    on it — its blocks are published back to the prefix cache and
+    ``result()`` raises this instead of returning a late answer
+    (``generated`` counts the tokens it got). Distinct from the fleet's
+    ``Overloaded('deadline')``, which sheds a request still QUEUED in
+    the fleet at its deadline."""
+
+    def __init__(self, message: str, *, rid: Optional[int] = None,
+                 generated: int = 0):
+        super().__init__(message)
+        self.rid = rid
+        self.generated = int(generated)
+
+
 @dataclass
 class RequestProgress:
     """Portable host-side resume payload for one unfinished request:
@@ -41,11 +57,23 @@ class RequestProgress:
     sampling settings) that re-prefills ``prompt + generated`` and keeps
     drawing at chain counter ``len(generated)`` of ``seed``
     (``models/gpt2_generate.sample_logits``) continues the stream
-    exactly where it stopped, greedy or sampled. The JAX payload carries
-    the evolved key (``key_data``) instead: the port's chain has no
-    evolving state, so ``(seed, len(generated))`` is the whole of it.
+    exactly where it stopped, greedy or sampled — the fleet's migration
+    contract (``fleet/``). The JAX payload carries the evolved key
+    (``key_data``) instead: the port's chain has no evolving state, so
+    ``(seed, len(generated))`` is the whole of it.
+
+    ``generated`` holds COMMITTED tokens only: speculative drafts are
+    verified or discarded inside one engine step, so a request exported
+    mid-speculation resumes as if it had never speculated.
     ``adapter_id``: the request's LoRA adapter (``serve/adapters.py``),
-    None for the base model."""
+    None for the base model. ``deadline_s``: the REMAINING deadline
+    budget at export (None: none), re-anchored on the restoring
+    engine's clock. ``prefilled``: the chunked-prefill high-water mark
+    (positions whose K/V had landed), informational: the restoring
+    engine re-prefills from its own pool. ``trace_id``: the request's
+    observability identity (``obs/``), carried across preemption,
+    export and migration; never read by scheduling or sampling.
+    ``rid`` is the exporting engine's id."""
 
     rid: int
     prompt: np.ndarray
@@ -55,6 +83,9 @@ class RequestProgress:
     preemptions: int = 0
     seed: int = 0
     adapter_id: Optional[str] = None
+    deadline_s: Optional[float] = None
+    prefilled: int = 0
+    trace_id: Optional[str] = None
 
 
 @dataclass
@@ -72,6 +103,8 @@ class Request:
     seed: int = 0                           # sampling chain (resume state
                                             # with len(generated))
     adapter_id: Optional[str] = None        # LoRA adapter (None: base)
+    deadline: Optional[float] = None        # absolute ENGINE-clock time
+    trace_id: Optional[str] = None          # obs identity (inert)
 
     # --- runtime (engine-managed) ---
     state: str = WAITING
@@ -85,6 +118,12 @@ class Request:
     last_token_time: Optional[float] = None
     finish_time: Optional[float] = None
     preemptions: int = 0
+    # chunked-prefill high-water mark (serve/longctx.py): positions of
+    # prompt + generated whose K/V is in the pool
+    prefilled: int = 0
+    # terminal error (DeadlineExceeded): the request is FINISHED but
+    # result() raises this instead of returning output_ids()
+    error: Optional[BaseException] = None
 
     @property
     def total_len(self) -> int:
@@ -100,13 +139,20 @@ class Request:
         return np.concatenate(
             [self.prompt, np.asarray(self.generated, np.int32)])
 
-    def progress(self) -> RequestProgress:
+    def progress(self, *, now: Optional[float] = None) -> RequestProgress:
+        """The resume payload. ``now`` (the exporting engine's clock)
+        turns an absolute deadline into the remaining budget; without it
+        a deadline is dropped (clock readings do not transfer)."""
+        deadline_s = None
+        if self.deadline is not None and now is not None:
+            deadline_s = max(self.deadline - now, 0.0)
         return RequestProgress(
             rid=self.rid, prompt=np.array(self.prompt, copy=True),
             generated=list(self.generated),
             max_new_tokens=self.max_new_tokens, priority=self.priority,
             preemptions=self.preemptions, seed=self.seed,
-            adapter_id=self.adapter_id)
+            adapter_id=self.adapter_id, deadline_s=deadline_s,
+            prefilled=self.prefilled, trace_id=self.trace_id)
 
 
 class Scheduler:

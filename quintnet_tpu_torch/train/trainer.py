@@ -318,8 +318,8 @@ def _fault_tolerance_not_ported():
     return NotImplementedError(
         "fault tolerance (ft=: preemption handling, chaos injection, "
         "goodput) is not ported; checkpoints and step-granular resume are "
-        "(checkpoint_dir=, fit(cursor=)); ft/* waits for ROADMAP.md §1, "
-        "item 8")
+        "(checkpoint_dir=, fit(cursor=)); fit(ft=) waits for ROADMAP.md "
+        "§1, item 8c")
 
 
 def _as_params(tree):

@@ -964,3 +964,75 @@ def test_serve_lora_phase_on_cpu(monkeypatch, tiny_gpt2):
     assert len(runs) == 3 + 2 * 4
     for run in runs:
         assert set(run) == {"decode", "prefill"} and run["prefill"] > 0
+
+
+# ---------------------------------------------------------------------
+# the slice-20 serving phase (serve_fleet)
+# ---------------------------------------------------------------------
+
+def test_serve_fleet_phase_on_cpu(monkeypatch, tiny_gpt2):
+    """serve_fleet on a tiny GPT-2: both fleet runs' gates (the dense
+    greedy and the single-engine sampled oracles, exactly the armed
+    death, a migration, a crash dump read back, the exposition parsed),
+    the inertness census equal on and off, the deadline's typed retire
+    with its blocks returned, and the K4 arithmetic the card holds to
+    (the CPU launches nothing, so the per-thread count is empty here)."""
+    _on_cpu(monkeypatch)
+    params, cfg = tiny_gpt2
+    res, totals = chip_smoke.phase_serve_fleet(params, cfg)
+    for mode in ("greedy", "sampled"):
+        run = res["runs"][mode]
+        assert run["migrations"] >= 1 and run["shed"] == 0
+        assert run["replica_deaths"] == 1 and run["restarts"] == 1
+        assert run["gen_tokens"] == (chip_smoke.FLEET_REQUESTS
+                                     * chip_smoke.FLEET_NEW)
+        assert run["crash_dump"]["ring"] == chip_smoke.FLEET_KILL[1]
+        assert run["crash_dump"]["requests"] >= 1
+        assert run["exposition_samples"] > 0
+        assert set(run["step_ms_p50"]) == {"r0", "r1", "r2", "r1 (dead)"}
+        assert run["launches_by_thread"] == {}
+    greedy, sampled = res["runs"]["greedy"], res["runs"]["sampled"]
+    assert greedy["tokens_checked_vs_dense"] == greedy["gen_tokens"]
+    assert sampled["tokens_agreeing_with_one_engine"] == \
+        sampled["tokens_compared"]
+    assert totals == {k: greedy["launches_by_path"][k]
+                      + sampled["launches_by_path"][k]
+                      for k in ("decode", "prefill")}
+    assert totals["decode"] > 0 and totals["prefill"] > 0
+    inert = res["inertness"]
+    assert inert["spans"] > 0 and inert["host_aten_ops_per_step"] > 0
+    dl = res["deadline"]
+    assert dl["generated_before_deadline"] > 0
+    assert dl["blocks_held_after"] == 0
+    assert dl["resubmission_prefix_hit_tokens"] > 0
+
+
+def test_serve_fleet_deaths_other_than_the_armed_one_fail(monkeypatch,
+                                                          tiny_gpt2,
+                                                          tmp_path):
+    """The phase's death gate: a run whose event log holds a death that
+    was not armed (a replica whose step raised on its own, standing in
+    for a kernel fault in a worker thread) fails, though every request
+    finished on the other replicas."""
+    _on_cpu(monkeypatch)
+    params, cfg = tiny_gpt2
+    real = chip_smoke._fleet_engine
+    built = {"n": 0}
+
+    def faulty(*a, **k):
+        eng = real(*a, **k)
+        built["n"] += 1
+        if built["n"] == 1:                  # r0's first engine
+            def boom():
+                raise RuntimeError("kernel launch failed (injected)")
+            eng.step = boom
+        return eng
+
+    monkeypatch.setattr(chip_smoke, "_fleet_engine", faulty)
+    prompts = chip_smoke._fleet_prompts(cfg)[:6]
+    monkeypatch.setattr(chip_smoke, "FLEET_REQUESTS", len(prompts))
+    fleet, _fids, outs, launches, _wall = chip_smoke._fleet_run(
+        params, cfg, prompts, str(tmp_path), {})
+    assert len(outs) == len(prompts)
+    with pytest.raises(AssertionError, match="expected only the armed"):
+        chip_smoke._check_fleet_run(fleet, cfg, launches)

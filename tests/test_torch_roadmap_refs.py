@@ -8,9 +8,11 @@ lettered part ``- **Mx. title**`` of item M), ``§2, K1-K3 still owed,
 item M`` (the K1-K3 kernels' "Still owed" list in §2) or a quoted item
 or part title. The messages are read from the sources (the string
 constants inside each ``NotImplementedError(...)`` call, with the
-module-level string constants they name) and from the table the engine
-builds its own from; ROADMAP.md's headings, numbered items and their
-lettered parts are parsed, and each named place must be there.
+module-level string constants they name); ROADMAP.md's headings,
+numbered items and their lettered parts are parsed, and each named
+place must be there. The engine's table of item 8's options is gone
+with item 8a: those options are served, and the fleet's two item-9
+refusals name their place.
 """
 
 import ast
@@ -78,9 +80,6 @@ def _messages():
                 # checked below
                 if "ROADMAP" in msg and (_places(msg) or not dynamic):
                     out.append((str(path.relative_to(ROOT)), msg))
-    from quintnet_tpu_torch.serve.engine import _NOT_PORTED
-
-    out += [("engine", "ROADMAP.md, " + v) for v in _NOT_PORTED.values()]
     return out
 
 
@@ -107,7 +106,8 @@ def test_messages_are_found():
     files = {f for f, _ in msgs}
     for want in ("quintnet_tpu_torch/nn/transformer.py",
                  "quintnet_tpu_torch/models/llama.py",
-                 "quintnet_tpu_torch/ops/flash_kernels.py", "engine"):
+                 "quintnet_tpu_torch/ops/flash_kernels.py",
+                 "quintnet_tpu_torch/fleet/fleet.py"):
         assert want in files, sorted(files)
     assert all(_places(m) for _, m in msgs), [
         m for _, m in msgs if not _places(m)]
@@ -143,12 +143,19 @@ def test_generation_refusals_name_items_6_and_7():
     """The generation slice's refusals are all served now: vocab-parallel
     decoding (item 6's part 6b), and with the serving meshes (item 7)
     paged Llama decoding, tp paged decoding, MoE GPT-2 serving and the
-    engine's ``mesh``/``tp_axis``/``sp_axis``/``ep_axis``, and with the
-    rest of item 7 the host tier, the weight layouts and the adapters.
-    No message names them and the engine's table of items holds none of
-    them (item 8's five options are what it holds); items 6 and 7 are
-    still listed in ROADMAP.md."""
-    from quintnet_tpu_torch.serve.engine import _NOT_PORTED
+    engine's ``mesh``/``tp_axis``/``sp_axis``/``ep_axis``, with the rest
+    of item 7 the host tier, the weight layouts and the adapters, and
+    with item 8a the logger, clock, tracer and recorder. No message
+    names them, the engine has no table of options it refuses, and each
+    of item 8a's five options is accepted on and off; items 6, 7 and 8
+    are still listed in ROADMAP.md."""
+    import time
+
+    import torch
+
+    import quintnet_tpu_torch.serve.engine as engine
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
 
     _, items, _ = _roadmap()
     by_file = {}
@@ -158,14 +165,57 @@ def test_generation_refusals_name_items_6_and_7():
             ("quintnet_tpu_torch/models/llama.py", "llama_block_decode"),
             ("quintnet_tpu_torch/models/llama.py", "Llama serving"),
             ("quintnet_tpu_torch/nn/attention.py", "tp mesh"),
-            ("quintnet_tpu_torch/serve/families.py", "MoE GPT-2")):
+            ("quintnet_tpu_torch/serve/families.py", "MoE GPT-2"),
+            ("quintnet_tpu_torch/serve/engine.py", "item 8")):
         assert not [m for m in by_file.get(where, []) if needle in m], (
             where, needle)
-    assert not {"mesh", "tp_axis", "sp_axis", "ep_axis"} & set(_NOT_PORTED)
-    assert not {"adapters", "kv_tier_bytes", "weights_dtype", "lora_targets",
-                "lora_max_rank", "lora_rank_bucket_sizes",
-                "kv_tier_promote_budget_bytes"} & set(_NOT_PORTED)
-    assert set(_NOT_PORTED) == {"logger", "log_every", "clock", "tracer",
-                                "recorder"}
-    assert all("item 8" in v for v in _NOT_PORTED.values())
-    assert 6 in items and 7 in items
+    assert not hasattr(engine, "_NOT_PORTED")
+    assert not hasattr(engine, "_not_ported")
+    cfg = GPT2Config.tiny(n_layer=1)
+    p = gpt2_init(torch.Generator().manual_seed(0), cfg)
+    for option, value in (("logger", print), ("log_every", 5),
+                          ("clock", time.monotonic), ("tracer", object()),
+                          ("recorder", object())):
+        eng = ServeEngine(gpt2_family(cfg), p, device="cpu",
+                          max_seq_len=16, **{option: value})
+        assert getattr(eng, option) is value
+    assert 6 in items and 7 in items and 8 in items
+    assert {"8a", "8b", "8c"} <= set(items)
+
+
+def test_fleet_refusals_name_item_9():
+    """``ServeFleet(lock_audit=True)`` and ``assert_compile_count`` rest on
+    the static checks (item 9): each raises ``NotImplementedError``
+    naming item 9, which ROADMAP.md lists."""
+    import numpy as np
+    import torch
+
+    from quintnet_tpu_torch.fleet import ServeFleet
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
+
+    _, items, _ = _roadmap()
+    cfg = GPT2Config.tiny(n_layer=1)
+    p = gpt2_init(torch.Generator().manual_seed(0), cfg)
+
+    def make():
+        return ServeEngine(gpt2_family(cfg), p, device="cpu", max_slots=1,
+                           block_size=4, num_blocks=8, max_seq_len=16)
+
+    with pytest.raises(NotImplementedError, match="item 9") as ei:
+        ServeFleet(make, n_replicas=1, lock_audit=True)
+    assert "lock_audit" in str(ei.value)
+    fleet = ServeFleet(make, n_replicas=1)
+    try:
+        with pytest.raises(NotImplementedError, match="item 9"):
+            fleet.assert_compile_count()
+        out = fleet.generate([np.arange(3, dtype=np.int32)],
+                             max_new_tokens=2, timeout=120)
+        assert len(out[0]) == 5
+    finally:
+        fleet.drain(timeout=60)
+    assert 9 in items
+    msgs = [m for w, m in _messages()
+            if w == "quintnet_tpu_torch/fleet/fleet.py"]
+    assert len(msgs) == 2 and all(("item", 1, 9) in _places(m)
+                                  for m in msgs)

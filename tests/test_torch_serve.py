@@ -224,25 +224,31 @@ def test_bad_prefill_ladder_raises_in_both(params, kw):
         ServeEngine(gpt2_family(CFG), tp, device="cpu", **base, **kw)
 
 
-# each JAX option the port does not serve yet: a value that asks for it,
-# the JAX default ("off"), and the ROADMAP.md item its message names
+# the JAX options of the observation slice (ROADMAP.md item 8a), served
+# since it was ported: a value that turns each on and the JAX default
+# ("off"); both build an engine that holds the value
 JAX_ONLY_OPTIONS = {
-    "logger": (print, None, "item 8"), "log_every": (10, 0, "item 8"),
-    "clock": (lambda: 0.0, time.monotonic, "item 8"),
-    "tracer": (object(), None, "item 8"),
-    "recorder": (object(), None, "item 8"),
+    "logger": (print, None), "log_every": (10, 0),
+    "clock": (lambda: 0.0, time.monotonic),
+    "tracer": (object(), None),
+    "recorder": (object(), None),
 }
 
 
 @pytest.mark.parametrize("option", sorted(JAX_ONLY_OPTIONS))
 def test_jax_only_options_raise_naming_their_item(params, option):
-    on, off, item = JAX_ONLY_OPTIONS[option]
-    with pytest.raises(NotImplementedError, match=item):
-        ServeEngine(gpt2_family(CFG), params[1], device="cpu",
-                    **{option: on})
-    eng = ServeEngine(gpt2_family(CFG), params[1], device="cpu",
-                      max_seq_len=40, **{option: off})
-    assert eng.prefill_buckets == prefill_buckets(40)
+    """Once refused naming item 8, now accepted on and off, as JAX's
+    constructor accepts them: the engine keeps the value it was given
+    (an attribute the fleet may also set after construction)."""
+    for value in JAX_ONLY_OPTIONS[option]:
+        eng = ServeEngine(gpt2_family(CFG), params[1], device="cpu",
+                          max_seq_len=40, **{option: value})
+        assert eng.prefill_buckets == prefill_buckets(40)
+        held = getattr(eng, option)
+        assert held == value if option == "log_every" else held is value
+        jeng = JaxServeEngine(jax_gpt2_family(JCFG), params[0],
+                              max_seq_len=40, **{option: value})
+        assert getattr(jeng, option) is value or option == "log_every"
 
 
 # item 7's serving options, served since the host tier, the weight
