@@ -181,6 +181,30 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    s, TTFT / ITL percentiles, each replica's step p50 (recorder rings),
    migrations, sheds, peak memory and what stays allocated after
    ``close()``, beside the card's name and power limit.
+3g. **serve_proc_fleet** (slice 21) — the same model and traffic served
+   by a ``ProcessFleet``: each replica a spawned PROCESS (its own CUDA
+   context on the card) building GPT-2 124M from this file
+   (``build_proc_engine``, the serve phases' seeded generator), K4 built
+   in the parent first so the children only load it. Colocated greedy:
+   3 replicas, p1 SIGKILLed by a real signal once the parent's token
+   journal holds 8 of its tokens, its work rebuilt from the journal and
+   the fids' seeds on the survivors, p1 restarted through the breaker
+   and then probed alone; one request through the HTTP/SSE
+   ``FrontDoor`` (tokens equal ``result()``, /healthz 200, /metrics
+   parses). Colocated sampled with the same kill. Disaggregated greedy
+   (1 prefill + 2 decode replicas): the KV chain crosses processes as a
+   checksummed wire frame. Gates: greedy streams equal the dense greedy,
+   sampled ones one engine in the parent at the fids' seeds, the
+   disaggregated ones the colocated greedy run's, each up to near-ties;
+   exactly one death (the kill), a migration, ``is_last`` once a
+   request, a crash dump holding the heartbeat-mirrored ring; a handoff
+   and a transfer for every request, no fallback; every replica
+   incarnation that answers ``stats``: K4 == n_layer x (its decode
+   steps + prefills), all f32, and launched at all; the parent launches
+   none. Prints a replica's step p50 (mirrored ring), wall, TTFT and
+   ITL, spawn-to-hello and restart s, the largest heartbeat age, KV
+   bytes shipped and handoff ms, the card's free memory before and
+   after.
 4. **train** — GPT-2 124M (f32, random weights from seed 0, every
    dropout rate 0) trained by the port's ``Trainer`` with AdamW (lr
    5e-5, decay 0.01, clip 1.0) on ``SummarizationDataset.synthetic``
@@ -364,16 +388,19 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    18 gpt2_moe_ep2tp2 is cut to 6 layers. Since slice 19, for the
    script's time limit, every GPT-2 training run cut to 6 layers is cut
    to 4, the sp and vp GPT-2 runs and the GPT-2 serving mesh runs to 6,
-   and the Llama training runs to 2 layers. A rank that raises or dies
-   fails the phase.
+   and the Llama training runs to 2 layers; since slice 21, to make room
+   for the process fleet's phase, the GPT-2 training runs (and
+   gpt2_moe_ep2tp2) to 2 layers, the sp and vp GPT-2 runs and the GPT-2
+   serving mesh runs to 4. A rank that raises or dies fails the phase.
 
 Then one JSON line of each phase's wall seconds (the mesh phase's
 single-rank references also on a line of their own), one of
 per-kernel numbers (K4 once per variant the
 serve phases launched and path, the f32 pool's with the serve and
 serve_sampled runs' launches (and since slice 19 serve_wq's, serve_tier's
-and serve_lora's f32-pool runs', since slice 20 serve_fleet's prefills;
-its decode launches on a line of the replicas' 4-slot shape); K1-K3 in
+and serve_lora's f32-pool runs', since slice 20 serve_fleet's prefills
+and since slice 21 serve_proc_fleet's; their decode launches on a line
+of the replicas' 4-slot shape); K1-K3 in
 f32 with the train, lora_train,
 resume, llama_train and llama_packed phases' launches and every f32 mesh
 rank's
@@ -774,8 +801,9 @@ def _paged_cases():
         cases.append(_paged_case(gen, name=f"{tag}_prefill_P128", S=1,
                                  Hq=hq, Hkv=hkv, P=128, starts=[0]))
         line(tag, "prefill")
-    # the serving fleet's decode shape (serve_fleet): a replica's 4 slots
-    # at the contexts of its prompts of 32-256 tokens, 32 new
+    # the serving fleets' decode shape (serve_fleet, serve_proc_fleet): a
+    # replica's 4 slots at the contexts of its prompts of 32-256 tokens,
+    # 32 new
     cases.append(_paged_case(gen, name="fleet_decode_S4", S=FLEET_SLOTS,
                              Hq=H, Hkv=H, P=1, starts=[287, 200, 96, 40]))
     line("fleet_s4", "decode")
@@ -3264,6 +3292,445 @@ def phase_serve_fleet(params, cfg):
 
 
 # ---------------------------------------------------------------------
+# phase 3g: the process fleet (replica processes, a SIGKILL, the
+# disaggregated pools, the HTTP front door)
+# ---------------------------------------------------------------------
+
+PROC_REPLICAS = 3
+PROC_KILL = ("p1", 8)            # SIGKILLed once the journal holds this
+#                                  many of its streamed tokens
+PROC_POOLS = {"prefill": 1, "decode": 2}
+PROC_SPAWN_TIMEOUT_S = 120.0
+PROC_WAIT_S = 120.0              # the bound of every wait of the phase
+PROC_PROBE_NEW = 8               # the restarted replica's probe request
+PROC_HEARTBEAT_S = 0.02          # beats carry the mirrored step records
+
+
+def build_proc_engine(*, device=DEVICE, model=None, **kw):
+    """The process fleet's engine builder: each replica process loads
+    this file by path (``{"file": <this file>, "func":
+    "build_proc_engine"}``; ``main`` stays behind its guard, so the
+    import runs no phase) and builds GPT-2 (``model``: the config's
+    fields; GPT-2 124M without) from the serve phases' seeded generator
+    on ``device``, ``gpt2_init(torch.Generator(device).manual_seed(0))``
+    — the call that made the parent's oracle weights, so every replica
+    holds them — in serve_fleet's engine (4 slots, 160 blocks of 16, an
+    f32 pool)."""
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config, gpt2_init
+    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    if torch.device(device).type == "cpu":
+        torch.set_num_threads(1)     # the CPU rehearsal's children
+    cfg = GPT2Config(**model) if model else GPT2Config.base()
+    params = gpt2_init(torch.Generator(device=device).manual_seed(0), cfg)
+    return ServeEngine(gpt2_family(cfg), params, device=device,
+                       max_slots=FLEET_SLOTS, block_size=16,
+                       num_blocks=FLEET_BLOCKS, kv_dtype="f32", **kw)
+
+
+def _proc_fleet(cfg, mode_kw, **kw):
+    """A ``ProcessFleet`` of this file's builder on ``DEVICE``, obs on;
+    (fleet, spawn-to-hello s)."""
+    import dataclasses
+
+    from quintnet_tpu_torch.fleet import ProcessFleet
+
+    spec = {"file": os.path.abspath(__file__), "func": "build_proc_engine",
+            "kwargs": {"model": dataclasses.asdict(cfg), **mode_kw}}
+    t0 = time.perf_counter()
+    fleet = ProcessFleet(spec, device=DEVICE, obs=True,
+                         heartbeat_s=PROC_HEARTBEAT_S,
+                         spawn_timeout_s=PROC_SPAWN_TIMEOUT_S, **kw)
+    return fleet, time.perf_counter() - t0
+
+
+class _BeatWatch:
+    """The largest heartbeat age of a live replica, polled every 10 ms
+    on a thread of its own while the run is in flight."""
+
+    def __init__(self, fleet):
+        import threading
+
+        self.max_age_s = 0.0
+        self._stop = threading.Event()
+
+        def poll():
+            while not self._stop.wait(0.01):
+                for r in fleet.replicas:
+                    if r.state == "healthy":
+                        self.max_age_s = max(self.max_age_s, r.hb.age_s)
+
+        self._thread = threading.Thread(target=poll, daemon=True,
+                                        name="beat-watch")
+        self._thread.start()
+
+    def stop(self) -> float:
+        self._stop.set()
+        self._thread.join(timeout=5)
+        return self.max_age_s
+
+
+def _wait_for(pred, what):
+    t0 = time.perf_counter()
+    while not pred():
+        if time.perf_counter() - t0 > PROC_WAIT_S:
+            raise AssertionError(f"timed out after {PROC_WAIT_S} s "
+                                 f"waiting for {what}")
+        time.sleep(0.005)
+    return time.perf_counter() - t0
+
+
+def _proc_k4(fleet, cfg):
+    """Each replica incarnation that answers ``stats``: K4 == n_layer x
+    (its decode steps + prefills), all f32, by path, and (on the card)
+    launched at all. Returns {replica: {"decode", "prefill"}}."""
+    L = _depth(cfg)
+    out = {}
+    for name, s in fleet.replica_stats().items():
+        want = {"decode": L * s["decode_steps"], "prefill": L * s["admitted"]}
+        if torch.device(DEVICE).type == "cuda":
+            k4 = s["k4"]
+            _check_launches({"total": k4["launches"],
+                             "by_variant": k4["by_variant"],
+                             "by_path": k4["by_path"]}, "f32", want)
+            if not k4["launches"]:
+                raise AssertionError(f"replica {name} launched no K4")
+        out[name] = want
+    names = {r.name for r in fleet.replicas}
+    if set(out) != names:
+        raise AssertionError(f"stats from {sorted(out)}; every replica "
+                             f"{sorted(names)} should answer")
+    return out
+
+
+def _ring_p50_ms(ring):
+    return (float(np.median([r["t1"] - r["t0"] for r in ring]) * 1e3)
+            if ring else None)
+
+
+def _sse(fd, prompt, max_new):
+    """One streamed request through the front door: (fid, streamed
+    tokens, the done event's output)."""
+    import http.client
+
+    conn = http.client.HTTPConnection(fd.host, fd.port, timeout=PROC_WAIT_S)
+    conn.request("POST", "/v1/generate", json.dumps(
+        {"prompt": [int(t) for t in prompt], "max_new_tokens": max_new,
+         "stream": True}), {})
+    r = conn.getresponse()
+    if r.status != 200:
+        raise AssertionError(f"front door stream: HTTP {r.status}")
+    fid = int(r.getheader("X-Fleet-Fid"))
+    events = [e for e in r.read().decode().split("\n\n") if e.strip()]
+    conn.close()
+    toks = [json.loads(e.split("data: ", 1)[1]) for e in events
+            if e.startswith("data: ")]
+    done = [json.loads(e.split("data: ", 1)[1]) for e in events
+            if e.startswith("event: done")]
+    if len(done) != 1 or [t["last"] for t in toks].count(True) != 1:
+        raise AssertionError(f"front door stream: {len(done)} done "
+                             f"events, last flags {toks}")
+    return fid, [t["token"] for t in toks], np.asarray(done[0]["output"])
+
+
+def _front_door(fleet, prompt, max_new):
+    """One SSE request, /healthz and /metrics through ``FrontDoor`` in
+    front of ``fleet``: the streamed tokens equal ``result()``, 200 on
+    /healthz, an exposition that parses. Returns (output, numbers)."""
+    import http.client
+
+    from quintnet_tpu_torch.fleet import FrontDoor
+    from quintnet_tpu_torch.obs import parse_exposition
+
+    with FrontDoor(fleet) as fd:
+        fid, toks, out = _sse(fd, prompt, max_new)
+        result = fleet.result(fid, timeout=PROC_WAIT_S)
+        if not (np.array_equal(out, result)
+                and toks == [int(t) for t in result[len(prompt):]]):
+            raise AssertionError("front door: SSE tokens != result()")
+        got = {}
+        for path in ("/healthz", "/metrics"):
+            conn = http.client.HTTPConnection(fd.host, fd.port,
+                                              timeout=PROC_WAIT_S)
+            conn.request("GET", path)
+            r = conn.getresponse()
+            got[path] = (r.status, r.read().decode())
+            conn.close()
+    if got["/healthz"][0] != 200:
+        raise AssertionError(f"/healthz: {got['/healthz']}")
+    samples = len(parse_exposition(got["/metrics"][1]))
+    if got["/metrics"][0] != 200 or not samples:
+        raise AssertionError(f"/metrics: HTTP {got['/metrics'][0]}, "
+                             f"{samples} samples")
+    return result, {"fid": fid, "streamed_tokens": len(toks),
+                    "healthz": json.loads(got["/healthz"][1])["status"],
+                    "exposition_samples": samples}
+
+
+def _proc_run(params, cfg, prompts, mode_kw, *, pools=None, crash_dir=None,
+              front_door=False):
+    """One process-fleet run of the main path: three replica processes
+    (colocated, p1 SIGKILLed by a real signal once the journal holds
+    ``PROC_KILL[1]`` of its tokens, restarted through the breaker and
+    probed alone) or ``pools`` (disaggregated, no kill). Warm-up, then
+    every child's counters and ledgers reset just before the
+    submissions, the K4 gate read from each child just after; the
+    parent's own counts zeroed before and read after (it launches
+    none). Returns (the closed fleet, whose ``result`` still answers;
+    the fids; the numbers; K4 by replica)."""
+    from quintnet_tpu_torch.fleet import HEALTHY
+    from quintnet_tpu_torch.obs import load_crash_dump
+
+    kill = pools is None
+    kw = ({"pools": pools} if pools is not None
+          else {"n_replicas": PROC_REPLICAS, "crash_dir": crash_dir})
+    fleet, spawn_s = _proc_fleet(cfg, mode_kw, **kw)
+    handoff_ms = []
+    if pools is not None:
+        # the transfer's wall, each handoff thread timed around the
+        # fleet's own routine (instance attribute: the fleet looks it
+        # up when it starts the thread)
+        run_handoff = fleet._run_handoff
+
+        def timed_handoff(src, freq):
+            t0 = time.perf_counter()
+            try:
+                run_handoff(src, freq)
+            finally:
+                handoff_ms.append((time.perf_counter() - t0) * 1e3)
+
+        fleet._run_handoff = timed_handoff
+    num = {"spawn_to_hello_s": spawn_s}
+    try:
+        t0 = time.perf_counter()
+        fleet.warmup()
+        num["warmup_s"] = time.perf_counter() - t0
+        fleet.reset_metrics()
+        streamed = collections.defaultdict(list)
+        lasts = collections.Counter()
+
+        def on_token(fid, tok, last):
+            streamed[fid].append(int(tok))
+            lasts[fid] += bool(last)
+
+        _zero_counts()
+        watch = _BeatWatch(fleet)
+        t0 = time.perf_counter()
+        fids = [fleet.submit(p, FLEET_NEW, on_token=on_token)
+                for p in prompts]
+        if kill:
+            victim = fleet.replica(PROC_KILL[0])
+
+            def journaled():
+                with fleet._cv:
+                    return sum(len(f.committed)
+                               for f in victim.unfinished())
+
+            # and once a heartbeat has mirrored its step records: the
+            # crash dump's black box
+            _wait_for(lambda: (journaled() >= PROC_KILL[1]
+                               and victim.ring_snapshot()),
+                      f"{PROC_KILL[1]} tokens journaled from "
+                      f"{PROC_KILL[0]} and its ring mirrored")
+            victim.kill()
+            t_kill = time.perf_counter()
+            num["journaled_at_kill"] = journaled()
+        outs = [fleet.result(f, timeout=PROC_WAIT_S) for f in fids]
+        num["wall_s"] = time.perf_counter() - t0
+        num["max_heartbeat_age_s"] = watch.stop()
+        for fid, p, out in zip(fids, prompts, outs):
+            if (lasts[fid] != 1
+                    or streamed[fid] != [int(t) for t in out[len(p):]]):
+                raise AssertionError(
+                    f"request {fid}: {lasts[fid]} last flags, streamed "
+                    f"{len(streamed[fid])} tokens against {len(out) - len(p)}")
+        if kill:
+            _wait_for(lambda: (fleet.metrics.restarts >= 1
+                               and fleet.replica(PROC_KILL[0]).state
+                               == HEALTHY), f"{PROC_KILL[0]}'s restart")
+            num["restart_s"] = time.perf_counter() - t_kill
+            # the restarted incarnation serves alone: a probe of the first
+            # request again, at its seed
+            others = [r.name for r in fleet.replicas
+                      if r.name != PROC_KILL[0]]
+            for name in others:
+                fleet.pause_replica(name, True)
+            probe = fleet.submit(prompts[0], PROC_PROBE_NEW, seed=fids[0])
+            num["probe"] = fleet.result(probe, timeout=PROC_WAIT_S)
+            if fleet.request(probe).replica_name != PROC_KILL[0]:
+                raise AssertionError("the probe missed the restarted "
+                                     "replica")
+            for name in others:
+                fleet.pause_replica(name, False)
+        if front_door:
+            num["front_door_output"], num["front_door"] = _front_door(
+                fleet, prompts[1], FLEET_NEW)
+        k4 = _proc_k4(fleet, cfg)
+        parent = _launches()
+        if parent["total"]:
+            raise AssertionError(f"the parent launched K4 during the "
+                                 f"run: {parent}")
+        s = fleet.summary()
+        m = fleet.metrics
+        if kill:
+            deaths = [e["replica"] for e in
+                      fleet.events.snapshot(kind="replica_death")]
+            if deaths != [PROC_KILL[0]] or m.stalls or m.migrations < 1:
+                raise AssertionError(f"deaths {deaths}, stalls {m.stalls}, "
+                                     f"migrations {m.migrations}: "
+                                     f"expected the kill alone")
+            _wait_for(lambda: fleet.crash_dumps, "the crash dump")
+            dump = load_crash_dump(fleet.crash_dumps[0])
+            if dump["replica"] != PROC_KILL[0] or not dump["ring"]:
+                raise AssertionError(f"crash dump of {dump['replica']} "
+                                     f"with {len(dump['ring'])} records")
+            num["crash_dump"] = {"ring": len(dump["ring"]),
+                                 "requests": len(dump["requests"])}
+            rings = {r.name: r.ring_snapshot() for r in fleet.replicas}
+            rings[PROC_KILL[0] + " (dead)"] = dump["ring"]
+        else:
+            # every request needs more than its first token
+            want_handoffs = len(prompts) if FLEET_NEW > 1 else 0
+            if (m.handoffs != want_handoffs or m.handoff_fallbacks
+                    or m.handoff_transfers != want_handoffs):
+                raise AssertionError(
+                    f"handoffs {m.handoffs}, transfers "
+                    f"{m.handoff_transfers}, fallbacks "
+                    f"{m.handoff_fallbacks}; expected {want_handoffs}, "
+                    f"{want_handoffs}, 0")
+            moved = [e["transferred_tokens"]
+                     for e in fleet.events.snapshot(kind="handoff")]
+            block = (2 * _depth(cfg) * 16 * cfg.n_head
+                     * (cfg.n_embd // cfg.n_head) * 4)
+            num["kv_bytes_shipped"] = sum(-(-n // 16) * block for n in moved)
+            num["handoff_ms"] = {"p50": float(np.median(handoff_ms)),
+                                 "max": float(max(handoff_ms)),
+                                 "n": len(handoff_ms)}
+            rings = {r.name: r.ring_snapshot() for r in fleet.replicas}
+        if m.finished != len(outs) + kill + front_door or m.shed:
+            raise AssertionError(f"fleet metrics {m.summary()}")
+        num.update({
+            "ttft_s": s["ttft_s"], "latency_s": s["latency_s"],
+            "itl_s": {n: e["itl_s"] for n, e in s["engines"].items()},
+            "step_ms_p50": {n: _ring_p50_ms(r) for n, r in rings.items()},
+            "steps": {n: len(r) for n, r in rings.items()},
+            "migrations": m.migrations, "replica_deaths": m.replica_deaths,
+            "stalls": m.stalls, "restarts": m.restarts,
+            "handoffs": m.handoffs, "handoff_transfers": m.handoff_transfers,
+            "handoff_fallbacks": m.handoff_fallbacks,
+            "tokens_delivered": s["tokens_delivered"]})
+    finally:
+        fleet.close()
+    return fleet, fids, num, k4
+
+
+def phase_serve_proc_fleet(params, cfg):
+    """GPT-2 124M (12 layers; ``params`` the serve phases' weights, the
+    oracle's) served by a ``ProcessFleet`` of replica PROCESSES on the one
+    card, serve_fleet's traffic (16 requests of 32-256 tokens + 32, the
+    fid's seed). Colocated greedy: 3 replicas, p1 SIGKILLed (a real
+    signal) once the journal holds 8 of its tokens, restarted through
+    the breaker and probed alone; every stream equals the dense greedy
+    up to near-ties (< 1e-3), exactly one death, a migration, ``is_last``
+    once a request, a crash dump holding the heartbeat-mirrored ring;
+    then one request through the ``FrontDoor`` (SSE tokens equal
+    ``result()``, /healthz 200, /metrics parses). Colocated sampled
+    (``SAMPLED``), the same kill: streams equal one engine in the parent
+    at the fids' seeds up to perturbed near-ties. Disaggregated
+    (``PROC_POOLS``, greedy): streams equal the colocated greedy run's up
+    to near-ties, a handoff (and a transfer) for every request, no
+    fallback. K4: every replica incarnation that answers ``stats`` ==
+    n_layer x (decode steps + prefills), all f32, by path, each one
+    launched; the parent none. Reported: a replica's step p50 from its
+    mirrored ring, wall, TTFT and ITL, spawn-to-hello and restart s, the
+    largest heartbeat age, KV bytes shipped and handoff ms, the card's
+    free memory before and after, its name and power limit. Returns
+    (result, K4 launches by path over every run)."""
+    import tempfile
+
+    from quintnet_tpu_torch.ops import build
+
+    prompts = _fleet_prompts(cfg)
+    on_card = torch.device(DEVICE).type == "cuda"
+    if on_card:
+        build.load("paged_attention")   # children load it, never build
+        gc.collect()
+        torch.cuda.empty_cache()
+    res = {"phase": "serve_proc_fleet",
+           "model": "gpt2-124M (random init, seed 0)",
+           "card": _smi() if on_card else "(no card)",
+           "replicas": PROC_REPLICAS, "pools": PROC_POOLS,
+           "max_slots": FLEET_SLOTS, "requests": len(prompts),
+           "prompt_lens": [len(p) for p in prompts],
+           "max_new_tokens": FLEET_NEW, "kill": list(PROC_KILL),
+           "runs": {}}
+    if on_card:
+        res["card_free_bytes_before"] = torch.cuda.mem_get_info()[0]
+    totals = {"decode": 0, "prefill": 0}
+
+    def tally(k4):
+        for want in k4.values():
+            for path in totals:
+                totals[path] += want[path]
+        return k4
+
+    with tempfile.TemporaryDirectory() as crash_root:
+        fleet, fids, num, k4 = _proc_run(
+            params, cfg, prompts, {},
+            crash_dir=os.path.join(crash_root, "greedy"), front_door=True)
+        greedy = [fleet.result(f) for f in fids]
+        checked, ties = _check_against_dense(params, cfg, fleet, fids,
+                                             prompts, F32_GAP)
+        probe = num.pop("probe")
+        fd_out = num.pop("front_door_output")
+        agree, compared, div = _near_tie_compare(
+            params, cfg, [probe, fd_out],
+            [greedy[0][:len(probe)], greedy[1]], prompts[:2])
+        num.update({"tokens_checked_vs_dense": checked, "near_ties": ties,
+                    "probe_and_front_door_vs_run": [agree, compared, div],
+                    "launches_by_replica": tally(k4)})
+        res["runs"]["colocated_greedy"] = num
+
+        fleet, fids, num, k4 = _proc_run(
+            params, cfg, prompts, SAMPLED,
+            crash_dir=os.path.join(crash_root, "sampled"))
+        sampled = [fleet.result(f) for f in fids]
+        one = _fleet_engine(params, cfg, **SAMPLED)
+        want = _run_requests(one, prompts, [FLEET_NEW] * len(prompts),
+                             fids)[0]
+        del one
+        _free_card()
+        probe = num.pop("probe")
+        agree, compared, div = _near_tie_compare(
+            params, cfg, sampled + [probe],
+            want + [want[0][:len(probe)]], prompts + prompts[:1],
+            seeds=fids + fids[:1])
+        num.update({"tokens_agreeing_with_one_engine": agree,
+                    "tokens_compared": compared,
+                    "divergences_at_near_ties": div,
+                    "launches_by_replica": tally(k4)})
+        res["runs"]["colocated_sampled"] = num
+
+    fleet, fids, num, k4 = _proc_run(params, cfg, prompts, {},
+                                     pools=PROC_POOLS)
+    agree, compared, div = _near_tie_compare(
+        params, cfg, [fleet.result(f) for f in fids], greedy, prompts)
+    num.update({"tokens_agreeing_with_colocated": agree,
+                "tokens_compared": compared,
+                "divergences_at_near_ties": div,
+                "launches_by_replica": tally(k4)})
+    res["runs"]["disaggregated_greedy"] = num
+    res["launches_by_path"] = totals
+    if on_card:
+        gc.collect()
+        res["card_free_bytes_after_close"] = torch.cuda.mem_get_info()[0]
+    _emit(res)
+    return res, totals
+
+
+# ---------------------------------------------------------------------
 # phase 3b: Llama-3.2-1B served through K4's GQA path
 # ---------------------------------------------------------------------
 
@@ -4488,23 +4955,26 @@ def phase_resume():
 # ``gpt2_generate_tp`` that many greedy tokens from the vocab-sharded
 # parameters, held to one device's ``gpt2_generate``)
 MESH_RUNS = {
-    "dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"layers": 4}),
-    "tp2": ([2], ["tp"], 2, 64, "afab", "adamw", {"layers": 4}),
-    "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw", {"layers": 4}),
+    # GPT-2 124M widths cut to 2 layers (4 in slices 19-20, 12 before):
+    # the script's 1,200 s, with the process fleet's phase beside them
+    # since slice 21 (ROADMAP.md, "Two budgets")
+    "dp2": ([2], ["dp"], 1, 64, "afab", "adamw", {"layers": 2}),
+    "tp2": ([2], ["tp"], 2, 64, "afab", "adamw", {"layers": 2}),
+    "dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw", {"layers": 2}),
     "fsdp_dp2": ([2], ["dp"], 1, 64, "afab", "adamw",
-                 {"fsdp": True, "layers": 4}),
+                 {"fsdp": True, "layers": 2}),
     "fsdp_dp2tp2": ([2, 2], ["dp", "tp"], 2, 16, "afab", "adamw",
-                    {"fsdp": True, "layers": 4}),
-    "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw", {"layers": 4}),
+                    {"fsdp": True, "layers": 2}),
+    "pp2_afab": ([2], ["pp"], 4, 16, "afab", "adamw", {"layers": 2}),
     "dp2pp2_stored_zero2": ([2, 2], ["dp", "pp"], 4, 16, "1f1b_stored",
-                            "zero2_adamw", {"layers": 4}),
+                            "zero2_adamw", {"layers": 2}),
     "3d_1f1b_zero1": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
-                      "zero1_adamw", {"save": True, "layers": 4}),
+                      "zero1_adamw", {"save": True, "layers": 2}),
     "3d_ckpt_resume": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b",
                        "zero1_adamw", {"resume": "3d_1f1b_zero1",
-                                       "layers": 4}),
+                                       "layers": 2}),
     "3d_bf16": ([2, 2, 2], ["dp", "tp", "pp"], 4, 16, "1f1b", "zero1_adamw",
-                {"dtype": "bfloat16", "layers": 4}),
+                {"dtype": "bfloat16", "layers": 2}),
     # Llama-3.2-1B widths cut to 2 layers (4 before slice 19), rows of
     # 1,024
     "llama_tp2": ([2], ["tp"], 2, 8, "afab", "adamw", {"model": "llama"}),
@@ -4515,29 +4985,32 @@ MESH_RUNS = {
     "llama_dp2pp2_1f1b_zero1": ([2, 2], ["dp", "pp"], 2, 8, "1f1b",
                                 "zero1_adamw", {"model": "llama"}),
     # GPT-2 124M, 8 mlp experts a block, top-2; cut to 6 layers since
-    # the serving mesh runs joined the mesh phase, to 4 since slice 19
-    # (script time)
+    # the serving mesh runs joined the mesh phase, to 4 since slice 19,
+    # to 2 since slice 21 (the script's 1,200 s: ROADMAP.md, "Two
+    # budgets")
     "gpt2_moe_ep2tp2": ([2, 2], ["ep", "tp"], 1, 8, "afab", "adamw",
-                        {"model": "gpt2_moe", "layers": 4}),
+                        {"model": "gpt2_moe", "layers": 2}),
     # sequence parallel: GPT-2 124M widths at its 1,024 positions, 512 a
-    # rank, in each mode, cut to 6 layers since slice 19 (script time);
+    # rank, in each mode, cut to 6 layers in slice 19 and to 4 since
+    # slice 21 (the script's 1,200 s: ROADMAP.md, "Two budgets");
     # Llama-3.2-1B widths (2 layers) by Ulysses
     "sp2_ring": ([2], ["sp"], 2, 8, "afab", "adamw",
-                 {"model": "gpt2_1k", "sp_mode": "ring", "layers": 6}),
+                 {"model": "gpt2_1k", "sp_mode": "ring", "layers": 4}),
     "sp2_zigzag": ([2], ["sp"], 2, 8, "afab", "adamw",
-                   {"model": "gpt2_1k", "sp_mode": "zigzag", "layers": 6}),
+                   {"model": "gpt2_1k", "sp_mode": "zigzag", "layers": 4}),
     "sp2_ulysses": ([2], ["sp"], 2, 8, "afab", "adamw",
-                    {"model": "gpt2_1k", "sp_mode": "ulysses", "layers": 6}),
+                    {"model": "gpt2_1k", "sp_mode": "ulysses", "layers": 4}),
     "llama_sp2_ulysses": ([2], ["sp"], 2, 8, "afab", "adamw",
                           {"model": "llama", "sp_mode": "ulysses"}),
-    # vocab parallel: GPT-2 124M widths (6 layers since slice 19), its
+    # vocab parallel: GPT-2 124M widths (4 layers since slice 21, 6 in
+    # slices 19-20: the script's 1,200 s, ROADMAP.md "Two budgets"), its
     # table padded 50,257 -> 50,304 rows (25,152 a rank), then 16 greedy
     # tokens by gpt2_generate_tp; Llama-3.2-1B widths at 2 layers (128,256
     # rows, 64,128 a rank); GPT-2 at 4 layers on tp x sp by Ulysses
     # (clm_loss_vp with the sp shift)
     "vp_tp2": ([2], ["tp"], 2, 16, "afab", "adamw",
                {"vp": True, "pad_vocab": 50304, "generate": 16,
-                "layers": 6}),
+                "layers": 4}),
     "llama_vp_tp2": ([2], ["tp"], 2, 8, "afab", "adamw",
                      {"model": "llama", "vp": True}),
     "vp_tp2_sp2": ([2, 2], ["tp", "sp"], 2, 8, "afab", "adamw",
@@ -5246,9 +5719,11 @@ SERVE_MESH_WINDOW = 6
 
 
 def _serve_mesh_cfg(model):
-    """GPT-2 124M widths cut to 6 layers (since slice 19, script time);
-    Llama-3.2-1B widths cut to 4 layers; GPT-2 124M
-    widths cut to 6 layers with 8 mlp experts a block, top-2, dropless
+    """GPT-2 124M widths cut to 4 layers (6 in slices 19-20; since slice
+    21 the script's 1,200 s holds the process fleet's phase too:
+    ROADMAP.md, "Two budgets"); Llama-3.2-1B widths cut to 4 layers;
+    GPT-2 124M widths cut to 4 layers with 8 mlp experts a block, top-2,
+    dropless
     (capacity factor E / k = 4: C is each call's token count, so the
     dense forward routes every token as the engine does) or,
     "gpt2_moe_drops", at the default capacity factor 1.25."""
@@ -5260,13 +5735,13 @@ def _serve_mesh_cfg(model):
     if model == "llama":
         return dataclasses.replace(LlamaConfig.llama32_1b(), n_layers=4)
     if model == "gpt2_moe":
-        return dataclasses.replace(GPT2Config.base(), n_layer=6,
+        return dataclasses.replace(GPT2Config.base(), n_layer=4,
                                    n_experts=8, expert_top_k=2,
                                    capacity_factor=4.0)
     if model == "gpt2_moe_drops":
-        return dataclasses.replace(GPT2Config.base(), n_layer=6,
+        return dataclasses.replace(GPT2Config.base(), n_layer=4,
                                    n_experts=8, expert_top_k=2)
-    return dataclasses.replace(GPT2Config.base(), n_layer=6)
+    return dataclasses.replace(GPT2Config.base(), n_layer=4)
 
 
 def _serve_mesh_params(cfg, device):
@@ -5521,12 +5996,12 @@ def _check_serve_mesh(name, ranks, ref, params, cfg):
 
 
 _SERVE_MESH_MODELS = {
-    "gpt2": "gpt2-124M widths cut to 6 layers (random init, seed 0)",
+    "gpt2": "gpt2-124M widths cut to 4 layers (random init, seed 0)",
     "llama": "Llama-3.2-1B widths cut to 4 layers (random init, seed 0)",
-    "gpt2_moe": "gpt2-124M widths cut to 6 layers, 8 mlp experts a "
+    "gpt2_moe": "gpt2-124M widths cut to 4 layers, 8 mlp experts a "
                 "block, top-2, capacity factor 4 (dropless; random init, "
                 "seed 0)",
-    "gpt2_moe_drops": "gpt2-124M widths cut to 6 layers, 8 mlp experts a "
+    "gpt2_moe_drops": "gpt2-124M widths cut to 4 layers, 8 mlp experts a "
                       "block, top-2, capacity factor 1.25 (random init, "
                       "seed 0)"}
 
@@ -6356,6 +6831,8 @@ def main() -> int:
     _res, tier_runs = timed("serve_tier", phase_serve_tier, params, cfg)
     _res, lora_runs = timed("serve_lora", phase_serve_lora, params, cfg)
     _res, fleet_runs = timed("serve_fleet", phase_serve_fleet, params, cfg)
+    _res, proc_runs = timed("serve_proc_fleet", phase_serve_proc_fleet,
+                            params, cfg)
     del params
     torch.cuda.empty_cache()
     llama_serve = timed("serve_llama", phase_serve_llama)
@@ -6391,12 +6868,15 @@ def main() -> int:
     # document runs, the serving mesh ranks of GPT-2's 12 heads (sp2,
     # ep2), and since slice 19 the packed-weight, host-tier and LoRA runs;
     # since slice 20 the serving fleet's prefills (its decode launches are
-    # on the fleet_s4 line, the replicas' 4-slot shape)
+    # on the fleet_s4 line, the replicas' 4-slot shape), since slice 21
+    # the process fleet's (each replica process's own counts, from its
+    # stats reply)
     serve_paged = mesh_counts["serve_paged"]
     f32_runs = ([serve_res["launches_by_path"],
                  sampled_res["launches_by_path"],
                  spec_res["launches_by_path"], serve_paged.get("", {}),
-                 {"prefill": fleet_runs["prefill"]}]
+                 {"prefill": fleet_runs["prefill"]},
+                 {"prefill": proc_runs["prefill"]}]
                 + [r["launches_by_path"] for r in chunk_res["runs"].values()]
                 + wq_runs + tier_runs + lora_runs)
     runs = {_variant_of(serve_res["launches_by_variant"]): {
@@ -6423,7 +6903,8 @@ def main() -> int:
     for variant, launches in llama_serve[
             "launches_by_variant_and_path"].items():
         by_line[(variant, "llama_gqa4")] = launches
-    by_line[("f32", "fleet_s4")] = {"decode": fleet_runs["decode"]}
+    by_line[("f32", "fleet_s4")] = {"decode": fleet_runs["decode"]
+                                    + proc_runs["decode"]}
     for (variant, tag), launches in by_line.items():
         for path in PAGED_SYMBOLS:
             rows = [r for r in paged_rows if r["line"] == tag

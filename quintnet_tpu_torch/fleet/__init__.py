@@ -2,10 +2,11 @@
 request migration.
 
 One :class:`~quintnet_tpu_torch.serve.engine.ServeEngine` is a single
-continuous-batching process; this package runs N of them on worker
-threads behind one submit/stream API and makes the resulting fleet
-operable under the two things production traffic guarantees — bursts
-and failures:
+continuous-batching process; this package runs N of them behind one
+submit/stream API — on worker threads (:class:`ServeFleet`) or as
+replica processes (:class:`ProcessFleet`) — and makes the resulting
+fleet operable under the two things production traffic guarantees —
+bursts and failures:
 
 - :mod:`router`    — least-outstanding-work routing (token-count load
   proxy) or deterministic round_robin, with an adapter-affinity
@@ -22,24 +23,35 @@ and failures:
   dispatcher, **exact migration** (a killed replica's in-flight
   requests resume on healthy replicas token-identically, via the same
   prompt+generated+seed resume contract the engine's preemption path
-  already guarantees), graceful drain, fleet metrics.
+  already guarantees), graceful drain, fleet metrics;
+- :mod:`wire`      — versioned, length-prefixed JSON frames, the typed
+  errors, and the checksummed KV-chain frames (byte-equal to JAX's);
+- :mod:`proc`      — :class:`ProcessFleet`: spawned replica processes
+  (:func:`replica_main`, :class:`ProcReplica`) with heartbeats, the
+  write-ahead token journal and crash-safe migration, breaker-gated
+  backoff restarts, and disaggregated prefill/decode pools
+  (``pools=``, :data:`POOLS`) with the KV handoff;
+- :mod:`frontdoor` — :class:`FrontDoor`, the HTTP/SSE server in front
+  of either fleet (429/503 + Retry-After, 504, 400; ``/healthz``,
+  ``/metrics``).
 
-Port of the thread fleet of ``quintnet_tpu/fleet/``. The process
-fleet, its wire protocol, the HTTP front door and disaggregated pools
-(``proc.py``, ``wire.py``, ``frontdoor.py``) are not ported yet
-(ROADMAP.md, §1, item 8b); neither are ``ServeFleet(lock_audit=True)``
-and ``ServeFleet.assert_compile_count``, which rest on the static
-checks (ROADMAP.md, §1, item 9).
+Port of ``quintnet_tpu/fleet/``. ``ServeFleet(lock_audit=True)``,
+``ProcessFleet(lock_audit=True)`` and both fleets'
+``assert_compile_count`` rest on the static checks and are not ported
+yet (ROADMAP.md, §1, item 9).
 """
 
 from quintnet_tpu_torch.fleet.admission import AdmissionQueue, Overloaded
 from quintnet_tpu_torch.fleet.fleet import (FleetMetrics, FleetRequest,
                                             ServeFleet)
+from quintnet_tpu_torch.fleet.frontdoor import FrontDoor
 from quintnet_tpu_torch.fleet.health import (CLOSED, DEAD, HALF_OPEN,
                                              HEALTHY, OPEN, STALLED,
                                              STARTING, STOPPED, Backoff,
                                              CircuitBreaker,
                                              HeartbeatMonitor)
+from quintnet_tpu_torch.fleet.proc import (POOLS, ProcessFleet,
+                                           ProcReplica, replica_main)
 from quintnet_tpu_torch.fleet.replica import Replica
 from quintnet_tpu_torch.fleet.retry import RetryPolicy
 from quintnet_tpu_torch.fleet.router import (ANY_POOL, POLICIES, Router,
@@ -51,15 +63,20 @@ __all__ = [
     "CircuitBreaker",
     "FleetMetrics",
     "FleetRequest",
+    "FrontDoor",
     "HeartbeatMonitor",
     "Overloaded",
     "ANY_POOL",
     "POLICIES",
+    "POOLS",
+    "ProcReplica",
+    "ProcessFleet",
     "Replica",
     "RetryPolicy",
     "Router",
     "ServeFleet",
     "eligible",
+    "replica_main",
     "HEALTHY",
     "DEAD",
     "STOPPED",

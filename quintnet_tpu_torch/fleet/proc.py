@@ -1,0 +1,2350 @@
+"""Process-isolated fleet: each ServeEngine replica is its own OS
+process, and the dispatcher survives any of them dying at any
+instruction.
+
+Port of ``quintnet_tpu/fleet/proc.py``. The thread fleet
+(fleet/fleet.py) proves the MIGRATION math — exact resume from
+``prompt + committed tokens + seed`` — but its replicas share one
+address space (and one interpreter lock): a real SIGKILL, OOM kill, or
+wedged runtime takes out the dispatcher with them. This module promotes
+replicas to crash domains:
+
+- **process replicas** — :func:`replica_main` runs one engine per
+  spawned process (each with its own CUDA context on the card),
+  speaking a small length-prefixed JSON protocol (fleet/wire.py) over a
+  localhost TCP socket: submit, token stream, pause/resume, export,
+  stats, warmup, arm-chaos, stop, heartbeat. JSON + sockets, not
+  pickles + shared memory: a replica can corrupt only itself.
+- **write-ahead token journal** — the dispatcher records every
+  streamed token in :attr:`FleetRequest.committed` BEFORE the client
+  callback sees it. The port's sampling chain draws committed token i
+  from ``(seed, i)`` alone (``models/gpt2_generate.sample_logits``), so
+  ``prompt + journal + seed`` IS the dead replica's
+  :class:`RequestProgress` — migration needs no cooperation from the
+  corpse. Tokens the victim committed but never flushed are simply
+  regenerated (same chain, same tokens), so the client stream stays
+  token-identical with ``is_last`` delivered exactly once.
+- **supervision** — heartbeats from a dedicated child thread (they
+  keep beating through a first step that loads cuBLAS and the kernel
+  library); a replica whose beat age exceeds ``heartbeat_budget_s`` is
+  declared STALLED (distinct from death: its socket is still open),
+  routed around, its work migrated, and the zombie SIGKILLed. Restarts
+  are gated by the same :class:`CircuitBreaker` the thread fleet uses,
+  spaced by jittered exponential
+  :class:`~quintnet_tpu_torch.fleet.health.Backoff`.
+
+Degradation order under trouble is explicit and monotone: shed new
+work (typed ``Overloaded`` at the bounded queue) → pause admissions →
+drain → migrate. The HTTP front door (fleet/frontdoor.py) maps the
+first rung onto 429/503 + Retry-After.
+
+Engine factories cross the process boundary as a picklable SPEC —
+``{"file": "/abs/builder.py", "func": "build_engine", "kwargs":
+{...}}`` (or ``"module": "pkg.mod"``) — never as closures: the spawned
+child imports the builder and constructs its own engine, which is also
+what guarantees every replica is built from the same (family, params)
+the migration contract requires. Children are started with the
+``spawn`` method: a process that holds a CUDA context is never forked.
+
+Differences from JAX's module: ``device=`` replaces ``platform=``
+(default ``"cuda"``; a child asked for CUDA where there is none raises
+before its hello, it never carries on on the CPU); ``submit(seed=)``
+replaces ``key=`` (default: the fid); the ``stats`` reply carries the
+child's K4 launch counters by path and variant where JAX's carries
+compile counts; ``lock_audit=True`` and :meth:`ProcessFleet.
+assert_compile_count` raise ``NotImplementedError`` (ROADMAP.md, §1,
+item 9).
+"""
+
+from __future__ import annotations
+
+import os
+import socket
+import sys
+import threading
+import time
+import uuid
+from typing import Callable, Dict, List, Optional, Sequence
+
+import numpy as np
+
+from quintnet_tpu_torch.fleet import wire
+from quintnet_tpu_torch.fleet.admission import AdmissionQueue, Overloaded
+from quintnet_tpu_torch.fleet.fleet import (_ITEM_9, FleetMetrics,
+                                            FleetRequest)
+from quintnet_tpu_torch.fleet.health import (CLOSED, DEAD, HEALTHY,
+                                             STALLED, STARTING, STOPPED,
+                                             Backoff, CircuitBreaker,
+                                             HeartbeatMonitor)
+from quintnet_tpu_torch.fleet.retry import RetryPolicy
+from quintnet_tpu_torch.fleet.router import ANY_POOL, Router
+from quintnet_tpu_torch.fleet.router import eligible as router_eligible
+
+# the two serving regimes a disaggregated fleet splits apart
+# (DistServe/Splitwise): prefill is compute-bound and bursty, decode
+# memory-bound and steady — see PAPERS.md and docs/serving.md
+POOLS = ("prefill", "decode")
+
+
+# ---------------------------------------------------------------------------
+# the child: one engine, one process
+# ---------------------------------------------------------------------------
+
+
+def _load_builder(spec: Dict) -> Callable:
+    """Resolve an engine-builder spec in THIS process. ``file`` loads a
+    module by path (tests and tools need no installable package);
+    ``module`` imports by dotted name."""
+    func = spec["func"]
+    if "file" in spec:
+        import importlib.util
+
+        s = importlib.util.spec_from_file_location(
+            "_qt_engine_builder", spec["file"])
+        mod = importlib.util.module_from_spec(s)
+        s.loader.exec_module(mod)
+    elif "module" in spec:
+        import importlib
+
+        mod = importlib.import_module(spec["module"])
+    else:
+        raise ValueError(
+            f"engine spec needs 'file' or 'module', got {sorted(spec)}")
+    return getattr(mod, func)
+
+
+def replica_main(name: str, host: str, port: int, token: str,
+                 engine_spec: Dict, *, heartbeat_s: float = 0.1,
+                 chaos_spec: Optional[Dict] = None,
+                 device: str = "cuda",
+                 poll_s: float = 0.005, obs: bool = False,
+                 ring_capacity: int = 512) -> None:
+    """Entry point of a replica process (multiprocessing 'spawn'
+    target). Builds the engine from ``engine_spec`` on ``device`` (the
+    builder is called with ``device=`` unless the spec's kwargs name
+    one), connects back to the dispatcher at ``(host, port)``,
+    identifies itself with ``token`` in its hello (so concurrent
+    restarts cannot cross-wire), then serves frames until told to stop
+    — or until chaos/a real fault kills it, which is the point of being
+    a process. A child asked for CUDA where there is none raises before
+    its hello: it never serves from the CPU instead."""
+    import queue as _queue
+
+    import torch
+
+    from quintnet_tpu_torch.ft.chaos import CHAOS_KILL_EXIT_CODE, ChaosMonkey
+    from quintnet_tpu_torch.ops.paged_attention import paged_attention
+
+    kwargs = dict(engine_spec.get("kwargs", {}))
+    kwargs.setdefault("device", device)
+    if (torch.device(kwargs["device"]).type == "cuda"
+            and not torch.cuda.is_available()):
+        raise RuntimeError(
+            f"replica {name}: device {kwargs['device']!r} asked for, but "
+            f"this process sees no CUDA device")
+    engine = _load_builder(engine_spec)(**kwargs)
+    if engine.device.type != torch.device(kwargs["device"]).type:
+        raise RuntimeError(
+            f"replica {name}: the builder made an engine on "
+            f"{engine.device}, not on {kwargs['device']!r}")
+
+    def k4_counts() -> Dict:
+        """K4's launches in this process, by path and by variant (the
+        parent's only view of kernel launches in its replicas)."""
+        with paged_attention.count_lock:
+            return {"launches": int(paged_attention.launches),
+                    "by_path": dict(paged_attention.launches_by_path),
+                    "by_variant": dict(
+                        paged_attention.launches_by_variant)}
+
+    def zero_k4() -> None:
+        with paged_attention.count_lock:
+            paged_attention.launches = 0
+            for by in (paged_attention.launches_by_variant,
+                       paged_attention.launches_by_path,
+                       paged_attention.launches_by_thread):
+                by.clear()
+    if obs:
+        # flight recorder + tracer attached AFTER the builder ran (the
+        # spec is user code that predates obs); both are inert — the
+        # ring's fresh records piggyback on heartbeat frames so the
+        # dispatcher's mirror is this replica's black box when a
+        # SIGKILL leaves no one to ask (obs/)
+        from quintnet_tpu_torch.obs import StepRecorder, Tracer
+
+        if engine.recorder is None:
+            engine.recorder = StepRecorder(capacity=ring_capacity,
+                                           clock=engine.clock)
+        if engine.tracer is None:
+            engine.tracer = Tracer(clock=engine.clock)
+    chaos = ChaosMonkey(**chaos_spec) if chaos_spec else None
+
+    sock = socket.create_connection((host, port), timeout=30.0)
+    sock.settimeout(None)
+    send_lock = threading.Lock()
+    stop_ev = threading.Event()
+
+    def send(frame: Dict) -> None:
+        with send_lock:
+            wire.send_frame(sock, frame)
+
+    send({"t": "hello", "name": name, "token": token,
+          "pid": os.getpid(), "limits": engine.limits(),
+          "v": wire.WIRE_VERSION})
+
+    cmds: "_queue.Queue" = _queue.Queue()
+
+    def reader() -> None:
+        try:
+            while True:
+                cmds.put(wire.recv_frame(sock, peer="dispatcher"))
+        except (wire.ConnectionClosed, wire.WireError, OSError):
+            cmds.put(None)      # dispatcher went away -> shut down
+
+    def heartbeat() -> None:
+        # a dedicated thread so heartbeats keep flowing through long
+        # engine.step() calls (a first step loads cuBLAS and K4);
+        # only a genuine wedge — or the stall injector — silences them.
+        # Fresh flight-recorder records ride along: the dispatcher's
+        # ring mirror stays as current as the last beat, which is what
+        # "last-known" means when this process is later SIGKILLed.
+        while not stop_ev.wait(heartbeat_s):
+            if chaos is not None and chaos.stalled:
+                continue
+            frame = {"t": "hb", "steps": steps[0]}
+            if engine.recorder is not None:
+                recs = engine.recorder.drain_new()
+                if recs:
+                    frame["rec"] = recs
+            try:
+                send(frame)
+            except OSError:
+                return
+
+    steps = [0]
+    rid2fid: Dict[int, int] = {}
+    paused = False
+    threading.Thread(target=reader, daemon=True,
+                     name=f"{name}-reader").start()
+    threading.Thread(target=heartbeat, daemon=True,
+                     name=f"{name}-hb").start()
+
+    def deliver(rid: int, tok: int, last: bool) -> None:
+        send({"t": "tok", "fid": rid2fid[rid], "tok": int(tok),
+              "last": bool(last)})
+
+    def handle(cmd: Dict) -> bool:
+        nonlocal paused, chaos
+        t = cmd["t"]
+        if t == "submit":
+            fid = cmd["fid"]
+            try:
+                prog = wire.progress_from_wire(cmd["progress"])
+                rid = engine.restore_progress(
+                    prog, on_token=deliver,
+                    prefill_only=bool(cmd.get("prefill_only", False)))
+                # registered BEFORE any token can flow: restore only
+                # queues — tokens appear at the next step()
+                rid2fid[rid] = fid
+            except (ValueError, KeyError, wire.WireError) as e:
+                send({"t": "reject", "fid": fid,
+                      "error": wire.error_to_wire(e)})
+        elif t == "kv_export":
+            # the disaggregated handoff, sending side: ship the
+            # published chain for a prefix as a checksummed KV frame.
+            # Chaos hooks HERE model the transfer's failure modes:
+            # 'kill' = the exporter vanishes mid-transfer, 'corrupt' =
+            # the frame is damaged AFTER its checksum (the importer
+            # must catch it), 'stall' = the reply outwaits the
+            # dispatcher's handoff timeout. 'corrupt' fires separately
+            # below, only once a frame actually exists to damage —
+            # a declined transfer must not consume the arming.
+            fault = (chaos.fire_handoff(kinds=("kill", "stall"))
+                     if chaos is not None else None)
+            if fault == "kill":
+                os._exit(CHAOS_KILL_EXIT_CODE)
+            tokens = np.asarray(cmd.get("tokens", []), np.int32)
+            chain = engine.export_kv_chain(
+                tokens, namespace=cmd.get("namespace"),
+                trace_id=cmd.get("trace_id"))
+            kv, reason = None, None
+            if chain is None:
+                reason = ("prefill replica no longer holds the chain "
+                          "(evicted before the transfer, or the "
+                          "prefix cache is off)")
+            else:
+                kv = wire.kv_chain_to_wire(chain,
+                                           namespace=cmd.get("namespace"))
+                if not wire.kv_chain_fits(kv):
+                    # shipping it would trip the receiver's frame
+                    # guard and read as a DEAD connection — decline
+                    # instead, so the dispatcher takes the documented
+                    # local-re-prefill fallback on a healthy fleet
+                    reason = (f"chain frame (~{wire.kv_chain_wire_size(kv)}"
+                              f" bytes) exceeds MAX_FRAME_BYTES "
+                              f"({wire.MAX_FRAME_BYTES}) — decode "
+                              f"replica re-prefills locally")
+                    kv = None
+                elif (chaos is not None
+                      and chaos.fire_handoff(kinds=("corrupt",))):
+                    b64 = kv["blocks"][0]["k"]["b64"]
+                    kv["blocks"][0]["k"]["b64"] = (
+                        ("A" if b64[:1] != "A" else "B") + b64[1:])
+            if fault == "stall":
+                time.sleep(chaos.handoff_stall_s)
+            send({"t": "kv", "id": cmd["id"], "kv": kv,
+                  "reason": reason})
+        elif t == "kv_peek":
+            # tier peer lookup, probe side: how many token positions
+            # this replica could serve warm (device chain + host-tier
+            # extension) for a prefix. Read-only and cheap — no data
+            # moves, nothing pins — so the dispatcher can fan it out
+            # to every replica before choosing whom to kv_export from.
+            tokens = np.asarray(cmd.get("tokens", []), np.int32)
+            send({"t": "kv_n", "id": cmd["id"],
+                  "n_tokens": int(engine.peek_kv_chain(
+                      tokens, namespace=cmd.get("namespace")))})
+        elif t == "kv_import":
+            # receiving side: verify the checksum, admit the chain as
+            # a warm prefix hit. A corrupt/mismatched frame is a TYPED
+            # error reply — the dispatcher retries or falls back to
+            # local re-prefill; this replica never caches wrong KV.
+            # Only kill/stall are injectable here ('corrupt' is an
+            # export-side fault: this handler never builds a frame, so
+            # firing it would consume the arming without injecting).
+            fault = (chaos.fire_handoff(kinds=("kill", "stall"))
+                     if chaos is not None else None)
+            if fault == "kill":
+                os._exit(CHAOS_KILL_EXIT_CODE)
+            if fault == "stall":
+                # the receiving socket goes quiet past the handoff
+                # timeout (heartbeats keep flowing from their own
+                # thread — this is a TRANSFER stall, not a replica
+                # stall, and must be handled by the retry policy, not
+                # the stall detector)
+                time.sleep(chaos.handoff_stall_s)
+            try:
+                chain, ns = wire.kv_chain_from_wire(cmd["kv"])
+                n = engine.import_kv_chain(
+                    chain, namespace=ns, trace_id=cmd.get("trace_id"))
+                send({"t": "kv_ok", "id": cmd["id"],
+                      "imported": int(n)})
+            except (ValueError, KeyError, wire.WireError) as e:
+                send({"t": "kv_ok", "id": cmd["id"], "imported": 0,
+                      "error": wire.error_to_wire(e)})
+        elif t == "pause":
+            paused = True
+        elif t == "resume":
+            paused = False
+        elif t == "export":
+            send({"t": "export", "id": cmd["id"],
+                  "progress": [wire.progress_to_wire(p)
+                               for p in engine.export_progress()]})
+        elif t == "stats":
+            send({"t": "stats", "id": cmd["id"], "steps": steps[0],
+                  "k4": k4_counts(),
+                  "metrics": engine.metrics.summary(),
+                  "admitted": engine.metrics.admitted,
+                  "decode_steps": engine.metrics.decode_steps})
+        elif t == "trace":
+            # the replica's span log (obs/trace.py), optionally
+            # restricted to specific trace ids — how the dispatcher
+            # shows a migrated request's spans CONTINUING on the
+            # destination replica under the same id
+            ids = cmd.get("trace_ids")
+            send({"t": "trace", "id": cmd["id"],
+                  "traces": (engine.tracer.snapshot(ids)
+                             if engine.tracer is not None else {}),
+                  "ring": (engine.recorder.snapshot()
+                           if engine.recorder is not None else [])})
+        elif t == "warmup":
+            engine.warmup()
+            send({"t": "ack", "id": cmd["id"]})
+        elif t == "reset":
+            # the counters and the ledger restart together, so K4's
+            # launches stay n_layer x (decode steps + prefills)
+            engine.metrics = type(engine.metrics)(clock=engine.clock)
+            steps[0] = 0
+            zero_k4()
+            send({"t": "ack", "id": cmd["id"]})
+        elif t == "arm_chaos":
+            chaos = ChaosMonkey(**cmd["spec"])
+            send({"t": "ack", "id": cmd["id"]})
+        elif t == "stop":
+            return False
+        return True
+
+    hung_up = False
+    try:
+        running = True
+        while running:
+            # block on the inbox only when idle — a busy engine steps
+            # back-to-back and just peeks for commands between steps
+            idle = (paused or not engine.has_work
+                    or (chaos is not None and chaos.stalled))
+            try:
+                cmd = (cmds.get(timeout=poll_s) if idle
+                       else cmds.get_nowait())
+            except _queue.Empty:
+                cmd = False
+            if cmd is None:
+                hung_up = True      # dispatcher hung up
+                break
+            if cmd is not False:
+                running = handle(cmd)
+                continue            # drain all pending commands first
+            if chaos is not None and chaos.stalled:
+                continue            # wedged: alive, silent, useless
+            if paused or not engine.has_work:
+                continue
+            finished = engine.step()
+            steps[0] += 1
+            for rid in finished:
+                fid = rid2fid.pop(rid)
+                req = engine.request(rid)
+                if req.error is not None:
+                    send({"t": "failed", "fid": fid,
+                          "error": wire.error_to_wire(req.error)})
+                elif req.handed_off:
+                    # prefill-phase retirement (disaggregated fleet):
+                    # the first token streamed with its real last
+                    # flag, the blocks are published — tell the
+                    # dispatcher this is a HANDOFF, not a completion
+                    send({"t": "fin", "fid": fid, "handoff": True})
+                else:
+                    send({"t": "fin", "fid": fid})
+            if chaos is not None:
+                chaos.on_step_end(steps[0])
+        if not hung_up:
+            send({"t": "bye"})
+    except Exception as e:  # noqa: BLE001 — cooperative death export
+        # a mode='raise' chaos kill or a real engine fault: export
+        # best-effort (the dispatcher's journal makes this OPTIONAL —
+        # it reconstructs the same payloads if this frame never lands)
+        try:
+            send({"t": "death", "error": wire.error_to_wire(e),
+                  "progress": [wire.progress_to_wire(p)
+                               for p in engine.export_progress()]})
+        except Exception:   # noqa: BLE001
+            pass
+        os._exit(1)
+    finally:
+        stop_ev.set()
+        try:
+            sock.close()
+        except OSError:
+            pass
+    # a clean stop leaves without interpreter teardown: the daemon reader
+    # and heartbeat threads may still be waking from their socket calls,
+    # and teardown racing them aborted the process (SIGABRT) after its
+    # work was done, instead of exiting 0
+    sys.stdout.flush()
+    sys.stderr.flush()
+    os._exit(0)
+
+
+# ---------------------------------------------------------------------------
+# the parent: one socket + one supervisor record per replica
+# ---------------------------------------------------------------------------
+
+
+class ProcReplica:
+    """Dispatcher-side handle for one replica process: the spawn
+    record, the socket (once the hello lands), the reader thread, and
+    the routing counters the fleet lock owns. Exposes the same
+    candidate surface the thread :class:`Replica` does
+    (``state``/``paused``/``in_flight``/``max_dispatch``/
+    ``outstanding_tokens``/``adapter_resident``) so
+    :func:`router.eligible` and the :class:`Router` policies apply
+    unchanged."""
+
+    def __init__(self, name: str, fleet: "ProcessFleet",
+                 chaos_spec: Optional[Dict], *,
+                 pool: str = ANY_POOL):
+        self.name = name
+        self.fleet = fleet
+        self.chaos_spec = chaos_spec
+        self.token = uuid.uuid4().hex
+        # which serving pool this replica belongs to: "prefill" /
+        # "decode" for a disaggregated fleet, "any" (serves every
+        # phase) for colocated ones — router.eligible filters on it
+        self.pool = pool
+        self.state = STARTING
+        self.paused = False
+        self.in_flight = 0
+        self.outstanding_tokens = 0
+        self.max_dispatch = fleet._max_dispatch or 0  # sized at hello
+        self.steps = 0
+        self.pid: Optional[int] = None
+        self.limits: Optional[Dict] = None
+        self.sock: Optional[socket.socket] = None
+        self.hb = HeartbeatMonitor(fleet.heartbeat_budget_s,
+                                   clock=fleet.clock)
+        self.spawned_at = fleet.clock()
+        self.restart_at: Optional[float] = None   # set on death/stall
+        self.migrated = False     # this incarnation's work already moved
+        self.error: Optional[BaseException] = None
+        # the dispatcher-side flight-recorder MIRROR: step records the
+        # child piggybacked on its heartbeats (obs/recorder.py). When
+        # the child is SIGKILLed this is its last-known ring — the
+        # crash dump's black box, no cooperation from the corpse.
+        # Its own lock, NOT the fleet lock: the reader thread appends
+        # on every heartbeat while the dispatcher snapshots at death —
+        # iterating a deque another thread is appending to raises
+        # RuntimeError, so both sides go through the lock below.
+        from collections import deque
+
+        self.ring = deque(maxlen=fleet._ring_capacity)
+        self._ring_lock = threading.Lock()
+        self._fid2freq: Dict[int, FleetRequest] = {}
+        # adapters this incarnation has been sent (affinity heuristic:
+        # the child's registry loaded them on first use; its own LRU
+        # may have evicted — affinity is a preference, never a promise)
+        self._adapters_seen: set = set()
+        self._send_lock = threading.Lock()
+        self._pending: Dict[int, tuple] = {}
+        self._rpc_counter = 0
+
+        import multiprocessing as mp
+
+        ctx = mp.get_context("spawn")
+        self.proc = ctx.Process(
+            target=replica_main,
+            args=(name, *fleet._address, self.token, fleet.engine_spec),
+            kwargs={"heartbeat_s": fleet.heartbeat_s,
+                    "chaos_spec": chaos_spec,
+                    "device": fleet.device,
+                    "obs": fleet._obs,
+                    "ring_capacity": fleet._ring_capacity},
+            name=f"fleet-{name}", daemon=True)
+        self.proc.start()
+
+    # ---- wire ---------------------------------------------------------
+    def send(self, frame: Dict) -> None:
+        if self.sock is None:
+            raise OSError(f"replica {self.name} has no connection")
+        with self._send_lock:
+            wire.send_frame(self.sock, frame)
+
+    def rpc(self, frame: Dict, *, timeout: float = 60.0) -> Dict:
+        """Request/response over the frame stream (stats, export,
+        warmup, reset, arm_chaos). The reader thread completes it; a
+        connection loss aborts every outstanding RPC immediately
+        instead of letting callers sit out their full timeout against
+        a corpse."""
+        if self.sock is None:
+            raise OSError(f"replica {self.name} has no connection "
+                          f"(state={self.state})")
+        ev = threading.Event()
+        slot: Dict = {}
+        with self._send_lock:
+            self._rpc_counter += 1
+            rid = self._rpc_counter
+            self._pending[rid] = (ev, slot)
+            frame = dict(frame, id=rid)
+            wire.send_frame(self.sock, frame)
+        if not ev.wait(timeout):
+            with self._send_lock:
+                self._pending.pop(rid, None)
+            raise TimeoutError(
+                f"replica {self.name}: no reply to {frame['t']!r} "
+                f"within {timeout}s (state={self.state})")
+        if "frame" not in slot:
+            raise OSError(
+                f"replica {self.name}: connection lost before the "
+                f"{frame['t']!r} reply")
+        return slot["frame"]
+
+    def _abort_pending(self) -> None:
+        """Wake every in-flight RPC with no reply (connection gone)."""
+        with self._send_lock:
+            pending, self._pending = self._pending, {}
+        for ev, _slot in pending.values():
+            ev.set()
+
+    def ring_extend(self, recs) -> None:
+        with self._ring_lock:
+            self.ring.extend(recs)
+
+    def ring_snapshot(self) -> List[Dict]:
+        with self._ring_lock:
+            return list(self.ring)
+
+    def adapter_resident(self, adapter_id: str) -> bool:
+        return adapter_id in self._adapters_seen
+
+    def unfinished(self) -> List[FleetRequest]:
+        return list(self._fid2freq.values())
+
+    def kill(self) -> None:
+        """SIGKILL the child — no cleanup, no cooperation; the journal
+        migration path owes it nothing. Goes through the Process
+        handle, NOT the hello-reported pid: a replica hung while still
+        STARTING (engine build wedged, hello never sent) has no pid
+        yet but must be killable all the same."""
+        try:
+            if self.proc.is_alive():
+                self.proc.kill()
+        except (OSError, ProcessLookupError, ValueError):
+            pass
+
+    # ---- reader -------------------------------------------------------
+    def attach(self, sock: socket.socket, hello: Dict) -> None:
+        """Complete the handshake (fleet lock held by the caller)."""
+        import struct as _struct
+
+        # sends time out at the SOCKET level (SO_SNDTIMEO hits send()
+        # only — the reader thread's blocking recv is untouched): a
+        # replica so wedged it stops draining its socket must fail the
+        # dispatcher's send with OSError (-> death + migration), never
+        # block it inside the fleet lock, where a stuck sendall would
+        # freeze dispatch, stall detection and result delivery alike
+        sock.setsockopt(socket.SOL_SOCKET, socket.SO_SNDTIMEO,
+                        _struct.pack("ll", 10, 0))
+        self.sock = sock
+        self.pid = hello.get("pid")
+        self.limits = hello.get("limits")
+        if not self.max_dispatch:
+            self.max_dispatch = 2 * int(self.limits["max_slots"])
+        self.hb.beat()
+        self.state = HEALTHY
+        threading.Thread(target=self._read_loop, daemon=True,
+                         name=f"fleet-{self.name}-reader").start()
+
+    def _read_loop(self) -> None:
+        # WireError (corrupt length prefix, flipped-bit JSON, a frame
+        # truncated mid-body) is caught EXACTLY like ConnectionClosed/
+        # OSError below: a replica whose stream desynchronized is a
+        # dead replica — its work migrates off the journal — never a
+        # dispatcher crash (a replica can corrupt only itself)
+        try:
+            while True:
+                frame = wire.recv_frame(self.sock, peer=self.name)
+                rid = frame.get("id")
+                if rid is not None:
+                    # the pop shares _send_lock with rpc() registration
+                    # and _abort_pending's swap: a timeout-side pop and
+                    # this reply-side pop racing the swap must agree on
+                    # ONE dict (qtcheck-threads QT202 caught the bare
+                    # read here)
+                    with self._send_lock:
+                        pend = self._pending.pop(rid, None)
+                    if pend is not None:
+                        pend[1]["frame"] = frame
+                        pend[0].set()
+                    continue
+                self.fleet._on_frame(self, frame)
+        except (wire.ConnectionClosed, wire.WireError, OSError):
+            pass
+        # EOF only after every buffered frame was processed — the
+        # journal is as complete as the kernel's view of the stream
+        self._abort_pending()
+        self.fleet._on_conn_lost(self)
+
+
+class ProcessFleet:
+    """N replica PROCESSES behind one submit/stream API — the
+    :class:`~quintnet_tpu_torch.fleet.fleet.ServeFleet` surface with real
+    crash domains. See the module docstring for the design; the
+    operational deltas vs the thread fleet:
+
+    - replicas are spawned from ``engine_spec`` (picklable builder
+      spec), handshake over localhost TCP, and are dispatch candidates
+      only after their hello (state STARTING until then);
+    - migration is journal-driven: a SIGKILL'd or stalled replica's
+      in-flight requests are reconstructed from the dispatcher's
+      write-ahead token journal and resumed elsewhere,
+      token-identically, without any cooperation from the victim;
+    - a stalled replica (heartbeat age > ``heartbeat_budget_s``) is
+      routed around within the budget, its work migrated, the zombie
+      SIGKILLed — the breaker records it exactly like a death, but
+      ``metrics.stalls`` counts it separately;
+    - restarts are breaker-gated AND backoff-spaced (jittered
+      exponential, :class:`~quintnet_tpu_torch.fleet.health.Backoff`);
+    - dispatch-side connection failure = death: the send's requests
+      (and everything in flight there) re-queue at the front and the
+      next healthy replica takes them — the retry-with-backoff story
+      for replica connection failures;
+    - ``pools={"prefill": P, "decode": D}`` DISAGGREGATES the fleet
+      (DistServe/Splitwise): prefill replicas run a prompt's prefill
+      and commit the first token (``prefill_only`` dispatch), the KV
+      chain ships to a decode replica as a checksummed wire frame
+      (``fleet/wire.kv_chain_to_wire``), and the decode replica
+      admits it as a warm prefix hit — the continuation is the
+      PROVEN journal-resume path, so disaggregated output is
+      token-identical to colocated. The handoff retries under a
+      jittered :class:`~quintnet_tpu_torch.fleet.retry.RetryPolicy` and
+      falls back to local re-prefill on exhaustion; pool loss
+      degrades along an explicit ladder (prefill down -> decode
+      absorbs prefill work; decode down -> requeue behind the
+      breaker-gated restart, then shed typed
+      ``Overloaded('pool_down')`` once every breaker is tripped);
+    - ``device`` (default ``"cuda"``) is where every child builds its
+      engine (the builder gets ``device=``); ``"cpu"`` only when the
+      caller asks, as the tests do. Several children on one card each
+      open their own CUDA context there.
+    """
+
+    def __init__(self, engine_spec: Dict, *, n_replicas: int = 2,
+                 pools: Optional[Dict[str, int]] = None,
+                 policy: str = "least_work", max_pending: int = 64,
+                 max_dispatch: Optional[int] = None,
+                 trip_after: int = 3, breaker_reset_s: float = 30.0,
+                 heartbeat_s: float = 0.1,
+                 heartbeat_budget_s: Optional[float] = None,
+                 backoff: Optional[Backoff] = None,
+                 handoff_retry: Optional[RetryPolicy] = None,
+                 handoff_timeout_s: float = 60.0,
+                 tier_peer_lookup: Optional[bool] = None,
+                 chaos: Optional[Sequence[Dict]] = None,
+                 device: str = "cuda",
+                 clock: Callable[[], float] = time.monotonic,
+                 name_prefix: str = "p", poll_s: float = 0.02,
+                 spawn_timeout_s: float = 300.0,
+                 obs: bool = False, crash_dir: Optional[str] = None,
+                 ring_capacity: int = 512,
+                 slo=None, planner: Optional[Dict] = None,
+                 lock_audit: bool = False):
+        # disaggregated prefill/decode pools (DistServe/Splitwise):
+        # ``pools={"prefill": P, "decode": D}`` splits the replicas
+        # onto dedicated pools — prefill replicas run a prompt's
+        # prefill, commit the first token, then ship the KV chain to a
+        # decode replica over a checksummed wire frame; pools=None is
+        # the colocated fleet, byte-identical to the pre-pool surface
+        if pools is not None:
+            if set(pools) != set(POOLS):
+                unknown = sorted(set(pools) - set(POOLS))
+                missing = sorted(set(POOLS) - set(pools))
+                detail = "; ".join(
+                    [f"unknown: {unknown}"] * bool(unknown)
+                    + [f"missing: {missing}"] * bool(missing))
+                raise ValueError(
+                    f"pools must name exactly {POOLS}, got "
+                    f"{sorted(pools)} ({detail})")
+            if any(int(n) < 1 for n in pools.values()):
+                raise ValueError(
+                    f"each pool needs >= 1 replica, got {pools} — a "
+                    f"pool born empty has no degradation ladder to "
+                    f"climb, it just never serves")
+            n_replicas = sum(int(n) for n in pools.values())
+        if n_replicas < 1:
+            raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
+        self._disagg = pools is not None
+        self._pools_spec = None if pools is None else {
+            k: int(v) for k, v in pools.items()}
+        # KV-handoff fault tolerance: bounded jittered-exponential
+        # retries on the transfer, then fall back to local re-prefill
+        # on the decode replica (correct because the chain is cache)
+        self._handoff_retry = handoff_retry or RetryPolicy(
+            base_s=0.05, cap_s=1.0, jitter=0.25, max_attempts=3)
+        self._handoff_timeout_s = float(handoff_timeout_s)
+        # tiered-KV peer lookup (serve/kv_tier.py): before a fresh
+        # dispatch, probe every replica's combined device+host chain
+        # for the prompt (kv_peek) and ship the best peer's chain into
+        # the target (kv_export -> kv_import) when it beats the
+        # target's own by >= 1 block — a host-hit on ANY replica beats
+        # a re-prefill. None = auto: on when the engines report a host
+        # tier in their limits AND the fleet has >= 2 replicas.
+        self._tier_peer_lookup = tier_peer_lookup
+        self._pool_down_seen: Dict[str, bool] = {}
+        self.engine_spec = dict(engine_spec)
+        # every replica's engine is built on this device (the builder is
+        # called with ``device=``); the CPU only when the caller asks
+        self.device = str(device)
+        self.clock = clock
+        # observability (obs/): ``obs=True`` arms a
+        # PARENT-side tracer (queue/dispatch/migration spans — child
+        # engines keep their own, fetched via the ``trace`` RPC or
+        # merged into crash dumps), the typed EventLog, and the
+        # heartbeat-mirrored per-replica flight-recorder ring that
+        # makes a SIGKILL'd child's last-known steps dumpable with
+        # zero cooperation from the corpse.
+        # the SLO engine + pool-pressure signal plane (obs/slo.py,
+        # obs/signals.py) need the heartbeat-mirrored rings and the
+        # typed event log, so ``slo=`` implies ``obs=True``
+        self._obs = bool(obs) or slo is not None
+        self.crash_dir = crash_dir
+        self._ring_capacity = int(ring_capacity)
+        # the lock-discipline runtime (JAX's analysis/lockrt.py)
+        if lock_audit:
+            raise NotImplementedError(
+                f"ProcessFleet(lock_audit=True) is not ported yet "
+                f"({_ITEM_9})")
+        self.tracer = None
+        self.events = None
+        self.slo = None            # obs.SLOEngine once armed
+        self.signals = None        # obs.SignalBus once armed
+        self.planner = None        # obs.PoolRebalancePlanner (disagg)
+        self._planner_kwargs = dict(planner or {})
+        self._signal_next_t = 0.0
+        if self._obs:
+            from quintnet_tpu_torch.obs import EventLog, Tracer
+
+            self.tracer = Tracer(clock=clock)
+            self.events = EventLog(clock=clock)
+        self.crash_dumps: List[str] = []
+        self.last_crash: Optional[Dict] = None
+        self._pending_dumps: List[Dict] = []  # snapshotted under the
+        #   lock at death; WRITTEN by the dispatcher outside it — a
+        #   disk write must never stall token delivery
+        self._breaker_seen: Dict[str, str] = {}
+        self.heartbeat_s = float(heartbeat_s)
+        # default budget: generous vs the beat period (the beat thread
+        # is immune to a long step, so 10 periods of silence means wedged,
+        # not busy), floored for scheduler-noise robustness
+        self.heartbeat_budget_s = float(
+            heartbeat_budget_s if heartbeat_budget_s is not None
+            else max(10 * heartbeat_s, 1.0))
+        self.backoff = backoff or Backoff()
+        self.metrics = FleetMetrics()
+        self._router = Router(policy)
+        self._cv = threading.Condition()
+        self._queue = AdmissionQueue(max_pending, clock=clock)
+        self.metrics._queue_probe = self._queue_gauges
+        if slo is not None:
+            self.arm_slo(slo, **self._planner_kwargs)
+        self._requests: Dict[int, FleetRequest] = {}
+        self._fid_counter = 0
+        self._open = 0
+        self._draining = False
+        self._closed = False
+        self._max_dispatch = max_dispatch
+        self._poll_s = poll_s
+        self._spawn_timeout_s = float(spawn_timeout_s)
+        self._tokens_delivered = 0   # running journal total: O(1)
+        #                              reads, survives replica deaths
+        # fleet-level limits, cached at the FIRST hello (all replicas
+        # share one spec): submit validation must keep working while
+        # every replica happens to be mid-restart — the thread fleet
+        # just queues in that window, and so must we
+        self._limits: Optional[Dict] = None
+
+        chaos_list = [] if chaos is None else (
+            list(chaos) if isinstance(chaos, (list, tuple)) else [chaos])
+        if self._disagg:
+            # pool-named replicas: prefill0.., decode0.. — chaos
+            # targets, breakers, events and /healthz all speak these
+            pool_of = {f"{pool}{i}": pool
+                       for pool in POOLS
+                       for i in range(self._pools_spec[pool])}
+            names = list(pool_of)
+        else:
+            names = [f"{name_prefix}{i}" for i in range(n_replicas)]
+            pool_of = {name: ANY_POOL for name in names}
+        by_target: Dict[str, Dict] = {}
+        for spec in chaos_list:
+            spec = dict(spec)
+            target = spec.pop("target", None) or names[0]
+            if target not in names:
+                raise ValueError(
+                    f"chaos target {target!r} names no replica "
+                    f"(have {names})")
+            by_target[target] = spec
+
+        self._breakers = {
+            name: CircuitBreaker(trip_after=trip_after,
+                                 reset_s=breaker_reset_s, clock=clock)
+            for name in names}
+
+        # the listener children dial back into; accept thread matches
+        # hello tokens to replicas so concurrent (re)spawns can't
+        # cross-wire
+        self._listener = socket.socket(socket.AF_INET,
+                                       socket.SOCK_STREAM)
+        self._listener.setsockopt(socket.SOL_SOCKET,
+                                  socket.SO_REUSEADDR, 1)
+        self._listener.bind(("127.0.0.1", 0))
+        self._listener.listen(16)
+        self._listener.settimeout(0.2)
+        self._address = self._listener.getsockname()
+        self._accept_thread = threading.Thread(
+            target=self._accept_loop, name="fleet-accept", daemon=True)
+        self._accept_thread.start()
+
+        self._replicas: List[ProcReplica] = [
+            ProcReplica(name, self, by_target.get(name),
+                        pool=pool_of[name])
+            for name in names]
+        self._await_hellos()
+
+        self._dispatcher = threading.Thread(
+            target=self._dispatch_loop, name="fleet-dispatch",
+            daemon=True)
+        self._dispatcher.start()
+
+    # ------------------------------------------------------------------
+    # handshake
+    # ------------------------------------------------------------------
+    def _accept_loop(self) -> None:
+        while True:
+            with self._cv:
+                if self._closed:
+                    return
+            try:
+                conn, _addr = self._listener.accept()
+            except socket.timeout:
+                continue
+            except OSError:
+                return
+            try:
+                conn.settimeout(30.0)
+                hello = wire.recv_frame(conn, peer="handshake")
+                conn.settimeout(None)
+                if hello.get("t") != "hello":
+                    conn.close()
+                    continue
+            except (wire.ConnectionClosed, wire.WireError, OSError):
+                conn.close()
+                continue
+            with self._cv:
+                rep = next((r for r in self._replicas
+                            if r.token == hello.get("token")
+                            and r.state == STARTING), None)
+                if rep is None or self._closed:
+                    conn.close()
+                    continue
+                rep.attach(conn, hello)
+                if self._limits is None:
+                    self._limits = rep.limits
+                self._cv.notify_all()
+
+    def _await_hellos(self) -> None:
+        deadline = self.clock() + self._spawn_timeout_s
+        with self._cv:
+            while True:
+                missing = [r.name for r in self._replicas
+                           if r.state == STARTING]
+                if not missing:
+                    if (self._disagg and self._limits is not None
+                            and not self._limits.get("prefix_cache",
+                                                     True)):
+                        # fail fast instead of silently burning the
+                        # handoff retry budget on EVERY request: the
+                        # KV handoff exports the PUBLISHED chain, and
+                        # a cache-off engine never publishes — every
+                        # transfer would fall back to local re-prefill
+                        self._closed = True
+                        for rep in self._replicas:
+                            rep.kill()
+                        try:
+                            self._listener.close()
+                        except OSError:
+                            pass
+                        raise ValueError(
+                            "disaggregated pools need "
+                            "prefix_cache=True engines: the "
+                            "prefill->decode KV handoff ships the "
+                            "published prefix chain, which a "
+                            "cache-off engine never produces — build "
+                            "the engine spec with prefix_cache=True "
+                            "or run colocated (pools=None)")
+                    return
+                dead = [r.name for r in self._replicas
+                        if r.state == STARTING and not r.proc.is_alive()]
+                if dead or self.clock() >= deadline:
+                    self._closed = True
+                    for rep in self._replicas:
+                        rep.kill()
+                    try:
+                        self._listener.close()
+                    except OSError:
+                        pass
+                    raise RuntimeError(
+                        f"replica process(es) failed to start: "
+                        f"{dead or missing} (exited early: {dead}; "
+                        f"spawn timeout {self._spawn_timeout_s}s) — "
+                        f"check the engine builder spec "
+                        f"{self.engine_spec.get('file') or self.engine_spec.get('module')}")
+                self._cv.wait(0.05)
+
+    def _emit(self, kind: str, **fields) -> None:
+        if self.events is not None:
+            self.events.emit(kind, **fields)
+
+    def _note_breaker(self, name: str) -> None:
+        """Typed event on a breaker state CHANGE (edge-detected here —
+        transitions are driven from failure/success/restart sites)."""
+        if self.events is None:
+            return
+        st = self._breakers[name].state
+        if self._breaker_seen.get(name, "closed") != st:
+            self._breaker_seen[name] = st
+            self.events.emit("breaker", replica=name, state=st)
+
+    @property
+    def limits(self) -> Dict:
+        """The shared engine limits (all replicas are built from one
+        spec; the first hello ever received speaks for the fleet —
+        cached, so submit keeps validating while every replica is
+        mid-restart). The constructor's hello barrier guarantees this
+        is set before any submit can run."""
+        if self._limits is not None:
+            return self._limits
+        raise RuntimeError("no replica has completed its handshake")
+
+    # ------------------------------------------------------------------
+    # submission / results
+    # ------------------------------------------------------------------
+    def submit(self, prompt, max_new_tokens: int, *, seed=None,
+               priority: int = 0, deadline_s: Optional[float] = None,
+               on_token=None, adapter_id: Optional[str] = None) -> int:
+        """Queue one request fleet-wide; returns its fleet id. The
+        contract is :meth:`ServeFleet.submit`'s — typed
+        :class:`Overloaded` instead of unbounded queueing, the seed
+        defaulting to the fid (fleet-level, so a sampled stream does not
+        depend on the replica), end-to-end deadlines — with
+        admissibility checked against the replicas' hello-reported
+        ``limits`` (no engine lives in this process)."""
+        from quintnet_tpu_torch.serve.engine import check_admissible
+
+        prompt = np.asarray(prompt, np.int32).reshape(-1)
+        check_admissible(prompt.size, int(max_new_tokens),
+                         **self.limits)
+        with self._cv:
+            self.metrics.submitted += 1
+            if self._draining or self._closed:
+                self.metrics.shed_shutdown += 1
+                self._slo_observe("shed", 1.0)
+                raise Overloaded(
+                    "shutdown", "fleet is draining; not accepting work")
+            now = self.clock()
+            if deadline_s is not None and deadline_s <= 0:
+                self.metrics.shed_deadline += 1
+                self._slo_observe("shed", 1.0)
+                raise Overloaded(
+                    "deadline", f"deadline_s={deadline_s} already "
+                    f"expired at submit")
+            if self._disagg and self._pool_hard_down_locked("decode"):
+                # the last rung of the decode-pool ladder: requests
+                # already admitted requeue behind the breaker-gated
+                # restart, but NEW work is shed typed — queueing it
+                # would hide an outage every breaker says is not
+                # about to heal (prefill-pool loss never sheds: the
+                # decode pool absorbs prefill work instead)
+                self.metrics.shed_pool_down += 1
+                self._slo_observe("shed", 1.0)
+                self._emit("shed", fid=None, reason="pool_down")
+                raise Overloaded(
+                    "pool_down",
+                    "decode pool has no live replica and every "
+                    "breaker is tripped; shedding instead of queueing "
+                    "behind a breaker that cannot act — retry with "
+                    "backoff against another fleet")
+            fid = self._fid_counter
+            self._fid_counter += 1
+            freq = FleetRequest(
+                fid, prompt, int(max_new_tokens),
+                seed=fid if seed is None else int(seed),
+                priority=int(priority),
+                deadline=(None if deadline_s is None
+                          else now + float(deadline_s)),
+                on_token=on_token, submit_time=now, clock=self.clock,
+                adapter_id=adapter_id, trace_id=f"f{fid}")
+            freq.slo = self.slo    # TTFT/ITL observed at delivery
+            #   (FleetRequest.deliver — fired from the reader thread
+            #   under the fleet lock, the client-visible point; the
+            #   anchor is reset across handoff/migration so a cross-
+            #   replica gap never reads as a decode-cadence violation)
+            if self.tracer is not None:
+                self.tracer.event(freq.trace_id, "fleet_submit",
+                                  fid=fid, prompt_len=int(prompt.size),
+                                  max_new_tokens=int(max_new_tokens),
+                                  adapter_id=adapter_id)
+            try:
+                self._queue.push(freq)
+            except Overloaded:
+                self.metrics.shed_queue_full += 1
+                self._slo_observe("shed", 1.0)
+                raise
+            self._requests[fid] = freq
+            self._open += 1
+            self.metrics.accepted += 1
+            self._slo_observe("shed", 0.0)
+            self._cv.notify_all()
+            return fid
+
+    def result(self, fid: int, *,
+               timeout: Optional[float] = None) -> np.ndarray:
+        freq = self._requests[fid]
+        if not freq.event.wait(timeout):
+            raise TimeoutError(
+                f"fleet request {fid} unfinished after {timeout}s "
+                f"(replica={freq.replica_name}, "
+                f"migrations={freq.migrations})")
+        if freq.error is not None:
+            raise freq.error
+        return freq.output
+
+    def request(self, fid: int) -> FleetRequest:
+        return self._requests[fid]
+
+    def generate(self, prompts: Sequence, *, max_new_tokens, seeds=None,
+                 priorities=None,
+                 timeout: Optional[float] = None) -> List[np.ndarray]:
+        n = len(prompts)
+        if isinstance(max_new_tokens, int):
+            max_new_tokens = [max_new_tokens] * n
+        seeds = [None] * n if seeds is None else seeds
+        priorities = [0] * n if priorities is None else priorities
+        if not (len(max_new_tokens) == len(seeds) == len(priorities) == n):
+            raise ValueError(
+                "per-prompt argument lengths must match prompts")
+        fids = [self.submit(p, m, seed=sd, priority=pr)
+                for p, m, sd, pr in zip(prompts, max_new_tokens, seeds,
+                                        priorities)]
+        return [self.result(f, timeout=timeout) for f in fids]
+
+    # ------------------------------------------------------------------
+    # journal reconstruction — the crash-safe migration payload
+    # ------------------------------------------------------------------
+    def _progress_for(self, freq: FleetRequest):
+        """The request's RequestProgress as witnessed by the JOURNAL —
+        what gets (re)dispatched, fresh or migrated: ``prompt + journal
+        + seed``, the chain's whole state (committed token i draws from
+        ``(seed, i)``). Needs nothing from the replica that was serving
+        it."""
+        from quintnet_tpu_torch.serve.scheduler import RequestProgress
+
+        return RequestProgress(
+            rid=freq.fid, prompt=np.asarray(freq.prompt, np.int32),
+            generated=list(freq.committed), seed=int(freq.seed),
+            max_new_tokens=freq.max_new_tokens,
+            priority=freq.priority,
+            preemptions=0, adapter_id=freq.adapter_id,
+            deadline_s=freq.remaining_deadline(),
+            trace_id=freq.trace_id)
+
+    # ------------------------------------------------------------------
+    # frame handling (replica reader threads)
+    # ------------------------------------------------------------------
+    def _on_frame(self, rep: ProcReplica, frame: Dict) -> None:
+        t = frame.get("t")
+        if t == "tok":
+            tok, last = int(frame["tok"]), bool(frame["last"])
+            with self._cv:
+                # journal AND deliver under the fleet lock: migration
+                # reads the journal under the same lock, so a late
+                # token racing a stall-triggered migration is either
+                # journaled-and-delivered before the reconstruction
+                # (included in the resumed progress, never repeated)
+                # or dropped here (ownership gone) and regenerated by
+                # the survivor — exactly once, in order, either way.
+                # Delivering outside the lock would open a window
+                # where the survivor's token n+1 beats the victim's
+                # token n to the client. Callbacks are contractually
+                # quick (the thread fleet fires them from its engine
+                # worker for the same reason).
+                freq = rep._fid2freq.get(frame["fid"])
+                if freq is None:
+                    return
+                self._tokens_delivered += 1
+                first = freq.first_token_time is None
+                # deliver() is THE journal-then-forward discipline
+                # (fleet/fleet.py), client-callback faults isolated
+                # there — one implementation for both fleets
+                freq.deliver(tok, last)
+                if first and self.tracer is not None:
+                    self.tracer.event(freq.trace_id, "first_token",
+                                      replica=rep.name)
+        elif t == "fin":
+            self._finish(rep, frame["fid"],
+                         handoff=bool(frame.get("handoff")))
+        elif t in ("failed", "reject"):
+            self._reject(rep, frame["fid"],
+                         wire.error_from_wire(frame["error"]))
+        elif t == "hb":
+            rep.hb.beat()
+            rep.steps = int(frame.get("steps", rep.steps))
+            # flight-recorder mirror: the child's fresh step records
+            # ride its heartbeats (ring-lock-guarded — the dump path
+            # snapshots from the dispatcher thread concurrently)
+            recs = frame.get("rec")
+            if recs:
+                rep.ring_extend(recs)
+        elif t == "death":
+            # cooperative death (an in-child raise): same handling as
+            # a connection loss; the export rides along but the
+            # journal supersedes it (one reconstruction path, not two)
+            self._handle_death(rep, stalled=False)
+        elif t == "bye":
+            with self._cv:
+                rep.state = STOPPED
+
+    def _finish(self, rep: ProcReplica, fid: int, *,
+                handoff: bool = False) -> None:
+        with self._cv:
+            freq = rep._fid2freq.pop(fid, None)
+            if freq is None:
+                return
+            incomplete = (not freq.last_seen
+                          and len(freq.committed) < freq.max_new_tokens)
+            if handoff and incomplete:
+                # prefill-phase retirement: the first token is
+                # journaled+delivered, the chain is published on the
+                # prefill replica — release the replica's counters
+                # (this dispatch is DONE for it) and move the request
+                # to the decode pool through the KV-transfer thread
+                rep.in_flight -= 1
+                rep.outstanding_tokens -= freq.cost
+                self._breakers[rep.name].record_success()
+                self._note_breaker(rep.name)
+                if self._closed:
+                    self._shed_locked(freq, "shutdown",
+                                      "fleet closed mid-handoff")
+                    return
+                self.metrics.handoffs += 1
+                threading.Thread(
+                    target=self._run_handoff, args=(rep, freq),
+                    daemon=True,
+                    name=f"handoff-{freq.fid}").start()
+                return
+            self._finalize_locked(rep, freq)
+
+    def _finalize_locked(self, rep: Optional[ProcReplica],
+                         freq: FleetRequest) -> None:
+        if freq.event.is_set():
+            return      # already shed/finalized (close-path races)
+        if rep is not None:
+            rep.in_flight -= 1
+            rep.outstanding_tokens -= freq.cost
+            self._breakers[rep.name].record_success()
+            self._note_breaker(rep.name)
+        # the journal IS the output: prompt + every streamed token
+        freq.output = np.concatenate(
+            [freq.prompt, np.asarray(freq.committed, np.int32)])
+        freq.finish_time = self.clock()
+        self.metrics.finished += 1
+        self._slo_observe("error", 0.0)
+        if freq.first_token_time is not None:
+            self.metrics.ttfts.append(
+                freq.first_token_time - freq.submit_time)
+        self.metrics.latencies.append(
+            freq.finish_time - freq.submit_time)
+        self._open -= 1
+        freq.event.set()
+        self._cv.notify_all()
+
+    def _run_handoff(self, src: ProcReplica,
+                     freq: FleetRequest) -> None:
+        """Move one prefilled request's KV chain from ``src`` (its
+        prefill replica) to a decode replica, then requeue the request
+        for decode dispatch — on its OWN thread, outside the fleet
+        lock: the transfer is a pair of RPCs (export from the source,
+        import into the destination) that may block, retry and sleep,
+        none of which must stall token delivery or stall detection.
+
+        Fault-tolerant BY CONSTRUCTION, not by luck:
+
+        - every attempt runs under the shared jittered-exponential
+          :class:`~quintnet_tpu_torch.fleet.retry.RetryPolicy` with a
+          per-RPC timeout — a stalled receiver costs one timeout, not
+          a wedged dispatcher;
+        - a SIGKILL'd source, a checksum-corrupt frame, a full
+          destination pool and a vanished destination are all just
+          failed attempts;
+        - exhaustion falls back to LOCAL RE-PREFILL on whichever
+          decode replica the request lands on: the chain is pure
+          cache, so the fallback is slower but token-identical — the
+          request is requeued either way, and ``close()`` racing the
+          transfer sheds it typed instead of stranding it."""
+        tokens = [int(t) for t in np.asarray(freq.prompt).reshape(-1)]
+        ns = freq.adapter_id
+        # the exported frame is cached ACROSS attempts: a
+        # destination-side failure (busy receiver, timeout) must not
+        # re-gather and re-ship a multi-megabyte chain the source
+        # already produced. A checksum-rejected frame (WireError from
+        # the importer) drops the cache — that frame is damaged and a
+        # fresh export is the whole point of the retry.
+        cached = {"kv": None}
+
+        def rpc_timeout_s() -> float:
+            # a deadline-bound request must not spend more wall clock
+            # in a single transfer RPC than it has left to live
+            rem = freq.remaining_deadline()
+            if rem is None:
+                return self._handoff_timeout_s
+            return min(self._handoff_timeout_s, max(rem, 0.05))
+
+        def attempt(n: int):
+            with self._cv:
+                cands = router_eligible(self._replicas, pool="decode")
+                # the SAME router pick the dispatch path uses —
+                # adapter affinity included, so a tenant's chain lands
+                # on a replica already holding its adapter instead of
+                # pinning the request (via warm_replica) to one that
+                # must load it
+                dst = (self._router.pick(cands, adapter_id=ns)
+                       if cands else None)
+            if dst is None:
+                raise OSError(
+                    "no decode replica is accepting a KV transfer")
+            if cached["kv"] is None:
+                f = src.rpc({"t": "kv_export", "tokens": tokens,
+                             "namespace": ns,
+                             "trace_id": freq.trace_id},
+                            timeout=rpc_timeout_s())
+                kv = f.get("kv")
+                if kv is None:
+                    # permanent (evicted chain, cache off, oversized
+                    # frame): a plain ValueError is NOT in retry_on —
+                    # straight to the local-re-prefill fallback
+                    raise ValueError(
+                        f.get("reason")
+                        or "prefill replica declined the KV export")
+                cached["kv"] = kv
+            f2 = dst.rpc({"t": "kv_import", "kv": cached["kv"],
+                          "trace_id": freq.trace_id},
+                         timeout=rpc_timeout_s())
+            if f2.get("error") is not None:
+                err = wire.error_from_wire(f2["error"])
+                if isinstance(err, wire.WireError):
+                    cached["kv"] = None   # frame damaged: re-export
+                raise err
+            return dst, int(f2.get("imported", 0))
+
+        def on_retry(attempt_no: int, error: BaseException) -> None:
+            with self._cv:
+                self.metrics.handoff_retries += 1
+            self._emit("handoff_retry", fid=freq.fid,
+                       trace_id=freq.trace_id, attempt=attempt_no,
+                       error=f"{type(error).__name__}: {error}")
+
+        imported, dst = 0, None
+        handoff_t0 = self.clock()
+        # the request's remaining deadline bounds the WHOLE transfer:
+        # retrying past it wastes RPCs on a request that can only be
+        # shed as expired at its next dispatch — fall back (a no-op
+        # requeue; the expired request never decodes) instead of
+        # out-waiting the client by attempts x handoff_timeout_s
+        remaining = freq.remaining_deadline()
+        policy = (self._handoff_retry if remaining is None
+                  else self._handoff_retry.bounded(remaining))
+        try:
+            if remaining is not None and remaining <= 0:
+                raise TimeoutError(
+                    f"deadline budget already spent "
+                    f"({remaining:.3f}s remaining) — skipping the KV "
+                    f"transfer")
+            # retry TRANSIENT faults only: connection loss/timeouts
+            # (OSError covers ConnectionClosed) and damaged frames
+            # (WireError). Plain ValueError/KeyError are permanent —
+            # geometry mismatch, evicted chain, declined export — and
+            # fall through to the fallback immediately instead of
+            # burning the budget re-confirming a misconfiguration.
+            dst, imported = policy.run(
+                attempt,
+                retry_on=(OSError, TimeoutError, wire.WireError),
+                on_retry=on_retry)
+        except Exception as e:  # noqa: BLE001 — the fallback is total
+            self._emit("handoff_fallback", fid=freq.fid,
+                       trace_id=freq.trace_id,
+                       error=f"{type(e).__name__}: {e}")
+            if self.tracer is not None:
+                self.tracer.event(freq.trace_id, "handoff",
+                                  fallback=True,
+                                  error=type(e).__name__)
+            with self._cv:
+                self.metrics.handoff_fallbacks += 1
+        else:
+            if imported > 0:
+                freq.warm_replica = dst.name
+                self._emit("handoff", fid=freq.fid,
+                           trace_id=freq.trace_id,
+                           from_replica=src.name, to_replica=dst.name,
+                           transferred_tokens=imported)
+                if self.tracer is not None:
+                    self.tracer.event(freq.trace_id, "handoff",
+                                      to_replica=dst.name,
+                                      transferred_tokens=imported)
+                with self._cv:
+                    self.metrics.handoff_transfers += 1
+            else:
+                # the frame landed but nothing was cached (destination
+                # pool full, or its cache off): not a wire fault, and
+                # retrying would not change it — local re-prefill
+                self._emit("handoff_fallback", fid=freq.fid,
+                           trace_id=freq.trace_id,
+                           error="import cached 0 tokens "
+                                 "(destination pool full or cache off)")
+                with self._cv:
+                    self.metrics.handoff_fallbacks += 1
+        finally:
+            if self.signals is not None:
+                # the transfer's realized wall (success or fallback) —
+                # a TTFT-class cost the pressure plane watches
+                self.signals.sample("handoff_latency_s",
+                                    self.clock() - handoff_t0)
+            with self._cv:
+                # re-anchor the SLO engine's ITL chain: the gap from
+                # the prefill replica's first token to the decode
+                # replica's second spans the handoff, not the decode
+                # cadence
+                freq.last_token_time = None
+                if self._closed:
+                    self._shed_locked(
+                        freq, "shutdown",
+                        "fleet closed during the KV handoff")
+                else:
+                    self._queue.push_front([freq])
+                    self._cv.notify_all()
+
+    def _reject(self, rep: ProcReplica, fid: int,
+                error: BaseException) -> None:
+        from quintnet_tpu_torch.serve.scheduler import DeadlineExceeded
+
+        with self._cv:
+            freq = rep._fid2freq.pop(fid, None)
+            if freq is None:
+                return
+            rep.in_flight -= 1
+            rep.outstanding_tokens -= freq.cost
+            if isinstance(error, DeadlineExceeded):
+                self.metrics.deadline_exceeded += 1
+                self._emit("deadline_exceeded", fid=freq.fid,
+                           trace_id=freq.trace_id, replica=rep.name,
+                           generated=error.generated)
+            elif (isinstance(error, Overloaded)
+                    and error.reason == "deadline"):
+                self.metrics.shed_deadline += 1
+            freq.error = error
+            self._slo_observe("error", 1.0)
+            self._open -= 1
+            freq.event.set()
+            self._cv.notify_all()
+
+    # ------------------------------------------------------------------
+    # death / stall / restart supervision
+    # ------------------------------------------------------------------
+    def _on_conn_lost(self, rep: ProcReplica) -> None:
+        """Reader-thread EOF: every frame the kernel had buffered has
+        been processed (the journal is complete up to the last byte
+        the victim flushed) — anything beyond it is regenerated
+        deterministically on the survivor."""
+        self._handle_death(rep, stalled=False)
+
+    def _handle_death(self, rep: ProcReplica, *, stalled: bool) -> None:
+        with self._cv:
+            self._handle_death_locked(rep, stalled=stalled)
+
+    def _handle_death_locked(self, rep: ProcReplica, *,
+                             stalled: bool) -> None:
+        """The one death path (fleet lock held): conn-lost EOF, stall
+        detection, cooperative death frames and dispatch-send failures
+        all land here — one body, so a fix applies once."""
+        if rep.state == STOPPED:
+            self._cv.notify_all()
+            return
+        if rep.migrated or (self._closed and not rep.unfinished()):
+            # work already moved (stall handler beat the EOF) or
+            # nothing to move — just make the replica restartable
+            rep.state = DEAD
+            self._cv.notify_all()
+            return
+        rep.state = STALLED if stalled else DEAD
+        rep.migrated = True
+        if stalled:
+            self.metrics.stalls += 1
+        else:
+            self.metrics.replica_deaths += 1
+        self._emit("replica_stall" if stalled else "replica_death",
+                   replica=rep.name, pid=rep.pid,
+                   steps=rep.steps, in_flight=len(rep._fid2freq),
+                   error=(None if rep.error is None
+                          else f"{type(rep.error).__name__}: "
+                               f"{rep.error}"))
+        self._record_crash_locked(rep,
+                                  reason="stall" if stalled
+                                  else "death")
+        breaker = self._breakers[rep.name]
+        breaker.record_failure()
+        self._note_breaker(rep.name)
+        rep.restart_at = (self.clock()
+                          + self.backoff.delay_s(
+                              breaker.consecutive_failures))
+        self._migrate_locked(rep)
+        self._cv.notify_all()
+
+    def _record_crash_locked(self, rep: ProcReplica, *,
+                             reason: str) -> None:
+        """The black box, process-fleet flavor (fleet lock held, rep's
+        ``_fid2freq`` not yet cleared): everything here is
+        DISPATCHER-side state — the heartbeat-mirrored ring, the
+        parent tracer's spans for the in-flight requests, the
+        journal's per-request account — because the corpse cannot be
+        asked for anything. The payload is QUEUED under the lock and
+        written by the dispatch loop OUTSIDE it
+        (:meth:`_write_dumps`): file IO must never stall token
+        delivery."""
+        if not self._obs:
+            return
+        affected = sorted(rep._fid2freq.values(), key=lambda f: f.fid)
+        ring = rep.ring_snapshot()
+        tids = [f.trace_id for f in affected if f.trace_id]
+        traces = (self.tracer.snapshot(tids)
+                  if self.tracer is not None else {})
+        requests = [{"fid": f.fid, "trace_id": f.trace_id,
+                     "committed": len(f.committed),
+                     "migrations": f.migrations,
+                     "adapter_id": f.adapter_id} for f in affected]
+        err = (None if rep.error is None
+               else f"{type(rep.error).__name__}: {rep.error}")
+        self.last_crash = {
+            "replica": rep.name, "reason": reason, "error": err,
+            "ring": ring, "traces": traces, "requests": requests,
+            # the last pool-pressure snapshot rides the black box:
+            # "was the pool already saturated when p1 died" is a
+            # question the corpse cannot answer but the bus can
+            "signals": (self.signals.snapshot()
+                        if self.signals is not None else {}),
+            # JAX's lock-audit ledgers (item 9): empty, as JAX's with
+            # the audit off
+            "locks": {},
+        }
+        if self.crash_dir is not None:
+            self._pending_dumps.append(dict(
+                self.last_crash,
+                events=(self.events.snapshot(last=64)
+                        if self.events is not None else []),
+                extra={"pid": rep.pid, "steps": rep.steps}))
+
+    def _write_dumps(self, pending: List[Dict]) -> None:
+        """Write queued crash dumps (called WITHOUT the fleet lock)."""
+        from quintnet_tpu_torch.obs import write_crash_dump
+
+        for spec in pending:
+            path = write_crash_dump(self.crash_dir, **spec)
+            self.crash_dumps.append(path)
+            # the writer keeps only the newest N files — drop ledger
+            # entries whose file was pruned so every path here loads
+            self.crash_dumps = [p for p in self.crash_dumps
+                                if os.path.exists(p)]
+            self._emit("crash_dump", replica=spec["replica"],
+                       path=path)
+
+    def _migrate_locked(self, rep: ProcReplica) -> None:
+        exports = sorted(rep._fid2freq.items())
+        rep._fid2freq = {}
+        rep.in_flight = 0
+        rep.outstanding_tokens = 0
+        migrated: List[FleetRequest] = []
+        for _fid, freq in exports:
+            if freq.last_seen:
+                # the final token (is_last) was journaled and already
+                # delivered — only the bookkeeping frame died with the
+                # replica; the request is COMPLETE, finalize it here
+                self._finalize_locked(None, freq)
+                continue
+            if self._closed:
+                self._shed_locked(freq, "shutdown",
+                                  "replica died during close")
+                continue
+            freq.migrations += 1
+            freq.last_token_time = None   # ITL re-anchors on the
+            #                               survivor (see fleet.py)
+            self.metrics.migrations += 1
+            self._emit("migration", fid=freq.fid,
+                       trace_id=freq.trace_id,
+                       from_replica=rep.name,
+                       committed=len(freq.committed))
+            if self.tracer is not None:
+                self.tracer.event(freq.trace_id, "migration",
+                                  from_replica=rep.name,
+                                  committed=len(freq.committed))
+            migrated.append(freq)
+        self._queue.push_front(migrated)
+
+    def _pool_members(self, pool: str) -> List["ProcReplica"]:
+        return [r for r in self._replicas if r.pool == pool]
+
+    def _pool_alive_locked(self, pool: str) -> bool:
+        """Does the pool have a member that serves now or is coming up
+        (STARTING = a restart already in flight)? The degradation
+        ladder keys on this: prefill down -> decode absorbs prefill
+        work; decode down -> requests requeue behind the breaker."""
+        return any(r.state in (HEALTHY, STARTING)
+                   for r in self._pool_members(pool))
+
+    def _pool_hard_down_locked(self, pool: str) -> bool:
+        """No live member AND no breaker that could grant a restart
+        (all tripped inside their cool-down): queueing new work would
+        hide an outage the client should route around — the shed rung
+        of the ladder (typed ``Overloaded('pool_down')``)."""
+        members = self._pool_members(pool)
+        if any(r.state in (HEALTHY, STARTING) for r in members):
+            return False
+        return all(not self._breakers[r.name].restart_conceivable
+                   for r in members)
+
+    def _tend_pools_locked(self) -> None:
+        """Edge-detected pool health events: a pool losing its last
+        live replica emits ``pool_degraded`` once (and
+        ``pool_recovered`` when it serves again) — the obs trail of
+        the fallback ladder."""
+        if not self._disagg:
+            return
+        for pool in POOLS:
+            down = not self._pool_alive_locked(pool)
+            if down != self._pool_down_seen.get(pool, False):
+                self._pool_down_seen[pool] = down
+                self._emit("pool_degraded" if down else "pool_recovered",
+                           pool=pool)
+
+    # ------------------------------------------------------------------
+    # SLO engine + pool-pressure signal plane (obs/slo.py, obs/signals.py)
+    # ------------------------------------------------------------------
+    def arm_slo(self, config, **planner_kwargs) -> None:
+        """Arm the SLO engine, the signal bus and (disaggregated
+        fleets only) the observe-only rebalance planner against this
+        fleet's dispatcher. ``config`` is an
+        :class:`~quintnet_tpu_torch.obs.slo.SLOConfig`; ``planner_kwargs``
+        go to :class:`~quintnet_tpu_torch.obs.signals.PoolRebalancePlanner`
+        (cooldown, donor-occupancy gate). Can be called after
+        construction — the bench measures a baseline first and derives
+        its targets from it — but the fleet must have been built with
+        ``obs=True`` (or ``slo=`` at the constructor) for the
+        heartbeat-mirrored rings the occupancy signals read."""
+        from quintnet_tpu_torch.obs import EventLog
+        from quintnet_tpu_torch.obs.signals import (PoolRebalancePlanner,
+                                              SignalBus)
+        from quintnet_tpu_torch.obs.slo import SLOEngine
+        if not self._obs:
+            # silently arming would sample permanently-zero occupancy
+            # and KV pressure (children only piggyback ring records
+            # when spawned with obs on) and the planner's donor gate
+            # would trivially pass — judgment over dead gauges
+            raise ValueError(
+                "arm_slo requires a fleet built with obs=True (or "
+                "slo= at the constructor): the occupancy/KV signals "
+                "read the heartbeat-mirrored step rings")
+        with self._cv:
+            if self.events is None:
+                self.events = EventLog(clock=self.clock)
+            self.slo = SLOEngine(config, clock=self.clock,
+                                 events=self.events)
+            self.signals = SignalBus(clock=self.clock)
+            self.planner = (PoolRebalancePlanner(
+                clock=self.clock, events=self.events, **planner_kwargs)
+                if self._disagg else None)
+            self._signal_next_t = 0.0
+
+    def _slo_observe(self, stream: str, value: float) -> None:
+        if self.slo is not None:
+            self.slo.observe(stream, value)
+
+    def _queue_gauges(self):
+        """(depth, oldest wait age) — FleetMetrics' probe and the
+        front door's Retry-After hint; snapshot reads, lock-free."""
+        return len(self._queue), self._queue.oldest_wait_s()
+
+    def queue_oldest_wait_s(self) -> float:
+        """Wait age of the oldest queued request (0.0 when empty)."""
+        return self._queue.oldest_wait_s()
+
+    def _tend_signals_locked(self, now: float) -> None:
+        """One signal-plane tick on the dispatcher thread (fleet lock
+        held): sample per-pool pressure onto the bus from state the
+        dispatcher ALREADY holds — the admission queue, the
+        heartbeat-mirrored step rings, breaker/heartbeat records, the
+        handoff ledger — then re-evaluate the SLO engine and let the
+        planner judge. Everything is host-side floats; nothing here
+        blocks, syncs a device, or mutates routing state (the planner
+        is observe-only by construction)."""
+        if self.slo is None:
+            return
+        if now < self._signal_next_t:
+            return
+        self._signal_next_t = now + self.slo.config.eval_interval_s
+        bus = self.signals
+        items = self._queue.items()
+
+        def oldest(its):
+            # per-pool SUBSETS only; the fleet-wide age reuses the
+            # queue's own accessor (getattr-tolerant where this is not)
+            if not its:
+                return 0.0
+            return max(0.0, now - min(i.submit_time for i in its))
+
+        bus.sample("queue_depth", float(len(items)))
+        bus.sample("queue_oldest_wait_s",
+                   self._queue.oldest_wait_s(now))
+        limits = self._limits or {}
+        max_slots = int(limits.get("max_slots") or 0)
+        budget = limits.get("prefill_chunk_budget")
+        for pool in sorted({r.pool for r in self._replicas}):
+            members = [r for r in self._replicas if r.pool == pool]
+            if self._disagg:
+                # phase-aware queue attribution: a request with no
+                # committed token waits on the prefill pool, one with
+                # a journal waits on decode
+                pending = [i for i in items
+                           if bool(i.committed) == (pool == "decode")]
+                bus.sample("queue_depth", float(len(pending)),
+                           pool=pool)
+                bus.sample("queue_oldest_wait_s", oldest(pending),
+                           pool=pool)
+            running = slots = kv_used = kv_total = 0
+            chunk_spent = chunk_steps = 0
+            hb_age = 0.0
+            open_breakers = 0
+            for r in members:
+                if self._breakers[r.name].state != CLOSED:
+                    open_breakers += 1
+                if r.state != HEALTHY:
+                    # a corpse's last-known ring record is forensics
+                    # (crash dumps), not live pressure: counting its
+                    # slots/running/KV would double-count work that
+                    # already migrated to a survivor and skew the
+                    # planner's donor-occupancy gate mid-outage
+                    continue
+                hb_age = max(hb_age, r.hb.age_s)
+                if max_slots:
+                    slots += max_slots
+                with r._ring_lock:
+                    last = r.ring[-1] if r.ring else None
+                if last is None:
+                    continue
+                running += int(last.get("running", 0))
+                kv_used += int(last.get("kv_blocks_used", 0))
+                kv_total += int(last.get("kv_blocks_total", 0))
+                if budget and last.get("prefill_chunks", 0) > 0:
+                    chunk_spent += int(last.get("prefill_tokens", 0))
+                    chunk_steps += 1
+            bus.sample("occupancy",
+                       running / slots if slots else 0.0, pool=pool)
+            bus.sample("kv_pressure",
+                       kv_used / kv_total if kv_total else 0.0,
+                       pool=pool)
+            if budget:
+                bus.sample("chunk_budget_saturation",
+                           chunk_spent / (chunk_steps * budget)
+                           if chunk_steps else 0.0, pool=pool)
+            bus.sample("heartbeat_age_s", hb_age, pool=pool)
+            bus.sample("breakers_open", float(open_breakers),
+                       pool=pool)
+        m = self.metrics
+        bus.sample("handoff_fallback_rate",
+                   m.handoff_fallbacks / m.handoffs if m.handoffs
+                   else 0.0)
+        status = self.slo.evaluate(now)
+        if self.planner is not None:
+            self.planner.plan(status, bus)
+
+    def _tend_locked(self) -> None:
+        now = self.clock()
+        self._tend_pools_locked()
+        self._tend_signals_locked(now)
+        for i, rep in enumerate(self._replicas):
+            if rep.state == STARTING:
+                if not rep.proc.is_alive():
+                    # died building its engine: a failure like any
+                    # other, breaker + backoff decide the retry
+                    self._handle_death(rep, stalled=False)
+                elif now - rep.spawned_at > self._spawn_timeout_s:
+                    rep.kill()
+                    self._handle_death(rep, stalled=True)
+                continue
+            if rep.state == HEALTHY and rep.hb.expired:
+                # the wedge path: alive socket, silent process — route
+                # around it within the heartbeat budget, move its work
+                # via the journal, and put the zombie down
+                self._handle_death(rep, stalled=True)
+                rep.kill()
+                continue
+            if rep.state == STALLED and not rep.proc.is_alive():
+                rep.state = DEAD
+            if rep.state != DEAD:
+                continue
+            if rep.restart_at is not None and now < rep.restart_at:
+                continue
+            allowed = self._breakers[rep.name].allow_restart()
+            self._note_breaker(rep.name)
+            if not allowed:
+                continue
+            chaos_spec = rep.chaos_spec
+            if not (chaos_spec or {}).get("rearm", False):
+                chaos_spec = None   # one-shot faults do not respawn
+            self._replicas[i] = ProcReplica(rep.name, self, chaos_spec,
+                                            pool=rep.pool)
+            self.metrics.restarts += 1
+            self._emit("replica_restart", replica=rep.name)
+
+    # ------------------------------------------------------------------
+    # dispatcher
+    # ------------------------------------------------------------------
+    def _shed_locked(self, freq: FleetRequest, reason: str,
+                     message: str) -> None:
+        if freq.event.is_set():
+            # already finalized (close() sheds unfinished() while a
+            # racing EOF handler migrates the same map — whoever is
+            # second must not double-decrement _open)
+            return
+        if reason == "deadline":
+            self.metrics.shed_deadline += 1
+        else:
+            self.metrics.shed_shutdown += 1
+        self._slo_observe("shed", 1.0)
+        self._emit("shed", fid=freq.fid, trace_id=freq.trace_id,
+                   reason=reason)
+        freq.error = Overloaded(reason, message)
+        self._open -= 1
+        freq.event.set()
+        self._cv.notify_all()
+
+    def _route_disagg_locked(self, freq: FleetRequest):
+        """Pool routing for one queued request (fleet lock held).
+        Returns ``(replica, mode)`` — mode ``"prefill"`` dispatches
+        prefill-only (first token + published chain, then handoff),
+        ``"full"`` runs to completion — or ``(None, None)`` when
+        nothing can take it NOW (it stays queued: the requeue rung).
+
+        The degradation ladder, encoded:
+
+        - prefill phase, prefill pool has candidates -> prefill pool;
+        - prefill phase, prefill pool DOWN (no live/starting member)
+          -> the decode pool absorbs the whole request, colocated
+          style (mode "full", no handoff) — slower for decode tails,
+          but the fleet keeps serving;
+        - prefill pool merely BUSY (live but at its dispatch window)
+          -> wait; absorbing would defeat the isolation the pools buy;
+        - decode phase -> decode pool only, preferring the replica a
+          successful KV handoff warmed; decode pool empty -> the
+          request requeues behind the breaker-gated restart (new
+          submits shed typed once every breaker is tripped —
+          :meth:`submit`)."""
+        if not freq.committed:
+            cands = router_eligible(self._replicas, pool="prefill")
+            if cands:
+                return (self._router.pick(
+                    cands, adapter_id=freq.adapter_id), "prefill")
+            if not self._pool_alive_locked("prefill"):
+                cands = router_eligible(self._replicas, pool="decode")
+                if cands:
+                    return (self._router.pick(
+                        cands, adapter_id=freq.adapter_id), "full")
+            return None, None
+        cands = router_eligible(self._replicas, pool="decode")
+        if not cands:
+            return None, None
+        if freq.warm_replica is not None:
+            warm = next((r for r in cands
+                         if r.name == freq.warm_replica), None)
+            if warm is not None:
+                return warm, "full"
+        return self._router.pick(cands,
+                                 adapter_id=freq.adapter_id), "full"
+
+    def _reserve_dispatch_locked(self):
+        """Pick a replica and claim a queued request for it (fleet lock
+        held): ownership — ``rep._fid2freq`` and the routing counters —
+        is established HERE, so the payload construction and the
+        socket write can happen OUTSIDE the lock without racing the
+        journal or a migration. Returns (rep, freq) or None.
+
+        Colocated fleets dispatch the queue head. Disaggregated fleets
+        dispatch the FIRST DISPATCHABLE request in queue order — a
+        decode-phase request waiting for its pool must not block a
+        prefill-phase request behind it (head-of-line isolation
+        between the two regimes is half the point of the split)."""
+        for freq in self._queue.shed_expired():
+            self._shed_locked(
+                freq, "deadline",
+                f"request {freq.fid} still queued at its deadline")
+        if not len(self._queue):
+            return None
+        if not self._disagg:
+            cands = router_eligible(self._replicas)
+            if not cands:
+                return None
+            rep = self._router.pick(
+                cands, adapter_id=self._queue.peek_adapter_id())
+            freq = self._queue.pop()
+            freq.dispatched_phase = "full"
+        else:
+            rep = freq = None
+            for cand in self._queue.items():
+                got, mode = self._route_disagg_locked(cand)
+                if got is not None:
+                    rep, freq = got, cand
+                    freq.dispatched_phase = mode
+                    break
+            if freq is None:
+                return None
+            self._queue.remove(freq)
+        freq.cost = freq.outstanding_cost()
+        freq.replica_name = rep.name
+        rep._fid2freq[freq.fid] = freq
+        rep.in_flight += 1
+        rep.outstanding_tokens += freq.cost
+        if freq.adapter_id is not None:
+            rep._adapters_seen.add(freq.adapter_id)
+        if self.tracer is not None:
+            self.tracer.add(freq.trace_id, "fleet_queue",
+                            t0=freq.submit_time, t1=self.clock(),
+                            migrations=freq.migrations)
+            self.tracer.event(freq.trace_id, "dispatch",
+                              replica=rep.name)
+        return rep, freq
+
+    def _dispatch_loop(self) -> None:
+        while True:
+            with self._cv:
+                if self._closed:
+                    return
+                self._tend_locked()
+                pending, self._pending_dumps = self._pending_dumps, []
+                job = self._reserve_dispatch_locked()
+                if job is None and not pending:
+                    self._cv.wait(self._poll_s)
+                    continue
+            if pending:
+                self._write_dumps(pending)
+            if job is None:
+                continue
+            rep, freq = job
+            # payload construction OUTSIDE the lock: a long-lived
+            # migrated request's journal is encoded without stalling
+            # token delivery and stall detection
+            payload = wire.progress_to_wire(self._progress_for(freq))
+            frame = {"t": "submit", "fid": freq.fid,
+                     "progress": payload,
+                     "prefill_only":
+                         freq.dispatched_phase == "prefill"}
+            if self._tier_lookup_applies(rep, freq):
+                # warm the target from the best peer's tier BEFORE the
+                # submit lands — on its own thread (the _run_handoff
+                # discipline): the probe + transfer RPCs may block and
+                # must stall neither token delivery nor stall
+                # detection. The thread sends the submit afterward,
+                # warm or not.
+                threading.Thread(
+                    target=self._run_peer_fetch,
+                    args=(rep, freq, frame), daemon=True,
+                    name=f"tierfetch-{freq.fid}").start()
+                continue
+            try:
+                rep.send(frame)
+            except OSError:
+                # connection failure AT dispatch (dead socket, or a
+                # send timed out against a wedged peer): the replica
+                # is done — this request (and everything else parked
+                # there, via its fid2freq ownership) re-queues at the
+                # front and restarts follow the breaker + jittered
+                # backoff; the retry is free. Idempotent with a
+                # concurrent stall-handler migration (migrated flag).
+                with self._cv:
+                    self._handle_death_locked(rep, stalled=False)
+
+    # ------------------------------------------------------------------
+    # tiered-KV peer lookup (serve/kv_tier.py)
+    # ------------------------------------------------------------------
+    def _tier_lookup_applies(self, rep: ProcReplica,
+                             freq: FleetRequest) -> bool:
+        """Should this dispatch run the kv_peek fan-out first? Only
+        for FRESH requests (no journaled tokens — a migration's
+        re-prefill path already benefits from whatever the target
+        holds) whose prompt spans at least one full block beyond the
+        admission cap, on a multi-replica fleet whose engines carry a
+        host tier (auto mode) or when explicitly forced on."""
+        # called from the dispatch loop OUTSIDE the fleet lock (the
+        # payload-construction window): snapshot the dispatcher-owned
+        # fields under it — _limits is cached at first hello and
+        # _closed flips at close(), both under _cv (QT202)
+        with self._cv:
+            limits = self._limits or {}
+            closed = self._closed
+            n_live = len(self._replicas)
+        if self._tier_peer_lookup is None:
+            enabled = bool(limits.get("kv_tier")) and n_live >= 2
+        else:
+            enabled = bool(self._tier_peer_lookup)
+        if not enabled or closed or freq.committed:
+            return False
+        bs = int(limits.get("block_size", 0) or 0)
+        return bs > 0 and len(freq.prompt) > bs
+
+    def _run_peer_fetch(self, rep: ProcReplica, freq: FleetRequest,
+                        frame: Dict) -> None:
+        """Probe peers' tiers and warm ``rep`` before its submit frame
+        lands. OPPORTUNISTIC, single attempt, total fallback: any
+        fault — peer death, timeout, corrupt frame, declined export —
+        just dispatches without warm peer KV (the chain is cache, so
+        re-prefill is token-identical; that is the whole failure
+        semantics). The submit is sent from THIS thread afterward
+        either way, with the dispatcher's own dead-socket
+        discipline."""
+        try:
+            self._peer_fetch(rep, freq)
+        except Exception as e:
+            with self._cv:
+                self.metrics.tier_peer_fallbacks += 1
+            self._emit("tier_peer_miss", fid=freq.fid,
+                       replica=rep.name, reason=repr(e))
+        try:
+            rep.send(frame)
+        except OSError:
+            with self._cv:
+                self._handle_death_locked(rep, stalled=False)
+
+    def _peer_fetch(self, rep: ProcReplica,
+                    freq: FleetRequest) -> None:
+        timeout = self._handoff_timeout_s
+        tokens = [int(x) for x in np.asarray(freq.prompt).reshape(-1)]
+        ns = freq.adapter_id
+        with self._cv:
+            self.metrics.tier_probes += 1
+            peers = [r for r in self._replicas
+                     if r is not rep and r.state == HEALTHY]
+            # _limits is dispatcher-owned state: read it under the
+            # same lock as the peer snapshot, not after it (QT202)
+            bs = max(int((self._limits or {}).get("block_size", 1)
+                         or 1), 1)
+        # the target's own coverage is the bar a peer must clear — by
+        # a full block, or the transfer costs more than it saves
+        local = int(rep.rpc({"t": "kv_peek", "tokens": tokens,
+                             "namespace": ns},
+                            timeout=timeout).get("n_tokens", 0))
+        best, best_n = None, local
+        for peer in peers:
+            try:
+                n = int(peer.rpc({"t": "kv_peek", "tokens": tokens,
+                                  "namespace": ns},
+                                 timeout=timeout).get("n_tokens", 0))
+            except (OSError, TimeoutError, wire.WireError):
+                continue      # a dead peer is just a peer with no hit
+            if n > best_n:
+                best, best_n = peer, n
+        if best is None or best_n < local + bs:
+            self._emit("tier_peer_miss", fid=freq.fid,
+                       replica=rep.name, reason="no_better_peer",
+                       local_tokens=local, best_tokens=best_n)
+            return
+        f = best.rpc({"t": "kv_export", "tokens": tokens,
+                      "namespace": ns, "trace_id": freq.trace_id},
+                     timeout=timeout)
+        kv = f.get("kv")
+        if kv is None:
+            with self._cv:
+                self.metrics.tier_peer_fallbacks += 1
+            self._emit("tier_peer_miss", fid=freq.fid,
+                       replica=rep.name,
+                       reason=str(f.get("reason") or "export_declined"))
+            return
+        f2 = rep.rpc({"t": "kv_import", "kv": kv,
+                      "trace_id": freq.trace_id}, timeout=timeout)
+        imported = int(f2.get("imported", 0))
+        if imported <= 0:
+            with self._cv:
+                self.metrics.tier_peer_fallbacks += 1
+            self._emit("tier_peer_miss", fid=freq.fid,
+                       replica=rep.name,
+                       reason=str(f2.get("error") or "import_declined"))
+            return
+        with self._cv:
+            self.metrics.tier_peer_transfers += 1
+        self._emit("tier_peer_hit", fid=freq.fid,
+                   from_replica=best.name, to_replica=rep.name,
+                   tokens=imported)
+
+    # ------------------------------------------------------------------
+    # lifecycle / operations
+    # ------------------------------------------------------------------
+    def pause_all(self) -> None:
+        # symmetric with resume_all: rep.paused is routing state the
+        # dispatcher reads under the fleet lock, so it is written
+        # under it too (the bare writes here predated the auditor)
+        with self._cv:
+            for rep in self._replicas:
+                rep.paused = True
+                if rep.state == HEALTHY:
+                    try:
+                        rep.send({"t": "pause"})
+                    except OSError:
+                        pass
+
+    def resume_all(self) -> None:
+        with self._cv:
+            for rep in self._replicas:
+                rep.paused = False
+                if rep.state == HEALTHY:
+                    try:
+                        rep.send({"t": "resume"})
+                    except OSError:
+                        pass
+            self._cv.notify_all()
+
+    def pause_replica(self, name: str, paused: bool = True) -> None:
+        rep = self.replica(name)
+        rep.paused = paused
+        if rep.state == HEALTHY:
+            rep.send({"t": "pause" if paused else "resume"})
+        with self._cv:
+            self._cv.notify_all()
+
+    def warmup(self) -> None:
+        """Run every replica's full call set once (prefill buckets +
+        decode [+ verify]: the first touch loads cuBLAS and the kernel
+        library) outside any timed window — instead of routing
+        sacrificial requests. Replicas warm CONCURRENTLY (independent
+        processes); the first failure propagates. Warm-up launches K4:
+        :meth:`reset_metrics` after it restarts each child's counters
+        with its ledger."""
+        errs: List[BaseException] = []
+
+        def one(rep: ProcReplica) -> None:
+            try:
+                rep.rpc({"t": "warmup"}, timeout=600.0)
+            except BaseException as e:  # noqa: BLE001 — re-raised below
+                errs.append(e)
+
+        threads = [threading.Thread(target=one, args=(rep,),
+                                    name=f"warmup-{rep.name}")
+                   for rep in self._replicas if rep.state == HEALTHY]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        if errs:
+            raise errs[0]
+
+    def arm_chaos(self, target: str, spec: Dict) -> None:
+        """Arm a ChaosMonkey spec dict (kill_at_step/mode/rearm) inside
+        the RUNNING replica process — the bench arms after warmup so
+        kill_at_step counts replay steps only. The spec also sticks to
+        the parent-side handle so ``rearm=True`` faults re-arm on
+        restart, matching the thread fleet's semantics."""
+        rep = self.replica(target)
+        spec = {k: v for k, v in dict(spec).items() if k != "target"}
+        rep.chaos_spec = dict(spec, target=target)
+        rep.rpc({"t": "arm_chaos", "spec": spec}, timeout=60.0)
+
+    def export_progress(self, name: str) -> List:
+        """A LIVE replica's own view of its unfinished work (graceful
+        ops; the crash path never needs it)."""
+        frames = self.replica(name).rpc({"t": "export"}, timeout=60.0)
+        return [wire.progress_from_wire(p) for p in frames["progress"]]
+
+    def replica_traces(self, name: str, trace_ids=None) -> Dict:
+        """A LIVE replica's span log over the wire (obs/trace.py
+        snapshot, optionally restricted to ``trace_ids``) — how the
+        dispatcher verifies a migrated request's spans CONTINUE on the
+        destination under the trace id the journal carried. Dead
+        replicas' engine-side spans died with their process — their
+        black box is the heartbeat-mirrored ring in the crash dump."""
+        f = self.replica(name).rpc(
+            {"t": "trace",
+             "trace_ids": (None if trace_ids is None
+                           else list(trace_ids))}, timeout=60.0)
+        return f["traces"]
+
+    def replica_ring(self, name: str) -> List[Dict]:
+        """A LIVE replica's own flight-recorder ring over the wire
+        (the authoritative copy; the parent mirror lags one beat)."""
+        f = self.replica(name).rpc({"t": "trace", "trace_ids": []},
+                                   timeout=60.0)
+        return f["ring"]
+
+    def engine_summaries(self) -> Dict[str, Dict]:
+        """Per-LIVE-replica ``ServeMetrics.summary()`` dicts — the
+        front door's /metrics and /v1/metrics surface
+        (frontdoor.py); the same stats frame replica_stats reads."""
+        return {name: s["metrics"]
+                for name, s in self.replica_stats().items()}
+
+    def drain(self, *, timeout: Optional[float] = None) -> None:
+        """Graceful shutdown, the last rungs of the degradation ladder:
+        refuse new work (shed typed), let everything accepted finish —
+        migrations included — then stop the processes."""
+        deadline = None if timeout is None else self.clock() + timeout
+        with self._cv:
+            self._draining = True
+            self._emit("drain", open_requests=self._open)
+            self._cv.notify_all()
+            while self._open > 0:
+                if deadline is not None and self.clock() >= deadline:
+                    raise TimeoutError(
+                        f"drain: {self._open} request(s) still open "
+                        f"after {timeout}s")
+                self._cv.wait(self._poll_s)
+        self.close()
+
+    def close(self) -> None:
+        with self._cv:
+            if self._closed:
+                return
+            self._draining = True
+            self._closed = True
+            self._emit("close", open_requests=self._open)
+            for freq in self._queue.drain_all():
+                self._shed_locked(freq, "shutdown",
+                                  "fleet closed before dispatch")
+            self._cv.notify_all()
+        self._dispatcher.join(timeout=10.0)
+        for rep in self._replicas:
+            try:
+                if rep.state == HEALTHY:
+                    rep.send({"t": "stop"})
+            except OSError:
+                pass
+        for rep in self._replicas:
+            rep.proc.join(timeout=5.0)
+            if rep.proc.is_alive():
+                rep.kill()
+                rep.proc.join(timeout=5.0)
+        try:
+            self._listener.close()
+        except OSError:
+            pass
+        with self._cv:
+            for rep in self._replicas:
+                for freq in rep.unfinished():
+                    self._shed_locked(
+                        freq, "shutdown",
+                        "fleet closed with the request in flight")
+                # emptied so a trailing EOF handler sees nothing left
+                # to migrate or re-shed
+                rep._fid2freq = {}
+            pending, self._pending_dumps = self._pending_dumps, []
+        self._write_dumps(pending)   # dumps a closing race queued
+
+    # ------------------------------------------------------------------
+    # introspection
+    # ------------------------------------------------------------------
+    @property
+    def replicas(self) -> List[ProcReplica]:
+        return list(self._replicas)
+
+    def replica(self, name: str) -> ProcReplica:
+        reps = {r.name: r for r in self._replicas}
+        if name not in reps:
+            raise ValueError(f"no replica named {name!r} "
+                             f"(have {sorted(reps)})")
+        return reps[name]
+
+    def breaker(self, name: str) -> CircuitBreaker:
+        return self._breakers[name]
+
+    def health(self) -> Dict:
+        """Cheap liveness snapshot (no RPCs) — what the HTTP front
+        door's /healthz serves. ``pools`` reports each pool's live
+        membership so the front door can distinguish DEGRADED (one
+        pool down, the fallback ladder still serves) from
+        unavailable (nothing can serve); colocated fleets report one
+        ``"any"`` pool."""
+        with self._cv:
+            pools: Dict[str, Dict] = {}
+            for r in self._replicas:
+                p = pools.setdefault(r.pool, {"replicas": [],
+                                              "healthy": 0,
+                                              "starting": 0})
+                p["replicas"].append(r.name)
+                if r.state == HEALTHY:
+                    p["healthy"] += 1
+                elif r.state == STARTING:
+                    p["starting"] += 1
+            # three-valued, mirroring the routing ladder's aliveness
+            # (_pool_alive_locked counts STARTING too): "recovering"
+            # = no member serves NOW but a restart is in flight, so
+            # the dispatcher HOLDS that pool's work instead of
+            # engaging the fallback ladder — an operator reading
+            # "down" would expect the ladder (absorb/requeue/shed) to
+            # be serving, which it is not during the spawn window
+            for p in pools.values():
+                p["state"] = ("up" if p["healthy"] > 0
+                              else "recovering" if p["starting"] > 0
+                              else "down")
+            return {
+                "replicas": {r.name: {"state": r.state,
+                                      "pool": r.pool,
+                                      "pid": r.pid,
+                                      "steps": r.steps,
+                                      "in_flight": r.in_flight,
+                                      "heartbeat_age_s": round(
+                                          r.hb.age_s, 3),
+                                      "breaker":
+                                          self._breakers[r.name].state}
+                             for r in self._replicas},
+                "pools": pools,
+                "disaggregated": self._disagg,
+                "queue_depth": len(self._queue),
+                "queue_oldest_wait_s": round(
+                    self._queue.oldest_wait_s(), 4),
+                "open_requests": self._open,
+                "draining": self._draining,
+            }
+
+    def reset_metrics(self) -> None:
+        """Fresh ledgers fleet-wide (bench warmup boundary), including
+        each child engine's ServeMetrics and step counter."""
+        with self._cv:
+            self.metrics = FleetMetrics()
+            self.metrics._queue_probe = self._queue_gauges
+            self._tokens_delivered = 0
+        for rep in self._replicas:
+            if rep.state == HEALTHY:
+                rep.rpc({"t": "reset"}, timeout=60.0)
+                rep.steps = 0
+
+    def tokens_delivered(self) -> int:
+        """Fleet-wide generated-token count from the dispatcher's own
+        journal — exact even when replicas died mid-run (their
+        engines' ledgers died with them; the journal did not). A
+        running counter, not a scan: summary() must not slow down
+        linearly with requests ever served."""
+        with self._cv:
+            return self._tokens_delivered
+
+    def replica_stats(self) -> Dict[str, Dict]:
+        """Per-LIVE-replica engine stats over the wire ({k4, metrics,
+        steps, admitted, decode_steps}; ``k4``: the child's K4 launches,
+        in all and by path and variant, since its spawn or its last
+        reset). Dead replicas' engine ledgers died with their process —
+        by design; the parent-side journal and FleetMetrics carry
+        everything the fleet promises to keep."""
+        out: Dict[str, Dict] = {}
+        for rep in self._replicas:
+            if rep.state != HEALTHY:
+                continue
+            try:
+                f = rep.rpc({"t": "stats"}, timeout=60.0)
+            except (TimeoutError, OSError):
+                continue
+            out[rep.name] = {"k4": f["k4"],
+                             "metrics": f["metrics"],
+                             "steps": f["steps"],
+                             "admitted": f["admitted"],
+                             "decode_steps": f["decode_steps"]}
+        return out
+
+    def summary(self) -> Dict:
+        stats = self.replica_stats()
+        with self._cv:
+            per_replica = {
+                rep.name: {
+                    "state": rep.state,
+                    "pool": rep.pool,
+                    "pid": rep.pid,
+                    "steps": rep.steps,
+                    "in_flight": rep.in_flight,
+                    "outstanding_tokens": rep.outstanding_tokens,
+                    "breaker": self._breakers[rep.name].state,
+                    "k4_launches": stats.get(rep.name, {}).get("k4"),
+                } for rep in self._replicas}
+        out = self.metrics.summary()
+        out["policy"] = self._router.policy
+        out["disaggregated"] = self._disagg
+        out["replicas"] = per_replica
+        out["tokens_delivered"] = self.tokens_delivered()
+        out["engines"] = {name: s["metrics"]
+                          for name, s in stats.items()}
+        if self.slo is not None:
+            out["slo"] = self.slo.status()
+        return out
+
+    def assert_compile_count(self, prefill: Optional[int] = None,
+                             decode: int = 1) -> None:
+        """JAX's per-process bounded-compile check over each child's
+        recompile sentinels (``analysis/recompile.py``): not ported
+        yet. The ``stats`` reply carries K4's launch counts instead."""
+        raise NotImplementedError(
+            f"ProcessFleet.assert_compile_count is not ported yet "
+            f"({_ITEM_9})")

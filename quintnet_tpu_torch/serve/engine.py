@@ -907,7 +907,8 @@ class ServeEngine:
                seed: Optional[int] = None, on_token=None,
                adapter_id: Optional[str] = None,
                deadline_s: Optional[float] = None,
-               trace_id: Optional[str] = None) -> int:
+               trace_id: Optional[str] = None,
+               prefill_only: bool = False) -> int:
         """Queue one request; returns its id. ``seed``: the request's
         sampling chain (default: its rid, the counterpart of the JAX
         engine's ``fold_in(key(0), rid)``); pass the seed an independent
@@ -919,7 +920,11 @@ class ServeEngine:
         now, enforced every step: a request past it, waiting or running,
         is retired with :class:`DeadlineExceeded` (``result()`` raises
         it). ``trace_id``: the request's observability identity (default
-        ``req-<rid>``); never influences output."""
+        ``req-<rid>``); never influences output. ``prefill_only``: serve
+        only the prefill phase: commit and emit the first token (with its
+        real last flag), then retire with the blocks published (the
+        disaggregated fleet's prefill-pool dispatch; see
+        :class:`Request`)."""
         prompt = np.asarray(prompt, np.int32).reshape(-1)
         check_admissible(prompt.size, max_new_tokens, **self.limits())
         if deadline_s is not None and deadline_s <= 0:
@@ -938,6 +943,7 @@ class ServeEngine:
                                 else self.clock() + float(deadline_s)),
                       trace_id=trace_id or f"req-{rid}")
         self._arrival_counter += 1
+        req.prefill_only = bool(prefill_only)
         if self.tracer is not None:
             self.tracer.event(req.trace_id, "submit", rid=rid,
                               prompt_len=int(prompt.size),
@@ -947,7 +953,7 @@ class ServeEngine:
         return self._enqueue(req)
 
     def restore_progress(self, progress: RequestProgress, *,
-                         on_token=None) -> int:
+                         on_token=None, prefill_only: bool = False) -> int:
         """Admit a request MIGRATED from another engine of the same
         (family, params, sampling settings), from its exported
         :class:`RequestProgress`. The resume is the preemption path: the
@@ -955,7 +961,8 @@ class ServeEngine:
         hit in this engine's pool) and keeps drawing at counter
         ``len(generated)`` of the progress' seed, so the continuation is
         the exporter's own stream. Returns this engine's (new) request
-        id; ``on_token`` fires only for tokens generated here."""
+        id; ``on_token`` fires only for tokens generated here.
+        ``prefill_only``: as in :meth:`submit`."""
         prompt = np.asarray(progress.prompt, np.int32).reshape(-1)
         if len(progress.generated) >= progress.max_new_tokens:
             raise ValueError(
@@ -981,6 +988,7 @@ class ServeEngine:
         self._arrival_counter += 1
         req.generated = list(progress.generated)
         req.preemptions = int(progress.preemptions)
+        req.prefill_only = bool(prefill_only)
         if self.tracer is not None:
             # the migrated timeline continues here under the same id
             self.tracer.event(req.trace_id, "restore", rid=rid,
@@ -1052,7 +1060,7 @@ class ServeEngine:
             self.tracer.event(req.trace_id, "finish", rid=req.rid,
                               generated=len(req.generated),
                               preemptions=req.preemptions,
-                              handed_off=False)
+                              handed_off=req.handed_off)
         if req.adapter_id is not None:
             self.adapters.release(req.adapter_id)   # the submit-time pin
         return req.rid
@@ -1271,9 +1279,21 @@ class ServeEngine:
         if self.tracer is not None:
             self.tracer.event(req.trace_id, "prefill", tokens=len(tail),
                               bucket=bucket, start=int(start))
-        if self._append_token(slot, tok0):
+        if self._finish_first_token(slot, req, tok0):
             self._retire(slot)
         return len(tail), start
+
+    def _finish_first_token(self, slot: int, req: Request,
+                            tok0: int) -> bool:
+        """Commit a prefill's first token; True when the request retires
+        now. A ``prefill_only`` request that is not done (EOS and
+        one-token budgets finish normally) hands off: it retires with its
+        blocks published, the chain a decode replica imports."""
+        done = self._append_token(slot, tok0)
+        if not done and req.prefill_only:
+            req.handed_off = True
+            done = True
+        return done
 
     # ------------------------------------------------------------------
     # chunked prefill (serve/longctx.py)
@@ -1330,7 +1350,7 @@ class ServeEngine:
                                 [len(req.generated)])[0].item())
         self._tok[slot] = tok0
         self.metrics.record_admit()
-        if self._append_token(slot, tok0):
+        if self._finish_first_token(slot, req, tok0):
             finished.append(self._retire(slot))
 
     def _feed_chunks(self, finished: List[int]) -> Tuple[int, int]:

@@ -121,6 +121,15 @@ class Request:
     # chunked-prefill high-water mark (serve/longctx.py): positions of
     # prompt + generated whose K/V is in the pool
     prefilled: int = 0
+    # disaggregated-fleet prefill phase (fleet/proc.py): run the
+    # prefill, commit and emit the FIRST token with its real last flag
+    # (max_new_tokens is not capped, so EOS and one-token budgets finish
+    # normally), then retire with the blocks published: the chain is
+    # the handoff payload, the dispatcher's journal carries the rest to
+    # a decode replica. ``handed_off`` marks that retirement, so the
+    # dispatcher can tell "finished" from "ready to hand off".
+    prefill_only: bool = False
+    handed_off: bool = False
     # terminal error (DeadlineExceeded): the request is FINISHED but
     # result() raises this instead of returning output_ids()
     error: Optional[BaseException] = None

@@ -23,8 +23,10 @@ On the CPU every comparison is exact. JAX's compile-count cases
 blind_engine_surface_unchanged``) have no eager-PyTorch meaning; the
 trace of the first (a tenant registered and another evicted mid-session)
 runs here with each decode call's bucket checked instead. The tp2 case
-runs in ``tests/test_torch_serve_mesh.py``'s world; the fleet cases wait
-for the fleet.
+runs in ``tests/test_torch_serve_mesh.py``'s world. The fleet cases:
+the router's adapter-affinity pre-filter against JAX's, and a replica
+killed mid-flight whose adapter requests resume on a replica that never
+held the adapter, equal to the dedicated merged engines.
 """
 
 import jax
@@ -545,3 +547,76 @@ def test_adapters_refused_with_sp_and_ep(params, tenants, option):
     with pytest.raises(NotImplementedError, match="multi-tenant adapters"):
         ServeEngine(gpt2_family(cfg), tp, device="cpu", mesh=mesh,
                     adapters=_registry(tenants), **ENGINE, **fam_kw)
+
+
+# ---------------------------------------------------------------------
+# the fleet: affinity routing, kill-migration onto a cold replica
+# ---------------------------------------------------------------------
+
+class _AffinityReplica:
+    def __init__(self, name, tokens, resident):
+        self.name = name
+        self.outstanding_tokens = tokens
+        self._resident = set(resident)
+
+    def adapter_resident(self, aid):
+        return aid in self._resident
+
+
+def test_router_adapter_affinity_prefilter():
+    """Affinity narrows to warm replicas first, a soft preference: with
+    none warm the whole list stands. JAX's router picks the same."""
+    from quintnet_tpu.fleet.router import Router as JaxRouter
+    from quintnet_tpu_torch.fleet.router import Router
+
+    cold = _AffinityReplica("r0", 0, ())
+    warm = _AffinityReplica("r1", 100, ("a",))
+    for cls in (Router, JaxRouter):
+        r = cls("least_work")
+        assert r.pick([cold, warm]) is cold
+        assert r.pick([cold, warm], adapter_id="a") is warm
+        assert r.pick([cold, warm], adapter_id="zzz") is cold
+
+
+def test_fleet_kill_migration_onto_cold_replica(params, tenants):
+    """r0 dies mid-flight with its breaker held open; every in-flight
+    adapter request resumes on r1, whose registry never held the adapter,
+    equal to the dedicated merged engine at its seed; the cold replica
+    loads what it is handed."""
+    from quintnet_tpu_torch.fleet import ServeFleet
+    from quintnet_tpu_torch.ft import ChaosMonkey
+
+    tp = params[1]
+    paths = {aid: t[2] for aid, t in tenants.items()}
+
+    def factory():
+        reg = AdapterRegistry()
+        for aid, path in paths.items():
+            reg.register(aid, path)
+        return _engine(tp, adapters=reg, max_slots=2)
+
+    fleet = ServeFleet(factory, n_replicas=2, trip_after=1,
+                       breaker_reset_s=1e9,
+                       chaos=ChaosMonkey(kill_at_step=6, mode="raise",
+                                         target="r0"))
+    try:
+        for aid in paths:
+            fleet.replicas[1].engine.adapters.evict(aid)
+        assert not fleet.replicas[1].adapter_resident("tenant-a")
+        prompts = _prompts(6, (6, 5, 7))
+        seeds = [60, 61, 62]
+        aids = ["tenant-a", "tenant-b", "tenant-a"]
+        fids = [fleet.submit(p, 16, seed=sd, adapter_id=a)
+                for p, sd, a in zip(prompts, seeds, aids)]
+        outs = [fleet.result(f, timeout=120) for f in fids]
+        assert fleet.metrics.replica_deaths >= 1
+        assert fleet.metrics.migrations >= 1
+        for o, p, sd, a in zip(outs, prompts, seeds, aids):
+            np.testing.assert_array_equal(
+                o, _dedicated(tp, tenants, a, p, 16, sd))
+        assert fleet.replicas[1].adapter_resident("tenant-a")
+        agg = fleet.engine_summary()["adapters"]
+        assert agg["tenant-a"]["requests"] == 2
+        assert agg["tenant-b"]["requests"] == 1
+    finally:
+        fleet.close()

@@ -568,10 +568,10 @@ SP_RUNS = ("sp2_ring", "sp2_zigzag", "sp2_ulysses")
 
 
 def test_sp_mesh_runs_parse_and_share_the_two_rank_world():
-    """The sequence-parallel runs: GPT-2 124M widths (6 layers) at its
+    """The sequence-parallel runs: GPT-2 124M widths (4 layers) at its
     1,024 positions on sp = 2 in each mode, and Llama by Ulysses; all in
     the 2-rank world; the three GPT-2 runs one reference, the Llama run
-    llama_tp2's; K1-K3 a step only under Ulysses (6 layers x 2
+    llama_tp2's; K1-K3 a step only under Ulysses (4 layers x 2
     micro-batches; Llama's 2 x 2); the permutation and the Ulysses
     exchange probed and gated."""
     runs = {n: chip_smoke.MESH_RUNS[n] for n in SP_RUNS
@@ -585,17 +585,17 @@ def test_sp_mesh_runs_parse_and_share_the_two_rank_world():
         assert not chip_smoke._exact(run)
     for name in SP_RUNS:
         cfg = chip_smoke._run_model(runs[name])
-        assert (cfg.n_layer, cfg.n_embd, cfg.n_head) == (6, 768, 12)
+        assert (cfg.n_layer, cfg.n_embd, cfg.n_head) == (4, 768, 12)
         assert chip_smoke.MESH_MODELS["gpt2_1k"][1] == cfg.n_positions \
             == 1024
     assert len({chip_smoke._ref_key(runs[n]) for n in SP_RUNS}) == 1
     assert chip_smoke._ref_key(runs["llama_sp2_ulysses"]) == \
         chip_smoke._ref_key(chip_smoke.MESH_RUNS["llama_tp2"])
     zero = {k: 0 for k in chip_smoke.FLASH_KERNELS}
-    assert chip_smoke._per_step(runs["sp2_ring"], 6) == zero
-    assert chip_smoke._per_step(runs["sp2_zigzag"], 6) == zero
-    assert chip_smoke._per_step(runs["sp2_ulysses"], 6) == {
-        k: 12 for k in chip_smoke.FLASH_KERNELS}
+    assert chip_smoke._per_step(runs["sp2_ring"], 4) == zero
+    assert chip_smoke._per_step(runs["sp2_zigzag"], 4) == zero
+    assert chip_smoke._per_step(runs["sp2_ulysses"], 4) == {
+        k: 8 for k in chip_smoke.FLASH_KERNELS}
     assert chip_smoke._run_model(runs["llama_sp2_ulysses"]).n_layers == 2
     assert chip_smoke._per_step(runs["llama_sp2_ulysses"], 2) == {
         k: 4 for k in chip_smoke.FLASH_KERNELS}
@@ -673,7 +673,7 @@ VP_RUNS = ("vp_tp2", "llama_vp_tp2", "vp_tp2_sp2")
 
 
 def test_vp_mesh_runs_parse():
-    """The vocab-parallel runs: GPT-2 124M widths (6 layers) with its
+    """The vocab-parallel runs: GPT-2 124M widths (4 layers) with its
     table padded to 50,304 rows on tp = 2 (25,152 a rank; then 16 greedy
     tokens by ``gpt2_generate_tp``), Llama-3.2-1B widths at 2 layers on
     tp = 2 (sharing llama_tp2's reference: vp without tp changes
@@ -684,7 +684,7 @@ def test_vp_mesh_runs_parse():
     for name, cfg in cfgs.items():
         assert cfg.vocab_parallel and not chip_smoke._exact(runs[name])
     g = cfgs["vp_tp2"]
-    assert (g.n_layer, g.vocab_size, g.table_vocab_size) == (6, 50257, 50304)
+    assert (g.n_layer, g.vocab_size, g.table_vocab_size) == (4, 50257, 50304)
     assert chip_smoke._run_opts(runs["vp_tp2"])["generate"] == 16
     assert cfgs["vp_tp2_sp2"].n_layer == 4
     assert cfgs["llama_vp_tp2"].table_vocab_size == 128256
@@ -752,10 +752,10 @@ def test_vp_mesh_runs_on_cpu_ranks(tmp_path, monkeypatch, name, sizes):
 
 def test_serve_mesh_runs_parse_and_join_the_two_rank_world():
     """The serving mesh runs (``SERVE_MESH_RUNS``): tp = 2 on GPT-2 124M
-    widths at 6 layers and on Llama-3.2-1B widths at 4 layers, sp = 2 on
-    GPT-2 124M widths at 6 layers
+    widths at 4 layers and on Llama-3.2-1B widths at 4 layers, sp = 2 on
+    GPT-2 124M widths at 4 layers
     (the 1,000-token document through buckets of 256, 128 positions a
-    rank), ep = 2 on GPT-2 124M widths at 6 layers with 8 experts,
+    rank), ep = 2 on GPT-2 124M widths at 4 layers with 8 experts,
     top-2, dropless and at the default capacity factor 1.25; every mesh two ranks wide (they
     join the mesh phase's 2-rank world), and the training runs' worlds
     unchanged."""
@@ -764,13 +764,13 @@ def test_serve_mesh_runs_parse_and_join_the_two_rank_world():
                          "serve_ep2", "serve_ep2_drops"}
     assert all(sum(v for v in r[0].values()) == 2 for r in runs.values())
     gpt2 = chip_smoke._serve_mesh_cfg("gpt2")
-    assert (gpt2.n_layer, gpt2.n_embd, gpt2.n_head) == (6, 768, 12)
+    assert (gpt2.n_layer, gpt2.n_embd, gpt2.n_head) == (4, 768, 12)
     llama = chip_smoke._serve_mesh_cfg("llama")
     assert (llama.n_layers, llama.dim, llama.n_heads,
             llama.n_kv_heads) == (4, 2048, 32, 8)
     moe = chip_smoke._serve_mesh_cfg("gpt2_moe")
     assert (moe.n_layer, moe.n_embd, moe.n_experts,
-            moe.expert_top_k) == (6, 768, 8, 2)
+            moe.expert_top_k) == (4, 768, 8, 2)
     # dropless: C = each call's tokens
     assert moe.capacity_factor * moe.expert_top_k == moe.n_experts
     drops = chip_smoke._serve_mesh_cfg("gpt2_moe_drops")
@@ -1036,3 +1036,52 @@ def test_serve_fleet_deaths_other_than_the_armed_one_fail(monkeypatch,
     assert len(outs) == len(prompts)
     with pytest.raises(AssertionError, match="expected only the armed"):
         chip_smoke._check_fleet_run(fleet, cfg, launches)
+
+
+# ---------------------------------------------------------------------
+# the slice-21 serving phase (serve_proc_fleet)
+# ---------------------------------------------------------------------
+
+def test_serve_proc_fleet_phase_on_cpu(monkeypatch, tiny_gpt2):
+    """serve_proc_fleet on a tiny GPT-2, its replicas CPU processes built
+    from chip_smoke's own builder: the colocated greedy and sampled runs
+    with the real SIGKILL (one death, a migration, the restart probed,
+    the crash dump's mirrored ring), the front door's stream, the
+    disaggregated run's handoffs, each against its oracle, and the K4
+    arithmetic each child reports (the CPU launches nothing, so the
+    launch counts themselves are gated on the card)."""
+    _on_cpu(monkeypatch)
+    params, cfg = tiny_gpt2
+    res, totals = chip_smoke.phase_serve_proc_fleet(params, cfg)
+    n = chip_smoke.FLEET_REQUESTS
+    for mode in ("colocated_greedy", "colocated_sampled"):
+        run = res["runs"][mode]
+        assert run["replica_deaths"] == 1 and run["restarts"] >= 1
+        assert run["migrations"] >= 1 and run["stalls"] == 0
+        assert run["journaled_at_kill"] >= chip_smoke.PROC_KILL[1]
+        assert run["crash_dump"]["ring"] >= 1
+        assert set(run["step_ms_p50"]) == {"p0", "p1", "p2", "p1 (dead)"}
+        assert set(run["launches_by_replica"]) == {"p0", "p1", "p2"}
+        assert run["launches_by_replica"]["p1"]["prefill"] == 2  # the probe
+        assert run["restart_s"] > 0 and run["spawn_to_hello_s"] > 0
+    greedy = res["runs"]["colocated_greedy"]
+    assert greedy["tokens_checked_vs_dense"] == n * chip_smoke.FLEET_NEW
+    assert greedy["front_door"]["healthz"] == "ok"
+    assert greedy["front_door"]["streamed_tokens"] == chip_smoke.FLEET_NEW
+    assert greedy["front_door"]["exposition_samples"] > 0
+    sampled = res["runs"]["colocated_sampled"]
+    assert sampled["tokens_agreeing_with_one_engine"] == \
+        sampled["tokens_compared"]
+    disagg = res["runs"]["disaggregated_greedy"]
+    assert disagg["handoffs"] == disagg["handoff_transfers"] == n
+    assert disagg["handoff_fallbacks"] == 0 and disagg["replica_deaths"] == 0
+    assert disagg["tokens_agreeing_with_colocated"] == \
+        disagg["tokens_compared"] == n * chip_smoke.FLEET_NEW
+    assert disagg["kv_bytes_shipped"] > 0 and disagg["handoff_ms"]["n"] == n
+    by = disagg["launches_by_replica"]
+    assert set(by) == {"prefill0", "decode0", "decode1"}
+    assert by["prefill0"] == {"decode": 0, "prefill": 2 * n}
+    assert by["decode0"]["decode"] > 0 and by["decode1"]["decode"] > 0
+    assert totals == {k: sum(w[k] for r in res["runs"].values()
+                             for w in r["launches_by_replica"].values())
+                      for k in ("decode", "prefill")}

@@ -1,7 +1,6 @@
 """The port's host KV tier (quintnet_tpu_torch/serve/kv_tier.py and its
 hooks in kv_pool.py, scheduler.py, engine.py) against the JAX package:
-the cases of ``tests/test_kv_tier.py`` (the fleet's peer lookup,
-``test_fleet_peer_lookup_beats_reprefill``, waits for the fleet).
+the cases of ``tests/test_kv_tier.py``.
 
 - ``HostTier``: the byte-budgeted LRU, ``contains`` without a touch, an
   oversized record refused, an overwrite, plain-scalar summaries;
@@ -17,7 +16,10 @@ the cases of ``tests/test_kv_tier.py`` (the fleet's peer lookup,
   pools, and the greedy streams equal JAX's tier-on engine's; a
   promotion runs while another slot keeps decoding; a record evicted
   mid-promotion degrades to a re-prefill; the constructor's checks with
-  JAX's messages.
+  JAX's messages;
+- the process fleet's peer lookup: a request dispatched to a cold
+  replica is warmed from a peer's chain (``kv_peek`` -> ``kv_export`` ->
+  ``kv_import`` over the wire) instead of re-prefilled, token for token.
 
 Every comparison here is exact (bytes or tokens).
 """
@@ -543,3 +545,48 @@ def test_constructor_checks_match_jax(params, kw):
 def test_limits_report_tier(params):
     assert _engine(params[1], kv_tier_bytes=1 << 20).limits()["kv_tier"]
     assert _engine(params[1]).limits()["kv_tier"] is False
+
+
+# ---------------------------------------------------------------------
+# the process fleet: peer lookup ships a warm chain instead of a
+# re-prefill
+# ---------------------------------------------------------------------
+
+def test_fleet_peer_lookup_beats_reprefill(rng):
+    """2 process replicas, round robin: the first request warms p0; the
+    same prompt then dispatches to p1, whose peer lookup probes the fleet
+    (``kv_peek``), finds p0's chain and ships it over ``kv_export`` /
+    ``kv_import`` before the submit lands — token for token the oracle
+    at each seed (the children's weights: the builder's seeded init)."""
+    import os
+
+    from _torch_proc_factories import tiny_params
+
+    from quintnet_tpu_torch.fleet import ProcessFleet
+
+    factory = os.path.join(os.path.dirname(__file__),
+                           "_torch_proc_factories.py")
+    spec = {"file": factory, "func": "build_tiny_gpt2",
+            "kwargs": {"temperature": 0.8, "top_k": 5, "max_seq_len": 40,
+                       "num_blocks": 24, "kv_tier_bytes": 1 << 20}}
+    tp = tiny_params(CFG)
+    fleet = ProcessFleet(spec, n_replicas=2, policy="round_robin",
+                         device="cpu", spawn_timeout_s=240.0)
+    try:
+        prompt = rng.integers(0, CFG.vocab_size, (12,)).astype(np.int32)
+        out1 = fleet.generate([prompt], max_new_tokens=6, seeds=[11],
+                              timeout=300)[0]
+        probes0 = fleet.metrics.tier_probes
+        out2 = fleet.generate([prompt], max_new_tokens=6, seeds=[22],
+                              timeout=300)[0]
+        assert fleet.metrics.tier_probes > probes0
+        assert fleet.metrics.tier_peer_transfers >= 1
+        for out, seed in ((out1, 11), (out2, 22)):
+            np.testing.assert_array_equal(out, _oracle(
+                tp, prompt, 6, seed=seed, temperature=0.8, top_k=5))
+        s = fleet.summary()
+        assert s["tier_peer_transfers"] >= 1
+        assert s["tier_peer_fallbacks"] == 0
+        assert s["engines"]["p1"]["prefix_hit_tokens"] > 0
+    finally:
+        fleet.close()

@@ -186,7 +186,8 @@ def test_generation_refusals_name_items_6_and_7():
 def test_fleet_refusals_name_item_9():
     """``ServeFleet(lock_audit=True)`` and ``assert_compile_count`` rest on
     the static checks (item 9): each raises ``NotImplementedError``
-    naming item 9, which ROADMAP.md lists."""
+    naming item 9, which ROADMAP.md lists; so do the process fleet's two
+    (``ProcessFleet(lock_audit=True)`` before it spawns anything)."""
     import numpy as np
     import torch
 
@@ -214,6 +215,14 @@ def test_fleet_refusals_name_item_9():
         assert len(out[0]) == 5
     finally:
         fleet.drain(timeout=60)
+    from quintnet_tpu_torch.fleet import ProcessFleet
+
+    with pytest.raises(NotImplementedError, match="item 9") as ei:
+        ProcessFleet({"file": "unused.py", "func": "f"}, device="cpu",
+                     lock_audit=True)
+    assert "lock_audit" in str(ei.value)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        ProcessFleet.assert_compile_count(ProcessFleet.__new__(ProcessFleet))
     assert 9 in items
     msgs = [m for w, m in _messages()
             if w == "quintnet_tpu_torch/fleet/fleet.py"]
