@@ -291,8 +291,32 @@ Phases (any failure raises and exits non-zero; nothing is caught):
    the 4 step losses and the epoch loss must equal the uncut run's bit
    for bit; each of K1, K2, K3 must have launched 12 layers x 2
    micro-batches x the 8 steps run, with no call routed away from them.
-   Prints the save and restore wall times and the checkpoint's bytes;
-   the checkpoint lives in a temporary directory, deleted at the end.
+   Prints the save and restore wall times and the checkpoint's bytes.
+   Then fault tolerance (since slice 22), in this order: the same 4
+   steps through ``fit(ft=FTContext(...))`` with a ``PreemptionHandler``
+   entered in this main thread, a ``ChaosMonkey`` that sends this
+   process a real SIGTERM after step 2 and a ``GoodputMeter`` (no
+   cadence saves): the run must raise ``TrainingPreempted`` at global
+   step 2 with only its emergency step on disk; a fresh trainer and
+   handler resume it, and the final parameters, both moments and the
+   epoch loss must equal the uncut run's bit for bit, K1-K3 launched 12
+   x 2 x the 4 steps of the two attempts, 0 routed (prints both goodput
+   reports and their ``aggregate``). ``tools/export_gpt2``'s ``main``
+   writes the run's newest step as an HF file and ``load_hf_gpt2`` reads
+   it onto the card: every leaf bit-equal to the trainer's final
+   parameters (prints the file's bytes and seconds). ``tools/eval_ppl``
+   scores that file over this repo's README.md (byte tokenizer, windows
+   of 1,024, batches of 8): K1 launched 12 times a batch and nothing
+   else, and the loss within 1e-4 relative of the same evaluation
+   through the plain attention (prints the perplexity and seconds).
+   The run's newest step corrupted, ``resume_state`` must fall back to
+   step 2 with the chaos hook called once an attempt, and again with
+   one restore failure injected (``ChaosMonkey(fail_restores=1)``).
+   Last, ``python -m quintnet_tpu_torch.tools.ft_run --device cuda``
+   at the JAX tool's smoke size (one SIGTERM kill after step 3) must
+   exit 0 having survived one fault. The walls line splits the phase's
+   seconds by part. Every file lives in a temporary directory, deleted
+   at the end.
 7. **mesh** — GPT-2 124M (f32, seed 0, dropout 0, the train phase's
    AdamW) trained on meshes of ranks that are processes sharing
    ``cuda:0`` over gloo (``torch.multiprocessing`` spawn, a FileStore;
@@ -4785,7 +4809,37 @@ class _Cut(Exception):
     """Raised by the data to cut a run between two steps."""
 
 
-def phase_resume():
+def _state_differs(a, b):
+    """The leaves of two ``(params, opt_state)`` that are not bit-equal
+    (parameters, both Adam moments), and the step counts."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+
+    (pa, oa), (pb, ob) = a, b
+    ref_p = dict(tree_leaves(pb))
+    differ = [".".join(k) for k, v in tree_leaves(pa)
+              if not torch.equal(v, ref_p[k])]
+    for m in ("mu", "nu"):
+        ref_m = dict(tree_leaves(ob[m]))
+        differ += [f"{m}.{'.'.join(k)}" for k, v in tree_leaves(oa[m])
+                   if not torch.equal(v, ref_m[k])]
+    return differ, (oa["count"], ob["count"])
+
+
+def _check_launches_exact(counts, want, what):
+    from quintnet_tpu_torch.ops.flash_attention import flash_attention
+
+    if flash_attention.routed:
+        raise AssertionError(f"{what}: flash_attention routed "
+                             f"{flash_attention.routed} calls away from the "
+                             f"kernels")
+    if counts != want:
+        raise AssertionError(f"{what}: launches {counts}; expected {want}")
+
+
+def phase_resume(cfg=None, *, seq=512, batch=64):
+    """``cfg`` (GPT-2 124M by default), ``seq`` and ``batch``: the CPU
+    rehearsal in ``tests/test_torch_chip_smoke.py`` runs the phase's own
+    code at a tiny size."""
     import tempfile
 
     from quintnet_tpu_torch.core.config import Config
@@ -4793,17 +4847,21 @@ def phase_resume():
     from quintnet_tpu_torch.data import ByteTokenizer, SummarizationDataset
     from quintnet_tpu_torch.models.gpt2 import (GPT2Config, gpt2_init,
                                                 gpt2_model_spec)
-    from quintnet_tpu_torch.ops.flash_attention import flash_attention
     from quintnet_tpu_torch.train.checkpoint import CheckpointManager
     from quintnet_tpu_torch.train.trainer import Trainer
 
-    cfg = GPT2Config.base()          # every dropout rate 0
-    seq, batch, steps, n_micro, cut = 512, 64, 4, 2, 2
-    tcfg = Config.from_dict({"training": {
+    cfg = cfg or GPT2Config.base()   # every dropout rate 0
+    steps, n_micro, cut = 4, 2, 2
+    training = {
         "batch_size": batch, "gradient_accumulation_steps": n_micro,
         "optimizer": "adamw", "learning_rate": 5e-5, "weight_decay": 0.01,
         "grad_clip_norm": 1.0, "log_every": 0, "seed": 0,
-        "save_every_steps": cut}})
+        "save_every_steps": cut}
+    tcfg = Config.from_dict({"training": training})
+    # the preempted run saves on no cadence: the one step on disk when it
+    # stops is its emergency snapshot
+    ft_cfg = Config.from_dict({"training": {**training,
+                                            "save_every_steps": 0}})
     ds = SummarizationDataset.synthetic(batch * 4, ByteTokenizer(),
                                         max_length=seq, seed=0)
     host = [next(iter(ds.batches(batch, seed=i))) for i in range(steps)]
@@ -4816,8 +4874,8 @@ def phase_resume():
         yield from host[:cut]
         raise _Cut
 
-    def trainer(ckpt=None):
-        return Trainer(tcfg, spec, task_type="clm", checkpoint_dir=ckpt,
+    def trainer(ckpt=None, config=tcfg):
+        return Trainer(config, spec, task_type="clm", checkpoint_dir=ckpt,
                        device=DEVICE, log_fn=lambda m: None)
 
     params0 = gpt2_init(torch.Generator(device=DEVICE).manual_seed(0), cfg)
@@ -4826,8 +4884,13 @@ def phase_resume():
         return tree_map(lambda p: p.detach().clone().requires_grad_(True),
                         params0)
 
+    per_kernel = cfg.n_layer * n_micro       # launches of each a step
+    seconds = {}
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
     torch.use_deterministic_algorithms(True)
     try:
+        t_part = time.perf_counter()
         # main path: counts zeroed just before, read just after
         _zero_counts()
         ref = trainer()
@@ -4835,84 +4898,107 @@ def phase_resume():
         p = fresh()
         hist_ref = ref.fit(data, epochs=1, params=p,
                            opt_state=ref.optimizer.init(p))
-        with tempfile.TemporaryDirectory() as tmp:
-            ck = os.path.join(tmp, "gpt2")
-            save_s = []
+        ck = os.path.join(tmp, "gpt2")
+        save_s = []
 
-            def timed_saves(tr):
-                save_state = tr.save_state
+        def timed_saves(tr):
+            save_state = tr.save_state
 
-                def timed(*a, **kw):
-                    t0 = time.perf_counter()
-                    out = save_state(*a, **kw)
-                    save_s.append(time.perf_counter() - t0)
-                    return out
+            def timed(*a, **kw):
+                t0 = time.perf_counter()
+                out = save_state(*a, **kw)
+                save_s.append(time.perf_counter() - t0)
+                return out
 
-                tr.save_state = timed
+            tr.save_state = timed
 
-            first = trainer(ck)
-            first_losses = _recording(first)
-            timed_saves(first)
-            p = fresh()
-            try:
-                first.fit(cut_data, epochs=1, params=p,
-                          opt_state=first.optimizer.init(p))
-                raise AssertionError("the cut run was not cut")
-            except _Cut:
-                pass
-            del first, p
-            mgr = CheckpointManager(ck)
-            if mgr.all_steps() != [cut]:
-                raise AssertionError(f"checkpoints {mgr.all_steps()} after "
-                                     f"the cut; expected [{cut}]")
-            ckpt_bytes = mgr.step_bytes(cut)
-            second = trainer(ck)
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            params, opt_state, cursor = second.resume_state()
-            torch.cuda.synchronize()
-            restore_s = time.perf_counter() - t0
-            if (cursor.epoch, cursor.step_in_epoch,
-                    cursor.global_step) != (0, cut, cut):
-                raise AssertionError(f"restored cursor {cursor}")
-            second_losses = _recording(second)
-            timed_saves(second)
-            hist = second.fit(data, epochs=1, params=params,
-                              opt_state=opt_state, cursor=cursor)
+        first = trainer(ck)
+        first_losses = _recording(first)
+        timed_saves(first)
+        p = fresh()
+        try:
+            first.fit(cut_data, epochs=1, params=p,
+                      opt_state=first.optimizer.init(p))
+            raise AssertionError("the cut run was not cut")
+        except _Cut:
+            pass
+        del first, p
+        mgr = CheckpointManager(ck)
+        if mgr.all_steps() != [cut]:
+            raise AssertionError(f"checkpoints {mgr.all_steps()} after "
+                                 f"the cut; expected [{cut}]")
+        ckpt_bytes = mgr.step_bytes(cut)
+        second = trainer(ck)
+        _sync()
+        t0 = time.perf_counter()
+        params, opt_state, cursor = second.resume_state()
+        _sync()
+        restore_s = time.perf_counter() - t0
+        if (cursor.epoch, cursor.step_in_epoch,
+                cursor.global_step) != (0, cut, cut):
+            raise AssertionError(f"restored cursor {cursor}")
+        second_losses = _recording(second)
+        timed_saves(second)
+        hist = second.fit(data, epochs=1, params=params,
+                          opt_state=opt_state, cursor=cursor)
         counts = _counts()
+        run = steps + cut + (steps - cut)
+        _check_launches_exact(counts, {
+            "flash_fwd": per_kernel * run, "flash_bwd_dkv": per_kernel * run,
+            "flash_bwd_dq": per_kernel * run, "paged_attention": 0},
+            f"cut and resume (n_layer x micro-batches x the {run} steps "
+            f"run)")
+        seconds["cut_resume"] = time.perf_counter() - t_part
+        # a real SIGTERM: the preempted run and its resume, counts zeroed
+        # just before, read just after
+        t_part = time.perf_counter()
+        ft_dir = os.path.join(tmp, "gpt2-ft")
+        ft = _preempted_and_resumed(
+            lambda: trainer(ft_dir, ft_cfg), data, fresh, cut)
+        _check_launches_exact(ft["launches"], {
+            "flash_fwd": per_kernel * steps,
+            "flash_bwd_dkv": per_kernel * steps,
+            "flash_bwd_dq": per_kernel * steps, "paged_attention": 0},
+            f"preempted and resumed (n_layer x micro-batches x the {steps} "
+            f"steps of the two attempts)")
+        seconds["preempt_resume"] = time.perf_counter() - t_part
     finally:
         torch.use_deterministic_algorithms(False)
-    if flash_attention.routed:
-        raise AssertionError(f"flash_attention routed {flash_attention.routed}"
-                             f" calls away from the kernels")
-    run = steps + cut + (steps - cut)
-    per_kernel = cfg.n_layer * n_micro * run
-    want = {"flash_fwd": per_kernel, "flash_bwd_dkv": per_kernel,
-            "flash_bwd_dq": per_kernel, "paged_attention": 0}
-    if counts != want:
-        raise AssertionError(f"launches {counts}; expected {want} (n_layer "
-                             f"x micro-batches x the {run} steps run)")
-    losses = first_losses + second_losses
-    if not all(torch.equal(a, b) for a, b in zip(losses, ref_losses)) \
-            or len(losses) != steps:
-        raise AssertionError(
-            f"step losses: uncut {[float(v) for v in ref_losses]}, cut and "
-            f"resumed {[float(v) for v in losses]}")
-    if hist.train_loss != hist_ref.train_loss:
-        raise AssertionError(f"epoch loss {hist.train_loss} != uncut "
-                             f"{hist_ref.train_loss}")
-    (pa, oa), (pb, ob) = second.final_state, ref.final_state
-    differ = [".".join(k) for k, v in tree_leaves(pa)
-              if not torch.equal(v, dict(tree_leaves(pb))[k])]
-    for m in ("mu", "nu"):
-        ref_m = dict(tree_leaves(ob[m]))
-        differ += [f"{m}.{'.'.join(k)}" for k, v in tree_leaves(oa[m])
-                   if not torch.equal(v, ref_m[k])]
-    n_leaves = len(list(tree_leaves(pa)))
-    if differ or oa["count"] != ob["count"]:
-        raise AssertionError(f"after resume, not bit-identical to the "
-                             f"uncut run: {differ[:8]} (count "
-                             f"{oa['count']} vs {ob['count']})")
+    try:
+        losses = first_losses + second_losses
+        if not all(torch.equal(a, b) for a, b in zip(losses, ref_losses)) \
+                or len(losses) != steps:
+            raise AssertionError(
+                f"step losses: uncut {[float(v) for v in ref_losses]}, cut "
+                f"and resumed {[float(v) for v in losses]}")
+        for name, got, h in (("cut", second, hist),
+                             ("preempted", ft["trainer"], ft["hist"])):
+            if h.train_loss != hist_ref.train_loss:
+                raise AssertionError(f"{name}: epoch loss {h.train_loss} != "
+                                     f"uncut {hist_ref.train_loss}")
+            differ, (c_got, c_ref) = _state_differs(got.final_state,
+                                                    ref.final_state)
+            if differ or c_got != c_ref:
+                raise AssertionError(
+                    f"{name}: after resume, not bit-identical to the uncut "
+                    f"run: {differ[:8]} (count {c_got} vs {c_ref})")
+        final_params = ft["trainer"].final_state[0]
+        n_leaves = len(list(tree_leaves(final_params)))
+        t_part = time.perf_counter()
+        hf = _export_and_reload(ft_dir, final_params, tmp, cfg)
+        seconds["export_reload"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        ppl = _perplexity(hf["path"], cfg)
+        seconds["perplexity"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        fallback = _fallback(lambda: trainer(ft_dir, ft_cfg), ft_dir, cut,
+                             steps)
+        seconds["fallback"] = time.perf_counter() - t_part
+        t_part = time.perf_counter()
+        supervisor = _supervisor_on_card(tmp)
+        seconds["supervisor"] = time.perf_counter() - t_part
+    finally:
+        tmp_dir.cleanup()
     res = {"phase": "resume",
            "model": "gpt2-124M f32 (random init, seed 0), flash attention",
            "global_batch": batch, "micro_batches": n_micro, "seq_len": seq,
@@ -4922,15 +5008,238 @@ def phase_resume():
            "losses": [float(v) for v in ref_losses],
            "bit_identical": {"param_leaves": n_leaves,
                              "adam_moment_leaves": 2 * n_leaves,
-                             "step_losses": steps, "epoch_loss": True},
+                             "step_losses": steps, "epoch_loss": True,
+                             "runs": ["cut", "preempted"]},
            "launches": counts,
-           "flash_attention_routed": flash_attention.routed,
            # save_s: the cut run's step-2 save, then the resumed run's
            # step-4 cadence save and its epoch-end rewrite
            "checkpoint_bytes": ckpt_bytes, "save_s": save_s,
-           "restore_s": restore_s, "card": _smi()}
+           "restore_s": restore_s,
+           "preempted": {k: v for k, v in ft.items()
+                         if k not in ("trainer", "hist")},
+           "hf_export": hf, "perplexity": ppl, "fallback": fallback,
+           "supervisor": supervisor, "seconds": seconds, "card": _smi()}
     _emit(res)
-    return res, counts
+    # the kernels line counts every launch of the phase's main paths
+    total = {k: counts[k] + ft["launches"][k] + ppl["launches"][k]
+             for k in counts}
+    return res, total
+
+
+def _preempted_and_resumed(make_trainer, data, fresh, stop):
+    """The preemption on the card: ``fit(ft=FTContext(...))`` with a
+    ``PreemptionHandler`` entered in this (the main) thread, a
+    ``ChaosMonkey`` that sends this process a real SIGTERM after global
+    step ``stop``, and a ``GoodputMeter``; the run must raise
+    ``TrainingPreempted`` at that step with only its emergency snapshot
+    on disk. A fresh trainer with a fresh handler then resumes. Returns
+    the stop, the goodput reports and their ``aggregate``, the
+    emergency save's and the restore's seconds, the launch counts of
+    both attempts, and the resumed trainer and History."""
+    from quintnet_tpu_torch.ft import (ChaosMonkey, FTContext, GoodputMeter,
+                                       PreemptionHandler, TrainingPreempted)
+    from quintnet_tpu_torch.ft.goodput import aggregate
+    from quintnet_tpu_torch.train.checkpoint import CheckpointManager
+
+    t_run = time.perf_counter()
+    _zero_counts()
+    meters = [GoodputMeter()]        # one a process attempt, from its start
+    first = make_trainer()
+    p = fresh()
+    with PreemptionHandler() as handler:
+        try:
+            first.fit(data, epochs=1, params=p,
+                      opt_state=first.optimizer.init(p),
+                      ft=FTContext(preemption=handler,
+                                   chaos=ChaosMonkey(kill_at_step=stop,
+                                                     mode="sigterm"),
+                                   goodput=meters[0]))
+            raise AssertionError("the SIGTERM did not preempt the run")
+        except TrainingPreempted as e:
+            stopped = [e.epoch, e.step_in_epoch, e.global_step]
+        signalled = handler.triggered
+    reports = [meters[0].report(completed=False)]
+    mgr = CheckpointManager(first.checkpoint_dir)
+    on_disk = mgr.all_steps()
+    if not signalled or stopped != [0, stop, stop] or on_disk != [stop]:
+        raise AssertionError(
+            f"preemption: signalled {signalled}, stopped at {stopped} "
+            f"(want [0, {stop}, {stop}]), steps on disk {on_disk} "
+            f"(want [{stop}]: the emergency snapshot)")
+    snapshot_bytes = mgr.step_bytes(stop)
+    del first, p
+    meters.append(GoodputMeter())
+    second = make_trainer()
+    with PreemptionHandler() as handler:
+        hist = second.fit(data, epochs=1,
+                          ft=FTContext(preemption=handler,
+                                       goodput=meters[1]))
+    reports.append(meters[1].report(completed=True))
+    launches = _counts()
+    wall = time.perf_counter() - t_run
+    agg = aggregate(reports, wall_s=wall)
+    for rep in reports:
+        print(json.dumps({"ft_attempt": rep}), flush=True)
+    print(json.dumps({"ft_aggregate": agg}), flush=True)
+    return {"stopped_at": stopped, "steps_on_disk": on_disk,
+            "emergency_save_s": reports[0]["save_blocking_s"],
+            "emergency_bytes": snapshot_bytes,
+            "restore_s": reports[1]["restore_s"],
+            "goodput_reports": reports, "goodput_aggregate": agg,
+            "wall_s": wall, "launches": launches, "trainer": second,
+            "hist": hist}
+
+
+def _export_and_reload(ckpt_dir, final_params, tmp, cfg):
+    """``tools/export_gpt2``'s ``main`` on the preempted run's directory
+    (its newest step, the run's end; ``cfg``'s sizes), then
+    ``load_hf_gpt2`` onto the card: every leaf bit-equal to the
+    trainer's final parameters."""
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+    from quintnet_tpu_torch.models.gpt2_io import load_hf_gpt2
+    from quintnet_tpu_torch.tools import export_gpt2
+
+    path = os.path.join(tmp, "gpt2-124m-hf.safetensors")
+    t0 = time.perf_counter()
+    step = export_gpt2.main([
+        "--checkpoint-dir", ckpt_dir, "--out", path,
+        "--n-layer", str(cfg.n_layer), "--n-embd", str(cfg.n_embd),
+        "--n-head", str(cfg.n_head), "--vocab-size", str(cfg.vocab_size),
+        "--n-positions", str(cfg.n_positions)])
+    export_s = time.perf_counter() - t0
+    _sync()
+    t0 = time.perf_counter()
+    params, _cfg = load_hf_gpt2(path, device=DEVICE)
+    _sync()
+    load_s = time.perf_counter() - t0
+    want = dict(tree_leaves(final_params))
+    got = dict(tree_leaves(params))
+    differ = sorted(".".join(k) for k in want
+                    if k not in got or not torch.equal(got[k], want[k]))
+    if differ or got.keys() != want.keys():
+        raise AssertionError(f"exported and reloaded params differ from the "
+                             f"trainer's: {differ[:8]}")
+    return {"path": path, "step": step, "bytes": os.path.getsize(path),
+            "export_s": export_s, "load_s": load_s,
+            "leaves_bit_equal": len(want)}
+
+
+PPL_TEXT = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                        "README.md")
+PPL_SEQ, PPL_BATCH = 1024, 8
+PPL_RTOL = 1e-4           # the flash path's loss against the plain one's
+
+
+def _perplexity(path, cfg):
+    """``tools/eval_ppl``'s evaluation of the exported checkpoint over this
+    repo's README.md (byte tokenizer, windows of 1,024) through the flash
+    dispatcher, counts zeroed just before and read just after: K1 once a
+    layer a batch, nothing else; then the same through the plain
+    attention: the loss within ``PPL_RTOL`` relative."""
+    import math
+
+    from quintnet_tpu_torch.tools import eval_ppl
+
+    text = PPL_TEXT
+    _zero_counts()
+    flash = eval_ppl.evaluate(text, checkpoint=path, seq=PPL_SEQ,
+                              batch=PPL_BATCH, device=DEVICE)
+    launches = _counts()
+    batches = math.ceil(flash["windows"] / PPL_BATCH)
+    _check_launches_exact(launches, {
+        "flash_fwd": cfg.n_layer * batches, "flash_bwd_dkv": 0,
+        "flash_bwd_dq": 0, "paged_attention": 0},
+        f"eval_ppl (K1 once a layer for each of the {batches} batches)")
+    plain = eval_ppl.evaluate(text, checkpoint=path, seq=PPL_SEQ,
+                              batch=PPL_BATCH, device=DEVICE,
+                              use_flash=False)
+    rel = abs(flash["loss"] - plain["loss"]) / abs(plain["loss"])
+    if not (math.isfinite(flash["loss"]) and rel <= PPL_RTOL):
+        raise AssertionError(f"eval_ppl: flash loss {flash['loss']} vs plain "
+                             f"{plain['loss']} (rel {rel} > {PPL_RTOL})")
+    return {"text": os.path.basename(text), "seq": PPL_SEQ,
+            "batch": PPL_BATCH,
+            "windows": flash["windows"], "real_tokens": flash["real_tokens"],
+            "loss": flash["loss"], "perplexity": flash["perplexity"],
+            "seconds": flash["seconds"], "plain_loss": plain["loss"],
+            "plain_seconds": plain["seconds"], "rel_diff": rel,
+            "launches": launches}
+
+
+def _fallback(make_trainer, ckpt_dir, good, newest):
+    """The newest step of the preempted run's directory corrupted
+    (``corrupt_checkpoint``): ``resume_state`` walks back to the older
+    good step, the chaos hook called once for each attempt; then one
+    restore failure injected through ``ChaosMonkey(fail_restores=1)``
+    and the hook: again the older step."""
+    from quintnet_tpu_torch.ft import (ChaosMonkey, GoodputMeter,
+                                       corrupt_checkpoint)
+
+    corrupt_checkpoint(ckpt_dir, newest, kind="truncate")
+    out = {}
+    for name, fail in (("corrupt", 0), ("injected", 1)):
+        chaos = ChaosMonkey(fail_restores=fail)
+        calls = []
+        attempt = chaos.on_restore_attempt
+
+        def hook(step, attempt=attempt, calls=calls):
+            calls.append(step)
+            attempt(step)
+
+        chaos.on_restore_attempt = hook
+        meter = GoodputMeter()
+        tr = make_trainer()
+        _sync()
+        t0 = time.perf_counter()
+        _p, _o, cursor = tr.resume_state(chaos=chaos, goodput=meter)
+        _sync()
+        wall = time.perf_counter() - t0
+        if (cursor.global_step != good or calls != [newest, good]
+                or chaos.restore_failures_injected != fail
+                or meter.fallback_steps != 1):
+            raise AssertionError(
+                f"fallback ({name}): resumed at {cursor.global_step} (want "
+                f"{good}), hook calls {calls} (want [{newest}, {good}]), "
+                f"{chaos.restore_failures_injected} injected (want {fail}), "
+                f"{meter.fallback_steps} skipped (want 1)")
+        out[name] = {"resumed_at": cursor.global_step, "hook_calls": calls,
+                     "restore_s": wall}
+        del tr, _p, _o
+    return out
+
+
+FT_RUN_ARGS = ("--epochs", "2", "--samples", "32", "--batch-size", "16",
+               "--save-every", "1", "--kill-at", "3", "--kill-mode",
+               "sigterm")
+
+
+def _supervisor_on_card(tmp):
+    """``python -m quintnet_tpu_torch.tools.ft_run --device cuda`` at the
+    JAX tool's smoke size: the child is preempted by a SIGTERM after
+    step 3, relaunched, and completes (the tiny ViT runs no kernel: this
+    proves the relaunch loop on the card)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    cmd = [sys.executable, "-m", "quintnet_tpu_torch.tools.ft_run",
+           "--device", DEVICE, "--run-dir", os.path.join(tmp, "ft_run"),
+           *FT_RUN_ARGS]
+    env = {k: v for k, v in os.environ.items() if k != "QT_CHAOS"}
+    t0 = time.perf_counter()
+    out = subprocess.run(cmd, cwd=root, env=env, capture_output=True,
+                         text=True, timeout=600)
+    wall = time.perf_counter() - t0
+    try:
+        rec = json.loads(out.stdout.strip().splitlines()[-1])
+    except (IndexError, json.JSONDecodeError):
+        rec = None
+    if (out.returncode != 0 or rec is None
+            or rec.get("metric") != "ft_goodput"
+            or rec["extras"]["faults_survived"] != 1
+            or rec["extras"]["completed"] is not True):
+        raise AssertionError(f"ft_run on the card: rc {out.returncode}, "
+                             f"record {rec}\n{out.stdout[-2000:]}"
+                             f"{out.stderr[-2000:]}")
+    return {"command": " ".join(cmd[1:]), "rc": out.returncode,
+            "wall_s": wall, "record": rec}
 
 
 # ---------------------------------------------------------------------
@@ -6846,9 +7155,11 @@ def main() -> int:
         llama_res["first_loss_flash"])
     _res, packed_counts = timed("llama_packed", phase_llama_packed)
     timed("vit", phase_vit)
-    _res, resume_counts = timed("resume", phase_resume)
+    resume_res, resume_counts = timed("resume", phase_resume)
     mesh_counts = timed("mesh", phase_mesh)
     _emit({"phase": "walls", "seconds": walls,
+           "resume_parts_s": {k: round(v, 3) for k, v in
+                              resume_res["seconds"].items()},
            "total_s": round(time.perf_counter() - t_start, 3)})
 
     def entry(name, source, replaces, launches, rows, head):

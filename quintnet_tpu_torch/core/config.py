@@ -288,3 +288,19 @@ def load_config(path: str) -> Config:
                     f"pass the same config as a .json file") from e
             raw = yaml.safe_load(f)
     return Config.from_dict(raw or {})
+
+
+def merge_configs(base: Config, override: Dict[str, Any]) -> Config:
+    """Deep-merge a dict of overrides into a Config: nested dicts merge
+    key by key, any other value replaces the base's."""
+    merged = base.to_dict()
+
+    def _deep(dst, src):
+        for k, v in src.items():
+            if isinstance(v, dict) and isinstance(dst.get(k), dict):
+                _deep(dst[k], v)
+            else:
+                dst[k] = v
+
+    _deep(merged, override)
+    return Config.from_dict(merged)

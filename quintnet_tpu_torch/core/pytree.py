@@ -1,10 +1,16 @@
-"""Parameter-tree helpers: leaves, map, and the weight-decay mask.
+"""Parameter-tree helpers: leaves, map, the weight-decay mask, and the
+tree arithmetic of the JAX package (counting, stacking, casting, the
+global norm).
 
-Port of the part of ``quintnet_tpu/core/pytree.py`` that training uses.
-Parameter trees are nested dicts of tensors (the JAX pytree layout).
+Port of ``quintnet_tpu/core/pytree.py``. Parameter trees are nested
+dicts of tensors (the JAX pytree layout).
 """
 
 from __future__ import annotations
+
+from typing import Any, List, Sequence
+
+import torch
 
 # Dict keys naming weight matrices and embedding tables: the leaves that
 # AdamW weight decay applies to. Everything else (biases, LayerNorm
@@ -45,3 +51,55 @@ def decay_mask(params):
         return key in DECAY_KEYS
 
     return mask(params, "")
+
+
+def tree_count_params(tree) -> int:
+    return sum(x.numel() for _, x in tree_leaves(tree))
+
+
+def tree_bytes(tree) -> int:
+    return sum(x.numel() * x.element_size() for _, x in tree_leaves(tree))
+
+
+def tree_stack(trees: Sequence[Any]):
+    """Stack trees of one layout along a new leading axis (per-layer
+    blocks -> the stacked ``[L, ...]`` blocks the models hold)."""
+    return tree_map(lambda *xs: torch.stack(xs), *trees)
+
+
+def tree_unstack(tree, n: int) -> List[Any]:
+    """Inverse of :func:`tree_stack`."""
+    return [tree_map(lambda x: x[i], tree) for i in range(n)]
+
+
+def tree_zeros_like(tree):
+    return tree_map(torch.zeros_like, tree)
+
+
+def tree_cast(tree, dtype):
+    """Floating leaves to ``dtype``; integer leaves unchanged."""
+    return tree_map(lambda x: x.to(dtype) if x.is_floating_point() else x,
+                    tree)
+
+
+def tree_add(a, b):
+    return tree_map(torch.add, a, b)
+
+
+def tree_scale(tree, s):
+    return tree_map(lambda x: x * s, tree)
+
+
+def global_norm(tree) -> torch.Tensor:
+    """The L2 norm over every leaf, in f32 (a 0-d tensor)."""
+    sums = [x.float().square().sum() for _, x in tree_leaves(tree)]
+    return torch.sqrt(torch.stack(sums).sum())
+
+
+def clip_by_global_norm(tree, max_norm: float):
+    """``(tree scaled by min(1, max_norm / (norm + 1e-6)), norm)``: a new
+    tree (the train step's in-place clip is
+    ``parallel/train_step.clip_by_global_norm``)."""
+    norm = global_norm(tree)
+    scale = torch.clamp(max_norm / (norm + 1e-6), max=1.0)
+    return tree_map(lambda x: x * scale, tree), norm

@@ -3,8 +3,10 @@
 Port of ``quintnet_tpu/data/datasets.py``, numpy only: the MNIST half
 (IDX / ``.gz`` / ``mnist.npz`` files, the reference's normalisation, the
 deterministic ``synthetic_mnist`` stand-in, ``ArrayDataset`` and
-``make_batches``) and the GPT-2 half (byte tokenizer, summarization
-rows, packed rows). It is the same code, so the port and the JAX package
+``make_batches``), the GPT-2 half (byte tokenizer, summarization
+rows, packed rows) and the Hugging Face readers (``load_hf_dataset``,
+``summarization_from_hf``, ``mnist_from_hf``; ``datasets`` imported
+inside them). It is the same code, so the port and the JAX package
 see the same arrays and the same batch order from the same seed.
 Batches are host numpy ``(x, y)`` pairs; the trainer moves them to the
 device. Every map-style iterator takes ``start_batch=`` (skip by index
@@ -138,6 +140,69 @@ def skip_batches(batches, n: int) -> Iterator:
                 f"after {k} — dataset or batch size changed since the "
                 "checkpoint was written?") from None
     return it
+
+
+def load_hf_dataset(path: str, split: str = "train"):
+    """A Hugging Face ``save_to_disk`` directory or one ``.arrow`` file ->
+    a ``datasets.Dataset`` (the reference's CustomDataset).
+
+    A directory goes through ``load_from_disk``; a DatasetDict gives its
+    ``split`` (an unknown split raises ``ValueError`` listing the
+    others). An ``.arrow`` file goes through ``Dataset.from_file``. The
+    ``datasets`` package is optional and imported here: without it this
+    raises a clear ``ImportError`` (the IDX/npz/CSV readers above need
+    nothing)."""
+    try:
+        from datasets import Dataset, DatasetDict, load_from_disk
+    except ImportError as e:
+        raise ImportError(
+            "load_hf_dataset needs the optional 'datasets' package; the "
+            "built-in IDX/npz/CSV loaders work without it") from e
+
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"dataset path does not exist: {path}")
+    if os.path.isdir(path):
+        ds = load_from_disk(path)
+        if isinstance(ds, DatasetDict):
+            if split not in ds:
+                raise ValueError(f"split {split!r} not found; available: "
+                                 f"{list(ds.keys())}")
+            return ds[split]
+        return ds
+    if path.endswith(".arrow"):
+        return Dataset.from_file(path)
+    raise ValueError(
+        f"unsupported dataset path {path!r}: expected a save_to_disk "
+        "directory or a .arrow file")
+
+
+def summarization_from_hf(path: str, tokenizer, *, split: str = "train",
+                          max_length: int = 512,
+                          article_col: str = "article",
+                          summary_col: str = "highlights",
+                          limit: Optional[int] = None
+                          ) -> "SummarizationDataset":
+    """A CNN/DailyMail-style HF dataset -> :class:`SummarizationDataset`
+    (the first ``limit`` rows)."""
+    ds = load_hf_dataset(path, split)
+    n = min(limit, len(ds)) if limit is not None else len(ds)
+    rows = []
+    for i in range(n):
+        row = ds[i]               # one Arrow row decoded per index
+        rows.append((row[article_col], row[summary_col]))
+    return SummarizationDataset(rows, tokenizer, max_length=max_length)
+
+
+def mnist_from_hf(path: str, *, split: str = "train",
+                  image_col: str = "image", label_col: str = "label"
+                  ) -> Tuple[np.ndarray, np.ndarray]:
+    """HF-format MNIST -> normalised ``(images [N, 28, 28, 1] f32, labels
+    [N] int32)``, with :func:`load_mnist`'s mean and std. ``image_col``
+    holds PIL images or nested lists/arrays."""
+    ds = load_hf_dataset(path, split)
+    imgs = np.stack([np.asarray(r[image_col], dtype=np.uint8) for r in ds])
+    labels = np.asarray([r[label_col] for r in ds], dtype=np.int32)
+    return _norm(imgs.reshape(len(imgs), 28, 28)), labels
 
 
 class ByteTokenizer:

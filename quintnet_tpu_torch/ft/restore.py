@@ -7,8 +7,9 @@ load is returned. On a mesh the walk is a decision of the whole world:
 the ranks try the same steps (rank 0's listing) and pass a step only
 when every rank loaded its part of it (an all-reduced flag), so a rank
 whose file is damaged never resumes from another step than its peers.
-The ``chaos`` hook of the reference (fault injection) is not ported yet
-(ROADMAP.md §1, item 8c).
+``chaos`` (a :class:`~quintnet_tpu_torch.ft.chaos.ChaosMonkey`) may fail
+an attempt on purpose before it reads anything (tests, the
+``tools/ft_run.py`` supervisor).
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ def restore_with_fallback(
     template: Any = None,
     *,
     specs: Any = None,
+    chaos=None,
     log: Callable[[str], None] = print,
 ) -> Tuple[Any, Optional[dict], int, List[int]]:
     """Restore the newest checkpoint that loads (``specs``: as
@@ -37,7 +39,10 @@ def restore_with_fallback(
     :class:`FileNotFoundError` when the directory holds no step, and
     :class:`CheckpointRestoreError` when every step is bad; a
     :class:`MeshMismatchError` is no damaged step and is raised as it
-    is. On a mesh every rank of the world calls this together."""
+    is. On a mesh every rank of the world calls this together.
+
+    ``chaos``: its ``on_restore_attempt(step)`` runs before each attempt
+    and may raise, which fails that attempt as a damaged step would."""
     world = mgr.mesh is not None
     steps = sorted(mgr.all_steps(), reverse=True)
     if world:
@@ -49,6 +54,8 @@ def restore_with_fallback(
     for step in steps:
         err = None
         try:
+            if chaos is not None:
+                chaos.on_restore_attempt(step)
             state = mgr.restore(template, step=step, specs=specs)
             cursor = mgr.restore_cursor(step=step)
         except MeshMismatchError:

@@ -1,8 +1,8 @@
 """Llama-family causal LM (RMSNorm, rotary, SwiGLU, GQA): training, the
 dense KV-cache blocks and the paged serving blocks.
 
-Port of ``quintnet_tpu/models/llama.py`` without its Hugging Face
-interop. Parameters keep the JAX pytree layout::
+Port of ``quintnet_tpu/models/llama.py``. Parameters keep the JAX
+pytree layout::
 
     {"embedding": {"tok": [V, D]},
      "blocks": {"ln1": {"scale"}, "attn": {"q", "k", "v", "o": {"w"}},
@@ -36,9 +36,10 @@ block table, and the sequence-parallel
 heads and ``ops.paged_attention`` takes the GQA group itself, so nothing
 is repeated on the pool or on the kernel's inputs.
 
-Not ported, each raising ``NotImplementedError`` naming its ROADMAP.md
-place: the HF interop (``llama_from_hf_state``, ``llama_to_hf_state``,
-``LlamaConfig.from_hf_config``: §1, item 9) and ``remat="dots"`` (§2).
+The HF interop (``LlamaConfig.from_hf_config``, ``llama_from_hf_state``,
+``llama_to_hf_state``) maps a transformers config and state dict to this
+layout and back. Not ported: ``remat="dots"`` (raises
+``NotImplementedError`` naming its ROADMAP.md place, §2).
 ``vocab_parallel`` under tp shards ``tok``'s rows (and an untied head's
 columns) over the tp ranks, as GPT-2's (``models/gpt2.clm_loss_vp``).
 """
@@ -50,8 +51,10 @@ import math
 from dataclasses import dataclass
 from typing import Any, Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
+from quintnet_tpu_torch.core.device import resolve_device
 from quintnet_tpu_torch.models.gpt2 import (_vp_loss, vocab_axis,
                                             check_vocab_split, clm_loss,
                                             clm_loss_sp,
@@ -78,9 +81,6 @@ from quintnet_tpu_torch.nn.transformer import (REMAT_DOTS_ITEM,
                                                stacked_blocks_apply)
 from quintnet_tpu_torch.ops.flash_attention import flash_attention
 from quintnet_tpu_torch.parallel.tp import vocab_parallel_embedding
-
-HF_ITEM = "ROADMAP.md §1, item 9 ('Analysis, data and tools')"
-
 
 @dataclass(frozen=True)
 class LlamaConfig:
@@ -174,20 +174,104 @@ class LlamaConfig:
 
     @staticmethod
     def from_hf_config(hf) -> "LlamaConfig":
-        raise NotImplementedError(
-            f"LlamaConfig.from_hf_config is not ported yet ({HF_ITEM})")
+        """A transformers ``LlamaConfig`` -> this config, llama3 rope
+        scaling included; any other ``rope_type`` is refused rather than
+        turned into wrong rotations."""
+        scaling = None
+        rs = getattr(hf, "rope_scaling", None)
+        if rs:
+            kind = rs.get("rope_type", rs.get("type"))
+            if kind != "llama3":
+                raise NotImplementedError(
+                    f"rope_scaling type {kind!r} not supported "
+                    "(llama3 only)")
+            scaling = (float(rs["factor"]),
+                       float(rs.get("low_freq_factor", 1.0)),
+                       float(rs.get("high_freq_factor", 4.0)),
+                       int(rs.get("original_max_position_embeddings",
+                                  8192)))
+        return LlamaConfig(
+            vocab_size=hf.vocab_size,
+            n_positions=hf.max_position_embeddings,
+            dim=hf.hidden_size,
+            n_layers=hf.num_hidden_layers,
+            n_heads=hf.num_attention_heads,
+            n_kv_heads=hf.num_key_value_heads,
+            intermediate_size=hf.intermediate_size,
+            rope_theta=hf.rope_theta,
+            rms_eps=hf.rms_norm_eps,
+            tie_embeddings=hf.tie_word_embeddings,
+            rope_scaling=scaling,
+        )
 
 
-def llama_from_hf_state(state, cfg: LlamaConfig):
-    raise NotImplementedError(
-        f"loading a Hugging Face Llama state dict is not ported yet "
-        f"({HF_ITEM})")
+# (this layout's block leaf, the HF module it is) of every dense block
+_HF_ATTN = (("q", "self_attn.q_proj"), ("k", "self_attn.k_proj"),
+            ("v", "self_attn.v_proj"), ("o", "self_attn.o_proj"))
+_HF_MLP = (("gate", "mlp.gate_proj"), ("up", "mlp.up_proj"),
+           ("down", "mlp.down_proj"))
+
+
+def llama_from_hf_state(state: Dict[str, Any], cfg: LlamaConfig, *,
+                        device="cuda"):
+    """An HF ``LlamaForCausalLM`` state dict (tensors or arrays, Linear
+    weights ``[out, in]``) -> this layout (``[in, out]``, stacked blocks)
+    on ``device`` (the card unless the caller asks for the CPU)."""
+    dev = resolve_device(device)
+
+    def t(name):
+        x = state[name]
+        x = x.detach() if torch.is_tensor(x) else torch.as_tensor(
+            np.asarray(x))
+        return x.to(dev)
+
+    def stack(fmt):
+        return torch.stack([t(fmt.format(i)) for i in range(cfg.n_layers)])
+
+    pre = "model.layers.{}."
+    params = {
+        "embedding": {"tok": t("model.embed_tokens.weight")},
+        "blocks": {
+            "ln1": {"scale": stack(pre + "input_layernorm.weight")},
+            "attn": {src: {"w": stack(pre + dst + ".weight").transpose(1, 2)
+                           .contiguous()} for src, dst in _HF_ATTN},
+            "ln2": {"scale": stack(pre + "post_attention_layernorm.weight")},
+            "mlp": {src: {"w": stack(pre + dst + ".weight").transpose(1, 2)
+                          .contiguous()} for src, dst in _HF_MLP},
+        },
+        "head": {"ln_f": {"scale": t("model.norm.weight")}},
+    }
+    if not cfg.tie_embeddings:
+        params["head"]["lm"] = {"w": t("lm_head.weight").T.contiguous()}
+    return params
 
 
 def llama_to_hf_state(params, cfg: LlamaConfig):
-    raise NotImplementedError(
-        f"exporting to a Hugging Face Llama state dict is not ported yet "
-        f"({HF_ITEM})")
+    """Inverse of :func:`llama_from_hf_state`: this layout -> an HF
+    ``LlamaForCausalLM`` state dict of CPU tensors (``[out, in]`` Linear
+    weights) for ``model.load_state_dict``. Dense configs only (HF has
+    no SwiGLU-MoE Llama)."""
+    if "moe" in params["blocks"]:
+        raise ValueError("HF export supports dense Llama only")
+
+    def n(x):
+        return x.detach().cpu().contiguous()
+
+    out = {"model.embed_tokens.weight": n(params["embedding"]["tok"]),
+           "model.norm.weight": n(params["head"]["ln_f"]["scale"])}
+    if not cfg.tie_embeddings:
+        out["lm_head.weight"] = n(params["head"]["lm"]["w"].T)
+    b = params["blocks"]
+    for i in range(cfg.n_layers):
+        pre = f"model.layers.{i}."
+        out[pre + "input_layernorm.weight"] = n(b["ln1"]["scale"][i])
+        out[pre + "post_attention_layernorm.weight"] = \
+            n(b["ln2"]["scale"][i])
+        for src, dst in _HF_ATTN:
+            out[pre + dst + ".weight"] = n(b["attn"][src]["w"][i].T)
+        for src, dst in _HF_MLP:
+            out[pre + dst + ".weight"] = n(b["mlp"][src]["w"][i].T)
+    return out
 
 
 def llama3_scaled_inv_freq(cfg: LlamaConfig, device=None):

@@ -43,9 +43,17 @@ step makes the whole world fall back to the same older one. A decision
 that leads to a save (the time cadence, the best epoch) is taken by the
 whole world, so no rank saves alone.
 
-Not ported (each raises ``NotImplementedError`` naming its ROADMAP.md
-item): preemption handling, fault injection and goodput (``ft=``, item
-8), ``remat_policy="dots"``.
+Fault tolerance (``fit(ft=FTContext(...))``, ``ft/``): after each step
+the loop records the step for goodput, lets the chaos monkey inject its
+fault, and polls the preemption flag; a preempted run writes one
+synchronous emergency snapshot and raises ``TrainingPreempted``. On a
+mesh the flag is a decision of the whole world (an all-reduced OR after
+each step, taken only when the context holds a ``PreemptionHandler``),
+so a signal that reaches one rank stops every rank at the same global
+step with the same emergency step on disk.
+
+Not ported (raises ``NotImplementedError`` naming its ROADMAP.md item):
+``remat_policy="dots"``.
 The JAX loop's host-side knobs for its asynchronous dispatch
 (``sync_every``, ``prefetch``) have no use in the eager port and are
 ignored.
@@ -314,14 +322,6 @@ def _call_batches_fn(fn, epoch: int, skip: int):
     return fn(epoch), False
 
 
-def _fault_tolerance_not_ported():
-    return NotImplementedError(
-        "fault tolerance (ft=: preemption handling, chaos injection, "
-        "goodput) is not ported; checkpoints and step-granular resume are "
-        "(checkpoint_dir=, fit(cursor=)); fit(ft=) waits for ROADMAP.md "
-        "§1, item 8c")
-
-
 def _as_params(tree):
     """Restored tensors -> trainable leaves."""
     return tree_map(lambda t: t.detach().requires_grad_(True), tree)
@@ -400,12 +400,16 @@ class Trainer:
                 "to fit(params=..., opt_state=..., cursor=...)")
         return params, opt_state, (cursor.epoch if cursor is not None else 0)
 
-    def resume_state(self, seed: Optional[int] = None):
+    def resume_state(self, seed: Optional[int] = None, *, goodput=None,
+                     chaos=None):
         """Restore the newest checkpoint that loads (a damaged step falls
         back to the previous good one, ``ft/restore.py``), else a fresh
         state. Returns ``(params, opt_state, cursor)``; ``cursor`` (a
         ``TrainCursor``) points at the next (epoch, step), None on a
-        fresh state. The state comes back on the trainer's device."""
+        fresh state. The state comes back on the trainer's device.
+        ``goodput`` (a ``GoodputMeter``) is told the restored step, the
+        restore's seconds and the steps skipped; ``chaos`` (a
+        ``ChaosMonkey``) may fail restore attempts on purpose."""
         params, opt_state = self.init_state(seed)
         if not self.checkpoint_dir:
             return params, opt_state, None
@@ -415,9 +419,10 @@ class Trainer:
         from quintnet_tpu_torch.ft.cursor import TrainCursor
         from quintnet_tpu_torch.ft.restore import restore_with_fallback
 
+        t_restore = time.time()
         state, cursor_dict, step, skipped = restore_with_fallback(
             mgr, {"params": params, "opt": opt_state, "epoch": 0},
-            specs=self._state_specs(opt_state), log=self.log)
+            specs=self._state_specs(opt_state), chaos=chaos, log=self.log)
         self._last_ckpt_step = step
         self._bad_ckpt_steps = set(skipped)
         cursor = TrainCursor.from_dict(cursor_dict)
@@ -428,6 +433,9 @@ class Trainer:
             # epoch: resume at the next epoch's start
             cursor = TrainCursor(epoch=int(state["epoch"]) + 1,
                                  global_step=step)
+        if goodput is not None:
+            goodput.on_resume(cursor.global_step, time.time() - t_restore,
+                              len(skipped))
         self.log(f"resumed from checkpoint step {step}: continuing at "
                  f"epoch {cursor.epoch} step {cursor.step_in_epoch} "
                  f"(global step {cursor.global_step})")
@@ -485,7 +493,8 @@ class Trainer:
     def save_state(self, params, opt_state, cursor, *,
                    boundary: bool = False) -> float:
         """Checkpoint the state and the cursor at step
-        ``cursor.global_step``; returns the seconds it took. A step
+        ``cursor.global_step``; returns the seconds it took (goodput's
+        checkpoint overhead: saves are synchronous, so all of it). A step
         already written or restored is skipped (a resumed run revisits the
         step it restored from, and the state is the same by
         construction), except a step the restore fallback proved
@@ -599,16 +608,42 @@ class Trainer:
         the ``cursor`` of :meth:`resume_state` to continue that state's
         run mid-stream; without one the state starts a fresh run at
         epoch 0. Losses stay on the device during an epoch and are read
-        back at checkpoints and at the epoch's end."""
+        back at checkpoints and at the epoch's end.
+
+        ``ft``: an optional :class:`~quintnet_tpu_torch.ft.FTContext`
+        with preemption handling, fault injection and goodput accounting
+        (module docstring). Cadence saves come from
+        ``training.save_every_steps`` / ``save_every_seconds``, with or
+        without it."""
         from quintnet_tpu_torch.data.datasets import skip_batches
         from quintnet_tpu_torch.ft.cursor import TrainCursor
-        from quintnet_tpu_torch.ft.preempt import CadenceController
+        from quintnet_tpu_torch.ft.preempt import (CadenceController,
+                                                   TrainingPreempted)
 
-        if ft is not None:
-            raise _fault_tolerance_not_ported()
         epochs = epochs or self.config.training.epochs
+        if ft is not None and ft.preemption is not None \
+                and not self.checkpoint_dir:
+            # the preemption contract is "emergency snapshot saved, exit
+            # 75, relaunch me": with nowhere to write the snapshot every
+            # relaunch would silently restart from epoch 0
+            raise ValueError(
+                "FTContext.preemption requires a checkpoint_dir: a "
+                "preemption snapshot with nowhere to write would make "
+                "the exit-75 relaunch contract silently discard the run "
+                "— pass checkpoint_dir= to Trainer, or drop the "
+                "PreemptionHandler from the context")
+        goodput = ft.goodput if ft is not None else None
+
+        def preempted() -> bool:
+            # polled only with a handler; on a mesh every rank polls and
+            # the flag of any rank stops them all
+            if ft is None or ft.preemption is None:
+                return False
+            return self._agree(ft.preemption_requested)
+
         if params is None:
-            params, opt_state, cursor = self.resume_state()
+            params, opt_state, cursor = self.resume_state(
+                goodput=goodput, chaos=ft.chaos if ft is not None else None)
         elif cursor is None:
             # an explicit fresh state owes nothing to a checkpoint this
             # trainer touched earlier
@@ -681,13 +716,35 @@ class Trainer:
                         msg += f" ({sps * xb.shape[1] / 1e3:.1f}k tok/s)"
                     self.log(msg)
                     t_win = time.time()
+                # -- the fault-tolerance boundary (the step has landed) --
+                if goodput is not None:
+                    # the loss rides along: the report waits for its
+                    # device before it reads the clock
+                    goodput.on_step(global_step, loss)
+                if ft is not None and ft.chaos is not None:
+                    # may exit, SIGTERM this process or raise ChaosKilled
+                    ft.chaos.on_step_end(global_step)
+                if preempted():
+                    # finish the step, then one synchronous emergency
+                    # snapshot
+                    flush()
+                    blocked = self.save_state(params, opt_state,
+                                              cursor_at(epoch, i + 1))
+                    if goodput is not None:
+                        goodput.on_save(blocked)
+                    self.log(f"preempted: emergency snapshot at epoch "
+                             f"{epoch} step {i + 1} (global step "
+                             f"{global_step})")
+                    raise TrainingPreempted(epoch, i + 1, global_step)
                 save_now = cadence.should_save(global_step)
                 if cadence.every_seconds:      # each rank's own clock
                     save_now = self._agree(save_now)
                 if save_now:
                     flush()
-                    self.save_state(params, opt_state,
-                                    cursor_at(epoch, i + 1))
+                    blocked = self.save_state(params, opt_state,
+                                              cursor_at(epoch, i + 1))
+                    if goodput is not None:
+                        goodput.on_save(blocked)
                     cadence.saved(global_step)
             flush()
             train_loss = (loss_sum / loss_count if loss_count
@@ -712,10 +769,27 @@ class Trainer:
                     self.save_best(epoch, params, opt_state, ev["loss"])
                     msg += " (best)"
             self.log(msg)
-            self.save_state(params, opt_state, cursor_at(epoch + 1, 0),
-                            boundary=True)
+            blocked = self.save_state(params, opt_state,
+                                      cursor_at(epoch + 1, 0), boundary=True)
+            if goodput is not None:
+                goodput.on_save(blocked)
             cadence.saved(global_step)
+            if preempted():
+                # the signal came during evaluation or the epoch's end
+                # (the per-step poll sees it only after a step): this
+                # boundary is written above; make it durable and stop
+                # before an epoch that would not finish
+                t_b = time.time()
+                self.wait_for_saves()
+                if goodput is not None:
+                    goodput.on_save(time.time() - t_b)
+                self.log(f"preempted: epoch {epoch} checkpoint durable "
+                         f"(global step {global_step})")
+                raise TrainingPreempted(epoch + 1, 0, global_step)
+        t_barrier = time.time()
         self.wait_for_saves()
+        if goodput is not None:
+            goodput.on_save(time.time() - t_barrier)
         hist.wall_time_s = prior_wall + (time.time() - t0)
         self._final_state = (params, opt_state)
         return hist

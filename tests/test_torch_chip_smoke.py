@@ -1085,3 +1085,72 @@ def test_serve_proc_fleet_phase_on_cpu(monkeypatch, tiny_gpt2):
     assert totals == {k: sum(w[k] for r in res["runs"].values()
                              for w in r["launches_by_replica"].values())
                       for k in ("decode", "prefill")}
+
+
+# ---------------------------------------------------------------------
+# the slice-22 checks of the resume phase (fault tolerance, HF interop)
+# ---------------------------------------------------------------------
+
+def test_resume_phase_on_cpu(monkeypatch, tmp_path):
+    """The resume phase's own code on the CPU at a tiny GPT-2 (2 layers,
+    a width whose head count the HF loader infers, rows of 32): the cut
+    and the SIGTERM-preempted runs resumed bit for bit, the export and
+    reload bit-equal, the perplexity (over 6 KB of README.md in windows
+    of 128: the plain kernel versions are slow on the CPU) through the
+    flash dispatcher against the plain attention, the fallback past a
+    corrupted step, and the supervisor on the CPU. The launch gates are
+    recorded with what they demand (the CPU launches nothing; the card
+    holds the counts): n_layer x micro-batches x steps for K1-K3, and
+    for eval_ppl K1 once a layer a batch and nothing else."""
+    from quintnet_tpu_torch.models.gpt2 import GPT2Config
+
+    _on_cpu(monkeypatch)
+    monkeypatch.setattr(chip_smoke, "_smi", lambda: "cpu")
+    text = tmp_path / "text.md"
+    with open(chip_smoke.PPL_TEXT, encoding="utf-8") as f:
+        text.write_text(f.read()[:6000], encoding="utf-8")
+    monkeypatch.setattr(chip_smoke, "PPL_TEXT", str(text))
+    monkeypatch.setattr(chip_smoke, "PPL_SEQ", 128)
+    gates = []
+    monkeypatch.setattr(chip_smoke, "_check_launches_exact",
+                        lambda counts, want, what: gates.append((want, what)))
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        cfg = GPT2Config.tiny(n_layer=2, n_embd=50, n_head=25,
+                              n_positions=1024, vocab_size=264)
+        res, total = chip_smoke.phase_resume(cfg, seq=32, batch=8)
+    finally:
+        torch.set_num_threads(threads)
+    per = 2 * 2
+    want = [{"flash_fwd": per * 8, "flash_bwd_dkv": per * 8,
+             "flash_bwd_dq": per * 8, "paged_attention": 0},
+            {"flash_fwd": per * 4, "flash_bwd_dkv": per * 4,
+             "flash_bwd_dq": per * 4, "paged_attention": 0}]
+    ppl = res["perplexity"]
+    batches = -(-ppl["windows"] // chip_smoke.PPL_BATCH)
+    want.append({"flash_fwd": 2 * batches, "flash_bwd_dkv": 0,
+                 "flash_bwd_dq": 0, "paged_attention": 0})
+    assert [w for w, _ in gates] == want
+    pre = res["preempted"]
+    assert pre["stopped_at"] == [0, 2, 2] and pre["steps_on_disk"] == [2]
+    reports = pre["goodput_reports"]
+    assert [r["completed"] for r in reports] == [False, True]
+    assert [r["steps_run"] for r in reports] == [2, 2]
+    assert reports[1]["resumed_at"] == 2 and reports[1]["reached"] == 4
+    assert reports[0]["save_blocking_s"] > 0 and reports[1]["restore_s"] > 0
+    agg = pre["goodput_aggregate"]
+    assert agg["useful_steps"] == 4 and agg["lost_steps"] == 0
+    assert res["bit_identical"]["runs"] == ["cut", "preempted"]
+    assert res["hf_export"]["step"] == 4 and res["hf_export"]["bytes"] > 0
+    assert res["hf_export"]["leaves_bit_equal"] == 16
+    assert ppl["windows"] > 1 and ppl["rel_diff"] <= chip_smoke.PPL_RTOL
+    assert res["fallback"]["corrupt"]["hook_calls"] == [4, 2]
+    assert res["fallback"]["injected"]["hook_calls"] == [4, 2]
+    sup = res["supervisor"]["record"]["extras"]
+    assert sup["faults_survived"] == 1 and sup["completed"] is True
+    assert set(res["seconds"]) == {"cut_resume", "preempt_resume",
+                                   "export_reload", "perplexity",
+                                   "fallback", "supervisor"}
+    assert total == {"flash_fwd": 0, "flash_bwd_dkv": 0, "flash_bwd_dq": 0,
+                     "paged_attention": 0}

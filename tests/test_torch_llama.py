@@ -9,11 +9,12 @@ with llama3 scaling, GQA's ``repeat_kv``); remat and the flash path (the
 kernels' plain versions on the CPU) equal to the plain forward
 (``rtol=1e-5, atol=1e-5``, the JAX test's); GQA equal to MHA with the
 k/v columns repeated; the rope scaling against JAX's
-``llama3_scaled_inv_freq`` (the JAX test's HF oracle needs a checkpoint
-format the port does not read: ROADMAP.md §1, item 9); tied embeddings,
+``llama3_scaled_inv_freq`` (the HF oracle itself is in
+``tests/test_torch_hf_io.py``); tied embeddings,
 under pp too; packed-document segment ids; Llama-MoE (one expert ==
 the dense SwiGLU; upcycling near the dense model at ``2e-3``, the JAX
-test's); and the strategies on gloo CPU worlds of 2, 4 and 8 ranks
+test's); the HF readers and writer against JAX's on the same state
+dict; and the strategies on gloo CPU worlds of 2, 4 and 8 ranks
 (dp, tp, dp x tp, pp with 1F1B, dp x tp x pp, ep, dp x ep, MoE under
 pp) against JAX's single-device SGD step (loss ``rtol=1e-5``; the MoE
 ep runs at ``2e-4``, the JAX test's; parameters ``rtol=2e-4,
@@ -319,10 +320,8 @@ def test_bf16_loss_near_f32():
 
 REFUSED = {
     # the dense and paged serving blocks are ported (the generation
-    # decoders; Llama serving, tests/test_torch_serve_llama.py)
-    "from_hf_state": lambda: pl.llama_from_hf_state({}, pl.LlamaConfig()),
-    "to_hf_state": lambda: pl.llama_to_hf_state({}, pl.LlamaConfig()),
-    "from_hf_config": lambda: pl.LlamaConfig.from_hf_config(object()),
+    # decoders; Llama serving, tests/test_torch_serve_llama.py), and so
+    # is the HF interop (test_hf_interop_matches_jax below)
     "remat_dots": lambda: pl.llama_model_spec(pl.LlamaConfig.tiny(),
                                               remat="dots"),
 }
@@ -330,12 +329,72 @@ REFUSED = {
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_refusals_name_their_roadmap_item(name):
-    want = {"from_hf_state": "item 9",
-            "to_hf_state": "item 9", "from_hf_config": "item 9",
-            "remat_dots": "§2"}[name]
+    want = {"remat_dots": "§2"}[name]
     with pytest.raises(NotImplementedError, match="ROADMAP.md") as e:
         REFUSED[name]()
     assert want in str(e.value)
+
+
+def _hf_config(**rope):
+    """A stand-in for a transformers LlamaConfig: the attributes the
+    readers take (Llama-3.2-1B's, with llama3 rope scaling)."""
+    import types
+
+    return types.SimpleNamespace(
+        vocab_size=128256, max_position_embeddings=131072, hidden_size=2048,
+        num_hidden_layers=16, num_attention_heads=32, num_key_value_heads=8,
+        intermediate_size=8192, rope_theta=500000.0, rms_norm_eps=1e-5,
+        tie_word_embeddings=True,
+        rope_scaling=rope or {"rope_type": "llama3", "factor": 32.0,
+                              "low_freq_factor": 1.0,
+                              "high_freq_factor": 4.0,
+                              "original_max_position_embeddings": 8192})
+
+
+def _hf_interop(name, kw):
+    """(the port's result, JAX's) of one HF entry on the same input: the
+    tiny model's JAX params as an HF state dict (JAX's own writer)."""
+    cfg, jp = _jax(kw)
+    pcfg = pl.LlamaConfig.tiny(**kw)
+    state = {k: np.array(v) for k, v in jl.llama_to_hf_state(
+        _np_tree(jp), cfg).items()}
+    if name == "from_hf_state":
+        got = pl.llama_from_hf_state(
+            {k: torch.from_numpy(v) for k, v in state.items()}, pcfg,
+            device="cpu")
+        return dict(_flat(got)), dict(_flat(
+            _np_tree(jl.llama_from_hf_state(state, cfg))))
+    if name == "to_hf_state":
+        got = pl.llama_to_hf_state(_port(jp), pcfg)
+        return got, state
+    hf = _hf_config()
+    return (dataclasses.asdict(pl.LlamaConfig.from_hf_config(hf)),
+            dataclasses.asdict(jl.LlamaConfig.from_hf_config(hf)))
+
+
+@pytest.mark.parametrize("name", ["from_hf_config", "from_hf_state",
+                                  "to_hf_state"])
+def test_hf_interop_matches_jax(name):
+    """The three HF entries of the ROADMAP.md item 9 are served: each
+    gives JAX's result on the same input, exactly (a state dict leaf for
+    leaf, tied and untied heads; a config field for field, llama3 rope
+    scaling included, and another rope type is refused as JAX refuses
+    it)."""
+    if name == "from_hf_config":
+        got, want = _hf_interop(name, KW)
+        common = set(got) & set(want)
+        assert {k: got[k] for k in common} == {k: want[k] for k in common}
+        assert got["rope_scaling"] == (32.0, 1.0, 4.0, 8192)
+        with pytest.raises(NotImplementedError, match="llama3 only"):
+            pl.LlamaConfig.from_hf_config(_hf_config(rope_type="yarn"))
+        return
+    for kw in (KW, TIED):
+        got, want = _hf_interop(name, kw)
+        assert got.keys() == want.keys()
+        for k, v in got.items():
+            assert v.dtype == torch.float32, k
+            np.testing.assert_array_equal(v.numpy(), np.asarray(want[k]),
+                                          err_msg=k)
 
 
 # ---------------------------------------------------------------------

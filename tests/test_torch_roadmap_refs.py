@@ -104,8 +104,9 @@ def _places(msg):
 def test_messages_are_found():
     msgs = _messages()
     files = {f for f, _ in msgs}
+    # models/llama.py's HF refusals are served since item 9's HF
+    # entries; the fleet's item-9 refusals stand
     for want in ("quintnet_tpu_torch/nn/transformer.py",
-                 "quintnet_tpu_torch/models/llama.py",
                  "quintnet_tpu_torch/ops/flash_kernels.py",
                  "quintnet_tpu_torch/fleet/fleet.py"):
         assert want in files, sorted(files)
