@@ -1630,6 +1630,7 @@ def _check_serve_run(eng, cfg, rids, launches):
                              f"{m.prefix_hit_tokens} tokens (< 64)")
     if m.finished != len(rids):
         raise AssertionError(f"{m.finished} of {len(rids)} finished")
+    return _programs(eng)
 
 
 def _serve_numbers(eng, rids, prompts, steps):
@@ -1661,6 +1662,85 @@ def _launches():
                 "by_thread": dict(paged_attention.launches_by_thread)}
 
 
+def _decode_program(eng):
+    """``eng``'s decode program (its recompile sentinel) and its per-step
+    arguments at an all-zero table: every write lands in the null
+    block, nothing a request holds is touched."""
+    k, v, *scales = eng.pool.caches()
+    S, M = eng.max_slots, eng.table_width
+
+    def zeros(*shape):
+        return torch.zeros(shape, dtype=torch.int32, device=eng.device)
+
+    return (eng._decodes[None],
+            (k, v, zeros(S), zeros(S), zeros(S, M), eng.pool.block_size),
+            eng._kv_kw(scales))
+
+
+def _decode_audit(eng, params, cfg):
+    """serve's decode step under the step auditor (``analysis/
+    step_audit.py``): the gathered views of the pool it reads (0 on
+    K4's path; the plain path's n_layer x {k, v} on a twin engine under
+    ``device="cpu"``), the pool updated in place with nothing aliasable
+    left in new storage, and the decode program's wall with and without
+    its recompile sentinel (windows of 20 calls in turn, on, off, off,
+    on, synced) beside the signature's own cost."""
+    from quintnet_tpu_torch.analysis.recompile import abstract_signature
+    from quintnet_tpu_torch.analysis.step_audit import (
+        donation_report, gathered_view_gathers)
+    from quintnet_tpu_torch.core.pytree import tree_map
+    from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
+
+    L = _depth(cfg)
+    program, args, kw = _decode_program(eng)
+    nb = eng.pool.num_blocks
+    seen = gathered_view_gathers(program, *args, num_blocks=nb,
+                                 table_width=eng.table_width, **kw)
+    twin = ServeEngine(gpt2_family(cfg),
+                       tree_map(lambda t: t.detach().cpu(), params),
+                       device="cpu", max_slots=eng.max_slots,
+                       block_size=eng.pool.block_size, num_blocks=nb,
+                       max_seq_len=eng.max_seq_len)
+    tprog, targs, tkw = _decode_program(twin)
+    plain = gathered_view_gathers(tprog, *targs, num_blocks=nb,
+                                  table_width=twin.table_width, **tkw)
+    del twin, tprog, targs, tkw
+    on_card = torch.device(DEVICE).type == "cuda"
+    if plain != 2 * L or seen != (0 if on_card else plain):
+        raise AssertionError(
+            f"gathered views of the pool in a decode step: {seen} on "
+            f"{DEVICE}, {plain} on the plain path (want "
+            f"{0 if on_card else 2 * L} and {2 * L} = n_layer x {{k, v}})")
+    rep = donation_report(program, *args, **kw)
+    by = rep.by_path()
+    if (rep.undonated_aliasable
+            or not (by["args[0]"].donated and by["args[1]"].donated)):
+        raise AssertionError(f"decode step's pool not in place: "
+                             f"{rep.summary()}")
+
+    def window(fn, n=20):
+        _sync()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn(*args, **kw)
+        _sync()
+        return (time.perf_counter() - t0) / n * 1e3
+
+    times = {"with_sentinel": [], "without_sentinel": []}
+    for on in (True, False, False, True):
+        key = "with_sentinel" if on else "without_sentinel"
+        times[key].append(window(program if on else program.fn))
+    t0 = time.perf_counter()
+    for _ in range(1000):
+        abstract_signature(args, kw)
+    sig_us = (time.perf_counter() - t0) * 1e3
+    return {"gathered_view_gathers": {DEVICE: seen, "cpu_plain": plain},
+            "pool_updated_in_place": True,
+            "in_place_bytes": rep.donated_bytes,
+            "decode_program_ms": times,
+            "signature_us_per_call": sig_us}
+
+
 def _serve_engine(params, cfg, kv_dtype="f32", **kw):
     from quintnet_tpu_torch.serve import ServeEngine, gpt2_family
 
@@ -1685,16 +1765,18 @@ def phase_serve():
     rids, prompts, steps, rng = _serve_script(eng, cfg)
     counts = _counts()
     launches = _launches()
-    _check_serve_run(eng, cfg, rids, launches)
+    programs = _check_serve_run(eng, cfg, rids, launches)
     checked, near_ties = _check_against_dense(params, cfg, eng, rids,
                                               prompts, F32_GAP)
     res = {"phase": "serve", "model": "gpt2-124M (random init, seed 0)",
            "kv_dtype": "f32", "warmup_s": warmup_s, "launches": counts,
            "launches_by_variant": launches["by_variant"],
            "launches_by_path": launches["by_path"],
+           "compile_counts": programs,
            "tokens_checked_vs_dense": checked, "near_ties": near_ties}
     res.update(_serve_numbers(eng, rids, prompts, steps))
     res.update(_kernel_share(eng, cfg, rng))
+    res["decode_audit"] = _decode_audit(eng, params, cfg)
     _emit(res)
     streams = [eng.result(r) for r in rids]
     return res, counts, (params, cfg, streams)
@@ -1801,11 +1883,12 @@ def phase_serve_sampled(params, cfg, greedy):
     rids, prompts, steps, rng = _serve_script(eng, cfg)
     counts = _counts()
     launches = _launches()
-    _check_serve_run(eng, cfg, rids, launches)
+    programs = _check_serve_run(eng, cfg, rids, launches)
     streams = [eng.result(r) for r in rids]
 
     again = _sampled_engine(params, cfg)
     rids2, _, _, _ = _serve_script(again, cfg)
+    _programs(again)
     div = _first_divergence(streams, [again.result(r) for r in rids2])
     if div is not None:
         raise AssertionError(f"sampled streams not reproduced by a fresh "
@@ -1813,6 +1896,7 @@ def phase_serve_sampled(params, cfg, greedy):
     del again
     small = _sampled_engine(params, cfg, num_blocks=PREEMPT_BLOCKS)
     rids3, _, _, _ = _serve_script(small, cfg)
+    _programs(small)
     preempted = small.metrics.preempted
     if preempted < 1:
         raise AssertionError(f"the {PREEMPT_BLOCKS}-block pool preempted "
@@ -1832,6 +1916,7 @@ def phase_serve_sampled(params, cfg, greedy):
            "sampling": SAMPLED, "seeds": "each request's rid",
            "launches": counts, "launches_by_variant":
            launches["by_variant"], "launches_by_path": launches["by_path"],
+           "compile_counts": programs,
            "reproduced_by_fresh_engine": True,
            "preemption_run": {"num_blocks": PREEMPT_BLOCKS,
                               "preemptions": preempted, "streams_equal":
@@ -1876,6 +1961,21 @@ def _spec_traffic(cfg, rng):
                                         int(rng.integers(32, 201))))
     return ([p.astype(np.int32) for p in prompts],
             [int(n) for n in rng.integers(32, 65, SPEC_REQUESTS)])
+
+
+def _programs(eng):
+    """The bounded-program promise of one warmed engine after its
+    traffic (the recompile sentinels, ``analysis/recompile.py``; a second
+    signature of any program raised already, at its call): it ran every
+    prefill bucket, the decode step (every LoRA rank bucket) and every
+    verify bucket, one program each. Returns ``compile_counts()`` for the
+    phase's line."""
+    eng.assert_compile_count(
+        prefill=len(eng.prefill_buckets),
+        decode=(len(eng.lora_rank_buckets) if eng.adapters is not None
+                else 1),
+        verify=len(eng.spec.buckets) if eng.spec is not None else None)
+    return eng.compile_counts()
 
 
 def _engine_on_card(params, cfg, **kw):
@@ -1998,6 +2098,7 @@ def phase_serve_spec(params, cfg):
         off = _engine_on_card(params, cfg, **kw)
         s_off, wall_off = _run_requests(off, prompts, max_new, SPEC_SEEDS)
         steps_off = off.metrics.steps
+        programs = {"off": _programs(off)}
         del off
         on = _engine_on_card(params, cfg, spec=True, **kw)
         calls = _Calls(on)
@@ -2012,6 +2113,7 @@ def phase_serve_spec(params, cfg):
         for P in calls.verify:
             want[_path(cfg.n_head, cfg.n_head, P)] += L
         _check_launches(launches, _variant(on.pool), want)
+        programs["on"] = _programs(on)
         for k in want:
             res["launches_by_path"][k] += want[k]
         agree, compared, div = _near_tie_compare(
@@ -2031,13 +2133,15 @@ def phase_serve_spec(params, cfg):
             "tokens_per_verify_step": calls.committed / m.spec_steps,
             "tokens_per_decode_step": s["tokens_per_decode_step"],
             "engine_steps_on_off": [m.steps, steps_off],
-            "wall_s_on_off": [wall_on, wall_off]}
+            "wall_s_on_off": [wall_on, wall_off],
+            "compile_counts": programs}
         if mode == "greedy":
             greedy_on = s_on
         del on
         torch.cuda.empty_cache()
     fq = _engine_on_card(params, cfg, spec=True, kv_dtype="fake_quant")
     s_fq, _ = _run_requests(fq, prompts, max_new, SPEC_SEEDS)
+    _programs(fq)
     d = _first_divergence(greedy_on, s_fq)
     if d is not None:
         raise AssertionError(f"fake_quant with spec differs from f32 with "
@@ -2115,6 +2219,7 @@ def phase_serve_chunked(params, cfg):
         _check_launches(launches, _variant(eng.pool), want)
         runs[name] = {"streams": streams, "prompts": prompts,
                       "launches_by_path": want,
+                      "compile_counts": _programs(eng),
                       "engine_steps": m.steps,
                       "prefill_chunks": m.prefill_chunks,
                       "document_prefill_steps": len(during),
@@ -2356,10 +2461,11 @@ def phase_serve_kv(params, cfg, f32_streams):
         _zero_counts()
         rids, prompts, steps, rng = _serve_script(eng, cfg)
         launches = _launches()
-        _check_serve_run(eng, cfg, rids, launches)
+        programs = _check_serve_run(eng, cfg, rids, launches)
         res = {"phase": "serve_kv", "kv_dtype": name,
                "model": "gpt2-124M (random init, seed 0)",
-               "warmup_s": warmup_s, "launches": launches}
+               "warmup_s": warmup_s, "launches": launches,
+               "compile_counts": programs}
         if name == "fake_quant":
             same = all(np.array_equal(eng.result(r), w)
                        for r, w in zip(rids, f32_streams))
@@ -2515,11 +2621,12 @@ def phase_serve_wq(params, cfg, f32_streams):
         _zero_counts()
         rids, prompts, steps, _rng = _serve_script(eng, cfg)
         launches = _launches()
-        _check_serve_run(eng, cfg, rids, launches)
+        programs = _check_serve_run(eng, cfg, rids, launches)
         res = {"phase": "serve_wq", "weights_dtype": name,
                "model": "gpt2-124M (random init, seed 0)",
                "kv_dtype": "f32", "weight_bytes": eng.weight_bytes,
-               "warmup_s": warmup_s, "launches": launches}
+               "warmup_s": warmup_s, "launches": launches,
+               "compile_counts": programs}
         if name == "fake_quant":
             if not all(np.array_equal(eng.result(r), w)
                        for r, w in zip(rids, f32_streams)):
@@ -2714,7 +2821,8 @@ def phase_serve_tier(params, cfg):
         runs.append(want)
         res["runs"][name] = {"ttft_ms": [t * 1e3 for t in ttfts],
                              "cache_evictions": eng.pool.cache_evictions,
-                             "launches_by_path": want}
+                             "launches_by_path": want,
+                             "compile_counts": _programs(eng)}
     on = engines["tier"]
     tier, m = on.kv_tier, on.metrics.summary()
     if not (tier.demotions > 0 and tier.promotions > 0
@@ -2761,7 +2869,7 @@ def phase_serve_tier(params, cfg):
     _zero_counts()
     _, out, _ = _one_at_a_time(eng, prompts[:1])
     res["runs"]["int8_tier"] = {"launches_by_path": _check_k4(
-        eng, cfg, _launches())}
+        eng, cfg, _launches()), "compile_counts": _programs(eng)}
     n, demote_ms, promote_ms = _tier_round_trip(eng, out[0][:-1])
     res["round_trip"]["int8"] = {"blocks": n, "demote_ms_per_block":
                                  demote_ms, "promote_ms_per_block":
@@ -2867,6 +2975,7 @@ def _lora_dedicated(params, cfg, tenants, got, prompts, mode_kw):
                                 [LORA_NEW] * len(idx),
                                 [LORA_SEEDS[i] for i in idx])
         launches = _check_k4(eng, cfg, _launches())
+        _programs(eng)
         seeds = [LORA_SEEDS[i] for i in idx] if mode_kw else None
         agree, compared, div = _near_tie_compare(
             merged, cfg, [got[i] for i in idx], want,
@@ -2930,6 +3039,7 @@ def phase_serve_lora(params, cfg):
         if any(pinned.values()):
             raise AssertionError(f"pins left after retire: {pinned}")
         run = {"wall_s": wall, "launches_by_path": launches,
+               "compile_counts": _programs(eng),
                "decode_calls_by_rank_bucket": _check_buckets(eng, calls),
                "peak_running": eng.metrics.peak_running,
                "per_adapter": {a: {k: v for k, v in d.items()
@@ -2968,6 +3078,7 @@ FLEET_BLOCKS = 160               # 159 usable blocks of 16 a replica
 FLEET_REQUESTS = 16
 FLEET_NEW = 32
 FLEET_KILL = ("r1", 8)           # the armed death: replica, after step
+LOCK_HOLD_BUDGET_S = 1.0         # the audited run: a longer hold is a fault
 FLEET_THREADS = tuple(f"fleet-r{i}" for i in range(FLEET_REPLICAS))
 # the inertness and deadline scripts on one engine
 INERT_LENS = (32, 48, 40, 64)
@@ -2990,22 +3101,26 @@ def _fleet_engine(params, cfg, **kw):
                        num_blocks=FLEET_BLOCKS, kv_dtype="f32", **kw)
 
 
-def _fleet_run(params, cfg, prompts, crash_dir, mode_kw):
+def _fleet_run(params, cfg, prompts, crash_dir, mode_kw, lock_audit=False):
     """One fleet run, the main path: 3 replicas sharing ``params`` (the
     factory closes over the one tree on the card), obs on, a crash
     directory, r1 killed after its 8th step; every request submitted at
     once at its fid's seed (the default). K4's counts zeroed just before
-    the submissions and read just after the last result. Returns (the
-    fleet, closed; the fids; the streams; the launches; wall s)."""
+    the submissions and read just after the last result. ``lock_audit``:
+    every fleet lock instrumented (``analysis/lockrt.py``), a hold over
+    ``LOCK_HOLD_BUDGET_S`` counted. Returns (the fleet, closed; the fids;
+    the streams; the launches; wall s)."""
     from quintnet_tpu_torch.fleet import ServeFleet
     from quintnet_tpu_torch.ft import ChaosMonkey
 
     fleet = ServeFleet(lambda: _fleet_engine(params, cfg, **mode_kw),
                        n_replicas=FLEET_REPLICAS, obs=True,
-                       crash_dir=crash_dir,
+                       crash_dir=crash_dir, lock_audit=lock_audit,
                        chaos=ChaosMonkey(kill_at_step=FLEET_KILL[1],
                                          mode="raise",
                                          target=FLEET_KILL[0]))
+    if lock_audit:
+        fleet.lock_audit.hold_budget_s = LOCK_HOLD_BUDGET_S
     victim = next(r for r in fleet.replicas if r.name == FLEET_KILL[0])
     dead_pool = weakref.ref(victim.engine.pool.k)
     del victim
@@ -3033,9 +3148,11 @@ def _fleet_run(params, cfg, prompts, crash_dir, mode_kw):
 
 
 def _check_fleet_run(fleet, cfg, launches):
-    """The armed death and only it; a migration; every replica thread
-    launched K4, and nothing else did; K4 == n_layer x (decode steps +
-    prefills) over every engine that served, the dead one included."""
+    """The armed death and only it; a migration; one decode program in
+    every replica that served (``assert_compile_count``); every replica
+    thread launched K4, and nothing else did; K4 == n_layer x (decode
+    steps + prefills) over every engine that served, the dead one
+    included."""
     from quintnet_tpu_torch.obs import load_crash_dump
 
     deaths = fleet.events.snapshot(kind="replica_death")
@@ -3047,6 +3164,7 @@ def _check_fleet_run(fleet, cfg, launches):
     m = fleet.metrics
     if m.migrations < 1 or m.finished != FLEET_REQUESTS or m.shed:
         raise AssertionError(f"fleet metrics {m.summary()}")
+    fleet.assert_compile_count(decode=1)
     if not fleet.crash_dumps:
         raise AssertionError("no crash dump written")
     dump = load_crash_dump(fleet.crash_dumps[0])
@@ -3222,6 +3340,108 @@ def _deadline(params, cfg):
             "resubmission_prefix_hit_tokens": hit}
 
 
+def _audited_fleet_run(params, cfg, prompts, crash_dir, greedy_streams,
+                       greedy_step_ms, totals):
+    """The phase's greedy traffic again with ``lock_audit=True``, r1
+    killed as before. Gates: every stream equals the unaudited greedy
+    run's (a first difference only at a near-tie, as the greedy run is
+    held to the dense oracle); no lock-order inversion (a
+    ``LockOrderError`` would have failed the run), nothing held over
+    ``LOCK_HOLD_BUDGET_S`` (on release or at the end); one decode
+    program a replica; the exposition parses with the
+    ``quintnet_lock_*`` families. K4's launches join ``totals`` (the
+    kernels line's fleet_s4 decode and f32 prefill). Reported: each
+    lock's acquisitions, contended acquisitions and longest hold, and
+    each replica's step p50 audited beside unaudited."""
+    from quintnet_tpu_torch.obs import parse_exposition, render_exposition
+
+    fleet, fids, outs, launches, wall = _fleet_run(
+        params, cfg, prompts, crash_dir, {}, lock_audit=True)
+    want, _dump = _check_fleet_run(fleet, cfg, launches)
+    for k in totals:
+        totals[k] += want[k]
+    agree, compared, div = _near_tie_compare(params, cfg, outs,
+                                             greedy_streams, prompts)
+    audit = fleet.lock_audit
+    s = audit.summary()
+    held = audit.check_held()
+    too_long = {n: led["held_too_long"] for n, led in s["locks"].items()
+                if led["held_too_long"]}
+    if s["order_violations"] or held or too_long or fleet.events.snapshot(
+            kind="lock_order_violation"):
+        raise AssertionError(f"lock audit: {s['order_violations']} "
+                             f"inversions, held now {held}, held over "
+                             f"{LOCK_HOLD_BUDGET_S} s {too_long}")
+    families = {"quintnet_lock_acquisitions_total",
+                "quintnet_lock_contended_total",
+                "quintnet_lock_order_violations_total"}
+    text = render_exposition(fleet.metrics.summary(),
+                             fleet.engine_summaries(),
+                             health=fleet.health(), locks=s)
+    parsed = parse_exposition(text)
+    seen = {name for name, _labels in parsed}
+    if not families <= seen:
+        raise AssertionError(f"exposition lacks {families - seen}")
+    run = _fleet_numbers(fleet, wall)
+    run.update({
+        "launches_by_path": want,
+        "tokens_agreeing_with_unaudited_greedy": agree,
+        "tokens_compared": compared, "divergences_at_near_ties": div,
+        "lock_order_edges": s["order_edges"],
+        "lock_order_violations": s["order_violations"],
+        "locks": {n: {"acquisitions": led["acquisitions"],
+                      "contended": led["contended"],
+                      "max_hold_ms": led["max_hold_s"] * 1e3}
+                  for n, led in s["locks"].items()},
+        "step_ms_p50_unaudited": greedy_step_ms,
+        "exposition_samples": len(parsed)})
+    del fleet, outs
+    gc.collect()
+    _free_card()
+    return run
+
+
+def _lock_audit_cost(params, cfg, prompts, crash_root, greedy_streams,
+                     runs, totals):
+    """The lock audit's cost on the replica step with the runs' order
+    taken out: the greedy traffic twice more, unaudited then audited, so
+    the arms alternate (greedy, sampled, audited, greedy again, audited
+    again). The unaudited run is held to the phase's run gates and its
+    streams to the greedy run's up to near-ties, the audited one to
+    ``_audited_fleet_run``'s; K4's launches join ``totals``. Adds both
+    runs to ``runs`` and returns each arm's replica step p50s (ms, every
+    replica of every run of the arm, the dead incarnation's too) in run
+    order, with their median, least and largest."""
+    fleet, _fids, outs, launches, wall = _fleet_run(
+        params, cfg, prompts, os.path.join(crash_root, "greedy_again"), {})
+    want, _dump = _check_fleet_run(fleet, cfg, launches)
+    for k in totals:
+        totals[k] += want[k]
+    _near_tie_compare(params, cfg, outs, greedy_streams, prompts)
+    runs["greedy_again"] = {**_fleet_numbers(fleet, wall),
+                            "launches_by_path": want}
+    del fleet, outs
+    gc.collect()
+    _free_card()
+    runs["greedy_lock_audit_again"] = _audited_fleet_run(
+        params, cfg, prompts, os.path.join(crash_root, "audited_again"),
+        greedy_streams, runs["greedy_again"]["step_ms_p50"], totals)
+    cost = {"order": ["greedy", "sampled", "greedy_lock_audit",
+                      "greedy_again", "greedy_lock_audit_again"]}
+    for arm, names in (("unaudited", ("greedy", "greedy_again")),
+                       ("audited", ("greedy_lock_audit",
+                                    "greedy_lock_audit_again"))):
+        p50s = [[v for v in runs[n]["step_ms_p50"].values() if v is not None]
+                for n in names]
+        flat = [v for run in p50s for v in run]
+        cost[arm] = {"step_ms_p50_by_run": p50s,
+                     "median_ms": float(np.median(flat)),
+                     "min_ms": min(flat), "max_ms": max(flat)}
+    cost["audited_over_unaudited"] = (cost["audited"]["median_ms"]
+                                      / cost["unaudited"]["median_ms"])
+    return cost
+
+
 def phase_serve_fleet(params, cfg):
     """GPT-2 124M (12 layers, the serve phases' weights) served by a
     3-replica ``ServeFleet`` (``FLEET_*``: 4 slots, f32 pools, obs on, a
@@ -3233,7 +3453,13 @@ def phase_serve_fleet(params, cfg):
     the same seeds up to perturbed near-ties; a migration, exactly the
     armed death, a crash dump that loads, the fleet's exposition parses;
     K4 from all 3 replica threads and no other, n_layer x (decode steps
-    + prefills) over every engine. Then on one engine: tracing on vs off
+    + prefills) over every engine; one decode program a replica. Then
+    the greedy traffic once more with ``lock_audit=True``
+    (``_audited_fleet_run``): the streams of the unaudited run, no
+    lock-order inversion, no hold over ``LOCK_HOLD_BUDGET_S``; then
+    unaudited and audited once more, for the audit's cost with the
+    runs' order taken out (``_lock_audit_cost``). Then on
+    one engine: tracing on vs off
     equal in streams, host ops, device operations and device-to-host
     copies; a deadline on a ticking clock retires a running request
     typed with its blocks returned. Prints the fleet's wall s, TTFT and
@@ -3284,6 +3510,7 @@ def phase_serve_fleet(params, cfg):
                     params, cfg, fleet, fids, prompts, F32_GAP)
                 run["tokens_checked_vs_dense"] = checked
                 run["near_ties"] = ties
+                greedy_streams = outs
             else:
                 one = _fleet_engine(params, cfg, **mode_kw)
                 want_streams = _run_requests(one, prompts,
@@ -3299,6 +3526,12 @@ def phase_serve_fleet(params, cfg):
             del fleet, outs
             gc.collect()
             _free_card()
+        res["runs"]["greedy_lock_audit"] = _audited_fleet_run(
+            params, cfg, prompts, os.path.join(crash_root, "audited"),
+            greedy_streams, res["runs"]["greedy"]["step_ms_p50"], totals)
+        res["lock_audit_cost"] = _lock_audit_cost(
+            params, cfg, prompts, crash_root, greedy_streams, res["runs"],
+            totals)
     res["inertness"] = _inertness(params, cfg)
     res["deadline"] = _deadline(params, cfg)
     if torch.cuda.is_available():
@@ -3592,6 +3825,10 @@ def _proc_run(params, cfg, prompts, mode_kw, *, pools=None, crash_dir=None,
             num["front_door_output"], num["front_door"] = _front_door(
                 fleet, prompts[1], FLEET_NEW)
         k4 = _proc_k4(fleet, cfg)
+        # the children's recompile sentinels, from their stats replies
+        fleet.assert_compile_count(decode=1)
+        num["compile_counts"] = {name: st["compile"] for name, st in
+                                 fleet.replica_stats().items()}
         parent = _launches()
         if parent["total"]:
             raise AssertionError(f"the parent launched K4 during the "
@@ -3837,7 +4074,8 @@ def phase_serve_llama():
         run = {"kv_dtype": eng.kv_policy.name, "warmup_s": warm,
                "weights_dtype": eng.weights_dtype,
                "weight_bytes": eng.weight_bytes,
-               "launches_by_path": launches["by_path"]}
+               "launches_by_path": launches["by_path"],
+               "compile_counts": _programs(eng)}
         run.update(_serve_numbers(eng, rids, prompts, steps))
         by_variant.setdefault(_variant(eng.pool), collections.Counter()
                               ).update(launches["by_path"])
@@ -3898,6 +4136,7 @@ def phase_serve_llama():
     seeds = LLAMA_SERVE_SEEDS[:LLAMA_SPEC_REQUESTS]
     off, _ = _llama_engine(params, cfg)
     s_off, wall_off = _run_requests(off, sp_prompts, new, seeds)
+    _programs(off)
     del off
     on, _ = _llama_engine(params, cfg, spec=True)
     calls = _Calls(on)
@@ -3920,7 +4159,8 @@ def phase_serve_llama():
         "tokens_agreeing_spec_on_vs_off": agree,
         "tokens_compared": compared, "divergences_at_near_ties": div,
         "draft_acceptance_rate": m.summary()["draft_acceptance_rate"],
-        "wall_s_on_off": [wall_on, wall_off]}
+        "wall_s_on_off": [wall_on, wall_off],
+        "compile_counts": _programs(on)}
     del on, params
     torch.cuda.empty_cache()
     res["launches_by_variant_and_path"] = {v: dict(c)
@@ -4012,6 +4252,26 @@ def _train_share(trainer, params, opt_state, batches, want,
     return out
 
 
+def _step_in_place(trainer, params, opt_state, b):
+    """One train step under ``step_audit.donation_report`` (in-place
+    state, buffer donation's torch meaning): every parameter and every
+    optimizer-state tensor updated in place, nothing aliasable left in
+    new storage. Returns the counts."""
+    from quintnet_tpu_torch.analysis.step_audit import donation_report
+
+    rep = donation_report(trainer.step_fn, params, opt_state,
+                          trainer.device_batch(*b))
+    state = [a for a in rep.args if a.path.startswith(("args[0]",
+                                                       "args[1]"))]
+    missed = [a.path for a in state if not a.donated]
+    if missed or rep.undonated_aliasable:
+        raise AssertionError(f"train state not in place: {missed[:8]}; "
+                             f"{rep.summary()}")
+    return {"state_tensors_in_place": len(state),
+            "bytes_in_place": rep.donated_bytes,
+            "undonated_aliasable": len(rep.undonated_aliasable)}
+
+
 def phase_train():
     from quintnet_tpu_torch.core.config import Config
     from quintnet_tpu_torch.core.pytree import tree_map
@@ -4082,6 +4342,9 @@ def phase_train():
     if counts != want:
         raise AssertionError(f"launches {counts}; expected {want} (n_layer "
                              f"x micro-batches x steps)")
+    flash.assert_compile_count(steps=1)
+    programs = {"steps": flash.step_fn.compile_count}
+    in_place = _step_in_place(flash, params, opt_state, host[0])
 
     pp = fresh()
     hist_p = plain.fit(lambda ep: [host[ep]], epochs=steps, params=pp,
@@ -4101,7 +4364,8 @@ def phase_train():
            "loss_flash": hist_f.train_loss, "loss_plain": hist_p.train_loss,
            "fit_wall_s_flash": hist_f.wall_time_s,
            "fit_wall_s_plain": hist_p.wall_time_s, "launches": counts,
-           "flash_attention_routed": flash_attention.routed}
+           "flash_attention_routed": flash_attention.routed,
+           "compile_counts": programs, "step_state_in_place": in_place}
     res.update(_train_share(flash, params, opt_state, host[steps:],
                             {k: v // steps for k, v in want.items()}))
     _emit(res)
@@ -4269,6 +4533,80 @@ def phase_lora_train():
 TRAIN_BF16 = {"dtype": "bfloat16", "adam_mu_dtype": "bfloat16"}
 
 
+def _bf16_dtype_report(trainer, params, opt_state, b):
+    """One bf16 train step under ``step_audit.dtype_report``. The only
+    f64 allowed is the one ``train/trainer.first_moment`` takes on
+    purpose: Adam's first moment with a bf16 ``mu`` summed in f64 and
+    rounded to f32, the fused multiply-add of optax's jitted
+    ``scale_by_adam(mu_dtype=bfloat16)`` (bit for bit, see its
+    docstring): each parameter leaf widens its bf16 ``mu`` and its f32
+    gradient once. Any other widening to f64 fails. The 16-bit
+    accumulations (bf16 GEMMs with a bf16 result: cuBLAS sums them in
+    f32 inside, the output is bf16) are listed, not gated. The
+    hand-written kernels are outside the walk."""
+    from quintnet_tpu_torch.analysis.step_audit import dtype_report
+    from quintnet_tpu_torch.core.pytree import tree_leaves
+
+    issues = dtype_report(trainer.step_fn, params, opt_state,
+                          trainer.device_batch(*b))
+    n = len(list(tree_leaves(params)))
+    first_moment = {("_to_copy", "['torch.bfloat16'] -> float64"): n,
+                    ("_to_copy", "['torch.float32'] -> float64"): n}
+    f64 = {(i.primitive, i.detail): i.count for i in issues
+           if i.kind == "f64-upcast"}
+    if f64 != first_moment:
+        raise AssertionError(f"f64 upcasts in the bf16 step: {f64}; only "
+                             f"first_moment's {first_moment} are meant")
+    return {"f64_upcasts": {"train/trainer.first_moment (bf16 mu, f32 "
+                            "grad, each leaf once)": 2 * n},
+            "half_accum": {f"{i.primitive}: {i.detail}": i.count
+                           for i in issues if i.kind == "half-accum"}}
+
+
+def _first_moment_cost(mu, grads, b1):
+    """What ``train/trainer.first_moment``'s f64 costs a bf16 step, and
+    what a path without f64 would change: every leaf's first moment from
+    the bf16 ``mu`` and f32 ``grads`` (``{path: tensor}``) as the trainer
+    takes it (f64 products and sum, rounded to f32: optax's FMA), and two
+    f32 candidates: ``f32`` rounds each product, then the sum;
+    ``f32_add_alpha`` adds ``(1 - b1) g`` to ``b1 mu`` (exact in f32: two
+    8-bit significands) in one ``add(alpha=)``, which a compiler may
+    contract to an FMA. For each candidate the elements that differ from
+    the trainer's value and the largest difference in f32 ulps of it; on
+    the card each path's time over all leaves (``_timed_ms``)."""
+    from quintnet_tpu_torch.train.trainer import first_moment
+
+    pairs = [(mu[k], g) for k, g in grads.items()]
+    b1_narrow = float(torch.tensor(b1, dtype=torch.bfloat16))
+    c = float(np.float32(1.0 - b1))
+
+    def f64():
+        return [first_moment(m, g, b1) for m, g in pairs]
+
+    candidates = {
+        "f32": lambda: [g * c + m.float() * b1_narrow for m, g in pairs],
+        "f32_add_alpha": lambda: [(m.float() * b1_narrow).add_(g, alpha=c)
+                                  for m, g in pairs]}
+    on_card = torch.device(DEVICE).type == "cuda"
+    out = {"elements": sum(g.numel() for _, g in pairs)}
+    if on_card:
+        out["f64_ms"] = _timed_ms(f64)
+    ref = f64()
+    for name, fn in candidates.items():
+        differ, worst = 0, 0.0
+        for want, got in zip(ref, fn()):
+            d = want != got
+            differ += int(d.sum())
+            if d.any():
+                up = torch.nextafter(want.abs(), torch.full_like(want, np.inf))
+                ulps = (want - got).abs() / (up - want.abs())
+                worst = max(worst, float(ulps[d].max()))
+        out[name] = {"elements_differing": differ, "max_diff_ulps": worst}
+        if on_card:
+            out[name]["ms"] = _timed_ms(fn)
+    return out
+
+
 def phase_train_bf16(f32_first_loss):
     from quintnet_tpu_torch.core.config import Config
     from quintnet_tpu_torch.core.pytree import tree_leaves, tree_map
@@ -4352,6 +4690,14 @@ def phase_train_bf16(f32_first_loss):
         raise AssertionError(f"launches by dtype {by_dtype} (paged "
                              f"{counts['paged_attention']}); expected {want} "
                              f"(n_layer x micro-batches x steps, no f32)")
+    flash.assert_compile_count(steps=1)
+    programs = {"steps": flash.step_fn.compile_count}
+    dtype_issues = _bf16_dtype_report(flash, params, opt_state, host[0])
+    _, grads = accumulate_grads(flash.model.loss_fn, params,
+                                flash.device_batch(*host[0]), n_micro)
+    first_moment_cost = _first_moment_cost(
+        dict(tree_leaves(opt_state["mu"])), grads, flash.optimizer.b1)
+    del grads
     moments = {m: {str(t.dtype) for _, t in tree_leaves(opt_state[m])}
                for m in ("mu", "nu")}
     if moments != {"mu": {"torch.bfloat16"}, "nu": {"torch.float32"}} or any(
@@ -4381,7 +4727,9 @@ def phase_train_bf16(f32_first_loss):
            "fit_wall_s_plain": hist_p.wall_time_s, "launches": counts,
            "launches_by_dtype": by_dtype, "moment_dtypes": {
                k: sorted(v) for k, v in moments.items()},
-           "flash_attention_routed": flash_attention.routed}
+           "flash_attention_routed": flash_attention.routed,
+           "compile_counts": programs, "dtype_report": dtype_issues,
+           "first_moment_f64_vs_f32": first_moment_cost}
     res.update(_train_share(flash, params, opt_state, host[steps:],
                             {k: per_kernel // steps for k in FLASH_KERNELS},
                             symbols=FLASH_SYMBOLS_BF16))
@@ -6159,7 +6507,12 @@ def _serve_window(eng, cfg, mesh):
         eng.submit(rng.integers(0, cfg.vocab_size, 100),
                    (2 + PROFILED_WINDOWS) * n + 4)
     eng.step()
-    eng.step()
+    # the collective census of one step: its prefill and decode calls,
+    # each one program of the serving census (analysis/specs.py)
+    a0, d0 = eng.metrics.admitted, eng.metrics.decode_steps
+    with cc.count_collectives() as census:
+        eng.step()
+    programs = (eng.metrics.admitted - a0) + (eng.metrics.decode_steps - d0)
     _sync()
     t0 = time.perf_counter()
     for _ in range(n):
@@ -6199,7 +6552,8 @@ def _serve_window(eng, cfg, mesh):
     if busy > 0 and decode_k != _depth(cfg) * n:
         raise AssertionError(f"profiler: {decode_k} K4 decode kernels over "
                              f"{n} steps; expected {_depth(cfg) * n}")
-    return {"decode_step_ms": wall / n * 1e3,
+    return {"census_one_step": census, "census_program_calls": programs,
+            "decode_step_ms": wall / n * 1e3,
             "profiled_step_ms": walls[-1] / n * 1e3,
             "collective_ms_per_step": {k: v / n for k, v in coll.items()},
             "collective_share_of_profiled_step":
@@ -6296,12 +6650,44 @@ def _check_serve_mesh(name, ranks, ref, params, cfg):
             run.update({"routing_summary": first["moe"],
                         "routing_summary_equal_one_device": same})
         res["runs"][mode] = run
+    if name in SERVE_CENSUS:
+        res["census"] = _check_serve_census(name, ranks, cfg)
     for r in ranks:
         res["ranks"].append({k: r[k] for k in (
             "rank", "coords", "decode_step_ms", "profiled_step_ms",
             "collective_ms_per_step", "collective_share_of_profiled_step",
             "k4_decode_kernels_profiled_per_step")})
     return res
+
+
+# the serving runs whose census is held to analysis/specs.py: one step's
+# collectives, its program calls times one program's census
+SERVE_CENSUS = {"serve_tp2": "expected_serve_decode",
+                "serve_ep2": "expected_serve_moe"}
+
+
+def _check_serve_census(name, ranks, cfg):
+    """Each rank's census of one serving step equals its program calls
+    (prefills and the decode call) times one program's expected census
+    (2 row-parallel sums a layer under tp; 2 all-to-alls a MoE layer
+    under ep). Returns the census, the calls and the spec."""
+    from quintnet_tpu_torch.analysis import specs
+
+    sizes = SERVE_MESH_RUNS[name][0]
+    axes = {"tp_axis": "tp"} if "tp" in sizes else {"ep_axis": "ep"}
+    one = getattr(specs, SERVE_CENSUS[name])(_depth(cfg), **axes)
+    for r in ranks:
+        calls = r["census_program_calls"]
+        want = {a: {op: n * calls for op, n in ops.items()}
+                for a, ops in one.items()}
+        if r["census_one_step"] != want:
+            raise AssertionError(
+                f"mesh {name} rank {r['rank']}: census of one step "
+                f"{r['census_one_step']}; expected {calls} program calls x "
+                f"{one} = {want}")
+    return {"one_step": ranks[0]["census_one_step"],
+            "program_calls": ranks[0]["census_program_calls"],
+            "spec_per_program": one}
 
 
 _SERVE_MESH_MODELS = {
@@ -6371,6 +6757,8 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
     with the "save" option checkpoints every step into it and leaves
     there what the resume check compares with: the parameters gathered
     whole after step 1 (rank 0) and each rank's final state."""
+    from quintnet_tpu_torch.analysis.specs import spec_leaf_counts
+    from quintnet_tpu_torch.analysis.step_audit import collective_census
     from quintnet_tpu_torch.core.pytree import tree_leaves
     from quintnet_tpu_torch.ops.flash_attention import flash_attention
     from quintnet_tpu_torch.train.trainer import Trainer
@@ -6479,6 +6867,12 @@ def _mesh_run(rank, dev, run, host, ref_path, model, work=None):
     if opts.get("generate"):
         out["generate"] = _vp_generate(dev, p, specs, strat.mesh, cfg, tp,
                                        opts["generate"])
+    out["census_leaves"] = {a: spec_leaf_counts(specs, a) for a in sizes}
+    if dev.type != "cuda":
+        # the card counts its timed step (_mesh_step_share); the CPU
+        # rehearsals one step of their own
+        out["census"] = collective_census(
+            tr.step_fn, p, st, tr.device_batch(*host[0])).as_dict()
     if dev.type == "cuda":
         out.update(_mesh_step_share(
             tr, p, st, host[0], _per_step(run, _depth(cfg)),
@@ -6595,7 +6989,8 @@ def _per_step(run, n_layer):
 def _mesh_step_share(trainer, params, opt_state, b, per_step,
                      symbols=FLASH_SYMBOLS):
     """One step timed (no profiler; host clock, synced) with the rank's
-    peak memory, then one step under ``torch.profiler`` in which every
+    peak memory and its collective census, then one step under
+    ``torch.profiler`` in which every
     collective starts on a drained device (``core/collectives.
     communicate`` wrapped with a synchronize), so the ``collective:*``
     ranges time the collectives alone: their share of that step, and the
@@ -6606,7 +7001,9 @@ def _mesh_step_share(trainer, params, opt_state, b, per_step,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    trainer.step_fn(params, opt_state, batch)
+    # the collective census of this step (one dict update a collective)
+    with cc.count_collectives() as census:
+        trainer.step_fn(params, opt_state, batch)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
@@ -6638,7 +7035,9 @@ def _mesh_step_share(trainer, params, opt_state, b, per_step,
             coll[e.name] += e.cpu_time_total / 1e3
     launched = {k: sum(n for name, (_, n) in by_name.items()
                        if symbols[k] in name) for k in FLASH_KERNELS}
-    return {"step_ms": wall * 1e3, "peak_memory_gib": peak / 2 ** 30,
+    return {"census": {a: dict(sorted(ops.items()))
+                       for a, ops in sorted(census.items())},
+            "step_ms": wall * 1e3, "peak_memory_gib": peak / 2 ** 30,
             "profiled_step_ms": walls[-1] * 1e3,
             "collective_ms": dict(coll),
             "collective_share_of_profiled_step":
@@ -6984,6 +7383,7 @@ def _check_mesh_run(name, run, ranks, ref, cfg):
             if bad:
                 raise AssertionError(f"{where}: Adam moment chunks {bad} "
                                      f"(max |diff| / max |ref chunk|)")
+    census = _check_train_census(name, run, ranks, n_layer)
     pp = sizes.get("pp", 1)
     gate = ("bit for bit: step losses, params, mu, nu" if exact
             else dict(tol))
@@ -7029,13 +7429,64 @@ def _check_mesh_run(name, run, ranks, ref, cfg):
             **({"sp_mode": opts.get("sp_mode", "ring"),
                 "seq_a_rank": MESH_MODELS[kind][1] // sizes["sp"]}
                if sizes.get("sp", 1) > 1 else {}),
-            "gate": gate, **vp,
+            "gate": gate, **vp, **census,
             "ranks": [{k: v for k, v in r.items()
                        if k not in ("launches", "routed")} for r in ranks],
             "launches_a_rank": want_dtype,
             "note": ("collectives staged through host memory by gloo; "
                      "every rank shares one card (not NVLink)"),
             "card": _smi()}
+
+
+# the mesh runs whose one-step census is held to analysis/specs.py
+TRAIN_CENSUS = ("dp2", "tp2", "dp2tp2", "dp2pp2_stored_zero2",
+                "3d_1f1b_zero1")
+
+
+def _census_spec(run, leaves, depth):
+    """The expected census of one step of ``run`` on a rank
+    (``analysis/specs.py``; ``leaves``: the rank's (total, replicated,
+    sharded) parameter-leaf counts per mesh axis)."""
+    from quintnet_tpu_torch.analysis import specs
+
+    mesh_dim, mesh_name, n_micro, _, schedule, optimizer = _run_parts(run)
+    sizes = dict(zip(mesh_name, mesh_dim))
+    n = leaves[mesh_name[0]][0]
+    zero = {"zero1_adamw": 1, "zero2_adamw": 2}.get(optimizer)
+    _, tp_repl, tp_shard = leaves.get("tp", (0, 0, 0))
+    if "pp" in sizes:
+        _, pp_repl, pp_shard = leaves["pp"]
+        return specs.expected_3d_train_step(
+            n, depth, tp_repl, tp_shard, pp_repl, pp_shard,
+            n_micro=n_micro, pp_size=sizes["pp"],
+            tp_axis="tp" if "tp" in sizes else None, zero_stage=zero,
+            store_activations=schedule == "1f1b_stored")
+    if "tp" in sizes and "dp" in sizes:
+        return specs.expected_dp_tp_train_step(n, depth, tp_repl, tp_shard,
+                                               n_micro=n_micro)
+    if "tp" in sizes:
+        return specs.expected_tp_train_step(depth, tp_repl, tp_shard,
+                                            n_micro=n_micro)
+    if zero == 1:
+        return specs.expected_zero1_train_step(n)
+    if zero == 2:
+        return specs.expected_zero2_train_step()
+    return specs.expected_dp_train_step(n)
+
+
+def _check_train_census(name, run, ranks, depth):
+    """Every rank's census of one step equals the run's expected census
+    (``TRAIN_CENSUS`` runs). Returns the run line's census entries."""
+    if name not in TRAIN_CENSUS:
+        return {}
+    want = _census_spec(run, ranks[0]["census_leaves"], depth)
+    for r in ranks:
+        got = r["census"]
+        if got != want:
+            raise AssertionError(f"mesh {name} rank {r['rank']} "
+                                 f"{r['coords']}: census of one step {got};"
+                                 f" expected {want}")
+    return {"census": ranks[0]["census"], "census_spec": want}
 
 
 def _check_vp_rank(where, r, cfg, sizes):
@@ -7118,11 +7569,13 @@ def main() -> int:
     walls = {}
 
     def timed(name, fn, *args):
-        """Run one phase, its wall seconds into ``walls``, the card's
-        cache emptied after it."""
+        """Run one phase, its wall seconds into ``walls``; after it,
+        what it dropped is collected (reference cycles included) and
+        the card's cache emptied."""
         t0 = time.perf_counter()
         out = fn(*args)
         walls[name] = round(time.perf_counter() - t0, 3)
+        gc.collect()
         torch.cuda.empty_cache()
         return out
 

@@ -22,10 +22,13 @@ check_vma=False)``, not the reference's Megatron rules, so that
   its callers take it of a detached value (a stabiliser).
 
 Every call runs inside a ``torch.profiler.record_function`` range named
-``collective:<name>`` (:func:`communicate`). A backend that cannot run a
-collective on the tensors' device raises; nothing is staged elsewhere
-(gloo stages CUDA tensors through host memory inside its own
-collectives, for a shift as for an all-reduce).
+``collective:<name>`` (:func:`communicate`), which is also where the
+collective census counts (:func:`count_collectives`: per mesh axis
+name, JAX's op names ``all_reduce``, ``all_gather``,
+``reduce_scatter``, ``all_to_all`` and ``ppermute``). A backend that
+cannot run a collective on the tensors' device raises; nothing is
+staged elsewhere (gloo stages CUDA tensors through host memory inside
+its own collectives, for a shift as for an all-reduce).
 
 A permutation's implementation (``ppermute``, and the shift that the
 pipelines and the ring run) is chosen by the axis group's backend, not
@@ -38,7 +41,8 @@ except toward the destination (:func:`_permute_all_to_all`).
 
 from __future__ import annotations
 
-from typing import Optional
+from contextlib import contextmanager
+from typing import Dict, Optional
 
 import torch
 import torch.distributed as dist
@@ -58,10 +62,43 @@ def resolve_axis(axis, mesh: Optional[Mesh] = None) -> MeshAxis:
     return mesh.axis(axis)
 
 
-def communicate(name: str, fn, *args, **kwargs):
-    """Run one ``torch.distributed`` call inside the profiler range
-    ``collective:<name>``; every collective of the port goes through
-    here."""
+CensusCounts = Dict[str, Dict[str, int]]
+
+# {axis: {op: n}} while a census is open (count_collectives)
+_census: Optional[CensusCounts] = None
+
+# the census op of each communicate() name (JAX's: pmax is an all_reduce)
+_CENSUS_OP = {"all_reduce_max": "all_reduce"}
+
+
+@contextmanager
+def count_collectives():
+    """Count every collective this process starts while the block is
+    open, backward ones included (the transposes, as JAX's census counts
+    them; a CUDA backward runs on the autograd engine's device thread and
+    counts all the same), into the dict the block receives: ``{axis:
+    {op: n}}``, one count per axis name of a multi-axis collective. A
+    rank is one process: its census is the process's. Off (the default)
+    :func:`communicate` pays one branch."""
+    global _census
+    prev, _census = _census, {}
+    counts = _census
+    try:
+        yield counts
+    finally:
+        _census = prev
+
+
+def communicate(name: str, ax: MeshAxis, fn, *args, **kwargs):
+    """Run one ``torch.distributed`` call over ``ax`` inside the profiler
+    range ``collective:<name>``; every collective of the port goes
+    through here, and the census counts it here."""
+    counts = _census
+    if counts is not None:
+        op = _CENSUS_OP.get(name, name)
+        for axis in ax.names:
+            per = counts.setdefault(axis, {})
+            per[op] = per.get(op, 0) + 1
     with record_function(f"collective:{name}"):
         return fn(*args, **kwargs)
 
@@ -72,7 +109,7 @@ def communicate(name: str, fn, *args, **kwargs):
 
 def _psum(x, ax: MeshAxis):
     out = x.contiguous().clone()
-    communicate("all_reduce", dist.all_reduce, out, group=ax.group)
+    communicate("all_reduce", ax, dist.all_reduce, out, group=ax.group)
     return out
 
 
@@ -80,7 +117,7 @@ def _gather_stacked(x, ax: MeshAxis):
     """[n, *x.shape]: member i's x at row i."""
     flat = x.contiguous().reshape(-1)
     out = flat.new_empty((ax.size * flat.numel(),))
-    communicate("all_gather", dist.all_gather_into_tensor, out, flat,
+    communicate("all_gather", ax, dist.all_gather_into_tensor, out, flat,
                 group=ax.group)
     return out.reshape((ax.size,) + tuple(x.shape))
 
@@ -96,7 +133,7 @@ def _psum_scatter(x, ax: MeshAxis, dim: int):
                          f"{x.shape[dim]} does not split over {n} members")
     stacked = torch.stack(x.chunk(n, dim=dim))
     out = stacked.new_empty((stacked[0].numel(),))
-    communicate("reduce_scatter", dist.reduce_scatter_tensor, out,
+    communicate("reduce_scatter", ax, dist.reduce_scatter_tensor, out,
                 stacked.reshape(-1), group=ax.group)
     return out.reshape(stacked.shape[1:])
 
@@ -109,7 +146,7 @@ def _all_to_all(x, ax: MeshAxis, split_dim: int, concat_dim: int):
                          f"members")
     send = torch.stack(x.chunk(n, dim=split_dim)).contiguous()
     recv = torch.empty_like(send)
-    communicate("all_to_all", dist.all_to_all_single, recv, send,
+    communicate("all_to_all", ax, dist.all_to_all_single, recv, send,
                 group=ax.group)
     return torch.cat(recv.unbind(0), dim=concat_dim)
 
@@ -161,7 +198,8 @@ def _permute_p2p(x, ax: MeshAxis, dst, src):
         ops.append(dist.P2POp(dist.irecv, out, ax.ranks[src],
                               group=ax.group))
     if ops:
-        for req in communicate("ppermute", dist.batch_isend_irecv, ops):
+        for req in communicate("ppermute", ax, dist.batch_isend_irecv,
+                               ops):
             req.wait()
     return out
 
@@ -175,7 +213,7 @@ def _permute_all_to_all(x, ax: MeshAxis, dst, src):
     send_sizes = [n if j == dst else 0 for j in range(ax.size)]
     recv_sizes = [n if j == src else 0 for j in range(ax.size)]
     recv = x.new_empty((n if src is not None else 0,))
-    communicate("ppermute", dist.all_to_all_single, recv,
+    communicate("ppermute", ax, dist.all_to_all_single, recv,
                 x.reshape(-1) if dst is not None else x.new_empty((0,)),
                 output_split_sizes=recv_sizes, input_split_sizes=send_sizes,
                 group=ax.group)
@@ -291,7 +329,7 @@ def all_reduce_max(x, axis: AxisNames, mesh: Optional[Mesh] = None):
     if ax.size == 1:
         return x
     out = x.contiguous().clone()
-    communicate("all_reduce_max", dist.all_reduce, out,
+    communicate("all_reduce_max", ax, dist.all_reduce, out,
                 op=dist.ReduceOp.MAX, group=ax.group)
     return out
 
@@ -403,7 +441,7 @@ def all_reduce_(x, axis: AxisNames, mesh: Optional[Mesh] = None, *,
     if not x.is_contiguous():
         raise ValueError("all_reduce_ needs a contiguous tensor")
     with torch.no_grad():
-        communicate("all_reduce", dist.all_reduce, x, group=ax.group)
+        communicate("all_reduce", ax, dist.all_reduce, x, group=ax.group)
         if mean:
             x.div_(ax.size)
     return x

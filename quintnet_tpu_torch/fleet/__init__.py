@@ -35,10 +35,10 @@ bursts and failures:
   of either fleet (429/503 + Retry-After, 504, 400; ``/healthz``,
   ``/metrics``).
 
-Port of ``quintnet_tpu/fleet/``. ``ServeFleet(lock_audit=True)``,
-``ProcessFleet(lock_audit=True)`` and both fleets'
-``assert_compile_count`` rest on the static checks and are not ported
-yet (ROADMAP.md, §1, item 9).
+Port of ``quintnet_tpu/fleet/``. ``lock_audit=True`` instruments
+either fleet's locks (``analysis/lockrt.py``), and both fleets'
+``assert_compile_count`` hold the replicas' engines to their recompile
+sentinels (``analysis/recompile.py``).
 """
 
 from quintnet_tpu_torch.fleet.admission import AdmissionQueue, Overloaded

@@ -39,10 +39,12 @@ restart builds the next one.
 
 Port of ``quintnet_tpu/fleet/fleet.py``. ``submit(key=)`` is
 ``submit(seed=)`` (default: the fid, the counterpart of
-``fold_in(key(0), fid)``); ``lock_audit=True`` and
-:meth:`ServeFleet.assert_compile_count` raise ``NotImplementedError``
-(ROADMAP.md, §1, item 9), and the per-replica summary carries no
-``compile_stats`` (eager torch compiles no programs).
+``fold_in(key(0), fid)``). ``lock_audit=True`` also folds the
+engines' adapter registry lock into the audit's order graph, and
+:meth:`ServeFleet.assert_compile_count` aggregates the engines'
+recompile sentinels (``analysis/recompile.py``: in eager torch a
+program is one signature of a program's per-step arguments, one
+CUDA-graph capture).
 """
 
 from __future__ import annotations
@@ -62,12 +64,11 @@ from quintnet_tpu_torch.fleet.replica import Replica
 from quintnet_tpu_torch.fleet.router import Router
 from quintnet_tpu_torch.fleet.router import eligible as router_eligible
 from quintnet_tpu_torch.serve import metrics as serve_metrics
+from quintnet_tpu_torch.analysis.lockrt import InstrumentedLock, LockAudit
+from quintnet_tpu_torch.analysis.recompile import (RecompileError,
+                                                   assert_compile_count)
 from quintnet_tpu_torch.serve.engine import check_admissible
 from quintnet_tpu_torch.serve.scheduler import DeadlineExceeded
-
-# what the port's fleet refuses, with the ROADMAP.md place it is queued
-_ITEM_9 = ("ROADMAP.md, §1, item 9 ('Analysis, data and tools'): the "
-           "lock-order runtime and the compile-count checks")
 
 
 class FleetRequest:
@@ -289,7 +290,9 @@ class ServeFleet:
     replica and once per breaker-approved restart. ``chaos``: one
     ``ft.ChaosMonkey`` (mode='raise') or a sequence; each is armed
     against the replica named by its ``target`` (default: replica 0).
-    ``lock_audit=True`` is not ported yet (ROADMAP.md, §1, item 9).
+    ``lock_audit=True``: every lock the fleet mints is an instrumented
+    one sharing one order graph (``analysis/lockrt.py``,
+    :attr:`lock_audit`).
     """
 
     def __init__(self, engine_factory: Callable, *, n_replicas: int = 2,
@@ -303,14 +306,22 @@ class ServeFleet:
                  lock_audit: bool = False):
         if n_replicas < 1:
             raise ValueError(f"n_replicas must be >= 1, got {n_replicas}")
-        if lock_audit:
-            # the lock-discipline runtime (JAX's analysis/lockrt.py)
-            raise NotImplementedError(
-                f"ServeFleet(lock_audit=True) is not ported yet "
-                f"({_ITEM_9})")
         self._factory = engine_factory
         self.clock = clock
         self.metrics = FleetMetrics()
+        # lock-discipline runtime (analysis/lockrt.py): lock_audit=True
+        # swaps every lock this fleet mints for an InstrumentedLock
+        # sharing ONE order graph + ledger registry, so an A->B/B->A
+        # inversion anywhere in the fleet raises a typed LockOrderError
+        # instead of deadlocking, and GET /metrics grows the
+        # quintnet_lock_* families. Off (the default) the locks are the
+        # stock threading primitives.
+        self.lock_audit = None
+        if lock_audit:
+            self.lock_audit = LockAudit(
+                clock=clock,
+                on_violation=lambda info: self._emit(
+                    "lock_order_violation", **info))
         # observability (quintnet_tpu/obs/): ``obs=True`` arms ONE
         # fleet-wide Tracer (engines share the address space, so every
         # replica engine records into it directly — one merged
@@ -335,8 +346,10 @@ class ServeFleet:
         if self._obs:
             from quintnet_tpu_torch.obs import EventLog, Tracer
 
-            self.tracer = Tracer(clock=clock)
-            self.events = EventLog(clock=clock)
+            self.tracer = Tracer(clock=clock,
+                                 lock=self._audit_lock("obs.tracer"))
+            self.events = EventLog(clock=clock,
+                                   lock=self._audit_lock("obs.events"))
         self.crash_dumps: List[str] = []     # paths written (crash_dir)
         self.last_crash: Optional[Dict] = None
         self._pending_dumps: List[Dict] = []  # snapshotted under the
@@ -344,7 +357,11 @@ class ServeFleet:
         #   disk write must never stall token delivery
         self._breaker_seen: Dict[str, str] = {}
         self._router = Router(policy)
-        self._cv = threading.Condition()
+        # threading.Condition()'s default lock IS an RLock: the audited
+        # swap keeps reentrancy (audit.condition)
+        self._cv = (self.lock_audit.condition("fleet._cv")
+                    if self.lock_audit is not None
+                    else threading.Condition())
         self._queue = AdmissionQueue(max_pending, clock=clock)
         self.metrics._queue_probe = self._queue_gauges
         if slo is not None:
@@ -386,11 +403,25 @@ class ServeFleet:
             target=self._dispatch_loop, name="fleet-dispatch", daemon=True)
         self._dispatcher.start()
 
+    def _audit_lock(self, name: str):
+        """An instrumented Lock under ``lock_audit=True``, else None
+        (the primitive constructors fall back to a stock Lock — the off
+        path constructs exactly what it always did)."""
+        return (self.lock_audit.lock(name)
+                if self.lock_audit is not None else None)
+
     def _spawn(self, name: str, chaos) -> Replica:
         rep = Replica(name, self._factory, chaos=chaos,
                       max_dispatch=self._max_dispatch,
                       on_finish=self._on_finish, on_death=self._on_death,
                       on_reject=self._on_reject, poll_s=self._poll_s)
+        reg = getattr(rep.engine, "adapters", None)
+        if (self.lock_audit is not None and reg is not None
+                and not isinstance(reg._lock, InstrumentedLock)):
+            # the engines' adapter registry joins the order graph before
+            # any request can reach it (a registry the factory shares
+            # across replicas is swapped once, at the first spawn)
+            reg._lock = self.lock_audit.rlock("serve.adapters")
         if self._obs:
             from quintnet_tpu_torch.obs import StepRecorder
 
@@ -398,7 +429,8 @@ class ServeFleet:
             # per-engine flight-recorder ring (the replica's black box)
             rep.engine.tracer = self.tracer
             rep.engine.recorder = StepRecorder(
-                capacity=self._ring_capacity, clock=rep.engine.clock)
+                capacity=self._ring_capacity, clock=rep.engine.clock,
+                lock=self._audit_lock(f"recorder.{name}"))
         return rep
 
     def _emit(self, kind: str, **fields) -> None:
@@ -662,9 +694,10 @@ class ServeFleet:
             # fleet freezes (fleet/proc.py)
             "signals": (self.signals.snapshot()
                         if self.signals is not None else {}),
-            # JAX's lock-audit ledgers (item 9): empty, as JAX's with
-            # the audit off
-            "locks": {},
+            # the lock-audit ledgers ride the black box under
+            # lock_audit=True: "who held what, for how long" at death
+            "locks": (self.lock_audit.summary()
+                      if self.lock_audit is not None else {}),
         }
         if self.crash_dir is not None:
             self._pending_dumps.append(dict(
@@ -833,6 +866,8 @@ class ServeFleet:
                             "fleet closed with the request in flight")
             pending, self._pending_dumps = self._pending_dumps, []
         self._write_dumps(pending)   # dumps a closing race queued
+        if self.lock_audit is not None:
+            self.lock_audit.close()
 
     # ------------------------------------------------------------------
     # introspection
@@ -895,10 +930,14 @@ class ServeFleet:
                 "read the per-replica step rings")
         with self._cv:
             if self.events is None:
-                self.events = EventLog(clock=self.clock)
+                self.events = EventLog(
+                    clock=self.clock,
+                    lock=self._audit_lock("obs.events"))
             self.slo = SLOEngine(config, clock=self.clock,
                                  events=self.events)
-            self.signals = SignalBus(clock=self.clock)
+            self.signals = SignalBus(
+                clock=self.clock,
+                lock=self._audit_lock("obs.signals"))
             self._signal_next_t = 0.0
 
     def _slo_observe(self, stream: str, value: float) -> None:
@@ -988,6 +1027,7 @@ class ServeFleet:
                     "in_flight": rep.in_flight,
                     "outstanding_tokens": rep.outstanding_tokens,
                     "breaker": self._breakers[rep.name].state,
+                    "compile_stats": rep.engine.compile_stats(),
                 } for rep in self._replicas}
         out = self.metrics.summary()
         out["policy"] = self._router.policy
@@ -1000,9 +1040,66 @@ class ServeFleet:
     def assert_compile_count(self, prefill: Optional[int] = None,
                              decode: int = 1, *,
                              include_idle: bool = False) -> None:
-        """JAX's fleet-wide bounded-compile check over each replica's
-        recompile sentinels (``analysis/recompile.py``): not ported
-        yet."""
-        raise NotImplementedError(
-            f"ServeFleet.assert_compile_count is not ported yet "
-            f"({_ITEM_9})")
+        """The fleet-wide bounded-program promise: every replica engine
+        that served at least one request must have run EXACTLY
+        ``decode`` decode programs, at least one prefill program, no
+        more than one per bucket, and no more than ``prefill`` in total
+        (default: that replica's own bucket count). An UPPER bound, not
+        an exact total: the router sends different tail-length mixes to
+        different replicas, so replicas run different bucket subsets.
+        The decode sentinels go through ``analysis.recompile.
+        assert_compile_count`` for its signature-diffing error. Engines
+        that never admitted work are skipped unless ``include_idle``.
+        Spec-enabled engines also carry ``verify[<k>]`` sentinels (at
+        most one program per draft-length bucket), adapter-enabled ones
+        ``decode[r<rank>]`` sentinels instead of one ``decode`` (at most
+        one per rank bucket)."""
+        expected: Dict[str, int] = {}
+        sentinels: Dict = {}
+        for rep in self._replicas:
+            if not include_idle and rep.engine.metrics.admitted == 0:
+                continue
+            rep_sentinels = rep.engine.compile_sentinels()
+            has_verify = any(k.startswith("verify[")
+                             for k in rep_sentinels)
+            if "decode" not in rep_sentinels:
+                # adapter-enabled engine: rank-bucketed decode — at most
+                # one program per bucket, any total up to the bucket
+                # count (which buckets fire is traffic-shaped)
+                per_decode = {kind: s.compile_count
+                              for kind, s in rep_sentinels.items()
+                              if kind.startswith("decode[")}
+                if any(n > 1 for n in per_decode.values()):
+                    raise RecompileError(
+                        f"replica {rep.name}: expected at most one "
+                        f"compiled decode program per LoRA rank "
+                        f"bucket, observed {per_decode}")
+            else:
+                key = f"{rep.name}_decode"
+                # a spec-enabled replica whose every step speculated may
+                # never run the plain decode program: 0 or `decode`
+                # programs both keep the bound
+                if not (has_verify
+                        and rep_sentinels["decode"].compile_count == 0):
+                    expected[key] = decode
+                    sentinels[key] = rep_sentinels["decode"]
+            per_bucket = {kind: s.compile_count
+                          for kind, s in rep_sentinels.items()
+                          if kind.startswith("prefill[")}
+            total = sum(per_bucket.values())
+            cap = prefill if prefill is not None else len(per_bucket)
+            if not 1 <= total <= cap or any(n > 1
+                                            for n in per_bucket.values()):
+                raise RecompileError(
+                    f"replica {rep.name}: expected 1..{cap} compiled "
+                    f"prefill bucket program(s) (at most one per "
+                    f"bucket), observed {total} ({per_bucket})")
+            per_verify = {kind: s.compile_count
+                          for kind, s in rep_sentinels.items()
+                          if kind.startswith("verify[")}
+            if any(n > 1 for n in per_verify.values()):
+                raise RecompileError(
+                    f"replica {rep.name}: expected at most one compiled "
+                    f"verify program per draft-length bucket, observed "
+                    f"{per_verify}")
+        assert_compile_count(expected, **sentinels)

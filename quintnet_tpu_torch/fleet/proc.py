@@ -50,10 +50,8 @@ Differences from JAX's module: ``device=`` replaces ``platform=``
 (default ``"cuda"``; a child asked for CUDA where there is none raises
 before its hello, it never carries on on the CPU); ``submit(seed=)``
 replaces ``key=`` (default: the fid); the ``stats`` reply carries the
-child's K4 launch counters by path and variant where JAX's carries
-compile counts; ``lock_audit=True`` and :meth:`ProcessFleet.
-assert_compile_count` raise ``NotImplementedError`` (ROADMAP.md, §1,
-item 9).
+child's K4 launch counters by path and variant beside its compile
+counts (the engine's recompile sentinels, ``analysis/recompile.py``).
 """
 
 from __future__ import annotations
@@ -70,8 +68,10 @@ import numpy as np
 
 from quintnet_tpu_torch.fleet import wire
 from quintnet_tpu_torch.fleet.admission import AdmissionQueue, Overloaded
-from quintnet_tpu_torch.fleet.fleet import (_ITEM_9, FleetMetrics,
-                                            FleetRequest)
+from quintnet_tpu_torch.analysis.lockrt import LockAudit
+from quintnet_tpu_torch.analysis.recompile import \
+    check_serving_compile_counts
+from quintnet_tpu_torch.fleet.fleet import FleetMetrics, FleetRequest
 from quintnet_tpu_torch.fleet.health import (CLOSED, DEAD, HEALTHY,
                                              STALLED, STARTING, STOPPED,
                                              Backoff, CircuitBreaker,
@@ -343,6 +343,7 @@ def replica_main(name: str, host: str, port: int, token: str,
         elif t == "stats":
             send({"t": "stats", "id": cmd["id"], "steps": steps[0],
                   "k4": k4_counts(),
+                  "compile": engine.compile_counts(),
                   "metrics": engine.metrics.summary(),
                   "admitted": engine.metrics.admitted,
                   "decode_steps": engine.metrics.decode_steps})
@@ -495,13 +496,20 @@ class ProcReplica:
         from collections import deque
 
         self.ring = deque(maxlen=fleet._ring_capacity)
-        self._ring_lock = threading.Lock()
+        # audited fleets fold both replica locks into the fleet-wide
+        # order graph (same-name re-mint across restarts returns the
+        # SAME lock, so a respawned incarnation keeps its node)
+        self._ring_lock = (
+            fleet.lock_audit.lock(f"proc.{name}._ring_lock")
+            if fleet.lock_audit is not None else threading.Lock())
         self._fid2freq: Dict[int, FleetRequest] = {}
         # adapters this incarnation has been sent (affinity heuristic:
         # the child's registry loaded them on first use; its own LRU
         # may have evicted — affinity is a preference, never a promise)
         self._adapters_seen: set = set()
-        self._send_lock = threading.Lock()
+        self._send_lock = (
+            fleet.lock_audit.lock(f"proc.{name}._send_lock")
+            if fleet.lock_audit is not None else threading.Lock())
         self._pending: Dict[int, tuple] = {}
         self._rpc_counter = 0
 
@@ -765,11 +773,19 @@ class ProcessFleet:
         self._obs = bool(obs) or slo is not None
         self.crash_dir = crash_dir
         self._ring_capacity = int(ring_capacity)
-        # the lock-discipline runtime (JAX's analysis/lockrt.py)
+        # lock-discipline runtime (analysis/lockrt.py): lock_audit=True
+        # swaps every parent-side lock — the fleet Condition, each
+        # replica's ring + send locks, the obs primitives' mutexes —
+        # for InstrumentedLocks sharing ONE order graph, so an
+        # inversion raises a typed LockOrderError instead of
+        # deadlocking and /metrics grows quintnet_lock_*. Off (the
+        # default) the stock primitives are constructed verbatim.
+        self.lock_audit = None
         if lock_audit:
-            raise NotImplementedError(
-                f"ProcessFleet(lock_audit=True) is not ported yet "
-                f"({_ITEM_9})")
+            self.lock_audit = LockAudit(
+                clock=clock,
+                on_violation=lambda info: self._emit(
+                    "lock_order_violation", **info))
         self.tracer = None
         self.events = None
         self.slo = None            # obs.SLOEngine once armed
@@ -780,8 +796,10 @@ class ProcessFleet:
         if self._obs:
             from quintnet_tpu_torch.obs import EventLog, Tracer
 
-            self.tracer = Tracer(clock=clock)
-            self.events = EventLog(clock=clock)
+            self.tracer = Tracer(clock=clock,
+                                 lock=self._audit_lock("obs.tracer"))
+            self.events = EventLog(clock=clock,
+                                   lock=self._audit_lock("obs.events"))
         self.crash_dumps: List[str] = []
         self.last_crash: Optional[Dict] = None
         self._pending_dumps: List[Dict] = []  # snapshotted under the
@@ -798,7 +816,11 @@ class ProcessFleet:
         self.backoff = backoff or Backoff()
         self.metrics = FleetMetrics()
         self._router = Router(policy)
-        self._cv = threading.Condition()
+        # threading.Condition()'s default lock IS an RLock: the audited
+        # swap keeps reentrancy (audit.condition)
+        self._cv = (self.lock_audit.condition("fleet._cv")
+                    if self.lock_audit is not None
+                    else threading.Condition())
         self._queue = AdmissionQueue(max_pending, clock=clock)
         self.metrics._queue_probe = self._queue_gauges
         if slo is not None:
@@ -956,6 +978,13 @@ class ProcessFleet:
                         f"check the engine builder spec "
                         f"{self.engine_spec.get('file') or self.engine_spec.get('module')}")
                 self._cv.wait(0.05)
+
+    def _audit_lock(self, name: str):
+        """An instrumented Lock under ``lock_audit=True``, else None
+        (the primitive constructors fall back to a stock Lock — the off
+        path constructs exactly what it always did)."""
+        return (self.lock_audit.lock(name)
+                if self.lock_audit is not None else None)
 
     def _emit(self, kind: str, **fields) -> None:
         if self.events is not None:
@@ -1496,9 +1525,9 @@ class ProcessFleet:
             # question the corpse cannot answer but the bus can
             "signals": (self.signals.snapshot()
                         if self.signals is not None else {}),
-            # JAX's lock-audit ledgers (item 9): empty, as JAX's with
-            # the audit off
-            "locks": {},
+            # lock_audit=True: "who held what, for how long" at death
+            "locks": (self.lock_audit.summary()
+                      if self.lock_audit is not None else {}),
         }
         if self.crash_dir is not None:
             self._pending_dumps.append(dict(
@@ -1618,10 +1647,14 @@ class ProcessFleet:
                 "read the heartbeat-mirrored step rings")
         with self._cv:
             if self.events is None:
-                self.events = EventLog(clock=self.clock)
+                self.events = EventLog(
+                    clock=self.clock,
+                    lock=self._audit_lock("obs.events"))
             self.slo = SLOEngine(config, clock=self.clock,
                                  events=self.events)
-            self.signals = SignalBus(clock=self.clock)
+            self.signals = SignalBus(
+                clock=self.clock,
+                lock=self._audit_lock("obs.signals"))
             self.planner = (PoolRebalancePlanner(
                 clock=self.clock, events=self.events, **planner_kwargs)
                 if self._disagg else None)
@@ -2205,6 +2238,8 @@ class ProcessFleet:
                 rep._fid2freq = {}
             pending, self._pending_dumps = self._pending_dumps, []
         self._write_dumps(pending)   # dumps a closing race queued
+        if self.lock_audit is not None:
+            self.lock_audit.close()
 
     # ------------------------------------------------------------------
     # introspection
@@ -2309,6 +2344,7 @@ class ProcessFleet:
             except (TimeoutError, OSError):
                 continue
             out[rep.name] = {"k4": f["k4"],
+                             "compile": f["compile"],
                              "metrics": f["metrics"],
                              "steps": f["steps"],
                              "admitted": f["admitted"],
@@ -2328,6 +2364,8 @@ class ProcessFleet:
                     "outstanding_tokens": rep.outstanding_tokens,
                     "breaker": self._breakers[rep.name].state,
                     "k4_launches": stats.get(rep.name, {}).get("k4"),
+                    "compile_counts": stats.get(rep.name, {}).get(
+                        "compile"),
                 } for rep in self._replicas}
         out = self.metrics.summary()
         out["policy"] = self._router.policy
@@ -2342,9 +2380,23 @@ class ProcessFleet:
 
     def assert_compile_count(self, prefill: Optional[int] = None,
                              decode: int = 1) -> None:
-        """JAX's per-process bounded-compile check over each child's
-        recompile sentinels (``analysis/recompile.py``): not ported
-        yet. The ``stats`` reply carries K4's launch counts instead."""
-        raise NotImplementedError(
-            f"ProcessFleet.assert_compile_count is not ported yet "
-            f"({_ITEM_9})")
+        """The bounded-program promise, accounted PER PROCESS: each live
+        replica that admitted work reports its sentinel counts over the
+        wire ({program: count}) and ``analysis.recompile.
+        check_serving_compile_counts`` holds them to the rules the
+        thread fleet enforces on in-process sentinels."""
+        for name, s in self.replica_stats().items():
+            if s["admitted"] == 0:
+                continue
+            expect_decode = decode
+            if self.replica(name).pool == "prefill":
+                # a prefill-pool replica never runs the decode program
+                # (its requests retire at the first token), but
+                # warmup() runs it: accept 0 OR the fleet-wide
+                # expectation, never more
+                observed = int(s["compile"].get("decode", 0))
+                if observed in (0, decode):
+                    expect_decode = observed
+            check_serving_compile_counts(
+                f"replica {name}", s["compile"],
+                max_prefill=prefill, decode=expect_decode)

@@ -174,13 +174,17 @@ class AdapterRegistry:
     eviction resumes as pins release."""
 
     def __init__(self, *, byte_budget: Optional[int] = None,
-                 clock=time.monotonic):
+                 clock=time.monotonic, lock=None):
         if byte_budget is not None and byte_budget <= 0:
             raise ValueError(f"byte_budget must be positive or None; "
                              f"got {byte_budget}")
         self.byte_budget = byte_budget
         self.clock = clock
-        self._lock = threading.RLock()
+        # ``lock=`` takes a re-entrant analysis.lockrt InstrumentedLock
+        # (audit.rlock), so a lock_audit=True fleet folds the registry
+        # mutex into its order graph; re-entrant, as eviction runs under
+        # registration's hold
+        self._lock = lock if lock is not None else threading.RLock()
         self._entries: Dict[str, AdapterEntry] = {}
         self.evictions = 0
 

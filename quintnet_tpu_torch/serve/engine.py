@@ -107,8 +107,14 @@ would have had uninterrupted, and the one ``gpt2_generate`` gives its
 prompt at the same seed. Greedy (``temperature <= 0``) is the argmax.
 
 Every layer of both goes through ``ops.paged_attention`` — on the card
-the hand-written CUDA kernel. PyTorch runs eagerly, so the bucket
-ladder bounds tensor shapes rather than compiled programs.
+the hand-written CUDA kernel. PyTorch runs eagerly and compiles no
+programs, but the engine keeps JAX's bounded-program promise with JAX's
+recompile sentinels (``analysis/recompile.py``): each prefill bucket,
+the decode step (each LoRA rank bucket) and each verify bucket is one
+sentinel with ``max_compiles=1`` over the abstract signature of its
+per-step arguments, which is what one CUDA-graph capture would hold
+(:meth:`ServeEngine.compile_counts`,
+:meth:`ServeEngine.assert_compile_count`).
 
 Lifecycle (the fleet's surface, ``fleet/``): ``submit(deadline_s=)``
 with a per-step sweep that retires running and waiting requests past
@@ -138,12 +144,15 @@ plus the sampled tokens; the pool and parameters stay on the device.
 
 from __future__ import annotations
 
+import functools
 import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
+from quintnet_tpu_torch.analysis.recompile import (RecompileError,
+                                                   RecompileSentinel)
 from quintnet_tpu_torch.analysis.specs import (lora_rank_buckets,
                                                prefill_buckets)
 from quintnet_tpu_torch.core.device import resolve_device
@@ -389,6 +398,51 @@ class ServeEngine:
         self._rid_counter = 0
         self._arrival_counter = 0
         self._admissions_paused = False
+
+        # the bounded-program promise, enforced at call time as JAX
+        # does (analysis/recompile.py): every prefill bucket, the decode
+        # step and every verify bucket is its own sentinel with
+        # max_compiles=1, so a drifting signature raises RecompileError
+        # naming the leaf. A signature is that of the per-step arguments
+        # alone (the parameter tree and the mesh axes are bound into the
+        # program, never walked): what one CUDA-graph capture of the
+        # program would hold. The programs hold no reference to the
+        # engine, so it (its pool) is freed by refcount, not by gc.
+        axes = {"tp_axis": self._tp, "ep_axis": self._ep}
+        prefill_fn = (functools.partial(family.prefill_from_sp, self.params,
+                                        sp_axis=self._sp)
+                      if self._sp is not None
+                      else functools.partial(family.prefill_from,
+                                             self.params, **axes))
+        self._prefills: Dict[int, RecompileSentinel] = {
+            b: RecompileSentinel(f"serve.prefill[{b}]", prefill_fn,
+                                 max_compiles=1)
+            for b in self.prefill_buckets}
+        # decode: ONE program for adapter-blind engines; with adapters,
+        # one per LoRA rank bucket (the packed factors' rank dim is the
+        # only signature difference). Keyed by bucket; None = the
+        # adapter-blind program.
+        decode_fn = functools.partial(family.decode, self.params, **axes)
+        if self.adapters is None:
+            self._decode_sentinel = RecompileSentinel(
+                "serve.decode", decode_fn, max_compiles=1)
+            self._decodes: Dict[Optional[int], RecompileSentinel] = {
+                None: self._decode_sentinel}
+        else:
+            self._decodes = {
+                r: RecompileSentinel(f"serve.decode[r{r}]", decode_fn,
+                                     max_compiles=1)
+                for r in self.lora_rank_buckets}
+        # verify (speculative decoding): one program per draft-length
+        # bucket, the run width P = k + 1
+        self._verifies: Dict[int, RecompileSentinel] = {}
+        if self.spec is not None:
+            verify_fn = functools.partial(family.verify, self.params,
+                                          **axes)
+            self._verifies = {
+                k: RecompileSentinel(f"serve.verify[{k}]", verify_fn,
+                                     max_compiles=1)
+                for k in self.spec.buckets}
 
     # ------------------------------------------------------------------
     # multi-tenant LoRA (serve/adapters.py)
@@ -738,13 +792,14 @@ class ServeEngine:
         return tree_map(lambda t, spec: shard_leaf(t, spec, self.mesh),
                         params, specs)
 
-    def _call(self, fn, *args, kv_kw, lora_kw=None):
-        """One family contract on this rank (``lora_kw``: the packed
-        adapters' keywords), its MoE routing stats (the trailing output
-        of a MoE family) banked for the step's ledger; returns (logits,
-        *pools)."""
-        out = fn(self.params, *args, **kv_kw, **(lora_kw or {}),
-                 tp_axis=self._tp, ep_axis=self._ep)
+    def _call(self, program: RecompileSentinel, *args, kv_kw,
+              lora_kw=None):
+        """One family contract on this rank through its program's
+        sentinel (the per-step arguments, ``lora_kw`` the packed
+        adapters' keywords, are its signature), its MoE routing stats
+        (the trailing output of a MoE family) banked for the step's
+        ledger; returns (logits, *pools)."""
+        out = program(*args, **kv_kw, **(lora_kw or {}))
         if self._moe_on:
             *out, st = out
             self._moe_acc.append({k: v.detach().cpu().numpy()
@@ -806,21 +861,16 @@ class ServeEngine:
             # block's scales
             for sc in scales:
                 sc[:, dst] = sc[:, cow_src]
+        program = self._prefills[ids.shape[1]]
         if self._sp is not None:
             # this rank's slice of the bucket; the ring runs inside
             pl = ids.shape[1] // self._sp.size
             ids = ids[:, self._sp.index * pl:(self._sp.index + 1) * pl]
-            logits, *pools = self.family.prefill_from_sp(
-                self.params, k_pool, v_pool, self._dev(ids), start, t0,
-                self._dev(table_row), bs, sp_axis=self._sp,
-                **self._kv_kw(scales))
-        else:
-            logits, *pools = self._call(
-                self.family.prefill_from, k_pool, v_pool, self._dev(ids),
-                start, t0, self._dev(table_row), bs,
-                kv_kw=self._kv_kw(scales),
-                lora_kw=(self._lora_args("prefill", slot=slot)
-                         if self.adapters is not None else None))
+        logits, *pools = self._call(
+            program, k_pool, v_pool, self._dev(ids), start, t0,
+            self._dev(table_row), bs, kv_kw=self._kv_kw(scales),
+            lora_kw=(self._lora_args("prefill", slot=slot)
+                     if self.adapters is not None else None))
         self.pool.update(*pools)
         return logits
 
@@ -835,12 +885,11 @@ class ServeEngine:
         k_pool, v_pool, *scales = self.pool.caches()
         lora_kw = None
         if self.adapters is not None:
-            lora_kw = self._lora_args(
-                "decode", rank_bucket=(self._decode_rank_bucket()
-                                       if rank_bucket is None
-                                       else rank_bucket))
+            if rank_bucket is None:
+                rank_bucket = self._decode_rank_bucket()
+            lora_kw = self._lora_args("decode", rank_bucket=rank_bucket)
         logits, *pools = self._call(
-            self.family.decode, k_pool, v_pool, self._dev(tok),
+            self._decodes[rank_bucket], k_pool, v_pool, self._dev(tok),
             self._dev(pos), self._dev(tables), self.pool.block_size,
             kv_kw=self._kv_kw(scales), lora_kw=lora_kw)
         self.pool.update(*pools)
@@ -857,7 +906,8 @@ class ServeEngine:
         decoding would draw there."""
         k_pool, v_pool, *scales = self.pool.caches()
         logits, *pools = self._call(
-            self.family.verify, k_pool, v_pool, self._dev(ids),
+            self._verifies[ids.shape[1] - 1], k_pool, v_pool,
+            self._dev(ids),
             self._dev(starts), self._dev(tail_lens), self._dev(tables),
             self.pool.block_size, kv_kw=self._kv_kw(scales),
             lora_kw=(self._lora_args("verify")
@@ -896,6 +946,93 @@ class ServeEngine:
                 "chunked_prefill": self.chunked_prefill,
                 "prefix_cache": self.prefix_cache,
                 "kv_tier": self.kv_tier is not None}
+
+    # ------------------------------------------------------------------
+    # the bounded-program promise (analysis/recompile.py)
+    # ------------------------------------------------------------------
+    def compile_stats(self) -> Dict[str, int]:
+        """Program counts for the bounded-program invariant: ``decode``
+        stays at 1 (adapter-blind engines) or at most
+        ``len(lora_rank_buckets)``, ``prefill`` — the total across
+        buckets — at most ``len(prefill_buckets)``, and (speculation
+        on) ``verify`` at most ``len(spec.buckets)``, however requests
+        and adapters come and go. The ``verify`` key appears only on
+        spec-enabled engines."""
+        out = {"prefill": sum(s.compile_count
+                              for s in self._prefills.values()),
+               "decode": sum(s.compile_count
+                             for s in self._decodes.values())}
+        if self.spec is not None:
+            out["verify"] = sum(s.compile_count
+                                for s in self._verifies.values())
+        return out
+
+    def compile_sentinels(self) -> Dict[str, RecompileSentinel]:
+        """The per-bucket prefill sentinels (``prefill[<width>]``), the
+        per-bucket verify sentinels (``verify[<k>]``, spec-enabled
+        engines only) and the decode sentinel(s) — one ``decode`` key
+        for adapter-blind engines, ``decode[r<rank>]`` per rank bucket
+        with adapters — for callers that aggregate the promise across
+        engines (``ServeFleet.assert_compile_count``)."""
+        out: Dict[str, RecompileSentinel] = {
+            f"prefill[{b}]": s for b, s in self._prefills.items()}
+        for k, s in self._verifies.items():
+            out[f"verify[{k}]"] = s
+        if self.adapters is None:
+            out["decode"] = self._decode_sentinel
+        else:
+            for r, s in self._decodes.items():
+                out[f"decode[r{r}]"] = s
+        return out
+
+    def compile_counts(self) -> Dict[str, int]:
+        """Per-sentinel counts keyed like :meth:`compile_sentinels`: the
+        JSON-able form that crosses a process boundary (the process
+        fleet's ``stats`` reply)."""
+        return {k: s.compile_count
+                for k, s in self.compile_sentinels().items()}
+
+    def assert_compile_count(self, prefill: int = 1, decode: int = 1,
+                             verify: Optional[int] = None):
+        """Raise RecompileError unless exactly ``decode`` decode
+        programs and ``prefill`` prefill programs IN TOTAL across the
+        buckets ran (each bucket is capped at one by its own sentinel at
+        call time). ``verify``: exact total across the verify buckets;
+        None accepts any total up to ``len(spec.buckets)``. With
+        adapters, ``decode`` is the exact total across the rank
+        buckets."""
+        if self.adapters is None:
+            self._decode_sentinel.assert_compile_count(decode)
+        else:
+            d_total = sum(s.compile_count
+                          for s in self._decodes.values())
+            if d_total != decode:
+                detail = ", ".join(
+                    f"r{r}: {s.compile_count}"
+                    for r, s in sorted(self._decodes.items()))
+                raise RecompileError(
+                    f"serve.decode: expected {decode} compiled "
+                    f"rank-bucket program(s) in total, observed "
+                    f"{d_total} ({detail})")
+        total = sum(s.compile_count for s in self._prefills.values())
+        if total != prefill:
+            detail = ", ".join(
+                f"bucket {b}: {s.compile_count}"
+                for b, s in sorted(self._prefills.items()))
+            raise RecompileError(
+                f"serve.prefill: expected {prefill} compiled bucket "
+                f"program(s) in total, observed {total} ({detail})")
+        v_total = sum(s.compile_count for s in self._verifies.values())
+        v_cap = verify if verify is not None else len(self._verifies)
+        if (verify is not None and v_total != verify) or v_total > v_cap:
+            detail = ", ".join(
+                f"bucket {k}: {s.compile_count}"
+                for k, s in sorted(self._verifies.items()))
+            raise RecompileError(
+                f"serve.verify: expected "
+                f"{verify if verify is not None else f'<= {v_cap}'} "
+                f"compiled bucket program(s) in total, observed "
+                f"{v_total} ({detail})")
 
     def _enqueue(self, req: Request) -> int:
         req.submit_time = self.clock()

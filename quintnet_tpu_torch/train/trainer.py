@@ -71,6 +71,7 @@ from typing import Callable, Dict, Iterable, List, Optional
 import numpy as np
 import torch
 
+from quintnet_tpu_torch.analysis.recompile import RecompileSentinel
 from quintnet_tpu_torch.core import runtime
 from quintnet_tpu_torch.core.config import Config
 from quintnet_tpu_torch.core.device import resolve_device
@@ -357,8 +358,31 @@ class Trainer:
         self.log = log_fn
         if not runtime.is_main_process():
             self.log = lambda msg: None     # one log per job: rank 0
-        self.step_fn = self.strategy.make_train_step(model, self.optimizer)
-        self._loss_fn, self._eval_fn = self.strategy.model_fns(model)
+        # recompile sentinels (analysis/recompile.py), observe-only as in
+        # JAX: a legitimate second program exists (a differently-shaped
+        # last batch), but each one is logged with its signature diff,
+        # so shape drift is named in the log instead of guessed from a
+        # slow step; in eager torch a program is one CUDA-graph capture.
+        # The callables hold no reference to the trainer, so it and its
+        # final state are freed by refcount, not by gc.
+        log = self.log
+
+        def on_recompile(name: str, count: int, diff: str) -> None:
+            log(f"{name}: program #{count} — {diff}")
+
+        self.step_fn = RecompileSentinel(
+            "train.step",
+            self.strategy.make_train_step(model, self.optimizer),
+            on_recompile=on_recompile)
+        self._loss_fn, eval_fn = self.strategy.model_fns(model)
+        if eval_fn is None:
+            loss_fn = self._loss_fn
+
+            def eval_fn(p, b):
+                return {"loss": loss_fn(p, b)}
+
+        self._eval_fn = RecompileSentinel("train.eval", eval_fn,
+                                          on_recompile=on_recompile)
         self._mgrs: Dict[str, object] = {}
         self._last_ckpt_step = None     # newest step written or restored
         # steps the restore fallback proved unreadable: replay re-reaches
@@ -540,6 +564,16 @@ class Trainer:
         for mgr in self._mgrs.values():
             mgr.wait_until_finished()
 
+    def assert_compile_count(self, steps: int = 1,
+                             evals: Optional[int] = None) -> None:
+        """Enforce the one-program promise after a run: the step (and
+        optionally eval) function ran with exactly N abstract
+        signatures. Raises RecompileError with a signature diff
+        otherwise."""
+        self.step_fn.assert_compile_count(steps)
+        if evals is not None:
+            self._eval_fn.assert_compile_count(evals)
+
     def device_batch(self, xb, yb):
         """A host ``(x, y)`` global batch -> this rank's block (its rows,
         and under sp its slice of the sequence: ``Strategy.shard_batch``
@@ -574,13 +608,10 @@ class Trainer:
         pipeline's (its micro-batches are ``gradient_accumulation_steps``
         slices of each rank's rows); clm adds perplexity. On a mesh each
         batch's metrics are averaged over the dp ranks' rows first."""
-        fn = self._eval_fn
         acc: Dict[str, list] = {}
         with torch.no_grad():
             for xb, yb in batches:
-                batch = self.device_batch(xb, yb)
-                mets = (fn(params, batch) if fn is not None
-                        else {"loss": self._loss_fn(params, batch)})
+                mets = self._eval_fn(params, self.device_batch(xb, yb))
                 for k, v in mets.items():
                     acc.setdefault(k, []).append(
                         self.strategy.mean_over_batch(v))

@@ -9,6 +9,7 @@ import dataclasses
 import os
 import types
 
+import numpy as np
 import pytest
 import torch
 
@@ -974,6 +975,7 @@ def test_serve_fleet_phase_on_cpu(monkeypatch, tiny_gpt2):
     """serve_fleet on a tiny GPT-2: both fleet runs' gates (the dense
     greedy and the single-engine sampled oracles, exactly the armed
     death, a migration, a crash dump read back, the exposition parsed),
+    the lock audit's cost from unaudited and audited runs alternated,
     the inertness census equal on and off, the deadline's typed retire
     with its blocks returned, and the K4 arithmetic the card holds to
     (the CPU launches nothing, so the per-thread count is empty here)."""
@@ -995,16 +997,100 @@ def test_serve_fleet_phase_on_cpu(monkeypatch, tiny_gpt2):
     assert greedy["tokens_checked_vs_dense"] == greedy["gen_tokens"]
     assert sampled["tokens_agreeing_with_one_engine"] == \
         sampled["tokens_compared"]
-    assert totals == {k: greedy["launches_by_path"][k]
-                      + sampled["launches_by_path"][k]
+    assert list(res["runs"]) == res["lock_audit_cost"]["order"]
+    assert totals == {k: sum(run["launches_by_path"][k]
+                             for run in res["runs"].values())
                       for k in ("decode", "prefill")}
     assert totals["decode"] > 0 and totals["prefill"] > 0
+    for arm in ("unaudited", "audited"):
+        cost = res["lock_audit_cost"][arm]
+        assert [len(r) for r in cost["step_ms_p50_by_run"]] == [4, 4]
+        assert 0 < cost["min_ms"] <= cost["median_ms"] <= cost["max_ms"]
     inert = res["inertness"]
     assert inert["spans"] > 0 and inert["host_aten_ops_per_step"] > 0
     dl = res["deadline"]
     assert dl["generated_before_deadline"] > 0
     assert dl["blocks_held_after"] == 0
     assert dl["resubmission_prefix_hit_tokens"] > 0
+
+
+def test_serve_fleet_audited_run_on_cpu(monkeypatch, tiny_gpt2, tmp_path):
+    """serve_fleet's lock-audited run on a tiny GPT-2: its streams equal
+    the unaudited greedy run's, no lock-order inversion and no hold over
+    the budget, one decode program a replica, the quintnet_lock_*
+    families in the exposition, each lock's ledger and each replica's
+    step p50 audited and unaudited reported, its K4 arithmetic added to
+    the phase's totals."""
+    _on_cpu(monkeypatch)
+    params, cfg = tiny_gpt2
+    prompts = chip_smoke._fleet_prompts(cfg)[:6]
+    monkeypatch.setattr(chip_smoke, "FLEET_REQUESTS", len(prompts))
+    fleet, _fids, greedy, launches, _wall = chip_smoke._fleet_run(
+        params, cfg, prompts, str(tmp_path / "greedy"), {})
+    chip_smoke._check_fleet_run(fleet, cfg, launches)
+    step_ms = chip_smoke._fleet_numbers(fleet, 1.0)["step_ms_p50"]
+    totals = {"decode": 0, "prefill": 0}
+    run = chip_smoke._audited_fleet_run(
+        params, cfg, prompts, str(tmp_path / "audited"), greedy, step_ms,
+        totals)
+    assert run["tokens_agreeing_with_unaudited_greedy"] == \
+        run["tokens_compared"] == len(prompts) * chip_smoke.FLEET_NEW
+    assert run["lock_order_violations"] == 0
+    assert run["locks"]["fleet._cv"]["acquisitions"] > 0
+    assert {"obs.events", "obs.tracer"} <= set(run["locks"])
+    assert all(v["max_hold_ms"] <= 1e3 * chip_smoke.LOCK_HOLD_BUDGET_S
+               for v in run["locks"].values())
+    assert run["replica_deaths"] == 1 and run["migrations"] >= 1
+    assert set(run["step_ms_p50_unaudited"]) == set(run["step_ms_p50"])
+    assert totals == run["launches_by_path"] and totals["decode"] > 0
+
+
+def test_decode_audit_on_cpu(monkeypatch, tiny_gpt2):
+    """serve's decode audit on a tiny GPT-2 on the CPU: the plain path
+    reads n_layer x {k, v} gathered views (on the card K4's reads none),
+    the pool is updated in place, the decode program timed with and
+    without its sentinel; and every serving engine's programs after the
+    serve script are the warmed engine's totals."""
+    _on_cpu(monkeypatch)
+    params, cfg = tiny_gpt2
+    eng, _ = chip_smoke._serve_engine(params, cfg)
+    chip_smoke._serve_script(eng, cfg)
+    counts = chip_smoke._programs(eng)
+    assert counts["decode"] == 1
+    assert sum(v for k, v in counts.items()
+               if k.startswith("prefill[")) == len(eng.prefill_buckets)
+    audit = chip_smoke._decode_audit(eng, params, cfg)
+    assert audit["gathered_view_gathers"] == {"cpu": 2 * cfg.n_layer,
+                                              "cpu_plain": 2 * cfg.n_layer}
+    assert audit["pool_updated_in_place"] and audit["in_place_bytes"] > 0
+    assert all(len(v) == 2 for v in audit["decode_program_ms"].values())
+    assert audit["signature_us_per_call"] > 0
+
+
+def test_first_moment_cost_counts_where_f32_differs(monkeypatch):
+    """train_bf16's first-moment comparison on small leaves on the CPU:
+    the trainer's f64 path against the f32 candidates, the elements where
+    they differ counted and the gap in ulps of the trainer's value; no
+    times off the card."""
+    _on_cpu(monkeypatch)
+    from quintnet_tpu_torch.train.trainer import first_moment
+
+    rng = np.random.default_rng(0)
+    grads = {("a",): torch.tensor(rng.standard_normal((64, 32)),
+                                  dtype=torch.float32),
+             ("b",): torch.tensor(rng.standard_normal(48) * 1e-3,
+                                  dtype=torch.float32)}
+    mu = {k: (0.1 * g).to(torch.bfloat16) for k, g in grads.items()}
+    out = chip_smoke._first_moment_cost(mu, grads, 0.9)
+    c = float(np.float32(1.0 - 0.9))
+    differ = sum(int((first_moment(mu[k], g, 0.9)
+                      != g * c + mu[k].float() * 0.8984375).sum())
+                 for k, g in grads.items())
+    assert out["elements"] == 64 * 32 + 48
+    assert out["f32"]["elements_differing"] == differ > 0
+    assert 0 < out["f32"]["max_diff_ulps"] <= 2
+    assert out["f32_add_alpha"]["max_diff_ulps"] <= 2
+    assert "f64_ms" not in out and "ms" not in out["f32"]
 
 
 def test_serve_fleet_deaths_other_than_the_armed_one_fail(monkeypatch,

@@ -324,8 +324,7 @@ def test_fleet_parity_and_graceful_drain(params, rng):
         finally:
             jfleet.close()
         assert set(s) == set(js)
-        assert set(s["replicas"]["r0"]) == \
-            set(js["replicas"]["r0"]) - {"compile_stats"}
+        assert set(s["replicas"]["r0"]) == set(js["replicas"]["r0"])
     finally:
         fleet.drain(timeout=60)
     with pytest.raises(Overloaded) as ei:

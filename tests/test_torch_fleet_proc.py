@@ -149,8 +149,14 @@ def test_two_process_spawn_smoke(weights, rng):
             assert s["k4"] == {"launches": 0, "by_path": {},
                                "by_variant": {}}, name
             assert s["decode_steps"] == s["metrics"]["decode_steps"]
-        with pytest.raises(NotImplementedError, match="item 9"):
-            fleet.assert_compile_count()
+        # the children's recompile sentinels, over the wire: one decode
+        # program, at most one program per prefill bucket
+        fleet.assert_compile_count()
+        for name, s in stats.items():
+            if s["admitted"]:
+                assert s["compile"]["decode"] == 1, (name, s["compile"])
+                assert 1 <= sum(n for k, n in s["compile"].items()
+                                if k.startswith("prefill[")) <= 3
         h = fleet.health()
         assert all(r["state"] == HEALTHY for r in h["replicas"].values())
         assert fleet.summary()["tokens_delivered"] == 32
@@ -183,9 +189,39 @@ def test_two_process_spawn_smoke(weights, rng):
     print(f"two-process smoke wall {time.monotonic() - t0:.1f} s")
 
 
-def test_lock_audit_refused_before_any_spawn(weights):
-    with pytest.raises(NotImplementedError, match="item 9"):
-        _fleet(weights, n_replicas=1, lock_audit=True)
+def test_lock_audit_process_fleet_serves_audited(weights, rng):
+    """``lock_audit=True``: the parent's condition and the replica's
+    ring and send locks are instrumented locks of one order graph; the
+    greedy streams equal JAX's engine, no inversion is seen, and the
+    ledgers count the parent's acquisitions."""
+    jp, _tp, _path = weights
+    fleet = _fleet(weights, dict(temperature=0.0, top_k=0), n_replicas=1,
+                   lock_audit=True)
+    try:
+        prompts = _prompts(rng, (5, 3))
+        outs = fleet.generate(prompts, max_new_tokens=6, timeout=300)
+        for o, want in zip(outs, _jax_greedy_engine(jp, prompts, 6)):
+            np.testing.assert_array_equal(o, want)
+        fleet.assert_compile_count()
+        s = fleet.lock_audit.summary()
+        assert s["order_violations"] == 0
+        assert s["locks"]["fleet._cv"]["acquisitions"] > 0
+        assert s["locks"]["proc.p0._send_lock"]["acquisitions"] > 0
+        assert "proc.p0._ring_lock" in s["locks"]
+        # the front door's /metrics renders the audit's ledgers
+        from quintnet_tpu_torch.obs import parse_exposition
+
+        with FrontDoor(fleet) as fd:
+            conn = http.client.HTTPConnection(fd.host, fd.port, timeout=60)
+            conn.request("GET", "/metrics")
+            r = conn.getresponse()
+            assert r.status == 200
+            parsed = parse_exposition(r.read().decode())
+        assert parsed[("quintnet_lock_acquisitions_total",
+                       (("lock", "fleet._cv"),))] > 0
+        assert parsed[("quintnet_lock_order_violations_total", ())] == 0
+    finally:
+        fleet.drain(timeout=120)
 
 
 def test_cuda_asked_for_without_a_card_fails_at_spawn(weights):
